@@ -12,7 +12,10 @@ through the paged-prefill kernel, fused K-step decode windows through the
 paged-decode kernel with their token copies lagging `WINDOW_PIPELINE_DEPTH`
 windows behind (device→host on a side stream into pinned memory), the
 fused greedy single step, the single step with logprobs, and
-recompute-preemption.
+recompute-preemption.  MoE models run every step's expert FFN in the
+resolved `moe_mode` (the grouped-expert kernel on a card) and accumulate
+the steps' [E+1] expert load on the device; `snapshot_expert_load()`
+reads it on demand, so the load costs no host sync per step.
 
 Padding discipline as in JAX: block tables are sliced to the batch's page
 bucket, unallocated entries are the null block 0, and pad writes target
@@ -20,7 +23,8 @@ position `max_pages * block_size`, which indexes past every table width
 and resolves to the null block.
 
 Not ported yet: the prefix cache and KV events, speculative decode,
-meshes, multimodal prefill and embeddings.
+meshes (and with them MoE all-to-all dispatch), multimodal prefill and
+embeddings.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from dynamo_tpu_torch.models.llama import (
 )
 from dynamo_tpu_torch.models.weights import init_params
 from dynamo_tpu_torch.ops.cuda import PACK_ALIGN
+from dynamo_tpu_torch.ops.moe import resolve_moe_mode
 
 logger = logging.getLogger(__name__)
 
@@ -96,6 +101,9 @@ class EngineConfig:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     seed: int = 0
     device: str = "cuda"
+    # MoE compute (ops/moe.resolve_moe_mode): "auto" takes the grouped
+    # kernel on a card when the expert geometry passes, else "dense".
+    moe_mode: str = "auto"
 
 
 @dataclass
@@ -108,6 +116,9 @@ class EngineCounters:
     prefill_dispatches: int = 0
     host_syncs: int = 0
     h2d_uploads: int = 0
+    # Token rows the model ran, padding rows included: each is routed to
+    # k experts in every MoE layer.
+    model_rows: int = 0
 
     def as_dict(self) -> Dict[str, int]:
         return dict(self.__dict__)
@@ -159,9 +170,21 @@ class EngineCore:
             params = init_params(cfg, gen, self.device)
         self.params = params
         self.cache = kvc.init_cache(self.cache_cfg, self.device)
-        self._step = make_forward_step(cfg, self.block_size,
-                                       use_decode_kernel=True)
-        self._packed_step = make_packed_prefill_step(cfg, self.block_size)
+        self._moe = cfg.is_moe
+        self.moe_mode = resolve_moe_mode(cfg, self.device, config.moe_mode)
+        self._step = make_forward_step(
+            cfg, self.block_size, use_decode_kernel=True,
+            moe_mode=self.moe_mode, with_expert_load=self._moe)
+        self._packed_step = make_packed_prefill_step(
+            cfg, self.block_size, moe_mode=self.moe_mode)
+        # MoE expert load: the steps' [E+1] stats summed on the device,
+        # folded into the host totals by snapshot_expert_load (the HTTP
+        # thread may call it while the engine thread steps).
+        self._load_dev: Optional[torch.Tensor] = None
+        self._load_lock = threading.Lock()
+        self.expert_load = (np.zeros((cfg.num_experts,), np.int64)
+                            if self._moe else None)
+        self.moe_dropped_tokens = 0
         self._window_fns: Dict[bool, object] = {}
         self._window_state: Optional[Dict] = None
         self._inflight: List[Dict] = []
@@ -411,10 +434,11 @@ class EngineCore:
             bts[i, :n] = req.pages[:n]
             off += -(-L // PACK_ALIGN) * PACK_ALIGN
         self.counters.prefill_dispatches += 1
-        logits, self.cache = self._packed_step(
+        self.counters.model_rows += T
+        logits, self.cache = self._take_load(self._packed_step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seg_ids), self._dev(bts), self._dev(q_starts),
-            self._dev(q_lens), self._dev(seq_lens), self._dev(sample_pos))
+            self._dev(q_lens), self._dev(seq_lens), self._dev(sample_pos)))
         return self._finish_prefill_items(items, logits, async_first)
 
     def _finish_prefill_items(self, items, logits,
@@ -476,10 +500,11 @@ class EngineCore:
         if not live:
             return []
         self.counters.single_step_dispatches += 1
+        self.counters.model_rows += bucket
         zeros = torch.zeros((bucket,), dtype=torch.int32, device=self.device)
-        logits, self.cache = self._step(
+        logits, self.cache = self._take_load(self._step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
-            self._dev(seq_lens), self._dev(bts), zeros)
+            self._dev(seq_lens), self._dev(bts), zeros))
         if (all(r.sampling.temperature <= 0 for r in live)
                 and not any(r.sampling.logprobs for r in live)):
             # Fused greedy step: argmax on the device, one [bucket] copy.
@@ -500,7 +525,8 @@ class EngineCore:
         if fn is None:
             fn = self._window_fns[greedy_only] = make_decode_window(
                 self.config.model, self.block_size, DECODE_WINDOW,
-                use_decode_kernel=True, greedy_only=greedy_only)
+                use_decode_kernel=True, greedy_only=greedy_only,
+                moe_mode=self.moe_mode, with_expert_load=self._moe)
         return fn
 
     def _dispatch_window(self, work: DecodeWork) -> Optional[List[TokenDelta]]:
@@ -548,6 +574,7 @@ class EngineCore:
             self.counters.h2d_uploads += 1
         self._window_state = st
         self.counters.window_dispatches += 1
+        self.counters.model_rows += bucket * K
 
         if lag:
             last_tokens = self._inflight[-1]["out"][K - 1]  # on device
@@ -558,10 +585,11 @@ class EngineCore:
                            else req.prompt_tokens[-1])
             last_tokens = self._dev(toks)
 
-        (self.cache, out, st["pos"], st["seq"], st["off"]) = self._window_fn(
-            greedy_only)(self.params, self.cache, last_tokens, st["pos"],
-                         st["seq"], st["bts"], st["temp"], st["topk"],
-                         st["topp"], st["seeds"], st["off"])
+        (self.cache, out, st["pos"], st["seq"], st["off"]) = self._take_load(
+            self._window_fn(greedy_only)(
+                self.params, self.cache, last_tokens, st["pos"], st["seq"],
+                st["bts"], st["temp"], st["topk"], st["topp"], st["seeds"],
+                st["off"]))
         st["pos_host"][rows] += K
         self._inflight.append({
             "rids": [r.request_id for r in reqs],
@@ -643,6 +671,44 @@ class EngineCore:
         while self._inflight:
             deltas.extend(self._sync_one_window())
         return deltas
+
+    # -- MoE expert load ----------------------------------------------------
+
+    def _take_load(self, out: tuple) -> tuple:
+        """A step's outputs without the MoE [E+1] stats, which join the
+        device-side sum (no host sync; int64, since nothing bounds the
+        steps between two snapshots)."""
+        if not self._moe:
+            return out
+        load = out[-1].long()
+        with self._load_lock:
+            self._load_dev = (load if self._load_dev is None
+                              else self._load_dev + load)
+        return out[:-1]
+
+    def snapshot_expert_load(self) -> Optional[np.ndarray]:
+        """Cumulative per-expert assignment counts (None for dense
+        models).  Syncs the device stats sum once per call, splitting it
+        into the per-expert load and `moe_dropped_tokens`."""
+        if not self._moe:
+            return None
+        with self._load_lock:
+            if self._load_dev is not None:
+                self.counters.host_syncs += 1
+                stats = self._load_dev.cpu().numpy().astype(np.int64)
+                self.expert_load += stats[:-1]
+                self.moe_dropped_tokens += int(stats[-1])
+                self._load_dev = None
+            return self.expert_load.copy()
+
+    def reset_expert_load(self) -> None:
+        """Start the expert-load totals again from zero (the device sum
+        is dropped unread: no host sync)."""
+        if self._moe:
+            with self._load_lock:
+                self._load_dev = None
+                self.expert_load[:] = 0
+                self.moe_dropped_tokens = 0
 
     # -- shared tails -------------------------------------------------------
 

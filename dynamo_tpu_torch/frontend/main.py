@@ -4,6 +4,8 @@ mode).
 
     python -m dynamo_tpu_torch.frontend --model llama-3-1b --model-name m \\
         --http-port 8080 [--device cpu] [--num-blocks N --block-size 64]
+    python -m dynamo_tpu_torch.frontend --model mixtral-8x7b --num-layers 16 \\
+        [--moe-mode auto|dense|grouped]
 
 Runs on the card unless `--device cpu` is given; random weights from
 seed 0 (`EngineConfig.seed`); the byte tokenizer.
@@ -45,16 +47,41 @@ def parse_args(argv=None):
                    help="torch device; cuda unless cpu is asked for")
     p.add_argument("--num-blocks", type=int, default=512)
     p.add_argument("--block-size", type=int, default=64)
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="keep the first N decoder layers of the preset "
+                        "(default: all).  For a model that one card cannot "
+                        "hold whole, e.g. mixtral-8x7b (94 GB of bf16 "
+                        "weights at 32 layers); a checkpoint's "
+                        "num_hidden_layers plays this part for the JAX "
+                        "worker")
+    p.add_argument("--moe-mode", default="auto",
+                   choices=("auto", "dense", "grouped"),
+                   help="MoE expert compute: grouped = the CUDA grouped-"
+                        "expert kernel, dense = every expert over every "
+                        "token (the exact oracle); auto = grouped on a "
+                        "card when the expert geometry allows it")
     return p.parse_args(argv)
+
+
+def model_config(args):
+    """The preset, cut to `--num-layers` when given."""
+    cfg = get_config(args.model)
+    n = args.num_layers
+    if n is None:
+        return cfg
+    if not 1 <= n <= cfg.num_layers:
+        raise ValueError(f"--num-layers {n} outside 1..{cfg.num_layers} "
+                         f"for {cfg.name}")
+    return cfg.replace(num_layers=n)
 
 
 async def build_model_handle(args):
     """Returns (handle, engine core, shutdown coroutine)."""
-    cfg = get_config(args.model)
+    cfg = model_config(args)
     sched = SchedulerConfig(block_size=args.block_size)
     core = EngineCore(EngineConfig(
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
-        device=args.device))
+        device=args.device, moe_mode=args.moe_mode))
     engine = InferenceEngine(core)
     await engine.start()
     tokenizer = ByteTokenizer()
@@ -67,22 +94,37 @@ async def build_model_handle(args):
     return handle, core, engine.stop
 
 
+def stats_hooks(core: EngineCore):
+    """The `/debug/stats` reply and the `/debug/stats/reset` action over
+    one engine."""
+
+    def stats() -> dict:
+        load = core.snapshot_expert_load()
+        return {"device": str(core.device),
+                "kernels": kernels.launch_counts(),
+                "counters": core.counters.as_dict(),
+                "moe_mode": core.moe_mode,
+                # [E+1]: per-expert assignments, then the dropped ones.
+                "expert_load": (None if load is None else
+                                [int(x) for x in load]
+                                + [core.moe_dropped_tokens])}
+
+    def reset_stats() -> None:
+        # Launch counts, engine counters and the expert load start one
+        # window together, so launches per dispatch can be read off one
+        # /debug/stats reply.
+        kernels.reset_launch_counts()
+        core.reset_expert_load()
+        core.counters = EngineCounters()
+
+    return stats, reset_stats
+
+
 async def run(args) -> None:
     handle, core, shutdown = await build_model_handle(args)
     models = ModelManager()
     models.register(handle)
-
-    def stats() -> dict:
-        return {"device": str(core.device),
-                "kernels": kernels.launch_counts(),
-                "counters": core.counters.as_dict()}
-
-    def reset_stats() -> None:
-        # Launch counts and engine counters start one window together, so
-        # launches per dispatch can be read off one /debug/stats reply.
-        kernels.reset_launch_counts()
-        core.counters = EngineCounters()
-
+    stats, reset_stats = stats_hooks(core)
     svc = HttpService(models, stats=stats, reset_stats=reset_stats)
     stop_ev = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -90,8 +132,10 @@ async def run(args) -> None:
         loop.add_signal_handler(sig, stop_ev.set)
     try:
         port = await svc.start(args.http_host, args.http_port)
+        cfg = core.config.model
         print(f"dynamo_tpu_torch frontend serving {handle.name!r} "
-              f"({args.model} on {core.device}) on "
+              f"({args.model}, {cfg.num_layers} layers, moe_mode "
+              f"{core.moe_mode}, on {core.device}) on "
               f"http://{args.http_host}:{port}", flush=True)
         await stop_ev.wait()
     finally:

@@ -1,4 +1,4 @@
-"""Llama-family decoder, dense and meshless, in PyTorch (port of
+"""Llama-family decoder (dense or MoE), meshless, in PyTorch (port of
 `dynamo_tpu/models/llama.py`).
 
 Forward contract (unified prefill/decode, as in the JAX package):
@@ -14,19 +14,25 @@ Forward contract (unified prefill/decode, as in the JAX package):
   mask.  At T == 1 with `use_decode_kernel` attention goes through the
   paged-decode kernel (ops/cuda/paged_attention.py); otherwise through
   the gather path (kv_cache.gather_kv + ops/attention.paged_attention).
+- MoE layers run `moe_mode` "dense" (the exact oracle) or "grouped" (the
+  grouped-expert kernel, ops/cuda/moe_grouped.py) and give an [E+1]
+  expert-load stats vector each; `with_expert_load` (and the packed
+  prefill step of a MoE model) returns their sum over the layers as a
+  third output, as in the JAX package.
 
 Matrix products stay `torch.matmul`, as the JAX package left them to XLA.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops import moe as moe_ops
 from dynamo_tpu_torch.ops.attention import paged_attention
 from dynamo_tpu_torch.ops.cuda import paged_decode_attention, paged_prefill_attention
 
@@ -127,20 +133,44 @@ def _embed(cfg: ModelConfig, state: State, tokens: torch.Tensor) -> torch.Tensor
     return x
 
 
+def _moe_block(cfg: ModelConfig, p: State, x: torch.Tensor,
+               moe_mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MoE layer, meshless → (out, stats [E+1]): "grouped" runs the
+    grouped-expert kernel over expert-sorted assignments, anything else
+    the exact dense oracle."""
+    if moe_mode == "grouped":
+        return moe_ops.moe_grouped(cfg, p, x)
+    return moe_ops.moe_dense(cfg, p, x)
+
+
 def _layer_tail(cfg: ModelConfig, layer: State, x: torch.Tensor,
-                attn_out: torch.Tensor) -> torch.Tensor:
-    """Residual add of the attention output, then the MLP sub-block."""
+                attn_out: torch.Tensor, moe_mode: str,
+                loads: List[torch.Tensor]) -> torch.Tensor:
+    """Residual add of the attention output, then the MLP or MoE
+    sub-block; a MoE layer appends its [E+1] stats to `loads`."""
     off = cfg.rms_offset
     if cfg.post_norms:
         attn_out = rms_norm(attn_out, layer["post_attn_norm"],
                             cfg.rms_norm_eps, off)
     x = x + attn_out
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps, off)
+    if cfg.is_moe:
+        moe_out, load = _moe_block(cfg, layer["moe"], h, moe_mode)
+        loads.append(load)
+        return x + moe_out
     mlp_out = _dense_mlp(layer["mlp"], h, cfg.activation)
     if cfg.post_norms:
         mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"],
                            cfg.rms_norm_eps, off)
     return x + mlp_out
+
+
+def _expert_load(loads: List[torch.Tensor],
+                 device: torch.device) -> torch.Tensor:
+    """Sum of the layers' [E+1] stats ([1] zeros for a dense model)."""
+    if not loads:
+        return torch.zeros((1,), dtype=torch.int32, device=device)
+    return torch.stack(loads).sum(0, dtype=torch.int32)
 
 
 def _lm_head(cfg: ModelConfig, state: State, x: torch.Tensor) -> torch.Tensor:
@@ -153,29 +183,25 @@ def _lm_head(cfg: ModelConfig, state: State, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    cfg.validate()
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Forward
 
 
 def make_forward_step(cfg: ModelConfig, block_size: int,
-                      use_decode_kernel: bool = False):
+                      use_decode_kernel: bool = False,
+                      moe_mode: str = "dense",
+                      with_expert_load: bool = False):
     """The unified prefill/decode step for one cache geometry.  With
     `use_decode_kernel`, T == 1 calls attend through the paged-decode
     kernel (its plain version for CPU tensors); everything else takes the
-    gather path."""
-    _check_dense(cfg)
+    gather path.  `with_expert_load` makes the step return (logits, cache,
+    stats [E+1]) — the MoE layers' summed expert load."""
+    cfg.validate()
 
     def step(state: State, cache: Dict, tokens: torch.Tensor,
              positions: torch.Tensor, seq_lens: torch.Tensor,
              block_tables: torch.Tensor,
-             sample_positions: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, Dict]:
+             sample_positions: Optional[torch.Tensor] = None):
         B, T = tokens.shape
         P = block_tables.shape[1]
         block_tables = block_tables.to(torch.int32)
@@ -192,17 +218,21 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
         x = _embed(cfg, state, tokens)
         rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         off = cfg.rms_offset
+        loads: List[torch.Tensor] = []
         for i, layer in enumerate(state["layers"]):
             attn_out = _attention_block(
                 cfg, layer["attn"],
                 rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off),
                 positions, rot, seq_lens, write_slots, ctx_slots, ctx_positions,
                 block_tables, block_size, cache["k"][i], cache["v"][i])
-            x = _layer_tail(cfg, layer, x, attn_out)
+            x = _layer_tail(cfg, layer, x, attn_out, moe_mode, loads)
         x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
         if sample_positions is not None:
             x = x[torch.arange(B, device=x.device), sample_positions.long()]
-        return _lm_head(cfg, state, x), cache
+        logits = _lm_head(cfg, state, x)
+        if with_expert_load:
+            return logits, cache, _expert_load(loads, x.device)
+        return logits, cache
 
     return step
 
@@ -211,7 +241,8 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
 # Packed ragged prefill
 
 
-def make_packed_prefill_step(cfg: ModelConfig, block_size: int):
+def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
+                             moe_mode: str = "dense"):
     """Packed ragged prefill: several sequences' chunks ride one flat [T]
     token axis ("segments") and attention runs through the paged-prefill
     kernel straight from the block pool.
@@ -221,8 +252,9 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int):
                              q_lens[R], seq_lens[R], sample_positions[R])
 
     Pad rows carry the engine's pad position (null-block writes); logits
-    come back [R, V], one row per segment (pad segments give junk rows)."""
-    _check_dense(cfg)
+    come back [R, V], one row per segment (pad segments give junk rows).
+    A MoE model's step returns a third output, the [E+1] expert load."""
+    cfg.validate()
 
     def step(state, cache, tokens, positions, seg_ids, block_tables,
              q_starts, q_lens, seq_lens, sample_positions):
@@ -236,6 +268,7 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int):
         off = cfg.rms_offset
         args = (block_tables, seq_lens.to(torch.int32),
                 q_starts.to(torch.int32), q_lens.to(torch.int32))
+        loads: List[torch.Tensor] = []
         for i, layer in enumerate(state["layers"]):
             p_attn = layer["attn"]
             h_in = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off)
@@ -253,10 +286,13 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int):
                 block_size=block_size, scale=cfg.query_scale,
                 soft_cap=cfg.attn_soft_cap)
             attn = attn.reshape(1, T, cfg.q_size) @ p_attn["wo"]
-            x = _layer_tail(cfg, layer, x, attn)
+            x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
         x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
         sel = x[0][sample_positions.long()]                       # [R, H]
-        return _lm_head(cfg, state, sel), cache
+        logits = _lm_head(cfg, state, sel)
+        if cfg.is_moe:
+            return logits, cache, _expert_load(loads, x.device)
+        return logits, cache
 
     return step
 
@@ -267,7 +303,9 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int):
 
 def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
                        use_decode_kernel: bool = False,
-                       greedy_only: bool = False):
+                       greedy_only: bool = False,
+                       moe_mode: str = "dense",
+                       with_expert_load: bool = False):
     """K decode steps per call with the sampled token fed back on the
     device (a Python loop in place of JAX's `fori_loop`; no host sync
     inside).
@@ -280,10 +318,12 @@ def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
     `seeds` / `key_offsets` are host sequences: row b's draw at window step
     i is keyed by (seeds[b], key_offsets[b] + i) (see sampling.sample);
     greedy rows carry seed None.  Pad rows (seq_lens0 == 0) stay dead: their
-    positions and lengths do not advance."""
+    positions and lengths do not advance.  `with_expert_load` appends the
+    window's summed [E+1] expert load to the returned tuple."""
     from dynamo_tpu_torch.engine.sampling import sample
 
-    step = make_forward_step(cfg, block_size, use_decode_kernel)
+    step = make_forward_step(cfg, block_size, use_decode_kernel, moe_mode,
+                             with_expert_load)
 
     def run(state, cache, last_tokens, positions0, seq_lens0, block_tables,
             temp, top_k, top_p, seeds: Sequence, key_offsets: Sequence):
@@ -293,11 +333,14 @@ def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
         live = seq_lens0 > 0
         out = torch.empty((window, B), dtype=torch.int32, device=dev)
         toks = last_tokens
+        loads: List[torch.Tensor] = []
         for i in range(window):
             adv = live.to(positions0.dtype) * i
-            logits, cache = step(state, cache, toks[:, None],
-                                 (positions0 + adv)[:, None], seq_lens0 + adv,
-                                 block_tables, zero_pos)
+            res = step(state, cache, toks[:, None],
+                       (positions0 + adv)[:, None], seq_lens0 + adv,
+                       block_tables, zero_pos)
+            logits, cache = res[:2]
+            loads.extend(res[2:])
             if greedy_only:
                 toks = torch.argmax(logits, dim=-1).to(torch.int32)
             else:
@@ -305,7 +348,10 @@ def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
                               [o + i for o in key_offsets])
             out[i] = toks
         adv = live.to(positions0.dtype) * window
-        return (cache, out, positions0 + adv, seq_lens0 + adv,
+        base = (cache, out, positions0 + adv, seq_lens0 + adv,
                 [o + window for o in key_offsets])
+        if with_expert_load:
+            return base + (_expert_load(loads, dev),)
+        return base
 
     return run

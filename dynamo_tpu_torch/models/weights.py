@@ -4,9 +4,12 @@ package's parameter pytree.
 The state is a plain nested dict with the same names and shapes as
 `dynamo_tpu.models.llama.init_params` builds — `embed [V, H]`,
 `final_norm [H]`, `layers[i]["attn"]["wq" | "wk" | "wv" | "wo"]`,
-`layers[i]["mlp"]["w_gate" | "w_up" | "w_down"]`, the norm vectors, and
-`lm_head [H, V]` when embeddings are untied — so a weight crosses over by
-name with no transposes.  Matrices are `[in, out]` (`x @ w`).
+`layers[i]["mlp"]["w_gate" | "w_up" | "w_down"]` (or, for MoE models,
+`layers[i]["moe"]["router" [H, E] | "w_gate" [E, H, F] | "w_up" [E, H, F] |
+"w_down" [E, F, H]]`, plus f32 `*_scale` siblings when the experts are
+int8), the norm vectors, and `lm_head [H, V]` when embeddings are untied —
+so a weight crosses over by name with no transposes.  Matrices are
+`[in, out]` (`x @ w`).
 """
 
 from __future__ import annotations
@@ -29,16 +32,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     torch's, not JAX's: parity tests carry JAX weights across with
     `from_jax_params` instead."""
     cfg.validate()
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not ported yet")
     dtype = cfg.dtype
     device = torch.device(device)
     h = cfg.hidden_size
 
     def dense(fan_in, *shape):
+        # One tensor at a time in f32, scaled in place: the f32 peak is one
+        # tensor (1.9 GB for a Mixtral-8x7B expert stack).
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * fan_in ** -0.5).to(dtype)
+        return w.mul_(fan_in ** -0.5).to(dtype)
 
     def ones(n):
         return torch.ones((n,), device=device, dtype=dtype)
@@ -54,13 +57,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             },
             "attn_norm": ones(h),
             "mlp_norm": ones(h),
-            "mlp": {
-                "w_gate": dense(h, h, cfg.intermediate_size),
-                "w_up": dense(h, h, cfg.intermediate_size),
-                "w_down": dense(cfg.intermediate_size,
-                                cfg.intermediate_size, h),
-            },
         }
+        f = cfg.intermediate_size
+        if cfg.is_moe:
+            e = cfg.num_experts
+            layer["moe"] = {
+                "router": dense(h, h, e),
+                "w_gate": dense(h, e, h, f),
+                "w_up": dense(h, e, h, f),
+                "w_down": dense(f, e, f, h),
+            }
+        else:
+            layer["mlp"] = {
+                "w_gate": dense(h, h, f),
+                "w_up": dense(h, h, f),
+                "w_down": dense(f, f, h),
+            }
         if cfg.post_norms:
             layer["post_attn_norm"] = ones(h)
             layer["post_mlp_norm"] = ones(h)

@@ -5,8 +5,18 @@ with its wrapper, its plain PyTorch version and a launch count.
 |--------------------------------------------|-------------------------------|
 | paged_attention.py:paged_decode_attention  | paged_attention.py, paged_decode.cu  |
 | paged_prefill.py:paged_prefill_attention   | paged_prefill.py, paged_prefill.cu   |
+| moe_grouped.py:grouped_expert_ffn          | moe_grouped.py, moe_grouped.cu       |
 """
 
+from dynamo_tpu_torch.ops.cuda.moe_grouped import (
+    DEFAULT_BLOCK_ROWS,
+    dequantize_moe_params,
+    grouped_expert_ffn,
+    grouped_expert_ffn_plain,
+    moe_grouped_geometry_ok,
+    moe_params_quantized,
+    quantize_moe_params,
+)
 from dynamo_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -20,6 +30,7 @@ from dynamo_tpu_torch.ops.cuda.paged_prefill import (
 KERNELS = {
     "paged_decode_attention": paged_decode_attention,
     "paged_prefill_attention": paged_prefill_attention,
+    "moe_grouped": grouped_expert_ffn,
 }
 
 
@@ -34,7 +45,10 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "PACK_ALIGN", "launch_counts", "paged_decode_attention",
-    "paged_decode_attention_plain", "paged_prefill_attention",
-    "paged_prefill_attention_plain", "reset_launch_counts",
+    "DEFAULT_BLOCK_ROWS", "KERNELS", "PACK_ALIGN", "dequantize_moe_params",
+    "grouped_expert_ffn", "grouped_expert_ffn_plain", "launch_counts",
+    "moe_grouped_geometry_ok", "moe_params_quantized",
+    "paged_decode_attention", "paged_decode_attention_plain",
+    "paged_prefill_attention", "paged_prefill_attention_plain",
+    "quantize_moe_params", "reset_launch_counts",
 ]

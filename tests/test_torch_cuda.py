@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and engine on the card.
+"""The port's CUDA kernels (paged decode and prefill attention, the
+grouped MoE expert FFN in bf16 and int8) and engine on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The suite's
 conftest imports JAX, which the GPU machine does not have, so run this
@@ -21,11 +22,15 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.ops.cuda import (
+    grouped_expert_ffn,
+    grouped_expert_ffn_plain,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_prefill_attention,
     paged_prefill_attention_plain,
+    quantize_moe_params,
 )
+from dynamo_tpu_torch.ops.moe import expert_tiles
 
 pytestmark = pytest.mark.cuda
 ABS_TOL = 3e-2
@@ -61,7 +66,7 @@ def _rand(gen, *shape, dev):
 
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (16, 16, 128, 32, None),
-    (8, 2, 32, 8, None), (32, 4, 128, 64, None)])
+    (8, 2, 32, 8, None), (32, 4, 128, 64, None), (32, 8, 128, 64, None)])
 def test_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     gen = torch.Generator(device=dev).manual_seed(0)
     B, P = 9, 6
@@ -87,7 +92,7 @@ def test_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
 
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 8, 128, 32, None),
-    (8, 2, 32, 8, None)])
+    (8, 2, 32, 8, None), (32, 8, 128, 64, None)])
 def test_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     gen = torch.Generator(device=dev).manual_seed(1)
     R, P = 6, 16  # P * bs covers the longest context at every bs
@@ -117,6 +122,40 @@ def test_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     assert out[212:].abs().max().item() == 0       # tail rows
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_moe_grouped_kernel_matches_plain(dev, int8):
+    """Ragged tiles: 45 tokens x top-2 over 5 experts, one expert with no
+    rows, tiles past the last span dead; H 128, F 192."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    E, H, F, N, k = 5, 128, 192, 45, 2
+    probs = torch.tensor([0.5, 0.3, 0.0, 0.15, 0.05], device=dev)
+    ids = torch.stack([torch.multinomial(probs, k, generator=gen)
+                       for _ in range(N)])
+    order, dest, S_pad, te, tr, counts = expert_tiles(ids.reshape(-1), E, 64)
+    assert int(counts[2]) == 0 and int((tr == 0).sum()) > 0
+    x = _rand(gen, N * k, H, dev=dev)
+    x_pad = torch.zeros(S_pad, H, dtype=torch.bfloat16, device=dev)
+    x_pad[dest] = x[order]
+    p = {"router": None,
+         "w_gate": _rand(gen, E, H, F, dev=dev) * H ** -0.5,
+         "w_up": _rand(gen, E, H, F, dev=dev) * H ** -0.5,
+         "w_down": _rand(gen, E, F, H, dev=dev) * F ** -0.5}
+    if int8:
+        p = quantize_moe_params(p)
+    scales = {n: p.get(n) for n in ("w_gate_scale", "w_up_scale",
+                                    "w_down_scale")}
+    args = (x_pad, te, p["w_gate"], p["w_up"], p["w_down"])
+    before = grouped_expert_ffn.launches
+    out = grouped_expert_ffn(*args, tile_rows=tr, **scales)
+    ref = grouped_expert_ffn_plain(*args, tile_rows=tr, **scales)
+    torch.cuda.synchronize()
+    assert grouped_expert_ffn.launches == before + 1
+    live = torch.zeros(S_pad, dtype=torch.bool, device=dev)
+    live[dest] = True
+    assert out[~live].abs().max().item() == 0   # padding rows, dead tiles
+    _assert_close(out, ref)
+
+
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
     q = torch.zeros(2, 8, 64, device=dev)                     # f32
     kc = torch.zeros(64, 128, dtype=torch.bfloat16, device=dev)
@@ -133,6 +172,11 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         paged_prefill_attention(torch.zeros(12, 8, 64, dtype=torch.bfloat16,
                                             device=dev), kc, kc, bt, sl, sl,
                                 sl, block_size=64)
+    w = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device=dev)
+    x = torch.zeros(64, 64, dtype=torch.bfloat16, device=dev)
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        grouped_expert_ffn(x, te, w, w, w.transpose(1, 2).contiguous())
 
 
 def test_engine_serves_greedy_through_both_kernels(dev):
@@ -163,3 +207,48 @@ def test_engine_serves_greedy_through_both_kernels(dev):
     assert paged_decode_attention.launches > d0
     assert paged_prefill_attention.launches > p0
     assert core.counters.window_dispatches > 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_engine_serves_moe_through_the_grouped_kernel(dev, int8):
+    """tiny-moe in bf16 (H 64, F 128 pass the kernel's rule): `auto`
+    resolves to the grouped kernel, with bf16 experts or quantized ones
+    given through `EngineCore(params=...)` (the kernel's int8 variant);
+    every request finishes, and the expert load counts k assignments per
+    model row per layer, none dropped."""
+    from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+
+    cfg = get_config("tiny-moe").replace(head_dim=32, dtype=torch.bfloat16)
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if int8:
+        state = {**state, "layers": [
+            {**layer, "moe": quantize_moe_params(layer["moe"])}
+            for layer in state["layers"]]}
+    core = EngineCore(EngineConfig(
+        model=cfg, num_blocks=64, device="cuda",
+        scheduler=SchedulerConfig(max_seqs=8, block_size=8,
+                                  max_pages_per_seq=16, max_prefill_chunk=32,
+                                  decode_buckets=(1, 2, 4, 8),
+                                  prefill_buckets=(8, 16, 32))),
+        params=state)
+    assert core.moe_mode == "grouped"
+    m0 = grouped_expert_ffn.launches
+    for i, n in enumerate((5, 40, 17)):
+        core.add_request(f"r{i}", list(range(1, n + 1)),
+                         SamplingParams(max_tokens=20))
+    out = {}
+    for _ in range(500):
+        for d in core.step():
+            out.setdefault(d.request_id, []).extend(d.token_ids)
+        if not core.has_work:
+            break
+    assert all(len(out[f"r{i}"]) == 20 for i in range(3))
+    assert grouped_expert_ffn.launches > m0
+    load = core.snapshot_expert_load()
+    assert int(load.sum()) == (core.counters.model_rows
+                               * cfg.num_experts_per_token * cfg.num_layers)
+    assert core.moe_dropped_tokens == 0

@@ -157,7 +157,9 @@ def test_frontend_module_serves_on_cpu(tmp_path):
         assert stats["device"] == "cpu"
         # CPU tensors take the plain versions: no kernel launched.
         assert stats["kernels"] == {"paged_decode_attention": 0,
-                                    "paged_prefill_attention": 0}
+                                    "paged_prefill_attention": 0,
+                                    "moe_grouped": 0}
+        assert stats["moe_mode"] == "dense" and stats["expert_load"] is None
         assert len(stats["requests"]) == 1
         assert stats["counters"]["prefill_dispatches"] > 0
         # The reset zeroes launch counts, engine counters and request
