@@ -17,21 +17,31 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    over 3.35 TB/s, operations over 989 TFLOP/s bf16 — NVIDIA's H100 SXM
    data sheet):
    - paged decode / prefill attention (K1 / K2) at llama-3-1b's geometry
-     (Hq 32, Hkv 8, D 64, block 64) and at mixtral-8x7b's (D 128);
+     (Hq 32, Hkv 8, D 64, block 64) and at mixtral-8x7b's (D 128), over a
+     bf16 cache and over an int8 cache with its f32 scales (the `_int8`
+     phases: the same K/V quantized, the bound counted from int8 and
+     scale bytes, SDPA on the dequantized gathered context);
    - the grouped expert FFN (K3), bf16 and int8 weights, at mixtral-8x7b
      width (E 8, top-2, H 4096, F 14336) with decode (64 tokens) and
      prefill (512 tokens) row counts routed by the port's own MoE routing.
 5. model    — llama-3-1b at full width, random weights: packed prefill and
    decode steps through the kernels against the gather path.
-6. model_moe — mixtral-8x7b at full width and 2 layers, random weights:
+6. model_int8 — the same over an int8 KV cache (K2 and K1 int8 against
+   the gather path's dequantizing read), fed the bf16 run's tokens; how far
+   its logits are from the bf16-cache run is printed for information.
+7. model_moe — mixtral-8x7b at full width and 2 layers, random weights:
    packed prefill (K2 + K3) and decode steps (K1 + K3) against the gather
    path with the dense MoE oracle, once with bf16 experts and once with
    int8 experts (the oracle on the dequantised weights).
-7. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
+8. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
    streams their `[DONE]`; K1 and K2 must have launched.
-8. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
+9. serve_int8 — the same with `--kv-quant int8` and a shared system
+   prompt of 10 blocks, which a warm-up chat puts in the prefix cache:
+   only the int8 bodies of K1 and K2 may launch, and the prefix cache
+   must serve every request the blocks of the prefix the 8 prompts share.
+10. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
    (one card cannot hold its 32 layers): K1, K2 and K3 must have
    launched and the expert load must count every routed row.
 
@@ -73,11 +83,18 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 # where an f32 sum lands near a bf16 rounding boundary of h, u or the
 # activation (the two sum in other orders).
 RTOL = 2.0 ** -7
+# The int8 attention bodies dequantize into the same bf16 operands as
+# their plain versions (kv_cache.dequantize_rows), so they keep the bf16
+# bodies' limits.
 ATOL = {"paged_decode_attention": 3e-3, "paged_prefill_attention": 8e-3,
+        "paged_decode_attention_int8": 3e-3,
+        "paged_prefill_attention_int8": 8e-3,
         "moe_grouped": 4e-3, "moe_grouped_int8": 4e-3}
 # Limits about twice the largest reading on an H100 80GB HBM3 at these
 # shapes and at those of tests/test_torch_cuda.py.
 ROW_TOL = {"paged_decode_attention": 1e-2, "paged_prefill_attention": 1e-2,
+           "paged_decode_attention_int8": 1e-2,
+           "paged_prefill_attention_int8": 1e-2,
            "moe_grouped": 4e-3, "moe_grouped_int8": 4e-3}
 # Relative logits error, kernel path vs gather path.  The MoE model's is
 # larger: the two attention paths differ in the last bf16 bit, and a
@@ -86,8 +103,15 @@ ROW_TOL = {"paged_decode_attention": 1e-2, "paged_prefill_attention": 1e-2,
 # tokens in layer 0 and 1 in layer 1 on an H100 80GB HBM3, 0.067 at the
 # prefill step), while on identical inputs the grouped kernel and the
 # dense oracle agree (`block_vs_dense`).
+# Over an int8 cache each path writes its own cache from K/V that differ
+# in the last bf16 bit, so a few rows quantize one step apart; the limit
+# stays the bf16 cache's.  Random weights leave near ties at the top of a
+# 128k vocabulary, so the two paths' greedy tokens may differ, but only
+# where the reference's logit for the kernel path's token is within the
+# same limit of its maximum (`argmax_gap`, relative to max |logit|).
 MODEL_TOL = {"llama-3-1b": 5e-2, "mixtral-8x7b": 1.5e-1}
 SEED = 0                       # also the server's weight seed (EngineConfig)
+SYSTEM_BLOCKS = 10             # serve_int8's shared system prompt, in blocks
 BS, HQ, HKV = 64, 32, 8        # attention geometry of both models, block 64
 MOE_LAYERS = 16                # mixtral-8x7b depth served on one 80 GB card
 # Each kernel's source and the TPU kernel it replaces.
@@ -161,14 +185,19 @@ def time_ms(torch, fn, samples: int = 25, per_sample: int = 10) -> float:
     return statistics.median(out)
 
 
-def sdpa_inputs(torch, kvc, q, kc, vc, block_tables, seq_lens, q_pos):
-    """Dense [R, Hq, *, D] tensors of each row's gathered context plus
-    its boolean mask, for torch's scaled_dot_product_attention."""
+def sdpa_inputs(torch, kvc, q, kc, vc, block_tables, seq_lens, q_pos,
+                scales=None):
+    """Dense [R, Hq, *, D] tensors of each row's gathered context (bf16,
+    dequantized from an int8 cache given with its `scales`) plus its
+    boolean mask, for torch's scaled_dot_product_attention."""
     R, P = block_tables.shape
     C = P * BS
     ctx = torch.arange(C, device=q.device).expand(R, C)
     slots = kvc.slots_for_positions(block_tables, ctx, BS)
-    k, v = kvc.gather_kv(kc, vc, slots, HKV)                   # [R, C, Hkv, D]
+    if scales is None:
+        k, v = kvc.gather_kv(kc, vc, slots, HKV)               # [R, C, Hkv, D]
+    else:
+        k, v = kvc.gather_kv_quant(kc, vc, *scales, slots, HKV)
     g = HQ // HKV
     k = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     v = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
@@ -177,7 +206,18 @@ def sdpa_inputs(torch, kvc, q, kc, vc, block_tables, seq_lens, q_pos):
     return k, v, mask
 
 
-def decode_phase(torch, gen, D):
+def cache_operands(torch, kvc, kc, vc, quant: bool):
+    """(K, V, {k_scale, v_scale}) as the kernel takes them: the bf16
+    buffers, or their int8 quantization with its [S, Hkv] scales; and the
+    K+V bytes one context token costs."""
+    if not quant:
+        return kc, vc, {}, 2 * kc.shape[1] * 2
+    kq, ks = kvc.quantize_kv_rows(kc, HKV)
+    vq, vs = kvc.quantize_kv_rows(vc, HKV)
+    return kq, vq, {"k_scale": ks, "v_scale": vs}, 2 * (kc.shape[1] + 4 * HKV)
+
+
+def decode_phase(torch, gen, D, quant=False):
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.ops.cuda import (
         paged_decode_attention, paged_decode_attention_plain)
@@ -199,40 +239,45 @@ def decode_phase(torch, gen, D):
         bt[i, -(-n // BS):] = 0  # unallocated entries are the null block
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
     scale = D ** -0.5
+    name = "paged_decode_attention" + ("_int8" if quant else "")
+    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant)
 
     def kern():
-        return paged_decode_attention(q, kc, vc, bt, sl, block_size=BS)
+        return paged_decode_attention(q, kc, vc, bt, sl, block_size=BS, **sc)
 
     def plain():
-        return paged_decode_attention_plain(q, kc, vc, bt, sl, block_size=BS)
+        return paged_decode_attention_plain(q, kc, vc, bt, sl, block_size=BS,
+                                            **sc)
 
     out = kern()
     ref = plain()
     torch.cuda.synchronize()
-    check(out[1].abs().max().item() == 0.0, "decode kernel: seq_len 0 row not zero")
-    reading = closeness(torch, "paged_decode_attention", out, ref)
+    check(out[1].abs().max().item() == 0.0, f"{name}: seq_len 0 row not zero")
+    reading = closeness(torch, name, out, ref)
     k_ms = time_ms(torch, kern)
     p_ms = time_ms(torch, plain, samples=5, per_sample=2)
     k4, v4, mask = sdpa_inputs(torch, kvc, q, kc, vc, bt, sl,
-                               (sl.long() - 1)[:, None])
+                               (sl.long() - 1)[:, None],
+                               tuple(sc.values()) or None)
     q4 = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=scale))
     tokens = sum(lens)
     pages = sum(-(-n // BS) for n in lens)
-    nbytes = (q.numel() * 2 + 2 * tokens * HKV * D * 2 + pages * 4 + B * 4
+    nbytes = (q.numel() * 2 + tokens * token_bytes + pages * 4 + B * 4
               + out.numel() * 2)
     flops = 4 * HQ * D * tokens
     b_ms, b_by = bound(nbytes, flops)
-    return {"name": "paged_decode_attention",
+    return {"name": name,
             "shape": {"B": B, "ctx": ctx, "block": BS, "Hq": HQ, "Hkv": HKV,
-                      "D": D, "seq_lens": lens[:8]},
+                      "D": D, "cache": "int8" if quant else "bf16",
+                      "seq_lens": lens[:8]},
             **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
 
 
-def prefill_phase(torch, gen, D):
+def prefill_phase(torch, gen, D, quant=False):
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.ops.cuda import (
         paged_prefill_attention, paged_prefill_attention_plain)
@@ -257,19 +302,21 @@ def prefill_phase(torch, gen, D):
         off += n
     sl_t, qs_t, ql_t = (torch.tensor(x, dtype=torch.int32, device=dev)
                         for x in (sl, qs, ql))
+    name = "paged_prefill_attention" + ("_int8" if quant else "")
+    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant)
 
     def kern():
         return paged_prefill_attention(q, kc, vc, bt, sl_t, qs_t, ql_t,
-                                       block_size=BS)
+                                       block_size=BS, **sc)
 
     def plain():
         return paged_prefill_attention_plain(q, kc, vc, bt, sl_t, qs_t, ql_t,
-                                             block_size=BS)
+                                             block_size=BS, **sc)
 
     out = kern()
     ref = plain()
     torch.cuda.synchronize()
-    reading = closeness(torch, "paged_prefill_attention", out, ref)
+    reading = closeness(torch, name, out, ref)
     k_ms = time_ms(torch, kern)
     p_ms = time_ms(torch, plain, samples=5, per_sample=2)
     # Yardstick: one SDPA call over the real segments padded to the
@@ -282,7 +329,8 @@ def prefill_phase(torch, gen, D):
         q4[i, :, : lens[i]] = q[qs[i]: qs[i] + lens[i]].transpose(0, 1)
         q_pos[i] = torch.arange(Lmax, device=dev) + prefix[i]
     k4, v4, mask = sdpa_inputs(torch, kvc, q4, kc, vc, bt[:n_real],
-                               sl_t[:n_real], q_pos)
+                               sl_t[:n_real], q_pos,
+                               tuple(sc.values()) or None)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask,
                                          scale=D ** -0.5))
@@ -290,13 +338,14 @@ def prefill_phase(torch, gen, D):
     visible = sum(sum(pre + i + 1 for i in range(n))
                   for n, pre in zip(lens, prefix))
     pages = sum(-(-s // BS) for s in sl)
-    nbytes = (q.numel() * 2 + 2 * kv_tokens * HKV * D * 2 + pages * 4
+    nbytes = (q.numel() * 2 + kv_tokens * token_bytes + pages * 4
               + 3 * R * 4 + out.numel() * 2)
     flops = 4 * HQ * D * visible
     b_ms, b_by = bound(nbytes, flops)
-    return {"name": "paged_prefill_attention",
+    return {"name": name,
             "shape": {"T": T, "segments": lens, "cached_prefix": prefix,
-                      "block": BS, "Hq": HQ, "Hkv": HKV, "D": D},
+                      "block": BS, "Hq": HQ, "Hkv": HKV, "D": D,
+                      "cache": "int8" if quant else "bf16"},
             **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
@@ -415,20 +464,25 @@ def routing_differs(ids_k, ids_g, rows_k, rows_g) -> int:
     return int((a != b).any(1).sum())
 
 
-def compare_paths(torch, cfg, kstate, pstate):
+def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
+                  keep=None):
     """A packed prefill of two prompts through K2 (and K3 for a MoE
     model), then 4 greedy decode steps through K1 (and K3), against the
-    gather path (and the dense MoE oracle) on `pstate`, fed the same
-    tokens.  Returns the per-step logits relative errors, argmax
-    agreements, and for a MoE model each path's expert-load sum beside
-    the token rows it routed."""
+    gather path (and the dense MoE oracle) on `pstate`, each path on its
+    own cache of mode `kv_quant`, fed the same tokens: the kernel path's
+    greedy ones, or `feed` (a list of [2] token lists, one per step).
+    Returns the per-step logits relative errors, argmax agreements and
+    the fed tokens, and for a MoE model each path's expert-load sum
+    beside the token rows it routed; `keep` collects the kernel path's
+    logits of every step."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.models import llama
 
     dev = torch.device("cuda")
     moe = cfg.is_moe
     prompts = [list(range(3, 3 + 77)), list(range(100, 100 + 140))]
-    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=16, block_size=BS)
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=16, block_size=BS,
+                                       kv_quant=kv_quant)
     cache_k, cache_g = kvc.init_cache(ccfg, dev), kvc.init_cache(ccfg, dev)
     P = 4
     pages = [[1, 2, 3, 4], [5, 6, 7, 8]]
@@ -470,16 +524,30 @@ def compare_paths(torch, cfg, kstate, pstate):
                      lens.to(dev), bt, (lens - 1).to(dev))
     logits_g = res[0]
     loads_g += res[2:]
-    errs = [((logits_k - logits_g).abs().max() / logits_g.abs().max()).item()]
-    agree = [(logits_k.argmax(-1) == logits_g.argmax(-1)).float().mean().item()]
-    # Decode: both caches fed the kernel path's greedy tokens.
+    errs, agree, gaps = [], [], []
+
+    def compare(lk, lg):
+        errs.append(((lk - lg).abs().max() / lg.abs().max()).item())
+        pick = lk.argmax(-1)
+        agree.append((pick == lg.argmax(-1)).float().mean().item())
+        gap = lg.max(-1).values - lg.gather(-1, pick[:, None])[:, 0]
+        gaps.append((gap.max() / lg.abs().max()).item())
+
+    compare(logits_k, logits_g)
+    if keep is not None:
+        keep.append(logits_k)
+    # Decode: both caches fed the kernel path's greedy tokens (or `feed`).
     step_k = llama.make_forward_step(cfg, BS, use_decode_kernel=True,
                                      moe_mode="grouped", with_expert_load=moe)
     cur = lens.clone().to(dev)
     nxt = logits_k.argmax(-1).to(torch.int32)
     zero = torch.zeros(2, dtype=torch.int32, device=dev)
     steps = 4
-    for _ in range(steps):
+    fed = []
+    for i in range(steps):
+        if feed is not None:
+            nxt = torch.tensor(feed[i], dtype=torch.int32, device=dev)
+        fed.append(nxt.tolist())
         cur = cur + 1
         res = step_k(kstate, cache_k, nxt[:, None], (cur - 1)[:, None], cur,
                      bt, zero)
@@ -489,18 +557,23 @@ def compare_paths(torch, cfg, kstate, pstate):
                      bt, zero)
         lg = res[0]
         loads_g += res[2:]
-        errs.append(((lk - lg).abs().max() / lg.abs().max()).item())
-        agree.append((lk.argmax(-1) == lg.argmax(-1)).float().mean().item())
+        compare(lk, lg)
         check(bool(torch.isfinite(lk).all()), f"{cfg.name}: non-finite logits")
+        if keep is not None:
+            keep.append(lk)
         nxt = lk.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     worst, tol = max(errs), MODEL_TOL[cfg.name]
-    check(worst <= tol, f"{cfg.name}: kernels vs gather path logits rel "
-                        f"err {errs} > {tol}")
+    check(worst <= tol, f"{cfg.name} ({kv_quant} cache): kernels vs gather "
+                        f"path logits rel err {errs} > {tol}")
+    check(max(gaps) <= tol, f"{cfg.name} ({kv_quant} cache): greedy tokens "
+                            f"differ beyond a near tie: argmax gap {gaps} > {tol}")
     out = {"model": cfg.name, "layers": cfg.num_layers,
-           "hidden": cfg.hidden_size, "prompts": [len(p) for p in prompts],
+           "hidden": cfg.hidden_size, "kv_quant": kv_quant,
+           "prompts": [len(p) for p in prompts],
            "decode_steps": steps, "logits_rel_err": errs,
-           "argmax_agreement": agree, "tol": tol}
+           "argmax_agreement": agree, "argmax_gap": gaps, "tol": tol,
+           "fed_tokens": fed}
     if moe:
         # Each prompt token's row: packed (PACK_ALIGN'd segment starts) and
         # padded [2, Lmax] flattened.
@@ -526,7 +599,10 @@ def compare_paths(torch, cfg, kstate, pstate):
 
 def model_phase(torch):
     """llama-3-1b at full width: packed prefill (K2) + decode steps (K1)
-    against the gather path on the same weights, prompts and tokens."""
+    against the gather path on the same weights, prompts and tokens, over
+    a bf16 cache and then over an int8 cache (K2 and K1 int8 against
+    kv_cache.gather_kv_quant), the int8 run fed the bf16 run's tokens so
+    that its logits can be set beside the bf16 run's."""
     from dynamo_tpu_torch.models import weights
     from dynamo_tpu_torch.models.config import get_config
 
@@ -535,7 +611,16 @@ def model_phase(torch):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     state = weights.init_params(cfg, gen, dev)
-    return {"phase": "model", **compare_paths(torch, cfg, state, state)}
+    bf16_logits, int8_logits = [], []
+    bf16 = compare_paths(torch, cfg, state, state, keep=bf16_logits)
+    int8 = compare_paths(torch, cfg, state, state, kv_quant="int8",
+                         feed=bf16["fed_tokens"], keep=int8_logits)
+    int8["vs_bf16_cache"] = {
+        "logits_rel_err": [((a - b).abs().max() / b.abs().max()).item()
+                           for a, b in zip(int8_logits, bf16_logits)],
+        "argmax_agreement": [(a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                             for a, b in zip(int8_logits, bf16_logits)]}
+    return {"phase": "model", **bf16}, {"phase": "model_int8", **int8}
 
 
 def model_moe_phase(torch, kernels):
@@ -575,8 +660,9 @@ def model_moe_phase(torch, kernels):
     kernels.reset_launch_counts()
     int8 = compare_paths(torch, cfg, kstate, pstate)
     int8_launches = kernels.launch_counts()
+    path = ("paged_decode_attention", "paged_prefill_attention", "moe_grouped")
     for name, launched in (("bf16", bf16_launches), ("int8", int8_launches)):
-        check(all(v > 0 for v in launched.values()),
+        check(all(launched[k] > 0 for k in path),
               f"model_moe {name}: a kernel never launched: {launched}")
     return ({"phase": "model_moe", "experts": "bf16", **bf16,
              "launches": bf16_launches,
@@ -594,14 +680,23 @@ def _http(url: str, body=None, timeout: float = 600.0):
         return r.read().decode()
 
 
-def _chat(base: str, i: int, stream: bool, max_tokens: int) -> dict:
+USER_TURN = "Request {i}: say something about paged attention on a GPU."
+
+
+def chat_body(i: int, stream: bool, max_tokens: int, system=None,
+              user=USER_TURN) -> dict:
+    messages = [{"role": "user", "content": user.format(i=i)}]
+    if system is not None:
+        messages.insert(0, {"role": "system", "content": system})
     body = {"model": "m", "max_tokens": max_tokens, "temperature": 0,
-            "stream": stream,
-            "messages": [{"role": "user",
-                          "content": f"Request {i}: say something about "
-                                     f"paged attention on a GPU."}]}
+            "stream": stream, "messages": messages}
     if stream:
         body["stream_options"] = {"include_usage": True}
+    return body
+
+
+def _chat(base: str, body: dict) -> dict:
+    stream = body["stream"]
     t0 = time.monotonic()
     raw = _http(base + "/v1/chat/completions", body)
     wall = time.monotonic() - t0
@@ -622,18 +717,21 @@ def _chat(base: str, i: int, stream: bool, max_tokens: int) -> dict:
 
 
 def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
-                max_tokens: int = 64, ready_s: float = 300):
+                max_tokens: int = 64, ready_s: float = 300, system=None,
+                user=USER_TURN, tag=""):
     """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
     subprocess: after a warm-up request and a stats reset (launch counts,
-    engine counters and expert load together), `n_requests` concurrent
-    greedy chats, half streaming; every kernel of `path_kernels` must have
-    launched in that window."""
+    engine counters, expert load and prefix hit/miss tokens together),
+    `n_requests` concurrent greedy chats, half streaming, each with the
+    `system` prompt when one is given and user turn `user` (the warm-up's
+    is number -1); every kernel of `path_kernels` must have launched in
+    that window."""
     OUT_DIR.mkdir(exist_ok=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     base = f"http://127.0.0.1:{port}"
-    log_path = OUT_DIR / f"chip_smoke_server_{model}.log"
+    log_path = OUT_DIR / f"chip_smoke_server_{model}{tag}.log"
     log = open(log_path, "w")
     t0 = time.monotonic()
     proc = subprocess.Popen(
@@ -654,12 +752,15 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
                   f"server not ready in {ready_s} s")
             time.sleep(0.5)
         startup_s = time.monotonic() - t0
-        _chat(base, -1, False, 4)  # warm-up: cuBLAS handles, allocator
+        # Warm-up: cuBLAS handles, the allocator, and the system prompt's
+        # blocks into the prefix cache.
+        _chat(base, chat_body(-1, False, 4, system, user))
         _http(base + "/debug/stats/reset", {})
         t1 = time.monotonic()
         with ThreadPoolExecutor(n_requests) as pool:
             results = list(pool.map(
-                lambda i: _chat(base, i, i % 2 == 0, max_tokens),
+                lambda i: _chat(base, chat_body(i, i % 2 == 0, max_tokens,
+                                                system, user)),
                 range(n_requests)))
         wall = time.monotonic() - t1
         stats = json.loads(_http(base + "/debug/stats"))
@@ -694,7 +795,53 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
             "itl_mean_s": (sum(r["itl_sum_s"] for r in reqs) / itl_n
                            if itl_n else None),
             "launches": launches, "counters": stats["counters"],
+            "kv_quant": stats["kv_quant"], "prefix_cache": stats["prefix_cache"],
             "moe_mode": stats["moe_mode"], "expert_load": stats["expert_load"]}
+
+
+def serve_int8_phase():
+    """llama-3-1b with `--kv-quant int8`: 8 chats sharing a system prompt
+    of SYSTEM_BLOCKS blocks of byte tokens, put in the prefix cache by the
+    warm-up.  Only the int8 bodies of K1 and K2 may launch, and every
+    request must be served from the cache the full blocks of the token
+    prefix S the 8 prompts share (worked out with the port's own
+    preprocessor): prefix_hit_tokens >= 8 * 64 * (S // 64)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    line = "You are a careful assistant for GPU kernel engineers. "
+    system = (line * (SYSTEM_BLOCKS * BS // len(line) + 1))[: SYSTEM_BLOCKS * BS]
+    # User turns that differ at their first byte: the 8 prompts share
+    # exactly the prefix they share with the warm-up's.
+    user = "{i}: say something about paged attention on a GPU."
+    n, max_tokens = 8, 64
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    prompts = [pre.preprocess_chat(ChatCompletionRequest.from_dict(
+        chat_body(i, False, max_tokens, system, user)), str(i)).token_ids
+        for i in range(n)]
+    shared = 0
+    while all(len(p) > shared and p[shared] == prompts[0][shared]
+              for p in prompts):
+        shared += 1
+    want = n * BS * (shared // BS)
+    out = serve_phase("llama-3-1b", ("--kv-quant", "int8"),
+                      ("paged_decode_attention_int8",
+                       "paged_prefill_attention_int8"),
+                      n_requests=n, max_tokens=max_tokens, system=system,
+                      user=user, tag="_int8")
+    launches = out["launches"]
+    check(out["kv_quant"] == "int8", f"serve_int8 ran kv_quant {out['kv_quant']}")
+    check(launches["paged_decode_attention"] == 0
+          and launches["paged_prefill_attention"] == 0,
+          f"serve_int8: a bf16 attention body launched: {launches}")
+    hit = out["prefix_cache"]["hit_tokens"]
+    check(hit >= want, f"serve_int8: prefix_hit_tokens {hit} < {want} "
+                       f"(8 x 64 x floor({shared} / 64))")
+    out.update(phase="serve_int8", system_tokens=len(system),
+               prompt_tokens=[len(p) for p in prompts],
+               shared_prefix_tokens=shared, min_hit_tokens=want)
+    return out
 
 
 def serve_moe_phase():
@@ -766,19 +913,22 @@ def main() -> int:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         attn = {}
-        for d in (64, 128):
-            for key, fn in (("paged_decode_attention", decode_phase),
-                            ("paged_prefill_attention", prefill_phase)):
-                phase = f"{key}_d{d}"
-                attn[key, d] = fn(torch, gen, d)
-                emit({"phase": phase, **attn[key, d]})
+        for quant in (False, True):
+            for d in (64, 128):
+                for key, fn in (("paged_decode_attention", decode_phase),
+                                ("paged_prefill_attention", prefill_phase)):
+                    key += "_int8" if quant else ""
+                    phase = f"{key}_d{d}"
+                    attn[key, d] = fn(torch, gen, d, quant)
+                    emit({"phase": phase, **attn[key, d]})
         phase = "moe_grouped"
         moe = moe_kernel_phases(torch, gen)
         for k in moe:
             emit({"phase": k["name"], **k})
         torch.cuda.empty_cache()
         phase = "model"
-        emit(model_phase(torch))
+        for line in model_phase(torch):
+            emit(line)
         torch.cuda.empty_cache()
         phase = "model_moe"
         moe_bf16, moe_int8 = model_moe_phase(torch, kernels)
@@ -789,6 +939,9 @@ def main() -> int:
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"))
         emit(serve)
+        phase = "serve_int8"
+        serve_int8 = serve_int8_phase()
+        emit(serve_int8)
         phase = "serve_moe"
         serve_moe = serve_moe_phase()
         emit(serve_moe)
@@ -797,12 +950,16 @@ def main() -> int:
               "error": f"{type(e).__name__}: {e}"})
         return 1
     print(smi, flush=True)
-    # K1/K2: launches on the serve path of their geometry (llama-3-1b at
-    # D 64, mixtral-8x7b at D 128).  K3 bf16: launches of serve_moe; K3
-    # int8 (on no serve path): launches of model_moe's int8 run.
+    # K1/K2 bf16: launches on the serve path of their geometry (llama-3-1b
+    # at D 64, mixtral-8x7b at D 128).  K1/K2 int8: launches of serve_int8
+    # (llama-3-1b, D 64; no served model pairs D 128 with an int8 cache, so
+    # the D 128 rows give the same body's count at D 64).  K3 bf16:
+    # launches of serve_moe; K3 int8 (on no serve path): launches of
+    # model_moe's int8 run.
     summary = []
     for (key, d), k in attn.items():
-        run = serve if d == 64 else serve_moe
+        run = serve_int8 if key.endswith("_int8") else (
+            serve if d == 64 else serve_moe)
         summary.append(summary_entry(
             k, key if d == 64 else f"{key}_d{d}", run["launches"][key],
             launches_from=run["phase"]))

@@ -2,9 +2,11 @@
 // paged_prefill.cu).
 //
 // Cache layout (dynamo_tpu_torch/engine/kv_cache.py): one layer's K or V is
-// a row-major [S, F] bf16 buffer, S = num_blocks * block_size slots and
+// a row-major [S, F] buffer, S = num_blocks * block_size slots and
 // F = Hkv * D features, head-major.  One page of one kv head is therefore
-// `bs` rows of a D-wide column band, each row D * 2 contiguous bytes.
+// `bs` rows of a D-wide column band, each row D contiguous elements.  The
+// cache is bf16, or int8 with per-token, per-head f32 scales in [S, Hkv]
+// buffers beside it; both loaders write the same padded bf16 tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +62,46 @@ __device__ __forceinline__ void load_page(
     for (int j = 0; j < 4; ++j) {
       k_s[r * W + c * 4 + j] = kp[j];
       v_s[r * W + c * 4 + j] = vp[j];
+    }
+  }
+}
+
+// int8 variant of load_page: the page's K/V rows of head h arrive as
+// 16-byte vectors of int8 (D % 16 == 0, checked by the Python wrapper),
+// its `bs` scales of head h (Hkv floats apart in the [S, Hkv] buffers) are
+// staged once in shared memory, and each element goes into the tile as
+// round_bf16((float)q8 * scale): an f32 product, then round to nearest
+// even, as kv_cache.dequantize_rows computes it.  Contains a barrier, so
+// every thread of the block must call it.
+__device__ __forceinline__ void load_page_int8(
+    const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
+    const float* __restrict__ ksc, const float* __restrict__ vsc,
+    __nv_bfloat162* __restrict__ k_s, __nv_bfloat162* __restrict__ v_s,
+    float* __restrict__ ks_s, float* __restrict__ vs_s,
+    int page, int bs, int Hkv, int h, int D) {
+  const int F = Hkv * D;
+  const int vec_per_row = D / 16;
+  const int W = tile_stride(D);
+  const size_t base = (size_t)page * bs;
+  for (int r = threadIdx.x; r < bs; r += blockDim.x) {
+    ks_s[r] = ksc[(base + r) * Hkv + h];
+    vs_s[r] = vsc[(base + r) * Hkv + h];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < bs * vec_per_row; i += blockDim.x) {
+    const int r = i / vec_per_row, c = i % vec_per_row;
+    const size_t off = (base + r) * (size_t)F + (size_t)h * D + (size_t)c * 16;
+    const uint4 kv = *reinterpret_cast<const uint4*>(kc + off);
+    const uint4 vv = *reinterpret_cast<const uint4*>(vc + off);
+    const int8_t* kp = reinterpret_cast<const int8_t*>(&kv);
+    const int8_t* vp = reinterpret_cast<const int8_t*>(&vv);
+    const float ks = ks_s[r], vs = vs_s[r];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      k_s[r * W + c * 8 + j] = __floats2bfloat162_rn((float)kp[2 * j] * ks,
+                                                     (float)kp[2 * j + 1] * ks);
+      v_s[r * W + c * 8 + j] = __floats2bfloat162_rn((float)vp[2 * j] * vs,
+                                                     (float)vp[2 * j + 1] * vs);
     }
   }
 }

@@ -1,4 +1,4 @@
-// Paged decode attention for Hopper (sm_90a), bf16 cache.
+// Paged decode attention for Hopper (sm_90a), bf16 or int8 cache.
 //
 // Replaces the TPU kernel dynamo_tpu/ops/pallas/paged_attention.py:
 // paged_decode_attention (body _decode_kernel): one decode query per row
@@ -20,6 +20,11 @@
 // no cp.async/TMA pipelining and B * Hkv CTAs (512 at b64 on Llama-3-1B);
 // a flash-decoding split over pages and an async copy pipeline are later
 // work.
+//
+// int8 cache (the TPU kernel's quant=True body): the same CTA design with
+// dtt::load_page_int8, which streams int8 rows and their per-token f32
+// scales and dequantizes into the same bf16 tile, so a step reads
+// 2 * (F + 4 * Hkv) bytes per context token in place of 2 * F * 2.
 #include "paged_common.cuh"
 
 namespace {
@@ -27,10 +32,13 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxOut = 8;  // outputs per thread: G * D <= kThreads * kMaxOut
 
+template <bool kInt8>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
-    const __nv_bfloat16* __restrict__ kc,  // [S, F]
-    const __nv_bfloat16* __restrict__ vc,  // [S, F]
+    const void* __restrict__ kc,           // [S, F] bf16 or int8
+    const void* __restrict__ vc,           // [S, F]
+    const float* __restrict__ ksc,         // [S, Hkv] f32 (int8 cache only)
+    const float* __restrict__ vsc,
     const int* __restrict__ block_tables,  // [B, P]
     const int* __restrict__ seq_lens,      // [B]
     __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
@@ -48,6 +56,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float* a_s = l_s + G;             // [G] this page's rescale factor
   __nv_bfloat162* k_s = reinterpret_cast<__nv_bfloat162*>(a_s + G);
   __nv_bfloat162* v_s = k_s + bs * W;
+  float* ks_s = reinterpret_cast<float*>(v_s + bs * W);  // [bs] (int8 only)
+  float* vs_s = ks_s + bs;
 
   const int seq_len = seq_lens[b];
   const int n_pages = (seq_len + bs - 1) / bs;
@@ -66,7 +76,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
   for (int p = 0; p < n_pages; ++p) {
     const int page = block_tables[(size_t)b * P + p];
-    dtt::load_page(kc, vc, k_s, v_s, page, bs, F, h, D);
+    if constexpr (kInt8)
+      dtt::load_page_int8(static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
+                          ksc, vsc, k_s, v_s, ks_s, vs_s, page, bs, Hkv, h, D);
+    else
+      dtt::load_page(static_cast<const __nv_bfloat16*>(kc),
+                     static_cast<const __nv_bfloat16*>(vc), k_s, v_s, page, bs, F, h, D);
     __syncthreads();
     const int valid = min(bs, seq_len - p * bs);
     for (int i = tid; i < G * bs; i += kThreads) {
@@ -126,6 +141,29 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
+template <bool kInt8>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+           const void* v_scale, const void* block_tables, const void* seq_lens, void* out,
+           int B, int Hq, int Hkv, int D, int P, int block_size, float scale, float soft_cap,
+           cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)G * block_size + 3 * G) +
+                      2 * sizeof(__nv_bfloat162) * (size_t)block_size * dtt::tile_stride(D) +
+                      (kInt8 ? 2 * sizeof(float) * (size_t)block_size : 0);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(B, Hkv);
+  paged_decode_kernel<kInt8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, D, P, block_size, scale, soft_cap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dtt_paged_decode_max_out() { return kThreads * kMaxOut; }
@@ -135,19 +173,17 @@ extern "C" int dtt_paged_decode_bf16(
     const void* block_tables, const void* seq_lens, void* out,
     int B, int Hq, int Hkv, int D, int P, int block_size, float scale,
     float soft_cap, void* stream) {
-  const int G = Hq / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)G * block_size + 3 * G) +
-                      2 * sizeof(__nv_bfloat162) * (size_t)block_size * dtt::tile_stride(D);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(B, Hkv);
-  paged_decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), static_cast<const int*>(block_tables),
-      static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out), Hq, Hkv, D, P,
-      block_size, scale, soft_cap);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k_cache, v_cache, nullptr, nullptr, block_tables, seq_lens, out,
+                       B, Hq, Hkv, D, P, block_size, scale, soft_cap,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dtt_paged_decode_int8(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+    const void* v_scale, const void* block_tables, const void* seq_lens, void* out,
+    int B, int Hq, int Hkv, int D, int P, int block_size, float scale,
+    float soft_cap, void* stream) {
+  return launch<true>(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens, out,
+                      B, Hq, Hkv, D, P, block_size, scale, soft_cap,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Packed ragged paged prefill attention for Hopper (sm_90a), bf16 cache.
+// Packed ragged paged prefill attention for Hopper (sm_90a), bf16 or int8
+// cache.
 //
 // Replaces the TPU kernel dynamo_tpu/ops/pallas/paged_prefill.py:
 // paged_prefill_attention (body _prefill_kernel).  Several sequences'
@@ -22,6 +23,11 @@
 // row.  The products run on the CUDA cores in f32: this first version does
 // not reach the tensor cores, so it sits well above its bound at long
 // chunks; an mma.sync / wgmma tile version is later work.
+//
+// int8 cache (the TPU kernel's quant=True body): pages load through
+// dtt::load_page_int8 (int8 rows and their per-token f32 scales,
+// dequantized into the same bf16 tile), so a cached prefix costs
+// F + 4 * Hkv bytes per token and layer to read in place of 2 * F.
 #include "paged_common.cuh"
 
 namespace {
@@ -30,11 +36,13 @@ constexpr int kThreads = 128;
 constexpr int kRows = 64;           // M: query rows (token x head) per CTA
 constexpr float kNegInf = -1e30f;   // finite, as the TPU kernel's _NEG_INF
 
-template <int D>
+template <int D, bool kInt8>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,   // [T, Hq, D]
-    const __nv_bfloat16* __restrict__ kc,  // [S, F]
-    const __nv_bfloat16* __restrict__ vc,  // [S, F]
+    const void* __restrict__ kc,           // [S, F] bf16 or int8
+    const void* __restrict__ vc,           // [S, F]
+    const float* __restrict__ ksc,         // [S, Hkv] f32 (int8 cache only)
+    const float* __restrict__ vsc,
     const int* __restrict__ block_tables,  // [R, P]
     const int* __restrict__ seq_lens,      // [R] context after this chunk
     const int* __restrict__ q_starts,      // [R] packed row of first query
@@ -84,6 +92,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   float* a_s = l_s + kRows;          // [M]
   __nv_bfloat162* k_s = reinterpret_cast<__nv_bfloat162*>(a_s + kRows);
   __nv_bfloat162* v_s = k_s + bs * W;
+  float* ks_s = reinterpret_cast<float*>(v_s + bs * W);  // [bs] (int8 only)
+  float* vs_s = ks_s + bs;
 
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int m = idx / D, d = idx % D, i = m / G, g = m % G;
@@ -105,7 +115,12 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 
   for (int p = 0; p < n_pages; ++p) {
     const int page = block_tables[(size_t)r * P + p];
-    dtt::load_page(kc, vc, k_s, v_s, page, bs, F, h, D);
+    if constexpr (kInt8)
+      dtt::load_page_int8(static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
+                          ksc, vsc, k_s, v_s, ks_s, vs_s, page, bs, Hkv, h, D);
+    else
+      dtt::load_page(static_cast<const __nv_bfloat16*>(kc),
+                     static_cast<const __nv_bfloat16*>(vc), k_s, v_s, page, bs, F, h, D);
     __syncthreads();
     for (int idx = tid; idx < kRows * bs; idx += kThreads) {
       const int m = idx / bs, t = idx % bs, i = m / G;
@@ -161,30 +176,56 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k_cache, const void* v_cache,
-           const void* block_tables, const void* seq_lens, const void* q_starts,
-           const void* q_lens, void* out, int T, int R, int Hq, int Hkv, int P,
-           int block_size, float scale, float soft_cap, cudaStream_t stream) {
+template <int D, bool kInt8>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+           const void* v_scale, const void* block_tables, const void* seq_lens,
+           const void* q_starts, const void* q_lens, void* out, int T, int R, int Hq,
+           int Hkv, int P, int block_size, float scale, float soft_cap, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int TQ = kRows / G;
   const size_t smem = sizeof(float) * ((size_t)kRows * D + (size_t)kRows * block_size +
                                        3 * kRows) +
-                      2 * sizeof(__nv_bfloat162) * (size_t)block_size * dtt::tile_stride(D);
+                      2 * sizeof(__nv_bfloat162) * (size_t)block_size * dtt::tile_stride(D) +
+                      (kInt8 ? 2 * sizeof(float) * (size_t)block_size : 0);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, kInt8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(R, (T + TQ - 1) / TQ, Hkv);
-  paged_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), static_cast<const int*>(block_tables),
-      static_cast<const int*>(seq_lens), static_cast<const int*>(q_starts),
-      static_cast<const int*>(q_lens), static_cast<__nv_bfloat16*>(out), T, R, Hq, Hkv, P,
-      block_size, scale, soft_cap);
+  paged_prefill_kernel<D, kInt8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
+      static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),
+      static_cast<__nv_bfloat16*>(out), T, R, Hq, Hkv, P, block_size, scale, soft_cap);
   return (int)cudaGetLastError();
+}
+
+template <bool kInt8>
+int dispatch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+             const void* v_scale, const void* block_tables, const void* seq_lens,
+             const void* q_starts, const void* q_lens, void* out, int T, int R, int Hq,
+             int Hkv, int D, int P, int block_size, float scale, float soft_cap,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch<32, kInt8>(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
+                               q_starts, q_lens, out, T, R, Hq, Hkv, P, block_size, scale,
+                               soft_cap, s);
+    case 64:
+      return launch<64, kInt8>(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
+                               q_starts, q_lens, out, T, R, Hq, Hkv, P, block_size, scale,
+                               soft_cap, s);
+    case 128:
+      return launch<128, kInt8>(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
+                                q_starts, q_lens, out, T, R, Hq, Hkv, P, block_size, scale,
+                                soft_cap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -197,18 +238,17 @@ extern "C" int dtt_paged_prefill_bf16(
     const void* seq_lens, const void* q_starts, const void* q_lens, void* out, int T,
     int R, int Hq, int Hkv, int D, int P, int block_size, float scale, float soft_cap,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch<32>(q, k_cache, v_cache, block_tables, seq_lens, q_starts, q_lens, out,
-                        T, R, Hq, Hkv, P, block_size, scale, soft_cap, s);
-    case 64:
-      return launch<64>(q, k_cache, v_cache, block_tables, seq_lens, q_starts, q_lens, out,
-                        T, R, Hq, Hkv, P, block_size, scale, soft_cap, s);
-    case 128:
-      return launch<128>(q, k_cache, v_cache, block_tables, seq_lens, q_starts, q_lens, out,
-                         T, R, Hq, Hkv, P, block_size, scale, soft_cap, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k_cache, v_cache, nullptr, nullptr, block_tables, seq_lens,
+                         q_starts, q_lens, out, T, R, Hq, Hkv, D, P, block_size, scale,
+                         soft_cap, stream);
+}
+
+extern "C" int dtt_paged_prefill_int8(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+    const void* v_scale, const void* block_tables, const void* seq_lens,
+    const void* q_starts, const void* q_lens, void* out, int T, int R, int Hq, int Hkv,
+    int D, int P, int block_size, float scale, float soft_cap, void* stream) {
+  return dispatch<true>(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
+                        q_starts, q_lens, out, T, R, Hq, Hkv, D, P, block_size, scale,
+                        soft_cap, stream);
 }

@@ -17,14 +17,22 @@ resolved `moe_mode` (the grouped-expert kernel on a card) and accumulate
 the steps' [E+1] expert load on the device; `snapshot_expert_load()`
 reads it on demand, so the load costs no host sync per step.
 
+`kv_quant="int8"` stores the paged cache as int8 with per-token, per-head
+f32 scales; every step then attends through the kernels' int8 bodies.
+The prefix cache is on by default, as in the JAX engine: pages come from
+a ManagedBlockSource (the device tier of the block manager), admission
+reuses the pages of a prompt's longest cached run of sealed blocks, and
+`_publish_completed_blocks` registers each block a request seals, always
+before the token that follows it is appended.
+
 Padding discipline as in JAX: block tables are sliced to the batch's page
 bucket, unallocated entries are the null block 0, and pad writes target
 position `max_pages * block_size`, which indexes past every table width
 and resolves to the null block.
 
-Not ported yet: the prefix cache and KV events, speculative decode,
-meshes (and with them MoE all-to-all dispatch), multimodal prefill and
-embeddings.
+Not ported yet: KV events, the prefix cache's host and disk tiers,
+speculative decode, meshes (and with them MoE all-to-all dispatch),
+multimodal prefill and embeddings.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     SchedulerConfig,
     pack_prefill_chunks,
 )
+from dynamo_tpu_torch.llm.block_manager import ManagedBlockSource, TieredConfig
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import (
     make_decode_window,
@@ -68,6 +77,7 @@ from dynamo_tpu_torch.models.llama import (
 from dynamo_tpu_torch.models.weights import init_params
 from dynamo_tpu_torch.ops.cuda import PACK_ALIGN
 from dynamo_tpu_torch.ops.moe import resolve_moe_mode
+from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
 
@@ -104,6 +114,12 @@ class EngineConfig:
     # MoE compute (ops/moe.resolve_moe_mode): "auto" takes the grouped
     # kernel on a card when the expert geometry passes, else "dense".
     moe_mode: str = "auto"
+    # "none" = K/V pages at the model dtype; "int8" = int8 pages with
+    # per-token, per-head f32 scales (engine/kv_cache.py).
+    kv_quant: str = "none"
+    # Prefix cache (the block manager's device tier); off = the plain
+    # free-list allocator, no reuse.
+    enable_prefix_cache: bool = True
 
 
 @dataclass
@@ -163,7 +179,8 @@ class EngineCore:
         self.device = resolve_device(config.device)
         self.block_size = sched_cfg.block_size
         self.cache_cfg = kvc.KvCacheConfig.for_model(
-            cfg, num_blocks=config.num_blocks, block_size=self.block_size)
+            cfg, num_blocks=config.num_blocks, block_size=self.block_size,
+            kv_quant=config.kv_quant)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
@@ -195,8 +212,16 @@ class EngineCore:
         # decode work.
         self._pending_first: set = set()
         self._pending_batches: List[tuple] = []
-        self.allocator = BlockAllocator(config.num_blocks)
+        if config.enable_prefix_cache:
+            self.allocator = ManagedBlockSource(TieredConfig(
+                device_blocks=config.num_blocks, block_size=self.block_size))
+        else:
+            self.allocator = BlockAllocator(config.num_blocks)
         self.scheduler = Scheduler(sched_cfg, self.allocator)
+        # Seal bookkeeping for the prefix cache: each request's chained
+        # block hashes and how many of its blocks are registered.
+        self._hash_seqs: Dict[str, TokenBlockSequence] = {}
+        self._published_blocks: Dict[str, int] = {}
         self._pad_position = sched_cfg.max_pages_per_seq * self.block_size
         self._requests: Dict[str, Request] = {}
         # Seeds for unseeded stochastic rows (one per request).
@@ -360,6 +385,7 @@ class EngineCore:
                 if (req.request_id not in self._requests
                         or req.state is not RequestState.DECODE):
                     continue  # finished/cancelled while in flight
+                self._publish_completed_blocks(req)
                 deltas.append(self._append_token(
                     req, int(toks[j]),
                     float(lps[j]) if lps is not None else None))
@@ -449,6 +475,7 @@ class EngineCore:
         done_rows: List[int] = []
         for i, work in enumerate(items):
             self.scheduler.prefill_done(work)
+            self._publish_completed_blocks(work.request)
             if work.request.state is RequestState.DECODE:
                 done_rows.append(i)
         if not done_rows:
@@ -514,9 +541,15 @@ class EngineCore:
         self.counters.host_syncs += 1
         sampled = toks_dev.cpu().numpy()
         lps = lps_dev.cpu().numpy() if lps_dev is not None else None
-        return [self._append_token(req, int(sampled[i]),
-                                   float(lps[i]) if lps is not None else None)
-                for i, req in enumerate(live)]
+        deltas = []
+        for i, req in enumerate(live):
+            # Blocks sealed by earlier tokens publish before this token
+            # appends (it may finish the request and drop its state).
+            self._publish_completed_blocks(req)
+            deltas.append(self._append_token(
+                req, int(sampled[i]),
+                float(lps[i]) if lps is not None else None))
+        return deltas
 
     # -- pipelined decode windows ------------------------------------------
 
@@ -663,6 +696,7 @@ class EngineCore:
                 if (req.request_id not in self._requests
                         or req.state is not RequestState.DECODE):
                     continue  # finished/cancelled mid-window: discard tail
+                self._publish_completed_blocks(req)
                 deltas.append(self._append_token(req, int(tokens[i, col])))
         return deltas
 
@@ -722,6 +756,10 @@ class EngineCore:
             self.scheduler.finish(req, FinishReason.LENGTH)
             return
         logger.info("preempting %s: out of KV blocks", req.request_id)
+        # Seal tracking restarts: publication must follow the recomputed
+        # KV, never the pre-preemption block list.
+        self._hash_seqs.pop(req.request_id, None)
+        self._published_blocks.pop(req.request_id, None)
         self.scheduler.preempt(req)
 
     def _sample_rows(self, logits: torch.Tensor, reqs: List[Request]):
@@ -767,6 +805,55 @@ class EngineCore:
     def _drop(self, req: Request) -> None:
         self._requests.pop(req.request_id, None)
         self._row_seeds.pop(req.request_id, None)
+        self._hash_seqs.pop(req.request_id, None)
+        self._published_blocks.pop(req.request_id, None)
+
+    # -- prefix cache ---------------------------------------------------------
+
+    def _publish_completed_blocks(self, req: Request) -> None:
+        """Register the blocks this request has sealed since the last call
+        with the block source, so later prompts can match them.  Callers
+        run it before appending a new token: every token it covers has
+        its KV written (the newest one's is written by the step that
+        sampled the token being appended)."""
+        if not isinstance(self.allocator, ManagedBlockSource):
+            return  # nobody consumes seals
+        if req.request_id not in self._requests:
+            return  # already finished and dropped
+        seq = self._hash_seqs.get(req.request_id)
+        if seq is None:
+            seq = self._hash_seqs[req.request_id] = TokenBlockSequence(
+                block_size=self.block_size)
+        # The tokens past the hashed ones, of prompt[:prefilled] + output.
+        n, p = len(seq), req.prefilled
+        seq.extend(req.prompt_tokens[n:p] + req.output_tokens[max(0, n - p):])
+        done = self._published_blocks.get(req.request_id, 0)
+        complete = seq.blocks
+        if len(complete) <= done:
+            return
+        for bi in range(done, len(complete)):
+            if bi < len(req.pages):
+                self.allocator.register_block(req.pages[bi],
+                                              complete[bi].block_hash)
+        self._published_blocks[req.request_id] = len(complete)
+
+    def prefix_cache_stats(self) -> Dict[str, object]:
+        """Admission hit and miss tokens, the hit rate, and the block
+        pool's state."""
+        hit = self.scheduler.prefix_hit_tokens
+        miss = self.scheduler.prefix_miss_tokens
+        out = {"enabled": isinstance(self.allocator, ManagedBlockSource),
+               "hit_tokens": hit, "miss_tokens": miss,
+               "hit_rate": hit / (hit + miss) if hit + miss else 0.0,
+               "pool_usage": self.allocator.usage,
+               "free_blocks": self.allocator.free_blocks}
+        if out["enabled"]:
+            out["pool"] = self.allocator.stats
+        return out
+
+    def reset_prefix_stats(self) -> None:
+        self.scheduler.prefix_hit_tokens = 0
+        self.scheduler.prefix_miss_tokens = 0
 
 
 class InferenceEngine:

@@ -1,5 +1,6 @@
 """Paged KV cache as preallocated tensors (port of
-`dynamo_tpu/engine/kv_cache.py`, bf16 subset).
+`dynamo_tpu/engine/kv_cache.py`; the whole-block extract/inject ops of the
+host and disk tiers are not ported yet).
 
 Same layout as the JAX package:
 
@@ -14,6 +15,15 @@ Same layout as the JAX package:
 Unlike JAX, the port updates the buffers in place (`index_copy_`): the
 cache is the largest allocation of the process and a functional update
 would double it.
+
+Quantized mode (`kv_quant="int8"`): K/V buffers hold int8 with
+per-token, per-head f32 scales in sibling `[S, Hkv]` buffers (`k_scale` /
+`v_scale` in the cache dict; their presence is the mode bit).  Scales are
+per token so a decode write stays a row scatter.  The bytes one decode
+step reads per context token drop from `2 * F * 2` to `2 * (F + 4 * Hkv)`.
+Quantization gives the same bytes as the JAX package's: `scale =
+max(amax, 1e-8) / 127` and `q = clip(round(x / scale), -127, 127)` in
+f32, a true division and round-half-to-even.
 """
 
 from __future__ import annotations
@@ -39,6 +49,18 @@ class KvCacheConfig:
     num_kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.bfloat16
+    # "none" = store K/V at `dtype`; "int8" = int8 pages + per-token
+    # per-head f32 scales (see module docstring).
+    kv_quant: str = "none"
+
+    def __post_init__(self):
+        if self.kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', "
+                             f"got {self.kv_quant!r}")
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_quant == "int8"
 
     @property
     def num_slots(self) -> int:
@@ -49,9 +71,30 @@ class KvCacheConfig:
         """Flat per-token K (or V) width: num_kv_heads * head_dim."""
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def store_dtype(self) -> torch.dtype:
+        """Dtype of the K/V page buffers as stored on the device."""
+        return torch.int8 if self.quantized else self.dtype
+
+    @property
+    def bytes_per_context_token(self) -> int:
+        """K+V bytes one decode step reads per context token, across all
+        layers, scales included."""
+        if self.quantized:
+            per = self.feature_dim + 4 * self.num_kv_heads
+        else:
+            per = self.feature_dim * self.dtype.itemsize
+        return 2 * self.num_layers * per
+
+    @property
+    def bytes_per_block(self) -> int:
+        """K+V bytes of one block across all layers, scales included."""
+        return self.block_size * self.bytes_per_context_token
+
     @staticmethod
     def for_model(config: ModelConfig, num_blocks: int,
-                  block_size: int = 64) -> "KvCacheConfig":
+                  block_size: int = 64,
+                  kv_quant: str = "none") -> "KvCacheConfig":
         return KvCacheConfig(
             num_blocks=num_blocks,
             block_size=block_size,
@@ -59,18 +102,34 @@ class KvCacheConfig:
             num_kv_heads=config.num_kv_heads,
             head_dim=config.head_dim,
             dtype=config.dtype,
+            kv_quant=kv_quant,
         )
 
 
 def init_cache(cfg: KvCacheConfig, device: Union[str, torch.device]) -> dict:
-    """Allocate {'k': [L x [S, F]], 'v': [L x [S, F]]} zeroed on `device`."""
+    """Allocate {'k': [L x [S, F]], 'v': [L x [S, F]]} zeroed on `device`;
+    quantized mode adds {'k_scale': [L x [S, Hkv]], 'v_scale': ...} f32."""
     shape = (cfg.num_slots, cfg.feature_dim)
-    return {
-        "k": [torch.zeros(shape, dtype=cfg.dtype, device=device)
+    cache = {
+        "k": [torch.zeros(shape, dtype=cfg.store_dtype, device=device)
               for _ in range(cfg.num_layers)],
-        "v": [torch.zeros(shape, dtype=cfg.dtype, device=device)
+        "v": [torch.zeros(shape, dtype=cfg.store_dtype, device=device)
               for _ in range(cfg.num_layers)],
     }
+    if cfg.quantized:
+        sshape = (cfg.num_slots, cfg.num_kv_heads)
+        cache["k_scale"] = [torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+                            for _ in range(cfg.num_layers)]
+        cache["v_scale"] = [torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+                            for _ in range(cfg.num_layers)]
+    return cache
+
+
+def cache_is_quantized(cache: dict) -> bool:
+    """The cache dict's keys are the mode bit."""
+    return "k_scale" in cache
 
 
 def slots_for_positions(block_tables: torch.Tensor,  # [B, P] int
@@ -106,13 +165,17 @@ def write_kv(cache_layer_k: torch.Tensor,  # [S, F], updated in place
     sent to slot 0 — the null block — instead: dropping them would need
     a host sync to size the kept set, and the null block is junk by
     contract either way."""
-    S = cache_layer_k.shape[0]
-    slots = slots.long()
-    slots = torch.where((slots >= 0) & (slots < S), slots,
-                        torch.zeros_like(slots))
+    slots = _in_range(slots, cache_layer_k.shape[0])
     cache_layer_k.index_copy_(0, slots, k.to(cache_layer_k.dtype))
     cache_layer_v.index_copy_(0, slots, v.to(cache_layer_v.dtype))
     return cache_layer_k, cache_layer_v
+
+
+def _in_range(slots: torch.Tensor, S: int) -> torch.Tensor:
+    """Slots outside [0, S) sent to slot 0, the null block."""
+    slots = slots.long()
+    return torch.where((slots >= 0) & (slots < S), slots,
+                       torch.zeros_like(slots))
 
 
 def gather_kv(cache_layer_k: torch.Tensor,  # [S, F]
@@ -129,3 +192,88 @@ def gather_kv(cache_layer_k: torch.Tensor,  # [S, F]
     v = cache_layer_v.index_select(0, idx)
     return (k.reshape(B, C, num_kv_heads, D),
             v.reshape(B, C, num_kv_heads, D))
+
+
+# ---------------------------------------------------------------------------
+# int8 quantization (kv_quant="int8")
+
+# Smallest per-head scale: all-zero rows (padding, the null block)
+# quantize to 0 with a nonzero scale instead of dividing by 0.
+_QUANT_EPS = 1e-8
+
+
+def quantize_kv_rows(x: torch.Tensor,      # [N, F] rows in compute dtype
+                     num_kv_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token, per-head int8 quantization: (int8 [N, F],
+    f32 scales [N, Hkv]) with x ~ q * scale[..., head]."""
+    N, F = x.shape
+    xf = x.float().reshape(N, num_kv_heads, F // num_kv_heads)
+    amax = xf.abs().amax(dim=-1)                               # [N, Hkv]
+    scale = torch.clamp_min(amax, _QUANT_EPS) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(N, F), scale
+
+
+def dequantize_rows(q: torch.Tensor,       # [..., Hkv, D] int8
+                    scale: torch.Tensor,   # [..., Hkv] f32
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of quantize_kv_rows on head-split rows: an f32 product,
+    then a round-to-nearest-even cast to `out_dtype` — what the CUDA
+    kernels' int8 page loader computes, so both paths see the same
+    dequantized operands."""
+    return (q.float() * scale[..., None]).to(out_dtype)
+
+
+def scatter_kv_quant(cache_layer_k: torch.Tensor,  # [S, F] int8, in place
+                     cache_layer_v: torch.Tensor,
+                     scale_layer_k: torch.Tensor,  # [S, Hkv] f32, in place
+                     scale_layer_v: torch.Tensor,
+                     slots: torch.Tensor,          # [N] flat slot ids
+                     kq: torch.Tensor,             # [N, F] int8
+                     vq: torch.Tensor,
+                     ks: torch.Tensor,             # [N, Hkv] f32
+                     vs: torch.Tensor):
+    """Scatter already-quantized rows and their scales into one layer, in
+    place (out-of-range slots to the null block, as write_kv)."""
+    slots = _in_range(slots, cache_layer_k.shape[0])
+    cache_layer_k.index_copy_(0, slots, kq)
+    cache_layer_v.index_copy_(0, slots, vq)
+    scale_layer_k.index_copy_(0, slots, ks)
+    scale_layer_v.index_copy_(0, slots, vs)
+    return cache_layer_k, cache_layer_v, scale_layer_k, scale_layer_v
+
+
+def write_kv_quant(cache_layer_k: torch.Tensor,   # [S, F] int8, in place
+                   cache_layer_v: torch.Tensor,
+                   scale_layer_k: torch.Tensor,   # [S, Hkv] f32, in place
+                   scale_layer_v: torch.Tensor,
+                   slots: torch.Tensor,           # [N] flat slot ids
+                   k: torch.Tensor,               # [N, F] unquantized rows
+                   v: torch.Tensor):
+    """Quantize new K/V rows and scatter them with their scales."""
+    H = scale_layer_k.shape[-1]
+    kq, ks = quantize_kv_rows(k, H)
+    vq, vs = quantize_kv_rows(v, H)
+    return scatter_kv_quant(cache_layer_k, cache_layer_v, scale_layer_k,
+                            scale_layer_v, slots, kq, vq, ks, vs)
+
+
+def gather_kv_quant(cache_layer_k: torch.Tensor,  # [S, F] int8
+                    cache_layer_v: torch.Tensor,
+                    scale_layer_k: torch.Tensor,  # [S, Hkv] f32
+                    scale_layer_v: torch.Tensor,
+                    slots: torch.Tensor,          # [B, C]
+                    num_kv_heads: int,
+                    out_dtype: torch.dtype = torch.bfloat16):
+    """Gather and dequantize context K/V: [B, C, Hkv, D] pairs in
+    `out_dtype` (out-of-range slots clip, as gather_kv)."""
+    B, C = slots.shape
+    S, F = cache_layer_k.shape
+    D = F // num_kv_heads
+    idx = torch.clamp(slots.long(), 0, S - 1).reshape(-1)
+    kq = cache_layer_k.index_select(0, idx).reshape(B, C, num_kv_heads, D)
+    vq = cache_layer_v.index_select(0, idx).reshape(B, C, num_kv_heads, D)
+    ks = scale_layer_k.index_select(0, idx).reshape(B, C, num_kv_heads)
+    vs = scale_layer_v.index_select(0, idx).reshape(B, C, num_kv_heads)
+    return (dequantize_rows(kq, ks, out_dtype),
+            dequantize_rows(vq, vs, out_dtype))

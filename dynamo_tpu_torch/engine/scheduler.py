@@ -10,12 +10,17 @@ only pad; they stay because the CUDA graphs that ROADMAP queues for the
 decode window and the packed prefill capture one graph per shape, and
 the bucket set is what bounds the number of graphs.
 
+Admission matches each prompt against the prefix cache first (the
+engine's ManagedBlockSource; the plain BlockAllocator here never hits):
+cached pages are pinned and reused, only the remainder is allocated, and
+`prefix_hit_tokens` / `prefix_miss_tokens` count the prompt tokens whose
+prefill was skipped and computed.
+
 Left out of this copy: the flight-recorder breadcrumbs, QoS classes and
-SLO-pressure preemption, the dp-attention sharded allocator, the prefix
-cache's match/register hooks, the padded-prefill row buckets and the
-tracing/ledger timestamps (none is ported yet).  Admission is FCFS, which
-is what the JAX scheduler does when every request has the default
-priority and no SLO pressure is wired.
+SLO-pressure preemption, the dp-attention sharded allocator, the
+padded-prefill row buckets and the tracing/ledger timestamps (none is
+ported yet).  Admission is FCFS, which is what the JAX scheduler does
+when every request has the default priority and no SLO pressure is wired.
 """
 
 from __future__ import annotations
@@ -63,6 +68,11 @@ class Request:
     # Tokens emitted before a preemption folded them into the prompt —
     # keeps max_tokens budgeting and seeded draw indices monotonic.
     prior_output: int = 0
+    # Prompt tokens the prefix cache served at admission.
+    cached_prompt_tokens: int = 0
+    # Memoized chained hashes of the sealed prompt blocks (admission
+    # retries must not re-hash); None = not computed yet.
+    block_hashes: Optional[tuple] = None
 
     @property
     def total_len(self) -> int:
@@ -78,7 +88,7 @@ class Request:
 
 class BlockAllocator:
     """Free-list page allocator over the paged cache (block 0 reserved
-    null).  No prefix reuse."""
+    null).  No prefix reuse: its prefix-cache interface never matches."""
 
     def __init__(self, num_blocks: int) -> None:
         if num_blocks < 2:
@@ -86,9 +96,24 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
 
+    # Prefix-cache interface (no-ops here).
+    def prompt_hashes(self, prompt_tokens: Sequence[int]) -> tuple:
+        return ()
+
+    def match(self, prompt_tokens: Sequence[int], hashes=None):
+        """Returns (cached_tokens, pinned_pages)."""
+        return 0, []
+
+    def register_block(self, page: int, block_hash: int) -> None:
+        pass
+
     @property
     def free_blocks(self) -> int:
         return len(self._free)
+
+    @property
+    def usage(self) -> float:
+        return 1.0 - self.free_blocks / (self.num_blocks - 1)
 
     def allocate(self, n: int) -> List[int]:
         if n > len(self._free):
@@ -274,6 +299,11 @@ class Scheduler:
         # Engine-installed mixed-mode budget (MixedPrefillController);
         # None = the static caps.
         self.mixed_budget_override: Optional[int] = None
+        # Admission prefix-match accounting (tokens): hit = prompt tokens
+        # whose prefill the cache skipped, miss = tokens computed.  A
+        # re-admission after preemption counts again.
+        self.prefix_hit_tokens = 0
+        self.prefix_miss_tokens = 0
 
     # -- admission --------------------------------------------------------
 
@@ -296,9 +326,19 @@ class Scheduler:
                 (i for i, s in enumerate(self._slots) if s is None), None)
             if slot is None:
                 break
+            # Prefix-cache match first: cached pages are pinned and reused,
+            # only the remainder needs fresh pages.
+            if req.block_hashes is None:
+                req.block_hashes = self.allocator.prompt_hashes(
+                    req.prompt_tokens)
+            cached_tokens, cached_pages = self.allocator.match(
+                req.prompt_tokens, req.block_hashes)
             need = self._pages_needed(len(req.prompt_tokens) + 1)
-            # Admit only if the pages fit and leave the watermark.
-            if self.allocator.free_blocks - need < WATERMARK * usable:
+            need_new = max(0, need - len(cached_pages))
+            # Admit only if the new pages fit and leave the watermark.
+            if self.allocator.free_blocks - need_new < WATERMARK * usable:
+                if cached_pages:
+                    self.allocator.release(cached_pages)
                 # Nothing running means nothing will ever free pages — the
                 # head request can never fit; fail it instead of spinning.
                 if not self.running:
@@ -307,8 +347,14 @@ class Scheduler:
                     req.finish_reason = FinishReason.LENGTH
                 break
             self.waiting.pop(0)
-            req.pages = self.allocator.allocate(need)
-            req.prefilled = 0
+            req.pages = list(cached_pages) + self.allocator.allocate(need_new)
+            # The cached prefix skips prefill, but the last prompt token is
+            # always recomputed so admission yields logits (a fully cached
+            # prompt rewrites that token's slot in its shared last page).
+            req.prefilled = min(cached_tokens, len(req.prompt_tokens) - 1)
+            req.cached_prompt_tokens = req.prefilled
+            self.prefix_hit_tokens += req.prefilled
+            self.prefix_miss_tokens += len(req.prompt_tokens) - req.prefilled
             req.slot = slot
             self._slots[slot] = req
             req.state = RequestState.PREFILL
@@ -385,6 +431,7 @@ class Scheduler:
         req.prompt_tokens = req.prompt_tokens + req.output_tokens
         req.output_tokens = []
         req.prefilled = 0
+        req.block_hashes = None  # prompt changed: re-hash on re-admission
         req.state = RequestState.WAITING
         self.waiting.insert(0, req)
 

@@ -6,9 +6,11 @@ mode).
         --http-port 8080 [--device cpu] [--num-blocks N --block-size 64]
     python -m dynamo_tpu_torch.frontend --model mixtral-8x7b --num-layers 16 \\
         [--moe-mode auto|dense|grouped]
+    python -m dynamo_tpu_torch.frontend --model llama-3-1b --kv-quant int8
 
 Runs on the card unless `--device cpu` is given; random weights from
-seed 0 (`EngineConfig.seed`); the byte tokenizer.
+seed 0 (`EngineConfig.seed`); the byte tokenizer; the prefix cache on,
+as the JAX worker runs it.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ def parse_args(argv=None):
                         "expert kernel, dense = every expert over every "
                         "token (the exact oracle); auto = grouped on a "
                         "card when the expert geometry allows it")
+    p.add_argument("--kv-quant", default="none", choices=("none", "int8"),
+                   help="KV cache storage: int8 pages with per-token, "
+                        "per-head f32 scales (about half the bytes a "
+                        "decode step reads), or the model dtype")
     return p.parse_args(argv)
 
 
@@ -81,7 +87,7 @@ async def build_model_handle(args):
     sched = SchedulerConfig(block_size=args.block_size)
     core = EngineCore(EngineConfig(
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
-        device=args.device, moe_mode=args.moe_mode))
+        device=args.device, moe_mode=args.moe_mode, kv_quant=args.kv_quant))
     engine = InferenceEngine(core)
     await engine.start()
     tokenizer = ByteTokenizer()
@@ -103,6 +109,8 @@ def stats_hooks(core: EngineCore):
         return {"device": str(core.device),
                 "kernels": kernels.launch_counts(),
                 "counters": core.counters.as_dict(),
+                "kv_quant": core.cache_cfg.kv_quant,
+                "prefix_cache": core.prefix_cache_stats(),
                 "moe_mode": core.moe_mode,
                 # [E+1]: per-expert assignments, then the dropped ones.
                 "expert_load": (None if load is None else
@@ -110,11 +118,12 @@ def stats_hooks(core: EngineCore):
                                 + [core.moe_dropped_tokens])}
 
     def reset_stats() -> None:
-        # Launch counts, engine counters and the expert load start one
-        # window together, so launches per dispatch can be read off one
-        # /debug/stats reply.
+        # Launch counts, engine counters, the expert load and the prefix
+        # hit and miss tokens start one window together, so launches per
+        # dispatch can be read off one /debug/stats reply.
         kernels.reset_launch_counts()
         core.reset_expert_load()
+        core.reset_prefix_stats()
         core.counters = EngineCounters()
 
     return stats, reset_stats
@@ -135,7 +144,8 @@ async def run(args) -> None:
         cfg = core.config.model
         print(f"dynamo_tpu_torch frontend serving {handle.name!r} "
               f"({args.model}, {cfg.num_layers} layers, moe_mode "
-              f"{core.moe_mode}, on {core.device}) on "
+              f"{core.moe_mode}, kv_quant {core.cache_cfg.kv_quant}, on "
+              f"{core.device}) on "
               f"http://{args.http_host}:{port}", flush=True)
         await stop_ev.wait()
     finally:

@@ -1,0 +1,177 @@
+"""Block pool: slot allocation, sequence-hash registry and LRU reuse (copy
+of `dynamo_tpu/llm/block_manager/pool.py` without what only the host and
+disk tiers, KV events and QoS use: the eviction hook, discard, demotion
+and the SLO eviction bias).
+
+A pool owns `capacity` slots of one tier.  Slot states:
+
+- free     — on the free list, contents meaningless;
+- active   — pinned by one or more sequences (refcounted), maybe
+             registered;
+- inactive — refcount 0 but registered under its hash: reusable as a
+             prefix-cache hit until evicted (LRU).
+
+Registration keys are chained block hashes (dynamo_tpu_torch.tokens), so
+a hash match means the whole token prefix matches.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+
+@dataclass
+class Slot:
+    index: int
+    block_hash: Optional[int] = None
+    ref_count: int = 0
+
+
+class BlockRegistry:
+    """hash -> slot mapping with active refcounts and an inactive LRU."""
+
+    def __init__(self) -> None:
+        self.by_hash: Dict[int, Slot] = {}
+        self.inactive: "OrderedDict[int, Slot]" = OrderedDict()  # LRU order
+
+    def lookup(self, block_hash: int) -> Optional[Slot]:
+        return self.by_hash.get(block_hash)
+
+
+class BlockPool:
+    """One tier's slots."""
+
+    def __init__(self, capacity: int, name: str = "pool",
+                 reserve_null: bool = False) -> None:
+        """With `reserve_null`, slot 0 is never allocated (the engine's
+        null block)."""
+        self.name = name
+        self.capacity = capacity
+        start = 1 if reserve_null else 0
+        self._free: List[int] = list(range(capacity - 1, start - 1, -1))
+        self._slots: Dict[int, Slot] = {}
+        self.registry = BlockRegistry()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0     # LRU evictions under allocation pressure
+
+    # -- views ------------------------------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def reusable_slots(self) -> int:
+        return len(self._free) + len(self.registry.inactive)
+
+    @property
+    def active_slots(self) -> int:
+        return len(self._slots) - len(self.registry.inactive)
+
+    @property
+    def usage(self) -> float:
+        return self.active_slots / max(1, self.capacity)
+
+    # -- matching ---------------------------------------------------------
+
+    def match_sequence_hashes(self, hashes: Sequence[int]) -> List[Slot]:
+        """Longest registered prefix; the slots are not pinned yet (see
+        acquire_matched)."""
+        out = []
+        for h in hashes:
+            slot = self.registry.lookup(h)
+            if slot is None:
+                break
+            out.append(slot)
+        return out
+
+    def acquire_matched(self, slots: Sequence[Slot]) -> List[int]:
+        """Pin matched slots (reviving inactive ones); returns slot ids."""
+        ids = []
+        for slot in slots:
+            if slot.ref_count == 0:
+                self.registry.inactive.pop(slot.block_hash, None)
+            slot.ref_count += 1
+            ids.append(slot.index)
+            self.hits += 1
+        return ids
+
+    # -- allocation -------------------------------------------------------
+
+    def can_allocate(self, n: int) -> bool:
+        return n <= self.reusable_slots
+
+    def allocate(self, n: int) -> List[int]:
+        """Take n fresh slots, evicting LRU inactive blocks as needed."""
+        if not self.can_allocate(n):
+            raise RuntimeError(
+                f"{self.name}: out of blocks (want {n}, reusable "
+                f"{self.reusable_slots})")
+        out = []
+        for _ in range(n):
+            if not self._free:
+                self._evict_one()
+            idx = self._free.pop()
+            self._slots[idx] = Slot(index=idx, ref_count=1)
+            out.append(idx)
+            self.misses += 1
+        return out
+
+    def _evict_one(self) -> None:
+        h, slot = self.registry.inactive.popitem(last=False)  # LRU head
+        del self.registry.by_hash[h]
+        del self._slots[slot.index]
+        self._free.append(slot.index)
+        self.evictions += 1
+
+    # -- registration -----------------------------------------------------
+
+    def register(self, slot_index: int, block_hash: int) -> bool:
+        """Publish a completed block under its hash.  A hash already
+        registered (to any slot) keeps its registration and this returns
+        False: the caller's slot stays unregistered."""
+        if block_hash in self.registry.by_hash:
+            return False
+        slot = self._slots.get(slot_index)
+        if slot is None:
+            raise KeyError(f"{self.name}: slot {slot_index} not allocated")
+        slot.block_hash = block_hash
+        self.registry.by_hash[block_hash] = slot
+        return True
+
+    # -- release ----------------------------------------------------------
+
+    def release(self, slot_indices: Sequence[int]) -> None:
+        """Unpin; refcount-0 slots go inactive if registered (a future
+        prefix hit), else straight back to the free list.  The last page
+        of a sequence is released first, so its prefix outlives it in
+        the LRU order."""
+        for idx in reversed(list(slot_indices)):
+            slot = self._slots.get(idx)
+            if slot is None:
+                continue
+            slot.ref_count -= 1
+            if slot.ref_count > 0:
+                continue
+            if slot.block_hash is not None:
+                self.registry.inactive[slot.block_hash] = slot
+                self.registry.inactive.move_to_end(slot.block_hash)
+            else:
+                del self._slots[idx]
+                self._free.append(idx)
+
+    def clear_inactive(self) -> List[int]:
+        """Drop every inactive registered block (an admin cache flush);
+        returns the dropped hashes.  Pinned blocks stay; no eviction hook
+        fires."""
+        dropped = []
+        while self.registry.inactive:
+            h, slot = self.registry.inactive.popitem(last=False)
+            del self.registry.by_hash[h]
+            del self._slots[slot.index]
+            self._free.append(slot.index)
+            dropped.append(h)
+        return dropped

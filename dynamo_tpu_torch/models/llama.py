@@ -14,6 +14,11 @@ Forward contract (unified prefill/decode, as in the JAX package):
   mask.  At T == 1 with `use_decode_kernel` attention goes through the
   paged-decode kernel (ops/cuda/paged_attention.py); otherwise through
   the gather path (kv_cache.gather_kv + ops/attention.paged_attention).
+- An int8 cache (its dict carries `k_scale` / `v_scale`, as the JAX
+  package's) quantizes each written row with its per-token, per-head
+  scale and reads through the kernels' int8 bodies, or through
+  kv_cache.gather_kv_quant on the gather path; the cache dict's keys
+  decide the branch.
 - MoE layers run `moe_mode` "dense" (the exact oracle) or "grouped" (the
   grouped-expert kernel, ops/cuda/moe_grouped.py) and give an [E+1]
   expert-load stats vector each; `with_expert_load` (and the packed
@@ -92,6 +97,8 @@ def _attention_block(
     block_size: int,
     k_cache: torch.Tensor,        # [S, F] this layer's cache, written in place
     v_cache: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv] f32 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     B, T, _ = x.shape
     q = (x @ p_attn["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -99,7 +106,7 @@ def _attention_block(
     v = (x @ p_attn["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, rot)
     k = apply_rope(k, rot)
-    kvc.write_kv(k_cache, v_cache, write_slots,
+    _write_chunk(k_cache, v_cache, k_scale, v_scale, write_slots,
                  k.reshape(B * T, cfg.kv_size), v.reshape(B * T, cfg.kv_size))
     if ctx_slots is None:
         # Decode: stream each row's live pages through the kernel — no
@@ -107,14 +114,40 @@ def _attention_block(
         out = paged_decode_attention(
             q[:, 0].contiguous(), k_cache, v_cache, block_tables, seq_lens,
             block_size=block_size, scale=cfg.query_scale,
-            soft_cap=cfg.attn_soft_cap)[:, None]
+            soft_cap=cfg.attn_soft_cap, k_scale=k_scale,
+            v_scale=v_scale)[:, None]
     else:
-        k_ctx, v_ctx = kvc.gather_kv(k_cache, v_cache, ctx_slots,
-                                     cfg.num_kv_heads)
+        if k_scale is not None:
+            # Same dequantized operands as the kernels' int8 loader, in
+            # q's dtype.
+            k_ctx, v_ctx = kvc.gather_kv_quant(
+                k_cache, v_cache, k_scale, v_scale, ctx_slots,
+                cfg.num_kv_heads, out_dtype=q.dtype)
+        else:
+            k_ctx, v_ctx = kvc.gather_kv(k_cache, v_cache, ctx_slots,
+                                         cfg.num_kv_heads)
         out = paged_attention(q, k_ctx, v_ctx, positions, kv_positions,
                               seq_lens, scale=cfg.query_scale,
                               soft_cap=cfg.attn_soft_cap)
     return out.reshape(B, T, cfg.q_size) @ p_attn["wo"]
+
+
+def _write_chunk(k_cache, v_cache, k_scale, v_scale,
+                 slots: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a chunk's [N, F] K/V rows into one layer, in place: quantized
+    with their scales into an int8 cache, as they are otherwise."""
+    if k_scale is not None:
+        kvc.write_kv_quant(k_cache, v_cache, k_scale, v_scale, slots, k, v)
+    else:
+        kvc.write_kv(k_cache, v_cache, slots, k, v)
+
+
+def _layer_scales(cache: Dict, i: int):
+    """Layer i's (k_scale, v_scale) buffers; (None, None) for a cache
+    that is not quantized."""
+    if not kvc.cache_is_quantized(cache):
+        return None, None
+    return cache["k_scale"][i], cache["v_scale"][i]
 
 
 def _dense_mlp(p: State, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
@@ -224,7 +257,8 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                 cfg, layer["attn"],
                 rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off),
                 positions, rot, seq_lens, write_slots, ctx_slots, ctx_positions,
-                block_tables, block_size, cache["k"][i], cache["v"][i])
+                block_tables, block_size, cache["k"][i], cache["v"][i],
+                *_layer_scales(cache, i))
             x = _layer_tail(cfg, layer, x, attn_out, moe_mode, loads)
         x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
         if sample_positions is not None:
@@ -253,6 +287,7 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
 
     Pad rows carry the engine's pad position (null-block writes); logits
     come back [R, V], one row per segment (pad segments give junk rows).
+    An int8 pool attends through the prefill kernel's int8 body.
     A MoE model's step returns a third output, the [E+1] expert load."""
     cfg.validate()
 
@@ -277,14 +312,16 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
             v = (h_in @ p_attn["wv"]).reshape(1, T, cfg.num_kv_heads, cfg.head_dim)
             q = apply_rope(q, rot)
             k = apply_rope(k, rot)
-            kvc.write_kv(cache["k"][i], cache["v"][i], write_slots,
-                         k.reshape(T, cfg.kv_size), v.reshape(T, cfg.kv_size))
+            ks, vs = _layer_scales(cache, i)
+            _write_chunk(cache["k"][i], cache["v"][i], ks, vs,
+                         write_slots, k.reshape(T, cfg.kv_size),
+                         v.reshape(T, cfg.kv_size))
             # Write-then-attend: the chunk's own K/V are pool rows now, so
             # cached prefix and in-chunk causality are one position mask.
             attn = paged_prefill_attention(
                 q[0].contiguous(), cache["k"][i], cache["v"][i], *args,
                 block_size=block_size, scale=cfg.query_scale,
-                soft_cap=cfg.attn_soft_cap)
+                soft_cap=cfg.attn_soft_cap, k_scale=ks, v_scale=vs)
             attn = attn.reshape(1, T, cfg.q_size) @ p_attn["wo"]
             x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
         x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)

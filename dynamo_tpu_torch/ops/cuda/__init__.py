@@ -1,11 +1,15 @@
 """Hand-written CUDA kernels (sources in `dynamo_tpu_torch/csrc/`), each
 with its wrapper, its plain PyTorch version and a launch count.
 
-| TPU kernel (dynamo_tpu/ops/pallas/)        | Port                          |
-|--------------------------------------------|-------------------------------|
-| paged_attention.py:paged_decode_attention  | paged_attention.py, paged_decode.cu  |
-| paged_prefill.py:paged_prefill_attention   | paged_prefill.py, paged_prefill.cu   |
-| moe_grouped.py:grouped_expert_ffn          | moe_grouped.py, moe_grouped.cu       |
+| TPU kernel (dynamo_tpu/ops/pallas/)        | Port (bodies)                                  |
+|--------------------------------------------|------------------------------------------------|
+| paged_attention.py:paged_decode_attention  | paged_attention.py, paged_decode.cu (bf16, int8 cache)  |
+| paged_prefill.py:paged_prefill_attention   | paged_prefill.py, paged_prefill.cu (bf16, int8 cache)   |
+| moe_grouped.py:grouped_expert_ffn          | moe_grouped.py, moe_grouped.cu (bf16, int8 weights)     |
+| ring_attention.py:ring_flash_attention     | not ported yet (needs two or more GPUs)        |
+
+A wrapper with two cache bodies counts each under its own name, so a
+window of launch counts shows which body ran.
 """
 
 from dynamo_tpu_torch.ops.cuda.moe_grouped import (
@@ -27,21 +31,25 @@ from dynamo_tpu_torch.ops.cuda.paged_prefill import (
     paged_prefill_attention_plain,
 )
 
+# name -> (wrapper, the wrapper's attribute that counts that body)
 KERNELS = {
-    "paged_decode_attention": paged_decode_attention,
-    "paged_prefill_attention": paged_prefill_attention,
-    "moe_grouped": grouped_expert_ffn,
+    "paged_decode_attention": (paged_decode_attention, "launches"),
+    "paged_decode_attention_int8": (paged_decode_attention, "launches_int8"),
+    "paged_prefill_attention": (paged_prefill_attention, "launches"),
+    "paged_prefill_attention_int8": (paged_prefill_attention,
+                                     "launches_int8"),
+    "moe_grouped": (grouped_expert_ffn, "launches"),
 }
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since its count was last reset."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches of each kernel body since its count was last reset."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)
 
 
 __all__ = [

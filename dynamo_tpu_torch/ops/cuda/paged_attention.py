@@ -4,9 +4,14 @@
 `paged_decode_attention` launches `csrc/paged_decode.cu` for CUDA tensors
 and runs `paged_decode_attention_plain` for CPU tensors; there is no other
 fallback.  Numerics follow the TPU kernel: the query is scaled in f32 and
-rounded to the cache dtype, products accumulate in f32, softmax runs in
-f32 and the probabilities round to V's dtype for the second product.  A
-row with `seq_len == 0` reads nothing and returns zeros.
+rounded to the cache dtype (to q's dtype over an int8 cache), products
+accumulate in f32, softmax runs in f32 and the probabilities round to V's
+dtype for the second product.  A row with `seq_len == 0` reads nothing
+and returns zeros.
+
+An int8 cache comes with its `k_scale` / `v_scale` buffers ([S, Hkv] f32,
+kv_cache.init_cache); pages dequantize as `kv_cache.dequantize_rows` does,
+into q's dtype, and the launch counts as `launches_int8`.
 """
 
 from __future__ import annotations
@@ -30,9 +35,12 @@ def paged_decode_attention_plain(
     block_size: int,
     scale: Optional[float] = None,
     soft_cap: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv] f32 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gather each row's pages, attend the single query at position
     seq_len - 1 over them; [B, Hq, D] in q's dtype."""
+    quant = check_quant_args(k_cache, k_scale, v_scale)
     B, Hq, D = q.shape
     Hkv = k_cache.shape[1] // D
     if scale is None:
@@ -41,8 +49,8 @@ def paged_decode_attention_plain(
     C = P * block_size
     ctx_pos = torch.arange(C, device=q.device).expand(B, C)
     slots = kvc.slots_for_positions(block_tables, ctx_pos, block_size)
-    k_ctx, v_ctx = kvc.gather_kv(k_cache, v_cache, slots, Hkv)
-    q_scaled = (q.float() * scale).to(k_cache.dtype)
+    k_ctx, v_ctx, q_scaled = gather_context(q, k_cache, v_cache, k_scale,
+                                            v_scale, slots, Hkv, scale, quant)
     seq_lens = seq_lens.long()
     out = paged_attention(q_scaled[:, None], k_ctx, v_ctx,
                           (seq_lens - 1)[:, None], ctx_pos, seq_lens,
@@ -50,6 +58,32 @@ def paged_decode_attention_plain(
     out = torch.where((seq_lens > 0)[:, None, None], out.float(),
                       torch.zeros((), device=q.device))
     return out.to(q.dtype)
+
+
+def check_quant_args(k_cache: torch.Tensor, k_scale, v_scale) -> bool:
+    """True for an int8 cache given with both scale buffers, False for an
+    unquantized cache given with neither; raises otherwise."""
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if quant and k_cache.dtype != torch.int8:
+        raise ValueError(f"scales imply an int8 cache; got {k_cache.dtype}")
+    if not quant and k_cache.dtype == torch.int8:
+        raise ValueError("an int8 cache needs its k_scale and v_scale")
+    return quant
+
+
+def gather_context(q, k_cache, v_cache, k_scale, v_scale, slots, Hkv,
+                   scale, quant):
+    """The plain versions' operands: the gathered [B, C, Hkv, D] context
+    (dequantized into q's dtype over an int8 cache) and the scaled query
+    rounded to the context's dtype, as the kernels round it."""
+    if quant:
+        k_ctx, v_ctx = kvc.gather_kv_quant(k_cache, v_cache, k_scale, v_scale,
+                                           slots, Hkv, out_dtype=q.dtype)
+    else:
+        k_ctx, v_ctx = kvc.gather_kv(k_cache, v_cache, slots, Hkv)
+    return k_ctx, v_ctx, (q.float() * scale).to(k_ctx.dtype)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -74,31 +108,32 @@ def paged_decode_attention(
     block_size: int,
     scale: Optional[float] = None,
     soft_cap: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv] f32 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode-step attention over the paged cache; [B, Hq, D].
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    (bf16 query and cache, D % 8 == 0, G * D within the kernel's output
-    budget) or raise."""
+    (bf16 query; bf16 cache with D % 8 == 0, or int8 cache and scales
+    with D % 16 == 0; G * D within the kernel's output budget) or raise."""
+    quant = check_quant_args(k_cache, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, block_tables, seq_lens,
-            block_size=block_size, scale=scale, soft_cap=soft_cap)
+            block_size=block_size, scale=scale, soft_cap=soft_cap,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged decode kernel for device {q.device}")
     dev = q.device
     _check(q, "q", torch.bfloat16, 3, dev)
-    _check(k_cache, "k_cache", torch.bfloat16, 2, dev)
-    _check(v_cache, "v_cache", torch.bfloat16, 2, dev)
+    check_cache(k_cache, v_cache, k_scale, v_scale, q.shape[2], dev)
     _check(block_tables, "block_tables", torch.int32, 2, dev)
     _check(seq_lens, "seq_lens", torch.int32, 1, dev)
     B, Hq, D = q.shape
     S, F = k_cache.shape
-    if v_cache.shape != k_cache.shape:
-        raise ValueError("k_cache and v_cache shapes differ")
-    if D % 8 or F % D or Hq % (F // D):
+    if Hq % (F // D):
         raise ValueError(f"bad geometry: q {tuple(q.shape)}, cache "
-                         f"{tuple(k_cache.shape)} (needs D % 8 == 0)")
+                         f"{tuple(k_cache.shape)}")
     if block_tables.shape[0] != B or seq_lens.shape[0] != B:
         raise ValueError("block_tables / seq_lens rows must match q")
     if S % block_size:
@@ -108,26 +143,62 @@ def paged_decode_attention(
     if (Hq // Hkv) * D > lib.dtt_paged_decode_max_out():
         raise ValueError(f"G * D = {(Hq // Hkv) * D} exceeds the decode "
                          "kernel's per-CTA output budget")
-    for t in (q, k_cache, v_cache):
-        if t.data_ptr() % 16:
-            raise ValueError("q and the cache must be 16-byte aligned")
+    if q.data_ptr() % 16:
+        raise ValueError("q and the cache must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0:
         return out
     if scale is None:
         scale = D ** -0.5
-    err = lib.dtt_paged_decode_bf16(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, D, block_tables.shape[1], block_size, float(scale),
-        float(soft_cap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
+    tail = (block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, D, block_tables.shape[1], block_size, float(scale),
+            float(soft_cap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
+    if quant:
+        err = lib.dtt_paged_decode_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+    else:
+        err = lib.dtt_paged_decode_bf16(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *tail)
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {err}")
-    paged_decode_attention.launches += 1
+    if quant:
+        paged_decode_attention.launches_int8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0
+
+
+def check_cache(k_cache, v_cache, k_scale, v_scale, D: int,
+                device: torch.device) -> None:
+    """The kernels' cache contract: bf16 K/V with D % 8 == 0, or int8 K/V
+    with D % 16 == 0 and f32 [S, Hkv] scales (16-byte row vectors either
+    way); contiguous, 16-byte aligned, on `device`."""
+    quant = k_scale is not None
+    dtype, vec = (torch.int8, 16) if quant else (torch.bfloat16, 8)
+    _check(k_cache, "k_cache", dtype, 2, device)
+    _check(v_cache, "v_cache", dtype, 2, device)
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("k_cache and v_cache shapes differ")
+    S, F = k_cache.shape
+    if D % vec or F % D:
+        raise ValueError(f"bad geometry: cache {tuple(k_cache.shape)}, head "
+                         f"dim {D} (needs D % {vec} == 0 for a {dtype} "
+                         "cache)")
+    if quant:
+        _check(k_scale, "k_scale", torch.float32, 2, device)
+        _check(v_scale, "v_scale", torch.float32, 2, device)
+        if (tuple(k_scale.shape) != (S, F // D)
+                or v_scale.shape != k_scale.shape):
+            raise ValueError(f"scales must be [{S}, {F // D}], got "
+                             f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)}")
+    for t in (k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError("q and the cache must be 16-byte aligned")
 
 
 def _lib() -> ctypes.CDLL:
@@ -136,9 +207,12 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_decode")
     fn = lib.dtt_paged_decode_bf16
     if fn.argtypes is None:
+        tail = ([ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 6 + tail
+        lib.dtt_paged_decode_int8.restype = ctypes.c_int
+        lib.dtt_paged_decode_int8.argtypes = [ctypes.c_void_p] * 8 + tail
         lib.dtt_paged_decode_max_out.restype = ctypes.c_int
         lib.dtt_paged_decode_max_out.argtypes = []
     return lib

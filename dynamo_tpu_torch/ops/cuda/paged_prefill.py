@@ -8,7 +8,8 @@ its own block table's slots where `kv_pos < seq_len AND kv_pos <= q_pos`.
 The chunk's K/V must already be written to the pool.  Rows no segment
 owns come back zero.  `paged_prefill_attention` launches
 `csrc/paged_prefill.cu` for CUDA tensors and runs the plain version for
-CPU tensors.
+CPU tensors.  An int8 pool comes with its `k_scale` / `v_scale` buffers,
+as for the decode kernel, and its launches count as `launches_int8`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,12 @@ import torch
 
 from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.ops.attention import paged_attention
-from dynamo_tpu_torch.ops.cuda.paged_attention import _check
+from dynamo_tpu_torch.ops.cuda.paged_attention import (
+    _check,
+    check_cache,
+    check_quant_args,
+    gather_context,
+)
 
 # Packed-axis alignment the engine's packing honours: T and every
 # segment start are multiples of this (the TPU kernel's sublane contract,
@@ -40,16 +46,18 @@ def paged_prefill_attention_plain(
     block_size: int,
     scale: Optional[float] = None,
     soft_cap: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv] f32 (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per segment: gather its table's pages and attend its rows with the
     position mask.  Reads the segment descriptors on the host."""
+    quant = check_quant_args(k_cache, k_scale, v_scale)
     T, Hq, D = q.shape
     Hkv = k_cache.shape[1] // D
     if scale is None:
         scale = D ** -0.5
     P = block_tables.shape[1]
     C = P * block_size
-    q_scaled = (q.float() * scale).to(k_cache.dtype)
     out = torch.zeros_like(q)
     ctx_pos = torch.arange(C, device=q.device)[None]
     for r, (sl, qs, ql) in enumerate(zip(seq_lens.tolist(), q_starts.tolist(),
@@ -58,9 +66,11 @@ def paged_prefill_attention_plain(
             continue
         slots = kvc.slots_for_positions(block_tables[r:r + 1], ctx_pos,
                                         block_size)
-        k_ctx, v_ctx = kvc.gather_kv(k_cache, v_cache, slots, Hkv)
+        k_ctx, v_ctx, q_scaled = gather_context(
+            q[qs:qs + ql], k_cache, v_cache, k_scale, v_scale, slots, Hkv,
+            scale, quant)
         q_pos = torch.arange(sl - ql, sl, device=q.device)[None]
-        o = paged_attention(q_scaled[None, qs:qs + ql], k_ctx, v_ctx, q_pos,
+        o = paged_attention(q_scaled[None], k_ctx, v_ctx, q_pos,
                             ctx_pos, torch.tensor([sl], device=q.device),
                             scale=1.0, soft_cap=soft_cap)
         out[qs:qs + ql] = o[0].to(q.dtype)
@@ -79,22 +89,25 @@ def paged_prefill_attention(
     block_size: int,
     scale: Optional[float] = None,
     soft_cap: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [S, Hkv] f32 (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Packed ragged prefill attention over the paged pool; [T, Hq, D].
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    (bf16, D in {32, 64, 128}, Hq / Hkv dividing the kernel's 64 query
-    rows per CTA, T % PACK_ALIGN == 0) or raise."""
+    (bf16 query, bf16 or int8 pool, D in {32, 64, 128}, Hq / Hkv dividing
+    the kernel's 64 query rows per CTA, T % PACK_ALIGN == 0) or raise."""
+    quant = check_quant_args(k_cache, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_cache, v_cache, block_tables, seq_lens, q_starts, q_lens,
-            block_size=block_size, scale=scale, soft_cap=soft_cap)
+            block_size=block_size, scale=scale, soft_cap=soft_cap,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged prefill kernel for device {q.device}")
     dev = q.device
     _check(q, "q", torch.bfloat16, 3, dev)
-    _check(k_cache, "k_cache", torch.bfloat16, 2, dev)
-    _check(v_cache, "v_cache", torch.bfloat16, 2, dev)
+    check_cache(k_cache, v_cache, k_scale, v_scale, q.shape[2], dev)
     _check(block_tables, "block_tables", torch.int32, 2, dev)
     for name, t in (("seq_lens", seq_lens), ("q_starts", q_starts),
                     ("q_lens", q_lens)):
@@ -102,8 +115,6 @@ def paged_prefill_attention(
     T, Hq, D = q.shape
     S, F = k_cache.shape
     R = block_tables.shape[0]
-    if v_cache.shape != k_cache.shape:
-        raise ValueError("k_cache and v_cache shapes differ")
     if D not in (32, 64, 128) or F % D or Hq % (F // D):
         raise ValueError(f"bad geometry: q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)} (kernel takes D in "
@@ -120,27 +131,35 @@ def paged_prefill_attention(
     if lib.dtt_paged_prefill_rows() % (Hq // Hkv):
         raise ValueError(f"GQA group {Hq // Hkv} must divide the prefill "
                          f"kernel's {lib.dtt_paged_prefill_rows()} rows")
-    for t in (q, k_cache, v_cache):
-        if t.data_ptr() % 16:
-            raise ValueError("q and the cache must be 16-byte aligned")
+    if q.data_ptr() % 16:
+        raise ValueError("q and the cache must be 16-byte aligned")
     out = torch.empty_like(q)
     if T == 0:
         return out
     if scale is None:
         scale = D ** -0.5
-    err = lib.dtt_paged_prefill_bf16(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), q_starts.data_ptr(),
-        q_lens.data_ptr(), out.data_ptr(), T, R, Hq, Hkv, D,
-        block_tables.shape[1], block_size, float(scale),
-        float(soft_cap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
+    tail = (block_tables.data_ptr(), seq_lens.data_ptr(), q_starts.data_ptr(),
+            q_lens.data_ptr(), out.data_ptr(), T, R, Hq, Hkv, D,
+            block_tables.shape[1], block_size, float(scale),
+            float(soft_cap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
+    if quant:
+        err = lib.dtt_paged_prefill_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+    else:
+        err = lib.dtt_paged_prefill_bf16(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *tail)
     if err:
         raise RuntimeError(f"paged_prefill kernel launch failed: CUDA error {err}")
-    paged_prefill_attention.launches += 1
+    if quant:
+        paged_prefill_attention.launches_int8 += 1
+    else:
+        paged_prefill_attention.launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.launches_int8 = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -149,9 +168,12 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_prefill")
     fn = lib.dtt_paged_prefill_bf16
     if fn.argtypes is None:
+        tail = ([ctypes.c_int] * 7
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.dtt_paged_prefill_int8.restype = ctypes.c_int
+        lib.dtt_paged_prefill_int8.argtypes = [ctypes.c_void_p] * 10 + tail
         lib.dtt_paged_prefill_rows.restype = ctypes.c_int
         lib.dtt_paged_prefill_rows.argtypes = []
     return lib

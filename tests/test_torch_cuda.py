@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (paged decode and prefill attention, the
-grouped MoE expert FFN in bf16 and int8) and engine on the card.
+"""The port's CUDA kernels (paged decode and prefill attention over bf16
+and int8 caches, the grouped MoE expert FFN in bf16 and int8) and engine
+on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The suite's
 conftest imports JAX, which the GPU machine does not have, so run this
@@ -30,6 +31,7 @@ from dynamo_tpu_torch.ops.cuda import (
     paged_prefill_attention_plain,
     quantize_moe_params,
 )
+from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.ops.moe import expert_tiles
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +124,81 @@ def test_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     assert out[212:].abs().max().item() == 0       # tail rows
 
 
+def _int8_pool(gen, S, hkv, d, dev):
+    """int8 K and V pools with their [S, Hkv] scales, quantized from
+    random bf16 rows as the engine writes them."""
+    out = {}
+    for name in ("k", "v"):
+        q, s = kvc.quantize_kv_rows(_rand(gen, S, hkv * d, dev=dev), hkv)
+        out[name], out[name + "_scale"] = q, s
+    return out
+
+
+@pytest.mark.parametrize("hq,hkv,d,bs,cap", [
+    (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 2, 32, 8, None),
+    (32, 8, 128, 64, None)])
+def test_int8_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
+    """Ragged rows over an int8 cache: empty rows, one token, a tail page
+    one past a page boundary, full tables."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, P = 9, 6
+    nblocks = 1 + B * P
+    pool = _int8_pool(gen, nblocks * bs, hkv, d, dev)
+    q = _rand(gen, B, hq, d, dev=dev)
+    bt = (torch.randperm(nblocks - 1, generator=gen, device=dev)[: B * P]
+          + 1).reshape(B, P).to(torch.int32)
+    lens = [P * bs, 0, 1, bs - 1, bs + 1, 3 * bs, 0, 2, P * bs - 3]
+    for i, n in enumerate(lens):
+        bt[i, -(-n // bs):] = 0
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (q, pool["k"], pool["v"], bt, sl)
+    kw = dict(block_size=bs, soft_cap=cap, k_scale=pool["k_scale"],
+              v_scale=pool["v_scale"])
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.launches_int8)
+    out = paged_decode_attention(*args, **kw)
+    ref = paged_decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == (before[0], before[1] + 1)
+    _assert_close(out, ref)
+    assert out[1].abs().max().item() == 0 and out[6].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("hq,hkv,d,bs,cap", [
+    (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 2, 32, 8, None),
+    (32, 8, 128, 64, None)])
+def test_int8_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
+    """Packed segments over an int8 pool: a cached prefix, a one-token
+    segment, alignment gaps and tail rows."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    R, P = 6, 16
+    segs = [(0, 37, 37), (40, 64, 90), (104, 1, 1), (112, 100, 100)]
+    T = 216
+    nblocks = 1 + R * P
+    pool = _int8_pool(gen, nblocks * bs, hkv, d, dev)
+    q = _rand(gen, T, hq, d, dev=dev)
+    perm = torch.randperm(nblocks - 1, generator=gen, device=dev) + 1
+    bt = torch.zeros(R, P, dtype=torch.int32, device=dev)
+    qs, ql, sl = ([0] * R for _ in range(3))
+    for i, (st, n, c) in enumerate(segs):
+        qs[i], ql[i], sl[i] = st, n, c
+        npg = -(-c // bs)
+        bt[i, :npg] = perm[i * P: i * P + npg].to(torch.int32)
+    args = [q, pool["k"], pool["v"], bt] + [
+        torch.tensor(x, dtype=torch.int32, device=dev) for x in (sl, qs, ql)]
+    kw = dict(block_size=bs, soft_cap=cap, k_scale=pool["k_scale"],
+              v_scale=pool["v_scale"])
+    before = paged_prefill_attention.launches_int8
+    out = paged_prefill_attention(*args, **kw)
+    ref = paged_prefill_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches_int8 == before + 1
+    _assert_close(out, ref)
+    assert out[37:40].abs().max().item() == 0
+    assert out[212:].abs().max().item() == 0
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_moe_grouped_kernel_matches_plain(dev, int8):
     """Ragged tiles: 45 tokens x top-2 over 5 experts, one expert with no
@@ -172,6 +249,21 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         paged_prefill_attention(torch.zeros(12, 8, 64, dtype=torch.bfloat16,
                                             device=dev), kc, kc, bt, sl, sl,
                                 sl, block_size=64)
+    # int8 rows load as 16-byte vectors: D 24 is refused, as are scales of
+    # the wrong shape.
+    k8 = torch.zeros(64, 48, dtype=torch.int8, device=dev)
+    sc = torch.ones(64, 2, device=dev)
+    with pytest.raises(ValueError, match="D % 16"):
+        paged_decode_attention(torch.zeros(2, 4, 24, dtype=torch.bfloat16,
+                                           device=dev), k8, k8, bt, sl,
+                               block_size=64, k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="scales must be"):
+        paged_decode_attention(qb, torch.zeros(64, 128, dtype=torch.int8,
+                                               device=dev),
+                               torch.zeros(64, 128, dtype=torch.int8,
+                                           device=dev), bt, sl,
+                               block_size=64, k_scale=sc[:, :1].contiguous(),
+                               v_scale=sc[:, :1].contiguous())
     w = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device=dev)
     x = torch.zeros(64, 64, dtype=torch.bfloat16, device=dev)
     te = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -179,34 +271,62 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         grouped_expert_ffn(x, te, w, w, w.transpose(1, 2).contiguous())
 
 
-def test_engine_serves_greedy_through_both_kernels(dev):
+def _tiny_engine(dev, **kw):
     from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore
-    from dynamo_tpu_torch.engine.sampling import SamplingParams
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
     from dynamo_tpu_torch.models.config import get_config
 
     cfg = get_config("tiny-test").replace(head_dim=32, dtype=torch.bfloat16)
-    core = EngineCore(EngineConfig(
+    return EngineCore(EngineConfig(
         model=cfg, num_blocks=64, device="cuda",
         scheduler=SchedulerConfig(max_seqs=8, block_size=8,
                                   max_pages_per_seq=16, max_prefill_chunk=32,
                                   decode_buckets=(1, 2, 4, 8),
-                                  prefill_buckets=(8, 16, 32))))
-    d0, p0 = paged_decode_attention.launches, paged_prefill_attention.launches
-    for i, n in enumerate((5, 40, 17)):
-        core.add_request(f"r{i}", list(range(1, n + 1)),
-                         SamplingParams(max_tokens=20))
+                                  prefill_buckets=(8, 16, 32)), **kw))
+
+
+def _serve(core, prompts):
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    for rid, p in prompts.items():
+        core.add_request(rid, p, SamplingParams(max_tokens=20))
     out = {}
     for _ in range(500):
         for d in core.step():
             out.setdefault(d.request_id, []).extend(d.token_ids)
         if not core.has_work:
             break
+    return out
+
+
+def test_engine_serves_greedy_through_both_kernels(dev):
+    core = _tiny_engine(dev)
+    d0, p0 = paged_decode_attention.launches, paged_prefill_attention.launches
+    out = _serve(core, {f"r{i}": list(range(1, n + 1))
+                        for i, n in enumerate((5, 40, 17))})
     assert sorted(out) == ["r0", "r1", "r2"]
     assert all(len(t) == 20 for t in out.values())
     assert paged_decode_attention.launches > d0
     assert paged_prefill_attention.launches > p0
     assert core.counters.window_dispatches > 0
+
+
+def test_int8_engine_with_prefix_cache_runs_the_int8_kernels(dev):
+    """tiny-test in bf16 with an int8 cache and the prefix cache on: a
+    second wave over the first wave's 3-block prefix hits, and only the
+    int8 bodies of K1 and K2 launch."""
+    core = _tiny_engine(dev, kv_quant="int8")
+    before = {n: (f.launches, f.launches_int8)
+              for n, f in (("d", paged_decode_attention),
+                           ("p", paged_prefill_attention))}
+    shared = list(range(1, 25))
+    first = _serve(core, {"a": shared + [40, 41], "b": shared + [50]})
+    second = _serve(core, {"c": shared + [60, 61, 62], "d": shared[:]})
+    assert all(len(t) == 20 for t in {**first, **second}.values())
+    assert core.scheduler.prefix_hit_tokens == 24 + 23
+    for n, f in (("d", paged_decode_attention), ("p", paged_prefill_attention)):
+        assert f.launches == before[n][0]
+        assert f.launches_int8 > before[n][1]
 
 
 @pytest.mark.parametrize("int8", [False, True])

@@ -1,7 +1,8 @@
 """The port's EngineCore against the JAX EngineCore on the same prompts.
 
 Both engines get the same `tiny-test` weights (f32, through the weight
-bridge), the same scheduler geometry, packed prefill and no prefix cache.
+bridge), the same scheduler geometry, packed prefill and no prefix cache
+(tests/test_torch_prefix_cache.py runs both with it on).
 Greedy output must be token-identical — through chunked prefill, decode
 windows, the single-step path, and recompute-preemption under block
 contention (the scenario of tests/test_engine.py).  Logprobs agree to
@@ -50,6 +51,7 @@ def jax_core(params, num_blocks=64):
 
 
 def port_core(state, num_blocks=64, **kw):
+    kw.setdefault("enable_prefix_cache", False)
     return EngineCore(EngineConfig(
         model=tcfg.get_config("tiny-test"), num_blocks=num_blocks,
         device="cpu", scheduler=SchedulerConfig(**GEOM), **kw), params=state)

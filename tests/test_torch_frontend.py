@@ -7,8 +7,8 @@ the package's import boundary.
 - As a process: `python -m dynamo_tpu_torch.frontend --device cpu` serves
   a chat completion.
 - In a fresh interpreter (this suite's conftest imports jax for every
-  test): importing every `dynamo_tpu_torch` module loads no `jax` and no
-  `dynamo_tpu`.
+  test): importing every `dynamo_tpu_torch` module loads no `jax`, no
+  `dynamo_tpu` and no `xxhash` (the GPU machine has none of them).
 """
 
 import asyncio
@@ -155,18 +155,25 @@ def test_frontend_module_serves_on_cpu(tmp_path):
         assert json.loads(body)["usage"]["completion_tokens"] == 3
         stats = _get(base + "/debug/stats")
         assert stats["device"] == "cpu"
-        # CPU tensors take the plain versions: no kernel launched.
+        # CPU tensors take the plain versions: no kernel body launched.
         assert stats["kernels"] == {"paged_decode_attention": 0,
+                                    "paged_decode_attention_int8": 0,
                                     "paged_prefill_attention": 0,
+                                    "paged_prefill_attention_int8": 0,
                                     "moe_grouped": 0}
         assert stats["moe_mode"] == "dense" and stats["expert_load"] is None
+        assert stats["kv_quant"] == "none"
+        pc = stats["prefix_cache"]
+        assert pc["enabled"] and pc["hit_tokens"] == 0
+        assert pc["miss_tokens"] > 0 and pc["hit_rate"] == 0.0
         assert len(stats["requests"]) == 1
         assert stats["counters"]["prefill_dispatches"] > 0
-        # The reset zeroes launch counts, engine counters and request
-        # timings together.
+        # The reset zeroes launch counts, engine counters, prefix hit and
+        # miss tokens and request timings together.
         assert _post(base + "/debug/stats/reset", {})[0] == 200
         stats = _get(base + "/debug/stats")
         assert set(stats["counters"].values()) == {0}
+        assert stats["prefix_cache"]["miss_tokens"] == 0
         assert set(stats["kernels"].values()) == {0}
         assert stats["requests"] == []
     finally:
@@ -187,7 +194,8 @@ def test_package_imports_no_jax_and_nothing_of_dynamo_tpu():
         "        importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'dynamo_tpu' "
-        "or m.startswith('dynamo_tpu.'))\n"
+        "or m.startswith('dynamo_tpu.') or m == 'xxhash' "
+        "or m.startswith('xxhash.'))\n"
         "print(len(names), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

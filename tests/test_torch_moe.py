@@ -344,7 +344,8 @@ def test_engine_greedy_tokens_match_jax(params):
     for mode in ("auto", "grouped"):
         core = EngineCore(EngineConfig(
             model=TC, num_blocks=64, device="cpu", moe_mode=mode,
-            scheduler=SchedulerConfig(**GEOM)), params=state)
+            enable_prefix_cache=False, scheduler=SchedulerConfig(**GEOM)),
+            params=state)
         assert core.moe_mode == ("dense" if mode == "auto" else "grouped")
         assert _serve(core, SamplingParams) == want
         load = core.snapshot_expert_load()
@@ -357,7 +358,8 @@ def test_engine_greedy_tokens_match_jax(params):
     # A logprob row takes the single-step path: same tokens, same count.
     core = EngineCore(EngineConfig(
         model=TC, num_blocks=64, device="cpu", moe_mode="grouped",
-        scheduler=SchedulerConfig(**GEOM)), params=state)
+        enable_prefix_cache=False, scheduler=SchedulerConfig(**GEOM)),
+        params=state)
     assert _serve(core, SamplingParams, logprobs=True) == want
     assert core.counters.single_step_dispatches > 0
     assert int(core.snapshot_expert_load().sum()) == (
