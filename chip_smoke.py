@@ -6,7 +6,8 @@
 Phases, one JSON line each (a failed phase exits non-zero and prints no
 `ok` line):
 
-1. device   — the card's name, count, torch/CUDA versions.
+1. device   — the card's name, count, torch/CUDA versions, and the
+   rank -> card map an `--sp 4` ring gets on this machine.
 2. build    — nvcc builds every kernel source, one process each, at once.
 3. kernel_list — the kernels of the main paths.
 4. one line per kernel and geometry, held against its plain PyTorch
@@ -23,7 +24,18 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      scale bytes, SDPA on the dequantized gathered context);
    - the grouped expert FFN (K3), bf16 and int8 weights, at mixtral-8x7b
      width (E 8, top-2, H 4096, F 14336) with decode (64 tokens) and
-     prefill (512 tokens) row counts routed by the port's own MoE routing.
+     prefill (512 tokens) row counts routed by the port's own MoE routing;
+   - the ring attention flash fold (K4), bf16 and int8 blocks, D 64 and
+     D 128 at Hq 32 / Hkv 8: the whole ring of 4 ranks on card 0 (and a
+     second line over 4 distinct cards where the machine has them) at
+     T 512 (T_loc 128, the served shape) and T 8192 (T_loc 2048), against
+     the plain ring and against the port's causal_attention on the
+     unsharded sequence; timed as a whole (4 ranks x 4 hops, copies
+     included) and as one fold launch; the yardstick is one causal
+     scaled_dot_product_attention call on the whole sequence.  The bound
+     counts what the function must move (q, out, every visiting block);
+     the f32 state that one launch per hop stores and reloads is printed
+     beside it as `state_bytes`.
 5. model    — llama-3-1b at full width, random weights: packed prefill and
    decode steps through the kernels against the gather path.
 6. model_int8 — the same over an int8 KV cache (K2 and K1 int8 against
@@ -44,6 +56,20 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
 10. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
    (one card cannot hold its 32 layers): K1, K2 and K3 must have
    launched and the expert load must count every routed row.
+11. model_sp — llama-3-1b at full width and depth: a 480-token and a
+   512-token prompt through the sequence-parallel prefill step (4 ranks
+   on card 0, K4) against the packed prefill step (K2), over a bf16 and
+   an int8 cache: logits, greedy tokens, the written cache rows, the K4
+   launch count, then two decode steps (K1) from each cache.
+12. serve_sp — `--model llama-3-1b --sp 4` as a subprocess: long chats
+   (400-500 prompt tokens, no shared first block) one at a time while
+   nothing decodes, which must all prefill through the ring kernel with
+   16 layers x 4 ranks x 4 hops fold launches a dispatch and the modeled
+   ring bytes of the reference's formula; then the mixed wave of `serve`
+   plus two long chats (K1, K2 and K4 all launch); then the same lone
+   long chats on an `--sp 4 --kv-quant int8` server, which must take K4's
+   int8 body with the int8 payload's ring bytes.  The long chats' TTFT is
+   printed beside that of the same chats on an `--sp 1` server.
 
 Then the card's `nvidia-smi` name/power-limit line, the kernels summary
 `{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
@@ -83,19 +109,31 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 # where an f32 sum lands near a bf16 rounding boundary of h, u or the
 # activation (the two sum in other orders).
 RTOL = 2.0 ** -7
+RING_ATOL, RING_ROW_TOL = 5e-4, 6e-3
 # The int8 attention bodies dequantize into the same bf16 operands as
 # their plain versions (kv_cache.dequantize_rows), so they keep the bf16
 # bodies' limits.
 ATOL = {"paged_decode_attention": 3e-3, "paged_prefill_attention": 8e-3,
         "paged_decode_attention_int8": 3e-3,
         "paged_prefill_attention_int8": 8e-3,
-        "moe_grouped": 4e-3, "moe_grouped_int8": 4e-3}
+        "moe_grouped": 4e-3, "moe_grouped_int8": 4e-3,
+        # The fold kernel and the plain ring run the same f32 arithmetic
+        # and differ in the order of their sums (64-key tiles against the
+        # whole block) and in expf against torch.exp; the output rounds to
+        # bf16 once, so every error read so far sits inside RTOL * |plain|
+        # (ATOL needed 1.4e-7) and the row error is at most 2.9e-3.
+        # Against causal_attention the probabilities also round to bf16 on
+        # one side only (ATOL needed 4.1e-3, row error 5.2e-3).
+        "ring_flash_attention": RING_ATOL, "ring_flash_attention_int8": RING_ATOL,
+        "ring_vs_causal": 8e-3}
 # Limits about twice the largest reading on an H100 80GB HBM3 at these
 # shapes and at those of tests/test_torch_cuda.py.
 ROW_TOL = {"paged_decode_attention": 1e-2, "paged_prefill_attention": 1e-2,
            "paged_decode_attention_int8": 1e-2,
            "paged_prefill_attention_int8": 1e-2,
-           "moe_grouped": 4e-3, "moe_grouped_int8": 4e-3}
+           "moe_grouped": 4e-3, "moe_grouped_int8": 4e-3,
+           "ring_flash_attention": RING_ROW_TOL,
+           "ring_flash_attention_int8": RING_ROW_TOL, "ring_vs_causal": 1e-2}
 # Relative logits error, kernel path vs gather path.  The MoE model's is
 # larger: the two attention paths differ in the last bf16 bit, and a
 # router whose 2nd and 3rd expert logits nearly tie then picks another
@@ -114,6 +152,9 @@ SEED = 0                       # also the server's weight seed (EngineConfig)
 SYSTEM_BLOCKS = 10             # serve_int8's shared system prompt, in blocks
 BS, HQ, HKV = 64, 32, 8        # attention geometry of both models, block 64
 MOE_LAYERS = 16                # mixtral-8x7b depth served on one 80 GB card
+SP = 4                         # ring ranks of the sp phases
+RING_SHAPES = ((1, 512), (1, 8192))   # (B, T): T_loc 128 (served), 2048
+LONG_CHATS = 4                 # serve_sp's first wave
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
@@ -122,6 +163,8 @@ SOURCES = {
                                 "dynamo_tpu/ops/pallas/paged_prefill.py:227"),
     "moe_grouped": ("dynamo_tpu_torch/csrc/moe_grouped.cu",
                     "dynamo_tpu/ops/pallas/moe_grouped.py:141"),
+    "ring_flash_attention": ("dynamo_tpu_torch/csrc/ring_flash.cu",
+                             "dynamo_tpu/ops/pallas/ring_attention.py:350"),
 }
 
 
@@ -144,7 +187,7 @@ def bound(nbytes: float, flops: float):
     return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
 
 
-def closeness(torch, name: str, out, ref) -> dict:
+def closeness(torch, name: str, out, ref, limits: str = "") -> dict:
     """The readings of a kernel-vs-plain comparison beside the kernel's
     limits: the largest absolute error, the smallest ATOL that passes
     under RTOL, and the largest row-normalised error."""
@@ -156,12 +199,13 @@ def closeness(torch, name: str, out, ref) -> dict:
     r_norm, e_norm = r.norm(dim=1), (o - r).norm(dim=1)
     live = r_norm > 0
     row = (e_norm[live] / r_norm[live]).max().item() if live.any() else 0.0
+    limits = limits or name
     reading = {"max_abs_err": diff.max().item(), "atol_needed": need,
-               "atol": ATOL[name], "rtol": RTOL, "row_rel_err": row,
-               "row_tol": ROW_TOL[name]}
+               "atol": ATOL[limits], "rtol": RTOL, "row_rel_err": row,
+               "row_tol": ROW_TOL[limits]}
     check(not bool((e_norm[~live] > 0).any()),
           f"{name}: rows the plain version zeroes are not zero")
-    check(need <= ATOL[name] and row <= ROW_TOL[name],
+    check(need <= ATOL[limits] and row <= ROW_TOL[limits],
           f"{name} disagrees with its plain version: {reading}")
     return reading
 
@@ -436,6 +480,121 @@ def moe_kernel_phases(torch, gen):
     return out
 
 
+def ring_phase(torch, gen, D, quant=False, devices=None):
+    """K4 at Hq 32 / Hkv 8: the whole ring of SP ranks (all on card 0, or
+    on `devices`) through the fold kernel, against the plain ring and
+    against causal_attention on the unsharded sequence, at each of
+    RING_SHAPES; one dict per shape."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.ops.attention import causal_attention
+    from dynamo_tpu_torch.ops.cuda import ring_flash_attention, ring_flash_fold
+    from dynamo_tpu_torch.ops.ring_attention import ring_causal_attention
+    from dynamo_tpu_torch.parallel import SpRing
+
+    dev = torch.device("cuda", 0)
+    one_card = devices is None
+    devices = [dev] * SP if one_card else list(devices)
+    ring = SpRing(devices)
+    name = "ring_flash_attention" + ("_int8" if quant else "")
+    G = HQ // HKV
+    scale = D ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for B, T in RING_SHAPES:
+        t_loc = T // SP
+        q = torch.randn(B, T, HQ, D, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, T, HKV, D, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, T, HKV, D, generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.arange(T, dtype=torch.int32, device=dev).repeat(B, 1)
+        scales = {}
+        kd, vd = k, v                      # what the references attend
+        if quant:
+            kq, ks = kvc.quantize_kv_rows(k.reshape(B * T, HKV * D), HKV)
+            vq, vs = kvc.quantize_kv_rows(v.reshape(B * T, HKV * D), HKV)
+            k, v = kq.reshape(B, T, HKV, D), vq.reshape(B, T, HKV, D)
+            scales = {"k_scale": ks.reshape(B, T, HKV),
+                      "v_scale": vs.reshape(B, T, HKV)}
+            kd = kvc.dequantize_rows(k, scales["k_scale"])
+            vd = kvc.dequantize_rows(v, scales["v_scale"])
+
+        def cut(x):
+            return [c.contiguous().to(devices[r])
+                    for r, c in enumerate(x.chunk(SP, dim=1))]
+
+        qs, ks_, vs_, ps = cut(q), cut(k), cut(v), cut(pos)
+        sc = {n: cut(t) for n, t in scales.items()}
+
+        def kern():
+            ring.fork()
+            res = ring_flash_attention(ring, qs, ks_, vs_, ps, **sc)
+            ring.join()
+            return res
+
+        def plain():
+            return ring_causal_attention(qs, ks_, vs_, ps, **sc)
+
+        got = torch.cat([o.to(dev) for o in kern()], dim=1)
+        ref = torch.cat([o.to(dev) for o in plain()], dim=1)
+        torch.cuda.synchronize()
+        reading = closeness(torch, name, got, ref)
+        # The unsharded sequence, one kv head at a time (the whole score
+        # tensor at T 8192 would not fit beside the rest).
+        full = torch.cat([causal_attention(
+            q[:, :, h * G:(h + 1) * G], kd[:, :, h:h + 1], vd[:, :, h:h + 1])
+            for h in range(HKV)], dim=2)
+        vs_causal = closeness(torch, name, got, full, limits="ring_vs_causal")
+        del full, ref
+        long = T > 1024
+        k_ms = time_ms(torch, kern, samples=5 if long else 25,
+                       per_sample=2 if long else 10)
+        p_ms = time_ms(torch, plain, samples=3 if long else 5, per_sample=2)
+        # One fold launch: rank 1's queries over rank 0's block, every
+        # pair unmasked.
+        fold_ms = None
+        if one_card:
+            q1 = (qs[1].float() * scale).contiguous()
+            st = (torch.empty(B, HQ, t_loc, device=dev),
+                  torch.empty(B, HQ, t_loc, device=dev),
+                  torch.empty(B, t_loc, HQ, D, device=dev))
+            o1 = torch.empty_like(qs[1])
+            sc0 = {n: t[0] for n, t in sc.items()}
+            fold_ms = time_ms(torch, lambda: ring_flash_fold(
+                st, q1, ps[1], ks_[0], vs_[0], ps[0], o1, first=True,
+                last=False, **sc0), samples=10 if long else 25)
+        q4 = q.transpose(1, 2)
+        k4 = kd.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        v4 = vd.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        lib_ms = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True,
+                                             scale=scale))
+        del k4, v4
+        # Only unmasked query-key pairs count, so a kernel that skips
+        # masked tiles can never read over its bound.
+        flops = 4 * B * HQ * D * (T * (T + 1) // 2)
+        item = 1 if quant else 2
+        block = B * t_loc * (2 * HKV * D * item
+                             + (2 * HKV * 4 if quant else 0) + 4)
+        # What the function must move: q read and out written once, every
+        # block read by every rank.  The f32 state that one launch per hop
+        # stores and reloads is this design's own traffic, not the
+        # function's: it is printed beside the bound, not counted in it.
+        nbytes = 2 * q.numel() * 2 + SP * SP * block
+        state = B * t_loc * HQ * D * 4 + 2 * B * HQ * t_loc * 4
+        state_bytes = SP * 2 * (SP - 1) * state
+        b_ms, b_by = bound(nbytes, flops)
+        out.append({"name": name,
+                    "shape": {"B": B, "T": T, "sp": SP, "t_loc": t_loc,
+                              "Hq": HQ, "Hkv": HKV, "D": D,
+                              "blocks": "int8" if quant else "bf16",
+                              "ranks_on": [str(d) for d in devices]},
+                    **reading, "vs_causal_attention": vs_causal,
+                    "kernel_ms": k_ms, "fold_ms": fold_ms, "plain_ms": p_ms,
+                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "bytes": nbytes, "state_bytes": state_bytes,
+                    "flops": flops})
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def routing_log(log: list):
     """Record the expert ids of every `router_topk` call (one per MoE
@@ -672,6 +831,174 @@ def model_moe_phase(torch, kernels):
              "launches": int8_launches})
 
 
+def model_sp_phase(torch, kernels, state, kv_quant="none"):
+    """llama-3-1b, full width and depth: a 480-token and a 512-token
+    prompt in one batch through the sequence-parallel prefill step (SP
+    ranks spread over the visible cards as `--sp` spreads them — all on
+    card 0 of a one-card machine — the ring through K4) against the
+    packed prefill step
+    (K2) on the same weights and prompts, each on its own cache of mode
+    `kv_quant`; then two greedy decode steps (K1) from each cache, both
+    fed the sp path's tokens.
+
+    Checked: logits relative error and the greedy tokens' argmax gap
+    within MODEL_TOL; K4's fold launches = layers x SP ranks x SP hops;
+    the cache rows of the real tokens.  Layer 0's rows see identical
+    inputs on both paths (only the projection's batch shape differs): a
+    bf16 cache must agree within one bf16 unit of each head row's largest
+    value, an int8 cache within one int8 step, and the rows where any
+    value is a step off are counted (`rows_one_step_off`).  Deeper
+    layers inherit the two attention kernels' rounding; their rows'
+    largest difference relative to the layer's largest value is printed
+    and held to MODEL_TOL."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.parallel import (
+        SpRing, default_sp_devices, make_sp_prefill_step)
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("llama-3-1b")
+    quant = kv_quant == "int8"
+    body = "ring_flash_attention" + ("_int8" if quant else "")
+    g = torch.Generator().manual_seed(SEED)
+    lens = [480, 512]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                             dtype=torch.int32) for n in lens]
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=32, block_size=BS,
+                                       kv_quant=kv_quant)
+    cache_s, cache_p = kvc.init_cache(ccfg, dev), kvc.init_cache(ccfg, dev)
+    P, T, R = 8, 512, 8
+    pad = 128 * BS
+    pages = torch.arange(1, 1 + 2 * P, dtype=torch.int32).reshape(2, P)
+    # The ring: padded [2, 512] rows.
+    tok2 = torch.zeros(2, T, dtype=torch.int32)
+    pos2 = torch.full((2, T), pad, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tok2[i, : len(p)] = p
+        pos2[i, : len(p)] = torch.arange(len(p))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    ring = SpRing(default_sp_devices(SP, dev))
+    sp_step = make_sp_prefill_step(cfg, BS, ring, kv_quant=quant,
+                                   use_kernel=True)
+    kernels.reset_launch_counts()
+    logits_s, _ = sp_step(state, cache_s, tok2.to(dev), pos2.to(dev),
+                          lens_t.to(dev), pages.to(dev), (lens_t - 1).to(dev))
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    want_launches = cfg.num_layers * SP * SP
+    check(launched[body] == want_launches and sum(launched.values())
+          == want_launches,
+          f"model_sp ({kv_quant}): launches {launched}, expected "
+          f"{want_launches} of {body} alone")
+    # The packed plane: both prompts on one flat axis.
+    Tp = sum(lens)
+    tokens = torch.cat(prompts)
+    positions = torch.cat([torch.arange(n, dtype=torch.int32) for n in lens])
+    seg = torch.cat([torch.full((n,), i, dtype=torch.int32)
+                     for i, n in enumerate(lens)])
+    bt8 = torch.zeros(R, P, dtype=torch.int32)
+    bt8[:2] = pages
+    qs, ql, sl, smp = (torch.zeros(R, dtype=torch.int32) for _ in range(4))
+    qs[1] = lens[0]
+    ql[:2] = sl[:2] = lens_t
+    smp[0], smp[1] = lens[0] - 1, Tp - 1
+    packed = llama.make_packed_prefill_step(cfg, BS)
+    logits_p = packed(state, cache_p, *(t.to(dev) for t in (
+        tokens, positions, seg, bt8, qs, ql, sl, smp)))[0][:2]
+    errs, gaps, agree = [], [], []
+
+    def compare(ls, lp):
+        errs.append(((ls - lp).abs().max() / lp.abs().max()).item())
+        pick = ls.argmax(-1)
+        agree.append((pick == lp.argmax(-1)).float().mean().item())
+        gap = lp.max(-1).values - lp.gather(-1, pick[:, None])[:, 0]
+        gaps.append((gap.max() / lp.abs().max()).item())
+
+    compare(logits_s, logits_p)
+    # The written rows of the real tokens.
+    real = torch.cat([kvc.slots_for_positions(
+        pages[i:i + 1].to(dev), torch.arange(n, device=dev)[None], BS)[0]
+        for i, n in enumerate(lens)])
+    rows = {}
+    layer_err = []
+    for i in range(cfg.num_layers):
+        worst = 0.0
+        for kv in ("k", "v"):
+            a, b = cache_s[kv][i][real], cache_p[kv][i][real]
+            if quant:
+                sa = cache_s[kv + "_scale"][i][real]
+                sb = cache_p[kv + "_scale"][i][real]
+                da = kvc.dequantize_rows(a.reshape(len(real), HKV, -1), sa)
+                db = kvc.dequantize_rows(b.reshape(len(real), HKV, -1), sb)
+            else:
+                da, db = a.reshape(len(real), HKV, -1), b.reshape(len(real), HKV, -1)
+            worst = max(worst, ((da.float() - db.float()).abs().max()
+                                / db.float().abs().max()).item())
+            if i:
+                continue
+            if quant:
+                step = (a.int() - b.int()).abs()
+                check(int(step.max()) <= 1, f"model_sp int8: layer 0 {kv} "
+                      f"rows differ by {int(step.max())} int8 steps")
+                check(bool(((sa - sb).abs() <= RTOL * sb.abs()).all()),
+                      f"model_sp int8: layer 0 {kv} scales differ")
+                rows[kv] = int((step.amax(dim=1) > 0).sum())
+            else:
+                top = db.float().abs().amax(dim=-1, keepdim=True)
+                off = (da.float() - db.float()).abs()
+                check(bool((off <= RTOL * top).all()),
+                      f"model_sp bf16: layer 0 {kv} rows differ by more "
+                      "than one bf16 unit of the row's largest value")
+                rows[kv] = int((off.amax(dim=(1, 2)) > 0).sum())
+        layer_err.append(worst)
+    # Two decode steps through K1 from each cache.
+    step_k = llama.make_forward_step(cfg, BS, use_decode_kernel=True)
+    bt = pages.to(dev)
+    cur = lens_t.to(dev)
+    nxt = logits_s.argmax(-1).to(torch.int32)
+    zero = torch.zeros(2, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        cur = cur + 1
+        ls = step_k(state, cache_s, nxt[:, None], (cur - 1)[:, None], cur,
+                    bt, zero)[0]
+        lp = step_k(state, cache_p, nxt[:, None], (cur - 1)[:, None], cur,
+                    bt, zero)[0]
+        check(bool(torch.isfinite(ls).all()), "model_sp: non-finite logits")
+        compare(ls, lp)
+        nxt = ls.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    tol = MODEL_TOL[cfg.name]
+    check(max(errs) <= tol, f"model_sp ({kv_quant}): ring vs packed logits "
+                            f"rel err {errs} > {tol}")
+    check(max(gaps) <= tol, f"model_sp ({kv_quant}): greedy tokens differ "
+                            f"beyond a near tie: argmax gap {gaps} > {tol}")
+    check(max(layer_err) <= tol, f"model_sp ({kv_quant}): cache rows differ "
+                                 f"by {max(layer_err)} of the layer's max")
+    return {"phase": "model_sp", "model": cfg.name, "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "kv_quant": kv_quant, "sp": SP,
+            "ranks_on": ring.describe(), "prompts": lens,
+            "logits_rel_err": errs, "argmax_agreement": agree,
+            "argmax_gap": gaps, "tol": tol, "launches": launched,
+            "expected_fold_launches": want_launches,
+            "layer0_rows_one_step_off": rows, "real_rows": len(real),
+            "cache_rel_err_by_layer": layer_err, "decode_steps": 2}
+
+
+def model_sp_phases(torch, kernels):
+    """model_sp over a bf16 cache and over an int8 cache, on one set of
+    weights."""
+    from dynamo_tpu_torch.models import weights
+    from dynamo_tpu_torch.models.config import get_config
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = weights.init_params(get_config("llama-3-1b"), gen, dev)
+    return [model_sp_phase(torch, kernels, state, kv_quant)
+            for kv_quant in ("none", "int8")]
+
+
 def _http(url: str, body=None, timeout: float = 600.0):
     data = json.dumps(body).encode() if body is not None else None
     req = urllib.request.Request(
@@ -716,16 +1043,10 @@ def _chat(base: str, body: dict) -> dict:
             "finish": finish[-1] if finish else None}
 
 
-def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
-                max_tokens: int = 64, ready_s: float = 300, system=None,
-                user=USER_TURN, tag=""):
+@contextlib.contextmanager
+def server(model: str, args=(), tag: str = "", ready_s: float = 300):
     """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
-    subprocess: after a warm-up request and a stats reset (launch counts,
-    engine counters, expert load and prefix hit/miss tokens together),
-    `n_requests` concurrent greedy chats, half streaming, each with the
-    `system` prompt when one is given and user turn `user` (the warm-up's
-    is number -1); every kernel of `path_kernels` must have launched in
-    that window."""
+    subprocess, stopped on exit; yields (base url, seconds to ready)."""
     OUT_DIR.mkdir(exist_ok=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -751,19 +1072,7 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
             check(time.monotonic() - t0 < ready_s,
                   f"server not ready in {ready_s} s")
             time.sleep(0.5)
-        startup_s = time.monotonic() - t0
-        # Warm-up: cuBLAS handles, the allocator, and the system prompt's
-        # blocks into the prefix cache.
-        _chat(base, chat_body(-1, False, 4, system, user))
-        _http(base + "/debug/stats/reset", {})
-        t1 = time.monotonic()
-        with ThreadPoolExecutor(n_requests) as pool:
-            results = list(pool.map(
-                lambda i: _chat(base, chat_body(i, i % 2 == 0, max_tokens,
-                                                system, user)),
-                range(n_requests)))
-        wall = time.monotonic() - t1
-        stats = json.loads(_http(base + "/debug/stats"))
+        yield base, time.monotonic() - t0
     finally:
         proc.send_signal(signal.SIGTERM)
         try:
@@ -772,11 +1081,44 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
             proc.kill()
             proc.wait()
         log.close()
+
+
+def chat_wave(base: str, bodies: list) -> list:
+    """The chats of `bodies`, all sent at once."""
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        return list(pool.map(lambda b: _chat(base, b), bodies))
+
+
+def check_results(results: list, max_tokens: int) -> None:
     for r in results:
         check(r["done"], f"request without [DONE]/response: {r}")
         check(r["tokens"] == max_tokens or (r["finish"] == "stop"
                                             and r["tokens"] > 0),
               f"request returned {r['tokens']} tokens ({r['finish']})")
+
+
+def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
+                max_tokens: int = 64, ready_s: float = 300, system=None,
+                user=USER_TURN, tag=""):
+    """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
+    subprocess: after a warm-up request and a stats reset (launch counts,
+    engine counters, expert load and prefix hit/miss tokens together),
+    `n_requests` concurrent greedy chats, half streaming, each with the
+    `system` prompt when one is given and user turn `user` (the warm-up's
+    is number -1); every kernel of `path_kernels` must have launched in
+    that window."""
+    with server(model, args, tag, ready_s) as (base, startup_s):
+        # Warm-up: cuBLAS handles, the allocator, and the system prompt's
+        # blocks into the prefix cache.
+        _chat(base, chat_body(-1, False, 4, system, user))
+        _http(base + "/debug/stats/reset", {})
+        t1 = time.monotonic()
+        results = chat_wave(base, [chat_body(i, i % 2 == 0, max_tokens,
+                                             system, user)
+                                   for i in range(n_requests)])
+        wall = time.monotonic() - t1
+        stats = json.loads(_http(base + "/debug/stats"))
+    check_results(results, max_tokens)
     launches = stats["kernels"]
     check(all(launches[k] > 0 for k in path_kernels),
           f"a {model} path kernel never launched: {launches}")
@@ -864,6 +1206,145 @@ def serve_moe_phase():
     return out
 
 
+LONG_TURN = "{i:02d}: " + "Explain ring attention over sequence shards. " * 12
+
+
+def long_chat(i: int, stream: bool, max_tokens: int, chars: int) -> dict:
+    """A chat whose user turn is `chars` bytes and starts with its number,
+    so no two of them share their first block."""
+    return chat_body(i, stream, max_tokens, user=LONG_TURN[:chars + 4])
+
+
+def serve_sp_phase():
+    """llama-3-1b behind `--sp 4` (the ranks share the card when the
+    machine has fewer than 4).  First LONG_CHATS long chats, one at a
+    time, so each is a whole prompt prefilled while nothing decodes: each
+    must take the ring through K4 (sp_prefill_count, ring_kernel_prefills
+    and sp_prefill_dispatches all LONG_CHATS; fold launches = 16 layers x
+    SP ranks x SP hops a dispatch; modeled ring bytes = prompt tokens x
+    ring_payload_bytes_per_token x (SP - 1) // SP, the prompt tokens
+    worked out here with the port's own preprocessor).  Then the mixed
+    wave: the 8 short chats of `serve` and two more long ones, all at
+    once; K1 and K2 must launch, and the ring counters must still agree
+    with each other.  The same lone long chats then go to an
+    `--sp 4 --kv-quant int8` server, where they must take K4's int8 body
+    with the int8 payload's modeled bytes.  The long chats' server-side
+    TTFT is set beside that of the same chats, sent the same way, on an
+    `--sp 1` server."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama-3-1b")
+    chars = [310 + 25 * i for i in range(LONG_CHATS)]
+    longs = [long_chat(i, False, 8, c) for i, c in enumerate(chars)]
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    prompt_tokens = [len(pre.preprocess_chat(
+        ChatCompletionRequest.from_dict(b), str(i)).token_ids)
+        for i, b in enumerate(longs)]
+    check(all(400 <= n <= 500 for n in prompt_tokens),
+          f"serve_sp: long prompts of {prompt_tokens} tokens, wanted 400-500")
+    per_dispatch = cfg.num_layers * SP * SP
+    max_tokens = 64
+
+    def first_wave(base):
+        # Warm-up of both planes, then one window of counts.
+        _chat(base, chat_body(-1, False, 4))
+        _chat(base, long_chat(97, False, 4, 350))
+        _http(base + "/debug/stats/reset", {})
+        res = [_chat(base, b) for b in longs]
+        check_results(res, 8)
+        return json.loads(_http(base + "/debug/stats"))
+
+    def check_first_wave(stats, kv_quant):
+        """The lone long chats of one server: each took the ring through
+        the K4 body of the cache's mode, and nothing else prefilled."""
+        quant = kv_quant == "int8"
+        sfx = "_int8" if quant else ""
+        body, other = (f"ring_flash_attention{s}" for s in
+                       (("_int8", "") if quant else ("", "_int8")))
+        what = f"serve_sp ({kv_quant} cache)"
+        c, k = stats["counters"], stats["kernels"]
+        check(stats["sp"] == SP and len(stats["sp_devices"]) == SP
+              and stats["kv_quant"] == kv_quant,
+              f"{what}: server reports sp {stats['sp']} on "
+              f"{stats['sp_devices']}, kv_quant {stats['kv_quant']}")
+        check(c["sp_prefill_count"] == c["ring_kernel_prefills"]
+              == c["sp_prefill_dispatches"] == LONG_CHATS,
+              f"{what}: {LONG_CHATS} lone long chats, counters {c}")
+        check(k[body] == per_dispatch * LONG_CHATS and k[other] == 0,
+              f"{what}: K4 launched {k[body]} {body} folds, expected "
+              f"{per_dispatch} x {LONG_CHATS}, and {k[other]} of the other "
+              "body")
+        payload = kvc.KvCacheConfig.for_model(
+            cfg, num_blocks=2, block_size=BS,
+            kv_quant=kv_quant).ring_payload_bytes_per_token
+        want = sum(prompt_tokens) * payload * (SP - 1) // SP
+        check(c["ring_exchange_bytes_modeled"] == want,
+              f"{what}: modeled ring bytes "
+              f"{c['ring_exchange_bytes_modeled']} != {want}")
+        k1_body, k2_body = (f"paged_{n}_attention{sfx}"
+                            for n in ("decode", "prefill"))
+        check(k[k1_body] > 0 and k[k2_body] == 0,
+              f"{what} first wave: K1 must decode and K2 stay idle: {k}")
+        return {"kv_quant": kv_quant, "counters": c, "launches": k,
+                "fold_launches_per_dispatch": per_dispatch,
+                "expected_fold_launches": per_dispatch * LONG_CHATS,
+                "ring_payload_bytes_per_token": payload,
+                "expected_ring_bytes": want,
+                "ttft_s": [r["ttft_s"] for r in stats["requests"]]}
+
+    with server("llama-3-1b", ("--sp", str(SP)), "_sp") as (base, startup_s):
+        stats1 = first_wave(base)
+        mixed = ([chat_body(i, i % 2 == 0, max_tokens) for i in range(8)]
+                 + [long_chat(50 + i, i % 2 == 0, max_tokens, 360)
+                    for i in range(2)])
+        t1 = time.monotonic()
+        results = chat_wave(base, mixed)
+        wall = time.monotonic() - t1
+        stats2 = json.loads(_http(base + "/debug/stats"))
+    check_results(results, max_tokens)
+    wave1 = check_first_wave(stats1, "none")
+    k1 = stats1["kernels"]
+    # The same lone long chats over an int8 cache: the int8 rows and
+    # scales ride the ring through K4's int8 body.
+    with server("llama-3-1b", ("--sp", str(SP), "--kv-quant", "int8"),
+                "_sp_int8") as (base, _):
+        wave1_int8 = check_first_wave(first_wave(base), "int8")
+    c2, k2 = stats2["counters"], stats2["kernels"]
+    check(c2["sp_prefill_count"] >= LONG_CHATS
+          and c2["ring_kernel_prefills"] == c2["sp_prefill_count"],
+          f"serve_sp: ring counters disagree: {c2}")
+    check(k2["ring_flash_attention"] == per_dispatch * c2["sp_prefill_dispatches"],
+          f"serve_sp: K4 launched {k2['ring_flash_attention']} folds over "
+          f"{c2['sp_prefill_dispatches']} dispatches")
+    check(k2["paged_prefill_attention"] > 0 and k2["paged_decode_attention"]
+          > k1["paged_decode_attention"],
+          f"serve_sp mixed wave: the short prompts must take K2: {k2}")
+    with server("llama-3-1b", ("--sp", "1"), "_sp1") as (base, _):
+        stats_1 = first_wave(base)
+    check(stats_1["counters"]["sp_prefill_count"] == 0
+          and stats_1["kernels"]["ring_flash_attention"] == 0,
+          "serve_sp: the --sp 1 server took the ring")
+    ttft_1 = [r["ttft_s"] for r in stats_1["requests"]]
+    out_tokens = sum(r["tokens"] for r in results)
+    return {"phase": "serve_sp", "model": "llama-3-1b", "args": ["--sp", str(SP)],
+            "startup_s": startup_s, "sp_devices": stats1["sp_devices"],
+            "long_prompt_tokens": prompt_tokens,
+            "first_wave": wave1, "first_wave_int8": wave1_int8,
+            "mixed_wave": {"requests": len(mixed), "output_tokens": out_tokens,
+                           "wall_s": wall, "output_tok_s": out_tokens / wall,
+                           "counters": c2, "launches": k2},
+            "ttft_long_s": {"sp4": wave1["ttft_s"],
+                            "sp4_int8": wave1_int8["ttft_s"], "sp1": ttft_1,
+                            "prefill_kernel_sp1": "paged_prefill_attention",
+                            "launches_sp1": stats_1["kernels"]},
+            "launches": {**k2, "ring_flash_attention_int8":
+                         wave1_int8["launches"]["ring_flash_attention_int8"]}}
+
+
 def summary_entry(k: dict, name: str, launches: int, **extra) -> dict:
     src, replaces = SOURCES[k["name"].replace("_int8", "")]
     return {"name": name, "route": "cuda", "source": src,
@@ -900,9 +1381,14 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
         kind = torch.cuda.get_device_name(0)
+        from dynamo_tpu_torch.parallel import default_sp_devices
+
         emit({"phase": "device", "name": kind,
               "count": torch.cuda.device_count(), "nvidia_smi": smi,
-              "torch": torch.__version__, "cuda": torch.version.cuda})
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              # rank -> card of an `--sp 4` ring on this machine
+              "sp_ranks": [str(d) for d in default_sp_devices(
+                  SP, torch.device("cuda", 0))]})
         phase = "build"
         t0 = time.monotonic()
         times = build.build_all()
@@ -921,6 +1407,23 @@ def main() -> int:
                     phase = f"{key}_d{d}"
                     attn[key, d] = fn(torch, gen, d, quant)
                     emit({"phase": phase, **attn[key, d]})
+        ring = {}
+        for quant in (False, True):
+            for d in (64, 128):
+                key = "ring_flash_attention" + ("_int8" if quant else "")
+                phase = f"{key}_d{d}"
+                ring[key, d] = ring_phase(torch, gen, d, quant)
+                emit({"phase": phase, "shapes": ring[key, d]})
+                # The same ring with every rank on a card of its own.
+                n_cards = torch.cuda.device_count()
+                if n_cards >= SP:
+                    cards = [torch.device("cuda", i) for i in range(SP)]
+                    emit({"phase": phase + "_cards",
+                          "shapes": ring_phase(torch, gen, d, quant, cards)})
+                else:
+                    emit({"phase": phase + "_cards", "ran": False,
+                          "reason": f"needs {SP} cards, this machine has "
+                                    f"{n_cards}: the ranks shared card 0"})
         phase = "moe_grouped"
         moe = moe_kernel_phases(torch, gen)
         for k in moe:
@@ -928,6 +1431,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "model"
         for line in model_phase(torch):
+            emit(line)
+        torch.cuda.empty_cache()
+        phase = "model_sp"
+        model_sp = model_sp_phases(torch, kernels)
+        for line in model_sp:
             emit(line)
         torch.cuda.empty_cache()
         phase = "model_moe"
@@ -945,6 +1453,14 @@ def main() -> int:
         phase = "serve_moe"
         serve_moe = serve_moe_phase()
         emit(serve_moe)
+        phase = "serve_sp"
+        serve_sp = serve_sp_phase()
+        emit(serve_sp)
+        print(f"serve_sp TTFT of the long chats on "
+              f"{'; '.join(smi.splitlines())}: --sp {SP} "
+              f"{serve_sp['ttft_long_s']['sp4']} s, --sp {SP} --kv-quant "
+              f"int8 {serve_sp['ttft_long_s']['sp4_int8']} s, --sp 1 "
+              f"{serve_sp['ttft_long_s']['sp1']} s", flush=True)
     except Exception as e:  # every failure ends the run without an ok line
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
@@ -971,6 +1487,17 @@ def main() -> int:
         else:
             launches, frm = moe_int8["launches"]["moe_grouped"], "model_moe int8"
         summary.append(summary_entry(k, name, launches, launches_from=frm))
+    # K4: launches of serve_sp, the bf16 body from its `--sp 4` server and
+    # the int8 body from its `--sp 4 --kv-quant int8` server (llama-3-1b,
+    # D 64, T_loc 128; the other shapes give the same body's count).
+    for (key, d), shapes in ring.items():
+        for k in shapes:
+            name = key + ("" if d == 64 else f"_d{d}") + (
+                "" if k["shape"]["T"] == RING_SHAPES[0][1]
+                else f"_t{k['shape']['T']}")
+            summary.append(summary_entry(
+                k, name, serve_sp["launches"][key], launches_from="serve_sp",
+                fold_ms=k["fold_ms"], state_bytes=k["state_bytes"]))
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

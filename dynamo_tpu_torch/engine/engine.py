@@ -30,9 +30,17 @@ bucket, unallocated entries are the null block 0, and pad writes target
 position `max_pages * block_size`, which indexes past every table width
 and resolves to the null block.
 
+`sp > 1` adds the sequence-parallel prefill: a prefill batch whose every
+item is a whole prompt of at least `sp_prefill_threshold` tokens skips
+the packed plane and runs as one padded [R, T] step over the ring's ranks
+(parallel/mesh.SpRing), attention through the flash-fold ring kernel on a
+card.  A prompt that a prefix-cache hit or the mixed-window budget splits
+is not a whole prompt and goes the packed plane.  The cache and decode
+stay on the engine's device, rank 0's.
+
 Not ported yet: KV events, the prefix cache's host and disk tiers,
-speculative decode, meshes (and with them MoE all-to-all dispatch),
-multimodal prefill and embeddings.
+speculative decode, tp/dp/ep/pp meshes (and with them MoE all-to-all
+dispatch), multimodal prefill and embeddings.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import asyncio
 import logging
 import threading
 from dataclasses import dataclass, field
-from typing import AsyncIterator, Dict, List, Optional
+from typing import AsyncIterator, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,8 +83,14 @@ from dynamo_tpu_torch.models.llama import (
     make_packed_prefill_step,
 )
 from dynamo_tpu_torch.models.weights import init_params
-from dynamo_tpu_torch.ops.cuda import PACK_ALIGN
+from dynamo_tpu_torch.ops.cuda import PACK_ALIGN, ring_kernel_supported
 from dynamo_tpu_torch.ops.moe import resolve_moe_mode
+from dynamo_tpu_torch.parallel.mesh import MeshConfig, SpRing
+from dynamo_tpu_torch.parallel.sharding import (
+    PlaneSpec,
+    check_plane,
+    make_sp_prefill_step,
+)
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
@@ -120,6 +134,13 @@ class EngineConfig:
     # Prefix cache (the block manager's device tier); off = the plain
     # free-list allocator, no reuse.
     enable_prefix_cache: bool = True
+    # Sequence-parallel ring prefill: sp ranks (1 = off), each on the
+    # device `sp_devices` names for it (default: round-robin over the
+    # visible cards, rank 0 on `device`; ranks may share a card).  Whole
+    # prompts at least `sp_prefill_threshold` tokens long take the ring.
+    sp: int = 1
+    sp_devices: Optional[Tuple[str, ...]] = None
+    sp_prefill_threshold: int = 256
 
 
 @dataclass
@@ -135,6 +156,16 @@ class EngineCounters:
     # Token rows the model ran, padding rows included: each is routed to
     # k experts in every MoE layer.
     model_rows: int = 0
+    # Ring prefill dispatches; the prompts they prefilled; and those of
+    # them whose ring ran the flash-fold kernel (the same predicate as
+    # the model's dispatch) rather than the plain ring.
+    sp_prefill_dispatches: int = 0
+    sp_prefill_count: int = 0
+    ring_kernel_prefills: int = 0
+    # Modeled bytes one rank sent around the ring: its resident chunk
+    # (1/sp of the tokens) rides sp - 1 hops in every layer.  The same
+    # for both rings, so it is charged before the path splits.
+    ring_exchange_bytes_modeled: int = 0
 
     def as_dict(self) -> Dict[str, int]:
         return dict(self.__dict__)
@@ -194,6 +225,10 @@ class EngineCore:
             moe_mode=self.moe_mode, with_expert_load=self._moe)
         self._packed_step = make_packed_prefill_step(
             cfg, self.block_size, moe_mode=self.moe_mode)
+        self.ring: Optional[SpRing] = None
+        self._sp_step = None
+        if config.sp > 1:
+            self._build_sp_step()
         # MoE expert load: the steps' [E+1] stats summed on the device,
         # folded into the host totals by snapshot_expert_load (the HTTP
         # thread may call it while the engine thread steps).
@@ -234,6 +269,26 @@ class EngineCore:
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
+
+    def _build_sp_step(self) -> None:
+        """The ring over `config.sp` ranks and the whole-prompt prefill
+        step on it; what the capability table rules out raises here."""
+        config, cfg = self.config, self.config.model
+        check_plane(PlaneSpec(role="sp_prefill", moe=cfg.is_moe))
+        bad = [b for b in config.scheduler.prefill_buckets
+               if b >= config.sp_prefill_threshold and b % config.sp]
+        if bad:
+            raise ValueError(f"sp={config.sp} must divide the prefill "
+                             f"buckets the ring can see; {bad} do not")
+        self.ring = SpRing.for_mesh(MeshConfig(sp=config.sp), self.device,
+                                    config.sp_devices)
+        # The kernel's ring; per dispatch the geometry rule decides
+        # between it and the plain ring (llama._sp_ring_attention).
+        self._sp_step = make_sp_prefill_step(
+            cfg, self.block_size, self.ring,
+            kv_quant=self.cache_cfg.quantized, use_kernel=True)
+        logger.info("sp prefill ring: %d ranks on %s", self.ring.sp,
+                    self.ring.describe())
 
     # -- request lifecycle ------------------------------------------------
 
@@ -298,7 +353,7 @@ class EngineCore:
                 if (plan.prefill and self._windows_since_prefill
                         >= self._mixed_duty):
                     self._windows_since_prefill = 0
-                    deltas.extend(self._run_packed_prefill(
+                    deltas.extend(self._run_prefill_batch(
                         plan.prefill, async_first=True))
         if work is None and not plan.empty:
             # Settle pending first tokens before single-step decode reads
@@ -307,7 +362,7 @@ class EngineCore:
                 self._settle_first_tokens(deltas, block=True)
                 plan = self.scheduler.plan()
             if plan.prefill:
-                deltas.extend(self._run_packed_prefill(plan.prefill))
+                deltas.extend(self._run_prefill_batch(plan.prefill))
             if plan.decode:
                 deltas.extend(self._run_decode(plan.decode))
 
@@ -412,6 +467,67 @@ class EngineCore:
                     request_id=rid, token_ids=[], finished=True,
                     finish_reason=req.finish_reason))
                 self._drop(req)
+
+    # -- sequence-parallel whole-prompt prefill -----------------------------
+
+    def _sp_eligible(self, batch: PrefillBatch) -> bool:
+        """The ring prefill takes FULL prompts (it reads no cached
+        context): every item a whole prompt at or past the threshold."""
+        if self._sp_step is None:
+            return False
+        thr = self.config.sp_prefill_threshold
+        return all(
+            w.start == 0 and w.length == len(w.request.prompt_tokens)
+            and w.length >= thr
+            for w in batch.items)
+
+    def _run_prefill_batch(self, batch: PrefillBatch,
+                           async_first: bool = False) -> List[TokenDelta]:
+        """All scheduled prefill chunks: the packed plane, unless the
+        batch is sp-eligible; then ONE padded [R, T] step over the ring
+        (ragged rows padded to the chunk bucket, pad rows and tails write
+        the null block)."""
+        if not self._sp_eligible(batch):
+            return self._run_packed_prefill(batch, async_first)
+        sched = self.scheduler.config
+        bs = self.block_size
+        items = batch.items
+        R = sched.bucket_for_decode(len(items))
+        T = sched.bucket_for_prefill(max(w.length for w in items))
+        P = sched.bucket_for_pages(max(
+            (w.length + bs - 1) // bs for w in items))
+        tokens = np.zeros((R, T), np.int32)
+        positions = np.full((R, T), self._pad_position, np.int32)
+        seq_lens = np.zeros((R,), np.int32)
+        bts = np.zeros((R, P), np.int32)
+        sample_pos = np.zeros((R,), np.int32)
+        for i, work in enumerate(items):
+            req = work.request
+            L = work.length
+            tokens[i, :L] = req.prompt_tokens[:L]
+            positions[i, :L] = np.arange(L)
+            seq_lens[i] = L
+            sample_pos[i] = L - 1
+            n = min(len(req.pages), P)
+            bts[i, :n] = req.pages[:n]
+        c = self.counters
+        c.prefill_dispatches += 1
+        c.model_rows += R * T
+        c.sp_prefill_dispatches += 1
+        c.sp_prefill_count += len(items)
+        sp = self.ring.sp
+        c.ring_exchange_bytes_modeled += (
+            sum(w.length for w in items)
+            * self.cache_cfg.ring_payload_bytes_per_token * (sp - 1) // sp)
+        cfg = self.config.model
+        if ring_kernel_supported(
+                cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, T // sp,
+                self.device, cfg.dtype):
+            c.ring_kernel_prefills += len(items)
+        logits, self.cache = self._sp_step(
+            self.params, self.cache, self._dev(tokens), self._dev(positions),
+            self._dev(seq_lens), self._dev(bts), self._dev(sample_pos))
+        return self._finish_prefill_items(items, logits, async_first)
 
     # -- packed ragged prefill ---------------------------------------------
 

@@ -91,6 +91,18 @@ class KvCacheConfig:
         """K+V bytes of one block across all layers, scales included."""
         return self.block_size * self.bytes_per_context_token
 
+    @property
+    def ring_payload_bytes_per_token(self) -> int:
+        """Bytes one token's K+V add to each hop of the sequence-parallel
+        ring, summed over the layers (every layer's attention rotates its
+        own chunk): the chunk at the compute dtype, or its int8 rows and
+        their f32 scales."""
+        if self.quantized:
+            per = self.feature_dim + 4 * self.num_kv_heads
+        else:
+            per = self.feature_dim * self.dtype.itemsize
+        return 2 * self.num_layers * per
+
     @staticmethod
     def for_model(config: ModelConfig, num_blocks: int,
                   block_size: int = 64,

@@ -7,10 +7,15 @@ mode).
     python -m dynamo_tpu_torch.frontend --model mixtral-8x7b --num-layers 16 \\
         [--moe-mode auto|dense|grouped]
     python -m dynamo_tpu_torch.frontend --model llama-3-1b --kv-quant int8
+    python -m dynamo_tpu_torch.frontend --model llama-3-1b --sp 4 \
+        [--max-prefill-chunk 512]
 
 Runs on the card unless `--device cpu` is given; random weights from
 seed 0 (`EngineConfig.seed`); the byte tokenizer; the prefix cache on,
-as the JAX worker runs it.
+as the JAX worker runs it.  `--sp N` prefills whole prompts of 256
+tokens or more over a ring of N ranks, spread over the visible cards
+(several ranks share a card when there are fewer cards than ranks); the
+rank -> card map is logged at start and shown by `/debug/stats`.
 """
 
 from __future__ import annotations
@@ -66,6 +71,14 @@ def parse_args(argv=None):
                    help="KV cache storage: int8 pages with per-token, "
                         "per-head f32 scales (about half the bytes a "
                         "decode step reads), or the model dtype")
+    p.add_argument("--max-prefill-chunk", type=int, default=512,
+                   help="chunked-prefill step ceiling (tokens); a longer "
+                        "prompt prefills in several steps")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree: whole-prompt prefills "
+                        "past the engine's threshold run ring attention "
+                        "over N ranks (the long-context prefill path); "
+                        "decode stays on the first card")
     return p.parse_args(argv)
 
 
@@ -84,10 +97,12 @@ def model_config(args):
 async def build_model_handle(args):
     """Returns (handle, engine core, shutdown coroutine)."""
     cfg = model_config(args)
-    sched = SchedulerConfig(block_size=args.block_size)
+    sched = SchedulerConfig(block_size=args.block_size,
+                            max_prefill_chunk=args.max_prefill_chunk)
     core = EngineCore(EngineConfig(
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
-        device=args.device, moe_mode=args.moe_mode, kv_quant=args.kv_quant))
+        device=args.device, moe_mode=args.moe_mode, kv_quant=args.kv_quant,
+        sp=args.sp))
     engine = InferenceEngine(core)
     await engine.start()
     tokenizer = ByteTokenizer()
@@ -110,6 +125,10 @@ def stats_hooks(core: EngineCore):
                 "kernels": kernels.launch_counts(),
                 "counters": core.counters.as_dict(),
                 "kv_quant": core.cache_cfg.kv_quant,
+                # Ring prefill: the degree and the rank -> device map.
+                "sp": core.config.sp,
+                "sp_devices": (core.ring.describe() if core.ring is not None
+                               else []),
                 "prefix_cache": core.prefix_cache_stats(),
                 "moe_mode": core.moe_mode,
                 # [E+1]: per-expert assignments, then the dropped ones.
@@ -145,7 +164,9 @@ async def run(args) -> None:
         print(f"dynamo_tpu_torch frontend serving {handle.name!r} "
               f"({args.model}, {cfg.num_layers} layers, moe_mode "
               f"{core.moe_mode}, kv_quant {core.cache_cfg.kv_quant}, on "
-              f"{core.device}) on "
+              f"{core.device}"
+              + (f", sp {core.ring.sp} ranks on {core.ring.describe()}"
+                 if core.ring is not None else "") + ") on "
               f"http://{args.http_host}:{port}", flush=True)
         await stop_ev.wait()
     finally:

@@ -19,6 +19,11 @@ Forward contract (unified prefill/decode, as in the JAX package):
   scale and reads through the kernels' int8 bodies, or through
   kv_cache.gather_kv_quant on the gather path; the cache dict's keys
   decide the branch.
+- `sp_ring` (a parallel.mesh.SpRing) turns a T > 1 call into the
+  sequence-parallel whole-prompt prefill: every rank runs the token-wise
+  ops on its T / sp slice and attention runs on the ring, through the
+  flash-fold kernel (ops/cuda/ring_attention.py) where `sp_ring_kernel`
+  asks for it and the geometry rule passes, else through the plain ring.
 - MoE layers run `moe_mode` "dense" (the exact oracle) or "grouped" (the
   grouped-expert kernel, ops/cuda/moe_grouped.py) and give an [E+1]
   expert-load stats vector each; `with_expert_load` (and the packed
@@ -39,7 +44,13 @@ from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import moe as moe_ops
 from dynamo_tpu_torch.ops.attention import paged_attention
-from dynamo_tpu_torch.ops.cuda import paged_decode_attention, paged_prefill_attention
+from dynamo_tpu_torch.ops.cuda import (
+    paged_decode_attention,
+    paged_prefill_attention,
+    ring_flash_attention,
+    ring_kernel_supported,
+)
+from dynamo_tpu_torch.ops.ring_attention import ring_causal_attention
 
 State = Dict
 
@@ -101,11 +112,7 @@ def _attention_block(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     B, T, _ = x.shape
-    q = (x @ p_attn["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = (x @ p_attn["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p_attn["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, rot)
-    k = apply_rope(k, rot)
+    q, k, v = _qkv(cfg, p_attn, x, rot)
     _write_chunk(k_cache, v_cache, k_scale, v_scale, write_slots,
                  k.reshape(B * T, cfg.kv_size), v.reshape(B * T, cfg.kv_size))
     if ctx_slots is None:
@@ -130,6 +137,16 @@ def _attention_block(
                               seq_lens, scale=cfg.query_scale,
                               soft_cap=cfg.attn_soft_cap)
     return out.reshape(B, T, cfg.q_size) @ p_attn["wo"]
+
+
+def _qkv(cfg: ModelConfig, p_attn: State, x: torch.Tensor, rot):
+    """The chunk's projected heads, q and k rotated: q [B, T, Hq, D] and
+    k, v [B, T, Hkv, D]."""
+    B, T, _ = x.shape
+    q = (x @ p_attn["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = (x @ p_attn["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ p_attn["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    return apply_rope(q, rot), apply_rope(k, rot), v
 
 
 def _write_chunk(k_cache, v_cache, k_scale, v_scale,
@@ -217,18 +234,191 @@ def _lm_head(cfg: ModelConfig, state: State, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Sequence-parallel whole-prompt prefill
+
+
+def _sp_ring_attention(cfg: ModelConfig, q, k, v, positions, ring_quant,
+                       ring, use_kernel: bool):
+    """Sequence-parallel whole-prompt attention dispatch over per-rank
+    lists (q [B, T/sp, Hq, D], k and v [B, T/sp, Hkv, D], positions
+    [B, T/sp]): the flash-fold kernel's ring when asked for, else the
+    plain ring, which stays the oracle.  `ring_quant` is None or the
+    per-rank lists (kq, vq, k_scale, v_scale) of the quantized chunk,
+    which then rotate in place of k and v.
+
+    For ranks on a card the choice is `ring_kernel_supported`, the same
+    predicate the engine's kernel-path counter reads, so the two cannot
+    disagree on which ring a geometry runs.  A geometry the kernel does
+    not take is a declared rule, not a caught failure: once chosen, the
+    kernel launches or raises.  For CPU ranks the kernel's ring folds
+    with the kernel's plain version, as every kernel wrapper of the port
+    does for CPU tensors."""
+    B, t_loc, Hq, D = q[0].shape
+    kw = dict(scale=cfg.query_scale, soft_cap=cfg.attn_soft_cap)
+    if ring_quant is not None:
+        k, v, ks, vs = ring_quant
+        kw.update(k_scale=ks, v_scale=vs)
+    if use_kernel and (not ring.cuda or ring_kernel_supported(
+            Hq, cfg.num_kv_heads, D, t_loc, q[0].device, q[0].dtype)):
+        return ring_flash_attention(ring, q, k, v, positions, **kw)
+    # The plain ring runs on each card's current stream: let those catch
+    # up with the ranks' streams, and the ranks' streams with them after.
+    ring.join()
+    outs = ring_causal_attention(q, k, v, positions, **kw)
+    ring.fork()
+    return outs
+
+
+def _sp_attention_layer(cfg: ModelConfig, ring, use_kernel: bool,
+                        layers, hs, positions, rots, write_slots,
+                        k_cache, v_cache, k_scale, v_scale):
+    """One layer's attention over the ring: `layers[r]` is rank r's
+    replica of the layer, `hs[r]` its normed [B, T/sp, H] slice.  Each
+    rank projects and rotates its own slice; the chunk's rows are
+    gathered on rank 0's card and written to the paged cache there; the
+    chunk attends itself on the ring (no cached context is read).  With an
+    int8 cache each rank quantizes its rows ONCE, and the same int8 rows
+    and scales are scattered into the cache and rotated around the ring,
+    so the ring attends what every later cache read will see."""
+    sp = ring.sp
+    quant = k_scale is not None
+    qs, ks, vs, kscs, vscs = [], [], [], [], []
+    for r in range(sp):
+        with ring.on(r):
+            q, k, v = _qkv(cfg, layers[r]["attn"], hs[r], rots[r])
+            B, t_loc = q.shape[:2]
+            if quant:
+                kq, ksc = kvc.quantize_kv_rows(
+                    k.reshape(B * t_loc, cfg.kv_size), cfg.num_kv_heads)
+                vq, vsc = kvc.quantize_kv_rows(
+                    v.reshape(B * t_loc, cfg.kv_size), cfg.num_kv_heads)
+                k = kq.reshape(B, t_loc, cfg.num_kv_heads, cfg.head_dim)
+                v = vq.reshape(B, t_loc, cfg.num_kv_heads, cfg.head_dim)
+                kscs.append(ksc.reshape(B, t_loc, cfg.num_kv_heads))
+                vscs.append(vsc.reshape(B, t_loc, cfg.num_kv_heads))
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+    # The chunk's rows in token order [B, T, ...], on the cache's card.
+    B = qs[0].shape[0]
+    rows = [ring.gather(parts, dim=1).reshape(B * sp * t_loc, -1)
+            for parts in ((ks, vs, kscs, vscs) if quant else (ks, vs))]
+    with ring.on(0):
+        if quant:
+            kvc.scatter_kv_quant(k_cache, v_cache, k_scale, v_scale,
+                                 write_slots, *rows)
+        else:
+            kvc.write_kv(k_cache, v_cache, write_slots, *rows)
+    outs = _sp_ring_attention(
+        cfg, qs, ks, vs, positions,
+        (ks, vs, kscs, vscs) if quant else None, ring, use_kernel)
+    attn = []
+    for r in range(sp):
+        with ring.on(r):
+            B, t_loc = outs[r].shape[:2]
+            attn.append(outs[r].reshape(B, t_loc, cfg.q_size)
+                        @ layers[r]["attn"]["wo"])
+    return attn
+
+
+def _sp_forward(cfg: ModelConfig, block_size: int, ring, use_kernel: bool,
+                state: State, cache: Dict, tokens, positions, block_tables,
+                sample_positions):
+    """The whole-prompt prefill step over the ring's ranks.  The chunk is
+    the WHOLE prompt of every row (positions 0..len-1, pad positions past
+    the block table); rank r runs every token-wise op of every layer on
+    tokens [r * T/sp, (r + 1) * T/sp) with its card's replica of the
+    parameters, and only attention sees the other ranks' tokens.
+
+    The paged cache and all of decode stay on rank 0's card: after the
+    step the cache holds what a meshless prefill of the same prompts
+    writes.  (The JAX step replicates the cache and decode over sp; that
+    is how GSPMD keeps one program, not something a user sees.)"""
+    B, T = tokens.shape
+    sp = ring.sp
+    if T % sp:
+        raise ValueError(f"sp prefill: chunk length {T} must divide by "
+                         f"sp={sp}")
+    if cfg.is_moe:
+        raise ValueError("sp prefill runs dense models only")
+    if sample_positions is None:
+        raise ValueError("sp prefill gives one logits row per sequence: "
+                         "pass sample_positions")
+    t_loc = T // sp
+    block_tables = block_tables.to(torch.int32)
+    write_slots = kvc.slots_for_positions(
+        block_tables, positions, block_size).reshape(B * T)
+    quant = kvc.cache_is_quantized(cache)
+    ring.fork()
+    states = ring.replicas(state)
+    xs, pos, rots = [], [], []
+    for r in range(sp):
+        with ring.on(r):
+            cut = slice(r * t_loc, (r + 1) * t_loc)
+            dev = ring.devices[r]
+            pos_r = positions[:, cut].to(dev).contiguous()
+            xs.append(_embed(cfg, states[r], tokens[:, cut].to(dev)))
+            pos.append(pos_r)
+            rots.append(rope_tables(pos_r, cfg.head_dim, cfg.rope_theta))
+    off = cfg.rms_offset
+    for i in range(cfg.num_layers):
+        layers = [st["layers"][i] for st in states]
+        hs = []
+        for r in range(sp):
+            with ring.on(r):
+                hs.append(rms_norm(xs[r], layers[r]["attn_norm"],
+                                   cfg.rms_norm_eps, off))
+        attn = _sp_attention_layer(
+            cfg, ring, use_kernel, layers, hs, pos, rots, write_slots,
+            cache["k"][i], cache["v"][i],
+            cache["k_scale"][i] if quant else None,
+            cache["v_scale"][i] if quant else None)
+        for r in range(sp):
+            with ring.on(r):
+                xs[r] = _layer_tail(cfg, layers[r], xs[r], attn[r], "dense", [])
+    # Row b's sample position lies on rank sample_positions[b] // t_loc;
+    # every rank norms its candidate row, rank 0 keeps the owner's.
+    cands = []
+    for r in range(sp):
+        with ring.on(r):
+            idx = (sample_positions.to(ring.devices[r]).long()
+                   - r * t_loc).clamp(0, t_loc - 1)
+            row = xs[r][torch.arange(B, device=ring.devices[r]), idx]
+            cands.append(rms_norm(row, states[r]["final_norm"],
+                                  cfg.rms_norm_eps, off)[None])
+    stacked = ring.gather(cands, dim=0)                        # [sp, B, H]
+    with ring.on(0):
+        owner = torch.div(sample_positions.long(), t_loc,
+                          rounding_mode="floor").clamp(0, sp - 1)
+        sel = stacked[owner, torch.arange(B, device=stacked.device)]
+        logits = _lm_head(cfg, states[0], sel)
+    ring.join()
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
 # Forward
 
 
 def make_forward_step(cfg: ModelConfig, block_size: int,
                       use_decode_kernel: bool = False,
                       moe_mode: str = "dense",
-                      with_expert_load: bool = False):
+                      with_expert_load: bool = False,
+                      sp_ring=None,
+                      sp_ring_kernel: bool = False):
     """The unified prefill/decode step for one cache geometry.  With
     `use_decode_kernel`, T == 1 calls attend through the paged-decode
     kernel (its plain version for CPU tensors); everything else takes the
     gather path.  `with_expert_load` makes the step return (logits, cache,
-    stats [E+1]) — the MoE layers' summed expert load."""
+    stats [E+1]) — the MoE layers' summed expert load.
+
+    `sp_ring` (an SpRing): sequence-parallel FULL-PROMPT prefill — a T > 1
+    chunk is cut over the ring's ranks and attends itself on the ring.
+    The chunk must be the whole sequence (no cached context is read) and
+    T must divide by sp; build it with
+    parallel.sharding.make_sp_prefill_step.  `sp_ring_kernel` sends
+    eligible geometry through the flash-fold kernel in place of the plain
+    ring."""
     cfg.validate()
 
     def step(state: State, cache: Dict, tokens: torch.Tensor,
@@ -236,6 +426,10 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
              block_tables: torch.Tensor,
              sample_positions: Optional[torch.Tensor] = None):
         B, T = tokens.shape
+        if sp_ring is not None and T > 1:
+            return _sp_forward(cfg, block_size, sp_ring, sp_ring_kernel,
+                               state, cache, tokens, positions, block_tables,
+                               sample_positions)
         P = block_tables.shape[1]
         block_tables = block_tables.to(torch.int32)
         seq_lens = seq_lens.to(torch.int32)
@@ -307,11 +501,7 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
         for i, layer in enumerate(state["layers"]):
             p_attn = layer["attn"]
             h_in = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off)
-            q = (h_in @ p_attn["wq"]).reshape(1, T, cfg.num_heads, cfg.head_dim)
-            k = (h_in @ p_attn["wk"]).reshape(1, T, cfg.num_kv_heads, cfg.head_dim)
-            v = (h_in @ p_attn["wv"]).reshape(1, T, cfg.num_kv_heads, cfg.head_dim)
-            q = apply_rope(q, rot)
-            k = apply_rope(k, rot)
+            q, k, v = _qkv(cfg, p_attn, h_in, rot)
             ks, vs = _layer_scales(cache, i)
             _write_chunk(cache["k"][i], cache["v"][i], ks, vs,
                          write_slots, k.reshape(T, cfg.kv_size),

@@ -6,10 +6,11 @@ with its wrapper, its plain PyTorch version and a launch count.
 | paged_attention.py:paged_decode_attention  | paged_attention.py, paged_decode.cu (bf16, int8 cache)  |
 | paged_prefill.py:paged_prefill_attention   | paged_prefill.py, paged_prefill.cu (bf16, int8 cache)   |
 | moe_grouped.py:grouped_expert_ffn          | moe_grouped.py, moe_grouped.cu (bf16, int8 weights)     |
-| ring_attention.py:ring_flash_attention     | not ported yet (needs two or more GPUs)        |
+| ring_attention.py:ring_flash_attention     | ring_attention.py, ring_flash.cu (bf16, int8 K/V blocks) |
 
 A wrapper with two cache bodies counts each under its own name, so a
-window of launch counts shows which body ran.
+window of launch counts shows which body ran.  The ring counts its fold
+launches: one per rank and hop.
 """
 
 from dynamo_tpu_torch.ops.cuda.moe_grouped import (
@@ -30,6 +31,12 @@ from dynamo_tpu_torch.ops.cuda.paged_prefill import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
 )
+from dynamo_tpu_torch.ops.cuda.ring_attention import (
+    ring_flash_attention,
+    ring_flash_fold,
+    ring_geometry_ok,
+    ring_kernel_supported,
+)
 
 # name -> (wrapper, the wrapper's attribute that counts that body)
 KERNELS = {
@@ -39,6 +46,8 @@ KERNELS = {
     "paged_prefill_attention_int8": (paged_prefill_attention,
                                      "launches_int8"),
     "moe_grouped": (grouped_expert_ffn, "launches"),
+    "ring_flash_attention": (ring_flash_attention, "launches"),
+    "ring_flash_attention_int8": (ring_flash_attention, "launches_int8"),
 }
 
 
@@ -58,5 +67,6 @@ __all__ = [
     "moe_grouped_geometry_ok", "moe_params_quantized",
     "paged_decode_attention", "paged_decode_attention_plain",
     "paged_prefill_attention", "paged_prefill_attention_plain",
-    "quantize_moe_params", "reset_launch_counts",
+    "quantize_moe_params", "reset_launch_counts", "ring_flash_attention",
+    "ring_flash_fold", "ring_geometry_ok", "ring_kernel_supported",
 ]

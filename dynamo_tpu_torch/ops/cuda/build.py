@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("paged_decode", "paged_prefill", "moe_grouped")
+KERNEL_SOURCES = ("paged_decode", "paged_prefill", "moe_grouped",
+                  "ring_flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (paged decode and prefill attention over bf16
-and int8 caches, the grouped MoE expert FFN in bf16 and int8) and engine
-on the card.
+and int8 caches, the grouped MoE expert FFN in bf16 and int8, the ring
+attention flash fold over bf16 and int8 blocks) and engine on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The suite's
 conftest imports JAX, which the GPU machine does not have, so run this
@@ -30,9 +30,13 @@ from dynamo_tpu_torch.ops.cuda import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
     quantize_moe_params,
+    ring_flash_attention,
+    ring_flash_fold,
 )
 from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.ops.moe import expert_tiles
+from dynamo_tpu_torch.ops.ring_attention import ring_causal_attention
+from dynamo_tpu_torch.parallel import SpRing, make_sp_prefill_step
 
 pytestmark = pytest.mark.cuda
 ABS_TOL = 3e-2
@@ -372,3 +376,162 @@ def test_engine_serves_moe_through_the_grouped_kernel(dev, int8):
     assert int(load.sum()) == (core.counters.model_rows
                                * cfg.num_experts_per_token * cfg.num_layers)
     assert core.moe_dropped_tokens == 0
+
+
+PAD = 8192   # a pad position: past every real key
+
+
+def _ring_inputs(gen, dev, B, T, hq, hkv, d, quant):
+    """Whole-sequence q, k, v and positions for the ring: row 0 is a full
+    prompt; row 1 is a shorter prompt padded at the pad position, with
+    one query at position -1, which sees no key at all (its state never
+    leaves the mask fill: the junk-but-finite row)."""
+    q = _rand(gen, B, T, hq, d, dev=dev)
+    k = _rand(gen, B, T, hkv, d, dev=dev)
+    v = _rand(gen, B, T, hkv, d, dev=dev)
+    pos = torch.arange(T, device=dev, dtype=torch.int32).repeat(B, 1)
+    if B > 1:
+        real = T - T // 3
+        pos[1, real:] = PAD
+    q_pos = pos.clone()
+    if B > 1:
+        q_pos[1, 5] = -1
+    scales = {}
+    if quant:
+        kq, ks = kvc.quantize_kv_rows(k.reshape(B * T, hkv * d), hkv)
+        vq, vs = kvc.quantize_kv_rows(v.reshape(B * T, hkv * d), hkv)
+        k, v = kq.reshape(B, T, hkv, d), vq.reshape(B, T, hkv, d)
+        scales = {"k_scale": ks.reshape(B, T, hkv),
+                  "v_scale": vs.reshape(B, T, hkv)}
+    return q, k, v, q_pos, pos, scales
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,hkv,d,sp,t_loc,cap", [
+    (32, 8, 64, 4, 128, None),     # the served shape
+    (32, 8, 128, 4, 128, None),
+    (32, 8, 64, 1, 256, None),     # one rank: plain flash attention
+    (32, 8, 64, 2, 100, 30.0),     # T_loc not a multiple of the kv tile
+    (8, 2, 32, 4, 72, None),
+    (16, 16, 128, 2, 40, 30.0),    # no grouping; a T_loc under one tile
+    (32, 4, 64, 4, 24, None)])     # 8 query heads a kv head
+def test_ring_kernel_matches_plain_ring(dev, quant, hq, hkv, d, sp, t_loc, cap):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, T = 2, sp * t_loc
+    q, k, v, q_pos, kv_pos, scales = _ring_inputs(gen, dev, B, T, hq, hkv, d,
+                                                  quant)
+
+    def cut(x):
+        return [c.contiguous() for c in x.chunk(sp, dim=1)]
+
+    sc = {n: cut(t) for n, t in scales.items()}
+    ring = SpRing([dev] * sp)
+    attr = "launches_int8" if quant else "launches"
+    before = getattr(ring_flash_attention, attr)
+    ring.fork()
+    outs = ring_flash_attention(ring, cut(q), cut(k), cut(v), cut(q_pos),
+                                cut(kv_pos), soft_cap=cap, **sc)
+    ring.join()
+    refs = ring_causal_attention(cut(q), cut(k), cut(v), cut(q_pos),
+                                 cut(kv_pos), soft_cap=cap, **sc)
+    torch.cuda.synchronize()
+    assert getattr(ring_flash_attention, attr) == before + sp * sp
+    out, ref = torch.cat(outs, dim=1), torch.cat(refs, dim=1)
+    assert torch.isfinite(out.float()).all()
+    _assert_close(out, ref)
+    # The row that saw no key: every key counted once, the mean of V.
+    if not quant:
+        want = v[1].float().mean(dim=0)                        # [Hkv, D]
+        got = out[1, 5].float().reshape(hkv, hq // hkv, d)
+        assert (got - want[:, None]).abs().max().item() <= 2e-2
+
+
+def test_ring_fold_state_round_trip(dev):
+    """Two folds through the state in device memory equal one plain ring
+    of two blocks, and a second ring over the same slots (the next layer)
+    is not disturbed by the first."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, q_pos, kv_pos, _ = _ring_inputs(gen, dev, 1, 256, 32, 8, 64, False)
+    ring = SpRing([dev] * 2)
+
+    def cut(x):
+        return [c.contiguous() for c in x.chunk(2, dim=1)]
+
+    ring.fork()
+    first = ring_flash_attention(ring, cut(q), cut(k), cut(v), cut(q_pos))
+    second = ring_flash_attention(ring, cut(q), cut(v), cut(k), cut(q_pos))
+    ring.join()
+    torch.cuda.synchronize()
+    _assert_close(torch.cat(first, 1), torch.cat(
+        ring_causal_attention(cut(q), cut(k), cut(v), cut(q_pos)), 1))
+    _assert_close(torch.cat(second, 1), torch.cat(
+        ring_causal_attention(cut(q), cut(v), cut(k), cut(q_pos)), 1))
+
+
+def test_ring_fold_rejects_what_the_kernel_does_not_take(dev):
+    B, T, hq, hkv, d = 1, 16, 8, 2, 64
+    qs = torch.zeros(B, T, hq, d, device=dev)
+    kb = torch.zeros(B, T, hkv, d, dtype=torch.bfloat16, device=dev)
+    pos = torch.zeros(B, T, dtype=torch.int32, device=dev)
+    out = torch.zeros(B, T, hq, d, dtype=torch.bfloat16, device=dev)
+    st = (torch.zeros(B, hq, T, device=dev), torch.zeros(B, hq, T, device=dev),
+          torch.zeros(B, T, hq, d, device=dev))
+    ring_flash_fold(st, qs, pos, kb, kb, pos, out, first=True, last=True)
+    with pytest.raises(ValueError, match="q_scaled must be"):
+        ring_flash_fold(st, qs.bfloat16(), pos, kb, kb, pos, out, first=True,
+                        last=True)
+    with pytest.raises(ValueError, match="int32"):
+        ring_flash_fold(st, qs, pos.long(), kb, kb, pos, out, first=True,
+                        last=True)
+    with pytest.raises(ValueError, match="geometry rejected"):
+        ring_flash_fold(
+            (st[0], st[1], torch.zeros(B, T, hq, 48, device=dev)),
+            torch.zeros(B, T, hq, 48, device=dev), pos,
+            torch.zeros(B, T, hkv, 48, dtype=torch.bfloat16, device=dev),
+            torch.zeros(B, T, hkv, 48, dtype=torch.bfloat16, device=dev), pos,
+            torch.zeros(B, T, hq, 48, dtype=torch.bfloat16, device=dev),
+            first=True, last=True)
+    with pytest.raises(ValueError, match="come together"):
+        ring_flash_fold(st, qs, pos, kb.to(torch.int8), kb.to(torch.int8),
+                        pos, out, first=True, last=True)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_sp_engine_serves_through_the_ring_kernel(dev, kv_quant):
+    """tiny-test in bf16 with sp 4 on one card: prompts at or past the
+    threshold prefill through the ring kernel (16 fold launches a layer),
+    shorter ones through the packed plane.  Every prompt's first token is
+    held against the logits of the same prefill over the plain ring: it
+    is their argmax, or within a near tie of it."""
+    body = ring_flash_attention
+    attr = "launches_int8" if kv_quant == "int8" else "launches"
+    prompts = {"a": list(range(1, 33)), "b": list(range(40, 64))}
+    core = _tiny_engine(dev, kv_quant=kv_quant, sp=4, sp_prefill_threshold=16)
+    before = getattr(body, attr)
+    got = _serve(core, prompts)
+    c = core.counters
+    assert c.sp_prefill_count == 2 and c.ring_kernel_prefills == 2
+    layers = core.config.model.num_layers
+    assert getattr(body, attr) - before == layers * 16
+    want = c.ring_exchange_bytes_modeled
+    assert want == (32 + 24) * core.cache_cfg.ring_payload_bytes_per_token * 3 // 4
+    assert all(len(t) == 20 for t in got.values())
+    plain = make_sp_prefill_step(core.config.model, 8, core.ring,
+                                 kv_quant=kv_quant == "int8", use_kernel=False)
+    T = 32
+    tok = torch.zeros(2, T, dtype=torch.int32)
+    pos = torch.full((2, T), 16 * 8, dtype=torch.int32)
+    for i, p in enumerate(prompts.values()):
+        tok[i, : len(p)] = torch.tensor(p)
+        pos[i, : len(p)] = torch.arange(len(p))
+    lens = torch.tensor([len(p) for p in prompts.values()], dtype=torch.int32)
+    pages = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    logits, _ = plain(core.params, kvc.init_cache(core.cache_cfg, dev),
+                      *(t.to(dev) for t in (tok, pos, lens, pages, lens - 1)))
+    torch.cuda.synchronize()
+    for i, rid in enumerate(prompts):
+        row = logits[i].float()
+        gap = (row.max() - row[got[rid][0]]).item()
+        assert gap <= 2e-2 * row.abs().max().item(), (rid, gap)
+    short = _serve(core, {"c": [3, 4, 5]})
+    assert len(short["c"]) == 20 and core.counters.sp_prefill_count == 2

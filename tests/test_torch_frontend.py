@@ -160,7 +160,10 @@ def test_frontend_module_serves_on_cpu(tmp_path):
                                     "paged_decode_attention_int8": 0,
                                     "paged_prefill_attention": 0,
                                     "paged_prefill_attention_int8": 0,
-                                    "moe_grouped": 0}
+                                    "moe_grouped": 0,
+                                    "ring_flash_attention": 0,
+                                    "ring_flash_attention_int8": 0}
+        assert stats["sp"] == 1 and stats["sp_devices"] == []
         assert stats["moe_mode"] == "dense" and stats["expert_load"] is None
         assert stats["kv_quant"] == "none"
         pc = stats["prefix_cache"]
