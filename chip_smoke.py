@@ -9,14 +9,20 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
 1. device   — the card's name, count, torch/CUDA versions, and the
    rank -> card map an `--sp 4` ring gets on this machine.
 2. build    — nvcc builds every kernel source, one process each, at once.
-3. kernel_list — the kernels of the main paths.
-4. one line per kernel and geometry, held against its plain PyTorch
+3. sass     — for each library whose products run on the tensor cores
+   (paged_prefill, ring_flash): its SASS's HGMMA (wgmma), HMMA (mma.sync)
+   and FFMA counts, and ptxas's registers, spill bytes and static shared
+   memory per kernel instantiation; it fails if both tensor-core counts
+   are 0.
+4. kernel_list — the kernels of the main paths.
+5. one line per kernel and geometry, held against its plain PyTorch
    version at a main path's shapes, with its time (CUDA events), the plain
    version's, a one-call PyTorch yardstick where one exists
    (scaled_dot_product_attention on the gathered context for K1/K2; the
    port never calls it) and the least time the card could take (bytes
    over 3.35 TB/s, operations over 989 TFLOP/s bf16 — NVIDIA's H100 SXM
-   data sheet):
+   data sheet), and for K2/K4 the effective TFLOP/s (the function's flops
+   over the kernel's time):
    - paged decode / prefill attention (K1 / K2) at llama-3-1b's geometry
      (Hq 32, Hkv 8, D 64, block 64) and at mixtral-8x7b's (D 128), over a
      bf16 cache and over an int8 cache with its f32 scales (the `_int8`
@@ -36,32 +42,32 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      counts what the function must move (q, out, every visiting block);
      the f32 state that one launch per hop stores and reloads is printed
      beside it as `state_bytes`.
-5. model    — llama-3-1b at full width, random weights: packed prefill and
+6. model    — llama-3-1b at full width, random weights: packed prefill and
    decode steps through the kernels against the gather path.
-6. model_int8 — the same over an int8 KV cache (K2 and K1 int8 against
+7. model_int8 — the same over an int8 KV cache (K2 and K1 int8 against
    the gather path's dequantizing read), fed the bf16 run's tokens; how far
    its logits are from the bf16-cache run is printed for information.
-7. model_moe — mixtral-8x7b at full width and 2 layers, random weights:
+8. model_moe — mixtral-8x7b at full width and 2 layers, random weights:
    packed prefill (K2 + K3) and decode steps (K1 + K3) against the gather
    path with the dense MoE oracle, once with bf16 experts and once with
    int8 experts (the oracle on the dequantised weights).
-8. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
+9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
    streams their `[DONE]`; K1 and K2 must have launched.
-9. serve_int8 — the same with `--kv-quant int8` and a shared system
+10. serve_int8 — the same with `--kv-quant int8` and a shared system
    prompt of 10 blocks, which a warm-up chat puts in the prefix cache:
    only the int8 bodies of K1 and K2 may launch, and the prefix cache
    must serve every request the blocks of the prefix the 8 prompts share.
-10. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
+11. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
    (one card cannot hold its 32 layers): K1, K2 and K3 must have
    launched and the expert load must count every routed row.
-11. model_sp — llama-3-1b at full width and depth: a 480-token and a
+12. model_sp — llama-3-1b at full width and depth: a 480-token and a
    512-token prompt through the sequence-parallel prefill step (4 ranks
    on card 0, K4) against the packed prefill step (K2), over a bf16 and
    an int8 cache: logits, greedy tokens, the written cache rows, the K4
    launch count, then two decode steps (K1) from each cache.
-12. serve_sp — `--model llama-3-1b --sp 4` as a subprocess: long chats
+13. serve_sp — `--model llama-3-1b --sp 4` as a subprocess: long chats
    (400-500 prompt tokens, no shared first block) one at a time while
    nothing decodes, which must all prefill through the ring kernel with
    16 layers x 4 ranks x 4 hops fold launches a dispatch and the modeled
@@ -155,6 +161,9 @@ MOE_LAYERS = 16                # mixtral-8x7b depth served on one 80 GB card
 SP = 4                         # ring ranks of the sp phases
 RING_SHAPES = ((1, 512), (1, 8192))   # (B, T): T_loc 128 (served), 2048
 LONG_CHATS = 4                 # serve_sp's first wave
+# Libraries whose products run on the tensor cores: the sass phase fails
+# if their SASS holds no HGMMA (wgmma) or HMMA (mma.sync) instruction.
+TENSOR_CORE_LIBS = ("paged_prefill", "ring_flash")
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
@@ -185,6 +194,11 @@ def bound(nbytes: float, flops: float):
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     f_ms = flops / BF16_FLOPS_PER_S * 1e3
     return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def tflops(flops: float, ms: float) -> float:
+    """Effective rate: the function's flops over the measured time."""
+    return flops / (ms * 1e-3) / 1e12
 
 
 def closeness(torch, name: str, out, ref, limits: str = "") -> dict:
@@ -392,7 +406,7 @@ def prefill_phase(torch, gen, D, quant=False):
                       "cache": "int8" if quant else "bf16"},
             **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, "tflops": tflops(flops, k_ms)}
 
 
 def moe_phase(torch, gen, p, name, n_tokens):
@@ -581,6 +595,8 @@ def ring_phase(torch, gen, D, quant=False, devices=None):
         state = B * t_loc * HQ * D * 4 + 2 * B * HQ * t_loc * 4
         state_bytes = SP * 2 * (SP - 1) * state
         b_ms, b_by = bound(nbytes, flops)
+        # The unmasked fold does every pair of its two shards.
+        fold_flops = 4 * B * HQ * D * t_loc * t_loc
         out.append({"name": name,
                     "shape": {"B": B, "T": T, "sp": SP, "t_loc": t_loc,
                               "Hq": HQ, "Hkv": HKV, "D": D,
@@ -590,7 +606,9 @@ def ring_phase(torch, gen, D, quant=False, devices=None):
                     "kernel_ms": k_ms, "fold_ms": fold_ms, "plain_ms": p_ms,
                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "bytes": nbytes, "state_bytes": state_bytes,
-                    "flops": flops})
+                    "flops": flops, "tflops": tflops(flops, k_ms),
+                    "fold_flops": fold_flops,
+                    "fold_tflops": fold_ms and tflops(fold_flops, fold_ms)})
         torch.cuda.empty_cache()
     return out
 
@@ -1394,6 +1412,13 @@ def main() -> int:
         times = build.build_all()
         emit({"phase": "build", "seconds": times,
               "wall_s": time.monotonic() - t0})
+        phase = "sass"
+        for name in TENSOR_CORE_LIBS:
+            counts = build.sass_counts(name)
+            emit({"phase": "sass", "library": name, **counts,
+                  "ptxas": build.ptxas_report(name)})
+            check(counts["HGMMA"] + counts["HMMA"] > 0,
+                  f"{name}: no tensor-core instruction in its SASS")
         phase = "kernel_list"
         emit({"phase": "kernel_list", "names": list(kernels.KERNELS)})
         gen = torch.Generator(device="cuda")
@@ -1476,9 +1501,10 @@ def main() -> int:
     for (key, d), k in attn.items():
         run = serve_int8 if key.endswith("_int8") else (
             serve if d == 64 else serve_moe)
+        extra = {"tflops": k["tflops"]} if "tflops" in k else {}
         summary.append(summary_entry(
             k, key if d == 64 else f"{key}_d{d}", run["launches"][key],
-            launches_from=run["phase"]))
+            launches_from=run["phase"], **extra))
     for k in moe:
         prefill = k["shape"]["tokens"] > 64
         name = k["name"] + ("_prefill" if prefill else "")
@@ -1497,7 +1523,8 @@ def main() -> int:
                 else f"_t{k['shape']['T']}")
             summary.append(summary_entry(
                 k, name, serve_sp["launches"][key], launches_from="serve_sp",
-                fold_ms=k["fold_ms"], state_bytes=k["state_bytes"]))
+                fold_ms=k["fold_ms"], state_bytes=k["state_bytes"],
+                tflops=k["tflops"], fold_tflops=k["fold_tflops"]))
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

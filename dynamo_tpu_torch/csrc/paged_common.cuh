@@ -1,5 +1,6 @@
-// Shared pieces of the paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu).
+// Shared pieces of the attention kernels: the warp width (for
+// flash_tile.cuh's kernels too, paged_prefill.cu and ring_flash.cu), and
+// paged_decode.cu's page loaders, reductions and row dot product.
 //
 // Cache layout (dynamo_tpu_torch/engine/kv_cache.py): one layer's K or V is
 // a row-major [S, F] buffer, S = num_blocks * block_size slots and

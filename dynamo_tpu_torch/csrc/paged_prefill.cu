@@ -10,34 +10,57 @@
 // causality in one mask; the chunk's own K/V are already in the pool.
 // Rows that no segment owns come back zero.
 //
+// Arithmetic, as the TPU kernel's: q * scale rounded to bf16, bf16 K/V
+// (int8 ones widened to round_bf16(q8 * scale)), scores and the running
+// max and sum in f32, the probabilities rounded to bf16 for P . V, which
+// accumulates in f32.  Those are exactly the operands of bf16 wgmma with
+// f32 accumulation, so only the order of the sums differs.
+//
 // What bounds it on this card: operations, at long chunks.  A chunk of L
 // queries over L keys does ~2 * L * Hq * D * L flops on 2 * L * F * 2
 // bytes of K/V; past a few dozen tokens the flops per byte pass the H100's
 // ~295 ridge, so the floor is the causal flops over the tensor-core peak.
 //
-// What the design does about it: one CTA per (segment, q tile, kv head)
-// holds M = 64 query rows (TQ = 64 / G tokens x the G query heads of the
-// kv head, which share every K/V load), streams only the pages its tile
-// can see (the sweep stops at the tile's causal bound, as the TPU kernel's
-// kv_hi) through shared memory once, and keeps an f32 online softmax per
-// row.  The products run on the CUDA cores in f32: this first version does
-// not reach the tensor cores, so it sits well above its bound at long
-// chunks; an mma.sync / wgmma tile version is later work.
+// What the design does about it: one CTA (one warpgroup) per (segment,
+// q tile, kv head) holds M = 64 query rows (TQ = 64 / G tokens x the G
+// query heads of the kv head, which share every K/V load) and sweeps the
+// keys its tile can see (the sweep stops at the tile's causal bound, as
+// the TPU kernel's kv_hi) in 64-key tiles through the tensor-core tile of
+// flash_tile.cuh: S = Q . K^T and O += P . V on wgmma, the online softmax
+// and P in registers, no split (bf16 operands, as the reference).  Each
+// key row of a tile is one 16-byte-chunked cp.async copy from its slot
+// (block_tables[r, pos / bs] * bs + pos % bs, so any block size works; a
+// 64-key tile is one page at block 64), issued one tile ahead into a
+// two-stage ring, so tile j + 1 is in flight while tile j multiplies;
+// keys past the causal bound are zero-filled and never read.
 //
-// int8 cache (the TPU kernel's quant=True body): pages load through
-// dtt::load_page_int8 (int8 rows and their per-token f32 scales,
-// dequantized into the same bf16 tile), so a cached prefix costs
+// int8 cache (the TPU kernel's quant=True body): the tile's int8 rows and
+// their per-token f32 scales land in a staging ring and are widened into
+// the same bf16 tile just before the products, so a cached prefix costs
 // F + 4 * Hkv bytes per token and layer to read in place of 2 * F.
-#include "paged_common.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;           // M: query rows (token x head) per CTA
-constexpr float kNegInf = -1e30f;   // finite, as the TPU kernel's _NEG_INF
+using namespace dtt::flash;
+
+// Shared memory, from a 1024-byte aligned base: the Q tile, then two K/V
+// stages (bf16 cache: the tiles themselves; int8 cache: one pair of bf16
+// tiles and two staging buffers), then two tiles' key slots and the
+// owned flags of the zeroing pass.
+template <int D, bool kInt8>
+struct Smem {
+  using S = Stage<D, kInt8>;
+  static constexpr uint32_t kQ = Tile<D>::kBytes;
+  static constexpr uint32_t kStage = kInt8 ? S::kRaw + S::kScales : S::kTiles;
+  static constexpr uint32_t kKv = kQ + (kInt8 ? S::kTiles : 0);  // first stage
+  static constexpr uint32_t kSlots = kKv + 2 * kStage;
+  static constexpr uint32_t kOwned = kSlots + 2 * kKeys * 4;
+  static constexpr size_t kBytes = kOwned + kRows * 4 + 1024;  // + alignment slack
+};
 
 template <int D, bool kInt8>
-__global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,   // [T, Hq, D]
     const void* __restrict__ kc,           // [S, F] bf16 or int8
     const void* __restrict__ vc,           // [S, F]
@@ -49,27 +72,35 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const int* __restrict__ q_lens,        // [R] query rows (0 = pad segment)
     __nv_bfloat16* __restrict__ out,       // [T, Hq, D]
     int T, int R, int Hq, int Hkv, int P, int bs, float scale, float soft_cap) {
-  static_assert(kThreads % D == 0, "a thread keeps one column d of the output");
-  constexpr int kOut = kRows * D / kThreads;  // outputs per thread
-  constexpr int kRowStep = kThreads / D;      // rows between a thread's outputs
+  using L = Tile<D>;
+  using M = Smem<D, kInt8>;
   const int r = blockIdx.x, qt = blockIdx.y, h = blockIdx.z, tid = threadIdx.x;
-  const int G = Hq / Hkv, TQ = kRows / G, F = Hkv * D, W = dtt::tile_stride(D);
-  const int warp = tid / dtt::kWarp, lane = tid % dtt::kWarp;
-  constexpr int kWarps = kThreads / dtt::kWarp;
+  const int G = Hq / Hkv, TQ = kRows / G;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t base = smem_addr(smem);
+  int* slot_s = reinterpret_cast<int*>(smem + M::kSlots);  // [2][64]
 
   // Rows no segment owns are zeroed by segment 0's CTAs: tile qt of the
   // whole packed axis, this kv head's G query heads.
   if (r == 0) {
-    for (int i = tid; i < TQ * G * D; i += kThreads) {
-      const int row = qt * TQ + i / (G * D);
-      if (row >= T) break;
-      bool owned = false;
+    int* owned_s = reinterpret_cast<int*>(smem + M::kOwned);
+    if (tid < TQ) {
+      const int row = qt * TQ + tid;
+      bool owned = row >= T;
       for (int s = 0; s < R; ++s) {
         const int ql = q_lens[s], qs = q_starts[s];
         owned |= (ql > 0 && row >= qs && row < qs + ql);
       }
-      if (!owned)
-        out[((size_t)row * Hq + (size_t)h * G) * D + i % (G * D)] = __float2bfloat16(0.f);
+      owned_s[tid] = owned;
+    }
+    __syncthreads();
+    constexpr int kVec = 8;  // bf16 values a 16-byte store
+    for (int i = tid; i < TQ * G * D / kVec; i += kThreads) {
+      const int t = i / (G * D / kVec);
+      if (!owned_s[t])
+        *reinterpret_cast<uint4*>(out + ((size_t)(qt * TQ + t) * Hq + (size_t)h * G) * D +
+                                  i % (G * D / kVec) * kVec) = make_uint4(0, 0, 0, 0);
     }
   }
 
@@ -82,97 +113,96 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   // Causality bounds the sweep: the tile's last query sees at most
   // position chunk_start + row0 + n_rows - 1.
   const int kv_hi = min(seq_len, chunk_start + row0 + n_rows);
-  const int n_pages = (kv_hi + bs - 1) / bs;
+  const int n_tiles = (kv_hi + kKeys - 1) / kKeys;
+  const int* table = block_tables + (size_t)r * P;
+  // Key tid's slot in tile j (-1 past the causal bound), read a tile
+  // before its copy is issued.
+  auto slot = [&](int j) {
+    const int pos = j * kKeys + tid;
+    return tid < kKeys && pos < kv_hi ? table[pos / bs] * bs + pos % bs : -1;
+  };
+  int slot_next = slot(0);
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // [M, D], row m = token i * G + head g
-  float* p_s = q_s + kRows * D;      // [M, bs]
-  float* m_s = p_s + kRows * bs;     // [M]
-  float* l_s = m_s + kRows;          // [M]
-  float* a_s = l_s + kRows;          // [M]
-  __nv_bfloat162* k_s = reinterpret_cast<__nv_bfloat162*>(a_s + kRows);
-  __nv_bfloat162* v_s = k_s + bs * W;
-  float* ks_s = reinterpret_cast<float*>(v_s + bs * W);  // [bs] (int8 only)
-  float* vs_s = ks_s + bs;
-
-  for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int m = idx / D, d = idx % D, i = m / G, g = m % G;
-    float x = 0.f;
-    if (i < n_rows)
-      x = __bfloat162float(
-          q[((size_t)(q_start + row0 + i) * Hq + (size_t)h * G + g) * D + d]);
-    q_s[idx] = dtt::round_bf16(x * scale);
-  }
-  for (int m = tid; m < kRows; m += kThreads) {
-    m_s[m] = kNegInf;
-    l_s[m] = 0.f;
-  }
-  float acc[kOut];
+  // Q * scale, rounded to bf16, in the swizzled A tile; row m is token
+  // m / G, query head h * G + m % G.
+  for (int i = tid; i < kRows * L::kChunks; i += kThreads) {
+    const int m = i / L::kChunks, c = i % L::kChunks, t = m / G;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (t < n_rows) {
+      w = *reinterpret_cast<const uint4*>(
+          q + ((size_t)(q_start + row0 + t) * Hq + (size_t)h * G + m % G) * D + c * 8);
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&w);
 #pragma unroll
-  for (int k = 0; k < kOut; ++k) acc[k] = 0.f;
-  const int d_own = tid % D;
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(e[j]);
+        e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(smem + L::offset(m, c)) = w;
+  }
+  Rows<D> st;
+  int qp[2];
+  const int c0 = frag_col();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = (frag_row() + 8 * i) / G;
+    qp[i] = t < n_rows ? chunk_start + row0 + t : INT_MIN;  // padding rows see no key
+    st.m[i] = kNeg;
+    st.l[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) st.o[j] = 0.f;
+  fence_async_smem();
+
+  auto stage_at = [&](int s) { return base + M::kKv + s * M::kStage; };
+  auto tile_at = [&](int s) { return kInt8 ? base + M::kQ : stage_at(s); };
+  auto issue = [&](int s) {
+    const int* sl = slot_s + s * kKeys;
+    load_tile<D, kInt8>(kc, vc, ksc, vsc, Hkv, h, [&](int k) { return sl[k]; }, stage_at(s),
+                        stage_at(s));
+  };
+  if (tid < kKeys) slot_s[tid] = slot_next;
+  slot_next = slot(1);
   __syncthreads();
+  issue(0);
+  if (tid < kKeys) slot_s[kKeys + tid] = slot_next;
+  slot_next = slot(2);
 
-  for (int p = 0; p < n_pages; ++p) {
-    const int page = block_tables[(size_t)r * P + p];
-    if constexpr (kInt8)
-      dtt::load_page_int8(static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
-                          ksc, vsc, k_s, v_s, ks_s, vs_s, page, bs, Hkv, h, D);
-    else
-      dtt::load_page(static_cast<const __nv_bfloat16*>(kc),
-                     static_cast<const __nv_bfloat16*>(vc), k_s, v_s, page, bs, F, h, D);
+  float s[32];
+  uint32_t p[4][4];
+  for (int j = 0; j < n_tiles; ++j) {
+    const int cur = j & 1;
+    cp_async_wait<0>();
+    fence_async_smem();
+    // Tile j's copies are visible, every thread is done with tile j - 1
+    // (whose stage the next copy reuses), and tile j + 1's slots are in
+    // place.
     __syncthreads();
-    for (int idx = tid; idx < kRows * bs; idx += kThreads) {
-      const int m = idx / bs, t = idx % bs, i = m / G;
-      const int kv_pos = p * bs + t, q_pos = chunk_start + row0 + i;
-      float s = kNegInf;
-      if (i < n_rows && kv_pos < seq_len && kv_pos <= q_pos) {
-        s = dtt::dot_row(q_s + m * D, k_s + t * W, D);
-        if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
-      }
-      p_s[idx] = s;
-    }
-    __syncthreads();
-    for (int m = warp; m < kRows; m += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < bs; t += dtt::kWarp) mx = fmaxf(mx, p_s[m * bs + t]);
-      mx = dtt::warp_max(mx);
-      const float m_old = m_s[m];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < bs; t += dtt::kWarp) {
-        const float e = expf(p_s[m * bs + t] - m_new);
-        sum += e;
-        p_s[m * bs + t] = dtt::round_bf16(e);
-      }
-      sum = dtt::warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[m] = alpha;
-        l_s[m] = l_s[m] * alpha + sum;
-        m_s[m] = m_new;
-      }
-    }
-    __syncthreads();
-    // This thread's outputs are rows m_k = tid / D + k * kRowStep of one
-    // column d_own, so each V element it reads serves all kOut rows.
-#pragma unroll
-    for (int k = 0; k < kOut; ++k) acc[k] *= a_s[tid / D + k * kRowStep];
-    for (int t = 0; t < bs; ++t) {
-      const float vt = dtt::tile_at(v_s, t, d_own, W);
-#pragma unroll
-      for (int k = 0; k < kOut; ++k)
-        acc[k] = fmaf(p_s[(tid / D + k * kRowStep) * bs + t], vt, acc[k]);
-    }
-    __syncthreads();
+    if (j + 1 < n_tiles) issue(cur ^ 1);
+    tile_scores<D, false, kInt8>(s, base, 0, tile_at(cur),
+                                 smem + M::kKv + cur * M::kStage, smem + M::kQ);
+    const int t0 = j * kKeys;
+    softmax_step<D, false>(
+        s, st, qp, [&](int c) { return t0 + c < seq_len ? t0 + c : INT_MAX; }, kKeys, soft_cap,
+        p, p);
+    pv<D, false>(st, p, p, tile_at(cur) + L::kBytes);
+    // Tile j + 2's slots take tile j's place, read since tile j began.
+    if (tid < kKeys) slot_s[cur * kKeys + tid] = slot_next;
+    slot_next = slot(j + 3);
   }
 
 #pragma unroll
-  for (int k = 0; k < kOut; ++k) {
-    const int m = tid / D + k * kRowStep, i = m / G, g = m % G;
-    if (i < n_rows)
-      out[((size_t)(q_start + row0 + i) * Hq + (size_t)h * G + g) * D + d_own] =
-          __float2bfloat16(acc[k] / fmaxf(l_s[m], 1e-30f));
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(st.l[i]);
+    const int m = frag_row() + 8 * i, t = m / G;
+    if (t >= n_rows) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    __nv_bfloat16* dst =
+        out + ((size_t)(q_start + row0 + t) * Hq + (size_t)h * G + m % G) * D + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(st.o[4 * j + 2 * i] * inv, st.o[4 * j + 2 * i + 1] * inv);
   }
 }
 
@@ -181,18 +211,11 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
            const void* v_scale, const void* block_tables, const void* seq_lens,
            const void* q_starts, const void* q_lens, void* out, int T, int R, int Hq,
            int Hkv, int P, int block_size, float scale, float soft_cap, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const int TQ = kRows / G;
-  const size_t smem = sizeof(float) * ((size_t)kRows * D + (size_t)kRows * block_size +
-                                       3 * kRows) +
-                      2 * sizeof(__nv_bfloat162) * (size_t)block_size * dtt::tile_stride(D) +
-                      (kInt8 ? 2 * sizeof(float) * (size_t)block_size : 0);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<D, kInt8>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  constexpr size_t smem = Smem<D, kInt8>::kBytes;
+  static bool done[kMaxDevices] = {};
+  const int e = allow_smem(reinterpret_cast<const void*>(paged_prefill_kernel<D, kInt8>), smem, done);
+  if (e) return e;
+  const int TQ = kRows / (Hq / Hkv);
   dim3 grid(R, (T + TQ - 1) / TQ, Hkv);
   paged_prefill_kernel<D, kInt8><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,

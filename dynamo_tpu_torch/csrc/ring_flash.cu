@@ -15,48 +15,46 @@
 // in bf16 instead of storing it.
 //
 // Arithmetic, as the plain version (ops/ring_attention.py:ring_fold): q
-// arrives scaled in f32; bf16 K/V widen to f32; int8 K/V become
-// round_bf16((float)q8 * scale) and then widen; both products and the
-// state are f32; soft_cap comes before the mask; masked scores are the
-// finite -1e30, so a row that has seen no key yet adds exp(0) = 1 per
-// masked key (padding rows: junk but finite) and exp(m - m_new) at
-// m = m_new = -1e30 is 1.
+// arrives scaled in f32; bf16 K/V are the operands as they are; int8 K/V
+// become round_bf16((float)q8 * scale); both products and the state are
+// f32; soft_cap comes before the mask; masked scores are the finite -1e30,
+// so a row that has seen no key yet adds exp(0) = 1 per masked key
+// (padding rows: junk but finite) and exp(m - m_new) at m = m_new = -1e30
+// is 1.
 //
 // A kv tile is skipped only when that cannot change the result: every key
 // of the tile lies after every query of the CTA (the tile is wholly
 // masked) AND every row of the CTA already has a real maximum, so that the
 // tile would add exp(-1e30 - m) = 0 to l and acc and leave m as it is.  A
 // launch whose whole block is masked that way returns before it touches
-// acc.
+// acc.  The decision for tile j + 1 is taken when tile j has landed, from
+// the rows' state after tile j - 1: a row that is real stays real, so
+// this skips a subset of what the rule allows, never more.
 //
 // What bounds it on this card: operations.  A fold of Tq queries over Tk
 // keys does 4 * Tq * Tk * Hq * D flops on (Tq * Hq + 2 * Tk * Hkv) * D
 // operand values plus the state; at Tq = Tk = 128 that is already ~50
 // flops a byte and it grows with the shard, so the floor is the unmasked
 // flops over the tensor-core peak.  What the design does about it: one CTA
-// per (q tile, kv head, batch row) holds 64 query rows (64 / G tokens x
-// the G query heads of the kv head, which share every K/V load), streams
-// the visiting block through shared memory in 64-key tiles (K and V take
-// turns in one tile buffer, so that several CTAs fit an SM), and computes
-// both products as register tiles (4 x 8 scores, 4 x D/8 outputs per
-// thread), so each shared-memory word read feeds 2.7 to 3.2 multiply-adds.
-// The products run on the CUDA cores in f32: q is f32 by contract, so the
-// bf16 tensor cores would change the arithmetic; an mma version (split-f32
-// or bf16 q with an agreed tolerance) is later work.
-#include "paged_common.cuh"
+// (one warpgroup) per (q tile, kv head, batch row) holds 64 query rows
+// (64 / G tokens x the G query heads of the kv head, which share every K/V
+// load) and runs both products on the bf16 tensor cores through the tile
+// of flash_tile.cuh: wgmma with f32 accumulation, K and V in a two-stage
+// cp.async ring (tile j + 1 loads while tile j multiplies), P kept in
+// registers.  q is f32 by contract, so Q and P are split into bf16 hi and
+// lo halves and each product runs twice (kQLo, kSplit); K and V are exactly
+// bf16, so the split misses the f32 products by ~2^-16 relative where one
+// bf16 pass misses them by ~2^-9 (tests/test_torch_flash_split.py models
+// both).  Where q * scale is already bf16 (a bf16 q and a power-of-two
+// scale, as at D 64) Q's lo half is zero: the CTA sees that and runs a
+// copy of its tile loop whose QK^T is one pass.
+#include "flash_tile.cuh"
 
-#include <limits.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;          // M: query rows (token x head) per CTA
-constexpr int kKeys = 64;          // N: keys per kv tile
-constexpr int kRowsPerThread = 4;  // a thread's rows: 4 * ty .. 4 * ty + 3
-constexpr int kLanesPerRow = 8;    // threads sharing a row; columns tx + 8 * j
-constexpr float kNeg = -1e30f;     // the mask fill, finite
-constexpr float kReal = -1e29f;    // a running max above this has seen a key
-constexpr int kMaxDevices = 64;
+using namespace dtt::flash;
 
 __device__ __forceinline__ int warp_min_int(int v) {
 #pragma unroll
@@ -70,44 +68,23 @@ __device__ __forceinline__ int warp_max_int(int v) {
   return v;
 }
 
-// Stage 64 keys [t0, t0 + 64) of kv head h of batch row b into an f32 tile
-// with row stride D + 1 (rows past Tk are zero).
+// Shared memory, from a 1024-byte aligned base: Q hi, Q lo, then two K/V
+// stages (bf16 blocks: the tiles themselves; int8 blocks: one pair of
+// bf16 tiles and two staging buffers), then the stages' key positions
+// and a reduction scratch.
 template <int D, bool kInt8>
-__device__ __forceinline__ void load_tile(const void* __restrict__ src,
-                                          const float* __restrict__ scale,
-                                          float* __restrict__ tile, int b, int h, int t0,
-                                          int Tk, int Hkv) {
-  constexpr int kVec = kInt8 ? 16 : 8;  // elements per 16-byte load
-  constexpr int kVecPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kKeys * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow, c = i % kVecPerRow;
-    const int t = t0 + r;
-    float* dst = tile + r * (D + 1) + c * kVec;
-    if (t >= Tk) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) dst[e] = 0.f;
-      continue;
-    }
-    const size_t row = (size_t)b * Tk + t;
-    const size_t off = (row * Hkv + h) * D + (size_t)c * kVec;
-    if constexpr (kInt8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(src) + off);
-      const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
-      const float s = scale[row * Hkv + h];
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) dst[e] = dtt::round_bf16((float)p[e] * s);
-    } else {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(src) + off);
-      const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) dst[e] = __bfloat162float(p[e]);
-    }
-  }
-}
+struct Smem {
+  using S = Stage<D, kInt8>;
+  static constexpr uint32_t kQ = 2 * Tile<D>::kBytes;
+  static constexpr uint32_t kStage = kInt8 ? S::kRaw + S::kScales : S::kTiles;
+  static constexpr uint32_t kKv = kQ + (kInt8 ? S::kTiles : 0);  // first stage
+  static constexpr uint32_t kPos = kKv + 2 * kStage;
+  static constexpr uint32_t kRed = kPos + 2 * kKeys * 4;
+  static constexpr size_t kBytes = kRed + 8 * 4 + 1024;  // + alignment slack
+};
 
 template <int D, bool kInt8>
-__global__ void __launch_bounds__(kThreads) ring_fold_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>) ring_fold_kernel(
     const float* __restrict__ q,       // [B, Tq, Hq, D] f32, already scaled
     const int* __restrict__ q_pos,     // [B, Tq] absolute positions
     const void* __restrict__ k,        // [B, Tk, Hkv, D] bf16 or int8
@@ -120,197 +97,196 @@ __global__ void __launch_bounds__(kThreads) ring_fold_kernel(
     float* __restrict__ acc_st,        // [B, Tq, Hq, D]
     __nv_bfloat16* __restrict__ out,   // [B, Tq, Hq, D] (written when last)
     int Tq, int Tk, int Hq, int Hkv, float soft_cap, int first, int last) {
-  constexpr int kCols = D / kLanesPerRow;  // a thread's output columns
-  constexpr int QS = D + 1;                // row stride of the f32 tiles
-  constexpr int PS = kKeys + 1;            // row stride of the score tile
+  using L = Tile<D>;
+  using M = Smem<D, kInt8>;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int G = Hq / Hkv, TQ = kRows / G;
-  const int ty = tid / kLanesPerRow, tx = tid % kLanesPerRow;
   const int lane = tid % dtt::kWarp, warp = tid / dtt::kWarp;
-  const int tok0 = qt * TQ;
+  const int tok0 = qt * TQ, c0 = frag_col();
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                         // [64, D + 1]
-  float* kv_s = q_s + kRows * QS;            // [64, D + 1]: the K tile, then V
-  float* p_s = kv_s + kKeys * QS;            // [64, 65]
-  int* qpos_s = reinterpret_cast<int*>(p_s + kRows * PS);  // [64]
-  int* kpos_s = qpos_s + kRows;                            // [2, 64]
-  int* red_s = kpos_s + 2 * kKeys;                         // [4]
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t base = smem_addr(smem);
+  int* kpos_s = reinterpret_cast<int*>(smem + M::kPos);  // [2][64]
+  int* red_s = reinterpret_cast<int*>(smem + M::kRed);   // [8]
 
-  // Row m of the CTA is token tok0 + m / G, query head h * G + m % G.
-  for (int m = tid; m < kRows; m += kThreads) {
-    const int tok = tok0 + m / G;
-    qpos_s[m] = tok < Tq ? q_pos[(size_t)b * Tq + tok] : INT_MIN;
+  // This thread's rows: m = frag_row() + 8 i is token tok0 + m / G, query
+  // head h * G + m % G.
+  int tok[2], head[2], qp[2];
+  Rows<D> st;
+  bool real = true;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = frag_row() + 8 * i;
+    tok[i] = tok0 + m / G;
+    head[i] = h * G + m % G;
+    qp[i] = tok[i] < Tq ? q_pos[(size_t)b * Tq + tok[i]] : INT_MIN;
+    st.m[i] = kNeg;
+    st.l[i] = 0.f;
+    if (tok[i] < Tq) {
+      if (!first) {
+        const size_t idx = ((size_t)b * Hq + head[i]) * Tq + tok[i];
+        st.m[i] = m_st[idx];
+        st.l[i] = c0 == 0 ? l_st[idx] : 0.f;  // the quad's parts sum to l
+      }
+      real = real && st.m[i] > kReal;
+    }
   }
-  // Smallest key position of the whole visiting block.
+  // Smallest key position of the whole visiting block, largest query.
   int kmin = INT_MAX;
   for (int t = tid; t < Tk; t += kThreads) kmin = min(kmin, kv_pos[(size_t)b * Tk + t]);
   kmin = warp_min_int(kmin);
-  if (lane == 0) red_s[warp] = kmin;
+  const int qmx = warp_max_int(max(qp[0], qp[1]));
+  if (lane == 0) {
+    red_s[warp] = kmin;
+    red_s[4 + warp] = qmx;
+  }
+  if (__syncthreads_and(real)) {
+    kmin = min(min(red_s[0], red_s[1]), min(red_s[2], red_s[3]));
+    // The whole block is masked for rows that all have a real max: the
+    // fold changes nothing, and only the last hop still has to write.
+    if (kmin > max(max(red_s[4], red_s[5]), max(red_s[6], red_s[7])) && !last) return;
+  }
+  const int qmax = max(max(red_s[4], red_s[5]), max(red_s[6], red_s[7]));
 
-  // This thread's four rows and their running max and sum.
-  int tok_r[kRowsPerThread], head_r[kRowsPerThread];
-  float m_r[kRowsPerThread], l_r[kRowsPerThread];
-  bool real = true;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int m = kRowsPerThread * ty + i;
-    tok_r[i] = tok0 + m / G;
-    head_r[i] = h * G + m % G;
-    m_r[i] = kNeg;
-    l_r[i] = 0.f;
-    if (tok_r[i] < Tq) {
-      if (!first) {
-        const size_t s = ((size_t)b * Hq + head_r[i]) * Tq + tok_r[i];
-        m_r[i] = m_st[s];
-        l_r[i] = l_st[s];
-      }
-      real = real && m_r[i] > kReal;
+  // Q, split into bf16 halves, in the swizzled A tiles.
+  bool lo_any = false;
+  for (int i = tid; i < kRows * L::kChunks; i += kThreads) {
+    const int m = i / L::kChunks, c = i % L::kChunks, t = tok0 + m / G;
+    float x[8] = {};
+    if (t < Tq) {
+      const float4* src = reinterpret_cast<const float4*>(
+          q + (((size_t)b * Tq + t) * Hq + h * G + m % G) * D + c * 8);
+      const float4 a = src[0], e = src[1];
+      x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+      x[4] = e.x, x[5] = e.y, x[6] = e.z, x[7] = e.w;
     }
-  }
-  int all_real = __syncthreads_and(real);
-  const int qmax = warp_max_int(max(qpos_s[lane], qpos_s[lane + dtt::kWarp]));
-  kmin = min(min(red_s[0], red_s[1]), min(red_s[2], red_s[3]));
-  // The whole block is masked for rows that all have a real max: the fold
-  // changes nothing, and only the last hop still has to write its output.
-  if (all_real && kmin > qmax && !last) return;
-
-  for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int m = idx / D, d = idx % D;
-    const int tok = tok0 + m / G;
-    q_s[m * QS + d] =
-        tok < Tq ? q[(((size_t)b * Tq + tok) * Hq + h * G + m % G) * D + d] : 0.f;
-  }
-  float acc[kRowsPerThread][kCols];
+    uint4 hi, lo;
+    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(&hi);
+    __nv_bfloat162* lp = reinterpret_cast<__nv_bfloat162*>(&lo);
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const size_t base = (((size_t)b * Tq + tok_r[i]) * Hq + head_r[i]) * D;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      acc[i][j] = (!first && tok_r[i] < Tq) ? acc_st[base + tx + kLanesPerRow * j] : 0.f;
+    for (int j = 0; j < 4; ++j) {
+      hp[j] = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+      const float2 f = __bfloat1622float2(hp[j]);
+      const float d0 = x[2 * j] - f.x, d1 = x[2 * j + 1] - f.y;
+      lp[j] = __floats2bfloat162_rn(d0, d1);
+      lo_any = lo_any || d0 != 0.f || d1 != 0.f;
+    }
+    *reinterpret_cast<uint4*>(smem + L::offset(m, c)) = hi;
+    *reinterpret_cast<uint4*>(smem + L::kBytes + L::offset(m, c)) = lo;
   }
+  // The state's part of O.
+  const size_t row_base[2] = {(((size_t)b * Tq + tok[0]) * Hq + head[0]) * D,
+                              (((size_t)b * Tq + tok[1]) * Hq + head[1]) * D};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float2 a = make_float2(0.f, 0.f);
+      if (!first && tok[i] < Tq)
+        a = *reinterpret_cast<const float2*>(acc_st + row_base[i] + 8 * j + c0);
+      st.o[4 * j + 2 * i] = a.x;
+      st.o[4 * j + 2 * i + 1] = a.y;
+    }
+  fence_async_smem();
 
   const int n_tiles = (Tk + kKeys - 1) / kKeys;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int t0 = tile * kKeys;
-    int* kp = kpos_s + (tile & 1) * kKeys;
-    if (tid < kKeys) kp[tid] = t0 + tid < Tk ? kv_pos[(size_t)b * Tk + t0 + tid] : INT_MAX;
-    // Barrier: the positions are staged, and every warp is done with the
-    // previous tile's kv_s and p_s.
-    all_real = __syncthreads_and(real);
-    const int tile_min = warp_min_int(min(kp[lane], kp[lane + dtt::kWarp]));
-    if (all_real && tile_min > qmax) continue;
+  const uint32_t q_hi = base, q_lo = base + L::kBytes;
+  auto stage_at = [&](int s) { return base + M::kKv + s * M::kStage; };
+  // bf16 blocks multiply the stage itself; int8 blocks its widened copy.
+  auto tile_at = [&](int s) { return kInt8 ? base + M::kQ : stage_at(s); };
+  auto issue = [&](int j, int s) {
+    const int t0 = j * kKeys;
+    load_tile<D, kInt8>(
+        k, v, ksc, vsc, Hkv, h,
+        [&](int r) { return t0 + r < Tk ? b * Tk + t0 + r : -1; }, stage_at(s), stage_at(s));
+  };
+  // Key tid of tile j (threads past the tile's keys: INT_MAX), read a
+  // tile before the decision that needs it.
+  auto key_pos = [&](int j) {
+    const int t = j * kKeys + tid;
+    return tid < kKeys && t < Tk ? kv_pos[(size_t)b * Tk + t] : INT_MAX;
+  };
+  // A tile is live unless every row is real and every key (kp: this
+  // thread's) is past qmax.  The barrier also publishes Q (the first
+  // tile) and retires every thread's reads of the stage the next copy
+  // overwrites.
+  auto decide = [&](int kp, int s) {
+    const bool skip = __syncthreads_and(real && kp > qmax);
+    if (tid < kKeys) kpos_s[s * kKeys + tid] = kp;
+    return !skip;
+  };
+  bool live = decide(key_pos(0), 0);
+  if (live) issue(0, 0);
+  int kp_next = key_pos(1);
 
-    load_tile<D, kInt8>(k, ksc, kv_s, b, h, t0, Tk, Hkv);
-    __syncthreads();
-
-    // Scores: rows 4 * ty + i, keys tx + 8 * j.
-    float s[kRowsPerThread][kKeys / kLanesPerRow];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys / kLanesPerRow; ++j) s[i][j] = 0.f;
-    const float* q_row = q_s + kRowsPerThread * ty * QS;
-    const float* k_row = kv_s + tx * QS;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRowsPerThread], kv[kKeys / kLanesPerRow];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) qv[i] = q_row[i * QS + d];
-#pragma unroll
-      for (int j = 0; j < kKeys / kLanesPerRow; ++j) kv[j] = k_row[j * kLanesPerRow * QS + d];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys / kLanesPerRow; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // Online softmax per row; the 8 threads of a row are 8 neighbouring
-    // lanes of one warp.
-    real = true;
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int qp = qpos_s[kRowsPerThread * ty + i];
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < kKeys / kLanesPerRow; ++j) {
-        float x = s[i][j];
-        if (soft_cap > 0.f) x = soft_cap * tanhf(x / soft_cap);
-        x = kp[tx + kLanesPerRow * j] <= qp ? x : kNeg;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+  // The tile loop, with or without Q's lo pass: one copy of it each, chosen
+  // once here, so that no branch lies inside a wgmma stage.
+  auto fold = [&](auto q_lo_live) {
+    constexpr bool kQLo = decltype(q_lo_live)::value;
+    float s[32];
+    uint32_t p_hi[4][4], p_lo[4][4];
+    for (int j = 0; j < n_tiles; ++j) {
+      const int cur = j & 1;
+      if (live) {
+        cp_async_wait<0>();
+        fence_async_smem();
       }
-#pragma unroll
-      for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_r[i], mx);
-      const float alpha = expf(m_r[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeys / kLanesPerRow; ++j) {
-        const int col = tx + kLanesPerRow * j;
-        // A key past the end of the block is no key: it adds nothing,
-        // whatever the row's state.
-        const float p = t0 + col < Tk ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        p_s[(kRowsPerThread * ty + i) * PS + col] = p;
+      // One barrier a tile (decide's): tile j's copies are visible, every
+      // thread is done with tile j - 1, and tile j + 1 is decided and
+      // issued into the stage tile j - 1 used.
+      bool live_next = false;
+      if (j + 1 < n_tiles) {
+        live_next = decide(kp_next, cur ^ 1);
+        kp_next = key_pos(j + 2);
+        if (live_next) issue(j + 1, cur ^ 1);
+      } else if (live) {
+        __syncthreads();
       }
+      if (!live) {
+        live = live_next;
+        continue;
+      }
+      tile_scores<D, kQLo, kInt8>(s, q_hi, q_lo, tile_at(cur), smem + M::kKv + cur * M::kStage,
+                                  smem + M::kQ);
+      const int* kp = kpos_s + cur * kKeys;
+      softmax_step<D, true>(s, st, qp, [&](int c) { return kp[c]; }, Tk - j * kKeys, soft_cap,
+                            p_hi, p_lo);
+      pv<D, true>(st, p_hi, p_lo, tile_at(cur) + L::kBytes);
+      real = true;
 #pragma unroll
-      for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l_r[i] = l_r[i] * alpha + sum;
-      m_r[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-      if (tok_r[i] < Tq) real = real && m_new > kReal;
+      for (int i = 0; i < 2; ++i)
+        if (tok[i] < Tq) real = real && st.m[i] > kReal;
+      live = live_next;
     }
-    // The K tile is spent: V takes its place (one tile buffer keeps two
-    // to four CTAs on an SM).  The barriers also publish p_s.
-    __syncthreads();
-    load_tile<D, kInt8>(v, vsc, kv_s, b, h, t0, Tk, Hkv);
-    __syncthreads();
-
-    // acc[rows 4 * ty + i][columns tx + 8 * j] += P . V
-    const float* p_row = p_s + kRowsPerThread * ty * PS;
-#pragma unroll 4
-    for (int t = 0; t < kKeys; ++t) {
-      float pv[kRowsPerThread], vv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) pv[i] = p_row[i * PS + t];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) vv[j] = kv_s[t * QS + tx + kLanesPerRow * j];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
+  };
+  if (__syncthreads_or(lo_any))
+    fold(std::true_type{});
+  else
+    fold(std::false_type{});
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    if (tok_r[i] >= Tq) continue;
-    const size_t base = (((size_t)b * Tq + tok_r[i]) * Hq + head_r[i]) * D;
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(st.l[i]);
+    if (tok[i] >= Tq) continue;
     if (last) {
-      const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        out[base + tx + kLanesPerRow * j] = __float2bfloat16(acc[i][j] * inv);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + row_base[i] + 8 * j + c0) =
+            __floats2bfloat162_rn(st.o[4 * j + 2 * i] * inv, st.o[4 * j + 2 * i + 1] * inv);
     } else {
-      if (tx == 0) {
-        const size_t s = ((size_t)b * Hq + head_r[i]) * Tq + tok_r[i];
-        m_st[s] = m_r[i];
-        l_st[s] = l_r[i];
+      if (c0 == 0) {
+        const size_t idx = ((size_t)b * Hq + head[i]) * Tq + tok[i];
+        m_st[idx] = st.m[i];
+        l_st[idx] = l;
       }
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc_st[base + tx + kLanesPerRow * j] = acc[i][j];
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(acc_st + row_base[i] + 8 * j + c0) =
+            make_float2(st.o[4 * j + 2 * i], st.o[4 * j + 2 * i + 1]);
     }
   }
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)(kRows + kKeys) * (D + 1) + (size_t)kRows * (kKeys + 1)) +
-         sizeof(int) * (kRows + 2 * kKeys + 4);
 }
 
 template <int D, bool kInt8>
@@ -318,20 +294,10 @@ int launch(const void* q, const void* q_pos, const void* k, const void* v, const
            const void* vsc, const void* kv_pos, void* m, void* l, void* acc, void* out, int B,
            int Tq, int Tk, int Hq, int Hkv, float soft_cap, int first, int last,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    // The attribute belongs to the device: set it once on each.
-    static bool done[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev >= kMaxDevices || !done[dev]) {
-      e = cudaFuncSetAttribute(ring_fold_kernel<D, kInt8>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      if (dev < kMaxDevices) done[dev] = true;
-    }
-  }
+  constexpr size_t smem = Smem<D, kInt8>::kBytes;
+  static bool done[kMaxDevices] = {};
+  const int e = allow_smem(reinterpret_cast<const void*>(ring_fold_kernel<D, kInt8>), smem, done);
+  if (e) return e;
   const int TQ = kRows / (Hq / Hkv);
   dim3 grid((Tq + TQ - 1) / TQ, Hkv, B);
   ring_fold_kernel<D, kInt8><<<grid, kThreads, smem, stream>>>(

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -94,6 +95,58 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
                 _finish(n, job)
             times[n] = time.monotonic() - t0 if job is not None else 0.0
     return times
+
+
+def ptxas_report(name: str) -> list:
+    """Per kernel instantiation of a built library, what `-Xptxas -v`
+    said: registers, spill bytes (stores, loads), static shared memory and
+    any warning (such as wgmma serialization), read from the build log
+    (demangled where `c++filt` exists)."""
+    log = (BUILD_DIR / f"{name}.log").read_text().splitlines()
+    by_name = {m.group(1): {"kernel": m.group(1)} for m in (
+        re.search(r"Compiling entry function '(\w+)'", ln) for ln in log) if m}
+    out, entry = list(by_name.values()), None
+    for line in log:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = by_name[m.group(1)]
+            continue
+        if "warning" in line or "Performance Loss" in line:
+            m = re.search(r"function '(\w+)'", line)
+            target = by_name.get(m.group(1)) if m else entry
+            if target is not None:
+                target.setdefault("warnings", []).append(line.strip())
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            entry["smem_static"] = int(s.group(1)) if s else 0
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e["kernel"] for e in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        for e, n in zip(out, names):
+            n = n.replace("(anonymous namespace)::", "").removeprefix("void ")
+            e["kernel"] = n.split("(")[0]
+    return out
+
+
+def sass_counts(name: str,
+                opcodes: Iterable[str] = ("HGMMA", "HMMA", "FFMA")) -> dict:
+    """How many instructions of each opcode the built library's SASS
+    holds (`cuobjdump -sass`)."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     sass)
+    return {op: sum(1 for o in ops if o == op) for op in opcodes}
 
 
 def load(name: str) -> ctypes.CDLL:

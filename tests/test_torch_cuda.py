@@ -96,14 +96,30 @@ def test_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     assert out[1].abs().max().item() == 0 and out[6].abs().max().item() == 0
 
 
-@pytest.mark.parametrize("hq,hkv,d,bs,cap", [
-    (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 8, 128, 32, None),
-    (8, 2, 32, 8, None), (32, 8, 128, 64, None)])
-def test_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
+# Packed segments (start, q_len, seq_len) and the rows no segment owns.
+# "base": a cached prefix of 26 (mid-page at every block size), a
+# one-token segment, alignment gaps and tail rows.  "ragged": q_len 13,
+# 77, 1 and 103 (no multiple of 16), prefixes of 50, 131 and 5 that end
+# mid-page, and rows a segment ends beside the next one's alignment gap.
+# Table entries past a segment's last page are the null block (0).
+SEGMENTS = {
+    "base": ([(0, 37, 37), (40, 64, 90), (104, 1, 1), (112, 100, 100)], 216,
+             [(37, 40), (212, 216)]),
+    "ragged": ([(0, 13, 63), (16, 77, 77), (96, 1, 132), (104, 103, 108)], 208,
+               [(13, 16), (93, 96), (97, 104), (207, 208)]),
+}
+# G = Hq / Hkv of 4, 1 and 8 query heads a kv head.
+PREFILL_HEADS = [(32, 8, 64, 64, None), (32, 8, 64, 16, 30.0),
+                 (8, 8, 128, 32, None), (8, 2, 32, 8, None),
+                 (32, 8, 128, 64, None), (32, 4, 64, 64, None)]
+
+
+@pytest.mark.parametrize("layout", list(SEGMENTS))
+@pytest.mark.parametrize("hq,hkv,d,bs,cap", PREFILL_HEADS)
+def test_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap, layout):
     gen = torch.Generator(device=dev).manual_seed(1)
-    R, P = 6, 16  # P * bs covers the longest context at every bs
-    segs = [(0, 37, 37), (40, 64, 90), (104, 1, 1), (112, 100, 100)]  # start, len, seq_len
-    T = 216
+    R, P = 6, 24  # P * bs covers the longest context at every bs
+    segs, T, gaps = SEGMENTS[layout]
     nblocks = 1 + R * P
     kc = _rand(gen, nblocks * bs, hkv * d, dev=dev)
     vc = _rand(gen, nblocks * bs, hkv * d, dev=dev)
@@ -124,8 +140,8 @@ def test_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     torch.cuda.synchronize()
     assert paged_prefill_attention.launches == before + 1
     _assert_close(out, ref)
-    assert out[37:40].abs().max().item() == 0      # alignment gap rows
-    assert out[212:].abs().max().item() == 0       # tail rows
+    for a, b in gaps:                              # rows no segment owns
+        assert out[a:b].abs().max().item() == 0
 
 
 def _int8_pool(gen, S, hkv, d, dev):
@@ -169,16 +185,15 @@ def test_int8_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     assert out[1].abs().max().item() == 0 and out[6].abs().max().item() == 0
 
 
+@pytest.mark.parametrize("layout", list(SEGMENTS))
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 2, 32, 8, None),
-    (32, 8, 128, 64, None)])
-def test_int8_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
-    """Packed segments over an int8 pool: a cached prefix, a one-token
-    segment, alignment gaps and tail rows."""
+    (32, 8, 128, 64, None), (32, 4, 64, 64, None)])
+def test_int8_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap, layout):
+    """Packed segments over an int8 pool (SEGMENTS)."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    R, P = 6, 16
-    segs = [(0, 37, 37), (40, 64, 90), (104, 1, 1), (112, 100, 100)]
-    T = 216
+    R, P = 6, 24
+    segs, T, gaps = SEGMENTS[layout]
     nblocks = 1 + R * P
     pool = _int8_pool(gen, nblocks * bs, hkv, d, dev)
     q = _rand(gen, T, hq, d, dev=dev)
@@ -199,8 +214,8 @@ def test_int8_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     torch.cuda.synchronize()
     assert paged_prefill_attention.launches_int8 == before + 1
     _assert_close(out, ref)
-    assert out[37:40].abs().max().item() == 0
-    assert out[212:].abs().max().item() == 0
+    for a, b in gaps:
+        assert out[a:b].abs().max().item() == 0
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -414,7 +429,10 @@ def _ring_inputs(gen, dev, B, T, hq, hkv, d, quant):
     (32, 8, 64, 2, 100, 30.0),     # T_loc not a multiple of the kv tile
     (8, 2, 32, 4, 72, None),
     (16, 16, 128, 2, 40, 30.0),    # no grouping; a T_loc under one tile
-    (32, 4, 64, 4, 24, None)])     # 8 query heads a kv head
+    (32, 4, 64, 4, 24, None),      # 8 query heads a kv head
+    (32, 4, 128, 4, 13, 30.0)])    # T_loc under one k16 slice, G 8, D 128
+# At sp > 1 a rank's block from a later rank is wholly masked: those
+# launches skip it whole (every row already real) except on the last hop.
 def test_ring_kernel_matches_plain_ring(dev, quant, hq, hkv, d, sp, t_loc, cap):
     gen = torch.Generator(device=dev).manual_seed(4)
     B, T = 2, sp * t_loc
