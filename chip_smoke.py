@@ -10,10 +10,11 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    rank -> card map an `--sp 4` ring gets on this machine.
 2. build    — nvcc builds every kernel source, one process each, at once.
 3. sass     — for each library whose products run on the tensor cores
-   (paged_prefill, ring_flash): its SASS's HGMMA (wgmma), HMMA (mma.sync)
-   and FFMA counts, and ptxas's registers, spill bytes and static shared
-   memory per kernel instantiation; it fails if both tensor-core counts
-   are 0.
+   (paged_prefill, ring_flash, moe_grouped on wgmma; paged_decode on
+   mma.sync): its SASS's HGMMA (wgmma), HMMA (mma.sync) and FFMA counts,
+   and ptxas's registers, spill bytes and static shared memory per kernel
+   instantiation; it fails if both tensor-core counts are 0, or if a wgmma
+   library has no HGMMA.
 4. kernel_list — the kernels of the main paths.
 5. one line per kernel and geometry, held against its plain PyTorch
    version at a main path's shapes, with its time (CUDA events), the plain
@@ -27,10 +28,15 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      (Hq 32, Hkv 8, D 64, block 64) and at mixtral-8x7b's (D 128), over a
      bf16 cache and over an int8 cache with its f32 scales (the `_int8`
      phases: the same K/V quantized, the bound counted from int8 and
-     scale bytes, SDPA on the dequantized gathered context);
+     scale bytes, SDPA on the dequantized gathered context); K1 at batch
+     64, context 512 and at the served batch of 8, context 256 (the `_b8`
+     phases); K1's times are CUDA-graph replays (the card's time: at
+     batch 8 an eager loop measures the host's enqueue), its eager time
+     beside them;
    - the grouped expert FFN (K3), bf16 and int8 weights, at mixtral-8x7b
-     width (E 8, top-2, H 4096, F 14336) with decode (64 tokens) and
-     prefill (512 tokens) row counts routed by the port's own MoE routing;
+     width (E 8, top-2, H 4096, F 14336) with serve_moe's decode bucket (8
+     tokens), 64 tokens and prefill (512 tokens) row counts routed by the
+     port's own MoE routing, each line with the kernel's group width;
    - the ring attention flash fold (K4), bf16 and int8 blocks, D 64 and
      D 128 at Hq 32 / Hkv 8: the whole ring of 4 ranks on card 0 (and a
      second line over 4 distinct cards where the machine has them) at
@@ -162,8 +168,15 @@ SP = 4                         # ring ranks of the sp phases
 RING_SHAPES = ((1, 512), (1, 8192))   # (B, T): T_loc 128 (served), 2048
 LONG_CHATS = 4                 # serve_sp's first wave
 # Libraries whose products run on the tensor cores: the sass phase fails
-# if their SASS holds no HGMMA (wgmma) or HMMA (mma.sync) instruction.
-TENSOR_CORE_LIBS = ("paged_prefill", "ring_flash")
+# if their SASS holds no HGMMA (wgmma) or HMMA (mma.sync) instruction, and
+# if one of WGMMA_LIBS holds no HGMMA.
+TENSOR_CORE_LIBS = ("paged_prefill", "ring_flash", "moe_grouped",
+                    "paged_decode")
+WGMMA_LIBS = ("paged_prefill", "ring_flash", "moe_grouped")
+# K1's shapes: (batch, context): the table's B 64 and the served decode
+# bucket of 8 chats.
+DECODE_SHAPES = ((64, 512), (8, 256))
+MOE_TOKENS = (8, 64, 512)      # K3: serve_moe's decode bucket, 64, prefill
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
@@ -243,6 +256,26 @@ def time_ms(torch, fn, samples: int = 25, per_sample: int = 10) -> float:
     return statistics.median(out)
 
 
+def graph_ms(torch, fn, samples: int = 25, per_sample: int = 10) -> float:
+    """time_ms of `per_sample` calls captured once in a CUDA graph and
+    replayed: the card's time for them, without the host's time to enqueue
+    them (which sets an eager loop of a kernel of a few microseconds)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()                                  # warm the side stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(per_sample):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    return time_ms(torch, graph.replay, samples, 1) / per_sample
+
+
 def sdpa_inputs(torch, kvc, q, kc, vc, block_tables, seq_lens, q_pos,
                 scales=None):
     """Dense [R, Hq, *, D] tensors of each row's gathered context (bf16,
@@ -275,30 +308,48 @@ def cache_operands(torch, kvc, kc, vc, quant: bool):
     return kq, vq, {"k_scale": ks, "v_scale": vs}, 2 * (kc.shape[1] + 4 * HKV)
 
 
-def decode_phase(torch, gen, D, quant=False):
+def decode_inputs(torch, gen, D, quant=False, B=64, ctx=512):
+    """K1's operands at batch B, context ctx: q, the cache (bf16, or int8
+    with its scales in `sc`), a table of shuffled pages and ragged
+    seq_lens; `token_bytes` is one cached token's K/V bytes."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
-    from dynamo_tpu_torch.ops.cuda import (
-        paged_decode_attention, paged_decode_attention_plain)
 
     dev = torch.device("cuda")
-    B, P, ctx = 64, 8, 512
+    P = ctx // BS
     nblocks = 1 + B * P + 64
     S = nblocks * BS
     kc = torch.randn(S, HKV * D, generator=gen, device=dev).to(torch.bfloat16)
     vc = torch.randn(S, HKV * D, generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn(B, HQ, D, generator=gen, device=dev).to(torch.bfloat16)
-    # Shuffled, non-contiguous pages; a few ragged and empty rows.
+    # Shuffled, non-contiguous pages; a few ragged and empty rows (at
+    # batch 8 like a served bucket: a padding row, chats of 1-256 tokens).
     perm = torch.randperm(nblocks - 1, generator=gen, device=dev)[: B * P] + 1
     bt = perm.reshape(B, P).to(torch.int32)
     lens = [ctx] * B
-    for i, n in ((1, 0), (2, 1), (3, 63), (4, 65), (5, 300), (6, 0), (7, 129)):
+    ragged = ((1, 0), (2, 1), (3, 63), (4, 65), (5, 300), (6, 0), (7, 129))
+    if B == 8:
+        ragged = ((1, 0), (2, 1), (3, 63), (4, 65), (5, 200), (6, 129),
+                  (7, 219))
+    for i, n in ragged:
         lens[i] = n
     for i, n in enumerate(lens):
         bt[i, -(-n // BS):] = 0  # unallocated entries are the null block
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant)
+    return {"q": q, "kc": kc, "vc": vc, "bt": bt, "sl": sl, "sc": sc,
+            "lens": lens, "token_bytes": token_bytes}
+
+
+def decode_phase(torch, gen, D, quant=False, B=64, ctx=512):
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.ops.cuda import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    a = decode_inputs(torch, gen, D, quant, B, ctx)
+    q, kc, vc, bt, sl, sc = (a[n] for n in ("q", "kc", "vc", "bt", "sl", "sc"))
+    lens, token_bytes = a["lens"], a["token_bytes"]
     scale = D ** -0.5
     name = "paged_decode_attention" + ("_int8" if quant else "")
-    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant)
 
     def kern():
         return paged_decode_attention(q, kc, vc, bt, sl, block_size=BS, **sc)
@@ -312,7 +363,11 @@ def decode_phase(torch, gen, D, quant=False):
     torch.cuda.synchronize()
     check(out[1].abs().max().item() == 0.0, f"{name}: seq_len 0 row not zero")
     reading = closeness(torch, name, out, ref)
-    k_ms = time_ms(torch, kern)
+    # K1 runs for a few microseconds at the served batch, under the host's
+    # time to enqueue a call: its time is taken from a CUDA graph's replay;
+    # eager_ms is the same calls enqueued one by one.
+    k_ms = graph_ms(torch, kern)
+    eager_ms = time_ms(torch, kern)
     p_ms = time_ms(torch, plain, samples=5, per_sample=2)
     k4, v4, mask = sdpa_inputs(torch, kvc, q, kc, vc, bt, sl,
                                (sl.long() - 1)[:, None],
@@ -330,7 +385,8 @@ def decode_phase(torch, gen, D, quant=False):
             "shape": {"B": B, "ctx": ctx, "block": BS, "Hq": HQ, "Hkv": HKV,
                       "D": D, "cache": "int8" if quant else "bf16",
                       "seq_lens": lens[:8]},
-            **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
+            **reading, "kernel_ms": k_ms, "eager_ms": eager_ms,
+            "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
 
@@ -409,19 +465,16 @@ def prefill_phase(torch, gen, D, quant=False):
             "bytes": nbytes, "flops": flops, "tflops": tflops(flops, k_ms)}
 
 
-def moe_phase(torch, gen, p, name, n_tokens):
-    """K3 at mixtral-8x7b width: n_tokens tokens routed by the port's own
-    MoE routing (router_topk + expert_tiles), so the tiles are ragged and
-    padding rows and dead tiles exist, against the plain version."""
+def moe_inputs(torch, gen, p, n_tokens):
+    """K3's operands at mixtral-8x7b width: n_tokens tokens routed by the
+    port's own MoE routing (router_topk + expert_tiles) over the weights
+    `p`, gathered into expert-sorted 64-row tiles."""
     from dynamo_tpu_torch.models.config import get_config
-    from dynamo_tpu_torch.ops.cuda import (
-        grouped_expert_ffn, grouped_expert_ffn_plain)
     from dynamo_tpu_torch.ops.moe import expert_tiles, router_topk
 
     dev = torch.device("cuda")
     cfg = get_config("mixtral-8x7b")
-    E, k = cfg.num_experts, cfg.num_experts_per_token
-    H, Fi = cfg.hidden_size, cfg.intermediate_size
+    E, k, H = cfg.num_experts, cfg.num_experts_per_token, cfg.hidden_size
     x = torch.randn(n_tokens, H, generator=gen, device=dev).to(torch.bfloat16)
     ids, _ = router_topk(cfg, p, x)
     order, dest, S_pad, te, tr, counts = expert_tiles(ids.reshape(-1), E, 64)
@@ -430,7 +483,27 @@ def moe_phase(torch, gen, p, name, n_tokens):
     x_pad[dest] = x[token_of[order]]
     scales = {n: p.get(n) for n in ("w_gate_scale", "w_up_scale",
                                     "w_down_scale")}
-    args = (x_pad, te, p["w_gate"], p["w_up"], p["w_down"])
+    return {"args": (x_pad, te, p["w_gate"], p["w_up"], p["w_down"]),
+            "tile_rows": tr, "scales": scales, "dest": dest,
+            "counts": counts}
+
+
+def moe_phase(torch, gen, p, name, n_tokens):
+    """K3 at mixtral-8x7b width over `moe_inputs`, so the tiles are ragged
+    and padding rows and dead tiles exist, against the plain version."""
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.ops.cuda import (
+        grouped_expert_ffn, grouped_expert_ffn_plain)
+    from dynamo_tpu_torch.ops.cuda.moe_grouped import moe_group_tiles
+
+    dev = torch.device("cuda")
+    cfg = get_config("mixtral-8x7b")
+    E, k = cfg.num_experts, cfg.num_experts_per_token
+    H, Fi = cfg.hidden_size, cfg.intermediate_size
+    a = moe_inputs(torch, gen, p, n_tokens)
+    args, tr, scales = a["args"], a["tile_rows"], a["scales"]
+    dest, counts = a["dest"], a["counts"]
+    S_pad = args[0].shape[0]
 
     def kern():
         return grouped_expert_ffn(*args, tile_rows=tr, **scales)
@@ -458,11 +531,13 @@ def moe_phase(torch, gen, p, name, n_tokens):
         nbytes += n_live * (2 * Fi + H) * 4
     flops = 6 * S * H * Fi                 # three products over live rows
     b_ms, b_by = bound(nbytes, flops)
+    group = moe_group_tiles(S_pad // 64, E)
     return {"name": name,
             "shape": {"tokens": n_tokens, "assignments": S, "S_pad": S_pad,
                       "E": E, "k": k, "H": H, "F": Fi, "block_rows": 64,
                       "live_experts": n_live,
                       "tile_rows": tr.tolist()},
+            "group_tiles": group,
             **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": None,
             "library_note": "no single PyTorch call computes a ragged "
@@ -471,8 +546,9 @@ def moe_phase(torch, gen, p, name, n_tokens):
             "flops": flops}
 
 
-def moe_kernel_phases(torch, gen):
-    """K3, bf16 and int8 weights, at decode and prefill row counts."""
+def moe_weights(torch, gen):
+    """One mixtral-8x7b layer's router and experts, random (fan-in scaled
+    bf16), and the same experts quantized to int8: (bf16, int8)."""
     from dynamo_tpu_torch.models.config import get_config
     from dynamo_tpu_torch.ops.cuda import quantize_moe_params
 
@@ -486,10 +562,15 @@ def moe_kernel_phases(torch, gen):
 
     p = {"router": w(H, H, E), "w_gate": w(H, E, H, Fi),
          "w_up": w(H, E, H, Fi), "w_down": w(Fi, E, Fi, H)}
-    q = quantize_moe_params(p)
+    return p, quantize_moe_params(p)
+
+
+def moe_kernel_phases(torch, gen):
+    """K3, bf16 and int8 weights, at MOE_TOKENS row counts."""
+    p, q = moe_weights(torch, gen)
     out = []
     for name, weights in (("moe_grouped", p), ("moe_grouped_int8", q)):
-        for n_tokens in (64, 512):
+        for n_tokens in MOE_TOKENS:
             out.append(moe_phase(torch, gen, weights, name, n_tokens))
     return out
 
@@ -1419,6 +1500,8 @@ def main() -> int:
                   "ptxas": build.ptxas_report(name)})
             check(counts["HGMMA"] + counts["HMMA"] > 0,
                   f"{name}: no tensor-core instruction in its SASS")
+            check(name not in WGMMA_LIBS or counts["HGMMA"] > 0,
+                  f"{name}: no wgmma (HGMMA) instruction in its SASS")
         phase = "kernel_list"
         emit({"phase": "kernel_list", "names": list(kernels.KERNELS)})
         gen = torch.Generator(device="cuda")
@@ -1426,12 +1509,15 @@ def main() -> int:
         attn = {}
         for quant in (False, True):
             for d in (64, 128):
-                for key, fn in (("paged_decode_attention", decode_phase),
-                                ("paged_prefill_attention", prefill_phase)):
-                    key += "_int8" if quant else ""
-                    phase = f"{key}_d{d}"
-                    attn[key, d] = fn(torch, gen, d, quant)
-                    emit({"phase": phase, **attn[key, d]})
+                key = "paged_decode_attention" + ("_int8" if quant else "")
+                for B, ctx in DECODE_SHAPES:
+                    phase = f"{key}_d{d}" + ("" if B == 64 else f"_b{B}")
+                    attn[key, d, B] = decode_phase(torch, gen, d, quant, B, ctx)
+                    emit({"phase": phase, **attn[key, d, B]})
+                key = "paged_prefill_attention" + ("_int8" if quant else "")
+                phase = f"{key}_d{d}"
+                attn[key, d, None] = prefill_phase(torch, gen, d, quant)
+                emit({"phase": phase, **attn[key, d, None]})
         ring = {}
         for quant in (False, True):
             for d in (64, 128):
@@ -1498,21 +1584,27 @@ def main() -> int:
     # launches of serve_moe; K3 int8 (on no serve path): launches of
     # model_moe's int8 run.
     summary = []
-    for (key, d), k in attn.items():
+    for (key, d, B), k in attn.items():
         run = serve_int8 if key.endswith("_int8") else (
             serve if d == 64 else serve_moe)
         extra = {"tflops": k["tflops"]} if "tflops" in k else {}
+        if "eager_ms" in k:
+            extra["eager_ms"] = k["eager_ms"]
+        name = (key + ("" if d == 64 else f"_d{d}")
+                + ("" if B in (None, DECODE_SHAPES[0][0]) else f"_b{B}"))
         summary.append(summary_entry(
-            k, key if d == 64 else f"{key}_d{d}", run["launches"][key],
-            launches_from=run["phase"], **extra))
+            k, name, run["launches"][key], launches_from=run["phase"],
+            **extra))
     for k in moe:
-        prefill = k["shape"]["tokens"] > 64
-        name = k["name"] + ("_prefill" if prefill else "")
+        tokens = k["shape"]["tokens"]
+        name = k["name"] + ("_prefill" if tokens > 64 else
+                            "" if tokens == 64 else f"_t{tokens}")
         if k["name"] == "moe_grouped":
             launches, frm = serve_moe["launches"]["moe_grouped"], "serve_moe"
         else:
             launches, frm = moe_int8["launches"]["moe_grouped"], "model_moe int8"
-        summary.append(summary_entry(k, name, launches, launches_from=frm))
+        summary.append(summary_entry(k, name, launches, launches_from=frm,
+                                     group_tiles=k["group_tiles"]))
     # K4: launches of serve_sp, the bf16 body from its `--sp 4` server and
     # the int8 body from its `--sp 4 --kv-quant int8` server (llama-3-1b,
     # D 64, T_loc 128; the other shapes give the same body's count).

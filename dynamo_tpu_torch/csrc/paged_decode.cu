@@ -4,186 +4,432 @@
 // paged_decode_attention (body _decode_kernel): one decode query per row
 // against one layer's paged cache, streaming only the ceil(seq_len / bs)
 // live pages with an f32 online softmax; optional attention soft cap.
+// Arithmetic, as the TPU kernel's: q * scale rounded to bf16, bf16 K/V
+// (int8 ones widened to round_bf16(q8 * scale)), scores, running max and
+// sum in f32, the probabilities rounded to bf16 for P . V, which
+// accumulates in f32.  Rows with seq_len == 0 read no block-table entry
+// and write zeros.
 //
 // What bounds it on this card: bytes.  A step reads every live K/V byte of
-// the batch once and does ~2 flops per byte read (G = Hq / Hkv query heads
-// per kv head), far under the H100's ~295 flops/byte ridge, so the floor
-// is the K/V bytes over HBM bandwidth.
+// the batch once and does ~2 G flops per cached element (G = Hq / Hkv query
+// heads per kv head), far under the H100's ~295 flops/byte ridge, so the
+// floor is the K/V bytes over HBM bandwidth.
 //
-// What the design does about it: one CTA per (row b, kv head h) loads each
-// page's [bs, D] K and V slice of head h exactly once into shared memory
-// and contracts all G query heads of that kv head against it, so every
-// cache byte crosses HBM once per step.  The TPU kernel's Hkv-fold banding
-// (each query masked into its head's column band, Hkv x the flops) was a
-// lane-width workaround and is dropped.  Rows with seq_len == 0 read no
-// block-table entry and write zeros.  Loads are plain 16-byte vectors with
-// no cp.async/TMA pipelining and B * Hkv CTAs (512 at b64 on Llama-3-1B);
-// a flash-decoding split over pages and an async copy pipeline are later
-// work.
-//
-// int8 cache (the TPU kernel's quant=True body): the same CTA design with
-// dtt::load_page_int8, which streams int8 rows and their per-token f32
-// scales and dequantizes into the same bf16 tile, so a step reads
-// 2 * (F + 4 * Hkv) bytes per context token in place of 2 * F * 2.
-#include "paged_common.cuh"
+// What the design does about it:
+//  - One CTA per (row, kv head), which loads each live page once for its
+//    G query heads.  (A split over pages, for batches whose B x Hkv CTAs
+//    under-fill the card, gained nothing at the served batch of 8: the
+//    time there is latency, not parallelism.)
+//  - A page ring.  64 keys make a tile (one page at block 64; any block
+//    size works: each key row is its own 16-byte cp.async copy from its
+//    slot); two tiles (three of int8) are in flight per CTA while one
+//    computes, and the block-table entries of the next tile to copy are read
+//    into registers a tile ahead (the first ones in a single round trip).
+//  - One barrier a tile.  Each of the 4 warps owns 16 keys of every tile
+//    and keeps its own online-softmax state for them: QK^T and P . V run on
+//    mma.sync (m16n8k16, bf16 in, f32 accumulators; the G <= 16 query heads
+//    of the kv head are the 16 rows, zero-padded), P goes from the score
+//    accumulators to the A fragment in registers, so no warp waits for
+//    another inside a tile.  The CTA's four states merge at the end.
+//  - int8 pages land as int8 rows plus f32 scales; each warp widens only
+//    its own 16 rows, without the int-to-float unit (q8 + 128 placed in the
+//    mantissa of 2^23 by one byte permute), so a __syncwarp covers it.
+#include "flash_tile.cuh"
 
 namespace {
 
+using dtt::flash::allow_smem;
+using dtt::flash::cp_async16;
+using dtt::flash::cp_async4;
+using dtt::flash::cp_async_commit;
+using dtt::flash::cp_async_wait;
+using dtt::flash::kMaxDevices;
+using dtt::flash::smem_addr;
+
 constexpr int kThreads = 128;
-constexpr int kMaxOut = 8;  // outputs per thread: G * D <= kThreads * kMaxOut
+constexpr int kWarps = kThreads / 32;
+constexpr int kKeys = 64;        // keys of a tile
+constexpr int kSlice = kKeys / kWarps;  // keys of a tile a warp owns
+constexpr int kMaxG = 16;        // query heads a kv head: the mma's 16 rows
+constexpr float kNeg = -1e30f;   // the mask fill, finite
 
-template <bool kInt8>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
-    const void* __restrict__ kc,           // [S, F] bf16 or int8
-    const void* __restrict__ vc,           // [S, F]
-    const float* __restrict__ ksc,         // [S, Hkv] f32 (int8 cache only)
-    const float* __restrict__ vsc,
-    const int* __restrict__ block_tables,  // [B, P]
-    const int* __restrict__ seq_lens,      // [B]
-    __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
-    int Hq, int Hkv, int D, int P, int bs, float scale, float soft_cap) {
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int G = Hq / Hkv, F = Hkv * D, W = dtt::tile_stride(D);
-  const int warp = tid / dtt::kWarp, lane = tid % dtt::kWarp;
-  constexpr int kWarps = kThreads / dtt::kWarp;
+template <int D, bool kInt8>
+struct Smem {
+  static constexpr int kLd = 2 * D + 16;             // bf16 row stride (bytes), padded
+  // int8 stages are half the bytes, so the ring is one deeper.
+  static constexpr int kStages = D >= 256 ? 2 : (kInt8 ? 4 : 3);
+  static constexpr uint32_t kTiles = 2 * kKeys * kLd;  // K, V rows (bf16)
+  static constexpr uint32_t kStage = kInt8 ? 2 * kKeys * D + 2 * kKeys * 4 : kTiles;
+  static constexpr uint32_t kWide = kInt8 ? kTiles : 0;  // widened rows (int8)
+  static constexpr uint32_t kRing = kStages * kStage + kWide;
+  static constexpr uint32_t kMerge = kWarps * kMaxG * (D + 2) * 4;
+  static constexpr size_t kBytes = (kRing > kMerge ? kRing : kMerge) + 128;
+};
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                // [G, D] scaled, bf16-rounded query
-  float* p_s = q_s + G * D;         // [G, bs] scores, then probabilities
-  float* m_s = p_s + G * bs;        // [G] running max
-  float* l_s = m_s + G;             // [G] running denominator
-  float* a_s = l_s + G;             // [G] this page's rescale factor
-  __nv_bfloat162* k_s = reinterpret_cast<__nv_bfloat162*>(a_s + G);
-  __nv_bfloat162* v_s = k_s + bs * W;
-  float* ks_s = reinterpret_cast<float*>(v_s + bs * W);  // [bs] (int8 only)
-  float* vs_s = ks_s + bs;
+struct Params {
+  const __nv_bfloat16* q;  // [B, Hq, D]
+  const void* kc;          // [S, F] bf16 or int8
+  const void* vc;
+  const float* ksc;        // [S, Hkv] f32 (int8 cache only)
+  const float* vsc;
+  const int* bt;           // [B, P]
+  const int* seq_lens;     // [B]
+  __nv_bfloat16* out;      // [B, Hq, D]
+  int Hq, Hkv, P, bs;
+  int bs_log2;             // log2(bs) when bs is a power of two, else -1
+  float scale, soft_cap;
+};
 
-  const int seq_len = seq_lens[b];
-  const int n_pages = (seq_len + bs - 1) / bs;
-  // The G query heads of kv head h are contiguous in q: h * G .. h * G + G.
-  const size_t q_off = ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    q_s[i] = dtt::round_bf16(__bfloat162float(q[q_off + i]) * scale);
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
+// Page index and offset of key position pos: shifts for the engine's
+// power-of-two block sizes, a division otherwise.
+__device__ __forceinline__ int page_of(const Params& p, int pos) {
+  return p.bs_log2 >= 0 ? pos >> p.bs_log2 : pos / p.bs;
+}
+__device__ __forceinline__ int offset_in_page(const Params& p, int pos) {
+  return p.bs_log2 >= 0 ? pos & (p.bs - 1) : pos % p.bs;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a . b, m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The 16-byte chunks of one tile a thread copies, and the table entries
+// (page ids, -1 past the row's last key) of their rows.
+template <int D, bool kInt8>
+struct Rows {
+  static constexpr int kChunks = kInt8 ? D / 16 : D / 8;   // of one K or V row
+  static constexpr int kIt = kInt8 ? 2 * kKeys * kChunks / kThreads : kKeys * kChunks / kThreads;
+  int page[kIt];
+  int page_s;  // int8: the row whose scale this thread copies (tid % 64)
+
+  __device__ __forceinline__ static int row(int it) {
+    const int c = threadIdx.x + it * kThreads;
+    return kInt8 ? (c % (kKeys * kChunks)) / kChunks : c / kChunks;
   }
-  float acc[kMaxOut];
+  __device__ __forceinline__ void read(const Params& p, int b, int pos0, int k_end) {
+    const int* tab = p.bt + (size_t)b * p.P;
 #pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) acc[k] = 0.f;
+    for (int it = 0; it < kIt; ++it) {
+      const int pos = pos0 + row(it);
+      page[it] = pos < k_end ? tab[page_of(p, pos)] : -1;
+    }
+    if constexpr (kInt8) {
+      const int pos = pos0 + threadIdx.x % kKeys;
+      page_s = pos < k_end ? tab[page_of(p, pos)] : -1;
+    }
+  }
+  // Issue the copies of the tile at key pos0 into the stage at dst.
+  __device__ __forceinline__ void issue(const Params& p, int h, int pos0, uint32_t dst) const {
+    const int F = p.Hkv * D;
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int c = threadIdx.x + it * kThreads;
+      const int r = row(it), pos = pos0 + r;
+      const bool ok = page[it] >= 0;
+      const size_t slot = ok ? (size_t)page[it] * p.bs + offset_in_page(p, pos) : 0;
+      if constexpr (kInt8) {
+        const int kv = c / (kKeys * kChunks), ch = c % kChunks;
+        const int8_t* src = static_cast<const int8_t*>(kv ? p.vc : p.kc) + slot * F + h * D + ch * 16;
+        cp_async16(dst + kv * kKeys * D + r * D + ch * 16, src, ok);
+      } else {
+        const int ch = c % kChunks;
+        const size_t off = slot * F + h * D + ch * 8;
+        const uint32_t d = dst + r * Smem<D, false>::kLd + ch * 16;
+        cp_async16(d, static_cast<const __nv_bfloat16*>(p.kc) + off, ok);
+        cp_async16(d + kKeys * Smem<D, false>::kLd, static_cast<const __nv_bfloat16*>(p.vc) + off,
+                   ok);
+      }
+    }
+    if constexpr (kInt8) {
+      const int r = threadIdx.x % kKeys, pos = pos0 + r;
+      const bool ok = page_s >= 0;
+      const size_t slot = ok ? (size_t)page_s * p.bs + offset_in_page(p, pos) : 0;
+      const float* sc = threadIdx.x < kKeys ? p.ksc : p.vsc;
+      cp_async4(dst + 2 * kKeys * D + threadIdx.x * 4, sc + slot * p.Hkv + h, ok);
+    }
+  }
+};
+
+template <int D, bool kInt8>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(const __grid_constant__ Params p) {
+  using L = Smem<D, kInt8>;
+  constexpr int kS = L::kStages;
+  constexpr int kLd = L::kLd;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int bh = blockIdx.x, b = bh / p.Hkv, h = bh % p.Hkv;
+  const int G = p.Hq / p.Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k_end = p.seq_lens[b];
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  const uint32_t base = smem_addr(smem);
+
+  // The query's A fragments (their loads fly with the table reads below): rows g = lane / 4 (+ 8), the G heads of kv
+  // head h (zero past G), columns 16 kk + 2 (lane % 4) (+ 1, + 8, + 9),
+  // each q * scale rounded to bf16.
+  const int g0 = lane / 4, c0 = 2 * (lane % 4);
+  uint32_t qf[D / 16][4];
+  {
+    const __nv_bfloat16* qrow = p.q + ((size_t)b * p.Hq + (size_t)h * G) * D;
+    const float scale = p.scale;
+    auto qs = [qrow, G, scale](int g, int d) {
+      return g < G ? __bfloat162float(qrow[(size_t)g * D + d]) * scale : 0.f;
+    };
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int d = 16 * kk + c0;
+      qf[kk][0] = pack_bf16(qs(g0, d), qs(g0, d + 1));
+      qf[kk][1] = pack_bf16(qs(g0 + 8, d), qs(g0 + 8, d + 1));
+      qf[kk][2] = pack_bf16(qs(g0, d + 8), qs(g0, d + 9));
+      qf[kk][3] = pack_bf16(qs(g0 + 8, d + 8), qs(g0 + 8, d + 9));
+    }
+  }
+
+  Rows<D, kInt8> rows;
+  {
+    // The first kS tiles' table entries in one round trip, then their copies.
+    Rows<D, kInt8> first[kS - 1];
+#pragma unroll
+    for (int j = 0; j < kS - 1; ++j)
+      if (j < n_tiles) first[j].read(p, b, j * kKeys, k_end);
+    if (kS - 1 < n_tiles) rows.read(p, b, (kS - 1) * kKeys, k_end);
+#pragma unroll
+    for (int j = 0; j < kS - 1; ++j) {
+      if (j < n_tiles) first[j].issue(p, h, j * kKeys, base + j * L::kStage);
+      cp_async_commit();
+    }
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) o[j][v] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  // ldmatrix row addresses of this lane inside its warp's 16 keys: K's
+  // x4 (keys 8 (lane / 16) + lane % 8, columns 8 (lane / 8 % 2)); V's
+  // transposed x4 (keys 8 (lane / 8 % 2) + lane % 8, columns 8 (lane / 16)).
+  const int kr = kSlice * warp + 8 * (lane / 16) + lane % 8, kc8 = 8 * (lane / 8 % 2);
+  const int vr = kSlice * warp + 8 * (lane / 8 % 2) + lane % 8, vc8 = 8 * (lane / 16);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kS - 2>();
+    __syncthreads();  // tile i landed; tile i - 1's slot is free
+    if (i + kS - 1 < n_tiles)
+      rows.issue(p, h, (i + kS - 1) * kKeys, base + ((i + kS - 1) % kS) * L::kStage);
+    cp_async_commit();
+    if (i + kS < n_tiles) rows.read(p, b, (i + kS) * kKeys, k_end);
+    const int pos0 = i * kKeys;
+    uint32_t kt = base + (i % kS) * L::kStage;
+    if constexpr (kInt8) {
+      // Widen this warp's 16 K and V rows into the bf16 rows after the ring.
+      const uint8_t* raw = smem + (i % kS) * L::kStage;
+      const float* sc = reinterpret_cast<const float*>(raw + 2 * kKeys * D);
+      uint8_t* wide = smem + kS * L::kStage;
+      constexpr int kC = D / 16;
+      for (int c = lane; c < 2 * kSlice * kC; c += 32) {
+        const int kv = c / (kSlice * kC), r = kSlice * warp + (c / kC) % kSlice, ch = c % kC;
+        const uint4 q = *reinterpret_cast<const uint4*>(raw + kv * kKeys * D + r * D + ch * 16);
+        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+        const float s = sc[kv * kKeys + r];
+        uint4 w[2];
+        uint32_t* w32 = reinterpret_cast<uint32_t*>(w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t u = words[j] ^ 0x80808080u;
+          float f[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            f[t] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + t)) - 8388736.f) * s;
+          w32[2 * j] = pack_bf16(f[0], f[1]);
+          w32[2 * j + 1] = pack_bf16(f[2], f[3]);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(wide + kv * kKeys * kLd + r * kLd + ch * 32);
+        dst[0] = w[0];
+        dst[1] = w[1];
+      }
+      __syncwarp();
+      kt = base + kS * L::kStage;
+    }
+    const uint32_t vt = kt + kKeys * kLd;
+
+    // S = Q . K^T over the warp's 16 keys: two n8 tiles.
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t r[4];
+      ldsm_x4(r, kt + kr * kLd + (16 * kk + kc8) * 2);
+      mma16816(s[0], qf[kk], r[0], r[1]);
+      mma16816(s[1], qf[kk], r[2], r[3]);
+    }
+    // Online softmax of rows g0 (v < 2) and g0 + 8 over the warp's keys.
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int pos = pos0 + kSlice * warp + 8 * nt + c0 + (v & 1);
+        float x = s[nt][v];
+        if (p.soft_cap > 0.f) x = p.soft_cap * tanhf(x / p.soft_cap);
+        x = pos < k_end ? x : kNeg;
+        s[nt][v] = x;
+        mx[v >> 1] = fmaxf(mx[v >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = __expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int pos = pos0 + kSlice * warp + 8 * nt + c0 + (v & 1);
+        const float e = pos < k_end ? __expf(s[nt][v] - m[v >> 1]) : 0.f;
+        l[v >> 1] += e;  // the sum takes p in f32, P . V in bf16
+        s[nt][v] = e;
+      }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) o[j][v] *= alpha[v >> 1];
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    // O += P . V: V's rows are the k dimension, two n8 column tiles a load.
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t r[4];
+      ldsm_x4_t(r, vt + vr * kLd + (16 * dp + vc8) * 2);
+      mma16816(o[2 * dp], pa, r[0], r[1]);
+      mma16816(o[2 * dp + 1], pa, r[2], r[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the four warps' states now
+
+  float* sm = reinterpret_cast<float*>(smem);  // [kWarps][kMaxG] running max
+  float* sl = sm + kWarps * kMaxG;             // [kWarps][kMaxG] sum
+  float* so = sl + kWarps * kMaxG;             // [kWarps][G][D] unnormalised output
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = g0 + 8 * r;
+    const float lr = quad_sum(l[r]);
+    if (g < G) {
+      if (lane % 4 == 0) {
+        sm[warp * kMaxG + g] = m[r];
+        sl[warp * kMaxG + g] = lr;
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        float* dst = so + ((size_t)warp * G + g) * D + 8 * j + c0;
+        dst[0] = o[j][2 * r];
+        dst[1] = o[j][2 * r + 1];
+      }
+    }
+  }
   __syncthreads();
-
-  for (int p = 0; p < n_pages; ++p) {
-    const int page = block_tables[(size_t)b * P + p];
-    if constexpr (kInt8)
-      dtt::load_page_int8(static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc),
-                          ksc, vsc, k_s, v_s, ks_s, vs_s, page, bs, Hkv, h, D);
-    else
-      dtt::load_page(static_cast<const __nv_bfloat16*>(kc),
-                     static_cast<const __nv_bfloat16*>(vc), k_s, v_s, page, bs, F, h, D);
-    __syncthreads();
-    const int valid = min(bs, seq_len - p * bs);
-    for (int i = tid; i < G * bs; i += kThreads) {
-      const int g = i / bs, t = i % bs;
-      float s = -INFINITY;
-      if (t < valid) {
-        s = dtt::dot_row(q_s + g * D, k_s + t * W, D);
-        if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = -INFINITY;
-      for (int t = lane; t < bs; t += dtt::kWarp) mx = fmaxf(mx, p_s[g * bs + t]);
-      mx = dtt::warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);  // finite: t = 0 is always live
-      float sum = 0.f;
-      for (int t = lane; t < bs; t += dtt::kWarp) {
-        const float e = expf(p_s[g * bs + t] - m_new);
-        sum += e;
-        // The second product takes the probabilities in V's type (bf16),
-        // the denominator sums them in f32 — as the TPU kernel does.
-        p_s[g * bs + t] = dtt::round_bf16(e);
-      }
-      sum = dtt::warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
+  for (int idx = tid; idx < G * D; idx += kThreads) {
+    const int g = idx / D, d = idx % D;
+    float mm = kNeg;
 #pragma unroll
-    for (int k = 0; k < kMaxOut; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < G * D) {
-        const int g = idx / D, d = idx % D;
-        const float* pg = p_s + g * bs;
-        float a = acc[k] * a_s[g];
-        for (int t = 0; t < valid; ++t) a = fmaf(pg[t], dtt::tile_at(v_s, t, d, W), a);
-        acc[k] = a;
-      }
-    }
-    __syncthreads();
-  }
-
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm[w * kMaxG + g]);
+    float ll = 0.f, oo = 0.f;
 #pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) {
-    const int idx = tid + k * kThreads;
-    if (idx < G * D) {
-      const int g = idx / D;
-      out[q_off + idx] = __float2bfloat16(acc[k] / fmaxf(l_s[g], 1e-30f));
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = __expf(sm[w * kMaxG + g] - mm);
+      ll += sl[w * kMaxG + g] * f;
+      oo += so[((size_t)w * G + g) * D + d] * f;
     }
+    p.out[((size_t)b * p.Hq + (size_t)h * G + g) * D + d] = __float2bfloat16(oo / fmaxf(ll, 1e-30f));
   }
 }
 
-template <bool kInt8>
-int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-           const void* v_scale, const void* block_tables, const void* seq_lens, void* out,
-           int B, int Hq, int Hkv, int D, int P, int block_size, float scale, float soft_cap,
-           cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)G * block_size + 3 * G) +
-                      2 * sizeof(__nv_bfloat162) * (size_t)block_size * dtt::tile_stride(D) +
-                      (kInt8 ? 2 * sizeof(float) * (size_t)block_size : 0);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(B, Hkv);
-  paged_decode_kernel<kInt8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
-      static_cast<__nv_bfloat16*>(out), Hq, Hkv, D, P, block_size, scale, soft_cap);
+template <int D, bool kInt8>
+int launch_d(const Params& p, int B, cudaStream_t stream) {
+  using L = Smem<D, kInt8>;
+  static bool done[kMaxDevices];
+  const int e = allow_smem(reinterpret_cast<const void*>(paged_decode_kernel<D, kInt8>),
+                           L::kBytes, done);
+  if (e) return e;
+  paged_decode_kernel<D, kInt8><<<B * p.Hkv, kThreads, L::kBytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <bool kInt8>
+int launch(Params p, int B, int D, cudaStream_t stream) {
+  if (p.Hq % p.Hkv || p.Hq / p.Hkv > kMaxG) return (int)cudaErrorInvalidValue;
+  p.bs_log2 = -1;
+  for (int k = 0; k < 31; ++k)
+    if (p.bs == (1 << k)) p.bs_log2 = k;
+  switch (D) {
+    case 16: return launch_d<16, kInt8>(p, B, stream);
+    case 32: return launch_d<32, kInt8>(p, B, stream);
+    case 64: return launch_d<64, kInt8>(p, B, stream);
+    case 128: return launch_d<128, kInt8>(p, B, stream);
+    case 256: return launch_d<256, kInt8>(p, B, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int dtt_paged_decode_max_out() { return kThreads * kMaxOut; }
+// The most query heads a kv head the kernel takes (the mma's 16 rows).
+extern "C" int dtt_paged_decode_max_group() { return kMaxG; }
 
+// out[B, Hq, D] = decode attention.
 extern "C" int dtt_paged_decode_bf16(
     const void* q, const void* k_cache, const void* v_cache,
-    const void* block_tables, const void* seq_lens, void* out,
-    int B, int Hq, int Hkv, int D, int P, int block_size, float scale,
-    float soft_cap, void* stream) {
-  return launch<false>(q, k_cache, v_cache, nullptr, nullptr, block_tables, seq_lens, out,
-                       B, Hq, Hkv, D, P, block_size, scale, soft_cap,
-                       static_cast<cudaStream_t>(stream));
+    const void* block_tables, const void* seq_lens, void* out, int B, int Hq, int Hkv,
+    int D, int P, int block_size, float scale, float soft_cap, void* stream) {
+  Params p{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, nullptr, nullptr,
+           static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
+           static_cast<__nv_bfloat16*>(out), Hq, Hkv, P, block_size, -1, scale, soft_cap};
+  return launch<false>(p, B, D, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dtt_paged_decode_int8(
     const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
     const void* v_scale, const void* block_tables, const void* seq_lens, void* out,
-    int B, int Hq, int Hkv, int D, int P, int block_size, float scale,
-    float soft_cap, void* stream) {
-  return launch<true>(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens, out,
-                      B, Hq, Hkv, D, P, block_size, scale, soft_cap,
-                      static_cast<cudaStream_t>(stream));
+    int B, int Hq, int Hkv, int D, int P, int block_size, float scale, float soft_cap,
+    void* stream) {
+  Params p{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
+           static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+           static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
+           static_cast<__nv_bfloat16*>(out), Hq, Hkv, P, block_size, -1, scale, soft_cap};
+  return launch<true>(p, B, D, static_cast<cudaStream_t>(stream));
 }

@@ -4,12 +4,13 @@ the int8 expert-weight helpers (port of
 
 `grouped_expert_ffn` launches `csrc/moe_grouped.cu` for CUDA tensors and
 runs `grouped_expert_ffn_plain` for CPU tensors; there is no other
-fallback.  Row tile t of `x_pad` runs expert `tile_expert[t]`'s SwiGLU MLP
-with the TPU kernel's numerics: f32 accumulation, h and u rounded to x's
-dtype, the activation rounded before the down product.  `tile_rows[t]`
-(live rows of tile t, 0 past the last expert span) lets the kernel skip
-dead rows and tiles; those rows come back as zeros, which is what the
-zero padding rows compute anyway.
+fallback.  The kernel groups up to `moe_group_tiles` consecutive tiles of
+one expert so that their weights stream once.  Row tile t of `x_pad` runs
+expert `tile_expert[t]`'s SwiGLU MLP with the TPU kernel's numerics: f32
+accumulation, h and u rounded to x's dtype, the activation rounded before
+the down product.  `tile_rows[t]` (live rows of tile t, 0 past the last
+expert span) lets the kernel skip dead rows and tiles; those rows come
+back as zeros, which is what the zero padding rows compute anyway.
 """
 
 from __future__ import annotations
@@ -25,6 +26,17 @@ DEFAULT_BLOCK_ROWS = 64
 # kBM / kBN, checked against the library when it is loaded).
 KERNEL_ROWS = 64
 KERNEL_COLS = 64
+# Most tiles of one expert a CTA of the kernel takes at once (one
+# warpgroup a tile, sharing each weight stage): the kernel's kWG choices.
+GROUP_TILES = (1, 4)
+
+
+def moe_group_tiles(n_tiles: int, num_experts: int) -> int:
+    """The kernel's group width for a call, a pure function of its shapes:
+    1 while the tiles average at most two an expert (decode-size calls, one
+    partial tile an expert), else 4 (four warpgroups, a tile each), so that
+    an expert's weights cross HBM once per 256 rows."""
+    return GROUP_TILES[0] if n_tiles <= 2 * num_experts else GROUP_TILES[1]
 
 
 def moe_grouped_geometry_ok(hidden: int, intermediate: int,
@@ -178,7 +190,7 @@ def grouped_expert_ffn(
         w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
         ptr(w_gate_scale), ptr(w_up_scale), ptr(w_down_scale),
         act.data_ptr(), out.data_ptr(), n_tiles, H, Fi, int(quant),
-        torch.cuda.current_stream(dev).cuda_stream)
+        moe_group_tiles(n_tiles, E), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"moe_grouped kernel launch failed: CUDA error {err}")
     grouped_expert_ffn.launches += 1
@@ -200,7 +212,7 @@ def _lib() -> ctypes.CDLL:
             raise RuntimeError(
                 "moe_grouped library tile does not match the wrapper")
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
     return lib
 

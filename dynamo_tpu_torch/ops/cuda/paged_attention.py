@@ -86,6 +86,10 @@ def gather_context(q, k_cache, v_cache, k_scale, v_scale, slots, Hkv,
     return k_ctx, v_ctx, (q.float() * scale).to(k_ctx.dtype)
 
 
+# Head dims the kernel is built for (csrc/paged_decode.cu's launch switch).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if t.device != device:
@@ -114,8 +118,8 @@ def paged_decode_attention(
     """Decode-step attention over the paged cache; [B, Hq, D].
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    (bf16 query; bf16 cache with D % 8 == 0, or int8 cache and scales
-    with D % 16 == 0; G * D within the kernel's output budget) or raise."""
+    (bf16 query; bf16 or int8 cache, int8 with its scales; D one of
+    KERNEL_HEAD_DIMS; at most 16 query heads a kv head) or raise."""
     quant = check_quant_args(k_cache, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
@@ -139,10 +143,14 @@ def paged_decode_attention(
     if S % block_size:
         raise ValueError(f"cache slots {S} not a multiple of block_size")
     Hkv = F // D
+    G = Hq // Hkv
     lib = _lib()
-    if (Hq // Hkv) * D > lib.dtt_paged_decode_max_out():
-        raise ValueError(f"G * D = {(Hq // Hkv) * D} exceeds the decode "
-                         "kernel's per-CTA output budget")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the decode kernel is built for "
+                         f"{KERNEL_HEAD_DIMS}")
+    if G > lib.dtt_paged_decode_max_group():
+        raise ValueError(f"{G} query heads a kv head: the decode kernel "
+                         f"takes at most {lib.dtt_paged_decode_max_group()}")
     if q.data_ptr() % 16:
         raise ValueError("q and the cache must be 16-byte aligned")
     out = torch.empty_like(q)
@@ -213,6 +221,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + tail
         lib.dtt_paged_decode_int8.restype = ctypes.c_int
         lib.dtt_paged_decode_int8.argtypes = [ctypes.c_void_p] * 8 + tail
-        lib.dtt_paged_decode_max_out.restype = ctypes.c_int
-        lib.dtt_paged_decode_max_out.argtypes = []
+        lib.dtt_paged_decode_max_group.restype = ctypes.c_int
+        lib.dtt_paged_decode_max_group.argtypes = []
     return lib

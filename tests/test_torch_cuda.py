@@ -252,6 +252,152 @@ def test_moe_grouped_kernel_matches_plain(dev, int8):
     _assert_close(out, ref)
 
 
+# Assignments per expert (8 experts).  "decode": 1-16 live rows an expert
+# and one expert with none (the n16 copy of the kernel's loop); "decode32":
+# up to 32 (n32); "prefill": experts over 3, 4 and 5 tiles with partial
+# last tiles, one exactly full tile, experts with none, and dead tiles
+# (group width 4, and a 5-tile expert cut into groups of 4 and 1).
+MOE_COUNTS = {
+    "decode": [1, 16, 3, 0, 8, 2, 5, 9],
+    "decode32": [17, 30, 1, 0, 32, 20, 16, 2],
+    "prefill": [150, 64, 0, 200, 70, 1, 0, 300],
+}
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case", list(MOE_COUNTS))
+@pytest.mark.parametrize("H,F", [(128, 192), (192, 320)])
+def test_moe_grouped_kernel_group_shapes(dev, int8, case, H, F):
+    """Every group shape the kernel takes, against the plain version; H 192
+    and F 320 give down a 128-column item with one A tile past the last
+    column and int8 a 64-deep tail stage.  Padding rows and dead tiles
+    must come back as exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    E = 8
+    counts = MOE_COUNTS[case]
+    flat = torch.cat([torch.full((n,), e, dtype=torch.long)
+                      for e, n in enumerate(counts)])
+    flat = flat[torch.randperm(len(flat), generator=torch.Generator()
+                               .manual_seed(0))].to(dev)
+    order, dest, S_pad, te, tr, _ = expert_tiles(flat, E, 64)
+    widest = int(tr.max())                  # the widest tile's live rows
+    assert widest <= {"decode": 16, "decode32": 32, "prefill": 64}[case]
+    assert int((tr == 0).sum()) > 0                    # dead tiles
+    x = _rand(gen, len(flat), H, dev=dev)
+    x_pad = torch.zeros(S_pad, H, dtype=torch.bfloat16, device=dev)
+    x_pad[dest] = x[order]
+    p = {"router": None,
+         "w_gate": _rand(gen, E, H, F, dev=dev) * H ** -0.5,
+         "w_up": _rand(gen, E, H, F, dev=dev) * H ** -0.5,
+         "w_down": _rand(gen, E, F, H, dev=dev) * F ** -0.5}
+    if int8:
+        p = quantize_moe_params(p)
+    scales = {n: p.get(n) for n in ("w_gate_scale", "w_up_scale",
+                                    "w_down_scale")}
+    args = (x_pad, te, p["w_gate"], p["w_up"], p["w_down"])
+    before = grouped_expert_ffn.launches
+    out = grouped_expert_ffn(*args, tile_rows=tr, **scales)
+    ref = grouped_expert_ffn_plain(*args, tile_rows=tr, **scales)
+    torch.cuda.synchronize()
+    assert grouped_expert_ffn.launches == before + 1
+    live = torch.zeros(S_pad, dtype=torch.bool, device=dev)
+    live[dest] = True
+    assert out[~live].abs().max().item() == 0
+    _assert_close(out, ref)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_kernel_wrappers_make_no_host_sync(dev, int8):
+    """K1 and K3 launch with no host sync: under sync debug mode "error" a
+    synchronizing call would raise."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    hq, hkv, d, bs = 32, 8, 64, 64
+    calls = []
+    for B in (8, 64):                      # the served bucket and B 64
+        P = 4
+        nblocks = 1 + B * P
+        if int8:
+            pool = _int8_pool(gen, nblocks * bs, hkv, d, dev)
+            kc, vc = pool["k"], pool["v"]
+            kw = {"k_scale": pool["k_scale"], "v_scale": pool["v_scale"]}
+        else:
+            kc = _rand(gen, nblocks * bs, hkv * d, dev=dev)
+            vc = _rand(gen, nblocks * bs, hkv * d, dev=dev)
+            kw = {}
+        q = _rand(gen, B, hq, d, dev=dev)
+        bt = (torch.arange(B * P, device=dev) + 1).reshape(B, P).to(torch.int32)
+        sl = torch.full((B,), 200, dtype=torch.int32, device=dev)
+        calls.append(lambda q=q, kc=kc, vc=vc, bt=bt, sl=sl, kw=kw:
+                     paged_decode_attention(q, kc, vc, bt, sl, block_size=bs,
+                                            **kw))
+    E, H, F = 4, 128, 192
+    flat = torch.tensor([0, 1, 1, 3, 0, 3], device=dev)
+    order, dest, S_pad, te, tr, _ = expert_tiles(flat, E, 64)
+    w = {"router": None, "w_gate": _rand(gen, E, H, F, dev=dev),
+         "w_up": _rand(gen, E, H, F, dev=dev),
+         "w_down": _rand(gen, E, F, H, dev=dev)}
+    if int8:
+        w = quantize_moe_params(w)
+    x_pad = _rand(gen, S_pad, H, dev=dev)
+    sc = {n: w.get(n) for n in ("w_gate_scale", "w_up_scale", "w_down_scale")}
+    calls.append(lambda: grouped_expert_ffn(x_pad, te, w["w_gate"], w["w_up"],
+                                            w["w_down"], tile_rows=tr, **sc))
+    for fn in calls:                       # build and load the libraries first
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d,bs", [(64, 64), (128, 64), (64, 16), (64, 48)])
+@pytest.mark.parametrize("B", [1, 2, 8, 64])
+def test_decode_kernel_ragged_rows(dev, B, d, bs, int8, cap):
+    """Rows of 0, 1, 63, 64, 65 keys and a full table (512 keys; 480 at
+    block 48, which takes the kernel's division path) at batch 1, 2, 8
+    and 64 over a bf16 or int8 cache, against the plain version; one call
+    counts one launch."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hq, hkv = 32, 8
+    P = 512 // bs
+    nblocks = 1 + B * P
+    lens = [[0, 1, 63, 64, 65, P * bs][i % 6] for i in range(B)]
+    if B == 1:
+        lens = [P * bs]
+    q = _rand(gen, B, hq, d, dev=dev)
+    bt = (torch.randperm(nblocks - 1, generator=gen, device=dev)[: B * P]
+          + 1).reshape(B, P).to(torch.int32)
+    for i, n in enumerate(lens):
+        bt[i, -(-n // bs):] = 0
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if int8:
+        pool = _int8_pool(gen, nblocks * bs, hkv, d, dev)
+        kc, vc = pool["k"], pool["v"]
+        kw = {"k_scale": pool["k_scale"], "v_scale": pool["v_scale"]}
+    else:
+        kc = _rand(gen, nblocks * bs, hkv * d, dev=dev)
+        vc = _rand(gen, nblocks * bs, hkv * d, dev=dev)
+        kw = {}
+    attr = "launches_int8" if int8 else "launches"
+    before = getattr(paged_decode_attention, attr)
+    out = paged_decode_attention(q, kc, vc, bt, sl, block_size=bs,
+                                 soft_cap=cap, **kw)
+    ref = paged_decode_attention_plain(q, kc, vc, bt, sl, block_size=bs,
+                                       soft_cap=cap, **kw)
+    torch.cuda.synchronize()
+    assert getattr(paged_decode_attention, attr) == before + 1
+    _assert_close(out, ref)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert out[i].abs().max().item() == 0
+
+
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
     q = torch.zeros(2, 8, 64, device=dev)                     # f32
     kc = torch.zeros(64, 128, dtype=torch.bfloat16, device=dev)
@@ -283,6 +429,22 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
                                            device=dev), bt, sl,
                                block_size=64, k_scale=sc[:, :1].contiguous(),
                                v_scale=sc[:, :1].contiguous())
+    # The decode kernel is built for D 16, 32, 64, 128 and 256 and at most
+    # 16 query heads a kv head; the JAX kernel also takes these two shapes.
+    with pytest.raises(ValueError, match="head dim 96"):
+        paged_decode_attention(torch.zeros(2, 8, 96, dtype=torch.bfloat16,
+                                           device=dev),
+                               torch.zeros(64, 192, dtype=torch.bfloat16,
+                                           device=dev),
+                               torch.zeros(64, 192, dtype=torch.bfloat16,
+                                           device=dev), bt, sl, block_size=64)
+    with pytest.raises(ValueError, match="32 query heads a kv head"):
+        paged_decode_attention(torch.zeros(2, 32, 32, dtype=torch.bfloat16,
+                                           device=dev),
+                               torch.zeros(64, 32, dtype=torch.bfloat16,
+                                           device=dev),
+                               torch.zeros(64, 32, dtype=torch.bfloat16,
+                                           device=dev), bt, sl, block_size=64)
     w = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device=dev)
     x = torch.zeros(64, 64, dtype=torch.bfloat16, device=dev)
     te = torch.zeros(1, dtype=torch.int32, device=dev)
