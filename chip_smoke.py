@@ -60,20 +60,32 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
 9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
-   streams their `[DONE]`; K1 and K2 must have launched.
-10. serve_int8 — the same with `--kv-quant int8` and a shared system
+   streams their `[DONE]`; K1 and K2 must have launched.  Then two lone
+   greedy chats, one at a time, whose text the next phase must match.
+10. serve_distributed — the same model on two `python -m
+   dynamo_tpu_torch.worker` processes sharing the card, behind frontend A
+   (`--serve-control-plane --router-mode kv`) and frontend B
+   (`--control-plane` A's, `--router-mode round_robin`): the lone chats
+   through A must give `serve`'s text; chats on two 640-byte system
+   prompts, one at a time, must each land on the worker that holds their
+   prompt (its prefix-hit tokens grow by the prompt's whole blocks, the
+   other's stay); then a concurrent wave of 8 chats (4 on each prompt)
+   through A and the same through B, where every request returns its
+   tokens and both workers launch K1 and K2.  The waves' tok/s, TTFT and
+   ITL are printed beside `serve`'s.
+11. serve_int8 — the same with `--kv-quant int8` and a shared system
    prompt of 10 blocks, which a warm-up chat puts in the prefix cache:
    only the int8 bodies of K1 and K2 may launch, and the prefix cache
    must serve every request the blocks of the prefix the 8 prompts share.
-11. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
+12. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
    (one card cannot hold its 32 layers): K1, K2 and K3 must have
    launched and the expert load must count every routed row.
-12. model_sp — llama-3-1b at full width and depth: a 480-token and a
+13. model_sp — llama-3-1b at full width and depth: a 480-token and a
    512-token prompt through the sequence-parallel prefill step (4 ranks
    on card 0, K4) against the packed prefill step (K2), over a bf16 and
    an int8 cache: logits, greedy tokens, the written cache rows, the K4
    launch count, then two decode steps (K1) from each cache.
-13. serve_sp — `--model llama-3-1b --sp 4` as a subprocess: long chats
+14. serve_sp — `--model llama-3-1b --sp 4` as a subprocess: long chats
    (400-500 prompt tokens, no shared first block) one at a time while
    nothing decodes, which must all prefill through the ring kernel with
    16 layers x 4 ranks x 4 hops fold launches a dispatch and the modeled
@@ -1130,7 +1142,8 @@ def _chat(base: str, body: dict) -> dict:
         resp = json.loads(raw)
         return {"stream": False, "wall_s": wall,
                 "tokens": resp["usage"]["completion_tokens"],
-                "finish": resp["choices"][0]["finish_reason"], "done": True}
+                "finish": resp["choices"][0]["finish_reason"], "done": True,
+                "text": resp["choices"][0]["message"]["content"]}
     lines = [ln for ln in raw.split("\n") if ln.startswith("data: ")]
     done = bool(lines) and lines[-1].strip() == "data: [DONE]"
     chunks = [json.loads(ln[6:]) for ln in lines if ln.strip() != "data: [DONE]"]
@@ -1198,14 +1211,15 @@ def check_results(results: list, max_tokens: int) -> None:
 
 def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
                 max_tokens: int = 64, ready_s: float = 300, system=None,
-                user=USER_TURN, tag=""):
+                user=USER_TURN, tag="", lone_bodies=()):
     """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
     subprocess: after a warm-up request and a stats reset (launch counts,
     engine counters, expert load and prefix hit/miss tokens together),
     `n_requests` concurrent greedy chats, half streaming, each with the
     `system` prompt when one is given and user turn `user` (the warm-up's
     is number -1); every kernel of `path_kernels` must have launched in
-    that window."""
+    that window.  Then the unary `lone_bodies`, one at a time, whose
+    texts the result carries (`lone_texts`)."""
     with server(model, args, tag, ready_s) as (base, startup_s):
         # Warm-up: cuBLAS handles, the allocator, and the system prompt's
         # blocks into the prefix cache.
@@ -1217,6 +1231,7 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
                                    for i in range(n_requests)])
         wall = time.monotonic() - t1
         stats = json.loads(_http(base + "/debug/stats"))
+        lone = [_chat(base, b)["text"] for b in lone_bodies]
     check_results(results, max_tokens)
     launches = stats["kernels"]
     check(all(launches[k] > 0 for k in path_kernels),
@@ -1237,7 +1252,8 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
                            if itl_n else None),
             "launches": launches, "counters": stats["counters"],
             "kv_quant": stats["kv_quant"], "prefix_cache": stats["prefix_cache"],
-            "moe_mode": stats["moe_mode"], "expert_load": stats["expert_load"]}
+            "moe_mode": stats["moe_mode"], "expert_load": stats["expert_load"],
+            "lone_texts": lone}
 
 
 def serve_int8_phase():
@@ -1444,6 +1460,223 @@ def serve_sp_phase():
                          wave1_int8["launches"]["ring_flash_attention_int8"]}}
 
 
+LONE_TURN = "Lone {i}: what does a paged KV cache hold?"
+SYSTEM_LINES = {   # P is serve_int8's system prompt; Q another of its length
+    "P": "You are a careful assistant for GPU kernel engineers. ",
+    "Q": "You answer questions about distributed LLM serving briefly. "}
+STICKY_TURN = "{i}: say something about paged attention on a GPU."
+# The kv router costs each worker by the larger of its own accounting and
+# the load the worker last published (`--metrics-interval`, 1 s): a
+# snapshot taken while the previous chat ran still shows that chat's
+# blocks as busy, and can send the next chat on the same prompt
+# elsewhere.  Sequential chats wait this long, so a fresh idle snapshot
+# is what the router reads.
+METRICS_SETTLE_S = 1.5
+
+
+def system_prompt(line: str) -> str:
+    return (line * (SYSTEM_BLOCKS * BS // len(line) + 1))[: SYSTEM_BLOCKS * BS]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def distributed_stack(ready_s: float = 300):
+    """Frontend A (`--serve-control-plane --router-mode kv`), two
+    `dynamo_tpu_torch.worker` processes for llama-3-1b on the card (512
+    blocks of 64, a status port each) and frontend B (`--control-plane`
+    A's, `--router-mode round_robin`), all stopped on exit; yields
+    (A's url, B's url, the workers' status urls, seconds to ready)."""
+    OUT_DIR.mkdir(exist_ok=True)
+    procs = []
+
+    def spawn(module, tag, *args):
+        log = open(OUT_DIR / f"chip_smoke_distributed_{tag}.log", "w")
+        procs.append((tag, log, subprocess.Popen(
+            [sys.executable, "-m", module, *args], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT)))
+
+    def wait(url, ready):
+        while True:
+            for tag, log, proc in procs:
+                if proc.poll() is not None:
+                    raise SmokeError(
+                        f"{tag} exited rc {proc.returncode}: " + (
+                            OUT_DIR / f"chip_smoke_distributed_{tag}.log"
+                        ).read_text()[-2000:])
+            try:
+                if ready(json.loads(_http(url, timeout=5))):
+                    return
+            except OSError:
+                pass
+            check(time.monotonic() - t0 < ready_s,
+                  f"distributed stack not ready in {ready_s} s ({url})")
+            time.sleep(0.5)
+
+    cp, ports = _free_port(), [_free_port() for _ in range(4)]
+    a, b = (f"http://127.0.0.1:{p}" for p in ports[:2])
+    workers = [f"http://127.0.0.1:{p}" for p in ports[2:]]
+    t0 = time.monotonic()
+    try:
+        spawn("dynamo_tpu_torch.frontend", "frontend_a", "--serve-control-plane",
+              "--control-plane-port", str(cp), "--router-mode", "kv",
+              "--http-port", str(ports[0]))
+        wait(a + "/health", lambda r: "status" in r)
+        for i, port in enumerate(ports[2:]):
+            spawn("dynamo_tpu_torch.worker", f"worker{i}", "--control-plane",
+                  f"127.0.0.1:{cp}", "--model", "llama-3-1b", "--model-name",
+                  "m", "--num-blocks", "512", "--block-size", str(BS),
+                  "--health-port", str(port))
+        spawn("dynamo_tpu_torch.frontend", "frontend_b", "--control-plane",
+              f"127.0.0.1:{cp}", "--router-mode", "round_robin",
+              "--http-port", str(ports[1]))
+        for w in workers:
+            wait(w + "/health", lambda r: r["status"] == "ready")
+        for f in (a, b):
+            wait(f + "/v1/models",
+                 lambda r: [m["id"] for m in r["data"]] == ["m"])
+        time.sleep(1.0)    # the routers' instance watches see both workers
+        yield a, b, workers, time.monotonic() - t0
+    finally:
+        for tag, log, proc in reversed(procs):
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def serve_distributed_phase(serve: dict):
+    """llama-3-1b on two workers sharing the card behind the control plane
+    (`distributed_stack`).  Checks, in order:
+    - parity: the lone greedy chats `serve` answered, sent one at a time
+      through A (kv), give the single-process server's text;
+    - stickiness: one warm-up chat on each of two 640-byte system prompts
+      P and Q finds each prompt's home worker; after a stats reset, chats
+      on P, Q, P, Q, one at a time, must each land on its prompt's home:
+      that worker's prefix-hit tokens grow by the whole blocks the chat
+      shares with the warm-up, the other's do not move (each chat is sent
+      once the workers have published their idle load);
+    - a concurrent wave of 8 greedy chats of 64 tokens, half streaming,
+      four on P and four on Q, through A (kv) and then through B
+      (round_robin): every request returns its tokens and both workers
+      launch K1 and K2 in each wave.
+    The waves' output tok/s, TTFT and ITL (frontend side), each worker's
+    prefix hit rate and launches, and the stack's startup seconds are
+    returned beside `serve`'s; the kv / round_robin difference is printed,
+    not held."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    systems = {k: system_prompt(v) for k, v in SYSTEM_LINES.items()}
+
+    def body(name, i, stream=False, max_tokens=8):
+        return chat_body(i, stream, max_tokens, systems[name], STICKY_TURN)
+
+    def tokens(b):
+        return pre.preprocess_chat(ChatCompletionRequest.from_dict(b),
+                                   "x").token_ids
+
+    def shared_blocks(name, i):
+        x, y = tokens(body(name, -1)), tokens(body(name, i))
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        return n // BS
+
+    def wstats(workers):
+        return [json.loads(_http(w + "/debug/stats")) for w in workers]
+
+    def hits(workers):
+        return [st["prefix_cache"]["hit_tokens"] for st in wstats(workers)]
+
+    def reset(*urls):
+        for u in urls:
+            _http(u + "/debug/stats/reset", {})
+
+    def wave(base, workers, first):
+        reset(base, *workers)
+        bodies = [body("PQ"[i % 2], first + i, i % 2 == 0, 64)
+                  for i in range(8)]
+        t1 = time.monotonic()
+        results = chat_wave(base, bodies)
+        wall = time.monotonic() - t1
+        reqs = json.loads(_http(base + "/debug/stats"))["requests"]
+        per_worker = wstats(workers)
+        check_results(results, 64)
+        for j, st in enumerate(per_worker):
+            k = st["kernels"]
+            check(k["paged_decode_attention"] > 0
+                  and k["paged_prefill_attention"] > 0,
+                  f"serve_distributed: worker {j} launched no K1 or K2 in "
+                  f"the wave through {base}: {k}")
+        ttfts = [r["ttft_s"] for r in reqs]
+        itl_n = sum(r["itl_n"] for r in reqs)
+        out_tokens = sum(r["tokens"] for r in results)
+        return {"requests": len(results), "output_tokens": out_tokens,
+                "wall_s": wall, "output_tok_s": out_tokens / wall,
+                "ttft_mean_s": statistics.mean(ttfts), "ttft_max_s": max(ttfts),
+                "ttft_s": ttfts,
+                "itl_mean_s": (sum(r["itl_sum_s"] for r in reqs) / itl_n
+                               if itl_n else None),
+                "workers": [{"prefix_hit_rate": st["prefix_cache"]["hit_rate"],
+                             "prefix_hit_tokens": st["prefix_cache"]["hit_tokens"],
+                             "prefill_dispatches":
+                                 st["counters"]["prefill_dispatches"],
+                             "launches": st["kernels"]}
+                            for st in per_worker]}
+
+    lone = [chat_body(i, False, 64, user=LONE_TURN) for i in range(2)]
+    check(len(serve["lone_texts"]) == len(lone),
+          "serve_distributed: serve answered no lone chats")
+    with distributed_stack() as (a, b, workers, startup_s):
+        texts = [_chat(a, x)["text"] for x in lone]
+        check(texts == serve["lone_texts"],
+              f"serve_distributed: lone chats through the workers gave "
+              f"{texts!r}, the single-process server {serve['lone_texts']!r}")
+        home = {}
+        for name in "PQ":
+            reset(*workers)
+            _chat(a, body(name, -1))
+            misses = [st["prefix_cache"]["miss_tokens"] for st in wstats(workers)]
+            check(sorted(m > 0 for m in misses) == [False, True],
+                  f"serve_distributed: warm-up {name} prefilled on {misses}")
+            home[name] = misses.index(max(misses))
+            time.sleep(METRICS_SETTLE_S)
+        reset(*workers)
+        sticky = []
+        for i, name in enumerate("PQPQ"):
+            before = hits(workers)
+            _chat(a, body(name, i))
+            grew = [x - y for x, y in zip(hits(workers), before)]
+            want = [0, 0]
+            want[home[name]] = BS * shared_blocks(name, i)
+            check(grew == want,
+                  f"serve_distributed: chat {i} on {name} (home worker "
+                  f"{home[name]}) grew prefix hits by {grew}, want {want}")
+            sticky.append({"system": name, "worker": home[name],
+                           "hit_tokens": grew[home[name]]})
+            time.sleep(METRICS_SETTLE_S)
+        kv = wave(a, workers, 10)
+        rr = wave(b, workers, 20)
+    return {"phase": "serve_distributed", "model": "llama-3-1b",
+            "workers": 2, "startup_s": startup_s, "lone_texts_equal": True,
+            "home_worker": home, "sticky": sticky,
+            "system_prompt_blocks": SYSTEM_BLOCKS,
+            "wave_kv": kv, "wave_round_robin": rr,
+            "serve": {k: serve[k] for k in ("startup_s", "output_tok_s",
+                                            "ttft_mean_s", "ttft_max_s",
+                                            "itl_mean_s")}}
+
+
 def summary_entry(k: dict, name: str, launches: int, **extra) -> dict:
     src, replaces = SOURCES[k["name"].replace("_int8", "")]
     return {"name": name, "route": "cuda", "source": src,
@@ -1556,8 +1789,25 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
-                                               "paged_prefill_attention"))
+                                               "paged_prefill_attention"),
+                            lone_bodies=[chat_body(i, False, 64, user=LONE_TURN)
+                                         for i in range(2)])
         emit(serve)
+        phase = "serve_distributed"
+        dist = serve_distributed_phase(serve)
+        emit(dist)
+        waves = "; ".join(
+            f"{mode}: {w['output_tok_s']:.1f} tok/s, TTFT mean "
+            f"{w['ttft_mean_s']:.4f} s max {w['ttft_max_s']:.4f} s, ITL mean "
+            f"{w['itl_mean_s']:.5f} s, worker prefix hit rates "
+            f"{[round(x['prefix_hit_rate'], 3) for x in w['workers']]}"
+            for mode, w in (("kv", dist["wave_kv"]),
+                            ("round_robin", dist["wave_round_robin"])))
+        print(f"serve_distributed on {'; '.join(smi.splitlines())}: two "
+              f"workers (startup {dist['startup_s']:.1f} s) {waves}; one "
+              f"process (serve): {serve['output_tok_s']:.1f} tok/s, TTFT "
+              f"mean {serve['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve['itl_mean_s']:.5f} s", flush=True)
         phase = "serve_int8"
         serve_int8 = serve_int8_phase()
         emit(serve_int8)
@@ -1588,6 +1838,11 @@ def main() -> int:
         run = serve_int8 if key.endswith("_int8") else (
             serve if d == 64 else serve_moe)
         extra = {"tflops": k["tflops"]} if "tflops" in k else {}
+        if run is serve:
+            # The same bodies' launches on serve_distributed's two workers
+            # in its kv wave (counts zeroed just before it).
+            extra["launches_serve_distributed"] = sum(
+                w["launches"][key] for w in dist["wave_kv"]["workers"])
         if "eager_ms" in k:
             extra["eager_ms"] = k["eager_ms"]
         name = (key + ("" if d == 64 else f"_d{d}")

@@ -25,6 +25,14 @@ reuses the pages of a prompt's longest cached run of sealed blocks, and
 `_publish_completed_blocks` registers each block a request seals, always
 before the token that follows it is appended.
 
+KV events, as in JAX: with a `kv_event_sink` the engine emits a STORED
+event for each batch of blocks a request seals (with the hash of the
+block before them as its parent) and a REMOVED event for each block that
+leaves the device: evicted from the prefix cache's pool, or, with the
+prefix cache off, released by a request that finishes or is preempted.
+One counter numbers them.  `metrics` (ForwardPassMetrics) is refreshed
+from host counts after every step, for the worker's load publication.
+
 Padding discipline as in JAX: block tables are sliced to the batch's page
 bucket, unallocated entries are the null block 0, and pad writes target
 position `max_pages * block_size`, which indexes past every table width
@@ -38,7 +46,7 @@ card.  A prompt that a prefix-cache hit or the mixed-window budget splits
 is not a whole prompt and goes the packed plane.  The cache and decode
 stay on the engine's device, rank 0's.
 
-Not ported yet: KV events, the prefix cache's host and disk tiers,
+Not ported yet: the prefix cache's host and disk tiers,
 speculative decode, tp/dp/ep/pp meshes (and with them MoE all-to-all
 dispatch), multimodal prefill and embeddings.
 """
@@ -49,7 +57,7 @@ import asyncio
 import logging
 import threading
 from dataclasses import dataclass, field
-from typing import AsyncIterator, Dict, List, Optional, Tuple
+from typing import AsyncIterator, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +84,13 @@ from dynamo_tpu_torch.engine.scheduler import (
     pack_prefill_chunks,
 )
 from dynamo_tpu_torch.llm.block_manager import ManagedBlockSource, TieredConfig
+from dynamo_tpu_torch.llm.kv_router.protocols import (
+    ForwardPassMetrics,
+    KvCacheEvent,
+    KvCacheEventData,
+    KvStats,
+    WorkerStats,
+)
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import (
     make_decode_window,
@@ -134,6 +149,9 @@ class EngineConfig:
     # Prefix cache (the block manager's device tier); off = the plain
     # free-list allocator, no reuse.
     enable_prefix_cache: bool = True
+    # STORED / REMOVED events to the `kv_event_sink` (the KV router's
+    # feed); without a sink nothing is emitted either way.
+    enable_kv_events: bool = True
     # Sequence-parallel ring prefill: sp ranks (1 = off), each on the
     # device `sp_devices` names for it (default: round-robin over the
     # visible cards, rank 0 on `device`; ranks may share a card).  Whole
@@ -203,7 +221,11 @@ class _HostCopy:
 class EngineCore:
     """Synchronous engine: one `step()` = one scheduler plan executed."""
 
-    def __init__(self, config: EngineConfig, params: Optional[dict] = None) -> None:
+    def __init__(self, config: EngineConfig, params: Optional[dict] = None,
+                 kv_event_sink: Optional[Callable[[KvCacheEvent], None]] = None
+                 ) -> None:
+        """`kv_event_sink` is called on the engine thread with each
+        KvCacheEvent (the worker hops it onto its event loop)."""
         self.config = config
         cfg = config.model
         sched_cfg = config.scheduler
@@ -247,9 +269,13 @@ class EngineCore:
         # decode work.
         self._pending_first: set = set()
         self._pending_batches: List[tuple] = []
+        self._kv_event_sink = kv_event_sink
+        self._event_id = 0
         if config.enable_prefix_cache:
-            self.allocator = ManagedBlockSource(TieredConfig(
-                device_blocks=config.num_blocks, block_size=self.block_size))
+            self.allocator = ManagedBlockSource(
+                TieredConfig(device_blocks=config.num_blocks,
+                             block_size=self.block_size),
+                on_removed=self._on_block_evicted)
         else:
             self.allocator = BlockAllocator(config.num_blocks)
         self.scheduler = Scheduler(sched_cfg, self.allocator)
@@ -263,6 +289,9 @@ class EngineCore:
         self._rng = np.random.default_rng(config.seed + 1)
         self._row_seeds: Dict[str, int] = {}
         self.counters = EngineCounters()
+        self.metrics = ForwardPassMetrics(
+            worker_stats=WorkerStats(request_total_slots=sched_cfg.max_seqs),
+            kv_stats=KvStats(kv_total_blocks=config.num_blocks - 1))
         self._windows_since_prefill = 0
         self._mixed_duty = MIXED_PREFILL_DUTY
         self._mixed_ctl = MixedPrefillController()
@@ -309,7 +338,7 @@ class EngineCore:
     def cancel(self, request_id: str) -> None:
         req = self._requests.get(request_id)
         if req and req.state is not RequestState.FINISHED:
-            self.scheduler.finish(req, FinishReason.CANCELLED)
+            self._finish(req, FinishReason.CANCELLED)
 
     @property
     def has_work(self) -> bool:
@@ -367,6 +396,7 @@ class EngineCore:
                 deltas.extend(self._run_decode(plan.decode))
 
         self._collect_dead(deltas)
+        self._refresh_metrics()
         return deltas
 
     def _plan_mixed_budget(self) -> None:
@@ -459,6 +489,22 @@ class EngineCore:
             (r.sampling.max_tokens - r.prior_output - len(r.output_tokens)
              - lookahead) > DECODE_WINDOW // 2
             for r in plan.decode.requests)
+
+    def _refresh_metrics(self) -> None:
+        """Host counts only; the MoE expert load is read on demand
+        (`InferenceEngine.metrics`), so this adds no device sync."""
+        ws = self.metrics.worker_stats
+        ws.request_active_slots = len(self.scheduler.running)
+        ws.num_requests_waiting = len(self.scheduler.waiting)
+        ks = self.metrics.kv_stats
+        ks.kv_active_blocks = (self.allocator.num_blocks - 1
+                               - self.allocator.free_blocks)
+        ks.gpu_cache_usage_perc = self.allocator.usage
+        # Fraction of admitted prompt tokens whose prefill the prefix
+        # cache skipped, from the scheduler's admission-time matches.
+        matched = self.scheduler.prefix_hit_tokens
+        total = matched + self.scheduler.prefix_miss_tokens
+        ks.gpu_prefix_cache_hit_rate = matched / total if total else 0.0
 
     def _collect_dead(self, deltas: List[TokenDelta]) -> None:
         for rid, req in list(self._requests.items()):
@@ -869,9 +915,15 @@ class EngineCore:
         total_need = self.scheduler._pages_needed(req.total_len + 1)
         if (len(self.scheduler.running) <= 1
                 or total_need > self.allocator.num_blocks - 1):
-            self.scheduler.finish(req, FinishReason.LENGTH)
+            self._finish(req, FinishReason.LENGTH)
             return
         logger.info("preempting %s: out of KV blocks", req.request_id)
+        if not self._managed_cache:
+            # Plain allocator: the pages really are gone; they are
+            # published again on the recompute pass.  (The managed source
+            # keeps sealed blocks resident as inactive entries; its
+            # eviction hook reports removals.)
+            self._publish_removed_blocks(req)
         # Seal tracking restarts: publication must follow the recomputed
         # KV, never the pre-preemption block list.
         self._hash_seqs.pop(req.request_id, None)
@@ -910,13 +962,19 @@ class EngineCore:
         length = (req.prior_output + len(req.output_tokens)
                   >= req.sampling.max_tokens)
         if stop or length:
-            self.scheduler.finish(
-                req, FinishReason.STOP if stop else FinishReason.LENGTH)
+            self._finish(req, FinishReason.STOP if stop else FinishReason.LENGTH)
             delta = TokenDelta(req.request_id, [token], finished=True,
                                finish_reason=req.finish_reason, logprobs=lp)
             self._drop(req)
             return delta
         return TokenDelta(req.request_id, [token], logprobs=lp)
+
+    def _finish(self, req: Request, reason: FinishReason) -> None:
+        # With the managed source, sealed blocks stay resident (inactive,
+        # matchable) after finish: REMOVED comes from its eviction hook.
+        if not self._managed_cache:
+            self._publish_removed_blocks(req)
+        self.scheduler.finish(req, reason)
 
     def _drop(self, req: Request) -> None:
         self._requests.pop(req.request_id, None)
@@ -924,16 +982,26 @@ class EngineCore:
         self._hash_seqs.pop(req.request_id, None)
         self._published_blocks.pop(req.request_id, None)
 
-    # -- prefix cache ---------------------------------------------------------
+    # -- prefix cache and KV events -------------------------------------------
+
+    @property
+    def _managed_cache(self) -> bool:
+        return isinstance(self.allocator, ManagedBlockSource)
+
+    @property
+    def _events_on(self) -> bool:
+        return (self._kv_event_sink is not None
+                and self.config.enable_kv_events)
 
     def _publish_completed_blocks(self, req: Request) -> None:
         """Register the blocks this request has sealed since the last call
-        with the block source, so later prompts can match them.  Callers
-        run it before appending a new token: every token it covers has
-        its KV written (the newest one's is written by the step that
-        sampled the token being appended)."""
-        if not isinstance(self.allocator, ManagedBlockSource):
-            return  # nobody consumes seals
+        with the block source, so later prompts can match them, and emit
+        them as one STORED event.  Callers run it before appending a new
+        token: every token it covers has its KV written (the newest one's
+        is written by the step that sampled the token being appended)."""
+        events_on = self._events_on
+        if not self._managed_cache and not events_on:
+            return  # nobody consumes seals: skip the hashing
         if req.request_id not in self._requests:
             return  # already finished and dropped
         seq = self._hash_seqs.get(req.request_id)
@@ -951,14 +1019,38 @@ class EngineCore:
             if bi < len(req.pages):
                 self.allocator.register_block(req.pages[bi],
                                               complete[bi].block_hash)
+        if events_on:
+            parent = complete[done - 1].block_hash if done else None
+            self._emit(KvCacheEventData.stored(
+                [b.block_hash for b in complete[done:]], parent_hash=parent))
         self._published_blocks[req.request_id] = len(complete)
+
+    def _on_block_evicted(self, block_hash: int) -> None:
+        """The managed source evicted a block from the device: the router
+        must forget it."""
+        if self._events_on:
+            self._emit(KvCacheEventData.removed([block_hash]))
+
+    def _publish_removed_blocks(self, req: Request) -> None:
+        if not self._events_on:
+            return
+        seq = self._hash_seqs.get(req.request_id)
+        done = self._published_blocks.get(req.request_id, 0)
+        if not seq or not done:
+            return
+        self._emit(KvCacheEventData.removed(
+            [b.block_hash for b in seq.blocks[:done]]))
+
+    def _emit(self, data: KvCacheEventData) -> None:
+        self._event_id += 1
+        self._kv_event_sink(KvCacheEvent(event_id=self._event_id, data=data))
 
     def prefix_cache_stats(self) -> Dict[str, object]:
         """Admission hit and miss tokens, the hit rate, and the block
         pool's state."""
         hit = self.scheduler.prefix_hit_tokens
         miss = self.scheduler.prefix_miss_tokens
-        out = {"enabled": isinstance(self.allocator, ManagedBlockSource),
+        out = {"enabled": self._managed_cache,
                "hit_tokens": hit, "miss_tokens": miss,
                "hit_rate": hit / (hit + miss) if hit + miss else 0.0,
                "pool_usage": self.allocator.usage,
@@ -995,6 +1087,17 @@ class InferenceEngine:
         self._thread = threading.Thread(
             target=self._run_loop, name="engine-step-loop", daemon=True)
         self._thread.start()
+
+    @property
+    def metrics(self) -> ForwardPassMetrics:
+        """The core's load snapshot, with the MoE expert load read from the
+        device now (on the caller's thread, never the engine's)."""
+        m = self.core.metrics
+        load = self.core.snapshot_expert_load()
+        if load is not None:
+            m.expert_load = [int(x) for x in load]
+            m.moe_dropped_tokens = self.core.moe_dropped_tokens
+        return m
 
     async def stop(self) -> None:
         self._stop.set()

@@ -1,6 +1,7 @@
-"""`python -m dynamo_tpu_torch.frontend` — OpenAI ingress + engine in one
-process (port of `dynamo_tpu/frontend/main.py`, single-process engine
-mode).
+"""`python -m dynamo_tpu_torch.frontend` — OpenAI ingress, with the engine
+in the same process or on workers found through the control plane (port
+of `dynamo_tpu/frontend/main.py`: single-process engine mode and the
+distributed mode).
 
     python -m dynamo_tpu_torch.frontend --model llama-3-1b --model-name m \\
         --http-port 8080 [--device cpu] [--num-blocks N --block-size 64]
@@ -16,6 +17,21 @@ as the JAX worker runs it.  `--sp N` prefills whole prompts of 256
 tokens or more over a ring of N ranks, spread over the visible cards
 (several ranks share a card when there are fewer cards than ranks); the
 rank -> card map is logged at start and shown by `/debug/stats`.
+
+Distributed mode (`--control-plane HOST:PORT`, or `--serve-control-plane`
+to host the control plane in this process too) builds no engine: a
+ModelWatcher registers each model as `dynamo_tpu_torch.worker` processes
+announce it, behind migration (`--migration-limit`) and a router
+(`--router-mode random | round_robin | kv`; kv routes by the prefix
+overlap the workers' KV events report and their load):
+
+    python -m dynamo_tpu_torch.frontend --serve-control-plane \\
+        --router-mode kv --http-port 8080
+    python -m dynamo_tpu_torch.worker --control-plane 127.0.0.1:4222 \\
+        --model llama-3-1b --model-name m
+
+Its `/debug/stats` reports the frontend-side per-request timings; each
+worker's `--health-port` serves its engine's stats.
 """
 
 from __future__ import annotations
@@ -46,6 +62,19 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("dynamo_tpu_torch.frontend")
     p.add_argument("--http-host", default="127.0.0.1")
     p.add_argument("--http-port", type=int, default=8080)
+    p.add_argument("--control-plane", default=None,
+                   help="control plane HOST:PORT: discover models from "
+                        "registered workers instead of building an engine")
+    p.add_argument("--serve-control-plane", action="store_true",
+                   help="host the control plane in this process (and "
+                        "discover models through it)")
+    p.add_argument("--control-plane-port", type=int, default=4222)
+    p.add_argument("--control-plane-store", default=None,
+                   help="control-plane persistence for unleased keys: "
+                        "memory (default) or file:PATH")
+    p.add_argument("--router-mode", default="round_robin",
+                   choices=("random", "round_robin", "kv"))
+    p.add_argument("--migration-limit", type=int, default=3)
     p.add_argument("--model", default="llama-3-1b",
                    help="model preset (e.g. llama-3-1b, tiny-test)")
     p.add_argument("--model-name", default="dynamo-tpu",
@@ -148,30 +177,68 @@ def stats_hooks(core: EngineCore):
     return stats, reset_stats
 
 
+async def start_discovery(args, models: ModelManager) -> list:
+    """Distributed mode: watch the control plane's `models/` prefix and
+    register each model's routed pipeline; returns the shutdown
+    coroutines, outermost first."""
+    from dynamo_tpu_torch.llm.discovery import ModelWatcher
+    from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    host, _, port = args.control_plane.rpartition(":")
+    cp = ControlPlaneClient(host, int(port))
+    await cp.start()
+    runtime = DistributedRuntime(cp)
+    watcher = ModelWatcher(runtime, models, router_mode=args.router_mode,
+                           migration_limit=args.migration_limit)
+    await watcher.start()
+    return [watcher.stop, runtime.shutdown, cp.close]
+
+
 async def run(args) -> None:
-    handle, core, shutdown = await build_model_handle(args)
+    shutdowns = []
+    if args.serve_control_plane:
+        from dynamo_tpu_torch.runtime.control_plane import ControlPlaneState
+        from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneServer
+        from dynamo_tpu_torch.runtime.kv_store import make_backend
+
+        cp_server = ControlPlaneServer(ControlPlaneState(
+            backend=make_backend(args.control_plane_store)))
+        cp_port = await cp_server.start(port=args.control_plane_port)
+        args.control_plane = args.control_plane or f"127.0.0.1:{cp_port}"
+        print(f"control plane on 127.0.0.1:{cp_port}", flush=True)
+        shutdowns.append(cp_server.stop)
     models = ModelManager()
-    models.register(handle)
-    stats, reset_stats = stats_hooks(core)
-    svc = HttpService(models, stats=stats, reset_stats=reset_stats)
+    if args.control_plane:
+        shutdowns[:0] = await start_discovery(args, models)
+        svc = HttpService(models)
+        banner = (f"discovering models via {args.control_plane} (router "
+                  f"{args.router_mode})")
+    else:
+        handle, core, shutdown = await build_model_handle(args)
+        models.register(handle)
+        shutdowns.append(shutdown)
+        stats, reset_stats = stats_hooks(core)
+        svc = HttpService(models, stats=stats, reset_stats=reset_stats)
+        cfg = core.config.model
+        banner = (f"serving {handle.name!r} ({args.model}, {cfg.num_layers} "
+                  f"layers, moe_mode {core.moe_mode}, kv_quant "
+                  f"{core.cache_cfg.kv_quant}, on {core.device}"
+                  + (f", sp {core.ring.sp} ranks on {core.ring.describe()}"
+                     if core.ring is not None else "") + ")")
     stop_ev = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop_ev.set)
     try:
         port = await svc.start(args.http_host, args.http_port)
-        cfg = core.config.model
-        print(f"dynamo_tpu_torch frontend serving {handle.name!r} "
-              f"({args.model}, {cfg.num_layers} layers, moe_mode "
-              f"{core.moe_mode}, kv_quant {core.cache_cfg.kv_quant}, on "
-              f"{core.device}"
-              + (f", sp {core.ring.sp} ranks on {core.ring.describe()}"
-                 if core.ring is not None else "") + ") on "
+        print(f"dynamo_tpu_torch frontend {banner} on "
               f"http://{args.http_host}:{port}", flush=True)
         await stop_ev.wait()
     finally:
         await svc.stop()
-        await shutdown()
+        for shutdown in shutdowns:
+            await shutdown()
 
 
 def main(argv=None) -> None:

@@ -11,15 +11,21 @@ Pages a request releases stay matchable until LRU pressure reuses them.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from dynamo_tpu_torch.llm.block_manager.manager import KvBlockManager, TieredConfig
 from dynamo_tpu_torch.tokens import compute_block_hashes
 
 
 class ManagedBlockSource:
-    def __init__(self, config: TieredConfig) -> None:
+    def __init__(self, config: TieredConfig,
+                 on_removed: Optional[Callable[[int], None]] = None) -> None:
+        """`on_removed(block_hash)` fires when a block leaves the device
+        tier (the engine turns it into a REMOVED KV event)."""
         self.manager = KvBlockManager(config)
+        if on_removed is not None:
+            self.manager.device.on_evict = (
+                lambda block_hash, _slot: on_removed(block_hash))
         self.block_size = config.block_size
 
     # -- scheduler allocator interface ------------------------------------

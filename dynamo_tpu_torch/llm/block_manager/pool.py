@@ -1,7 +1,6 @@
 """Block pool: slot allocation, sequence-hash registry and LRU reuse (copy
 of `dynamo_tpu/llm/block_manager/pool.py` without what only the host and
-disk tiers, KV events and QoS use: the eviction hook, discard, demotion
-and the SLO eviction bias).
+disk tiers and QoS use: discard, demotion and the SLO eviction bias).
 
 A pool owns `capacity` slots of one tier.  Slot states:
 
@@ -19,7 +18,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 
 @dataclass
@@ -44,9 +43,12 @@ class BlockPool:
     """One tier's slots."""
 
     def __init__(self, capacity: int, name: str = "pool",
-                 reserve_null: bool = False) -> None:
+                 reserve_null: bool = False,
+                 on_evict: Optional[Callable[[int, int], None]] = None
+                 ) -> None:
         """With `reserve_null`, slot 0 is never allocated (the engine's
-        null block)."""
+        null block).  `on_evict(block_hash, slot)` fires when a registered
+        block is evicted under allocation pressure."""
         self.name = name
         self.capacity = capacity
         start = 1 if reserve_null else 0
@@ -56,6 +58,7 @@ class BlockPool:
         self.hits = 0
         self.misses = 0
         self.evictions = 0     # LRU evictions under allocation pressure
+        self.on_evict = on_evict
 
     # -- views ------------------------------------------------------------
 
@@ -126,6 +129,8 @@ class BlockPool:
         del self._slots[slot.index]
         self._free.append(slot.index)
         self.evictions += 1
+        if self.on_evict:
+            self.on_evict(h, slot.index)
 
     # -- registration -----------------------------------------------------
 

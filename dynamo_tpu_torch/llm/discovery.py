@@ -1,0 +1,292 @@
+"""Dynamic model discovery: register_llm + ModelWatcher + remote clients
+(port of `dynamo_tpu/llm/discovery.py`, without its ledger and tracing
+hooks, the multimodal attach and the metrics registry).
+
+The reference flow (`discovery/watcher.rs:39`, `rust/lib.rs:136
+register_llm`): a worker serves its engine endpoint, then writes a
+ModelEntry under `models/` in etcd; every frontend watches that prefix and
+builds/tears down routed pipelines as entries come and go.  Same here,
+over our control plane.
+
+Wire protocol engine-side (`PreprocessedRequest` ↔ dict, `TokenDelta` ↔
+dict) lives in this module so worker and frontend agree by construction.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import AsyncIterator, Callable, Dict, Optional
+
+from dynamo_tpu_torch.engine.engine import TokenDelta
+from dynamo_tpu_torch.engine.sampling import SamplingParams
+from dynamo_tpu_torch.engine.scheduler import FinishReason
+from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor, PreprocessedRequest
+from dynamo_tpu_torch.llm.service import ModelHandle, ModelManager
+from dynamo_tpu_torch.runtime.distributed import (
+    MODEL_ROOT,
+    Client,
+    DistributedRuntime,
+    Endpoint,
+    Instance,
+)
+
+logger = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# Wire codecs
+
+
+def request_to_wire(req: PreprocessedRequest) -> dict:
+    s = req.sampling
+    d = {
+        "request_id": req.request_id,
+        "model": req.model,
+        "token_ids": list(req.token_ids),
+        "sampling": {
+            "temperature": s.temperature, "top_k": s.top_k, "top_p": s.top_p,
+            "max_tokens": s.max_tokens,
+            "stop_token_ids": list(s.stop_token_ids), "seed": s.seed,
+            "logprobs": s.logprobs,
+            "seed_offset": s.seed_offset,
+        },
+        "stop_sequences": list(req.stop_sequences),
+        "annotations": dict(req.annotations),
+    }
+    return d
+
+
+def request_from_wire(d: dict) -> PreprocessedRequest:
+    s = d.get("sampling", {})
+    return PreprocessedRequest(
+        request_id=d["request_id"], model=d.get("model", ""),
+        token_ids=list(d["token_ids"]),
+        sampling=SamplingParams(
+            temperature=s.get("temperature", 0.0),
+            top_k=s.get("top_k", 0), top_p=s.get("top_p", 1.0),
+            max_tokens=s.get("max_tokens", 16),
+            stop_token_ids=tuple(s.get("stop_token_ids", ())),
+            seed=s.get("seed"),
+            logprobs=bool(s.get("logprobs", False)),
+            seed_offset=int(s.get("seed_offset", 0))),
+        stop_sequences=list(d.get("stop_sequences", [])),
+        annotations=dict(d.get("annotations", {})),
+    )
+
+
+def delta_to_wire(delta: TokenDelta) -> dict:
+    d = {
+        "token_ids": list(delta.token_ids),
+        "finished": delta.finished,
+        "finish_reason": delta.finish_reason.value if delta.finish_reason else None,
+    }
+    if delta.logprobs is not None:
+        d["logprobs"] = list(delta.logprobs)
+    return d
+
+
+def delta_from_wire(d: dict) -> TokenDelta:
+    fr = d.get("finish_reason")
+    lp = d.get("logprobs")
+    return TokenDelta(
+        request_id="", token_ids=list(d.get("token_ids", [])),
+        finished=bool(d.get("finished")),
+        finish_reason=FinishReason(fr) if fr else None,
+        logprobs=list(lp) if lp is not None else None)
+
+
+def engine_wire_handler(engine_client) -> Callable:
+    """Wrap any EngineClient as an RPC handler (worker side)."""
+
+    async def handler(payload: dict) -> AsyncIterator[dict]:
+        req = request_from_wire(payload)
+        # The frontend's request id arrives in the RPC frame; logging it
+        # here gives one grep-able id across frontend and worker logs
+        # (reference `logging.rs:73-79`).
+        logger.info("request %s: %d prompt tokens, max_tokens=%d",
+                    req.request_id, len(req.token_ids),
+                    req.sampling.max_tokens)
+        n_out = 0
+        async for delta in engine_client.generate(req):
+            n_out += len(delta.token_ids)
+            yield delta_to_wire(delta)
+        logger.info("request %s: finished, %d tokens", req.request_id, n_out)
+
+    return handler
+
+
+class RemoteEngineClient:
+    """EngineClient over a runtime Client (frontend side)."""
+
+    def __init__(self, client: Client) -> None:
+        self.client = client
+
+    async def generate(
+        self, request: PreprocessedRequest
+    ) -> AsyncIterator[TokenDelta]:
+        async for d in self.client.generate(request_to_wire(request)):
+            delta = delta_from_wire(d)
+            delta.request_id = request.request_id
+            yield delta
+
+
+# ---------------------------------------------------------------------------
+# Registration (worker side)
+
+
+def model_key(name: str, instance_id: int) -> str:
+    return f"{MODEL_ROOT}/{name}/{instance_id}"
+
+
+async def register_llm(
+    endpoint: Endpoint,
+    instance: Instance,
+    card: ModelDeploymentCard,
+) -> None:
+    """Publish the model entry bound to this instance's lease: when the
+    worker dies, the entry dies with it (reference ModelEntry under
+    MODEL_ROOT_PATH + lease semantics).  The instance record's published
+    SliceSpec (`fleet.topology`) rides along so frontends see
+    a worker's mesh/role/HBM without a second lookup."""
+    entry = {
+        "card": card.to_dict(),
+        "namespace": endpoint.namespace,
+        "component": endpoint.component,
+        "endpoint": endpoint.name,
+        "instance_id": instance.instance_id,
+    }
+    slice_spec = (instance.metadata or {}).get("slice")
+    if slice_spec is not None:
+        entry["slice"] = slice_spec
+
+    async def _put():
+        # Bound to the endpoint's CURRENT lease so a control-plane
+        # restart replays the model entry too (Endpoint re-registration).
+        await endpoint.runtime.cp.put(
+            model_key(card.name, instance.instance_id), entry,
+            lease=endpoint._lease)
+
+    await _put()
+    endpoint.add_registration_put(_put)
+
+
+# ---------------------------------------------------------------------------
+# ModelWatcher (frontend side)
+
+
+class ModelWatcher:
+    """Watches `models/`; maintains the frontend's ModelManager."""
+
+    def __init__(self, runtime: DistributedRuntime,
+                 manager: ModelManager,
+                 router_mode: str = "round_robin",
+                 migration_limit: int = 3) -> None:
+        self.runtime = runtime
+        self.manager = manager
+        self.router_mode = router_mode
+        self.migration_limit = migration_limit
+        self._instances: Dict[str, set] = {}       # model → instance ids
+        self._clients: Dict[str, Client] = {}
+        self._kv_clients: Dict[str, object] = {}   # model → KvRoutedEngineClient
+        self._task: Optional[asyncio.Task] = None
+        self._watch = None
+
+    async def start(self) -> None:
+        self._watch = await self.runtime.cp.watch_prefix(f"{MODEL_ROOT}/")
+        self._task = asyncio.create_task(self._loop())
+
+    async def stop(self) -> None:
+        if self._watch:
+            self._watch.cancel()
+        if self._task:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+        for c in self._clients.values():
+            await c.stop()
+        for kv in self._kv_clients.values():
+            await kv.stop()
+
+    async def _loop(self) -> None:
+        while True:
+            try:
+                async for ev in self._watch:
+                    try:
+                        if ev.kind == "put" and ev.value:
+                            await self._on_put(ev.key, ev.value)
+                        elif ev.kind == "delete":
+                            await self._on_delete(ev.key)
+                    except Exception:
+                        logger.exception("model watcher event failed: %s",
+                                         ev.key)
+                return
+            except ConnectionError:
+                # One poison per control-plane outage; the client's
+                # reconnect re-registers the watch and replays state
+                # into the same queue — resume consuming (stop()
+                # cancels this task at shutdown).  Unhandled, this was
+                # "Task exception was never retrieved" teardown noise.
+                logger.debug("model watcher: control plane connection "
+                             "lost; resuming on replay")
+                continue
+
+    async def _on_put(self, key: str, entry: dict) -> None:
+        card = ModelDeploymentCard.from_dict(entry["card"])
+        name = card.name
+        ids = self._instances.setdefault(name, set())
+        ids.add(entry["instance_id"])
+        if self.manager.get(name) is not None:
+            return  # additional replica of a known model
+        endpoint = (self.runtime.namespace(entry["namespace"])
+                    .component(entry["component"])
+                    .endpoint(entry["endpoint"]))
+        client = await endpoint.client(
+            "round_robin" if self.router_mode == "kv" else self.router_mode)
+        self._clients[name] = client
+        tokenizer = card.build_tokenizer()
+        # Declarative operator pipeline (runtime/pipeline.py; reference
+        # build_routed_pipeline, `entrypoint/input/common.rs:213`):
+        # Migration (retry across worker death) wraps the router
+        # (KV-aware or plain round-robin), which wraps the instance set.
+        from dynamo_tpu_torch.runtime.pipeline import (
+            KvRouterOp, MigrationOp, Pipeline, RemoteOp)
+
+        router_op = (KvRouterOp(self.runtime, block_size=card.kv_block_size)
+                     if self.router_mode == "kv" else RemoteOp())
+        pipeline = Pipeline([MigrationOp(limit=self.migration_limit),
+                             router_op])
+        engine_client = await pipeline.attach(client)
+        if self.router_mode == "kv":
+            from dynamo_tpu_torch.llm.kv_router.client import KvRoutedEngineClient
+
+            self._kv_clients[name] = pipeline.stage_of(KvRoutedEngineClient)
+        self.manager.register(ModelHandle(
+            name=name, tokenizer=tokenizer,
+            preprocessor=OpenAIPreprocessor(
+                tokenizer, chat_template=card.chat_template,
+                default_max_tokens=card.default_max_tokens),
+            client=engine_client,
+            max_context=card.max_context))
+        logger.info("model %r registered (instance %d)", name,
+                    entry["instance_id"])
+
+    async def _on_delete(self, key: str) -> None:
+        # models/{name}/{instance_id}
+        _, name, iid = key.rsplit("/", 2)
+        ids = self._instances.get(name)
+        if ids is None:
+            return
+        ids.discard(int(iid))
+        if not ids:
+            self.manager.remove(name)
+            client = self._clients.pop(name, None)
+            if client:
+                await client.stop()
+            kv = self._kv_clients.pop(name, None)
+            if kv:
+                await kv.stop()
+            logger.info("model %r removed (no instances left)", name)

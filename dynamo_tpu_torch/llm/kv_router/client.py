@@ -1,0 +1,263 @@
+"""KV-aware routed engine client: the frontend side of KV routing (port
+of `dynamo_tpu/llm/kv_router/client.py` without its ledger and tracing
+spans, the remote-prefix hint, the QoS priority read and the admin
+`embed` / `clear_kv_blocks` calls).
+
+Ties the router core (indexer + selector + active sequences, this package)
+into the serving path, playing the reference's `KvPushRouter`
+(`kv_router.rs:304`) role:
+
+- subscribes to the `kv_events` subject on the control plane and feeds the
+  RadixTree indexer (reference: NATS kv_events → `KvIndexer` event loop);
+- on every request, scores live instances (prefix overlap + decode/prefill
+  load) and dispatches *direct* to the chosen worker;
+- tracks in-flight state (ActiveSequencesMultiWorker) — prefill complete on
+  first token, per-token block growth, free on finish;
+- removes workers from the index when their instances vanish.
+
+Composes under MigrationClient: a retried generate() re-routes, and the
+dead worker has already been dropped from the instance set by its lease.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import AsyncIterator, Optional
+
+from dynamo_tpu_torch.engine.engine import TokenDelta
+from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
+from dynamo_tpu_torch.llm.kv_router.router import KvRouter, KvRouterConfig
+from dynamo_tpu_torch.llm.kv_router.watcher import LoadMetricsWatcher
+from dynamo_tpu_torch.llm.preprocessor import PreprocessedRequest
+
+logger = logging.getLogger(__name__)
+
+KV_EVENTS_SUBJECT = "kv_events"
+ACTIVE_SEQS_SUBJECT = "active_seqs"  # reference kv_router.rs:63
+
+
+class KvRoutedEngineClient:
+    """EngineClient with KV-cache-aware worker selection."""
+
+    def __init__(self, client, runtime, block_size: int = 64,
+                 config: Optional[KvRouterConfig] = None) -> None:
+        from dynamo_tpu_torch.llm.discovery import delta_from_wire, request_to_wire
+
+        self._to_wire = request_to_wire
+        self._from_wire = delta_from_wire
+        self.client = client          # runtime Client (instance watcher)
+        self.runtime = runtime
+        self.router = KvRouter(config or KvRouterConfig(block_size=block_size))
+        self._event_task: Optional[asyncio.Task] = None
+        self._sub = None
+        # Worker-published ForwardPassMetrics, merged into selection cost.
+        self._metrics = LoadMetricsWatcher(runtime.cp, name="kv-router")
+        # Replica sync: other frontends' routing decisions fold into our
+        # optimistic accounting under a namespaced request key (reference
+        # ACTIVE_SEQUENCES_SUBJECT replica sync, kv_router.rs:62-63).
+        import uuid as _uuid
+
+        self._router_id = _uuid.uuid4().hex[:12]
+        self._seq_sub = None
+        self._seq_task: Optional[asyncio.Task] = None
+        # Penalty box: workers that just failed a connection are excluded
+        # from routing until their lease expires or the TTL passes —
+        # otherwise the highest-overlap (dead) worker would be re-chosen on
+        # every migration retry (reference PushRouter fault detection,
+        # `push_router.rs:168`).
+        self._penalty: dict = {}
+        self._penalty_ttl = 3.0
+        # Fire-and-forget publishes: the loop holds tasks weakly, so
+        # they stay referenced here until done.
+        self._publishes: set = set()
+
+    async def start(self) -> None:
+        self._sub = await self.runtime.cp.subscribe(KV_EVENTS_SUBJECT)
+        self._event_task = asyncio.create_task(self._pump_events())
+        await self._metrics.start()
+        if self.router.config.replica_sync:
+            self._seq_sub = await self.runtime.cp.subscribe(
+                ACTIVE_SEQS_SUBJECT)
+            self._seq_task = asyncio.create_task(self._pump_active_seqs())
+
+    async def stop(self) -> None:
+        for sub in (self._sub, self._seq_sub):
+            if sub:
+                sub.cancel()
+        for task in (self._event_task, self._seq_task):
+            if task:
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+        await self._metrics.stop()
+
+    # -- replica sync ------------------------------------------------------
+
+    def _publish_seq(self, kind: str, request_id: str, **fields) -> None:
+        if not self.router.config.replica_sync:
+            return
+
+        async def pub():
+            # One retry: a dropped 'free' leaves a phantom
+            # reservation on peer routers skewing placement until the
+            # 900 s expire sweep; still best-effort after that — local
+            # accounting holds either way.
+            for attempt in (0, 1):
+                try:
+                    await self.runtime.cp.publish(ACTIVE_SEQS_SUBJECT, {
+                        "router": self._router_id, "kind": kind,
+                        "request_id": request_id, **fields})
+                    return
+                except Exception:
+                    if attempt == 0:
+                        await asyncio.sleep(0.2)
+
+        self._spawn(pub)
+
+    def _spawn(self, coro_fn) -> None:
+        try:
+            task = asyncio.get_running_loop().create_task(coro_fn())
+        except RuntimeError:
+            return  # no loop (sync tests): drop
+        self._publishes.add(task)
+        task.add_done_callback(self._publishes.discard)
+
+    async def _pump_active_seqs(self) -> None:
+        import time
+
+        last_sweep = time.monotonic()
+        backoff = 1.0
+        while True:
+            try:
+                msg = await asyncio.wait_for(self._seq_sub.next(),
+                                             timeout=30.0)
+                backoff = 1.0
+            except asyncio.TimeoutError:
+                msg = None
+            except asyncio.CancelledError:
+                raise
+            except ConnectionError:
+                # Don't go silently dark until restart.  The
+                # control-plane client reconnects and restores this SAME
+                # subscription; just keep draining after a pause.
+                logger.warning("active_seqs subscription lost; waiting "
+                               "%.0fs for reconnect", backoff)
+                await asyncio.sleep(backoff)
+                backoff = min(backoff * 2, 30.0)
+                continue
+            # Periodic leak sweep: a remote router SIGKILLed between its
+            # "add" and "free" would otherwise reserve phantom load
+            # forever (ActiveSequences.expire_older_than exists for
+            # exactly this).  The TTL comfortably exceeds any real
+            # stream; local entries also freed by generate()'s finally.
+            now = time.monotonic()
+            if now - last_sweep > 60.0:
+                last_sweep = now
+                dropped = self.router.active.expire_older_than(900.0)
+                if dropped:
+                    logger.warning("expired %d leaked sequence "
+                                   "reservations", dropped)
+            if msg is None:
+                continue
+            if msg.get("router") == self._router_id:
+                continue  # own echo
+            try:
+                key = f"{msg['router']}:{msg['request_id']}"
+                kind = msg["kind"]
+                if kind == "add":
+                    self.router.active.add_request(
+                        key, msg["worker"], msg["isl"], msg["overlap"],
+                        expected_output_tokens=msg.get("expected", 0))
+                elif kind == "prefill":
+                    self.router.active.mark_prefill_complete(key)
+                elif kind == "free":
+                    self.router.active.free(key)
+            except Exception:
+                logger.exception("bad active_seqs payload")
+
+    async def _pump_events(self) -> None:
+        backoff = 1.0
+        while True:
+            try:
+                payload = await self._sub.next()
+                backoff = 1.0
+            except asyncio.CancelledError:
+                raise
+            except ConnectionError:
+                # A frozen index silently degrades routing
+                # until restart.  The control-plane client reconnects and
+                # restores this SAME subscription; keep draining.
+                logger.warning("kv_events subscription lost; waiting "
+                               "%.0fs for reconnect", backoff)
+                await asyncio.sleep(backoff)
+                backoff = min(backoff * 2, 30.0)
+                continue
+            try:
+                self.router.apply_event(RouterEvent.from_dict(payload))
+            except Exception:
+                logger.exception("bad kv event payload")
+
+    def _sync_workers(self) -> list:
+        """Reconcile the router's worker set with live instances."""
+        import time
+
+        live = self.client.instance_ids()
+        known = self.router.workers()
+        for w in known:
+            if w not in live:
+                self.router.remove_worker(w)
+        now = time.monotonic()
+        self._penalty = {w: t for w, t in self._penalty.items() if t > now}
+        healthy = [w for w in live if w not in self._penalty]
+        return healthy or live  # all penalised → try anyway
+
+    def _worker_slices(self) -> dict:
+        """Published SliceSpec per live instance (instance-record
+        metadata, `fleet.topology`): the selector's HBM-capacity
+        weighting.  Workers that publish none map to None."""
+        from dynamo_tpu_torch.fleet.topology import SliceSpec
+
+        return {
+            i.instance_id: SliceSpec.from_dict(i.metadata.get("slice"))
+            for i in self.client.instances()
+        }
+
+    async def generate(
+        self, request: PreprocessedRequest
+    ) -> AsyncIterator[TokenDelta]:
+        workers = self._sync_workers()
+        worker_id, overlap = self.router.find_best_match(
+            request.request_id, request.token_ids, workers,
+            expected_output_tokens=request.sampling.max_tokens,
+            metrics=self._metrics.fresh(),
+            slices=self._worker_slices())
+        logger.debug("kv-routed %s → worker %s (overlap %d blocks)",
+                     request.request_id, worker_id, overlap)
+        self._publish_seq("add", request.request_id, worker=worker_id,
+                          isl=len(request.token_ids), overlap=overlap,
+                          expected=request.sampling.max_tokens)
+        first = True
+        try:
+            async for d in self.client.direct(self._to_wire(request),
+                                              worker_id):
+                delta = self._from_wire(d)
+                delta.request_id = request.request_id
+                if delta.token_ids:
+                    if first:
+                        self.router.mark_prefill_complete(request.request_id)
+                        self._publish_seq("prefill", request.request_id)
+                        first = False
+                    self.router.push_token(request.request_id,
+                                           len(delta.token_ids))
+                yield delta
+        except ConnectionError:
+            import time
+
+            self._penalty[worker_id] = time.monotonic() + self._penalty_ttl
+            raise
+        finally:
+            self.router.free(request.request_id)
+            self._publish_seq("free", request.request_id)

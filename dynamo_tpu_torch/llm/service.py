@@ -2,8 +2,10 @@
 `dynamo_tpu/llm/service.py`).
 
 `EngineClient` is the streaming contract the HTTP frontend talks to;
-`LocalEngineClient` serves it from an in-process `InferenceEngine`, and
-`ModelManager` is the frontend's model registry.
+`LocalEngineClient` serves it from an in-process `InferenceEngine` (the
+single-process frontend and each worker), `llm/discovery` and
+`llm/kv_router` serve it over the RPC from workers, and `ModelManager`
+is the frontend's model registry (models come and go as workers do).
 """
 
 from __future__ import annotations
@@ -55,6 +57,9 @@ class ModelManager:
 
     def register(self, handle: ModelHandle) -> None:
         self._models[handle.name] = handle
+
+    def remove(self, name: str) -> None:
+        self._models.pop(name, None)
 
     def get(self, name: str) -> Optional[ModelHandle]:
         return self._models.get(name)

@@ -1,0 +1,244 @@
+"""`python -m dynamo_tpu_torch.worker` — a backend worker process (port of
+`dynamo_tpu/worker/main.py`, the aggregated role).
+
+    python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
+        --model llama-3-1b --model-name m [--health-port 0]
+    python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
+        --model tiny-test --device cpu
+
+Connects to the control plane, serves the port's engine (`EngineCore` /
+`InferenceEngine`: packed prefill through the paged-prefill kernel, decode
+windows through the paged-decode kernel) on the `generate` endpoint,
+registers the model (`register_llm`), and publishes the engine's KV events
+and load metrics for the frontends' KV routers.  SIGTERM or SIGINT leaves
+routing at once (the lease is revoked, so the instance and model keys
+go), lets in-flight streams finish, and shuts down; a killed worker's keys
+expire with its lease.
+
+Runs on the card unless `--device cpu` is given, with random weights from
+seed 0 and the byte tokenizer.  On a card the kernels its path launches
+are built (or reused from `_build/`) and loaded before it registers: a
+kernel that fails to build or load stops the worker with an error.
+
+Not ported: the `prefill` / `decode` / `encode` roles and disagg, drain
+with KV migration, `--mocker`, multihost and lockstep, `--slice`, the
+stall watchdog, the profilers, SLO monitoring, the flight recorder, the
+request ledger and `/metrics`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import signal
+
+from dynamo_tpu_torch.engine.engine import (
+    DECODE_WINDOW,
+    EngineConfig,
+    EngineCore,
+    InferenceEngine,
+)
+from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+from dynamo_tpu_torch.fleet.topology import SliceSpec
+from dynamo_tpu_torch.frontend.main import model_config, stats_hooks
+from dynamo_tpu_torch.llm.discovery import engine_wire_handler, register_llm
+from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
+from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.llm.service import LocalEngineClient
+from dynamo_tpu_torch.runtime.config import (
+    apply_to_parser_defaults,
+    load_layered_config,
+)
+from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+logger = logging.getLogger("dynamo_tpu_torch.worker")
+
+KV_EVENTS_SUBJECT = "kv_events"        # reference kv_router.rs:56
+METRICS_SUBJECT = "load_metrics"       # reference stats endpoint name
+STREAM_DRAIN_S = 30.0                  # in-flight streams' grace at exit
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        "dynamo_tpu_torch.worker",
+        description="Layered config: defaults < dynamo.toml [worker] "
+                    "section < DYN_* env < these flags "
+                    "(runtime/config.py).")
+    p.add_argument("--control-plane", default=None,
+                   help="control plane HOST:PORT")
+    p.add_argument("--namespace", default="dynamo")
+    p.add_argument("--component", default="backend")
+    p.add_argument("--endpoint", default="generate")
+    p.add_argument("--model-name", default="dynamo-tpu")
+    p.add_argument("--model", default="llama-3-1b",
+                   help="model preset (random weights), e.g. llama-3-1b, "
+                        "mixtral-8x7b, tiny-test")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda unless cpu is asked for")
+    p.add_argument("--num-blocks", type=int, default=512)
+    p.add_argument("--block-size", type=int, default=64)
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="keep the first N decoder layers of the preset "
+                        "(default: all), as the port's frontend does")
+    p.add_argument("--max-prefill-chunk", type=int, default=512,
+                   help="chunked-prefill step ceiling (tokens)")
+    p.add_argument("--kv-quant", choices=("none", "int8"), default="none",
+                   help="KV cache storage: int8 pages with per-token, "
+                        "per-head f32 scales, or the model dtype")
+    p.add_argument("--moe-mode", choices=("auto", "dense", "grouped"),
+                   default="auto",
+                   help="MoE expert compute (dense models ignore it): "
+                        "grouped = the CUDA grouped-expert kernel, dense = "
+                        "every expert over every token; auto = grouped on "
+                        "a card when the expert geometry allows it")
+    p.add_argument("--metrics-interval", type=float, default=1.0,
+                   help="seconds between load-metrics publications")
+    p.add_argument("--health-port", type=int, default=0,
+                   help="per-worker status server port (0 = ephemeral; "
+                        "-1 disables): /live, /health, /debug/stats")
+    p.add_argument("--rpc-host", default="127.0.0.1",
+                   help="bind + ADVERTISED host for this worker's RPC "
+                        "server; cross-host deployments must set a "
+                        "routable address")
+    apply_to_parser_defaults(p, load_layered_config(
+        {"control_plane": None, "namespace": "dynamo",
+         "component": "backend", "endpoint": "generate",
+         "model_name": "dynamo-tpu", "num_blocks": 512, "block_size": 64,
+         "metrics_interval": 1.0},
+        section="worker"))
+    args = p.parse_args(argv)
+    if not args.control_plane:
+        p.error("--control-plane is required (flag, DYN_CONTROL_PLANE, "
+                "or dynamo.toml)")
+    return args
+
+
+def load_kernels(core: EngineCore) -> None:
+    """Build (or reuse) and load the CUDA libraries this engine's path
+    launches, so a kernel that cannot build or load stops the worker at
+    start instead of failing its first request."""
+    if core.device.type != "cuda":
+        return
+    from dynamo_tpu_torch.ops.cuda import build
+
+    names = ["paged_decode", "paged_prefill"]
+    if core.moe_mode == "grouped":
+        names.append("moe_grouped")
+    for name in names:
+        build.load(name)
+
+
+def build_engine(args, kv_event_sink):
+    """(core, engine, card fields) for the flags; the engine is not
+    started yet."""
+    cfg = model_config(args)
+    sched = SchedulerConfig(block_size=args.block_size,
+                            max_prefill_chunk=args.max_prefill_chunk)
+    core = EngineCore(EngineConfig(
+        model=cfg, num_blocks=args.num_blocks, scheduler=sched,
+        device=args.device, moe_mode=args.moe_mode,
+        kv_quant=args.kv_quant), kv_event_sink=kv_event_sink)
+    load_kernels(core)
+    card_fields = {
+        "tokenizer_spec": {"kind": "byte"},
+        "max_context": min(cfg.max_context,
+                           sched.max_pages_per_seq * sched.block_size),
+    }
+    return core, InferenceEngine(core), card_fields
+
+
+def derive_slice_spec(core: EngineCore) -> SliceSpec:
+    """The SliceSpec this worker publishes in its instance record: one
+    device, the aggregated role, its KV mode and serving features, and
+    the device's memory (0 on the CPU: unknown)."""
+    hbm = 0
+    if core.device.type == "cuda":
+        import torch
+
+        hbm = int(torch.cuda.get_device_properties(core.device).total_memory)
+    return SliceSpec(role="both", kv_quant=core.cache_cfg.kv_quant,
+                     features=("packed_prefill", f"window{DECODE_WINDOW}"),
+                     hbm_per_chip_bytes=hbm)
+
+
+async def run(args) -> None:
+    cp = ControlPlaneClient(*_split(args.control_plane))
+    await cp.start()
+    runtime = DistributedRuntime(cp, rpc_host=args.rpc_host)
+    endpoint = (runtime.namespace(args.namespace)
+                .component(args.component).endpoint(args.endpoint))
+
+    loop = asyncio.get_running_loop()
+    pending_events: list = []
+
+    def kv_event_sink(event):
+        # The engine thread emits; hop onto the loop for the publish.
+        loop.call_soon_threadsafe(pending_events.append, event)
+
+    core, engine, card_fields = build_engine(args, kv_event_sink)
+    await engine.start()
+    instance = await endpoint.serve(
+        engine_wire_handler(LocalEngineClient(engine)),
+        metadata={"slice": derive_slice_spec(core).to_dict()})
+    card = ModelDeploymentCard(name=args.model_name,
+                               kv_block_size=args.block_size, **card_fields)
+    await register_llm(endpoint, instance, card)
+    status = None
+    if args.health_port >= 0:
+        from dynamo_tpu_torch.runtime.status import StatusServer
+
+        stats, reset_stats = stats_hooks(core)
+        status = StatusServer(stats_fn=stats, reset_fn=reset_stats)
+        hport = await status.start(host=args.rpc_host,
+                                   port=args.health_port)
+        print(f"worker status server on :{hport}", flush=True)
+    print(f"worker instance {instance.instance_id} serving "
+          f"{args.model_name!r} ({args.model}, on {core.device}, kv_quant "
+          f"{core.cache_cfg.kv_quant}) at {instance.address}", flush=True)
+
+    async def pump_events():
+        while True:
+            await asyncio.sleep(0.02)
+            while pending_events:
+                ev = pending_events.pop(0)
+                await cp.publish(KV_EVENTS_SUBJECT, RouterEvent(
+                    worker_id=instance.instance_id, event=ev).to_dict())
+
+    async def pump_metrics():
+        while True:
+            await asyncio.sleep(args.metrics_interval)
+            await cp.publish(METRICS_SUBJECT, {
+                "worker_id": instance.instance_id,
+                "metrics": engine.metrics.to_dict()})
+
+    pumps = [asyncio.create_task(pump_events()),
+             asyncio.create_task(pump_metrics())]
+    stop_ev = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop_ev.set)
+    await stop_ev.wait()
+
+    # Leave routing at once, then let in-flight streams finish (bounded).
+    await endpoint.leave()
+    deadline = loop.time() + STREAM_DRAIN_S
+    while runtime.rpc.active_streams > 0 and loop.time() < deadline:
+        await asyncio.sleep(0.05)
+    for t in pumps:
+        t.cancel()
+    if status is not None:
+        await status.stop()
+    await engine.stop()
+    await runtime.shutdown()
+    await cp.close()
+
+
+def _split(addr: str):
+    host, port = addr.rsplit(":", 1)
+    return host, int(port)
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    asyncio.run(run(parse_args(argv)))

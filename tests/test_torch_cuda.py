@@ -715,3 +715,106 @@ def test_sp_engine_serves_through_the_ring_kernel(dev, kv_quant):
         assert gap <= 2e-2 * row.abs().max().item(), (rid, gap)
     short = _serve(core, {"c": [3, 4, 5]})
     assert len(short["c"]) == 20 and core.counters.sp_prefill_count == 2
+
+
+class _SteppedClient:
+    """EngineClient that steps its core on the caller's thread, so the
+    KV events and metrics of every step run where the test can watch
+    them."""
+
+    def __init__(self, core):
+        self.core = core
+
+    async def generate(self, req):
+        import asyncio
+
+        self.core.add_request(req.request_id, req.token_ids, req.sampling)
+        while True:
+            for d in self.core.step():
+                if d.request_id == req.request_id:
+                    yield d
+                    if d.finished:
+                        return
+            await asyncio.sleep(0)
+
+
+def test_kv_router_sticks_a_shared_prefix_between_two_card_engines(dev):
+    """Two engines on the card behind an in-process control plane and the
+    KV router: the second of a shared-prefix pair lands on the first's
+    worker, whose prefix-hit tokens grow by the prefix's 3 blocks (the
+    other's do not move).  The KV-event emission and the metrics refresh
+    run under `set_sync_debug_mode("error")`: no host sync."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.llm.discovery import engine_wire_handler
+    from dynamo_tpu_torch.llm.kv_router.client import (
+        KV_EVENTS_SUBJECT, KvRoutedEngineClient)
+    from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
+    from dynamo_tpu_torch.llm.preprocessor import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.control_plane import InProcessControlPlane
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    def no_sync(fn):
+        def run(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    shared = list(range(1, 25))              # 3 blocks of 8
+
+    async def main():
+        cp = InProcessControlPlane()
+        await cp.start()
+        cores, runtimes = {}, []
+        for _ in range(2):
+            rt = DistributedRuntime(cp)
+            events = []
+            core = _tiny_engine(dev)
+            core._kv_event_sink = events.append
+            core._publish_completed_blocks = no_sync(
+                core._publish_completed_blocks)
+            core._refresh_metrics = no_sync(core._refresh_metrics)
+            ep = rt.namespace("dyn").component("backend").endpoint("generate")
+            inst = await ep.serve(engine_wire_handler(_SteppedClient(core)))
+            cores[inst.instance_id] = (core, events)
+            runtimes.append(rt)
+        front = DistributedRuntime(cp)
+        client = await (front.namespace("dyn").component("backend")
+                        .endpoint("generate").client())
+        while len(client.instance_ids()) < 2:
+            await asyncio.sleep(0.01)
+        kv = KvRoutedEngineClient(client, front, block_size=8)
+        await kv.start()
+        hits = []
+        for rid, toks in (("a", shared + [40, 41]), ("b", shared + [50])):
+            before = {i: c.scheduler.prefix_hit_tokens
+                      for i, (c, _) in cores.items()}
+            req = PreprocessedRequest(rid, "m", toks,
+                                      SamplingParams(max_tokens=20))
+            n = sum([len(d.token_ids) async for d in kv.generate(req)])
+            assert n == 20
+            hits.append({i: c.scheduler.prefix_hit_tokens - before[i]
+                         for i, (c, _) in cores.items()})
+            for iid, (_, events) in cores.items():
+                while events:
+                    await cp.publish(KV_EVENTS_SUBJECT, RouterEvent(
+                        worker_id=iid, event=events.pop(0)).to_dict())
+            await asyncio.sleep(0.05)        # the router indexes them
+        await kv.stop()
+        await client.stop()
+        for rt in runtimes + [front]:
+            await rt.shutdown()
+        await cp.close()
+        return hits, cores
+
+    hits, cores = asyncio.run(asyncio.wait_for(main(), 120))
+    assert all(n == 0 for n in hits[0].values())
+    (home, n), = [(i, n) for i, n in hits[1].items() if n]
+    assert n == 24
+    core = cores[home][0]
+    assert core.metrics.kv_stats.gpu_prefix_cache_hit_rate > 0
+    assert paged_prefill_attention.launches > 0
