@@ -61,7 +61,10 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
    streams their `[DONE]`; K1 and K2 must have launched.  Then two lone
-   greedy chats, one at a time, whose text the next phase must match.
+   greedy chats, one at a time, whose text the next phase must match, and
+   serve_disagg's two long chats, each twice: the second time its sealed
+   blocks come from the prefix cache and only its last partial block
+   prefills, as on a disagg decode worker, whose text must match it.
 10. serve_distributed — the same model on two `python -m
    dynamo_tpu_torch.worker` processes sharing the card, behind frontend A
    (`--serve-control-plane --router-mode kv`) and frontend B
@@ -73,19 +76,36 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    through A and the same through B, where every request returns its
    tokens and both workers launch K1 and K2.  The waves' tok/s, TTFT and
    ITL are printed beside `serve`'s.
-11. serve_int8 — the same with `--kv-quant int8` and a shared system
+   Fleet prefix sharing: with P's home kept busy by a long chat, the next
+   P chat goes to the other worker with a donor hint, which must pull the
+   home's blocks over cuda_ipc (no host-staged block) and take them as
+   prefix hits; any kv-wave chat sent off its prompt's home must too.
+11. block_copy — the KV data plane's copies at llama-3-1b geometry for one
+   offer batch of 8 blocks: the batched extract and inject (bf16 and int8
+   cache; CUDA-event times beside the bytes' bound, the round trip
+   byte-exact), and a pull from another process (`--kv-holder`) over
+   cuda_ipc and over the host-staged plane, byte-exact, host-clock times.
+12. serve_disagg — llama-3-1b disaggregated: a `--role prefill` and a
+   `--role decode --max-local-prefill 512` worker sharing the card behind
+   frontend A; two long chats (~1,600 prompt tokens) one at a time must
+   give `serve`'s text, then a wave of 4 long and 4 short chats.  On the
+   decode worker every long chat prefilled remotely with no fallback, the
+   onboarded tokens are its sealed blocks x 64, every pull rode cuda_ipc,
+   some blocks streamed before prefill-done, K1 and K2 launched; the
+   prefill worker launched K2 and no K1.
+13. serve_int8 — the same with `--kv-quant int8` and a shared system
    prompt of 10 blocks, which a warm-up chat puts in the prefix cache:
    only the int8 bodies of K1 and K2 may launch, and the prefix cache
    must serve every request the blocks of the prefix the 8 prompts share.
-12. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
+14. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
    (one card cannot hold its 32 layers): K1, K2 and K3 must have
    launched and the expert load must count every routed row.
-13. model_sp — llama-3-1b at full width and depth: a 480-token and a
+15. model_sp — llama-3-1b at full width and depth: a 480-token and a
    512-token prompt through the sequence-parallel prefill step (4 ranks
    on card 0, K4) against the packed prefill step (K2), over a bf16 and
    an int8 cache: logits, greedy tokens, the written cache rows, the K4
    launch count, then two decode steps (K1) from each cache.
-14. serve_sp — `--model llama-3-1b --sp 4` as a subprocess: long chats
+16. serve_sp — `--model llama-3-1b --sp 4` as a subprocess: long chats
    (400-500 prompt tokens, no shared first block) one at a time while
    nothing decodes, which must all prefill through the ring kernel with
    16 layers x 4 ranks x 4 hops fold launches a dispatch and the modeled
@@ -113,6 +133,7 @@ import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "smoke_out"      # server log (gitignored)
@@ -1140,10 +1161,16 @@ def _chat(base: str, body: dict) -> dict:
     wall = time.monotonic() - t0
     if not stream:
         resp = json.loads(raw)
-        return {"stream": False, "wall_s": wall,
-                "tokens": resp["usage"]["completion_tokens"],
-                "finish": resp["choices"][0]["finish_reason"], "done": True,
-                "text": resp["choices"][0]["message"]["content"]}
+        out = {"stream": False, "wall_s": wall,
+               "tokens": resp["usage"]["completion_tokens"],
+               "finish": resp["choices"][0]["finish_reason"], "done": True,
+               "text": resp["choices"][0]["message"]["content"]}
+        lp = resp["choices"][0].get("logprobs")
+        if lp:   # a `traced` body: each token's id and logprob
+            out["token_ids"] = [int(e["token"].removeprefix("token_id:"))
+                                for e in lp["content"]]
+            out["logprobs"] = [e["logprob"] for e in lp["content"]]
+        return out
     lines = [ln for ln in raw.split("\n") if ln.startswith("data: ")]
     done = bool(lines) and lines[-1].strip() == "data: [DONE]"
     chunks = [json.loads(ln[6:]) for ln in lines if ln.strip() != "data: [DONE]"]
@@ -1153,6 +1180,24 @@ def _chat(base: str, body: dict) -> dict:
     return {"stream": True, "wall_s": wall, "done": done,
             "tokens": usage[-1]["completion_tokens"] if usage else 0,
             "finish": finish[-1] if finish else None}
+
+
+def traced(body: dict) -> dict:
+    """`body` asking for each token's id and logprob, so that two answers
+    can be held token for token: the byte tokenizer spells no id above
+    255, so a random-weight model's text says next to nothing."""
+    return {**body, "logprobs": True, "return_tokens_as_token_ids": True}
+
+
+def answer(r: dict) -> dict:
+    return {k: r[k] for k in ("text", "token_ids", "logprobs")}
+
+
+def leading_equal(a: list, b: list) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
 
 
 @contextlib.contextmanager
@@ -1218,8 +1263,9 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
     `n_requests` concurrent greedy chats, half streaming, each with the
     `system` prompt when one is given and user turn `user` (the warm-up's
     is number -1); every kernel of `path_kernels` must have launched in
-    that window.  Then the unary `lone_bodies`, one at a time, whose
-    texts the result carries (`lone_texts`)."""
+    that window.  Then the unary `traced` `lone_bodies`, one at a time,
+    whose answers (text, token ids, logprobs) and server-side TTFTs the
+    result carries (`lone_answers`, `lone_ttft_s`)."""
     with server(model, args, tag, ready_s) as (base, startup_s):
         # Warm-up: cuBLAS handles, the allocator, and the system prompt's
         # blocks into the prefix cache.
@@ -1231,7 +1277,9 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
                                    for i in range(n_requests)])
         wall = time.monotonic() - t1
         stats = json.loads(_http(base + "/debug/stats"))
-        lone = [_chat(base, b)["text"] for b in lone_bodies]
+        lone = [answer(_chat(base, b)) for b in lone_bodies]
+        timed = json.loads(_http(base + "/debug/stats"))["requests"]
+        lone_ttft = [r["ttft_s"] for r in timed[len(timed) - len(lone):]]
     check_results(results, max_tokens)
     launches = stats["kernels"]
     check(all(launches[k] > 0 for k in path_kernels),
@@ -1253,7 +1301,7 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
             "launches": launches, "counters": stats["counters"],
             "kv_quant": stats["kv_quant"], "prefix_cache": stats["prefix_cache"],
             "moe_mode": stats["moe_mode"], "expert_load": stats["expert_load"],
-            "lone_texts": lone}
+            "lone_answers": lone, "lone_ttft_s": lone_ttft}
 
 
 def serve_int8_phase():
@@ -1485,64 +1533,71 @@ def _free_port() -> int:
 
 
 @contextlib.contextmanager
-def distributed_stack(ready_s: float = 300):
-    """Frontend A (`--serve-control-plane --router-mode kv`), two
-    `dynamo_tpu_torch.worker` processes for llama-3-1b on the card (512
-    blocks of 64, a status port each) and frontend B (`--control-plane`
-    A's, `--router-mode round_robin`), all stopped on exit; yields
-    (A's url, B's url, the workers' status urls, seconds to ready)."""
+def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
+                      frontend_b: bool = True, tag: str = "distributed",
+                      ready_s: float = 300):
+    """Frontend A (`--serve-control-plane --router-mode kv`), one
+    `dynamo_tpu_torch.worker` process per entry of `workers` ((log tag,
+    extra flags)) for llama-3-1b on the card (512 blocks of 64, a status
+    port each) and, with `frontend_b`, frontend B (`--control-plane` A's,
+    `--router-mode round_robin`), all stopped on exit; yields (A's url, B's
+    url or None, the workers' status urls, seconds to ready).  Logs go to
+    `smoke_out/chip_smoke_<tag>_<log tag>.log`."""
     OUT_DIR.mkdir(exist_ok=True)
     procs = []
 
-    def spawn(module, tag, *args):
-        log = open(OUT_DIR / f"chip_smoke_distributed_{tag}.log", "w")
-        procs.append((tag, log, subprocess.Popen(
+    def log_path(name):
+        return OUT_DIR / f"chip_smoke_{tag}_{name}.log"
+
+    def spawn(module, name, *args):
+        log = open(log_path(name), "w")
+        procs.append((name, log, subprocess.Popen(
             [sys.executable, "-m", module, *args], cwd=ROOT, stdout=log,
             stderr=subprocess.STDOUT)))
 
     def wait(url, ready):
         while True:
-            for tag, log, proc in procs:
+            for name, log, proc in procs:
                 if proc.poll() is not None:
-                    raise SmokeError(
-                        f"{tag} exited rc {proc.returncode}: " + (
-                            OUT_DIR / f"chip_smoke_distributed_{tag}.log"
-                        ).read_text()[-2000:])
+                    raise SmokeError(f"{name} exited rc {proc.returncode}: "
+                                     + log_path(name).read_text()[-2000:])
             try:
                 if ready(json.loads(_http(url, timeout=5))):
                     return
             except OSError:
                 pass
             check(time.monotonic() - t0 < ready_s,
-                  f"distributed stack not ready in {ready_s} s ({url})")
+                  f"{tag} stack not ready in {ready_s} s ({url})")
             time.sleep(0.5)
 
-    cp, ports = _free_port(), [_free_port() for _ in range(4)]
-    a, b = (f"http://127.0.0.1:{p}" for p in ports[:2])
-    workers = [f"http://127.0.0.1:{p}" for p in ports[2:]]
+    cp, ports = _free_port(), [_free_port() for _ in range(2 + len(workers))]
+    a = f"http://127.0.0.1:{ports[0]}"
+    b = f"http://127.0.0.1:{ports[1]}" if frontend_b else None
+    status = [f"http://127.0.0.1:{p}" for p in ports[2:]]
     t0 = time.monotonic()
     try:
         spawn("dynamo_tpu_torch.frontend", "frontend_a", "--serve-control-plane",
               "--control-plane-port", str(cp), "--router-mode", "kv",
               "--http-port", str(ports[0]))
         wait(a + "/health", lambda r: "status" in r)
-        for i, port in enumerate(ports[2:]):
-            spawn("dynamo_tpu_torch.worker", f"worker{i}", "--control-plane",
+        for (name, extra), port in zip(workers, ports[2:]):
+            spawn("dynamo_tpu_torch.worker", name, "--control-plane",
                   f"127.0.0.1:{cp}", "--model", "llama-3-1b", "--model-name",
                   "m", "--num-blocks", "512", "--block-size", str(BS),
-                  "--health-port", str(port))
-        spawn("dynamo_tpu_torch.frontend", "frontend_b", "--control-plane",
-              f"127.0.0.1:{cp}", "--router-mode", "round_robin",
-              "--http-port", str(ports[1]))
-        for w in workers:
+                  "--health-port", str(port), *extra)
+        if frontend_b:
+            spawn("dynamo_tpu_torch.frontend", "frontend_b", "--control-plane",
+                  f"127.0.0.1:{cp}", "--router-mode", "round_robin",
+                  "--http-port", str(ports[1]))
+        for w in status:
             wait(w + "/health", lambda r: r["status"] == "ready")
-        for f in (a, b):
+        for f in (a, b) if frontend_b else (a,):
             wait(f + "/v1/models",
                  lambda r: [m["id"] for m in r["data"]] == ["m"])
-        time.sleep(1.0)    # the routers' instance watches see both workers
-        yield a, b, workers, time.monotonic() - t0
+        time.sleep(1.0)    # the routers' instance watches see the workers
+        yield a, b, status, time.monotonic() - t0
     finally:
-        for tag, log, proc in reversed(procs):
+        for name, log, proc in reversed(procs):
             proc.send_signal(signal.SIGTERM)
             try:
                 proc.wait(timeout=60)
@@ -1552,11 +1607,67 @@ def distributed_stack(ready_s: float = 300):
             log.close()
 
 
+def admitted(st: dict) -> int:
+    """Prompt tokens a worker has admitted since its stats reset."""
+    return st["prefix_cache"]["hit_tokens"] + st["prefix_cache"]["miss_tokens"]
+
+
+def no_reprefill(ps: dict) -> bool:
+    """Every hinted chat's admission found the blocks its pull left
+    resident: none was prefilled again."""
+    return (ps["reprefilled_tokens"] == 0
+            and ps["hinted_hit_tokens"] >= ps["pulled_tokens"])
+
+
+def donor_pull(a, workers, home, body, wstats, reset) -> dict:
+    """Fleet prefix sharing, made to happen: a long P chat (256 tokens)
+    keeps P's home busy.  The kv router counts the decode blocks of a
+    chat it routed until that chat ends, so once the home has admitted
+    the busy chat the next P chat goes to the other worker with a donor
+    hint naming the home.  That worker must pull the home's P blocks
+    over cuda_ipc (no host-staged block, no fallback) and its admission
+    must find every pulled block (`no_reprefill`).  The one way left to
+    miss: the busy chat's 256 tokens end before the probe is routed."""
+    other = 1 - home
+    reset(*workers)
+    with ThreadPoolExecutor(1) as pool:
+        busy = pool.submit(_chat, a, body("P", 90, max_tokens=256))
+        t0 = time.monotonic()
+        while True:                     # routed and admitted on the home
+            st = wstats(workers)
+            check(admitted(st[other]) == 0,
+                  "serve_distributed: the busy P chat went off its home")
+            if admitted(st[home]):
+                break
+            check(time.monotonic() - t0 < 60,
+                  "serve_distributed: the busy P chat was not admitted")
+            time.sleep(0.01)
+        _chat(a, body("P", 91))
+        st = wstats(workers)
+        busy.result()
+    ps, tp = st[other]["prefix_share"], st[other]["transfer_plane"]
+    check(ps["remote_hits"] == 1 and ps["fallbacks"] == 0
+          and ps["pulled_blocks"] > 0
+          and ps["device_pulled_blocks"] == ps["pulled_blocks"]
+          and tp["transport"] == "cuda_ipc"
+          and "host" not in st[other]["plane_counts"],
+          f"serve_distributed: the chat sent off P's home did not pull its "
+          f"blocks over cuda_ipc: {ps}, {st[other]['plane_counts']}, "
+          f"{tp['transport']}")
+    check(ps["hinted_admissions"] == 1 and no_reprefill(ps),
+          f"serve_distributed: worker {other} prefilled the pulled blocks "
+          f"again: {ps}")
+    return {"home": home, "puller": other, "prefix_share": ps,
+            "hit_tokens": st[other]["prefix_cache"]["hit_tokens"],
+            "plane_counts": st[other]["plane_counts"]}
+
+
 def serve_distributed_phase(serve: dict):
     """llama-3-1b on two workers sharing the card behind the control plane
     (`distributed_stack`).  Checks, in order:
     - parity: the lone greedy chats `serve` answered, sent one at a time
-      through A (kv), give the single-process server's text;
+      through A (kv), give the single-process server's token ids and
+      logprobs, bit for bit;
     - stickiness: one warm-up chat on each of two 640-byte system prompts
       P and Q finds each prompt's home worker; after a stats reset, chats
       on P, Q, P, Q, one at a time, must each land on its prompt's home:
@@ -1566,11 +1677,19 @@ def serve_distributed_phase(serve: dict):
     - a concurrent wave of 8 greedy chats of 64 tokens, half streaming,
       four on P and four on Q, through A (kv) and then through B
       (round_robin): every request returns its tokens and both workers
-      launch K1 and K2 in each wave.
+      launch K1 and K2 in each wave;
+    - fleet prefix sharing (`donor_pull`): with P's home kept busy, a P
+      chat goes to the other worker with a donor hint; that worker pulls
+      the home's blocks over cuda_ipc and its admission finds every one.
+      In the kv wave too, a chat the router sends off its prompt's home
+      carries a donor hint, and every such pull must ride cuda_ipc (no
+      host-staged block, no fallback); each hinted chat's admission,
+      counted chat by chat on its worker, finds the blocks its pull left
+      resident.
     The waves' output tok/s, TTFT and ITL (frontend side), each worker's
-    prefix hit rate and launches, and the stack's startup seconds are
-    returned beside `serve`'s; the kv / round_robin difference is printed,
-    not held."""
+    prefix hit rate, prefix-share pulls and launches, and the stack's
+    startup seconds are returned beside `serve`'s; the kv / round_robin
+    difference is printed, not held."""
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
@@ -1631,17 +1750,21 @@ def serve_distributed_phase(serve: dict):
                              "prefix_hit_tokens": st["prefix_cache"]["hit_tokens"],
                              "prefill_dispatches":
                                  st["counters"]["prefill_dispatches"],
+                             "prefix_share": st["prefix_share"],
+                             "plane_counts": st["plane_counts"],
+                             "transport": st["transfer_plane"]["transport"],
                              "launches": st["kernels"]}
                             for st in per_worker]}
 
-    lone = [chat_body(i, False, 64, user=LONE_TURN) for i in range(2)]
-    check(len(serve["lone_texts"]) == len(lone),
+    lone = [traced(chat_body(i, False, 64, user=LONE_TURN)) for i in range(2)]
+    want = serve["lone_answers"][:len(lone)]
+    check(len(want) == len(lone),
           "serve_distributed: serve answered no lone chats")
     with distributed_stack() as (a, b, workers, startup_s):
-        texts = [_chat(a, x)["text"] for x in lone]
-        check(texts == serve["lone_texts"],
+        got = [answer(_chat(a, x)) for x in lone]
+        check(got == want,
               f"serve_distributed: lone chats through the workers gave "
-              f"{texts!r}, the single-process server {serve['lone_texts']!r}")
+              f"{got!r}, the single-process server {want!r}")
         home = {}
         for name in "PQ":
             reset(*workers)
@@ -1665,16 +1788,390 @@ def serve_distributed_phase(serve: dict):
             sticky.append({"system": name, "worker": home[name],
                            "hit_tokens": grew[home[name]]})
             time.sleep(METRICS_SETTLE_S)
+        donor = donor_pull(a, workers, home["P"], body, wstats, reset)
         kv = wave(a, workers, 10)
+        for j, w in enumerate(kv["workers"]):
+            ps = w["prefix_share"]
+            check(ps["fallbacks"] == 0 and "host" not in w["plane_counts"],
+                  f"serve_distributed: worker {j}'s donor pulls fell back "
+                  f"or rode the host: {ps}, {w['plane_counts']}")
+            check(no_reprefill(ps),
+                  f"serve_distributed: a hinted chat on worker {j} "
+                  f"prefilled blocks its pull left resident: {ps}")
+            if ps["pulled_blocks"]:
+                check(w["transport"] == "cuda_ipc"
+                      and ps["device_pulled_blocks"] == ps["pulled_blocks"],
+                      f"serve_distributed: worker {j} pulled donor blocks "
+                      f"off cuda_ipc: {ps} ({w['transport']})")
         rr = wave(b, workers, 20)
     return {"phase": "serve_distributed", "model": "llama-3-1b",
-            "workers": 2, "startup_s": startup_s, "lone_texts_equal": True,
+            "workers": 2, "startup_s": startup_s, "lone_answers_equal": True,
             "home_worker": home, "sticky": sticky,
             "system_prompt_blocks": SYSTEM_BLOCKS,
             "wave_kv": kv, "wave_round_robin": rr,
+            "prefix_share_pulls": [w["prefix_share"]["remote_hits"]
+                                   for w in kv["workers"]],
+            "donor_pull": donor,
             "serve": {k: serve[k] for k in ("startup_s", "output_tok_s",
                                             "ttft_mean_s", "ttft_max_s",
                                             "itl_mean_s")}}
+
+
+# -- the KV data plane -------------------------------------------------------
+
+OFFER_BLOCKS = 8               # blocks one device offer/pull round moves
+DISAGG_THRESHOLD = 512         # the decode worker's --max-local-prefill
+DISAGG_TURN = "{i:02d}: " + (
+    "Explain how a prefill worker hands its KV cache to a decode worker. "
+    * 23)
+
+
+def disagg_chat(i: int, stream: bool, max_tokens: int = 64) -> dict:
+    """A long chat (~1,600 prompt tokens: four 512-token prefill chunks)
+    whose first block is its own, so no two of them share a block."""
+    return chat_body(i, stream, max_tokens, user=DISAGG_TURN)
+
+
+def ipc_blocks(torch, quant: bool, n: int, seed: int = 7):
+    """n wire blocks of llama-3-1b (16 layers, 64 tokens, 8 kv heads of
+    64: 2 MiB bf16, or packed int8 with its scales), from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n, 2, 16, BS, HKV * 64 + (4 * HKV if quant else 0))
+    if quant:
+        return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+    return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def kv_holder(quant: bool, n: int = OFFER_BLOCKS,
+              ttl_s: Optional[float] = None) -> int:
+    """`chip_smoke.py --kv-holder bf16|int8 [N [TTL_S]]`: a process that
+    serves N blocks (`ipc_blocks`, hashed as the prompt 0..N*64-1) on the
+    device plane (kv_offer / kv_pulled) and the host-staged one
+    (kv_blocks) until it is killed, and reports its staging on
+    `holder_stats` ({"expire": true} first retires expired offers);
+    prints its address.  `block_copy` and tests/test_torch_cuda.py pull
+    from it."""
+    import asyncio
+
+    import torch
+
+    from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
+    from dynamo_tpu_torch.llm.block_manager.transfer import (
+        KV_BLOCKS_ENDPOINT, make_kv_blocks_handler, sealed_hashes)
+    from dynamo_tpu_torch.runtime.rpc import RpcServer
+
+    data = ipc_blocks(torch, quant, n)
+    hashes = sealed_hashes(list(range(n * BS)), BS)
+
+    class Source:
+        """An engine's export: a fresh staging tensor per offer."""
+
+        async def export_blocks_device(self, want):
+            idx = [i for i, h in enumerate(hashes) if h in want]
+            return dict(zip([hashes[i] for i in idx],
+                            data[idx].clone().unbind(0)))
+
+        async def export_blocks(self, want):
+            blocks = await self.export_blocks_device(want)
+            host = torch.stack(list(blocks.values())).cpu()
+            return dict(zip(blocks, host.unbind(0)))
+
+    async def main():
+        plane = dt.KvTransferPlane(
+            Source(), device=torch.device("cuda"),
+            offer_ttl_s=dt.OFFER_TTL_S if ttl_s is None else ttl_s)
+        plane.start()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+
+        async def holder_stats(payload):
+            if payload.get("expire"):
+                plane.expire_offers()
+            torch.cuda.synchronize()
+            yield {"extra_bytes": torch.cuda.memory_allocated() - base,
+                   "outstanding": len(plane._outstanding),
+                   **{k: v for k, v in plane.stats().items()
+                      if k != "transport"}}
+
+        rpc = RpcServer()
+        rpc.register(dt.KV_OFFER_ENDPOINT, plane.make_offer_handler())
+        rpc.register(dt.KV_PULLED_ENDPOINT, plane.make_pulled_handler())
+        rpc.register(KV_BLOCKS_ENDPOINT, make_kv_blocks_handler(Source()))
+        rpc.register("holder_stats", holder_stats)
+        print(await rpc.start(), flush=True)
+        await asyncio.Event().wait()
+
+    asyncio.run(main())
+    return 0
+
+
+@contextlib.contextmanager
+def kv_holder_proc(quant: bool, n: int = OFFER_BLOCKS,
+                   ttl_s: Optional[float] = None):
+    """`kv_holder` in a process of its own, killed on exit; yields its
+    RPC address."""
+    args = [sys.executable, str(Path(__file__).resolve()), "--kv-holder",
+            "int8" if quant else "bf16", str(n)]
+    if ttl_s is not None:
+        args.append(str(ttl_s))
+    proc = subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        address = proc.stdout.readline().strip()
+        check(bool(address), "the kv holder process did not start")
+        yield address
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def block_copy_phase(torch) -> dict:
+    """The data plane's copies at llama-3-1b's geometry, for one offer
+    batch of OFFER_BLOCKS blocks:
+    - `extract_blocks` / `inject_blocks` on a bf16 and an int8 cache (one
+      index_select / index_copy_ a layer and K/V): CUDA-event time, the
+      bytes' bound (each block read once and written once), and the
+      round trip byte-exact;
+    - a pull from another process (`--kv-holder`): the device plane over
+      cuda_ipc (offer RPC, IPC map, device copy; synchronised) and the
+      host-staged plane (kv_blocks frames, pageable copies), each round
+      byte-equal to the holder's blocks; host-clock medians of 10 rounds
+      after 2 warm-ups; after the last ack the holder keeps no staging
+      (its allocated memory is back where it started)."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
+    from dynamo_tpu_torch.llm.block_manager.transfer import (
+        fetch_blocks, sealed_hashes)
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.runtime.rpc import RpcClient
+
+    cfg = get_config("llama-3-1b")
+    copies = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for quant in ("none", "int8"):
+        cc = kvc.KvCacheConfig.for_model(cfg, num_blocks=4 * OFFER_BLOCKS,
+                                         block_size=BS, kv_quant=quant)
+        cache = kvc.init_cache(cc, "cuda")
+        for bufs in cache.values():
+            for t in bufs:
+                if t.dtype == torch.int8:
+                    t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                          device="cuda", dtype=torch.int8))
+                else:
+                    t.copy_(torch.rand(t.shape, generator=gen,
+                                       device="cuda").to(t.dtype))
+        src = torch.arange(1, 1 + OFFER_BLOCKS, device="cuda")
+        dst = src + OFFER_BLOCKS
+        data = kvc.extract_blocks(cache, src, BS)
+        kvc.inject_blocks(cache, dst, data, BS)
+        again = kvc.extract_blocks(cache, dst, BS)
+        check(torch.equal(again.view(torch.uint8), data.view(torch.uint8)),
+              f"block_copy: inject(extract) is not byte-exact ({quant})")
+        nbytes = data.numel() * data.element_size()
+        b_ms, _ = bound(2 * nbytes, 0)
+        copies[quant] = {
+            "blocks": OFFER_BLOCKS, "block_bytes": nbytes // OFFER_BLOCKS,
+            "extract_ms": time_ms(torch, lambda: kvc.extract_blocks(
+                cache, src, BS)),
+            "inject_ms": time_ms(torch, lambda: kvc.inject_blocks(
+                cache, dst, data, BS)),
+            "bound_ms": b_ms}
+        del cache, data, again
+    torch.cuda.empty_cache()
+
+    pulls = {}
+    hashes = sealed_hashes(list(range(OFFER_BLOCKS * BS)), BS)
+    for quant in (False, True):
+        want = ipc_blocks(torch, quant, OFFER_BLOCKS)
+
+        async def measure(address):
+            plane = dt.KvTransferPlane(device=torch.device("cuda"))
+            plane.start()
+            rpc = RpcClient(address)
+            dev, host = [], []
+            try:
+                for _ in range(12):
+                    t0 = time.perf_counter()
+                    blocks, refusal = await dt.pull_blocks_device(
+                        plane, rpc, hashes)
+                    torch.cuda.synchronize()
+                    dev.append((time.perf_counter() - t0) * 1e3)
+                    check(refusal is None,
+                          f"block_copy: the holder refused ({refusal})")
+                    got = torch.stack([blocks[h] for h in hashes])
+                    check(torch.equal(got.view(torch.uint8),
+                                      want.view(torch.uint8)),
+                          "block_copy: cuda_ipc pull is not byte-exact")
+                    t0 = time.perf_counter()
+                    blocks = await fetch_blocks(rpc, hashes)
+                    host.append((time.perf_counter() - t0) * 1e3)
+                    got = torch.stack([blocks[h] for h in hashes])
+                    check(torch.equal(got.view(torch.uint8),
+                                      want.cpu().view(torch.uint8)),
+                          "block_copy: host-staged pull is not byte-exact")
+                for _ in range(200):          # the last release and ack
+                    held = [m async for m in rpc.call("holder_stats", {})][-1]
+                    if held["outstanding"] == 0 and not plane._mapped:
+                        break
+                    await asyncio.sleep(0.01)
+                return dev[2:], host[2:], plane.transport_kind, held
+            finally:
+                await rpc.close()
+
+        with kv_holder_proc(quant) as address:
+            dev, host, kind, held = asyncio.run(
+                asyncio.wait_for(measure(address), 120))
+        check(kind == "cuda_ipc", f"block_copy: the device plane ran {kind}")
+        check(held["outstanding"] == 0 and held["extra_bytes"] == 0,
+              f"block_copy: the holder kept staging after the acks: {held}")
+        pulls["int8" if quant else "none"] = {
+            "blocks": OFFER_BLOCKS, "transport": kind,
+            "device_round_ms": statistics.median(dev),
+            "device_ms_per_block": statistics.median(dev) / OFFER_BLOCKS,
+            "host_round_ms": statistics.median(host),
+            "host_ms_per_block": statistics.median(host) / OFFER_BLOCKS,
+            "holder_offers": held["offers"],
+            "holder_staged_bytes_high_water": held["staged_bytes_high_water"]}
+    return {"phase": "block_copy", "copies": copies, "pulls": pulls}
+
+
+def serve_disagg_phase(serve: dict) -> dict:
+    """llama-3-1b disaggregated on one card: frontend A (kv), a `--role
+    prefill` worker and a `--role decode --max-local-prefill 512` worker
+    (bf16, 512 blocks of 64 each).  After a warm-up (one long chat, one
+    short one) and a stats reset on both workers:
+    - lone: `serve`'s two long chats (~1,600 prompt tokens, 64 output
+      tokens, greedy, `traced`) one at a time; their token ids and
+      logprobs must equal, bit for bit, the one-process server's when it
+      answered them from its prefix cache (their second time there).
+      The decode worker prefills only the last partial block against the
+      onboarded blocks, so that is the same computation, and any wrong
+      onboarded byte moves a logprob.  A cold answer prefills the tail
+      inside a 131-token chunk, whose bf16 products round otherwise, and
+      random weights leave near ties that such rounding flips: how many
+      leading tokens agree with the cold answer is reported, not held;
+    - a wave of 4 long and 4 short (`serve`'s) chats at once, half
+      streaming, every request returning its tokens.
+    After each, on the decode worker: `remote_prefills` = the long chats,
+    `local_fallbacks` 0, `tokens_onboarded` = their sealed blocks x 64,
+    every pull on the device plane over cuda_ipc (no host-staged one),
+    K1 and K2 launched; `overlap_ratio` > 0 for at least one long chat
+    (streamed before prefill-done); on the prefill worker: K2 launched
+    and K1 never (its one token comes from the prefill logits).  Returns
+    the wave's TTFT (long and short apart), ITL and output tok/s, the
+    lone chats' TTFT beside `serve`'s, the eager and done pull counts and
+    the staged-offer high-water marks."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    pre = OpenAIPreprocessor(ByteTokenizer())
+
+    def ntok(b):
+        return len(pre.preprocess_chat(ChatCompletionRequest.from_dict(b),
+                                       "x").token_ids)
+
+    def stats(url):
+        return json.loads(_http(url + "/debug/stats"))
+
+    def reset(*urls):
+        for u in urls:
+            _http(u + "/debug/stats/reset", {})
+
+    def check_run(what, dst, pst, long_bodies):
+        d, tp = dst["disagg"], dst["transfer_plane"]
+        sealed = sum(ntok(b) // BS for b in long_bodies)
+        check(d["remote_prefills"] == len(long_bodies)
+              and d["local_fallbacks"] == 0,
+              f"serve_disagg {what}: {d['remote_prefills']} remote prefills, "
+              f"{d['local_fallbacks']} local fallbacks for "
+              f"{len(long_bodies)} long chats")
+        check(d["tokens_onboarded"] == sealed * BS,
+              f"serve_disagg {what}: onboarded {d['tokens_onboarded']} "
+              f"tokens, want {sealed} sealed blocks x {BS}")
+        check(tp["transport"] == "cuda_ipc"
+              and set(dst["plane_counts"]) == {"device"}
+              and tp["pulled_blocks"] >= sealed,
+              f"serve_disagg {what}: pulls off cuda_ipc: "
+              f"{dst['plane_counts']}, {tp}")
+        for name, st, k1 in (("decode", dst, True), ("prefill", pst, False)):
+            k = st["kernels"]
+            check(k["paged_prefill_attention"] > 0
+                  and (k["paged_decode_attention"] > 0) == k1,
+                  f"serve_disagg {what}: the {name} worker's launches {k}")
+        return {"remote_prefills": d["remote_prefills"],
+                "tokens_onboarded": d["tokens_onboarded"],
+                "sealed_blocks": sealed,
+                "eager_pulls": d["eager_pulls"], "done_pulls": d["done_pulls"],
+                "eager_blocks_before_done": d["eager_blocks_before_done"],
+                "eager_blocks_after_done": d["eager_blocks_after_done"],
+                "overlap_ratios": d["overlap_ratios"],
+                "plane_counts": dst["plane_counts"],
+                "pulled_blocks": tp["pulled_blocks"],
+                "pulled_bytes": tp["pulled_bytes"],
+                "prefill_offers": pst["transfer_plane"]["offers"],
+                "staged_offers_high_water":
+                    pst["transfer_plane"]["outstanding_high_water"],
+                "staged_bytes_high_water":
+                    pst["transfer_plane"]["staged_bytes_high_water"],
+                "launches": {"decode": dst["kernels"],
+                             "prefill": pst["kernels"]}}
+
+    lone = [traced(disagg_chat(i, False)) for i in range(2)]
+    check(len(serve["lone_answers"]) == 6,
+          "serve_disagg: serve answered no long lone chats")
+    cold, warm = serve["lone_answers"][2:4], serve["lone_answers"][4:6]
+    workers = (("prefill", ("--role", "prefill")),
+               ("decode", ("--role", "decode", "--max-local-prefill",
+                           str(DISAGG_THRESHOLD))))
+    with distributed_stack(workers, frontend_b=False, tag="disagg") as (
+            a, _, (pw, dw), startup_s):
+        _chat(a, disagg_chat(-1, False, 4))
+        _chat(a, chat_body(-1, False, 4))
+        reset(a, pw, dw)
+        got = [answer(_chat(a, b)) for b in lone]
+        check(got == warm,
+              f"serve_disagg: the long chats gave {got!r}, the "
+              f"one-process server from its prefix cache {warm!r}")
+        lone_ttft = [r["ttft_s"] for r in stats(a)["requests"]]
+        lone_run = check_run("lone", stats(dw), stats(pw), lone)
+        reset(a, pw, dw)
+        bodies = ([disagg_chat(10 + i, i % 2 == 0) for i in range(4)]
+                  + [chat_body(30 + i, i % 2 == 0, 64) for i in range(4)])
+        t1 = time.monotonic()
+        results = chat_wave(a, bodies)
+        wall = time.monotonic() - t1
+        reqs = stats(a)["requests"]
+        wave_run = check_run("wave", stats(dw), stats(pw), bodies[:4])
+    check_results(results, 64)
+    check(max(lone_run["overlap_ratios"] + wave_run["overlap_ratios"]) > 0,
+          "serve_disagg: no long chat streamed a block before prefill-done")
+    long_t = [r["ttft_s"] for r in reqs if r["prompt_tokens"] > DISAGG_THRESHOLD]
+    short_t = [r["ttft_s"] for r in reqs
+               if r["prompt_tokens"] <= DISAGG_THRESHOLD]
+    itl_n = sum(r["itl_n"] for r in reqs)
+    out_tokens = sum(r["tokens"] for r in results)
+    return {"phase": "serve_disagg", "model": "llama-3-1b",
+            "threshold": DISAGG_THRESHOLD, "startup_s": startup_s,
+            "lone_answers_equal": True,
+            "lone_leading_tokens_equal_cold": [
+                leading_equal(g["token_ids"], c["token_ids"])
+                for g, c in zip(got, cold)],
+            "long_prompt_tokens": [ntok(b) for b in lone + bodies[:4]],
+            "lone": dict(lone_run, ttft_s=lone_ttft,
+                         serve_ttft_cold_s=serve["lone_ttft_s"][2:4],
+                         serve_ttft_warm_s=serve["lone_ttft_s"][4:6]),
+            "wave": dict(wave_run, requests=len(results),
+                         output_tokens=out_tokens, wall_s=wall,
+                         output_tok_s=out_tokens / wall,
+                         ttft_long_s=long_t, ttft_short_s=short_t,
+                         ttft_long_mean_s=statistics.mean(long_t),
+                         ttft_short_mean_s=statistics.mean(short_t),
+                         itl_mean_s=(sum(r["itl_sum_s"] for r in reqs)
+                                     / itl_n if itl_n else None))}
 
 
 def summary_entry(k: dict, name: str, launches: int, **extra) -> dict:
@@ -1790,8 +2287,11 @@ def main() -> int:
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"),
-                            lone_bodies=[chat_body(i, False, 64, user=LONE_TURN)
-                                         for i in range(2)])
+                            lone_bodies=[traced(b) for b in (
+                                [chat_body(i, False, 64, user=LONE_TURN)
+                                 for i in range(2)]
+                                + [disagg_chat(i, False)
+                                   for i in (0, 1, 0, 1)])])
         emit(serve)
         phase = "serve_distributed"
         dist = serve_distributed_phase(serve)
@@ -1808,6 +2308,37 @@ def main() -> int:
               f"process (serve): {serve['output_tok_s']:.1f} tok/s, TTFT "
               f"mean {serve['ttft_mean_s']:.4f} s, ITL mean "
               f"{serve['itl_mean_s']:.5f} s", flush=True)
+        print(f"serve_distributed prefix-share pulls by worker (kv wave): "
+              f"{dist['prefix_share_pulls']}; donor pull: "
+              f"{dist['donor_pull']}", flush=True)
+        torch.cuda.empty_cache()
+        phase = "block_copy"
+        block_copy = block_copy_phase(torch)
+        emit(block_copy)
+        phase = "serve_disagg"
+        disagg = serve_disagg_phase(serve)
+        emit(disagg)
+        w = disagg["wave"]
+        print(f"serve_disagg on {'; '.join(smi.splitlines())}: prefill + "
+              f"decode worker (startup {disagg['startup_s']:.1f} s); wave of "
+              f"4 long + 4 short chats: {w['output_tok_s']:.1f} tok/s, TTFT "
+              f"long mean {w['ttft_long_mean_s']:.4f} s, short mean "
+              f"{w['ttft_short_mean_s']:.4f} s, ITL mean "
+              f"{w['itl_mean_s']:.5f} s, overlap {w['overlap_ratios']}, "
+              f"eager / done pulls {w['eager_pulls']} / {w['done_pulls']}, "
+              f"staged high-water {w['staged_offers_high_water']} offers "
+              f"{w['staged_bytes_high_water']} bytes; lone long chats TTFT "
+              f"{disagg['lone']['ttft_s']} s, one process "
+              f"{disagg['lone']['serve_ttft_cold_s']} s (cold) "
+              f"{disagg['lone']['serve_ttft_warm_s']} s (prefix cache); "
+              f"lone answers bit-equal to the prefix-cache answer, leading "
+              f"tokens equal to the cold answer "
+              f"{disagg['lone_leading_tokens_equal_cold']} of 64; "
+              f"cuda_ipc pull "
+              f"{block_copy['pulls']['none']['device_ms_per_block']:.4f} ms "
+              f"a block, host-staged "
+              f"{block_copy['pulls']['none']['host_ms_per_block']:.4f} ms",
+              flush=True)
         phase = "serve_int8"
         serve_int8 = serve_int8_phase()
         emit(serve_int8)
@@ -1840,9 +2371,12 @@ def main() -> int:
         extra = {"tflops": k["tflops"]} if "tflops" in k else {}
         if run is serve:
             # The same bodies' launches on serve_distributed's two workers
-            # in its kv wave (counts zeroed just before it).
+            # in its kv wave, and on serve_disagg's prefill and decode
+            # workers in its wave (counts zeroed just before each).
             extra["launches_serve_distributed"] = sum(
                 w["launches"][key] for w in dist["wave_kv"]["workers"])
+            extra["launches_serve_disagg"] = sum(
+                k[key] for k in disagg["wave"]["launches"].values())
         if "eager_ms" in k:
             extra["eager_ms"] = k["eager_ms"]
         name = (key + ("" if d == 64 else f"_d{d}")
@@ -1879,4 +2413,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kv-holder"]:
+        sys.exit(kv_holder(sys.argv[2] == "int8", *[
+            cast(a) for cast, a in zip((int, float), sys.argv[3:5])]))
     sys.exit(main())

@@ -25,6 +25,17 @@ reuses the pages of a prompt's longest cached run of sealed blocks, and
 `_publish_completed_blocks` registers each block a request seals, always
 before the token that follows it is appended.
 
+Block transfer, as in JAX: `export_blocks` / `export_blocks_device` hand
+out resident blocks' wire bytes (engine/kv_cache.py), `import_blocks`
+injects a peer's blocks as registered prefix-cache entries after
+`_validate_block` refuses a block of the other KV mode, and
+`resident_prefix_blocks` measures the locally held prefix.  The cache is
+updated in place, so these run on the engine thread between steps
+(`InferenceEngine.run_in_engine`).  `seal_sink(request_id, sealed)`
+fires whenever a request's sealed-block count grows (after every prefill
+chunk), which `InferenceEngine.watch_seals` turns into the seal-progress
+stream a disagg prefill worker publishes.
+
 KV events, as in JAX: with a `kv_event_sink` the engine emits a STORED
 event for each batch of blocks a request seals (with the hash of the
 block before them as its parent) and a REMOVED event for each block that
@@ -131,6 +142,9 @@ class TokenDelta:
     finish_reason: Optional[FinishReason] = None
     # log p(token) per entry of token_ids (sampling.logprobs only).
     logprobs: Optional[List[float]] = None
+    # Prompt tokens the prefix cache served at admission; on the first
+    # token delta after each admission only.
+    cached_tokens: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -271,11 +285,16 @@ class EngineCore:
         self._pending_batches: List[tuple] = []
         self._kv_event_sink = kv_event_sink
         self._event_id = 0
+        # Seal-progress callback (request id, sealed blocks), called on
+        # the engine thread; InferenceEngine installs it.
+        self.seal_sink: Optional[Callable[[str, int], None]] = None
         if config.enable_prefix_cache:
             self.allocator = ManagedBlockSource(
                 TieredConfig(device_blocks=config.num_blocks,
                              block_size=self.block_size),
-                on_removed=self._on_block_evicted)
+                on_removed=self._on_block_evicted,
+                extract_fn=self._extract_pages,
+                inject_fn=self._inject_pages)
         else:
             self.allocator = BlockAllocator(config.num_blocks)
         self.scheduler = Scheduler(sched_cfg, self.allocator)
@@ -958,16 +977,20 @@ class EngineCore:
         req.output_tokens.append(token)
         lp = ([logprob] if (logprob is not None and req.sampling.logprobs)
               else None)
+        cached = (req.cached_prompt_tokens if len(req.output_tokens) == 1
+                  else None)
         stop = token in req.sampling.stop_token_ids
         length = (req.prior_output + len(req.output_tokens)
                   >= req.sampling.max_tokens)
         if stop or length:
             self._finish(req, FinishReason.STOP if stop else FinishReason.LENGTH)
             delta = TokenDelta(req.request_id, [token], finished=True,
-                               finish_reason=req.finish_reason, logprobs=lp)
+                               finish_reason=req.finish_reason, logprobs=lp,
+                               cached_tokens=cached)
             self._drop(req)
             return delta
-        return TokenDelta(req.request_id, [token], logprobs=lp)
+        return TokenDelta(req.request_id, [token], logprobs=lp,
+                          cached_tokens=cached)
 
     def _finish(self, req: Request, reason: FinishReason) -> None:
         # With the managed source, sealed blocks stay resident (inactive,
@@ -1024,6 +1047,10 @@ class EngineCore:
             self._emit(KvCacheEventData.stored(
                 [b.block_hash for b in complete[done:]], parent_hash=parent))
         self._published_blocks[req.request_id] = len(complete)
+        if self.seal_sink is not None:
+            # Fires only when blocks sealed; the sink is a dict miss
+            # unless a watcher registered this request.
+            self.seal_sink(req.request_id, len(complete))
 
     def _on_block_evicted(self, block_hash: int) -> None:
         """The managed source evicted a block from the device: the router
@@ -1044,6 +1071,77 @@ class EngineCore:
     def _emit(self, data: KvCacheEventData) -> None:
         self._event_id += 1
         self._kv_event_sink(KvCacheEvent(event_id=self._event_id, data=data))
+
+    # -- cross-worker block transfer (engine thread only) -------------------
+
+    def _extract_pages(self, pages: List[int]) -> torch.Tensor:
+        return kvc.extract_blocks(
+            self.cache, torch.tensor(pages, device=self.device),
+            self.block_size)
+
+    def _inject_pages(self, pages: List[int], data: torch.Tensor) -> None:
+        self._validate_block(data[0])   # a stacked batch: one format
+        kvc.inject_blocks(
+            self.cache, torch.tensor(pages, device=self.device),
+            data.to(self.device), self.block_size)
+
+    def _validate_block(self, data: torch.Tensor) -> None:
+        """Loud mixed-mode guard on every injected block: a bf16 peer's
+        block in an int8 cache (or the reverse) would write garbage into
+        live pages.  Float-to-float casts are tolerated; an int8 packed
+        block round-trips only into an int8 cache."""
+        want = self.cache_cfg.block_wire_shape
+        got = tuple(data.shape)
+        got_int8 = data.dtype == torch.int8
+        if got != want or got_int8 != self.cache_cfg.quantized:
+            raise ValueError(
+                f"KV block format mismatch: peer sent {data.dtype}"
+                f"{list(got)} but this cache stores "
+                f"{self.cache_cfg.block_wire_dtype}{list(want)} "
+                f"(kv_quant={self.cache_cfg.kv_quant!r}) — prefill and "
+                "decode workers must run the same --kv-quant mode; "
+                "refusing to inject")
+
+    def export_blocks_device(self, hashes) -> Dict[int, torch.Tensor]:
+        """Resident blocks' wire bytes on the device, one extract for the
+        batch (views of one staging tensor that shares nothing with the
+        cache)."""
+        if not self._managed_cache:
+            return {}
+        return self.allocator.manager.export_blocks_device(hashes)
+
+    def export_blocks(self, hashes) -> Dict[int, torch.Tensor]:
+        """Resident blocks' wire bytes on the host: one extract and one
+        device-to-host copy for the batch."""
+        if not self._managed_cache:
+            return {}
+        present, staged = self.allocator.manager.extract(hashes)
+        if not present:
+            return {}
+        return dict(zip(present, staged.cpu().unbind(0)))
+
+    def resident_prefix_blocks(self, hashes) -> int:
+        """Length of the contiguous prefix of `hashes` resident on the
+        device (host lookups only)."""
+        if not self._managed_cache:
+            return 0
+        registry = self.allocator.manager.device.registry
+        n = 0
+        for h in hashes:
+            if registry.lookup(h) is None:
+                break
+            n += 1
+        return n
+
+    def import_blocks(self, blocks: Dict[int, torch.Tensor]) -> int:
+        """Inject fetched blocks as registered prefix-cache entries; a
+        later request with the matching prompt prefix skips their
+        prefill (the decode-side onboard of disaggregated P/D)."""
+        if not self._managed_cache or not blocks:
+            return 0
+        for data in blocks.values():    # before anything is allocated
+            self._validate_block(data)
+        return self.allocator.manager.import_blocks(blocks)
 
     def prefix_cache_stats(self) -> Dict[str, object]:
         """Admission hit and miss tokens, the hit rate, and the block
@@ -1074,16 +1172,19 @@ class InferenceEngine:
     def __init__(self, core: EngineCore) -> None:
         self.core = core
         self._queues: Dict[str, asyncio.Queue] = {}
+        self._seal_watchers: Dict[str, asyncio.Queue] = {}
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._thread: Optional[threading.Thread] = None
         self._cmd_lock = threading.Lock()
         self._pending_adds: List[tuple] = []
         self._pending_cancels: List[str] = []
+        self._pending_calls: List[tuple] = []   # (fn, asyncio.Future)
         self._stop = threading.Event()
         self._wake = threading.Event()
 
     async def start(self) -> None:
         self._loop = asyncio.get_running_loop()
+        self.core.seal_sink = self._on_seal
         self._thread = threading.Thread(
             target=self._run_loop, name="engine-step-loop", daemon=True)
         self._thread.start()
@@ -1106,6 +1207,18 @@ class InferenceEngine:
             await asyncio.to_thread(self._thread.join, 10.0)
 
     def _run_loop(self) -> None:
+        try:
+            self._step_loop()
+        finally:
+            # Engine-thread calls nobody will run fail rather than hang.
+            with self._cmd_lock:
+                calls, self._pending_calls = self._pending_calls, []
+            for _, fut in calls:
+                self._loop.call_soon_threadsafe(
+                    self._resolve, fut, None,
+                    RuntimeError("the engine stopped"))
+
+    def _step_loop(self) -> None:
         while not self._stop.is_set():
             self._drain_commands()
             busy = self.core.has_work
@@ -1129,6 +1242,13 @@ class InferenceEngine:
         with self._cmd_lock:
             adds, self._pending_adds = self._pending_adds, []
             cancels, self._pending_cancels = self._pending_cancels, []
+            calls, self._pending_calls = self._pending_calls, []
+        for fn, fut in calls:
+            try:
+                result, exc = fn(), None
+            except Exception as e:   # raised to the awaiting caller
+                result, exc = None, e
+            self._loop.call_soon_threadsafe(self._resolve, fut, result, exc)
         for rid, prompt, sampling in adds:
             try:
                 self.core.add_request(rid, prompt, sampling)
@@ -1139,6 +1259,15 @@ class InferenceEngine:
                 logger.warning("rejecting request %s: %s", rid, e)
         for rid in cancels:
             self.core.cancel(rid)
+
+    @staticmethod
+    def _resolve(fut: asyncio.Future, result, exc) -> None:
+        if fut.done():
+            return   # the awaiting caller was cancelled
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
 
     def _dispatch(self, delta: TokenDelta) -> None:
         q = self._queues.get(delta.request_id)
@@ -1166,3 +1295,53 @@ class InferenceEngine:
             with self._cmd_lock:
                 self._pending_cancels.append(request_id)
             self._wake.set()
+
+    # -- seal-progress stream (disagg eager KV streaming) -------------------
+
+    def _on_seal(self, request_id: str, sealed_blocks: int) -> None:
+        """Engine-thread callback: forward a request's sealed-block count
+        to its watcher; a dict miss when nobody watches."""
+        q = self._seal_watchers.get(request_id)
+        if q is None or self._loop is None:
+            return
+        self._loop.call_soon_threadsafe(q.put_nowait, sealed_blocks)
+
+    def watch_seals(self, request_id: str) -> asyncio.Queue:
+        """Subscribe to a request's prefill progress: the queue yields its
+        count of sealed (registered) blocks so far."""
+        q: asyncio.Queue = asyncio.Queue()
+        self._seal_watchers[request_id] = q
+        return q
+
+    def unwatch_seals(self, request_id: str) -> None:
+        self._seal_watchers.pop(request_id, None)
+
+    # -- engine-thread calls ------------------------------------------------
+
+    async def run_in_engine(self, fn):
+        """Run fn() on the engine thread between steps (the cache is
+        updated in place, so no read or write may race a step); returns
+        its result.  Never await this from the engine thread."""
+        if self._stop.is_set():
+            raise RuntimeError("the engine stopped")
+        fut = asyncio.get_running_loop().create_future()
+        with self._cmd_lock:
+            self._pending_calls.append((fn, fut))
+        self._wake.set()
+        return await fut
+
+    async def export_blocks(self, hashes) -> Dict[int, torch.Tensor]:
+        return await self.run_in_engine(
+            lambda: self.core.export_blocks(hashes))
+
+    async def export_blocks_device(self, hashes) -> Dict[int, torch.Tensor]:
+        return await self.run_in_engine(
+            lambda: self.core.export_blocks_device(hashes))
+
+    async def import_blocks(self, blocks) -> int:
+        return await self.run_in_engine(
+            lambda: self.core.import_blocks(blocks))
+
+    async def resident_prefix_blocks(self, hashes) -> int:
+        return await self.run_in_engine(
+            lambda: self.core.resident_prefix_blocks(hashes))

@@ -1,6 +1,6 @@
 """Paged KV cache as preallocated tensors (port of
-`dynamo_tpu/engine/kv_cache.py`; the whole-block extract/inject ops of the
-host and disk tiers are not ported yet).
+`dynamo_tpu/engine/kv_cache.py`), with the whole-block extract and inject
+of the KV data plane.
 
 Same layout as the JAX package:
 
@@ -24,6 +24,16 @@ step reads per context token drop from `2 * F * 2` to `2 * (F + 4 * Hkv)`.
 Quantization gives the same bytes as the JAX package's: `scale =
 max(amax, 1e-8) / 127` and `q = clip(round(x / scale), -127, 127)` in
 f32, a true division and round-half-to-even.
+
+The wire block — the unit every block transfer moves — is JAX's
+`make_block_ops` block byte for byte: `[2, L, bs, F]` at the cache dtype
+(K stacked on V), or, for an int8 cache, the packed `[2, L, bs, F +
+4 * Hkv]` int8 block whose trailing bytes are the page's `[bs, Hkv]` f32
+scales bitcast (little-endian) so pages and scales move as one array.
+`extract_blocks` / `inject_blocks` move a batch of pages with one
+`index_select` / `index_copy_` per layer and per K/V (the reference does
+this job with its `block_copy.cu` kernel; in JAX it is XLA slicing, not
+a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -87,6 +97,19 @@ class KvCacheConfig:
         return 2 * self.num_layers * per
 
     @property
+    def block_wire_shape(self) -> Tuple[int, int, int, int]:
+        """Shape of one wire block: [2, L, bs, F], or the packed int8
+        [2, L, bs, F + 4 * Hkv] (module docstring)."""
+        feat = self.feature_dim
+        if self.quantized:
+            feat += 4 * self.num_kv_heads
+        return (2, self.num_layers, self.block_size, feat)
+
+    @property
+    def block_wire_dtype(self) -> torch.dtype:
+        return torch.int8 if self.quantized else self.dtype
+
+    @property
     def bytes_per_block(self) -> int:
         """K+V bytes of one block across all layers, scales included."""
         return self.block_size * self.bytes_per_context_token
@@ -142,6 +165,55 @@ def init_cache(cfg: KvCacheConfig, device: Union[str, torch.device]) -> dict:
 def cache_is_quantized(cache: dict) -> bool:
     """The cache dict's keys are the mode bit."""
     return "k_scale" in cache
+
+
+def _page_slots(pages: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Flat slot ids of whole pages: [n * bs], page-major."""
+    offs = torch.arange(block_size, device=pages.device)
+    return (pages.long()[:, None] * block_size + offs).reshape(-1)
+
+
+def extract_blocks(cache: dict, pages: torch.Tensor,
+                   block_size: int) -> torch.Tensor:
+    """The wire blocks of `pages` ([n] page ids on the cache's device) as
+    one new tensor [n, 2, L, bs, F'] that shares no storage with the
+    cache: F' = F at the cache dtype, or F + 4 * Hkv packed int8."""
+    slots = _page_slots(pages, block_size)
+    n = pages.shape[0]
+    quant = cache_is_quantized(cache)
+
+    def rows(kind: str, layer: int) -> torch.Tensor:
+        q = cache[kind][layer].index_select(0, slots)     # [n * bs, F]
+        if quant:
+            s = cache[f"{kind}_scale"][layer].index_select(0, slots)
+            q = torch.cat([q, s.view(torch.int8)], dim=1)  # [n*bs, F+4H]
+        return q.view(n, block_size, -1)
+
+    L = len(cache["k"])
+    return torch.stack([torch.stack([rows(kind, layer) for layer in range(L)],
+                                    dim=1)
+                        for kind in ("k", "v")], dim=1)
+
+
+def inject_blocks(cache: dict, pages: torch.Tensor, data: torch.Tensor,
+                  block_size: int) -> None:
+    """Write wire blocks `data` [n, 2, L, bs, F'] into `pages` ([n] page
+    ids) in place, unpacking the int8 scales.  The caller has checked the
+    format (`EngineCore._validate_block`)."""
+    slots = _page_slots(pages, block_size)
+    n = pages.shape[0]
+    quant = cache_is_quantized(cache)
+    F = cache["k"][0].shape[1]
+    for i, kind in enumerate(("k", "v")):
+        for layer, buf in enumerate(cache[kind]):
+            d = data[:, i, layer].reshape(n * block_size, -1)
+            if not quant:
+                buf.index_copy_(0, slots, d.to(buf.dtype))
+                continue
+            d = d.to(torch.int8)
+            buf.index_copy_(0, slots, d[:, :F])
+            scale = d[:, F:].contiguous().view(torch.float32)  # [n*bs, H]
+            cache[f"{kind}_scale"][layer].index_copy_(0, slots, scale)
 
 
 def slots_for_positions(block_tables: torch.Tensor,  # [B, P] int

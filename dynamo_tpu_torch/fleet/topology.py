@@ -3,15 +3,17 @@ router reads.
 
 One `SliceSpec` describes a worker's devices the way the router needs to
 weigh it: the (dp, pp, sp, ep, tp) degrees, the role, the KV mode, the
-serving features and the memory of each device in bytes, so "free
-memory" is a byte quantity, not a percentage that reads the same on a
-small card and a large one.  Workers publish it in their instance
-records; `DefaultWorkerSelector` scales each candidate's decode load by
-its slice's memory against the largest candidate's.
+serving features, the memory of each device in bytes (so "free memory"
+is a byte quantity, not a percentage that reads the same on a small card
+and a large one) and the device-transfer fabric the worker is reachable
+on (`cuda_ipc:<host boot id>:<GPU UUID>`, `local:<pid>`, or empty).
+Workers publish it in their instance records; `DefaultWorkerSelector`
+scales each candidate's decode load by its slice's memory against the
+largest candidate's, and `pick_donor` orders remote-prefix donors by
+`donor_preference_key`: reachable over the device fabric first, then
+coverage, then free memory, then the stable id.
 
-Not ported: the fabric reachability, free-memory estimate and donor
-preference of the fleet-wide prefix reuse (they go with the KV transfer
-plane), the `--slice` parser, and the planner's placement rules.
+Not ported: the `--slice` parser and the planner's placement rules.
 """
 
 from __future__ import annotations
@@ -56,6 +58,14 @@ class SliceSpec:
     def total_hbm_bytes(self) -> int:
         return self.chips * int(self.hbm_per_chip_bytes)
 
+    def reachable(self, other: "SliceSpec") -> bool:
+        """Can THIS slice pull the OTHER slice's KV over a device fabric?
+        Only over the same fabric: one card of one host for cuda_ipc, one
+        process for local.  Anything else rides the host-staged wire —
+        still correct, only not device-direct (a weaker donor, never an
+        invalid one)."""
+        return bool(self.fabric) and self.fabric == other.fabric
+
     def describe(self) -> str:
         """Compact mesh descriptor: "sp2xtp2", "tp4", or "single"."""
         parts = [f"{a}{n}" for a, n in zip(AXES, self.mesh) if int(n) > 1]
@@ -95,3 +105,44 @@ class SliceSpec:
         except (TypeError, ValueError):
             return None
 
+
+def free_hbm_bytes(spec: Optional[SliceSpec], metrics=None) -> int:
+    """Per-slice free device memory in bytes: the slice's total scaled by
+    the worker's last published cache occupancy
+    (ForwardPassMetrics.kv_stats.gpu_cache_usage_perc).  A spec without a
+    memory figure reports 0: "unknown" sorts below any slice that
+    advertised headroom."""
+    if spec is None or spec.total_hbm_bytes <= 0:
+        return 0
+    used = 0.0
+    kv = getattr(metrics, "kv_stats", None)
+    if kv is not None:
+        used = min(1.0, max(0.0, float(
+            getattr(kv, "gpu_cache_usage_perc", 0.0) or 0.0)))
+    return int(spec.total_hbm_bytes * (1.0 - used))
+
+
+def stable_id_key(worker_id) -> tuple:
+    """Total order over mixed int/str worker ids: ints numerically among
+    themselves, strings lexically, the type tag between them, so replica
+    routers agree on ties."""
+    if isinstance(worker_id, bool) or not isinstance(worker_id, int):
+        return (1, 0, str(worker_id))
+    return (0, int(worker_id), "")
+
+
+def donor_preference_key(worker_id, overlap_blocks: int, *,
+                         reachable: bool = False,
+                         free_hbm: int = 0) -> tuple:
+    """Sort key for donor candidates, higher is better: device-fabric
+    reachability, then prefix coverage, then free memory (a donor about
+    to evict is a worse bet), then the stable id ASCENDING."""
+    neg_id = tuple(-x if isinstance(x, int) else _neg_str(x)
+                   for x in stable_id_key(worker_id))
+    return (1 if reachable else 0, int(overlap_blocks), int(free_hbm),
+            neg_id)
+
+
+def _neg_str(s: str) -> tuple:
+    """Lexicographic negation: an ascending-id preference inside max()."""
+    return tuple(-ord(c) for c in s)

@@ -13,16 +13,26 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence, Tuple
 
-from dynamo_tpu_torch.llm.block_manager.manager import KvBlockManager, TieredConfig
+from dynamo_tpu_torch.llm.block_manager.manager import (
+    ExtractFn,
+    InjectFn,
+    KvBlockManager,
+    TieredConfig,
+)
 from dynamo_tpu_torch.tokens import compute_block_hashes
 
 
 class ManagedBlockSource:
     def __init__(self, config: TieredConfig,
-                 on_removed: Optional[Callable[[int], None]] = None) -> None:
+                 on_removed: Optional[Callable[[int], None]] = None,
+                 extract_fn: Optional[ExtractFn] = None,
+                 inject_fn: Optional[InjectFn] = None) -> None:
         """`on_removed(block_hash)` fires when a block leaves the device
-        tier (the engine turns it into a REMOVED KV event)."""
-        self.manager = KvBlockManager(config)
+        tier (the engine turns it into a REMOVED KV event);
+        `extract_fn` / `inject_fn` are the engine's batched block copies
+        (`KvBlockManager`)."""
+        self.manager = KvBlockManager(config, extract_fn=extract_fn,
+                                      inject_fn=inject_fn)
         if on_removed is not None:
             self.manager.device.on_evict = (
                 lambda block_hash, _slot: on_removed(block_hash))

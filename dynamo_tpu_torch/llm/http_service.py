@@ -39,6 +39,14 @@ _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
 MAX_BODY = 16 * 1024 * 1024
 
 
+def _lp_token(handle, req, token_id: int) -> str:
+    """A logprob entry's token: its text, or `token_id:<id>` when the
+    request sets `return_tokens_as_token_ids`."""
+    if req.return_tokens_as_token_ids:
+        return f"token_id:{token_id}"
+    return handle.tokenizer.decode([token_id])
+
+
 @dataclass
 class RequestTiming:
     """Server-side timings of one generation (arrival → tokens)."""
@@ -252,7 +260,7 @@ class HttpService:
         logprobs = None
         if lps:
             logprobs = oai.ChatLogprobs(content=[
-                oai.ChatLogprobEntry(token=handle.tokenizer.decode([t]),
+                oai.ChatLogprobEntry(token=_lp_token(handle, req, t),
                                      logprob=lp) for t, lp in lps])
         return oai.ChatCompletionResponse(
             id=rid, model=req.model,
@@ -274,7 +282,7 @@ class HttpService:
         text, reason, det, lps = await self._collect(handle, req, pre, rid)
         logprobs = None
         if lps:
-            logprobs = {"tokens": [handle.tokenizer.decode([t]) for t, _ in lps],
+            logprobs = {"tokens": [_lp_token(handle, req, t) for t, _ in lps],
                         "token_logprobs": [lp for _, lp in lps]}
         return oai.CompletionResponse(
             id=rid, model=req.model,
@@ -359,7 +367,7 @@ class HttpService:
                 if lps and len(lps) > sent_lps:
                     logprobs = oai.ChatLogprobs(content=[
                         oai.ChatLogprobEntry(
-                            token=handle.tokenizer.decode([t]), logprob=lp)
+                            token=_lp_token(handle, req, t), logprob=lp)
                         for t, lp in lps[sent_lps:]])
                     sent_lps = len(lps)
                 return oai.ChatCompletionChunk(

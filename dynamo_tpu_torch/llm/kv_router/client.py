@@ -1,7 +1,7 @@
 """KV-aware routed engine client: the frontend side of KV routing (port
 of `dynamo_tpu/llm/kv_router/client.py` without its ledger and tracing
-spans, the remote-prefix hint, the QoS priority read and the admin
-`embed` / `clear_kv_blocks` calls).
+spans, the QoS priority read and the admin `embed` / `clear_kv_blocks`
+calls).
 
 Ties the router core (indexer + selector + active sequences, this package)
 into the serving path, playing the reference's `KvPushRouter`
@@ -13,6 +13,10 @@ into the serving path, playing the reference's `KvPushRouter`
   load) and dispatches *direct* to the chosen worker;
 - tracks in-flight state (ActiveSequencesMultiWorker) — prefill complete on
   first token, per-token block growth, free on finish;
+- when the chosen worker's own overlap is poor but a live peer's is deep,
+  attaches a remote-prefix hint (the donor's RPC address and covered
+  tokens, `block_manager/prefix_share.py`) so the worker pulls the
+  donor's blocks instead of prefilling them;
 - removes workers from the index when their instances vanish.
 
 Composes under MigrationClient: a retried generate() re-routes, and the
@@ -26,6 +30,10 @@ import logging
 from typing import AsyncIterator, Optional
 
 from dynamo_tpu_torch.engine.engine import TokenDelta
+from dynamo_tpu_torch.llm.block_manager.prefix_share import (
+    HINT_ANNOTATION,
+    attach_hint,
+)
 from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.kv_router.router import KvRouter, KvRouterConfig
 from dynamo_tpu_torch.llm.kv_router.watcher import LoadMetricsWatcher
@@ -71,6 +79,8 @@ class KvRoutedEngineClient:
         # Fire-and-forget publishes: the loop holds tasks weakly, so
         # they stay referenced here until done.
         self._publishes: set = set()
+        # Requests sent with a remote-prefix hint.
+        self.remote_hint_routes = 0
 
     async def start(self) -> None:
         self._sub = await self.runtime.cp.subscribe(KV_EVENTS_SUBJECT)
@@ -225,6 +235,22 @@ class KvRoutedEngineClient:
             for i in self.client.instances()
         }
 
+    def _attach_donor_hint(self, request: PreprocessedRequest) -> None:
+        """Attach the last decision's donor as a remote-prefix hint.  A
+        stale hint is cleared first: a migration retry reuses the request
+        (and its annotations), and its old donor may have died."""
+        request.annotations.pop(HINT_ANNOTATION, None)
+        donor = self.router.last_donor
+        if donor is None:
+            return
+        addr = next((i.address for i in self.client.instances()
+                     if i.instance_id == donor.worker_id), None)
+        if addr:   # a donor that just vanished attaches no hint
+            attach_hint(request, addr,
+                        donor.overlap_blocks * self.router.config.block_size,
+                        donor.worker_id)
+            self.remote_hint_routes += 1
+
     async def generate(
         self, request: PreprocessedRequest
     ) -> AsyncIterator[TokenDelta]:
@@ -234,6 +260,7 @@ class KvRoutedEngineClient:
             expected_output_tokens=request.sampling.max_tokens,
             metrics=self._metrics.fresh(),
             slices=self._worker_slices())
+        self._attach_donor_hint(request)
         logger.debug("kv-routed %s → worker %s (overlap %d blocks)",
                      request.request_id, worker_id, overlap)
         self._publish_seq("add", request.request_id, worker=worker_id,

@@ -1,6 +1,6 @@
 """KvRouter: the routing decision engine (port of
-`dynamo_tpu/llm/kv_router/router.py`; the worker-sharded indexer and the
-remote-prefix donor hint are not ported).
+`dynamo_tpu/llm/kv_router/router.py`; the worker-sharded indexer is not
+ported).
 
 Role of the reference's `lib/llm/src/kv_router.rs` (KvRouterConfig :76,
 KvRouter :145): combine
@@ -30,7 +30,9 @@ from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent, WorkerId
 from dynamo_tpu_torch.llm.kv_router.scheduler import (
     DefaultWorkerSelector,
     KVHitRateEvent,
+    RemotePrefixHint,
     WorkerLoadSnapshot,
+    pick_donor,
 )
 from dynamo_tpu_torch.llm.kv_router.sequence import ActiveSequencesMultiWorker
 from dynamo_tpu_torch.tokens import compute_block_hashes
@@ -50,6 +52,12 @@ class KvRouterConfig:
     # ACTIVE_SEQUENCES_SUBJECT, kv_router.rs:62-63) — needed once more
     # than one frontend routes the same workers.
     replica_sync: bool = True
+    # Fleet-wide prefix reuse: when the chosen worker's overlap is poor
+    # but a peer's is deep, offer the peer as a donor (pick_donor) so the
+    # serving worker pulls the prefix instead of recomputing it.
+    remote_prefix_hints: bool = True
+    remote_prefix_min_frac: float = 0.5    # donor must cover >= this
+    remote_prefix_min_gain_blocks: int = 2  # donor - chosen overlap floor
 
 
 class KvRouter:
@@ -73,6 +81,9 @@ class KvRouter:
             temperature=self.config.temperature,
             on_hit_rate_event=on_hit_rate_event,
         )
+        # Donor of the LAST find_best_match (None when the chosen worker's
+        # own overlap was fine, or hints are off).
+        self.last_donor: Optional[RemotePrefixHint] = None
 
     def workers(self) -> List[WorkerId]:
         """Workers the router currently knows anything about (index
@@ -154,6 +165,18 @@ class KvRouter:
             # Custom selectors predating the QoS surface keep working;
             # they just route priority-blind.
             chosen = self.selector.select(candidates, request_blocks)
+
+        # Offer the deepest-overlap LIVE peer as a donor when it beats the
+        # chosen worker's own coverage (scores restricted to `workers`).
+        self.last_donor = None
+        if self.config.remote_prefix_hints:
+            live_scores = {w: overlaps.scores.get(w, 0) for w in workers}
+            self.last_donor = pick_donor(
+                live_scores, chosen.worker_id, chosen.overlap_blocks,
+                request_blocks,
+                min_donor_frac=self.config.remote_prefix_min_frac,
+                min_gain_blocks=self.config.remote_prefix_min_gain_blocks,
+                slices=slices, metrics=metrics)
 
         if update_states:
             self.active.add_request(

@@ -1,6 +1,6 @@
-"""Worker selection: overlap-aware cost with temperature sampling (port
-of `dynamo_tpu/llm/kv_router/scheduler.py`; the remote-prefix donor pick
-comes with the KV transfer plane).
+"""Worker selection: overlap-aware cost with temperature sampling, and
+the remote-prefix donor pick (port of
+`dynamo_tpu/llm/kv_router/scheduler.py`).
 
 Role of the reference's `lib/llm/src/kv_router/scheduler.rs`
 (DefaultWorkerSelector :321, cost formula :371-374, softmax_sample :248).
@@ -30,7 +30,11 @@ import random
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
-from dynamo_tpu_torch.fleet.topology import SliceSpec
+from dynamo_tpu_torch.fleet.topology import (
+    SliceSpec,
+    donor_preference_key,
+    free_hbm_bytes,
+)
 from dynamo_tpu_torch.llm.kv_router.protocols import ForwardPassMetrics, WorkerId
 
 logger = logging.getLogger(__name__)
@@ -68,6 +72,59 @@ class KVHitRateEvent:
     overlap_blocks: int
     cost: float = 0.0
     candidates: int = 0
+
+
+@dataclass(frozen=True)
+class RemotePrefixHint:
+    """A donor for fleet-wide prefix reuse: `worker_id` holds the
+    request's first `overlap_blocks` blocks (per the indexer's stored
+    events).  The routing client turns it into the `remote_prefix`
+    annotation the serving worker's PrefixFetcher consumes."""
+
+    worker_id: WorkerId
+    overlap_blocks: int
+
+
+def pick_donor(
+    scores: Dict[WorkerId, int],
+    chosen: WorkerId,
+    chosen_overlap: int,
+    request_blocks: int,
+    *,
+    min_donor_frac: float = 0.5,
+    min_gain_blocks: int = 2,
+    slices: Optional[Dict[WorkerId, Optional[SliceSpec]]] = None,
+    metrics: Optional[Dict[WorkerId, object]] = None,
+) -> Optional[RemotePrefixHint]:
+    """The remote-prefix donor decision: when the chosen worker's own
+    overlap is poor but a peer's is deep, pulling the peer's sealed
+    blocks beats recomputing them.  A peer qualifies when it covers at
+    least `min_donor_frac` of the request's blocks AND beats the chosen
+    worker's overlap by `min_gain_blocks`; among qualifiers
+    `donor_preference_key` decides (reachable over the device fabric
+    from the chosen worker, coverage, free memory, stable id).  `scores`
+    must already be restricted to live workers."""
+    if request_blocks <= 0:
+        return None
+    floor = max(1, math.ceil(min_donor_frac * request_blocks))
+    puller_spec = (slices or {}).get(chosen)
+    best: Optional[RemotePrefixHint] = None
+    best_key = None
+    for w, ov in scores.items():
+        if w == chosen:
+            continue
+        if ov < floor or ov - chosen_overlap < min_gain_blocks:
+            continue
+        spec = (slices or {}).get(w)
+        key = donor_preference_key(
+            w, ov,
+            reachable=bool(puller_spec is not None and spec is not None
+                           and puller_spec.reachable(spec)),
+            free_hbm=free_hbm_bytes(spec, (metrics or {}).get(w)))
+        if best_key is None or key > best_key:
+            best = RemotePrefixHint(worker_id=w, overlap_blocks=ov)
+            best_key = key
+    return best
 
 
 @dataclass

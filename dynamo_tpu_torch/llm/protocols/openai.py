@@ -140,6 +140,9 @@ class SamplingFields:
     seed: Optional[int] = None
     n: int = 1
     logprobs: Optional[Union[bool, int]] = None
+    # Logprob entries name their token `token_id:<id>` (as vLLM's server
+    # offers), for ids the tokenizer cannot spell on their own.
+    return_tokens_as_token_ids: bool = False
     stream: bool = False
     stream_options: Optional[Dict[str, Any]] = None
     user: Optional[str] = None
@@ -160,6 +163,8 @@ class SamplingFields:
             seed=_get(d, "seed", int),
             n=_in_range("n", _get(d, "n", int, default=1), 1, 8),
             logprobs=_get(d, "logprobs", (bool, int)),
+            return_tokens_as_token_ids=_get(
+                d, "return_tokens_as_token_ids", bool, default=False),
             stream=_get(d, "stream", bool, default=False),
             stream_options=_get(d, "stream_options", dict),
             user=_get(d, "user", str),

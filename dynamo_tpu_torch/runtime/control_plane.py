@@ -1,7 +1,6 @@
-"""Control plane: lease-based KV discovery + pub/sub.
+"""Control plane: lease-based KV discovery + pub/sub + work queues.
 
-Port of `dynamo_tpu/runtime/control_plane.py` without its work queues
-(they carry the disaggregated prefill queue, which is not ported).
+Port of `dynamo_tpu/runtime/control_plane.py`.
 
 The reference runs three external services for this (SURVEY.md §2.6):
 etcd (leases/watches — `transports/etcd.rs`), NATS pub-sub subjects
@@ -16,6 +15,12 @@ capability — not the binary — is the contract:
   `instances/{namespace}/{component}/{endpoint}:{lease}` exactly like the
   reference's path scheme (`component.rs:72-75`).
 - **Pub/sub**: fire-and-forget subjects (KV events, metrics).
+- **Work queues**: at-least-once delivery with acks (the JetStream
+  `NatsQueue` semantics the disagg prefill queue rides on):
+  `queue_pop` leases an item to the consumer under a visibility timeout;
+  `queue_ack` settles it; an un-acked item (consumer died mid-prefill)
+  is redelivered to the next popper by the reaper.  Items persist in the
+  backend until acked, so a restarted store hands them out again.
 
 Two transports share `ControlPlaneState` (the single source of truth):
 `InProcessControlPlane` binds it directly (single-process serving, tests);
@@ -35,6 +40,9 @@ from typing import Dict, List, Optional, Tuple
 logger = logging.getLogger(__name__)
 
 DEFAULT_LEASE_TTL = 10.0  # seconds; reference etcd default lease ~10s
+# Reserved backend namespace for durable work-queue items (never visible
+# through the kv surface).
+_QUEUE_NS = "__queue__/"
 
 
 @dataclass
@@ -60,15 +68,34 @@ class ControlPlaneState:
         from dynamo_tpu_torch.runtime.kv_store import MemoryBackend
 
         self._backend = backend or MemoryBackend()
+        raw = self._backend.load()
         self._kv: Dict[str, Tuple[dict, Optional[int]]] = {
-            k: (v, None) for k, v in self._backend.load().items()
+            k: (v, None) for k, v in raw.items()
+            if not k.startswith(_QUEUE_NS)
         }  # key → (val, lease)
         self._leases: Dict[int, float] = {}                   # lease → deadline
         self._lease_ttl: Dict[int, float] = {}
         self._lease_seq = itertools.count(1)
         self._watchers: List[Tuple[str, asyncio.Queue]] = []  # (prefix, q)
         self._subs: Dict[str, List[asyncio.Queue]] = {}       # subject → qs
+        self._queues: Dict[str, asyncio.Queue] = {}           # work queues
+        # (queue, msg_id) → (payload, redelivery deadline)
+        self._inflight_msgs: Dict[Tuple[str, int], Tuple[dict, float]] = {}
         self._reaper: Optional[asyncio.Task] = None
+        # Durable queue items persisted and never acked (popped-but-unacked
+        # ones included) re-enter their queue as pending.  Queue names may
+        # contain '/', so the msg id splits from the right; restore order
+        # is numeric msg id, so FIFO survives the restart.
+        restored = []
+        for k, payload in raw.items():
+            if k.startswith(_QUEUE_NS):
+                name, msg_id = k[len(_QUEUE_NS):].rsplit("/", 1)
+                restored.append((int(msg_id), name, payload))
+        restored.sort()
+        for msg_id, name, payload in restored:
+            self._queue(name).put_nowait((msg_id, payload))
+        self._queue_msg_seq = itertools.count(
+            (restored[-1][0] + 1) if restored else 1)
     # -- leases -----------------------------------------------------------
 
     def lease_grant(self, ttl: float = DEFAULT_LEASE_TTL) -> int:
@@ -102,6 +129,7 @@ class ControlPlaneState:
         while True:
             await asyncio.sleep(interval)
             self.expire_leases()
+            self.redeliver_expired()
 
     # -- kv ---------------------------------------------------------------
 
@@ -166,6 +194,47 @@ class ControlPlaneState:
         for q in subs:
             q.put_nowait(payload)
         return len(subs)
+
+    # -- work queues ------------------------------------------------------
+
+    def _queue(self, name: str) -> asyncio.Queue:
+        return self._queues.setdefault(name, asyncio.Queue())
+
+    def queue_push(self, name: str, payload: dict) -> None:
+        msg_id = next(self._queue_msg_seq)
+        self._backend.put(f"{_QUEUE_NS}{name}/{msg_id}", payload)
+        self._queue(name).put_nowait((msg_id, payload))
+
+    async def queue_pop(self, name: str,
+                        visibility_timeout: float = 30.0) -> Tuple[int, dict]:
+        """Lease the next item: (msg_id, payload).  The caller must
+        `queue_ack(name, msg_id)` before the visibility timeout or the
+        item is redelivered (at-least-once)."""
+        msg_id, payload = await self._queue(name).get()
+        self._inflight_msgs[(name, msg_id)] = (
+            payload, time.monotonic() + visibility_timeout)
+        return msg_id, payload
+
+    def queue_ack(self, name: str, msg_id: int) -> bool:
+        acked = self._inflight_msgs.pop((name, msg_id), None) is not None
+        if acked:
+            self._backend.delete(f"{_QUEUE_NS}{name}/{msg_id}")
+        return acked
+
+    def redeliver_expired(self) -> int:
+        now = time.monotonic()
+        expired = [k for k, (_, dl) in self._inflight_msgs.items()
+                   if dl < now]
+        for name, msg_id in expired:
+            payload, _ = self._inflight_msgs.pop((name, msg_id))
+            logger.warning("queue %s: redelivering un-acked msg %d",
+                           name, msg_id)
+            self._queue(name).put_nowait((msg_id, payload))
+        return len(expired)
+
+    def queue_len(self, name: str) -> int:
+        q = self._queues.get(name)
+        return q.qsize() if q else 0
 
 # ---------------------------------------------------------------------------
 # Client interface (shared by in-process and TCP implementations)
@@ -243,6 +312,20 @@ class InProcessControlPlane:
     async def subscribe(self, subject: str) -> "Subscription":
         return Subscription(self.state, subject,
                             self.state.subscribe(subject))
+
+    # Queues
+    async def queue_push(self, name: str, payload: dict) -> None:
+        self.state.queue_push(name, payload)
+
+    async def queue_pop(self, name: str,
+                        visibility_timeout: float = 30.0) -> Tuple[int, dict]:
+        return await self.state.queue_pop(name, visibility_timeout)
+
+    async def queue_ack(self, name: str, msg_id: int) -> bool:
+        return self.state.queue_ack(name, msg_id)
+
+    async def queue_len(self, name: str) -> int:
+        return self.state.queue_len(name)
 
 class Watch:
     def __init__(self, state: ControlPlaneState, q: asyncio.Queue) -> None:

@@ -156,6 +156,25 @@ class ControlPlaneServer:
                         res = {}
                     elif op == "publish":
                         res = {"n": st.publish(msg["subject"], msg["payload"])}
+                    elif op == "queue_push":
+                        st.queue_push(msg["queue"], msg["payload"])
+                        res = {}
+                    elif op == "queue_pop":
+                        # Async pop: the reply goes out when an item
+                        # arrives; the connection keeps serving meanwhile.
+                        async def do_pop(mid=mid, name=msg["queue"],
+                                         vt=msg.get("visibility_timeout",
+                                                    30.0)):
+                            msg_id, item = await st.queue_pop(name, vt)
+                            await send({"id": mid, "ok": True,
+                                        "msg_id": msg_id, "payload": item})
+                        pumps.append(asyncio.create_task(do_pop()))
+                        continue
+                    elif op == "queue_ack":
+                        res = {"acked": st.queue_ack(msg["queue"],
+                                                     msg["msg_id"])}
+                    elif op == "queue_len":
+                        res = {"n": st.queue_len(msg["queue"])}
                     else:
                         raise ValueError(f"unknown op {op!r}")
                     await send({"id": mid, "ok": True, **res})
@@ -534,3 +553,21 @@ class ControlPlaneClient:
     def _drop_sub(self, sid: int) -> None:
         self._subs.pop(sid, None)
         self._call_soon("unsubscribe", sid=sid)
+
+    # -- queues -----------------------------------------------------------
+
+    async def queue_push(self, name: str, payload: dict) -> None:
+        await self._call("queue_push", queue=name, payload=payload)
+
+    async def queue_pop(self, name: str,
+                        visibility_timeout: float = 30.0):
+        msg = await self._call("queue_pop", queue=name,
+                               visibility_timeout=visibility_timeout)
+        return msg["msg_id"], msg["payload"]
+
+    async def queue_ack(self, name: str, msg_id: int) -> bool:
+        return (await self._call("queue_ack", queue=name,
+                                 msg_id=msg_id))["acked"]
+
+    async def queue_len(self, name: str) -> int:
+        return (await self._call("queue_len", queue=name))["n"]

@@ -1,10 +1,15 @@
 """`python -m dynamo_tpu_torch.worker` — a backend worker process (port of
-`dynamo_tpu/worker/main.py`, the aggregated role).
+`dynamo_tpu/worker/main.py`: the aggregated, prefill and decode roles).
 
     python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
         --model llama-3-1b --model-name m [--health-port 0]
     python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
         --model tiny-test --device cpu
+    python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
+        --model llama-3-1b --role prefill
+    python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
+        --model llama-3-1b --model-name m --role decode \\
+        --max-local-prefill 512
 
 Connects to the control plane, serves the port's engine (`EngineCore` /
 `InferenceEngine`: packed prefill through the paged-prefill kernel, decode
@@ -15,15 +20,39 @@ routing at once (the lease is revoked, so the instance and model keys
 go), lets in-flight streams finish, and shuts down; a killed worker's keys
 expire with its lease.
 
+Every worker serves the KV data plane: `kv_blocks` (host-staged block
+pulls), `kv_offer` and `kv_pulled` (the device plane: CUDA IPC between
+processes on one card, the same-process fabric on the CPU), so every
+worker is a prefix donor.  By default a worker consumes the router's
+remote-prefix hints, pulling a donor's blocks before admission
+(`--no-prefix-share` turns that off).  Roles (`--role`):
+
+- `both` (default): aggregated serving.
+- `prefill`: serves the disagg prefill queue only, under the component
+  `<component>-prefill`, with no model registration and no KV events, so
+  no frontend or KV router routes chats to it.
+- `decode`: registers the model; prompts longer than the threshold
+  (`--max-local-prefill`, written to the control plane at start and
+  hot-reloaded from it) prefill on a prefill worker while their sealed
+  blocks stream here (`--no-eager-kv`: pull only at prefill-done).
+
+The status port's `/debug/stats` adds the data plane's counters: `disagg`
+(remote prefills, local fallbacks, tokens onboarded, eager blocks pulled
+before and after prefill-done, `overlap_ratio`), `plane_counts` by plane
+and reason, `transfer_plane` (offers, staged high-water marks, pulled
+blocks), `prefix_share` (pulls and blocks; hinted chats' admission hits
+and the pulled tokens admission prefilled again) and `onboarded_blocks`;
+`POST /debug/stats/reset` zeroes them with the rest.
+
 Runs on the card unless `--device cpu` is given, with random weights from
 seed 0 and the byte tokenizer.  On a card the kernels its path launches
 are built (or reused from `_build/`) and loaded before it registers: a
 kernel that fails to build or load stops the worker with an error.
 
-Not ported: the `prefill` / `decode` / `encode` roles and disagg, drain
-with KV migration, `--mocker`, multihost and lockstep, `--slice`, the
-stall watchdog, the profilers, SLO monitoring, the flight recorder, the
-request ledger and `/metrics`.
+Not ported: the `encode` role (it needs the multimodal path), drain with
+KV migration, `--mocker`, multihost and lockstep, `--slice`, the stall
+watchdog, the profilers, SLO monitoring, the flight recorder, the request
+ledger and `/metrics`.
 """
 
 from __future__ import annotations
@@ -42,6 +71,20 @@ from dynamo_tpu_torch.engine.engine import (
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.fleet.topology import SliceSpec
 from dynamo_tpu_torch.frontend.main import model_config, stats_hooks
+from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
+from dynamo_tpu_torch.llm.block_manager.prefix_share import (
+    PrefixFetcher,
+    PrefixShareClient,
+)
+from dynamo_tpu_torch.llm.block_manager.transfer import (
+    KV_BLOCKS_ENDPOINT,
+    make_kv_blocks_handler,
+)
+from dynamo_tpu_torch.llm.disagg import (
+    DisaggDecodeClient,
+    disagg_config_key,
+    prefill_worker_loop,
+)
 from dynamo_tpu_torch.llm.discovery import engine_wire_handler, register_llm
 from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -72,6 +115,28 @@ def parse_args(argv=None):
     p.add_argument("--component", default="backend")
     p.add_argument("--endpoint", default="generate")
     p.add_argument("--model-name", default="dynamo-tpu")
+    p.add_argument("--role", choices=("both", "prefill", "decode", "encode"),
+                   default="both",
+                   help="disaggregated P/D role: 'prefill' serves the "
+                        "prefill queue only (no model registration); "
+                        "'decode' registers the model and sends long "
+                        "prompts to the prefill queue; 'both' = "
+                        "aggregated; 'encode' is not ported (it needs the "
+                        "multimodal path)")
+    p.add_argument("--max-local-prefill", type=int, default=None,
+                   help="decode role: write the disagg threshold (tokens) "
+                        "to the control plane at start; prompts longer "
+                        "than this prefill remotely.  The key is watched, "
+                        "so it can be retuned live")
+    p.add_argument("--no-eager-kv", action="store_true",
+                   help="decode role: pull the sealed prefix only after "
+                        "the prefill-done announcement, instead of "
+                        "streaming blocks while the prefill runs")
+    p.add_argument("--no-prefix-share", action="store_true",
+                   help="ignore the router's remote-prefix hints instead "
+                        "of pulling a peer's sealed prefix blocks before "
+                        "prefill (the worker still serves them as a "
+                        "donor)")
     p.add_argument("--model", default="llama-3-1b",
                    help="model preset (random weights), e.g. llama-3-1b, "
                         "mixtral-8x7b, tiny-test")
@@ -112,6 +177,9 @@ def parse_args(argv=None):
     if not args.control_plane:
         p.error("--control-plane is required (flag, DYN_CONTROL_PLANE, "
                 "or dynamo.toml)")
+    if args.role == "encode":
+        p.error("--role encode is not ported (it needs the multimodal "
+                "path)")
     return args
 
 
@@ -149,26 +217,63 @@ def build_engine(args, kv_event_sink):
     return core, InferenceEngine(core), card_fields
 
 
-def derive_slice_spec(core: EngineCore) -> SliceSpec:
+def derive_slice_spec(core: EngineCore, role: str = "both",
+                      fabric: str = "") -> SliceSpec:
     """The SliceSpec this worker publishes in its instance record: one
-    device, the aggregated role, its KV mode and serving features, and
-    the device's memory (0 on the CPU: unknown)."""
+    device, its role, KV mode and serving features, the device's memory
+    (0 on the CPU: unknown) and its device-transfer fabric."""
     hbm = 0
     if core.device.type == "cuda":
         import torch
 
         hbm = int(torch.cuda.get_device_properties(core.device).total_memory)
-    return SliceSpec(role="both", kv_quant=core.cache_cfg.kv_quant,
+    return SliceSpec(role=role, kv_quant=core.cache_cfg.kv_quant,
                      features=("packed_prefill", f"window{DECODE_WINDOW}"),
-                     hbm_per_chip_bytes=hbm)
+                     hbm_per_chip_bytes=hbm, fabric=fabric)
+
+
+def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg):
+    """The worker's `/debug/stats` and reset hooks: the engine's (see
+    `frontend.main.stats_hooks`) plus the data plane's counters."""
+    stats, reset = stats_hooks(core)
+    manager = getattr(core.allocator, "manager", None)
+
+    def worker_stats() -> dict:
+        out = stats()
+        counts: dict = {}
+        for (plane_name, reason), n in dt.plane_counts().items():
+            counts.setdefault(plane_name, {})[reason] = n
+        out.update(
+            onboarded_blocks=(manager.onboarded_blocks if manager else 0),
+            plane_counts=counts,
+            transfer_plane=plane.stats() if plane is not None else None,
+            prefix_share=fetcher.stats() if fetcher is not None else None,
+            disagg=disagg.stats() if disagg is not None else None)
+        return out
+
+    def worker_reset() -> None:
+        reset()
+        dt.reset_plane_counts()
+        if manager is not None:
+            manager.onboarded_blocks = 0
+        for part in (plane, fetcher, disagg):
+            if part is not None:
+                part.reset_stats()
+
+    return worker_stats, worker_reset
 
 
 async def run(args) -> None:
     cp = ControlPlaneClient(*_split(args.control_plane))
     await cp.start()
     runtime = DistributedRuntime(cp, rpc_host=args.rpc_host)
+    # Prefill workers live under a component of their own, so the
+    # frontends' model clients (which watch the decode endpoint's
+    # instances) never route chats to them.
+    component = (f"{args.component}-prefill" if args.role == "prefill"
+                 else args.component)
     endpoint = (runtime.namespace(args.namespace)
-                .component(args.component).endpoint(args.endpoint))
+                .component(component).endpoint(args.endpoint))
 
     loop = asyncio.get_running_loop()
     pending_events: list = []
@@ -177,26 +282,69 @@ async def run(args) -> None:
         # The engine thread emits; hop onto the loop for the publish.
         loop.call_soon_threadsafe(pending_events.append, event)
 
-    core, engine, card_fields = build_engine(args, kv_event_sink)
+    # A prefill worker's blocks are pulled by request, never routed to:
+    # it publishes no KV events.
+    core, engine, card_fields = build_engine(
+        args, None if args.role == "prefill" else kv_event_sink)
     await engine.start()
+
+    # The KV data plane: every worker serves its blocks.
+    plane = dt.KvTransferPlane(engine)
+    plane.start()
+    runtime.rpc.register(KV_BLOCKS_ENDPOINT, make_kv_blocks_handler(engine))
+    runtime.rpc.register(dt.KV_OFFER_ENDPOINT, plane.make_offer_handler())
+    runtime.rpc.register(dt.KV_PULLED_ENDPOINT, plane.make_pulled_handler())
+    logger.info("device transfer plane on %s (%s)", plane.address,
+                plane.transport_kind)
+
+    # Fleet prefix reuse, innermost: on a decode worker the pull runs
+    # after a remote-prefill onboard, whose blocks are then resident.
+    fetcher = None
+    serve_client = LocalEngineClient(engine)
+    if not args.no_prefix_share:
+        fetcher = PrefixFetcher(engine, runtime.client_for, args.block_size,
+                                plane=plane)
+        serve_client = PrefixShareClient(serve_client, fetcher)
+    disagg = None
+    if args.role == "decode":
+        if args.max_local_prefill is not None:
+            await cp.put(disagg_config_key(args.namespace),
+                         {"max_local_prefill_length": args.max_local_prefill})
+        disagg = DisaggDecodeClient(
+            serve_client, engine, cp, args.namespace, args.block_size,
+            transfer_plane=plane, eager=not args.no_eager_kv)
+        await disagg.start()
+        serve_client = disagg
+
+    slice_spec = derive_slice_spec(core, args.role, plane.fabric)
     instance = await endpoint.serve(
-        engine_wire_handler(LocalEngineClient(engine)),
-        metadata={"slice": derive_slice_spec(core).to_dict()})
-    card = ModelDeploymentCard(name=args.model_name,
-                               kv_block_size=args.block_size, **card_fields)
-    await register_llm(endpoint, instance, card)
+        engine_wire_handler(serve_client),
+        metadata={"slice": slice_spec.to_dict()})
+    prefill_task = None
+    if args.role == "prefill":
+        prefill_task = asyncio.create_task(prefill_worker_loop(
+            cp, args.namespace, LocalEngineClient(engine), instance.address))
+    else:
+        card = ModelDeploymentCard(name=args.model_name,
+                                   kv_block_size=args.block_size,
+                                   **card_fields)
+        await register_llm(endpoint, instance, card)
     status = None
     if args.health_port >= 0:
         from dynamo_tpu_torch.runtime.status import StatusServer
 
-        stats, reset_stats = stats_hooks(core)
+        stats, reset_stats = data_plane_stats_hooks(core, plane, fetcher,
+                                                    disagg)
         status = StatusServer(stats_fn=stats, reset_fn=reset_stats)
         hport = await status.start(host=args.rpc_host,
                                    port=args.health_port)
         print(f"worker status server on :{hport}", flush=True)
-    print(f"worker instance {instance.instance_id} serving "
-          f"{args.model_name!r} ({args.model}, on {core.device}, kv_quant "
-          f"{core.cache_cfg.kv_quant}) at {instance.address}", flush=True)
+    serving = ("the prefill queue" if args.role == "prefill"
+               else repr(args.model_name))
+    print(f"worker instance {instance.instance_id} serving {serving} "
+          f"({args.model}, role {args.role}, on {core.device}, kv_quant "
+          f"{core.cache_cfg.kv_quant}, transfer {plane.transport_kind}) at "
+          f"{instance.address}", flush=True)
 
     async def pump_events():
         while True:
@@ -222,13 +370,20 @@ async def run(args) -> None:
 
     # Leave routing at once, then let in-flight streams finish (bounded).
     await endpoint.leave()
+    if prefill_task is not None:
+        prefill_task.cancel()
     deadline = loop.time() + STREAM_DRAIN_S
     while runtime.rpc.active_streams > 0 and loop.time() < deadline:
         await asyncio.sleep(0.05)
-    for t in pumps:
+    for t in pumps + ([prefill_task] if prefill_task else []):
         t.cancel()
+    await asyncio.gather(*pumps, *([prefill_task] if prefill_task else []),
+                         return_exceptions=True)
+    if disagg is not None:
+        await disagg.stop()
     if status is not None:
         await status.stop()
+    plane.stop()
     await engine.stop()
     await runtime.shutdown()
     await cp.close()

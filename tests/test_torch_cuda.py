@@ -818,3 +818,156 @@ def test_kv_router_sticks_a_shared_prefix_between_two_card_engines(dev):
     core = cores[home][0]
     assert core.metrics.kv_stats.gpu_prefix_cache_hit_rate > 0
     assert paged_prefill_attention.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# The KV data plane on the card: CUDA IPC between processes
+
+
+async def _ask(rpc, endpoint, payload):
+    return [m async for m in rpc.call(endpoint, payload)][-1]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_ipc_pull_across_processes(dev, quant):
+    """A holder process (`chip_smoke.py --kv-holder`) offers 4 llama-3-1b
+    blocks; this process pulls them over CUDA IPC byte for byte onto its
+    card, the holder's staging is freed after kv_pulled (also when the
+    ack says the offer was never mapped), an offer nobody pulls is freed
+    after its TTL, and a puller on another fabric is refused and its pull
+    rides the host-staged plane, counted with the reason."""
+    import asyncio
+    import os
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
+    from dynamo_tpu_torch.llm.block_manager.prefix_share import PrefixFetcher
+    from dynamo_tpu_torch.llm.block_manager.transfer import sealed_hashes
+    from dynamo_tpu_torch.runtime.rpc import RpcClient
+
+    n = 4
+    want = chip_smoke.ipc_blocks(torch, quant, n)
+    prompt = list(range(n * 64))
+    hashes = sealed_hashes(prompt, 64)
+
+    def same(a, b):
+        return torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+
+    async def main(address):
+        rpc = RpcClient(address)
+        plane = dt.KvTransferPlane(device=dev)
+        plane.start()
+        assert plane.transport_kind == "cuda_ipc"
+        try:
+            assert (await _ask(rpc, "holder_stats", {}))["extra_bytes"] == 0
+            meta = await _ask(rpc, dt.KV_OFFER_ENDPOINT,
+                              {"hashes": hashes[:1], "fabric": plane.fabric})
+            assert meta["transport"] == "cuda_ipc"
+            assert meta["pid"] != os.getpid()
+            staged = (await _ask(rpc, "holder_stats", {}))["extra_bytes"]
+            assert staged >= want[0].numel() * want.element_size()
+            # Acked unmapped (a puller that gave up): the holder releases
+            # the send itself and frees the staging.
+            await _ask(rpc, dt.KV_PULLED_ENDPOINT,
+                       {"uuid": meta["uuid"], "mapped": False})
+            assert (await _ask(rpc, "holder_stats", {}))["extra_bytes"] == 0
+
+            blocks, refusal = await dt.pull_blocks_device(plane, rpc, hashes)
+            assert refusal is None and list(blocks) == hashes
+            for i, h in enumerate(hashes):
+                assert blocks[h].device.type == "cuda"
+                assert same(blocks[h], want[i])
+            assert plane.pulled_blocks == n
+            for _ in range(500):         # the release and the ack
+                st = await _ask(rpc, "holder_stats", {})
+                if st["outstanding"] == 0 and not plane._mapped:
+                    break
+                await asyncio.sleep(0.01)
+            assert st["outstanding"] == 0 and not plane._mapped
+            assert st["extra_bytes"] == 0                # staging freed
+
+            # Offered and never pulled: freed after the TTL.
+            await _ask(rpc, dt.KV_OFFER_ENDPOINT,
+                       {"hashes": hashes, "fabric": plane.fabric})
+            assert (await _ask(rpc, "holder_stats", {}))["extra_bytes"] > 0
+            await asyncio.sleep(2.5)
+            st = await _ask(rpc, "holder_stats", {"expire": True})
+            assert st["expired_offers"] == 1 and st["outstanding"] == 0
+            assert st["extra_bytes"] == 0
+
+            # Another card's fabric: refused, the pull goes host-staged.
+            other = dt.KvTransferPlane(device=dev)
+            other.start()
+            other._transport.fabric = "cuda_ipc:elsewhere:GPU-0"
+
+            class Sink:
+                got = {}
+
+                async def import_blocks(self, b):
+                    self.got.update(b)
+                    return len(b)
+
+                async def resident_prefix_blocks(self, hs):
+                    n = 0
+                    while n < len(hs) and hs[n] in self.got:
+                        n += 1
+                    return n
+
+            sink = Sink()
+            dt.reset_plane_counts()
+            fetcher = PrefixFetcher(sink, lambda a: rpc, 64, plane=other)
+            assert await fetcher.pull(prompt, address) == n * 64
+            assert fetcher.device_pulled_blocks == 0
+            assert dt.plane_counts().get(("host", "transport"), 0) >= 1
+            st = await _ask(rpc, "holder_stats", {})
+            assert st["refused_offers"] >= 1
+            for i, h in enumerate(hashes):
+                assert same(sink.got[h], want[i].cpu())
+        finally:
+            await rpc.close()
+
+    with chip_smoke.kv_holder_proc(quant, n, ttl_s=2.0) as address:
+        asyncio.run(asyncio.wait_for(main(address), 120))
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_block_extract_and_inject_on_the_card(dev, kv_quant):
+    """The batched extract and inject on CUDA tensors give the CPU bytes,
+    and an engine on the card imports its peer's export and continues as
+    the peer does."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    a = _tiny_engine(dev, kv_quant=kv_quant)
+    prompt = list(range(1, 28))
+    a.add_request("a", prompt, SamplingParams(max_tokens=6))
+    want = []
+    while a._requests:
+        for d in a.step():
+            want.extend(d.token_ids)
+    hashes = compute_block_hashes(prompt[:24], 8)
+    dev_blocks = a.export_blocks_device(hashes)
+    host_blocks = a.export_blocks(hashes)
+    for h in hashes:
+        assert dev_blocks[h].device.type == "cuda"
+        assert torch.equal(dev_blocks[h].cpu().view(torch.uint8),
+                           host_blocks[h].view(torch.uint8))
+    cpu_cache = {k: [t.cpu() for t in v] for k, v in a.cache.items()}
+    pages = torch.tensor([1, 2, 3])
+    ref = kvc.extract_blocks(cpu_cache, pages, 8)
+    got = kvc.extract_blocks(a.cache, pages.to(dev), 8)
+    assert torch.equal(got.cpu().view(torch.uint8), ref.view(torch.uint8))
+    b = _tiny_engine(dev, kv_quant=kv_quant)
+    assert b.import_blocks(dev_blocks) == 3
+    b.add_request("b", prompt, SamplingParams(max_tokens=6))
+    out = []
+    while b._requests:
+        for d in b.step():
+            out.extend(d.token_ids)
+    assert out == want
+    assert b.scheduler.prefix_hit_tokens == 24

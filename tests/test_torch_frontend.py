@@ -3,7 +3,8 @@ the package's import boundary.
 
 - In process: unary and streaming chat, a text completion, model listing,
   and the client errors (over-context prompt → 400, unknown model → 404,
-  malformed body → 400, n > 1 → 400).
+  malformed body → 400, n > 1 → 400); logprob entries that name token
+  ids on request, equal to the engine's greedy ids and logprobs.
 - As a process: `python -m dynamo_tpu_torch.frontend --device cpu` serves
   a chat completion.
 - In a fresh interpreter (this suite's conftest imports jax for every
@@ -126,6 +127,55 @@ def _drive(base):
     except urllib.error.HTTPError as e:
         out["bad_json"] = (e.code, e.read().decode())
     return out
+
+
+def test_logprobs_name_token_ids_on_request():
+    """`return_tokens_as_token_ids`: unary and streamed chat logprob
+    entries read `token_id:<id>` with the engine's own greedy ids and
+    logprobs for the same prompt; without it an entry holds the token's
+    text."""
+    args = parse_args(["--model", "tiny-test", "--model-name", "m",
+                       "--device", "cpu"])
+    body = _chat("hello", max_tokens=5, logprobs=True,
+                 return_tokens_as_token_ids=True)
+
+    async def main():
+        handle, core, shutdown = await build_model_handle(args)
+        models = ModelManager()
+        models.register(handle)
+        svc = HttpService(models)
+        port = await svc.start("127.0.0.1", 0)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            pre = handle.preprocessor.preprocess_chat(
+                oai.ChatCompletionRequest.from_dict(body), "ref")
+            ids, lps = [], []
+            async for d in handle.client.generate(pre):
+                ids.extend(d.token_ids)
+                lps.extend(d.logprobs)
+            out = await asyncio.to_thread(lambda: [
+                _post(base + "/v1/chat/completions", b) for b in (
+                    body, {**body, "stream": True},
+                    {**body, "return_tokens_as_token_ids": False})])
+            return ids, lps, out
+        finally:
+            await svc.stop()
+            await shutdown()
+
+    ids, lps, (unary, stream, text) = asyncio.run(main())
+    assert len(ids) == 5
+    entries = json.loads(unary[1])["choices"][0]["logprobs"]["content"]
+    assert [e["token"] for e in entries] == [f"token_id:{t}" for t in ids]
+    assert [e["logprob"] for e in entries] == lps
+    lines = [ln for ln in stream[1].split("\n") if ln.startswith("data: ")]
+    streamed = [e for c in (oai.sse_decode_line(ln) for ln in lines[:-1])
+                for ch in c["choices"] if ch.get("logprobs")
+                for e in ch["logprobs"]["content"]]
+    assert streamed == entries
+    entries = json.loads(text[1])["choices"][0]["logprobs"]["content"]
+    assert [e["token"] for e in entries] == [
+        bytes([t]).decode("utf-8", "replace") if t < 256 else ""
+        for t in ids]
 
 
 def test_frontend_module_serves_on_cpu(tmp_path):
