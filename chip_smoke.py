@@ -32,7 +32,9 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      64, context 512 and at the served batch of 8, context 256 (the `_b8`
      phases); K1's times are CUDA-graph replays (the card's time: at
      batch 8 an eager loop measures the host's enqueue), its eager time
-     beside them;
+     beside them; K1 also at head geometries no served preset has
+     (`WIDE_DECODE`: D 80 and D 96, and 32 and 24 query heads a kv head
+     at D 128), bf16 and int8, at batch 64, context 512;
    - the grouped expert FFN (K3), bf16 and int8 weights, at mixtral-8x7b
      width (E 8, top-2, H 4096, F 14336) with serve_moe's decode bucket (8
      tokens), 64 tokens and prefill (512 tokens) row counts routed by the
@@ -57,10 +59,18 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    packed prefill (K2 + K3) and decode steps (K1 + K3) against the gather
    path with the dense MoE oracle, once with bf16 experts and once with
    int8 experts (the oracle on the dequantised weights).
+8b. model_spec — llama-3-1b at full width and depth in process: `serve`'s
+   8 prompts and 4 repetitive ones, 64 greedy tokens each, through an
+   engine with speculative decode (K 3) and one without, on the same
+   weights: the ids must match up to a split at a near tie
+   (`argmax_gap` against the gather path's logits); the spec run must
+   draft, accept no more than it drafted and launch K2.  Acceptance and
+   the tokens a row gains per forward are reported.
 9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
-   streams their `[DONE]`; K1 and K2 must have launched.  Then two lone
+   streams their `[DONE]`; K1 and K2 must have launched.  /v1/embeddings
+   answers (see `embeddings`).  Then two lone
    greedy chats, one at a time, whose text the next phase must match, and
    serve_disagg's two long chats, each twice: the second time its sealed
    blocks come from the prefix cache and only its last partial block
@@ -80,6 +90,18 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    P chat goes to the other worker with a donor hint, which must pull the
    home's blocks over cuda_ipc (no host-staged block) and take them as
    prefix hits; any kv-wave chat sent off its prompt's home must too.
+   Then /v1/embeddings through A must give `serve`'s rows bit for bit,
+   and /clear_kv_blocks through A must clear both workers' inactive
+   blocks (a count each), empty A's KV index of both and leave the next
+   sticky chat no prefix hit.
+10b. embeddings — `serve`'s /v1/embeddings rows (strings and token lists,
+   float and base64) against the plain forward's last hidden state in
+   process (EMBED_TOL).
+10c. serve_spec — one worker with `--spec-decode 3` behind frontend A:
+   `serve`'s wave and a repetitive wave (tok/s, TTFT, ITL and the
+   worker's acceptance beside `serve`'s); each must take spec steps and
+   launch K2; `serve`'s lone logprobs chats on it take the plain step and
+   give `serve`'s ids and logprobs bit for bit.
 11. block_copy — the KV data plane's copies at llama-3-1b geometry for one
    offer batch of 8 blocks: the batched extract and inject (bf16 and int8
    cache; CUDA-event times beside the bytes' bound, the round trip
@@ -209,6 +231,11 @@ WGMMA_LIBS = ("paged_prefill", "ring_flash", "moe_grouped")
 # K1's shapes: (batch, context): the table's B 64 and the served decode
 # bucket of 8 chats.
 DECODE_SHAPES = ((64, 512), (8, 256))
+# K1 at head geometries no served preset has (tag, Hq, Hkv, D), at the
+# table's B 64, context 512: Phi-2's D 80, Phi-3-mini's D 96, and 32 and
+# 24 query heads a kv head (two query tiles, the second one partial).
+WIDE_DECODE = (("d80", 32, 8, 80), ("d96", 32, 4, 96),
+               ("d128_g32", 32, 1, 128), ("d128_g24", 24, 1, 128))
 MOE_TOKENS = (8, 64, 512)      # K3: serve_moe's decode bucket, 64, prefill
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
@@ -316,13 +343,14 @@ def sdpa_inputs(torch, kvc, q, kc, vc, block_tables, seq_lens, q_pos,
     boolean mask, for torch's scaled_dot_product_attention."""
     R, P = block_tables.shape
     C = P * BS
+    hkv = kc.shape[1] // q.shape[-1]
     ctx = torch.arange(C, device=q.device).expand(R, C)
     slots = kvc.slots_for_positions(block_tables, ctx, BS)
     if scales is None:
-        k, v = kvc.gather_kv(kc, vc, slots, HKV)               # [R, C, Hkv, D]
+        k, v = kvc.gather_kv(kc, vc, slots, hkv)               # [R, C, Hkv, D]
     else:
-        k, v = kvc.gather_kv_quant(kc, vc, *scales, slots, HKV)
-    g = HQ // HKV
+        k, v = kvc.gather_kv_quant(kc, vc, *scales, slots, hkv)
+    g = q.shape[1] // hkv
     k = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     v = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     mask = (ctx[:, None, None, :] < seq_lens[:, None, None, None].long()) & (
@@ -330,30 +358,32 @@ def sdpa_inputs(torch, kvc, q, kc, vc, block_tables, seq_lens, q_pos,
     return k, v, mask
 
 
-def cache_operands(torch, kvc, kc, vc, quant: bool):
+def cache_operands(torch, kvc, kc, vc, quant: bool, hkv: int = HKV):
     """(K, V, {k_scale, v_scale}) as the kernel takes them: the bf16
     buffers, or their int8 quantization with its [S, Hkv] scales; and the
     K+V bytes one context token costs."""
     if not quant:
         return kc, vc, {}, 2 * kc.shape[1] * 2
-    kq, ks = kvc.quantize_kv_rows(kc, HKV)
-    vq, vs = kvc.quantize_kv_rows(vc, HKV)
-    return kq, vq, {"k_scale": ks, "v_scale": vs}, 2 * (kc.shape[1] + 4 * HKV)
+    kq, ks = kvc.quantize_kv_rows(kc, hkv)
+    vq, vs = kvc.quantize_kv_rows(vc, hkv)
+    return kq, vq, {"k_scale": ks, "v_scale": vs}, 2 * (kc.shape[1] + 4 * hkv)
 
 
-def decode_inputs(torch, gen, D, quant=False, B=64, ctx=512):
-    """K1's operands at batch B, context ctx: q, the cache (bf16, or int8
-    with its scales in `sc`), a table of shuffled pages and ragged
-    seq_lens; `token_bytes` is one cached token's K/V bytes."""
+def decode_inputs(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ,
+                  hkv=HKV):
+    """K1's operands at batch B, context ctx, hq query and hkv kv heads: q,
+    the cache (bf16, or int8 with its scales in `sc`), a table of shuffled
+    pages and ragged seq_lens; `token_bytes` is one cached token's K/V
+    bytes."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
 
     dev = torch.device("cuda")
     P = ctx // BS
     nblocks = 1 + B * P + 64
     S = nblocks * BS
-    kc = torch.randn(S, HKV * D, generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn(S, HKV * D, generator=gen, device=dev).to(torch.bfloat16)
-    q = torch.randn(B, HQ, D, generator=gen, device=dev).to(torch.bfloat16)
+    kc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, hq, D, generator=gen, device=dev).to(torch.bfloat16)
     # Shuffled, non-contiguous pages; a few ragged and empty rows (at
     # batch 8 like a served bucket: a padding row, chats of 1-256 tokens).
     perm = torch.randperm(nblocks - 1, generator=gen, device=dev)[: B * P] + 1
@@ -368,17 +398,17 @@ def decode_inputs(torch, gen, D, quant=False, B=64, ctx=512):
     for i, n in enumerate(lens):
         bt[i, -(-n // BS):] = 0  # unallocated entries are the null block
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant)
+    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant, hkv)
     return {"q": q, "kc": kc, "vc": vc, "bt": bt, "sl": sl, "sc": sc,
             "lens": lens, "token_bytes": token_bytes}
 
 
-def decode_phase(torch, gen, D, quant=False, B=64, ctx=512):
+def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV):
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.ops.cuda import (
         paged_decode_attention, paged_decode_attention_plain)
 
-    a = decode_inputs(torch, gen, D, quant, B, ctx)
+    a = decode_inputs(torch, gen, D, quant, B, ctx, hq, hkv)
     q, kc, vc, bt, sl, sc = (a[n] for n in ("q", "kc", "vc", "bt", "sl", "sc"))
     lens, token_bytes = a["lens"], a["token_bytes"]
     scale = D ** -0.5
@@ -412,10 +442,10 @@ def decode_phase(torch, gen, D, quant=False, B=64, ctx=512):
     pages = sum(-(-n // BS) for n in lens)
     nbytes = (q.numel() * 2 + tokens * token_bytes + pages * 4 + B * 4
               + out.numel() * 2)
-    flops = 4 * HQ * D * tokens
+    flops = 4 * hq * D * tokens
     b_ms, b_by = bound(nbytes, flops)
     return {"name": name,
-            "shape": {"B": B, "ctx": ctx, "block": BS, "Hq": HQ, "Hkv": HKV,
+            "shape": {"B": B, "ctx": ctx, "block": BS, "Hq": hq, "Hkv": hkv,
                       "D": D, "cache": "int8" if quant else "bf16",
                       "seq_lens": lens[:8]},
             **reading, "kernel_ms": k_ms, "eager_ms": eager_ms,
@@ -1256,7 +1286,7 @@ def check_results(results: list, max_tokens: int) -> None:
 
 def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
                 max_tokens: int = 64, ready_s: float = 300, system=None,
-                user=USER_TURN, tag="", lone_bodies=()):
+                user=USER_TURN, tag="", lone_bodies=(), during=None):
     """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
     subprocess: after a warm-up request and a stats reset (launch counts,
     engine counters, expert load and prefix hit/miss tokens together),
@@ -1265,7 +1295,8 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
     is number -1); every kernel of `path_kernels` must have launched in
     that window.  Then the unary `traced` `lone_bodies`, one at a time,
     whose answers (text, token ids, logprobs) and server-side TTFTs the
-    result carries (`lone_answers`, `lone_ttft_s`)."""
+    result carries (`lone_answers`, `lone_ttft_s`); then `during(base)`,
+    whose result it carries as `during`."""
     with server(model, args, tag, ready_s) as (base, startup_s):
         # Warm-up: cuBLAS handles, the allocator, and the system prompt's
         # blocks into the prefix cache.
@@ -1280,6 +1311,7 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
         lone = [answer(_chat(base, b)) for b in lone_bodies]
         timed = json.loads(_http(base + "/debug/stats"))["requests"]
         lone_ttft = [r["ttft_s"] for r in timed[len(timed) - len(lone):]]
+        extra = during(base) if during is not None else None
     check_results(results, max_tokens)
     launches = stats["kernels"]
     check(all(launches[k] > 0 for k in path_kernels),
@@ -1301,7 +1333,8 @@ def serve_phase(model: str, args=(), path_kernels=(), n_requests: int = 8,
             "launches": launches, "counters": stats["counters"],
             "kv_quant": stats["kv_quant"], "prefix_cache": stats["prefix_cache"],
             "moe_mode": stats["moe_mode"], "expert_load": stats["expert_load"],
-            "lone_answers": lone, "lone_ttft_s": lone_ttft}
+            "mixed_prefill": stats["mixed_prefill"],
+            "lone_answers": lone, "lone_ttft_s": lone_ttft, "during": extra}
 
 
 def serve_int8_phase():
@@ -1662,7 +1695,7 @@ def donor_pull(a, workers, home, body, wstats, reset) -> dict:
             "plane_counts": st[other]["plane_counts"]}
 
 
-def serve_distributed_phase(serve: dict):
+def serve_distributed_phase(serve: dict, serve_embed):
     """llama-3-1b on two workers sharing the card behind the control plane
     (`distributed_stack`).  Checks, in order:
     - parity: the lone greedy chats `serve` answered, sent one at a time
@@ -1685,7 +1718,11 @@ def serve_distributed_phase(serve: dict):
       carries a donor hint, and every such pull must ride cuda_ipc (no
       host-staged block, no fallback); each hinted chat's admission,
       counted chat by chat on its worker, finds the blocks its pull left
-      resident.
+      resident;
+    - embeddings: /v1/embeddings through A gives the rows `serve`'s
+      server gave (`serve_embed`, `embed_requests`), bit for bit;
+    - the KV clear (`kv_clear`): /clear_kv_blocks through A empties both
+      workers' pools and A's index, and the next sticky chat hits nothing.
     The waves' output tok/s, TTFT and ITL (frontend side), each worker's
     prefix hit rate, prefix-share pulls and launches, and the stack's
     startup seconds are returned beside `serve`'s; the kv / round_robin
@@ -1751,6 +1788,7 @@ def serve_distributed_phase(serve: dict):
                              "prefill_dispatches":
                                  st["counters"]["prefill_dispatches"],
                              "prefix_share": st["prefix_share"],
+                             "mixed_prefill": st["mixed_prefill"],
                              "plane_counts": st["plane_counts"],
                              "transport": st["transfer_plane"]["transport"],
                              "launches": st["kernels"]}
@@ -1804,7 +1842,13 @@ def serve_distributed_phase(serve: dict):
                       f"serve_distributed: worker {j} pulled donor blocks "
                       f"off cuda_ipc: {ps} ({w['transport']})")
         rr = wave(b, workers, 20)
+        embed = embed_requests(a)
+        check((embed == serve_embed).all(),
+              "serve_distributed: /v1/embeddings through the workers differs "
+              "from the single-process server's rows")
+        clear = kv_clear(a, workers, body("P", 99))
     return {"phase": "serve_distributed", "model": "llama-3-1b",
+            "embeddings_equal_serve": True, "kv_clear": clear,
             "workers": 2, "startup_s": startup_s, "lone_answers_equal": True,
             "home_worker": home, "sticky": sticky,
             "system_prompt_blocks": SYSTEM_BLOCKS,
@@ -1815,6 +1859,335 @@ def serve_distributed_phase(serve: dict):
             "serve": {k: serve[k] for k in ("startup_s", "output_tok_s",
                                             "ttft_mean_s", "ttft_max_s",
                                             "itl_mean_s")}}
+
+
+# -- speculative decode, embeddings and the KV clear --------------------------
+
+SPEC_K = 3                     # draft tokens of model_spec and serve_spec
+# Chats that quote themselves, where prompt-lookup drafts land (code,
+# extraction and agent loops re-echo their inputs).
+REPEAT_TURN = ("{i}: repeat this line: "
+               + "the cache keeps keys and values per block; " * 6)
+# /v1/embeddings inputs: two strings and two token lists.
+EMBED_TEXTS = ("Embed: what does a paged KV cache hold?",
+               "Embed: ring attention passes key and value blocks around "
+               "the shards. " * 3)
+EMBED_TOKENS = ([11, 12, 13, 14, 15, 16, 17, 18], list(range(300, 460)))
+# A server's embedding rows against the in-process plain forward of the
+# same weights, padded as the engine's embed step pads (one row, the
+# prefill bucket, the page bucket): max |server - plain| / max |plain|.
+# The same products in two processes; the limit allows bf16 products
+# that round elsewhere (the unpadded forward's distance, which does, is
+# printed beside it: 1.7e-2 on an H100 80GB HBM3).
+EMBED_TOL = 2e-2
+
+
+def chat_tokens(body: dict) -> list:
+    """The token ids the port's preprocessor makes of a chat body."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    return pre.preprocess_chat(ChatCompletionRequest.from_dict(body),
+                               "x").token_ids
+
+
+def embed_inputs() -> list:
+    """EMBED_TEXTS tokenized as the server does, then EMBED_TOKENS."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    return [tok.encode(t) for t in EMBED_TEXTS] + [list(t) for t in EMBED_TOKENS]
+
+
+def plain_forward(torch, cfg, state, token_lists, hidden: bool,
+                  pad: bool = False):
+    """The gather path's last-position logits ([n, V] f32) or, with
+    `hidden`, its final-norm hidden state ([n, H] f32) of each token list,
+    one row a call on a fresh cache; with `pad`, each row padded as the
+    engine's embed step pads it (the servers' SchedulerConfig buckets,
+    pad positions on the null block)."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.models import llama
+
+    dev = torch.device("cuda")
+    sched = SchedulerConfig(block_size=BS)
+    step = llama.make_forward_step(cfg, BS, return_hidden=hidden)
+    rows = []
+    for toks in token_lists:
+        L, P = len(toks), -(-len(toks) // BS)
+        T, W = ((sched.bucket_for_prefill(L), sched.bucket_for_pages(P))
+                if pad else (L, P))
+        cache = kvc.init_cache(kvc.KvCacheConfig.for_model(
+            cfg, num_blocks=P + 1, block_size=BS), dev)
+        pad_pos = sched.max_pages_per_seq * BS
+
+        def i32(x):
+            return torch.tensor(x, dtype=torch.int32, device=dev)
+
+        out, _ = step(state, cache, i32([toks + [0] * (T - L)]),
+                      i32([list(range(L)) + [pad_pos] * (T - L)]), i32([L]),
+                      i32([list(range(1, P + 1)) + [0] * (W - P)]),
+                      i32([L - 1]))
+        rows.append(out[0].float())
+    return torch.stack(rows)
+
+
+def model_spec_phase(torch, kernels):
+    """llama-3-1b at full width and depth, seed-0 weights, greedy, in
+    process: `serve`'s 8 chat prompts and 4 repetitive ones (REPEAT_TURN),
+    64 tokens each, through an engine with speculative_tokens=SPEC_K and
+    one without (windows through K1), on the same weights.  The token ids
+    must match, a split allowed only at a near tie: at the first
+    differing position both runs' tokens lie within MODEL_TOL of the top
+    of the gather path's logits (`argmax_gap`).  The spec run must draft,
+    accept no more than it drafted and launch K2; its acceptance rate and
+    the decode tokens a row gains per forward it takes part in are
+    reported.  Also returns the plain
+    forward's embedding rows of `embed_inputs()` for the servers'
+    /v1/embeddings answers: padded as the engine pads, and unpadded."""
+    from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.models import weights
+    from dynamo_tpu_torch.models.config import get_config
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama-3-1b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = weights.init_params(cfg, gen, dev)
+    prompts = {f"serve{i}": chat_tokens(chat_body(i, False, 64))
+               for i in range(8)}
+    prompts.update({f"repeat{i}": chat_tokens(
+        chat_body(i, False, 64, user=REPEAT_TURN)) for i in range(4)})
+    runs = {}
+    for k in (0, SPEC_K):
+        core = EngineCore(EngineConfig(model=cfg, num_blocks=256,
+                                       device="cuda", speculative_tokens=k),
+                          params=state)
+        core.add_request("warm", chat_tokens(chat_body(-1, False, 4)),
+                         SamplingParams(max_tokens=4))
+        while core.has_work:
+            core.step()
+        st = core.metrics.spec_decode_stats
+        st0 = (st.num_drafts, st.num_accepted_tokens) if st else (0, 0)
+        before = core.counters.as_dict()
+        kernels.reset_launch_counts()
+        out = {}
+        t0 = time.monotonic()
+        for rid, p in prompts.items():
+            core.add_request(rid, p, SamplingParams(max_tokens=64))
+        while core.has_work:
+            for d in core.step():
+                out.setdefault(d.request_id, []).extend(d.token_ids)
+        torch.cuda.synchronize()
+        runs[k] = {"tokens": out, "wall_s": time.monotonic() - t0,
+                   "counters": {n: v - before[n]
+                                for n, v in core.counters.as_dict().items()},
+                   "launches": kernels.launch_counts(),
+                   "drafted": (st.num_drafts - st0[0]) if st else 0,
+                   "accepted": (st.num_accepted_tokens - st0[1]) if st else 0,
+                   "per_pos": list(st.num_accepted_tokens_per_pos) if st else []}
+        del core
+        torch.cuda.empty_cache()
+    tol = MODEL_TOL[cfg.name]
+    splits, agree = {}, 0
+    for rid, p in prompts.items():
+        a, b = runs[0]["tokens"][rid], runs[SPEC_K]["tokens"][rid]
+        check(len(a) == len(b) == 64,
+              f"model_spec: {rid} gave {len(a)} / {len(b)} tokens")
+        n = leading_equal(a, b)
+        agree += n
+        if n < len(a):
+            lg = plain_forward(torch, cfg, state, [p + a[:n]], False)[0]
+            gaps = [((lg.max() - lg[t]) / lg.abs().max()).item()
+                    for t in (a[n], b[n])]
+            check(max(gaps) <= tol,
+                  f"model_spec: {rid} split at token {n} beyond a near tie: "
+                  f"argmax gaps {gaps} > {tol}")
+            splits[rid] = {"at": n, "argmax_gap": gaps}
+    spec, plain = runs[SPEC_K], runs[0]
+    c = spec["counters"]
+    check(c["spec_dispatches"] > 0 and c["window_dispatches"] == 0,
+          f"model_spec: the spec engine took no spec step: {c}")
+    check(0 < spec["drafted"] and spec["accepted"] <= spec["drafted"],
+          f"model_spec: drafted {spec['drafted']}, accepted "
+          f"{spec['accepted']}")
+    check(spec["launches"]["paged_prefill_attention"] > 0,
+          f"model_spec: K2 never launched: {spec['launches']}")
+    # A row gains 1 + its accepted drafts from each forward it is in.
+    decode_tokens = sum(len(t) - 1 for t in spec["tokens"].values())
+    embed_ref = [plain_forward(torch, cfg, state, embed_inputs(), True, pad)
+                 .cpu().numpy() for pad in (True, False)]
+    out = {"phase": "model_spec", "model": cfg.name, "k": SPEC_K,
+           "requests": len(prompts), "max_tokens": 64,
+           "tokens_equal_before_split": agree,
+           "tokens_compared": 64 * len(prompts), "splits": splits,
+           "tol": tol, "drafted": spec["drafted"],
+           "accepted": spec["accepted"],
+           "accepted_per_pos": spec["per_pos"],
+           "acceptance_rate": spec["accepted"] / spec["drafted"],
+           "decode_tokens": decode_tokens,
+           "tokens_per_forward": decode_tokens / (decode_tokens
+                                                  - spec["accepted"]),
+           "counters": c, "launches": spec["launches"],
+           "wall_s": spec["wall_s"], "plain_wall_s": plain["wall_s"],
+           "plain_counters": plain["counters"]}
+    return out, embed_ref
+
+
+def embed_requests(base: str):
+    """POST /v1/embeddings at `base`: EMBED_TEXTS as a string list, in
+    float and in base64 (the same floats), the first text alone (the same
+    row) and EMBED_TOKENS as token lists; [4, H] f32 rows in
+    `embed_inputs()` order, finite and 2048 wide."""
+    import base64
+
+    import numpy as np
+
+    def post(inp, fmt="float"):
+        resp = json.loads(_http(base + "/v1/embeddings", {
+            "model": "m", "input": inp, "encoding_format": fmt}))
+        rows = []
+        for d in sorted(resp["data"], key=lambda d: d["index"]):
+            e = d["embedding"]
+            rows.append(np.frombuffer(base64.b64decode(e), "<f4")
+                        if isinstance(e, str) else np.asarray(e, np.float32))
+        return np.stack(rows)
+
+    texts = post(list(EMBED_TEXTS))
+    check(np.array_equal(texts, post(list(EMBED_TEXTS), "base64")),
+          f"embeddings at {base}: base64 rows differ from float rows")
+    check(np.array_equal(post(EMBED_TEXTS[0])[0], texts[0]),
+          f"embeddings at {base}: a lone string differs from its row")
+    rows = np.concatenate([texts, post([list(t) for t in EMBED_TOKENS])])
+    check(rows.shape == (4, 2048) and np.isfinite(rows).all(),
+          f"embeddings at {base}: shape {rows.shape} or non-finite rows")
+    return rows
+
+
+def embed_error(rows, ref) -> float:
+    """max |rows - ref| / max |ref|."""
+    import numpy as np
+
+    return float(np.abs(rows - ref).max() / np.abs(ref).max())
+
+
+def kv_clear(a: str, workers: list, sticky_body) -> dict:
+    """POST /clear_kv_blocks through frontend A after the waves: every
+    worker held inactive blocks before and holds none after, the cleared
+    count is their sum, frontend A's index empties of both workers (their
+    REMOVED events), and the next sticky chat finds no prefix hit."""
+    def wstats():
+        return [json.loads(_http(w + "/debug/stats")) for w in workers]
+
+    def index_blocks():
+        idx = json.loads(_http(a + "/debug/stats"))["kv_index"]["m"]
+        return sum(idx.values()), len(idx)
+
+    inactive = [st["prefix_cache"]["pool"]["g1_inactive"] for st in wstats()]
+    held, holders = index_blocks()
+    check(all(n > 0 for n in inactive) and holders == len(workers),
+          f"kv clear: before it, inactive blocks {inactive}, frontend index "
+          f"{held} blocks over {holders} workers")
+    t0 = time.monotonic()
+    cleared = json.loads(_http(a + "/clear_kv_blocks", {}))
+    check(cleared["m"]["status"] == "ok"
+          and cleared["m"]["cleared"] == sum(inactive),
+          f"kv clear: {cleared}, inactive blocks before {inactive}")
+    while index_blocks()[0]:
+        check(time.monotonic() - t0 < 10,
+              f"kv clear: frontend A still indexes {index_blocks()}")
+        time.sleep(0.05)
+    index_s = time.monotonic() - t0
+    after = wstats()
+    check(all(st["prefix_cache"]["pool"]["g1_inactive"] == 0 for st in after),
+          "kv clear: a worker kept inactive blocks")
+    hits = [st["prefix_cache"]["hit_tokens"] for st in after]
+    _chat(a, sticky_body)
+    grew = [st["prefix_cache"]["hit_tokens"] - h
+            for st, h in zip(wstats(), hits)]
+    check(grew == [0] * len(workers),
+          f"kv clear: the next sticky chat still hit {grew} tokens")
+    return {"cleared": cleared["m"]["cleared"], "inactive_before": inactive,
+            "index_blocks_before": held, "index_empty_s": index_s,
+            "sticky_hit_tokens_after": grew}
+
+
+def serve_spec_phase(serve: dict) -> dict:
+    """llama-3-1b on one worker with `--spec-decode SPEC_K` behind frontend
+    A (`distributed_stack`): `serve`'s wave of 8 chats, then the same
+    wave on REPEAT_TURN, each with stats reset just before it: every chat
+    returns its tokens, the worker takes spec steps (drafted > 0, accepted
+    <= drafted) and launches K2.  Then `serve`'s lone `traced` chats
+    (logprobs) on the same worker must take the plain step (no spec step,
+    K1 launched) and give `serve`'s ids and logprobs bit for bit.  Each
+    wave's tok/s, TTFT, ITL (frontend side) and the worker's acceptance
+    rate are reported beside `serve`'s."""
+    def wstats(w):
+        return json.loads(_http(w + "/debug/stats"))
+
+    def reset(*urls):
+        for u in urls:
+            _http(u + "/debug/stats/reset", {})
+
+    out = {"phase": "serve_spec", "model": "llama-3-1b", "k": SPEC_K}
+    with distributed_stack(workers=(("worker", ("--spec-decode",
+                                                str(SPEC_K))),),
+                           frontend_b=False, tag="spec") as (
+            a, _, (w,), startup_s):
+        out["startup_s"] = startup_s
+        _chat(a, chat_body(-1, False, 4))          # warm-up
+        for name, user in (("serve", USER_TURN), ("repetitive", REPEAT_TURN)):
+            reset(a, w)
+            t1 = time.monotonic()
+            results = chat_wave(a, [chat_body(i, i % 2 == 0, 64, user=user)
+                                    for i in range(8)])
+            wall = time.monotonic() - t1
+            reqs = json.loads(_http(a + "/debug/stats"))["requests"]
+            st = wstats(w)
+            check_results(results, 64)
+            sd, c = st["spec_decode"], st["counters"]
+            check(c["spec_dispatches"] > 0
+                  and 0 < sd["num_drafts"]
+                  and sd["num_accepted_tokens"] <= sd["num_drafts"]
+                  and st["kernels"]["paged_prefill_attention"] > 0,
+                  f"serve_spec: {name} wave: {sd}, {c}, {st['kernels']}")
+            ttfts = [r["ttft_s"] for r in reqs]
+            itl_n = sum(r["itl_n"] for r in reqs)
+            out_tokens = sum(r["tokens"] for r in results)
+            out[f"wave_{name}"] = {
+                "requests": len(results), "output_tokens": out_tokens,
+                "wall_s": wall, "output_tok_s": out_tokens / wall,
+                "ttft_mean_s": statistics.mean(ttfts),
+                "ttft_max_s": max(ttfts),
+                "itl_mean_s": (sum(r["itl_sum_s"] for r in reqs) / itl_n
+                               if itl_n else None),
+                "acceptance_rate": sd["acceptance_rate"],
+                "drafted": sd["num_drafts"],
+                "accepted": sd["num_accepted_tokens"],
+                "accepted_per_pos": sd["num_accepted_tokens_per_pos"],
+                "spec_dispatches": c["spec_dispatches"],
+                "single_step_dispatches": c["single_step_dispatches"],
+                "launches": st["kernels"]}
+        reset(w)
+        lone = [traced(chat_body(i, False, 64, user=LONE_TURN))
+                for i in range(2)]
+        got = [answer(_chat(a, x)) for x in lone]
+        st = wstats(w)
+    want = serve["lone_answers"][:len(lone)]
+    check(got == want, f"serve_spec: logprobs chats gave {got!r}, the "
+                       f"single-process server {want!r}")
+    check(st["counters"]["spec_dispatches"] == 0
+          and st["kernels"]["paged_decode_attention"] > 0,
+          f"serve_spec: logprobs chats took a spec step or no K1: "
+          f"{st['counters']}, {st['kernels']}")
+    out["lone_answers_equal"] = True
+    out["serve"] = {k: serve[k] for k in ("output_tok_s", "ttft_mean_s",
+                                          "ttft_max_s", "itl_mean_s")}
+    return out
 
 
 # -- the KV data plane -------------------------------------------------------
@@ -2248,6 +2621,14 @@ def main() -> int:
                 phase = f"{key}_d{d}"
                 attn[key, d, None] = prefill_phase(torch, gen, d, quant)
                 emit({"phase": phase, **attn[key, d, None]})
+        wide = {}
+        for quant in (False, True):
+            key = "paged_decode_attention" + ("_int8" if quant else "")
+            for tag, hq, hkv, d in WIDE_DECODE:
+                phase = f"{key}_{tag}"
+                wide[key, tag] = decode_phase(torch, gen, d, quant,
+                                              *DECODE_SHAPES[0], hq, hkv)
+                emit({"phase": phase, **wide[key, tag]})
         ring = {}
         for quant in (False, True):
             for d in (64, 128):
@@ -2284,6 +2665,10 @@ def main() -> int:
         emit(moe_bf16)
         emit(moe_int8)
         torch.cuda.empty_cache()
+        phase = "model_spec"
+        model_spec, embed_ref = model_spec_phase(torch, kernels)
+        emit(model_spec)
+        torch.cuda.empty_cache()
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"),
@@ -2291,11 +2676,42 @@ def main() -> int:
                                 [chat_body(i, False, 64, user=LONE_TURN)
                                  for i in range(2)]
                                 + [disagg_chat(i, False)
-                                   for i in (0, 1, 0, 1)])])
+                                   for i in (0, 1, 0, 1)])],
+                            during=embed_requests)
+        serve_embed = serve.pop("during")
         emit(serve)
         phase = "serve_distributed"
-        dist = serve_distributed_phase(serve)
+        dist = serve_distributed_phase(serve, serve_embed)
         emit(dist)
+        phase = "embeddings"
+        err = embed_error(serve_embed, embed_ref[0])
+        check(err <= EMBED_TOL, f"embeddings differ from the plain forward: "
+                                f"rel err {err} > {EMBED_TOL}")
+        emit({"phase": "embeddings", "inputs": [len(t) for t in embed_inputs()],
+              "hidden": int(serve_embed.shape[1]),
+              "serve_rel_err_vs_plain": err, "tol": EMBED_TOL,
+              "serve_rel_err_vs_unpadded_plain": embed_error(serve_embed,
+                                                             embed_ref[1]),
+              "serve_distributed_equal_serve": dist["embeddings_equal_serve"]})
+        phase = "serve_spec"
+        serve_spec = serve_spec_phase(serve)
+        emit(serve_spec)
+        print(f"serve_spec (--spec-decode {SPEC_K}) on "
+              f"{'; '.join(smi.splitlines())}: "
+              + "; ".join(
+                  f"{n} wave {w['output_tok_s']:.1f} tok/s, TTFT mean "
+                  f"{w['ttft_mean_s']:.4f} s max {w['ttft_max_s']:.4f} s, ITL "
+                  f"mean {w['itl_mean_s']:.5f} s, acceptance "
+                  f"{w['acceptance_rate']:.3f}"
+                  for n, w in (("serve", serve_spec["wave_serve"]),
+                               ("repetitive",
+                                serve_spec["wave_repetitive"])))
+              + f"; serve (no spec) {serve['output_tok_s']:.1f} tok/s, TTFT "
+              f"mean {serve['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve['itl_mean_s']:.5f} s; model_spec acceptance "
+              f"{model_spec['acceptance_rate']:.3f}, "
+              f"{model_spec['tokens_per_forward']:.3f} tokens a forward",
+              flush=True)
         waves = "; ".join(
             f"{mode}: {w['output_tok_s']:.1f} tok/s, TTFT mean "
             f"{w['ttft_mean_s']:.4f} s max {w['ttft_max_s']:.4f} s, ITL mean "
@@ -2384,6 +2800,13 @@ def main() -> int:
         summary.append(summary_entry(
             k, name, run["launches"][key], launches_from=run["phase"],
             **extra))
+    # K1 at the geometries no served model has: the same bodies' launches
+    # on serve (bf16) and serve_int8 (int8), as the D 128 int8 rows.
+    for (key, tag), k in wide.items():
+        run = serve_int8 if key.endswith("_int8") else serve
+        summary.append(summary_entry(
+            k, f"{key}_{tag}", run["launches"][key],
+            launches_from=run["phase"], eager_ms=k["eager_ms"]))
     for k in moe:
         tokens = k["shape"]["tokens"]
         name = k["name"] + ("_prefill" if tokens > 64 else

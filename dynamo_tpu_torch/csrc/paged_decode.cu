@@ -25,15 +25,25 @@
 //    slot); two tiles (three of int8) are in flight per CTA while one
 //    computes, and the block-table entries of the next tile to copy are read
 //    into registers a tile ahead (the first ones in a single round trip).
-//  - One barrier a tile.  Each of the 4 warps owns 16 keys of every tile
-//    and keeps its own online-softmax state for them: QK^T and P . V run on
-//    mma.sync (m16n8k16, bf16 in, f32 accumulators; the G <= 16 query heads
-//    of the kv head are the 16 rows, zero-padded), P goes from the score
-//    accumulators to the A fragment in registers, so no warp waits for
-//    another inside a tile.  The CTA's four states merge at the end.
-//  - int8 pages land as int8 rows plus f32 scales; each warp widens only
-//    its own 16 rows, without the int-to-float unit (q8 + 128 placed in the
-//    mantissa of 2^23 by one byte permute), so a __syncwarp covers it.
+//  - One barrier a tile.  The kv head's G query heads are 16-row query
+//    tiles (kQT of them, 1, 2 or 4, the last one zero-padded); the 4 warps
+//    split (query tile, keys) so that each warp owns one query tile and
+//    16 kQT keys of every tile, and keeps its own online-softmax state for
+//    them: QK^T and P . V run on mma.sync (m16n8k16, bf16 in, f32
+//    accumulators), P goes from the score accumulators to the A fragment
+//    in registers, so no warp waits for another inside a tile, and every
+//    warp holds the same registers whatever G is.  The warps of a query
+//    tile merge their states at the end.  Past 64 query heads a kv head
+//    (kQT 4), the grid adds a CTA for each further 64, which reads the
+//    pages again.
+//  - Any head dim that is a multiple of 16 from 16 to 256 divides into the
+//    m16n8k16 tiles and the 16-byte copies; the build has 16, 32, 64, 80,
+//    96, 128 and 256 (Phi-2's 80, Phi-3-mini's 96), whose padded row
+//    strides (2 D + 16 bytes) keep ldmatrix free of bank conflicts.
+//  - int8 pages land as int8 rows plus f32 scales; each warp widens 16
+//    rows, without the int-to-float unit (q8 + 128 placed in the mantissa
+//    of 2^23 by one byte permute): with one query tile the rows it reads
+//    itself, so a __syncwarp covers it, with more a barrier.
 #include "flash_tile.cuh"
 
 namespace {
@@ -49,8 +59,9 @@ using dtt::flash::smem_addr;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 64;        // keys of a tile
-constexpr int kSlice = kKeys / kWarps;  // keys of a tile a warp owns
-constexpr int kMaxG = 16;        // query heads a kv head: the mma's 16 rows
+constexpr int kSlice = kKeys / kWarps;  // keys of a tile a warp widens
+constexpr int kRows = 16;        // query heads of a query tile: the mma's rows
+constexpr int kMaxQT = 4;        // query tiles of a CTA
 constexpr float kNeg = -1e30f;   // the mask fill, finite
 
 template <int D, bool kInt8>
@@ -62,7 +73,7 @@ struct Smem {
   static constexpr uint32_t kStage = kInt8 ? 2 * kKeys * D + 2 * kKeys * 4 : kTiles;
   static constexpr uint32_t kWide = kInt8 ? kTiles : 0;  // widened rows (int8)
   static constexpr uint32_t kRing = kStages * kStage + kWide;
-  static constexpr uint32_t kMerge = kWarps * kMaxG * (D + 2) * 4;
+  static constexpr uint32_t kMerge = kWarps * kRows * (D + 2) * 4;
   static constexpr size_t kBytes = (kRing > kMerge ? kRing : kMerge) + 128;
 };
 
@@ -76,6 +87,7 @@ struct Params {
   const int* seq_lens;     // [B]
   __nv_bfloat16* out;      // [B, Hq, D]
   int Hq, Hkv, P, bs;
+  int n_qg;                // CTAs a (row, kv head): ceil(G / (16 kQT))
   int bs_log2;             // log2(bs) when bs is a power of two, else -1
   float scale, soft_cap;
 };
@@ -183,29 +195,38 @@ struct Rows {
   }
 };
 
-template <int D, bool kInt8>
+template <int D, bool kInt8, int kQT>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const __grid_constant__ Params p) {
   using L = Smem<D, kInt8>;
   constexpr int kS = L::kStages;
   constexpr int kLd = L::kLd;
+  constexpr int kWq = kWarps / kQT;      // warps of a query tile
+  constexpr int kOwn = kKeys / kWq;      // keys of a tile a warp owns
   extern __shared__ __align__(128) uint8_t smem[];
-  const int bh = blockIdx.x, b = bh / p.Hkv, h = bh % p.Hkv;
+  const int qg = blockIdx.x % p.n_qg, bh = blockIdx.x / p.n_qg;
+  const int b = bh / p.Hkv, h = bh % p.Hkv;
   const int G = p.Hq / p.Hkv;
+  // This CTA's query heads of kv head h: [g_first, g_first + Gc).
+  const int g_first = qg * kRows * kQT, Gc = min(G - g_first, kRows * kQT);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qt = warp / kWq, key0 = kOwn * (warp % kWq);
   const int k_end = p.seq_lens[b];
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
   const uint32_t base = smem_addr(smem);
 
-  // The query's A fragments (their loads fly with the table reads below): rows g = lane / 4 (+ 8), the G heads of kv
-  // head h (zero past G), columns 16 kk + 2 (lane % 4) (+ 1, + 8, + 9),
-  // each q * scale rounded to bf16.
+  // The query's A fragments (their loads fly with the table reads below):
+  // rows g = 16 qt + lane / 4 (+ 8) of the CTA's heads (zero past Gc),
+  // columns 16 kk + 2 (lane % 4) (+ 1, + 8, + 9), each q * scale rounded
+  // to bf16.
   const int g0 = lane / 4, c0 = 2 * (lane % 4);
   uint32_t qf[D / 16][4];
   {
-    const __nv_bfloat16* qrow = p.q + ((size_t)b * p.Hq + (size_t)h * G) * D;
+    const int gq = kRows * qt;
+    const __nv_bfloat16* qrow = p.q + ((size_t)b * p.Hq + (size_t)h * G + g_first + gq) * D;
     const float scale = p.scale;
-    auto qs = [qrow, G, scale](int g, int d) {
-      return g < G ? __bfloat162float(qrow[(size_t)g * D + d]) * scale : 0.f;
+    const int Gq = Gc - gq;
+    auto qs = [qrow, Gq, scale](int g, int d) {
+      return g < Gq ? __bfloat162float(qrow[(size_t)g * D + d]) * scale : 0.f;
     };
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -238,11 +259,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const __grid_con
 #pragma unroll
     for (int v = 0; v < 4; ++v) o[j][v] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  // ldmatrix row addresses of this lane inside its warp's 16 keys: K's
-  // x4 (keys 8 (lane / 16) + lane % 8, columns 8 (lane / 8 % 2)); V's
+  // ldmatrix row addresses of this lane inside a 16-key slice: K's x4
+  // (keys 8 (lane / 16) + lane % 8, columns 8 (lane / 8 % 2)); V's
   // transposed x4 (keys 8 (lane / 8 % 2) + lane % 8, columns 8 (lane / 16)).
-  const int kr = kSlice * warp + 8 * (lane / 16) + lane % 8, kc8 = 8 * (lane / 8 % 2);
-  const int vr = kSlice * warp + 8 * (lane / 8 % 2) + lane % 8, vc8 = 8 * (lane / 16);
+  const int kr = 8 * (lane / 16) + lane % 8, kc8 = 8 * (lane / 8 % 2);
+  const int vr = 8 * (lane / 8 % 2) + lane % 8, vc8 = 8 * (lane / 16);
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<kS - 2>();
@@ -280,119 +301,143 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const __grid_con
         dst[0] = w[0];
         dst[1] = w[1];
       }
-      __syncwarp();
+      // A warp reads its own widened rows only with one query tile.
+      if constexpr (kQT == 1) {
+        __syncwarp();
+      } else {
+        __syncthreads();
+      }
       kt = base + kS * L::kStage;
     }
     const uint32_t vt = kt + kKeys * kLd;
 
-    // S = Q . K^T over the warp's 16 keys: two n8 tiles.
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t r[4];
-      ldsm_x4(r, kt + kr * kLd + (16 * kk + kc8) * 2);
-      mma16816(s[0], qf[kk], r[0], r[1]);
-      mma16816(s[1], qf[kk], r[2], r[3]);
-    }
-    // Online softmax of rows g0 (v < 2) and g0 + 8 over the warp's keys.
-    float mx[2] = {kNeg, kNeg};
+    for (int js = 0; js < kQT; ++js) {
+      const int ks = key0 + kSlice * js;  // this slice's first key in the tile
+      // S = Q . K^T over the slice's 16 keys: two n8 tiles.
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int pos = pos0 + kSlice * warp + 8 * nt + c0 + (v & 1);
-        float x = s[nt][v];
-        if (p.soft_cap > 0.f) x = p.soft_cap * tanhf(x / p.soft_cap);
-        x = pos < k_end ? x : kNeg;
-        s[nt][v] = x;
-        mx[v >> 1] = fmaxf(mx[v >> 1], x);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t r[4];
+        ldsm_x4(r, kt + (ks + kr) * kLd + (16 * kk + kc8) * 2);
+        mma16816(s[0], qf[kk], r[0], r[1]);
+        mma16816(s[1], qf[kk], r[2], r[3]);
       }
-    float alpha[2];
+      // Online softmax of rows g0 (v < 2) and g0 + 8 over the slice's keys.
+      float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = __expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+        for (int v = 0; v < 4; ++v) {
+          const int pos = pos0 + ks + 8 * nt + c0 + (v & 1);
+          float x = s[nt][v];
+          if (p.soft_cap > 0.f) x = p.soft_cap * tanhf(x / p.soft_cap);
+          x = pos < k_end ? x : kNeg;
+          s[nt][v] = x;
+          mx[v >> 1] = fmaxf(mx[v >> 1], x);
+        }
+      float alpha[2];
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int pos = pos0 + kSlice * warp + 8 * nt + c0 + (v & 1);
-        const float e = pos < k_end ? __expf(s[nt][v] - m[v >> 1]) : 0.f;
-        l[v >> 1] += e;  // the sum takes p in f32, P . V in bf16
-        s[nt][v] = e;
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = __expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
       }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) o[j][v] *= alpha[v >> 1];
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-    // O += P . V: V's rows are the k dimension, two n8 column tiles a load.
+        for (int v = 0; v < 4; ++v) {
+          const int pos = pos0 + ks + 8 * nt + c0 + (v & 1);
+          const float e = pos < k_end ? __expf(s[nt][v] - m[v >> 1]) : 0.f;
+          l[v >> 1] += e;  // the sum takes p in f32, P . V in bf16
+          s[nt][v] = e;
+        }
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t r[4];
-      ldsm_x4_t(r, vt + vr * kLd + (16 * dp + vc8) * 2);
-      mma16816(o[2 * dp], pa, r[0], r[1]);
-      mma16816(o[2 * dp + 1], pa, r[2], r[3]);
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) o[j][v] *= alpha[v >> 1];
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      // O += P . V: V's rows are the k dimension, two n8 column tiles a load.
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t r[4];
+        ldsm_x4_t(r, vt + (ks + vr) * kLd + (16 * dp + vc8) * 2);
+        mma16816(o[2 * dp], pa, r[0], r[1]);
+        mma16816(o[2 * dp + 1], pa, r[2], r[3]);
+      }
     }
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the four warps' states now
 
-  float* sm = reinterpret_cast<float*>(smem);  // [kWarps][kMaxG] running max
-  float* sl = sm + kWarps * kMaxG;             // [kWarps][kMaxG] sum
-  float* so = sl + kWarps * kMaxG;             // [kWarps][G][D] unnormalised output
+  float* sm = reinterpret_cast<float*>(smem);  // [kWarps][kRows] running max
+  float* sl = sm + kWarps * kRows;             // [kWarps][kRows] sum
+  float* so = sl + kWarps * kRows;             // [kWarps][kRows][D] unnormalised output
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int g = g0 + 8 * r;
     const float lr = quad_sum(l[r]);
-    if (g < G) {
+    if (kRows * qt + g < Gc) {
       if (lane % 4 == 0) {
-        sm[warp * kMaxG + g] = m[r];
-        sl[warp * kMaxG + g] = lr;
+        sm[warp * kRows + g] = m[r];
+        sl[warp * kRows + g] = lr;
       }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        float* dst = so + ((size_t)warp * G + g) * D + 8 * j + c0;
+        float* dst = so + ((size_t)warp * kRows + g) * D + 8 * j + c0;
         dst[0] = o[j][2 * r];
         dst[1] = o[j][2 * r + 1];
       }
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < G * D; idx += kThreads) {
+  for (int idx = tid; idx < Gc * D; idx += kThreads) {
     const int g = idx / D, d = idx % D;
+    // The warps of g's query tile: kWq of them from warp w0.
+    const int w0 = kWq * (g / kRows), gr = g % kRows;
     float mm = kNeg;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm[w * kMaxG + g]);
+    for (int w = 0; w < kWq; ++w) mm = fmaxf(mm, sm[(w0 + w) * kRows + gr]);
     float ll = 0.f, oo = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = __expf(sm[w * kMaxG + g] - mm);
-      ll += sl[w * kMaxG + g] * f;
-      oo += so[((size_t)w * G + g) * D + d] * f;
+    for (int w = 0; w < kWq; ++w) {
+      const float f = __expf(sm[(w0 + w) * kRows + gr] - mm);
+      ll += sl[(w0 + w) * kRows + gr] * f;
+      oo += so[((size_t)(w0 + w) * kRows + gr) * D + d] * f;
     }
-    p.out[((size_t)b * p.Hq + (size_t)h * G + g) * D + d] = __float2bfloat16(oo / fmaxf(ll, 1e-30f));
+    p.out[((size_t)b * p.Hq + (size_t)h * G + g_first + g) * D + d] =
+        __float2bfloat16(oo / fmaxf(ll, 1e-30f));
   }
 }
 
-template <int D, bool kInt8>
-int launch_d(const Params& p, int B, cudaStream_t stream) {
+template <int D, bool kInt8, int kQT>
+int launch_q(const Params& p, int B, cudaStream_t stream) {
   using L = Smem<D, kInt8>;
   static bool done[kMaxDevices];
-  const int e = allow_smem(reinterpret_cast<const void*>(paged_decode_kernel<D, kInt8>),
+  const int e = allow_smem(reinterpret_cast<const void*>(paged_decode_kernel<D, kInt8, kQT>),
                            L::kBytes, done);
   if (e) return e;
-  paged_decode_kernel<D, kInt8><<<B * p.Hkv, kThreads, L::kBytes, stream>>>(p);
+  paged_decode_kernel<D, kInt8, kQT><<<B * p.Hkv * p.n_qg, kThreads, L::kBytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Query tiles: one up to 16 query heads a kv head, two up to 32, else
+// four, with a CTA for each 64.
+template <int D, bool kInt8>
+int launch_d(Params p, int B, cudaStream_t stream) {
+  const int G = p.Hq / p.Hkv;
+  const int qt = G <= kRows ? 1 : G <= 2 * kRows ? 2 : kMaxQT;
+  p.n_qg = (G + kRows * qt - 1) / (kRows * qt);
+  if (qt == 1) return launch_q<D, kInt8, 1>(p, B, stream);
+  if (qt == 2) return launch_q<D, kInt8, 2>(p, B, stream);
+  return launch_q<D, kInt8, kMaxQT>(p, B, stream);
 }
 
 template <bool kInt8>
 int launch(Params p, int B, int D, cudaStream_t stream) {
-  if (p.Hq % p.Hkv || p.Hq / p.Hkv > kMaxG) return (int)cudaErrorInvalidValue;
+  if (p.Hkv <= 0 || p.Hq % p.Hkv) return (int)cudaErrorInvalidValue;
   p.bs_log2 = -1;
   for (int k = 0; k < 31; ++k)
     if (p.bs == (1 << k)) p.bs_log2 = k;
@@ -400,6 +445,8 @@ int launch(Params p, int B, int D, cudaStream_t stream) {
     case 16: return launch_d<16, kInt8>(p, B, stream);
     case 32: return launch_d<32, kInt8>(p, B, stream);
     case 64: return launch_d<64, kInt8>(p, B, stream);
+    case 80: return launch_d<80, kInt8>(p, B, stream);
+    case 96: return launch_d<96, kInt8>(p, B, stream);
     case 128: return launch_d<128, kInt8>(p, B, stream);
     case 256: return launch_d<256, kInt8>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -408,9 +455,6 @@ int launch(Params p, int B, int D, cudaStream_t stream) {
 
 }  // namespace
 
-// The most query heads a kv head the kernel takes (the mma's 16 rows).
-extern "C" int dtt_paged_decode_max_group() { return kMaxG; }
-
 // out[B, Hq, D] = decode attention.
 extern "C" int dtt_paged_decode_bf16(
     const void* q, const void* k_cache, const void* v_cache,
@@ -418,7 +462,7 @@ extern "C" int dtt_paged_decode_bf16(
     int D, int P, int block_size, float scale, float soft_cap, void* stream) {
   Params p{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, nullptr, nullptr,
            static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
-           static_cast<__nv_bfloat16*>(out), Hq, Hkv, P, block_size, -1, scale, soft_cap};
+           static_cast<__nv_bfloat16*>(out), Hq, Hkv, P, block_size, 1, -1, scale, soft_cap};
   return launch<false>(p, B, D, static_cast<cudaStream_t>(stream));
 }
 
@@ -430,6 +474,6 @@ extern "C" int dtt_paged_decode_int8(
   Params p{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
            static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
            static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
-           static_cast<__nv_bfloat16*>(out), Hq, Hkv, P, block_size, -1, scale, soft_cap};
+           static_cast<__nv_bfloat16*>(out), Hq, Hkv, P, block_size, 1, -1, scale, soft_cap};
   return launch<true>(p, B, D, static_cast<cudaStream_t>(stream));
 }

@@ -57,9 +57,18 @@ card.  A prompt that a prefix-cache hit or the mixed-window budget splits
 is not a whole prompt and goes the packed plane.  The cache and decode
 stay on the engine's device, rank 0's.
 
-Not ported yet: the prefix cache's host and disk tiers,
-speculative decode, tp/dp/ep/pp meshes (and with them MoE all-to-all
-dispatch), multimodal prefill and embeddings.
+Speculative decode, as in JAX: with `speculative_tokens` K > 0 a
+decode-only step drafts K tokens a row (`engine/drafter.py`), feeds
+[last, drafts] as one T = K+1 chunk through the gathered-context step and
+emits what `sampling.speculative_verify` accepts, with one host sync;
+windows are off then, and rows spec declines take the plain step.
+`embed_tokens` (the /v1/embeddings surface) prefills on borrowed pages
+through the step's `return_hidden` variant; `clear_prefix_cache` flushes
+the reusable cached blocks, each reported REMOVED.
+
+Not ported yet: the prefix cache's host and disk tiers, QoS preemption,
+tp/dp/ep/pp meshes (and with them MoE all-to-all dispatch) and
+multimodal prefill.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import AsyncIterator, Callable, Dict, List, Optional, Tuple
 
@@ -75,11 +85,13 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine import kv_cache as kvc
+from dynamo_tpu_torch.engine.drafter import Drafter, NgramDrafter
 from dynamo_tpu_torch.engine.sampling import (
     SamplingParams,
     chosen_logprobs,
     greedy as greedy_sample,
     sample,
+    speculative_verify,
 )
 from dynamo_tpu_torch.engine.scheduler import (
     BlockAllocator,
@@ -100,6 +112,7 @@ from dynamo_tpu_torch.llm.kv_router.protocols import (
     KvCacheEvent,
     KvCacheEventData,
     KvStats,
+    SpecDecodeStats,
     WorkerStats,
 )
 from dynamo_tpu_torch.models.config import ModelConfig
@@ -173,6 +186,16 @@ class EngineConfig:
     sp: int = 1
     sp_devices: Optional[Tuple[str, ...]] = None
     sp_prefill_threshold: int = 256
+    # Speculative decode (`--spec-decode K`): when > 0, a decode step
+    # drafts `speculative_tokens` tokens per row (prompt lookup over
+    # `speculative_ngram`-grams, or `drafter`), verifies them in one
+    # batched forward and emits the longest agreeing prefix plus one:
+    # greedy rows emit the plain argmax chain, stochastic rows keep
+    # `sample`'s law (sampling.speculative_verify).  Windows are off
+    # while it is configured.
+    speculative_tokens: int = 0
+    speculative_ngram: int = 3
+    drafter: Optional[Drafter] = None
 
 
 @dataclass
@@ -198,9 +221,57 @@ class EngineCounters:
     # (1/sp of the tokens) rides sp - 1 hops in every layer.  The same
     # for both rings, so it is charged before the path splits.
     ring_exchange_bytes_modeled: int = 0
+    # Speculative decode steps (one host sync each).
+    spec_dispatches: int = 0
+    # Mixed-prefill cost calibration: EWMAs of wall seconds per
+    # window-decode token (plain windows) and per prefill token
+    # dispatched behind a window (the excess over the decode cost), fed
+    # by note_window_interval at the window sync.  None until sampled (a
+    # zero-excess sample is real).  Wall-clock floats stay out of
+    # as_dict(), whose exact counts tests compare.
+    decode_token_cost_ewma: Optional[float] = None
+    prefill_token_cost_ewma: Optional[float] = None
+    prefill_cost_samples: int = 0
+    cost_ewma_alpha = 0.25
 
     def as_dict(self) -> Dict[str, int]:
-        return dict(self.__dict__)
+        return {k: v for k, v in self.__dict__.items()
+                if k not in _WALL_CLOCK_FIELDS}
+
+    def note_window_interval(self, wall_s: float, window_tokens: int,
+                             prefill_tokens: int) -> None:
+        """Wall time between consecutive steady window syncs.  A plain
+        window calibrates the per-decode-token cost; a window with
+        `prefill_tokens` dispatched before it charges its excess over
+        that cost to the chunk."""
+        if wall_s <= 0 or window_tokens <= 0:
+            return
+        a = self.cost_ewma_alpha
+        if prefill_tokens <= 0:
+            per = wall_s / window_tokens
+            self.decode_token_cost_ewma = (
+                per if self.decode_token_cost_ewma is None
+                else (1.0 - a) * self.decode_token_cost_ewma + a * per)
+        elif self.decode_token_cost_ewma is not None:
+            excess = wall_s - window_tokens * self.decode_token_cost_ewma
+            per = max(excess, 0.0) / prefill_tokens
+            self.prefill_token_cost_ewma = (
+                per if self.prefill_token_cost_ewma is None
+                else (1.0 - a) * self.prefill_token_cost_ewma + a * per)
+            self.prefill_cost_samples += 1
+
+    @property
+    def measured_prefill_cost_ratio(self) -> Optional[float]:
+        """Prefill-token / window-decode-token cost, None before both
+        EWMAs have a sample (MixedPrefillController clamps it)."""
+        if (self.decode_token_cost_ewma is None
+                or self.prefill_token_cost_ewma is None):
+            return None
+        return self.prefill_token_cost_ewma / self.decode_token_cost_ewma
+
+
+_WALL_CLOCK_FIELDS = ("decode_token_cost_ewma", "prefill_token_cost_ewma",
+                      "prefill_cost_samples")
 
 
 class _HostCopy:
@@ -310,10 +381,23 @@ class EngineCore:
         self.counters = EngineCounters()
         self.metrics = ForwardPassMetrics(
             worker_stats=WorkerStats(request_total_slots=sched_cfg.max_seqs),
-            kv_stats=KvStats(kv_total_blocks=config.num_blocks - 1))
+            kv_stats=KvStats(kv_total_blocks=config.num_blocks - 1),
+            spec_decode_stats=(SpecDecodeStats()
+                               if config.speculative_tokens > 0 else None))
+        self._drafter: Drafter = (config.drafter if config.drafter is not None
+                                  else NgramDrafter(config.speculative_ngram))
+        # The embeddings step (built at first use).
+        self._embed_step = None
         self._windows_since_prefill = 0
         self._mixed_duty = MIXED_PREFILL_DUTY
         self._mixed_ctl = MixedPrefillController()
+        # Measured mixed-prefill cost: prefill tokens dispatched since the
+        # last window dispatch (charged to the next window, whose sync
+        # interval absorbs them), the last steady window sync's clock
+        # (None across drains) and the cost samples already folded.
+        self._prefill_cost_tokens = 0
+        self._last_window_sync_ts: Optional[float] = None
+        self._mixed_cost_seen = 0
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
@@ -412,13 +496,27 @@ class EngineCore:
             if plan.prefill:
                 deltas.extend(self._run_prefill_batch(plan.prefill))
             if plan.decode:
-                deltas.extend(self._run_decode(plan.decode))
+                d = (self._run_decode_spec(plan.decode)
+                     if self._spec_eligible(plan) else None)
+                if d is None:
+                    d = self._run_decode(plan.decode)
+                deltas.extend(d)
 
         self._collect_dead(deltas)
         self._refresh_metrics()
         return deltas
 
     def _plan_mixed_budget(self) -> None:
+        """This step's (duty, chunk budget) from the controller, after
+        folding in a new measured cost sample, once per sample (the ratio
+        only moves at window syncs; folding it every step would weigh it
+        at nearly full weight)."""
+        samples = self.counters.prefill_cost_samples
+        if samples != self._mixed_cost_seen:
+            self._mixed_cost_seen = samples
+            measured = self.counters.measured_prefill_cost_ratio
+            if measured is not None:
+                self._mixed_ctl.observe_cost_ratio(measured)
         decoding = sum(1 for r in self.scheduler.running
                        if r.state is RequestState.DECODE)
         backlog = sum(len(r.prompt_tokens) - r.prefilled
@@ -496,7 +594,8 @@ class EngineCore:
         self._pending_batches = remaining
 
     def _window_eligible(self, plan) -> bool:
-        if plan.decode is None:
+        # Speculative decode, when configured, takes the place of windows.
+        if plan.decode is None or self.config.speculative_tokens > 0:
             return False
         # Logprob rows take the single-step path.
         if any(r.sampling.logprobs for r in plan.decode.requests):
@@ -578,6 +677,7 @@ class EngineCore:
         c = self.counters
         c.prefill_dispatches += 1
         c.model_rows += R * T
+        self._prefill_cost_tokens += sum(w.length for w in items)
         c.sp_prefill_dispatches += 1
         c.sp_prefill_count += len(items)
         sp = self.ring.sp
@@ -642,6 +742,7 @@ class EngineCore:
             off += -(-L // PACK_ALIGN) * PACK_ALIGN
         self.counters.prefill_dispatches += 1
         self.counters.model_rows += T
+        self._prefill_cost_tokens += sum(w.length for w in items)
         logits, self.cache = self._take_load(self._packed_step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seg_ids), self._dev(bts), self._dev(q_starts),
@@ -732,6 +833,129 @@ class EngineCore:
                 float(lps[i]) if lps is not None else None))
         return deltas
 
+    # -- speculative decode -------------------------------------------------
+
+    def _spec_eligible(self, plan) -> bool:
+        """Spec decode takes a decode-only plan with nobody waiting.  Rows
+        asking for logprobs take the plain step (the verify does not
+        carry them), and so do seeded stochastic rows: their stream
+        depends only on (seed, token index), which a burst accepted
+        jointly cannot keep."""
+        return (self.config.speculative_tokens > 0
+                and plan.decode is not None
+                and plan.prefill is None
+                and not self.scheduler.waiting
+                and all(not r.sampling.logprobs
+                        and not (r.sampling.temperature > 0
+                                 and r.sampling.seed is not None)
+                        for r in plan.decode.requests))
+
+    def _run_decode_spec(self, work: DecodeWork) -> Optional[List[TokenDelta]]:
+        """One speculative step: feed [last, d_0 .. d_{K-1}] as a T = K+1
+        chunk (the gathered-context path), take logits at every position
+        and emit what speculative_verify accepts: up to K+1 tokens a row
+        for one forward and one host sync.
+
+        Every fed token's KV is written (seq_len = ctx + K); a rejected
+        draft's row sits at a position the request's next fed token
+        overwrites before anything attends to it, since contexts only
+        grow and attention masks positions at or past seq_len.
+
+        None when capacity cannot cover ctx + T (the plain step then
+        preempts properly) or no row drafted (a K+1-wide forward for about
+        one token a row loses to the plain step)."""
+        K = self.config.speculative_tokens
+        T = K + 1
+        reqs = work.requests
+        bucket = work.bucket
+        vocab = self.config.model.vocab_size
+        drafts: List[List[int]] = []
+        draft_lens: List[int] = []   # tokens the drafter really proposed
+        for req in reqs:
+            if not self.scheduler.ensure_capacity(req, req.context_len + T):
+                return None
+            hist = req.prompt_tokens[: req.prefilled] + req.output_tokens
+            d: List[int] = []
+            for t in self._drafter.propose(hist, K)[:K]:
+                # A drafter is untrusted: an id outside the vocabulary
+                # would be clamped in the gathers and could be streamed;
+                # cut the draft at it (what follows is conditioned on it).
+                if not 0 <= int(t) < vocab:
+                    break
+                d.append(int(t))
+            draft_lens.append(len(d))
+            drafts.append((d + [0] * K)[:K])
+        if not any(draft_lens):
+            return None
+
+        bs = self.block_size
+        width = self.scheduler.config.bucket_for_pages(
+            max((r.context_len + T + bs - 1) // bs for r in reqs))
+        tokens = np.zeros((bucket, T), np.int32)
+        positions = np.full((bucket, T), self._pad_position, np.int32)
+        seq_lens = np.zeros((bucket,), np.int32)
+        bts = np.zeros((bucket, width), np.int32)
+        temp = np.zeros((bucket,), np.float32)
+        top_k = np.zeros((bucket,), np.int32)
+        top_p = np.ones((bucket,), np.float32)
+        draft_arr = np.zeros((bucket, K), np.int32)
+        seeds: List[Optional[int]] = [None] * bucket
+        indices = [0] * bucket
+        for i, req in enumerate(reqs):
+            ctx = req.context_len
+            last = (req.output_tokens[-1] if req.output_tokens
+                    else req.prompt_tokens[-1])
+            tokens[i] = [last] + drafts[i]
+            positions[i] = np.arange(ctx - 1, ctx - 1 + T)
+            seq_lens[i] = ctx + K
+            n = min(len(req.pages), width)
+            bts[i, :n] = req.pages[:n]
+            temp[i] = req.sampling.temperature
+            top_k[i] = req.sampling.top_k
+            top_p[i] = req.sampling.top_p
+            draft_arr[i] = drafts[i]
+            if req.sampling.temperature > 0:
+                seeds[i] = self._row_seed(req)
+                indices[i] = self._draw_index(req)
+        c = self.counters
+        c.spec_dispatches += 1
+        c.model_rows += bucket * T
+        logits, self.cache = self._take_load(self._step(
+            self.params, self.cache, self._dev(tokens), self._dev(positions),
+            self._dev(seq_lens), self._dev(bts), None))
+        emitted_dev, n_emit_dev = speculative_verify(
+            logits, self._dev(draft_arr), self._dev(temp), self._dev(top_k),
+            self._dev(top_p), seeds, indices,
+            greedy_only=all(r.sampling.temperature <= 0 for r in reqs))
+        c.host_syncs += 1
+        both = torch.cat([emitted_dev, n_emit_dev[:, None]], 1).cpu().numpy()
+        emitted, n_emit = both[:, :T], both[:, T]
+
+        deltas: List[TokenDelta] = []
+        stats = self.metrics.spec_decode_stats
+        for i, req in enumerate(reqs):
+            n = int(n_emit[i])
+            appended = 0
+            for tok in emitted[i, :n]:
+                if req.request_id not in self._requests:
+                    break  # finished mid-burst (stop token / max_tokens)
+                self._publish_completed_blocks(req)
+                deltas.append(self._append_token(req, int(tok)))
+                appended += 1
+            # Counted as JAX counts them: what reached the stream, over
+            # the tokens the drafter really proposed.
+            if draft_lens[i] and stats is not None:
+                stats.num_spec_tokens += draft_lens[i]
+                stats.num_drafts += draft_lens[i]
+                used = min(n - 1, appended, draft_lens[i])
+                stats.num_accepted_tokens += used
+                per_pos = stats.num_accepted_tokens_per_pos
+                while len(per_pos) < K:
+                    per_pos.append(0)
+                for j in range(used):
+                    per_pos[j] += 1
+        return deltas
+
     # -- pipelined decode windows ------------------------------------------
 
     def _window_fn(self, greedy_only: bool):
@@ -810,7 +1034,11 @@ class EngineCore:
             "reqs": list(reqs),
             "out": out,
             "copy": _HostCopy(out, self._copy_stream),
+            # Prefill dispatched since the previous window runs on the
+            # device before this one: its sync interval absorbs it.
+            "prefill_tokens": self._prefill_cost_tokens,
         })
+        self._prefill_cost_tokens = 0
         if len(self._inflight) > WINDOW_PIPELINE_DEPTH:
             return self._sync_one_window()
         return []
@@ -871,6 +1099,17 @@ class EngineCore:
         self.counters.host_syncs += 1
         self.counters.window_syncs += 1
         tokens = entry["copy"].result()                    # [K, bucket]
+        # Measured mixed-prefill cost: with the pipeline full, the wall
+        # interval between consecutive syncs tracks the device's window
+        # time, and a window with prefill before it carries that cost.
+        now = time.monotonic()
+        if self._last_window_sync_ts is not None:
+            self.counters.note_window_interval(
+                now - self._last_window_sync_ts,
+                tokens.shape[0] * len(entry["reqs"]),
+                entry["prefill_tokens"])
+        # A draining pipeline's next interval is a fill, not a sample.
+        self._last_window_sync_ts = now if self._inflight else None
         deltas: List[TokenDelta] = []
         for i in range(tokens.shape[0]):
             for col, req in enumerate(entry["reqs"]):
@@ -1143,6 +1382,75 @@ class EngineCore:
             self._validate_block(data)
         return self.allocator.manager.import_blocks(blocks)
 
+    def clear_prefix_cache(self) -> int:
+        """Admin flush of every reusable cached block (engine thread);
+        returns how many were dropped, each reported REMOVED."""
+        clear = getattr(self.allocator, "clear_cache", None)
+        return clear() if clear is not None else 0
+
+    # -- embeddings (engine thread only) --------------------------------------
+
+    def embed_tokens(self, token_lists: List[List[int]]) -> np.ndarray:
+        """The final-norm hidden state of each prompt's last token: [n, H]
+        f32.  One padded prefill per group of R prompts (the gathered
+        path), on pages allocated for it and released afterwards (the
+        /v1/embeddings surface)."""
+        cfg = self.config.model
+        if self._embed_step is None:
+            self._embed_step = make_forward_step(
+                cfg, self.block_size, moe_mode=self.moe_mode,
+                return_hidden=True)
+        sched = self.scheduler.config
+        vocab = cfg.vocab_size
+        for toks in token_lists:
+            if len(toks) == 0:
+                raise ValueError("empty embedding input")
+            if len(toks) > sched.max_prefill_chunk:
+                raise ValueError(
+                    f"embedding input of {len(toks)} tokens exceeds the "
+                    f"prefill chunk ceiling {sched.max_prefill_chunk}")
+            if any(not 0 <= int(t) < vocab for t in toks):
+                raise ValueError(
+                    f"embedding token outside the vocabulary [0, {vocab})")
+        out = np.zeros((len(token_lists), cfg.hidden_size), np.float32)
+        R = 1   # prompts a call, as the JAX engine without a mesh
+        bs = self.block_size
+        for start in range(0, len(token_lists), R):
+            group = token_lists[start: start + R]
+            T = sched.bucket_for_prefill(max(len(t) for t in group))
+            per_pages = [(len(t) + bs - 1) // bs for t in group]
+            width = sched.bucket_for_pages(max(per_pages))
+            # Allocated inside the guarded region: a failure part way
+            # through the group releases what was taken.
+            pages: List[List[int]] = []
+            try:
+                for n in per_pages:
+                    pages.append(self.allocator.allocate(n))
+                tokens = np.zeros((R, T), np.int32)
+                positions = np.full((R, T), self._pad_position, np.int32)
+                bts = np.zeros((R, width), np.int32)
+                seq_lens = np.zeros((R,), np.int32)
+                sample_pos = np.zeros((R,), np.int32)
+                for i, toks in enumerate(group):
+                    L = len(toks)
+                    tokens[i, :L] = toks
+                    positions[i, :L] = np.arange(L)
+                    bts[i, : per_pages[i]] = pages[i]
+                    seq_lens[i] = L
+                    sample_pos[i] = L - 1
+                self.counters.model_rows += R * T
+                hidden, self.cache = self._embed_step(
+                    self.params, self.cache, self._dev(tokens),
+                    self._dev(positions), self._dev(seq_lens),
+                    self._dev(bts), self._dev(sample_pos))
+                self.counters.host_syncs += 1
+                out[start: start + len(group)] = (
+                    hidden[: len(group)].cpu().numpy())
+            finally:
+                for p in pages:
+                    self.allocator.release(p)
+        return out
+
     def prefix_cache_stats(self) -> Dict[str, object]:
         """Admission hit and miss tokens, the hit rate, and the block
         pool's state."""
@@ -1156,6 +1464,19 @@ class EngineCore:
         if out["enabled"]:
             out["pool"] = self.allocator.stats
         return out
+
+    def mixed_prefill_stats(self) -> Dict[str, object]:
+        """The mixed-prefill controller's cost: the measured prefill-token
+        / decode-token ratio (None before a sample), the ratio its plans
+        use, the samples taken and the duty of the last plan."""
+        ctl, c = self._mixed_ctl, self.counters
+        return {"prior_cost_ratio": ctl.cost_ratio,
+                "measured_cost_ratio": ctl.measured_cost,
+                "effective_cost_ratio": ctl.effective_cost_ratio,
+                "cost_samples": c.prefill_cost_samples,
+                "decode_token_cost_ewma_s": c.decode_token_cost_ewma,
+                "prefill_token_cost_ewma_s": c.prefill_token_cost_ewma,
+                "duty": self._mixed_duty}
 
     def reset_prefix_stats(self) -> None:
         self.scheduler.prefix_hit_tokens = 0
@@ -1345,3 +1666,16 @@ class InferenceEngine:
     async def resident_prefix_blocks(self, hashes) -> int:
         return await self.run_in_engine(
             lambda: self.core.resident_prefix_blocks(hashes))
+
+    async def clear_kv_blocks(self) -> int:
+        return await self.run_in_engine(self.core.clear_prefix_cache)
+
+    async def embed(self, token_lists) -> np.ndarray:
+        """[n, H] f32 embeddings, one engine-thread call an input, so the
+        decode steps of streams in flight run between the inputs."""
+        rows = []
+        for toks in token_lists:
+            rows.append(await self.run_in_engine(
+                lambda t=toks: self.core.embed_tokens([t])))
+        return (np.concatenate(rows, axis=0) if rows
+                else np.zeros((0, 0), np.float32))

@@ -10,12 +10,13 @@ generator per draw (Philox on the card) seeded from that pair, and draws
 by the Gumbel-max trick over the filtered logits, which samples exactly
 the categorical distribution.  Stochastic outputs therefore agree with
 JAX in distribution, not token for token; greedy agrees exactly.
+`speculative_verify` keys its accept and resample draws the same way.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -124,3 +125,96 @@ def sample(
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _uniform(seed: int, index: int) -> float:
+    """One uniform [0, 1) draw keyed by (seed, index), on the host."""
+    g = torch.Generator()
+    g.manual_seed(draw_seed(seed, index))
+    return float(torch.rand((1,), generator=g)[0])
+
+
+def speculative_verify(
+    logits: torch.Tensor,        # [B, K+1, V] f32; position j is the
+                                 # model's next-token distribution after
+                                 # the draft prefix d_0 .. d_{j-1}
+    drafts: torch.Tensor,        # [B, K] int drafted tokens
+    temperature: torch.Tensor,   # [B]
+    top_k: torch.Tensor,         # [B] int, 0 = off
+    top_p: torch.Tensor,         # [B] f32, 1.0 = off
+    seeds: Sequence[Optional[int]],  # [B] host: None for greedy rows
+    indices: Sequence[int],      # [B] host: token index of the step's first emission
+    *,
+    greedy_only: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched draft verification with the rejection-sampling fallback of
+    a deterministic drafter (a point-mass proposal at d_j):
+
+    - greedy rows accept d_j while it equals the model's argmax, so the
+      emitted tokens are the argmax chain, as plain greedy decode's;
+    - stochastic rows accept d_j with probability p_j(d_j) under the
+      filtered distribution; at the first rejection they draw from p_j
+      with d_j removed (the residual), so every emitted token has
+      `sample`'s law; after K accepts a bonus token draws from p_K.
+
+    Row b emits emitted[b, :n_emit[b]] (n_emit in [1, K+1]); both int32.
+    `greedy_only` takes the argmax chain alone: no sort, softmax or draw.
+    A stochastic row's draws come from generators keyed by
+    draw_seed(draw_seed(seed, index), 2 j) (accept at position j) and
+    ... 2 j + 1 (resample at position j): separate streams per (row key,
+    position)."""
+    B, T, V = logits.shape
+    K = T - 1
+    dev = logits.device
+    drafts = drafts.long()
+    argmax_tok = torch.argmax(logits, dim=-1)                     # [B, T]
+    pos = torch.arange(T, device=dev)[None, :]
+    drafts_pad0 = torch.cat(
+        [drafts, torch.zeros((B, 1), dtype=torch.long, device=dev)], 1)
+    if greedy_only:
+        accept = drafts == argmax_tok[:, :K]
+        n_accept = torch.cumprod(accept.long(), dim=1).sum(1)
+        # At the first rejection the argmax differs from the draft, and
+        # the bonus position has none: the argmax is the fallback.
+        emitted = torch.where(pos < n_accept[:, None], drafts_pad0,
+                              argmax_tok)
+        return emitted.to(torch.int32), (n_accept + 1).to(torch.int32)
+
+    flat = _filtered_logits(
+        logits.reshape(B * T, V), temperature.repeat_interleave(T),
+        top_k.repeat_interleave(T), top_p.repeat_interleave(T)
+    ).reshape(B, T, V)
+    rows = [i for i, sd in enumerate(seeds) if sd is not None]
+    keys = {i: draw_seed(int(seeds[i]), int(indices[i])) for i in rows}
+    stochastic = (temperature > 0)[:, None]
+    # Accept draws (host generators, one upload).
+    u = torch.ones((B, K))
+    for i in rows:
+        for j in range(K):
+            u[i, j] = _uniform(keys[i], 2 * j)
+    u = u.to(dev)
+    probs = torch.softmax(flat[:, :K], dim=-1)                    # [B, K, V]
+    p_draft = torch.gather(probs, 2, drafts[:, :, None])[..., 0]  # [B, K]
+    accept = torch.where(stochastic, u < p_draft,
+                         drafts == argmax_tok[:, :K])
+    n_accept = torch.cumprod(accept.long(), dim=1).sum(1)
+    # Fallback per position: the residual draw, the rejected draft's
+    # column masked out (the bonus position K masks nothing).  Greedy
+    # rows take the masked argmax, which is the argmax after a rejection.
+    col = torch.arange(V, device=dev)[None, None, :]
+    drafts_pad = torch.cat(
+        [drafts, torch.full((B, 1), -1, dtype=torch.long, device=dev)], 1)
+    masked = torch.where(col == drafts_pad[:, :, None],
+                         torch.tensor(float("-inf"), device=dev), flat)
+    masked_argmax = torch.argmax(masked, dim=-1)                  # [B, T]
+    fallback = masked_argmax
+    if rows:
+        noise = torch.stack([
+            torch.stack([_gumbel(V, keys[i], 2 * j + 1, dev)
+                         for j in range(T)]) for i in rows])      # [n, T, V]
+        idx = torch.tensor(rows, device=dev)
+        fallback = masked_argmax.clone()
+        fallback[idx] = torch.argmax(masked[idx] + noise, dim=-1)
+        fallback = torch.where(stochastic, fallback, masked_argmax)
+    emitted = torch.where(pos < n_accept[:, None], drafts_pad0, fallback)
+    return emitted.to(torch.int32), (n_accept + 1).to(torch.int32)

@@ -221,22 +221,49 @@ class MixedPrefillController:
     """Adaptive mixed-mode admission: picks (duty, chunk budget) from the
     modeled interference ratio duty·n·K / (duty·n·K + C·cost_ratio).
 
-    The port keeps the static cost prior; the JAX engine's measured-cost
-    EWMA (fed from window-sync intervals) is not ported yet."""
+    `cost_ratio` (one chunked-prefill token's cost in window-decode
+    tokens) is only the prior: the engine feeds `observe_cost_ratio` the
+    measured ratio (EngineCounters.measured_prefill_cost_ratio, from
+    window-sync intervals) and an EWMA of those replaces the prior in
+    every model query."""
 
     target = 0.85
-    cost_ratio = 1.15
+    cost_ratio = 1.15              # prior until measurements arrive
     max_duty = 8
     floor_tokens = MIXED_PREFILL_FLOOR
+    cost_ewma_alpha = 0.25
+
+    def __init__(self) -> None:
+        self.measured_cost: Optional[float] = None
+
+    @property
+    def effective_cost_ratio(self) -> float:
+        """Measured EWMA when available, the static prior otherwise."""
+        return (self.measured_cost if self.measured_cost is not None
+                else self.cost_ratio)
+
+    def observe_cost_ratio(self, ratio: float) -> None:
+        """Fold one measured cost ratio into the EWMA, clamped to
+        [0.1, 10] so one mistimed interval cannot swing duty to an
+        extreme."""
+        ratio = min(max(float(ratio), 0.1), 10.0)
+        if self.measured_cost is None:
+            self.measured_cost = ratio
+        else:
+            a = self.cost_ewma_alpha
+            self.measured_cost = (1.0 - a) * self.measured_cost + a * ratio
 
     def budget_for(self, duty: int, n_decoding: int, window: int) -> int:
+        """Largest chunk (tokens) whose modeled interference stays at or
+        above target when dispatched behind every `duty`-th window."""
         w = duty * n_decoding * window
-        return int(w * (1.0 - self.target) / (self.target * self.cost_ratio))
+        return int(w * (1.0 - self.target)
+                   / (self.target * self.effective_cost_ratio))
 
     def modeled_interference(self, duty: int, n_decoding: int, window: int,
                              chunk_tokens: int) -> float:
         w = duty * n_decoding * window
-        c = chunk_tokens * self.cost_ratio
+        c = chunk_tokens * self.effective_cost_ratio
         return w / (w + c) if (w + c) > 0 else 1.0
 
     def plan(self, n_decoding: int, window: int,

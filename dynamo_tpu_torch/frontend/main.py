@@ -38,8 +38,10 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import logging
 import signal
+from typing import Optional
 
 from dynamo_tpu_torch.engine.engine import (
     EngineConfig,
@@ -49,6 +51,7 @@ from dynamo_tpu_torch.engine.engine import (
 )
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.llm.http_service import HttpService
+from dynamo_tpu_torch.llm.kv_router.protocols import SpecDecodeStats
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.llm.service import LocalEngineClient, ModelHandle, ModelManager
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
@@ -144,6 +147,19 @@ async def build_model_handle(args):
     return handle, core, engine.stop
 
 
+def spec_decode_stats(core: EngineCore) -> Optional[dict]:
+    """Speculative decode's draft counts and acceptance rate (accepted
+    over drafted tokens), or None when it is off."""
+    st = core.metrics.spec_decode_stats
+    if st is None:
+        return None
+    out = dataclasses.asdict(st)
+    out["k"] = core.config.speculative_tokens
+    out["acceptance_rate"] = (st.num_accepted_tokens / st.num_drafts
+                              if st.num_drafts else 0.0)
+    return out
+
+
 def stats_hooks(core: EngineCore):
     """The `/debug/stats` reply and the `/debug/stats/reset` action over
     one engine."""
@@ -159,6 +175,8 @@ def stats_hooks(core: EngineCore):
                 "sp_devices": (core.ring.describe() if core.ring is not None
                                else []),
                 "prefix_cache": core.prefix_cache_stats(),
+                "spec_decode": spec_decode_stats(core),
+                "mixed_prefill": core.mixed_prefill_stats(),
                 "moe_mode": core.moe_mode,
                 # [E+1]: per-expert assignments, then the dropped ones.
                 "expert_load": (None if load is None else
@@ -172,15 +190,23 @@ def stats_hooks(core: EngineCore):
         kernels.reset_launch_counts()
         core.reset_expert_load()
         core.reset_prefix_stats()
-        core.counters = EngineCounters()
+        # The cost calibration is engine state, not a statistic: it
+        # carries over.
+        old = core.counters
+        core.counters = EngineCounters(
+            decode_token_cost_ewma=old.decode_token_cost_ewma,
+            prefill_token_cost_ewma=old.prefill_token_cost_ewma,
+            prefill_cost_samples=old.prefill_cost_samples)
+        if core.metrics.spec_decode_stats is not None:
+            core.metrics.spec_decode_stats = SpecDecodeStats()
 
     return stats, reset_stats
 
 
-async def start_discovery(args, models: ModelManager) -> list:
+async def start_discovery(args, models: ModelManager):
     """Distributed mode: watch the control plane's `models/` prefix and
-    register each model's routed pipeline; returns the shutdown
-    coroutines, outermost first."""
+    register each model's routed pipeline; returns the watcher and the
+    shutdown coroutines, outermost first."""
     from dynamo_tpu_torch.llm.discovery import ModelWatcher
     from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
@@ -192,7 +218,7 @@ async def start_discovery(args, models: ModelManager) -> list:
     watcher = ModelWatcher(runtime, models, router_mode=args.router_mode,
                            migration_limit=args.migration_limit)
     await watcher.start()
-    return [watcher.stop, runtime.shutdown, cp.close]
+    return watcher, [watcher.stop, runtime.shutdown, cp.close]
 
 
 async def run(args) -> None:
@@ -210,8 +236,12 @@ async def run(args) -> None:
         shutdowns.append(cp_server.stop)
     models = ModelManager()
     if args.control_plane:
-        shutdowns[:0] = await start_discovery(args, models)
-        svc = HttpService(models)
+        watcher, stops = await start_discovery(args, models)
+        shutdowns[:0] = stops
+        # Beside the request timings: the blocks the KV router indexes
+        # per model and worker.
+        svc = HttpService(models, stats=lambda: {
+            "kv_index": watcher.kv_index_blocks()})
         banner = (f"discovering models via {args.control_plane} (router "
                   f"{args.router_mode})")
     else:

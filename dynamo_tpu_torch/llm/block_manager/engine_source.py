@@ -31,6 +31,7 @@ class ManagedBlockSource:
         tier (the engine turns it into a REMOVED KV event);
         `extract_fn` / `inject_fn` are the engine's batched block copies
         (`KvBlockManager`)."""
+        self._on_removed = on_removed
         self.manager = KvBlockManager(config, extract_fn=extract_fn,
                                       inject_fn=inject_fn)
         if on_removed is not None:
@@ -87,5 +88,10 @@ class ManagedBlockSource:
         return self.manager.stats
 
     def clear_cache(self) -> int:
-        """Flush all reusable cached blocks; returns how many went."""
-        return len(self.manager.clear_cache())
+        """Flush all reusable cached blocks; returns how many went.  Each
+        leaves as a REMOVED event, so the routers' indexes stay true."""
+        dropped = self.manager.clear_cache()
+        if self._on_removed is not None:
+            for h in dropped:
+                self._on_removed(h)
+        return len(dropped)

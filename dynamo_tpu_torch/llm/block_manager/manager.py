@@ -152,6 +152,7 @@ class KvBlockManager:
     def stats(self) -> Dict[str, float]:
         return {"g1_active": self.device.active_slots,
                 "g1_free": self.device.free_slots,
+                "g1_inactive": len(self.device.registry.inactive),
                 "g1_hits": self.device.hits,
                 "g1_misses": self.device.misses,
                 "g1_evictions": self.device.evictions,

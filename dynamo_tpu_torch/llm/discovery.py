@@ -18,6 +18,8 @@ import asyncio
 import logging
 from typing import AsyncIterator, Callable, Dict, Optional
 
+import numpy as np
+
 from dynamo_tpu_torch.engine.engine import TokenDelta
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.scheduler import FinishReason
@@ -31,6 +33,7 @@ from dynamo_tpu_torch.runtime.distributed import (
     Endpoint,
     Instance,
 )
+from dynamo_tpu_torch.runtime.rpc import RpcError
 
 logger = logging.getLogger(__name__)
 
@@ -97,6 +100,10 @@ def delta_from_wire(d: dict) -> TokenDelta:
         logprobs=list(lp) if lp is not None else None)
 
 
+EMBED_ENDPOINT = "embed"
+CLEAR_KV_ENDPOINT = "clear_kv"
+
+
 def engine_wire_handler(engine_client) -> Callable:
     """Wrap any EngineClient as an RPC handler (worker side)."""
 
@@ -117,6 +124,27 @@ def engine_wire_handler(engine_client) -> Callable:
     return handler
 
 
+def clear_kv_wire_handler(engine_client) -> Callable:
+    """Worker-side `clear_kv` admin endpoint."""
+
+    async def handler(payload: dict) -> AsyncIterator[dict]:
+        n = await engine_client.clear_kv_blocks()
+        yield {"cleared": int(n)}
+
+    return handler
+
+
+def embed_wire_handler(engine_client) -> Callable:
+    """Worker-side `embed` RPC endpoint: one delta per input row."""
+
+    async def handler(payload: dict) -> AsyncIterator[dict]:
+        vecs = await engine_client.embed(payload["token_lists"])
+        for i, vec in enumerate(vecs):
+            yield {"index": i, "embedding": [float(x) for x in vec]}
+
+    return handler
+
+
 class RemoteEngineClient:
     """EngineClient over a runtime Client (frontend side)."""
 
@@ -130,6 +158,64 @@ class RemoteEngineClient:
             delta = delta_from_wire(d)
             delta.request_id = request.request_id
             yield delta
+
+    async def clear_kv_blocks(self) -> int:
+        """Flush every live instance's reusable KV blocks, the workers of
+        the sibling `<component>-prefill` component included (their warm
+        caches would survive otherwise).  A worker without the endpoint
+        is skipped; unreachable ones make the call raise, naming them,
+        after the others are flushed."""
+        runtime = self.client.endpoint.runtime
+        ep = self.client.endpoint
+        addresses = [inst.address for inst in self.client.instances()]
+        prefill_prefix = (f"instances/{ep.namespace}/"
+                          f"{ep.component}-prefill/")
+        for entry in (await runtime.cp.get_prefix(prefill_prefix)).values():
+            addr = entry.get("address")
+            if addr:
+                addresses.append(addr)
+        total = 0
+        unreachable = []
+        for address in addresses:
+            rpc = runtime.client_for(address)
+            try:
+                async for d in rpc.call(CLEAR_KV_ENDPOINT, {}):
+                    total += int(d.get("cleared", 0))
+            except RpcError:
+                continue  # the endpoint is absent on this worker
+            except ConnectionError:
+                await runtime.evict_client(address)
+                unreachable.append(address)
+        if unreachable:
+            # A partial flush is loud: the operator must know which
+            # workers kept their warm caches.
+            raise ConnectionError(
+                f"flushed {total} blocks but {len(unreachable)} instances "
+                f"were unreachable: {', '.join(unreachable)}")
+        return total
+
+    async def embed(self, token_lists):
+        """Forward to one worker's `embed` endpoint (round-robin over the
+        live instances); [n, hidden] f32."""
+        inst = self.client._pick()
+        rpc = self.client.endpoint.runtime.client_for(inst.address)
+        rows = {}
+        try:
+            async for d in rpc.call(
+                    EMBED_ENDPOINT,
+                    {"token_lists": [list(t) for t in token_lists]}):
+                rows[d["index"]] = d["embedding"]
+        except ConnectionError:
+            # As Client.generate does: drop the cached client so the next
+            # attempt reconnects.
+            await self.client.endpoint.runtime.evict_client(inst.address)
+            raise
+        if len(rows) != len(token_lists):
+            raise ConnectionError(
+                f"embed stream ended early: {len(rows)}/{len(token_lists)} "
+                "rows (worker died mid-request?)")
+        return np.asarray([rows[i] for i in range(len(token_lists))],
+                          dtype=np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +296,17 @@ class ModelWatcher:
             await c.stop()
         for kv in self._kv_clients.values():
             await kv.stop()
+
+    def kv_index_blocks(self) -> Dict[str, Dict[str, int]]:
+        """Per model, the blocks this frontend's KV router indexes for
+        each worker (kv router mode only; workers with none are left
+        out)."""
+        out = {}
+        for name, kv in self._kv_clients.items():
+            tree = kv.router.indexer.tree if kv.router.indexer else None
+            out[name] = ({str(w): len(tree.blocks_for_worker(w))
+                          for w in tree.workers()} if tree else {})
+        return out
 
     async def _loop(self) -> None:
         while True:

@@ -4,6 +4,8 @@
 Routes:
   POST /v1/chat/completions   chat, unary or SSE streaming
   POST /v1/completions        text completion, unary or SSE streaming
+  POST /v1/embeddings         last-token hidden-state embeddings
+  POST /clear_kv_blocks       flush every model's reusable KV blocks
   GET  /v1/models             registered models
   GET  /health                readiness
   GET  /debug/stats           per-request timings + the server's stats hook
@@ -18,6 +20,7 @@ is served.
 from __future__ import annotations
 
 import asyncio
+import base64
 import contextlib
 import json
 import logging
@@ -26,6 +29,7 @@ from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Set
 
+import numpy as np
 from dynamo_tpu_torch.engine.scheduler import FinishReason
 from dynamo_tpu_torch.llm.backend import StreamDetokenizer
 from dynamo_tpu_torch.llm.protocols import openai as oai
@@ -35,8 +39,12 @@ logger = logging.getLogger(__name__)
 
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 413: "Payload Too Large",
-            500: "Internal Server Error"}
+            500: "Internal Server Error", 501: "Not Implemented",
+            503: "Service Unavailable"}
 MAX_BODY = 16 * 1024 * 1024
+# Inputs of one /v1/embeddings request: each is a prefill on the engine,
+# and an unbounded batch would hold token streams back for seconds.
+MAX_EMBED_INPUTS = 128
 
 
 def _lp_token(handle, req, token_id: int) -> str:
@@ -158,6 +166,8 @@ class HttpService:
             ("POST", "/debug/stats/reset"): self._debug_reset,
             ("POST", "/v1/chat/completions"): self._chat,
             ("POST", "/v1/completions"): self._completions,
+            ("POST", "/v1/embeddings"): self._embeddings,
+            ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
         }
         handler = routes.get((method, path))
         if handler is None:
@@ -215,6 +225,73 @@ class HttpService:
             self._reset_stats()
         self.timings.clear()
         return {"ok": True}
+
+    async def _clear_kv_blocks(self, _body, _writer) -> dict:
+        """Admin: flush every model's reusable KV blocks; per model its
+        status and the count cleared."""
+        out = {}
+        for name in self.models.names():
+            handle = self.models.get(name)
+            clear = getattr(handle.client, "clear_kv_blocks", None)
+            if clear is None:
+                out[name] = {"status": "unsupported"}
+                continue
+            try:
+                out[name] = {"status": "ok", "cleared": await clear()}
+            except Exception as e:   # reported per model, not raised
+                out[name] = {"status": "error", "error": str(e)}
+        return out
+
+    # -- embeddings --------------------------------------------------------
+
+    async def _embeddings(self, body: bytes, _writer) -> dict:
+        try:
+            req = oai.EmbeddingRequest.from_dict(json.loads(body or b"null"))
+        except ValueError as e:
+            raise HttpError(400, f"invalid request: {e}") from None
+        handle = self.models.get(req.model)
+        if handle is None:
+            raise HttpError(404, f"model {req.model!r} not found",
+                            "model_not_found")
+        embed = getattr(handle.client, "embed", None)
+        if embed is None:
+            raise HttpError(501, "this model's engine does not serve "
+                                 "embeddings", "not_implemented")
+        inputs = req.inputs()
+        if not inputs:
+            raise HttpError(400, "input must be non-empty")
+        if len(inputs) > MAX_EMBED_INPUTS:
+            raise HttpError(400, f"too many inputs ({len(inputs)} > "
+                                 f"{MAX_EMBED_INPUTS} per request)")
+        token_lists = []
+        for item in inputs:
+            toks = (handle.tokenizer.encode(item) if isinstance(item, str)
+                    else list(item))
+            if len(toks) >= handle.max_context:
+                raise HttpError(
+                    400, f"input of {len(toks)} tokens exceeds the model's "
+                         f"maximum context length of {handle.max_context}")
+            token_lists.append(toks)
+        try:
+            vecs = await embed(token_lists)
+        except (ValueError, NotImplementedError) as e:
+            raise HttpError(400, str(e)) from None
+        except (ConnectionError, OSError) as e:
+            raise HttpError(503, f"embedding worker unavailable: {e}",
+                            "service_unavailable") from None
+
+        def encode(vec):
+            if req.encoding_format == "base64":
+                return base64.b64encode(
+                    np.asarray(vec, "<f4").tobytes()).decode("ascii")
+            return [float(x) for x in vec]
+
+        n_in = sum(len(t) for t in token_lists)
+        return oai.EmbeddingResponse(
+            model=req.model,
+            data=[oai.EmbeddingData(index=i, embedding=encode(v))
+                  for i, v in enumerate(vecs)],
+            usage=oai.Usage(prompt_tokens=n_in, total_tokens=n_in)).to_dict()
 
     # -- generation --------------------------------------------------------
 

@@ -235,6 +235,18 @@ class KvRoutedEngineClient:
             for i in self.client.instances()
         }
 
+    async def embed(self, token_lists):
+        from dynamo_tpu_torch.llm.discovery import RemoteEngineClient
+
+        return await RemoteEngineClient(self.client).embed(token_lists)
+
+    async def clear_kv_blocks(self) -> int:
+        """Flush every worker's reusable blocks; their REMOVED events
+        then empty this frontend's index of them."""
+        from dynamo_tpu_torch.llm.discovery import RemoteEngineClient
+
+        return await RemoteEngineClient(self.client).clear_kv_blocks()
+
     def _attach_donor_hint(self, request: PreprocessedRequest) -> None:
         """Attach the last decision's donor as a remote-prefix hint.  A
         stale hint is cleared first: a migration retry reuses the request

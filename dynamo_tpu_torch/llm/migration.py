@@ -124,3 +124,9 @@ class MigrationClient:
                 "%d attempts left",
                 reason, request.request_id, len(generated), attempts_left)
             await asyncio.sleep(self._backoff(attempt - 1))
+
+    async def embed(self, token_lists):
+        return await self.inner.embed(token_lists)
+
+    async def clear_kv_blocks(self) -> int:
+        return await self.inner.clear_kv_blocks()

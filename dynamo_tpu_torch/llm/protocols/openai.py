@@ -302,6 +302,70 @@ class CompletionResponse(_Wire):
 
 
 # ---------------------------------------------------------------------------
+# Embeddings
+
+
+def _is_token(t) -> bool:
+    return isinstance(t, int) and not isinstance(t, bool)
+
+
+@dataclass
+class EmbeddingRequest(_Wire):
+    model: str
+    # A string, a list of strings, a token list or a list of token lists.
+    input: Union[str, List[str], List[int], List[List[int]]]
+    encoding_format: str = "float"     # "float" | "base64"
+    user: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d) -> "EmbeddingRequest":
+        if not isinstance(d, dict):
+            raise ValueError("request body must be a JSON object")
+        inp = _get(d, "input", (str, list), required=True)
+        if isinstance(inp, list) and inp and not (
+                all(isinstance(x, str) for x in inp)
+                or all(_is_token(x) for x in inp)
+                or all(isinstance(x, list) and all(_is_token(t) for t in x)
+                       for x in inp)):
+            raise ValueError("field 'input' must be a string, a list of "
+                             "strings, a token list or a list of token "
+                             "lists")
+        fmt = _get(d, "encoding_format", str, default="float")
+        if fmt not in ("float", "base64"):
+            raise ValueError("field 'encoding_format' must be 'float' or "
+                             "'base64'")
+        return cls(model=_get(d, "model", str, required=True), input=inp,
+                   encoding_format=fmt, user=_get(d, "user", str))
+
+    def inputs(self) -> List[Union[str, List[int]]]:
+        """The prompts, each a string or a token list."""
+        if isinstance(self.input, str):
+            return [self.input]
+        if not self.input:
+            return []
+        if _is_token(self.input[0]):
+            return [list(self.input)]
+        return list(self.input)
+
+
+@dataclass
+class EmbeddingData(_Wire):
+    index: int
+    # A float list, or base64 of packed little-endian float32 when the
+    # request asked for encoding_format="base64".
+    embedding: Union[List[float], str]
+    object: str = "embedding"
+
+
+@dataclass
+class EmbeddingResponse(_Wire):
+    model: str
+    data: List[EmbeddingData] = field(default_factory=list)
+    usage: Usage = field(default_factory=Usage)
+    object: str = "list"
+
+
+# ---------------------------------------------------------------------------
 # Models listing
 
 

@@ -37,6 +37,14 @@ class LocalEngineClient:
                 request.request_id, request.token_ids, request.sampling):
             yield delta
 
+    async def embed(self, token_lists):
+        """Last-token hidden-state embeddings, [n, hidden] f32 (the
+        /v1/embeddings engine surface)."""
+        return await self.engine.embed(token_lists)
+
+    async def clear_kv_blocks(self) -> int:
+        return await self.engine.clear_kv_blocks()
+
 
 @dataclass
 class ModelHandle:

@@ -405,7 +405,8 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                       moe_mode: str = "dense",
                       with_expert_load: bool = False,
                       sp_ring=None,
-                      sp_ring_kernel: bool = False):
+                      sp_ring_kernel: bool = False,
+                      return_hidden: bool = False):
     """The unified prefill/decode step for one cache geometry.  With
     `use_decode_kernel`, T == 1 calls attend through the paged-decode
     kernel (its plain version for CPU tensors); everything else takes the
@@ -418,8 +419,15 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     T must divide by sp; build it with
     parallel.sharding.make_sp_prefill_step.  `sp_ring_kernel` sends
     eligible geometry through the flash-fold kernel in place of the plain
-    ring."""
+    ring.
+
+    `return_hidden` (the embeddings step): the step returns the
+    final-norm hidden state at `sample_positions` in f32 ([B, H]) in
+    place of the logits and skips the LM head."""
     cfg.validate()
+    if return_hidden and (sp_ring is not None or with_expert_load):
+        raise ValueError("return_hidden takes neither sp_ring nor "
+                         "with_expert_load")
 
     def step(state: State, cache: Dict, tokens: torch.Tensor,
              positions: torch.Tensor, seq_lens: torch.Tensor,
@@ -457,6 +465,10 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
         x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
         if sample_positions is not None:
             x = x[torch.arange(B, device=x.device), sample_positions.long()]
+        if return_hidden:
+            # The last token's final-norm hidden state is the embedding
+            # (the causal-LM convention).
+            return x.float(), cache
         logits = _lm_head(cfg, state, x)
         if with_expert_load:
             return logits, cache, _expert_load(loads, x.device)

@@ -87,7 +87,20 @@ def gather_context(q, k_cache, v_cache, k_scale, v_scale, slots, Hkv,
 
 
 # Head dims the kernel is built for (csrc/paged_decode.cu's launch switch).
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+
+
+def check_decode_geometry(Hq: int, Hkv: int, D: int) -> None:
+    """Raise ValueError for a head geometry the decode kernel does not
+    take: D outside KERNEL_HEAD_DIMS or Hq not a multiple of Hkv.  Any
+    number of query heads a kv head is taken (16-row query tiles, a CTA
+    for each 64)."""
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"bad geometry: {Hq} query heads over {Hkv} kv "
+                         "heads")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the decode kernel is built for "
+                         f"{KERNEL_HEAD_DIMS}")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -119,7 +132,7 @@ def paged_decode_attention(
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     (bf16 query; bf16 or int8 cache, int8 with its scales; D one of
-    KERNEL_HEAD_DIMS; at most 16 query heads a kv head) or raise."""
+    KERNEL_HEAD_DIMS, check_decode_geometry) or raise."""
     quant = check_quant_args(k_cache, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
@@ -143,14 +156,8 @@ def paged_decode_attention(
     if S % block_size:
         raise ValueError(f"cache slots {S} not a multiple of block_size")
     Hkv = F // D
-    G = Hq // Hkv
+    check_decode_geometry(Hq, Hkv, D)
     lib = _lib()
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the decode kernel is built for "
-                         f"{KERNEL_HEAD_DIMS}")
-    if G > lib.dtt_paged_decode_max_group():
-        raise ValueError(f"{G} query heads a kv head: the decode kernel "
-                         f"takes at most {lib.dtt_paged_decode_max_group()}")
     if q.data_ptr() % 16:
         raise ValueError("q and the cache must be 16-byte aligned")
     out = torch.empty_like(q)
@@ -221,6 +228,4 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + tail
         lib.dtt_paged_decode_int8.restype = ctypes.c_int
         lib.dtt_paged_decode_int8.argtypes = [ctypes.c_void_p] * 8 + tail
-        lib.dtt_paged_decode_max_group.restype = ctypes.c_int
-        lib.dtt_paged_decode_max_group.argtypes = []
     return lib

@@ -20,6 +20,12 @@ routing at once (the lease is revoked, so the instance and model keys
 go), lets in-flight streams finish, and shuts down; a killed worker's keys
 expire with its lease.
 
+`--spec-decode K` runs speculative decode (prompt-lookup drafts of K
+tokens, `--spec-ngram N`-grams) in place of the decode windows, and the
+published SliceSpec then carries the `spec` feature.  Every worker serves
+the `embed` and `clear_kv` endpoints behind a frontend's /v1/embeddings
+and /clear_kv_blocks.
+
 Every worker serves the KV data plane: `kv_blocks` (host-staged block
 pulls), `kv_offer` and `kv_pulled` (the device plane: CUDA IPC between
 processes on one card, the same-process fabric on the CPU), so every
@@ -85,7 +91,14 @@ from dynamo_tpu_torch.llm.disagg import (
     disagg_config_key,
     prefill_worker_loop,
 )
-from dynamo_tpu_torch.llm.discovery import engine_wire_handler, register_llm
+from dynamo_tpu_torch.llm.discovery import (
+    CLEAR_KV_ENDPOINT,
+    EMBED_ENDPOINT,
+    clear_kv_wire_handler,
+    embed_wire_handler,
+    engine_wire_handler,
+    register_llm,
+)
 from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.service import LocalEngineClient
@@ -152,6 +165,15 @@ def parse_args(argv=None):
     p.add_argument("--kv-quant", choices=("none", "int8"), default="none",
                    help="KV cache storage: int8 pages with per-token, "
                         "per-head f32 scales, or the model dtype")
+    p.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                   help="speculative decode: draft K tokens a decode step "
+                        "(prompt-lookup n-gram drafter) and verify them in "
+                        "one batched forward; greedy output equals K=0's, "
+                        "stochastic requests keep their sampling "
+                        "distribution.  0 disables; windows are off "
+                        "while it is on")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="n-gram length of the prompt-lookup drafter")
     p.add_argument("--moe-mode", choices=("auto", "dense", "grouped"),
                    default="auto",
                    help="MoE expert compute (dense models ignore it): "
@@ -207,7 +229,8 @@ def build_engine(args, kv_event_sink):
     core = EngineCore(EngineConfig(
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
         device=args.device, moe_mode=args.moe_mode,
-        kv_quant=args.kv_quant), kv_event_sink=kv_event_sink)
+        kv_quant=args.kv_quant, speculative_tokens=args.spec_decode,
+        speculative_ngram=args.spec_ngram), kv_event_sink=kv_event_sink)
     load_kernels(core)
     card_fields = {
         "tokenizer_spec": {"kind": "byte"},
@@ -227,8 +250,11 @@ def derive_slice_spec(core: EngineCore, role: str = "both",
         import torch
 
         hbm = int(torch.cuda.get_device_properties(core.device).total_memory)
+    # Speculative decode takes the place of the decode windows.
+    decode = ("spec" if core.config.speculative_tokens > 0
+              else f"window{DECODE_WINDOW}")
     return SliceSpec(role=role, kv_quant=core.cache_cfg.kv_quant,
-                     features=("packed_prefill", f"window{DECODE_WINDOW}"),
+                     features=("packed_prefill", decode),
                      hbm_per_chip_bytes=hbm, fabric=fabric)
 
 
@@ -294,13 +320,18 @@ async def run(args) -> None:
     runtime.rpc.register(KV_BLOCKS_ENDPOINT, make_kv_blocks_handler(engine))
     runtime.rpc.register(dt.KV_OFFER_ENDPOINT, plane.make_offer_handler())
     runtime.rpc.register(dt.KV_PULLED_ENDPOINT, plane.make_pulled_handler())
+    # Admin and embeddings endpoints (a frontend's clear reaches the
+    # prefill workers too).
+    local = LocalEngineClient(engine)
+    runtime.rpc.register(EMBED_ENDPOINT, embed_wire_handler(local))
+    runtime.rpc.register(CLEAR_KV_ENDPOINT, clear_kv_wire_handler(local))
     logger.info("device transfer plane on %s (%s)", plane.address,
                 plane.transport_kind)
 
     # Fleet prefix reuse, innermost: on a decode worker the pull runs
     # after a remote-prefill onboard, whose blocks are then resident.
     fetcher = None
-    serve_client = LocalEngineClient(engine)
+    serve_client = local
     if not args.no_prefix_share:
         fetcher = PrefixFetcher(engine, runtime.client_for, args.block_size,
                                 plane=plane)
@@ -323,7 +354,7 @@ async def run(args) -> None:
     prefill_task = None
     if args.role == "prefill":
         prefill_task = asyncio.create_task(prefill_worker_loop(
-            cp, args.namespace, LocalEngineClient(engine), instance.address))
+            cp, args.namespace, local, instance.address))
     else:
         card = ModelDeploymentCard(name=args.model_name,
                                    kv_block_size=args.block_size,

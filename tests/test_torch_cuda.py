@@ -70,9 +70,17 @@ def _rand(gen, *shape, dev):
     return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
 
+# D 80 and 96 (Phi-2, Phi-3-mini), and 24, 32 and 72 query heads a kv
+# head (two and four query tiles, two CTAs a kv head).
+WIDE_DECODE = [(32, 8, 80, 64, None), (32, 4, 96, 16, 30.0),
+               (24, 1, 128, 64, None), (32, 1, 128, 64, None),
+               (144, 2, 64, 64, None)]
+
+
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (16, 16, 128, 32, None),
-    (8, 2, 32, 8, None), (32, 4, 128, 64, None), (32, 8, 128, 64, None)])
+    (8, 2, 32, 8, None), (32, 4, 128, 64, None), (32, 8, 128, 64, None)]
+    + WIDE_DECODE)
 def test_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     gen = torch.Generator(device=dev).manual_seed(0)
     B, P = 9, 6
@@ -156,7 +164,7 @@ def _int8_pool(gen, S, hkv, d, dev):
 
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 2, 32, 8, None),
-    (32, 8, 128, 64, None)])
+    (32, 8, 128, 64, None)] + WIDE_DECODE)
 def test_int8_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     """Ragged rows over an int8 cache: empty rows, one token, a tail page
     one past a page boundary, full tables."""
@@ -429,21 +437,14 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
                                            device=dev), bt, sl,
                                block_size=64, k_scale=sc[:, :1].contiguous(),
                                v_scale=sc[:, :1].contiguous())
-    # The decode kernel is built for D 16, 32, 64, 128 and 256 and at most
-    # 16 query heads a kv head; the JAX kernel also takes these two shapes.
-    with pytest.raises(ValueError, match="head dim 96"):
-        paged_decode_attention(torch.zeros(2, 8, 96, dtype=torch.bfloat16,
+    # The decode kernel is built for D 16, 32, 64, 80, 96, 128 and 256,
+    # any number of query heads a kv head.
+    with pytest.raises(ValueError, match="head dim 112"):
+        paged_decode_attention(torch.zeros(2, 8, 112, dtype=torch.bfloat16,
                                            device=dev),
-                               torch.zeros(64, 192, dtype=torch.bfloat16,
+                               torch.zeros(64, 224, dtype=torch.bfloat16,
                                            device=dev),
-                               torch.zeros(64, 192, dtype=torch.bfloat16,
-                                           device=dev), bt, sl, block_size=64)
-    with pytest.raises(ValueError, match="32 query heads a kv head"):
-        paged_decode_attention(torch.zeros(2, 32, 32, dtype=torch.bfloat16,
-                                           device=dev),
-                               torch.zeros(64, 32, dtype=torch.bfloat16,
-                                           device=dev),
-                               torch.zeros(64, 32, dtype=torch.bfloat16,
+                               torch.zeros(64, 224, dtype=torch.bfloat16,
                                            device=dev), bt, sl, block_size=64)
     w = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device=dev)
     x = torch.zeros(64, 64, dtype=torch.bfloat16, device=dev)
@@ -490,6 +491,23 @@ def test_engine_serves_greedy_through_both_kernels(dev):
     assert paged_decode_attention.launches > d0
     assert paged_prefill_attention.launches > p0
     assert core.counters.window_dispatches > 0
+
+
+def test_spec_engine_and_embeddings_on_the_card(dev):
+    """Speculative decode (K 3) on the card: repetitive prompts draft and
+    accept; prefill still launches K2.  Embeddings come back finite."""
+    core = _tiny_engine(dev, speculative_tokens=3)
+    p0 = paged_prefill_attention.launches
+    out = _serve(core, {"a": [5, 6, 7, 8] * 6, "b": [9, 1, 9, 1, 9, 1, 9]})
+    assert all(len(t) == 20 for t in out.values())
+    st = core.metrics.spec_decode_stats
+    assert core.counters.spec_dispatches > 0 and core.counters.window_dispatches == 0
+    assert 0 < st.num_drafts and st.num_accepted_tokens <= st.num_drafts
+    assert paged_prefill_attention.launches > p0
+    emb = core.embed_tokens([[1, 2, 3], list(range(10, 40))])
+    assert emb.shape == (2, core.config.model.hidden_size)
+    assert torch.isfinite(torch.from_numpy(emb)).all()
+    assert core.clear_prefix_cache() > 0
 
 
 def test_int8_engine_with_prefix_cache_runs_the_int8_kernels(dev):

@@ -31,6 +31,10 @@ from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.scheduler import FinishReason, SchedulerConfig
 from dynamo_tpu_torch.models import config as tcfg
 from dynamo_tpu_torch.models.weights import from_jax_params
+from test_torch_mixed_prefill import pinned_engine_clocks  # noqa: F401
+
+# The engines step under one pinned clock (test_torch_mixed_prefill.py).
+pytestmark = pytest.mark.usefixtures("pinned_engine_clocks")
 
 GEOM = dict(max_seqs=8, block_size=8, max_pages_per_seq=8,
             max_prefill_chunk=16, decode_buckets=(1, 2, 4, 8),

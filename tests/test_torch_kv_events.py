@@ -35,6 +35,10 @@ from dynamo_tpu_torch.llm.kv_router.protocols import KvEventKind, RouterEvent
 from dynamo_tpu_torch.models import config as tcfg
 from dynamo_tpu_torch.models.weights import from_jax_params
 from dynamo_tpu_torch.tokens import compute_block_hashes
+from test_torch_mixed_prefill import pinned_engine_clocks  # noqa: F401
+
+# The engines step under one pinned clock (test_torch_mixed_prefill.py).
+pytestmark = pytest.mark.usefixtures("pinned_engine_clocks")
 
 BS = 8
 GEOM = dict(max_seqs=8, block_size=BS, max_pages_per_seq=8,

@@ -53,6 +53,10 @@ from dynamo_tpu_torch.ops.cuda import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
 )
+from test_torch_mixed_prefill import pinned_engine_clocks  # noqa: F401
+
+# The engines step under one pinned clock (test_torch_mixed_prefill.py).
+pytestmark = pytest.mark.usefixtures("pinned_engine_clocks")
 
 BS = 8
 LOGIT_TOL = 1e-4

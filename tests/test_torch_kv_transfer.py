@@ -65,6 +65,10 @@ from dynamo_tpu_torch.runtime.control_plane import (
 )
 from dynamo_tpu_torch.runtime.rpc import RpcClient, RpcServer
 from dynamo_tpu_torch.tokens import compute_block_hashes
+from test_torch_mixed_prefill import pinned_engine_clocks  # noqa: F401
+
+# The engines step under one pinned clock (test_torch_mixed_prefill.py).
+pytestmark = pytest.mark.usefixtures("pinned_engine_clocks")
 
 ROOT = Path(__file__).resolve().parents[1]
 BS = 8

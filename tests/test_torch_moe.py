@@ -34,6 +34,10 @@ from dynamo_tpu_torch.models import llama as tllama
 from dynamo_tpu_torch.models.weights import from_jax_params, init_params
 from dynamo_tpu_torch.ops import cuda as tcuda
 from dynamo_tpu_torch.ops import moe as tmoe
+from test_torch_mixed_prefill import pinned_engine_clocks  # noqa: F401
+
+# The engines step under one pinned clock (test_torch_mixed_prefill.py).
+pytestmark = pytest.mark.usefixtures("pinned_engine_clocks")
 
 F32_TOL = 1e-5
 BF16_REL = 2.0 ** -6

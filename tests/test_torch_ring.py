@@ -89,6 +89,10 @@ from dynamo_tpu_torch.parallel import (
     make_sp_prefill_step,
     plane_capability,
 )
+from test_torch_mixed_prefill import pinned_engine_clocks  # noqa: F401
+
+# The engines step under one pinned clock (test_torch_mixed_prefill.py).
+pytestmark = pytest.mark.usefixtures("pinned_engine_clocks")
 
 ROOT = Path(__file__).resolve().parents[1]
 JCFG = jcfg.get_config("tiny-test")
