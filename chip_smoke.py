@@ -94,6 +94,23 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    and /clear_kv_blocks through A must clear both workers' inactive
    blocks (a count each), empty A's KV index of both and leave the next
    sticky chat no prefix hit.
+10a. serve_observed — llama-3-1b on one worker behind frontend A with
+   every observability plane on (traces at rate 1, the request ledger, a
+   TTFT objective, the flight recorder, the stall watchdog, the device
+   profiler): `serve`'s wave; /metrics on both carries the JAX surfaces'
+   families (the unported drain / QoS ones named), counts the wave's 8
+   requests and TTFTs, and the device profiler's registry and drift
+   ratios (kv_decode <= 1.25, window_time printed, nothing paged); each
+   chat's spans chain across both processes (http → router.select →
+   rpc.client → rpc.server → engine.queue_wait / engine.ttft); each
+   chat's ledger covers its TTFT within JAX's coverage bounds; a 500 ms
+   device capture during a second wave: busy share, top ten kernels (K1
+   and K2 among what ran) and the five longest idle gaps with the host op
+   spanning each; the flight recorder's ring and a SIGUSR2 dump hold the
+   wave; the wave's engine counters equal those of the same stack with
+   every plane off, and in process the steady window's counters are
+   byte-identical with every plane on and off.  The wave's tok/s, TTFT
+   and ITL beside the planes-off stack's and `serve`'s.
 10b. embeddings — `serve`'s /v1/embeddings rows (strings and token lists,
    float and base64) against the plain forward's last hidden state in
    process (EMBED_TOL).
@@ -146,12 +163,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import signal
 import socket
 import statistics
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1568,13 +1587,14 @@ def _free_port() -> int:
 @contextlib.contextmanager
 def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
                       frontend_b: bool = True, tag: str = "distributed",
-                      ready_s: float = 300):
-    """Frontend A (`--serve-control-plane --router-mode kv`), one
-    `dynamo_tpu_torch.worker` process per entry of `workers` ((log tag,
-    extra flags)) for llama-3-1b on the card (512 blocks of 64, a status
-    port each) and, with `frontend_b`, frontend B (`--control-plane` A's,
-    `--router-mode round_robin`), all stopped on exit; yields (A's url, B's
-    url or None, the workers' status urls, seconds to ready).  Logs go to
+                      ready_s: float = 300, frontend_args=()):
+    """Frontend A (`--serve-control-plane --router-mode kv` and
+    `frontend_args`), one `dynamo_tpu_torch.worker` process per entry of
+    `workers` ((log tag, extra flags)) for llama-3-1b on the card (512
+    blocks of 64, a status port each) and, with `frontend_b`, frontend B
+    (`--control-plane` A's, `--router-mode round_robin`), all stopped on
+    exit; yields (A's url, B's url or None, the workers' status urls,
+    seconds to ready).  Logs go to
     `smoke_out/chip_smoke_<tag>_<log tag>.log`."""
     OUT_DIR.mkdir(exist_ok=True)
     procs = []
@@ -1611,7 +1631,7 @@ def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
     try:
         spawn("dynamo_tpu_torch.frontend", "frontend_a", "--serve-control-plane",
               "--control-plane-port", str(cp), "--router-mode", "kv",
-              "--http-port", str(ports[0]))
+              "--http-port", str(ports[0]), *frontend_args)
         wait(a + "/health", lambda r: "status" in r)
         for (name, extra), port in zip(workers, ports[2:]):
             spawn("dynamo_tpu_torch.worker", name, "--control-plane",
@@ -2190,6 +2210,462 @@ def serve_spec_phase(serve: dict) -> dict:
     return out
 
 
+# -- observability -----------------------------------------------------------
+
+OBSERVED_DIR = OUT_DIR / "observed"   # flight dumps and device captures
+SLO_TTFT_S = 5.0               # serve_observed's TTFT objective
+CAPTURE_MS = 500               # serve_observed's device capture
+STEADY_STEPS = 8               # steps of the planes on/off counter window
+# Every plane on, with the JAX package's flags: traces at rate 1, the
+# request ledger, a TTFT objective, the flight recorder (dumps under
+# OBSERVED_DIR); the worker adds the device profiler and the stall
+# watchdog.
+OBSERVED_FRONTEND = ("--trace", "--trace-sample", "1.0",
+                     "--request-ledger", "on",
+                     "--slo-ttft-p99", str(SLO_TTFT_S),
+                     "--flight-recorder", "on",
+                     "--flight-dump-dir", str(OBSERVED_DIR))
+OBSERVED_WORKER = OBSERVED_FRONTEND + ("--device-profiler", "on",
+                                       "--watchdog-stall-s", "10")
+# The same stack with every plane off (the recorder, the ledger and the
+# device profiler are on by default, as in the JAX package).
+PLANES_OFF_FRONTEND = ("--flight-recorder", "off", "--request-ledger", "off")
+PLANES_OFF_WORKER = PLANES_OFF_FRONTEND + ("--device-profiler", "off",
+                                           "--watchdog-stall-s", "0")
+# The /metrics families of the JAX package's surfaces: the frontend
+# (HttpService with the KV router's and migration's series, an SLO
+# objective) and a dense model's worker (its StatusServer registry and
+# worker_metrics_text, device profiler on).  tests/
+# test_torch_observability.py holds these lists against the JAX modules.
+JAX_FRONTEND_FAMILIES = (
+    "dynamo_frontend_inflight_requests", "dynamo_frontend_input_sequence_tokens",
+    "dynamo_frontend_inter_token_latency_seconds",
+    "dynamo_frontend_output_sequence_tokens", "dynamo_frontend_queued_requests",
+    "dynamo_frontend_request_duration_seconds",
+    "dynamo_frontend_requests_total",
+    "dynamo_frontend_time_to_first_token_seconds",
+    "dynamo_goodput_good_tokens_total", "dynamo_goodput_tokens_total",
+    "dynamo_kv_transfer_overlap", "dynamo_migrations_total",
+    "dynamo_request_kv_transfer_seconds", "dynamo_request_outcomes_total",
+    "dynamo_request_phase_seconds", "dynamo_request_queue_wait_seconds",
+    "dynamo_request_tpot_seconds", "dynamo_request_ttft_seconds",
+    "dynamo_router_remote_prefix_routes_total", "dynamo_slo_burn_rate",
+    "dynamo_slo_compliant", "dynamo_slo_state")
+JAX_WORKER_FAMILIES = (
+    "dynamo_engine_last_step_age_seconds", "dynamo_engine_stalled",
+    "dynamo_engine_stalls_total", "dynamo_hbm_limit_bytes",
+    "dynamo_hbm_used_bytes", "dynamo_kv_bytes_per_block",
+    "dynamo_kv_effective_bytes_per_token", "dynamo_kv_evictions_total",
+    "dynamo_kv_pool_active_blocks", "dynamo_kv_pool_capacity_blocks",
+    "dynamo_kv_pool_free_blocks", "dynamo_kv_pool_reusable_blocks",
+    "dynamo_kv_prefix_cache_hits_tokens", "dynamo_kv_prefix_cache_misses_tokens",
+    "dynamo_kv_transfer_overlap", "dynamo_kv_transfer_plane_total",
+    "dynamo_modeled_vs_measured_ratio", "dynamo_prefix_remote_fallbacks_total",
+    "dynamo_prefix_remote_hits_total", "dynamo_prefix_remote_pulled_blocks_total",
+    "dynamo_program_bytes_accessed", "dynamo_program_flops",
+    "dynamo_program_registry_size", "dynamo_qos_demoted_blocks_total",
+    "dynamo_qos_preemptions_total", "dynamo_request_kv_transfer_seconds",
+    "dynamo_request_outcomes_total", "dynamo_request_queue_wait_seconds",
+    "dynamo_request_tpot_seconds", "dynamo_request_ttft_seconds",
+    "dynamo_requests_migrated_in_total", "dynamo_requests_migrated_total",
+    "dynamo_slo_burn_rate", "dynamo_slo_compliant", "dynamo_slo_state",
+    "dynamo_spec_decode_acceptance_rate",
+    "dynamo_spec_decode_accepted_tokens_total",
+    "dynamo_spec_decode_drafted_tokens_total",
+    "dynamo_worker_draining", "dynamo_worker_engine_decode_tokens_emitted",
+    "dynamo_worker_engine_h2d_uploads", "dynamo_worker_engine_host_syncs",
+    "dynamo_worker_engine_kv_read_bytes_modeled",
+    "dynamo_worker_engine_packed_prefill_dispatches",
+    "dynamo_worker_engine_prefill_dispatches",
+    "dynamo_worker_engine_ring_exchange_bytes_modeled",
+    "dynamo_worker_engine_ring_kernel_prefills",
+    "dynamo_worker_engine_single_step_dispatches",
+    "dynamo_worker_engine_spec_dispatches",
+    "dynamo_worker_engine_window_dispatches",
+    "dynamo_worker_engine_window_syncs",
+    "dynamo_worker_engine_xla_cache_misses",
+    "dynamo_worker_kv_active_blocks", "dynamo_worker_kv_prefix_cache_hit_rate",
+    "dynamo_worker_kv_usage", "dynamo_worker_request_active_slots",
+    "dynamo_worker_requests_waiting")
+# Families of planes not ported yet: drain with KV migration, and QoS
+# preemption.
+UNPORTED_FAMILIES = ("dynamo_requests_migrated_total", "dynamo_worker_draining",
+                     "dynamo_requests_migrated_in_total",
+                     "dynamo_qos_preemptions_total",
+                     "dynamo_qos_demoted_blocks_total")
+
+
+def metric_families(text: str) -> set:
+    """The family names of a Prometheus text exposition: each `# TYPE`
+    line's, and each sample's (a histogram's `_bucket` / `_sum` /
+    `_count` samples count as their family)."""
+    lines = text.splitlines()
+    hist = {ln.split()[2] for ln in lines
+            if ln.startswith("# TYPE ") and ln.endswith(" histogram")}
+    names = set()
+    for ln in lines:
+        if ln.startswith("# TYPE "):
+            names.add(ln.split()[2])
+        elif ln and not ln.startswith("#"):
+            name = ln.split("{")[0].split(" ")[0]
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix) and name[:-len(suffix)] in hist:
+                    name = name[:-len(suffix)]
+            names.add(name)
+    return names
+
+
+def metric_value(text: str, sample: str) -> Optional[float]:
+    """The value of one sample (`name` or `name{labels}`), None if absent."""
+    for ln in text.splitlines():
+        if ln.startswith(sample + " "):
+            return float(ln.rsplit(" ", 1)[1])
+    return None
+
+
+def _get_json(url: str, timeout: float = 600.0):
+    """(HTTP status, JSON body), an error status's body included."""
+    try:
+        return 200, json.loads(_http(url, timeout=timeout))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def stack_wave(a: str, w: str) -> dict:
+    """`serve`'s wave of 8 chats through frontend `a`, stats of frontend
+    and worker `w` reset just before it: the results, the frontend's
+    request timings, the worker's stats and the wave's tok/s, TTFT and
+    ITL (frontend side)."""
+    for u in (a, w):
+        _http(u + "/debug/stats/reset", {})
+    t1 = time.monotonic()
+    results = chat_wave(a, [chat_body(i, i % 2 == 0, 64) for i in range(8)])
+    wall = time.monotonic() - t1
+    check_results(results, 64)
+    reqs = json.loads(_http(a + "/debug/stats"))["requests"]
+    check(len(reqs) == 8, f"serve_observed: frontend timed {len(reqs)}")
+    ttfts = [r["ttft_s"] for r in reqs]
+    itl_n = sum(r["itl_n"] for r in reqs)
+    out_tokens = sum(r["tokens"] for r in results)
+    return {"reqs": reqs, "worker": json.loads(_http(w + "/debug/stats")),
+            "summary": {
+                "output_tokens": out_tokens, "wall_s": wall,
+                "output_tok_s": out_tokens / wall,
+                "ttft_mean_s": statistics.mean(ttfts),
+                "ttft_max_s": max(ttfts),
+                "itl_mean_s": (sum(r["itl_sum_s"] for r in reqs) / itl_n
+                               if itl_n else None)}}
+
+
+def trace_chain(ftraces: dict, wtraces: dict, rid: str) -> dict:
+    """One chat's spans across the frontend's and the worker's trace
+    rings: http.chat (the root) with router.select and rpc.client:* under
+    it, then on the worker rpc.server:* under rpc.client:* and
+    engine.queue_wait / engine.ttft under rpc.server:*.  Returns the
+    chain's span names, or raises naming the broken link."""
+    def spans(payload):
+        for t in payload["traces"]:
+            if t["trace_id"] == rid:
+                return t["spans"]
+        raise SmokeError(f"serve_observed: no trace {rid} on "
+                         f"{payload['service']}")
+
+    def one(sp, prefix):
+        got = [x for x in sp if x["name"].startswith(prefix)]
+        check(len(got) == 1, f"serve_observed: {rid} has {len(got)} "
+                             f"{prefix} spans")
+        return got[0]
+
+    fs, ws = spans(ftraces), spans(wtraces)
+    root = one(fs, "http.chat")
+    sel, client = one(fs, "router.select"), one(fs, "rpc.client:")
+    server = one(ws, "rpc.server:")
+    queue, ttft = one(ws, "engine.queue_wait"), one(ws, "engine.ttft")
+    check(root["parent_id"] is None
+          and sel["parent_id"] == client["parent_id"] == root["span_id"]
+          and server["parent_id"] == client["span_id"]
+          and queue["parent_id"] == ttft["parent_id"] == server["span_id"],
+          f"serve_observed: {rid}'s parent links break: "
+          f"{[(x['name'], x['span_id'], x['parent_id']) for x in fs + ws]}")
+    return {"frontend": sorted(x["name"] for x in fs),
+            "worker": sorted(x["name"] for x in ws)}
+
+
+def planes_counters(torch) -> dict:
+    """In process, llama-3-1b at full width and depth (seed-0 weights):
+    `serve`'s 8 prompts, 256 greedy tokens each, to a steady decode window
+    (every prompt prefilled, the window pipeline full), then STEADY_STEPS
+    steps, once with every plane off and once with every plane on
+    (tracing at rate 1 with each request bound to a root span, the flight
+    recorder, the request ledger, the device profiler with its window
+    events).  The counters' deltas over the steady steps must be
+    byte-identical, and the on run must have recorded."""
+    from dynamo_tpu_torch.engine.engine import (
+        WINDOW_PIPELINE_DEPTH, EngineConfig, EngineCore)
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import RequestState
+    from dynamo_tpu_torch.models import weights
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.runtime import (
+        device_profiler, flight_recorder, ledger, tracing)
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama-3-1b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = weights.init_params(cfg, gen, dev)
+    runs = {}
+    for on in (False, True):
+        tracer = tracing.configure(enabled=on, sampling=1.0)
+        tracer.reset()
+        recorder = flight_recorder.configure(enabled=on)
+        recorder.reset()
+        prof = device_profiler.configure(enabled=on)
+        prof.reset()
+        ledger.set_enabled(on)
+        core = EngineCore(EngineConfig(model=cfg, num_blocks=256,
+                                       device="cuda"), params=state)
+        roots = []
+        for i in range(8):
+            rid = f"planes{i}"
+            roots.append(tracer.start_span("http.chat", trace_id=rid))
+            tracer.bind(rid, roots[-1].ctx)
+            core.add_request(rid, chat_tokens(chat_body(i, False, 256)),
+                             SamplingParams(max_tokens=256))
+        steps = 0
+        while not (len(core._inflight) == WINDOW_PIPELINE_DEPTH
+                   and all(r.state is RequestState.DECODE
+                           for r in core.scheduler.running)
+                   and not core._pending_batches):
+            core.step()
+            steps += 1
+            check(steps < 500, "planes_counters: no steady window")
+        before = core.counters.as_dict()
+        for _ in range(STEADY_STEPS):
+            core.step()
+        delta = {k: v - before[k] for k, v in core.counters.as_dict().items()}
+        for root in roots:
+            root.end()
+        runs[on] = {"delta": delta,
+                    "flight_events": recorder.events_written,
+                    "spans": tracer.spans_recorded,
+                    "programs": prof.registry.size(),
+                    "ledger_timings": len(core._ledger_timings),
+                    "window_device_s": core.counters.window_device_s_ewma}
+        del core
+        torch.cuda.empty_cache()
+    tracing.configure(enabled=False)
+    flight_recorder.configure(enabled=False)
+    device_profiler.configure(enabled=False)
+    ledger.set_enabled(True)
+    off, on = runs[False], runs[True]
+    check(on["delta"] == off["delta"] and off["delta"]["window_dispatches"]
+          == STEADY_STEPS,
+          f"planes_counters: steady-window deltas differ with the planes "
+          f"on: {on['delta']} vs off {off['delta']}")
+    check(on["flight_events"] > 0 and on["spans"] > 0 and on["programs"] > 0
+          and on["ledger_timings"] == 8 and on["window_device_s"] is not None
+          and off["flight_events"] == off["spans"] == off["programs"] == 0,
+          f"planes_counters: the planes did not record as switched: {runs}")
+    return {"delta": off["delta"], "byte_identical": True,
+            "on": {k: v for k, v in on.items() if k != "delta"}}
+
+
+def serve_observed_phase(torch, serve: dict) -> dict:
+    """llama-3-1b on one worker behind frontend A (`distributed_stack`)
+    with every plane on (OBSERVED_FRONTEND, OBSERVED_WORKER).  After a
+    warm-up chat (and a 50 ms capture, CUPTI's first use), `serve`'s wave
+    of 8 chats, then:
+    - /metrics on both: every family of the JAX surfaces but
+      UNPORTED_FAMILIES; requests and TTFT observations grew by the wave's
+      8 (frontend and worker); `dynamo_program_registry_size` > 0;
+      `dynamo_modeled_vs_measured_ratio{series="kv_decode"}` <= 1.25,
+      `window_time` printed, no series paged; no stall; HBM polled;
+    - /debug/traces: each chat's span chain across both processes
+      (`trace_chain`);
+    - /debug/requests: each chat's ledger covers its TTFT within JAX's
+      coverage bounds;
+    - /debug/deviceprofile?ms=CAPTURE_MS on the worker while a second wave
+      runs: the trace's busy share, top ten kernels and five longest idle
+      gaps (device_profiler.summarize_trace); K1 and K2 among its kernels;
+    - the counters: the worker's wave counters equal to those of the
+      same stack with every plane off (its wave run first, PLANES_OFF_*),
+      printed beside `serve`'s, and `planes_counters` (in process, after
+      the stacks stop): the steady window byte-identical with the planes
+      on and off;
+    - the flight recorder: /debug/flightrecorder holds the wave's events,
+      and SIGUSR2 dumps them to OBSERVED_DIR.
+    The wave's tok/s, TTFT and ITL are printed beside the planes-off
+    stack's and `serve`'s."""
+    from dynamo_tpu_torch.runtime import device_profiler, ledger
+
+    OBSERVED_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"phase": "serve_observed", "model": "llama-3-1b"}
+    with distributed_stack(workers=(("worker", PLANES_OFF_WORKER),),
+                           frontend_b=False, tag="observed_off",
+                           frontend_args=PLANES_OFF_FRONTEND) as (
+            a, _, (w,), _):
+        _chat(a, chat_body(-1, False, 4))          # warm-up, as serve's
+        off = stack_wave(a, w)
+    with distributed_stack(workers=(("worker", OBSERVED_WORKER),),
+                           frontend_b=False, tag="observed",
+                           frontend_args=OBSERVED_FRONTEND) as (
+            a, _, (w,), startup_s):
+        out["startup_s"] = startup_s
+        _chat(a, chat_body(-1, False, 4))          # warm-up, as serve's
+        # The profiler's first start initializes CUPTI: a short capture
+        # now (of an idle card, so its `ok` is false) keeps that out of
+        # the measured one.
+        _get_json(w + "/debug/deviceprofile?ms=50")
+        fm0, wm0 = _http(a + "/metrics"), _http(w + "/metrics")
+        on = stack_wave(a, w)
+        reqs, st = on["reqs"], on["worker"]
+        fm, wm = _http(a + "/metrics"), _http(w + "/metrics")
+        ftraces = json.loads(_http(a + "/debug/traces?n=256"))
+        wtraces = json.loads(_http(w + "/debug/traces?n=256"))
+        ledgers = json.loads(_http(a + "/debug/requests?n=64"))
+        slo = json.loads(_http(a + "/debug/slo"))
+        _, prof_state = _get_json(w + "/debug/deviceprofile")
+        flight = json.loads(_http(w + "/debug/flightrecorder?n=4096"))
+        # A second wave under a device capture.
+        with ThreadPoolExecutor(1) as pool:
+            cap = pool.submit(_get_json, w + f"/debug/deviceprofile?ms="
+                                            f"{CAPTURE_MS}")
+            time.sleep(0.2)
+            check_results(chat_wave(a, [chat_body(i, i % 2 == 0, 64)
+                                        for i in range(8)]), 64)
+            code, capture = cap.result()
+        # The flight recorder dumped on demand: SIGUSR2 to the worker.
+        dump = OBSERVED_DIR / f"flight_{flight['service']}_{flight['pid']}.jsonl"
+        os.kill(flight["pid"], signal.SIGUSR2)
+        t0 = time.monotonic()
+        while not (dump.exists() and '"reason": "sigusr2"' in dump.read_text()):
+            check(time.monotonic() - t0 < 30,
+                  f"serve_observed: no SIGUSR2 dump at {dump}")
+            time.sleep(0.2)
+    rids = [r["request_id"] for r in reqs]
+
+    # /metrics
+    missing = {}
+    for side, text, want in (("frontend", fm, JAX_FRONTEND_FAMILIES),
+                             ("worker", wm, JAX_WORKER_FAMILIES)):
+        have = metric_families(text)
+        missing[side] = sorted(set(want) - have)
+        check(set(missing[side]) <= set(UNPORTED_FAMILIES),
+              f"serve_observed: {side} /metrics lacks "
+              f"{sorted(set(missing[side]) - set(UNPORTED_FAMILIES))}")
+    grew = {}
+    for side, t0_, t1_, sample in (
+            ("frontend_requests", fm0, fm,
+             'dynamo_frontend_requests_total{model="m"}'),
+            ("frontend_ttft", fm0, fm,
+             'dynamo_frontend_time_to_first_token_seconds_count{model="m"}'),
+            ("frontend_request_ttft", fm0, fm,
+             'dynamo_request_ttft_seconds_count{model="m"}'),
+            ("worker_request_ttft", wm0, wm, "dynamo_request_ttft_seconds_count"),
+            ("worker_outcomes_ok", wm0, wm,
+             'dynamo_request_outcomes_total{status="ok"}')):
+        grew[side] = (metric_value(t1_, sample) or 0) - (
+            metric_value(t0_, sample) or 0)
+    check(all(v == 8 for v in grew.values()),
+          f"serve_observed: /metrics counted {grew} for the wave of 8")
+    registry_size = metric_value(wm, "dynamo_program_registry_size")
+    ratios = {s_: metric_value(wm, 'dynamo_modeled_vs_measured_ratio'
+                                   f'{{series="{s_}"}}')
+              for s_ in ("kv_decode", "window_time")}
+    check(registry_size and registry_size > 0,
+          f"serve_observed: program registry size {registry_size}")
+    check(ratios["kv_decode"] is not None
+          and ratios["kv_decode"] <= device_profiler.DEFAULT_BAND_HI,
+          f"serve_observed: kv_decode ratio {ratios}")
+    states = {k: v["state"] for k, v in prof_state["drift"].items()}
+    check(ratios["window_time"] is not None
+          and "page" not in states.values(),
+          f"serve_observed: drift {ratios}, states {states}")
+    check(metric_value(wm, "dynamo_engine_stalls_total") == 0,
+          "serve_observed: the watchdog counted a stall")
+    hbm = metric_value(wm, 'dynamo_hbm_used_bytes{device="0",kind="gpu"}')
+    check(hbm is not None and hbm > 0, f"serve_observed: HBM used {hbm}")
+
+    # /debug/traces
+    chains = [trace_chain(ftraces, wtraces, rid) for rid in rids]
+
+    # /debug/requests
+    by_rid = {e["request_id"]: e for e in ledgers["slowest"]}
+    coverage = []
+    for rid in rids:
+        e = by_rid.get(rid)
+        check(e is not None and e["ttft_s"], f"serve_observed: no ledger "
+                                             f"for {rid}")
+        covered = sum(x["dur"] for x in e["stamps"]
+                      if x["phase"] in ledger.TTFT_PHASES)
+        coverage.append(covered / e["ttft_s"])
+    check(all(ledger.COVERAGE_FLOOR <= c <= ledger.COVERAGE_CEIL
+              for c in coverage),
+          f"serve_observed: ledger TTFT coverage {coverage} outside "
+          f"[{ledger.COVERAGE_FLOOR}, {ledger.COVERAGE_CEIL}]")
+
+    # /debug/deviceprofile
+    check(code == 200 and capture["ok"] and capture["device_events"] > 0,
+          f"serve_observed: device capture: {capture}")
+    with open(capture["trace"]) as f:
+        summary = device_profiler.summarize_trace(json.load(f))
+    names = summary.pop("kernel_names")
+    ran = {k: any(k in n for n in names)
+           for k in ("paged_decode_kernel", "paged_prefill_kernel")}
+    check(all(ran.values()), f"serve_observed: the capture lacks K1/K2: "
+                             f"{ran}; kernels {names[:40]}")
+
+    # The flight recorder
+    kinds = {e["kind"] for e in flight["events"]}
+    check(flight["enabled"] and {"window", "prefill_packed"} <= kinds,
+          f"serve_observed: flight events {sorted(kinds)}")
+    dumped = [json.loads(ln) for ln in dump.read_text().splitlines()]
+    headers = [d for d in dumped if d.get("flight_dump")]
+    check(any(h["reason"] == "sigusr2" for h in headers)
+          and any(d.get("kind") == "window" for d in dumped),
+          f"serve_observed: the SIGUSR2 dump holds {len(dumped)} lines")
+
+    worker_counters = st["counters"]
+
+    def differ(other):
+        return {k: (worker_counters[k], other.get(k))
+                for k in worker_counters if worker_counters[k] != other.get(k)}
+
+    check(not differ(off["worker"]["counters"]),
+          f"serve_observed: the wave's counters differ with the planes on: "
+          f"{differ(off['worker']['counters'])}")
+
+    out.update({
+        "wave": {**on["summary"], "launches": st["kernels"]},
+        "wave_planes_off": {**off["summary"],
+                            "launches": off["worker"]["kernels"]},
+        "serve": {k: serve[k] for k in ("output_tok_s", "ttft_mean_s",
+                                        "ttft_max_s", "itl_mean_s")},
+        "metrics": {"missing_unported": missing, "grew": grew,
+                    "program_registry_size": registry_size,
+                    "modeled_vs_measured": ratios, "drift_states": states,
+                    "hbm_used_bytes": hbm},
+        "traces": {"chats": len(chains), "chain": chains[0]},
+        "ledger_ttft_coverage": coverage,
+        "ledger_dominant_phase": ledgers["dominant_phase"],
+        "slo": {"state": slo["state"], "objectives": slo["objectives"]},
+        "capture": {"ms": capture["ms"], "trace": capture["trace"],
+                    "k1_k2_ran": ran, **summary},
+        "flight": {"events": len(flight["events"]), "kinds": sorted(kinds),
+                   "sigusr2_dump": str(dump), "dump_lines": len(dumped)},
+        "counters": {"worker_wave": worker_counters,
+                     "equal_serve": not differ(serve["counters"]),
+                     "differ_from_serve": differ(serve["counters"]),
+                     "equal_planes_off": not differ(
+                         off["worker"]["counters"]),
+                     "differ_from_planes_off": differ(
+                         off["worker"]["counters"])},
+    })
+    out["planes"] = planes_counters(torch)
+    return out
+
+
 # -- the KV data plane -------------------------------------------------------
 
 OFFER_BLOCKS = 8               # blocks one device offer/pull round moves
@@ -2683,6 +3159,41 @@ def main() -> int:
         phase = "serve_distributed"
         dist = serve_distributed_phase(serve, serve_embed)
         emit(dist)
+        phase = "serve_observed"
+        observed = serve_observed_phase(torch, serve)
+        emit(observed)
+        ow, oc = observed["wave"], observed["capture"]
+        print(f"serve_observed on {'; '.join(smi.splitlines())}: "
+              + "; ".join(
+                  f"{name}: {x['output_tok_s']:.1f} tok/s, TTFT mean "
+                  f"{x['ttft_mean_s']:.4f} s max {x['ttft_max_s']:.4f} s, "
+                  f"ITL mean {x['itl_mean_s']:.5f} s"
+                  for name, x in (
+                      ("frontend + one worker, every plane on", ow),
+                      ("the same, every plane off",
+                       observed["wave_planes_off"]),
+                      ("serve (one process)", serve)))
+              + "; modeled/measured "
+              f"{observed['metrics']['modeled_vs_measured']}; ledger TTFT "
+              f"coverage {[round(c, 3) for c in observed['ledger_ttft_coverage']]}"
+              f"; wave counters equal serve's: "
+              f"{observed['counters']['equal_serve']}, the planes-off "
+              f"stack's: {observed['counters']['equal_planes_off']}; "
+              f"steady window "
+              f"byte-identical planes on/off: "
+              f"{observed['planes']['byte_identical']}", flush=True)
+        print(f"device capture ({oc['ms']} ms, a wave of 8 on one worker): "
+              f"busy share {oc['busy_share']:.4f} of {oc['window_us']:.0f} "
+              f"us; top kernels "
+              + "; ".join(f"{k['name'][:60]} x{k['count']} "
+                          f"{k['total_us']:.1f} us" for k in oc["kernels"])
+              + "; longest idle gaps "
+              + "; ".join(f"{g['gap_us']:.1f} us at {g['at_us']:.0f} us "
+                          f"(spanned by {(g['host_event'] or {}).get('name')}"
+                          f", next host event "
+                          f"{(g['host_next'] or {}).get('name')})"
+                          for g in oc["gaps"])
+              + f"; events by category {oc['categories']}", flush=True)
         phase = "embeddings"
         err = embed_error(serve_embed, embed_ref[0])
         check(err <= EMBED_TOL, f"embeddings differ from the plain forward: "

@@ -66,9 +66,25 @@ windows are off then, and rows spec declines take the plain step.
 through the step's `return_hidden` variant; `clear_prefix_cache` flushes
 the reusable cached blocks, each reported REMOVED.
 
-Not ported yet: the prefix cache's host and disk tiers, QoS preemption,
-tp/dp/ep/pp meshes (and with them MoE all-to-all dispatch) and
-multimodal prefill.
+Observability, as in JAX: `counters` is the `EngineStepCounters` of
+runtime/metrics.py (every dispatch site calls `note_dispatch` with JAX's
+tag and shape signature; decode, single-step and spec dispatches tally
+`note_kv_read`); `step()` stamps the flight recorder's heartbeat, and
+with the recorder on each dispatch leaves a breadcrumb; a first-seen
+shape stamps the recorder's compile time and, with the device profiler
+on, records the shape's modeled cost, while each window's span on the
+stream is timed by CUDA events read at its sync.  A request's first
+token records the `engine.queue_wait` / `engine.prefill` / `engine.ttft`
+spans under the context the serving layer bound, and parks the ledger's
+engine timings (`pop_ledger_timings`).  None of it adds a host sync, and
+the steady window's counter deltas are the same with every plane on or
+off.  Thread contracts (runtime/contracts.py) pin the core to its step
+loop.
+
+Not ported yet: the prefix cache's host and disk tiers, QoS preemption
+(the priority annotation reaches the KV router's selector, not the
+scheduler), prewarm of the packed prefill shapes, tp/dp/ep/pp meshes
+(and with them MoE all-to-all dispatch) and multimodal prefill.
 """
 
 from __future__ import annotations
@@ -130,6 +146,19 @@ from dynamo_tpu_torch.parallel.sharding import (
     check_plane,
     make_sp_prefill_step,
 )
+from dynamo_tpu_torch.runtime import (
+    contracts,
+    device_profiler,
+    flight_recorder,
+    ledger as request_ledger,
+    tracing,
+)
+from dynamo_tpu_torch.runtime.contracts import (
+    engine_thread_only,
+    hot_path,
+    never_engine_thread,
+)
+from dynamo_tpu_torch.runtime.metrics import EngineStepCounters
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
@@ -158,6 +187,9 @@ class TokenDelta:
     # Prompt tokens the prefix cache served at admission; on the first
     # token delta after each admission only.
     cached_tokens: Optional[int] = None
+    # A worker hop's request ledger in wire form, on the stream's last
+    # delta out of a worker (runtime/ledger.py); None elsewhere.
+    ledger: Optional[dict] = None
 
 
 @dataclass(frozen=True)
@@ -196,82 +228,6 @@ class EngineConfig:
     speculative_tokens: int = 0
     speculative_ngram: int = 3
     drafter: Optional[Drafter] = None
-
-
-@dataclass
-class EngineCounters:
-    """Serving-loop counters (the JAX EngineStepCounters' core)."""
-
-    window_dispatches: int = 0
-    window_syncs: int = 0
-    single_step_dispatches: int = 0
-    prefill_dispatches: int = 0
-    host_syncs: int = 0
-    h2d_uploads: int = 0
-    # Token rows the model ran, padding rows included: each is routed to
-    # k experts in every MoE layer.
-    model_rows: int = 0
-    # Ring prefill dispatches; the prompts they prefilled; and those of
-    # them whose ring ran the flash-fold kernel (the same predicate as
-    # the model's dispatch) rather than the plain ring.
-    sp_prefill_dispatches: int = 0
-    sp_prefill_count: int = 0
-    ring_kernel_prefills: int = 0
-    # Modeled bytes one rank sent around the ring: its resident chunk
-    # (1/sp of the tokens) rides sp - 1 hops in every layer.  The same
-    # for both rings, so it is charged before the path splits.
-    ring_exchange_bytes_modeled: int = 0
-    # Speculative decode steps (one host sync each).
-    spec_dispatches: int = 0
-    # Mixed-prefill cost calibration: EWMAs of wall seconds per
-    # window-decode token (plain windows) and per prefill token
-    # dispatched behind a window (the excess over the decode cost), fed
-    # by note_window_interval at the window sync.  None until sampled (a
-    # zero-excess sample is real).  Wall-clock floats stay out of
-    # as_dict(), whose exact counts tests compare.
-    decode_token_cost_ewma: Optional[float] = None
-    prefill_token_cost_ewma: Optional[float] = None
-    prefill_cost_samples: int = 0
-    cost_ewma_alpha = 0.25
-
-    def as_dict(self) -> Dict[str, int]:
-        return {k: v for k, v in self.__dict__.items()
-                if k not in _WALL_CLOCK_FIELDS}
-
-    def note_window_interval(self, wall_s: float, window_tokens: int,
-                             prefill_tokens: int) -> None:
-        """Wall time between consecutive steady window syncs.  A plain
-        window calibrates the per-decode-token cost; a window with
-        `prefill_tokens` dispatched before it charges its excess over
-        that cost to the chunk."""
-        if wall_s <= 0 or window_tokens <= 0:
-            return
-        a = self.cost_ewma_alpha
-        if prefill_tokens <= 0:
-            per = wall_s / window_tokens
-            self.decode_token_cost_ewma = (
-                per if self.decode_token_cost_ewma is None
-                else (1.0 - a) * self.decode_token_cost_ewma + a * per)
-        elif self.decode_token_cost_ewma is not None:
-            excess = wall_s - window_tokens * self.decode_token_cost_ewma
-            per = max(excess, 0.0) / prefill_tokens
-            self.prefill_token_cost_ewma = (
-                per if self.prefill_token_cost_ewma is None
-                else (1.0 - a) * self.prefill_token_cost_ewma + a * per)
-            self.prefill_cost_samples += 1
-
-    @property
-    def measured_prefill_cost_ratio(self) -> Optional[float]:
-        """Prefill-token / window-decode-token cost, None before both
-        EWMAs have a sample (MixedPrefillController clamps it)."""
-        if (self.decode_token_cost_ewma is None
-                or self.prefill_token_cost_ewma is None):
-            return None
-        return self.prefill_token_cost_ewma / self.decode_token_cost_ewma
-
-
-_WALL_CLOCK_FIELDS = ("decode_token_cost_ewma", "prefill_token_cost_ewma",
-                      "prefill_cost_samples")
 
 
 class _HostCopy:
@@ -378,7 +334,25 @@ class EngineCore:
         # Seeds for unseeded stochastic rows (one per request).
         self._rng = np.random.default_rng(config.seed + 1)
         self._row_seeds: Dict[str, int] = {}
-        self.counters = EngineCounters()
+        # Serving-loop counters (runtime/metrics.py), the flight
+        # recorder's first-dispatch breadcrumbs on their first-seen hook.
+        self.counters = EngineStepCounters()
+        self.step_count = 0
+        # Flight recorder: step() stamps its heartbeat unconditionally
+        # (the stall watchdog reads it); dispatch-shape and preemption
+        # breadcrumbs record only while the process enabled the ring, and
+        # every record site passes pre-computed scalars only.
+        self.flight = flight_recorder.get_recorder()
+        self.counters.on_recompile = self._flight_recompile
+        # Device-truth plane: first-seen dispatch shapes record their
+        # modeled cost (_harvest_program); on a card each window's span
+        # on the stream is timed by CUDA events read at its sync.
+        self.profiler = device_profiler.get_profiler()
+        # Modeled KV bytes a decode step reads per context token.
+        self._ctx_token_bytes = self.cache_cfg.bytes_per_context_token
+        # First-token timings parked for the serving layer's ledger
+        # stamps (request id -> scalars), behind the ledger's guard.
+        self._ledger_timings: Dict[str, tuple] = {}
         self.metrics = ForwardPassMetrics(
             worker_stats=WorkerStats(request_total_slots=sched_cfg.max_seqs),
             kv_stats=KvStats(kv_total_blocks=config.num_blocks - 1),
@@ -424,8 +398,13 @@ class EngineCore:
 
     # -- request lifecycle ------------------------------------------------
 
+    @engine_thread_only
     def add_request(self, request_id: str, prompt_tokens: List[int],
-                    sampling: SamplingParams) -> None:
+                    sampling: SamplingParams,
+                    arrival_ts: Optional[float] = None) -> None:
+        """`arrival_ts`: when the request was submitted (monotonic; default
+        now) — InferenceEngine passes its submission time, so the wait for
+        the engine thread counts as queueing in the spans and the ledger."""
         if request_id in self._requests:
             raise ValueError(f"duplicate request id {request_id}")
         if not prompt_tokens:
@@ -435,9 +414,12 @@ class EngineCore:
             raise ValueError(f"prompt token outside the vocabulary [0, {vocab})")
         req = Request(request_id=request_id,
                       prompt_tokens=list(prompt_tokens), sampling=sampling)
+        if arrival_ts is not None:
+            req.arrival_ts = arrival_ts
         self._requests[request_id] = req
         self.scheduler.add_request(req)
 
+    @engine_thread_only
     def cancel(self, request_id: str) -> None:
         req = self._requests.get(request_id)
         if req and req.state is not RequestState.FINISHED:
@@ -451,6 +433,8 @@ class EngineCore:
 
     # -- stepping ---------------------------------------------------------
 
+    @engine_thread_only
+    @hot_path
     def step(self) -> List[TokenDelta]:
         """Run one engine iteration; returns token deltas (may be empty).
 
@@ -460,6 +444,7 @@ class EngineCore:
         `duty`-th window; newly prefilled requests park until their first
         token's copy lands and merge into the window cohort in batches.
         Any change the windows cannot absorb drains the pipeline first."""
+        self.flight.beat()  # stall-watchdog heartbeat: one float store
         deltas: List[TokenDelta] = []
         self._settle_first_tokens(deltas, block=False)
         self._plan_mixed_budget()
@@ -503,8 +488,49 @@ class EngineCore:
                 deltas.extend(d)
 
         self._collect_dead(deltas)
+        self.step_count += 1
+        if self.flight.enabled and self.step_count % 64 == 0:
+            # Periodic cumulative-counter breadcrumb: consecutive events
+            # give a postmortem reader per-interval deltas.
+            self._flight_counters()
         self._refresh_metrics()
         return deltas
+
+    def _flight_recompile(self, key) -> None:
+        """EngineStepCounters first-seen-shape hook: the dispatch may
+        build a kernel library or meet a shape's first allocation — leave
+        a breadcrumb naming the program and shape.  The compile stamp
+        runs regardless of recording: the stall watchdog widens its
+        threshold while a step is legitimately stuck in a first use."""
+        self.flight.note_compile()
+        if self.flight.enabled:
+            self.flight.record("recompile", tag=str(key[0]),
+                               sig=repr(key[1:]))
+
+    def _harvest_program(self, first_seen: bool, tag: str, sig: tuple, *,
+                         steps: int, tokens: int, kv_tokens: int) -> None:
+        """Feed the device profiler's registry on a first-seen shape
+        (note_dispatch returned True) with the modeled cost of one
+        dispatch of it; one branch on every warm dispatch."""
+        if first_seen and self.profiler.enabled:
+            flops, nbytes = device_profiler.modeled_step_cost(
+                self.config.model, steps=steps, tokens=tokens,
+                kv_tokens=kv_tokens,
+                kv_bytes_per_token=self._ctx_token_bytes)
+            self.profiler.harvest(tag, sig, flops, nbytes)
+
+    @hot_path
+    def _flight_counters(self) -> None:
+        """Cumulative EngineStepCounters breadcrumb (pre-computed host
+        ints only); the dump reader diffs consecutive events."""
+        c = self.counters
+        self.flight.record(
+            "counters", step=self.step_count,
+            host_syncs=c.host_syncs, recompiles=c.xla_cache_misses,
+            windows=c.window_dispatches,
+            singles=c.single_step_dispatches,
+            prefills=c.prefill_dispatches, spec=c.spec_dispatches,
+            uploads=c.h2d_uploads)
 
     def _plan_mixed_budget(self) -> None:
         """This step's (duty, chunk budget) from the controller, after
@@ -678,12 +704,21 @@ class EngineCore:
         c.prefill_dispatches += 1
         c.model_rows += R * T
         self._prefill_cost_tokens += sum(w.length for w in items)
+        fl = self.flight
+        if fl.enabled:
+            fl.record("prefill", rows=R, chunk=T, pages=P)
+        # JAX's padded-prefill signature: (rows, chunk, pages, multimodal,
+        # sp-eligible); only the sp batch takes this plane here.
+        sig = (R, T, P, False, True)
+        first = c.note_dispatch("prefill", *sig)
         c.sp_prefill_dispatches += 1
         c.sp_prefill_count += len(items)
         sp = self.ring.sp
-        c.ring_exchange_bytes_modeled += (
+        c.note_ring_exchange(
             sum(w.length for w in items)
             * self.cache_cfg.ring_payload_bytes_per_token * (sp - 1) // sp)
+        self._harvest_program(first, "prefill", sig, steps=1, tokens=R * T,
+                              kv_tokens=R * P * bs)
         cfg = self.config.model
         if ring_kernel_supported(
                 cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, T // sp,
@@ -740,9 +775,17 @@ class EngineCore:
             n = min(len(req.pages), P)
             bts[i, :n] = req.pages[:n]
             off += -(-L // PACK_ALIGN) * PACK_ALIGN
-        self.counters.prefill_dispatches += 1
-        self.counters.model_rows += T
+        c = self.counters
+        c.prefill_dispatches += 1
+        c.packed_prefill_dispatches += 1
+        c.model_rows += T
+        first = c.note_dispatch("prefill_packed", T, R, P)
+        fl = self.flight
+        if fl.enabled:
+            fl.record("prefill_packed", tokens=T, segs=R, pages=P)
         self._prefill_cost_tokens += sum(w.length for w in items)
+        self._harvest_program(first, "prefill_packed", (T, R, P), steps=1,
+                              tokens=T, kv_tokens=R * P * bs)
         logits, self.cache = self._take_load(self._packed_step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seg_ids), self._dev(bts), self._dev(q_starts),
@@ -808,14 +851,28 @@ class EngineCore:
             live.append(req)
         if not live:
             return []
-        self.counters.single_step_dispatches += 1
-        self.counters.model_rows += bucket
+        c = self.counters
+        c.single_step_dispatches += 1
+        c.model_rows += bucket
+        fl = self.flight
+        if fl.enabled:
+            fl.record("decode1", bucket=bucket, pages=work.pages)
+        # Modeled KV bytes: this step's attention reads each live row's
+        # whole context once.
+        c.note_kv_read(sum(r.context_len for r in live)
+                       * self._ctx_token_bytes, len(live))
+        fused = (all(r.sampling.temperature <= 0 for r in live)
+                 and not any(r.sampling.logprobs for r in live))
+        tag = "decode1g" if fused else "decode1"
+        first = c.note_dispatch(tag, bucket, work.pages)
+        self._harvest_program(first, tag, (bucket, work.pages), steps=1,
+                              tokens=bucket,
+                              kv_tokens=bucket * work.pages * self.block_size)
         zeros = torch.zeros((bucket,), dtype=torch.int32, device=self.device)
         logits, self.cache = self._take_load(self._step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seq_lens), self._dev(bts), zeros))
-        if (all(r.sampling.temperature <= 0 for r in live)
-                and not any(r.sampling.logprobs for r in live)):
+        if fused:
             # Fused greedy step: argmax on the device, one [bucket] copy.
             toks_dev, lps_dev = greedy_sample(logits), None
         else:
@@ -918,8 +975,19 @@ class EngineCore:
                 seeds[i] = self._row_seed(req)
                 indices[i] = self._draw_index(req)
         c = self.counters
+        first = c.note_dispatch("spec", bucket, T, width)
         c.spec_dispatches += 1
         c.model_rows += bucket * T
+        fl = self.flight
+        if fl.enabled:
+            fl.record("spec", bucket=bucket, chunk=T, width=width)
+        # One sweep of each row's KV serves up to T emitted tokens (the
+        # tokens are tallied below, from what reaches the stream).
+        c.note_kv_read(sum(r.context_len + K for r in reqs)
+                       * self._ctx_token_bytes, 0)
+        self._harvest_program(first, "spec", (bucket, T, width), steps=1,
+                              tokens=bucket * T,
+                              kv_tokens=bucket * width * self.block_size)
         logits, self.cache = self._take_load(self._step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seq_lens), self._dev(bts), None))
@@ -942,6 +1010,7 @@ class EngineCore:
                 self._publish_completed_blocks(req)
                 deltas.append(self._append_token(req, int(tok)))
                 appended += 1
+            c.note_kv_read(0, appended)
             # Counted as JAX counts them: what reached the stream, over
             # the tokens the drafter really proposed.
             if draft_lens[i] and stats is not None:
@@ -1011,8 +1080,30 @@ class EngineCore:
             st["pages_sig"] = pages_sig
             self.counters.h2d_uploads += 1
         self._window_state = st
-        self.counters.window_dispatches += 1
-        self.counters.model_rows += bucket * K
+        c = self.counters
+        c.window_dispatches += 1
+        c.model_rows += bucket * K
+        first = c.note_dispatch("window", greedy_only, bucket, width)
+        fl = self.flight
+        if fl.enabled:
+            # The one ring write a window dispatch makes.
+            fl.record("window", bucket=bucket, width=width, lag=lag)
+        # Modeled KV bytes: window step i of K reads context shadow + i a
+        # row; the tokens are tallied at the sync, from what reaches the
+        # stream (a finished row's discarded tail is not emitted).
+        c.note_kv_read(sum(sh * K + K * (K - 1) // 2 for sh in shadows)
+                       * self._ctx_token_bytes, 0)
+        self._harvest_program(first, "window", (greedy_only, bucket, width),
+                              steps=K, tokens=bucket,
+                              kv_tokens=bucket * width * bs)
+        # The window's span on its stream, read at its sync (no sync of
+        # its own): the measured side of the device profiler's
+        # window_time series.
+        span = None
+        if self.profiler.enabled and self.device.type == "cuda":
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            span[0].record()
 
         if lag:
             last_tokens = self._inflight[-1]["out"][K - 1]  # on device
@@ -1029,10 +1120,13 @@ class EngineCore:
                 st["bts"], st["temp"], st["topk"], st["topp"], st["seeds"],
                 st["off"]))
         st["pos_host"][rows] += K
+        if span is not None:
+            span[1].record()
         self._inflight.append({
             "rids": [r.request_id for r in reqs],
             "reqs": list(reqs),
             "out": out,
+            "span": span,
             "copy": _HostCopy(out, self._copy_stream),
             # Prefill dispatched since the previous window runs on the
             # device before this one: its sync interval absorbs it.
@@ -1099,6 +1193,12 @@ class EngineCore:
         self.counters.host_syncs += 1
         self.counters.window_syncs += 1
         tokens = entry["copy"].result()                    # [K, bucket]
+        span = entry["span"]
+        # The copy waited on the window's stream past its end event, so
+        # both events are complete (query() confirms without blocking).
+        if span is not None and span[1].query():
+            self.counters.note_window_device_time(
+                span[0].elapsed_time(span[1]) / 1000.0)
         # Measured mixed-prefill cost: with the pipeline full, the wall
         # interval between consecutive syncs tracks the device's window
         # time, and a window with prefill before it carries that cost.
@@ -1118,6 +1218,7 @@ class EngineCore:
                     continue  # finished/cancelled mid-window: discard tail
                 self._publish_completed_blocks(req)
                 deltas.append(self._append_token(req, int(tokens[i, col])))
+                self.counters.note_kv_read(0, 1)  # real emission only
         return deltas
 
     def _drain_inflight(self) -> List[TokenDelta]:
@@ -1176,6 +1277,9 @@ class EngineCore:
             self._finish(req, FinishReason.LENGTH)
             return
         logger.info("preempting %s: out of KV blocks", req.request_id)
+        fl = self.flight
+        if fl.enabled:
+            fl.record("preempt", rid=req.request_id, need_pages=total_need)
         if not self._managed_cache:
             # Plain allocator: the pages really are gone; they are
             # published again on the recompute pass.  (The managed source
@@ -1192,6 +1296,10 @@ class EngineCore:
         """(tokens[n], logprobs[n] or None) on the device."""
         n = logits.shape[0]
         reqs = reqs[:n]
+        want_lp = any(r.sampling.logprobs for r in reqs)
+        self.counters.note_dispatch(
+            "sample", n, all(r.sampling.temperature <= 0 for r in reqs),
+            want_lp)
         if all(r.sampling.temperature <= 0 for r in reqs):
             toks = greedy_sample(logits)
         else:
@@ -1207,12 +1315,17 @@ class EngineCore:
                 [self._row_seed(r) if r.sampling.temperature > 0 else None
                  for r in reqs],
                 [self._draw_index(r) for r in reqs])
-        lps = (chosen_logprobs(logits, toks)
-               if any(r.sampling.logprobs for r in reqs) else None)
+        lps = chosen_logprobs(logits, toks) if want_lp else None
         return toks, lps
 
+    @hot_path
     def _append_token(self, req: Request, token: int,
                       logprob: Optional[float] = None) -> TokenDelta:
+        if req.first_token_ts is None:
+            req.first_token_ts = time.monotonic()
+            self._trace_first_token(req)
+            if request_ledger.enabled():
+                self._note_ledger_timings(req)
         req.output_tokens.append(token)
         lp = ([logprob] if (logprob is not None and req.sampling.logprobs)
               else None)
@@ -1230,6 +1343,54 @@ class EngineCore:
             return delta
         return TokenDelta(req.request_id, [token], logprobs=lp,
                           cached_tokens=cached)
+
+    def _trace_first_token(self, req: Request) -> None:
+        """Admission→first-token spans, recorded on the engine thread when
+        the request's first token lands, from timestamps the scheduler
+        already stamps: no device work, no host sync, and nothing unless
+        tracing is on AND the serving layer bound a context for this
+        request id (LocalEngineClient / engine_wire_handler)."""
+        tracer = tracing.get_tracer()
+        if not tracer.enabled:
+            return
+        ctx = tracer.ctx_for(req.request_id)
+        if ctx is None:
+            return
+        first = req.first_token_ts
+        pf_start = req.prefill_start_ts or req.arrival_ts
+        pf_end = req.prefill_end_ts or first
+        tracer.record_span("engine.queue_wait", ctx,
+                           req.arrival_ts, pf_start,
+                           attrs={"request_id": req.request_id})
+        tracer.record_span(
+            "engine.prefill", ctx, pf_start, pf_end,
+            attrs={"request_id": req.request_id,
+                   "prompt_tokens": len(req.prompt_tokens)})
+        tracer.record_span("engine.ttft", ctx, req.arrival_ts, first,
+                           attrs={"request_id": req.request_id})
+
+    def _note_ledger_timings(self, req: Request) -> None:
+        """Park this request's admission→first-token scalars for the
+        serving layer's ledger stamps: one bounded dict insert per
+        request lifetime, no device work, behind the ledger's guard."""
+        t = self._ledger_timings
+        if len(t) >= 1024:
+            t.pop(next(iter(t)))     # oldest never-popped entry out
+        t[req.request_id] = (
+            req.arrival_ts,
+            req.prefill_start_ts or req.arrival_ts,
+            req.prefill_end_ts or req.first_token_ts,
+            req.first_token_ts,
+            len(req.prompt_tokens),
+            req.cached_prompt_tokens,
+            req.preempts)
+
+    def pop_ledger_timings(self, request_id: str):
+        """(arrival, prefill_start, prefill_end, first_token,
+        prompt_tokens, cached_tokens, preempts) or None — popped once by
+        the serving layer when the first token-bearing delta crosses the
+        event loop."""
+        return self._ledger_timings.pop(request_id, None)
 
     def _finish(self, req: Request, reason: FinishReason) -> None:
         # With the managed source, sealed blocks stay resident (inactive,
@@ -1255,6 +1416,7 @@ class EngineCore:
         return (self._kv_event_sink is not None
                 and self.config.enable_kv_events)
 
+    @hot_path
     def _publish_completed_blocks(self, req: Request) -> None:
         """Register the blocks this request has sealed since the last call
         with the block source, so later prompts can match them, and emit
@@ -1341,6 +1503,7 @@ class EngineCore:
                 "decode workers must run the same --kv-quant mode; "
                 "refusing to inject")
 
+    @engine_thread_only
     def export_blocks_device(self, hashes) -> Dict[int, torch.Tensor]:
         """Resident blocks' wire bytes on the device, one extract for the
         batch (views of one staging tensor that shares nothing with the
@@ -1349,6 +1512,7 @@ class EngineCore:
             return {}
         return self.allocator.manager.export_blocks_device(hashes)
 
+    @engine_thread_only
     def export_blocks(self, hashes) -> Dict[int, torch.Tensor]:
         """Resident blocks' wire bytes on the host: one extract and one
         device-to-host copy for the batch."""
@@ -1359,6 +1523,7 @@ class EngineCore:
             return {}
         return dict(zip(present, staged.cpu().unbind(0)))
 
+    @engine_thread_only
     def resident_prefix_blocks(self, hashes) -> int:
         """Length of the contiguous prefix of `hashes` resident on the
         device (host lookups only)."""
@@ -1372,6 +1537,7 @@ class EngineCore:
             n += 1
         return n
 
+    @engine_thread_only
     def import_blocks(self, blocks: Dict[int, torch.Tensor]) -> int:
         """Inject fetched blocks as registered prefix-cache entries; a
         later request with the matching prompt prefix skips their
@@ -1382,6 +1548,7 @@ class EngineCore:
             self._validate_block(data)
         return self.allocator.manager.import_blocks(blocks)
 
+    @engine_thread_only
     def clear_prefix_cache(self) -> int:
         """Admin flush of every reusable cached block (engine thread);
         returns how many were dropped, each reported REMOVED."""
@@ -1390,6 +1557,7 @@ class EngineCore:
 
     # -- embeddings (engine thread only) --------------------------------------
 
+    @engine_thread_only
     def embed_tokens(self, token_lists: List[List[int]]) -> np.ndarray:
         """The final-norm hidden state of each prompt's last token: [n, H]
         f32.  One padded prefill per group of R prompts (the gathered
@@ -1506,6 +1674,10 @@ class InferenceEngine:
     async def start(self) -> None:
         self._loop = asyncio.get_running_loop()
         self.core.seal_sink = self._on_seal
+        # Ownership transfer: the core (and its pools) may have been built
+        # and stepped on the constructing thread; the step-loop thread
+        # owns them from here on (thread-affinity pins re-pin).
+        contracts.release_owner(*self._contract_owned())
         self._thread = threading.Thread(
             target=self._run_loop, name="engine-step-loop", daemon=True)
         self._thread.start()
@@ -1521,16 +1693,29 @@ class InferenceEngine:
             m.moe_dropped_tokens = self.core.moe_dropped_tokens
         return m
 
+    def _contract_owned(self):
+        """Everything whose @engine_thread_only pin follows the step loop:
+        the core, its block source and the device pool behind it."""
+        owned = [self.core, self.core.allocator]
+        manager = getattr(self.core.allocator, "manager", None)
+        if manager is not None:
+            owned += [manager, manager.device]
+        return owned
+
     async def stop(self) -> None:
         self._stop.set()
         self._wake.set()
         if self._thread:
             await asyncio.to_thread(self._thread.join, 10.0)
+        # The step loop is gone: tests may drive the core directly.
+        contracts.release_owner(*self._contract_owned())
 
     def _run_loop(self) -> None:
+        contracts.register_engine_thread()
         try:
             self._step_loop()
         finally:
+            contracts.unregister_engine_thread()
             # Engine-thread calls nobody will run fail rather than hang.
             with self._cmd_lock:
                 calls, self._pending_calls = self._pending_calls, []
@@ -1570,9 +1755,10 @@ class InferenceEngine:
             except Exception as e:   # raised to the awaiting caller
                 result, exc = None, e
             self._loop.call_soon_threadsafe(self._resolve, fut, result, exc)
-        for rid, prompt, sampling in adds:
+        for rid, prompt, sampling, arrival in adds:
             try:
-                self.core.add_request(rid, prompt, sampling)
+                self.core.add_request(rid, prompt, sampling,
+                                      arrival_ts=arrival)
             except ValueError as e:
                 self._dispatch(TokenDelta(
                     request_id=rid, token_ids=[], finished=True,
@@ -1596,6 +1782,7 @@ class InferenceEngine:
             return
         self._loop.call_soon_threadsafe(q.put_nowait, delta)
 
+    @never_engine_thread
     async def generate(self, request_id: str, prompt_tokens: List[int],
                        sampling: SamplingParams) -> AsyncIterator[TokenDelta]:
         """Submit and stream deltas until the request finishes; closing
@@ -1603,7 +1790,8 @@ class InferenceEngine:
         q: asyncio.Queue = asyncio.Queue()
         self._queues[request_id] = q
         with self._cmd_lock:
-            self._pending_adds.append((request_id, prompt_tokens, sampling))
+            self._pending_adds.append((request_id, prompt_tokens, sampling,
+                                       time.monotonic()))
         self._wake.set()
         try:
             while True:
@@ -1617,8 +1805,15 @@ class InferenceEngine:
                 self._pending_cancels.append(request_id)
             self._wake.set()
 
+    def pop_ledger_timings(self, request_id: str):
+        """Event-loop read of the core's parked first-token timings (the
+        request ledger's engine phases): a bounded dict pop of host
+        scalars, safe off the engine thread."""
+        return self.core.pop_ledger_timings(request_id)
+
     # -- seal-progress stream (disagg eager KV streaming) -------------------
 
+    @hot_path
     def _on_seal(self, request_id: str, sealed_blocks: int) -> None:
         """Engine-thread callback: forward a request's sealed-block count
         to its watcher; a dict miss when nobody watches."""
@@ -1627,6 +1822,7 @@ class InferenceEngine:
             return
         self._loop.call_soon_threadsafe(q.put_nowait, sealed_blocks)
 
+    @never_engine_thread
     def watch_seals(self, request_id: str) -> asyncio.Queue:
         """Subscribe to a request's prefill progress: the queue yields its
         count of sealed (registered) blocks so far."""
@@ -1639,6 +1835,7 @@ class InferenceEngine:
 
     # -- engine-thread calls ------------------------------------------------
 
+    @never_engine_thread
     async def run_in_engine(self, fn):
         """Run fn() on the engine thread between steps (the cache is
         updated in place, so no read or write may race a step); returns
@@ -1651,25 +1848,31 @@ class InferenceEngine:
         self._wake.set()
         return await fut
 
+    @never_engine_thread
     async def export_blocks(self, hashes) -> Dict[int, torch.Tensor]:
         return await self.run_in_engine(
             lambda: self.core.export_blocks(hashes))
 
+    @never_engine_thread
     async def export_blocks_device(self, hashes) -> Dict[int, torch.Tensor]:
         return await self.run_in_engine(
             lambda: self.core.export_blocks_device(hashes))
 
+    @never_engine_thread
     async def import_blocks(self, blocks) -> int:
         return await self.run_in_engine(
             lambda: self.core.import_blocks(blocks))
 
+    @never_engine_thread
     async def resident_prefix_blocks(self, hashes) -> int:
         return await self.run_in_engine(
             lambda: self.core.resident_prefix_blocks(hashes))
 
+    @never_engine_thread
     async def clear_kv_blocks(self) -> int:
         return await self.run_in_engine(self.core.clear_prefix_cache)
 
+    @never_engine_thread
     async def embed(self, token_lists) -> np.ndarray:
         """[n, H] f32 embeddings, one engine-thread call an input, so the
         decode steps of streams in flight run between the inputs."""

@@ -16,16 +16,20 @@ cached pages are pinned and reused, only the remainder is allocated, and
 `prefix_hit_tokens` / `prefix_miss_tokens` count the prompt tokens whose
 prefill was skipped and computed.
 
+Requests carry the JAX scheduler's timestamps (arrival, prefill start
+and end, first token) and preemption count, which the engine's tracing
+spans and ledger stamps read.
+
 Left out of this copy: the flight-recorder breadcrumbs, QoS classes and
-SLO-pressure preemption, the dp-attention sharded allocator, the
-padded-prefill row buckets and the tracing/ledger timestamps (none is
-ported yet).  Admission is FCFS, which is what the JAX scheduler does
+SLO-pressure preemption, the dp-attention sharded allocator and the
+padded-prefill row buckets (none is ported yet).  Admission is FCFS, which is what the JAX scheduler does
 when every request has the default priority and no SLO pressure is wired.
 """
 
 from __future__ import annotations
 
 import enum
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -73,6 +77,13 @@ class Request:
     # Memoized chained hashes of the sealed prompt blocks (admission
     # retries must not re-hash); None = not computed yet.
     block_hashes: Optional[tuple] = None
+    # Lifecycle timestamps (monotonic) for the tracing spans and the
+    # request ledger, and the recompute preemptions this request took.
+    arrival_ts: float = field(default_factory=time.monotonic)
+    first_token_ts: Optional[float] = None
+    prefill_start_ts: Optional[float] = None
+    prefill_end_ts: Optional[float] = None
+    preempts: int = 0
 
     @property
     def total_len(self) -> int:
@@ -433,6 +444,8 @@ class Scheduler:
             chunk = min(remaining, self.config.max_prefill_chunk, budget)
             if chunk <= 0:
                 continue
+            if req.prefill_start_ts is None:
+                req.prefill_start_ts = time.monotonic()
             items.append(PrefillWork(
                 request=req, start=req.prefilled, length=chunk))
             budget -= chunk
@@ -446,6 +459,7 @@ class Scheduler:
         recompute: generated tokens fold into the prompt, and the recompute
         prefill's completion samples the next token exactly as if decode
         had continued."""
+        req.preempts += 1
         if req in self.running:
             self.running.remove(req)
         if req.slot is not None:
@@ -469,6 +483,7 @@ class Scheduler:
         req.prefilled += work.length
         if req.prefilled >= len(req.prompt_tokens):
             req.state = RequestState.DECODE
+            req.prefill_end_ts = time.monotonic()
 
     def finish(self, req: Request, reason: FinishReason) -> None:
         req.state = RequestState.FINISHED

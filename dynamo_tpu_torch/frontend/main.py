@@ -32,6 +32,17 @@ overlap the workers' KV events report and their load):
 
 Its `/debug/stats` reports the frontend-side per-request timings; each
 worker's `--health-port` serves its engine's stats.
+
+Observability, with JAX's flags: `--trace [--trace-sample R
+--trace-slow-ms MS --trace-ring N --trace-slow-log PATH]` (spans in
+`/debug/traces`), `--slo-ttft-p99 S` / `--slo-tpot-p99 S` /
+`--slo-error-rate F` (burn rates in `/debug/slo` and `dynamo_slo_*`),
+`--flight-recorder on|off --flight-ring N --flight-dump-dir DIR` (the
+ring in `/debug/flightrecorder`, JSONL dumps on SLO PAGE, slow requests,
+SIGUSR2 and exit) and `--request-ledger on|off` (`/debug/requests`,
+`dynamo_request_phase_seconds`, the goodput pair); `/metrics` serves
+them all.  The single-process frontend's engine keeps its device
+profiler off (workers take `--device-profiler`).
 """
 
 from __future__ import annotations
@@ -46,7 +57,6 @@ from typing import Optional
 from dynamo_tpu_torch.engine.engine import (
     EngineConfig,
     EngineCore,
-    EngineCounters,
     InferenceEngine,
 )
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
@@ -57,6 +67,8 @@ from dynamo_tpu_torch.llm.service import LocalEngineClient, ModelHandle, ModelMa
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 from dynamo_tpu_torch.models.config import get_config
 from dynamo_tpu_torch.ops import cuda as kernels
+from dynamo_tpu_torch.runtime import flight_recorder, ledger, slo, tracing
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 logger = logging.getLogger("dynamo_tpu_torch.frontend")
 
@@ -111,6 +123,10 @@ def parse_args(argv=None):
                         "past the engine's threshold run ring attention "
                         "over N ranks (the long-context prefill path); "
                         "decode stays on the first card")
+    tracing.add_trace_args(p)
+    slo.add_slo_args(p)
+    flight_recorder.add_flight_args(p)
+    ledger.add_ledger_args(p)
     return p.parse_args(argv)
 
 
@@ -190,23 +206,20 @@ def stats_hooks(core: EngineCore):
         kernels.reset_launch_counts()
         core.reset_expert_load()
         core.reset_prefix_stats()
-        # The cost calibration is engine state, not a statistic: it
-        # carries over.
-        old = core.counters
-        core.counters = EngineCounters(
-            decode_token_cost_ewma=old.decode_token_cost_ewma,
-            prefill_token_cost_ewma=old.prefill_token_cost_ewma,
-            prefill_cost_samples=old.prefill_cost_samples)
+        # The cost calibration and the shapes seen are engine state, not
+        # statistics: they carry over.
+        core.counters.reset_counts()
         if core.metrics.spec_decode_stats is not None:
             core.metrics.spec_decode_stats = SpecDecodeStats()
 
     return stats, reset_stats
 
 
-async def start_discovery(args, models: ModelManager):
+async def start_discovery(args, models: ModelManager, registry=None):
     """Distributed mode: watch the control plane's `models/` prefix and
-    register each model's routed pipeline; returns the watcher and the
-    shutdown coroutines, outermost first."""
+    register each model's routed pipeline (the router's and migration's
+    series on `registry`); returns the watcher and the shutdown
+    coroutines, outermost first."""
     from dynamo_tpu_torch.llm.discovery import ModelWatcher
     from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
@@ -216,12 +229,21 @@ async def start_discovery(args, models: ModelManager):
     await cp.start()
     runtime = DistributedRuntime(cp)
     watcher = ModelWatcher(runtime, models, router_mode=args.router_mode,
-                           migration_limit=args.migration_limit)
+                           migration_limit=args.migration_limit,
+                           registry=registry)
     await watcher.start()
     return watcher, [watcher.stop, runtime.shutdown, cp.close]
 
 
 async def run(args) -> None:
+    tracing.configure_from_args(args, service="frontend")
+    # The frontend's flight recorder holds SLO transitions and slow
+    # requests; crash / SIGUSR2 / exit dumps armed here.
+    flight_recorder.configure_from_args(
+        args, service="frontend").install_crash_dump()
+    ledger.configure_from_args(args)
+    # One registry for the process: the HTTP series and the router's.
+    registry = MetricsRegistry()
     shutdowns = []
     if args.serve_control_plane:
         from dynamo_tpu_torch.runtime.control_plane import ControlPlaneState
@@ -236,12 +258,12 @@ async def run(args) -> None:
         shutdowns.append(cp_server.stop)
     models = ModelManager()
     if args.control_plane:
-        watcher, stops = await start_discovery(args, models)
+        watcher, stops = await start_discovery(args, models, registry)
         shutdowns[:0] = stops
         # Beside the request timings: the blocks the KV router indexes
         # per model and worker.
         svc = HttpService(models, stats=lambda: {
-            "kv_index": watcher.kv_index_blocks()})
+            "kv_index": watcher.kv_index_blocks()}, registry=registry)
         banner = (f"discovering models via {args.control_plane} (router "
                   f"{args.router_mode})")
     else:
@@ -249,13 +271,24 @@ async def run(args) -> None:
         models.register(handle)
         shutdowns.append(shutdown)
         stats, reset_stats = stats_hooks(core)
-        svc = HttpService(models, stats=stats, reset_stats=reset_stats)
+        svc = HttpService(models, stats=stats, reset_stats=reset_stats,
+                          registry=registry)
         cfg = core.config.model
         banner = (f"serving {handle.name!r} ({args.model}, {cfg.num_layers} "
                   f"layers, moe_mode {core.moe_mode}, kv_quant "
                   f"{core.cache_cfg.kv_quant}, on {core.device}"
                   + (f", sp {core.ring.sp} ranks on {core.ring.describe()}"
                      if core.ring is not None else "") + ")")
+    # Goodput: the ledger sink judges requests by the SLO thresholds;
+    # the monitor's PAGEs name the dominant ledger phase.
+    svc.ledger_sink.slo_ttft = args.slo_ttft_p99
+    svc.ledger_sink.slo_tpot = args.slo_tpot_p99
+    svc.slo_monitor = slo.monitor_from_args(
+        args, svc.request_metrics, registry=registry,
+        attribution_fn=svc.ledger_sink.dominant_phase)
+    if svc.slo_monitor is not None:
+        svc.slo_monitor.start(interval=args.slo_tick)
+        shutdowns.insert(0, svc.slo_monitor.stop)
     stop_ev = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):

@@ -43,6 +43,7 @@ from dynamo_tpu_torch.llm.block_manager.transfer import (
     pull_prefix,
     sealed_hashes,
 )
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.rpc import RpcError
 
 logger = logging.getLogger(__name__)
@@ -188,36 +189,46 @@ class EagerPuller:
         self._announced = True
         self.early_blocks = min(self.streamed_blocks, len(self.hashes))
         self.early_bytes = self.streamed_bytes
-        await self._drain_tasks()
-        await self._inject_ready()
-        self._ready.clear()   # non-contiguous islands: the residual refetches
-        covered = self.covered_tokens
-        if covered < len(self.hashes) * self.block_size:
-            self.done_pulls += 1
-        if not self._device_off:
-            # Device-first residual; a kv-quant ValueError propagates,
-            # transport errors fall to the host residual.
-            try:
-                covered = await pull_prefix_device(
-                    self.engine, self.plane, self._rpc_for(address),
-                    self.prompt_tokens, self.block_size,
-                    covered_tokens=covered, context="eager")
-            except (ConnectionError, OSError, RpcError, RuntimeError) as e:
-                self._device_off = True
-                self._host_reason = "pull_failed"
-                logger.warning("eager device residual from %s failed (%s); "
-                               "host-staged residual", address, e)
-            gained = covered // self.block_size - self.covered_blocks
-            if gained > 0:
-                self.device_blocks += gained
-            self.covered_blocks = max(self.covered_blocks,
-                                      covered // self.block_size)
-        before = covered
-        covered = await pull_prefix(
-            self.engine, self._rpc_for(address), self.prompt_tokens,
-            self.block_size, covered_tokens=covered)
-        if covered > before:
-            note_plane("host", self._host_reason)
+        # `with` makes the span task-current: the residual pulls' spans
+        # (and their RPC children) nest under the overall pull.
+        with tracing.get_tracer().start_span(
+                "kv.pull",
+                attrs={"blocks_total": len(self.hashes),
+                       "blocks_streamed": self.early_blocks,
+                       "bytes_streamed": self.early_bytes}) as span:
+            await self._drain_tasks()
+            await self._inject_ready()
+            self._ready.clear()  # non-contiguous islands: residual refetches
+            covered = self.covered_tokens
+            if covered < len(self.hashes) * self.block_size:
+                self.done_pulls += 1
+            if not self._device_off:
+                # Device-first residual; a kv-quant ValueError propagates,
+                # transport errors fall to the host residual.
+                try:
+                    covered = await pull_prefix_device(
+                        self.engine, self.plane, self._rpc_for(address),
+                        self.prompt_tokens, self.block_size,
+                        covered_tokens=covered, context="eager")
+                except (ConnectionError, OSError, RpcError,
+                        RuntimeError) as e:
+                    self._device_off = True
+                    self._host_reason = "pull_failed"
+                    logger.warning("eager device residual from %s failed "
+                                   "(%s); host-staged residual", address, e)
+                gained = covered // self.block_size - self.covered_blocks
+                if gained > 0:
+                    self.device_blocks += gained
+                self.covered_blocks = max(self.covered_blocks,
+                                          covered // self.block_size)
+            before = covered
+            covered = await pull_prefix(
+                self.engine, self._rpc_for(address), self.prompt_tokens,
+                self.block_size, covered_tokens=covered)
+            if covered > before:
+                note_plane("host", self._host_reason)
+            span.set_attr(overlap_ratio=round(self.overlap_ratio, 4),
+                          tokens_covered=covered)
         self._closed = True   # late announcements are no-ops now
         return covered
 

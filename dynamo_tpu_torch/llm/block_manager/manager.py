@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from dynamo_tpu_torch.llm.block_manager.pool import BlockPool
+from dynamo_tpu_torch.runtime.contracts import engine_thread_only
 
 ExtractFn = Callable[[List[int]], torch.Tensor]
 InjectFn = Callable[[List[int], torch.Tensor], None]
@@ -57,6 +58,7 @@ class KvBlockManager:
                                 reserve_null=True)
         self.onboarded_blocks = 0
 
+    @engine_thread_only
     def match_and_onboard(self, hashes: Sequence[int]) -> Tuple[int, List[int]]:
         """The longest prefix of `hashes` resident on the device, pinned
         for the caller (release with `release`): (blocks, page ids).  With
@@ -132,6 +134,7 @@ class KvBlockManager:
         self.onboarded_blocks += done
         return done
 
+    @engine_thread_only
     def import_block(self, block_hash: int, data: torch.Tensor) -> bool:
         """Inject one fetched block (see `import_blocks`); False when it
         is already resident or the pool has no room."""

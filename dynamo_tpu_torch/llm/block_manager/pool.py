@@ -20,6 +20,8 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
+from dynamo_tpu_torch.runtime.contracts import engine_thread_only, hot_path
+
 
 @dataclass
 class Slot:
@@ -80,6 +82,7 @@ class BlockPool:
 
     # -- matching ---------------------------------------------------------
 
+    @engine_thread_only
     def match_sequence_hashes(self, hashes: Sequence[int]) -> List[Slot]:
         """Longest registered prefix; the slots are not pinned yet (see
         acquire_matched)."""
@@ -91,6 +94,7 @@ class BlockPool:
             out.append(slot)
         return out
 
+    @engine_thread_only
     def acquire_matched(self, slots: Sequence[Slot]) -> List[int]:
         """Pin matched slots (reviving inactive ones); returns slot ids."""
         ids = []
@@ -107,6 +111,8 @@ class BlockPool:
     def can_allocate(self, n: int) -> bool:
         return n <= self.reusable_slots
 
+    @engine_thread_only
+    @hot_path
     def allocate(self, n: int) -> List[int]:
         """Take n fresh slots, evicting LRU inactive blocks as needed."""
         if not self.can_allocate(n):
@@ -134,6 +140,7 @@ class BlockPool:
 
     # -- registration -----------------------------------------------------
 
+    @engine_thread_only
     def register(self, slot_index: int, block_hash: int) -> bool:
         """Publish a completed block under its hash.  A hash already
         registered (to any slot) keeps its registration and this returns
@@ -149,6 +156,7 @@ class BlockPool:
 
     # -- release ----------------------------------------------------------
 
+    @engine_thread_only
     def release(self, slot_indices: Sequence[int]) -> None:
         """Unpin; refcount-0 slots go inactive if registered (a future
         prefix hit), else straight back to the free list.  The last page

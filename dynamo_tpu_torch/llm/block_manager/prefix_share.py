@@ -1,6 +1,8 @@
 """Fleet-wide prefix reuse: pull a peer worker's sealed prefix blocks
 (port of `dynamo_tpu/llm/block_manager/prefix_share.py`, without the
-KV-carrying migration hint and the ledger and flight-recorder stamps).
+KV-carrying migration hint, which waits for the drain).  A pull is a
+`kv.prefix_share` span, and a hinted request's pull stamps its ledger's
+`kv_transfer` phase.
 
 When the KV router sends a request to a worker whose own overlap is poor
 while a peer's is deep, it attaches a remote-prefix hint
@@ -31,6 +33,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -48,6 +51,9 @@ from dynamo_tpu_torch.llm.block_manager.transfer import (
     resident_blocks,
     sealed_hashes,
 )
+from dynamo_tpu_torch.runtime import tracing
+from dynamo_tpu_torch.runtime.contracts import never_engine_thread
+from dynamo_tpu_torch.runtime.ledger import ledger_of
 from dynamo_tpu_torch.runtime.rpc import RpcError
 
 logger = logging.getLogger(__name__)
@@ -201,35 +207,43 @@ class PrefixFetcher:
         # The frontier survives a failed pull: blocks that landed stay
         # injected, and the local prefill fallback matches them.
         progress = {"frontier": local}
-        try:
-            covered = await asyncio.wait_for(
-                self._pull_batches(hashes, local, address,
-                                   list(prompt_tokens), progress),
-                self._timeout_for(want_blocks - local))
-        except (asyncio.TimeoutError, ConnectionError, OSError,
-                RpcError) as e:
-            self.fallbacks += 1
-            covered = progress["frontier"] * self.block_size
-            logger.warning(
-                "remote-prefix pull from %s failed (%s); prefilling "
-                "locally%s", address, e,
-                f" (reusing {covered} landed tokens)" if covered else "")
-        except ValueError as e:
-            # A kv-quant mismatch between peers: refuse the donor loudly
-            # and prefill locally rather than serve corrupt KV.
-            self.fallbacks += 1
-            covered = progress["frontier"] * self.block_size
-            logger.error(
-                "remote-prefix pull from %s REFUSED — the peer's KV blocks "
-                "are not injectable here (mixed --kv-quant modes?): %s",
-                address, e)
-        gained = covered // self.block_size - local
-        if gained > 0:
-            self.remote_hits += 1
-            self.pulled_blocks += gained
-            self.pulled_tokens += gained * self.block_size
-        stats["gained_blocks"] = max(0, gained)
-        return covered
+        with tracing.get_tracer().start_span(
+                "kv.prefix_share",
+                attrs={"donor": address, "blocks_wanted": want_blocks,
+                       "blocks_local": local}) as span:
+            try:
+                covered = await asyncio.wait_for(
+                    self._pull_batches(hashes, local, address,
+                                       list(prompt_tokens), progress),
+                    self._timeout_for(want_blocks - local))
+            except (asyncio.TimeoutError, ConnectionError, OSError,
+                    RpcError) as e:
+                self.fallbacks += 1
+                covered = progress["frontier"] * self.block_size
+                span.set_attr(fallback="local", error=type(e).__name__)
+                logger.warning(
+                    "remote-prefix pull from %s failed (%s); prefilling "
+                    "locally%s", address, e,
+                    f" (reusing {covered} landed tokens)" if covered else "")
+            except ValueError as e:
+                # A kv-quant mismatch between peers: refuse the donor
+                # loudly and prefill locally rather than serve corrupt KV.
+                self.fallbacks += 1
+                covered = progress["frontier"] * self.block_size
+                span.set_attr(fallback="local", error="kv_mode_mismatch")
+                logger.error(
+                    "remote-prefix pull from %s REFUSED — the peer's KV "
+                    "blocks are not injectable here (mixed --kv-quant "
+                    "modes?): %s", address, e)
+            gained = covered // self.block_size - local
+            if gained > 0:
+                self.remote_hits += 1
+                self.pulled_blocks += gained
+                self.pulled_tokens += gained * self.block_size
+            stats["gained_blocks"] = max(0, gained)
+            span.set_attr(blocks_pulled=max(0, gained),
+                          tokens_covered=covered)
+            return covered
 
     async def _pull_batches(self, hashes: List[int], local: int,
                             address: str, prompt_tokens: List[int],
@@ -356,12 +370,27 @@ class PrefixShareClient:
         self.inner = inner
         self.fetcher = fetcher
 
+    @never_engine_thread
     async def generate(self, request):
         hint = decode_hint(request.annotations.get(HINT_ANNOTATION))
         covered = None
         if hint is not None:
+            led = ledger_of(request)
+            pull_stats: dict = {}
+            t0 = time.monotonic()
+            dev0 = self.fetcher.device_pulled_blocks
             covered = await self.fetcher.pull(
-                request.token_ids, hint["address"], hint["covered_tokens"])
+                request.token_ids, hint["address"], hint["covered_tokens"],
+                stats=pull_stats)
+            gained = pull_stats.get("gained_blocks", 0)
+            if led is not None and gained > 0:
+                led.stamp(
+                    "kv_transfer", dur=time.monotonic() - t0,
+                    reason="prefix",
+                    plane=("device" if self.fetcher.device_pulled_blocks
+                           > dev0 else "host"),
+                    blocks=gained, tokens=covered,
+                    donor=str(hint.get("worker") or hint["address"]))
         async for delta in self.inner.generate(request):
             if covered is not None and delta.cached_tokens is not None:
                 self.fetcher.note_admission(len(request.token_ids), covered,

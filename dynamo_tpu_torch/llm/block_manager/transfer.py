@@ -24,6 +24,7 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.tokens import compute_block_hashes
 
 logger = logging.getLogger(__name__)
@@ -186,9 +187,18 @@ async def pull_prefix(engine, rpc_client, prompt_tokens: List[int],
     want = hashes[covered_tokens // block_size:]
     if not want:
         return covered_tokens
-    blocks = await fetch_blocks(rpc_client, want)
-    contiguous = contiguous_prefix(want, blocks)
-    if not contiguous:
-        return covered_tokens
-    await engine.import_blocks(contiguous)
+    # `with` makes the span task-current: the rpc.client spans of the
+    # fetch nest under the pull, not beside it.
+    with tracing.get_tracer().start_span(
+            "kv.pull_prefix",
+            attrs={"blocks_wanted": len(want),
+                   "block_size": block_size}) as span:
+        blocks = await fetch_blocks(rpc_client, want)
+        contiguous = contiguous_prefix(want, blocks)
+        span.set_attr(
+            blocks_fetched=len(blocks), blocks_injected=len(contiguous),
+            bytes=sum(nbytes(a) for a in contiguous.values()))
+        if not contiguous:
+            return covered_tokens
+        await engine.import_blocks(contiguous)
     return covered_tokens + len(contiguous) * block_size

@@ -1,6 +1,5 @@
 """Disaggregated prefill/decode orchestration (port of
-`dynamo_tpu/llm/disagg.py`, without its tracing spans and ledger stamps:
-the counters stay).
+`dynamo_tpu/llm/disagg.py`).
 
 Long prefills run on dedicated prefill workers so decode batches never
 stall behind them; KV crosses workers on the data plane.
@@ -25,6 +24,10 @@ stall behind them; KV crosses workers on the data plane.
   (timeout, a prefill worker dead even mid-stream, a kv-quant mismatch)
   falls back to local prefill seeded with the contiguous prefix that
   landed: disagg is an optimisation, never a correctness dependency.
+  Each remote prefill is a `disagg.remote_prefill` span (the pulls'
+  spans nest under it) and stamps the request ledger's
+  `prefill_remote` and `kv_transfer` phases; with `request_metrics` the
+  onboard time and the eager overlap are observed.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from dynamo_tpu_torch.llm.block_manager.device_transfer import (
 from dynamo_tpu_torch.llm.block_manager.eager import EagerPuller
 from dynamo_tpu_torch.llm.block_manager.transfer import pull_prefix
 from dynamo_tpu_torch.llm.preprocessor import PreprocessedRequest
+from dynamo_tpu_torch.runtime import tracing
+from dynamo_tpu_torch.runtime.ledger import ledger_of
 from dynamo_tpu_torch.runtime.rpc import RpcClient, RpcError
 
 logger = logging.getLogger(__name__)
@@ -200,13 +205,16 @@ class DisaggDecodeClient:
                  block_size: int, *,
                  prefill_timeout: float = 120.0,
                  transfer_plane=None,
+                 request_metrics=None,
                  eager: bool = True) -> None:
         """`inner`: the local EngineClient; `engine`: the InferenceEngine
         (the import side of the data plane); `transfer_plane`: this
         worker's KvTransferPlane, if it runs one — blocks then cross
         device to device, the host-staged pull the fallback.  `eager`:
         stream sealed blocks while the remote prefill runs; without it,
-        the whole prefix is pulled at prefill-done."""
+        the whole prefix is pulled at prefill-done.  `request_metrics`
+        (runtime/metrics.RequestMetrics): observes the onboard time by
+        path and the eager overlap ratio."""
         self.inner = inner
         self.engine = engine
         self.cp = cp
@@ -214,6 +222,7 @@ class DisaggDecodeClient:
         self.block_size = block_size
         self.prefill_timeout = prefill_timeout
         self.transfer_plane = transfer_plane
+        self.request_metrics = request_metrics
         self.eager = eager
         self._waiters: Dict[str, asyncio.Future] = {}
         self._pullers: Dict[str, EagerPuller] = {}
@@ -311,11 +320,19 @@ class DisaggDecodeClient:
         fut = asyncio.get_running_loop().create_future()
         self._waiters[rid] = fut
         try:
-            await self._remote_prefill_inner(request, rid, fut)
+            # `with` makes the span current for the whole admission: the
+            # pulls' spans and their RPC children nest under it.
+            with tracing.get_tracer().start_span(
+                    "disagg.remote_prefill",
+                    attrs={"request_id": rid,
+                           "prompt_tokens": len(request.token_ids)}) as span:
+                await self._remote_prefill_inner(request, rid, fut, span)
         finally:
             self._waiters.pop(rid, None)
 
-    async def _remote_prefill_inner(self, request, rid, fut) -> None:
+    async def _remote_prefill_inner(self, request, rid, fut, span) -> None:
+        led = ledger_of(request)
+        t_wait = time.monotonic()
         puller = None
         if self.eager:
             # Registered before the queue push: a fast prefill worker's
@@ -330,6 +347,17 @@ class DisaggDecodeClient:
                 "request_id": rid, "model": request.model,
                 "token_ids": list(request.token_ids)})
             done = await asyncio.wait_for(fut, self.prefill_timeout)
+            span.set_attr(prefill_s=round(done.get("prefill_s", 0.0), 4),
+                          prefill_worker=done.get("address"))
+            t_pull = time.monotonic()
+            bytes0 = (self.transfer_plane.pulled_bytes
+                      if self.transfer_plane is not None else 0)
+            if led is not None:
+                # Decode-side wait for the remote prefill worker: queue
+                # push → done announcement (the eager stream overlaps it).
+                led.stamp("prefill_remote", dur=t_pull - t_wait,
+                          prefill_s=round(done.get("prefill_s", 0.0), 4),
+                          worker=str(done.get("address", "")))
             onboarded = 0
             path = "host-staged"
             if puller is not None:
@@ -353,11 +381,31 @@ class DisaggDecodeClient:
                     0, onboarded // self.block_size - puller.early_blocks)
                 self.eager_pulls += puller.early_pulls
                 self.done_pulls += puller.done_pulls
+                if self.request_metrics is not None:
+                    self.request_metrics.kv_transfer_overlap.observe(
+                        puller.overlap_ratio)
+                span.set_attr(overlap_ratio=round(puller.overlap_ratio, 4),
+                              tokens_streamed=streamed)
             else:
                 onboarded, path = await self._done_pull(request, done)
             self.remote_prefills += 1
             self.tokens_onboarded += onboarded
             settled = True
+            transfer_s = time.monotonic() - t_pull
+            if self.request_metrics is not None:
+                self.request_metrics.kv_transfer.observe(
+                    transfer_s, labels={"path": path})
+            span.set_attr(tokens_onboarded=onboarded, path=path,
+                          kv_transfer_s=round(transfer_s, 4))
+            if led is not None:
+                dev_bytes = (self.transfer_plane.pulled_bytes - bytes0
+                             if self.transfer_plane is not None else 0)
+                led.stamp(
+                    "kv_transfer", dur=transfer_s, reason="disagg",
+                    plane=("device" if path.startswith("device")
+                           else "host"),
+                    path=path, blocks=onboarded // self.block_size,
+                    tokens=onboarded, device_bytes=dev_bytes)
             logger.info("remote prefill %s: %d tokens onboarded from %s "
                         "(%s)", rid, onboarded, done["address"], path)
         except (asyncio.TimeoutError, ConnectionError, OSError,
@@ -372,6 +420,12 @@ class DisaggDecodeClient:
                 landed = await puller.abort()
                 self.tokens_onboarded += landed
             settled = True
+            span.set_attr(fallback="local", error=type(e).__name__,
+                          landed_tokens=landed)
+            if led is not None:
+                led.stamp("prefill_remote", dur=time.monotonic() - t_wait,
+                          fallback="local", error=type(e).__name__,
+                          landed_tokens=landed)
             logger.warning(
                 "remote prefill %s failed (%s); prefilling locally%s", rid,
                 e, f" (reusing {landed} landed tokens)" if landed else "")

@@ -1,6 +1,11 @@
 """Dynamic model discovery: register_llm + ModelWatcher + remote clients
-(port of `dynamo_tpu/llm/discovery.py`, without its ledger and tracing
-hooks, the multimodal attach and the metrics registry).
+(port of `dynamo_tpu/llm/discovery.py`, without its multimodal attach).
+
+The worker side opens a hop ledger for requests that opted in and
+returns it on the final delta (`ledger` key), observes the worker's
+`RequestMetrics` (TTFT / TPOT / outcomes at the RPC boundary) and binds
+the RPC server span to the request id for the engine thread's spans;
+the frontend side folds a returned hop ledger into the live one.
 
 The reference flow (`discovery/watcher.rs:39`, `rust/lib.rs:136
 register_llm`): a worker serves its engine endpoint, then writes a
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import AsyncIterator, Callable, Dict, Optional
 
 import numpy as np
@@ -33,6 +39,8 @@ from dynamo_tpu_torch.runtime.distributed import (
     Endpoint,
     Instance,
 )
+from dynamo_tpu_torch.runtime import ledger as ledger_mod
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.rpc import RpcError
 
 logger = logging.getLogger(__name__)
@@ -87,6 +95,11 @@ def delta_to_wire(delta: TokenDelta) -> dict:
     }
     if delta.logprobs is not None:
         d["logprobs"] = list(delta.logprobs)
+    if delta.ledger is not None:
+        # The worker hop's ledger rides the final delta; old peers never
+        # read the key, and garbage is dropped at the merge, never the
+        # request.
+        d["ledger"] = delta.ledger
     return d
 
 
@@ -97,28 +110,75 @@ def delta_from_wire(d: dict) -> TokenDelta:
         request_id="", token_ids=list(d.get("token_ids", [])),
         finished=bool(d.get("finished")),
         finish_reason=FinishReason(fr) if fr else None,
-        logprobs=list(lp) if lp is not None else None)
+        logprobs=list(lp) if lp is not None else None,
+        # Carried raw: ledger.decode_wire validates at the merge point.
+        ledger=d.get("ledger"))
 
 
 EMBED_ENDPOINT = "embed"
 CLEAR_KV_ENDPOINT = "clear_kv"
 
 
-def engine_wire_handler(engine_client) -> Callable:
-    """Wrap any EngineClient as an RPC handler (worker side)."""
+def engine_wire_handler(engine_client, request_metrics=None) -> Callable:
+    """Wrap any EngineClient as an RPC handler (worker side).
+
+    `request_metrics` (runtime/metrics.RequestMetrics): when given, the
+    handler observes worker-side TTFT / TPOT and terminal outcomes — the
+    worker's own SLO sources, measured at the RPC boundary.  A few
+    monotonic reads per delta on the event loop; nothing touches the
+    engine thread."""
 
     async def handler(payload: dict) -> AsyncIterator[dict]:
         req = request_from_wire(payload)
+        # This hop's ledger, when the worker has the plane on AND the
+        # request opted in; inner stages (disagg, prefix share, the
+        # local client) stamp it, and it rides back on the final delta.
+        hop_ledger = ledger_mod.begin_hop(req)
         # The frontend's request id arrives in the RPC frame; logging it
         # here gives one grep-able id across frontend and worker logs
-        # (reference `logging.rs:73-79`).
+        # (reference `logging.rs:73-79`).  The RPC server span is this
+        # task's current span; binding it to the request id lets the
+        # engine thread parent its spans under this hop.
         logger.info("request %s: %d prompt tokens, max_tokens=%d",
                     req.request_id, len(req.token_ids),
                     req.sampling.max_tokens)
+        tracer = tracing.get_tracer()
+        span = tracing.current_span()
+        if span is not None:
+            tracer.bind(req.request_id, span.ctx)
         n_out = 0
-        async for delta in engine_client.generate(req):
-            n_out += len(delta.token_ids)
-            yield delta_to_wire(delta)
+        start = time.monotonic()
+        last_t = None
+        finished_ok = None
+        try:
+            async for delta in engine_client.generate(req):
+                if request_metrics is not None and delta.token_ids:
+                    now = time.monotonic()
+                    if last_t is None:
+                        request_metrics.ttft.observe(now - start)
+                    else:
+                        request_metrics.tpot.observe(now - last_t)
+                    last_t = now
+                if delta.finished:
+                    finished_ok = delta.finish_reason is not FinishReason.ERROR
+                    if hop_ledger is not None:
+                        delta.ledger = hop_ledger.to_wire()
+                n_out += len(delta.token_ids)
+                yield delta_to_wire(delta)
+        except (GeneratorExit, asyncio.CancelledError):
+            raise  # client disconnect / teardown: not an engine failure
+        except Exception:
+            # A raising generate() (a dead disagg peer, an engine fault)
+            # is a served-request failure: it burns error budget.
+            finished_ok = False
+            raise
+        finally:
+            tracer.unbind(req.request_id)
+            if request_metrics is not None:
+                # A stream torn down without a terminal delta (client
+                # disconnect mid-generation) is not an engine failure.
+                request_metrics.observe_outcome(
+                    ok=finished_ok if finished_ok is not None else True)
         logger.info("request %s: finished, %d tokens", req.request_id, n_out)
 
     return handler
@@ -157,6 +217,8 @@ class RemoteEngineClient:
         async for d in self.client.generate(request_to_wire(request)):
             delta = delta_from_wire(d)
             delta.request_id = request.request_id
+            # Fold a returned hop ledger into the frontend's live one.
+            ledger_mod.absorb_delta(request, delta, where="remote_client")
             yield delta
 
     async def clear_kv_blocks(self) -> int:
@@ -268,11 +330,15 @@ class ModelWatcher:
     def __init__(self, runtime: DistributedRuntime,
                  manager: ModelManager,
                  router_mode: str = "round_robin",
-                 migration_limit: int = 3) -> None:
+                 migration_limit: int = 3,
+                 registry=None) -> None:
         self.runtime = runtime
         self.manager = manager
         self.router_mode = router_mode
         self.migration_limit = migration_limit
+        # The frontend's MetricsRegistry: the router's and migration's
+        # series land on its /metrics.
+        self.registry = registry
         self._instances: Dict[str, set] = {}       # model → instance ids
         self._clients: Dict[str, Client] = {}
         self._kv_clients: Dict[str, object] = {}   # model → KvRoutedEngineClient
@@ -352,10 +418,12 @@ class ModelWatcher:
         from dynamo_tpu_torch.runtime.pipeline import (
             KvRouterOp, MigrationOp, Pipeline, RemoteOp)
 
-        router_op = (KvRouterOp(self.runtime, block_size=card.kv_block_size)
+        router_op = (KvRouterOp(self.runtime, block_size=card.kv_block_size,
+                                registry=self.registry)
                      if self.router_mode == "kv" else RemoteOp())
-        pipeline = Pipeline([MigrationOp(limit=self.migration_limit),
-                             router_op])
+        pipeline = Pipeline([
+            MigrationOp(limit=self.migration_limit, registry=self.registry),
+            router_op])
         engine_client = await pipeline.attach(client)
         if self.router_mode == "kv":
             from dynamo_tpu_torch.llm.kv_router.client import KvRoutedEngineClient

@@ -1,15 +1,32 @@
 """OpenAI-compatible HTTP service on asyncio streams (port of
 `dynamo_tpu/llm/http_service.py`, standard library only).
 
-Routes:
+Routes (JAX's, but `/v1/responses`, and the port's `/debug/stats`):
   POST /v1/chat/completions   chat, unary or SSE streaming
   POST /v1/completions        text completion, unary or SSE streaming
   POST /v1/embeddings         last-token hidden-state embeddings
   POST /clear_kv_blocks       flush every model's reusable KV blocks
   GET  /v1/models             registered models
+  GET  /metrics               Prometheus text: FrontendMetrics (the SLA
+                              planner's series), RequestMetrics, the
+                              ledger's phase histograms and goodput
+                              pair, the SLO gauges
+  GET  /debug/traces?n=K      this process's completed traces
+  GET  /debug/requests?n=K    the K slowest completed request ledgers
+  GET  /debug/slo             the SLO monitor's evaluation (or disabled)
+  GET  /debug/flightrecorder?n=K  this process's flight-recorder ring
+  GET  /debug/deviceprofile[?ms=N]  the device profiler (state / capture)
   GET  /health                readiness
+  GET  /live                  liveness
   GET  /debug/stats           per-request timings + the server's stats hook
   POST /debug/stats/reset     clear both
+
+Each generation opens an `http.{route}` root span (the request id is its
+trace id) with `frontend.preprocess` under it, and records the
+`frontend.queue_wait` / `frontend.ttft` / `decode.tpot` spans; the
+`x-dynamo-priority` header rides the request's `priority` annotation to
+the router; the request ledger begins here and completed ledgers fold
+into the `LedgerSink`.
 
 HTTP/1.1 with keep-alive for unary responses; a streaming response ends
 its connection after `data: [DONE]`.  A prompt at or over the model's
@@ -28,12 +45,31 @@ import time
 from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Set
+from urllib.parse import parse_qs
 
 import numpy as np
 from dynamo_tpu_torch.engine.scheduler import FinishReason
 from dynamo_tpu_torch.llm.backend import StreamDetokenizer
 from dynamo_tpu_torch.llm.protocols import openai as oai
-from dynamo_tpu_torch.llm.service import ModelHandle, ModelManager
+from dynamo_tpu_torch.llm.service import (
+    PRIORITY_ANNOTATION,
+    ModelHandle,
+    ModelManager,
+)
+from dynamo_tpu_torch.runtime import flight_recorder
+from dynamo_tpu_torch.runtime import ledger as ledger_mod
+from dynamo_tpu_torch.runtime import slo as slo_mod
+from dynamo_tpu_torch.runtime import tracing
+from dynamo_tpu_torch.runtime.metrics import (
+    FrontendMetrics,
+    MetricsRegistry,
+    RequestMetrics,
+)
+from dynamo_tpu_torch.runtime.status import (
+    BAD_N,
+    debug_deviceprofile,
+    query_int,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -70,6 +106,17 @@ class RequestTiming:
     finish_reason: Optional[str] = None
 
 
+@dataclass
+class HttpRequest:
+    """One parsed request: what a route handler reads."""
+
+    method: str
+    path: str
+    query: Dict[str, List[str]]
+    headers: Dict[str, str]
+    body: bytes
+
+
 class HttpError(Exception):
     def __init__(self, status: int, message: str,
                  type_: str = "invalid_request_error"):
@@ -78,14 +125,33 @@ class HttpError(Exception):
 
 
 class HttpService:
+    # TPOT interval spans recorded per trace before they would crowd out
+    # the rest of the timeline (the histogram still sees every interval).
+    MAX_TPOT_SPANS = 32
+
     def __init__(self, models: ModelManager,
                  stats: Optional[Callable[[], dict]] = None,
                  reset_stats: Optional[Callable[[], None]] = None,
-                 max_records: int = 1024) -> None:
+                 max_records: int = 1024,
+                 registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[tracing.Tracer] = None) -> None:
         self.models = models
         self._stats = stats
         self._reset_stats = reset_stats
         self.timings: deque = deque(maxlen=max_records)
+        self.registry = registry or MetricsRegistry()
+        self.metrics = FrontendMetrics(self.registry)
+        # Per-request lifecycle histograms (dynamo_request_*): TTFT /
+        # TPOT / queue wait and outcomes, always on (cheap).
+        self.request_metrics = RequestMetrics(self.registry)
+        # The SLO burn-rate monitor (runtime/slo.py) the frontend main
+        # installs when --slo-* flags configure objectives; None →
+        # /debug/slo reports enabled=false.
+        self.slo_monitor = None
+        # Where completed request ledgers fold: phase histograms, the
+        # goodput pair, /debug/requests and the SLO attribution.
+        self.ledger_sink = ledger_mod.LedgerSink(self.registry)
+        self.tracer = tracer or tracing.get_tracer()
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: Set[asyncio.StreamWriter] = set()
 
@@ -144,9 +210,9 @@ class HttpService:
                 body = await reader.readexactly(length) if length else b""
                 keep_alive = (version == "HTTP/1.1" and
                               headers.get("connection", "").lower() != "close")
-                path = target.split("?", 1)[0]
-                if not await self._route(method, path, body, writer,
-                                         keep_alive):
+                path, _, qs = target.partition("?")
+                req = HttpRequest(method, path, parse_qs(qs), headers, body)
+                if not await self._route(req, writer, keep_alive):
                     return
         except (ConnectionError, asyncio.IncompleteReadError):
             return
@@ -156,12 +222,22 @@ class HttpService:
             with contextlib.suppress(Exception):
                 await writer.wait_closed()
 
-    async def _route(self, method: str, path: str, body: bytes,
-                     writer: asyncio.StreamWriter, keep_alive: bool) -> bool:
-        """Serve one request; returns whether the connection stays open."""
+    async def _route(self, req: HttpRequest, writer: asyncio.StreamWriter,
+                     keep_alive: bool) -> bool:
+        """Serve one request; returns whether the connection stays open.
+        A handler returns a dict (a 200 JSON reply), a (status, body)
+        pair (a str body is sent as Prometheus text), or None when it
+        streamed its own response."""
         routes = {
             ("GET", "/health"): self._health,
+            ("GET", "/live"): self._live,
             ("GET", "/v1/models"): self._list_models,
+            ("GET", "/metrics"): self._prometheus,
+            ("GET", "/debug/traces"): self._debug_traces,
+            ("GET", "/debug/requests"): self._debug_requests,
+            ("GET", "/debug/slo"): self._debug_slo,
+            ("GET", "/debug/flightrecorder"): self._debug_flightrecorder,
+            ("GET", "/debug/deviceprofile"): self._debug_deviceprofile,
             ("GET", "/debug/stats"): self._debug_stats,
             ("POST", "/debug/stats/reset"): self._debug_reset,
             ("POST", "/v1/chat/completions"): self._chat,
@@ -169,15 +245,16 @@ class HttpService:
             ("POST", "/v1/embeddings"): self._embeddings,
             ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
         }
-        handler = routes.get((method, path))
+        handler = routes.get((req.method, req.path))
         if handler is None:
-            known = any(p == path for _, p in routes)
+            known = any(p == req.path for _, p in routes)
             status = 405 if known else 404
             await self._send_json(writer, status, oai.error_body(
-                f"{method} {path} not served", "not_found"), keep_alive)
+                f"{req.method} {req.path} not served", "not_found"),
+                keep_alive)
             return keep_alive
         try:
-            result = await handler(body, writer)
+            result = await handler(req, writer)
         except HttpError as e:
             await self._send_json(writer, e.status,
                                   oai.error_body(e.message, e.type), keep_alive)
@@ -192,14 +269,19 @@ class HttpService:
             return False
         if result is None:  # handler streamed its own response
             return False
-        await self._send_json(writer, 200, result, keep_alive)
+        status, obj = result if isinstance(result, tuple) else (200, result)
+        await self._send_json(writer, status, obj, keep_alive)
         return keep_alive
 
     @staticmethod
     async def _send_json(writer, status: int, obj, keep_alive: bool) -> None:
-        data = json.dumps(obj).encode()
+        """`obj` as JSON, or a str as Prometheus text."""
+        if isinstance(obj, str):
+            data, ctype = obj.encode(), "text/plain; version=0.0.4"
+        else:
+            data, ctype = json.dumps(obj).encode(), "application/json"
         head = (f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
-                "Content-Type: application/json\r\n"
+                f"Content-Type: {ctype}\r\n"
                 f"Content-Length: {len(data)}\r\n"
                 f"Connection: {'keep-alive' if keep_alive else 'close'}\r\n\r\n")
         writer.write(head.encode() + data)
@@ -207,26 +289,63 @@ class HttpService:
 
     # -- simple routes -----------------------------------------------------
 
-    async def _health(self, _body, _writer) -> dict:
+    async def _health(self, _req, _writer) -> dict:
         return {"status": "ready" if len(self.models) else "starting",
                 "models": self.models.names()}
 
-    async def _list_models(self, _body, _writer) -> dict:
+    async def _live(self, _req, _writer) -> dict:
+        return {"status": "live"}
+
+    async def _list_models(self, _req, _writer) -> dict:
         return oai.ModelList(
             data=[oai.ModelInfo(id=n) for n in self.models.names()]).to_dict()
 
-    async def _debug_stats(self, _body, _writer) -> dict:
+    async def _prometheus(self, _req, _writer):
+        return 200, self.registry.expose()
+
+    async def _debug_traces(self, req, _writer):
+        """Most recent completed traces (`?n=K`, default 32)."""
+        n = query_int(req.query, "n", 32)
+        return BAD_N if n is None else tracing.debug_traces_payload(
+            n, self.tracer)
+
+    async def _debug_requests(self, req, _writer):
+        """Slowest-N completed request ledgers (`?n=K`, default 10) with
+        their phase stamps, the window's dominant phase and goodput."""
+        n = query_int(req.query, "n", 10)
+        return BAD_N if n is None else self.ledger_sink.debug_payload(n)
+
+    async def _debug_slo(self, _req, _writer) -> dict:
+        """The SLO burn-rate evaluation over this frontend's request
+        histograms (the --slo-* flags enable it)."""
+        if self.slo_monitor is None:
+            return slo_mod.disabled_payload()
+        return self.slo_monitor.payload()
+
+    async def _debug_flightrecorder(self, req, _writer):
+        """This process's flight-recorder ring (`?n=K`, default 256)."""
+        n = query_int(req.query, "n", 256)
+        return BAD_N if n is None else (
+            flight_recorder.get_recorder().debug_payload(n))
+
+    async def _debug_deviceprofile(self, req, _writer):
+        """This process's device profiler: state without `?ms=`, one
+        bounded capture with `?ms=N` (worker captures ride the workers'
+        status ports or the control-plane `profile/<pid>` command)."""
+        return await debug_deviceprofile(req.query)
+
+    async def _debug_stats(self, _req, _writer) -> dict:
         out = dict(self._stats()) if self._stats else {}
         out["requests"] = [t.__dict__ for t in self.timings]
         return out
 
-    async def _debug_reset(self, _body, _writer) -> dict:
+    async def _debug_reset(self, _req, _writer) -> dict:
         if self._reset_stats:
             self._reset_stats()
         self.timings.clear()
         return {"ok": True}
 
-    async def _clear_kv_blocks(self, _body, _writer) -> dict:
+    async def _clear_kv_blocks(self, _req, _writer) -> dict:
         """Admin: flush every model's reusable KV blocks; per model its
         status and the count cleared."""
         out = {}
@@ -244,9 +363,10 @@ class HttpService:
 
     # -- embeddings --------------------------------------------------------
 
-    async def _embeddings(self, body: bytes, _writer) -> dict:
+    async def _embeddings(self, http: HttpRequest, _writer) -> dict:
         try:
-            req = oai.EmbeddingRequest.from_dict(json.loads(body or b"null"))
+            req = oai.EmbeddingRequest.from_dict(
+                json.loads(http.body or b"null"))
         except ValueError as e:
             raise HttpError(400, f"invalid request: {e}") from None
         handle = self.models.get(req.model)
@@ -323,17 +443,58 @@ class HttpService:
         if pre.sampling.max_tokens > ctx - n:
             pre.sampling = replace(pre.sampling, max_tokens=ctx - n)
 
-    async def _chat(self, body: bytes, writer) -> Optional[dict]:
-        req, handle = self._parse(body, oai.ChatCompletionRequest)
-        rid = oai.request_id("chatcmpl")
-        pre = handle.preprocessor.preprocess_chat(req, rid)
+    def _start_trace(self, route: str, rid: str, model: str):
+        """Root span of one HTTP request, the request id its trace id;
+        returns (span, contextvar token), no-ops when tracing is off."""
+        span = self.tracer.start_span(
+            f"http.{route}", trace_id=rid,
+            attrs={"rid": rid, "model": model})
+        token = tracing.use_span(span) if span.ctx is not None else None
+        return span, token
+
+    @staticmethod
+    def _end_trace(span, token) -> None:
+        span.end()
+        if token is not None:
+            tracing.restore(token)
+
+    @staticmethod
+    def _attach_priority(http: HttpRequest, pre) -> None:
+        """QoS class: the x-dynamo-priority header (a named class or 0..2)
+        rides the request's annotations; absent = standard, and the
+        reading side is as forgiving (service.priority_of)."""
+        header = http.headers.get("x-dynamo-priority")
+        if header:
+            pre.annotations[PRIORITY_ANNOTATION] = header.strip()
+
+    def _prepare(self, http: HttpRequest, handle, route: str, rid: str,
+                 stream: bool, preprocess, root):
+        """The preprocess span, the context check and the priority; the
+        prompt's size and the stream flag land on the root span."""
+        with self.tracer.start_span("frontend.preprocess"):
+            pre = preprocess()
         self._validate_context(handle, pre)
-        logger.info("request %s: chat prompt_tokens=%d stream=%s", rid,
-                    len(pre.token_ids), req.stream)
-        if req.stream:
-            await self._stream(writer, handle, req, pre, rid, chat=True)
-            return None
-        text, reason, det, lps = await self._collect(handle, req, pre, rid)
+        self._attach_priority(http, pre)
+        logger.info("request %s: %s prompt_tokens=%d stream=%s", rid, route,
+                    len(pre.token_ids), stream)
+        root.set_attr(prompt_tokens=len(pre.token_ids), stream=stream)
+        return pre
+
+    async def _chat(self, http: HttpRequest, writer) -> Optional[dict]:
+        req, handle = self._parse(http.body, oai.ChatCompletionRequest)
+        rid = oai.request_id("chatcmpl")
+        root, tok = self._start_trace("chat", rid, req.model)
+        try:
+            pre = self._prepare(
+                http, handle, "chat", rid, bool(req.stream),
+                lambda: handle.preprocessor.preprocess_chat(req, rid), root)
+            if req.stream:
+                await self._stream(writer, handle, req, pre, rid, chat=True)
+                return None
+            text, reason, det, lps = await self._collect(handle, req, pre,
+                                                         rid)
+        finally:
+            self._end_trace(root, tok)
         logprobs = None
         if lps:
             logprobs = oai.ChatLogprobs(content=[
@@ -346,17 +507,22 @@ class HttpService:
                 finish_reason=reason, logprobs=logprobs)],
             usage=self._usage(pre, det)).to_dict()
 
-    async def _completions(self, body: bytes, writer) -> Optional[dict]:
-        req, handle = self._parse(body, oai.CompletionRequest)
+    async def _completions(self, http: HttpRequest, writer) -> Optional[dict]:
+        req, handle = self._parse(http.body, oai.CompletionRequest)
         rid = oai.request_id("cmpl")
-        pre = handle.preprocessor.preprocess_completion(req, rid)
-        self._validate_context(handle, pre)
-        logger.info("request %s: completion prompt_tokens=%d stream=%s", rid,
-                    len(pre.token_ids), req.stream)
-        if req.stream:
-            await self._stream(writer, handle, req, pre, rid, chat=False)
-            return None
-        text, reason, det, lps = await self._collect(handle, req, pre, rid)
+        root, tok = self._start_trace("completion", rid, req.model)
+        try:
+            pre = self._prepare(
+                http, handle, "completion", rid, bool(req.stream),
+                lambda: handle.preprocessor.preprocess_completion(req, rid),
+                root)
+            if req.stream:
+                await self._stream(writer, handle, req, pre, rid, chat=False)
+                return None
+            text, reason, det, lps = await self._collect(handle, req, pre,
+                                                         rid)
+        finally:
+            self._end_trace(root, tok)
         logprobs = None
         if lps:
             logprobs = {"tokens": [_lp_token(handle, req, t) for t, _ in lps],
@@ -375,44 +541,103 @@ class HttpService:
 
     async def _token_stream(self, handle: ModelHandle, pre,
                             det: StreamDetokenizer, timing: RequestTiming,
-                            lp_sink: Optional[list]):
-        """Engine deltas → TextDeltas, recording TTFT and inter-token
-        intervals; closing it cancels the engine request."""
+                            lp_sink: Optional[list], model: str):
+        """Engine deltas → TextDeltas, with the TTFT / ITL observations,
+        the request-lifecycle spans (queue wait → TTFT → per-token TPOT
+        intervals, under the request's root span), the request ledger and
+        the terminal outcome; closing it cancels the engine request."""
         start = time.monotonic()
+        labels = {"model": model}
+        self.metrics.requests_total.inc(labels=labels)
+        self.metrics.requests_in_flight.add(1, labels=labels)
+        tracer = self.tracer
+        parent = tracing.current_span() if tracer.enabled else None
+        # The ledger begins before the client pipeline, so route / queue /
+        # prefill / kv_transfer stamps land on it.
+        led = ledger_mod.begin(pre)
+        # Queue wait, frontend view: arrival → the generation stream
+        # starting; the engine.queue_wait span covers in-engine wait.
+        t_entry = time.monotonic()
+        self.request_metrics.queue_wait.observe(t_entry - start,
+                                                labels=labels)
+        if led is not None:
+            led.stamp("receive", dur=t_entry - start, t=t_entry)
+        if parent is not None:
+            tracer.record_span("frontend.queue_wait", parent, start, t_entry)
         last_t = None
         self.timings.append(timing)
+
+        def done(ok: bool) -> None:
+            # The terminal outcome feeds the SLO error-rate objective;
+            # the ledger folds with the request's TTFT and mean TPOT.
+            self.request_metrics.observe_outcome(ok=ok)
+            self.ledger_sink.fold(
+                led, timing.ttft_s,
+                timing.itl_sum_s / timing.itl_n if timing.itl_n else None,
+                det.completion_tokens, ok=ok)
+
         try:
             async with contextlib.aclosing(handle.client.generate(pre)) as gen:
                 async for delta in gen:
                     now = time.monotonic()
+                    ledger_mod.absorb_delta(pre, delta, where="frontend")
                     if lp_sink is not None and delta.logprobs:
                         lp_sink.extend(zip(delta.token_ids, delta.logprobs))
                     if delta.token_ids:
                         if last_t is None:
                             timing.ttft_s = now - start
+                            self.metrics.ttft.observe(timing.ttft_s,
+                                                      labels=labels)
+                            self.request_metrics.ttft.observe(
+                                timing.ttft_s, labels=labels)
+                            if parent is not None:
+                                tracer.record_span("frontend.ttft", parent,
+                                                   start, now)
                         else:
                             timing.itl_sum_s += now - last_t
                             timing.itl_n += 1
+                            self.metrics.itl.observe(now - last_t,
+                                                     labels=labels)
+                            self.request_metrics.tpot.observe(
+                                now - last_t, labels=labels)
+                            if (parent is not None
+                                    and timing.itl_n <= self.MAX_TPOT_SPANS):
+                                tracer.record_span(
+                                    "decode.tpot", parent, last_t, now,
+                                    attrs={"index": timing.itl_n,
+                                           "tokens": len(delta.token_ids)})
                         last_t = now
                         out = det.push_tokens(delta.token_ids)
                         timing.completion_tokens = det.completion_tokens
                         if out.finished:  # stop string hit mid-stream
                             timing.finish_reason = out.finish_reason
+                            done(True)
                             yield out
                             return
                         if out.text:
                             yield out
                     if delta.finished:
+                        # Engine ERROR finishes burn error budget; stop,
+                        # length and cancel are served requests.
+                        done(delta.finish_reason is not FinishReason.ERROR)
                         out = det.finish(delta.finish_reason)
                         timing.finish_reason = out.finish_reason
                         yield out
                         return
-            # Engine stream ended without a finish marker.
+            # Engine stream ended without a finish marker (worker died).
+            done(False)
             out = det.finish(FinishReason.ERROR)
             timing.finish_reason = out.finish_reason
             yield out
         finally:
             timing.duration_s = time.monotonic() - start
+            self.metrics.requests_in_flight.add(-1, labels=labels)
+            self.metrics.request_duration.observe(timing.duration_s,
+                                                  labels=labels)
+            self.metrics.input_tokens.observe(len(pre.token_ids),
+                                              labels=labels)
+            self.metrics.output_tokens.observe(det.completion_tokens,
+                                               labels=labels)
 
     def _new_timing(self, rid, req, pre) -> RequestTiming:
         return RequestTiming(request_id=rid, stream=bool(req.stream),
@@ -423,7 +648,8 @@ class HttpService:
         lps: Optional[List] = [] if pre.sampling.logprobs else None
         parts, reason = [], None
         async with contextlib.aclosing(self._token_stream(
-                handle, pre, det, self._new_timing(rid, req, pre), lps)) as s:
+                handle, pre, det, self._new_timing(rid, req, pre), lps,
+                req.model)) as s:
             async for out in s:
                 parts.append(out.text)
                 if out.finished:
@@ -460,7 +686,8 @@ class HttpService:
         if chat:
             writer.write(oai.sse_encode(chunk("", None, role="assistant")).encode())
         async with contextlib.aclosing(self._token_stream(
-                handle, pre, det, self._new_timing(rid, req, pre), lps)) as s:
+                handle, pre, det, self._new_timing(rid, req, pre), lps,
+                req.model)) as s:
             async for out in s:
                 if out.text:
                     writer.write(oai.sse_encode(chunk(out.text, None)).encode())

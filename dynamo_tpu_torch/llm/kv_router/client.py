@@ -1,7 +1,7 @@
 """KV-aware routed engine client: the frontend side of KV routing (port
-of `dynamo_tpu/llm/kv_router/client.py` without its ledger and tracing
-spans, the QoS priority read and the admin `embed` / `clear_kv_blocks`
-calls).
+of `dynamo_tpu/llm/kv_router/client.py`, without the hit-rate events'
+publication on the control plane, which feeds the metrics aggregator
+that is not ported).
 
 Ties the router core (indexer + selector + active sequences, this package)
 into the serving path, playing the reference's `KvPushRouter`
@@ -17,7 +17,11 @@ into the serving path, playing the reference's `KvPushRouter`
   attaches a remote-prefix hint (the donor's RPC address and covered
   tokens, `block_manager/prefix_share.py`) so the worker pulls the
   donor's blocks instead of prefilling them;
-- removes workers from the index when their instances vanish.
+- removes workers from the index when their instances vanish;
+- records each decision as a `router.select` span (worker, overlap,
+  cost, candidates, donor) and a `route` ledger stamp, reads the
+  request's QoS class (`priority` annotation) into the selector, and
+  folds a returned worker-hop ledger into the request's live one.
 
 Composes under MigrationClient: a retried generate() re-routes, and the
 dead worker has already been dropped from the instance set by its lease.
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import AsyncIterator, Optional
 
 from dynamo_tpu_torch.engine.engine import TokenDelta
@@ -38,6 +43,9 @@ from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.kv_router.router import KvRouter, KvRouterConfig
 from dynamo_tpu_torch.llm.kv_router.watcher import LoadMetricsWatcher
 from dynamo_tpu_torch.llm.preprocessor import PreprocessedRequest
+from dynamo_tpu_torch.llm.service import PRIORITY_ANNOTATION, priority_of
+from dynamo_tpu_torch.runtime import ledger as ledger_mod
+from dynamo_tpu_torch.runtime import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -49,14 +57,17 @@ class KvRoutedEngineClient:
     """EngineClient with KV-cache-aware worker selection."""
 
     def __init__(self, client, runtime, block_size: int = 64,
-                 config: Optional[KvRouterConfig] = None) -> None:
+                 config: Optional[KvRouterConfig] = None,
+                 registry=None) -> None:
         from dynamo_tpu_torch.llm.discovery import delta_from_wire, request_to_wire
 
         self._to_wire = request_to_wire
         self._from_wire = delta_from_wire
         self.client = client          # runtime Client (instance watcher)
         self.runtime = runtime
-        self.router = KvRouter(config or KvRouterConfig(block_size=block_size))
+        self.router = KvRouter(config or KvRouterConfig(block_size=block_size),
+                               on_hit_rate_event=self._note_decision)
+        self._last_decision = None  # last KVHitRateEvent (span attrs)
         self._event_task: Optional[asyncio.Task] = None
         self._sub = None
         # Worker-published ForwardPassMetrics, merged into selection cost.
@@ -79,8 +90,14 @@ class KvRoutedEngineClient:
         # Fire-and-forget publishes: the loop holds tasks weakly, so
         # they stay referenced here until done.
         self._publishes: set = set()
-        # Requests sent with a remote-prefix hint.
+        # Requests sent with a remote-prefix hint: a plain int, and a
+        # counter on the frontend's /metrics when it hands its registry.
         self.remote_hint_routes = 0
+        self._remote_routes_counter = (
+            registry.counter(
+                "router_remote_prefix_routes_total",
+                "Requests routed with a remote-prefix donor hint")
+            if registry is not None else None)
 
     async def start(self) -> None:
         self._sub = await self.runtime.cp.subscribe(KV_EVENTS_SUBJECT)
@@ -136,8 +153,6 @@ class KvRoutedEngineClient:
         task.add_done_callback(self._publishes.discard)
 
     async def _pump_active_seqs(self) -> None:
-        import time
-
         last_sweep = time.monotonic()
         backoff = 1.0
         while True:
@@ -212,8 +227,6 @@ class KvRoutedEngineClient:
 
     def _sync_workers(self) -> list:
         """Reconcile the router's worker set with live instances."""
-        import time
-
         live = self.client.instance_ids()
         known = self.router.workers()
         for w in known:
@@ -235,6 +248,18 @@ class KvRoutedEngineClient:
             for i in self.client.instances()
         }
 
+    def _note_decision(self, ev) -> None:
+        self._last_decision = ev
+
+    @staticmethod
+    def _request_priority(request) -> Optional[int]:
+        """QoS class from the request's annotations (the frontend's
+        `x-dynamo-priority` header lands there): the selector biases
+        interactive traffic away from deep queues."""
+        if PRIORITY_ANNOTATION not in getattr(request, "annotations", {}):
+            return None  # unannotated: keep the topology-blind cost
+        return priority_of(request)
+
     async def embed(self, token_lists):
         from dynamo_tpu_torch.llm.discovery import RemoteEngineClient
 
@@ -247,32 +272,63 @@ class KvRoutedEngineClient:
 
         return await RemoteEngineClient(self.client).clear_kv_blocks()
 
-    def _attach_donor_hint(self, request: PreprocessedRequest) -> None:
-        """Attach the last decision's donor as a remote-prefix hint.  A
-        stale hint is cleared first: a migration retry reuses the request
-        (and its annotations), and its old donor may have died."""
+    def _attach_donor_hint(self, request: PreprocessedRequest
+                           ) -> Optional[int]:
+        """Attach the last decision's donor as a remote-prefix hint; its
+        worker id, or None.  A stale hint is cleared first: a migration
+        retry reuses the request (and its annotations), and its old donor
+        may have died."""
         request.annotations.pop(HINT_ANNOTATION, None)
         donor = self.router.last_donor
         if donor is None:
-            return
+            return None
         addr = next((i.address for i in self.client.instances()
                      if i.instance_id == donor.worker_id), None)
-        if addr:   # a donor that just vanished attaches no hint
-            attach_hint(request, addr,
-                        donor.overlap_blocks * self.router.config.block_size,
-                        donor.worker_id)
-            self.remote_hint_routes += 1
+        if not addr:   # a donor that just vanished attaches no hint
+            return None
+        attach_hint(request, addr,
+                    donor.overlap_blocks * self.router.config.block_size,
+                    donor.worker_id)
+        self.remote_hint_routes += 1
+        if self._remote_routes_counter is not None:
+            self._remote_routes_counter.inc()
+        return donor.worker_id
 
     async def generate(
         self, request: PreprocessedRequest
     ) -> AsyncIterator[TokenDelta]:
         workers = self._sync_workers()
-        worker_id, overlap = self.router.find_best_match(
-            request.request_id, request.token_ids, workers,
-            expected_output_tokens=request.sampling.max_tokens,
-            metrics=self._metrics.fresh(),
-            slices=self._worker_slices())
-        self._attach_donor_hint(request)
+        led = ledger_mod.ledger_of(request)
+        route_t0 = time.monotonic()
+        # The routing decision's span: which worker won, the overlap it
+        # won on, the selector's cost and candidate count.
+        route_span = tracing.get_tracer().start_span(
+            "router.select", attrs={"request_id": request.request_id})
+        try:
+            worker_id, overlap = self.router.find_best_match(
+                request.request_id, request.token_ids, workers,
+                expected_output_tokens=request.sampling.max_tokens,
+                metrics=self._metrics.fresh(),
+                priority=self._request_priority(request),
+                slices=self._worker_slices())
+        except BaseException as e:
+            # No candidates / selector failure: the span must still end,
+            # or an empty fleet leaks one open span per rejected request.
+            route_span.end(error=type(e).__name__)
+            raise
+        ev = self._last_decision
+        donor_id = self._attach_donor_hint(request)
+        route_span.end(
+            worker=int(worker_id), overlap_blocks=int(overlap),
+            candidates=(ev.candidates if ev is not None else len(workers)),
+            cost=(round(ev.cost, 3) if ev is not None else None),
+            remote_prefix_donor=donor_id)
+        if led is not None:
+            attrs = {"worker": int(worker_id),
+                     "overlap_blocks": int(overlap)}
+            if donor_id is not None:
+                attrs["donor"] = int(donor_id)
+            led.stamp("route", dur=time.monotonic() - route_t0, **attrs)
         logger.debug("kv-routed %s → worker %s (overlap %d blocks)",
                      request.request_id, worker_id, overlap)
         self._publish_seq("add", request.request_id, worker=worker_id,
@@ -284,6 +340,7 @@ class KvRoutedEngineClient:
                                               worker_id):
                 delta = self._from_wire(d)
                 delta.request_id = request.request_id
+                ledger_mod.absorb_delta(request, delta, where="kv_router")
                 if delta.token_ids:
                     if first:
                         self.router.mark_prefill_complete(request.request_id)
@@ -293,8 +350,6 @@ class KvRoutedEngineClient:
                                            len(delta.token_ids))
                 yield delta
         except ConnectionError:
-            import time
-
             self._penalty[worker_id] = time.monotonic() + self._penalty_ttl
             raise
         finally:

@@ -41,12 +41,21 @@ class MigrationClient:
 
     def __init__(self, inner, migration_limit: int = 3,
                  retry_delay: float = 0.05,
-                 max_retry_delay: float = 2.0) -> None:
+                 max_retry_delay: float = 2.0,
+                 registry=None) -> None:
+        """`registry` (runtime/metrics.MetricsRegistry, optional): counts
+        `dynamo_migrations_total{reason}` — "death" (the connection died
+        mid-stream) or "no_instances" (routing found nobody)."""
         self.inner = inner
         self.migration_limit = migration_limit
         self.retry_delay = retry_delay
         self.max_retry_delay = max_retry_delay
         self.migrations = 0          # cumulative hops
+        self._counter = (registry.counter(
+            "migrations_total",
+            "Stream migrations by trigger reason (drain handoff, drain "
+            "refusal, worker death, empty instance set)")
+            if registry is not None else None)
 
     def _backoff(self, attempt: int) -> float:
         """Jittered exponential backoff: 2^attempt over the base delay,
@@ -92,6 +101,8 @@ class MigrationClient:
             attempts_left -= 1
             attempt += 1
             self.migrations += 1
+            if self._counter is not None:
+                self._counter.inc(labels={"reason": reason})
             # Resume: prompt + tokens so far; budget shrinks by what was
             # already delivered (reference migration.rs:148), and
             # seed_offset keeps seeded sampling's (seed, token-index)

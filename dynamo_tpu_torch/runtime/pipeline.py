@@ -37,30 +37,36 @@ class Operator(Protocol):
 
 class MigrationOp:
     """Retry/resume streams across worker death (llm/migration.py;
-    reference `migration.rs:27`)."""
+    reference `migration.rs:27`).  `registry` counts
+    `dynamo_migrations_total{reason}` on the frontend's /metrics."""
 
-    def __init__(self, limit: int = 3) -> None:
+    def __init__(self, limit: int = 3, registry=None) -> None:
         self.limit = limit
+        self.registry = registry
 
     def wrap(self, inner):
         from dynamo_tpu_torch.llm.migration import MigrationClient
 
-        return MigrationClient(inner, migration_limit=self.limit)
+        return MigrationClient(inner, migration_limit=self.limit,
+                               registry=self.registry)
 
 
 class KvRouterOp:
     """KV-aware worker selection over the instance set (llm/kv_router/
     client.py; reference `kv_router.rs:304` KvPushRouter)."""
 
-    def __init__(self, runtime, block_size: int = 64) -> None:
+    def __init__(self, runtime, block_size: int = 64,
+                 registry=None) -> None:
         self.runtime = runtime
         self.block_size = block_size
+        self.registry = registry
 
     async def wrap(self, inner):
         from dynamo_tpu_torch.llm.kv_router.client import KvRoutedEngineClient
 
         routed = KvRoutedEngineClient(inner, self.runtime,
-                                      block_size=self.block_size)
+                                      block_size=self.block_size,
+                                      registry=self.registry)
         await routed.start()
         return routed
 

@@ -1,5 +1,5 @@
 """Streaming RPC between processes: one request in → many responses out
-(port of `dynamo_tpu/runtime/rpc.py` without its tracing hooks).
+(port of `dynamo_tpu/runtime/rpc.py`).
 
 The reference implements this as a NATS publish to the instance's subject
 plus a TCP "call-home" stream for responses (`egress/addressed_router.rs`,
@@ -9,8 +9,15 @@ both jobs here: the client connects to the worker's advertised address
 connection — fewer hops, no broker on the data path.
 
 Framing: 4-byte big-endian length + a `packb` body.
-  client → server: {t:"req", sid, ep, payload} | {t:"cancel", sid}
+  client → server: {t:"req", sid, ep, payload, trace?} | {t:"cancel", sid}
   server → client: {t:"delta"|"end"|"err", sid, payload|error}
+
+The optional `trace` field carries a serialized TraceContext
+(runtime/tracing.py): the client stamps its `rpc.client:{endpoint}`
+span's context on the request frame, the server extracts it, opens an
+`rpc.server:{ep}` span parented to the client span, and makes it the
+handler task's current span — so worker-side spans stitch into the
+caller's trace.  Absent or malformed trace fields are ignored.
 
 The body codec (`packb` / `unpackb`) is the port's own, on `struct`: it
 carries what the reference's msgpack frames carry here — dict, list
@@ -34,6 +41,8 @@ import itertools
 import logging
 import struct
 from typing import AsyncIterator, Callable, Dict, Optional
+
+from dynamo_tpu_torch.runtime import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -229,8 +238,21 @@ class RpcServer:
         if me is not None:
             self._conn_tasks.add(me)
 
-        async def run_stream(sid: int, ep: str, payload: dict) -> None:
+        async def run_stream(sid: int, ep: str, payload: dict,
+                             trace=None) -> None:
             self.active_streams += 1
+            # Server-side span parented to the client's span (the `trace`
+            # frame field); made current for the handler task so any span
+            # the handler opens nests under it.
+            tracer = tracing.get_tracer()
+            span: object = tracing.NULL_SPAN
+            token = None
+            if tracer.enabled and trace is not None:
+                ctx = tracing.TraceContext.from_wire(trace)
+                if ctx is not None:
+                    span = tracer.start_span(f"rpc.server:{ep}", ctx,
+                                             attrs={"endpoint": ep})
+                    token = tracing.use_span(span)
             try:
                 handler = self._handlers.get(ep)
                 if handler is None:
@@ -250,12 +272,16 @@ class RpcServer:
                 pass
             except Exception as e:
                 logger.exception("handler error on %s", ep)
+                span.set_attr(error=type(e).__name__)
                 try:
                     await _send_frame(writer, {"t": "err", "sid": sid,
                                                "error": str(e)}, lock)
                 except ConnectionResetError:
                     pass
             finally:
+                span.end()
+                if token is not None:
+                    tracing.restore(token)
                 self.active_streams -= 1
                 tasks.pop(sid, None)
 
@@ -268,7 +294,8 @@ class RpcServer:
                 if t == "req":
                     sid = msg["sid"]
                     tasks[sid] = asyncio.create_task(
-                        run_stream(sid, msg["ep"], msg.get("payload", {})))
+                        run_stream(sid, msg["ep"], msg.get("payload", {}),
+                                   msg.get("trace")))
                 elif t == "cancel":
                     task = tasks.pop(msg["sid"], None)
                     if task:
@@ -349,11 +376,18 @@ class RpcClient:
         sid = next(self._sid)
         q: asyncio.Queue = asyncio.Queue()
         self._streams[sid] = q
+        # Client-side span; its context rides the request frame so the
+        # server span parents under it.
+        span = tracing.get_tracer().start_span(
+            f"rpc.client:{endpoint}",
+            attrs={"endpoint": endpoint, "address": self.address})
         frame = {"t": "req", "sid": sid, "ep": endpoint, "payload": payload}
+        if span.ctx is not None:
+            frame["trace"] = span.ctx.to_wire()
         done = False
         try:
             # Inside the try: a send failure (peer died mid-write) must
-            # still drop the stream entry in finally.
+            # still end the span and drop the stream entry in finally.
             await _send_frame(self._writer, frame, self._lock)
             while True:
                 msg = await q.get()
@@ -369,6 +403,7 @@ class RpcClient:
                         raise ConnectionError(msg["error"])
                     raise RpcError(msg["error"])
         finally:
+            span.end(clean=done)
             self._streams.pop(sid, None)
             # Best-effort cancel only if the stream didn't finish cleanly
             # (client walked away mid-stream).

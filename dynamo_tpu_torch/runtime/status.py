@@ -1,20 +1,30 @@
-"""Per-process status server: /live, /health and the engine's stats
-(port of `dynamo_tpu/runtime/status.py` on the standard library).
+"""Per-process status server: /live, /health, /metrics, the debug routes
+and the engine's stats (port of `dynamo_tpu/runtime/status.py` on the
+standard library).
 
 Role of the reference's `system_status_server.rs`: a worker has no HTTP
-ingress of its own, so it exposes liveness and readiness on a port of its
-own (`--health-port`).  Beside them it serves the same `/debug/stats`
-reply and `POST /debug/stats/reset` action as the port's single-process
-frontend (`frontend/main.py:stats_hooks`) for the worker's engine: kernel
-launch counts, engine counters and prefix-cache hits.
+ingress of its own, so it exposes liveness, readiness and Prometheus
+text on a port of its own (`--health-port`).  Beside JAX's routes it
+serves the same `/debug/stats` reply and `POST /debug/stats/reset`
+action as the port's single-process frontend
+(`frontend/main.py:stats_hooks`) for the worker's engine: kernel launch
+counts, engine counters and prefix-cache hits.
 
-    GET  /live               {"status": "live"}
-    GET  /health             {"status": "ready"} (200) or "starting" (503)
-    GET  /debug/stats        the stats hook's reply
-    POST /debug/stats/reset  the reset hook, then {"ok": true}
+    GET  /live                    {"status": "live"}
+    GET  /health                  {"status": "ready"} (200) or "starting" (503)
+    GET  /metrics                 the registry's Prometheus text + extra_text_fn
+    GET  /debug/traces?n=K        this process's completed traces
+    GET  /debug/slo               the SLO monitor's evaluation (or disabled)
+    GET  /debug/flightrecorder?n=K  the flight recorder's ring
+    GET  /debug/deviceprofile[?ms=N]  the device profiler's state, or one
+                                  bounded capture (off the event loop)
+    GET  /debug/stats             the stats hook's reply
+    POST /debug/stats/reset       the reset hook, then {"ok": true}
 
-One request per connection (the reply closes it).  Not ported yet:
-`/metrics` (it needs `runtime/metrics.py`) and the HBM poller.
+The debug payloads have JAX's shapes.  One request per connection (the
+reply closes it).  Not ported: the status-endpoint registration on the
+control plane (it serves `dynamo top` and the metrics aggregator, which
+are not ported).
 """
 
 from __future__ import annotations
@@ -24,19 +34,63 @@ import contextlib
 import json
 import logging
 from typing import Callable, Optional
+from urllib.parse import parse_qs
+
+from dynamo_tpu_torch.runtime import device_profiler, flight_recorder, tracing
+from dynamo_tpu_torch.runtime import slo as slo_mod
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 logger = logging.getLogger(__name__)
 
-_REASONS = {200: "OK", 404: "Not Found", 503: "Service Unavailable"}
+_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
+            503: "Service Unavailable"}
+
+
+def query_int(query: dict, name: str, default: int) -> Optional[int]:
+    """An integer query parameter; None when malformed."""
+    try:
+        return int(query.get(name, [str(default)])[0])
+    except ValueError:
+        return None
+
+
+BAD_N = 400, {"error": "n must be an integer"}
+
+
+async def debug_deviceprofile(query: dict):
+    """(status, body) of `/debug/deviceprofile`: the profiler's state
+    without `?ms=`, one bounded capture with `?ms=N` — run in a thread,
+    since it sleeps for its bound while the serving threads dispatch."""
+    prof = device_profiler.get_profiler()
+    if "ms" not in query:
+        return 200, prof.debug_payload()
+    try:
+        ms = int(query["ms"][0])
+        if ms <= 0:
+            raise ValueError
+    except ValueError:
+        return 400, {"error": "ms must be a positive integer"}
+    res = await asyncio.to_thread(prof.capture, ms)
+    return (200 if res.get("ok") else 503), res
 
 
 class StatusServer:
     def __init__(self,
+                 registry: Optional[MetricsRegistry] = None,
                  ready_fn: Optional[Callable[[], bool]] = None,
+                 extra_text_fn: Optional[Callable[[], str]] = None,
+                 slo_fn: Optional[Callable[[], dict]] = None,
                  stats_fn: Optional[Callable[[], dict]] = None,
                  reset_fn: Optional[Callable[[], None]] = None) -> None:
-        """`ready_fn`: readiness probe (default: ready once serving)."""
+        """`ready_fn`: readiness probe (default: ready once serving).
+        `extra_text_fn`: extra Prometheus text appended to the registry
+        exposition (the worker's engine series).  `slo_fn`: /debug/slo
+        payload provider (an SloMonitor's `payload`; None reports the
+        monitor as disabled)."""
+        self.registry = registry or MetricsRegistry()
         self.ready_fn = ready_fn or (lambda: True)
+        self.extra_text_fn = extra_text_fn
+        self.slo_fn = slo_fn
         self.stats_fn = stats_fn
         self.reset_fn = reset_fn
         self._server: Optional[asyncio.base_events.Server] = None
@@ -55,16 +109,40 @@ class StatusServer:
                 await asyncio.wait_for(self._server.wait_closed(), 5.0)
             self._server = None
 
-    def _reply(self, method: str, path: str):
-        if (method, path) == ("GET", "/live"):
+    def metrics_text(self) -> str:
+        text = self.registry.expose()
+        if self.extra_text_fn:
+            text += self.extra_text_fn()
+        return text
+
+    async def _reply(self, method: str, path: str, query: dict):
+        """(status, body): a dict is sent as JSON, a str as Prometheus
+        text."""
+        route = (method, path)
+        if route == ("GET", "/live"):
             return 200, {"status": "live"}
-        if (method, path) == ("GET", "/health"):
+        if route == ("GET", "/health"):
             ok = bool(self.ready_fn())
             return (200 if ok else 503), {
                 "status": "ready" if ok else "starting"}
-        if (method, path) == ("GET", "/debug/stats") and self.stats_fn:
+        if route == ("GET", "/metrics"):
+            return 200, self.metrics_text()
+        if route == ("GET", "/debug/traces"):
+            n = query_int(query, "n", 32)
+            return BAD_N if n is None else (
+                200, tracing.debug_traces_payload(n))
+        if route == ("GET", "/debug/flightrecorder"):
+            n = query_int(query, "n", 256)
+            return BAD_N if n is None else (
+                200, flight_recorder.get_recorder().debug_payload(n))
+        if route == ("GET", "/debug/slo"):
+            return 200, (self.slo_fn() if self.slo_fn is not None
+                         else slo_mod.disabled_payload())
+        if route == ("GET", "/debug/deviceprofile"):
+            return await debug_deviceprofile(query)
+        if route == ("GET", "/debug/stats") and self.stats_fn:
             return 200, self.stats_fn()
-        if (method, path) == ("POST", "/debug/stats/reset") and self.reset_fn:
+        if route == ("POST", "/debug/stats/reset") and self.reset_fn:
             self.reset_fn()
             return 200, {"ok": True}
         return 404, {"error": f"{method} {path} not served"}
@@ -85,11 +163,15 @@ class StatusServer:
                 await reader.readexactly(length)  # no route reads a body
             if len(parts) != 3:
                 return
-            status, obj = self._reply(parts[0], parts[1].split("?", 1)[0])
-            data = json.dumps(obj).encode()
+            path, _, qs = parts[1].partition("?")
+            status, obj = await self._reply(parts[0], path, parse_qs(qs))
+            if isinstance(obj, str):
+                data, ctype = obj.encode(), "text/plain; version=0.0.4"
+            else:
+                data, ctype = json.dumps(obj).encode(), "application/json"
             writer.write(
                 f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
-                "Content-Type: application/json\r\n"
+                f"Content-Type: {ctype}\r\n"
                 f"Content-Length: {len(data)}\r\n"
                 "Connection: close\r\n\r\n".encode() + data)
             await writer.drain()

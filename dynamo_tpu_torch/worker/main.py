@@ -55,10 +55,25 @@ seed 0 and the byte tokenizer.  On a card the kernels its path launches
 are built (or reused from `_build/`) and loaded before it registers: a
 kernel that fails to build or load stops the worker with an error.
 
+Observability, with JAX's flags (all served on the status port):
+`/metrics` (the worker's engine series — `dynamo_worker_*`,
+`dynamo_worker_engine_*` from EngineStepCounters, the heartbeat age and
+stalls, the KV pool / prefix / transfer-plane series, HBM occupancy from
+`--hbm-poll-interval`, the device profiler's `dynamo_program_*` and
+`dynamo_modeled_vs_measured_ratio`, RequestMetrics at the RPC boundary,
+SLO gauges); `--trace*` (`/debug/traces`), `--slo-*` (`/debug/slo`),
+`--flight-recorder` / `--flight-dump-dir` (`/debug/flightrecorder`,
+dumps on SIGUSR2 and exit) with `--watchdog-stall-s` (the stall
+watchdog), `--request-ledger` (the hop ledger returned on the final
+delta) and `--device-profiler on|off` (`/debug/deviceprofile?ms=N`, a
+torch.profiler capture written under `--flight-dump-dir`; also taken by
+putting `profile/<pid>` or `profile/instance/<id>` on the control plane,
+the value its milliseconds).
+
 Not ported: the `encode` role (it needs the multimodal path), drain with
-KV migration, `--mocker`, multihost and lockstep, `--slice`, the stall
-watchdog, the profilers, SLO monitoring, the flight recorder, the request
-ledger and `/metrics`.
+KV migration, `--mocker`, multihost and lockstep, `--slice`, QoS
+preemption, and the status-endpoint registration that `dynamo top` and
+the metrics aggregator read.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import signal
 
 from dynamo_tpu_torch.engine.engine import (
@@ -106,8 +122,22 @@ from dynamo_tpu_torch.runtime.config import (
     apply_to_parser_defaults,
     load_layered_config,
 )
+from dynamo_tpu_torch.runtime import (
+    device_profiler,
+    flight_recorder,
+    ledger,
+    slo,
+    tracing,
+)
+from dynamo_tpu_torch.runtime.contracts import never_engine_thread
 from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.metrics import (
+    HbmPoller,
+    KvCacheMetrics,
+    MetricsRegistry,
+    RequestMetrics,
+)
 
 logger = logging.getLogger("dynamo_tpu_torch.worker")
 
@@ -184,11 +214,21 @@ def parse_args(argv=None):
                    help="seconds between load-metrics publications")
     p.add_argument("--health-port", type=int, default=0,
                    help="per-worker status server port (0 = ephemeral; "
-                        "-1 disables): /live, /health, /debug/stats")
+                        "-1 disables): /live, /health, /metrics, "
+                        "/debug/*")
+    p.add_argument("--hbm-poll-interval", type=float, default=10.0,
+                   help="seconds between device memory polls "
+                        "(torch.cuda.mem_get_info; without a card the "
+                        "process RSS).  0 disables the poller.")
     p.add_argument("--rpc-host", default="127.0.0.1",
                    help="bind + ADVERTISED host for this worker's RPC "
                         "server; cross-host deployments must set a "
                         "routable address")
+    tracing.add_trace_args(p)
+    slo.add_slo_args(p)
+    flight_recorder.add_flight_args(p)
+    ledger.add_ledger_args(p)
+    device_profiler.add_device_profiler_args(p)
     apply_to_parser_defaults(p, load_layered_config(
         {"control_plane": None, "namespace": "dynamo",
          "component": "backend", "endpoint": "generate",
@@ -289,7 +329,89 @@ def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg):
     return worker_stats, worker_reset
 
 
+@never_engine_thread
+def worker_metrics_text(engine: InferenceEngine, recorder, watchdog,
+                        kv_metrics: KvCacheMetrics, fetcher=None) -> str:
+    """The worker's engine series for `/metrics` (JAX's
+    `worker_metrics_text`), sampled at scrape time from host counts —
+    never on the engine thread.  The drain, migration and QoS series of
+    JAX's list are left out (those planes are not ported)."""
+    core = engine.core
+    m = engine.metrics
+    ws, ks = m.worker_stats, m.kv_stats
+    lines = [
+        f"dynamo_worker_request_active_slots {ws.request_active_slots}",
+        f"dynamo_worker_requests_waiting {ws.num_requests_waiting}",
+        f"dynamo_worker_kv_active_blocks {ks.kv_active_blocks}",
+        f"dynamo_worker_kv_usage {ks.gpu_cache_usage_perc}",
+        "dynamo_worker_kv_prefix_cache_hit_rate "
+        f"{ks.gpu_prefix_cache_hit_rate}",
+    ]
+    if m.expert_load:
+        for e, n in enumerate(m.expert_load):
+            lines.append(f'dynamo_moe_expert_load{{expert="{e}"}} {n}')
+        lines.append(f"dynamo_moe_dropped_tokens_total {m.moe_dropped_tokens}")
+    for k, v in core.counters.to_dict().items():
+        lines.append(f"dynamo_worker_engine_{k} {v}")
+    age = recorder.last_step_age_s()
+    if age is not None:
+        lines.append(f"dynamo_engine_last_step_age_seconds {age:.3f}")
+    lines.append(f"dynamo_engine_stalls_total {recorder.stalls}")
+    lines.append("dynamo_engine_stalled "
+                 f"{1 if watchdog is not None and watchdog.stalled else 0}")
+    # Memory-plane sample: pool occupancy / evictions / prefix hits land
+    # in the shared registry.
+    kv_metrics.observe_engine(core)
+    if fetcher is not None:
+        kv_metrics.observe_prefix_share(fetcher)
+    kv_metrics.observe_transfer_plane()
+    # Device-truth plane: fold the modeled counters against the program
+    # registry and the measured window time, then export both.
+    prof = device_profiler.get_profiler()
+    if prof.enabled:
+        prof.audit_engine(core)
+        lines.extend(prof.metrics_lines())
+    return "\n".join(lines) + "\n"
+
+
+async def watch_profile_commands(cp, instance_id: int) -> None:
+    """The control-plane `profile` command: a put under profile/<pid> or
+    profile/instance/<id> runs one bounded device capture on this worker
+    (value: capture ms, default 500), in a thread while serving goes on.
+    Loops: one worker serves many captures."""
+    mine = {device_profiler.profile_key_pid(os.getpid()),
+            device_profiler.profile_key_instance(instance_id)}
+    prof = device_profiler.get_profiler()
+    try:
+        watch = await cp.watch_prefix(device_profiler.PROFILE_PREFIX)
+        async for ev in watch:
+            if ev.kind != "put" or ev.key not in mine:
+                continue
+            try:
+                ms = int(ev.value)
+            except (TypeError, ValueError):
+                ms = 500
+            logger.warning("control-plane profile command: %s (%d ms)",
+                           ev.key, ms)
+            res = await asyncio.to_thread(prof.capture, ms)
+            logger.warning("device capture result: %s",
+                           {k: res.get(k) for k in ("ok", "dir", "error")})
+    except ConnectionError:
+        return  # the control plane is gone: /debug/deviceprofile remains
+
+
 async def run(args) -> None:
+    service = f"worker-{args.component}"
+    tracing.configure_from_args(args, service=service)
+    # The worker's black box, configured before anything serves so that
+    # startup builds and first dispatches land in the ring; the crash
+    # triggers (faulthandler, atexit, SIGUSR2) armed on the main thread.
+    recorder = flight_recorder.configure_from_args(args, service=service)
+    recorder.install_crash_dump()
+    # The device profiler is live before the engine builds: first-seen
+    # shapes record their modeled cost exactly once.
+    device_profiler.configure_from_args(args, service=service)
+    ledger.configure_from_args(args)
     cp = ControlPlaneClient(*_split(args.control_plane))
     await cp.start()
     runtime = DistributedRuntime(cp, rpc_host=args.rpc_host)
@@ -313,6 +435,22 @@ async def run(args) -> None:
     core, engine, card_fields = build_engine(
         args, None if args.role == "prefill" else kv_event_sink)
     await engine.start()
+    # Stall watchdog: no step heartbeat for --watchdog-stall-s while work
+    # is pending is a stall (event, counter, dump).
+    watchdog = None
+    if args.watchdog_stall_s > 0:
+        watchdog = flight_recorder.StallWatchdog(
+            recorder, lambda: core.has_work, stall_s=args.watchdog_stall_s)
+        watchdog.start()
+    # The worker's registry: RequestMetrics at the RPC boundary (and the
+    # disagg onboard), the memory plane, the SLO gauges.
+    registry = MetricsRegistry()
+    request_metrics = RequestMetrics(registry)
+    kv_metrics = KvCacheMetrics(registry)
+    slo_monitor = slo.monitor_from_args(args, request_metrics,
+                                        registry=registry)
+    if slo_monitor is not None:
+        slo_monitor.start(interval=args.slo_tick)
 
     # The KV data plane: every worker serves its blocks.
     plane = dt.KvTransferPlane(engine)
@@ -343,13 +481,14 @@ async def run(args) -> None:
                          {"max_local_prefill_length": args.max_local_prefill})
         disagg = DisaggDecodeClient(
             serve_client, engine, cp, args.namespace, args.block_size,
-            transfer_plane=plane, eager=not args.no_eager_kv)
+            transfer_plane=plane, request_metrics=request_metrics,
+            eager=not args.no_eager_kv)
         await disagg.start()
         serve_client = disagg
 
     slice_spec = derive_slice_spec(core, args.role, plane.fabric)
     instance = await endpoint.serve(
-        engine_wire_handler(serve_client),
+        engine_wire_handler(serve_client, request_metrics=request_metrics),
         metadata={"slice": slice_spec.to_dict()})
     prefill_task = None
     if args.role == "prefill":
@@ -361,14 +500,30 @@ async def run(args) -> None:
                                    **card_fields)
         await register_llm(endpoint, instance, card)
     status = None
+    hbm_poller = None
     if args.health_port >= 0:
         from dynamo_tpu_torch.runtime.status import StatusServer
 
         stats, reset_stats = data_plane_stats_hooks(core, plane, fetcher,
                                                     disagg)
-        status = StatusServer(stats_fn=stats, reset_fn=reset_stats)
+        status = StatusServer(
+            registry=registry,
+            extra_text_fn=lambda: worker_metrics_text(
+                engine, recorder, watchdog, kv_metrics, fetcher),
+            slo_fn=(slo_monitor.payload if slo_monitor is not None
+                    else None),
+            stats_fn=stats, reset_fn=reset_stats)
         hport = await status.start(host=args.rpc_host,
                                    port=args.health_port)
+        if args.hbm_poll_interval > 0:
+            cards = None
+            if core.device.type != "cuda":
+                cards = []   # no card: the host fallback
+            elif core.device.index is not None:
+                cards = [core.device.index]
+            hbm_poller = HbmPoller(kv_metrics, interval=args.hbm_poll_interval,
+                                   devices=cards)
+            hbm_poller.start()
         print(f"worker status server on :{hport}", flush=True)
     serving = ("the prefill queue" if args.role == "prefill"
                else repr(args.model_name))
@@ -394,6 +549,9 @@ async def run(args) -> None:
 
     pumps = [asyncio.create_task(pump_events()),
              asyncio.create_task(pump_metrics())]
+    if device_profiler.get_profiler().enabled:
+        pumps.append(asyncio.create_task(
+            watch_profile_commands(cp, instance.instance_id)))
     stop_ev = asyncio.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop_ev.set)
@@ -414,6 +572,12 @@ async def run(args) -> None:
         await disagg.stop()
     if status is not None:
         await status.stop()
+    if hbm_poller is not None:
+        hbm_poller.stop()
+    if watchdog is not None:
+        watchdog.stop()
+    if slo_monitor is not None:
+        await slo_monitor.stop()
     plane.stop()
     await engine.stop()
     await runtime.shutdown()

@@ -989,3 +989,59 @@ def test_block_extract_and_inject_on_the_card(dev, kv_quant):
             out.extend(d.token_ids)
     assert out == want
     assert b.scheduler.prefix_hit_tokens == 24
+
+
+def test_device_capture_records_the_kernels_off_the_engine_thread(dev, tmp_path):
+    """The device profiler on the card: an engine stepping on its own
+    thread while a capture runs on a third (as the worker's status server
+    takes one) records K1 and K2 by name; each window's CUDA-event span
+    lands in `window_device_s_ewma`, and the drift audit reads both
+    series in band."""
+    import json
+    import threading
+
+    from dynamo_tpu_torch.runtime import device_profiler
+
+    prof = device_profiler.DeviceProfiler("card-test", enabled=True,
+                                          dump_dir=str(tmp_path))
+    core = _tiny_engine(dev)
+    core.profiler = prof
+    stop = threading.Event()
+
+    def loop():
+        i = 0
+        while not stop.is_set():
+            if not core.has_work:
+                _add_requests(core, i)
+                i += 1
+            core.step()
+
+    engine = threading.Thread(target=loop)
+    engine.start()
+    try:
+        res = {}
+        cap = threading.Thread(target=lambda: res.update(prof.capture(400)))
+        cap.start()
+        cap.join(timeout=120)
+    finally:
+        stop.set()
+        engine.join(timeout=60)
+    assert not engine.is_alive() and res["ok"], res
+    with open(res["trace"]) as f:
+        summary = device_profiler.summarize_trace(json.load(f))
+    names = summary["kernel_names"]
+    assert any("paged_decode_kernel" in n for n in names), names[:20]
+    assert any("paged_prefill_kernel" in n for n in names), names[:20]
+    assert 0 < summary["busy_share"] <= 1
+    assert core.counters.window_device_s_ewma > 0
+    ratios = prof.audit_engine(core)
+    assert 0 < ratios["kv_decode"] <= prof.auditor.band_hi
+    assert 0 < ratios["window_time"] <= prof.auditor.band_hi
+
+
+def _add_requests(core, i):
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    for j, n in enumerate((5, 40, 17)):
+        core.add_request(f"c{i}-{j}", list(range(1, n + 1)),
+                         SamplingParams(max_tokens=24))

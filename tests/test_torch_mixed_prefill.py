@@ -2,7 +2,7 @@
 engine's, on the CPU.
 
 - `MixedPrefillController.observe_cost_ratio` / `budget_for` /
-  `modeled_interference` / `plan` and `EngineCounters.note_window_interval`
+  `modeled_interference` / `plan` and `EngineStepCounters.note_window_interval`
   / `measured_prefill_cost_ratio` give JAX's numbers over one seeded
   sequence of samples (exactly: both are the same float arithmetic).
 - Both engines under one pinned clock make the same (duty, chunk) plan
@@ -33,13 +33,14 @@ from dynamo_tpu.engine.scheduler import MixedPrefillController as JaxCtl
 from dynamo_tpu.engine.scheduler import SchedulerConfig as JaxSchedulerConfig
 from dynamo_tpu.models import config as jcfg
 from dynamo_tpu.models.llama import init_params as jax_init_params
-from dynamo_tpu.runtime.metrics import EngineStepCounters
+from dynamo_tpu.runtime.metrics import EngineStepCounters as JaxStepCounters
 from dynamo_tpu_torch.engine import engine as torch_engine
-from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore, EngineCounters
+from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.scheduler import MixedPrefillController, SchedulerConfig
 from dynamo_tpu_torch.models import config as tcfg
 from dynamo_tpu_torch.models.weights import from_jax_params
+from dynamo_tpu_torch.runtime.metrics import EngineStepCounters
 
 
 class PinnedClock:
@@ -91,7 +92,7 @@ def pinned_engine_clocks(monkeypatch):
 def test_controller_and_counters_match_jax_over_a_seeded_sequence():
     rng = np.random.default_rng(0)
     jc, tc = JaxCtl(), MixedPrefillController()
-    jn, tn = EngineStepCounters(), EngineCounters()
+    jn, tn = JaxStepCounters(), EngineStepCounters()
     assert tc.effective_cost_ratio == jc.effective_cost_ratio == 1.15
     assert tn.measured_prefill_cost_ratio is None
     for i in range(200):
