@@ -74,7 +74,9 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    greedy chats, one at a time, whose text the next phase must match, and
    serve_disagg's two long chats, each twice: the second time its sealed
    blocks come from the prefix cache and only its last partial block
-   prefills, as on a disagg decode worker, whose text must match it.
+   prefills, as on a disagg decode worker, whose text must match it;
+   last, the chat that `fleet` drains mid-decode, undrained: its greedy
+   reference.
 10. serve_distributed — the same model on two `python -m
    dynamo_tpu_torch.worker` processes sharing the card, behind frontend A
    (`--serve-control-plane --router-mode kv`) and frontend B
@@ -98,7 +100,7 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    every observability plane on (traces at rate 1, the request ledger, a
    TTFT objective, the flight recorder, the stall watchdog, the device
    profiler): `serve`'s wave; /metrics on both carries the JAX surfaces'
-   families (the unported drain / QoS ones named), counts the wave's 8
+   families (with the drain and QoS ones), counts the wave's 8
    requests and TTFTs, and the device profiler's registry and drift
    ratios (kv_decode <= 1.25, window_time printed, nothing paged); each
    chat's spans chain across both processes (http → router.select →
@@ -153,6 +155,29 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    long chats on an `--sp 4 --kv-quant int8` server, which must take K4's
    int8 body with the int8 payload's ring bytes.  The long chats' TTFT is
    printed beside that of the same chats on an `--sp 1` server.
+17. qos      — a frontend and one llama-3-1b worker of 24 pages: a wave of
+   best-effort chats (`x-dynamo-priority: 0`) fills the pages, then
+   interactive chats arrive; they must be admitted before every
+   best-effort chat still queued, preempting at least one
+   (`dynamo_qos_preemptions_total`); every chat returns its tokens; a
+   preempted chat's greedy ids equal its lone run's (a split only at a
+   near tie).  TTFT by class.
+18. planner_profile — the SLA profiler (`dynamo_tpu_torch.planner.profiler`)
+   sweeps llama-3-1b on ISL 128 / 512, context 256 / 1024 and kv 0.2 /
+   0.6 into `smoke_out/sla_profile.json`: JAX's schema, every time finite
+   and positive, K1 and K2 launched; the SLA planner's targets from it.
+19. fleet    — `python -m dynamo_tpu_torch.launcher` on a graph of a
+   standalone control plane (`--store file:`), a kv-routed frontend, the
+   metrics aggregator and the load planner spawning llama-3-1b workers:
+   a wave makes the planner add a second worker, which takes a long
+   greedy chat; the aggregator shows both; the planner's scale-down
+   drains the chat's worker mid-decode (or, where the chat is on the
+   other worker, the control-plane command does); the chat finishes
+   through the peer with its sealed KV pulled over cuda_ipc, its greedy
+   ids equal `serve`'s (a split only at a near tie) and each id is the
+   plain model's greedy choice given the ids before it, up to a near
+   tie; a clean drain, one replica left, no chat lost; SIGTERM tears the
+   graph down in reverse order.
 
 Then the card's `nvidia-smi` name/power-limit line, the kernels summary
 `{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
@@ -164,6 +189,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import signal
 import socket
 import statistics
@@ -1210,7 +1236,7 @@ def _chat(base: str, body: dict) -> dict:
     wall = time.monotonic() - t0
     if not stream:
         resp = json.loads(raw)
-        out = {"stream": False, "wall_s": wall,
+        out = {"stream": False, "wall_s": wall, "rid": resp.get("id"),
                "tokens": resp["usage"]["completion_tokens"],
                "finish": resp["choices"][0]["finish_reason"], "done": True,
                "text": resp["choices"][0]["message"]["content"]}
@@ -2287,14 +2313,6 @@ JAX_WORKER_FAMILIES = (
     "dynamo_worker_kv_active_blocks", "dynamo_worker_kv_prefix_cache_hit_rate",
     "dynamo_worker_kv_usage", "dynamo_worker_request_active_slots",
     "dynamo_worker_requests_waiting")
-# Families of planes not ported yet: drain with KV migration, and QoS
-# preemption.
-UNPORTED_FAMILIES = ("dynamo_requests_migrated_total", "dynamo_worker_draining",
-                     "dynamo_requests_migrated_in_total",
-                     "dynamo_qos_preemptions_total",
-                     "dynamo_qos_demoted_blocks_total")
-
-
 def metric_families(text: str) -> set:
     """The family names of a Prometheus text exposition: each `# TYPE`
     line's, and each sample's (a histogram's `_bucket` / `_sum` /
@@ -2476,8 +2494,8 @@ def serve_observed_phase(torch, serve: dict) -> dict:
     with every plane on (OBSERVED_FRONTEND, OBSERVED_WORKER).  After a
     warm-up chat (and a 50 ms capture, CUPTI's first use), `serve`'s wave
     of 8 chats, then:
-    - /metrics on both: every family of the JAX surfaces but
-      UNPORTED_FAMILIES; requests and TTFT observations grew by the wave's
+    - /metrics on both: every family of the JAX surfaces (the drain and
+      QoS ones too); requests and TTFT observations grew by the wave's
       8 (frontend and worker); `dynamo_program_registry_size` > 0;
       `dynamo_modeled_vs_measured_ratio{series="kv_decode"}` <= 1.25,
       `window_time` printed, no series paged; no stall; HBM polled;
@@ -2551,9 +2569,8 @@ def serve_observed_phase(torch, serve: dict) -> dict:
                              ("worker", wm, JAX_WORKER_FAMILIES)):
         have = metric_families(text)
         missing[side] = sorted(set(want) - have)
-        check(set(missing[side]) <= set(UNPORTED_FAMILIES),
-              f"serve_observed: {side} /metrics lacks "
-              f"{sorted(set(missing[side]) - set(UNPORTED_FAMILIES))}")
+        check(not missing[side],
+              f"serve_observed: {side} /metrics lacks {missing[side]}")
     grew = {}
     for side, t0_, t1_, sample in (
             ("frontend_requests", fm0, fm,
@@ -2642,7 +2659,7 @@ def serve_observed_phase(torch, serve: dict) -> dict:
                             "launches": off["worker"]["kernels"]},
         "serve": {k: serve[k] for k in ("output_tok_s", "ttft_mean_s",
                                         "ttft_max_s", "itl_mean_s")},
-        "metrics": {"missing_unported": missing, "grew": grew,
+        "metrics": {"missing": missing, "grew": grew,
                     "program_registry_size": registry_size,
                     "modeled_vs_measured": ratios, "drift_states": states,
                     "hbm_used_bytes": hbm},
@@ -2970,7 +2987,7 @@ def serve_disagg_phase(serve: dict) -> dict:
                              "prefill": pst["kernels"]}}
 
     lone = [traced(disagg_chat(i, False)) for i in range(2)]
-    check(len(serve["lone_answers"]) == 6,
+    check(len(serve["lone_answers"]) >= 6,
           "serve_disagg: serve answered no long lone chats")
     cold, warm = serve["lone_answers"][2:4], serve["lone_answers"][4:6]
     workers = (("prefill", ("--role", "prefill")),
@@ -3021,6 +3038,672 @@ def serve_disagg_phase(serve: dict) -> dict:
                          ttft_short_mean_s=statistics.mean(short_t),
                          itl_mean_s=(sum(r["itl_sum_s"] for r in reqs)
                                      / itl_n if itl_n else None))}
+
+
+# -- the fleet's control loop: qos, planner_profile, fleet -------------------
+
+QOS_BLOCKS = 24                # the qos worker's KV pages (23 usable)
+QOS_BE, QOS_IA = 14, 2         # best-effort (class 0), interactive (class 2)
+QOS_BE_TOKENS, QOS_IA_TOKENS = 192, 64
+QOS_TURN = "QoS {i}: say something about paged attention on a GPU, please."
+# An interactive chat needs ~8 of the 23 pages at admission: more than a
+# best-effort wave ever leaves free, so it must preempt.
+QOS_IA_TURN = "Interactive {i}: " + "what does a paged KV cache hold? " * 12
+QOS_RERUNS = 3                 # preempted chats held against a lone run
+QOS_RACE_S = 0.5               # an engine step's slack around an arrival
+PROFILE_GRID = {"isl": (128, 512), "context": (256, 1024), "kv": (0.2, 0.6)}
+FLEET_MODEL = ("--model", "llama-3-1b")   # what the planner's workers serve
+FLEET_BLOCKS = 128             # each fleet worker's KV pages
+FLEET_WAVE = 16                # chats of the scale-up wave
+FLEET_CHARS = 550              # user-turn bytes of the fleet's chats
+FLEET_WAVE_TOKENS = 128        # each scale-up wave chat's answer
+# The chat drained mid-decode: ~70 s of decode, well past the planner's
+# scale-down (a few 5 s intervals after the scale-up wave ends).
+FLEET_LONG_ID, FLEET_LONG_TOKENS = 1000, 3072
+# The planner's scale-down mark: the survivor's KV use under 0.6.  The
+# long chat's ~58 pages of 128 stay below it, so its growth never vetoes
+# the scale-down it waits for (at the default 0.3 it would from ~1,800
+# tokens on).
+FLEET_KV_LOW = 0.6
+FLEET_METRICS_S = 0.5          # the workers' load-metrics interval
+FLEET_DIR = OUT_DIR / "fleet"  # launcher, worker and control-plane files
+
+
+def stream_chat(base: str, body: dict, headers=None) -> dict:
+    """One streamed `traced` chat: its response id, token ids and wall
+    time.  (The frontend sends a chunk only with text, and a random
+    model's ids above 255 spell none, so the ids come late: time from the
+    frontend's own timings, not from the chunks.)"""
+    body = {**traced(body), "stream": True,
+            "stream_options": {"include_usage": True}}
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.monotonic()
+    ids, rid, finish, usage, done = [], None, None, None, False
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                done = True
+                continue
+            chunk = json.loads(line[6:])
+            rid = chunk.get("id") or rid
+            usage = chunk.get("usage") or usage
+            for ch in chunk["choices"]:
+                ids += [int(e["token"].removeprefix("token_id:"))
+                        for e in (ch.get("logprobs") or {}).get("content")
+                        or []]
+                finish = ch.get("finish_reason") or finish
+    return {"rid": rid, "ids": ids, "done": done, "finish": finish,
+            "tokens": usage["completion_tokens"] if usage else 0,
+            "wall_s": time.monotonic() - t0}
+
+
+def greedy_split(torch, state, prompt: list, got: list, want: list,
+                 what: str) -> Optional[dict]:
+    """`got` must equal `want` token for token, a split allowed only at a
+    near tie: at the first differing position both tokens lie within
+    MODEL_TOL of the top of the gather path's logits (`argmax_gap`)."""
+    from dynamo_tpu_torch.models.config import get_config
+
+    check(len(got) == len(want), f"{what}: {len(got)} tokens, "
+                                 f"{len(want)} in the reference")
+    n = leading_equal(got, want)
+    if n == len(want):
+        return None
+    cfg = get_config("llama-3-1b")
+    lg = plain_forward(torch, cfg, state, [prompt + want[:n]], False)[0]
+    gaps = [((lg.max() - lg[t]) / lg.abs().max()).item()
+            for t in (got[n], want[n])]
+    check(max(gaps) <= MODEL_TOL[cfg.name],
+          f"{what}: split at token {n} beyond a near tie: argmax gaps "
+          f"{gaps} > {MODEL_TOL[cfg.name]}")
+    return {"at": n, "argmax_gap": gaps}
+
+
+def forced_gaps(torch, cfg, state, prompt: list, ids: list,
+                start: int) -> list:
+    """The argmax gap (as `greedy_split` reads one) of each of
+    `ids[start:]` under the gather path's logits at its position, given
+    the prompt and the ids before it: one teacher-forced forward of the
+    whole sequence, so that no earlier split hides a later token."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.models import llama
+
+    dev = state["final_norm"].device
+    toks = prompt + ids[:-1]
+    L, P = len(toks), -(-len(toks) // BS)
+    cache = kvc.init_cache(kvc.KvCacheConfig.for_model(
+        cfg, num_blocks=P + 1, block_size=BS), dev)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    logits, _ = llama.make_forward_step(cfg, BS)(
+        state, cache, i32([toks]), i32([list(range(L))]), i32([L]),
+        i32([list(range(1, P + 1))]))
+    lg = logits[0, len(prompt) - 1 + start:].float()  # row j: ids[start+j]
+    picked = lg.gather(1, torch.tensor(ids[start:], device=dev)[:, None])
+    gaps = (lg.max(1).values - picked[:, 0]) / lg.abs().max(1).values
+    return gaps.tolist()
+
+
+def llama_state(torch):
+    """llama-3-1b's seed-0 weights on the card, as the servers draw them."""
+    from dynamo_tpu_torch.models import weights
+    from dynamo_tpu_torch.models.config import get_config
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    return weights.init_params(get_config("llama-3-1b"), gen,
+                               torch.device("cuda"))
+
+
+def qos_phase(torch) -> dict:
+    """QoS admission and preemption on the card: a frontend and one
+    llama-3-1b worker of QOS_BLOCKS pages (`distributed_stack`), so the
+    class travels the header → annotation → RPC → scheduler path and the
+    worker's /metrics carries `dynamo_qos_preemptions_total`.  A wave of
+    QOS_BE best-effort chats (`x-dynamo-priority: 0`) fills the pages and
+    queues; one second in, QOS_IA interactive chats (class 2) arrive.
+    Checked: every interactive chat is admitted (the worker's flight
+    recorder `admit` events) before every best-effort chat that was still
+    unadmitted QOS_RACE_S after the interactives were sent; at least one
+    QoS preemption; every chat returns its full token count; each
+    QoS-preempted chat's greedy ids equal the same chat's on the then
+    unpressured stack (a split only at a near tie; the first QOS_RERUNS
+    of them).  TTFT by class."""
+    t_phase = time.monotonic()
+    be = [chat_body(i, True, QOS_BE_TOKENS, user=QOS_TURN)
+          for i in range(QOS_BE)]
+    ia = [chat_body(i, True, QOS_IA_TOKENS, user=QOS_IA_TURN)
+          for i in range(QOS_IA)]
+    with distributed_stack(
+            workers=(("worker", ("--num-blocks", str(QOS_BLOCKS),
+                                 "--flight-recorder", "on")),),
+            frontend_b=False, tag="qos") as (a, _, (w,), startup_s):
+        _chat(a, chat_body(-1, False, 4, user=QOS_TURN))
+        _http(w + "/debug/stats/reset", {})
+        with ThreadPoolExecutor(QOS_BE + QOS_IA) as pool:
+            futs = [pool.submit(stream_chat, a, b, {"x-dynamo-priority": "0"})
+                    for b in be]
+            time.sleep(1.0)
+            t_send = time.time()
+            futs += [pool.submit(stream_chat, a, b,
+                                 {"x-dynamo-priority": "interactive"})
+                     for b in ia]
+            res = [f.result() for f in futs]
+        stats = json.loads(_http(w + "/debug/stats"))
+        ttft = {t["request_id"]: t["ttft_s"]
+                for t in json.loads(_http(a + "/debug/stats"))["requests"]}
+        metrics = _http(w + "/metrics")
+        events = json.loads(_http(w + "/debug/flightrecorder?n=4000"))["events"]
+        preempted = [e["rid"] for e in events if e["kind"] == "qos_preempt"]
+        alone = {}
+        for rid in list(dict.fromkeys(preempted))[:QOS_RERUNS]:
+            i = [r["rid"] for r in res].index(rid)
+            alone[rid] = stream_chat(a, (be + ia)[i],
+                                     {"x-dynamo-priority": "0"})
+    be_res, ia_res = res[:QOS_BE], res[QOS_BE:]
+    for r, n in [(r, QOS_BE_TOKENS) for r in be_res] + [
+            (r, QOS_IA_TOKENS) for r in ia_res]:
+        check(r["done"] and r["tokens"] == n == len(r["ids"])
+              and r["finish"] == "length",
+              f"qos: a chat returned {r['tokens']} of {n} tokens "
+              f"({r['finish']})")
+    n_preempt = metric_value(metrics, "dynamo_qos_preemptions_total")
+    check(n_preempt is not None and n_preempt >= 1,
+          f"qos: dynamo_qos_preemptions_total {n_preempt}")
+    check(metric_value(metrics, "dynamo_qos_demoted_blocks_total") == 0,
+          "qos: blocks demoted without a host tier")
+    admits = [(e["ts"], e["rid"]) for e in events if e["kind"] == "admit"]
+    first = {}
+    for ts, rid in admits:
+        first.setdefault(rid, ts)
+    be_ids = {r["rid"] for r in be_res}
+    ia_first = [first.get(r["rid"]) for r in ia_res]
+    check(all(t is not None for t in ia_first),
+          f"qos: an interactive chat has no admit event: {ia_first}")
+    queued = {rid: ts for rid, ts in first.items()
+              if rid in be_ids and ts > t_send + QOS_RACE_S}
+    check(bool(queued), "qos: no best-effort chat was still queued when "
+                        "the interactive chats arrived")
+    check(max(ia_first) < min(queued.values()),
+          f"qos: a queued best-effort chat was admitted before an "
+          f"interactive one: interactive at {ia_first}, best-effort at "
+          f"{sorted(queued.values())}")
+    check(bool(preempted), "qos: no qos_preempt event in the flight ring")
+    state = llama_state(torch)
+    splits = {}
+    for rid, ref in alone.items():
+        i = [r["rid"] for r in res].index(rid)
+        splits[rid] = greedy_split(torch, state, chat_tokens((be + ia)[i]),
+                                   res[i]["ids"], ref["ids"],
+                                   f"qos: preempted chat {rid}")
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "qos", "startup_s": startup_s, "blocks": QOS_BLOCKS,
+            "best_effort": QOS_BE, "interactive": QOS_IA,
+            "qos_preemptions": n_preempt,
+            "preempted": len(set(preempted)),
+            # The frontend's TTFT of each chat (arrival to first token).
+            "ttft_s": {"interactive": [ttft[r["rid"]] for r in ia_res],
+                       "best_effort": [ttft[r["rid"]] for r in be_res]},
+            "ttft_mean_s": {
+                "interactive": statistics.mean(ttft[r["rid"]]
+                                               for r in ia_res),
+                "best_effort": statistics.mean(ttft[r["rid"]]
+                                               for r in be_res),
+                "best_effort_queued": statistics.mean(
+                    ttft[r["rid"]] for r in be_res if r["rid"] in queued)},
+            "interactive_admit_after_send_s": [t - t_send for t in ia_first],
+            "preempted_splits": splits, "launches": stats["kernels"],
+            "wall_s": time.monotonic() - t_phase}
+
+
+def planner_profile_phase(torch, kernels) -> dict:
+    """The SLA profiler (`python -m dynamo_tpu_torch.planner.profiler`'s
+    `main`, in process so that its launches are counted) sweeps llama-3-1b
+    at full width and depth on PROFILE_GRID into `smoke_out/`: every TTFT,
+    ITL and throughput finite and positive, the schema JAX's (the keys,
+    the grid and the row shapes), K1 and K2 launched.  The profile then
+    feeds the SLA planner's target computation once."""
+    import math
+
+    from dynamo_tpu_torch.planner import SlaObservation, SlaPlanner
+    from dynamo_tpu_torch.planner import profiler
+
+    t0 = time.monotonic()
+    out = OUT_DIR / "sla_profile.json"
+    g = PROFILE_GRID
+    kernels.reset_launch_counts()
+    profiler.main(["--model", "llama-3-1b", "--out", str(out),
+                   "--isl", *map(str, g["isl"]),
+                   "--context", *map(str, g["context"]),
+                   "--kv", *map(str, g["kv"])])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    wall = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    prof = json.loads(out.read_text())
+    pre, dec = prof["prefill"], prof["decode"]
+    check(set(prof) == {"prefill", "decode"}
+          and set(pre) == {"isl", "ttft_s", "tok_s_per_chip"}
+          and set(dec) == {"kv_usage", "context", "itl_s", "tok_s_per_chip"},
+          f"planner_profile: not JAX's schema: {prof}")
+    check(pre["isl"] == list(g["isl"]) and dec["context"] == list(g["context"])
+          and dec["kv_usage"] == list(g["kv"])
+          and len(pre["ttft_s"]) == len(pre["tok_s_per_chip"]) == len(g["isl"])
+          and all(len(r) == len(g["kv"])
+                  for r in dec["itl_s"] + dec["tok_s_per_chip"])
+          and len(dec["itl_s"]) == len(dec["tok_s_per_chip"])
+          == len(g["context"]),
+          f"planner_profile: grid or shape off: {prof}")
+    values = (pre["ttft_s"] + pre["tok_s_per_chip"] + sum(dec["itl_s"], [])
+              + sum(dec["tok_s_per_chip"], []))
+    check(all(math.isfinite(v) and v > 0 for v in values),
+          f"planner_profile: a non-positive or non-finite value: {prof}")
+    check(launches["paged_decode_attention"] > 0
+          and launches["paged_prefill_attention"] > 0,
+          f"planner_profile: K1 or K2 never launched: {launches}")
+    # The SLA planner's targets from this profile for one interval of
+    # serve-like traffic (its defaults: TTFT 0.5 s, ITL 0.05 s).
+    planner = SlaPlanner(prof, observe=None, decode_connector=None)
+    obs = SlaObservation(num_requests=400, avg_isl=512, avg_osl=128,
+                         ttft_s=pre["ttft_s"][-1], itl_s=dec["itl_s"][0][0])
+    d = planner.decide(obs)
+    return {"phase": "planner_profile", "grid": g, "profile": prof,
+            "wall_s": wall, "launches": launches,
+            "sla_targets": {"observation": obs.__dict__,
+                            "num_prefill": d.num_prefill,
+                            "num_decode": d.num_decode,
+                            "p_correction": d.p_correction,
+                            "d_correction": d.d_correction}}
+
+
+def cp_run(addr: str, fn):
+    """`await fn(client)` on a fresh control-plane client of `addr`."""
+    import asyncio
+
+    from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+
+    async def main():
+        host, _, port = addr.rpartition(":")
+        cli = ControlPlaneClient(host, int(port))
+        await cli.start()
+        try:
+            return await fn(cli)
+        finally:
+            await cli.close()
+
+    return asyncio.run(asyncio.wait_for(main(), 60))
+
+
+def fleet_long_body() -> dict:
+    """The chat that `fleet` drains mid-decode; `serve` answers it first,
+    undrained, as its greedy reference."""
+    return traced(long_chat(FLEET_LONG_ID, False, FLEET_LONG_TOKENS,
+                            FLEET_CHARS))
+
+
+def fleet_workers(cp: str) -> dict:
+    """pid -> status url of every worker registered on the control plane."""
+    async def get(cli):
+        return await cli.get_prefix("status_endpoints/worker-both/")
+
+    return {int(v["pid"]): "http://" + v["address"]
+            for v in cp_run(cp, get).values()}
+
+
+def planner_reaches(holder: int, newest: int) -> bool:
+    """Whether the planner's scale-down drains the worker of spawn number
+    `holder`: its connector removes the newest worker."""
+    return holder == newest
+
+
+def fleet_phase(torch, ref_ids: list) -> dict:
+    """The fleet's control loop: `python -m dynamo_tpu_torch.launcher` on a
+    graph of a control plane of its own (`control_plane_service --store
+    file:`), a kv-routed frontend, the metrics aggregator and the load
+    planner (`--min-replicas 1 --max-replicas 2 --kv-low FLEET_KV_LOW`),
+    which spawns llama-3-1b workers of FLEET_BLOCKS pages on the card.  In
+    order:
+    - scale-up: waves of FLEET_WAVE chats queue on the first worker until
+      the planner's second worker registers;
+    - the long chat (`fleet_long_body`) goes out at once, while the last
+      wave still queues on the first worker: the router sends it to the
+      idle newest worker (no prompt block of it is on the first; where
+      the wave has just ended, to either), and the planner, which sees
+      requests waiting, cannot scale down before it is placed;
+    - the chat's worker launches K1 and K2, and so does its peer (read
+      once the stream resumed there); while the wave runs, the
+      aggregator's /metrics carries both workers' load and scraped series
+      and the frontend's exposition;
+    - drain mid-decode: once the fleet idles but for the long chat, the
+      planner's scale-down SIGTERMs the newest worker, the chat's.  Where
+      the chat is on a worker that scale-down does not reach, the
+      control-plane command `drain/instance/<id>` drains that worker, and
+      waves then make the planner add a worker again, so that its
+      scale-down has one to remove (`drain.via` says which trigger ran);
+    - the stream completes through the peer with
+      `dynamo_migrations_total{reason="drain"}`; the peer pulled the
+      sealed blocks over cuda_ipc before admission (no host-staged block,
+      none prefilled again); the ids equal `serve`'s undrained answer
+      `ref_ids` (a split only at a near tie), and each id is the plain
+      model's greedy choice given the ids before it, up to a near tie
+      (`forced_gaps`), so no early split hides a token after the handoff;
+    - scale-down: the connector counts a clean drain and no force kill,
+      and one replica is left; no chat failed;
+    - teardown: SIGTERM stops the graph in reverse order, rc 0, in time."""
+    from dynamo_tpu_torch.llm.drain import drain_key_instance
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    FLEET_DIR.mkdir(parents=True, exist_ok=True)
+    for f in FLEET_DIR.iterdir():
+        f.unlink()
+    cp_port, fe_port, agg_port, pl_port = (_free_port() for _ in range(4))
+    cp = f"127.0.0.1:{cp_port}"
+    fe = f"http://127.0.0.1:{fe_port}"
+    agg = f"http://127.0.0.1:{agg_port}"
+    planner = f"http://127.0.0.1:{pl_port}"
+    graph = FLEET_DIR / "graph.toml"
+    worker_args = [*FLEET_MODEL, "--model-name", "m",
+                   "--num-blocks", str(FLEET_BLOCKS), "--block-size",
+                   str(BS), "--health-port", "0", "--metrics-interval",
+                   str(FLEET_METRICS_S)]
+    graph.write_text(f"""[graph]
+serve_control_plane = false
+control_plane = "{cp}"
+log_dir = "{FLEET_DIR}"
+
+[services.control_plane]
+module = "dynamo_tpu_torch.control_plane_service"
+args = ["--port", "{cp_port}", "--store", "file:{FLEET_DIR}/cp.json"]
+inject_control_plane = false
+restart = "always"
+
+[services.frontend]
+module = "dynamo_tpu_torch.frontend"
+args = ["--http-port", "{fe_port}", "--router-mode", "kv"]
+
+[services.metrics_aggregator]
+module = "dynamo_tpu_torch.metrics_aggregator"
+args = ["--http-port", "{agg_port}"]
+
+[services.planner]
+module = "dynamo_tpu_torch.planner"
+args = {json.dumps(["--control-plane", cp, "--min-replicas", "1",
+                    "--max-replicas", "2", "--kv-low", str(FLEET_KV_LOW),
+                    "--metrics-port", str(pl_port), "--", *worker_args])}
+""")
+    # The planner's connector writes its workers' logs to the temp dir.
+    env = dict(os.environ, TMPDIR=str(FLEET_DIR))
+    log = open(OUT_DIR / "chip_smoke_fleet_launcher.log", "w")
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.launcher", str(graph)],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def alive():
+        if launcher.poll() is not None:
+            raise SmokeError(f"launcher exited rc {launcher.returncode}: "
+                             + Path(log.name).read_text()[-2000:])
+
+    def until(pred, secs, what):
+        t0 = time.monotonic()
+        while True:
+            alive()
+            try:
+                got = pred()
+                if got:
+                    return got
+            except OSError:
+                pass
+            check(time.monotonic() - t0 < secs, f"fleet: {what} not within "
+                                                f"{secs} s")
+            time.sleep(0.25)
+
+    def pmetric(name):
+        return metric_value(_http(planner + "/metrics", timeout=10), name)
+
+    def wlogs():
+        """Spawn number -> log of each worker the planner started."""
+        return {int(p.stem.rsplit("_", 1)[1]): p.read_text()
+                for p in FLEET_DIR.glob("dynamo_planner_worker_*.log")}
+
+    def wave_ok(fut):
+        """A wave still running or done well; its failure ends the wait."""
+        if fut.done() and fut.exception() is not None:
+            raise SmokeError(f"fleet: a wave failed: {fut.exception()}")
+        return True
+
+    def sustain(done):
+        """Waves of FLEET_WAVE chats until `done()`; all their results."""
+        results = []
+        while not done():
+            results += chat_wave(fe, [
+                long_chat(len(results) + i, i % 2 == 0, FLEET_WAVE_TOKENS,
+                          FLEET_CHARS) for i in range(FLEET_WAVE)])
+        return results
+
+    def instances():
+        async def get(cli):
+            return await cli.get_prefix("instances/")
+        return cp_run(cp, get)
+
+    def scale_up(pool):
+        """Waves on `pool` until the planner's second live worker
+        registers: the waves' future (its last wave still running) and
+        the seconds from the first wave to the registration."""
+        t0 = time.monotonic()
+        fut = pool.submit(sustain, lambda: len(instances()) == 2)
+        until(lambda: wave_ok(fut) and len(instances()) == 2, 300,
+              "the planner's second worker registering")
+        return fut, time.monotonic() - t0
+
+    def launched(seq):
+        """The launch counts of the worker of spawn number `seq` once it
+        has launched K1 and K2, else None."""
+        port = re.search(r"worker status server on :(\d+)", wlogs()[seq])
+        k = json.loads(_http(f"http://127.0.0.1:{port.group(1)}"
+                             "/debug/stats"))["kernels"]
+        return k if (k["paged_decode_attention"] > 0
+                     and k["paged_prefill_attention"] > 0) else None
+
+    out = {"phase": "fleet"}
+    try:
+        t0 = time.monotonic()
+        until(lambda: json.loads(_http(fe + "/v1/models", timeout=5))["data"],
+              300, "the first worker serving")
+        out["first_worker_s"] = time.monotonic() - t0
+        long_body = fleet_long_body()
+        with ThreadPoolExecutor(2) as pool:
+            w1, out["scale_up_s"] = scale_up(pool)
+            # At once, while the last wave still queues on the first worker.
+            long_fut = pool.submit(stream_chat, fe, long_body)
+            workers = until(lambda: len(fleet_workers(cp)) == 2
+                            and fleet_workers(cp), 60,
+                            "both workers' status endpoints")
+            on = until(lambda: wave_ok(long_fut) and [
+                seq for seq, text in wlogs().items()
+                if f"max_tokens={FLEET_LONG_TOKENS}" in text], 60,
+                "the long chat placed")
+            holder, newest = on[0], max(wlogs())
+            # The holder's launches once it decodes the chat (its peer's
+            # are read after the stream resumed there).
+            launches = {holder: until(
+                lambda: wave_ok(long_fut) and launched(holder), 60,
+                f"K1 and K2 launched on worker {holder}, the long chat's")}
+
+            def agg_ok():
+                text = _http(agg + "/metrics", timeout=10)
+                addrs = [u.removeprefix("http://") for u in workers.values()]
+                ok = (metric_value(text, "dynamo_aggregate_workers") == 2
+                      and all(f'dynamo_worker_request_active_slots'
+                              f'{{instance="{a}"}}' in text for a in addrs)
+                      and f'instance="127.0.0.1:{fe_port}"' in text
+                      and "dynamo_frontend_requests_total{" in text)
+                return text if ok else None
+
+            # Read while the wave runs, so that the planner, which sees
+            # requests waiting, keeps both workers.
+            agg_text = until(lambda: wave_ok(long_fut) and agg_ok(), 60,
+                             "the aggregator's fleet view")
+            out["aggregator"] = {
+                "workers": metric_value(agg_text, "dynamo_aggregate_workers"),
+                "scraped": sorted(ln[len("# scraped from "):]
+                                  for ln in agg_text.splitlines()
+                                  if ln.startswith("# scraped from "))}
+            r1 = w1.result()
+            t_idle = time.monotonic()  # the fleet idles but for the chat
+            check_results(r1, FLEET_WAVE_TOKENS)
+            via = "planner" if planner_reaches(holder, newest) else "command"
+            if via == "command":
+                iid = int(re.search(r"worker instance (\d+) serving",
+                                    wlogs()[holder]).group(1))
+                cp_run(cp, lambda cli: cli.put(drain_key_instance(iid),
+                                               "chip_smoke"))
+            t_drain, reason = until(
+                lambda: wave_ok(long_fut) and (
+                    (m := re.search(r"drain \((\w+)\)", wlogs()[holder]))
+                    and (time.monotonic(), m.group(1))), 180,
+                "the holder's drain")
+            check(reason == {"planner": "sigterm",
+                             "command": "control_plane"}[via],
+                  f"fleet: the holder was drained by {reason}, not by the "
+                  f"{via}")
+            t_handed = until(
+                lambda: ("drain complete" in wlogs()[holder]
+                         and time.monotonic()), 120,
+                "the holder's drain completing")
+            long_res = long_fut.result()
+        handoff = re.search(r"handing off (\S+) \((\d+) tokens emitted, "
+                            r"(\d+) KV tokens offered\)", wlogs()[holder])
+        check(handoff is not None
+              and 0 < int(handoff.group(2)) < FLEET_LONG_TOKENS,
+              "fleet: the long chat was not handed off mid-decode")
+        emitted = int(handoff.group(2))
+        out["drain"] = {"via": via, "holder": holder, "newest": newest,
+                        "emitted_before": emitted,
+                        "kv_tokens_offered": int(handoff.group(3)),
+                        "after_idle_s": t_drain - t_idle,
+                        "drain_s": t_handed - t_drain,
+                        "stream_s": long_res["wall_s"]}
+        check(long_res["done"] and long_res["finish"] == "length"
+              and long_res["tokens"] == FLEET_LONG_TOKENS
+              == len(long_res["ids"]),
+              f"fleet: the drained stream returned {long_res['tokens']} "
+              f"tokens ({long_res['finish']})")
+        check("drain complete: 1 stream(s) migrated out" in wlogs()[holder],
+              "fleet: the holder did not hand its stream off")
+        n_drain = metric_value(_http(fe + "/metrics"),
+                               'dynamo_migrations_total{reason="drain"}')
+        check(n_drain is not None and n_drain >= 1,
+              f"fleet: dynamo_migrations_total{{reason=\"drain\"}} {n_drain}")
+        peer = [seq for seq in wlogs() if seq != holder
+                and f"request {handoff.group(1)}#m1:" in wlogs()[seq]]
+        check(len(peer) == 1, f"fleet: the stream resumed on {peer}")
+        launches[peer[0]] = launched(peer[0])
+        check(launches[peer[0]] is not None,
+              f"fleet: worker {peer[0]}, the peer, launched no K1 or K2")
+        out["launches"] = {str(seq): k for seq, k in launches.items()}
+        pst = []
+        for u in fleet_workers(cp).values():
+            with contextlib.suppress(OSError):   # the holder may be gone
+                pst.append(json.loads(_http(u + "/debug/stats", timeout=10)))
+        moved = [x for x in pst if x["migrated_in"]["streams"] >= 1]
+        check(len(moved) == 1, "fleet: no worker took the stream in with "
+                               f"its KV: {[x['migrated_in'] for x in pst]}")
+        st = moved[0]
+        ps = st["prefix_share"]
+        check(st["migrated_in"] == {"streams": 1,
+                                    "blocks": ps["pulled_blocks"]}
+              and ps["pulled_blocks"] >= 1 and ps["fallbacks"] == 0
+              and ps["device_pulled_blocks"] == ps["pulled_blocks"]
+              and st["transfer_plane"]["transport"] == "cuda_ipc"
+              and "host" not in st["plane_counts"],
+              f"fleet: the peer did not pull the sealed blocks over "
+              f"cuda_ipc: {ps}, {st['plane_counts']}")
+        check(no_reprefill(ps),
+              f"fleet: the peer prefilled pulled blocks again: {ps}")
+        out["kv_moved"] = {"migrated_in": st["migrated_in"],
+                           "prefix_share": ps,
+                           "plane_counts": st["plane_counts"]}
+        # The drained stream against `serve`'s undrained answer, and each
+        # of its ids against the plain model given the ids before it.
+        state = llama_state(torch)
+        prompt = chat_tokens(long_body)
+        out["split"] = greedy_split(torch, state, prompt, long_res["ids"],
+                                    ref_ids, "fleet: the drained stream")
+        gaps = forced_gaps(torch, get_config("llama-3-1b"), state, prompt,
+                           long_res["ids"], 0)
+        del state
+        torch.cuda.empty_cache()
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        check(gaps[worst] <= MODEL_TOL["llama-3-1b"],
+              f"fleet: the drained stream's id {worst} (the handoff after "
+              f"{emitted}) is not the plain model's greedy choice: argmax "
+              f"gap {gaps[worst]} > {MODEL_TOL['llama-3-1b']}")
+        out["forced"] = {
+            "off_argmax": sum(g > 0 for g in gaps),
+            "max_gap_before_handoff": max(gaps[:emitted]),
+            "max_gap_after_handoff": max(gaps[emitted:])}
+        out["no_loss"] = {"scale_up_waves": len(r1), "long": 1}
+        if via == "command":
+            # The command left one replica, which the planner may not
+            # remove: waves make it add a worker again to scale down.
+            with ThreadPoolExecutor(1) as pool:
+                w3, out["rescale_up_s"] = scale_up(pool)
+                r3 = w3.result()
+            check_results(r3, FLEET_WAVE_TOKENS)
+            out["no_loss"]["rescale_waves"] = len(r3)
+            t_idle = time.monotonic()
+        t_down = until(lambda: pmetric('dynamo_planner_drains_total'
+                                       '{outcome="clean"}') == 1
+                       and pmetric("dynamo_planner_replicas") == 1
+                       and time.monotonic(), 180,
+                       "the planner's scale-down")
+        # From the fleet idling to the newest worker's drain done.
+        out["scale_down_s"] = (t_handed if via == "planner"
+                               else t_down) - t_idle
+        out["planner"] = {key: pmetric(name) for key, name in (
+            ("decisions_up", 'dynamo_planner_decisions_total'
+                             '{direction="up"}'),
+            ("decisions_down", 'dynamo_planner_decisions_total'
+                               '{direction="down"}'),
+            ("clean_drains", 'dynamo_planner_drains_total{outcome="clean"}'),
+            ("force_kills", 'dynamo_planner_drains_total'
+                            '{outcome="force_kill"}'),
+            ("replicas", "dynamo_planner_replicas"))}
+        check(out["planner"]["force_kills"] == 0
+              and out["planner"]["clean_drains"] == 1
+              and out["planner"]["replicas"] == 1,
+              f"fleet: the scale-down was not one clean drain to one "
+              f"replica: {out['planner']}")
+    finally:
+        t_stop = time.monotonic()
+        launcher.send_signal(signal.SIGTERM)
+        try:
+            rc = launcher.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            launcher.kill()
+            launcher.wait()
+            rc = None
+        log.close()
+    stop_s = time.monotonic() - t_stop
+    text = Path(log.name).read_text()
+    order = re.findall(r"launcher: stopping (\w+)\[", text)
+    check(rc == 0 and stop_s < 120,
+          f"fleet: the launcher's teardown rc {rc} in {stop_s:.1f} s")
+    check(order == ["planner", "metrics_aggregator", "frontend",
+                    "control_plane"],
+          f"fleet: teardown order {order}")
+    out["teardown"] = {"rc": rc, "s": stop_s, "order": order}
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
 
 
 def summary_entry(k: dict, name: str, launches: int, **extra) -> dict:
@@ -3152,7 +3835,8 @@ def main() -> int:
                                 [chat_body(i, False, 64, user=LONE_TURN)
                                  for i in range(2)]
                                 + [disagg_chat(i, False)
-                                   for i in (0, 1, 0, 1)])],
+                                   for i in (0, 1, 0, 1)]
+                                + [fleet_long_body()])],
                             during=embed_requests)
         serve_embed = serve.pop("during")
         emit(serve)
@@ -3280,6 +3964,39 @@ def main() -> int:
               f"{serve_sp['ttft_long_s']['sp4']} s, --sp {SP} --kv-quant "
               f"int8 {serve_sp['ttft_long_s']['sp4_int8']} s, --sp 1 "
               f"{serve_sp['ttft_long_s']['sp1']} s", flush=True)
+        torch.cuda.empty_cache()
+        phase = "qos"
+        qos = qos_phase(torch)
+        emit(qos)
+        tm = qos["ttft_mean_s"]
+        print(f"qos on {'; '.join(smi.splitlines())}: {QOS_BE} best-effort "
+              f"+ {QOS_IA} interactive chats on {QOS_BLOCKS} pages: "
+              f"{qos['qos_preemptions']:.0f} QoS preemptions; TTFT mean "
+              f"interactive {tm['interactive']:.4f} s, best-effort "
+              f"{tm['best_effort']:.4f} s (queued ones "
+              f"{tm['best_effort_queued']:.4f} s); {qos['wall_s']:.1f} s",
+              flush=True)
+        phase = "planner_profile"
+        profile = planner_profile_phase(torch, kernels)
+        emit(profile)
+        pp, t = profile["profile"], profile["sla_targets"]
+        print(f"planner_profile on {'; '.join(smi.splitlines())}: TTFT "
+              f"{dict(zip(pp['prefill']['isl'], pp['prefill']['ttft_s']))} s "
+              f"by ISL; ITL {pp['decode']['itl_s']} s by (context "
+              f"{pp['decode']['context']}) x (kv {pp['decode']['kv_usage']});"
+              f" SLA targets P {t['num_prefill']} D {t['num_decode']}; "
+              f"{profile['wall_s']:.1f} s", flush=True)
+        phase = "fleet"
+        fleet = fleet_phase(torch, serve["lone_answers"][6]["token_ids"])
+        emit(fleet)
+        print(f"fleet on {'; '.join(smi.splitlines())}: first worker "
+              f"{fleet['first_worker_s']:.1f} s, scale-up "
+              f"{fleet['scale_up_s']:.1f} s, scale-down "
+              f"{fleet['scale_down_s']:.1f} s, drain by the "
+              f"{fleet['drain']['via']} {fleet['drain']['drain_s']:.2f} s "
+              f"after {fleet['drain']['emitted_before']} tokens, teardown "
+              f"{fleet['teardown']['s']:.1f} s; {fleet['wall_s']:.1f} s",
+              flush=True)
     except Exception as e:  # every failure ends the run without an ok line
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
@@ -3304,6 +4021,12 @@ def main() -> int:
                 w["launches"][key] for w in dist["wave_kv"]["workers"])
             extra["launches_serve_disagg"] = sum(
                 k[key] for k in disagg["wave"]["launches"].values())
+            # The fleet's control loop: the qos worker's wave, the SLA
+            # profiler's sweep and both fleet workers.
+            extra["launches_qos"] = qos["launches"][key]
+            extra["launches_planner_profile"] = profile["launches"][key]
+            extra["launches_fleet"] = sum(
+                k[key] for k in fleet["launches"].values())
         if "eager_ms" in k:
             extra["eager_ms"] = k["eager_ms"]
         name = (key + ("" if d == 64 else f"_d{d}")

@@ -81,10 +81,16 @@ the steady window's counter deltas are the same with every plane on or
 off.  Thread contracts (runtime/contracts.py) pin the core to its step
 loop.
 
-Not ported yet: the prefix cache's host and disk tiers, QoS preemption
-(the priority annotation reaches the KV router's selector, not the
-scheduler), prewarm of the packed prefill shapes, tp/dp/ep/pp meshes
-(and with them MoE all-to-all dispatch) and multimodal prefill.
+QoS, as in JAX: `generate` and `add_request` take the request's class
+(`priority`), and the scheduler's QoS victims go through `_qos_preempt`,
+which resets the seal bookkeeping, recompute-preempts, and demotes the
+victim's sealed blocks through the block manager (a no-op without a host
+tier, as on every JAX worker; `qos_demoted_blocks` counts them).  A
+drain ends a stream with a `TokenDelta.migrate` hint (llm/drain.py).
+
+Not ported yet: the prefix cache's host and disk tiers, prewarm of the
+packed prefill shapes, tp/dp/ep/pp meshes (and with them MoE all-to-all
+dispatch) and multimodal prefill.
 """
 
 from __future__ import annotations
@@ -187,6 +193,12 @@ class TokenDelta:
     # Prompt tokens the prefix cache served at admission; on the first
     # token delta after each admission only.
     cached_tokens: Optional[int] = None
+    # Drain handoff (llm/drain.py): a worker leaving the fleet ends the
+    # stream with this set instead of a finish — {"reason",
+    # "covered_tokens", "address"?} tells the frontend's MigrationClient
+    # to resume the stream on a peer, pulling the resident KV from
+    # `address` first.  Never reaches end clients.
+    migrate: Optional[dict] = None
     # A worker hop's request ledger in wire form, on the stream's last
     # delta out of a worker (runtime/ledger.py); None elsewhere.
     ledger: Optional[dict] = None
@@ -325,6 +337,11 @@ class EngineCore:
         else:
             self.allocator = BlockAllocator(config.num_blocks)
         self.scheduler = Scheduler(sched_cfg, self.allocator)
+        # QoS preemption: the scheduler picks victims, the engine executes
+        # the preempt so seal bookkeeping resets and the victim's sealed
+        # KV demotes down-tier.
+        self.scheduler.qos_preempt_sink = self._qos_preempt
+        self.qos_demoted_blocks = 0
         # Seal bookkeeping for the prefix cache: each request's chained
         # block hashes and how many of its blocks are registered.
         self._hash_seqs: Dict[str, TokenBlockSequence] = {}
@@ -401,7 +418,8 @@ class EngineCore:
     @engine_thread_only
     def add_request(self, request_id: str, prompt_tokens: List[int],
                     sampling: SamplingParams,
-                    arrival_ts: Optional[float] = None) -> None:
+                    arrival_ts: Optional[float] = None,
+                    priority: int = 1) -> None:
         """`arrival_ts`: when the request was submitted (monotonic; default
         now) — InferenceEngine passes its submission time, so the wait for
         the engine thread counts as queueing in the spans and the ledger."""
@@ -413,7 +431,8 @@ class EngineCore:
         if any(not 0 <= int(t) < vocab for t in prompt_tokens):
             raise ValueError(f"prompt token outside the vocabulary [0, {vocab})")
         req = Request(request_id=request_id,
-                      prompt_tokens=list(prompt_tokens), sampling=sampling)
+                      prompt_tokens=list(prompt_tokens), sampling=sampling,
+                      priority=int(priority))
         if arrival_ts is not None:
             req.arrival_ts = arrival_ts
         self._requests[request_id] = req
@@ -430,6 +449,14 @@ class EngineCore:
         """True while any request needs a step(), including finished ones
         whose terminal delta has not been collected yet."""
         return bool(self._requests)
+
+    @property
+    def has_pending_prefill(self) -> bool:
+        """True while any request still owes prefill work (queued or
+        mid-chunk): the "drain prefill before timing decode" loop that
+        profilers need, without reaching into `_requests`."""
+        return any(r.state in (RequestState.WAITING, RequestState.PREFILL)
+                   for r in self._requests.values())
 
     # -- stepping ---------------------------------------------------------
 
@@ -1292,6 +1319,34 @@ class EngineCore:
         self._published_blocks.pop(req.request_id, None)
         self.scheduler.preempt(req)
 
+    def _qos_preempt(self, req: Request) -> None:
+        """Scheduler-chosen QoS victim: recompute-preempt it, then demote
+        its sealed blocks down-tier through the block manager (a no-op
+        without a host tier).  Resets the seal bookkeeping as
+        `_preempt_or_finish` does."""
+        rid = req.request_id
+        seq = self._hash_seqs.get(rid)
+        published = self._published_blocks.get(rid, 0)
+        sealed = ([b.block_hash for b in seq.blocks[:published]]
+                  if seq is not None else [])
+        n_sealed = len(sealed)
+        if not self._managed_cache:
+            self._publish_removed_blocks(req)
+        self._hash_seqs.pop(rid, None)
+        self._published_blocks.pop(rid, None)
+        self.scheduler.preempt(req)
+        demoted = 0
+        if self._managed_cache and sealed:
+            demoted = self.allocator.manager.demote_blocks(sealed)
+            self.qos_demoted_blocks += demoted
+        fl = self.flight
+        if fl.enabled:
+            fl.record("qos_preempt", rid=rid, prio=req.priority,
+                      sealed=n_sealed, demoted=demoted)
+        logger.info("qos-preempted %s (priority %d): %d sealed blocks, "
+                    "%d demoted to host tier", rid, req.priority,
+                    n_sealed, demoted)
+
     def _sample_rows(self, logits: torch.Tensor, reqs: List[Request]):
         """(tokens[n], logprobs[n] or None) on the device."""
         n = logits.shape[0]
@@ -1755,10 +1810,10 @@ class InferenceEngine:
             except Exception as e:   # raised to the awaiting caller
                 result, exc = None, e
             self._loop.call_soon_threadsafe(self._resolve, fut, result, exc)
-        for rid, prompt, sampling, arrival in adds:
+        for rid, prompt, sampling, arrival, priority in adds:
             try:
                 self.core.add_request(rid, prompt, sampling,
-                                      arrival_ts=arrival)
+                                      arrival_ts=arrival, priority=priority)
             except ValueError as e:
                 self._dispatch(TokenDelta(
                     request_id=rid, token_ids=[], finished=True,
@@ -1784,14 +1839,15 @@ class InferenceEngine:
 
     @never_engine_thread
     async def generate(self, request_id: str, prompt_tokens: List[int],
-                       sampling: SamplingParams) -> AsyncIterator[TokenDelta]:
+                       sampling: SamplingParams,
+                       priority: int = 1) -> AsyncIterator[TokenDelta]:
         """Submit and stream deltas until the request finishes; closing
         the generator cancels the request."""
         q: asyncio.Queue = asyncio.Queue()
         self._queues[request_id] = q
         with self._cmd_lock:
             self._pending_adds.append((request_id, prompt_tokens, sampling,
-                                       time.monotonic()))
+                                       time.monotonic(), priority))
         self._wake.set()
         try:
             while True:

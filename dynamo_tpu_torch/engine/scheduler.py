@@ -20,10 +20,16 @@ Requests carry the JAX scheduler's timestamps (arrival, prefill start
 and end, first token) and preemption count, which the engine's tracing
 spans and ledger stamps read.
 
-Left out of this copy: the flight-recorder breadcrumbs, QoS classes and
-SLO-pressure preemption, the dp-attention sharded allocator and the
-padded-prefill row buckets (none is ported yet).  Admission is FCFS, which is what the JAX scheduler does
-when every request has the default priority and no SLO pressure is wired.
+QoS classes as JAX's: admission takes the highest `Request.priority`
+first (FCFS within a class); a capacity-blocked request preempts the
+newest running request of a strictly lower class; and under SLO-burn
+pressure (`qos_pressure_fn` at or above `qos_threshold`) best-effort
+requests hold at admission and one running best-effort request is shed
+per plan.  The flight recorder gets JAX's `admit` and `sched_preempt`
+breadcrumbs.
+
+Left out of this copy: the dp-attention sharded allocator (A7) and the
+padded-prefill row buckets (the port's prefill is always packed).
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ from __future__ import annotations
 import enum
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from dynamo_tpu_torch.engine.sampling import SamplingParams
+from dynamo_tpu_torch.runtime import flight_recorder
 
 # Policy constants, the JAX package's defaults.
 MAX_BATCHED_TOKENS = 8192      # token budget of one step
@@ -84,6 +91,12 @@ class Request:
     prefill_start_ts: Optional[float] = None
     prefill_end_ts: Optional[float] = None
     preempts: int = 0
+    # QoS class: 0 = best-effort (preemptible under SLO burn, held at
+    # admission while the budget burns), 1 = standard (default), 2 =
+    # interactive.  Admission picks the highest class first (FCFS within
+    # a class); capacity shortfalls preempt strictly-lower classes before
+    # refusing a higher one.
+    priority: int = 1
 
     @property
     def total_len(self) -> int:
@@ -342,6 +355,21 @@ class Scheduler:
         # re-admission after preemption counts again.
         self.prefix_hit_tokens = 0
         self.prefix_miss_tokens = 0
+        # Flight-recorder breadcrumbs for admissions and preemptions (the
+        # module singleton is a no-op until the process enables it).
+        self.flight = flight_recorder.get_recorder()
+        # QoS pressure: `qos_pressure_fn() -> float` is the SLO monitor's
+        # worst fast-window burn rate (the worker wires
+        # `SloMonitor.last_max_burn`); at or above `qos_threshold`
+        # best-effort (priority <= 0) admissions hold and running
+        # best-effort requests are shed one per plan() while a higher
+        # class waits.  `qos_preempt_sink(req)` executes the preempt (the
+        # engine's `_qos_preempt`); without a sink it is plain preempt().
+        self.qos_pressure_fn: Optional[Callable[[], float]] = None
+        self.qos_threshold: float = 1.0
+        self.qos_preempt_sink: Optional[Callable[[Request], None]] = None
+        self.qos_preemptions = 0          # cumulative victims
+        self.qos_active = False           # pressure state at last plan()
 
     # -- admission --------------------------------------------------------
 
@@ -356,10 +384,71 @@ class Scheduler:
     def _pages_needed(self, tokens: int) -> int:
         return (tokens + self.config.block_size - 1) // self.config.block_size
 
+    def _qos_pressure(self) -> bool:
+        """True while the installed SLO burn signal is at or above the
+        QoS threshold (a broken or missing signal reads as no pressure:
+        QoS must never wedge admission)."""
+        fn = self.qos_pressure_fn
+        if fn is None:
+            return False
+        try:
+            burn = fn()
+        except Exception:
+            return False
+        return burn is not None and burn >= self.qos_threshold
+
+    def _next_admit_index(self, pressure: bool) -> Optional[int]:
+        """Waiting index to admit next: highest priority class first,
+        FCFS within a class; under SLO-burn pressure best-effort
+        (priority <= 0) requests hold in the queue."""
+        best = None
+        best_p = None
+        for i, r in enumerate(self.waiting):
+            if pressure and r.priority <= 0:
+                continue
+            if best is None or r.priority > best_p:
+                best, best_p = i, r.priority
+        return best
+
+    def _qos_victim(self, min_priority: int) -> Optional[Request]:
+        """Newest running request of the lowest class strictly below
+        `min_priority`: the least-progressed work of the most
+        preemptible class."""
+        victims = [r for r in self.running if r.priority < min_priority]
+        if not victims:
+            return None
+        low = min(r.priority for r in victims)
+        return [r for r in victims if r.priority == low][-1]
+
+    def _qos_preempt(self, req: Request) -> None:
+        """One QoS preemption through the engine's sink; a bare
+        scheduler preempts in place."""
+        self.qos_preemptions += 1
+        sink = self.qos_preempt_sink
+        if sink is not None:
+            sink(req)
+        else:
+            self.preempt(req)
+
+    def _qos_shed(self) -> None:
+        """SLO burn at or above threshold: shed ONE running best-effort
+        request per plan(), but only while a higher class is running or
+        waiting (an all-best-effort fleet has nobody to yield to)."""
+        if not (any(r.priority > 0 for r in self.waiting)
+                or any(r.priority > 0 for r in self.running)):
+            return
+        victims = [r for r in self.running if r.priority <= 0]
+        if victims:
+            self._qos_preempt(victims[-1])
+
     def _try_admit(self) -> None:
         usable = self.allocator.num_blocks - 1
+        pressure = self.qos_active
         while self.waiting and len(self.running) < self.config.max_seqs:
-            req = self.waiting[0]
+            idx = self._next_admit_index(pressure)
+            if idx is None:
+                break  # only held best-effort requests remain queued
+            req = self.waiting[idx]
             slot = next(
                 (i for i, s in enumerate(self._slots) if s is None), None)
             if slot is None:
@@ -377,14 +466,21 @@ class Scheduler:
             if self.allocator.free_blocks - need_new < WATERMARK * usable:
                 if cached_pages:
                     self.allocator.release(cached_pages)
+                # Priority preemption: a capacity-blocked higher class
+                # displaces the newest strictly-lower-class request and
+                # the admission retries with the freed pages.
+                victim = self._qos_victim(req.priority)
+                if victim is not None:
+                    self._qos_preempt(victim)
+                    continue
                 # Nothing running means nothing will ever free pages — the
                 # head request can never fit; fail it instead of spinning.
                 if not self.running:
-                    self.waiting.pop(0)
+                    self.waiting.pop(idx)
                     req.state = RequestState.FINISHED
                     req.finish_reason = FinishReason.LENGTH
                 break
-            self.waiting.pop(0)
+            self.waiting.pop(idx)
             req.pages = list(cached_pages) + self.allocator.allocate(need_new)
             # The cached prefix skips prefill, but the last prompt token is
             # always recomputed so admission yields logits (a fully cached
@@ -397,6 +493,11 @@ class Scheduler:
             self._slots[slot] = req
             req.state = RequestState.PREFILL
             self.running.append(req)
+            fl = self.flight
+            if fl.enabled:
+                fl.record("admit", rid=req.request_id,
+                          prompt=len(req.prompt_tokens),
+                          cached=cached_tokens, new_pages=need_new)
 
     # -- page growth ------------------------------------------------------
 
@@ -416,6 +517,9 @@ class Scheduler:
     def plan(self) -> StepPlan:
         """Decode-first: every DECODE sequence takes one step; the remaining
         token budget goes to prefill chunks, FCFS."""
+        self.qos_active = self._qos_pressure()
+        if self.qos_active:
+            self._qos_shed()
         self._try_admit()
         bs = self.config.block_size
         budget = MAX_BATCHED_TOKENS
@@ -460,6 +564,11 @@ class Scheduler:
         prefill's completion samples the next token exactly as if decode
         had continued."""
         req.preempts += 1
+        fl = self.flight
+        if fl.enabled:
+            fl.record("sched_preempt", rid=req.request_id,
+                      output=len(req.output_tokens),
+                      pages=len(req.pages))
         if req in self.running:
             self.running.remove(req)
         if req.slot is not None:

@@ -1,5 +1,5 @@
 """Slice topology: the part of `dynamo_tpu/fleet/topology.py` the KV
-router reads.
+router and the planner read.
 
 One `SliceSpec` describes a worker's devices the way the router needs to
 weigh it: the (dp, pp, sp, ep, tp) degrees, the role, the KV mode, the
@@ -13,7 +13,8 @@ largest candidate's, and `pick_donor` orders remote-prefix donors by
 `donor_preference_key`: reachable over the device fabric first, then
 coverage, then free memory, then the stable id.
 
-Not ported: the `--slice` parser and the planner's placement rules.
+The planner checks `validate_placement` before it spawns a worker.  Not
+ported: the `--slice` parser and `place_role` (they come with tp/dp/ep/pp).
 """
 
 from __future__ import annotations
@@ -146,3 +147,25 @@ def donor_preference_key(worker_id, overlap_blocks: int, *,
 def _neg_str(s: str) -> tuple:
     """Lexicographic negation: an ascending-id preference inside max()."""
     return tuple(-ord(c) for c in s)
+
+
+def validate_placement(role: str, spec: Optional[SliceSpec]) -> Tuple[bool, str]:
+    """Is deploying `role` work onto `spec` topology-sane?  The planner
+    consults this before spawning/scaling.  A worker without a published spec is accepted — the
+    mixed-fleet rule again — but a spec that names a different dedicated
+    role is a refusal, not a warning."""
+    if role not in ROLES:
+        return False, f"unknown role {role!r} (want one of {ROLES})"
+    if spec is None:
+        return True, "no SliceSpec published; placement unconstrained"
+    if role in ("prefill", "decode") and spec.role in ("prefill", "decode") \
+            and spec.role != role:
+        return False, (
+            f"role {role!r} cannot be placed on a dedicated "
+            f"{spec.role!r} slice ({spec.describe()}); spawn a "
+            f"{role} cell with its own mesh instead")
+    if role == "both" and spec.role in ("prefill", "decode"):
+        return False, (
+            f"aggregated (both) serving cannot ride a dedicated "
+            f"{spec.role!r} slice ({spec.describe()})")
+    return True, "ok"

@@ -257,8 +257,10 @@ async def run(args) -> None:
         print(f"control plane on 127.0.0.1:{cp_port}", flush=True)
         shutdowns.append(cp_server.stop)
     models = ModelManager()
+    cp_client = None
     if args.control_plane:
         watcher, stops = await start_discovery(args, models, registry)
+        cp_client = watcher.runtime.cp
         shutdowns[:0] = stops
         # Beside the request timings: the blocks the KV router indexes
         # per model and worker.
@@ -295,6 +297,24 @@ async def run(args) -> None:
         loop.add_signal_handler(sig, stop_ev.set)
     try:
         port = await svc.start(args.http_host, args.http_port)
+        if cp_client is not None:
+            # Fleet discovery: the metrics aggregator, the planner and
+            # `dynamo top` find this frontend under status_endpoints/ as
+            # they find a worker (retried: a control plane mid-restart
+            # must not crash the frontend).
+            from dynamo_tpu_torch.runtime.status import (
+                register_status_endpoint_task)
+
+            adv_host = args.http_host
+            if adv_host in ("0.0.0.0", "::", ""):
+                logger.warning(
+                    "--http-host %s is a wildcard bind; advertising "
+                    "127.0.0.1 under status_endpoints/ — pass a routable "
+                    "--http-host for cross-host scraping", adv_host)
+                adv_host = "127.0.0.1"
+            reg_task = register_status_endpoint_task(
+                cp_client, "frontend", port, host=adv_host)
+            shutdowns.insert(0, _cancel_coro(reg_task))
         print(f"dynamo_tpu_torch frontend {banner} on "
               f"http://{args.http_host}:{port}", flush=True)
         await stop_ev.wait()
@@ -302,6 +322,12 @@ async def run(args) -> None:
         await svc.stop()
         for shutdown in shutdowns:
             await shutdown()
+
+
+def _cancel_coro(task):
+    async def cancel():
+        task.cancel()
+    return cancel
 
 
 def main(argv=None) -> None:

@@ -9,9 +9,12 @@ out a resident block's wire bytes and `import_block` / `import_blocks`
 inject a peer's blocks as registered, matchable prefix-cache entries
 (`onboarded_blocks` counts them).  The engine hands the manager its
 batched `extract_fn(pages) -> [n, *wire]` and `inject_fn(pages, data)`
-so the manager stays agnostic of the cache layout.  The host (G2) and
-disk (G3) tiers with their offload and onboard copies are not ported yet
-(ROADMAP queue A, item 6): a config that sizes them raises.
+so the manager stays agnostic of the cache layout.  `demote_blocks`
+(QoS preemption) and `set_eviction_bias` (the SLO-aware eviction hook)
+are JAX's; without a host tier a demotion is a no-op, as on every JAX
+worker.  The host (G2) and disk (G3) tiers with their offload and
+onboard copies are not ported yet (ROADMAP queue A, item 6): a config
+that sizes them raises.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ class KvBlockManager:
         self.inject_fn = inject_fn
         self.device = BlockPool(config.device_blocks, name="G1-device",
                                 reserve_null=True)
+        self.host = None     # G2 pool: not ported yet (TieredConfig refuses)
         self.onboarded_blocks = 0
 
     @engine_thread_only
@@ -66,6 +70,22 @@ class KvBlockManager:
         ids = self.device.acquire_matched(
             self.device.match_sequence_hashes(hashes))
         return len(ids), ids
+
+    @engine_thread_only
+    def demote_blocks(self, hashes: Sequence[int]) -> int:
+        """QoS preemption demotion: push the given G1-resident inactive
+        blocks down to the host tier now.  Without a host tier (always,
+        until G2 is ported) this is a no-op: the blocks stay inactive in
+        G1, resumable until LRU pressure reclaims them.  Returns how many
+        blocks moved."""
+        if self.host is None:
+            return 0
+        return sum(1 for h in hashes if self.device.demote_hash(h))
+
+    def set_eviction_bias(self, fn, scan: int = 8) -> None:
+        """Install the eviction-bias hook on every demoting tier (G1
+        only, until G2 is ported)."""
+        self.device.set_eviction_bias(fn, scan)
 
     # -- cross-worker transfer ---------------------------------------------
 

@@ -1,6 +1,7 @@
 """Block pool: slot allocation, sequence-hash registry and LRU reuse (copy
-of `dynamo_tpu/llm/block_manager/pool.py` without what only the host and
-disk tiers and QoS use: discard, demotion and the SLO eviction bias).
+of `dynamo_tpu/llm/block_manager/pool.py`), with JAX's QoS primitives:
+`discard`, `demote_hash` (the QoS preemption demotion) and the SLO-aware
+eviction bias (`set_eviction_bias`, `slo_eviction_bias`).
 
 A pool owns `capacity` slots of one tier.  Slot states:
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
+from itertools import islice
 from typing import Callable, Dict, List, Optional, Sequence
 
 from dynamo_tpu_torch.runtime.contracts import engine_thread_only, hot_path
@@ -28,6 +30,9 @@ class Slot:
     index: int
     block_hash: Optional[int] = None
     ref_count: int = 0
+    # Prefix-cache matches served by this slot since allocation: the
+    # hotness signal the SLO-aware eviction bias reads.
+    hits: int = 0
 
 
 class BlockRegistry:
@@ -61,6 +66,13 @@ class BlockPool:
         self.misses = 0
         self.evictions = 0     # LRU evictions under allocation pressure
         self.on_evict = on_evict
+        # Eviction-bias hook (SLO-aware demotion): `bias(slot) -> float`
+        # protection score, 0.0 = evict freely; the lowest score in a
+        # bounded LRU window is evicted.  None = pure LRU.
+        self.eviction_bias: Optional[Callable[[Slot], float]] = None
+        self.bias_scan = 8
+        # Evictions where the bias skipped over >= 1 protected block.
+        self.bias_protected = 0
 
     # -- views ------------------------------------------------------------
 
@@ -102,6 +114,7 @@ class BlockPool:
             if slot.ref_count == 0:
                 self.registry.inactive.pop(slot.block_hash, None)
             slot.ref_count += 1
+            slot.hits += 1
             ids.append(slot.index)
             self.hits += 1
         return ids
@@ -129,8 +142,32 @@ class BlockPool:
             self.misses += 1
         return out
 
+    def set_eviction_bias(self, fn: Optional[Callable[[Slot], float]],
+                          scan: int = 8) -> None:
+        """Install (or clear, fn=None) the eviction-bias hook.  `scan`
+        bounds how far past the LRU head `_evict_one` searches for an
+        unprotected victim."""
+        self.eviction_bias = fn
+        self.bias_scan = max(1, scan)
+
     def _evict_one(self) -> None:
-        h, slot = self.registry.inactive.popitem(last=False)  # LRU head
+        h, slot = next(iter(self.registry.inactive.items()))  # LRU head
+        if self.eviction_bias is not None:
+            # SLO-aware demotion: the least-protected block of a bounded
+            # LRU window.  With every score 0 (budget healthy) the LRU
+            # head wins outright.
+            best_score = self.eviction_bias(slot)
+            if best_score > 0.0:
+                for h2, s2 in list(islice(
+                        self.registry.inactive.items(), 1, self.bias_scan)):
+                    score = self.eviction_bias(s2)
+                    if score < best_score:
+                        h, slot, best_score = h2, s2, score
+                    if best_score <= 0.0:
+                        break
+                if h != next(iter(self.registry.inactive)):
+                    self.bias_protected += 1
+        del self.registry.inactive[h]
         del self.registry.by_hash[h]
         del self._slots[slot.index]
         self._free.append(slot.index)
@@ -152,6 +189,20 @@ class BlockPool:
             raise KeyError(f"{self.name}: slot {slot_index} not allocated")
         slot.block_hash = block_hash
         self.registry.by_hash[block_hash] = slot
+        return True
+
+    def discard(self, block_hash: int) -> bool:
+        """Drop a registered block entirely (failed fill, bad bytes): the
+        registration disappears and an unpinned slot returns to the free
+        list.  Pinned slots just lose their registration."""
+        slot = self.registry.by_hash.pop(block_hash, None)
+        if slot is None:
+            return False
+        self.registry.inactive.pop(block_hash, None)
+        slot.block_hash = None
+        if slot.ref_count == 0:
+            self._slots.pop(slot.index, None)
+            self._free.append(slot.index)
         return True
 
     # -- release ----------------------------------------------------------
@@ -176,6 +227,22 @@ class BlockPool:
                 del self._slots[idx]
                 self._free.append(idx)
 
+    def demote_hash(self, block_hash: int) -> bool:
+        """Evict a specific INACTIVE registered block now, firing the
+        on_evict chain: the QoS preemption demotion primitive.  Pinned or
+        unknown hashes are refused.  Not counted in `evictions`:
+        demotion is policy, not pressure."""
+        slot = self.registry.inactive.get(block_hash)
+        if slot is None:
+            return False
+        del self.registry.inactive[block_hash]
+        del self.registry.by_hash[block_hash]
+        del self._slots[slot.index]
+        self._free.append(slot.index)
+        if self.on_evict:
+            self.on_evict(block_hash, slot.index)
+        return True
+
     def clear_inactive(self) -> List[int]:
         """Drop every inactive registered block (an admin cache flush);
         returns the dropped hashes.  Pinned blocks stay; no eviction hook
@@ -188,3 +255,25 @@ class BlockPool:
             self._free.append(slot.index)
             dropped.append(h)
         return dropped
+
+
+def slo_eviction_bias(burn_fn: Callable[[], float], *,
+                      hot_hits: int = 1,
+                      burn_threshold: float = 1.0,
+                      ) -> Callable[[Slot], float]:
+    """SLO-aware eviction bias: while the error budget burns (`burn_fn()`,
+    the SLO monitor's worst fast-window burn rate, at or above
+    `burn_threshold`), protect hot prefix blocks (>= `hot_hits` cache
+    hits) from eviction.  Below the threshold every block scores 0 and
+    the pool is pure LRU.  Install with `set_eviction_bias`."""
+
+    def bias(slot: Slot) -> float:
+        try:
+            burn = burn_fn()
+        except Exception:
+            return 0.0  # a broken signal must not wedge eviction
+        if burn is None or burn < burn_threshold:
+            return 0.0
+        return float(slot.hits) if slot.hits >= hot_hits else 0.0
+
+    return bias

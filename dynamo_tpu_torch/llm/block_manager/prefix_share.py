@@ -1,8 +1,14 @@
 """Fleet-wide prefix reuse: pull a peer worker's sealed prefix blocks
-(port of `dynamo_tpu/llm/block_manager/prefix_share.py`, without the
-KV-carrying migration hint, which waits for the drain).  A pull is a
+(port of `dynamo_tpu/llm/block_manager/prefix_share.py`).  A pull is a
 `kv.prefix_share` span, and a hinted request's pull stamps its ledger's
 `kv_transfer` phase.
+
+KV-carrying migration: a stream that a draining worker handed off is
+re-issued by the frontend's MigrationClient with a `migrate_kv`
+annotation (`MIGRATE_ANNOTATION`) naming the draining worker's address
+and the stream's sealed high-water mark; `PrefixShareClient` pulls that
+prefix before admission, ahead of any router hint, so the resumed stream
+prefills only its unsealed tail.
 
 When the KV router sends a request to a worker whose own overlap is poor
 while a peer's is deep, it attaches a remote-prefix hint
@@ -51,7 +57,7 @@ from dynamo_tpu_torch.llm.block_manager.transfer import (
     resident_blocks,
     sealed_hashes,
 )
-from dynamo_tpu_torch.runtime import tracing
+from dynamo_tpu_torch.runtime import flight_recorder, tracing
 from dynamo_tpu_torch.runtime.contracts import never_engine_thread
 from dynamo_tpu_torch.runtime.ledger import ledger_of
 from dynamo_tpu_torch.runtime.rpc import RpcError
@@ -61,6 +67,10 @@ logger = logging.getLogger(__name__)
 # Annotation key the router sets and the worker consumes; riding the
 # request's annotations keeps the wire codec unchanged.
 HINT_ANNOTATION = "remote_prefix"
+# KV-carrying migration: the frontend's MigrationClient sets this on a
+# drain-handoff re-issue.  A key of its own, because the KV router
+# rewrites HINT_ANNOTATION on every routing decision.
+MIGRATE_ANNOTATION = "migrate_kv"
 
 
 def encode_hint(address: str, covered_tokens: int, worker_id=None) -> str:
@@ -137,6 +147,10 @@ class PrefixFetcher:
         self.hinted_covered_tokens = 0
         self.hinted_hit_tokens = 0
         self.reprefilled_tokens = 0
+        # KV-carrying migration landings: migrate hints consumed with
+        # >= 1 block pulled (`dynamo_requests_migrated_in_total`).
+        self.migrated_in = 0
+        self.migrated_in_blocks = 0
 
     def stats(self) -> dict:
         return {"remote_hits": self.remote_hits,
@@ -372,16 +386,43 @@ class PrefixShareClient:
 
     @never_engine_thread
     async def generate(self, request):
-        hint = decode_hint(request.annotations.get(HINT_ANNOTATION))
+        led = ledger_of(request)
         covered = None
-        if hint is not None:
-            led = ledger_of(request)
+        # KV-carrying migration first: the migrate hint covers prompt +
+        # already-generated tokens of a handed-off stream, so it
+        # supersedes any router hint for the same blocks (the residency
+        # check makes the second pull a no-op anyway).
+        mig = decode_hint(request.annotations.get(MIGRATE_ANNOTATION))
+        if mig is not None:
             pull_stats: dict = {}
             t0 = time.monotonic()
             dev0 = self.fetcher.device_pulled_blocks
             covered = await self.fetcher.pull(
-                request.token_ids, hint["address"], hint["covered_tokens"],
+                request.token_ids, mig["address"], mig["covered_tokens"],
                 stats=pull_stats)
+            gained = pull_stats.get("gained_blocks", 0)
+            if gained > 0:
+                self.fetcher.migrated_in += 1
+                self.fetcher.migrated_in_blocks += gained
+            if led is not None and gained > 0:
+                led.stamp(
+                    "kv_transfer", dur=time.monotonic() - t0,
+                    reason="migrate",
+                    plane=("device" if self.fetcher.device_pulled_blocks
+                           > dev0 else "host"),
+                    blocks=gained, tokens=covered)
+            fl = flight_recorder.get_recorder()
+            if fl.enabled:
+                fl.record("migrate_in", rid=request.request_id,
+                          covered=covered, pulled=gained)
+        hint = decode_hint(request.annotations.get(HINT_ANNOTATION))
+        if hint is not None:
+            pull_stats = {}
+            t0 = time.monotonic()
+            dev0 = self.fetcher.device_pulled_blocks
+            covered = max(covered or 0, await self.fetcher.pull(
+                request.token_ids, hint["address"], hint["covered_tokens"],
+                stats=pull_stats))
             gained = pull_stats.get("gained_blocks", 0)
             if led is not None and gained > 0:
                 led.stamp(

@@ -95,6 +95,10 @@ def delta_to_wire(delta: TokenDelta) -> dict:
     }
     if delta.logprobs is not None:
         d["logprobs"] = list(delta.logprobs)
+    if delta.migrate is not None:
+        # Drain handoff marker (llm/drain.py): old frontends never see it
+        # set; old workers never set it.
+        d["migrate"] = dict(delta.migrate)
     if delta.ledger is not None:
         # The worker hop's ledger rides the final delta; old peers never
         # read the key, and garbage is dropped at the merge, never the
@@ -106,11 +110,13 @@ def delta_to_wire(delta: TokenDelta) -> dict:
 def delta_from_wire(d: dict) -> TokenDelta:
     fr = d.get("finish_reason")
     lp = d.get("logprobs")
+    mig = d.get("migrate")
     return TokenDelta(
         request_id="", token_ids=list(d.get("token_ids", [])),
         finished=bool(d.get("finished")),
         finish_reason=FinishReason(fr) if fr else None,
         logprobs=list(lp) if lp is not None else None,
+        migrate=dict(mig) if mig is not None else None,
         # Carried raw: ledger.decode_wire validates at the merge point.
         ledger=d.get("ledger"))
 
@@ -150,8 +156,13 @@ def engine_wire_handler(engine_client, request_metrics=None) -> Callable:
         start = time.monotonic()
         last_t = None
         finished_ok = None
+        observe = True
         try:
             async for delta in engine_client.generate(req):
+                if delta.migrate is not None:
+                    # Drain handoff: the peer serves (and observes) the
+                    # rest of this stream: one request, one outcome.
+                    observe = False
                 if request_metrics is not None and delta.token_ids:
                     now = time.monotonic()
                     if last_t is None:
@@ -161,20 +172,30 @@ def engine_wire_handler(engine_client, request_metrics=None) -> Callable:
                     last_t = now
                 if delta.finished:
                     finished_ok = delta.finish_reason is not FinishReason.ERROR
-                    if hop_ledger is not None:
-                        delta.ledger = hop_ledger.to_wire()
+                if hop_ledger is not None and (
+                        delta.finished or delta.migrate is not None):
+                    # The stream's last delta out of this worker carries
+                    # the hop's stamps, a drain's migrate delta too.
+                    delta.ledger = hop_ledger.to_wire()
                 n_out += len(delta.token_ids)
                 yield delta_to_wire(delta)
         except (GeneratorExit, asyncio.CancelledError):
             raise  # client disconnect / teardown: not an engine failure
-        except Exception:
-            # A raising generate() (a dead disagg peer, an engine fault)
-            # is a served-request failure: it burns error budget.
-            finished_ok = False
+        except Exception as e:
+            from dynamo_tpu_torch.llm.drain import DRAIN_REFUSAL
+
+            if DRAIN_REFUSAL in str(e):
+                # A draining worker refusing an admission: the peer the
+                # request re-routes to serves and observes it.
+                observe = False
+            else:
+                # A raising generate() (a dead disagg peer, an engine
+                # fault) is a served-request failure: it burns budget.
+                finished_ok = False
             raise
         finally:
             tracer.unbind(req.request_id)
-            if request_metrics is not None:
+            if request_metrics is not None and observe:
                 # A stream torn down without a terminal delta (client
                 # disconnect mid-generation) is not an engine failure.
                 request_metrics.observe_outcome(

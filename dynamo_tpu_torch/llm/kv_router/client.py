@@ -39,6 +39,7 @@ from dynamo_tpu_torch.llm.block_manager.prefix_share import (
     HINT_ANNOTATION,
     attach_hint,
 )
+from dynamo_tpu_torch.llm.drain import DRAIN_REFUSAL
 from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.kv_router.router import KvRouter, KvRouterConfig
 from dynamo_tpu_torch.llm.kv_router.watcher import LoadMetricsWatcher
@@ -46,6 +47,7 @@ from dynamo_tpu_torch.llm.preprocessor import PreprocessedRequest
 from dynamo_tpu_torch.llm.service import PRIORITY_ANNOTATION, priority_of
 from dynamo_tpu_torch.runtime import ledger as ledger_mod
 from dynamo_tpu_torch.runtime import tracing
+from dynamo_tpu_torch.runtime.rpc import RpcError
 
 logger = logging.getLogger(__name__)
 
@@ -84,7 +86,11 @@ class KvRoutedEngineClient:
         # from routing until their lease expires or the TTL passes —
         # otherwise the highest-overlap (dead) worker would be re-chosen on
         # every migration retry (reference PushRouter fault detection,
-        # `push_router.rs:168`).
+        # `push_router.rs:168`).  A draining worker (it handed a stream
+        # off, or refused one) goes in too: its leave from the instance
+        # set may reach this frontend after the handoff, and the re-issue
+        # would come back to it, the highest-overlap worker, be refused,
+        # and lose the KV it carried.
         self._penalty: dict = {}
         self._penalty_ttl = 3.0
         # Fire-and-forget publishes: the loop holds tasks weakly, so
@@ -348,9 +354,17 @@ class KvRoutedEngineClient:
                         first = False
                     self.router.push_token(request.request_id,
                                            len(delta.token_ids))
+                if delta.migrate is not None:
+                    self._penalty[worker_id] = (time.monotonic()
+                                                + self._penalty_ttl)
                 yield delta
         except ConnectionError:
             self._penalty[worker_id] = time.monotonic() + self._penalty_ttl
+            raise
+        except RpcError as e:
+            if DRAIN_REFUSAL in str(e):
+                self._penalty[worker_id] = (time.monotonic()
+                                            + self._penalty_ttl)
             raise
         finally:
             self.router.free(request.request_id)

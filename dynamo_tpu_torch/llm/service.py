@@ -11,7 +11,8 @@ is the frontend's model registry (models come and go as workers do).
 id (the engine thread's spans parent under it) and stamps the request
 ledger's engine phases on the event loop.  The QoS class rides the
 request's `priority` annotation (`priority_of`); the KV router's
-selector reads it (the port's scheduler has no QoS classes yet).
+selector reads it, and `LocalEngineClient` passes it to the engine's
+scheduler, which admits the highest class first.
 """
 
 from __future__ import annotations
@@ -82,7 +83,8 @@ class LocalEngineClient:
         last_t: Optional[float] = None
         try:
             async for delta in self.engine.generate(
-                    request.request_id, request.token_ids, request.sampling):
+                    request.request_id, request.token_ids, request.sampling,
+                    priority=priority_of(request)):
                 if led is not None and delta.token_ids:
                     now = time.monotonic()
                     if last_t is None:

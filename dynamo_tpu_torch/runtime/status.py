@@ -22,9 +22,13 @@ counts, engine counters and prefix-cache hits.
     POST /debug/stats/reset       the reset hook, then {"ok": true}
 
 The debug payloads have JAX's shapes.  One request per connection (the
-reply closes it).  Not ported: the status-endpoint registration on the
-control plane (it serves `dynamo top` and the metrics aggregator, which
-are not ported).
+reply closes it).
+
+`register_status_endpoint` / `register_status_endpoint_task` advertise
+a status port (with the owning pid) under `STATUS_ENDPOINTS_PREFIX` on
+the control plane: the metrics aggregator scrapes it and the planner
+and `dynamo top` read it; `registration_pid_dead` lets scrapers reap a
+killed process's stale entry.
 """
 
 from __future__ import annotations
@@ -41,6 +45,97 @@ from dynamo_tpu_torch.runtime import slo as slo_mod
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 logger = logging.getLogger(__name__)
+
+# Control-plane prefix where processes advertise their status servers so
+# the metrics_aggregator can scrape /metrics from components that are not
+# workers (router_service, planner) — the reference's Prometheus
+# service-discovery analog, over our own control plane.
+STATUS_ENDPOINTS_PREFIX = "status_endpoints"
+
+
+async def register_status_endpoint(cp, component: str, port: int,
+                                   host: str = "127.0.0.1",
+                                   extra: Optional[dict] = None) -> str:
+    """Advertise a status server for aggregator scraping; returns the
+    key written.  Unleased on purpose: the aggregator treats unreachable
+    targets as gone, and the registration carries the owning
+    PID, so scrapers (`dynamo top`, metrics_aggregator) can REAP
+    a kill -9'd worker's stale entry instead of rendering it
+    unreachable forever.  `host` must be a cross-host-routable address
+    when the aggregator runs on another machine (same rule as the
+    worker's --rpc-host).
+
+    `extra`: additional registration fields (workers attach
+    their SliceSpec wire dict under "slice" so `dynamo top` can render
+    a MESH column without scraping anything new).  Reserved keys
+    (address/component/pid) cannot be overridden."""
+    import os
+
+    key = f"{STATUS_ENDPOINTS_PREFIX}/{component}/{os.getpid()}"
+    entry = dict(extra or {})
+    entry.update({"address": f"{host}:{port}", "component": component,
+                  "pid": os.getpid()})
+    await cp.put(key, entry)
+    return key
+
+
+def registration_pid_dead(entry) -> bool:
+    """True only when a status-endpoint registration names a pid that is
+    PROVABLY gone: the entry carries a pid, its address is loopback
+    (pid liveness is only decidable same-host — a loopback address from
+    another machine was never scrapeable by us anyway), and signal-0
+    probing reports no such process.  Everything ambiguous — foreign
+    hosts, permission errors, malformed entries — reads as alive, so
+    reaping can never take down a live worker's discovery entry."""
+    import os
+
+    if not isinstance(entry, dict):
+        return False
+    pid = entry.get("pid")
+    addr = entry.get("address") or ""
+    host = addr.rsplit(":", 1)[0] if ":" in addr else ""
+    if not pid or host not in ("127.0.0.1", "localhost", "::1", "[::1]"):
+        return False
+    try:
+        os.kill(int(pid), 0)
+        return False
+    except ProcessLookupError:
+        return True
+    except (PermissionError, OSError, ValueError, TypeError):
+        return False
+
+
+def register_status_endpoint_task(cp, component: str, port: int,
+                                  host: str = "127.0.0.1",
+                                  retry_interval: float = 1.0,
+                                  extra: Optional[dict] = None):
+    """Best-effort registration as a background task: retries until the
+    put lands (the control-plane client reconnects underneath), so a
+    control plane that is briefly down at process startup neither
+    crashes the process nor silently loses its discovery entry.  Returns
+    the task (cancel at shutdown)."""
+    import asyncio
+
+    async def register():
+        while True:
+            try:
+                await register_status_endpoint(cp, component, port,
+                                               host=host, extra=extra)
+                return
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                # ANY failure retries (ConnectionError while down,
+                # RuntimeError from an error reply mid-restart, …): a
+                # dead registration task would silently drop this
+                # process from fleet discovery forever.
+                logger.warning(
+                    "status-endpoint registration for %s failed (%s); "
+                    "retrying", component, e)
+                await asyncio.sleep(retry_interval)
+
+    return asyncio.get_running_loop().create_task(register())
+
 
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             503: "Service Unavailable"}

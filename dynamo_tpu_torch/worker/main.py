@@ -70,10 +70,29 @@ torch.profiler capture written under `--flight-dump-dir`; also taken by
 putting `profile/<pid>` or `profile/instance/<id>` on the control plane,
 the value its milliseconds).
 
-Not ported: the `encode` role (it needs the multimodal path), drain with
-KV migration, `--mocker`, multihost and lockstep, `--slice`, QoS
-preemption, and the status-endpoint registration that `dynamo top` and
-the metrics aggregator read.
+Elasticity and QoS, as in JAX.  `--drain on` (default): SIGTERM, or a
+put under `drain/<pid>` / `drain/instance/<id>` on the control plane,
+leaves routing at once, ends each in-flight stream with a `migrate`
+delta naming this worker's address and the stream's sealed high-water
+mark (`llm/drain.DrainableService`, the outermost serving stage), and
+lingers until the peers' KV pulls finish (`--drain-timeout-s`,
+`--drain-linger-s`); `--drain off` lets the streams run out instead.
+The request's QoS class reaches the scheduler; with an SLO monitor the
+scheduler's `qos_pressure_fn` and the pool's eviction bias read its
+worst burn rate.  `/metrics` adds `dynamo_requests_migrated_total`,
+`dynamo_worker_draining`, `dynamo_qos_preemptions_total`,
+`dynamo_qos_demoted_blocks_total` and `dynamo_requests_migrated_in_total`.
+The status port is registered under `status_endpoints/` on the control
+plane (with the pid), where the metrics aggregator and the planner find
+it.
+
+`--mocker [--speedup-ratio R]` serves `llm/mocker.MockEngine` in place of
+the engine: deterministic tokens, real KV events and load metrics, no
+device and no KV data plane (a CPU test backend for the planner, the
+launcher and the drain; the roles refuse it).
+
+Not ported: the `encode` role (it needs the multimodal path), multihost
+and lockstep, and `--slice`.
 """
 
 from __future__ import annotations
@@ -83,6 +102,7 @@ import asyncio
 import logging
 import os
 import signal
+from typing import Optional
 
 from dynamo_tpu_torch.engine.engine import (
     DECODE_WINDOW,
@@ -94,6 +114,7 @@ from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.fleet.topology import SliceSpec
 from dynamo_tpu_torch.frontend.main import model_config, stats_hooks
 from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
+from dynamo_tpu_torch.llm.block_manager.pool import slo_eviction_bias
 from dynamo_tpu_torch.llm.block_manager.prefix_share import (
     PrefixFetcher,
     PrefixShareClient,
@@ -106,6 +127,12 @@ from dynamo_tpu_torch.llm.disagg import (
     DisaggDecodeClient,
     disagg_config_key,
     prefill_worker_loop,
+)
+from dynamo_tpu_torch.llm.drain import (
+    DRAIN_PREFIX,
+    DrainableService,
+    drain_key_instance,
+    drain_key_pid,
 )
 from dynamo_tpu_torch.llm.discovery import (
     CLEAR_KV_ENDPOINT,
@@ -180,6 +207,12 @@ def parse_args(argv=None):
                         "of pulling a peer's sealed prefix blocks before "
                         "prefill (the worker still serves them as a "
                         "donor)")
+    p.add_argument("--mocker", action="store_true",
+                   help="serve the mock engine (no model, no device): a "
+                        "CPU test backend with real KV events and load "
+                        "metrics")
+    p.add_argument("--speedup-ratio", type=float, default=10.0,
+                   help="mocker: simulated step time divided by this")
     p.add_argument("--model", default="llama-3-1b",
                    help="model preset (random weights), e.g. llama-3-1b, "
                         "mixtral-8x7b, tiny-test")
@@ -224,6 +257,22 @@ def parse_args(argv=None):
                    help="bind + ADVERTISED host for this worker's RPC "
                         "server; cross-host deployments must set a "
                         "routable address")
+    p.add_argument("--drain", choices=("on", "off"), default="on",
+                   help="SIGTERM drain with live KV migration: leave "
+                        "routing at once, hand each in-flight stream to a "
+                        "peer with its sealed KV (migrate delta + pull), "
+                        "linger for the peers' pulls, then exit.  'off' "
+                        "waits every stream out instead.  The "
+                        "control-plane key drain/<pid> (or "
+                        "drain/instance/<id>) triggers the same drain")
+    p.add_argument("--drain-timeout-s", type=float, default=30.0,
+                   help="bound on each drain phase (stream handoff; peer "
+                        "KV pulls): past it the worker exits anyway, and "
+                        "peers fall back to re-prefill")
+    p.add_argument("--drain-linger-s", type=float, default=1.0,
+                   help="grace after the last stream handoff for peers to "
+                        "open their KV pulls before the worker waits for "
+                        "zero active streams")
     tracing.add_trace_args(p)
     slo.add_slo_args(p)
     flight_recorder.add_flight_args(p)
@@ -242,6 +291,11 @@ def parse_args(argv=None):
     if args.role == "encode":
         p.error("--role encode is not ported (it needs the multimodal "
                 "path)")
+    if args.mocker and args.role != "both":
+        # The mocker has no KV bytes to serve or pull: a disagg role
+        # would silently serve aggregated.
+        p.error(f"--role {args.role} requires a real engine (the mocker "
+                "has no KV data plane); drop --role or --mocker")
     return args
 
 
@@ -280,11 +334,14 @@ def build_engine(args, kv_event_sink):
     return core, InferenceEngine(core), card_fields
 
 
-def derive_slice_spec(core: EngineCore, role: str = "both",
+def derive_slice_spec(core: Optional[EngineCore], role: str = "both",
                       fabric: str = "") -> SliceSpec:
     """The SliceSpec this worker publishes in its instance record: one
     device, its role, KV mode and serving features, the device's memory
-    (0 on the CPU: unknown) and its device-transfer fabric."""
+    (0 on the CPU: unknown) and its device-transfer fabric.  A mocker
+    (no core) publishes a bare slice."""
+    if core is None:
+        return SliceSpec(role=role)
     hbm = 0
     if core.device.type == "cuda":
         import torch
@@ -314,6 +371,10 @@ def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg):
             plane_counts=counts,
             transfer_plane=plane.stats() if plane is not None else None,
             prefix_share=fetcher.stats() if fetcher is not None else None,
+            # Streams a draining peer handed here, with the blocks pulled.
+            migrated_in=({"streams": fetcher.migrated_in,
+                          "blocks": fetcher.migrated_in_blocks}
+                         if fetcher is not None else None),
             disagg=disagg.stats() if disagg is not None else None)
         return out
 
@@ -330,13 +391,14 @@ def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg):
 
 
 @never_engine_thread
-def worker_metrics_text(engine: InferenceEngine, recorder, watchdog,
-                        kv_metrics: KvCacheMetrics, fetcher=None) -> str:
+def worker_metrics_text(engine, recorder, watchdog,
+                        kv_metrics: KvCacheMetrics, fetcher=None,
+                        drainable=None) -> str:
     """The worker's engine series for `/metrics` (JAX's
     `worker_metrics_text`), sampled at scrape time from host counts —
-    never on the engine thread.  The drain, migration and QoS series of
-    JAX's list are left out (those planes are not ported)."""
-    core = engine.core
+    never on the engine thread.  A mocker `engine` has no core: its
+    lines stop at the load, drain and heartbeat series, as in JAX."""
+    core = getattr(engine, "core", None)
     m = engine.metrics
     ws, ks = m.worker_stats, m.kv_stats
     lines = [
@@ -351,17 +413,34 @@ def worker_metrics_text(engine: InferenceEngine, recorder, watchdog,
         for e, n in enumerate(m.expert_load):
             lines.append(f'dynamo_moe_expert_load{{expert="{e}"}} {n}')
         lines.append(f"dynamo_moe_dropped_tokens_total {m.moe_dropped_tokens}")
-    for k, v in core.counters.to_dict().items():
-        lines.append(f"dynamo_worker_engine_{k} {v}")
+    if core is not None:
+        for k, v in core.counters.to_dict().items():
+            lines.append(f"dynamo_worker_engine_{k} {v}")
     age = recorder.last_step_age_s()
     if age is not None:
         lines.append(f"dynamo_engine_last_step_age_seconds {age:.3f}")
     lines.append(f"dynamo_engine_stalls_total {recorder.stalls}")
     lines.append("dynamo_engine_stalled "
                  f"{1 if watchdog is not None and watchdog.stalled else 0}")
+    # Elasticity and QoS plane: `dynamo top`'s QOS/DRN column and the
+    # fleet checks read these.
+    if drainable is not None:
+        lines.append("dynamo_requests_migrated_total "
+                     f"{drainable.migrated_out}")
+        lines.append("dynamo_worker_draining "
+                     f"{1 if drainable.draining else 0}")
+    if core is not None:
+        lines.append("dynamo_qos_preemptions_total "
+                     f"{core.scheduler.qos_preemptions}")
+        lines.append("dynamo_qos_demoted_blocks_total "
+                     f"{core.qos_demoted_blocks}")
+    if fetcher is not None:
+        lines.append("dynamo_requests_migrated_in_total "
+                     f"{fetcher.migrated_in}")
     # Memory-plane sample: pool occupancy / evictions / prefix hits land
     # in the shared registry.
-    kv_metrics.observe_engine(core)
+    if core is not None:
+        kv_metrics.observe_engine(core)
     if fetcher is not None:
         kv_metrics.observe_prefix_share(fetcher)
     kv_metrics.observe_transfer_plane()
@@ -369,7 +448,8 @@ def worker_metrics_text(engine: InferenceEngine, recorder, watchdog,
     # registry and the measured window time, then export both.
     prof = device_profiler.get_profiler()
     if prof.enabled:
-        prof.audit_engine(core)
+        if core is not None:
+            prof.audit_engine(core)
         lines.extend(prof.metrics_lines())
     return "\n".join(lines) + "\n"
 
@@ -430,18 +510,6 @@ async def run(args) -> None:
         # The engine thread emits; hop onto the loop for the publish.
         loop.call_soon_threadsafe(pending_events.append, event)
 
-    # A prefill worker's blocks are pulled by request, never routed to:
-    # it publishes no KV events.
-    core, engine, card_fields = build_engine(
-        args, None if args.role == "prefill" else kv_event_sink)
-    await engine.start()
-    # Stall watchdog: no step heartbeat for --watchdog-stall-s while work
-    # is pending is a stall (event, counter, dump).
-    watchdog = None
-    if args.watchdog_stall_s > 0:
-        watchdog = flight_recorder.StallWatchdog(
-            recorder, lambda: core.has_work, stall_s=args.watchdog_stall_s)
-        watchdog.start()
     # The worker's registry: RequestMetrics at the RPC boundary (and the
     # disagg onboard), the memory plane, the SLO gauges.
     registry = MetricsRegistry()
@@ -452,44 +520,91 @@ async def run(args) -> None:
     if slo_monitor is not None:
         slo_monitor.start(interval=args.slo_tick)
 
-    # The KV data plane: every worker serves its blocks.
-    plane = dt.KvTransferPlane(engine)
-    plane.start()
-    runtime.rpc.register(KV_BLOCKS_ENDPOINT, make_kv_blocks_handler(engine))
-    runtime.rpc.register(dt.KV_OFFER_ENDPOINT, plane.make_offer_handler())
-    runtime.rpc.register(dt.KV_PULLED_ENDPOINT, plane.make_pulled_handler())
-    # Admin and embeddings endpoints (a frontend's clear reaches the
-    # prefill workers too).
-    local = LocalEngineClient(engine)
-    runtime.rpc.register(EMBED_ENDPOINT, embed_wire_handler(local))
-    runtime.rpc.register(CLEAR_KV_ENDPOINT, clear_kv_wire_handler(local))
-    logger.info("device transfer plane on %s (%s)", plane.address,
-                plane.transport_kind)
+    core = plane = fetcher = disagg = watchdog = None
+    if args.mocker:
+        from dynamo_tpu_torch.llm.mocker import MockEngine, MockEngineArgs
 
-    # Fleet prefix reuse, innermost: on a decode worker the pull runs
-    # after a remote-prefill onboard, whose blocks are then resident.
-    fetcher = None
-    serve_client = local
-    if not args.no_prefix_share:
-        fetcher = PrefixFetcher(engine, runtime.client_for, args.block_size,
-                                plane=plane)
-        serve_client = PrefixShareClient(serve_client, fetcher)
-    disagg = None
-    if args.role == "decode":
-        if args.max_local_prefill is not None:
-            await cp.put(disagg_config_key(args.namespace),
-                         {"max_local_prefill_length": args.max_local_prefill})
-        disagg = DisaggDecodeClient(
-            serve_client, engine, cp, args.namespace, args.block_size,
-            transfer_plane=plane, request_metrics=request_metrics,
-            eager=not args.no_eager_kv)
-        await disagg.start()
-        serve_client = disagg
+        engine = MockEngine(
+            MockEngineArgs(block_size=args.block_size,
+                           speedup_ratio=args.speedup_ratio),
+            kv_event_sink=kv_event_sink)
+        await engine.start()
+        serve_client = engine
+        card_fields = {}
+    else:
+        # A prefill worker's blocks are pulled by request, never routed
+        # to: it publishes no KV events.
+        core, engine, card_fields = build_engine(
+            args, None if args.role == "prefill" else kv_event_sink)
+        await engine.start()
+        # Stall watchdog: no step heartbeat for --watchdog-stall-s while
+        # work is pending is a stall (event, counter, dump).
+        if args.watchdog_stall_s > 0:
+            watchdog = flight_recorder.StallWatchdog(
+                recorder, lambda: core.has_work,
+                stall_s=args.watchdog_stall_s)
+            watchdog.start()
+        # The KV data plane: every worker serves its blocks.
+        plane = dt.KvTransferPlane(engine)
+        plane.start()
+        runtime.rpc.register(KV_BLOCKS_ENDPOINT,
+                             make_kv_blocks_handler(engine))
+        runtime.rpc.register(dt.KV_OFFER_ENDPOINT,
+                             plane.make_offer_handler())
+        runtime.rpc.register(dt.KV_PULLED_ENDPOINT,
+                             plane.make_pulled_handler())
+        # Admin and embeddings endpoints (a frontend's clear reaches the
+        # prefill workers too).
+        local = LocalEngineClient(engine)
+        runtime.rpc.register(EMBED_ENDPOINT, embed_wire_handler(local))
+        runtime.rpc.register(CLEAR_KV_ENDPOINT,
+                             clear_kv_wire_handler(local))
+        logger.info("device transfer plane on %s (%s)", plane.address,
+                    plane.transport_kind)
 
-    slice_spec = derive_slice_spec(core, args.role, plane.fabric)
+        # Fleet prefix reuse, innermost: on a decode worker the pull runs
+        # after a remote-prefill onboard, whose blocks are then resident.
+        serve_client = local
+        if not args.no_prefix_share:
+            fetcher = PrefixFetcher(engine, runtime.client_for,
+                                    args.block_size, plane=plane)
+            serve_client = PrefixShareClient(serve_client, fetcher)
+        if args.role == "decode":
+            if args.max_local_prefill is not None:
+                await cp.put(disagg_config_key(args.namespace),
+                             {"max_local_prefill_length":
+                              args.max_local_prefill})
+            disagg = DisaggDecodeClient(
+                serve_client, engine, cp, args.namespace, args.block_size,
+                transfer_plane=plane, request_metrics=request_metrics,
+                eager=not args.no_eager_kv)
+            await disagg.start()
+            serve_client = disagg
+        if slo_monitor is not None:
+            # SLO-aware eviction and the QoS lever: while the error
+            # budget burns, hot prefix blocks resist eviction, and
+            # best-effort admissions hold while running best-effort
+            # requests are shed (the monitor's cheap last_max_burn).
+            manager = getattr(core.allocator, "manager", None)
+            if manager is not None:
+                manager.set_eviction_bias(slo_eviction_bias(
+                    lambda: slo_monitor.last_max_burn))
+            core.scheduler.qos_pressure_fn = (
+                lambda: slo_monitor.last_max_burn)
+
+    # The drain wrapper is the outermost serving stage, so a drain
+    # cancels the whole chain beneath it and ends each wire stream with
+    # the KV-carrying migrate delta.
+    drainable = DrainableService(serve_client, block_size=args.block_size)
+    slice_spec = derive_slice_spec(core, args.role,
+                                   plane.fabric if plane is not None else "")
     instance = await endpoint.serve(
-        engine_wire_handler(serve_client, request_metrics=request_metrics),
+        engine_wire_handler(drainable, request_metrics=request_metrics),
         metadata={"slice": slice_spec.to_dict()})
+    if plane is not None:
+        # Peers pull the handed-off KV from this worker's kv_blocks
+        # endpoint: the instance address is the donor descriptor.
+        drainable.kv_address = instance.address
     prefill_task = None
     if args.role == "prefill":
         prefill_task = asyncio.create_task(prefill_worker_loop(
@@ -501,36 +616,52 @@ async def run(args) -> None:
         await register_llm(endpoint, instance, card)
     status = None
     hbm_poller = None
+    status_reg_task = None
     if args.health_port >= 0:
-        from dynamo_tpu_torch.runtime.status import StatusServer
+        from dynamo_tpu_torch.runtime.status import (
+            StatusServer,
+            register_status_endpoint_task,
+        )
 
-        stats, reset_stats = data_plane_stats_hooks(core, plane, fetcher,
-                                                    disagg)
+        stats = reset_stats = None
+        if core is not None:
+            stats, reset_stats = data_plane_stats_hooks(core, plane,
+                                                        fetcher, disagg)
         status = StatusServer(
             registry=registry,
             extra_text_fn=lambda: worker_metrics_text(
-                engine, recorder, watchdog, kv_metrics, fetcher),
+                engine, recorder, watchdog, kv_metrics, fetcher,
+                drainable),
             slo_fn=(slo_monitor.payload if slo_monitor is not None
                     else None),
             stats_fn=stats, reset_fn=reset_stats)
         hport = await status.start(host=args.rpc_host,
                                    port=args.health_port)
-        if args.hbm_poll_interval > 0:
+        # Fleet discovery: the metrics aggregator scrapes it, the planner
+        # and `dynamo top` read it (retried: a control plane mid-restart
+        # must not crash the worker).
+        status_reg_task = register_status_endpoint_task(
+            cp, f"worker-{args.role}", hport, host=args.rpc_host,
+            extra={"mesh": slice_spec.describe(),
+                   "slice": slice_spec.to_dict()})
+        if args.hbm_poll_interval > 0 and core is not None:
             cards = None
             if core.device.type != "cuda":
                 cards = []   # no card: the host fallback
             elif core.device.index is not None:
                 cards = [core.device.index]
-            hbm_poller = HbmPoller(kv_metrics, interval=args.hbm_poll_interval,
+            hbm_poller = HbmPoller(kv_metrics,
+                                   interval=args.hbm_poll_interval,
                                    devices=cards)
             hbm_poller.start()
         print(f"worker status server on :{hport}", flush=True)
     serving = ("the prefill queue" if args.role == "prefill"
                else repr(args.model_name))
+    backend = ("mocker" if core is None else
+               f"{args.model}, role {args.role}, on {core.device}, kv_quant "
+               f"{core.cache_cfg.kv_quant}, transfer {plane.transport_kind}")
     print(f"worker instance {instance.instance_id} serving {serving} "
-          f"({args.model}, role {args.role}, on {core.device}, kv_quant "
-          f"{core.cache_cfg.kv_quant}, transfer {plane.transport_kind}) at "
-          f"{instance.address}", flush=True)
+          f"({backend}) at {instance.address}", flush=True)
 
     async def pump_events():
         while True:
@@ -553,17 +684,65 @@ async def run(args) -> None:
         pumps.append(asyncio.create_task(
             watch_profile_commands(cp, instance.instance_id)))
     stop_ev = asyncio.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop_ev.set)
+    drain_started = [False]
+
+    async def start_drain(reason: str) -> None:
+        """Planned drain: leave routing, hand every in-flight stream to a
+        peer with its KV, linger for the peers' pulls, then let the
+        normal shutdown run.  Idempotent: a SIGTERM racing a
+        control-plane command drains once."""
+        if drain_started[0]:
+            return
+        drain_started[0] = True
+        try:
+            logger.warning("drain (%s): leaving routing, handing off %d "
+                           "in-flight stream(s)", reason,
+                           drainable.active_requests)
+            await endpoint.leave()      # instant removal from routing
+            await drainable.drain(args.drain_timeout_s)
+            if drainable.migrated_out and plane is not None:
+                # The handed-off KV moves only if the peers' pulls get to
+                # run: give them a beat to open their streams, then wait
+                # (bounded) until the RPC plane goes quiet.
+                await asyncio.sleep(max(0.0, args.drain_linger_s))
+                deadline = loop.time() + max(0.0, args.drain_timeout_s)
+                while (runtime.rpc.active_streams > 0
+                       and loop.time() < deadline):
+                    await asyncio.sleep(0.05)
+            logger.info("drain complete: %d stream(s) migrated out",
+                        drainable.migrated_out)
+        except Exception:
+            # A drain that trips over a dead control plane must still end
+            # the worker, or every later SIGTERM would be inert.
+            logger.exception("drain (%s) failed; shutting down anyway",
+                             reason)
+        finally:
+            stop_ev.set()
+
+    def on_sigterm():
+        if args.drain == "off":
+            stop_ev.set()
+        else:
+            asyncio.ensure_future(start_drain("sigterm"))
+
+    loop.add_signal_handler(signal.SIGINT, stop_ev.set)
+    loop.add_signal_handler(signal.SIGTERM, on_sigterm)
+    if args.drain != "off":
+        pumps.append(asyncio.create_task(watch_drain_commands(
+            cp, instance.instance_id, start_drain)))
     await stop_ev.wait()
 
-    # Leave routing at once, then let in-flight streams finish (bounded).
+    # Leave routing at once, then let in-flight streams finish (bounded;
+    # already done when a drain ran).
     await endpoint.leave()
     if prefill_task is not None:
         prefill_task.cancel()
-    deadline = loop.time() + STREAM_DRAIN_S
+    deadline = loop.time() + max(5.0, args.drain_timeout_s
+                                 if args.drain != "off" else STREAM_DRAIN_S)
     while runtime.rpc.active_streams > 0 and loop.time() < deadline:
         await asyncio.sleep(0.05)
+    if status_reg_task is not None:
+        pumps.append(status_reg_task)
     for t in pumps + ([prefill_task] if prefill_task else []):
         t.cancel()
     await asyncio.gather(*pumps, *([prefill_task] if prefill_task else []),
@@ -578,10 +757,27 @@ async def run(args) -> None:
         watchdog.stop()
     if slo_monitor is not None:
         await slo_monitor.stop()
-    plane.stop()
+    if plane is not None:
+        plane.stop()
     await engine.stop()
     await runtime.shutdown()
     await cp.close()
+
+
+async def watch_drain_commands(cp, instance_id: int, start_drain) -> None:
+    """The control-plane `drain` command: a put under drain/<pid> or
+    drain/instance/<id> drains this worker exactly as SIGTERM does (the
+    operator and planner surface where signals do not reach)."""
+    mine = {drain_key_pid(os.getpid()), drain_key_instance(instance_id)}
+    try:
+        watch = await cp.watch_prefix(DRAIN_PREFIX)
+        async for ev in watch:
+            if ev.kind == "put" and ev.key in mine:
+                logger.warning("control-plane drain command: %s", ev.key)
+                await start_drain("control_plane")
+                return
+    except ConnectionError:
+        return  # the control plane is gone: SIGTERM still drains
 
 
 def _split(addr: str):

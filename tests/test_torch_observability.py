@@ -7,11 +7,11 @@ surfaces.
   JAX modules' own: the registries of FrontendMetrics, RequestMetrics,
   KvCacheMetrics, LedgerSink and SloMonitor, the KV router's and
   migration's counters, the worker's `worker_metrics_text` lines and the
-  device profiler's `metrics_lines`; `UNPORTED_FAMILIES` are the drain,
-  migration and QoS series.
+  device profiler's `metrics_lines`, the drain, migration and QoS series
+  (`DRAIN_QOS_FAMILIES`) among them.
 - A frontend (`--serve-control-plane --router-mode kv`) and a CPU worker
   as subprocesses, every plane on: /metrics on both carries every JAX
-  family but the unported ones; /live; the /debug/traces,
+  family, the drain and QoS ones too; /live; the /debug/traces,
   /debug/requests, /debug/slo, /debug/flightrecorder and
   /debug/deviceprofile payloads have JAX's keys; a bad `?ms=` is a 400;
   each chat's ledger holds the frontend, routing and engine phases; a
@@ -49,6 +49,13 @@ from dynamo_tpu.runtime import tracing as jtr
 from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
 
 REPO = Path(__file__).resolve().parent.parent
+
+# The worker's drain, migration and QoS series (JAX `worker_metrics_text`).
+DRAIN_QOS_FAMILIES = ("dynamo_requests_migrated_total",
+                      "dynamo_worker_draining",
+                      "dynamo_requests_migrated_in_total",
+                      "dynamo_qos_preemptions_total",
+                      "dynamo_qos_demoted_blocks_total")
 
 
 def _jax_slo(registry):
@@ -98,7 +105,7 @@ def test_chip_smoke_family_lists_are_jax_surfaces():
     want = (chip_smoke.metric_families(worker.expose()) | lines
             | chip_smoke.metric_families("\n".join(prof.metrics_lines())))
     assert set(chip_smoke.JAX_WORKER_FAMILIES) == want
-    assert set(chip_smoke.UNPORTED_FAMILIES) <= want
+    assert set(DRAIN_QOS_FAMILIES) <= want
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +219,8 @@ def test_frontend_and_worker_planes_end_to_end(tmp_path):
             ("frontend", fm, chip_smoke.JAX_FRONTEND_FAMILIES),
             ("worker", wm, chip_smoke.JAX_WORKER_FAMILIES)):
         missing = set(want) - chip_smoke.metric_families(text)
-        assert missing <= set(chip_smoke.UNPORTED_FAMILIES), (side, missing)
-    assert set(chip_smoke.UNPORTED_FAMILIES) - chip_smoke.metric_families(wm)
+        assert not missing, (side, missing)
+    assert set(DRAIN_QOS_FAMILIES) <= chip_smoke.metric_families(wm)
     assert chip_smoke.metric_value(wm, "dynamo_program_registry_size") > 0
     for name, (got, jax_shape) in payloads.items():
         assert set(got) == set(jax_shape), name
