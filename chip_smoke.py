@@ -178,6 +178,40 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    plain model's greedy choice given the ids before it, up to a near
    tie; a clean drain, one replica left, no chat lost; SIGTERM tears the
    graph down in reverse order.
+20. tiers   — the KV tiers in process (after `block_copy`): llama-3-1b
+   on `InferenceEngine`s of 64 usable pages (G1), bf16 then int8; a wave
+   of 8 distinct 1,024-token prompts (16 sealed blocks each, 128 blocks,
+   G1 twice over), one at a time; then each of the first 4 prompts from
+   the lower tier it sits in and again from G1.  Legs: G2 of 192 blocks
+   (384 MiB pinned in bf16), G2 of 32 with G3 of 192 (the first prompts
+   spill to disk), and G4: a G1-only engine whose `remote_fetch_fn`
+   pulls from the G2 leg's engine through its manager's `export_block`.
+   Checked: the first prompt's blocks read below G1, and back in G1
+   after its onboard, equal their bytes before the offload (back in G1
+   but for the prompt's last token, which a full hit prefills again);
+   an onboarded prompt answers token for token as its G1 hit does (and
+   as the peer, for G4); prefix hits, offloaded, onboarded and
+   remote-fetched blocks reach what the sizing implies; K1 and K2
+   launch, only their int8 bodies in the int8 legs.  Printed with the
+   card's name and power limit: TTFT medians (cold, G1, G2, G3, G4),
+   offload and onboard GB/s (CUDA events on their streams) beside a
+   plain pinned `copy_` of 16 blocks each way, the engine thread's host
+   ms an evicted block and the pinned allocation's seconds.
+21. qos (its tier leg, run after `tiers`) — in process, llama-3-1b with
+   64 pages and a G2 of 64: a burn sheds a decoding best-effort request
+   for a standard one; its sealed blocks demote into G2 (and leave G1),
+   its resumption onboards them, and its answer equals the unpressured
+   run's (a split only at a near tie).
+22. router_service — two llama-3-1b workers, `python -m
+   dynamo_tpu_torch.router_service` (`m-routed`) and frontend B
+   (round_robin): `serve`'s lone chats through the service equal
+   `serve`'s; a second chat on one system prompt lands on the first's
+   worker; the service counts the streams; a wave through an in-process
+   consumer wrapped in a `StreamRecorder` (TTFT and ITL from raw
+   arrivals) beside the same wave's ledger and timings at frontend B.
+23. ingress — `--input batch` over 8 prompts against llama-3-1b writes
+   `serve`'s answers to the same completions; `--out echo` returns the
+   prompt; `--out mocker` answers and its process launches no kernel.
 
 Then the card's `nvidia-smi` name/power-limit line, the kernels summary
 `{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
@@ -1613,13 +1647,17 @@ def _free_port() -> int:
 @contextlib.contextmanager
 def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
                       frontend_b: bool = True, tag: str = "distributed",
-                      ready_s: float = 300, frontend_args=()):
+                      ready_s: float = 300, frontend_args=(),
+                      cp_port: Optional[int] = None, extra=(),
+                      models=("m",)):
     """Frontend A (`--serve-control-plane --router-mode kv` and
-    `frontend_args`), one `dynamo_tpu_torch.worker` process per entry of
-    `workers` ((log tag, extra flags)) for llama-3-1b on the card (512
-    blocks of 64, a status port each) and, with `frontend_b`, frontend B
-    (`--control-plane` A's, `--router-mode round_robin`), all stopped on
-    exit; yields (A's url, B's url or None, the workers' status urls,
+    `frontend_args`; its control plane on `cp_port` when given), one
+    `dynamo_tpu_torch.worker` process per entry of `workers` ((log tag,
+    extra flags)) for llama-3-1b on the card (512 blocks of 64, a status
+    port each), the `extra` processes ((module, log tag, args)) and, with
+    `frontend_b`, frontend B (`--control-plane` A's, `--router-mode
+    round_robin`), all stopped on exit, ready once the frontends list
+    `models`; yields (A's url, B's url or None, the workers' status urls,
     seconds to ready).  Logs go to
     `smoke_out/chip_smoke_<tag>_<log tag>.log`."""
     OUT_DIR.mkdir(exist_ok=True)
@@ -1649,7 +1687,8 @@ def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
                   f"{tag} stack not ready in {ready_s} s ({url})")
             time.sleep(0.5)
 
-    cp, ports = _free_port(), [_free_port() for _ in range(2 + len(workers))]
+    cp = cp_port or _free_port()
+    ports = [_free_port() for _ in range(2 + len(workers))]
     a = f"http://127.0.0.1:{ports[0]}"
     b = f"http://127.0.0.1:{ports[1]}" if frontend_b else None
     status = [f"http://127.0.0.1:{p}" for p in ports[2:]]
@@ -1659,11 +1698,13 @@ def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
               "--control-plane-port", str(cp), "--router-mode", "kv",
               "--http-port", str(ports[0]), *frontend_args)
         wait(a + "/health", lambda r: "status" in r)
-        for (name, extra), port in zip(workers, ports[2:]):
+        for (name, extra_args), port in zip(workers, ports[2:]):
             spawn("dynamo_tpu_torch.worker", name, "--control-plane",
                   f"127.0.0.1:{cp}", "--model", "llama-3-1b", "--model-name",
                   "m", "--num-blocks", "512", "--block-size", str(BS),
-                  "--health-port", str(port), *extra)
+                  "--health-port", str(port), *extra_args)
+        for module, name, args in extra:
+            spawn(module, name, *args)
         if frontend_b:
             spawn("dynamo_tpu_torch.frontend", "frontend_b", "--control-plane",
                   f"127.0.0.1:{cp}", "--router-mode", "round_robin",
@@ -1672,7 +1713,8 @@ def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
             wait(w + "/health", lambda r: r["status"] == "ready")
         for f in (a, b) if frontend_b else (a,):
             wait(f + "/v1/models",
-                 lambda r: [m["id"] for m in r["data"]] == ["m"])
+                 lambda r: sorted(m["id"] for m in r["data"])
+                 == sorted(models))
         time.sleep(1.0)    # the routers' instance watches see the workers
         yield a, b, status, time.monotonic() - t0
     finally:
@@ -3706,6 +3748,566 @@ args = {json.dumps(["--control-plane", cp, "--min-replicas", "1",
     return out
 
 
+# -- the KV tiers: G2 pinned host, G3 disk, the G4 remote hook ------------------
+
+TIER_G1 = 65                   # the tiers engines' pages: 64 usable (G1)
+TIER_PROMPTS = 8               # the wave: distinct prompts of ...
+TIER_PROMPT_LEN = 1024         # ... 16 sealed blocks: 128 blocks, G1 twice
+TIER_REASK = 4                 # the first prompts, asked again
+TIER_TOKENS = 16               # greedy tokens an answer
+TIER_LEGS = (("g2", {"host_blocks": 192}),            # 384 MiB pinned (bf16)
+             ("g3", {"host_blocks": 32, "disk_blocks": 192}))
+TIER_YARDSTICK_BLOCKS = 16     # the plain pinned copy_ the rates stand by
+QOS_TIER_G1, QOS_TIER_G2 = 65, 64   # the qos tier leg's pages
+
+
+def random_prompts(torch, seed: int, *lengths) -> list:
+    """Prompts of random llama-3-1b token ids, from a seed."""
+    from dynamo_tpu_torch.models.config import get_config
+
+    gen = torch.Generator().manual_seed(seed)
+    vocab = get_config("llama-3-1b").vocab_size
+    return [torch.randint(1, vocab, (n,), generator=gen).tolist()
+            for n in lengths]
+
+
+def tier_engine(state, kv_quant: str, **tiers):
+    """llama-3-1b on the card in process, TIER_G1 pages of BS, with the
+    lower tiers `tiers` (EngineConfig's host_blocks / disk_blocks /
+    remote_fetch_fn: no CLI flag sizes them, as in JAX)."""
+    from dynamo_tpu_torch.engine.engine import (
+        EngineConfig, EngineCore, InferenceEngine)
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.models.config import get_config
+
+    return InferenceEngine(EngineCore(EngineConfig(
+        model=get_config("llama-3-1b"), num_blocks=TIER_G1,
+        kv_quant=kv_quant, scheduler=SchedulerConfig(block_size=BS),
+        **tiers), params=state))
+
+
+async def tier_ask(engine, rid: str, prompt: list) -> tuple:
+    """One greedy request through `InferenceEngine.generate`: (its ids,
+    its TTFT on the host clock)."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    t0, ttft, ids = time.monotonic(), None, []
+    async for d in engine.generate(rid, prompt,
+                                   SamplingParams(max_tokens=TIER_TOKENS)):
+        if d.token_ids and ttft is None:
+            ttft = time.monotonic() - t0
+        ids += d.token_ids
+    check(len(ids) == TIER_TOKENS, f"tiers: {rid} gave {len(ids)} tokens")
+    return ids, ttft
+
+
+def tier_where(mgr, hashes: list) -> dict:
+    """How many of `hashes` each tier holds (host lookups)."""
+    pools = {"g1": mgr.device, "g2": mgr.host, "g3": mgr.disk}
+    return {k: sum(p is not None and p.registry.lookup(h) is not None
+                   for h in hashes) for k, p in pools.items()}
+
+
+def copy_rates(torch, mgr) -> dict:
+    """GB/s of the manager's logged offload and onboard copies (bytes
+    over CUDA-event time on their own streams)."""
+    torch.cuda.synchronize()
+    out = {}
+    for kind in ("offload", "onboard"):
+        rows = [(s.elapsed_time(e), n) for k, s, e, n in mgr.copy_log
+                if k == kind]
+        ms, nbytes = sum(r[0] for r in rows), sum(r[1] for r in rows)
+        out[kind] = {"copies": len(rows), "bytes": nbytes, "ms": ms,
+                     "gb_s": nbytes / ms / 1e6 if ms else None}
+    mgr.copy_log.clear()
+    return out
+
+
+def pinned_yardstick(torch, block_bytes: int) -> dict:
+    """A plain pinned `copy_` of TIER_YARDSTICK_BLOCKS blocks in one
+    piece, each way, on a side stream: GB/s by CUDA events (median of
+    10)."""
+    n = TIER_YARDSTICK_BLOCKS * block_bytes
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.Stream()
+    out = {}
+    for kind, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        times = []
+        with torch.cuda.stream(stream):
+            for _ in range(11):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record(stream)
+                dst.copy_(src, non_blocking=True)
+                b.record(stream)
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+        ms = statistics.median(times[1:])
+        out[kind] = {"bytes": n, "ms": ms, "gb_s": n / ms / 1e6}
+    return out
+
+
+async def tier_leg(torch, state, prompts: list, kv_quant: str, leg: str,
+                   tiers: dict) -> tuple:
+    """One engine with `tiers`: the wave one prompt at a time (cold TTFT;
+    the first prompt's blocks exported while in G1), then each of the
+    first TIER_REASK prompts twice: from the lower tier it sits in, then
+    from G1.  Returns (the leg's line, the engine, stopped)."""
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    engine = tier_engine(state, kv_quant, **tiers)
+    core = engine.core
+    mgr = core.allocator.manager
+    mgr.copy_log = []
+    hashes = [compute_block_hashes(p, BS) for p in prompts]
+    await engine.start()
+    try:
+        ttft = {"cold": [], "g1": [], "lower": {}}
+        before = None
+        for i, p in enumerate(prompts):
+            ttft["cold"].append((await tier_ask(engine, f"{leg}-w{i}", p))[1])
+            if i == 0:
+                before = await engine.export_blocks(hashes[0])
+        where = [await engine.run_in_engine(lambda h=h: tier_where(mgr, h))
+                 for h in hashes[:TIER_REASK]]
+        for i, w in enumerate(where):
+            check(w["g1"] == 0 and w["g2"] + w["g3"] == len(hashes[i]),
+                  f"tiers {leg} {kv_quant}: prompt {i} is not wholly below "
+                  f"G1 after the wave: {w}")
+        if leg == "g3":
+            check(where[0]["g3"] == len(hashes[0]),
+                  f"tiers g3 {kv_quant}: the first prompt did not spill to "
+                  f"disk: {where[0]}")
+        lower = await engine.export_blocks(hashes[0])
+        rates_wave = copy_rates(torch, mgr)
+        answers = []
+        for i in range(TIER_REASK):
+            tier = "g3" if where[i]["g3"] == len(hashes[i]) else "g2"
+            ids_l, t_l = await tier_ask(engine, f"{leg}-l{i}", prompts[i])
+            ids_g, t_g = await tier_ask(engine, f"{leg}-g{i}", prompts[i])
+            check(ids_l == ids_g,
+                  f"tiers {leg} {kv_quant}: prompt {i} onboarded from {tier} "
+                  f"answered {ids_l}, from G1 {ids_g}")
+            ttft["lower"].setdefault(tier, []).append(t_l)
+            ttft["g1"].append(t_g)
+            answers.append(ids_g)
+            if i == 0:
+                on_g1 = await engine.run_in_engine(
+                    lambda: tier_where(mgr, hashes[0])["g1"])
+                check(on_g1 == len(hashes[0]),
+                      f"tiers {leg} {kv_quant}: the first prompt is not "
+                      f"back in G1 after its onboard: {on_g1} blocks")
+                back = await engine.export_blocks(hashes[0])
+        # Back in G1, the last block's last row is the prompt's last
+        # token, which a full hit prefills again (its KV rounded as a
+        # one-token prefill rounds it): that row is left out.
+        last = hashes[0][-1]
+        for h in hashes[0]:
+            rows = BS - 1 if h == last else BS
+            for what, got, n in (("below G1", lower, BS),
+                                 ("back in G1", back, rows)):
+                check(torch.equal(got[h][:, :, :n].view(torch.uint8),
+                                  before[h][:, :, :n].view(torch.uint8)),
+                      f"tiers {leg} {kv_quant}: block {h:x} {what} differs "
+                      f"from its bytes before the offload")
+        rates_reask = copy_rates(torch, mgr)
+        st = mgr.stats
+        hit = core.scheduler.prefix_hit_tokens
+        want_hit = 2 * TIER_REASK * (TIER_PROMPT_LEN - BS)
+        want_off = TIER_PROMPTS * TIER_PROMPT_LEN // BS - (TIER_G1 - 1)
+        want_on = TIER_REASK * TIER_PROMPT_LEN // BS
+        check(hit >= want_hit and st["offloaded"] >= want_off
+              and st["onboarded"] >= want_on,
+              f"tiers {leg} {kv_quant}: prefix hits {hit} (want >= "
+              f"{want_hit}), offloaded {st['offloaded']} (>= {want_off}), "
+              f"onboarded {st['onboarded']} (>= {want_on})")
+    finally:
+        await engine.stop()
+    return {"leg": leg, "kv_quant": kv_quant, **tiers,
+            "host_alloc_s": mgr.host_alloc_s,
+            "pinned_mib": (0 if mgr.host is None else
+                           mgr._host_data.numel()
+                           * mgr._host_data.element_size() / 2 ** 20),
+            "ttft_s": ttft, "where_before_reask": where,
+            "prefix_hit_tokens": hit, "stats": st,
+            "offload_host_ms_per_block": (
+                1e3 * mgr.offload_host_s / mgr.offload_host_blocks
+                if mgr.offload_host_blocks else None),
+            "backpressure_waits": mgr.backpressure_waits,
+            "rates_wave": rates_wave, "rates_reask": rates_reask,
+            "block_bytes": core.cache_cfg.bytes_per_block}, engine, answers
+
+
+async def tier_g4_leg(torch, state, prompts: list, kv_quant: str, peer,
+                      want: list) -> dict:
+    """A G1-only engine whose `remote_fetch_fn` pulls from `peer` (the g2
+    leg's engine, stopped; its blocks in its G1 and G2) through its
+    manager's `export_block`: each of the first TIER_REASK prompts onboards
+    from G4, then hits G1, and both answers equal the peer's."""
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    fetched = []
+    pm = peer.core.allocator.manager
+
+    def fetch(h):
+        fetched.append(h)
+        return pm.export_block(h)
+
+    engine = tier_engine(state, kv_quant, remote_fetch_fn=fetch)
+    mgr = engine.core.allocator.manager
+    await engine.start()
+    try:
+        ttft = {"g4": [], "g1": []}
+        for i in range(TIER_REASK):
+            ids_r, t_r = await tier_ask(engine, f"g4-r{i}", prompts[i])
+            ids_g, t_g = await tier_ask(engine, f"g4-g{i}", prompts[i])
+            check(ids_r == ids_g == want[i],
+                  f"tiers g4 {kv_quant}: prompt {i} from G4 {ids_r}, from G1 "
+                  f"{ids_g}, the peer's {want[i]}")
+            ttft["g4"].append(t_r)
+            ttft["g1"].append(t_g)
+        n = TIER_REASK * TIER_PROMPT_LEN // BS
+        got = mgr.remote_fetched_blocks
+        check(got >= n and mgr.onboarded_blocks >= n,
+              f"tiers g4 {kv_quant}: remote_fetched {got}, onboarded "
+              f"{mgr.onboarded_blocks} (want >= {n})")
+        check(fetched[:len(compute_block_hashes(prompts[0], BS))]
+              == compute_block_hashes(prompts[0], BS),
+              f"tiers g4 {kv_quant}: the first fetches are not the first "
+              f"prompt's blocks in order")
+    finally:
+        await engine.stop()
+    return {"leg": "g4", "kv_quant": kv_quant, "ttft_s": ttft,
+            "remote_fetched": got, "stats": mgr.stats}
+
+
+def tiers_phase(torch, kernels, state) -> dict:
+    """The KV tiers on the card, bf16 then int8 (`tier_leg`, `tier_g4_leg`):
+    the bytes of a block that went down and came back equal the bytes it
+    had; an onboarded prompt answers as a G1 hit does; the counts reach
+    what the sizing implies; K1 and K2 launch, only their int8 bodies in
+    the int8 legs.  Offload and onboard GB/s beside a plain pinned copy_,
+    the engine thread's host ms an evicted block, the pinned allocation's
+    seconds and TTFT medians by tier."""
+    import asyncio
+
+    t_phase = time.monotonic()
+    prompts = random_prompts(torch, SEED + 12,
+                             *[TIER_PROMPT_LEN] * TIER_PROMPTS)
+    out = {"phase": "tiers", "model": "llama-3-1b", "g1_blocks": TIER_G1 - 1,
+           "prompts": TIER_PROMPTS, "prompt_tokens": TIER_PROMPT_LEN,
+           "reasked": TIER_REASK, "legs": [], "launches": {}}
+    for kv_quant in ("none", "int8"):
+        kernels.reset_launch_counts()
+        peer, answers = None, None
+        for leg, tiers in TIER_LEGS:
+            line, engine, ids = asyncio.run(tier_leg(
+                torch, state, prompts, kv_quant, leg, tiers))
+            out["legs"].append(line)
+            if leg == "g2":
+                peer, answers = engine, ids
+        out["legs"].append(asyncio.run(tier_g4_leg(
+            torch, state, prompts, kv_quant, peer, answers)))
+        peer.core.allocator.manager.close()
+        del peer
+        launches = kernels.launch_counts()
+        body = "_int8" if kv_quant == "int8" else ""
+        other = "" if kv_quant == "int8" else "_int8"
+        for k in ("paged_decode_attention", "paged_prefill_attention"):
+            check(launches[k + body] > 0 and launches[k + other] == 0,
+                  f"tiers {kv_quant}: K1/K2 launches {launches}")
+        out["launches"][kv_quant] = launches
+        torch.cuda.empty_cache()
+    out["yardstick"] = pinned_yardstick(torch, out["legs"][0]["block_bytes"])
+    by_tier = {"cold": [], "g1": [], "g2": [], "g3": [], "g4": []}
+    for line in out["legs"]:
+        t = line["ttft_s"]
+        if line["leg"] == "g4":
+            by_tier["g4"] += t["g4"]
+            by_tier["g1"] += t["g1"]
+            continue
+        by_tier["cold"] += t["cold"]
+        by_tier["g1"] += t["g1"]
+        for tier, xs in t["lower"].items():
+            by_tier[tier] += xs
+    out["ttft_median_s"] = {k: statistics.median(v) if v else None
+                            for k, v in by_tier.items()}
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
+def qos_tier_leg(torch, state) -> dict:
+    """QoS demotion that moves blocks, in process on the card: llama-3-1b
+    with QOS_TIER_G1 pages and a G2 of QOS_TIER_G2.  A best-effort request
+    decodes; a burn (`qos_pressure_fn`) and a standard request arrive, so
+    the scheduler sheds the best-effort one: its sealed blocks demote into
+    G2 and leave G1.  When the burn clears it resumes by onboarding them,
+    and its answer equals the same request's with no pressure (a split
+    only at a near tie)."""
+    from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.models.config import get_config
+
+    be_prompt, std_prompt = random_prompts(torch, SEED + 13, 640, 200)
+    n_be, n_std = 192, 16
+
+    def core():
+        return EngineCore(EngineConfig(
+            model=get_config("llama-3-1b"), num_blocks=QOS_TIER_G1,
+            host_blocks=QOS_TIER_G2, scheduler=SchedulerConfig(block_size=BS)),
+            params=state)
+
+    def pump(c, got, stop, steps=4000):
+        for _ in range(steps):
+            for d in c.step():
+                got.setdefault(d.request_id, []).extend(d.token_ids)
+            if stop():
+                return
+        raise SmokeError(f"qos tier leg: no progress ({ {k: len(v) for k, v in got.items()} })")
+
+    ref = core()
+    ref.add_request("be", list(be_prompt), SamplingParams(max_tokens=n_be),
+                    priority=0)
+    want = {}
+    pump(ref, want, lambda: not ref._requests)
+    ref.allocator.manager.close()
+    del ref
+    c = core()
+    mgr = c.allocator.manager
+    pressure = [0.0]
+    c.scheduler.qos_pressure_fn = lambda: pressure[0]
+    c.add_request("be", list(be_prompt), SamplingParams(max_tokens=n_be),
+                  priority=0)
+    got = {"be": [], "std": []}
+    pump(c, got, lambda: len(got["be"]) >= 8)
+    pressure[0] = 2.0
+    c.add_request("std", list(std_prompt), SamplingParams(max_tokens=n_std),
+                  priority=1)
+    pump(c, got, lambda: len(got["std"]) >= n_std)
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    sealed = compute_block_hashes(be_prompt, BS)
+    where = tier_where(mgr, sealed)
+    demoted, preempts = c.qos_demoted_blocks, c.scheduler.qos_preemptions
+    check(preempts >= 1 and demoted > 0,
+          f"qos tier leg: {preempts} QoS preemptions, {demoted} demoted")
+    check(where["g2"] >= min(demoted, len(sealed)),
+          f"qos tier leg: the demoted blocks are not in G2: {where}")
+    onboarded = mgr.onboarded_blocks
+    pressure[0] = 0.0
+    pump(c, got, lambda: not c._requests)
+    resumed = mgr.onboarded_blocks - onboarded
+    check(resumed > 0, "qos tier leg: the resumption onboarded nothing")
+    split = greedy_split(torch, state, be_prompt, got["be"], want["be"],
+                         "qos tier leg: the preempted answer")
+    stats = mgr.stats
+    mgr.close()
+    return {"host_blocks": QOS_TIER_G2, "g1_blocks": QOS_TIER_G1 - 1,
+            "qos_preemptions": preempts, "qos_demoted_blocks": demoted,
+            "where_after_demotion": where, "onboarded_on_resume": resumed,
+            "answer_split": split, "stats": stats}
+
+
+# -- the standalone router service and the frontend's other ingress -----------
+
+BATCH_TURN = "Batch {i}: what does a paged KV cache hold?"
+BATCH_PROMPTS, BATCH_TOKENS = 8, 32
+
+
+def batch_jobs() -> list:
+    return [{"prompt": BATCH_TURN.format(i=i), "max_tokens": BATCH_TOKENS}
+            for i in range(BATCH_PROMPTS)]
+
+
+def batch_reference(base: str) -> list:
+    """`batch_jobs()` as one concurrent wave of /v1/completions at `base`:
+    (text, completion tokens) of each."""
+    def one(job):
+        r = json.loads(_http(base + "/v1/completions", {
+            "model": "m", "prompt": job["prompt"], "temperature": 0,
+            "max_tokens": job["max_tokens"]}))
+        return [r["choices"][0]["text"], r["usage"]["completion_tokens"]]
+
+    with ThreadPoolExecutor(BATCH_PROMPTS) as pool:
+        return list(pool.map(one, batch_jobs()))
+
+
+def router_service_phase(serve: dict) -> dict:
+    """The standalone KV router on the card: two llama-3-1b workers, a
+    `python -m dynamo_tpu_torch.router_service` registering `m-routed`,
+    and frontend B (round_robin), which reaches the workers through the
+    service by asking for `m-routed` (`distributed_stack`).  `serve`'s
+    lone chats through it give `serve`'s ids and logprobs bit for bit;
+    two chats on one system prompt, one at a time, land on the same
+    worker (its prefix-hit tokens grow by the prompt's blocks, the
+    other's do not); the service's /metrics counts the streams.  Then a
+    wave of 8 chats through an in-process round-robin consumer of
+    `m-routed` (the frontend's client, wrapped in a `StreamRecorder`: TTFT
+    and ITL from raw arrivals) and a wave of 8 other chats of the same
+    shape through frontend B, whose request ledger and timings stand
+    beside them."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.discovery import ModelWatcher
+    from dynamo_tpu_torch.llm.perf import StreamRecorder
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.service import ModelManager
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    t_phase = time.monotonic()
+    cp, mport = _free_port(), _free_port()
+    lone = [{**traced(chat_body(i, False, 64, user=LONE_TURN)),
+             "model": "m-routed"} for i in range(2)]
+    want = serve["lone_answers"][:len(lone)]
+    system = system_prompt(SYSTEM_LINES["P"])
+    bodies = [{**chat_body(i, False, 64), "model": "m-routed"}
+              for i in range(8)]
+
+    def sticky(i):
+        return {**chat_body(i, False, 8, system, STICKY_TURN),
+                "model": "m-routed"}
+
+    def hits(workers):
+        return [json.loads(_http(w + "/debug/stats"))["prefix_cache"]
+                ["hit_tokens"] for w in workers]
+
+    async def recorded():
+        pre = OpenAIPreprocessor(ByteTokenizer())
+        client = ControlPlaneClient("127.0.0.1", cp)
+        await client.start()
+        rt = DistributedRuntime(client)
+        models = ModelManager()
+        watcher = ModelWatcher(rt, models)          # round-robin
+        await watcher.start()
+        try:
+            await watcher.wait_for_model("m-routed", timeout=60)
+            rec = StreamRecorder(models.get("m-routed").client)
+
+            async def one(i, body):
+                req = pre.preprocess_chat(
+                    ChatCompletionRequest.from_dict(body), f"rec-{i}")
+                return [t async for d in rec.generate(req)
+                        for t in d.token_ids]
+
+            outs = await asyncio.gather(*(one(i, x)
+                                          for i, x in enumerate(bodies)))
+            return outs, rec.summary()
+        finally:
+            await watcher.stop()
+            await rt.shutdown()
+            await client.close()
+
+    with distributed_stack(
+            tag="router_service", cp_port=cp, models=["m", "m-routed"],
+            extra=[("dynamo_tpu_torch.router_service", "router",
+                    ("--control-plane", f"127.0.0.1:{cp}", "--model-name",
+                     "m", "--metrics-port", str(mport)))]) as (
+            a, b, workers, startup_s):
+        got = [answer(_chat(b, x)) for x in lone]
+        check(got == want,
+              f"router_service: lone chats through the service gave {got!r}, "
+              f"the single-process server {want!r}")
+        _chat(b, sticky(-1))
+        time.sleep(METRICS_SETTLE_S)
+        h1 = hits(workers)
+        _chat(b, sticky(0))
+        grew = [y - x for x, y in zip(h1, hits(workers))]
+        check(sorted(g > 0 for g in grew) == [False, True]
+              and max(grew) >= BS * SYSTEM_BLOCKS,
+              f"router_service: the second chat on one system prompt grew "
+              f"prefix hits by {grew}")
+        n_routed = metric_value(_http(f"http://127.0.0.1:{mport}/metrics"),
+                                "dynamo_router_requests_total")
+        check(n_routed == len(lone) + 2,
+              f"router_service: the service counted {n_routed} streams")
+        outs, summary = asyncio.run(recorded())
+        check(all(len(o) == 64 for o in outs),
+              f"router_service: the recorded wave gave "
+              f"{[len(o) for o in outs]} tokens")
+        _http(b + "/debug/stats/reset", {})
+        wave = chat_wave(b, [{**chat_body(i + 10, False, 64),
+                              "model": "m-routed"} for i in range(8)])
+        check_results(wave, 64)
+        reqs = json.loads(_http(b + "/debug/stats"))["requests"]
+        rids = {r["rid"] for r in wave}
+        ledger = [e for e in json.loads(_http(b + "/debug/requests?n=64"))
+                  ["slowest"] if e["request_id"] in rids]
+    itl_n = sum(r["itl_n"] for r in reqs)
+    return {"phase": "router_service", "startup_s": startup_s,
+            "lone_answers_equal": True, "sticky_hit_growth": grew,
+            "routed_streams": n_routed, "recorder": summary,
+            "frontend_b": {
+                "ttft_p50": statistics.median(r["ttft_s"] for r in reqs),
+                "itl_mean_s": (sum(r["itl_sum_s"] for r in reqs) / itl_n
+                               if itl_n else None)},
+            "ledger": {"requests": len(ledger),
+                       "ttft_p50": (statistics.median(e["ttft_s"]
+                                                      for e in ledger)
+                                    if ledger else None),
+                       "tpot_p50": (statistics.median(e["tpot_s"]
+                                                      for e in ledger)
+                                    if ledger else None)},
+            "wall_s": time.monotonic() - t_phase}
+
+
+def ingress_phase(serve: dict) -> dict:
+    """The frontend's other ingress and backends on the card:
+    `--input batch` over `batch_jobs()` against llama-3-1b writes
+    `serve`'s answers to the same completions (text and token counts; the
+    random model's ids above 255 spell nothing, so the text holds little);
+    `--out echo` returns the prompt; `--out mocker` answers while its
+    process launches no kernel (`/debug/stats` launch counts)."""
+    t_phase = time.monotonic()
+    OUT_DIR.mkdir(exist_ok=True)
+    src = OUT_DIR / "ingress_batch.jsonl"
+    dst = OUT_DIR / "ingress_batch.out.jsonl"
+    src.write_text("".join(json.dumps(j) + "\n" for j in batch_jobs()))
+    log = OUT_DIR / "chip_smoke_ingress_batch.log"
+    t0 = time.monotonic()
+    with open(log, "w") as f:
+        rc = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--model",
+             "llama-3-1b", "--model-name", "m", "--input", "batch",
+             "--batch-file", str(src), "--batch-output", str(dst)],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            timeout=600).returncode
+    batch_s = time.monotonic() - t0
+    check(rc == 0, f"ingress: --input batch exited rc {rc}: "
+                   + log.read_text()[-2000:])
+    rows = [json.loads(x) for x in dst.read_text().splitlines()]
+    summary = [json.loads(x) for x in log.read_text().splitlines()
+               if x.startswith('{"requests"')][-1]
+    got = [[r.get("completion"), r["completion_tokens"]] for r in rows]
+    want = serve["batch_reference"]
+    check(got == want, f"ingress: --input batch answered {got}, serve {want}")
+    out = {"phase": "ingress", "batch": {"rows": len(rows), "seconds": batch_s,
+                                         "summary": summary,
+                                         "texts_with_bytes": sum(
+                                             bool(g[0]) for g in got)}}
+    prompt = "Echo: what does a paged KV cache hold?"
+    with server("llama-3-1b", ("--out", "echo"), tag="_echo") as (base, _):
+        r = json.loads(_http(base + "/v1/completions", {
+            "model": "m", "prompt": prompt, "max_tokens": 256}))
+        text = r["choices"][0]["text"]
+        check(text == prompt, f"ingress: --out echo returned {text!r}")
+    with server("llama-3-1b", ("--out", "mocker", "--speedup-ratio", "100"),
+                tag="_mocker") as (base, _):
+        r = _chat(base, chat_body(0, False, 16))
+        check(r["tokens"] == 16, f"ingress: the mocker answered {r}")
+        launches = json.loads(_http(base + "/debug/stats"))["kernels"]
+        check(not any(launches.values()),
+              f"ingress: the mocker's process launched kernels: {launches}")
+    out["echo"] = {"returned_prompt": True}
+    out["mocker"] = {"tokens": r["tokens"], "launches": launches}
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
 def summary_entry(k: dict, name: str, launches: int, **extra) -> dict:
     src, replaces = SOURCES[k["name"].replace("_int8", "")]
     return {"name": name, "route": "cuda", "source": src,
@@ -3837,8 +4439,9 @@ def main() -> int:
                                 + [disagg_chat(i, False)
                                    for i in (0, 1, 0, 1)]
                                 + [fleet_long_body()])],
-                            during=embed_requests)
-        serve_embed = serve.pop("during")
+                            during=lambda base: (embed_requests(base),
+                                                 batch_reference(base)))
+        serve_embed, serve["batch_reference"] = serve.pop("during")
         emit(serve)
         phase = "serve_distributed"
         dist = serve_distributed_phase(serve, serve_embed)
@@ -3926,6 +4529,36 @@ def main() -> int:
         phase = "block_copy"
         block_copy = block_copy_phase(torch)
         emit(block_copy)
+        phase = "tiers"
+        state = llama_state(torch)
+        tiers = tiers_phase(torch, kernels, state)
+        emit(tiers)
+        rates = {leg: [(x["kv_quant"], round(x["rates_wave"]["offload"]
+                                            ["gb_s"] or 0, 2),
+                        round(x["rates_reask"]["onboard"]["gb_s"] or 0, 2))
+                       for x in tiers["legs"] if x["leg"] == leg]
+                 for leg in ("g2", "g3")}
+        y = tiers["yardstick"]
+        print(f"tiers on {'; '.join(smi.splitlines())}: TTFT medians "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in
+                          tiers["ttft_median_s"].items() if v is not None)
+              + f"; (kv_quant, offload GB/s, onboard GB/s) by leg {rates};"
+              f" pinned copy_ of {TIER_YARDSTICK_BLOCKS} blocks d2h "
+              f"{y['d2h']['gb_s']:.2f} GB/s, h2d {y['h2d']['gb_s']:.2f} GB/s;"
+              f" engine-thread host ms an evicted block "
+              + ", ".join(f"{x['leg']}/{x['kv_quant']} "
+                          f"{x['offload_host_ms_per_block']:.4f}"
+                          for x in tiers["legs"]
+                          if x.get("offload_host_ms_per_block"))
+              + "; pinned allocation "
+              + ", ".join(f"{x['pinned_mib']:.0f} MiB "
+                          f"{x['host_alloc_s']:.4f} s"
+                          for x in tiers["legs"] if x.get("pinned_mib"))
+              + f"; {tiers['wall_s']:.1f} s", flush=True)
+        phase = "qos_tier"
+        qos_tier = qos_tier_leg(torch, state)
+        del state
+        torch.cuda.empty_cache()
         phase = "serve_disagg"
         disagg = serve_disagg_phase(serve)
         emit(disagg)
@@ -3967,6 +4600,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "qos"
         qos = qos_phase(torch)
+        qos["tier_leg"] = qos_tier
         emit(qos)
         tm = qos["ttft_mean_s"]
         print(f"qos on {'; '.join(smi.splitlines())}: {QOS_BE} best-effort "
@@ -3997,6 +4631,22 @@ def main() -> int:
               f"after {fleet['drain']['emitted_before']} tokens, teardown "
               f"{fleet['teardown']['s']:.1f} s; {fleet['wall_s']:.1f} s",
               flush=True)
+        phase = "router_service"
+        routed = router_service_phase(serve)
+        emit(routed)
+        rs = routed["recorder"]
+        print(f"router_service on {'; '.join(smi.splitlines())}: startup "
+              f"{routed['startup_s']:.1f} s; recorder (raw arrivals, 8 chats"
+              f" through the service) TTFT p50 {rs['ttft_p50']:.4f} s p95 "
+              f"{rs['ttft_p95']:.4f} s, ITL p50 {rs['itl_p50']:.5f} s p95 "
+              f"{rs['itl_p95']:.5f} s, {rs['tok_s']:.1f} tok/s; frontend B "
+              f"ledger TTFT p50 {routed['ledger']['ttft_p50']} s, TPOT p50 "
+              f"{routed['ledger']['tpot_p50']} s; frontend B timings TTFT "
+              f"p50 {routed['frontend_b']['ttft_p50']:.4f} s, ITL mean "
+              f"{routed['frontend_b']['itl_mean_s']} s", flush=True)
+        phase = "ingress"
+        ingress = ingress_phase(serve)
+        emit(ingress)
     except Exception as e:  # every failure ends the run without an ok line
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
@@ -4027,6 +4677,10 @@ def main() -> int:
             extra["launches_planner_profile"] = profile["launches"][key]
             extra["launches_fleet"] = sum(
                 k[key] for k in fleet["launches"].values())
+        if d == 64:
+            # The KV tiers' in-process engines (llama-3-1b, D 64).
+            extra["launches_tiers"] = tiers["launches"][
+                "int8" if key.endswith("_int8") else "none"][key]
         if "eager_ms" in k:
             extra["eager_ms"] = k["eager_ms"]
         name = (key + ("" if d == 64 else f"_d{d}")

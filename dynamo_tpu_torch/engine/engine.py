@@ -20,13 +20,17 @@ reads it on demand, so the load costs no host sync per step.
 `kv_quant="int8"` stores the paged cache as int8 with per-token, per-head
 f32 scales; every step then attends through the kernels' int8 bodies.
 The prefix cache is on by default, as in the JAX engine: pages come from
-a ManagedBlockSource (the device tier of the block manager), admission
-reuses the pages of a prompt's longest cached run of sealed blocks, and
+a ManagedBlockSource (the tiered block manager), admission reuses the
+pages of a prompt's longest cached run of sealed blocks, and
 `_publish_completed_blocks` registers each block a request seals, always
-before the token that follows it is appended.
+before the token that follows it is appended.  With `host_blocks` /
+`disk_blocks` an evicted block rides down to pinned host memory (G2) and
+disk (G3) and onboards back into fresh pages on a later match;
+`remote_fetch_fn` is the G4 tier (llm/block_manager/manager.py).
 
-Block transfer, as in JAX: `export_blocks` / `export_blocks_device` hand
-out resident blocks' wire bytes (engine/kv_cache.py), `import_blocks`
+Block transfer, as in JAX: `export_blocks` hands out the wire bytes of
+blocks resident in any tier, `export_blocks_device` those of G1 blocks
+on the device (engine/kv_cache.py), `import_blocks`
 injects a peer's blocks as registered prefix-cache entries after
 `_validate_block` refuses a block of the other KV mode, and
 `resident_prefix_blocks` measures the locally held prefix.  The cache is
@@ -84,13 +88,13 @@ loop.
 QoS, as in JAX: `generate` and `add_request` take the request's class
 (`priority`), and the scheduler's QoS victims go through `_qos_preempt`,
 which resets the seal bookkeeping, recompute-preempts, and demotes the
-victim's sealed blocks through the block manager (a no-op without a host
-tier, as on every JAX worker; `qos_demoted_blocks` counts them).  A
+victim's sealed blocks through the block manager into the host tier (a
+no-op without one, as in JAX; `qos_demoted_blocks` counts the blocks
+that moved).  A
 drain ends a stream with a `TokenDelta.migrate` hint (llm/drain.py).
 
-Not ported yet: the prefix cache's host and disk tiers, prewarm of the
-packed prefill shapes, tp/dp/ep/pp meshes (and with them MoE all-to-all
-dispatch) and multimodal prefill.
+Not ported yet: prewarm of the packed prefill shapes, tp/dp/ep/pp meshes
+(and with them MoE all-to-all dispatch) and multimodal prefill.
 """
 
 from __future__ import annotations
@@ -217,9 +221,16 @@ class EngineConfig:
     # "none" = K/V pages at the model dtype; "int8" = int8 pages with
     # per-token, per-head f32 scales (engine/kv_cache.py).
     kv_quant: str = "none"
-    # Prefix cache (the block manager's device tier); off = the plain
-    # free-list allocator, no reuse.
+    # Prefix cache (the tiered block manager: G1 device always; G2 pinned
+    # host / G3 disk when sized > 0); off = the plain free-list
+    # allocator, no reuse.
     enable_prefix_cache: bool = True
+    host_blocks: int = 0
+    disk_blocks: int = 0
+    # G4 remote tier: `remote_fetch_fn(block_hash) -> Optional[tensor]`,
+    # consulted on local-tier misses during admission matching.  Must be
+    # synchronous and bounded (it runs on the engine thread).
+    remote_fetch_fn: Optional[Callable] = None
     # STORED / REMOVED events to the `kv_event_sink` (the KV router's
     # feed); without a sink nothing is emitted either way.
     enable_kv_events: bool = True
@@ -330,10 +341,16 @@ class EngineCore:
         if config.enable_prefix_cache:
             self.allocator = ManagedBlockSource(
                 TieredConfig(device_blocks=config.num_blocks,
+                             host_blocks=config.host_blocks,
+                             disk_blocks=config.disk_blocks,
                              block_size=self.block_size),
                 on_removed=self._on_block_evicted,
                 extract_fn=self._extract_pages,
-                inject_fn=self._inject_pages)
+                inject_fn=self._inject_pages,
+                remote_fetch_fn=config.remote_fetch_fn,
+                wire_shape=self.cache_cfg.block_wire_shape,
+                wire_dtype=self.cache_cfg.block_wire_dtype,
+                device=self.device)
         else:
             self.allocator = BlockAllocator(config.num_blocks)
         self.scheduler = Scheduler(sched_cfg, self.allocator)
@@ -1321,9 +1338,9 @@ class EngineCore:
 
     def _qos_preempt(self, req: Request) -> None:
         """Scheduler-chosen QoS victim: recompute-preempt it, then demote
-        its sealed blocks down-tier through the block manager (a no-op
-        without a host tier).  Resets the seal bookkeeping as
-        `_preempt_or_finish` does."""
+        its sealed blocks into the host tier through the block manager (a
+        no-op without one), so its resumption onboards them.  Resets the
+        seal bookkeeping as `_preempt_or_finish` does."""
         rid = req.request_id
         seq = self._hash_seqs.get(rid)
         published = self._published_blocks.get(rid, 0)
@@ -1530,16 +1547,22 @@ class EngineCore:
 
     # -- cross-worker block transfer (engine thread only) -------------------
 
+    def _page_ids(self, pages: List[int]) -> torch.Tensor:
+        """Page ids on the device, uploaded from pinned memory without a
+        host sync (an eviction's offload must not stall the step loop)."""
+        ids = torch.tensor(pages, dtype=torch.long,
+                           pin_memory=self.device.type == "cuda")
+        return ids.to(self.device, non_blocking=True)
+
+    @hot_path
     def _extract_pages(self, pages: List[int]) -> torch.Tensor:
-        return kvc.extract_blocks(
-            self.cache, torch.tensor(pages, device=self.device),
-            self.block_size)
+        return kvc.extract_blocks(self.cache, self._page_ids(pages),
+                                  self.block_size)
 
     def _inject_pages(self, pages: List[int], data: torch.Tensor) -> None:
         self._validate_block(data[0])   # a stacked batch: one format
-        kvc.inject_blocks(
-            self.cache, torch.tensor(pages, device=self.device),
-            data.to(self.device), self.block_size)
+        kvc.inject_blocks(self.cache, self._page_ids(pages),
+                          data.to(self.device), self.block_size)
 
     def _validate_block(self, data: torch.Tensor) -> None:
         """Loud mixed-mode guard on every injected block: a bf16 peer's
@@ -1569,28 +1592,21 @@ class EngineCore:
 
     @engine_thread_only
     def export_blocks(self, hashes) -> Dict[int, torch.Tensor]:
-        """Resident blocks' wire bytes on the host: one extract and one
-        device-to-host copy for the batch."""
+        """The wire bytes on the host of requested blocks resident in any
+        tier (G1 -> G2 -> G3): one extract and one device-to-host copy for
+        the G1 blocks."""
         if not self._managed_cache:
             return {}
-        present, staged = self.allocator.manager.extract(hashes)
-        if not present:
-            return {}
-        return dict(zip(present, staged.cpu().unbind(0)))
+        return self.allocator.manager.export_blocks(hashes)
 
     @engine_thread_only
     def resident_prefix_blocks(self, hashes) -> int:
-        """Length of the contiguous prefix of `hashes` resident on the
-        device (host lookups only)."""
+        """Length of the contiguous prefix of `hashes` resident in any
+        local tier (G1/G2/G3; host lookups only): the prefix-share pull
+        never fetches what a lower tier would onboard."""
         if not self._managed_cache:
             return 0
-        registry = self.allocator.manager.device.registry
-        n = 0
-        for h in hashes:
-            if registry.lookup(h) is None:
-                break
-            n += 1
-        return n
+        return self.allocator.manager.resident_prefix(hashes)
 
     @engine_thread_only
     def import_blocks(self, blocks: Dict[int, torch.Tensor]) -> int:
@@ -1750,12 +1766,12 @@ class InferenceEngine:
 
     def _contract_owned(self):
         """Everything whose @engine_thread_only pin follows the step loop:
-        the core, its block source and the device pool behind it."""
+        the core, its block source and the tiered pools behind it."""
         owned = [self.core, self.core.allocator]
         manager = getattr(self.core.allocator, "manager", None)
         if manager is not None:
-            owned += [manager, manager.device]
-        return owned
+            owned += [manager, manager.device, manager.host, manager.disk]
+        return [o for o in owned if o is not None]
 
     async def stop(self) -> None:
         self._stop.set()
@@ -1764,6 +1780,11 @@ class InferenceEngine:
             await asyncio.to_thread(self._thread.join, 10.0)
         # The step loop is gone: tests may drive the core directly.
         contracts.release_owner(*self._contract_owned())
+        # Settle the offload copies in flight and remove the disk tier's
+        # file, off the engine thread.
+        manager = getattr(self.core.allocator, "manager", None)
+        if manager is not None:
+            await asyncio.to_thread(manager.close)
 
     def _run_loop(self) -> None:
         contracts.register_engine_thread()

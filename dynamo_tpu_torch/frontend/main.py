@@ -33,6 +33,21 @@ overlap the workers' KV events report and their load):
 Its `/debug/stats` reports the frontend-side per-request timings; each
 worker's `--health-port` serves its engine's stats.
 
+Backends, with JAX's out= matrix (`--out`): `auto` / `engine` build the
+engine above; `echo` streams the prompt back (`llm/echo.py`); `mocker`
+(or `--mocker`) serves the simulated engine, time compressed by
+`--speedup-ratio`; `dyn://namespace/component/endpoint` attaches a
+remote endpoint statically through `--control-plane`, without model
+discovery (`--router-mode kv` then routes with `--kv-cache-block-size`,
+the workers' block size).  `--max-tokens-default` caps a request that
+names no max_tokens.  Ingress (`--input`): `http` (the server), `text`
+(a chat REPL on stdin) or `batch` (`--batch-file` JSONL of {"prompt",
+"max_tokens"?, "temperature"?} to `--batch-output`, default the input
+path + `.out`, then a throughput summary line):
+
+    python -m dynamo_tpu_torch.frontend --out echo --input batch \\
+        --batch-file prompts.jsonl
+
 Observability, with JAX's flags: `--trace [--trace-sample R
 --trace-slow-ms MS --trace-ring N --trace-slow-log PATH]` (spans in
 `/debug/traces`), `--slo-ttft-p99 S` / `--slo-tpot-p99 S` /
@@ -50,9 +65,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import json
 import logging
 import signal
-from typing import Optional
+import time
+from typing import Optional, Tuple
 
 from dynamo_tpu_torch.engine.engine import (
     EngineConfig,
@@ -60,9 +77,16 @@ from dynamo_tpu_torch.engine.engine import (
     InferenceEngine,
 )
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+from dynamo_tpu_torch.llm.backend import StreamDetokenizer
 from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.kv_router.protocols import SpecDecodeStats
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.llm.protocols.openai import (
+    ChatCompletionRequest,
+    ChatMessage,
+    CompletionRequest,
+    request_id,
+)
 from dynamo_tpu_torch.llm.service import LocalEngineClient, ModelHandle, ModelManager
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 from dynamo_tpu_torch.models.config import get_config
@@ -90,6 +114,32 @@ def parse_args(argv=None):
     p.add_argument("--router-mode", default="round_robin",
                    choices=("random", "round_robin", "kv"))
     p.add_argument("--migration-limit", type=int, default=3)
+    p.add_argument("--out", default="auto",
+                   help="backend: auto|engine = the in-process engine, "
+                        "echo streams the prompt back, mocker simulates "
+                        "an engine, dyn://ns/component/endpoint attaches "
+                        "a remote endpoint statically (no model "
+                        "discovery; needs --control-plane)")
+    p.add_argument("--mocker", action="store_true",
+                   help="serve the mock engine (no device); overrides "
+                        "--out")
+    p.add_argument("--speedup-ratio", type=float, default=10.0,
+                   help="mocker: simulated time compression")
+    p.add_argument("--max-tokens-default", type=int, default=512,
+                   help="max_tokens of a request that names none")
+    p.add_argument("--kv-cache-block-size", type=int, default=None,
+                   help="the workers' KV block size for --router-mode kv "
+                        "over a dyn:// attachment (discovery reads it "
+                        "from the model card; a mismatch zeroes every "
+                        "prefix-overlap score)")
+    p.add_argument("--input", default="http",
+                   choices=("http", "text", "batch"),
+                   help="ingress: the HTTP server, a chat REPL on stdin, "
+                        "or an offline JSONL batch")
+    p.add_argument("--batch-file", default=None,
+                   help="batch: JSONL input ({\"prompt\": ...} a line)")
+    p.add_argument("--batch-output", default=None,
+                   help="batch: JSONL output (default: input + .out)")
     p.add_argument("--model", default="llama-3-1b",
                    help="model preset (e.g. llama-3-1b, tiny-test)")
     p.add_argument("--model-name", default="dynamo-tpu",
@@ -127,7 +177,14 @@ def parse_args(argv=None):
     slo.add_slo_args(p)
     flight_recorder.add_flight_args(p)
     ledger.add_ledger_args(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    # choices= cannot express the dyn:// prefix; a typo'd backend must
+    # not be ignored silently.
+    if (args.out not in ("auto", "engine", "mocker", "echo")
+            and not args.out.startswith("dyn://")):
+        p.error(f"--out {args.out!r}: expected auto|engine|mocker|echo|"
+                "dyn://namespace/component/endpoint")
+    return args
 
 
 def model_config(args):
@@ -143,7 +200,33 @@ def model_config(args):
 
 
 async def build_model_handle(args):
-    """Returns (handle, engine core, shutdown coroutine)."""
+    """Returns (handle, engine core or None, shutdown coroutine), the
+    backend chosen by `--out` (or `--mocker`)."""
+    out = "mocker" if args.mocker else args.out
+    tokenizer = ByteTokenizer()
+    pre = OpenAIPreprocessor(tokenizer,
+                             default_max_tokens=args.max_tokens_default)
+    if out == "mocker":
+        from dynamo_tpu_torch.llm.mocker import MockEngine, MockEngineArgs
+
+        engine = MockEngine(MockEngineArgs(block_size=args.block_size,
+                                           speedup_ratio=args.speedup_ratio))
+        await engine.start()
+        return (ModelHandle(name=args.model_name, tokenizer=tokenizer,
+                            preprocessor=pre, client=engine),
+                None, engine.stop)
+    if out == "echo":
+        from dynamo_tpu_torch.llm.echo import EchoEngine
+
+        async def noop():
+            return None
+
+        return (ModelHandle(name=args.model_name, tokenizer=tokenizer,
+                            preprocessor=pre, client=EchoEngine()),
+                None, noop)
+    if out.startswith("dyn://"):
+        handle, shutdown = await attach_static_remote(args, tokenizer, pre)
+        return handle, None, shutdown
     cfg = model_config(args)
     sched = SchedulerConfig(block_size=args.block_size,
                             max_prefill_chunk=args.max_prefill_chunk)
@@ -153,14 +236,166 @@ async def build_model_handle(args):
         sp=args.sp))
     engine = InferenceEngine(core)
     await engine.start()
-    tokenizer = ByteTokenizer()
     handle = ModelHandle(
-        name=args.model_name, tokenizer=tokenizer,
-        preprocessor=OpenAIPreprocessor(tokenizer),
+        name=args.model_name, tokenizer=tokenizer, preprocessor=pre,
         client=LocalEngineClient(engine),
         max_context=min(cfg.max_context,
                         sched.max_pages_per_seq * sched.block_size))
     return handle, core, engine.stop
+
+
+async def attach_static_remote(args, tokenizer, pre):
+    """`--out dyn://ns/component/endpoint`: route to a known endpoint with
+    no model discovery (the card, and so the tokenizer, stay local), under
+    the same operator graph as discovery mode.  Returns (handle, shutdown
+    coroutine)."""
+    if not args.control_plane:
+        raise SystemExit("--out dyn://... needs --control-plane")
+    parts = args.out[len("dyn://"):].split("/")
+    if len(parts) != 3 or not all(parts):
+        raise SystemExit(f"--out {args.out!r}: expected "
+                         "dyn://namespace/component/endpoint")
+    from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.pipeline import (
+        KvRouterOp, MigrationOp, Pipeline, RemoteOp)
+
+    host, _, port = args.control_plane.rpartition(":")
+    cp = ControlPlaneClient(host or "127.0.0.1", int(port))
+    await cp.start()
+    runtime = DistributedRuntime(cp)
+    endpoint = (runtime.namespace(parts[0]).component(parts[1])
+                .endpoint(parts[2]))
+    client = await endpoint.client(
+        "round_robin" if args.router_mode == "kv" else args.router_mode)
+    # The block size must be the workers' (discovery mode reads the card;
+    # a static attachment cannot, so it is a flag).
+    if args.router_mode == "kv" and args.kv_cache_block_size is None:
+        logger.warning("dyn:// with --router-mode kv: assuming workers use "
+                       "--block-size %d; pass --kv-cache-block-size if not "
+                       "(a mismatch zeroes every prefix-overlap score)",
+                       args.block_size)
+    router_op = (KvRouterOp(runtime, block_size=(args.kv_cache_block_size
+                                                 or args.block_size))
+                 if args.router_mode == "kv" else RemoteOp())
+    pipeline = Pipeline([MigrationOp(limit=args.migration_limit), router_op])
+    engine_client = await pipeline.attach(client)
+
+    async def shutdown():
+        await pipeline.stop()
+        await client.stop()
+        await runtime.shutdown()
+        await cp.close()
+
+    return (ModelHandle(name=args.model_name, tokenizer=tokenizer,
+                        preprocessor=pre, client=engine_client), shutdown)
+
+
+async def _wait_for_model(models: ModelManager, timeout: float = 30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        names = models.names()
+        if names:
+            return models.get(names[0])
+        await asyncio.sleep(0.1)
+    raise TimeoutError("no model became available")
+
+
+async def _completion_text(handle, pre, on_text=None) -> Tuple[str, object]:
+    """Stream one preprocessed request, each piece of text to `on_text`
+    as it arrives; (its text, the detokenizer)."""
+    det = StreamDetokenizer(handle.tokenizer, pre.stop_sequences)
+    parts = []
+    async for delta in handle.client.generate(pre):
+        if delta.token_ids:
+            out = det.push_tokens(delta.token_ids)
+            if out.text:
+                parts.append(out.text)
+                if on_text is not None:
+                    on_text(out.text)
+            if out.finished:
+                break
+        if delta.finished:
+            break
+    return "".join(parts), det
+
+
+def _read_prompt():
+    try:
+        return input("> ")
+    except EOFError:
+        return None
+
+
+async def run_text_repl(models: ModelManager) -> None:
+    """Interactive chat REPL on stdin/stdout: one exchange a line; Ctrl-D
+    or /quit exits, /clear resets the conversation."""
+    handle = await _wait_for_model(models)
+    print(f"chat with {handle.name!r} — /quit exits, /clear resets",
+          flush=True)
+    history = []
+    loop = asyncio.get_running_loop()
+    while True:
+        line = await loop.run_in_executor(None, _read_prompt)
+        if line is None or line.strip() == "/quit":
+            return
+        if line.strip() == "/clear":
+            history = []
+            print("(history cleared)", flush=True)
+            continue
+        if not line.strip():
+            continue
+        history.append(ChatMessage(role="user", content=line))
+        pre = handle.preprocessor.preprocess_chat(
+            ChatCompletionRequest(model=handle.name, messages=history),
+            request_id("repl"))
+        text, _ = await _completion_text(
+            handle, pre, lambda t: print(t, end="", flush=True))
+        print(flush=True)
+        history.append(ChatMessage(role="assistant", content=text))
+
+
+async def run_batch(models: ModelManager, batch_file: str,
+                    batch_output: str, concurrency: int = 32) -> dict:
+    """Offline batch inference: JSONL in ({"prompt", "max_tokens"?,
+    "temperature"?}), JSONL out (each row plus "completion" and its token
+    counts, or "error"), and a throughput summary printed and returned.
+    One bad row never aborts the others."""
+    handle = await _wait_for_model(models)
+    with open(batch_file) as f:
+        jobs = [json.loads(line) for line in f if line.strip()]
+    sem = asyncio.Semaphore(concurrency)
+    results = [None] * len(jobs)
+    t0 = time.monotonic()
+
+    async def one(i, job):
+        async with sem:
+            try:
+                pre = handle.preprocessor.preprocess_completion(
+                    CompletionRequest(
+                        model=handle.name, prompt=job["prompt"],
+                        max_tokens=job.get("max_tokens", 128),
+                        temperature=job.get("temperature", 0.0)),
+                    request_id(f"batch{i}"))
+                text, det = await _completion_text(handle, pre)
+                results[i] = {**job, "completion": text,
+                              "prompt_tokens": len(pre.token_ids),
+                              "completion_tokens": det.completion_tokens}
+            except Exception as e:
+                results[i] = {**job, "error": f"{type(e).__name__}: {e}",
+                              "completion_tokens": 0}
+
+    await asyncio.gather(*(one(i, j) for i, j in enumerate(jobs)))
+    elapsed = time.monotonic() - t0
+    out_tokens = sum(r["completion_tokens"] for r in results)
+    with open(batch_output, "w") as f:
+        for r in results:
+            f.write(json.dumps(r) + "\n")
+    summary = {"requests": len(jobs), "output_tokens": out_tokens,
+               "elapsed_s": round(elapsed, 3),
+               "tok_s": round(out_tokens / elapsed, 2) if elapsed else 0.0}
+    print(json.dumps(summary), flush=True)
+    return summary
 
 
 def spec_decode_stats(core: EngineCore) -> Optional[dict]:
@@ -258,7 +493,13 @@ async def run(args) -> None:
         shutdowns.append(cp_server.stop)
     models = ModelManager()
     cp_client = None
-    if args.control_plane:
+    if args.out.startswith("dyn://") and not args.mocker:
+        handle, _, shutdown = await build_model_handle(args)
+        models.register(handle)
+        shutdowns.insert(0, shutdown)
+        svc = HttpService(models, registry=registry)
+        banner = f"static remote {args.out} as {handle.name!r}"
+    elif args.control_plane:
         watcher, stops = await start_discovery(args, models, registry)
         cp_client = watcher.runtime.cp
         shutdowns[:0] = stops
@@ -272,15 +513,30 @@ async def run(args) -> None:
         handle, core, shutdown = await build_model_handle(args)
         models.register(handle)
         shutdowns.append(shutdown)
-        stats, reset_stats = stats_hooks(core)
-        svc = HttpService(models, stats=stats, reset_stats=reset_stats,
-                          registry=registry)
-        cfg = core.config.model
-        banner = (f"serving {handle.name!r} ({args.model}, {cfg.num_layers} "
-                  f"layers, moe_mode {core.moe_mode}, kv_quant "
-                  f"{core.cache_cfg.kv_quant}, on {core.device}"
-                  + (f", sp {core.ring.sp} ranks on {core.ring.describe()}"
-                     if core.ring is not None else "") + ")")
+        if core is None:
+            # No engine here: the stats say that nothing launched.
+            svc = HttpService(models, stats=lambda: {
+                "kernels": kernels.launch_counts()}, registry=registry)
+            banner = (f"serving {handle.name!r} "
+                      f"({'mocker' if args.mocker else args.out})")
+        else:
+            stats, reset_stats = stats_hooks(core)
+            svc = HttpService(models, stats=stats, reset_stats=reset_stats,
+                              registry=registry)
+            cfg = core.config.model
+            banner = (f"serving {handle.name!r} ({args.model}, "
+                      f"{cfg.num_layers} layers, moe_mode {core.moe_mode}, "
+                      f"kv_quant {core.cache_cfg.kv_quant}, on {core.device}"
+                      + (f", sp {core.ring.sp} ranks on "
+                         f"{core.ring.describe()}"
+                         if core.ring is not None else "") + ")")
+    if args.input != "http":
+        try:
+            await run_ingress(args, models)
+        finally:
+            for shutdown in shutdowns:
+                await shutdown()
+        return
     # Goodput: the ledger sink judges requests by the SLO thresholds;
     # the monitor's PAGEs name the dominant ledger phase.
     svc.ledger_sink.slo_ttft = args.slo_ttft_p99
@@ -322,6 +578,28 @@ async def run(args) -> None:
         await svc.stop()
         for shutdown in shutdowns:
             await shutdown()
+
+
+async def run_ingress(args, models: ModelManager) -> None:
+    """`--input text` or `--input batch` to its end, or until SIGINT /
+    SIGTERM, which still runs the caller's shutdown path."""
+    if args.input == "batch" and not args.batch_file:
+        raise SystemExit("--input batch requires --batch-file")
+    stop_ev = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop_ev.set)
+    work = asyncio.create_task(
+        run_text_repl(models) if args.input == "text" else run_batch(
+            models, args.batch_file,
+            args.batch_output or args.batch_file + ".out"))
+    stop_wait = asyncio.create_task(stop_ev.wait())
+    await asyncio.wait({work, stop_wait}, return_when=asyncio.FIRST_COMPLETED)
+    stop_wait.cancel()
+    if work.done():
+        work.result()          # surface the batch's or the REPL's error
+    else:
+        work.cancel()
 
 
 def _cancel_coro(task):

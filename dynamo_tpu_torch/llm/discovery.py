@@ -384,6 +384,14 @@ class ModelWatcher:
         for kv in self._kv_clients.values():
             await kv.stop()
 
+    async def wait_for_model(self, name: str, timeout: float = 10.0) -> None:
+        """Return once `name` is registered; TimeoutError after `timeout`
+        seconds."""
+        async def poll():
+            while self.manager.get(name) is None:
+                await asyncio.sleep(0.01)
+        await asyncio.wait_for(poll(), timeout)
+
     def kv_index_blocks(self) -> Dict[str, Dict[str, int]]:
         """Per model, the blocks this frontend's KV router indexes for
         each worker (kv router mode only; workers with none are left

@@ -667,8 +667,11 @@ class KvCacheMetrics:
         alloc = core.allocator
         manager = getattr(alloc, "manager", None)
         if manager is not None:
-            # Only the device tier is ported (no host or disk pool).
             self.observe_pool(manager.device, "device")
+            if manager.host is not None:
+                self.observe_pool(manager.host, "host")
+            if manager.disk is not None:
+                self.observe_pool(manager.disk, "disk")
             device_pool = manager.device.name
         else:
             # Plain free-list allocator: no pool object, synthesize the

@@ -109,3 +109,13 @@ class Pipeline:
             if isinstance(st, cls):
                 return st
         return None
+
+    async def stop(self) -> None:
+        """Stop the built stages outermost first (the reverse of data
+        flow); the sink is its owner's to stop."""
+        for st in reversed(self.stages[1:]):
+            stop = getattr(st, "stop", None)
+            if stop is not None:
+                res = stop()
+                if inspect.isawaitable(res):
+                    await res

@@ -19,6 +19,8 @@ Kernel tolerance (`chip_smoke.py` holds the kernels to the same rule):
   averages out over a row; a lost or extra token does not.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -1045,3 +1047,135 @@ def _add_requests(core, i):
     for j, n in enumerate((5, 40, 17)):
         core.add_request(f"c{i}-{j}", list(range(1, n + 1)),
                          SamplingParams(max_tokens=24))
+
+
+# -- the KV tiers' copies on the card -----------------------------------------
+
+TIER_WIRE = (2, 16, 64, 512)       # llama-3-1b's wire block: 2 MiB in bf16
+
+
+def _tier_manager(dev, device_blocks, host_blocks, disk_blocks=0):
+    """A tiered manager over a page array on the card (the engine's
+    extract and inject reduced to index_select / index_copy_)."""
+    from dynamo_tpu_torch.llm.block_manager import ManagedBlockSource, TieredConfig
+
+    cache = torch.zeros((device_blocks, *TIER_WIRE), dtype=torch.bfloat16,
+                        device=dev)
+
+    def ids(pages):
+        return torch.tensor(pages, pin_memory=True).to(dev, non_blocking=True)
+
+    src = ManagedBlockSource(
+        TieredConfig(device_blocks=device_blocks, host_blocks=host_blocks,
+                     disk_blocks=disk_blocks),
+        extract_fn=lambda pages: cache.index_select(0, ids(pages)),
+        inject_fn=lambda pages, data: cache.index_copy_(0, ids(pages), data),
+        wire_shape=TIER_WIRE, wire_dtype=torch.bfloat16, device=dev)
+    return cache, src.manager
+
+
+def _seal(mgr, cache, h, value):
+    [page] = mgr.allocate(1)
+    cache[page].fill_(value)
+    mgr.register(page, h)
+    mgr.release([page])
+    return page
+
+
+def _busy(ms=50):
+    """Hold the current stream for about `ms` milliseconds, so the copies
+    enqueued after it are still in flight when the host moves on."""
+    torch.cuda._sleep(int(ms * 1e6))
+
+
+def test_offload_reads_the_page_before_its_overwrite(dev):
+    """Evict a block while the engine's stream is busy, overwrite its page
+    at once, then onboard it from G2: the old bytes come back."""
+    cache, mgr = _tier_manager(dev, device_blocks=3, host_blocks=4)
+    _seal(mgr, cache, 11, 1.0)
+    _seal(mgr, cache, 12, 2.0)
+    _busy()
+    pages = mgr.allocate(2)                  # evicts both into G2
+    assert mgr.offloaded_blocks == 2
+    for p in pages:
+        cache[p].fill_(-7.0)                 # the pages' next owner writes
+    mgr.release(pages)
+    _busy()
+    n, ids = mgr.match_and_onboard([11, 12])
+    assert n == 2 and mgr.onboarded_blocks == 2
+    torch.cuda.synchronize()
+    assert (cache[ids[0]] == 1.0).all() and (cache[ids[1]] == 2.0).all()
+    for h, v in ((11, 1.0), (12, 2.0)):
+        assert (mgr.export_block(h) == v).all()
+    mgr.close()
+
+
+def test_g2_slot_reuse_waits_for_the_onboard_reading_it(dev):
+    """One G2 slot: the onboard of h1 from it and the offload of h2 into it
+    happen in one call, the onboard still in flight behind a busy stream.
+    h1's page gets h1's bytes and the slot ends up holding h2's."""
+    cache, mgr = _tier_manager(dev, device_blocks=3, host_blocks=1)
+    p1 = _seal(mgr, cache, 1, 3.0)
+    _seal(mgr, cache, 2, 5.0)
+    # Make h1 the LRU head, then evict it into the slot and keep its
+    # page pinned, so the next allocation must evict h2.
+    mgr.device.registry.inactive.move_to_end(2)
+    [held] = mgr.allocate(1)
+    assert held == p1 and mgr.host.registry.lookup(1) is not None
+    cache[held].fill_(-1.0)
+    _busy()
+    n, ids = mgr.match_and_onboard([1])
+    assert n == 1
+    assert mgr.host.registry.lookup(2) is not None     # h2 took the slot
+    assert mgr.host.registry.lookup(1) is None
+    torch.cuda.synchronize()
+    assert (cache[ids[0]] == 3.0).all()
+    assert (mgr.export_block(2) == 5.0).all()
+    mgr.close()
+
+
+def test_g3_round_trip_on_the_card(dev):
+    """G2 of one slot spills to G3; the blocks come back bit-equal."""
+    cache, mgr = _tier_manager(dev, device_blocks=3, host_blocks=1,
+                               disk_blocks=4)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    want = {}
+    for h in (21, 22, 23, 24):
+        [page] = mgr.allocate(1)
+        cache[page].copy_(torch.randn(TIER_WIRE, generator=gen, device=dev))
+        want[h] = cache[page].clone()
+        mgr.register(page, h)
+        mgr.release([page])
+    assert mgr.stats["g3_resident"] == 1 and mgr.stats["g2_resident"] == 1
+    n, ids = mgr.match_and_onboard([21, 22])    # both from G3 by then
+    assert n == 2
+    for h, page in zip((21, 22), ids):
+        assert torch.equal(cache[page].view(torch.uint8),
+                           want[h].view(torch.uint8))
+    path = mgr._disk_file
+    mgr.close()
+    assert not os.path.exists(path)
+
+
+def test_offload_makes_no_host_sync(dev):
+    """An engine's allocation that evicts into G2 enqueues the extract and
+    the copies without a synchronizing call ("error" would raise)."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    core = _tiny_engine(dev, host_blocks=32)
+    for i in range(3):
+        core.add_request(f"w{i}", list(range(100 * i + 1, 100 * i + 41)),
+                         SamplingParams(max_tokens=2))
+    while core._requests:
+        core.step()
+    src = core.allocator
+    assert len(src.manager.device.registry.inactive) >= 12
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pages = src.allocate(src.free_blocks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert src.manager.offloaded_blocks >= 12
+    src.release(pages)
+    core.allocator.manager.close()

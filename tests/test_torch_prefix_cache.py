@@ -21,6 +21,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 import xxhash
 
 from dynamo_tpu import tokens as jtok
@@ -183,10 +184,16 @@ def test_manager_and_block_source_follow_jax():
         if key in jsrc_.stats:
             assert val == jsrc_.stats[key], key
     assert tsrc.clear_cache() == jsrc_.clear_cache() == 3
-    with pytest.raises(ValueError, match="queue A item 6"):
+    # The lower tiers construct and need the block format (the engine
+    # passes its cache's); their parity is test_torch_kv_tiers.py's.
+    with pytest.raises(ValueError, match="wire shape"):
         KvBlockManager(TieredConfig(device_blocks=8, host_blocks=4))
-    with pytest.raises(ValueError, match="queue A item 6"):
-        TieredConfig(device_blocks=8, disk_blocks=4)
+    tiered = KvBlockManager(TieredConfig(device_blocks=8, host_blocks=4,
+                                         disk_blocks=4),
+                            wire_shape=(2, 1, 4, 8), wire_dtype=torch.float32,
+                            device="cpu")
+    assert (tiered.host.capacity, tiered.disk.capacity) == (4, 4)
+    tiered.close()
 
 
 def test_scheduler_admission_hits_match_jax():
