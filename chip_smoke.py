@@ -212,6 +212,35 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
 23. ingress — `--input batch` over 8 prompts against llama-3-1b writes
    `serve`'s answers to the same completions; `--out echo` returns the
    prompt; `--out mocker` answers and its process launches no kernel.
+24. checkpoint — the seed-0 llama-3-1b preset written as an HF-layout
+   checkpoint under `smoke_out/checkpoint/` (bf16, two shards and their
+   index, config.json, tokenizer_config.json with a chat template and
+   eos, and a Llama-3-style tokenizer.json built here: the Split regex,
+   2000 byte-level BPE merges learnt from this script's own text,
+   Llama-3's special tokens at their ids), read back in process
+   (bit-equal to the preset on the card; load seconds and GB/s) and
+   served by `python -m dynamo_tpu_torch.frontend --model <dir>`:
+   `serve`'s wave (K1 and K2 launched; TTFT / ITL beside `serve`'s), two
+   lone chats whose ids must equal an in-process engine's on the preset
+   given the same prompt ids (a split only at a near tie), text round
+   trips through the port's tokenizer.
+25. tools_responses — inside 24's serve: /v1/responses unary and
+   streaming (events, text and usage equal to the same turn as a chat),
+   a chat with tools and a forced tool_choice (one call, finish
+   `tool_calls`), tool_choice "none" (the plain chat's content).
+26. multimodal — a `--role encode` worker, a worker serving 24's
+   checkpoint and frontend A: two image chats and a repeat of the first;
+   each answer the argmax (a near tie allowed) of a teacher-forced
+   gather-path forward given the stub tower's embeddings; the two images
+   answer differently, the repeat equally; no prefix hit; every
+   embedding crossed the device plane (CUDA IPC: frontend A's plane
+   tallies); K2 and K1 launched on the worker.
+27. gguf — llama-3-1b at full width as a GGUF (F16 embedding, F32 norms,
+   Q4_K / Q8_0 / Q6_K layers, random blocks with bounded f16 scales),
+   loaded and dequantized on the card; every tensor of the state
+   bit-equal to the numpy dequant taken through the same unpermute,
+   transpose and cast; then `compare_paths` through K2 and K1 against
+   the gather path.
 
 Then the card's `nvidia-smi` name/power-limit line, the kernels summary
 `{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
@@ -224,19 +253,22 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
-ROOT = Path(__file__).resolve().parent
+SCRIPT = Path(__file__).resolve()
+ROOT = SCRIPT.parent
 OUT_DIR = ROOT / "smoke_out"      # server log (gitignored)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
@@ -333,7 +365,13 @@ class SmokeError(Exception):
     pass
 
 
+T_START = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's carries the run's seconds so far (t_s)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.monotonic() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1314,11 +1352,9 @@ def server(model: str, args=(), tag: str = "", ready_s: float = 300):
     """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
     subprocess, stopped on exit; yields (base url, seconds to ready)."""
     OUT_DIR.mkdir(exist_ok=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    log_path = OUT_DIR / f"chip_smoke_server_{model}{tag}.log"
+    log_path = OUT_DIR / f"chip_smoke_server_{Path(model).name}{tag}.log"
     log = open(log_path, "w")
     t0 = time.monotonic()
     proc = subprocess.Popen(
@@ -1638,8 +1674,34 @@ def system_prompt(line: str) -> str:
     return (line * (SYSTEM_BLOCKS * BS // len(line) + 1))[: SYSTEM_BLOCKS * BS]
 
 
+_PORTS_GIVEN: set = set()
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
+    """A port that binds now, for a child process to bind later.  It is
+    drawn below the kernel's ephemeral range, so that no socket the
+    kernel numbers itself (a client's connection, a bind to port 0)
+    takes it in between, and never twice in one run."""
+    import random
+
+    try:
+        hi = int(Path("/proc/sys/net/ipv4/ip_local_port_range")
+                 .read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        hi = 16000      # no range to read: below the common defaults
+    lo = max(1024, hi - 8192)
+    for _ in range(1000 if hi - lo >= 1024 else 0):
+        port = random.randrange(lo, hi)
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    with socket.socket() as s:     # no room below the range: any port
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
@@ -3099,11 +3161,12 @@ FLEET_BLOCKS = 128             # each fleet worker's KV pages
 FLEET_WAVE = 16                # chats of the scale-up wave
 FLEET_CHARS = 550              # user-turn bytes of the fleet's chats
 FLEET_WAVE_TOKENS = 128        # each scale-up wave chat's answer
-# The chat drained mid-decode: ~70 s of decode, well past the planner's
-# scale-down (a few 5 s intervals after the scale-up wave ends).
-FLEET_LONG_ID, FLEET_LONG_TOKENS = 1000, 3072
+# The chat drained mid-decode: ~45 s of decode, well past the planner's
+# scale-down (a few 5 s intervals after the scale-up wave ends; drains
+# came after 657-1317 tokens on an H100 80GB HBM3).
+FLEET_LONG_ID, FLEET_LONG_TOKENS = 1000, 2560
 # The planner's scale-down mark: the survivor's KV use under 0.6.  The
-# long chat's ~58 pages of 128 stay below it, so its growth never vetoes
+# long chat's ~50 pages of 128 stay below it, so its growth never vetoes
 # the scale-down it waits for (at the default 0.3 it would from ~1,800
 # tokens on).
 FLEET_KV_LOW = 0.6
@@ -3167,11 +3230,13 @@ def greedy_split(torch, state, prompt: list, got: list, want: list,
 
 
 def forced_gaps(torch, cfg, state, prompt: list, ids: list,
-                start: int) -> list:
+                start: int, embeds=None) -> list:
     """The argmax gap (as `greedy_split` reads one) of each of
     `ids[start:]` under the gather path's logits at its position, given
     the prompt and the ids before it: one teacher-forced forward of the
-    whole sequence, so that no earlier split hides a later token."""
+    whole sequence, so that no earlier split hides a later token.
+    `embeds` ([n, H] float32): the prompt's first n positions take them
+    in place of the token lookup (the multimodal prefill)."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.models import llama
 
@@ -3184,9 +3249,16 @@ def forced_gaps(torch, cfg, state, prompt: list, ids: list,
     def i32(x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
+    mm = {}
+    if embeds is not None:
+        inp = torch.zeros(1, L, cfg.hidden_size, device=dev)
+        inp[0, :len(embeds)] = torch.as_tensor(embeds, device=dev)
+        mask = torch.zeros(1, L, dtype=torch.bool, device=dev)
+        mask[0, :len(embeds)] = True
+        mm = {"input_embeds": inp, "embed_mask": mask}
     logits, _ = llama.make_forward_step(cfg, BS)(
         state, cache, i32([toks]), i32([list(range(L))]), i32([L]),
-        i32([list(range(1, P + 1))]))
+        i32([list(range(1, P + 1))]), **mm)
     lg = logits[0, len(prompt) - 1 + start:].float()  # row j: ids[start+j]
     picked = lg.gather(1, torch.tensor(ids[start:], device=dev)[:, None])
     gaps = (lg.max(1).values - picked[:, 0]) / lg.abs().max(1).values
@@ -4308,6 +4380,732 @@ def ingress_phase(serve: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# GGUF writing (numpy only; tests/test_torch_gguf.py writes with it too)
+
+GGUF_TYPE = {"F32": 0, "F16": 1, "Q8_0": 8, "Q4_K": 12, "Q5_K": 13,
+             "Q6_K": 14}
+# ggml block geometry: type -> (bytes, elements) a block.
+GGUF_BLOCK = {8: (34, 32), 12: (144, 256), 13: (176, 256), 14: (210, 256)}
+# Per-type f16 scale fields (byte offset in the block, value) of random
+# blocks, chosen so the dequantized values have a std near 0.02 (about
+# llama-3-1b's fan_in ** -0.5): Q8_0 d·q; Q4_K / Q5_K d·sc·q - dmin·mn
+# with a mean near 0; Q6_K d·sc·(q - 32).
+GGUF_SCALES = {8: ((0, 2.7e-4),), 12: ((0, 9e-5), (2, 6.7e-4)),
+               13: ((0, 4.5e-5), (2, 7e-4)), 14: ((208, 1.5e-5),)}
+_GGUF_U32, _GGUF_I32, _GGUF_F32, _GGUF_STR, _GGUF_ARR = 4, 5, 6, 8, 9
+
+
+def _gguf_str(s: str) -> bytes:
+    b = s.encode()
+    return len(b).to_bytes(8, "little") + b
+
+
+def _gguf_value(vtype: int, value) -> bytes:
+    import struct
+
+    if vtype == _GGUF_U32:
+        return struct.pack("<I", value)
+    if vtype == _GGUF_I32:
+        return struct.pack("<i", value)
+    if vtype == _GGUF_F32:
+        return struct.pack("<f", value)
+    if vtype == _GGUF_STR:
+        return _gguf_str(value)
+    etype, items = value
+    return (struct.pack("<IQ", etype, len(items))
+            + b"".join(_gguf_value(etype, v) for v in items))
+
+
+def gguf_random_blocks(np, rng, ggml_type: int, n: int) -> bytes:
+    """`n` elements of random quantized blocks whose f16 scales are
+    bounded (GGUF_SCALES, each scaled by a factor in [0.5, 1.5))."""
+    bb, be = GGUF_BLOCK[ggml_type]
+    rec = rng.integers(0, 256, size=(n // be, bb), dtype=np.uint8)
+    for off, base in GGUF_SCALES[ggml_type]:
+        d = (base * rng.uniform(0.5, 1.5, size=(len(rec), 1))
+             ).astype("<f2")
+        rec[:, off:off + 2] = d.view(np.uint8)
+    return rec.tobytes()
+
+
+def gguf_blob(np, rng, ggml_type: int, arr=None, n: int = 0) -> bytes:
+    """A tensor's data: F32 / F16 from `arr`, Q8_0 quantized from `arr`
+    (ggml's round-to-nearest with an f16 absmax scale), or `n` elements of
+    random K-quant / Q8_0 blocks when `arr` is None."""
+    if ggml_type == 0:
+        return np.asarray(arr, "<f4").tobytes()
+    if ggml_type == 1:
+        return np.asarray(arr, "<f2").tobytes()
+    if arr is None:
+        return gguf_random_blocks(np, rng, ggml_type, n)
+    if ggml_type != 8:
+        raise ValueError(f"no quantizer for ggml type {ggml_type}")
+    flat = np.asarray(arr, np.float32).reshape(-1, 32)
+    d = (np.abs(flat).max(axis=1) / 127.0).astype("<f2")
+    q = np.round(flat / np.maximum(d.astype(np.float32)[:, None], 1e-12))
+    rec = np.empty((len(flat), 34), np.uint8)
+    rec[:, 0:2] = d[:, None].view(np.uint8)
+    rec[:, 2:] = q.astype(np.int8).view(np.uint8)
+    return rec.tobytes()
+
+
+def write_gguf(path, metadata, tensors, alignment: int = 32) -> int:
+    """A GGUF v3 file.  `metadata`: (key, value type, value) triples
+    (u32 4, i32 5, f32 6, str 8, array 9 as (element type, items));
+    `tensors`: (name, dims in ggml order — fastest first —, ggml type,
+    data bytes).  Returns the bytes written."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(b"GGUF" + struct.pack("<IQQ", 3, len(tensors),
+                                      len(metadata)))
+        for key, vtype, value in metadata:
+            f.write(_gguf_str(key) + struct.pack("<I", vtype)
+                    + _gguf_value(vtype, value))
+        offset = 0
+        for name, dims, gtype, blob in tensors:
+            f.write(_gguf_str(name) + struct.pack("<I", len(dims))
+                    + struct.pack(f"<{len(dims)}Q", *dims)
+                    + struct.pack("<IQ", gtype, offset))
+            offset += len(blob) + (-len(blob)) % alignment
+        f.write(b"\0" * ((-f.tell()) % alignment))
+        for _, _, _, blob in tensors:
+            f.write(blob)
+            f.write(b"\0" * ((-len(blob)) % alignment))
+        return f.tell()
+
+
+def gguf_llama_metadata(cfg, tokens=None) -> list:
+    """llama-arch metadata of a ModelConfig (config_from_gguf's keys)."""
+    md = [("general.architecture", _GGUF_STR, "llama"),
+          ("general.name", _GGUF_STR, cfg.name),
+          ("llama.embedding_length", _GGUF_U32, cfg.hidden_size),
+          ("llama.block_count", _GGUF_U32, cfg.num_layers),
+          ("llama.attention.head_count", _GGUF_U32, cfg.num_heads),
+          ("llama.attention.head_count_kv", _GGUF_U32, cfg.num_kv_heads),
+          ("llama.attention.key_length", _GGUF_U32, cfg.head_dim),
+          ("llama.feed_forward_length", _GGUF_U32, cfg.intermediate_size),
+          ("llama.context_length", _GGUF_U32, cfg.max_context),
+          ("llama.rope.freq_base", _GGUF_F32, cfg.rope_theta),
+          ("llama.attention.layer_norm_rms_epsilon", _GGUF_F32,
+           cfg.rms_norm_eps),
+          ("llama.vocab_size", _GGUF_U32, cfg.vocab_size)]
+    if tokens:
+        md += [("tokenizer.ggml.model", _GGUF_STR, "llama"),
+               ("tokenizer.ggml.tokens", _GGUF_ARR, (_GGUF_STR, tokens)),
+               ("tokenizer.ggml.bos_token_id", _GGUF_U32, 1),
+               ("tokenizer.ggml.eos_token_id", _GGUF_U32, 2)]
+    return md
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints, the tokenizer, tools and Responses, multimodal
+
+CKPT_DIR = OUT_DIR / "checkpoint"          # gitignored with smoke_out/
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                  r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                  r"|\s+(?!\S)|\s+")
+LLAMA3_SPECIALS = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                   128002: "<|reserved_special_token_0|>",
+                   128003: "<|reserved_special_token_1|>",
+                   128004: "<|finetune_right_pad_id|>",
+                   128005: "<|reserved_special_token_2|>",
+                   128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+                   128008: "<|eom_id|>", 128009: "<|eot_id|>",
+                   128010: "<|python_tag|>"}
+BPE_MERGES = 2000              # merges learnt from this script's text
+CKPT_TEMPLATE = (
+    "<|begin_of_text|>"
+    "{% if tools %}<|start_header_id|>system<|end_header_id|>\n\n"
+    "Call a tool with a JSON object {\"name\": ..., \"arguments\": ...}:\n"
+    "{{ tools | tojson }}<|eot_id|>{% endif %}"
+    "{% for message in messages %}<|start_header_id|>{{ message.role }}"
+    "<|end_header_id|>\n\n{{ message.content }}<|eot_id|>{% endfor %}"
+    "{% if add_generation_prompt %}<|start_header_id|>assistant"
+    "<|end_header_id|>\n\n{% endif %}")
+CKPT_TURN = "Checkpoint {i}: what does a tokenizer.json hold? Ünïcödé ½ 日本."
+CKPT_TOKENS = 32               # greedy tokens of the checkpoint's lone chats
+MM_TOKENS = 16                 # greedy tokens of an image chat
+MM_IMAGES = ("img://smoke/cat.png", "img://smoke/dog.png")
+GGUF_LAYER_TYPES = {"attn_q": 12, "attn_k": 8, "attn_v": 14,
+                    "attn_output": 8, "ffn_gate": 12, "ffn_up": 14,
+                    "ffn_down": 8}     # Q4_K, Q8_0, Q6_K
+
+
+def train_bpe(words: dict, n_merges: int) -> list:
+    """Byte-level BPE merges learnt from `words` ({byte-level word:
+    count}): each round merges the most frequent adjacent pair (ties to
+    the smaller pair), counts kept up to date word by word and the
+    candidates in a heap of (-count, pair) whose stale entries are
+    skipped."""
+    import heapq
+
+    seqs = [list(w) for w in words]
+    freq = list(words.values())
+    pairs: dict = {}
+    where: dict = {}
+    for i, seq in enumerate(seqs):
+        for a, b in zip(seq, seq[1:]):
+            pairs[a, b] = pairs.get((a, b), 0) + freq[i]
+            where.setdefault((a, b), set()).add(i)
+    heap = [(-c, p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while len(merges) < n_merges and heap:
+        c, best = heapq.heappop(heap)
+        if pairs.get(best) != -c:
+            continue                   # stale: the count has moved
+        if -c < 2:
+            break
+        merges.append(best)
+        a, b = best
+        changed = set()
+        for i in where.pop(best, ()):
+            seq, f = seqs[i], freq[i]
+            for x, y in zip(seq, seq[1:]):
+                pairs[x, y] -= f
+                changed.add((x, y))
+            out, j = [], 0
+            while j < len(seq):
+                if j + 1 < len(seq) and seq[j] == a and seq[j + 1] == b:
+                    out.append(a + b)
+                    j += 2
+                else:
+                    out.append(seq[j])
+                    j += 1
+            seqs[i] = out
+            for x, y in zip(out, out[1:]):
+                pairs[x, y] = pairs.get((x, y), 0) + f
+                where.setdefault((x, y), set()).add(i)
+                changed.add((x, y))
+        for p in changed:
+            if pairs.get(p, 0) > 0:
+                heapq.heappush(heap, (-pairs[p], p))
+            else:
+                pairs.pop(p, None)
+        pairs.pop(best, None)
+    return merges
+
+
+def llama3_tokenizer_json() -> str:
+    """A Llama-3-style tokenizer.json: the Split regex and byte-level
+    pre-tokenizer, merges learnt from this script's own text (so the
+    file changes with the code only, never with the documents), BPE
+    with ignore_merges, the ByteLevel decoder and Llama-3's special
+    tokens at their ids."""
+    from dynamo_tpu_torch.llm import tokenizer_json as tj
+
+    enc, _ = tj.byte_alphabet()
+    split = tj._compile(LLAMA3_PATTERN)
+    words: dict = {}
+    for m in split.finditer(SCRIPT.read_text(encoding="utf-8")):
+        w = "".join(enc[x] for x in m.group().encode("utf-8"))
+        words[w] = words.get(w, 0) + 1
+    merges = train_bpe(words, BPE_MERGES)
+    vocab = {enc[b]: b for b in range(256)}
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    # Entries no merge reaches fill the vocabulary to Llama-3's 128000,
+    # so the special tokens take their Llama-3 ids (`tokenizers` numbers
+    # added tokens after the model's vocabulary).
+    n_learnt = len(vocab)
+    for i in range(n_learnt, min(LLAMA3_SPECIALS)):
+        vocab[f"<unused_{i}>"] = i
+    return json.dumps({
+        "version": "1.0",
+        "added_tokens": [{"id": i, "content": c, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, c in LLAMA3_SPECIALS.items()],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "ByteLevel", "add_prefix_space": True,
+                           "trim_offsets": False, "use_regex": True},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [[a, b] for a, b in merges]}},
+        ensure_ascii=False)
+
+
+def write_safetensors(torch, path, tensors: dict) -> int:
+    """`tensors` (name -> CPU tensor) as one .safetensors file, in the
+    format's own layout (the machine has no `safetensors` package)."""
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, off = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * ((-len(raw)) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().tobytes())
+    return 8 + len(raw) + off
+
+
+def write_checkpoint(torch, state, out) -> dict:
+    """The seed-0 llama-3-1b state as an HF-layout checkpoint in `out`:
+    bf16, two shards and their index, config.json, tokenizer_config.json
+    (chat template, eos) and the tokenizer.json built here."""
+    from dynamo_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama-3-1b")
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.iterdir():
+        old.unlink()
+    t0 = time.monotonic()
+    tok_json = llama3_tokenizer_json()
+    tok_s = time.monotonic() - t0
+    (out / "tokenizer.json").write_text(tok_json, encoding="utf-8")
+    (out / "tokenizer_config.json").write_text(json.dumps(
+        {"chat_template": CKPT_TEMPLATE, "eos_token": "<|eot_id|>",
+         "bos_token": "<|begin_of_text|>"}))
+    (out / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.intermediate_size,
+        "max_position_embeddings": cfg.max_context,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "tie_word_embeddings": True, "torch_dtype": "bfloat16"}))
+    half = cfg.num_layers // 2
+    shards = [{"model.embed_tokens.weight": state["embed"]},
+              {"model.norm.weight": state["final_norm"]}]
+    hf = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+          "wv": "self_attn.v_proj", "wo": "self_attn.o_proj"}
+    for i, layer in enumerate(state["layers"]):
+        shard = shards[i >= half]
+        p = f"model.layers.{i}."
+        for ours, name in hf.items():
+            shard[p + name + ".weight"] = layer["attn"][ours].t()
+        for ours in ("gate", "up", "down"):
+            shard[p + f"mlp.{ours}_proj.weight"] = layer["mlp"]["w_" + ours].t()
+        shard[p + "input_layernorm.weight"] = layer["attn_norm"]
+        shard[p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
+    t0 = time.monotonic()
+    nbytes, weight_map = 0, {}
+    for j, shard in enumerate(shards):
+        fname = f"model-{j + 1:05d}-of-{len(shards):05d}.safetensors"
+        nbytes += write_safetensors(torch, out / fname, {
+            k: v.contiguous().cpu() for k, v in shard.items()})
+        weight_map.update({k: fname for k in shard})
+    (out / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+    return {"bytes": nbytes, "write_s": time.monotonic() - t0,
+            "tokenizer_build_s": tok_s, "merges": BPE_MERGES,
+            "tokenizer_json_bytes": len(tok_json.encode())}
+
+
+def ckpt_preprocessor():
+    """The checkpoint's tokenizer and template in process, as a server
+    of the checkpoint builds them (llm/model_card.py)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+    from dynamo_tpu_torch.models.loader import read_tokenizer_config
+
+    template, eos = read_tokenizer_config(str(CKPT_DIR))
+    tok = HFTokenizer(str(CKPT_DIR / "tokenizer.json"), eos_token=eos)
+    return OpenAIPreprocessor(tok, chat_template=template)
+
+
+def engine_answers(torch, state, pres: list) -> list:
+    """Greedy ids of each preprocessed request through an in-process
+    engine on `state` (the preset's weights), one at a time."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.engine import (
+        EngineConfig, EngineCore, InferenceEngine)
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.models.config import get_config
+
+    async def run():
+        engine = InferenceEngine(EngineCore(EngineConfig(
+            model=get_config("llama-3-1b"), num_blocks=64,
+            scheduler=SchedulerConfig(block_size=BS)), params=state))
+        await engine.start()
+        out = []
+        try:
+            for pre in pres:
+                ids = []
+                async for d in engine.generate(pre.request_id, pre.token_ids,
+                                               pre.sampling):
+                    ids += d.token_ids
+                out.append(ids)
+        finally:
+            await engine.stop()
+        return out
+
+    return asyncio.run(run())
+
+
+def sse_events(raw: str) -> list:
+    """A named-event SSE stream as (event, data) pairs."""
+    out = []
+    for block in raw.strip().split("\n\n"):
+        ev = data = None
+        for line in block.split("\n"):
+            if line.startswith("event: "):
+                ev = line[7:]
+            elif line.startswith("data: "):
+                data = json.loads(line[6:])
+        out.append((ev, data))
+    return out
+
+
+TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "The weather in a city",
+    "parameters": {"type": "object",
+                   "properties": {"city": {"type": "string"}}}}},
+    {"type": "function", "function": {"name": "get_time"}}]
+
+
+def tools_responses(base: str) -> dict:
+    """/v1/responses unary and streaming, a chat with tools and a forced
+    tool_choice, and one with tool_choice "none", against the checkpoint
+    serve; each checked against the same turn as a plain chat."""
+    chat = {"model": "m", "temperature": 0, "max_tokens": 16,
+            "messages": [{"role": "user", "content": "Hello, checkpoint."}]}
+    plain = json.loads(_http(base + "/v1/chat/completions", chat))
+    want_text = plain["choices"][0]["message"]["content"]
+    resp = json.loads(_http(base + "/v1/responses", {
+        "model": "m", "input": "Hello, checkpoint.", "temperature": 0,
+        "max_output_tokens": 16}))
+    check(resp["object"] == "response" and resp["status"] in (
+        "completed", "incomplete"), f"responses: {resp}")
+    text = "".join(c["text"] for o in resp["output"] for c in o["content"])
+    check(text == want_text and resp["usage"]["output_tokens"]
+          == plain["usage"]["completion_tokens"]
+          and resp["usage"]["input_tokens"]
+          == plain["usage"]["prompt_tokens"],
+          f"responses: {resp} differs from the chat {plain}")
+    events = sse_events(_http(base + "/v1/responses", {
+        "model": "m", "input": "Hello, checkpoint.", "temperature": 0,
+        "max_output_tokens": 16, "stream": True}))
+    names = [e for e, _ in events]
+    check(names[0] == "response.created" and names[-1] == "response.completed"
+          and set(names[1:-1]) <= {"response.output_text.delta"},
+          f"responses stream events {names}")
+    streamed = "".join(d["delta"] for e, d in events
+                       if e == "response.output_text.delta")
+    final = events[-1][1]["response"]
+    check(streamed == text and final["usage"] == resp["usage"],
+          f"responses stream {streamed!r} / {final} vs unary {resp}")
+    forced = json.loads(_http(base + "/v1/chat/completions", {
+        **chat, "tools": TOOLS,
+        "tool_choice": {"type": "function",
+                        "function": {"name": "get_weather"}}}))
+    choice = forced["choices"][0]
+    calls = choice["message"].get("tool_calls") or []
+    check(choice["finish_reason"] == "tool_calls" and len(calls) == 1
+          and calls[0]["function"]["name"] == "get_weather"
+          and calls[0]["id"].startswith("call_"),
+          f"forced tool_choice gave {choice}")
+    none = json.loads(_http(base + "/v1/chat/completions", {
+        **chat, "tools": TOOLS, "tool_choice": "none"}))
+    msg = none["choices"][0]["message"]
+    check("tool_calls" not in msg and msg["content"] == want_text
+          and none["choices"][0]["finish_reason"] in ("stop", "length"),
+          f"tool_choice none gave {none} (plain chat: {want_text!r})")
+    return {"responses_tokens": resp["usage"]["output_tokens"],
+            "responses_status": resp["status"],
+            "stream_events": len(events),
+            "forced_call": calls[0]["function"],
+            "none_content_equals_plain": True}
+
+
+def state_leaves(tree, prefix: str = "") -> dict:
+    """A state's tensors by path ("layers.3.attn.wq")."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(state_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def checkpoint_phase(torch) -> dict:
+    """The seed-0 llama-3-1b preset written as an HF checkpoint (bf16,
+    two shards + index, config, tokenizer_config, a Llama-3-style
+    tokenizer.json built here), loaded back in process (bit-equal to the
+    preset on the card; load seconds and GB/s, the files in the page
+    cache) and served with `python -m dynamo_tpu_torch.frontend --model
+    <dir>`: the wave of `serve`, two lone chats whose ids must equal an
+    in-process preset engine's on the same prompt ids (a split only at a
+    near tie), text round trips through the port's tokenizer, K1 and K2
+    launched; /v1/responses and tool calls answer (`tools_responses`)."""
+    from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+
+    t_phase = time.monotonic()
+    state = llama_state(torch)
+    written = write_checkpoint(torch, state, CKPT_DIR)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, loaded = load_params(str(CKPT_DIR), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    a, b = state_leaves(state), state_leaves(loaded)
+    check(a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a),
+        "checkpoint: the loaded tensors differ from the preset's")
+    del loaded
+    torch.cuda.empty_cache()
+    pre = ckpt_preprocessor()
+    texts = [CKPT_TURN.format(i=i) for i in range(4)] + [
+        USER_TURN.format(i=0), SCRIPT.read_text(encoding="utf-8")[:2000]]
+    for t in texts:
+        ids = pre.tokenizer.encode(t)
+        check(pre.tokenizer.decode(ids) == t,
+              f"checkpoint tokenizer: {t[:40]!r} does not round-trip")
+    chars_per_token = sum(len(t) for t in texts) / sum(
+        len(pre.tokenizer.encode(t)) for t in texts)
+    lone = [traced(chat_body(i, False, CKPT_TOKENS, user=CKPT_TURN))
+            for i in range(2)]
+    serve = serve_phase(str(CKPT_DIR), (), ("paged_decode_attention",
+                                            "paged_prefill_attention"),
+                        user=CKPT_TURN, tag="_checkpoint",
+                        lone_bodies=lone, during=tools_responses)
+    tools = serve.pop("during")
+    pres = [pre.preprocess_chat(ChatCompletionRequest.from_dict(b), f"ck{i}")
+            for i, b in enumerate(lone)]
+    want = engine_answers(torch, state, pres)
+    splits = [greedy_split(torch, state, p.token_ids, got["token_ids"], w,
+                           f"checkpoint lone chat {i}")
+              for i, (p, got, w) in enumerate(zip(pres, serve["lone_answers"],
+                                                  want))]
+    log = (OUT_DIR / "chip_smoke_server_checkpoint_checkpoint.log").read_text()
+    m = re.search(r"loaded \S+ in ([0-9.]+) s", log)
+    del state
+    torch.cuda.empty_cache()
+    return {**serve, "phase": "checkpoint", "written": written,
+            "load_s": load_s, "load_gb_s": written["bytes"] / load_s / 1e9,
+            "server_load_s": float(m.group(1)) if m else None,
+            "prompt_tokens": [len(p.token_ids) for p in pres],
+            "chars_per_token": chars_per_token, "lone_splits": splits,
+            "tools_responses": tools,
+            "wall_s": time.monotonic() - t_phase}
+
+
+def write_llama_gguf(torch, path) -> dict:
+    """llama-3-1b at full width as a GGUF: an F16 token embedding drawn
+    on the card (std 0.02), F32 norms near 1, and per layer random
+    Q4_K / Q8_0 / Q6_K blocks with bounded f16 scales
+    (GGUF_LAYER_TYPES)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama-3-1b")
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    emb = (torch.randn(V, H, generator=gen, device="cuda") * 0.02).half()
+    tensors = [("token_embd.weight", [H, V], 1,
+                emb.cpu().numpy().tobytes()),
+               ("output_norm.weight", [H], 0,
+                gguf_blob(np, rng, 0, rng.uniform(0.8, 1.2, H)))]
+    dims = {"attn_q": (H, cfg.q_size), "attn_k": (H, cfg.kv_size),
+            "attn_v": (H, cfg.kv_size), "attn_output": (cfg.q_size, H),
+            "ffn_gate": (H, F), "ffn_up": (H, F), "ffn_down": (F, H)}
+    for i in range(cfg.num_layers):
+        p = f"blk.{i}."
+        for norm in ("attn_norm", "ffn_norm"):
+            tensors.append((p + norm + ".weight", [H], 0, gguf_blob(
+                np, rng, 0, rng.uniform(0.8, 1.2, H))))
+        for t, gtype in GGUF_LAYER_TYPES.items():
+            n_in, n_out = dims[t]
+            tensors.append((p + t + ".weight", [n_in, n_out], gtype,
+                            gguf_random_blocks(np, rng, gtype, n_in * n_out)))
+    nbytes = write_gguf(path, gguf_llama_metadata(cfg), tensors)
+    return {"bytes": nbytes, "tensors": len(tensors)}
+
+
+def gguf_phase(torch, kernels) -> dict:
+    """A full-width llama-3-1b GGUF (F16, Q8_0, Q4_K, Q6_K) loaded on the
+    card (dequantized there with torch ops): every tensor of the state
+    held bit for bit against JAX's numpy dequant (the plain oracle)
+    taken through the same unpermute / transpose / cast, then
+    `compare_paths`' packed prefill and greedy decode steps through K2
+    and K1 against the gather path."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models import gguf
+
+    t_phase = time.monotonic()
+    path = OUT_DIR / "llama-3-1b.gguf"
+    OUT_DIR.mkdir(exist_ok=True)
+    t0 = time.monotonic()
+    written = write_llama_gguf(torch, str(path))
+    write_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cfg, state, _ = gguf.load_gguf(str(path), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    check(cfg.name == "llama-3-1b" and cfg.tie_embeddings
+          and cfg.hidden_size == 2048, f"gguf: config {cfg}")
+    g = gguf.GgufFile(str(path))
+    t0 = time.monotonic()
+    # (gguf name, the state's tensor, heads to unpermute, linear)
+    todo = [("token_embd.weight", state["embed"], 0, False),
+            ("output_norm.weight", state["final_norm"], 0, False)]
+    names = {"attn_q": ("attn", "wq"), "attn_k": ("attn", "wk"),
+             "attn_v": ("attn", "wv"), "attn_output": ("attn", "wo"),
+             "ffn_gate": ("mlp", "w_gate"), "ffn_up": ("mlp", "w_up"),
+             "ffn_down": ("mlp", "w_down")}
+    for i, layer in enumerate(state["layers"]):
+        p = f"blk.{i}."
+        todo.append((p + "attn_norm.weight", layer["attn_norm"], 0, False))
+        todo.append((p + "ffn_norm.weight", layer["mlp_norm"], 0, False))
+        for t, (part, key) in names.items():
+            heads = (cfg.num_heads if t == "attn_q" else
+                     cfg.num_kv_heads if t == "attn_k" else 0)
+            todo.append((p + t + ".weight", layer[part][key], heads, True))
+
+    def plain(item):
+        name, _, heads, linear = item
+        ref = g.tensor(name)                          # numpy, [out, in]
+        if heads:
+            ref = gguf._unpermute(ref, heads)
+        return np.ascontiguousarray(ref.T if linear else ref)
+
+    held, worst = 0, 0.0
+    with ThreadPoolExecutor(8) as pool:    # numpy drops the GIL here
+        for start in range(0, len(todo), 16):
+            chunk = todo[start:start + 16]
+            for (name, got, _, _), ref in zip(chunk, pool.map(plain, chunk)):
+                ref = torch.from_numpy(ref).cuda().to(got.dtype)
+                err = (got.float() - ref.float()).abs().max().item()
+                worst = max(worst, err)
+                check(torch.equal(got, ref), f"gguf: {name} differs from "
+                      f"the numpy dequant (max abs err {err})")
+                held += 1
+    hold_s = time.monotonic() - t0
+    check(held == written["tensors"], f"gguf: held {held} of "
+                                      f"{written['tensors']} tensors")
+    kernels.reset_launch_counts()
+    paths = compare_paths(torch, cfg, state, state)
+    launches = kernels.launch_counts()
+    check(launches["paged_decode_attention"] > 0
+          and launches["paged_prefill_attention"] > 0,
+          f"gguf: K1 / K2 did not launch: {launches}")
+    del state
+    path.unlink()
+    torch.cuda.empty_cache()
+    return {"phase": "gguf", "written": written, "write_s": write_s,
+            "load_s": load_s, "load_gb_s": written["bytes"] / load_s / 1e9,
+            "types": {"token_embd": "F16", "norms": "F32",
+                      **{t: {8: "Q8_0", 12: "Q4_K", 14: "Q6_K"}[v]
+                         for t, v in GGUF_LAYER_TYPES.items()}},
+            "tensors_held": held, "max_abs_err_vs_numpy": worst,
+            "hold_s": hold_s, "paths": paths, "launches": launches,
+            "wall_s": time.monotonic() - t_phase}
+
+
+def mm_body(url: str, text: str = "Describe the image.") -> dict:
+    return traced({"model": "m", "temperature": 0, "max_tokens": MM_TOKENS,
+                   "stream": False, "messages": [{"role": "user", "content": [
+                       {"type": "image_url", "image_url": {"url": url}},
+                       {"type": "text", "text": text}]}]})
+
+
+def multimodal_phase(torch) -> dict:
+    """A `--role encode` worker, an LLM worker serving the checkpoint
+    (`--model <dir>`: its hf_inline card gives frontend A the
+    tokenizer and template) and frontend A: image chats whose greedy ids
+    must each be the argmax (a near tie allowed) of a teacher-forced
+    gather-path forward given the same embeddings (the stub tower's, in
+    process); two images answer differently; the repeated image hits no
+    prefix block; the embeddings crossed the device plane (frontend A's
+    plane tallies); K2 ran the embeddings prefill and K1 the decode."""
+    from dynamo_tpu_torch.llm.multimodal import PLACEHOLDER_TOKEN, StubVisionEncoder
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    cp = _free_port()
+    ckpt = str(CKPT_DIR)
+    with distributed_stack(
+            workers=(("llm", ("--model", ckpt)),), frontend_b=False,
+            tag="multimodal", cp_port=cp,
+            extra=(("dynamo_tpu_torch.worker", "encode",
+                    ("--control-plane", f"127.0.0.1:{cp}", "--role",
+                     "encode", "--model", ckpt)),)) as (a, _, ws, startup):
+        enc_log = OUT_DIR / "chip_smoke_multimodal_encode.log"
+        t0 = time.monotonic()
+        while "encode worker instance" not in enc_log.read_text():
+            check(time.monotonic() - t0 < 120, "the encode worker never "
+                                               "served")
+            time.sleep(0.5)
+        w = ws[0]
+        _chat(a, chat_body(-1, False, 4))          # warm-up, no image
+        _http(w + "/debug/stats/reset", {})
+        t0 = time.monotonic()
+        results = [_chat(a, mm_body(u)) for u in MM_IMAGES + MM_IMAGES[:1]]
+        wall = time.monotonic() - t0
+        wstats = json.loads(_http(w + "/debug/stats"))
+        fstats = json.loads(_http(a + "/debug/stats"))
+    ids = [r["token_ids"] for r in results]
+    check(ids[0] != ids[1], "multimodal: two images gave the same answer")
+    check(ids[2] == ids[0], "multimodal: the repeated image answered "
+                            "differently")
+    check(wstats["prefix_cache"]["hit_tokens"] == 0,
+          f"multimodal: an image prompt hit the prefix cache: "
+          f"{wstats['prefix_cache']}")
+    planes = fstats.get("plane_counts", {})
+    check(planes == {"device": {"mm_embeds": len(results)}},
+          f"multimodal: embeddings did not all cross the device plane: "
+          f"{planes}")
+    launches = wstats["kernels"]
+    check(launches["paged_prefill_attention"] > 0
+          and launches["paged_decode_attention"] > 0,
+          f"multimodal: K1 / K2 did not launch: {launches}")
+    pre = ckpt_preprocessor()
+    cfg = get_config("llama-3-1b")
+    enc = StubVisionEncoder(cfg.hidden_size)
+    state = llama_state(torch)
+    gaps = []
+    for url, got in zip(MM_IMAGES, ids):
+        body = mm_body(url)
+        p = pre.preprocess_chat(ChatCompletionRequest.from_dict(body), "mm")
+        emb = enc.encode(url)
+        prompt = [PLACEHOLDER_TOKEN] * len(emb) + list(p.token_ids)
+        g = forced_gaps(torch, cfg, state, prompt, got, 0, embeds=emb)
+        check(max(g) <= MODEL_TOL[cfg.name],
+              f"multimodal: {url}'s ids are not the reference's greedy "
+              f"ids (argmax gaps {g})")
+        gaps.append(max(g))
+    del state
+    torch.cuda.empty_cache()
+    ttfts = [r["ttft_s"] for r in fstats["requests"]][-len(results):]
+    return {"phase": "multimodal", "startup_s": startup,
+            "images": len(results), "tokens": [len(x) for x in ids],
+            "wall_s_chats": wall, "ttft_s": ttfts,
+            "max_argmax_gap": gaps, "tol": MODEL_TOL[cfg.name],
+            "plane_counts": planes, "launches": launches,
+            "prefix_cache": wstats["prefix_cache"],
+            "wall_s": time.monotonic() - t_phase}
+
+
 def summary_entry(k: dict, name: str, launches: int, **extra) -> dict:
     src, replaces = SOURCES[k["name"].replace("_int8", "")]
     return {"name": name, "route": "cuda", "source": src,
@@ -4647,9 +5445,53 @@ def main() -> int:
         phase = "ingress"
         ingress = ingress_phase(serve)
         emit(ingress)
+        torch.cuda.empty_cache()
+        phase = "checkpoint"
+        ckpt = checkpoint_phase(torch)
+        emit(ckpt)
+        print(f"checkpoint on {'; '.join(smi.splitlines())}: "
+              f"{ckpt['written']['bytes'] / 1e9:.3f} GB of bf16 in 2 shards "
+              f"loaded in {ckpt['load_s']:.3f} s in process "
+              f"({ckpt['load_gb_s']:.2f} GB/s, files in the page cache), "
+              f"{ckpt['server_load_s']} s in the server; its wave "
+              f"{ckpt['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{ckpt['ttft_mean_s']:.4f} s, ITL mean "
+              f"{ckpt['itl_mean_s']:.5f} s; serve (preset, byte tokenizer) "
+              f"{serve['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve['itl_mean_s']:.5f} s; tokenizer "
+              f"{ckpt['chars_per_token']:.2f} chars a token, built in "
+              f"{ckpt['written']['tokenizer_build_s']:.2f} s; "
+              f"{ckpt['wall_s']:.1f} s", flush=True)
+        phase = "multimodal"
+        mmr = multimodal_phase(torch)
+        emit(mmr)
+        # The checkpoint's last reader has run: its 2.5 GB leave the
+        # checkout before the GGUF's 1.3 GB are written.
+        shutil.rmtree(CKPT_DIR)
+        print(f"multimodal on {'; '.join(smi.splitlines())}: encode worker "
+              f"+ checkpoint worker + frontend (startup "
+              f"{mmr['startup_s']:.1f} s); image chats TTFT "
+              f"{[round(t, 4) for t in mmr['ttft_s']]} s (64 image rows "
+              f"over the device plane, {mmr['plane_counts']}); "
+              f"{mmr['wall_s']:.1f} s", flush=True)
+        phase = "gguf"
+        gg = gguf_phase(torch, kernels)
+        emit(gg)
+        print(f"gguf on {'; '.join(smi.splitlines())}: "
+              f"{gg['written']['bytes'] / 1e9:.3f} GB loaded and dequantized "
+              f"on the card in {gg['load_s']:.3f} s "
+              f"({gg['load_gb_s']:.2f} GB/s); {gg['tensors_held']} tensors "
+              f"bit-equal to the numpy dequant ({gg['hold_s']:.1f} s); "
+              f"{gg['wall_s']:.1f} s", flush=True)
     except Exception as e:  # every failure ends the run without an ok line
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
+        # The same on stderr, last, where a caller that keeps only the
+        # end of stderr still reads which phase failed and why.
+        traceback.print_exc()
+        print(f"chip_smoke: phase {phase} failed: {type(e).__name__}: "
+              f"{str(e)[-3000:]}", file=sys.stderr, flush=True)
         return 1
     print(smi, flush=True)
     # K1/K2 bf16: launches on the serve path of their geometry (llama-3-1b
@@ -4681,6 +5523,12 @@ def main() -> int:
             # The KV tiers' in-process engines (llama-3-1b, D 64).
             extra["launches_tiers"] = tiers["launches"][
                 "int8" if key.endswith("_int8") else "none"][key]
+        if run is serve:
+            # Checkpoint serve's wave, the multimodal worker's image
+            # chats and the GGUF model's in-process steps.
+            extra["launches_checkpoint"] = ckpt["launches"][key]
+            extra["launches_multimodal"] = mmr["launches"][key]
+            extra["launches_gguf"] = gg["launches"][key]
         if "eager_ms" in k:
             extra["eager_ms"] = k["eager_ms"]
         name = (key + ("" if d == 64 else f"_d{d}")

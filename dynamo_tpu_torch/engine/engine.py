@@ -436,10 +436,13 @@ class EngineCore:
     def add_request(self, request_id: str, prompt_tokens: List[int],
                     sampling: SamplingParams,
                     arrival_ts: Optional[float] = None,
-                    priority: int = 1) -> None:
+                    priority: int = 1, prompt_embeds=None) -> None:
         """`arrival_ts`: when the request was submitted (monotonic; default
         now) — InferenceEngine passes its submission time, so the wait for
-        the engine thread counts as queueing in the spans and the ledger."""
+        the engine thread counts as queueing in the spans and the ledger.
+        `prompt_embeds` ([n, hidden], n <= len(prompt_tokens)): embeddings
+        that take prompt positions [0, n) in place of the token lookup
+        (the multimodal path; those positions hold placeholder ids)."""
         if request_id in self._requests:
             raise ValueError(f"duplicate request id {request_id}")
         if not prompt_tokens:
@@ -447,9 +450,23 @@ class EngineCore:
         vocab = self.config.model.vocab_size
         if any(not 0 <= int(t) < vocab for t in prompt_tokens):
             raise ValueError(f"prompt token outside the vocabulary [0, {vocab})")
+        if prompt_embeds is not None:
+            prompt_embeds = np.asarray(prompt_embeds)
+            if (prompt_embeds.ndim != 2
+                    or prompt_embeds.shape[0] > len(prompt_tokens)
+                    or prompt_embeds.shape[1]
+                    != self.config.model.hidden_size):
+                raise ValueError(
+                    f"prompt_embeds shape {prompt_embeds.shape} must be "
+                    f"[n <= {len(prompt_tokens)}, "
+                    f"{self.config.model.hidden_size}]")
         req = Request(request_id=request_id,
                       prompt_tokens=list(prompt_tokens), sampling=sampling,
-                      priority=int(priority))
+                      priority=int(priority), prompt_embeds=prompt_embeds)
+        if prompt_embeds is not None:
+            # Placeholder tokens must neither match nor seed the prefix
+            # cache (different images share placeholder ids).
+            req.block_hashes = ()
         if arrival_ts is not None:
             req.arrival_ts = arrival_ts
         self._requests[request_id] = req
@@ -712,7 +729,7 @@ class EngineCore:
         thr = self.config.sp_prefill_threshold
         return all(
             w.start == 0 and w.length == len(w.request.prompt_tokens)
-            and w.length >= thr
+            and w.length >= thr and w.request.prompt_embeds is None
             for w in batch.items)
 
     def _run_prefill_batch(self, batch: PrefillBatch,
@@ -805,10 +822,22 @@ class EngineCore:
         q_lens = np.zeros((R,), np.int32)
         seq_lens = np.zeros((R,), np.int32)
         sample_pos = np.zeros((R,), np.int32)
+        # Multimodal rows: chunk positions inside a request's embedding
+        # span take its embeddings in place of the token lookup.
+        embeds = mask = None
+        if any(w.request.prompt_embeds is not None for w in items):
+            embeds = np.zeros((T, self.config.model.hidden_size), np.float32)
+            mask = np.zeros((T,), bool)
         off = 0
         for i, work in enumerate(items):
             req = work.request
             L = work.length
+            pe = req.prompt_embeds
+            if pe is not None:
+                hi = min(work.start + L, pe.shape[0])
+                if hi > work.start:
+                    embeds[off: off + hi - work.start] = pe[work.start:hi]
+                    mask[off: off + hi - work.start] = True
             tokens[off: off + L] = req.prompt_tokens[work.start: work.start + L]
             positions[off: off + L] = np.arange(work.start, work.start + L)
             seg_ids[off: off + L] = i
@@ -830,10 +859,15 @@ class EngineCore:
         self._prefill_cost_tokens += sum(w.length for w in items)
         self._harvest_program(first, "prefill_packed", (T, R, P), steps=1,
                               tokens=T, kv_tokens=R * P * bs)
+        mm = {}
+        if embeds is not None:
+            mm = {"input_embeds": self._dev(embeds),
+                  "embed_mask": self._dev(mask)}
         logits, self.cache = self._take_load(self._packed_step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seg_ids), self._dev(bts), self._dev(q_starts),
-            self._dev(q_lens), self._dev(seq_lens), self._dev(sample_pos)))
+            self._dev(q_lens), self._dev(seq_lens), self._dev(sample_pos),
+            **mm))
         return self._finish_prefill_items(items, logits, async_first)
 
     def _finish_prefill_items(self, items, logits,
@@ -1498,6 +1532,10 @@ class EngineCore:
         events_on = self._events_on
         if not self._managed_cache and not events_on:
             return  # nobody consumes seals: skip the hashing
+        if req.prompt_embeds is not None:
+            # A multimodal prompt's blocks hash its placeholder ids:
+            # sealing them would prefix-match another image's request.
+            return
         if req.request_id not in self._requests:
             return  # already finished and dropped
         seq = self._hash_seqs.get(req.request_id)
@@ -1831,10 +1869,11 @@ class InferenceEngine:
             except Exception as e:   # raised to the awaiting caller
                 result, exc = None, e
             self._loop.call_soon_threadsafe(self._resolve, fut, result, exc)
-        for rid, prompt, sampling, arrival, priority in adds:
+        for rid, prompt, sampling, arrival, priority, embeds in adds:
             try:
                 self.core.add_request(rid, prompt, sampling,
-                                      arrival_ts=arrival, priority=priority)
+                                      arrival_ts=arrival, priority=priority,
+                                      prompt_embeds=embeds)
             except ValueError as e:
                 self._dispatch(TokenDelta(
                     request_id=rid, token_ids=[], finished=True,
@@ -1860,15 +1899,17 @@ class InferenceEngine:
 
     @never_engine_thread
     async def generate(self, request_id: str, prompt_tokens: List[int],
-                       sampling: SamplingParams,
+                       sampling: SamplingParams, prompt_embeds=None,
                        priority: int = 1) -> AsyncIterator[TokenDelta]:
         """Submit and stream deltas until the request finishes; closing
-        the generator cancels the request."""
+        the generator cancels the request.  `prompt_embeds`: see
+        EngineCore.add_request."""
         q: asyncio.Queue = asyncio.Queue()
         self._queues[request_id] = q
         with self._cmd_lock:
             self._pending_adds.append((request_id, prompt_tokens, sampling,
-                                       time.monotonic(), priority))
+                                       time.monotonic(), priority,
+                                       prompt_embeds))
         self._wake.set()
         try:
             while True:

@@ -97,6 +97,8 @@ class Request:
     # a class); capacity shortfalls preempt strictly-lower classes before
     # refusing a higher one.
     priority: int = 1
+    # Multimodal: [n, hidden] embeddings taking prompt positions [0, n).
+    prompt_embeds: Optional[object] = None
 
     @property
     def total_len(self) -> int:

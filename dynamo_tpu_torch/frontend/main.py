@@ -10,10 +10,20 @@ distributed mode).
     python -m dynamo_tpu_torch.frontend --model llama-3-1b --kv-quant int8
     python -m dynamo_tpu_torch.frontend --model llama-3-1b --sp 4 \
         [--max-prefill-chunk 512]
+    python -m dynamo_tpu_torch.frontend --model /path/to/hf_checkpoint_dir
+    python -m dynamo_tpu_torch.frontend --model model.gguf
+    python -m dynamo_tpu_torch.frontend --model meta-llama/Llama-3.2-1B
 
-Runs on the card unless `--device cpu` is given; random weights from
-seed 0 (`EngineConfig.seed`); the byte tokenizer; the prefix cache on,
-as the JAX worker runs it.  `--sp N` prefills whole prompts of 256
+Runs on the card unless `--device cpu` is given, with the prefix cache
+on, as the JAX worker runs it.  `--model` takes a preset (random weights
+from seed 0, `EngineConfig.seed`, and the byte tokenizer), an HF-layout
+checkpoint directory (safetensors weights; its tokenizer.json, chat
+template and eos from tokenizer_config.json), a `.gguf` file (the byte
+tokenizer) or an `org/repo` of the local hub cache (`HF_HUB_CACHE` /
+`HF_HOME`; nothing is downloaded); models/loader.py.  `--tokenizer
+PATH` serves a tokenizer.json in place of the model's.  `image_url`
+chat parts encode in process (the stub vision tower,
+llm/multimodal.py).  `--sp N` prefills whole prompts of 256
 tokens or more over a ring of N ranks, spread over the visible cards
 (several ranks share a card when there are fewer cards than ranks); the
 rank -> card map is logged at start and shown by `/debug/stats`.
@@ -21,9 +31,13 @@ rank -> card map is logged at start and shown by `/debug/stats`.
 Distributed mode (`--control-plane HOST:PORT`, or `--serve-control-plane`
 to host the control plane in this process too) builds no engine: a
 ModelWatcher registers each model as `dynamo_tpu_torch.worker` processes
-announce it, behind migration (`--migration-limit`) and a router
-(`--router-mode random | round_robin | kv`; kv routes by the prefix
-overlap the workers' KV events report and their load):
+announce it (with the tokenizer and template their cards carry), behind
+migration (`--migration-limit`) and a router (`--router-mode random |
+round_robin | kv`; kv routes by the prefix overlap the workers' KV
+events report and their load).  `image_url` parts go to `--role encode`
+workers; their embeddings come over the device plane when this
+process's `--device` shares the encode worker's fabric (a card here),
+else inline on the RPC:
 
     python -m dynamo_tpu_torch.frontend --serve-control-plane \\
         --router-mode kv --http-port 8080
@@ -78,6 +92,7 @@ from dynamo_tpu_torch.engine.engine import (
 )
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.llm.backend import StreamDetokenizer
+from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
 from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.kv_router.protocols import SpecDecodeStats
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
@@ -88,8 +103,11 @@ from dynamo_tpu_torch.llm.protocols.openai import (
     request_id,
 )
 from dynamo_tpu_torch.llm.service import LocalEngineClient, ModelHandle, ModelManager
-from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
-from dynamo_tpu_torch.models.config import get_config
+from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.llm.multimodal import MultimodalAttach, StubVisionEncoder
+from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, HFTokenizer
+from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.models.loader import resolve_config, resolve_model
 from dynamo_tpu_torch.ops import cuda as kernels
 from dynamo_tpu_torch.runtime import flight_recorder, ledger, slo, tracing
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
@@ -141,7 +159,12 @@ def parse_args(argv=None):
     p.add_argument("--batch-output", default=None,
                    help="batch: JSONL output (default: input + .out)")
     p.add_argument("--model", default="llama-3-1b",
-                   help="model preset (e.g. llama-3-1b, tiny-test)")
+                   help="model preset (e.g. llama-3-1b, tiny-test), "
+                        "HF-layout checkpoint directory, .gguf file, or "
+                        "org/repo in the local hub cache")
+    p.add_argument("--tokenizer", default=None,
+                   help="path to a tokenizer.json (default: the model's, "
+                        "else the byte tokenizer)")
     p.add_argument("--model-name", default="dynamo-tpu",
                    help="name the model is served under")
     p.add_argument("--device", default="cuda",
@@ -188,22 +211,28 @@ def parse_args(argv=None):
 
 
 def model_config(args):
-    """The preset, cut to `--num-layers` when given."""
-    cfg = get_config(args.model)
-    n = args.num_layers
-    if n is None:
-        return cfg
-    if not 1 <= n <= cfg.num_layers:
-        raise ValueError(f"--num-layers {n} outside 1..{cfg.num_layers} "
-                         f"for {cfg.name}")
-    return cfg.replace(num_layers=n)
+    """The config `--model` names (a preset's or a checkpoint's, no
+    weight loaded), cut to `--num-layers` when given."""
+    return resolve_config(args.model, args.num_layers)
+
+
+def model_tokenizer(args, spec: dict, template):
+    """(tokenizer, chat template) to serve: `--tokenizer` first, then the
+    model's own (a checkpoint's tokenizer.json), else the byte one."""
+    if args.tokenizer:
+        return HFTokenizer(args.tokenizer), None
+    if spec.get("kind", "byte") != "byte":
+        card = ModelDeploymentCard(name=args.model_name, tokenizer_spec=spec,
+                                   chat_template=template)
+        return card.build_tokenizer(), template
+    return ByteTokenizer(), None
 
 
 async def build_model_handle(args):
     """Returns (handle, engine core or None, shutdown coroutine), the
     backend chosen by `--out` (or `--mocker`)."""
     out = "mocker" if args.mocker else args.out
-    tokenizer = ByteTokenizer()
+    tokenizer, _ = model_tokenizer(args, {"kind": "byte"}, None)
     pre = OpenAIPreprocessor(tokenizer,
                              default_max_tokens=args.max_tokens_default)
     if out == "mocker":
@@ -227,20 +256,30 @@ async def build_model_handle(args):
     if out.startswith("dyn://"):
         handle, shutdown = await attach_static_remote(args, tokenizer, pre)
         return handle, None, shutdown
-    cfg = model_config(args)
+    t0 = time.monotonic()
+    cfg, params, spec, template = resolve_model(
+        args.model, device=args.device, num_layers=args.num_layers)
+    if params is not None:
+        logger.info("loaded %s in %.2f s", args.model, time.monotonic() - t0)
+    tokenizer, template = model_tokenizer(args, spec, template)
+    pre = OpenAIPreprocessor(tokenizer, chat_template=template,
+                             default_max_tokens=args.max_tokens_default)
     sched = SchedulerConfig(block_size=args.block_size,
                             max_prefill_chunk=args.max_prefill_chunk)
     core = EngineCore(EngineConfig(
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
         device=args.device, moe_mode=args.moe_mode, kv_quant=args.kv_quant,
-        sp=args.sp))
+        sp=args.sp), params=params)
     engine = InferenceEngine(core)
     await engine.start()
     handle = ModelHandle(
         name=args.model_name, tokenizer=tokenizer, preprocessor=pre,
         client=LocalEngineClient(engine),
         max_context=min(cfg.max_context,
-                        sched.max_pages_per_seq * sched.block_size))
+                        sched.max_pages_per_seq * sched.block_size),
+        # image_url parts encode in process (the stub vision tower).
+        multimodal=MultimodalAttach(
+            local_encoder=StubVisionEncoder(cfg.hidden_size)))
     return handle, core, engine.stop
 
 
@@ -450,6 +489,22 @@ def stats_hooks(core: EngineCore):
     return stats, reset_stats
 
 
+def mm_transfer_plane(device: str):
+    """The device plane a distributed frontend pulls encode workers'
+    embeddings over, made at the first image; None where `--device`
+    names a card this process does not have (the embeddings then ride the
+    RPC inline, as to any plane-less peer)."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        logger.info("no card in this process: multimodal embeddings ride "
+                    "the RPC inline")
+        return None
+    plane = dt.KvTransferPlane(device=resolve_device(device))
+    plane.start()
+    return plane
+
+
 async def start_discovery(args, models: ModelManager, registry=None):
     """Distributed mode: watch the control plane's `models/` prefix and
     register each model's routed pipeline (the router's and migration's
@@ -465,7 +520,8 @@ async def start_discovery(args, models: ModelManager, registry=None):
     runtime = DistributedRuntime(cp)
     watcher = ModelWatcher(runtime, models, router_mode=args.router_mode,
                            migration_limit=args.migration_limit,
-                           registry=registry)
+                           registry=registry,
+                           mm_plane=lambda: mm_transfer_plane(args.device))
     await watcher.start()
     return watcher, [watcher.stop, runtime.shutdown, cp.close]
 
@@ -506,7 +562,8 @@ async def run(args) -> None:
         # Beside the request timings: the blocks the KV router indexes
         # per model and worker.
         svc = HttpService(models, stats=lambda: {
-            "kv_index": watcher.kv_index_blocks()}, registry=registry)
+            "kv_index": watcher.kv_index_blocks(),
+            "plane_counts": dt.plane_counts_by_plane()}, registry=registry)
         banner = (f"discovering models via {args.control_plane} (router "
                   f"{args.router_mode})")
     else:

@@ -110,6 +110,14 @@ def plane_counts() -> Dict[Tuple[str, str], int]:
         return dict(_plane_counts)
 
 
+def plane_counts_by_plane() -> Dict[str, Dict[str, int]]:
+    """The tallies as {plane: {reason: count}} (the stats payloads')."""
+    out: Dict[str, Dict[str, int]] = {}
+    for (plane, reason), n in plane_counts().items():
+        out.setdefault(plane, {})[reason] = n
+    return out
+
+
 def reset_plane_counts() -> None:
     with _plane_lock:
         _plane_counts.clear()
@@ -361,12 +369,16 @@ class KvTransferPlane:
         return len(expired)
 
     def stage(self, blocks: Dict[int, torch.Tensor], order: Iterable[int],
-              peer_fabric: Optional[str] = None) -> Optional[dict]:
+              peer_fabric: Optional[str] = None,
+              ttl_s: Optional[float] = None) -> Optional[dict]:
         """Stage blocks for one pull; returns the descriptor, or None when
         nothing can be offered — `last_refusal` then says why:
         'not_resident' (no requested block), 'transport' (the peer cannot
         reach this fabric), 'offer_cap' (MAX_OUTSTANDING_OFFERS live even
-        after TTL expiry)."""
+        after TTL expiry).  `ttl_s` overrides the plane's offer TTL for
+        this offer: an ack-less protocol (the multimodal encode
+        descriptor) stages with a short one so its offers leave the cap
+        accounting on their own."""
         self.last_refusal = None
         present = [h for h in order if h in blocks]
         if not present:
@@ -387,7 +399,7 @@ class KvTransferPlane:
         staged = _owned_stack([blocks[h] for h in present])
         uid = next(_uuid_counter)
         _staged[uid] = staged
-        ttl = self.offer_ttl_s
+        ttl = self.offer_ttl_s if ttl_s is None else ttl_s
         self._outstanding[uid] = (len(present), time.monotonic() + ttl,
                                   nbytes(staged))
         self.offers += 1

@@ -1,5 +1,5 @@
 """Dynamic model discovery: register_llm + ModelWatcher + remote clients
-(port of `dynamo_tpu/llm/discovery.py`, without its multimodal attach).
+(port of `dynamo_tpu/llm/discovery.py`).
 
 The worker side opens a hop ledger for requests that opted in and
 returns it on the final delta (`ledger` key), observes the worker's
@@ -66,11 +66,22 @@ def request_to_wire(req: PreprocessedRequest) -> dict:
         "stop_sequences": list(req.stop_sequences),
         "annotations": dict(req.annotations),
     }
+    if req.prompt_embeds is not None:
+        # Multimodal embeddings ride the request frame as raw float32
+        # bytes (the frontend -> worker leg of encode -> prefill).
+        emb = np.ascontiguousarray(np.asarray(req.prompt_embeds,
+                                              dtype=np.float32))
+        d["prompt_embeds"] = emb.tobytes()
+        d["prompt_embeds_shape"] = list(emb.shape)
     return d
 
 
 def request_from_wire(d: dict) -> PreprocessedRequest:
     s = d.get("sampling", {})
+    embeds = None
+    if d.get("prompt_embeds") is not None:
+        embeds = np.frombuffer(d["prompt_embeds"], dtype=np.float32) \
+            .reshape(d["prompt_embeds_shape"]).copy()
     return PreprocessedRequest(
         request_id=d["request_id"], model=d.get("model", ""),
         token_ids=list(d["token_ids"]),
@@ -84,6 +95,7 @@ def request_from_wire(d: dict) -> PreprocessedRequest:
             seed_offset=int(s.get("seed_offset", 0))),
         stop_sequences=list(d.get("stop_sequences", [])),
         annotations=dict(d.get("annotations", {})),
+        prompt_embeds=embeds,
     )
 
 
@@ -352,8 +364,12 @@ class ModelWatcher:
                  manager: ModelManager,
                  router_mode: str = "round_robin",
                  migration_limit: int = 3,
-                 registry=None) -> None:
+                 registry=None, mm_plane=None) -> None:
+        """`mm_plane`: the device transfer plane (or a zero-argument
+        callable making it at first use) the multimodal hook pulls
+        encode workers' embeddings over; None sends them inline."""
         self.runtime = runtime
+        self.mm_plane = mm_plane
         self.manager = manager
         self.router_mode = router_mode
         self.migration_limit = migration_limit
@@ -458,13 +474,24 @@ class ModelWatcher:
             from dynamo_tpu_torch.llm.kv_router.client import KvRoutedEngineClient
 
             self._kv_clients[name] = pipeline.stage_of(KvRoutedEngineClient)
+        # Multimodal: every model's hook points at the namespace's
+        # encoder endpoint (`encoder/encode`); a chat without image parts
+        # never touches it, one with them gets a 502 while no encode
+        # worker is live.
+        from dynamo_tpu_torch.llm.multimodal import MultimodalAttach
+
+        mm = MultimodalAttach(
+            endpoint=(self.runtime.namespace(entry["namespace"])
+                      .component("encoder").endpoint("encode")),
+            transfer_plane=self.mm_plane)
         self.manager.register(ModelHandle(
             name=name, tokenizer=tokenizer,
             preprocessor=OpenAIPreprocessor(
                 tokenizer, chat_template=card.chat_template,
                 default_max_tokens=card.default_max_tokens),
             client=engine_client,
-            max_context=card.max_context))
+            max_context=card.max_context,
+            multimodal=mm))
         logger.info("model %r registered (instance %d)", name,
                     entry["instance_id"])
 

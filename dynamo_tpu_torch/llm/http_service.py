@@ -1,9 +1,14 @@
 """OpenAI-compatible HTTP service on asyncio streams (port of
 `dynamo_tpu/llm/http_service.py`, standard library only).
 
-Routes (JAX's, but `/v1/responses`, and the port's `/debug/stats`):
-  POST /v1/chat/completions   chat, unary or SSE streaming
+Routes (JAX's, and the port's `/debug/stats`):
+  POST /v1/chat/completions   chat, unary or SSE streaming; tools and
+                              tool_choice (calls parsed from the reply,
+                              llm/postprocessor.py); image_url parts
+                              through the model's multimodal hook
   POST /v1/completions        text completion, unary or SSE streaming
+  POST /v1/responses          the Responses API on the chat pipeline,
+                              unary or SSE (named events)
   POST /v1/embeddings         last-token hidden-state embeddings
   POST /clear_kv_blocks       flush every model's reusable KV blocks
   GET  /v1/models             registered models
@@ -49,6 +54,7 @@ from urllib.parse import parse_qs
 
 import numpy as np
 from dynamo_tpu_torch.engine.scheduler import FinishReason
+from dynamo_tpu_torch.llm import postprocessor as post
 from dynamo_tpu_torch.llm.backend import StreamDetokenizer
 from dynamo_tpu_torch.llm.protocols import openai as oai
 from dynamo_tpu_torch.llm.service import (
@@ -76,7 +82,7 @@ logger = logging.getLogger(__name__)
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 413: "Payload Too Large",
             500: "Internal Server Error", 501: "Not Implemented",
-            503: "Service Unavailable"}
+            502: "Bad Gateway", 503: "Service Unavailable"}
 MAX_BODY = 16 * 1024 * 1024
 # Inputs of one /v1/embeddings request: each is a prefill on the engine,
 # and an unbounded batch would hold token streams back for seconds.
@@ -242,6 +248,7 @@ class HttpService:
             ("POST", "/debug/stats/reset"): self._debug_reset,
             ("POST", "/v1/chat/completions"): self._chat,
             ("POST", "/v1/completions"): self._completions,
+            ("POST", "/v1/responses"): self._responses,
             ("POST", "/v1/embeddings"): self._embeddings,
             ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
         }
@@ -428,7 +435,7 @@ class HttpService:
         if handle is None:
             raise HttpError(404, f"model {req.model!r} not found",
                             "model_not_found")
-        if req.n != 1:
+        if getattr(req, "n", 1) != 1:
             raise HttpError(400, "n > 1 is not supported by this server")
         return req, handle
 
@@ -467,12 +474,19 @@ class HttpService:
         if header:
             pre.annotations[PRIORITY_ANNOTATION] = header.strip()
 
-    def _prepare(self, http: HttpRequest, handle, route: str, rid: str,
-                 stream: bool, preprocess, root):
-        """The preprocess span, the context check and the priority; the
-        prompt's size and the stream flag land on the root span."""
+    async def _prepare(self, http: HttpRequest, handle, route: str,
+                       rid: str, stream: bool, preprocess, root,
+                       messages=None):
+        """The preprocess span, the images of `messages` (a chat's), the
+        context check and the priority; the prompt's size and the stream
+        flag land on the root span."""
         with self.tracer.start_span("frontend.preprocess"):
-            pre = preprocess()
+            try:
+                pre = preprocess()
+            except ValueError as e:
+                raise HttpError(400, str(e)) from None
+        if messages is not None:
+            pre = await self._attach_images(handle, messages, pre)
         self._validate_context(handle, pre)
         self._attach_priority(http, pre)
         logger.info("request %s: %s prompt_tokens=%d stream=%s", rid, route,
@@ -480,14 +494,32 @@ class HttpService:
         root.set_attr(prompt_tokens=len(pre.token_ids), stream=stream)
         return pre
 
+    async def _attach_images(self, handle, messages, pre):
+        """image_url parts -> prompt_embeds through the model's hook
+        (llm/multimodal.py); a model without one refuses them."""
+        from dynamo_tpu_torch.llm.multimodal import MultimodalAttach
+
+        if not MultimodalAttach.image_refs(messages):
+            return pre
+        if handle.multimodal is None:
+            raise HttpError(400, "this model has no multimodal pipeline "
+                                 "configured (image_url parts unsupported)")
+        try:
+            with self.tracer.start_span("frontend.encode_images"):
+                return await handle.multimodal.attach(messages, pre)
+        except Exception as e:
+            raise HttpError(502, f"image encoding failed: {e}",
+                            "encode_error") from None
+
     async def _chat(self, http: HttpRequest, writer) -> Optional[dict]:
         req, handle = self._parse(http.body, oai.ChatCompletionRequest)
         rid = oai.request_id("chatcmpl")
         root, tok = self._start_trace("chat", rid, req.model)
         try:
-            pre = self._prepare(
+            pre = await self._prepare(
                 http, handle, "chat", rid, bool(req.stream),
-                lambda: handle.preprocessor.preprocess_chat(req, rid), root)
+                lambda: handle.preprocessor.preprocess_chat(req, rid), root,
+                messages=req.messages)
             if req.stream:
                 await self._stream(writer, handle, req, pre, rid, chat=True)
                 return None
@@ -495,6 +527,19 @@ class HttpService:
                                                          rid)
         finally:
             self._end_trace(root, tok)
+        tool_calls = None
+        if req.tools and req.tool_choice != "none":
+            # Only a request that declares tools is parsed; a parse
+            # failure leaves plain content.  A forced function takes the
+            # whole completion as its arguments.
+            forced = post.forced_tool_name(req.tool_choice, req.tools)
+            if forced:
+                text, calls = "", post.force_tool_call(text, forced)
+            else:
+                text, calls = post.parse_tool_calls(text,
+                                                    req.tool_call_parser)
+            if calls:
+                tool_calls, reason = calls, "tool_calls"
         logprobs = None
         if lps:
             logprobs = oai.ChatLogprobs(content=[
@@ -503,16 +548,90 @@ class HttpService:
         return oai.ChatCompletionResponse(
             id=rid, model=req.model,
             choices=[oai.ChatChoice(
-                message=oai.ChatMessage(role="assistant", content=text),
+                # `content` is present (maybe "") unless the message is a
+                # tool call.
+                message=oai.ChatMessage(
+                    role="assistant",
+                    content=(text or None) if tool_calls else text,
+                    tool_calls=tool_calls),
                 finish_reason=reason, logprobs=logprobs)],
             usage=self._usage(pre, det)).to_dict()
+
+    async def _responses(self, http: HttpRequest, writer) -> Optional[dict]:
+        """/v1/responses: normalised onto the chat pipeline; unary, or SSE
+        `response.created` -> `response.output_text.delta`* ->
+        `response.completed`."""
+        body, handle = self._parse(http.body, oai.ResponsesRequest)
+        rid = oai.request_id("resp")
+        root, tok = self._start_trace("responses", rid, body.model)
+        try:
+            chat = body.as_chat()
+            pre = await self._prepare(
+                http, handle, "responses", rid, bool(body.stream),
+                lambda: handle.preprocessor.preprocess_chat(chat, rid), root)
+            if body.stream:
+                await self._stream_responses(writer, handle, body, chat,
+                                             pre, rid)
+                return None
+            text, reason, det, _ = await self._collect(handle, chat, pre,
+                                                       rid)
+        finally:
+            self._end_trace(root, tok)
+        return self._responses_body(body, rid, text, reason, pre,
+                                    det).to_dict()
+
+    @staticmethod
+    def _responses_body(body, rid, text, reason, pre, det):
+        # Responses-API status: stop -> completed; the length ceiling ->
+        # incomplete; an engine error -> failed.
+        status = {"stop": "completed", "length": "incomplete",
+                  "error": "failed"}.get(str(reason or "stop"), "completed")
+        n_in, n_out = len(pre.token_ids), det.completion_tokens
+        return oai.ResponsesResponse(
+            id=rid, model=body.model, status=status,
+            output=[oai.ResponseOutputMessage(
+                status=status,
+                content=[oai.ResponseOutputText(text=text)])],
+            usage=oai.ResponsesUsage(input_tokens=n_in, output_tokens=n_out,
+                                     total_tokens=n_in + n_out))
+
+    async def _stream_responses(self, writer, handle, body, chat, pre,
+                                rid) -> None:
+        writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
+                     b"Cache-Control: no-cache\r\nConnection: close\r\n\r\n")
+        created = oai.ResponsesResponse(id=rid, model=body.model,
+                                        status="in_progress")
+        writer.write(oai.sse_encode_event(
+            "response.created", {"type": "response.created",
+                                 "response": created.to_dict()}).encode())
+        det = StreamDetokenizer(handle.tokenizer, pre.stop_sequences)
+        parts, reason = [], None
+        async with contextlib.aclosing(self._token_stream(
+                handle, pre, det, self._new_timing(rid, chat, pre), None,
+                body.model)) as s:
+            async for out in s:
+                if out.text:
+                    parts.append(out.text)
+                    writer.write(oai.sse_encode_event(
+                        "response.output_text.delta",
+                        {"type": "response.output_text.delta",
+                         "delta": out.text}).encode())
+                if out.finished:
+                    reason = out.finish_reason
+                await writer.drain()
+        final = self._responses_body(body, rid, "".join(parts), reason, pre,
+                                     det)
+        writer.write(oai.sse_encode_event(
+            "response.completed", {"type": "response.completed",
+                                   "response": final.to_dict()}).encode())
+        await writer.drain()
 
     async def _completions(self, http: HttpRequest, writer) -> Optional[dict]:
         req, handle = self._parse(http.body, oai.CompletionRequest)
         rid = oai.request_id("cmpl")
         root, tok = self._start_trace("completion", rid, req.model)
         try:
-            pre = self._prepare(
+            pre = await self._prepare(
                 http, handle, "completion", rid, bool(req.stream),
                 lambda: handle.preprocessor.preprocess_completion(req, rid),
                 root)
@@ -683,17 +802,43 @@ class HttpService:
                 choices=[oai.CompletionChoice(text=text or "",
                                               finish_reason=finish)])
 
+        # Streaming tool calls: the parser turns content deltas into
+        # `delta.tool_calls` fragments; the finish reason becomes
+        # "tool_calls" when any call went out.
+        parser = None
+        if chat and req.tools and req.tool_choice != "none":
+            parser = post.StreamingToolCallParser(
+                req.tool_call_parser,
+                forced_name=post.forced_tool_name(req.tool_choice, req.tools))
+
+        def tool_chunk(call):
+            return oai.ChatCompletionChunk(
+                id=rid, model=req.model,
+                choices=[oai.ChatStreamChoice(
+                    delta=oai.ChatChoiceDelta(tool_calls=[call]))])
+
         if chat:
             writer.write(oai.sse_encode(chunk("", None, role="assistant")).encode())
         async with contextlib.aclosing(self._token_stream(
                 handle, pre, det, self._new_timing(rid, req, pre), lps,
                 req.model)) as s:
             async for out in s:
-                if out.text:
-                    writer.write(oai.sse_encode(chunk(out.text, None)).encode())
+                text, calls, finish = out.text, [], out.finish_reason
+                if parser is not None:
+                    text, calls = (parser.push(out.text) if out.text
+                                   else ("", []))
+                    if out.finished:
+                        rest, more, any_calls = parser.finish()
+                        text, calls = text + rest, calls + more
+                        if any_calls:
+                            finish = "tool_calls"
+                if text:
+                    writer.write(oai.sse_encode(chunk(text, None)).encode())
+                for call in calls:
+                    writer.write(oai.sse_encode(tool_chunk(call)).encode())
                 if out.finished:
                     writer.write(oai.sse_encode(
-                        chunk(None, out.finish_reason)).encode())
+                        chunk(None, finish)).encode())
                 await writer.drain()
         if (req.stream_options or {}).get("include_usage"):
             usage = self._usage(pre, det)

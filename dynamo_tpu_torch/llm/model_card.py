@@ -7,9 +7,15 @@ published to NATS object store + etcd entry): everything a frontend needs
 to serve a model it has never seen locally — tokenizer construction,
 chat template, context limits, KV geometry for routing.
 
-Tokenizer specs: {"kind": "byte"}, the dependency-free byte tokenizer
-the port's presets use.  The reference's "hf_file" / "hf_inline" specs
-need `HFTokenizer`, which is not ported yet, and raise here.
+Tokenizer specs:
+- {"kind": "byte"} — the dependency-free byte tokenizer (presets, GGUF);
+- {"kind": "hf_file", "path": ...} — a tokenizer.json on a shared
+  filesystem;
+- {"kind": "hf_inline", "json": <tokenizer.json contents>, "eos_token"?} —
+  the artifact travels with the card, so a frontend that has never seen
+  the checkpoint serves its tokenizer.
+Both hf kinds build `HFTokenizer` (llm/tokenizer_json.py on the standard
+library).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass, field
 from typing import Optional
 
-from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, Tokenizer
+from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, HFTokenizer, Tokenizer
 
 
 @dataclass
@@ -43,5 +49,13 @@ class ModelDeploymentCard:
         kind = spec.get("kind", "byte")
         if kind == "byte":
             return ByteTokenizer()
-        raise ValueError(f"tokenizer spec kind {kind!r} is not served by "
-                         "this package (only 'byte')")
+        if kind == "hf_file":
+            return HFTokenizer(spec["path"],
+                               eos_token_ids=spec.get("eos_token_ids"),
+                               eos_token=spec.get("eos_token"))
+        if kind == "hf_inline":
+            return HFTokenizer.from_json(
+                spec["json"],
+                eos_token_ids=spec.get("eos_token_ids"),
+                eos_token=spec.get("eos_token"))
+        raise ValueError(f"unknown tokenizer spec kind {kind!r}")

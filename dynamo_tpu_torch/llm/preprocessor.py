@@ -2,8 +2,11 @@
 (port of `dynamo_tpu/llm/preprocessor.py`).
 
 Chat templates are Jinja2 (the format HF ships in tokenizer_config.json);
-the default is the Llama-3 header/eot template.  Tool declarations are
-not ported yet, so the template sees messages only.
+a model card may carry its own, else the Llama-3 header/eot default.
+Declared tools reach the template as `tools` (the variable HF templates
+read), shaped by `tool_choice`: "none" hides them, a forced function
+narrows them to it, and forcing a function the request does not declare
+is a client error.  An assistant message's `tool_calls` reach it too.
 """
 
 from __future__ import annotations
@@ -21,9 +24,18 @@ from dynamo_tpu_torch.llm.protocols.openai import (
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 
 DEFAULT_CHAT_TEMPLATE = (
+    "{% if tools %}"
+    "<|start_header_id|>system<|end_header_id|>\n\n"
+    "You may call these tools; respond with a JSON object "
+    '{"name": ..., "arguments": ...} to invoke one:\n'
+    "{{ tools | tojson }}<|eot_id|>"
+    "{% endif %}"
     "{% for message in messages %}"
     "<|start_header_id|>{{ message.role }}<|end_header_id|>\n\n"
     "{{ message.content }}"
+    "{% if message.tool_calls %}"
+    "{{ message.tool_calls | tojson }}"
+    "{% endif %}"
     "<|eot_id|>"
     "{% endfor %}"
     "{% if add_generation_prompt %}"
@@ -42,6 +54,31 @@ class PreprocessedRequest:
     sampling: SamplingParams
     stop_sequences: List[str] = field(default_factory=list)
     annotations: Dict[str, str] = field(default_factory=dict)
+    # Multimodal: [n, hidden] float32 embeddings taking prompt positions
+    # [0, n) (llm/multimodal.py); token_ids hold placeholders there.
+    prompt_embeds: Optional[object] = None
+
+
+def template_tools(request: ChatCompletionRequest) -> Optional[list]:
+    """The tools the template sees under `tool_choice` (OpenAI's
+    semantics); a forced function the request does not declare raises
+    ValueError (a 400)."""
+    tools = request.tools or None
+    choice = request.tool_choice
+    if choice == "none":
+        return None
+    if isinstance(choice, dict):
+        forced = (choice.get("function") or {}).get("name")
+        if forced and not tools:
+            raise ValueError(f"tool_choice forces tool {forced!r} but the "
+                             "request declares no tools")
+        if forced:
+            tools = [t for t in tools
+                     if (t.get("function") or {}).get("name") == forced]
+            if not tools:
+                raise ValueError(f"tool_choice forces unknown tool "
+                                 f"{forced!r}")
+    return tools
 
 
 class OpenAIPreprocessor:
@@ -56,10 +93,15 @@ class OpenAIPreprocessor:
         self._template = env.from_string(chat_template or DEFAULT_CHAT_TEMPLATE)
 
     def render_chat(self, request: ChatCompletionRequest) -> str:
-        messages = [{"role": m.role, "content": m.text()}
-                    for m in request.messages]
+        messages = []
+        for m in request.messages:
+            msg = {"role": m.role, "content": m.text()}
+            if m.tool_calls:
+                msg["tool_calls"] = m.tool_calls
+            messages.append(msg)
         return self._template.render(messages=messages,
-                                     add_generation_prompt=True)
+                                     add_generation_prompt=True,
+                                     tools=template_tools(request))
 
     def preprocess_chat(self, request: ChatCompletionRequest,
                         request_id: str) -> PreprocessedRequest:

@@ -7,7 +7,8 @@ responses serialise with `to_dict`, which drops None fields as the JAX
 package's `model_dump(exclude_none=True)` does.
 
 Streaming: `sse_encode` frames `data: {json}\\n\\n`; the stream ends with
-`SSE_DONE`.
+`SSE_DONE`.  The Responses API's stream uses named events
+(`sse_encode_event`).
 """
 
 from __future__ import annotations
@@ -191,23 +192,46 @@ class SamplingFields:
 class ChatCompletionRequest(SamplingFields):
     model: str = ""
     messages: List[ChatMessage] = field(default_factory=list)
+    # Tool calling: declared tools flow into the chat template; replies
+    # are parsed for call syntax (llm/postprocessor.py).
+    tools: Optional[List[Dict[str, Any]]] = None
+    tool_choice: Optional[Union[str, Dict[str, Any]]] = None
+    # Parser family for tool-call extraction ("auto" tries them all).
+    tool_call_parser: str = "auto"
 
     @classmethod
     def from_dict(cls, d) -> "ChatCompletionRequest":
+        from dynamo_tpu_torch.llm.postprocessor import PARSERS
+
         if not isinstance(d, dict):
             raise ValueError("request body must be a JSON object")
         messages = _get(d, "messages", list, required=True)
         if not messages:
             raise ValueError("messages must be non-empty")
+        tools = _get(d, "tools", list)
+        if tools is not None and not all(isinstance(t, dict) for t in tools):
+            raise ValueError("field 'tools' must be a list of objects")
+        parser = _get(d, "tool_call_parser", str, default="auto")
+        # Checked before generation: an unknown parser failing after the
+        # tokens were produced would waste the whole request.
+        if parser != "auto" and parser not in PARSERS:
+            raise ValueError(f"unknown tool_call_parser {parser!r}; have "
+                             f"{sorted(PARSERS)} or 'auto'")
         return cls(model=_get(d, "model", str, required=True),
                    messages=[ChatMessage.from_dict(m) for m in messages],
-                   **cls._parse(d))
+                   tools=tools, tool_choice=_get(d, "tool_choice",
+                                                 (str, dict)),
+                   tool_call_parser=parser, **cls._parse(d))
 
 
 @dataclass
 class ChatChoiceDelta(_Wire):
     role: Optional[str] = None
     content: Optional[str] = None
+    # Streaming tool-call fragments: a call's first delta carries
+    # index / id / type / function.name, later ones append to
+    # function.arguments.
+    tool_calls: Optional[List[Dict[str, Any]]] = None
 
 
 @dataclass
@@ -302,6 +326,98 @@ class CompletionResponse(_Wire):
 
 
 # ---------------------------------------------------------------------------
+# Responses API
+
+
+@dataclass
+class ResponsesRequest(_Wire):
+    model: str
+    input: Union[str, List[Dict[str, Any]]]
+    instructions: Optional[str] = None
+    max_output_tokens: Optional[int] = None
+    temperature: Optional[float] = None
+    top_p: Optional[float] = None
+    stream: bool = False
+
+    @classmethod
+    def from_dict(cls, d) -> "ResponsesRequest":
+        if not isinstance(d, dict):
+            raise ValueError("request body must be a JSON object")
+        inp = _get(d, "input", (str, list), required=True)
+        if isinstance(inp, list) and not all(isinstance(x, dict)
+                                             for x in inp):
+            raise ValueError("field 'input' must be a string or a list of "
+                             "objects")
+        return cls(
+            model=_get(d, "model", str, required=True), input=inp,
+            instructions=_get(d, "instructions", str),
+            max_output_tokens=_in_range(
+                "max_output_tokens", _get(d, "max_output_tokens", int), 1),
+            temperature=_in_range("temperature",
+                                  _get(d, "temperature", (int, float)),
+                                  0.0, 2.0),
+            top_p=_in_range("top_p", _get(d, "top_p", (int, float)), 0.0,
+                            1.0, lo_open=True),
+            stream=_get(d, "stream", bool, default=False))
+
+    def as_chat(self) -> ChatCompletionRequest:
+        """The request in the chat form (one preprocessor path)."""
+        messages: List[ChatMessage] = []
+        if self.instructions:
+            messages.append(ChatMessage(role="system",
+                                        content=self.instructions))
+        if isinstance(self.input, str):
+            messages.append(ChatMessage(role="user", content=self.input))
+        else:
+            for item in self.input:
+                role = item.get("role", "user")
+                if role == "developer":  # the Responses alias of system
+                    role = "system"
+                messages.append(ChatMessage.from_dict(
+                    {"role": role, "content": item.get("content")}))
+        return ChatCompletionRequest(
+            model=self.model, messages=messages,
+            max_tokens=self.max_output_tokens,
+            temperature=self.temperature, top_p=self.top_p)
+
+
+@dataclass
+class ResponseOutputText(_Wire):
+    text: str
+    type: str = "output_text"
+
+
+@dataclass
+class ResponseOutputMessage(_Wire):
+    type: str = "message"
+    role: str = "assistant"
+    status: str = "completed"
+    content: List[ResponseOutputText] = field(default_factory=list)
+
+
+@dataclass
+class ResponsesUsage(_Wire):
+    input_tokens: int = 0
+    output_tokens: int = 0
+    total_tokens: int = 0
+
+
+@dataclass
+class ResponsesResponse(_Wire):
+    id: str
+    model: str
+    object: str = "response"
+    created_at: int = field(default_factory=now_ts)
+    status: str = "completed"
+    output: List[ResponseOutputMessage] = field(default_factory=list)
+    usage: ResponsesUsage = field(default_factory=ResponsesUsage)
+
+    @property
+    def output_text(self) -> str:
+        return "".join(t.text for m in self.output for t in m.content)
+
+
+# ---------------------------------------------------------------------------
 # Embeddings
 
 
@@ -392,6 +508,11 @@ SSE_DONE = "data: [DONE]\n\n"
 
 def sse_encode(payload: _Wire) -> str:
     return f"data: {json.dumps(payload.to_dict())}\n\n"
+
+
+def sse_encode_event(event: str, payload: dict) -> str:
+    """A named-event SSE frame (the Responses API's `event:` framing)."""
+    return f"event: {event}\ndata: {json.dumps(payload)}\n\n"
 
 
 def sse_decode_line(line: str) -> Optional[dict]:

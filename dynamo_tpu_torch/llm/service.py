@@ -84,6 +84,7 @@ class LocalEngineClient:
         try:
             async for delta in self.engine.generate(
                     request.request_id, request.token_ids, request.sampling,
+                    prompt_embeds=request.prompt_embeds,
                     priority=priority_of(request)):
                 if led is not None and delta.token_ids:
                     now = time.monotonic()
@@ -142,6 +143,9 @@ class ModelHandle:
     # Context ceiling: a prompt alone at or over it is a 400, and
     # max_tokens is clamped to fit.
     max_context: int = 8192
+    # Multimodal hook (llm/multimodal.MultimodalAttach): image_url chat
+    # parts become prompt_embeds; None = a text-only model.
+    multimodal: Optional[object] = None
 
 
 class ModelManager:

@@ -5,15 +5,18 @@
   UTF-8 multi-byte sequences and merge boundaries mean tokens cannot be
   decoded one at a time and concatenated.
 - `ByteTokenizer` — 1 byte = 1 token (+ specials), dependency-free.
-
-The JAX package's `HFTokenizer` (HuggingFace `tokenizers`) is not ported:
-the serving path runs on the standard library, numpy, torch and jinja2.
+- `HFTokenizer` — a local `tokenizer.json` (a path, or its contents as
+  they ride the model card), run by `llm/tokenizer_json.py` on the
+  standard library: equal to HuggingFace `tokenizers` token for token on
+  the BPE pipelines the port serves, with JAX's EOS discovery.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Protocol, Sequence
+from typing import List, Optional, Protocol, Sequence
+
+from dynamo_tpu_torch.llm.tokenizer_json import TokenizerJson
 
 
 class Tokenizer(Protocol):
@@ -139,3 +142,51 @@ class ByteTokenizer:
     @property
     def vocab_size(self) -> int:
         return 258
+
+
+class HFTokenizer:
+    """A local tokenizer.json, encoded without special tokens and decoded
+    without them (JAX's `HFTokenizer` contract)."""
+
+    def __init__(self, path: str, eos_token_ids: Optional[Sequence[int]] = None,
+                 eos_token: Optional[str] = None):
+        self._tok = TokenizerJson.from_file(path)
+        self._init_eos(eos_token_ids, eos_token)
+
+    @classmethod
+    def from_json(cls, json_str: str,
+                  eos_token_ids: Optional[Sequence[int]] = None,
+                  eos_token: Optional[str] = None) -> "HFTokenizer":
+        """From tokenizer.json CONTENTS: the artifact travels inside the
+        model card, so a remote frontend never needs the worker's files."""
+        self = cls.__new__(cls)
+        self._tok = TokenizerJson.from_str(json_str)
+        self._init_eos(eos_token_ids, eos_token)
+        return self
+
+    def _init_eos(self, eos_token_ids, eos_token) -> None:
+        self._eos = tuple(eos_token_ids or ())
+        candidates = ([eos_token] if eos_token else []) + [
+            "</s>", "<|endoftext|>", "<|eot_id|>", "<|end_of_text|>"]
+        if not self._eos:
+            for name in candidates:
+                tid = self._tok.token_to_id(name)
+                if tid is not None:
+                    self._eos += (tid,)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self._tok.token_to_id(token)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text)
+
+    def decode(self, token_ids: Sequence[int]) -> str:
+        return self._tok.decode(token_ids, skip_special_tokens=True)
+
+    @property
+    def eos_token_ids(self) -> tuple:
+        return self._eos
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()

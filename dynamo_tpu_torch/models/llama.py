@@ -174,8 +174,14 @@ def _dense_mlp(p: State, x: torch.Tensor, activation: str = "silu") -> torch.Ten
     return (act * (x @ p["w_up"])) @ p["w_down"]
 
 
-def _embed(cfg: ModelConfig, state: State, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, state: State, tokens: torch.Tensor,
+           input_embeds: Optional[torch.Tensor] = None,
+           embed_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     x = state["embed"][tokens.long()]
+    if input_embeds is not None:
+        # Multimodal prefill: masked positions take the given embeddings
+        # (an encode worker's output) in place of the token lookup.
+        x = torch.where(embed_mask[..., None], input_embeds.to(x.dtype), x)
     if cfg.embed_scale:
         # Gemma: the multiplier is cast to the model dtype first.
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype,
@@ -432,8 +438,12 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     def step(state: State, cache: Dict, tokens: torch.Tensor,
              positions: torch.Tensor, seq_lens: torch.Tensor,
              block_tables: torch.Tensor,
-             sample_positions: Optional[torch.Tensor] = None):
+             sample_positions: Optional[torch.Tensor] = None,
+             input_embeds: Optional[torch.Tensor] = None,
+             embed_mask: Optional[torch.Tensor] = None):
         B, T = tokens.shape
+        if input_embeds is not None and sp_ring is not None:
+            raise ValueError("the sp ring prefill takes no input_embeds")
         if sp_ring is not None and T > 1:
             return _sp_forward(cfg, block_size, sp_ring, sp_ring_kernel,
                                state, cache, tokens, positions, block_tables,
@@ -450,7 +460,7 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                 P * block_size, device=tokens.device).expand(B, P * block_size)
             ctx_slots = kvc.slots_for_positions(block_tables, ctx_positions,
                                                 block_size)
-        x = _embed(cfg, state, tokens)
+        x = _embed(cfg, state, tokens, input_embeds, embed_mask)
         rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         off = cfg.rms_offset
         loads: List[torch.Tensor] = []
@@ -494,17 +504,22 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
     Pad rows carry the engine's pad position (null-block writes); logits
     come back [R, V], one row per segment (pad segments give junk rows).
     An int8 pool attends through the prefill kernel's int8 body.
-    A MoE model's step returns a third output, the [E+1] expert load."""
+    A MoE model's step returns a third output, the [E+1] expert load.
+    `input_embeds [T, H]` with `embed_mask [T]` (the multimodal prefill):
+    masked positions take those embeddings in place of the token lookup;
+    a batch mixes such segments with plain ones freely."""
     cfg.validate()
 
     def step(state, cache, tokens, positions, seg_ids, block_tables,
-             q_starts, q_lens, seq_lens, sample_positions):
+             q_starts, q_lens, seq_lens, sample_positions,
+             input_embeds=None, embed_mask=None):
         T = tokens.shape[0]
         block_tables = block_tables.to(torch.int32)
         bt_tok = block_tables[seg_ids.long()]                     # [T, P]
         write_slots = kvc.slots_for_positions(
             bt_tok, positions[:, None], block_size).reshape(T)
-        x = _embed(cfg, state, tokens)[None]                       # [1, T, H]
+        x = _embed(cfg, state, tokens, input_embeds,
+                   embed_mask)[None]                               # [1, T, H]
         rot = rope_tables(positions[None], cfg.head_dim, cfg.rope_theta)
         off = cfg.rms_offset
         args = (block_tables, seq_lens.to(torch.int32),

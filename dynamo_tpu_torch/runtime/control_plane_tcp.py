@@ -17,6 +17,10 @@ Wire protocol (one JSON object per line):
 Connection death cleans up that client's watches/subscriptions; leases die
 by TTL (a dead worker's instance keys vanish within one lease TTL, the
 reference's liveness model — `transports/etcd/lease.rs`).
+
+A frame may be up to FRAME_LIMIT bytes: a model card carries its
+checkpoint's tokenizer.json inline (a real Llama-3 one is about 9 MB),
+past asyncio's default 64 KiB line limit.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from dynamo_tpu_torch.runtime.control_plane import (
     WatchEvent,
 )
 
+
+FRAME_LIMIT = 64 * 1024 * 1024     # bytes of one JSON line, either way
 logger = logging.getLogger(__name__)
 
 
@@ -44,7 +50,8 @@ class ControlPlaneServer:
         self.port: Optional[int] = None
 
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
-        self._server = await asyncio.start_server(self._handle, host, port)
+        self._server = await asyncio.start_server(self._handle, host, port,
+                                                  limit=FRAME_LIMIT)
         self.port = self._server.sockets[0].getsockname()[1]
         if self.state._reaper is None:
             self.state._reaper = asyncio.create_task(self.state.run_reaper())
@@ -318,7 +325,7 @@ class ControlPlaneClient:
     async def start(self) -> None:
         self._closed = False
         self._reader, self._writer = await asyncio.open_connection(
-            self.host, self.port)
+            self.host, self.port, limit=FRAME_LIMIT)
         self._rx_task = asyncio.create_task(self._rx_loop())
 
     async def close(self) -> None:
@@ -410,8 +417,8 @@ class ControlPlaneClient:
                 self._fail_pending(ConnectionError(
                     "control plane reconnecting"))
                 try:
-                    reader, writer = \
-                        await asyncio.open_connection(self.host, self.port)
+                    reader, writer = await asyncio.open_connection(
+                        self.host, self.port, limit=FRAME_LIMIT)
                 except OSError:
                     await asyncio.sleep(backoff)
                     backoff = min(backoff * 2, 15.0)

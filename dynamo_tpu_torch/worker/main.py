@@ -41,6 +41,11 @@ remote-prefix hints, pulling a donor's blocks before admission
   (`--max-local-prefill`, written to the control plane at start and
   hot-reloaded from it) prefill on a prefill worker while their sealed
   blocks stream here (`--no-eager-kv`: pull only at prefill-done).
+- `encode`: the multimodal vision tower (`llm/multimodal.py`'s stub
+  encoder, sized by `--model`'s hidden size) behind `encoder/encode`: no
+  engine, no model registration.  A frontend on the same fabric pulls
+  the embeddings from this process's device plane (CUDA IPC on one
+  card); any other gets them inline on the RPC.
 
 The status port's `/debug/stats` adds the data plane's counters: `disagg`
 (remote prefills, local fallbacks, tokens onboarded, eager blocks pulled
@@ -50,10 +55,15 @@ blocks), `prefix_share` (pulls and blocks; hinted chats' admission hits
 and the pulled tokens admission prefilled again) and `onboarded_blocks`;
 `POST /debug/stats/reset` zeroes them with the rest.
 
-Runs on the card unless `--device cpu` is given, with random weights from
-seed 0 and the byte tokenizer.  On a card the kernels its path launches
-are built (or reused from `_build/`) and loaded before it registers: a
-kernel that fails to build or load stops the worker with an error.
+Runs on the card unless `--device cpu` is given.  `--model` takes a
+preset (random weights from seed 0, the byte tokenizer), an HF-layout
+checkpoint directory, a `.gguf` file or an `org/repo` of the local hub
+cache (models/loader.py); the model card it publishes carries the
+checkpoint's tokenizer.json inline (`hf_inline`) with its chat template
+and eos, so a remote frontend serves them.  On a card the kernels its
+path launches are built (or reused from `_build/`) and loaded before it
+registers: a kernel that fails to build or load stops the worker with an
+error.
 
 Observability, with JAX's flags (all served on the status port):
 `/metrics` (the worker's engine series — `dynamo_worker_*`,
@@ -91,8 +101,7 @@ the engine: deterministic tokens, real KV events and load metrics, no
 device and no KV data plane (a CPU test backend for the planner, the
 launcher and the drain; the roles refuse it).
 
-Not ported: the `encode` role (it needs the multimodal path), multihost
-and lockstep, and `--slice`.
+Not ported: multihost and lockstep, and `--slice`.
 """
 
 from __future__ import annotations
@@ -112,7 +121,7 @@ from dynamo_tpu_torch.engine.engine import (
 )
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.fleet.topology import SliceSpec
-from dynamo_tpu_torch.frontend.main import model_config, stats_hooks
+from dynamo_tpu_torch.frontend.main import stats_hooks
 from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
 from dynamo_tpu_torch.llm.block_manager.pool import slo_eviction_bias
 from dynamo_tpu_torch.llm.block_manager.prefix_share import (
@@ -145,6 +154,7 @@ from dynamo_tpu_torch.llm.discovery import (
 from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.service import LocalEngineClient
+from dynamo_tpu_torch.models.loader import resolve_model
 from dynamo_tpu_torch.runtime.config import (
     apply_to_parser_defaults,
     load_layered_config,
@@ -191,8 +201,8 @@ def parse_args(argv=None):
                         "prefill queue only (no model registration); "
                         "'decode' registers the model and sends long "
                         "prompts to the prefill queue; 'both' = "
-                        "aggregated; 'encode' is not ported (it needs the "
-                        "multimodal path)")
+                        "aggregated; 'encode' serves the multimodal "
+                        "vision tower (encoder/encode endpoint)")
     p.add_argument("--max-local-prefill", type=int, default=None,
                    help="decode role: write the disagg threshold (tokens) "
                         "to the control plane at start; prompts longer "
@@ -215,7 +225,9 @@ def parse_args(argv=None):
                    help="mocker: simulated step time divided by this")
     p.add_argument("--model", default="llama-3-1b",
                    help="model preset (random weights), e.g. llama-3-1b, "
-                        "mixtral-8x7b, tiny-test")
+                        "mixtral-8x7b, tiny-test; an HF-layout checkpoint "
+                        "directory, a .gguf file, or org/repo in the "
+                        "local hub cache")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda unless cpu is asked for")
     p.add_argument("--num-blocks", type=int, default=512)
@@ -288,9 +300,6 @@ def parse_args(argv=None):
     if not args.control_plane:
         p.error("--control-plane is required (flag, DYN_CONTROL_PLANE, "
                 "or dynamo.toml)")
-    if args.role == "encode":
-        p.error("--role encode is not ported (it needs the multimodal "
-                "path)")
     if args.mocker and args.role != "both":
         # The mocker has no KV bytes to serve or pull: a disagg role
         # would silently serve aggregated.
@@ -317,17 +326,22 @@ def load_kernels(core: EngineCore) -> None:
 def build_engine(args, kv_event_sink):
     """(core, engine, card fields) for the flags; the engine is not
     started yet."""
-    cfg = model_config(args)
+    cfg, params, spec, template = resolve_model(
+        args.model, device=args.device, num_layers=args.num_layers)
     sched = SchedulerConfig(block_size=args.block_size,
                             max_prefill_chunk=args.max_prefill_chunk)
     core = EngineCore(EngineConfig(
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
         device=args.device, moe_mode=args.moe_mode,
         kv_quant=args.kv_quant, speculative_tokens=args.spec_decode,
-        speculative_ngram=args.spec_ngram), kv_event_sink=kv_event_sink)
+        speculative_ngram=args.spec_ngram), params=params,
+        kv_event_sink=kv_event_sink)
     load_kernels(core)
     card_fields = {
-        "tokenizer_spec": {"kind": "byte"},
+        # A checkpoint's tokenizer.json rides the card inline, with its
+        # template and eos: a remote frontend serves them.
+        "tokenizer_spec": spec,
+        "chat_template": template,
         "max_context": min(cfg.max_context,
                            sched.max_pages_per_seq * sched.block_size),
     }
@@ -363,12 +377,9 @@ def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg):
 
     def worker_stats() -> dict:
         out = stats()
-        counts: dict = {}
-        for (plane_name, reason), n in dt.plane_counts().items():
-            counts.setdefault(plane_name, {})[reason] = n
         out.update(
             onboarded_blocks=(manager.onboarded_blocks if manager else 0),
-            plane_counts=counts,
+            plane_counts=dt.plane_counts_by_plane(),
             transfer_plane=plane.stats() if plane is not None else None,
             prefix_share=fetcher.stats() if fetcher is not None else None,
             # Streams a draining peer handed here, with the blocks pulled.
@@ -480,6 +491,34 @@ async def watch_profile_commands(cp, instance_id: int) -> None:
         return  # the control plane is gone: /debug/deviceprofile remains
 
 
+async def run_encode(args, cp, runtime) -> None:
+    """The encode role: the vision tower behind `encoder/encode`, its
+    embeddings offered on this process's device plane."""
+    from dynamo_tpu_torch.device import resolve_device
+    from dynamo_tpu_torch.llm.multimodal import EncodeWorker, StubVisionEncoder
+    from dynamo_tpu_torch.models.loader import resolve_config
+
+    hidden = resolve_config(args.model).hidden_size
+    plane = dt.KvTransferPlane(device=resolve_device(args.device))
+    plane.start()
+    worker = EncodeWorker(StubVisionEncoder(hidden), transfer_plane=plane)
+    endpoint = (runtime.namespace(args.namespace)
+                .component("encoder").endpoint("encode"))
+    instance = await endpoint.serve(worker.make_handler())
+    print(f"encode worker instance {instance.instance_id} at "
+          f"{instance.address} (hidden {hidden}, transfer "
+          f"{plane.transport_kind})", flush=True)
+    stop_ev = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop_ev.set)
+    await stop_ev.wait()
+    await endpoint.leave()
+    plane.stop()
+    await runtime.shutdown()
+    await cp.close()
+
+
 async def run(args) -> None:
     service = f"worker-{args.component}"
     tracing.configure_from_args(args, service=service)
@@ -495,6 +534,9 @@ async def run(args) -> None:
     cp = ControlPlaneClient(*_split(args.control_plane))
     await cp.start()
     runtime = DistributedRuntime(cp, rpc_host=args.rpc_host)
+    if args.role == "encode":
+        await run_encode(args, cp, runtime)
+        return
     # Prefill workers live under a component of their own, so the
     # frontends' model clients (which watch the decode endpoint's
     # instances) never route chats to them.

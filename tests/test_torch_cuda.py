@@ -1179,3 +1179,101 @@ def test_offload_makes_no_host_sync(dev):
     assert src.manager.offloaded_blocks >= 12
     src.release(pages)
     core.allocator.manager.close()
+
+
+def test_safetensors_bf16_shards_land_on_the_card(dev, tmp_path):
+    """A bf16 checkpoint in two shards (chip_smoke's writer): the reader
+    hands out bf16 views of the mapped file (no host copy, no float32),
+    and load_params places every tensor on the card, equal to what was
+    written."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from dynamo_tpu_torch.models import loader
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+
+    cfg = get_config("tiny-test").replace(head_dim=32, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_params(cfg, gen, dev)
+    (tmp_path / "config.json").write_text(__import__("json").dumps({
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.intermediate_size,
+        "tie_word_embeddings": True}))
+    shards = [{"model.embed_tokens.weight": state["embed"],
+               "model.norm.weight": state["final_norm"]}, {}]
+    for i, layer in enumerate(state["layers"]):
+        p = f"model.layers.{i}."
+        for ours, hf in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o")):
+            shards[1][p + f"self_attn.{hf}_proj.weight"] = \
+                layer["attn"][ours].t()
+        for hf in ("gate", "up", "down"):
+            shards[1][p + f"mlp.{hf}_proj.weight"] = layer["mlp"]["w_" + hf].t()
+        shards[0][p + "input_layernorm.weight"] = layer["attn_norm"]
+        shards[0][p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
+    for j, shard in enumerate(shards):
+        chip_smoke.write_safetensors(
+            torch, tmp_path / f"m{j}.safetensors",
+            {k: v.contiguous().cpu() for k, v in shard.items()})
+    for path in loader.checkpoint_shards(str(tmp_path)):
+        f = loader.SafetensorsFile(path)
+        base = torch.frombuffer(f._map, dtype=torch.uint8).data_ptr()
+        for k in f.keys():
+            t = f.get(k)
+            assert t.dtype == torch.bfloat16 and t.device.type == "cpu"
+            assert base <= t.data_ptr() < base + len(f._map)
+        f.close()
+    _, got = loader.load_params(str(tmp_path), device="cuda")
+    want, got = chip_smoke.state_leaves(state), chip_smoke.state_leaves(got)
+    assert want.keys() == got.keys()
+    for k, b in got.items():
+        assert b.device.type == "cuda" and b.dtype == torch.bfloat16
+        assert torch.equal(want[k], b), k
+
+
+def test_packed_prefill_with_embeddings_on_k2(dev):
+    """The multimodal prefill through the packed step (K2) against the
+    gather path's forward step with the same input embeddings: two
+    segments, one with an embedding span, on the card."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+
+    cfg = get_config("tiny-test").replace(head_dim=32, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = init_params(cfg, gen, dev)
+    bs, L, n = 8, 24, 10
+    toks = torch.randint(1, cfg.vocab_size, (2, L), generator=gen,
+                         device=dev, dtype=torch.int32)
+    toks[0, :n] = 0
+    emb = torch.randn(2, L, cfg.hidden_size, generator=gen, device=dev)
+    mask = torch.zeros(2, L, dtype=torch.bool, device=dev)
+    mask[0, :n] = True
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(2, L)
+    bt = torch.tensor([[1, 2, 3], [4, 5, 6]], device=dev, dtype=torch.int32)
+    sl = torch.full((2,), L, device=dev, dtype=torch.int32)
+
+    def cache():
+        return kvc.init_cache(kvc.KvCacheConfig.for_model(
+            cfg, num_blocks=8, block_size=bs), dev)
+
+    want, _ = llama.make_forward_step(cfg, bs)(
+        state, cache(), toks, pos, sl, bt, sl - 1, input_embeds=emb,
+        embed_mask=mask)
+    p0 = paged_prefill_attention.launches
+    i32 = lambda x: torch.tensor(x, device=dev, dtype=torch.int32)  # noqa: E731
+    got, _ = llama.make_packed_prefill_step(cfg, bs)(
+        state, cache(), toks.reshape(-1), pos.reshape(-1),
+        i32([0] * L + [1] * L), bt, i32([0, L]), i32([L, L]), sl,
+        i32([L - 1, 2 * L - 1]), input_embeds=emb.reshape(2 * L, -1),
+        embed_mask=mask.reshape(-1))
+    assert paged_prefill_attention.launches > p0
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert err < 5e-2, err
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
