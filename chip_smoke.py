@@ -7,7 +7,8 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
 `ok` line):
 
 1. device   — the card's name, count, torch/CUDA versions, and the
-   rank -> card map an `--sp 4` ring gets on this machine.
+   rank -> card maps an `--sp 4` ring and the tp 2 and tp 8 groups get
+   on this machine.
 2. build    — nvcc builds every kernel source, one process each, at once.
 3. sass     — for each library whose products run on the tensor cores
    (paged_prefill, ring_flash, moe_grouped on wgmma; paged_decode on
@@ -35,6 +36,10 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      beside them; K1 also at head geometries no served preset has
      (`WIDE_DECODE`: D 80 and D 96, and 32 and 24 query heads a kv head
      at D 128), bf16 and int8, at batch 64, context 512;
+   - K1 and K2, bf16 and int8 cache, at the per-rank head geometries of
+     tensor parallelism (D 128, block 64; K1 at batch 64, context 512):
+     llama-3-8b at tp 2 (Hq 16, Hkv 4: the `_tp2` lines) and llama-3-70b
+     at tp 8 (Hq 8, Hkv 1, G 8: `_tp8`);
    - the grouped expert FFN (K3), bf16 and int8 weights, at mixtral-8x7b
      width (E 8, top-2, H 4096, F 14336) with serve_moe's decode bucket (8
      tokens), 64 tokens and prefill (512 tokens) row counts routed by the
@@ -66,6 +71,21 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    (`argmax_gap` against the gather path's logits); the spec run must
    draft, accept no more than it drafted and launch K2.  Acceptance and
    the tokens a row gains per forward are reported.
+8c. model_tp — tensor parallelism in process, every rank of a TpGroup on
+   card 0 with its own stream: llama-3-8b at full width and depth at tp
+   2, and llama-3-70b at full width and 4 of its 80 layers (80 do not fit
+   one card) at tp 8, each over a bf16 and an int8 cache, through
+   `compare_paths` (the sharded packed prefill and decode steps, K2 and
+   K1 per rank, against the unsharded gather path on the same seed-0
+   weights); K2 must launch once a layer and rank, K1 once a layer, rank
+   and step; every rank holds 1/tp of the sharded weights' and of the
+   KV cache's bytes and the whole of the replicated norms.  The ranks'
+   states are drawn by `init_params(group=)`, which cuts each piece as
+   it is drawn: they must equal the whole draw's slices bit for bit, and
+   the card's peak while drawing them must stay within the ranks' bytes
+   plus one piece's transient, not the whole model beside them.  Then the
+   unsharded in-process engine's greedy ids of serve_tp's two unary
+   chats on the llama-3-8b weights.
 9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
@@ -77,6 +97,16 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    prefills, as on a disagg decode worker, whose text must match it;
    last, the chat that `fleet` drains mid-decode, undrained: its greedy
    reference.
+9b. serve_tp — a control plane (frontend A's), `python -m
+   dynamo_tpu_torch.worker --model llama-3-8b --tp 2` on the card and
+   frontend A: `serve`'s concurrent wave, then two unary chats whose
+   greedy ids must equal model_tp's unsharded engine's (a split only at a
+   near tie), each served id within MODEL_TOL of the top of the plain
+   model's logits given the served ids before it (one teacher-forced
+   forward a chat); the worker's /debug/stats must show mesh tp2,
+   kv_shard_count 2 and the published slice tp2, and K1 and K2 launched
+   a whole number of times a layer and rank.  TTFT, ITL and tok/s beside
+   `serve`'s, with the card's name and power limit.
 10. serve_distributed — the same model on two `python -m
    dynamo_tpu_torch.worker` processes sharing the card, behind frontend A
    (`--serve-control-plane --router-mode kv`) and frontend B
@@ -325,7 +355,11 @@ ROW_TOL = {"paged_decode_attention": 1e-2, "paged_prefill_attention": 1e-2,
 # 128k vocabulary, so the two paths' greedy tokens may differ, but only
 # where the reference's logit for the kernel path's token is within the
 # same limit of its maximum (`argmax_gap`, relative to max |logit|).
-MODEL_TOL = {"llama-3-1b": 5e-2, "mixtral-8x7b": 1.5e-1}
+# The tp models' kernel path is the sharded one (model_tp): llama-3-8b at
+# tp 2 read at most 0.0243, llama-3-70b (4 layers) at tp 8 0.0139, on an
+# H100 80GB HBM3 at 700 W; their limit is the 1B's, about twice that.
+MODEL_TOL = {"llama-3-1b": 5e-2, "mixtral-8x7b": 1.5e-1,
+             "llama-3-8b": 5e-2, "llama-3-70b": 5e-2}
 SEED = 0                       # also the server's weight seed (EngineConfig)
 SYSTEM_BLOCKS = 10             # serve_int8's shared system prompt, in blocks
 BS, HQ, HKV = 64, 32, 8        # attention geometry of both models, block 64
@@ -348,6 +382,13 @@ DECODE_SHAPES = ((64, 512), (8, 256))
 WIDE_DECODE = (("d80", 32, 8, 80), ("d96", 32, 4, 96),
                ("d128_g32", 32, 1, 128), ("d128_g24", 24, 1, 128))
 MOE_TOKENS = (8, 64, 512)      # K3: serve_moe's decode bucket, 64, prefill
+# Tensor parallelism: llama-3-8b at tp 2 (full depth, served) and
+# llama-3-70b at tp 8 (full width, TP_70B_LAYERS of its 80 layers: the
+# weights of 80 do not fit one card), and the per-rank attention
+# geometries they give K1 and K2 (tag, Hq, Hkv, D).
+TP = 2
+TP_70B, TP_70B_LAYERS = 8, 4
+TP_GEOMETRY = (("tp2", 16, 4, 128), ("tp8", 8, 1, 128))
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
@@ -571,7 +612,7 @@ def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV):
             "bytes": nbytes, "flops": flops}
 
 
-def prefill_phase(torch, gen, D, quant=False):
+def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV):
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.ops.cuda import (
         paged_prefill_attention, paged_prefill_attention_plain)
@@ -582,9 +623,9 @@ def prefill_phase(torch, gen, D, quant=False):
     prefix = [0, 64, 0, 0]               # segment 1 has a cached prefix
     nblocks = 1 + R * P + 8
     S = nblocks * BS
-    kc = torch.randn(S, HKV * D, generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn(S, HKV * D, generator=gen, device=dev).to(torch.bfloat16)
-    q = torch.randn(T, HQ, D, generator=gen, device=dev).to(torch.bfloat16)
+    kc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(T, hq, D, generator=gen, device=dev).to(torch.bfloat16)
     perm = torch.randperm(nblocks - 1, generator=gen, device=dev)[: R * P] + 1
     bt = torch.zeros(R, P, dtype=torch.int32, device=dev)
     sl, qs, ql = ([0] * R for _ in range(3))
@@ -597,7 +638,7 @@ def prefill_phase(torch, gen, D, quant=False):
     sl_t, qs_t, ql_t = (torch.tensor(x, dtype=torch.int32, device=dev)
                         for x in (sl, qs, ql))
     name = "paged_prefill_attention" + ("_int8" if quant else "")
-    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant)
+    kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant, hkv)
 
     def kern():
         return paged_prefill_attention(q, kc, vc, bt, sl_t, qs_t, ql_t,
@@ -617,7 +658,7 @@ def prefill_phase(torch, gen, D, quant=False):
     # longest, each against its gathered context with the same mask.
     n_real = len(lens)
     Lmax = max(lens)
-    q4 = torch.zeros(n_real, HQ, Lmax, D, dtype=torch.bfloat16, device=dev)
+    q4 = torch.zeros(n_real, hq, Lmax, D, dtype=torch.bfloat16, device=dev)
     q_pos = torch.zeros(n_real, Lmax, dtype=torch.long, device=dev)
     for i in range(n_real):
         q4[i, :, : lens[i]] = q[qs[i]: qs[i] + lens[i]].transpose(0, 1)
@@ -634,11 +675,11 @@ def prefill_phase(torch, gen, D, quant=False):
     pages = sum(-(-s // BS) for s in sl)
     nbytes = (q.numel() * 2 + kv_tokens * token_bytes + pages * 4
               + 3 * R * 4 + out.numel() * 2)
-    flops = 4 * HQ * D * visible
+    flops = 4 * hq * D * visible
     b_ms, b_by = bound(nbytes, flops)
     return {"name": name,
             "shape": {"T": T, "segments": lens, "cached_prefix": prefix,
-                      "block": BS, "Hq": HQ, "Hkv": HKV, "D": D,
+                      "block": BS, "Hq": hq, "Hkv": hkv, "D": D,
                       "cache": "int8" if quant else "bf16"},
             **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -903,7 +944,7 @@ def routing_differs(ids_k, ids_g, rows_k, rows_g) -> int:
 
 
 def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
-                  keep=None):
+                  keep=None, tp=None):
     """A packed prefill of two prompts through K2 (and K3 for a MoE
     model), then 4 greedy decode steps through K1 (and K3), against the
     gather path (and the dense MoE oracle) on `pstate`, each path on its
@@ -912,7 +953,9 @@ def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
     Returns the per-step logits relative errors, argmax agreements and
     the fed tokens, and for a MoE model each path's expert-load sum
     beside the token rows it routed; `keep` collects the kernel path's
-    logits of every step."""
+    logits of every step.  `tp` (a TpGroup): the kernel path is the
+    tensor-parallel one, `kstate` its ranks' states, each rank on its own
+    cache shard and its own K1 / K2 calls; the gather path stays whole."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.models import llama
 
@@ -921,7 +964,9 @@ def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
     prompts = [list(range(3, 3 + 77)), list(range(100, 100 + 140))]
     ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=16, block_size=BS,
                                        kv_quant=kv_quant)
-    cache_k, cache_g = kvc.init_cache(ccfg, dev), kvc.init_cache(ccfg, dev)
+    cache_k = (kvc.init_cache(ccfg, dev) if tp is None
+               else kvc.init_rank_caches(ccfg, tp.devices))
+    cache_g = kvc.init_cache(ccfg, dev)
     P = 4
     pages = [[1, 2, 3, 4], [5, 6, 7, 8]]
     bt = torch.tensor(pages, dtype=torch.int32, device=dev)
@@ -941,7 +986,8 @@ def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
         bt8[i] = torch.tensor(pages[i])
         qs[i], ql[i], sl[i], smp[i] = off, n, n, off + n - 1
         off += -(-n // 8) * 8
-    packed = llama.make_packed_prefill_step(cfg, BS, moe_mode="grouped")
+    packed = llama.make_packed_prefill_step(cfg, BS, moe_mode="grouped",
+                                            tp=tp)
     with routing_log([]) as ids_k:
         res = packed(kstate, cache_k, *(t.to(dev) for t in (
             tokens, positions, seg, bt8, qs, ql, sl, smp)))
@@ -976,7 +1022,8 @@ def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
         keep.append(logits_k)
     # Decode: both caches fed the kernel path's greedy tokens (or `feed`).
     step_k = llama.make_forward_step(cfg, BS, use_decode_kernel=True,
-                                     moe_mode="grouped", with_expert_load=moe)
+                                     moe_mode="grouped", with_expert_load=moe,
+                                     tp=tp)
     cur = lens.clone().to(dev)
     nxt = logits_k.argmax(-1).to(torch.int32)
     zero = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -1134,7 +1181,7 @@ def model_sp_phase(torch, kernels, state, kv_quant="none"):
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import get_config
     from dynamo_tpu_torch.parallel import (
-        SpRing, default_sp_devices, make_sp_prefill_step)
+        SpRing, default_rank_devices, make_sp_prefill_step)
 
     dev = torch.device("cuda", 0)
     cfg = get_config("llama-3-1b")
@@ -1157,7 +1204,7 @@ def model_sp_phase(torch, kernels, state, kv_quant="none"):
         tok2[i, : len(p)] = p
         pos2[i, : len(p)] = torch.arange(len(p))
     lens_t = torch.tensor(lens, dtype=torch.int32)
-    ring = SpRing(default_sp_devices(SP, dev))
+    ring = SpRing(default_rank_devices(SP, dev))
     sp_step = make_sp_prefill_step(cfg, BS, ring, kv_quant=quant,
                                    use_kernel=True)
     kernels.reset_launch_counts()
@@ -1276,6 +1323,264 @@ def model_sp_phases(torch, kernels):
     state = weights.init_params(get_config("llama-3-1b"), gen, dev)
     return [model_sp_phase(torch, kernels, state, kv_quant)
             for kv_quant in ("none", "int8")]
+
+
+def tp_state(torch, name: str, layers=None, group=None):
+    """(cfg, seed-0 state on card 0) of preset `name`, cut to `layers`;
+    with a TpGroup, the ranks' states of the same draws."""
+    from dynamo_tpu_torch.models import weights
+    from dynamo_tpu_torch.models.config import get_config
+
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    return cfg, weights.init_params(cfg, gen, dev, group=group)
+
+
+def tp_leaves(tree, spec):
+    """(tensor, its spec) of every leaf of a state and its spec tree."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from tp_leaves(tree[k], spec[k])
+    elif isinstance(tree, list):
+        for t, sp in zip(tree, spec):
+            yield from tp_leaves(t, sp)
+    else:
+        yield tree, spec
+
+
+def tp_same(torch, cfg, state, ranks) -> bool:
+    """Every rank's tensor equals its slice of the whole state's, bit for
+    bit."""
+    from dynamo_tpu_torch.parallel import param_pspecs
+
+    specs = param_pspecs(cfg)
+    whole = list(tp_leaves(state, specs))
+    for r, rank in enumerate(ranks):
+        for (t, spec), (w, _) in zip(tp_leaves(rank, specs), whole):
+            if "tp" in spec:
+                axis = spec.index("tp")
+                w = w.narrow(axis, r * t.shape[axis], t.shape[axis])
+            if t.shape != w.shape or not torch.equal(t, w.to(t.device)):
+                return False
+    return True
+
+
+def tp_build_bound(cfg, nbytes: dict) -> int:
+    """The most a card may hold while `init_params(group=)` draws a tp
+    state onto it: the ranks' bytes, plus one whole piece (the largest
+    of a layer, the embedding and the lm head) and that piece's largest
+    tensor's f32 draw, plus 64 MiB of allocator rounding."""
+    item = cfg.dtype.itemsize
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    layer = (2 * h * cfg.q_size + 2 * h * cfg.kv_size + 3 * h * f) * item
+    biggest = max(layer, h * v * item)
+    largest = max(h * f, h * v) * 4
+    ranks = sum(sum(r.values()) for r in nbytes["weights_per_rank"])
+    return ranks + biggest + largest + (64 << 20)
+
+
+def tp_bytes(torch, cfg, state, ranks, group) -> dict:
+    """Per-rank bytes of the weights and of a KV cache against the whole
+    state's: every rank holds 1/tp of each sharded weight and the whole
+    of each replicated one (the norms), the ranks' sharded bytes sum to
+    the state's, and each rank's cache (16 blocks, bf16 and int8) is
+    1/tp of the whole cache."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.parallel import param_pspecs
+
+    def nbytes(tree, sharded):
+        return sum(t.numel() * t.element_size()
+                   for t, sp in tp_leaves(tree, param_pspecs(cfg))
+                   if ("tp" in sp) == sharded)
+
+    tp = group.tp
+    whole = {"sharded": nbytes(state, True), "replicated": nbytes(state, False)}
+    per_rank = [{"sharded": nbytes(r, True), "replicated": nbytes(r, False)}
+                for r in ranks]
+    check(all(r["sharded"] * tp == whole["sharded"]
+              and r["replicated"] == whole["replicated"] for r in per_rank),
+          f"{cfg.name} tp {tp}: rank weight bytes {per_rank} are not 1/tp "
+          f"of {whole}")
+    check(sum(r["sharded"] for r in per_rank) == whole["sharded"],
+          f"{cfg.name} tp {tp}: ranks' weight bytes do not sum to the state's")
+    kv = {}
+    for mode in ("none", "int8"):
+        ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=16, block_size=BS,
+                                           kv_quant=mode)
+        size = [sum(t.numel() * t.element_size() for v in c.values()
+                    for t in v)
+                for c in ([kvc.init_cache(ccfg, group.devices[0])]
+                          + kvc.init_rank_caches(ccfg, group.devices))]
+        check(all(b * tp == size[0] for b in size[1:]),
+              f"{cfg.name} tp {tp}: rank KV bytes {size[1:]} are not 1/tp "
+              f"of {size[0]} ({mode})")
+        kv[mode] = {"whole": size[0], "per_rank": size[1:]}
+    return {"weights_whole": whole, "weights_per_rank": per_rank,
+            "kv_16_blocks": kv}
+
+
+def tp_lone_bodies() -> list:
+    """serve_tp's two unary chats, held against the unsharded engine."""
+    return [traced(chat_body(i, False, 64, user=LONE_TURN)) for i in range(2)]
+
+
+def model_tp_phase(torch, kernels):
+    """The tensor-parallel forward against the port's unsharded gather
+    path on the same seed-0 weights (`compare_paths` with a TpGroup on
+    card 0, every rank its own stream): llama-3-8b at full width and
+    depth at tp 2, and llama-3-70b at full width and TP_70B_LAYERS layers
+    at tp 8, each over a bf16 and an int8 cache.  Each run launches K2
+    once a layer and rank for the prefill and K1 once a layer, rank and
+    decode step (counts zeroed just before it); the ranks' weight and KV
+    bytes are 1/tp of the whole (`tp_bytes`).  Also the unsharded
+    in-process engine's greedy ids of serve_tp's unary chats on the
+    llama-3-8b weights.  The ranks' states are drawn by
+    `init_params(group=)`, which cuts each layer and table as it is
+    drawn: they must equal the whole state's slices, and the card's peak
+    allocation while drawing them must stay within the ranks' bytes plus
+    one piece's transient (`tp_build_bound`), not the whole model beside
+    its slices.  Returns the phase lines and those ids."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.parallel import MeshConfig, TpGroup
+
+    lines, ref = [], None
+    for name, tp, layers in (("llama-3-8b", TP, None),
+                             ("llama-3-70b", TP_70B, TP_70B_LAYERS)):
+        t_model = time.monotonic()
+        group = TpGroup.for_mesh(MeshConfig(tp=tp), torch.device("cuda", 0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        cfg, ranks = tp_state(torch, name, layers, group)
+        torch.cuda.synchronize()
+        shard_s = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        cfg, state = tp_state(torch, name, layers)
+        check(tp_same(torch, cfg, state, ranks),
+              f"model_tp {name}: the ranks' drawn slices differ from the "
+              "whole state's")
+        nbytes = tp_bytes(torch, cfg, state, ranks, group)
+        nbytes["build_peak"] = {"bytes": peak,
+                                "bound": tp_build_bound(cfg, nbytes),
+                                "whole_plus_ranks": 2 * sum(
+                                    nbytes["weights_whole"].values())}
+        check(peak <= nbytes["build_peak"]["bound"],
+              f"model_tp {name}: drawing the ranks' states peaked at "
+              f"{peak} bytes on the card, above {nbytes['build_peak']}")
+        for kv_quant in ("none", "int8"):
+            body = "" if kv_quant == "none" else "_int8"
+            kernels.reset_launch_counts()
+            out = compare_paths(torch, cfg, ranks, state, kv_quant, tp=group)
+            launched = kernels.launch_counts()
+            want = {"paged_prefill_attention" + body: cfg.num_layers * tp,
+                    "paged_decode_attention" + body:
+                        cfg.num_layers * tp * out["decode_steps"]}
+            check(all(launched[k] == n for k, n in want.items()),
+                  f"model_tp {name} ({kv_quant}): launches {launched}, "
+                  f"want {want} (a layer, a rank, a step)")
+            lines.append({"phase": "model_tp", "tp": tp,
+                          "rank_devices": group.describe(), **out,
+                          "layers_of": get_config(name).num_layers,
+                          "launches": launched, "bytes": nbytes,
+                          "shard_s": shard_s})
+        if name == "llama-3-8b":
+            pre = OpenAIPreprocessor(ByteTokenizer())
+            pres = [pre.preprocess_chat(ChatCompletionRequest.from_dict(b),
+                                        f"tp{i}")
+                    for i, b in enumerate(tp_lone_bodies())]
+            ref = {"prompts": [p.token_ids for p in pres],
+                   "ids": engine_answers(torch, state, pres, cfg)}
+        lines[-1]["wall_s"] = time.monotonic() - t_model
+        del state, ranks
+        torch.cuda.empty_cache()
+    return lines, ref
+
+
+def serve_tp_phase(torch, serve: dict, ref: dict) -> dict:
+    """llama-3-8b served tensor-parallel: a control plane (frontend A's),
+    `python -m dynamo_tpu_torch.worker --model llama-3-8b --tp 2` on the
+    card and frontend A (`distributed_stack`).  `serve`'s concurrent wave
+    (8 chats, half streaming, 64 tokens) with the stats zeroed just
+    before it, then serve_tp's two unary chats, one at a time, whose
+    greedy ids must equal the unsharded in-process engine's (`ref`, from
+    model_tp) up to a split at a near tie, and each of whose served ids
+    must lie within MODEL_TOL of the top of the plain model's logits
+    given the ids before it (teacher-forced).  The worker's /debug/stats
+    must show mesh tp2 with kv_shard_count 2 and the published slice
+    tp2, and K1 and K2 launched a whole number of times a layer and
+    rank.  TTFT, ITL and tok/s (frontend side) beside `serve`'s."""
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    cfg = get_config("llama-3-8b")
+    with distributed_stack(
+            workers=(("worker", ("--model", "llama-3-8b", "--tp", str(TP))),),
+            frontend_b=False, tag="tp") as (a, _, status, startup_s):
+        w = status[0]
+        _chat(a, chat_body(-1, False, 4))          # warm-up
+        wave = stack_wave(a, w)
+        lone = [answer(_chat(a, b)) for b in tp_lone_bodies()]
+    ws = wave["worker"]
+    layers = cfg.num_layers
+    launched = ws["kernels"]
+    check(ws["mesh"] == f"tp{TP}" and ws["kv_shard_count"] == TP,
+          f"serve_tp: worker mesh {ws['mesh']}, kv_shard_count "
+          f"{ws['kv_shard_count']}")
+    check(ws["slice"]["describe"] == f"tp{TP}",
+          f"serve_tp: published slice {ws['slice']}")
+    for k in ("paged_decode_attention", "paged_prefill_attention"):
+        check(launched[k] > 0 and launched[k] % (TP * layers) == 0,
+              f"serve_tp: {k} launched {launched[k]} times, not a whole "
+              f"number of layers x ranks ({TP} x {layers})")
+    c = ws["counters"]
+    # Each served id of each lone chat is also held against the plain
+    # model given the ids served before it (`forced_gaps`, one
+    # teacher-forced forward), so that a split at a near tie hides no
+    # later token.
+    state = tp_state(torch, "llama-3-8b")[1]
+    splits, held = [], []
+    for i, (p, got, want) in enumerate(zip(ref["prompts"], lone,
+                                           ref["ids"])):
+        what = f"serve_tp lone chat {i}"
+        splits.append(greedy_split(torch, state, p, got["token_ids"], want,
+                                   what, cfg=cfg))
+        gaps = forced_gaps(torch, cfg, state, p, got["token_ids"], 0)
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        check(gaps[worst] <= MODEL_TOL[cfg.name],
+              f"{what}: served token {worst} lies {gaps[worst]} below the "
+              f"top of the plain model's logits (> {MODEL_TOL[cfg.name]})")
+        held.append({"tokens": len(gaps), "max_gap": gaps[worst],
+                     "at": worst,
+                     "top": sum(g == 0.0 for g in gaps)})
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "serve_tp", "model": "llama-3-8b", "tp": TP,
+            "startup_s": startup_s, **wave["summary"],
+            "launches": launched,
+            "launches_per_rank": {
+                k: launched[k] // TP
+                for k in ("paged_decode_attention", "paged_prefill_attention")},
+            "launches_per_rank_layer": {
+                k: launched[k] // (TP * layers)
+                for k in ("paged_decode_attention", "paged_prefill_attention")},
+            "decode_steps": 8 * c["window_dispatches"]
+            + c["single_step_dispatches"],
+            "packed_prefill_dispatches": c["packed_prefill_dispatches"],
+            "mesh": ws["mesh"], "tp_devices": ws["tp_devices"],
+            "kv_shard_count": ws["kv_shard_count"], "slice": ws["slice"],
+            "lone_equal_unsharded": [s is None for s in splits],
+            "lone_splits": splits, "lone_teacher_forced": held,
+            "serve": {k: serve[k] for k in ("output_tok_s", "ttft_mean_s",
+                                            "ttft_max_s", "itl_mean_s")},
+            "phase_s": time.monotonic() - t_phase}
 
 
 def _http(url: str, body=None, timeout: float = 600.0):
@@ -2606,7 +2911,7 @@ def serve_observed_phase(torch, serve: dict) -> dict:
     - /debug/traces: each chat's span chain across both processes
       (`trace_chain`);
     - /debug/requests: each chat's ledger covers its TTFT within JAX's
-      coverage bounds;
+      coverage bounds, the wire hops included (the port's `rpc` phase);
     - /debug/deviceprofile?ms=CAPTURE_MS on the worker while a second wave
       runs: the trace's busy share, top ten kernels and five longest idle
       gaps (device_profiler.summarize_trace); K1 and K2 among its kernels;
@@ -2713,7 +3018,7 @@ def serve_observed_phase(torch, serve: dict) -> dict:
 
     # /debug/requests
     by_rid = {e["request_id"]: e for e in ledgers["slowest"]}
-    coverage = []
+    coverage, phases = [], []
     for rid in rids:
         e = by_rid.get(rid)
         check(e is not None and e["ttft_s"], f"serve_observed: no ledger "
@@ -2721,10 +3026,13 @@ def serve_observed_phase(torch, serve: dict) -> dict:
         covered = sum(x["dur"] for x in e["stamps"]
                       if x["phase"] in ledger.TTFT_PHASES)
         coverage.append(covered / e["ttft_s"])
+        phases.append({"ttft_s": e["ttft_s"], **e["phase_totals"]})
+    worst = min(range(len(coverage)), key=coverage.__getitem__)
     check(all(ledger.COVERAGE_FLOOR <= c <= ledger.COVERAGE_CEIL
               for c in coverage),
           f"serve_observed: ledger TTFT coverage {coverage} outside "
-          f"[{ledger.COVERAGE_FLOOR}, {ledger.COVERAGE_CEIL}]")
+          f"[{ledger.COVERAGE_FLOOR}, {ledger.COVERAGE_CEIL}]; chat "
+          f"{worst}'s phases {phases[worst]}")
 
     # /debug/deviceprofile
     check(code == 200 and capture["ok"] and capture["device_events"] > 0,
@@ -2769,6 +3077,9 @@ def serve_observed_phase(torch, serve: dict) -> dict:
                     "hbm_used_bytes": hbm},
         "traces": {"chats": len(chains), "chain": chains[0]},
         "ledger_ttft_coverage": coverage,
+        # The wave's first chat: its TTFT is the shortest, so the wire's
+        # few ms weigh most in its coverage.
+        "ledger_first_chat": phases[0],
         "ledger_dominant_phase": ledgers["dominant_phase"],
         "slo": {"state": slo["state"], "objectives": slo["objectives"]},
         "capture": {"ms": capture["ms"], "trace": capture["trace"],
@@ -3208,10 +3519,11 @@ def stream_chat(base: str, body: dict, headers=None) -> dict:
 
 
 def greedy_split(torch, state, prompt: list, got: list, want: list,
-                 what: str) -> Optional[dict]:
+                 what: str, cfg=None) -> Optional[dict]:
     """`got` must equal `want` token for token, a split allowed only at a
     near tie: at the first differing position both tokens lie within
-    MODEL_TOL of the top of the gather path's logits (`argmax_gap`)."""
+    MODEL_TOL of the top of the gather path's logits (`argmax_gap`) of
+    model `cfg` (llama-3-1b) on `state`."""
     from dynamo_tpu_torch.models.config import get_config
 
     check(len(got) == len(want), f"{what}: {len(got)} tokens, "
@@ -3219,7 +3531,7 @@ def greedy_split(torch, state, prompt: list, got: list, want: list,
     n = leading_equal(got, want)
     if n == len(want):
         return None
-    cfg = get_config("llama-3-1b")
+    cfg = cfg or get_config("llama-3-1b")
     lg = plain_forward(torch, cfg, state, [prompt + want[:n]], False)[0]
     gaps = [((lg.max() - lg[t]) / lg.abs().max()).item()
             for t in (got[n], want[n])]
@@ -4723,9 +5035,10 @@ def ckpt_preprocessor():
     return OpenAIPreprocessor(tok, chat_template=template)
 
 
-def engine_answers(torch, state, pres: list) -> list:
+def engine_answers(torch, state, pres: list, cfg=None) -> list:
     """Greedy ids of each preprocessed request through an in-process
-    engine on `state` (the preset's weights), one at a time."""
+    engine on `state` (the weights of preset `cfg`, llama-3-1b's by
+    default), one at a time."""
     import asyncio
 
     from dynamo_tpu_torch.engine.engine import (
@@ -4735,7 +5048,7 @@ def engine_answers(torch, state, pres: list) -> list:
 
     async def run():
         engine = InferenceEngine(EngineCore(EngineConfig(
-            model=get_config("llama-3-1b"), num_blocks=64,
+            model=cfg or get_config("llama-3-1b"), num_blocks=64,
             scheduler=SchedulerConfig(block_size=BS)), params=state))
         await engine.start()
         out = []
@@ -5142,14 +5455,17 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
         kind = torch.cuda.get_device_name(0)
-        from dynamo_tpu_torch.parallel import default_sp_devices
+        from dynamo_tpu_torch.parallel import default_rank_devices
 
         emit({"phase": "device", "name": kind,
               "count": torch.cuda.device_count(), "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda,
-              # rank -> card of an `--sp 4` ring on this machine
-              "sp_ranks": [str(d) for d in default_sp_devices(
-                  SP, torch.device("cuda", 0))]})
+              # rank -> card of an `--sp 4` ring and of the tp groups
+              # (`--tp 2`, and model_tp's tp 8) on this machine
+              "sp_ranks": [str(d) for d in default_rank_devices(
+                  SP, torch.device("cuda", 0))],
+              "tp_ranks": {n: [str(d) for d in default_rank_devices(
+                  n, torch.device("cuda", 0))] for n in (TP, TP_70B)}})
         phase = "build"
         t0 = time.monotonic()
         times = build.build_all()
@@ -5188,6 +5504,20 @@ def main() -> int:
                 wide[key, tag] = decode_phase(torch, gen, d, quant,
                                               *DECODE_SHAPES[0], hq, hkv)
                 emit({"phase": phase, **wide[key, tag]})
+        # K1 and K2 at the per-rank geometries of the tp groups.
+        tp_attn = {}
+        for quant in (False, True):
+            for tag, hq, hkv, d in TP_GEOMETRY:
+                key = "paged_decode_attention" + ("_int8" if quant else "")
+                phase = f"{key}_{tag}"
+                tp_attn[key, tag] = decode_phase(torch, gen, d, quant,
+                                                 *DECODE_SHAPES[0], hq, hkv)
+                emit({"phase": phase, **tp_attn[key, tag]})
+                key = "paged_prefill_attention" + ("_int8" if quant else "")
+                phase = f"{key}_{tag}"
+                tp_attn[key, tag] = prefill_phase(torch, gen, d, quant, hq,
+                                                  hkv)
+                emit({"phase": phase, **tp_attn[key, tag]})
         ring = {}
         for quant in (False, True):
             for d in (64, 128):
@@ -5228,6 +5558,11 @@ def main() -> int:
         model_spec, embed_ref = model_spec_phase(torch, kernels)
         emit(model_spec)
         torch.cuda.empty_cache()
+        phase = "model_tp"
+        model_tp, tp_ref = model_tp_phase(torch, kernels)
+        for line in model_tp:
+            emit(line)
+        torch.cuda.empty_cache()
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"),
@@ -5241,6 +5576,26 @@ def main() -> int:
                                                  batch_reference(base)))
         serve_embed, serve["batch_reference"] = serve.pop("during")
         emit(serve)
+        phase = "serve_tp"
+        serve_tp = serve_tp_phase(torch, serve, tp_ref)
+        emit(serve_tp)
+        print(f"serve_tp on {'; '.join(smi.splitlines())}: llama-3-8b "
+              f"--tp {TP} (startup {serve_tp['startup_s']:.1f} s): "
+              f"{serve_tp['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve_tp['ttft_mean_s']:.4f} s max "
+              f"{serve_tp['ttft_max_s']:.4f} s, ITL mean "
+              f"{serve_tp['itl_mean_s']:.5f} s, K1 / K2 launches "
+              f"{serve_tp['launches']['paged_decode_attention']} / "
+              f"{serve_tp['launches']['paged_prefill_attention']} "
+              f"({serve_tp['launches_per_rank_layer']} a layer and rank); "
+              f"serve (llama-3-1b, one rank) "
+              f"{serve['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve['itl_mean_s']:.5f} s; model_tp logits rel err "
+              + "; ".join(f"{x['model']} tp {x['tp']} {x['kv_quant']} "
+                          f"{max(x['logits_rel_err']):.4f} (gap "
+                          f"{max(x['argmax_gap']):.4f})" for x in model_tp),
+              flush=True)
         phase = "serve_distributed"
         dist = serve_distributed_phase(serve, serve_embed)
         emit(dist)
@@ -5553,6 +5908,24 @@ def main() -> int:
             launches, frm = moe_int8["launches"]["moe_grouped"], "model_moe int8"
         summary.append(summary_entry(k, name, launches, launches_from=frm,
                                      group_tiles=k["group_tiles"]))
+    # K1 / K2 at the tp groups' per-rank geometries: the bf16 bodies at
+    # tp 2 (Hq 16, Hkv 4) launch on serve_tp's worker, the rest in
+    # model_tp (llama-3-8b's int8 run; llama-3-70b's at tp 8), counts
+    # zeroed just before each run; each rank's launch counts once.
+    model_tp_runs = {(x["tp"], x["kv_quant"]): x for x in model_tp}
+    for (key, tag), k in tp_attn.items():
+        tp = TP if tag == f"tp{TP}" else TP_70B
+        quant = key.endswith("_int8")
+        if tp == TP and not quant:
+            launches, frm = serve_tp["launches"][key], "serve_tp"
+        else:
+            run = model_tp_runs[tp, "int8" if quant else "none"]
+            launches, frm = run["launches"][key], f"model_tp {run['model']}"
+        extra = {"tflops": k["tflops"]} if "tflops" in k else {}
+        if "eager_ms" in k:
+            extra["eager_ms"] = k["eager_ms"]
+        summary.append(summary_entry(k, f"{key}_{tag}", launches,
+                                     launches_from=frm, **extra))
     # K4: launches of serve_sp, the bf16 body from its `--sp 4` server and
     # the int8 body from its `--sp 4 --kv-quant int8` server (llama-3-1b,
     # D 64, T_loc 128; the other shapes give the same body's count).

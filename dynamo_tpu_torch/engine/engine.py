@@ -93,8 +93,21 @@ no-op without one, as in JAX; `qos_demoted_blocks` counts the blocks
 that moved).  A
 drain ends a stream with a `TokenDelta.migrate` hint (llm/drain.py).
 
-Not ported yet: prewarm of the packed prefill shapes, tp/dp/ep/pp meshes
-(and with them MoE all-to-all dispatch) and multimodal prefill.
+`tp > 1` runs every step tensor-parallel over a TpGroup of tp ranks
+(parallel/mesh.py), the JAX engine's head-sharded tp mesh: the weights
+are cut by `parallel.sharding.param_pspecs` (`shard_state`), each rank
+holds its kv heads' columns of the paged cache, and the packed prefill,
+the fused greedy step, the decode window, spec decode's T = K+1 verify
+and `embed_tokens` all run the same sharded forward (models/llama.py),
+whose full-vocab logits land on the engine's device, rank 0's, for the
+sampler.  Block tables, the scheduler and the block manager stay whole;
+the wire block stays the whole cache's.  Every modeled byte the counters
+and the device profiler keep is per chip: `kv_shard_count` (residency)
+and `kv_traffic_shards` (reads) are tp.
+
+Not ported yet: prewarm of the packed prefill shapes; dp, dp-attention,
+ep with MoE all-to-all dispatch (and MoE under tp), pp and sp x tp
+meshes (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -150,11 +163,14 @@ from dynamo_tpu_torch.models.llama import (
 from dynamo_tpu_torch.models.weights import init_params
 from dynamo_tpu_torch.ops.cuda import PACK_ALIGN, ring_kernel_supported
 from dynamo_tpu_torch.ops.moe import resolve_moe_mode
-from dynamo_tpu_torch.parallel.mesh import MeshConfig, SpRing
+from dynamo_tpu_torch.parallel.mesh import MeshConfig, SpRing, TpGroup
 from dynamo_tpu_torch.parallel.sharding import (
     PlaneSpec,
     check_plane,
     make_sp_prefill_step,
+    param_pspecs,
+    shard_state,
+    validate,
 )
 from dynamo_tpu_torch.runtime import (
     contracts,
@@ -241,6 +257,9 @@ class EngineConfig:
     sp: int = 1
     sp_devices: Optional[Tuple[str, ...]] = None
     sp_prefill_threshold: int = 256
+    # Tensor parallelism: tp ranks (1 = off), rank 0 on `device`, a card
+    # a rank where there are tp cards, else round-robin sharing.
+    tp: int = 1
     # Speculative decode (`--spec-decode K`): when > 0, a decode step
     # drafts `speculative_tokens` tokens per row (prompt lookup over
     # `speculative_ngram`-grams, or `drafter`), verifies them in one
@@ -298,19 +317,44 @@ class EngineCore:
         self.cache_cfg = kvc.KvCacheConfig.for_model(
             cfg, num_blocks=config.num_blocks, block_size=self.block_size,
             kv_quant=config.kv_quant)
+        self.mesh = MeshConfig(sp=config.sp, tp=config.tp)
+        self.group: Optional[TpGroup] = None
+        if config.tp > 1:
+            validate(cfg, self.mesh)
+            check_plane(PlaneSpec(moe=cfg.is_moe), self.mesh)
+            self.group = TpGroup.for_mesh(self.mesh, self.device)
+            logger.info("tp group: %d ranks on %s", config.tp,
+                        self.group.describe())
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = init_params(cfg, gen, self.device)
+            # A tp engine's draws are cut into its ranks' slices as they
+            # come (the same weights as the meshless engine's).
+            params = init_params(cfg, gen, self.device, group=self.group)
+        elif self.group is not None:
+            # Each rank keeps a copy of its slice only, copied from where
+            # the whole state lies (best the host: a card then never holds
+            # the whole model beside its slices); dropping the whole state
+            # is the caller's.
+            params = shard_state(params, param_pspecs(cfg), self.group)
+        if self.group is not None:
+            self.cache = kvc.init_rank_caches(self.cache_cfg,
+                                              self.group.devices)
+        else:
+            self.cache = kvc.init_cache(self.cache_cfg, self.device)
         self.params = params
-        self.cache = kvc.init_cache(self.cache_cfg, self.device)
+        # Per-chip divisors of the modeled bytes (JAX's engine): a stored
+        # KV byte splits over kv_shard_count chips, and each chip's
+        # attention reads its heads' columns of every row's context.
+        self.kv_shard_count = self.kv_traffic_shards = config.tp
         self._moe = cfg.is_moe
         self.moe_mode = resolve_moe_mode(cfg, self.device, config.moe_mode)
         self._step = make_forward_step(
             cfg, self.block_size, use_decode_kernel=True,
-            moe_mode=self.moe_mode, with_expert_load=self._moe)
+            moe_mode=self.moe_mode, with_expert_load=self._moe,
+            tp=self.group)
         self._packed_step = make_packed_prefill_step(
-            cfg, self.block_size, moe_mode=self.moe_mode)
+            cfg, self.block_size, moe_mode=self.moe_mode, tp=self.group)
         self.ring: Optional[SpRing] = None
         self._sp_step = None
         if config.sp > 1:
@@ -382,8 +426,10 @@ class EngineCore:
         # modeled cost (_harvest_program); on a card each window's span
         # on the stream is timed by CUDA events read at its sync.
         self.profiler = device_profiler.get_profiler()
-        # Modeled KV bytes a decode step reads per context token.
-        self._ctx_token_bytes = self.cache_cfg.bytes_per_context_token
+        # Modeled KV bytes a decode step reads per context token, per chip.
+        # (tp divides Hkv, so every rank's share is whole.)
+        self._ctx_token_bytes = (self.cache_cfg.bytes_per_context_token
+                                 // self.kv_traffic_shards)
         # First-token timings parked for the serving layer's ledger
         # stamps (request id -> scalars), behind the ledger's guard.
         self._ledger_timings: Dict[str, tuple] = {}
@@ -577,7 +623,8 @@ class EngineCore:
             flops, nbytes = device_profiler.modeled_step_cost(
                 self.config.model, steps=steps, tokens=tokens,
                 kv_tokens=kv_tokens,
-                kv_bytes_per_token=self._ctx_token_bytes)
+                kv_bytes_per_token=self._ctx_token_bytes,
+                shards=self.config.tp)
             self.profiler.harvest(tag, sig, flops, nbytes)
 
     @hot_path
@@ -1111,7 +1158,8 @@ class EngineCore:
             fn = self._window_fns[greedy_only] = make_decode_window(
                 self.config.model, self.block_size, DECODE_WINDOW,
                 use_decode_kernel=True, greedy_only=greedy_only,
-                moe_mode=self.moe_mode, with_expert_load=self._moe)
+                moe_mode=self.moe_mode, with_expert_load=self._moe,
+                tp=self.group)
         return fn
 
     def _dispatch_window(self, work: DecodeWork) -> Optional[List[TokenDelta]]:
@@ -1676,7 +1724,7 @@ class EngineCore:
         if self._embed_step is None:
             self._embed_step = make_forward_step(
                 cfg, self.block_size, moe_mode=self.moe_mode,
-                return_hidden=True)
+                return_hidden=True, tp=self.group)
         sched = self.scheduler.config
         vocab = cfg.vocab_size
         for toks in token_lists:

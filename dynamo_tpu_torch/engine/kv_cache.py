@@ -34,12 +34,21 @@ scales bitcast (little-endian) so pages and scales move as one array.
 `index_select` / `index_copy_` per layer and per K/V (the reference does
 this job with its `block_copy.cu` kernel; in JAX it is XLA slicing, not
 a Pallas kernel).
+
+Under tensor parallelism (parallel/mesh.TpGroup) the cache is a list of
+per-rank caches, JAX's `P(None, "tp")`: rank r holds the head-major
+column band `[S, F/tp]` of every layer (and an int8 cache's scales `[S,
+Hkv/tp]` ride their heads), on its own device; block tables and slots
+are shared.  `extract_blocks` / `inject_blocks` join and split the
+ranks' columns, so the wire block stays the whole cache's: a tp 2 worker
+and a tp 1 worker exchange the same bytes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -126,6 +135,11 @@ class KvCacheConfig:
             per = self.feature_dim * self.dtype.itemsize
         return 2 * self.num_layers * per
 
+    def for_rank(self, tp: int) -> "KvCacheConfig":
+        """The cache one of tp ranks holds: its Hkv / tp heads (tp divides
+        Hkv: `parallel.sharding.validate` holds that rule)."""
+        return dataclasses.replace(self, num_kv_heads=self.num_kv_heads // tp)
+
     @staticmethod
     def for_model(config: ModelConfig, num_blocks: int,
                   block_size: int = 64,
@@ -162,9 +176,21 @@ def init_cache(cfg: KvCacheConfig, device: Union[str, torch.device]) -> dict:
     return cache
 
 
-def cache_is_quantized(cache: dict) -> bool:
-    """The cache dict's keys are the mode bit."""
-    return "k_scale" in cache
+def init_rank_caches(cfg: KvCacheConfig,
+                     devices: Sequence[torch.device]) -> List[dict]:
+    """A tp group's cache: one `init_cache` of `cfg.for_rank(tp)` on each
+    rank's device."""
+    rank = cfg.for_rank(len(devices))
+    return [init_cache(rank, d) for d in devices]
+
+
+def _ranks(cache) -> List[dict]:
+    return cache if isinstance(cache, list) else [cache]
+
+
+def cache_is_quantized(cache) -> bool:
+    """The cache dict's keys are the mode bit (a tp cache: its ranks')."""
+    return "k_scale" in _ranks(cache)[0]
 
 
 def _page_slots(pages: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -173,47 +199,61 @@ def _page_slots(pages: torch.Tensor, block_size: int) -> torch.Tensor:
     return (pages.long()[:, None] * block_size + offs).reshape(-1)
 
 
-def extract_blocks(cache: dict, pages: torch.Tensor,
+def extract_blocks(cache, pages: torch.Tensor,
                    block_size: int) -> torch.Tensor:
-    """The wire blocks of `pages` ([n] page ids on the cache's device) as
-    one new tensor [n, 2, L, bs, F'] that shares no storage with the
-    cache: F' = F at the cache dtype, or F + 4 * Hkv packed int8."""
+    """The wire blocks of `pages` ([n] page ids on the cache's device,
+    rank 0's for a tp cache) as one new tensor [n, 2, L, bs, F'] that
+    shares no storage with the cache: F' = F at the cache dtype, or F +
+    4 * Hkv packed int8."""
     slots = _page_slots(pages, block_size)
     n = pages.shape[0]
+    ranks = _ranks(cache)
     quant = cache_is_quantized(cache)
+    rank_slots = [slots.to(c["k"][0].device) for c in ranks]
+
+    def cols(kind: str, layer: int) -> torch.Tensor:
+        parts = [c[kind][layer].index_select(0, s).to(slots.device)
+                 for c, s in zip(ranks, rank_slots)]
+        return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
     def rows(kind: str, layer: int) -> torch.Tensor:
-        q = cache[kind][layer].index_select(0, slots)     # [n * bs, F]
+        q = cols(kind, layer)                              # [n * bs, F]
         if quant:
-            s = cache[f"{kind}_scale"][layer].index_select(0, slots)
+            s = cols(f"{kind}_scale", layer)               # [n * bs, Hkv]
             q = torch.cat([q, s.view(torch.int8)], dim=1)  # [n*bs, F+4H]
         return q.view(n, block_size, -1)
 
-    L = len(cache["k"])
+    L = len(ranks[0]["k"])
     return torch.stack([torch.stack([rows(kind, layer) for layer in range(L)],
                                     dim=1)
                         for kind in ("k", "v")], dim=1)
 
 
-def inject_blocks(cache: dict, pages: torch.Tensor, data: torch.Tensor,
+def inject_blocks(cache, pages: torch.Tensor, data: torch.Tensor,
                   block_size: int) -> None:
     """Write wire blocks `data` [n, 2, L, bs, F'] into `pages` ([n] page
-    ids) in place, unpacking the int8 scales.  The caller has checked the
-    format (`EngineCore._validate_block`)."""
+    ids) in place, unpacking the int8 scales and splitting a tp cache's
+    columns over its ranks.  The caller has checked the format
+    (`EngineCore._validate_block`)."""
     slots = _page_slots(pages, block_size)
     n = pages.shape[0]
+    ranks = _ranks(cache)
     quant = cache_is_quantized(cache)
-    F = cache["k"][0].shape[1]
+    f = ranks[0]["k"][0].shape[1]                  # one rank's columns
+    h = ranks[0]["k_scale"][0].shape[1] if quant else 0
+    F = f * len(ranks)
     for i, kind in enumerate(("k", "v")):
-        for layer, buf in enumerate(cache[kind]):
+        for layer in range(len(ranks[0][kind])):
             d = data[:, i, layer].reshape(n * block_size, -1)
-            if not quant:
-                buf.index_copy_(0, slots, d.to(buf.dtype))
-                continue
-            d = d.to(torch.int8)
-            buf.index_copy_(0, slots, d[:, :F])
-            scale = d[:, F:].contiguous().view(torch.float32)  # [n*bs, H]
-            cache[f"{kind}_scale"][layer].index_copy_(0, slots, scale)
+            d = d.to(torch.int8 if quant else ranks[0][kind][0].dtype)
+            for r, c in enumerate(ranks):
+                dev = c[kind][layer].device
+                s = slots.to(dev)
+                c[kind][layer].index_copy_(0, s, d[:, r * f:(r + 1) * f].to(dev))
+                if quant:
+                    scale = d[:, F + 4 * r * h: F + 4 * (r + 1) * h]
+                    c[f"{kind}_scale"][layer].index_copy_(
+                        0, s, scale.contiguous().view(torch.float32).to(dev))
 
 
 def slots_for_positions(block_tables: torch.Tensor,  # [B, P] int

@@ -13,8 +13,10 @@ largest candidate's, and `pick_donor` orders remote-prefix donors by
 `donor_preference_key`: reachable over the device fabric first, then
 coverage, then free memory, then the stable id.
 
-The planner checks `validate_placement` before it spawns a worker.  Not
-ported: the `--slice` parser and `place_role` (they come with tp/dp/ep/pp).
+The planner checks `validate_placement` before it spawns a worker.  A
+`--tp N` worker publishes its tp degree in `mesh` ("tp2"), and each
+rank's share of the cards' memory as `hbm_per_chip_bytes`.  Not ported:
+the `--slice` parser and `place_role` (they come with dp/ep/pp).
 """
 
 from __future__ import annotations

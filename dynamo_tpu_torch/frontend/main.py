@@ -464,6 +464,12 @@ def stats_hooks(core: EngineCore):
                 "sp": core.config.sp,
                 "sp_devices": (core.ring.describe() if core.ring is not None
                                else []),
+                # Tensor parallelism: the mesh, the rank -> device map and
+                # the chips one stored KV byte splits over.
+                "mesh": core.mesh.describe(),
+                "tp_devices": (core.group.describe()
+                               if core.group is not None else []),
+                "kv_shard_count": core.kv_shard_count,
                 "prefix_cache": core.prefix_cache_stats(),
                 "spec_decode": spec_decode_stats(core),
                 "mixed_prefill": core.mixed_prefill_stats(),

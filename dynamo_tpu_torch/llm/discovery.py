@@ -169,6 +169,12 @@ def engine_wire_handler(engine_client, request_metrics=None) -> Callable:
         last_t = None
         finished_ok = None
         observe = True
+        if hop_ledger is not None:
+            # The hop's intake up to the engine's submission: with the
+            # engine's stamps it tiles the hop's time to its first token,
+            # which the frontend's `rpc` stamp takes off its round trip.
+            hop_ledger.stamp("receive", dur=start - hop_ledger.anchor,
+                             t=start)
         try:
             async for delta in engine_client.generate(req):
                 if delta.migrate is not None:
@@ -247,11 +253,16 @@ class RemoteEngineClient:
     async def generate(
         self, request: PreprocessedRequest
     ) -> AsyncIterator[TokenDelta]:
+        sent = time.monotonic()
+        first = None
         async for d in self.client.generate(request_to_wire(request)):
             delta = delta_from_wire(d)
             delta.request_id = request.request_id
+            if first is None and delta.token_ids:
+                first = time.monotonic()
             # Fold a returned hop ledger into the frontend's live one.
-            ledger_mod.absorb_delta(request, delta, where="remote_client")
+            ledger_mod.absorb_delta(request, delta, where="remote_client",
+                                    sent=sent, first=first)
             yield delta
 
     async def clear_kv_blocks(self) -> int:

@@ -303,9 +303,9 @@ class KvRoutedEngineClient:
     async def generate(
         self, request: PreprocessedRequest
     ) -> AsyncIterator[TokenDelta]:
+        route_t0 = time.monotonic()
         workers = self._sync_workers()
         led = ledger_mod.ledger_of(request)
-        route_t0 = time.monotonic()
         # The routing decision's span: which worker won, the overlap it
         # won on, the selector's cost and candidate count.
         route_span = tracing.get_tracer().start_span(
@@ -329,29 +329,31 @@ class KvRoutedEngineClient:
             candidates=(ev.candidates if ev is not None else len(workers)),
             cost=(round(ev.cost, 3) if ev is not None else None),
             remote_prefix_donor=donor_id)
+        sent = time.monotonic()
         if led is not None:
             attrs = {"worker": int(worker_id),
                      "overlap_blocks": int(overlap)}
             if donor_id is not None:
                 attrs["donor"] = int(donor_id)
-            led.stamp("route", dur=time.monotonic() - route_t0, **attrs)
+            led.stamp("route", dur=sent - route_t0, t=sent, **attrs)
         logger.debug("kv-routed %s → worker %s (overlap %d blocks)",
                      request.request_id, worker_id, overlap)
         self._publish_seq("add", request.request_id, worker=worker_id,
                           isl=len(request.token_ids), overlap=overlap,
                           expected=request.sampling.max_tokens)
-        first = True
+        first = None
         try:
             async for d in self.client.direct(self._to_wire(request),
                                               worker_id):
                 delta = self._from_wire(d)
                 delta.request_id = request.request_id
-                ledger_mod.absorb_delta(request, delta, where="kv_router")
+                if delta.token_ids and first is None:
+                    first = time.monotonic()
+                    self.router.mark_prefill_complete(request.request_id)
+                    self._publish_seq("prefill", request.request_id)
+                ledger_mod.absorb_delta(request, delta, where="kv_router",
+                                        sent=sent, first=first)
                 if delta.token_ids:
-                    if first:
-                        self.router.mark_prefill_complete(request.request_id)
-                        self._publish_seq("prefill", request.request_id)
-                        first = False
                     self.router.push_token(request.request_id,
                                            len(delta.token_ids))
                 if delta.migrate is not None:

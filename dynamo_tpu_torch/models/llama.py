@@ -24,6 +24,15 @@ Forward contract (unified prefill/decode, as in the JAX package):
   ops on its T / sp slice and attention runs on the ring, through the
   flash-fold kernel (ops/cuda/ring_attention.py) where `sp_ring_kernel`
   asks for it and the geometry rule passes, else through the plain ring.
+- `tp` (a parallel.mesh.TpGroup) runs the step tensor-parallel, the JAX
+  package's Megatron split (parallel/sharding.py): `state` and `cache`
+  are then lists of per-rank states and caches (`shard_state`), each
+  rank projects its own heads and MLP columns on its own stream and
+  attends its own cache shard through its own K1 / K2 call, the
+  row-parallel products (wo, w_down) and the vocab-sharded embedding
+  lookup are summed by `all_reduce`, and the vocab-sharded logits are
+  gathered on rank 0 (`all_gather`).  A meshless call is the group of
+  one rank, whose collectives are the identity.
 - MoE layers run `moe_mode` "dense" (the exact oracle) or "grouped" (the
   grouped-expert kernel, ops/cuda/moe_grouped.py) and give an [E+1]
   expert-load stats vector each; `with_expert_load` (and the packed
@@ -177,7 +186,24 @@ def _dense_mlp(p: State, x: torch.Tensor, activation: str = "silu") -> torch.Ten
 def _embed(cfg: ModelConfig, state: State, tokens: torch.Tensor,
            input_embeds: Optional[torch.Tensor] = None,
            embed_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = state["embed"][tokens.long()]
+    return _embed_finish(cfg, state["embed"][tokens.long()], input_embeds,
+                         embed_mask)
+
+
+def _embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+                start: int) -> torch.Tensor:
+    """One rank's part of a vocab-sharded lookup: the rows of the tokens
+    in [start, start + rows) of its slice, zero for every other token, so
+    that the ranks' parts sum to the whole lookup exactly."""
+    local = tokens.long() - start
+    hit = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return torch.where(hit[..., None], rows, torch.zeros_like(rows))
+
+
+def _embed_finish(cfg: ModelConfig, x: torch.Tensor,
+                  input_embeds: Optional[torch.Tensor] = None,
+                  embed_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     if input_embeds is not None:
         # Multimodal prefill: masked positions take the given embeddings
         # (an encode worker's output) in place of the token lookup.
@@ -199,26 +225,45 @@ def _moe_block(cfg: ModelConfig, p: State, x: torch.Tensor,
     return moe_ops.moe_dense(cfg, p, x)
 
 
-def _layer_tail(cfg: ModelConfig, layer: State, x: torch.Tensor,
-                attn_out: torch.Tensor, moe_mode: str,
-                loads: List[torch.Tensor]) -> torch.Tensor:
-    """Residual add of the attention output, then the MLP or MoE
-    sub-block; a MoE layer appends its [E+1] stats to `loads`."""
+def _mlp_in(cfg: ModelConfig, layer: State, x: torch.Tensor,
+            attn_out: torch.Tensor):
+    """Residual add of the (summed) attention output: (x, the MLP's
+    normed input)."""
     off = cfg.rms_offset
     if cfg.post_norms:
         attn_out = rms_norm(attn_out, layer["post_attn_norm"],
                             cfg.rms_norm_eps, off)
     x = x + attn_out
-    h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps, off)
+    return x, rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps, off)
+
+
+def _mlp(cfg: ModelConfig, layer: State, h: torch.Tensor, moe_mode: str,
+         loads: List[torch.Tensor]) -> torch.Tensor:
+    """The MLP or MoE sub-block (a rank's row-parallel partial under tp);
+    a MoE layer appends its [E+1] stats to `loads`."""
     if cfg.is_moe:
-        moe_out, load = _moe_block(cfg, layer["moe"], h, moe_mode)
+        out, load = _moe_block(cfg, layer["moe"], h, moe_mode)
         loads.append(load)
-        return x + moe_out
-    mlp_out = _dense_mlp(layer["mlp"], h, cfg.activation)
+        return out
+    return _dense_mlp(layer["mlp"], h, cfg.activation)
+
+
+def _mlp_out(cfg: ModelConfig, layer: State, x: torch.Tensor,
+             mlp_out: torch.Tensor) -> torch.Tensor:
+    """Residual add of the (summed) MLP output."""
     if cfg.post_norms:
         mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"],
-                           cfg.rms_norm_eps, off)
+                           cfg.rms_norm_eps, cfg.rms_offset)
     return x + mlp_out
+
+
+def _layer_tail(cfg: ModelConfig, layer: State, x: torch.Tensor,
+                attn_out: torch.Tensor, moe_mode: str,
+                loads: List[torch.Tensor]) -> torch.Tensor:
+    """Residual add of the attention output, then the MLP or MoE
+    sub-block, on one rank that holds the whole layer."""
+    x, h = _mlp_in(cfg, layer, x, attn_out)
+    return _mlp_out(cfg, layer, x, _mlp(cfg, layer, h, moe_mode, loads))
 
 
 def _expert_load(loads: List[torch.Tensor],
@@ -403,6 +448,136 @@ def _sp_forward(cfg: ModelConfig, block_size: int, ring, use_kernel: bool,
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel ranks (a meshless step is the group of one)
+
+
+def rank_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The geometry one rank of a tp group computes: its query and kv
+    heads, its intermediate columns and its vocab slice."""
+    if tp == 1:
+        return cfg
+    return cfg.replace(num_heads=cfg.num_heads // tp,
+                       num_kv_heads=cfg.num_kv_heads // tp,
+                       intermediate_size=cfg.intermediate_size // tp,
+                       vocab_size=cfg.vocab_size // tp)
+
+
+def _group(tp):
+    """The step's TpGroup: `tp`, or the group of one rank."""
+    if tp is not None:
+        return tp
+    from dynamo_tpu_torch.parallel.mesh import SINGLE
+
+    return SINGLE
+
+
+def _check_tp(cfg: ModelConfig, group, sp_ring=None) -> None:
+    """The mesh's and the capability table's refusals of a tp step
+    (parallel/mesh.py, parallel/sharding.py)."""
+    if group.tp == 1:
+        return
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+    from dynamo_tpu_torch.parallel.sharding import PlaneSpec, check_plane
+
+    mesh = MeshConfig(sp=sp_ring.sp if sp_ring is not None else 1,
+                      tp=group.tp)
+    check_plane(PlaneSpec(moe=cfg.is_moe), mesh)
+
+
+def _shards(group, state, cache):
+    """(per-rank states, per-rank caches): a tp step takes lists, a
+    meshless one the state and cache themselves."""
+    if group.tp == 1:
+        return [state], [cache]
+    if not isinstance(state, list) or len(state) != group.tp:
+        raise ValueError(f"a tp={group.tp} step takes a list of "
+                         f"{group.tp} rank states (shard_state)")
+    return state, cache
+
+
+def _replicas(group, *tensors):
+    """Each tensor (on rank 0's card, made on the caller's stream) as a
+    per-rank list; None stays None on every rank."""
+    return [group.replicate(t) if t is not None else [None] * group.tp
+            for t in tensors]
+
+
+def _tp_embed(cfg: ModelConfig, group, states, toks, embeds, masks):
+    """The embeddings on every rank: each rank looks up the tokens of
+    its vocab slice, and the parts sum to the whole lookup."""
+    if group.tp == 1:
+        return [_embed(cfg, states[0], toks[0], embeds[0], masks[0])]
+    rows = states[0]["embed"].shape[0]
+    parts = []
+    for r in range(group.tp):
+        with group.on(r):
+            parts.append(_embed_rows(states[r]["embed"], toks[r], r * rows))
+    xs = group.all_reduce(parts)
+    out = []
+    for r in range(group.tp):
+        with group.on(r):
+            out.append(_embed_finish(cfg, xs[r], embeds[r], masks[r]))
+    return out
+
+
+def _tp_layers(cfg: ModelConfig, group, states, xs, attend, moe_mode: str,
+               loads: List[torch.Tensor]):
+    """Every decoder layer over the ranks: `attend(r, i, p_attn, h)` is
+    rank r's partial of layer i's attention output (through its rows of
+    wo); the partials and the MLP's are summed by `all_reduce`, and the
+    norms and residual adds run on every rank's replica.  A group of one
+    runs each layer straight through (`_layer_tail`): the rank loops and
+    the identity collectives cost its host ~5% a decode step
+    (`step_ab.py`, PERF.md §6)."""
+    off = cfg.rms_offset
+    if group.tp == 1:
+        x = xs[0]
+        for i, layer in enumerate(states[0]["layers"]):
+            attn = attend(0, i, layer["attn"], rms_norm(
+                x, layer["attn_norm"], cfg.rms_norm_eps, off))
+            x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
+        return [x]
+    ranks = range(group.tp)
+    for i in range(cfg.num_layers):
+        parts = []
+        for r in ranks:
+            with group.on(r):
+                layer = states[r]["layers"][i]
+                parts.append(attend(r, i, layer["attn"], rms_norm(
+                    xs[r], layer["attn_norm"], cfg.rms_norm_eps, off)))
+        attn = group.all_reduce(parts)
+        parts = []
+        for r in ranks:
+            with group.on(r):
+                layer = states[r]["layers"][i]
+                xs[r], h = _mlp_in(cfg, layer, xs[r], attn[r])
+                parts.append(_mlp(cfg, layer, h, moe_mode, loads))
+        mlp = group.all_reduce(parts)
+        for r in ranks:
+            with group.on(r):
+                xs[r] = _mlp_out(cfg, states[r]["layers"][i], xs[r], mlp[r])
+    return xs
+
+
+def _tp_head(cfg: ModelConfig, rcfg: ModelConfig, group, states, xs,
+             select, hidden: bool) -> torch.Tensor:
+    """The final norm, `select(r, x)` (the sampled rows), then the hidden
+    state of rank 0 (`hidden`) or the full-vocab logits gathered from
+    the ranks' columns, on rank 0."""
+    outs = []
+    for r in range(group.tp):
+        with group.on(r):
+            x = select(r, rms_norm(xs[r], states[r]["final_norm"],
+                                   cfg.rms_norm_eps, cfg.rms_offset))
+            outs.append(x if hidden else _lm_head(rcfg, states[r], x))
+    if hidden:
+        # The last token's final-norm hidden state is the embedding (the
+        # causal-LM convention).
+        return outs[0].float()
+    return group.all_gather(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Forward
 
 
@@ -412,7 +587,8 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                       with_expert_load: bool = False,
                       sp_ring=None,
                       sp_ring_kernel: bool = False,
-                      return_hidden: bool = False):
+                      return_hidden: bool = False,
+                      tp=None):
     """The unified prefill/decode step for one cache geometry.  With
     `use_decode_kernel`, T == 1 calls attend through the paged-decode
     kernel (its plain version for CPU tensors); everything else takes the
@@ -427,6 +603,9 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     eligible geometry through the flash-fold kernel in place of the plain
     ring.
 
+    `tp` (a TpGroup): the tensor-parallel step over per-rank states and
+    caches (module docstring); inputs and outputs lie on rank 0's card.
+
     `return_hidden` (the embeddings step): the step returns the
     final-norm hidden state at `sample_positions` in f32 ([B, H]) in
     place of the logits and skips the LM head."""
@@ -434,6 +613,9 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     if return_hidden and (sp_ring is not None or with_expert_load):
         raise ValueError("return_hidden takes neither sp_ring nor "
                          "with_expert_load")
+    group = _group(tp)
+    _check_tp(cfg, group, sp_ring)
+    rcfg = rank_config(cfg, group.tp)
 
     def step(state: State, cache: Dict, tokens: torch.Tensor,
              positions: torch.Tensor, seq_lens: torch.Tensor,
@@ -448,6 +630,7 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
             return _sp_forward(cfg, block_size, sp_ring, sp_ring_kernel,
                                state, cache, tokens, positions, block_tables,
                                sample_positions)
+        states, caches = _shards(group, state, cache)
         P = block_tables.shape[1]
         block_tables = block_tables.to(torch.int32)
         seq_lens = seq_lens.to(torch.int32)
@@ -460,29 +643,33 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                 P * block_size, device=tokens.device).expand(B, P * block_size)
             ctx_slots = kvc.slots_for_positions(block_tables, ctx_positions,
                                                 block_size)
-        x = _embed(cfg, state, tokens, input_embeds, embed_mask)
-        rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        off = cfg.rms_offset
+        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        group.fork()
+        (tok, pos, sl, bt, ws, cs, cp, smp, emb, msk, cos, sin) = _replicas(
+            group, tokens, positions, seq_lens, block_tables, write_slots,
+            ctx_slots, ctx_positions, sample_positions, input_embeds,
+            embed_mask, cos, sin)
+        xs = _tp_embed(cfg, group, states, tok, emb, msk)
+
+        def attend(r, i, p_attn, h):
+            c = caches[r]
+            return _attention_block(
+                rcfg, p_attn, h, pos[r], (cos[r], sin[r]), sl[r], ws[r],
+                cs[r], cp[r], bt[r], block_size, c["k"][i], c["v"][i],
+                *_layer_scales(c, i))
+
+        def select(r, x):
+            if sample_positions is None:
+                return x
+            return x[torch.arange(B, device=x.device), smp[r].long()]
+
         loads: List[torch.Tensor] = []
-        for i, layer in enumerate(state["layers"]):
-            attn_out = _attention_block(
-                cfg, layer["attn"],
-                rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off),
-                positions, rot, seq_lens, write_slots, ctx_slots, ctx_positions,
-                block_tables, block_size, cache["k"][i], cache["v"][i],
-                *_layer_scales(cache, i))
-            x = _layer_tail(cfg, layer, x, attn_out, moe_mode, loads)
-        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
-        if sample_positions is not None:
-            x = x[torch.arange(B, device=x.device), sample_positions.long()]
-        if return_hidden:
-            # The last token's final-norm hidden state is the embedding
-            # (the causal-LM convention).
-            return x.float(), cache
-        logits = _lm_head(cfg, state, x)
+        xs = _tp_layers(cfg, group, states, xs, attend, moe_mode, loads)
+        out = _tp_head(cfg, rcfg, group, states, xs, select, return_hidden)
+        group.join()
         if with_expert_load:
-            return logits, cache, _expert_load(loads, x.device)
-        return logits, cache
+            return out, cache, _expert_load(loads, out.device)
+        return out, cache
 
     return step
 
@@ -492,7 +679,7 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
 
 
 def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
-                             moe_mode: str = "dense"):
+                             moe_mode: str = "dense", tp=None):
     """Packed ragged prefill: several sequences' chunks ride one flat [T]
     token axis ("segments") and attention runs through the paged-prefill
     kernel straight from the block pool.
@@ -507,45 +694,54 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
     A MoE model's step returns a third output, the [E+1] expert load.
     `input_embeds [T, H]` with `embed_mask [T]` (the multimodal prefill):
     masked positions take those embeddings in place of the token lookup;
-    a batch mixes such segments with plain ones freely."""
+    a batch mixes such segments with plain ones freely.  `tp` (a
+    TpGroup): each rank runs the kernel on its heads and cache shard."""
     cfg.validate()
+    group = _group(tp)
+    _check_tp(cfg, group)
+    rcfg = rank_config(cfg, group.tp)
 
     def step(state, cache, tokens, positions, seg_ids, block_tables,
              q_starts, q_lens, seq_lens, sample_positions,
              input_embeds=None, embed_mask=None):
         T = tokens.shape[0]
+        states, caches = _shards(group, state, cache)
         block_tables = block_tables.to(torch.int32)
         bt_tok = block_tables[seg_ids.long()]                     # [T, P]
         write_slots = kvc.slots_for_positions(
             bt_tok, positions[:, None], block_size).reshape(T)
-        x = _embed(cfg, state, tokens, input_embeds,
-                   embed_mask)[None]                               # [1, T, H]
-        rot = rope_tables(positions[None], cfg.head_dim, cfg.rope_theta)
-        off = cfg.rms_offset
-        args = (block_tables, seq_lens.to(torch.int32),
-                q_starts.to(torch.int32), q_lens.to(torch.int32))
-        loads: List[torch.Tensor] = []
-        for i, layer in enumerate(state["layers"]):
-            p_attn = layer["attn"]
-            h_in = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off)
-            q, k, v = _qkv(cfg, p_attn, h_in, rot)
-            ks, vs = _layer_scales(cache, i)
-            _write_chunk(cache["k"][i], cache["v"][i], ks, vs,
-                         write_slots, k.reshape(T, cfg.kv_size),
-                         v.reshape(T, cfg.kv_size))
+        cos, sin = rope_tables(positions[None], cfg.head_dim, cfg.rope_theta)
+        group.fork()
+        (tok, ws, bt, sl, qs, ql, smp, emb, msk, cos, sin) = _replicas(
+            group, tokens, write_slots, block_tables,
+            seq_lens.to(torch.int32), q_starts.to(torch.int32),
+            q_lens.to(torch.int32), sample_positions, input_embeds,
+            embed_mask, cos, sin)
+        xs = [x[None] for x in _tp_embed(cfg, group, states, tok, emb,
+                                         msk)]                    # [1, T, H]
+
+        def attend(r, i, p_attn, h):
+            c = caches[r]
+            ks, vs = _layer_scales(c, i)
+            q, k, v = _qkv(rcfg, p_attn, h, (cos[r], sin[r]))
+            _write_chunk(c["k"][i], c["v"][i], ks, vs, ws[r],
+                         k.reshape(T, rcfg.kv_size),
+                         v.reshape(T, rcfg.kv_size))
             # Write-then-attend: the chunk's own K/V are pool rows now, so
             # cached prefix and in-chunk causality are one position mask.
             attn = paged_prefill_attention(
-                q[0].contiguous(), cache["k"][i], cache["v"][i], *args,
-                block_size=block_size, scale=cfg.query_scale,
-                soft_cap=cfg.attn_soft_cap, k_scale=ks, v_scale=vs)
-            attn = attn.reshape(1, T, cfg.q_size) @ p_attn["wo"]
-            x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
-        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
-        sel = x[0][sample_positions.long()]                       # [R, H]
-        logits = _lm_head(cfg, state, sel)
+                q[0].contiguous(), c["k"][i], c["v"][i], bt[r], sl[r], qs[r],
+                ql[r], block_size=block_size, scale=rcfg.query_scale,
+                soft_cap=rcfg.attn_soft_cap, k_scale=ks, v_scale=vs)
+            return attn.reshape(1, T, rcfg.q_size) @ p_attn["wo"]
+
+        loads: List[torch.Tensor] = []
+        xs = _tp_layers(cfg, group, states, xs, attend, moe_mode, loads)
+        logits = _tp_head(cfg, rcfg, group, states, xs,
+                          lambda r, x: x[0][smp[r].long()], False)  # [R, V]
+        group.join()
         if cfg.is_moe:
-            return logits, cache, _expert_load(loads, x.device)
+            return logits, cache, _expert_load(loads, logits.device)
         return logits, cache
 
     return step
@@ -559,7 +755,7 @@ def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
                        use_decode_kernel: bool = False,
                        greedy_only: bool = False,
                        moe_mode: str = "dense",
-                       with_expert_load: bool = False):
+                       with_expert_load: bool = False, tp=None):
     """K decode steps per call with the sampled token fed back on the
     device (a Python loop in place of JAX's `fori_loop`; no host sync
     inside).
@@ -573,11 +769,13 @@ def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
     i is keyed by (seeds[b], key_offsets[b] + i) (see sampling.sample);
     greedy rows carry seed None.  Pad rows (seq_lens0 == 0) stay dead: their
     positions and lengths do not advance.  `with_expert_load` appends the
-    window's summed [E+1] expert load to the returned tuple."""
+    window's summed [E+1] expert load to the returned tuple.  `tp` (a
+    TpGroup): every step runs tensor-parallel and samples the gathered
+    full-vocab logits on rank 0's card."""
     from dynamo_tpu_torch.engine.sampling import sample
 
     step = make_forward_step(cfg, block_size, use_decode_kernel, moe_mode,
-                             with_expert_load)
+                             with_expert_load, tp=tp)
 
     def run(state, cache, last_tokens, positions0, seq_lens0, block_tables,
             temp, top_k, top_p, seeds: Sequence, key_offsets: Sequence):

@@ -10,11 +10,18 @@ The state is a plain nested dict with the same names and shapes as
 int8), the norm vectors, and `lm_head [H, V]` when embeddings are untied —
 so a weight crosses over by name with no transposes.  Matrices are
 `[in, out]` (`x @ w`).
+
+A tensor-parallel engine holds one such state per rank, each tensor cut
+along the axis `parallel.sharding.param_pspecs` names (`shard_state`).
+No card should hold the whole model beside its slices, so the whole
+state reaches `shard_state` from the host (`from_jax_params(params,
+"cpu")`, a checkpoint's memory map), or `init_params` is given the
+group and cuts each layer and table as soon as it is drawn.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -25,16 +32,38 @@ State = Dict
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: Union[str, torch.device]) -> State:
+                device: Union[str, torch.device],
+                group=None) -> Union[State, List[State]]:
     """Random-init state with the JAX package's shapes and std
     (fan_in ** -0.5, norms at 1), drawn from `generator` directly on
     `device` (the generator must live on that device).  The draws are
     torch's, not JAX's: parity tests carry JAX weights across with
-    `from_jax_params` instead."""
+    `from_jax_params` instead.
+
+    With a tp `group` (parallel.mesh.TpGroup) the result is the ranks'
+    states, `shard_state` of the same draws: each layer and each table
+    is cut into the ranks' slices as soon as it is drawn and then
+    dropped, so `device` holds at most one whole layer or table beside
+    the slices."""
     cfg.validate()
     dtype = cfg.dtype
     device = torch.device(device)
     h = cfg.hidden_size
+    specs = None
+    if group is not None:
+        from dynamo_tpu_torch.parallel.sharding import (
+            param_pspecs, shard_state)
+
+        specs = param_pspecs(cfg)
+
+    def keep(piece, *path):
+        """The whole piece, or its ranks' slices (a list)."""
+        if specs is None:
+            return piece
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return shard_state(piece, spec, group)
 
     def dense(fan_in, *shape):
         # One tensor at a time in f32, scaled in place: the f32 peak is one
@@ -47,7 +76,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.ones((n,), device=device, dtype=dtype)
 
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         layer = {
             "attn": {
                 "wq": dense(h, h, cfg.q_size),
@@ -76,15 +105,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.post_norms:
             layer["post_attn_norm"] = ones(h)
             layer["post_mlp_norm"] = ones(h)
-        layers.append(layer)
-    state: State = {
-        "embed": dense(h, cfg.vocab_size, h),
-        "final_norm": ones(h),
-        "layers": layers,
-    }
-    if not cfg.tie_embeddings:
-        state["lm_head"] = dense(h, h, cfg.vocab_size)
-    return state
+        layers.append(keep(layer, "layers", i))
+        del layer   # a whole layer is gone before the next is drawn
+    embed = keep(dense(h, cfg.vocab_size, h), "embed")
+    norm = keep(ones(h), "final_norm")
+    head = (None if cfg.tie_embeddings
+            else keep(dense(h, h, cfg.vocab_size), "lm_head"))
+
+    def state(pick) -> State:
+        out = {"embed": pick(embed), "final_norm": pick(norm),
+               "layers": [pick(layer) for layer in layers]}
+        if head is not None:
+            out["lm_head"] = pick(head)
+        return out
+
+    if group is None:
+        return state(lambda piece: piece)
+    return [state(lambda piece, r=r: piece[r]) for r in range(group.tp)]
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
@@ -102,7 +139,9 @@ def from_jax_params(params, device: Union[str, torch.device]) -> State:
     """The JAX parameter pytree, as numpy arrays (`jax.device_get`),
     turned into the port's state by name.  Nested dicts and lists keep
     their structure; every leaf becomes a tensor of the same dtype on
-    `device`."""
+    `device`.  For a tp group, `device` "cpu": `shard_state` (or
+    `EngineCore(params=...)`) then copies each rank's slice from the
+    host straight to its card."""
     if isinstance(params, dict):
         return {k: from_jax_params(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

@@ -1,29 +1,40 @@
-"""The port's mesh: the five named axes, and the sequence-parallel ring.
+"""The port's mesh: the five named axes, the sequence-parallel ring and
+the tensor-parallel group.
 
 `MeshConfig` keeps the JAX package's axis order (dp, pp, sp, ep, tp) and
-its `describe()`.  Only `sp` is wired in the port so far; any other axis
-above 1 raises, naming the roadmap item that queues it.
+its `describe()`.  `sp` and `tp` are wired in the port, one at a time:
+`sp x tp`, and any dp, ep or pp above 1, raise, naming the roadmap item
+that queues it.
 
 A JAX mesh is an array of devices, one program each, so it can be no
 larger than the devices it is made of.  A CUDA card runs many streams, so
-the port's ring is made of RANKS instead: `SpRing` takes a list of
-`torch.device`s, one per rank, which may name one card several times.
-Rank r owns a compute stream (its slice's token-wise ops and its folds)
-and a copy stream (the block it sends to rank `(r + 1) % sp`), and two
-receive slots per block geometry.  Copies between ranks on one card are
-device-to-device copies that run beside the compute stream; between
-cards the same `Tensor.copy_` is a peer copy.  The whole ring lives in
+the port's meshes are made of RANKS instead: a list of `torch.device`s,
+one per rank, which may name one card several times.  Each mesh lives in
 one process and is driven by one host thread: there is no
 `torch.distributed` and no NCCL here, which would refuse two ranks on one
-card.
+card.  Nothing below waits on the host.
 
-Slot discipline, as the TPU kernel's double buffer: at hop h a rank
-folds the block in its slot `h % 2` (its own, unstaged block at hop 0)
-while its copy stream already sends that block into the right
-neighbour's slot `(h + 1) % 2`.  The next hop's fold waits on that copy's
-event; a copy into a slot waits on the events of the last fold and the
-last send that read the slot (the TPU kernel's ack credit).  Nothing
-waits on the host.
+`SpRing`: rank r owns a compute stream (its slice's token-wise ops and
+its folds) and a copy stream (the block it sends to rank `(r + 1) % sp`),
+and two receive slots per block geometry.  Copies between ranks on one
+card are device-to-device copies that run beside the compute stream;
+between cards the same `Tensor.copy_` is a peer copy.  Slot discipline,
+as the TPU kernel's double buffer: at hop h a rank folds the block in its
+slot `h % 2` (its own, unstaged block at hop 0) while its copy stream
+already sends that block into the right neighbour's slot `(h + 1) % 2`.
+The next hop's fold waits on that copy's event; a copy into a slot waits
+on the events of the last fold and the last send that read the slot (the
+TPU kernel's ack credit).
+
+`TpGroup`: Megatron's tensor parallelism over tp ranks, each holding its
+slice of the weights and of the paged cache's heads
+(parallel/sharding.py).  Rank 0 runs on the caller's current stream of
+its card, so a step's inputs and outputs need no hand-over; every other
+rank runs on a compute stream of its own.  The replicated activations
+live on every rank; the collectives are `all_reduce` (the row-parallel
+sum) and `all_gather` (the vocab-sharded logits), each ordered by events.
+A group of one rank (`SINGLE`) is the meshless step: every collective is
+the identity.
 """
 
 from __future__ import annotations
@@ -37,9 +48,18 @@ import torch
 AXES = ("dp", "pp", "sp", "ep", "tp")
 
 
+# What each axis the port does not run yet waits for.
+QUEUED = {
+    "dp": "dp, dp-attention and dp-local (with dp-local K1) wait for "
+          "ROADMAP.md A7",
+    "ep": "ep with moe_dispatch, and MoE under tp, wait for ROADMAP.md A7",
+    "pp": "pp waits for ROADMAP.md A7",
+}
+
+
 @dataclass(frozen=True)
 class MeshConfig:
-    """Degrees per axis.  Only `sp` may exceed 1 in the port so far."""
+    """Degrees per axis: `sp` or `tp` may exceed 1, not both."""
 
     dp: int = 1
     pp: int = 1
@@ -51,10 +71,13 @@ class MeshConfig:
         for axis, n in zip(AXES, self.shape):
             if n < 1:
                 raise ValueError(f"mesh axis {axis}={n} must be at least 1")
-            if axis != "sp" and n > 1:
-                raise ValueError(
-                    f"mesh axis {axis}={n}: only sp is ported; tp/dp/ep/pp "
-                    "wait for ROADMAP.md A7")
+            if axis in QUEUED and n > 1:
+                raise ValueError(f"mesh axis {axis}={n}: {QUEUED[axis]}")
+        if self.sp > 1 and self.tp > 1:
+            raise ValueError(
+                f"mesh sp{self.sp}xtp{self.tp}: sp x tp waits for ROADMAP.md "
+                "A7 (the ring prefill runs on replicated parameters and "
+                "an unsharded cache)")
 
     @property
     def shape(self) -> tuple:
@@ -69,16 +92,34 @@ class MeshConfig:
                         if n > 1) or "single"
 
 
-def default_sp_devices(sp: int, primary: torch.device) -> List[torch.device]:
+def default_rank_devices(n: int, primary: torch.device) -> List[torch.device]:
     """One device per rank: every rank on the CPU for a CPU engine, else
-    round-robin over the visible cards starting at the primary one, so
-    rank 0 shares the card of the paged cache."""
+    round-robin over the visible cards starting at the primary one (a
+    card a rank where the machine has n cards), so rank 0 shares the
+    card of the engine's device."""
     if primary.type != "cuda":
-        return [primary] * sp
-    n = torch.cuda.device_count()
+        return [primary] * n
+    cards = torch.cuda.device_count()
     first = primary.index if primary.index is not None else (
         torch.cuda.current_device())
-    return [torch.device("cuda", (first + r) % n) for r in range(sp)]
+    return [torch.device("cuda", (first + r) % cards) for r in range(n)]
+
+
+def _rank_devices(devices: Sequence, what: str) -> List[torch.device]:
+    """The ranks' devices, all cpu or all cuda, each cuda one with its
+    index."""
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < 1:
+        raise ValueError(f"a {what} needs at least one rank")
+    kinds = {d.type for d in devices}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"{what} ranks must all be cpu or all cuda: "
+                         f"{[str(d) for d in devices]}")
+    if devices[0].type == "cuda":
+        devices = [torch.device("cuda", d.index if d.index is not None
+                                else torch.cuda.current_device())
+                   for d in devices]
+    return devices
 
 
 class _Slots:
@@ -96,17 +137,7 @@ class SpRing:
     """The sequence-parallel ring: `sp` ranks on a list of devices."""
 
     def __init__(self, devices: Sequence[torch.device]):
-        devices = [torch.device(d) for d in devices]
-        if len(devices) < 1:
-            raise ValueError("a ring needs at least one rank")
-        kinds = {d.type for d in devices}
-        if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
-            raise ValueError(f"ring ranks must all be cpu or all cuda: "
-                             f"{[str(d) for d in devices]}")
-        if devices[0].type == "cuda":
-            devices = [torch.device("cuda", d.index if d.index is not None
-                                    else torch.cuda.current_device())
-                       for d in devices]
+        devices = _rank_devices(devices, "ring")
         self.devices: List[torch.device] = devices
         self.sp = len(devices)
         self.cuda = devices[0].type == "cuda"
@@ -129,7 +160,7 @@ class SpRing:
         device; the default spreads the ranks over the visible cards.
         Rank 0 must lie on `primary`, the card of the paged cache."""
         if devices is None:
-            devices = default_sp_devices(mesh.sp, torch.device(primary))
+            devices = default_rank_devices(mesh.sp, torch.device(primary))
         ring = cls(devices)
         if ring.sp != mesh.sp:
             raise ValueError(f"mesh {mesh.describe()} needs {mesh.sp} rank "
@@ -286,6 +317,147 @@ class SpRing:
         copy into the slot waits for it."""
         if self.cuda and hop > 0:
             self.slots(rank, like).readers[hop % 2].append(self.mark(rank))
+
+
+class TpGroup:
+    """The tensor-parallel group: tp ranks on a list of devices.
+
+    Rank 0 runs on its card's current stream; ranks 1.. on compute
+    streams of their own.  A step brackets its ranks' work with `fork()`
+    and `join()` and hands tensors between ranks only through
+    `replicate`, `all_reduce` and `all_gather`, which order themselves by
+    events and keep the caching allocator from reusing a buffer another
+    rank's stream still reads (`record_stream`)."""
+
+    def __init__(self, devices: Sequence):
+        self.devices: List[torch.device] = _rank_devices(devices, "tp group")
+        self.tp = len(self.devices)
+        self.cuda = self.devices[0].type == "cuda" and self.tp > 1
+        # Distinct cards, in rank order.
+        self.cards: List[torch.device] = list(dict.fromkeys(self.devices))
+        self.streams: List[Optional[torch.cuda.Stream]] = [None] * self.tp
+        if self.cuda:
+            self.streams[1:] = [torch.cuda.Stream(d) for d in self.devices[1:]]
+
+    @classmethod
+    def for_mesh(cls, mesh: MeshConfig, primary: torch.device) -> "TpGroup":
+        """The group of a mesh's tp axis: rank 0 on `primary`, the
+        engine's device, and the ranks spread over the visible cards,
+        shared round-robin where there are fewer."""
+        return cls(default_rank_devices(mesh.tp, torch.device(primary)))
+
+    def describe(self) -> List[str]:
+        """The rank -> device map, as strings."""
+        return [str(d) for d in self.devices]
+
+    def on(self, rank: int):
+        """Context: rank's device and stream are current (rank 0: the
+        caller's own)."""
+        if self.streams[rank] is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.streams[rank])
+
+    def _stream(self, rank: int) -> "torch.cuda.Stream":
+        return self.streams[rank] or torch.cuda.current_stream(
+            self.devices[rank])
+
+    def _mark(self, rank: int) -> "torch.cuda.Event":
+        ev = torch.cuda.Event()
+        ev.record(self._stream(rank))
+        return ev
+
+    def fork(self) -> None:
+        """Every rank's stream waits for the work queued so far on its
+        card's current stream and on rank 0's card's (the step's inputs,
+        an injected block)."""
+        if not self.cuda:
+            return
+        evs = {}
+        for d in self.cards:
+            evs[d] = torch.cuda.Event()
+            evs[d].record(torch.cuda.current_stream(d))
+        for r in range(1, self.tp):
+            self.streams[r].wait_event(evs[self.devices[r]])
+            self.streams[r].wait_event(evs[self.devices[0]])
+
+    def join(self) -> None:
+        """The current stream of every rank's card waits for every rank on
+        that card and rank 0's card's waits for all of them, so the step's
+        outputs and the ranks' cache writes are ordered before what the
+        caller queues next."""
+        if not self.cuda:
+            return
+        main = torch.cuda.current_stream(self.devices[0])
+        for r in range(1, self.tp):
+            ev = self._mark(r)
+            main.wait_event(ev)
+            if self.devices[r] != self.devices[0]:
+                torch.cuda.current_stream(self.devices[r]).wait_event(ev)
+
+    def _move(self, dst: int, src: int, t: torch.Tensor) -> torch.Tensor:
+        """Tensor `t`, made on rank src's stream, for use on rank dst's:
+        dst's stream waits for it; a tensor on another card is copied
+        over (a peer copy ordered against both ranks' streams)."""
+        if not self.cuda or dst == src:
+            return t
+        self._stream(dst).wait_event(self._mark(src))
+        if self.devices[dst] == self.devices[src]:
+            t.record_stream(self._stream(dst))
+            return t
+        with self.on(dst), self.on(src):
+            return t.to(self.devices[dst], non_blocking=True)
+
+    def _spread(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """`t`, on rank 0, for every rank: one copy for each other card,
+        made by its first rank and shared by the rest on it."""
+        holder = {self.devices[0]: (0, t)}
+        out = [t]
+        for r in range(1, self.tp):
+            d = self.devices[r]
+            if d not in holder:
+                holder[d] = (r, self._move(r, 0, t))
+                out.append(holder[d][1])
+                continue
+            src, held = holder[d]
+            out.append(self._move(r, src, held))
+        return out
+
+    def replicate(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A tensor of the caller's (rank 0's card, current stream), for
+        every rank, after `fork()`."""
+        if not self.cuda:
+            return [t] * self.tp
+        return self._spread(t)
+
+    def all_reduce(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The row-parallel sum: rank r's partial `parts[r]` summed on rank
+        0 (the other cards' partials peer-copied there first), rounded to
+        the partials' dtype once, and the sum on every rank."""
+        if self.tp == 1:
+            return list(parts)
+        moved = [self._move(0, r, p) for r, p in enumerate(parts)]
+        with self.on(0):
+            if len(moved) == 2:
+                total = moved[0] + moved[1]
+            else:
+                total = torch.stack(moved).sum(0, dtype=torch.float32).to(
+                    moved[0].dtype)
+        if not self.cuda:
+            return [total] * self.tp
+        return self._spread(total)
+
+    def all_gather(self, parts: Sequence[torch.Tensor],
+                   dim: int) -> torch.Tensor:
+        """Rank r's `parts[r]` concatenated along `dim` on rank 0."""
+        if self.tp == 1:
+            return parts[0]
+        moved = [self._move(0, r, p) for r, p in enumerate(parts)]
+        with self.on(0):
+            return torch.cat(moved, dim=dim)
+
+
+# The meshless step: one rank, on whatever device its tensors lie.
+SINGLE = TpGroup([torch.device("cpu")])
 
 
 def _to_device(x, device: torch.device):

@@ -105,7 +105,8 @@ def roofline_s(flops: float, nbytes: float) -> float:
 
 
 def modeled_step_cost(cfg, *, steps: int, tokens: int, kv_tokens: int,
-                      kv_bytes_per_token: int) -> Tuple[float, float]:
+                      kv_bytes_per_token: int,
+                      shards: int = 1) -> Tuple[float, float]:
     """(flops, bytes) of one dispatch of a step program, modeled from the
     model config: `steps` forwards (a window's K, else 1), each over
     `tokens` token rows (padding included) attending `kv_tokens` cached
@@ -116,7 +117,12 @@ def modeled_step_cost(cfg, *, steps: int, tokens: int, kv_tokens: int,
     pages at the page bucket once a step, and the activations (the
     hidden state in and out of each layer, the f32 logits).  Flops: two
     a multiply-add of every matmul weight a token row, plus the
-    attention products over the cached tokens."""
+    attention products over the cached tokens.
+
+    Per chip of a tp group of `shards` ranks (`kv_bytes_per_token` is
+    already per chip): each reads 1/shards of the weights, does 1/shards
+    of the flops and writes its 1/shards of the logits; the hidden state
+    is every rank's."""
     h, v = cfg.hidden_size, cfg.vocab_size
     wbytes = cfg.dtype.itemsize
     weights = cfg.param_count() - (0 if cfg.tie_embeddings else v * h)
@@ -126,11 +132,11 @@ def modeled_step_cost(cfg, *, steps: int, tokens: int, kv_tokens: int,
         expert = 3 * h * cfg.intermediate_size
         matmul -= cfg.num_layers * expert * (cfg.num_experts
                                              - cfg.num_experts_per_token)
-    activations = tokens * (2 * cfg.num_layers * h * wbytes + v * 4)
+    activations = tokens * (2 * cfg.num_layers * h * wbytes + v * 4 / shards)
     attn_flops = 4 * kv_tokens * cfg.num_heads * cfg.head_dim * cfg.num_layers
-    nbytes = steps * (weights * wbytes + kv_tokens * kv_bytes_per_token
-                      + activations)
-    flops = steps * (2.0 * matmul * tokens + attn_flops)
+    nbytes = steps * (weights * wbytes / shards
+                      + kv_tokens * kv_bytes_per_token + activations)
+    flops = steps * (2.0 * matmul * tokens + attn_flops) / shards
     return float(flops), float(nbytes)
 
 

@@ -26,6 +26,13 @@ Topology
   the delta codec's optional `ledger` key; the frontend-side wire
   clients `absorb_delta()` it into the live ledger.  Old peers ignore
   the key; garbage is tolerated (see below).
+- The hop stamps its own intake (`receive`: the request's frame decoded
+  to the engine's submission), and the wire client that delivered the
+  request's first token stamps `rpc`: its round trip from sending the
+  request to receiving that token, less the hop's time from its anchor
+  to emitting it (the hop's `first_token` end).  That is the wire both
+  ways; each side's span is on its own clock, so an offset between
+  hosts cancels.  JAX stamps neither, and leaves that time dark.
 - The frontend folds completed ledgers into `LedgerSink`:
   `dynamo_request_phase_seconds{phase=}` histograms, the goodput counter
   pair (SLO-good vs total tokens), a slowest-N ring behind
@@ -267,18 +274,37 @@ def begin_hop(request) -> Optional[RequestLedger]:
     return led
 
 
-def absorb_delta(request, delta, where: str = "wire") -> None:
+def absorb_delta(request, delta, where: str = "wire",
+                 sent: Optional[float] = None,
+                 first: Optional[float] = None) -> None:
     """Merge a wire delta's returned hop ledger (final or migrate delta)
     into the request's live ledger; consumed ledgers are cleared so
     upper layers never double-merge.  No-ops cheaply when either side
-    is absent."""
+    is absent.  `sent` / `first`: the wire client's monotonic times of
+    sending the request and of receiving this stream's first token;
+    given both, the hop's `rpc` is stamped (once a request)."""
     wire = getattr(delta, "ledger", None)
     if wire is None:
         return
     led = ledger_of(request)
-    if led is not None:
-        led.merge_wire(wire, where=where)
+    if (led is not None and led.merge_wire(wire, where=where)
+            and sent is not None and first is not None):
+        _stamp_rpc(led, wire["stamps"], sent, first)
     delta.ledger = None
+
+
+def _stamp_rpc(led: RequestLedger, hop_stamps, sent: float,
+               first: float) -> None:
+    """`rpc`: the round trip `first - sent` less the hop's own time to
+    its first token (its `first_token` stamp's end, relative to the
+    hop's anchor).  A request has one: a resumed stream's hop (after a
+    migration) delivered no first token of the request."""
+    if any(p == "rpc" for p, _t, _d, _a in led.stamps):
+        return
+    served = next((float(row[1]) for row in hop_stamps[:MAX_STAMPS]
+                   if row[0] == "first_token"), None)
+    if served is not None:
+        led.stamp("rpc", dur=max(0.0, first - sent - float(served)), t=first)
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +317,7 @@ COVERAGE_CEIL = 1.10     # claiming more time than wall-clock = fabricated
 # token); the decode interval summary and terminal bookkeeping phases
 # land after TTFT and must not count toward its coverage.
 TTFT_PHASES = ("receive", "route", "queue", "prefill", "first_token",
-               "kv_transfer", "prefill_remote", "migration")
+               "kv_transfer", "prefill_remote", "migration", "rpc")
 
 
 def ttft_coverage(led: "RequestLedger", ttft_s: float) -> float:

@@ -6,6 +6,8 @@
     python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
         --model tiny-test --device cpu
     python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
+        --model llama-3-8b --model-name m --tp 2
+    python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
         --model llama-3-1b --role prefill
     python -m dynamo_tpu_torch.worker --control-plane HOST:PORT \\
         --model llama-3-1b --model-name m --role decode \\
@@ -101,6 +103,17 @@ the engine: deterministic tokens, real KV events and load metrics, no
 device and no KV data plane (a CPU test backend for the planner, the
 launcher and the drain; the roles refuse it).
 
+Parallelism (`build_mesh`, as JAX's): `--tp N` serves the model
+tensor-parallel over N ranks in this process (parallel/mesh.TpGroup): a
+card a rank where the machine has N cards, else the ranks share the
+cards round-robin, which is logged.  The published SliceSpec carries
+the mesh (`tp2`), `/debug/stats` its `mesh`, `tp_devices` and
+`kv_shard_count`.  `--dp`, `--ep` and `--pp` take JAX's defaults; above
+1 the worker exits naming ROADMAP.md A7.  With `--tp` a checkpoint is
+read on the host and each rank's slice copied straight to its card, and
+a preset's weights are cut as they are drawn, so no card ever holds the
+whole model beside its slices.
+
 Not ported: multihost and lockstep, and `--slice`.
 """
 
@@ -119,6 +132,7 @@ from dynamo_tpu_torch.engine.engine import (
     EngineCore,
     InferenceEngine,
 )
+from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.fleet.topology import SliceSpec
 from dynamo_tpu_torch.frontend.main import stats_hooks
@@ -155,6 +169,7 @@ from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.service import LocalEngineClient
 from dynamo_tpu_torch.models.loader import resolve_model
+from dynamo_tpu_torch.parallel.mesh import QUEUED, MeshConfig
 from dynamo_tpu_torch.runtime.config import (
     apply_to_parser_defaults,
     load_layered_config,
@@ -237,6 +252,22 @@ def parse_args(argv=None):
                         "(default: all), as the port's frontend does")
     p.add_argument("--max-prefill-chunk", type=int, default=512,
                    help="chunked-prefill step ceiling (tokens)")
+    # Parallelism as a serving capability, as in JAX: the worker builds
+    # the mesh and the engine shards the weights, the cache and the steps
+    # over it.
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: ranks of this process, "
+                        "heads and MLP columns over them (a card a rank "
+                        "where there are enough, else shared)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="engine-internal data-parallel degree (not ported: "
+                        "above 1 exits)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree (not ported: above 1 "
+                        "exits)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel degree (not ported: above 1 "
+                        "exits)")
     p.add_argument("--kv-quant", choices=("none", "int8"), default="none",
                    help="KV cache storage: int8 pages with per-token, "
                         "per-head f32 scales, or the model dtype")
@@ -323,19 +354,47 @@ def load_kernels(core: EngineCore) -> None:
         build.load(name)
 
 
+def build_mesh(args) -> MeshConfig:
+    """The mesh of the parallelism flags (JAX's `build_mesh`): tp ranks
+    of this process, on the cards of `--device`.  What the port does not
+    run exits, naming the roadmap item; ranks that outnumber the cards
+    share them round-robin, which is logged."""
+    for axis in ("dp", "ep", "pp"):
+        n = getattr(args, axis)
+        if n > 1:
+            raise SystemExit(f"--{axis} {n}: {QUEUED[axis]}")
+    try:
+        mesh = MeshConfig(tp=args.tp)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if mesh.tp > 1 and resolve_device(args.device).type == "cuda":
+        import torch
+
+        cards = torch.cuda.device_count()
+        if cards < mesh.tp:
+            logger.warning("mesh %s: %d ranks share %d card(s) round-robin",
+                           mesh.describe(), mesh.tp, cards)
+    return mesh
+
+
 def build_engine(args, kv_event_sink):
     """(core, engine, card fields) for the flags; the engine is not
     started yet."""
+    mesh = build_mesh(args)
+    # A tp engine cuts a checkpoint read on the host (a memory map) into
+    # its ranks' cards; a preset (no state) is drawn by the engine.
     cfg, params, spec, template = resolve_model(
-        args.model, device=args.device, num_layers=args.num_layers)
+        args.model, device="cpu" if mesh.tp > 1 else args.device,
+        num_layers=args.num_layers)
     sched = SchedulerConfig(block_size=args.block_size,
                             max_prefill_chunk=args.max_prefill_chunk)
     core = EngineCore(EngineConfig(
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
         device=args.device, moe_mode=args.moe_mode,
         kv_quant=args.kv_quant, speculative_tokens=args.spec_decode,
-        speculative_ngram=args.spec_ngram), params=params,
-        kv_event_sink=kv_event_sink)
+        speculative_ngram=args.spec_ngram, tp=mesh.tp),
+        params=params, kv_event_sink=kv_event_sink)
+    del params      # a tp engine keeps its ranks' slices only
     load_kernels(core)
     card_fields = {
         # A checkpoint's tokenizer.json rides the card inline, with its
@@ -350,28 +409,34 @@ def build_engine(args, kv_event_sink):
 
 def derive_slice_spec(core: Optional[EngineCore], role: str = "both",
                       fabric: str = "") -> SliceSpec:
-    """The SliceSpec this worker publishes in its instance record: one
-    device, its role, KV mode and serving features, the device's memory
-    (0 on the CPU: unknown) and its device-transfer fabric.  A mocker
-    (no core) publishes a bare slice."""
+    """The SliceSpec this worker publishes in its instance record: its
+    mesh, role, KV mode and serving features, each rank's share of the
+    cards' memory (0 on the CPU: unknown) and its device-transfer fabric.
+    A mocker (no core) publishes a bare slice."""
     if core is None:
         return SliceSpec(role=role)
     hbm = 0
     if core.device.type == "cuda":
         import torch
 
-        hbm = int(torch.cuda.get_device_properties(core.device).total_memory)
+        cards = (core.group.cards if core.group is not None
+                 else [core.device])
+        hbm = sum(int(torch.cuda.get_device_properties(d).total_memory)
+                  for d in cards) // core.config.tp
     # Speculative decode takes the place of the decode windows.
     decode = ("spec" if core.config.speculative_tokens > 0
               else f"window{DECODE_WINDOW}")
-    return SliceSpec(role=role, kv_quant=core.cache_cfg.kv_quant,
+    return SliceSpec(mesh=core.mesh.shape, role=role,
+                     kv_quant=core.cache_cfg.kv_quant,
                      features=("packed_prefill", decode),
                      hbm_per_chip_bytes=hbm, fabric=fabric)
 
 
-def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg):
+def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg,
+                           slice_spec: Optional[SliceSpec] = None):
     """The worker's `/debug/stats` and reset hooks: the engine's (see
-    `frontend.main.stats_hooks`) plus the data plane's counters."""
+    `frontend.main.stats_hooks`) plus the data plane's counters and the
+    published slice."""
     stats, reset = stats_hooks(core)
     manager = getattr(core.allocator, "manager", None)
 
@@ -386,7 +451,9 @@ def data_plane_stats_hooks(core: EngineCore, plane, fetcher, disagg):
             migrated_in=({"streams": fetcher.migrated_in,
                           "blocks": fetcher.migrated_in_blocks}
                          if fetcher is not None else None),
-            disagg=disagg.stats() if disagg is not None else None)
+            disagg=disagg.stats() if disagg is not None else None,
+            slice=(slice_spec.to_dict() | {"describe": slice_spec.describe()}
+                   if slice_spec is not None else None))
         return out
 
     def worker_reset() -> None:
@@ -494,7 +561,6 @@ async def watch_profile_commands(cp, instance_id: int) -> None:
 async def run_encode(args, cp, runtime) -> None:
     """The encode role: the vision tower behind `encoder/encode`, its
     embeddings offered on this process's device plane."""
-    from dynamo_tpu_torch.device import resolve_device
     from dynamo_tpu_torch.llm.multimodal import EncodeWorker, StubVisionEncoder
     from dynamo_tpu_torch.models.loader import resolve_config
 
@@ -667,8 +733,8 @@ async def run(args) -> None:
 
         stats = reset_stats = None
         if core is not None:
-            stats, reset_stats = data_plane_stats_hooks(core, plane,
-                                                        fetcher, disagg)
+            stats, reset_stats = data_plane_stats_hooks(
+                core, plane, fetcher, disagg, slice_spec)
         status = StatusServer(
             registry=registry,
             extra_text_fn=lambda: worker_metrics_text(

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (paged decode and prefill attention over bf16
 and int8 caches, the grouped MoE expert FFN in bf16 and int8, the ring
-attention flash fold over bf16 and int8 blocks) and engine on the card.
+attention flash fold over bf16 and int8 blocks) and engine on the card,
+the tensor-parallel forward among them.
 
 Every test here needs an NVIDIA GPU and skips without one.  The suite's
 conftest imports JAX, which the GPU machine does not have, so run this
@@ -77,12 +78,15 @@ def _rand(gen, *shape, dev):
 WIDE_DECODE = [(32, 8, 80, 64, None), (32, 4, 96, 16, 30.0),
                (24, 1, 128, 64, None), (32, 1, 128, 64, None),
                (144, 2, 64, 64, None)]
+# One rank's heads under tensor parallelism: llama-3-8b at tp 2 and
+# llama-3-70b at tp 8 (one kv head, G 8).
+TP_HEADS = [(16, 4, 128, 64, None), (8, 1, 128, 64, None)]
 
 
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (16, 16, 128, 32, None),
     (8, 2, 32, 8, None), (32, 4, 128, 64, None), (32, 8, 128, 64, None)]
-    + WIDE_DECODE)
+    + WIDE_DECODE + TP_HEADS)
 def test_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     gen = torch.Generator(device=dev).manual_seed(0)
     B, P = 9, 6
@@ -121,7 +125,7 @@ SEGMENTS = {
 # G = Hq / Hkv of 4, 1 and 8 query heads a kv head.
 PREFILL_HEADS = [(32, 8, 64, 64, None), (32, 8, 64, 16, 30.0),
                  (8, 8, 128, 32, None), (8, 2, 32, 8, None),
-                 (32, 8, 128, 64, None), (32, 4, 64, 64, None)]
+                 (32, 8, 128, 64, None), (32, 4, 64, 64, None)] + TP_HEADS
 
 
 @pytest.mark.parametrize("layout", list(SEGMENTS))
@@ -166,7 +170,7 @@ def _int8_pool(gen, S, hkv, d, dev):
 
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 2, 32, 8, None),
-    (32, 8, 128, 64, None)] + WIDE_DECODE)
+    (32, 8, 128, 64, None)] + WIDE_DECODE + TP_HEADS)
 def test_int8_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
     """Ragged rows over an int8 cache: empty rows, one token, a tail page
     one past a page boundary, full tables."""
@@ -198,7 +202,7 @@ def test_int8_decode_kernel_matches_plain(dev, hq, hkv, d, bs, cap):
 @pytest.mark.parametrize("layout", list(SEGMENTS))
 @pytest.mark.parametrize("hq,hkv,d,bs,cap", [
     (32, 8, 64, 64, None), (32, 8, 64, 16, 30.0), (8, 2, 32, 8, None),
-    (32, 8, 128, 64, None), (32, 4, 64, 64, None)])
+    (32, 8, 128, 64, None), (32, 4, 64, 64, None)] + TP_HEADS)
 def test_int8_prefill_kernel_matches_plain(dev, hq, hkv, d, bs, cap, layout):
     """Packed segments over an int8 pool (SEGMENTS)."""
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -493,6 +497,121 @@ def test_engine_serves_greedy_through_both_kernels(dev):
     assert paged_decode_attention.launches > d0
     assert paged_prefill_attention.launches > p0
     assert core.counters.window_dispatches > 0
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_tp_forward_on_one_card_matches_unsharded(dev, kv_quant):
+    """tiny-test in bf16 (D 32) at tp 2 on one card, each rank on its own
+    stream: the packed prefill and three decode steps against the
+    unsharded steps on the same weights (logits within 2e-2 of their
+    largest, bf16 sums in other orders), K2 launched once a layer and
+    rank and K1 once a layer, rank and step; then a tp 2 engine serves
+    greedy tokens equal to the unsharded engine's."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+    from dynamo_tpu_torch.ops.cuda import launch_counts
+    from dynamo_tpu_torch.parallel import (
+        MeshConfig, TpGroup, param_pspecs, shard_state)
+
+    cfg = get_config("tiny-test").replace(head_dim=32, dtype=torch.bfloat16)
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    group = TpGroup.for_mesh(MeshConfig(tp=2), dev)
+    assert group.devices[1].type == "cuda" and group.streams[1] is not None
+    ranks = shard_state(state, param_pspecs(cfg), group)
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=8, block_size=8,
+                                       kv_quant=kv_quant)
+    cache, flat = kvc.init_rank_caches(ccfg, group.devices), kvc.init_cache(
+        ccfg, dev)
+    body = "_int8" if kv_quant == "int8" else ""
+    T = 24
+    i32 = dict(dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (T,), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.int32)
+    pos = torch.cat([torch.arange(7), torch.full((1,), 1024),
+                     torch.arange(13), torch.full((3,), 1024)]).to(**i32)
+    seg = torch.tensor([0] * 8 + [1] * 16, **i32)
+    bt = torch.tensor([[1, 2, 0], [3, 4, 5]], **i32)
+    lens = torch.tensor([7, 13], **i32)
+    args = (tok, pos, seg, bt, torch.tensor([0, 8], **i32), lens, lens,
+            torch.tensor([6, 20], **i32))
+    before = launch_counts()
+    got, cache = llama.make_packed_prefill_step(cfg, 8, tp=group)(
+        ranks, cache, *args)
+    mid = launch_counts()
+    want, flat = llama.make_packed_prefill_step(cfg, 8)(state, flat, *args)
+    torch.cuda.synchronize()
+    assert mid["paged_prefill_attention" + body] - before[
+        "paged_prefill_attention" + body] == 2 * cfg.num_layers
+
+    def close(a, b):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= 2e-2, err
+
+    close(got, want)
+    step = llama.make_forward_step(cfg, 8, use_decode_kernel=True, tp=group)
+    flat_step = llama.make_forward_step(cfg, 8, use_decode_kernel=True)
+    nxt = want.argmax(-1).to(torch.int32)
+    zero = torch.zeros(2, **i32)
+    for _ in range(3):
+        lens = lens + 1
+        a = (nxt[:, None], (lens - 1)[:, None], lens, bt, zero)
+        k0 = launch_counts()["paged_decode_attention" + body]
+        got, cache = step(ranks, cache, *a)
+        assert (launch_counts()["paged_decode_attention" + body] - k0
+                == 2 * cfg.num_layers)
+        want, flat = flat_step(state, flat, *a)
+        torch.cuda.synchronize()
+        close(got, want)
+        nxt = want.argmax(-1).to(torch.int32)
+    prompts = {f"r{i}": list(range(1, n + 1)) for i, n in enumerate((5, 40, 17))}
+    one = _serve(_tiny_engine(dev, kv_quant=kv_quant), prompts)
+    two = _serve(_tiny_engine(dev, kv_quant=kv_quant, tp=2), prompts)
+    assert all(len(t) == 20 for t in two.values())
+    # Random bf16 weights may leave near ties: most rows agree throughout.
+    assert sum(one[r] == two[r] for r in prompts) >= 2
+
+
+def test_tp_draw_never_holds_the_whole_model_beside_its_slices(dev):
+    """llama-3-1b's 16 layers (vocab cut to 4096, so the layers weigh
+    most) drawn by `init_params(group=)` at tp 2 on one card: the card's
+    peak allocation stays within the ranks' bytes plus one whole layer
+    and one f32 draw (the whole model beside its slices would be twice
+    the ranks' bytes), and the ranks equal the whole draw's slices."""
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+    from dynamo_tpu_torch.parallel import (
+        MeshConfig, TpGroup, param_pspecs, shard_state)
+
+    cfg = get_config("llama-3-1b").replace(vocab_size=4096)
+    group = TpGroup.for_mesh(MeshConfig(tp=2), dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ranks = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                        group=group)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = sum(t.numel() * t.element_size() for r in ranks
+               for t in _tree_leaves(r))
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    layer = (2 * h * cfg.q_size + 2 * h * cfg.kv_size + 3 * h * f) * 2
+    assert peak <= held + layer + 4 * h * f + (64 << 20), (peak, held)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    for got, want in zip(ranks, shard_state(whole, param_pspecs(cfg), group)):
+        assert all(torch.equal(a, b) for a, b in zip(_tree_leaves(got),
+                                                      _tree_leaves(want)))
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tree_leaves(v)
+    else:
+        yield tree
 
 
 def test_spec_engine_and_embeddings_on_the_card(dev):

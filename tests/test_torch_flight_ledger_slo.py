@@ -12,7 +12,8 @@ JAX modules on the CPU.
   keeps every stamp (re-based onto the receiving anchor); malformed wire
   forms drop the ledger in both; TTFT coverage and `coverage_ok` agree;
   LedgerSink folds of the same ledgers give equal exposition text,
-  goodput, dominant phase and /debug/requests payloads.
+  goodput, dominant phase and /debug/requests payloads; the port's own
+  `rpc` stamp is the wire client's round trip less the hop's time.
 - SloMonitor.tick under an injected clock over seeded latency and error
   sources: equal payloads (burn rates, states, compliance) at every tick,
   and equal `dynamo_slo_*` exposition.
@@ -20,6 +21,7 @@ JAX modules on the CPU.
 
 import argparse
 import json
+import types
 
 import numpy as np
 import pytest
@@ -177,6 +179,48 @@ def test_ledger_coverage_and_sink_match_jax():
         for s in e["stamps"]:
             s.pop("t")
     assert tp == jp
+
+
+def test_rpc_is_the_round_trip_less_the_hops_time():
+    """The port's `rpc` phase (JAX stamps none): the wire client's round
+    trip from sending the request to its first token, less the hop's
+    time from its anchor to emitting it, each on its own clock; once a
+    request, and none without a first token or a hop `first_token`."""
+    def hop():
+        led = tled.RequestLedger("rid", anchor=500.0)   # another clock
+        for phase, dur, t in (("receive", 0.001, 500.001),
+                              ("queue", 0.004, 500.005),
+                              ("prefill", 0.02, 500.025),
+                              ("first_token", 0.005, 500.030),
+                              ("decode", 0.2, 500.25)):
+            led.stamp(phase, dur=dur, t=t)
+        return led
+
+    def absorbed(hop_led, sent=1000.001, first=1000.043):
+        front = tled.RequestLedger("rid", anchor=1000.0)
+        front.stamp("receive", dur=0.0005, t=1000.0005)
+        front.stamp("route", dur=0.0005, t=1000.001)
+        req = types.SimpleNamespace(ledger=front)
+        delta = types.SimpleNamespace(ledger=hop_led.to_wire())
+        tled.absorb_delta(req, delta, "test", sent=sent, first=first)
+        assert delta.ledger is None
+        return req, front
+
+    req, front = absorbed(hop())
+    rpc = [(t, d) for p, t, d, _ in front.stamps if p == "rpc"]
+    assert rpc == [(pytest.approx(0.043), pytest.approx(0.012))]
+    assert tled.ttft_coverage(front, 0.043) == pytest.approx(1.0)
+    # A resumed stream's hop adds no second one.
+    tled.absorb_delta(req, types.SimpleNamespace(ledger=hop().to_wire()),
+                      "test", sent=1000.1, first=1000.2)
+    assert [p for p, *_ in front.stamps].count("rpc") == 1
+    # No first token on this stream, or none emitted by the hop.
+    _, front = absorbed(hop(), first=None)
+    assert "rpc" not in front.phase_totals()
+    bare = tled.RequestLedger("rid", anchor=500.0)
+    bare.stamp("queue", dur=0.004, t=500.005)
+    _, front = absorbed(bare)
+    assert "rpc" not in front.phase_totals()
 
 
 def _monitor(mod, mmod):

@@ -14,7 +14,8 @@ surfaces.
   family, the drain and QoS ones too; /live; the /debug/traces,
   /debug/requests, /debug/slo, /debug/flightrecorder and
   /debug/deviceprofile payloads have JAX's keys; a bad `?ms=` is a 400;
-  each chat's ledger holds the frontend, routing and engine phases; a
+  each chat's ledger holds the frontend, routing, wire (`rpc`) and
+  engine phases and claims no more than its TTFT; a
   `profile/<pid>` key on the control plane makes the worker capture, and
   SIGUSR2 dumps its flight recorder.
 - The `x-dynamo-priority` header reaches the KV router's selector (in
@@ -47,6 +48,7 @@ from dynamo_tpu.runtime import metrics as jm
 from dynamo_tpu.runtime import slo as jslo
 from dynamo_tpu.runtime import tracing as jtr
 from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+from dynamo_tpu_torch.runtime.ledger import TTFT_PHASES
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -231,6 +233,11 @@ def test_frontend_and_worker_planes_end_to_end(tmp_path):
         phases = {s["phase"] for s in entry["stamps"]}
         assert {"receive", "route", "queue", "prefill",
                 "first_token", "decode"} <= phases, phases
+        # The port's wire phase (JAX's ledger leaves the wire dark), and
+        # no over-claim: the TTFT phases lie in disjoint stretches of it.
+        covered = sum(s["dur"] for s in entry["stamps"]
+                      if s["phase"] in TTFT_PHASES)
+        assert "rpc" in phases and covered <= entry["ttft_s"] + 1e-5
     assert capture["ok"] and capture["files"]
     meta = json.loads((Path(capture["dir"]) / "capture_meta.json")
                       .read_text())

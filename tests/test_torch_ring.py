@@ -459,9 +459,13 @@ def test_moe_and_dp_attention_errors_are_the_reference_tables():
 def test_mesh_config_and_ring_construction():
     assert MeshConfig(sp=4).describe() == JaxMeshConfig(sp=4).describe() == "sp4"
     assert MeshConfig().describe() == "single" and MeshConfig(sp=4).size == 4
-    for axis in ("tp", "dp", "ep", "pp"):
+    for axis in ("dp", "ep", "pp"):
         with pytest.raises(ValueError, match="ROADMAP.md A7"):
             MeshConfig(**{axis: 2})
+    # tp is ported (tests/test_torch_tp.py); sp x tp is not.
+    assert MeshConfig(tp=2).describe() == "tp2"
+    with pytest.raises(ValueError, match="ROADMAP.md A7"):
+        MeshConfig(sp=2, tp=2)
     ring = SpRing.for_mesh(MeshConfig(sp=3), torch.device("cpu"))
     assert ring.describe() == ["cpu"] * 3 and ring.cards == [torch.device("cpu")]
     with pytest.raises(ValueError, match="needs 2 rank devices"):

@@ -314,7 +314,8 @@ def test_onig_classes():
 def test_port_imports_none_of_the_reference_libraries():
     """Importing every module of the port, and chip_smoke.py, loads none
     of `safetensors`, `tokenizers`, `regex` or `transformers` (the serving
-    machine has none of them), nor `jax` or the JAX package."""
+    machine has none of them), nor `jax` or the JAX package; nor does
+    building a `--tp 2` worker's mesh and its tp engine on the CPU."""
     import subprocess
     import sys
 
@@ -325,6 +326,15 @@ def test_port_imports_none_of_the_reference_libraries():
         "'dynamo_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "from dynamo_tpu_torch.parallel import mesh, sharding\n"
+        "from dynamo_tpu_torch.worker.main import build_mesh, parse_args\n"
+        "from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore\n"
+        "from dynamo_tpu_torch.models.config import get_config\n"
+        "m = build_mesh(parse_args(['--control-plane', 'h:1', '--device', "
+        "'cpu', '--tp', '2']))\n"
+        "core = EngineCore(EngineConfig(model=get_config('tiny-test'), "
+        "device='cpu', num_blocks=16, tp=m.tp))\n"
+        "assert core.group.tp == 2 and len(core.params) == 2\n"
         "roots = {'safetensors', 'tokenizers', 'regex', 'transformers', "
         "'jax', 'dynamo_tpu'}\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in roots))\n")
