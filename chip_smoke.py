@@ -40,6 +40,12 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      tensor parallelism (D 128, block 64; K1 at batch 64, context 512):
      llama-3-8b at tp 2 (Hq 16, Hkv 4: the `_tp2` lines) and llama-3-70b
      at tp 8 (Hq 8, Hkv 1, G 8: `_tp8`);
+   - K1 and K2, bf16 and int8 cache, as one shard of a dp 2 x tp 2
+     dp-local grid runs them (`_dplocal`): llama-3-8b's heads (Hq 32,
+     Hkv 8, D 128, block 64), K1 at 16 of 64 rows and context 512, on
+     shard 1's view of a 4-shard pool with its rebased tables; each also
+     held against the plain version on the whole pool with the global
+     tables (`vs_whole_pool`);
    - the grouped expert FFN (K3), bf16 and int8 weights, at mixtral-8x7b
      width (E 8, top-2, H 4096, F 14336) with serve_moe's decode bucket (8
      tokens), 64 tokens and prefill (512 tokens) row counts routed by the
@@ -71,7 +77,7 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    (`argmax_gap` against the gather path's logits); the spec run must
    draft, accept no more than it drafted and launch K2.  Acceptance and
    the tokens a row gains per forward are reported.
-8c. model_tp — tensor parallelism in process, every rank of a TpGroup on
+8c. model_tp — tensor parallelism in process, every rank of a tp grid on
    card 0 with its own stream: llama-3-8b at full width and depth at tp
    2, and llama-3-70b at full width and 4 of its 80 layers (80 do not fit
    one card) at tp 8, each over a bf16 and an int8 cache, through
@@ -86,6 +92,16 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    plus one piece's transient, not the whole model beside them.  Then the
    unsharded in-process engine's greedy ids of serve_tp's two unary
    chats on the llama-3-8b weights.
+8d. model_dp — data parallelism in process, a DpGrid of dp 2 x tp 2 on
+   card 0 (ranks 1-3 on streams of their own): llama-3-8b at full width
+   and depth, seed-0 weights, in three legs: plain dp, dp-attention
+   without locality (the gather path) and dp-local (bf16 and int8),
+   each a grid-shaped packed prefill of four prompts and 4 decode steps
+   against the unsharded gather path (`grid_compare`: logits within
+   DP_TOL, greedy tokens up to a near tie); K2 once a layer and rank (or
+   shard), K1 once a layer, rank and step, none on the gather path; the
+   ranks' drawn states equal the whole draw's pieces with one copy a
+   card, the card holding one model's bytes for the grid.
 9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
@@ -99,7 +115,9 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    reference.
 9b. serve_tp — a control plane (frontend A's), `python -m
    dynamo_tpu_torch.worker --model llama-3-8b --tp 2` on the card and
-   frontend A: `serve`'s concurrent wave, then two unary chats whose
+   frontend A,
+   on one stack with serve_dp's workers: `serve`'s concurrent wave, then
+   two unary chats whose
    greedy ids must equal model_tp's unsharded engine's (a split only at a
    near tie), each served id within MODEL_TOL of the top of the plain
    model's logits given the served ids before it (one teacher-forced
@@ -107,6 +125,14 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    kv_shard_count 2 and the published slice tp2, and K1 and K2 launched
    a whole number of times a layer and rank.  TTFT, ITL and tok/s beside
    `serve`'s, with the card's name and power limit.
+9c. serve_dp — two llama-3-1b workers behind serve_tp's frontend on the
+   card, `--dp 2` and `--tp 2 --dp 2 --dp-attention`: on each, `serve`'s
+   wave
+   and one of `serve`'s lone chats, held to `serve`'s answer (a split
+   only at a near tie) and teacher-forced against the plain model; the
+   meshes, shard counts, slices and launches (K1 / K2 a whole number of
+   times a layer and rank on the first, none on the gather path of the
+   second) checked.  TTFT, ITL and tok/s beside `serve`'s.
 10. serve_distributed — the same model on two `python -m
    dynamo_tpu_torch.worker` processes sharing the card, behind frontend A
    (`--serve-control-plane --router-mode kv`) and frontend B
@@ -388,6 +414,15 @@ MOE_TOKENS = (8, 64, 512)      # K3: serve_moe's decode bucket, 64, prefill
 # geometries they give K1 and K2 (tag, Hq, Hkv, D).
 TP = 2
 TP_70B, TP_70B_LAYERS = 8, 4
+# The data-parallel grid of model_dp / serve_dp and of the `_dplocal`
+# kernel lines: dp 2 x tp 2, four ranks on card 0.  A dp-local shard
+# holds 16 of a 64-row decode batch; its kernel lines run at
+# llama-3-8b's full heads (the slot shard keeps every head) on shard 1
+# (a shard whose first page is a real one).
+DP = 2
+DP_TOL = 3e-2                  # model_dp's logits rel err (model_tp's)
+DPLOCAL = {"shard": 1, "shards": DP * TP, "rows": 16, "ctx": 512,
+           "Hq": 32, "Hkv": 8, "D": 128}
 TP_GEOMETRY = (("tp2", 16, 4, 128), ("tp8", 8, 1, 128))
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
@@ -528,23 +563,26 @@ def cache_operands(torch, kvc, kc, vc, quant: bool, hkv: int = HKV):
 
 
 def decode_inputs(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ,
-                  hkv=HKV):
+                  hkv=HKV, shard=None):
     """K1's operands at batch B, context ctx, hq query and hkv kv heads: q,
     the cache (bf16, or int8 with its scales in `sc`), a table of shuffled
     pages and ragged seq_lens; `token_bytes` is one cached token's K/V
-    bytes."""
+    bytes.  `shard` (f, n): the pool is n shards of that size and the
+    pages lie in shard f's range, as a dp-local rank's rows' do."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
 
     dev = torch.device("cuda")
     P = ctx // BS
     nblocks = 1 + B * P + 64
-    S = nblocks * BS
+    f, shards = shard or (0, 1)
+    S = shards * nblocks * BS
     kc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
     vc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn(B, hq, D, generator=gen, device=dev).to(torch.bfloat16)
     # Shuffled, non-contiguous pages; a few ragged and empty rows (at
     # batch 8 like a served bucket: a padding row, chats of 1-256 tokens).
-    perm = torch.randperm(nblocks - 1, generator=gen, device=dev)[: B * P] + 1
+    perm = (torch.randperm(nblocks - 1, generator=gen, device=dev)[: B * P]
+            + 1 + f * nblocks)
     bt = perm.reshape(B, P).to(torch.int32)
     lens = [ctx] * B
     ragged = ((1, 0), (2, 1), (3, 63), (4, 65), (5, 300), (6, 0), (7, 129))
@@ -558,15 +596,42 @@ def decode_inputs(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ,
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
     kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant, hkv)
     return {"q": q, "kc": kc, "vc": vc, "bt": bt, "sl": sl, "sc": sc,
-            "lens": lens, "token_bytes": token_bytes}
+            "lens": lens, "token_bytes": token_bytes, "nblocks": nblocks}
 
 
-def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV):
+def shard_view(torch, a: dict, shard) -> dict:
+    """`a`'s pool cut to shard f's [S/n, F] (views, as a dp-local rank
+    holds it) and its table rebased as the model rebases it
+    (`llama._local_tables`); the whole pool and table stay under
+    `whole`."""
+    from dynamo_tpu_torch.models.llama import _local_tables
+
+    f, _ = shard
+    nb = a["nblocks"]
+    rows = slice(f * nb * BS, (f + 1) * nb * BS)
+    return {**a, "kc": a["kc"][rows], "vc": a["vc"][rows],
+            "sc": {k: v[rows] for k, v in a["sc"].items()},
+            "bt": _local_tables(a["bt"], f, nb),
+            "whole": (a["kc"], a["vc"], a["sc"], a["bt"])}
+
+
+def rebase_reading(torch, name, out, plain, whole, args) -> dict:
+    """The kernel on the shard against the plain version on the whole
+    pool with the global table: the rebase moved no page."""
+    kc, vc, sc, bt = whole
+    ref = plain(args["q"], kc, vc, bt, *args["rest"], **sc)
+    return {"vs_whole_pool": closeness(torch, name, out, ref)}
+
+
+def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV,
+                 shard=None):
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.ops.cuda import (
         paged_decode_attention, paged_decode_attention_plain)
 
-    a = decode_inputs(torch, gen, D, quant, B, ctx, hq, hkv)
+    a = decode_inputs(torch, gen, D, quant, B, ctx, hq, hkv, shard)
+    if shard is not None:
+        a = shard_view(torch, a, shard)
     q, kc, vc, bt, sl, sc = (a[n] for n in ("q", "kc", "vc", "bt", "sl", "sc"))
     lens, token_bytes = a["lens"], a["token_bytes"]
     scale = D ** -0.5
@@ -584,6 +649,12 @@ def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV):
     torch.cuda.synchronize()
     check(out[1].abs().max().item() == 0.0, f"{name}: seq_len 0 row not zero")
     reading = closeness(torch, name, out, ref)
+    if shard is not None:
+        reading.update(rebase_reading(
+            torch, name, out, lambda q_, k_, v_, bt_, sl_, **s_:
+                paged_decode_attention_plain(q_, k_, v_, bt_, sl_,
+                                             block_size=BS, **s_),
+            a["whole"], {"q": q, "rest": (sl,)}))
     # K1 runs for a few microseconds at the served batch, under the host's
     # time to enqueue a call: its time is taken from a CUDA graph's replay;
     # eager_ms is the same calls enqueued one by one.
@@ -602,17 +673,24 @@ def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV):
               + out.numel() * 2)
     flops = 4 * hq * D * tokens
     b_ms, b_by = bound(nbytes, flops)
-    return {"name": name,
-            "shape": {"B": B, "ctx": ctx, "block": BS, "Hq": hq, "Hkv": hkv,
-                      "D": D, "cache": "int8" if quant else "bf16",
-                      "seq_lens": lens[:8]},
+    shape = {"B": B, "ctx": ctx, "block": BS, "Hq": hq, "Hkv": hkv,
+             "D": D, "cache": "int8" if quant else "bf16",
+             "seq_lens": lens[:8]}
+    if shard is not None:
+        shape.update(shard=shard[0], shards=shard[1],
+                     pool_blocks=a["nblocks"],
+                     whole_pool_blocks=a["nblocks"] * shard[1])
+    return {"name": name, "shape": shape,
             **reading, "kernel_ms": k_ms, "eager_ms": eager_ms,
             "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
 
 
-def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV):
+def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV, shard=None):
+    """K2 on a pack of 4 segments; `shard` (f, n): a dp-local rank's,
+    its pages in shard f of an n-shard pool, run on the shard's view with
+    rebased tables (as `decode_phase`)."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.ops.cuda import (
         paged_prefill_attention, paged_prefill_attention_plain)
@@ -622,11 +700,13 @@ def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV):
     lens = [192, 136, 120, 64]           # sums to T; all PACK_ALIGN'd
     prefix = [0, 64, 0, 0]               # segment 1 has a cached prefix
     nblocks = 1 + R * P + 8
-    S = nblocks * BS
+    f, shards = shard or (0, 1)
+    S = shards * nblocks * BS
     kc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
     vc = torch.randn(S, hkv * D, generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn(T, hq, D, generator=gen, device=dev).to(torch.bfloat16)
-    perm = torch.randperm(nblocks - 1, generator=gen, device=dev)[: R * P] + 1
+    perm = (torch.randperm(nblocks - 1, generator=gen, device=dev)[: R * P]
+            + 1 + f * nblocks)
     bt = torch.zeros(R, P, dtype=torch.int32, device=dev)
     sl, qs, ql = ([0] * R for _ in range(3))
     off = 0
@@ -639,6 +719,10 @@ def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV):
                         for x in (sl, qs, ql))
     name = "paged_prefill_attention" + ("_int8" if quant else "")
     kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant, hkv)
+    if shard is not None:
+        a = shard_view(torch, {"kc": kc, "vc": vc, "sc": sc, "bt": bt,
+                               "nblocks": nblocks}, shard)
+        kc, vc, sc, bt = a["kc"], a["vc"], a["sc"], a["bt"]
 
     def kern():
         return paged_prefill_attention(q, kc, vc, bt, sl_t, qs_t, ql_t,
@@ -652,6 +736,12 @@ def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV):
     ref = plain()
     torch.cuda.synchronize()
     reading = closeness(torch, name, out, ref)
+    if shard is not None:
+        reading.update(rebase_reading(
+            torch, name, out, lambda q_, k_, v_, bt_, *r, **s_:
+                paged_prefill_attention_plain(q_, k_, v_, bt_, *r,
+                                              block_size=BS, **s_),
+            a["whole"], {"q": q, "rest": (sl_t, qs_t, ql_t)}))
     k_ms = time_ms(torch, kern)
     p_ms = time_ms(torch, plain, samples=5, per_sample=2)
     # Yardstick: one SDPA call over the real segments padded to the
@@ -677,10 +767,13 @@ def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV):
               + 3 * R * 4 + out.numel() * 2)
     flops = 4 * hq * D * visible
     b_ms, b_by = bound(nbytes, flops)
-    return {"name": name,
-            "shape": {"T": T, "segments": lens, "cached_prefix": prefix,
-                      "block": BS, "Hq": hq, "Hkv": hkv, "D": D,
-                      "cache": "int8" if quant else "bf16"},
+    shape = {"T": T, "segments": lens, "cached_prefix": prefix,
+             "block": BS, "Hq": hq, "Hkv": hkv, "D": D,
+             "cache": "int8" if quant else "bf16"}
+    if shard is not None:
+        shape.update(shard=f, shards=shards, pool_blocks=nblocks,
+                     whole_pool_blocks=nblocks * shards)
+    return {"name": name, "shape": shape,
             **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops, "tflops": tflops(flops, k_ms)}
@@ -953,8 +1046,8 @@ def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
     Returns the per-step logits relative errors, argmax agreements and
     the fed tokens, and for a MoE model each path's expert-load sum
     beside the token rows it routed; `keep` collects the kernel path's
-    logits of every step.  `tp` (a TpGroup): the kernel path is the
-    tensor-parallel one, `kstate` its ranks' states, each rank on its own
+    logits of every step.  `tp` (a DpGrid of one dp row): the kernel path
+    is the tensor-parallel one, `kstate` its ranks' states, each rank on its own
     cache shard and its own K1 / K2 calls; the gather path stays whole."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.models import llama
@@ -965,7 +1058,7 @@ def compare_paths(torch, cfg, kstate, pstate, kv_quant="none", feed=None,
     ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=16, block_size=BS,
                                        kv_quant=kv_quant)
     cache_k = (kvc.init_cache(ccfg, dev) if tp is None
-               else kvc.init_rank_caches(ccfg, tp.devices))
+               else kvc.init_grid_caches(ccfg, tp))
     cache_g = kvc.init_cache(ccfg, dev)
     P = 4
     pages = [[1, 2, 3, 4], [5, 6, 7, 8]]
@@ -1327,7 +1420,7 @@ def model_sp_phases(torch, kernels):
 
 def tp_state(torch, name: str, layers=None, group=None):
     """(cfg, seed-0 state on card 0) of preset `name`, cut to `layers`;
-    with a TpGroup, the ranks' states of the same draws."""
+    with a rank grid, the ranks' states of the same draws."""
     from dynamo_tpu_torch.models import weights
     from dynamo_tpu_torch.models.config import get_config
 
@@ -1414,7 +1507,7 @@ def tp_bytes(torch, cfg, state, ranks, group) -> dict:
         size = [sum(t.numel() * t.element_size() for v in c.values()
                     for t in v)
                 for c in ([kvc.init_cache(ccfg, group.devices[0])]
-                          + kvc.init_rank_caches(ccfg, group.devices))]
+                          + kvc.init_grid_caches(ccfg, group))]
         check(all(b * tp == size[0] for b in size[1:]),
               f"{cfg.name} tp {tp}: rank KV bytes {size[1:]} are not 1/tp "
               f"of {size[0]} ({mode})")
@@ -1430,7 +1523,7 @@ def tp_lone_bodies() -> list:
 
 def model_tp_phase(torch, kernels):
     """The tensor-parallel forward against the port's unsharded gather
-    path on the same seed-0 weights (`compare_paths` with a TpGroup on
+    path on the same seed-0 weights (`compare_paths` with a tp grid on
     card 0, every rank its own stream): llama-3-8b at full width and
     depth at tp 2, and llama-3-70b at full width and TP_70B_LAYERS layers
     at tp 8, each over a bf16 and an int8 cache.  Each run launches K2
@@ -1448,13 +1541,13 @@ def model_tp_phase(torch, kernels):
     from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
     from dynamo_tpu_torch.models.config import get_config
-    from dynamo_tpu_torch.parallel import MeshConfig, TpGroup
+    from dynamo_tpu_torch.parallel import DpGrid, MeshConfig
 
     lines, ref = [], None
     for name, tp, layers in (("llama-3-8b", TP, None),
                              ("llama-3-70b", TP_70B, TP_70B_LAYERS)):
         t_model = time.monotonic()
-        group = TpGroup.for_mesh(MeshConfig(tp=tp), torch.device("cuda", 0))
+        group = DpGrid.for_mesh(MeshConfig(tp=tp), torch.device("cuda", 0))
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1504,10 +1597,28 @@ def model_tp_phase(torch, kernels):
     return lines, ref
 
 
-def serve_tp_phase(torch, serve: dict, ref: dict) -> dict:
+def serve_tp_dp_phases(torch, serve: dict, ref: dict):
+    """serve_tp and serve_dp on one stack (`distributed_stack`, its
+    startup paid once): frontend A with the llama-3-8b `--tp 2` worker
+    (model "m") and serve_dp's two llama-3-1b workers (`DP_WORKERS`), all
+    on the card; the phases run one after the other.  Returns their
+    results."""
+    with distributed_stack(
+            workers=(("worker", ("--model", "llama-3-8b", "--tp", str(TP))),
+                     *((f"worker_{k}", v[1]) for k, v in DP_WORKERS.items())),
+            frontend_b=False, tag="tp",
+            models=("m", *(v[0] for v in DP_WORKERS.values()))) as (
+                a, _, status, startup_s):
+        tp = serve_tp_phase(torch, serve, ref, (a, status[:1], startup_s))
+        dp = serve_dp_phase(torch, serve, (a, status[1:], startup_s))
+    return tp, dp
+
+
+def serve_tp_phase(torch, serve: dict, ref: dict, stack) -> dict:
     """llama-3-8b served tensor-parallel: a control plane (frontend A's),
-    `python -m dynamo_tpu_torch.worker --model llama-3-8b --tp 2` on the
-    card and frontend A (`distributed_stack`).  `serve`'s concurrent wave
+    `python -m dynamo_tpu_torch.worker --model llama-3-8b --tp 2` on
+    the card and frontend A (`stack`: the url, the
+    worker's status url and the stack's seconds to ready).  `serve`'s concurrent wave
     (8 chats, half streaming, 64 tokens) with the stats zeroed just
     before it, then serve_tp's two unary chats, one at a time, whose
     greedy ids must equal the unsharded in-process engine's (`ref`, from
@@ -1521,13 +1632,10 @@ def serve_tp_phase(torch, serve: dict, ref: dict) -> dict:
 
     t_phase = time.monotonic()
     cfg = get_config("llama-3-8b")
-    with distributed_stack(
-            workers=(("worker", ("--model", "llama-3-8b", "--tp", str(TP))),),
-            frontend_b=False, tag="tp") as (a, _, status, startup_s):
-        w = status[0]
-        _chat(a, chat_body(-1, False, 4))          # warm-up
-        wave = stack_wave(a, w)
-        lone = [answer(_chat(a, b)) for b in tp_lone_bodies()]
+    a, (w,), startup_s = stack
+    _chat(a, chat_body(-1, False, 4))          # warm-up
+    wave = stack_wave(a, w)
+    lone = [answer(_chat(a, b)) for b in tp_lone_bodies()]
     ws = wave["worker"]
     layers = cfg.num_layers
     launched = ws["kernels"]
@@ -1563,6 +1671,7 @@ def serve_tp_phase(torch, serve: dict, ref: dict) -> dict:
     del state
     torch.cuda.empty_cache()
     return {"phase": "serve_tp", "model": "llama-3-8b", "tp": TP,
+            "layers": cfg.num_layers,
             "startup_s": startup_s, **wave["summary"],
             "launches": launched,
             "launches_per_rank": {
@@ -1578,6 +1687,359 @@ def serve_tp_phase(torch, serve: dict, ref: dict) -> dict:
             "kv_shard_count": ws["kv_shard_count"], "slice": ws["slice"],
             "lone_equal_unsharded": [s is None for s in splits],
             "lone_splits": splits, "lone_teacher_forced": held,
+            "serve": {k: serve[k] for k in ("output_tok_s", "ttft_mean_s",
+                                            "ttft_max_s", "itl_mean_s")},
+            "phase_s": time.monotonic() - t_phase}
+
+
+def grid_same(torch, cfg, state, ranks, grid) -> bool:
+    """Every rank's tensor equals its piece of the whole state's, bit for
+    bit, and the ranks of one card share one copy of each piece."""
+    from dynamo_tpu_torch.parallel import param_pspecs
+    from dynamo_tpu_torch.parallel.sharding import _coords
+
+    specs = param_pspecs(cfg, grid.dp_attention)
+    whole = list(tp_leaves(state, specs))
+    for f, rank in enumerate(ranks):
+        mine = list(tp_leaves(rank, specs))
+        first = list(tp_leaves(ranks[f % grid.tp], specs))
+        for (t, spec), (w, _), (t0, _) in zip(mine, whole, first):
+            if t is not t0:
+                return False
+            for axis, index, n in _coords(spec, f // grid.tp, f % grid.tp,
+                                          grid.tp)[0]:
+                size = t.shape[axis]
+                w = w.narrow(axis, index * size, size)
+            if t.shape != w.shape or not torch.equal(t, w.to(t.device)):
+                return False
+    return True
+
+
+def grid_bytes(ranks, cache) -> dict:
+    """Each rank's weight and KV bytes, and the distinct bytes the card
+    holds (ranks share their pieces)."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        else:
+            yield tree
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    return {"weights_per_rank": [nbytes(leaves(r)) for r in ranks],
+            "weights_on_card": nbytes({id(t): t for r in ranks
+                                       for t in leaves(r)}.values()),
+            "kv_per_rank": [nbytes(leaves(c)) for c in cache],
+            "kv_on_card": nbytes({id(t): t for c in cache
+                                  for t in leaves(c)}.values())}
+
+
+def grid_compare(torch, cfg, ranks, state, grid, kv_quant: str) -> dict:
+    """compare_paths over a DpGrid: four prompts, one a rank's share
+    (rank f's pages in shard f's block range under dp-local, each later
+    shard's row starting on its shard's FIRST block), one grid-shaped
+    packed prefill (an equal token range a dp row, or a rank under
+    dp-attention), then 4 greedy decode steps, against the unsharded
+    gather path on `state` fed the same tokens.  Returns the per-step
+    logits relative errors, argmax gaps and the bytes (`grid_bytes`)."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.models import llama
+
+    dev = torch.device("cuda")
+    prompts = [list(range(3, 3 + 77)), list(range(100, 100 + 140)),
+               list(range(600, 600 + 60)), list(range(900, 900 + 101))]
+    nb = 32                                   # 8 blocks a dp-local shard
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=nb, block_size=BS,
+                                       kv_quant=kv_quant)
+    cache_k = kvc.init_grid_caches(ccfg, grid)
+    cache_g = kvc.init_cache(ccfg, dev)
+    P = 4
+    pages = [[8 * f + j + (f == 0) for j in range(P)] for f in range(4)]
+    bt = torch.tensor(pages, dtype=torch.int32, device=dev)
+    split = grid.n if grid.dp_attention else grid.dp
+    per = len(prompts) // split
+    groups = [list(range(g * per, (g + 1) * per)) for g in range(split)]
+    Tg = max(sum(-(-len(prompts[i]) // 8) * 8 for i in g) for g in groups)
+    T, R = Tg * split, len(prompts)
+    tokens = torch.zeros(T, dtype=torch.int32)
+    positions = torch.full((T,), 128 * BS, dtype=torch.int32)
+    seg = torch.zeros(T, dtype=torch.int32)
+    qs, ql, sl, smp = (torch.zeros(R, dtype=torch.int32) for _ in range(4))
+    for g, rows in enumerate(groups):
+        off = g * Tg
+        for i in rows:
+            n = len(prompts[i])
+            tokens[off: off + n] = torch.tensor(prompts[i])
+            positions[off: off + n] = torch.arange(n)
+            seg[off: off + n] = i
+            qs[i], ql[i], sl[i], smp[i] = off, n, n, off + n - 1
+            off += -(-n // 8) * 8
+    packed = llama.make_packed_prefill_step(cfg, BS, tp=grid)
+    logits_k, cache_k = packed(ranks, cache_k, *(t.to(dev) for t in (
+        tokens, positions, seg, bt.cpu(), qs, ql, sl, smp)))
+    Lmax = max(len(p) for p in prompts)
+    tok2 = torch.zeros(R, Lmax, dtype=torch.int32)
+    pos2 = torch.full((R, Lmax), 128 * BS, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tok2[i, : len(p)] = torch.tensor(p)
+        pos2[i, : len(p)] = torch.arange(len(p))
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    gather = llama.make_forward_step(cfg, BS, use_decode_kernel=False)
+    logits_g, cache_g = gather(state, cache_g, tok2.to(dev), pos2.to(dev),
+                               lens.to(dev), bt, (lens - 1).to(dev))
+    errs, gaps = [], []
+
+    def compare(lk, lg):
+        check(bool(torch.isfinite(lk).all()), f"{cfg.name}: non-finite logits")
+        errs.append(((lk - lg).abs().max() / lg.abs().max()).item())
+        pick = lk.argmax(-1)
+        gap = lg.max(-1).values - lg.gather(-1, pick[:, None])[:, 0]
+        gaps.append((gap.max() / lg.abs().max()).item())
+
+    compare(logits_k, logits_g)
+    step_k = llama.make_forward_step(
+        cfg, BS, use_decode_kernel=not (grid.dp_attention
+                                        and not grid.dp_local), tp=grid)
+    cur = lens.clone().to(dev)
+    nxt = logits_k.argmax(-1).to(torch.int32)
+    zero = torch.zeros(R, dtype=torch.int32, device=dev)
+    steps = 4
+    for _ in range(steps):
+        cur = cur + 1
+        lk, cache_k = step_k(ranks, cache_k, nxt[:, None], (cur - 1)[:, None],
+                             cur, bt, zero)
+        lg, cache_g = gather(state, cache_g, nxt[:, None], (cur - 1)[:, None],
+                             cur, bt, zero)
+        compare(lk, lg)
+        nxt = lk.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    check(max(errs) <= DP_TOL,
+          f"model_dp {grid.mode} ({kv_quant}): logits rel err {errs} > "
+          f"{DP_TOL}")
+    check(max(gaps) <= MODEL_TOL[cfg.name],
+          f"model_dp {grid.mode} ({kv_quant}): greedy tokens differ beyond "
+          f"a near tie: argmax gap {gaps}")
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "kv_quant": kv_quant,
+           "prompts": [len(p) for p in prompts], "pages": pages,
+           "packed_tokens": T, "groups": split, "decode_steps": steps,
+           "logits_rel_err": errs, "argmax_gap": gaps, "tol": DP_TOL,
+           "bytes": grid_bytes(ranks, cache_k)}
+    del cache_k, cache_g
+    return out
+
+
+def model_dp_phase(torch, kernels):
+    """The data-parallel forward against the port's unsharded gather path
+    on the same seed-0 weights (`grid_compare`, every rank on card 0):
+    llama-3-8b at full width and depth on a dp 2 x tp 2 grid, plain dp
+    (bf16 cache), dp-attention without locality (bf16) and dp-local (bf16
+    and int8).  Launch counts, zeroed just before each run: K2 once a
+    layer and rank (plain) or shard (dp-local), K1 once a layer, rank and
+    decode step; the non-local leg launches neither (the gather path, as
+    JAX's capability table sends it).  The ranks' states are drawn by
+    `init_params(group=)`, must equal the whole state's pieces with one
+    copy a card, and the card holds one model's bytes for them; the
+    draw's peak is printed."""
+    from dynamo_tpu_torch.parallel import DpGrid, MeshConfig
+
+    name = "llama-3-8b"
+    dev = torch.device("cuda", 0)
+    cfg, state = tp_state(torch, name)
+    whole = grid_bytes([state], [])["weights_on_card"]
+    lines = []
+    legs = (("dp", False, False, ("none",)),
+            ("dp_attention", True, False, ("none",)),
+            ("dp_local", True, True, ("none", "int8")))
+    ranks = None
+    for mode, da, dl, quants in legs:
+        t_leg = time.monotonic()
+        grid = DpGrid.for_mesh(MeshConfig(dp=DP, tp=TP), dev, da, dl)
+        if mode != "dp_local":          # dp-local shares dp-attention's
+            ranks = None
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            ranks = tp_state(torch, name, None, grid)[1]
+            torch.cuda.synchronize()
+            draw = {"s": time.monotonic() - t0,
+                    "peak_bytes": torch.cuda.max_memory_allocated() - base}
+            check(grid_same(torch, cfg, state, ranks, grid),
+                  f"model_dp {mode}: the ranks' drawn pieces differ from "
+                  "the whole state's, or the ranks of the card hold more "
+                  "than one copy")
+        for kv_quant in quants:
+            body = "" if kv_quant == "none" else "_int8"
+            kernels.reset_launch_counts()
+            grid.launches[:] = [0] * grid.n
+            out = grid_compare(torch, cfg, ranks, state, grid, kv_quant)
+            launched = kernels.launch_counts()
+            kern = not (da and not dl)
+            want = {"paged_prefill_attention" + body:
+                        cfg.num_layers * grid.n if kern else 0,
+                    "paged_decode_attention" + body:
+                        cfg.num_layers * grid.n * out["decode_steps"]
+                        if kern else 0}
+            check(all(launched[k] == n for k, n in want.items())
+                  and sum(launched.values()) == sum(want.values()),
+                  f"model_dp {mode} ({kv_quant}): launches {launched}, "
+                  f"want {want}")
+            per_rank = cfg.num_layers * (1 + out["decode_steps"]) * kern
+            check(grid.launches == [per_rank] * grid.n,
+                  f"model_dp {mode}: launches per rank {grid.launches}")
+            check(out["bytes"]["weights_on_card"] == whole,
+                  f"model_dp {mode}: the card holds "
+                  f"{out['bytes']['weights_on_card']} weight bytes for the "
+                  f"grid, the model is {whole}")
+            lines.append({"phase": "model_dp", "mode": mode, "dp": DP,
+                          "tp": TP, "rank_devices": grid.describe(), **out,
+                          "launches": launched,
+                          "launches_per_rank": list(grid.launches),
+                          "draw": draw, "weights_whole": whole,
+                          "leg_s": time.monotonic() - t_leg})
+    del state, ranks
+    torch.cuda.empty_cache()
+    return lines
+
+
+def dp_wave(a: str, w: str, model: str) -> dict:
+    """`stack_wave` for model `model`: serve's 8 chats through frontend
+    `a`, the stats of `a` and worker `w` zeroed just before it."""
+    for u in (a, w):
+        _http(u + "/debug/stats/reset", {})
+    t1 = time.monotonic()
+    results = chat_wave(a, [{**chat_body(i, i % 2 == 0, 64), "model": model}
+                            for i in range(8)])
+    wall = time.monotonic() - t1
+    check_results(results, 64)
+    reqs = json.loads(_http(a + "/debug/stats"))["requests"]
+    check(len(reqs) == 8, f"serve_dp: frontend timed {len(reqs)}")
+    ttfts = [r["ttft_s"] for r in reqs]
+    itl_n = sum(r["itl_n"] for r in reqs)
+    out_tokens = sum(r["tokens"] for r in results)
+    return {"worker": json.loads(_http(w + "/debug/stats")),
+            "summary": {
+                "output_tokens": out_tokens, "wall_s": wall,
+                "output_tok_s": out_tokens / wall,
+                "ttft_mean_s": statistics.mean(ttfts),
+                "ttft_max_s": max(ttfts),
+                "itl_mean_s": (sum(r["itl_sum_s"] for r in reqs) / itl_n
+                               if itl_n else None)}}
+
+
+# serve_dp's workers: (model name, flags), each its own component so the
+# router keeps their instances apart.
+DP_WORKERS = {
+    "A": ("m-dp", ("--model-name", "m-dp", "--component", "dp",
+                   "--dp", str(DP))),
+    "B": ("m-dpa", ("--model-name", "m-dpa", "--component", "dpa",
+                    "--tp", str(TP), "--dp", str(DP), "--dp-attention")),
+}
+
+
+def serve_dp_phase(torch, serve: dict, stack) -> dict:
+    """Two llama-3-1b workers behind one KV-routed frontend on card 0
+    (`stack`, `serve_tp_dp_phases`'): worker A `--dp 2` (model "m-dp"),
+    worker B `--tp 2 --dp 2 --dp-attention` (model "m-dpa"; the prefix
+    cache is on, so locality resolves off and attention takes the gather
+    path).
+    On each: `serve`'s wave (8 chats, half streaming, 64 tokens) with the
+    stats zeroed just before it, then one of serve's lone chats, whose
+    greedy ids must equal the unsharded engine's (`serve`'s answer) up to
+    a split at a near tie, each served id within MODEL_TOL of the top of
+    the plain model's logits given the ids before it (teacher-forced).
+    Worker A must launch K1 and K2 a whole number of times a layer and
+    rank, B neither; the meshes, shard counts and published slices are
+    checked.  TTFT, ITL and tok/s (frontend side) beside `serve`'s."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    cfg = get_config("llama-3-1b")
+    layers = cfg.num_layers
+    # (model, flags, tp, ranks) of each worker.
+    legs = {"A": (*DP_WORKERS["A"], 1, DP), "B": (*DP_WORKERS["B"], TP, DP * TP)}
+    lone_bodies = [traced(chat_body(i, False, 64, user=LONE_TURN))
+                   for i in range(2)]
+    out = {}
+    a, status, startup_s = stack
+    for (k, (model, _, tp, ranks)), w, i in zip(legs.items(), status,
+                                                range(2)):
+        _chat(a, {**chat_body(-1, False, 4), "model": model})  # warm-up
+        wave = dp_wave(a, w, model)
+        lone = answer(_chat(a, {**lone_bodies[i], "model": model}))
+        out[k] = {"model": model, "wave": wave, "lone": lone,
+                  "ranks": ranks, "tp": tp}
+    state = llama_state(torch)
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    legs_out = {}
+    for i, (k, leg) in enumerate(out.items()):
+        ws = leg["wave"]["worker"]
+        launched = ws["kernels"]
+        dp_attn = k == "B"
+        mesh = f"dp{DP}xtp{TP}" if dp_attn else f"dp{DP}"
+        check(ws["mesh"] == mesh and ws["slice"]["describe"] == mesh,
+              f"serve_dp {k}: mesh {ws['mesh']}, slice {ws['slice']}")
+        check(ws["kv_shard_count"] == leg["tp"]
+              and ws["kv_traffic_shards"] == leg["ranks"],
+              f"serve_dp {k}: kv_shard_count {ws['kv_shard_count']}, "
+              f"kv_traffic_shards {ws['kv_traffic_shards']}")
+        check(ws["dp_mode"] == ("dp_attention" if dp_attn else "dp")
+              and (not dp_attn or "dp_attention" in ws["slice"]["features"]),
+              f"serve_dp {k}: dp_mode {ws['dp_mode']}, slice {ws['slice']}")
+        for kk in ("paged_decode_attention", "paged_prefill_attention"):
+            if dp_attn:
+                check(launched[kk] == 0, f"serve_dp {k}: {kk} launched "
+                      f"{launched[kk]} times on the gather path")
+            else:
+                check(launched[kk] > 0
+                      and launched[kk] % (leg["ranks"] * layers) == 0,
+                      f"serve_dp {k}: {kk} launched {launched[kk]} times, "
+                      f"not a whole number of layers x ranks")
+        check(sum(ws["rank_launches"]) == launched["paged_decode_attention"]
+              + launched["paged_prefill_attention"],
+              f"serve_dp {k}: rank launches {ws['rank_launches']}")
+        body = {**lone_bodies[i], "model": "m"}
+        prompt = pre.preprocess_chat(ChatCompletionRequest.from_dict(body),
+                                     f"dp{i}").token_ids
+        got = leg["lone"]["token_ids"]
+        want = serve["lone_answers"][i]["token_ids"]
+        what = f"serve_dp {k} lone chat {i}"
+        split = greedy_split(torch, state, prompt, got, want, what)
+        gaps = forced_gaps(torch, cfg, state, prompt, got, 0)
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        check(gaps[worst] <= MODEL_TOL[cfg.name],
+              f"{what}: served token {worst} lies {gaps[worst]} below the "
+              f"top of the plain model's logits (> {MODEL_TOL[cfg.name]})")
+        c = ws["counters"]
+        legs_out[k] = {
+            "model_name": leg["model"], "flags": list(legs[k][1][4:]),
+            **leg["wave"]["summary"], "mesh": ws["mesh"],
+            "dp_mode": ws["dp_mode"], "tp_devices": ws["tp_devices"],
+            "kv_shard_count": ws["kv_shard_count"],
+            "kv_traffic_shards": ws["kv_traffic_shards"],
+            "slice": ws["slice"], "launches": launched,
+            "rank_launches": ws["rank_launches"],
+            "decode_steps": 8 * c["window_dispatches"]
+            + c["single_step_dispatches"],
+            "packed_prefill_dispatches": c["packed_prefill_dispatches"],
+            "lone_equal_unsharded": split is None, "lone_split": split,
+            "lone_teacher_forced": {"tokens": len(gaps),
+                                    "max_gap": gaps[worst], "at": worst,
+                                    "top": sum(g == 0.0 for g in gaps)}}
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "serve_dp", "model": "llama-3-1b",
+            "startup_s": startup_s, "workers": legs_out,
             "serve": {k: serve[k] for k in ("output_tok_s", "ttft_mean_s",
                                             "ttft_max_s", "itl_mean_s")},
             "phase_s": time.monotonic() - t_phase}
@@ -5518,6 +5980,22 @@ def main() -> int:
                 tp_attn[key, tag] = prefill_phase(torch, gen, d, quant, hq,
                                                   hkv)
                 emit({"phase": phase, **tp_attn[key, tag]})
+        # K1 and K2 as one shard of a dp-local grid runs them: the
+        # shard's view of the pool and its rebased tables.
+        dplocal = {}
+        g = DPLOCAL
+        shard = (g["shard"], g["shards"])
+        for quant in (False, True):
+            key = "paged_decode_attention" + ("_int8" if quant else "")
+            phase = f"{key}_dplocal"
+            dplocal[key] = decode_phase(torch, gen, g["D"], quant, g["rows"],
+                                        g["ctx"], g["Hq"], g["Hkv"], shard)
+            emit({"phase": phase, **dplocal[key]})
+            key = "paged_prefill_attention" + ("_int8" if quant else "")
+            phase = f"{key}_dplocal"
+            dplocal[key] = prefill_phase(torch, gen, g["D"], quant, g["Hq"],
+                                         g["Hkv"], shard)
+            emit({"phase": phase, **dplocal[key]})
         ring = {}
         for quant in (False, True):
             for d in (64, 128):
@@ -5563,6 +6041,11 @@ def main() -> int:
         for line in model_tp:
             emit(line)
         torch.cuda.empty_cache()
+        phase = "model_dp"
+        model_dp = model_dp_phase(torch, kernels)
+        for line in model_dp:
+            emit(line)
+        torch.cuda.empty_cache()
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"),
@@ -5576,8 +6059,8 @@ def main() -> int:
                                                  batch_reference(base)))
         serve_embed, serve["batch_reference"] = serve.pop("during")
         emit(serve)
-        phase = "serve_tp"
-        serve_tp = serve_tp_phase(torch, serve, tp_ref)
+        phase = "serve_tp / serve_dp"
+        serve_tp, serve_dp = serve_tp_dp_phases(torch, serve, tp_ref)
         emit(serve_tp)
         print(f"serve_tp on {'; '.join(smi.splitlines())}: llama-3-8b "
               f"--tp {TP} (startup {serve_tp['startup_s']:.1f} s): "
@@ -5595,6 +6078,25 @@ def main() -> int:
               + "; ".join(f"{x['model']} tp {x['tp']} {x['kv_quant']} "
                           f"{max(x['logits_rel_err']):.4f} (gap "
                           f"{max(x['argmax_gap']):.4f})" for x in model_tp),
+              flush=True)
+        emit(serve_dp)
+        print(f"serve_dp on {'; '.join(smi.splitlines())}: "
+              + "; ".join(
+                  f"llama-3-1b {' '.join(w['flags'])} ({w['dp_mode']}, "
+                  f"{w['mesh']}): {w['output_tok_s']:.1f} tok/s, TTFT mean "
+                  f"{w['ttft_mean_s']:.4f} s max {w['ttft_max_s']:.4f} s, "
+                  f"ITL mean {w['itl_mean_s']:.5f} s, K1 / K2 launches "
+                  f"{w['launches']['paged_decode_attention']} / "
+                  f"{w['launches']['paged_prefill_attention']}, a rank "
+                  f"{w['rank_launches']}, lone chat equal to the unsharded "
+                  f"engine's: {w['lone_equal_unsharded']}"
+                  for w in serve_dp["workers"].values())
+              + f"; serve (one rank) {serve['output_tok_s']:.1f} tok/s, "
+              f"TTFT mean {serve['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve['itl_mean_s']:.5f} s; model_dp logits rel err "
+              + "; ".join(f"{x['mode']} {x['kv_quant']} "
+                          f"{max(x['logits_rel_err']):.4f} (gap "
+                          f"{max(x['argmax_gap']):.4f})" for x in model_dp),
               flush=True)
         phase = "serve_distributed"
         dist = serve_distributed_phase(serve, serve_embed)
@@ -5926,6 +6428,23 @@ def main() -> int:
             extra["eager_ms"] = k["eager_ms"]
         summary.append(summary_entry(k, f"{key}_{tag}", launches,
                                      launches_from=frm, **extra))
+    # K1 / K2 at a dp-local shard's geometry (llama-3-8b's heads): the
+    # launches of model_dp's dp-local runs (bf16 and int8), every shard's
+    # counting once; serve_dp's `--dp 2` worker runs the bf16 bodies at
+    # llama-3-1b's geometry, its count beside.
+    dp_local_runs = {x["kv_quant"]: x for x in model_dp
+                     if x["mode"] == "dp_local"}
+    for key, k in dplocal.items():
+        run = dp_local_runs["int8" if key.endswith("_int8") else "none"]
+        extra = {"tflops": k["tflops"]} if "tflops" in k else {}
+        if "eager_ms" in k:
+            extra["eager_ms"] = k["eager_ms"]
+        if not key.endswith("_int8"):
+            extra["launches_serve_dp"] = serve_dp["workers"]["A"][
+                "launches"][key]
+        summary.append(summary_entry(k, f"{key}_dplocal", run["launches"][key],
+                                     launches_from="model_dp dp_local",
+                                     **extra))
     # K4: launches of serve_sp, the bf16 body from its `--sp 4` server and
     # the int8 body from its `--sp 4 --kv-quant int8` server (llama-3-1b,
     # D 64, T_loc 128; the other shapes give the same body's count).

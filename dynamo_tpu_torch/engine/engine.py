@@ -1,5 +1,5 @@
 """The inference engine: device state, step loop and async streaming (port
-of `dynamo_tpu/engine/engine.py`, meshless subset).
+of `dynamo_tpu/engine/engine.py`).
 
 - `EngineCore` — synchronous: owns the model state, the paged cache and
   the scheduler; `step()` runs one iteration and returns token deltas.
@@ -93,26 +93,40 @@ no-op without one, as in JAX; `qos_demoted_blocks` counts the blocks
 that moved).  A
 drain ends a stream with a `TokenDelta.migrate` hint (llm/drain.py).
 
-`tp > 1` runs every step tensor-parallel over a TpGroup of tp ranks
-(parallel/mesh.py), the JAX engine's head-sharded tp mesh: the weights
-are cut by `parallel.sharding.param_pspecs` (`shard_state`), each rank
-holds its kv heads' columns of the paged cache, and the packed prefill,
-the fused greedy step, the decode window, spec decode's T = K+1 verify
-and `embed_tokens` all run the same sharded forward (models/llama.py),
+`tp > 1`, `dp > 1` or `dp_attention` runs every step over a DpGrid of
+dp * tp ranks (parallel/mesh.py; tp alone is its one dp row), the JAX
+engine's (dp, tp) mesh: the weights are cut by
+`parallel.sharding.param_pspecs` (`shard_state`), the ranks of a card
+share one copy of each weight piece, and the packed prefill, the fused
+greedy step, the decode window, spec decode's T = K+1 verify and
+`embed_tokens` all run the same sharded forward (models/llama.py),
 whose full-vocab logits land on the engine's device, rank 0's, for the
 sampler.  Block tables, the scheduler and the block manager stay whole;
-the wire block stays the whole cache's.  Every modeled byte the counters
-and the device profiler keep is per chip: `kv_shard_count` (residency)
-and `kv_traffic_shards` (reads) are tp.
+the wire block stays the whole cache's.  Under tp, and plain dp, each
+rank holds its kv heads' columns of the paged cache (replicated over
+dp).  Over dp the batch rows pad to a multiple of dp (dp * tp under
+dp_attention: the grid's decode buckets are padded so) and a packed
+prefill is grid-shaped (one equal token range and segment rows a dp
+row, a rank under dp_attention).  dp_attention shards the cache's slots
+over tp and attends on the gather path; with page locality
+(`dp_attention_local`, JAX's auto rule: on with the plain allocator)
+the slots shard over the flat grid, the sharded allocator draws a
+request's pages from its slot's shard, the decode rows are the slots
+themselves (the fixed `_dp_rows` grid, JAX's cost: that many rows every
+step; `_slot_perm`), and K1 / K2 run per shard on shard-local tables.
+Every modeled byte the counters and the device profiler keep is per
+chip: `kv_shard_count` (residency) is tp (dp * tp under dp-local) and
+`kv_traffic_shards` (reads) dp * tp, as JAX's.
 
-Not ported yet: prewarm of the packed prefill shapes; dp, dp-attention,
-ep with MoE all-to-all dispatch (and MoE under tp), pp and sp x tp
+Not ported yet: prewarm of the packed prefill shapes; ep with MoE
+all-to-all dispatch (and MoE under a mesh), pp, sp x tp and sp x dp
 meshes (ROADMAP.md A7).
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import threading
 import time
@@ -163,7 +177,7 @@ from dynamo_tpu_torch.models.llama import (
 from dynamo_tpu_torch.models.weights import init_params
 from dynamo_tpu_torch.ops.cuda import PACK_ALIGN, ring_kernel_supported
 from dynamo_tpu_torch.ops.moe import resolve_moe_mode
-from dynamo_tpu_torch.parallel.mesh import MeshConfig, SpRing, TpGroup
+from dynamo_tpu_torch.parallel.mesh import DpGrid, MeshConfig, SpRing
 from dynamo_tpu_torch.parallel.sharding import (
     PlaneSpec,
     check_plane,
@@ -260,6 +274,18 @@ class EngineConfig:
     # Tensor parallelism: tp ranks (1 = off), rank 0 on `device`, a card
     # a rank where there are tp cards, else round-robin sharing.
     tp: int = 1
+    # Data parallelism: dp rows of tp ranks each (parallel/mesh.DpGrid).
+    dp: int = 1
+    # Batch-sharded attention with slot-sharded KV (JAX's
+    # `--dp-attention`): attention weights replicate, the MLP stays
+    # tp-sharded.
+    dp_attention: bool = False
+    # dp-attention page locality: slots shard over the flat (dp, tp)
+    # grid, decode rows pin to their slot and the sharded allocator keeps
+    # a row's pages on its shard, so K1 and K2 run per shard.  None =
+    # auto, JAX's rule: on under dp_attention with a mesh and the plain
+    # allocator (the prefix cache has no shard concept).
+    dp_attention_local: Optional[bool] = None
     # Speculative decode (`--spec-decode K`): when > 0, a decode step
     # drafts `speculative_tokens` tokens per row (prompt lookup over
     # `speculative_ngram`-grams, or `drafter`), verifies them in one
@@ -317,40 +343,78 @@ class EngineCore:
         self.cache_cfg = kvc.KvCacheConfig.for_model(
             cfg, num_blocks=config.num_blocks, block_size=self.block_size,
             kv_quant=config.kv_quant)
-        self.mesh = MeshConfig(sp=config.sp, tp=config.tp)
-        self.group: Optional[TpGroup] = None
-        if config.tp > 1:
-            validate(cfg, self.mesh)
-            check_plane(PlaneSpec(moe=cfg.is_moe), self.mesh)
-            self.group = TpGroup.for_mesh(self.mesh, self.device)
-            logger.info("tp group: %d ranks on %s", config.tp,
-                        self.group.describe())
+        self.mesh = MeshConfig(dp=config.dp, sp=config.sp, tp=config.tp)
+        self._dp_local = self._resolve_dp(config)
+        self._n_local_shards = 1
+        if self._dp_local:
+            self._n_local_shards = config.dp * config.tp
+            if config.num_blocks % self._n_local_shards:
+                raise ValueError(
+                    f"dp_attention_local: num_blocks={config.num_blocks} "
+                    f"must divide by dp*tp={self._n_local_shards}")
+            if sched_cfg.max_seqs % self._n_local_shards:
+                raise ValueError(
+                    f"dp_attention_local: max_seqs={sched_cfg.max_seqs} "
+                    f"must divide by dp*tp={self._n_local_shards}")
+            # The fixed decode row grid: row == slot, so a request's rows
+            # ride one shard for its whole life (JAX runs this many rows
+            # every decode step, whatever the load).
+            self._dp_rows = sched_cfg.bucket_for_decode(sched_cfg.max_seqs)
+            if self._dp_rows % self._n_local_shards:
+                raise ValueError(
+                    f"dp_attention_local: decode bucket {self._dp_rows} "
+                    f"must divide by dp*tp={self._n_local_shards}")
+        # Every sharded engine runs on a DpGrid (tp alone: its one dp
+        # row); `group` is its older name.
+        self.grid: Optional[DpGrid] = None
+        if self._meshed:
+            validate(cfg, self.mesh, config.dp_attention)
+            check_plane(PlaneSpec(dp_attention=config.dp_attention,
+                                  dp_local=self._dp_local, moe=cfg.is_moe),
+                        self.mesh)
+            self.grid = DpGrid.for_mesh(
+                self.mesh, self.device, config.dp_attention, self._dp_local)
+            if config.dp == 1 and not config.dp_attention:
+                logger.info("tp group: %d ranks on %s", config.tp,
+                            self.grid.describe())
+            else:
+                logger.info("dp grid: %s (%s) ranks on %s",
+                            self.mesh.describe(), self.grid.mode,
+                            self.grid.describe())
+        self.group = self.grid
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            # A tp engine's draws are cut into its ranks' slices as they
-            # come (the same weights as the meshless engine's).
-            params = init_params(cfg, gen, self.device, group=self.group)
-        elif self.group is not None:
+            # A sharded engine's draws are cut into its ranks' slices as
+            # they come (the same weights as the meshless engine's).
+            params = init_params(cfg, gen, self.device, group=self.grid)
+        elif self.grid is not None:
             # Each rank keeps a copy of its slice only, copied from where
             # the whole state lies (best the host: a card then never holds
             # the whole model beside its slices); dropping the whole state
             # is the caller's.
-            params = shard_state(params, param_pspecs(cfg), self.group)
-        if self.group is not None:
-            self.cache = kvc.init_rank_caches(self.cache_cfg,
-                                              self.group.devices)
+            params = shard_state(params, param_pspecs(cfg,
+                                                      config.dp_attention),
+                                 self.grid)
+        if self.grid is not None:
+            self.cache = kvc.init_grid_caches(self.cache_cfg, self.grid)
         else:
             self.cache = kvc.init_cache(self.cache_cfg, self.device)
         self.params = params
         # Per-chip divisors of the modeled bytes (JAX's engine): a stored
-        # KV byte splits over kv_shard_count chips, and each chip's
-        # attention reads its heads' columns of every row's context.
-        self.kv_shard_count = self.kv_traffic_shards = config.tp
+        # KV byte splits over kv_shard_count chips (tp's heads or slots;
+        # dp-local's flat grid; plain dp replicates), and each chip's
+        # attention reads its rows' context, so traffic divides by dp*tp.
+        self.kv_traffic_shards = config.dp * config.tp
+        self.kv_shard_count = (self.kv_traffic_shards if self._dp_local
+                               else config.tp)
         self._moe = cfg.is_moe
         self.moe_mode = resolve_moe_mode(cfg, self.device, config.moe_mode)
+        # Non-local dp-attention reads pages from any shard: the gather
+        # path, as JAX's capability table sends it.
+        self._use_kernel = not (config.dp_attention and not self._dp_local)
         self._step = make_forward_step(
-            cfg, self.block_size, use_decode_kernel=True,
+            cfg, self.block_size, use_decode_kernel=self._use_kernel,
             moe_mode=self.moe_mode, with_expert_load=self._moe,
             tp=self.group)
         self._packed_step = make_packed_prefill_step(
@@ -382,6 +446,23 @@ class EngineCore:
         # Seal-progress callback (request id, sealed blocks), called on
         # the engine thread; InferenceEngine installs it.
         self.seal_sink: Optional[Callable[[str, int], None]] = None
+        # Batch rows pad to a multiple of dp (dp*tp under dp_attention,
+        # whose batch shards over both axes): the grid's decode buckets
+        # are the scheduler's, padded so.
+        self._row_mult = (config.dp * (config.tp if config.dp_attention
+                                       else 1)
+                          if self.grid is not None else 1)
+        if self._dp_local:
+            # Every decode step runs the whole fixed row grid.
+            rows_per_shard = self._dp_rows // self._n_local_shards
+            sched_cfg = dataclasses.replace(
+                sched_cfg, decode_buckets=(self._dp_rows,),
+                shard_of_slot=lambda s: s // rows_per_shard)
+        elif self._row_mult > 1:
+            m = self._row_mult
+            sched_cfg = dataclasses.replace(
+                sched_cfg, decode_buckets=tuple(sorted(
+                    {-(-b // m) * m for b in sched_cfg.decode_buckets})))
         if config.enable_prefix_cache:
             self.allocator = ManagedBlockSource(
                 TieredConfig(device_blocks=config.num_blocks,
@@ -396,7 +477,8 @@ class EngineCore:
                 wire_dtype=self.cache_cfg.block_wire_dtype,
                 device=self.device)
         else:
-            self.allocator = BlockAllocator(config.num_blocks)
+            self.allocator = BlockAllocator(
+                config.num_blocks, num_shards=self._n_local_shards)
         self.scheduler = Scheduler(sched_cfg, self.allocator)
         # QoS preemption: the scheduler picks victims, the engine executes
         # the preempt so seal bookkeeping resets and the victim's sealed
@@ -452,6 +534,50 @@ class EngineCore:
         self._prefill_cost_tokens = 0
         self._last_window_sync_ts: Optional[float] = None
         self._mixed_cost_seen = 0
+
+    @property
+    def _meshed(self) -> bool:
+        return self.config.dp * self.config.tp > 1
+
+    def _resolve_dp(self, config: EngineConfig) -> bool:
+        """dp-attention locality, JAX's auto rule and its refusals."""
+        local = config.dp_attention_local
+        if local is None:
+            local = (config.dp_attention and self._meshed
+                     and not config.enable_prefix_cache)
+        if local and not (self._meshed and config.dp_attention):
+            raise ValueError("dp_attention_local needs a mesh with "
+                             "dp_attention")
+        if local and config.enable_prefix_cache:
+            raise ValueError("dp_attention_local needs the plain "
+                             "allocator (enable_prefix_cache=False); the "
+                             "tiered source has no shard concept yet")
+        if config.dp_attention and not self._meshed:
+            check_plane(PlaneSpec(dp_attention=True))
+        return bool(local)
+
+    def _slot_perm(self, reqs: List[Request], bucket: int) -> np.ndarray:
+        """dp-local's decode rows: row j of a compact batch (request j,
+        then the pad rows) goes to row `perm[j]`, request j's slot, so its
+        rows stay on its pages' shard for its whole life; the pad rows take
+        the slots left."""
+        slots = np.asarray([r.slot for r in reqs], np.int64)
+        return np.concatenate([slots, np.setdiff1d(np.arange(bucket), slots)])
+
+    @staticmethod
+    def _to_slots(perm: np.ndarray, *rows):
+        """Compact per-row arrays (or lists) laid out on `perm`'s rows."""
+        out = []
+        for a in rows:
+            if isinstance(a, list):
+                b = list(a)
+                for j, p in enumerate(perm.tolist()):
+                    b[p] = a[j]
+            else:
+                b = np.empty_like(a)
+                b[perm] = a
+            out.append(b)
+        return out
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
@@ -846,6 +972,11 @@ class EngineCore:
         starts), each one call of the packed step."""
         sched = self.scheduler.config
         deltas: List[TokenDelta] = []
+        if self._row_mult > 1:
+            for groups in self._grid_packs(batch.items):
+                deltas.extend(self._dispatch_grid_prefill(groups,
+                                                          async_first))
+            return deltas
         for items in pack_prefill_chunks(
                 batch.items, sched.packed_prefill_budget(),
                 PACKED_PREFILL_SEGMENTS, align=PACK_ALIGN):
@@ -856,11 +987,18 @@ class EngineCore:
                                  async_first: bool) -> List[TokenDelta]:
         sched = self.scheduler.config
         bs = self.block_size
-        R = PACKED_PREFILL_SEGMENTS
         aligned = sum(-(-w.length // PACK_ALIGN) * PACK_ALIGN for w in items)
         T = sched.bucket_for_packed(aligned)
         P = sched.bucket_for_pages(max(
             (w.start + w.length + bs - 1) // bs for w in items))
+        logits = self._packed_call(items, T, P,
+                                   self._pack_items(items, T, P))
+        return self._finish_prefill_items(items, logits, async_first)
+
+    def _pack_items(self, items, T: int, P: int) -> Dict[str, np.ndarray]:
+        """The packed step's host arrays for `items` over T tokens and
+        PACKED_PREFILL_SEGMENTS segment rows (PACK_ALIGN'd starts)."""
+        R = PACKED_PREFILL_SEGMENTS
         tokens = np.zeros((T,), np.int32)
         positions = np.full((T,), self._pad_position, np.int32)
         seg_ids = np.zeros((T,), np.int32)
@@ -895,6 +1033,17 @@ class EngineCore:
             n = min(len(req.pages), P)
             bts[i, :n] = req.pages[:n]
             off += -(-L // PACK_ALIGN) * PACK_ALIGN
+        return {"tokens": tokens, "positions": positions, "seg_ids": seg_ids,
+                "bts": bts, "q_starts": q_starts, "q_lens": q_lens,
+                "seq_lens": seq_lens, "sample_pos": sample_pos,
+                "embeds": embeds, "mask": mask}
+
+    def _packed_call(self, items, T: int, P: int,
+                     a: Dict[str, np.ndarray]) -> torch.Tensor:
+        """One call of the packed step on `_pack_items`' arrays: the
+        segment rows' logits."""
+        bs = self.block_size
+        R = a["bts"].shape[0]
         c = self.counters
         c.prefill_dispatches += 1
         c.packed_prefill_dispatches += 1
@@ -907,15 +1056,86 @@ class EngineCore:
         self._harvest_program(first, "prefill_packed", (T, R, P), steps=1,
                               tokens=T, kv_tokens=R * P * bs)
         mm = {}
-        if embeds is not None:
-            mm = {"input_embeds": self._dev(embeds),
-                  "embed_mask": self._dev(mask)}
+        if a["embeds"] is not None:
+            mm = {"input_embeds": self._dev(a["embeds"]),
+                  "embed_mask": self._dev(a["mask"])}
         logits, self.cache = self._take_load(self._packed_step(
-            self.params, self.cache, self._dev(tokens), self._dev(positions),
-            self._dev(seg_ids), self._dev(bts), self._dev(q_starts),
-            self._dev(q_lens), self._dev(seq_lens), self._dev(sample_pos),
-            **mm))
-        return self._finish_prefill_items(items, logits, async_first)
+            self.params, self.cache, self._dev(a["tokens"]),
+            self._dev(a["positions"]), self._dev(a["seg_ids"]),
+            self._dev(a["bts"]), self._dev(a["q_starts"]),
+            self._dev(a["q_lens"]), self._dev(a["seq_lens"]),
+            self._dev(a["sample_pos"]), **mm))
+        return logits
+
+    def _grid_packs(self, items) -> List[List[list]]:
+        """Grid-shaped packs: each a list of one item group per dp row
+        (per rank under dp-attention), each group at most one packed
+        budget and PACKED_PREFILL_SEGMENTS chunks.  dp-local puts a chunk
+        in its request's locality shard, the other modes in the least
+        loaded group."""
+        n = self._row_mult
+        budget = self.scheduler.config.packed_prefill_budget()
+        packs: List[List[list]] = []
+        cur: List[list] = [[] for _ in range(n)]
+        load = [0] * n
+
+        def fits(g, need):
+            return (len(cur[g]) < PACKED_PREFILL_SEGMENTS
+                    and (not cur[g] or load[g] + need <= budget))
+
+        for w in items:
+            need = -(-w.length // PACK_ALIGN) * PACK_ALIGN
+            g = (w.request.locality_shard if self._dp_local
+                 else min(range(n), key=lambda k: load[k]))
+            if not fits(g, need):
+                packs.append(cur)
+                cur, load = [[] for _ in range(n)], [0] * n
+                if not self._dp_local:
+                    g = 0
+            cur[g].append(w)
+            load[g] += need
+        if any(cur):
+            packs.append(cur)
+        return packs
+
+    def _dispatch_grid_prefill(self, groups,
+                               async_first: bool) -> List[TokenDelta]:
+        """One grid-shaped packed prefill: group g (a dp row's, a rank's
+        under dp-attention) packed by `_pack_items` into its own equal
+        token range and segment rows, the groups end to end."""
+        sched = self.scheduler.config
+        bs = self.block_size
+        Rg = PACKED_PREFILL_SEGMENTS
+        items = [w for g in groups for w in g]
+        Tg = sched.bucket_for_packed(max(
+            sum(-(-w.length // PACK_ALIGN) * PACK_ALIGN for w in g)
+            for g in groups))
+        P = sched.bucket_for_pages(max(
+            (w.start + w.length + bs - 1) // bs for w in items))
+        parts = [self._pack_items(g, Tg, P) for g in groups]
+        for g, a in enumerate(parts):
+            a["seg_ids"] += g * Rg
+            for k in ("q_starts", "sample_pos"):
+                a[k] += g * Tg
+        a = {k: (None if all(p[k] is None for p in parts)
+                 else np.concatenate([self._pack_part(p, k, Tg)
+                                      for p in parts]))
+             for k in parts[0]}
+        logits = self._packed_call(items, Tg * len(groups), P, a)
+        rows = [g * Rg + j for g, grp in enumerate(groups)
+                for j in range(len(grp))]
+        return self._finish_prefill_items(
+            items, logits[torch.tensor(rows, device=logits.device)],
+            async_first)
+
+    def _pack_part(self, part: Dict, key: str, T: int) -> np.ndarray:
+        """A group's array `key`, a multimodal pair filled in for a group
+        with no embeddings."""
+        if part[key] is not None:
+            return part[key]
+        if key == "embeds":
+            return np.zeros((T, self.config.model.hidden_size), np.float32)
+        return np.zeros((T,), bool)
 
     def _finish_prefill_items(self, items, logits,
                               async_first: bool) -> List[TokenDelta]:
@@ -976,6 +1196,11 @@ class EngineCore:
             live.append(req)
         if not live:
             return []
+        perm = None
+        if self._dp_local:
+            perm = self._slot_perm(live, bucket)
+            tokens, positions, seq_lens, bts = self._to_slots(
+                perm, tokens, positions, seq_lens, bts)
         c = self.counters
         c.single_step_dispatches += 1
         c.model_rows += bucket
@@ -997,6 +1222,8 @@ class EngineCore:
         logits, self.cache = self._take_load(self._step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seq_lens), self._dev(bts), zeros))
+        if perm is not None:
+            logits = logits[torch.from_numpy(perm).to(logits.device)]
         if fused:
             # Fused greedy step: argmax on the device, one [bucket] copy.
             toks_dev, lps_dev = greedy_sample(logits), None
@@ -1099,6 +1326,13 @@ class EngineCore:
             if req.sampling.temperature > 0:
                 seeds[i] = self._row_seed(req)
                 indices[i] = self._draw_index(req)
+        perm = None
+        if self._dp_local:
+            # The forward runs on the slots' rows; the verify reads the
+            # logits back in request order.
+            perm = self._slot_perm(reqs, bucket)
+            tokens, positions, seq_lens, bts = self._to_slots(
+                perm, tokens, positions, seq_lens, bts)
         c = self.counters
         first = c.note_dispatch("spec", bucket, T, width)
         c.spec_dispatches += 1
@@ -1116,6 +1350,8 @@ class EngineCore:
         logits, self.cache = self._take_load(self._step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),
             self._dev(seq_lens), self._dev(bts), None))
+        if perm is not None:
+            logits = logits[torch.from_numpy(perm).to(logits.device)]
         emitted_dev, n_emit_dev = speculative_verify(
             logits, self._dev(draft_arr), self._dev(temp), self._dev(top_k),
             self._dev(top_p), seeds, indices,
@@ -1157,7 +1393,7 @@ class EngineCore:
         if fn is None:
             fn = self._window_fns[greedy_only] = make_decode_window(
                 self.config.model, self.block_size, DECODE_WINDOW,
-                use_decode_kernel=True, greedy_only=greedy_only,
+                use_decode_kernel=self._use_kernel, greedy_only=greedy_only,
                 moe_mode=self.moe_mode, with_expert_load=self._moe,
                 tp=self.group)
         return fn
@@ -1172,6 +1408,12 @@ class EngineCore:
         reqs = work.requests
         bucket = work.bucket
         rows = list(range(len(reqs)))
+        perm = None
+        if self._dp_local:
+            # The window's rows are the requests' slots (the device feeds
+            # each row's token back on its row).
+            perm = self._slot_perm(reqs, bucket)
+            rows = perm[:len(reqs)].tolist()
         lag = len(self._inflight)  # windows dispatched but unsynced
 
         # Host bookkeeping lags the device by lag * K tokens.
@@ -1194,7 +1436,7 @@ class EngineCore:
         if (st is None or st["sig"] != sig
                 or not np.array_equal(st["pos_host"][rows], want_pos)):
             st = self._build_window_state(reqs, bucket, width, shadows, lag,
-                                          K, sig)
+                                          K, sig, perm)
             self.counters.h2d_uploads += 1
         pages_sig = tuple(len(r.pages) for r in reqs)
         if st["pages_sig"] != pages_sig:
@@ -1202,6 +1444,8 @@ class EngineCore:
             for i, req in enumerate(reqs):
                 n = min(len(req.pages), width)
                 bts[i, :n] = req.pages[:n]
+            if perm is not None:
+                bts, = self._to_slots(perm, bts)
             st["bts"] = self._dev(bts)
             st["pages_sig"] = pages_sig
             self.counters.h2d_uploads += 1
@@ -1238,6 +1482,8 @@ class EngineCore:
             for i, req in enumerate(reqs):
                 toks[i] = (req.output_tokens[-1] if req.output_tokens
                            else req.prompt_tokens[-1])
+            if perm is not None:
+                toks, = self._to_slots(perm, toks)
             last_tokens = self._dev(toks)
 
         (self.cache, out, st["pos"], st["seq"], st["off"]) = self._take_load(
@@ -1253,7 +1499,9 @@ class EngineCore:
             "reqs": list(reqs),
             "out": out,
             "span": span,
-            "copy": _HostCopy(out, self._copy_stream),
+            # The host reads the window in request order.
+            "copy": _HostCopy(out if perm is None else out[
+                :, torch.from_numpy(perm).to(out.device)], self._copy_stream),
             # Prefill dispatched since the previous window runs on the
             # device before this one: its sync interval absorbs it.
             "prefill_tokens": self._prefill_cost_tokens,
@@ -1280,7 +1528,8 @@ class EngineCore:
                 + len(req.output_tokens))
 
     def _build_window_state(self, reqs, bucket, width, shadows, lag, K,
-                            sig) -> Dict:
+                            sig, perm=None) -> Dict:
+        """The per-row window arrays (on `perm`'s rows under dp-local)."""
         positions0 = np.full((bucket,), self._pad_position, np.int32)
         seq_lens0 = np.zeros((bucket,), np.int32)
         bts = np.zeros((bucket, width), np.int32)
@@ -1300,6 +1549,10 @@ class EngineCore:
             if req.sampling.temperature > 0:
                 seeds[i] = self._row_seed(req)
             offsets[i] = self._draw_index(req) + lag * K
+        if perm is not None:
+            (positions0, seq_lens0, bts, temp, top_k, top_p, seeds,
+             offsets) = self._to_slots(perm, positions0, seq_lens0, bts,
+                                       temp, top_k, top_p, seeds, offsets)
         return {
             "sig": sig,
             "pages_sig": tuple(len(r.pages) for r in reqs),
@@ -1642,11 +1895,20 @@ class EngineCore:
 
     @hot_path
     def _extract_pages(self, pages: List[int]) -> torch.Tensor:
+        if self.grid is not None:
+            return kvc.extract_grid_blocks(self.cache, self.grid,
+                                           self._page_ids(pages),
+                                           self.block_size)
         return kvc.extract_blocks(self.cache, self._page_ids(pages),
                                   self.block_size)
 
     def _inject_pages(self, pages: List[int], data: torch.Tensor) -> None:
         self._validate_block(data[0])   # a stacked batch: one format
+        if self.grid is not None:
+            kvc.inject_grid_blocks(self.cache, self.grid,
+                                   self._page_ids(pages),
+                                   data.to(self.device), self.block_size)
+            return
         kvc.inject_blocks(self.cache, self._page_ids(pages),
                           data.to(self.device), self.block_size)
 
@@ -1738,7 +2000,9 @@ class EngineCore:
                 raise ValueError(
                     f"embedding token outside the vocabulary [0, {vocab})")
         out = np.zeros((len(token_lists), cfg.hidden_size), np.float32)
-        R = 1   # prompts a call, as the JAX engine without a mesh
+        # Prompts a call: one, as the JAX engine without a mesh; a grid
+        # takes a row for each of its batch shares.
+        R = self._row_mult
         bs = self.block_size
         for start in range(0, len(token_lists), R):
             group = token_lists[start: start + R]

@@ -35,13 +35,25 @@ scales bitcast (little-endian) so pages and scales move as one array.
 this job with its `block_copy.cu` kernel; in JAX it is XLA slicing, not
 a Pallas kernel).
 
-Under tensor parallelism (parallel/mesh.TpGroup) the cache is a list of
-per-rank caches, JAX's `P(None, "tp")`: rank r holds the head-major
-column band `[S, F/tp]` of every layer (and an int8 cache's scales `[S,
-Hkv/tp]` ride their heads), on its own device; block tables and slots
-are shared.  `extract_blocks` / `inject_blocks` join and split the
-ranks' columns, so the wire block stays the whole cache's: a tp 2 worker
-and a tp 1 worker exchange the same bytes.
+A sharded engine's cache (parallel/mesh.DpGrid) is a list of per-rank
+caches (`init_grid_caches`), laid out as JAX's `cache_pspecs`.  Under
+tp, and plain dp, it is `P(None, "tp")`: rank r holds the head-major
+column band `[S, F/tp]` of every layer of tp slice r % tp (and an int8
+cache's scales `[S, Hkv/tp]` ride their heads), one copy per (card, tp
+slice) shared by the dp ranks there; block tables and slots are shared.
+dp-attention shards the SLOT axis over tp (shard t holds slots `[t *
+S/tp, (t + 1) * S/tp)` at full width, one copy per card); dp-local
+shards the slots over the flat grid.  A slot shard is backed by one junk
+row past its end: a write's route (`write_routes`) sends the rows whose
+slot lies outside the shard there (JAX drops them), so a pad write never
+lands on a shard's first page, which unlike shard 0's is a real one.  A
+read's route (`read_routes`, `gather_routed`) takes each slot from the
+shard that holds it, one masked gather per shard.  A route is computed
+once a step and serves every layer.  `extract_blocks` / `inject_blocks`
+join and split a row's column bands, and `extract_grid_blocks` /
+`inject_grid_blocks` route each page to its shard (and each write to
+every copy), so the wire block stays the unsharded cache's: a tp 2, a
+dp 2 and a tp 1 worker exchange the same bytes.
 """
 
 from __future__ import annotations
@@ -176,12 +188,223 @@ def init_cache(cfg: KvCacheConfig, device: Union[str, torch.device]) -> dict:
     return cache
 
 
-def init_rank_caches(cfg: KvCacheConfig,
-                     devices: Sequence[torch.device]) -> List[dict]:
-    """A tp group's cache: one `init_cache` of `cfg.for_rank(tp)` on each
-    rank's device."""
-    rank = cfg.for_rank(len(devices))
-    return [init_cache(rank, d) for d in devices]
+def init_grid_caches(cfg: KvCacheConfig, grid) -> List[dict]:
+    """A DpGrid's cache, one dict per rank (shared where ranks share a
+    copy): one `init_cache` of `cfg.for_rank(tp)`, a tp column band, on
+    each (place, tp slice) for tp and plain dp; slot shards with their
+    junk row under dp-attention and dp-local."""
+    if not grid.dp_attention:
+        rank = cfg.for_rank(grid.tp)
+        per_slice = {}
+        out = []
+        for f, dev in enumerate(grid.devices):
+            key = (grid.places[f], f % grid.tp)
+            if key not in per_slice:
+                per_slice[key] = init_cache(rank, dev)
+            out.append(per_slice[key])
+        return out
+    shards = grid.n if grid.dp_local else grid.tp
+    if cfg.num_blocks % shards:
+        raise ValueError(f"num_blocks={cfg.num_blocks} must divide by the "
+                         f"{shards} slot shards")
+    local = dataclasses.replace(cfg, num_blocks=cfg.num_blocks // shards)
+    shared = {}
+
+    def alloc(shape, dtype, device):
+        return torch.zeros((shape[0] + 1,) + shape[1:], dtype=dtype,
+                           device=device)[:shape[0]]
+
+    out = []
+    for f, dev in enumerate(grid.devices):
+        s = f if grid.dp_local else f % grid.tp
+        key = (grid.places[f], s)
+        if key not in shared:
+            shape = (local.num_slots, cfg.feature_dim)
+            c = {k: [alloc(shape, cfg.store_dtype, dev)
+                     for _ in range(cfg.num_layers)] for k in ("k", "v")}
+            if cfg.quantized:
+                for k in ("k_scale", "v_scale"):
+                    c[k] = [alloc((local.num_slots, cfg.num_kv_heads),
+                                  torch.float32, dev)
+                            for _ in range(cfg.num_layers)]
+            shared[key] = c
+        out.append(shared[key])
+    return out
+
+
+def _junk_view(t: torch.Tensor) -> torch.Tensor:
+    """[S + 1, ...]: a slot shard with its junk row (raises where the
+    shard was allocated without one)."""
+    return t.as_strided((t.shape[0] + 1,) + tuple(t.shape[1:]), t.stride(),
+                        t.storage_offset())
+
+
+def shard_slots(slots: torch.Tensor, base: int, S: int):
+    """(local slots, in-shard mask) of global `slots` on the shard that
+    holds `[base, base + S)`."""
+    local = slots.long() - base
+    return local, (local >= 0) & (local < S)
+
+
+def write_routes(shards: Sequence[Tuple[dict, int]], slots: torch.Tensor):
+    """Where rows of global `slots` [N] land in each slot shard, `shards`
+    a list of (cache, base) (the shard holding global slots `[base, base
+    + S)`): (cache, destination rows on its device), the local slot
+    inside the shard and its junk row outside it, as JAX drops those
+    writes.  One route serves every layer of a step."""
+    out = []
+    for cache, base in shards:
+        S = cache["k"][0].shape[0]
+        local, inside = shard_slots(slots.to(cache["k"][0].device), base, S)
+        out.append((cache, torch.where(inside, local,
+                                       torch.full_like(local, S))))
+    return out
+
+
+def _write_raw(routes, layer: int, rows: dict) -> None:
+    for cache, dst in routes:
+        for name, r in rows.items():
+            buf = cache[name][layer]
+            _junk_view(buf).index_copy_(0, dst, r.to(buf.device, buf.dtype))
+
+
+def write_routed(routes, layer: int, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Write [N, F] K/V rows into one layer of every routed shard, in
+    place, quantized once with their scales for an int8 cache."""
+    cache = routes[0][0]
+    if "k_scale" in cache:
+        H = cache["k_scale"][layer].shape[1]
+        kq, ks = quantize_kv_rows(k, H)
+        vq, vs = quantize_kv_rows(v, H)
+        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        rows = {"k": k, "v": v}
+    _write_raw(routes, layer, rows)
+
+
+def read_routes(shards: Sequence[Tuple[dict, int]], slots: torch.Tensor):
+    """Where global `slots` (any shape) are read in each slot shard:
+    (cache, the clamped local index [N] on its device, the in-shard mask
+    [N, 1] on `slots`' device).  One route serves every layer."""
+    out = []
+    for cache, base in shards:
+        S = cache["k"][0].shape[0]
+        local, inside = shard_slots(slots.to(cache["k"][0].device), base, S)
+        out.append((cache, local.clamp(0, S - 1).reshape(-1),
+                    inside.reshape(-1, 1).to(slots.device)))
+    return out
+
+
+def _gather_raw(routes, layer: int, names, device) -> List[torch.Tensor]:
+    """One masked gather a shard of each named buffer, combined by
+    `torch.where` (no host sync sizes anything); zeros where no shard
+    holds the slot."""
+    acc = None
+    for cache, idx, m in routes:
+        got = [cache[name][layer].index_select(0, idx).to(device)
+               for name in names]
+        if acc is None:
+            acc = [torch.zeros_like(g) for g in got]
+        acc = [torch.where(m, g, a) for g, a in zip(got, acc)]
+    return acc
+
+
+def gather_routed(routes, layer: int, shape: Tuple[int, int],
+                  num_kv_heads: int, out_dtype: torch.dtype,
+                  device: torch.device):
+    """Context K/V of [B, C] slots (`shape`) read along `routes`:
+    [B, C, Hkv, D] pairs on `device`, dequantized as `gather_kv_quant`
+    from an int8 cache."""
+    B, C = shape
+    quant = "k_scale" in routes[0][0]
+    acc = _gather_raw(routes, layer, ("k", "v", "k_scale", "v_scale")
+                      if quant else ("k", "v"), device)
+    D = acc[0].shape[1] // num_kv_heads
+    k = acc[0].reshape(B, C, num_kv_heads, D)
+    v = acc[1].reshape(B, C, num_kv_heads, D)
+    if not quant:
+        return k, v
+    return (dequantize_rows(k, acc[2].reshape(B, C, num_kv_heads), out_dtype),
+            dequantize_rows(v, acc[3].reshape(B, C, num_kv_heads), out_dtype))
+
+
+def slot_shards(cache: List[dict], grid, row: int = 0
+                ) -> List[Tuple[dict, int]]:
+    """(cache, base) of each slot shard as dp row `row` reads them: its
+    ranks' tp shards under dp-attention, the flat grid's under
+    dp-local."""
+    S = cache[0]["k"][0].shape[0]
+    if grid.dp_local:
+        return [(cache[f], f * S) for f in range(grid.n)]
+    return [(cache[row * grid.tp + t], t * S) for t in range(grid.tp)]
+
+
+def slot_copies(cache: List[dict], grid) -> List[Tuple[dict, int]]:
+    """(cache, base) of every distinct copy of every slot shard: where a
+    write must land."""
+    S = cache[0]["k"][0].shape[0]
+    if grid.dp_local:
+        return [(cache[f], f * S) for f in range(grid.n)]
+    return [(cache[f], t * S) for t in range(grid.tp)
+            for f in grid.holders(t)]
+
+
+def extract_grid_blocks(cache: List[dict], grid, pages: torch.Tensor,
+                        block_size: int) -> torch.Tensor:
+    """`extract_blocks` of a DpGrid's cache: plain dp reads dp row 0's
+    column bands; slot shards read each page from the shard holding
+    it."""
+    if not grid.dp_attention:
+        return extract_blocks(cache[:grid.tp], pages, block_size)
+    routes = read_routes(slot_shards(cache, grid),
+                         _page_slots(pages, block_size))
+    n = pages.shape[0]
+    quant = cache_is_quantized(cache)
+
+    def rows(kind, layer):
+        if quant:
+            # Raw int8 rows and their scales, packed as the wire block.
+            q, sc = _gather_raw(routes, layer, (kind, f"{kind}_scale"),
+                                pages.device)
+            q = torch.cat([q, sc.view(torch.int8)], dim=1)
+        else:
+            q, = _gather_raw(routes, layer, (kind,), pages.device)
+        return q.view(n, block_size, -1)
+
+    L = len(cache[0]["k"])
+    return torch.stack([torch.stack([rows(kind, layer) for layer in range(L)],
+                                    dim=1)
+                        for kind in ("k", "v")], dim=1)
+
+
+def inject_grid_blocks(cache: List[dict], grid, pages: torch.Tensor,
+                       data: torch.Tensor, block_size: int) -> None:
+    """`inject_blocks` into a DpGrid's cache: every copy of the pages'
+    columns (plain dp) or of the slot shard holding each page."""
+    if not grid.dp_attention:
+        tp = grid.tp
+        rows = {tuple(grid.places[d * tp:(d + 1) * tp]): d
+                for d in reversed(range(grid.dp))}
+        for d in sorted(rows.values()):
+            inject_blocks(cache[d * tp:(d + 1) * tp], pages, data, block_size)
+        return
+    routes = write_routes(slot_copies(cache, grid),
+                          _page_slots(pages, block_size))
+    n = pages.shape[0]
+    quant = cache_is_quantized(cache)
+    F = cache[0]["k"][0].shape[1]
+    for i, kind in enumerate(("k", "v")):
+        for layer in range(len(cache[0][kind])):
+            d = data[:, i, layer].reshape(n * block_size, -1)
+            if quant:
+                d = d.to(torch.int8)
+                rows = {kind: d[:, :F].contiguous(),
+                        f"{kind}_scale": d[:, F:].contiguous().view(
+                            torch.float32)}
+            else:
+                rows = {kind: d}
+            _write_raw(routes, layer, rows)
 
 
 def _ranks(cache) -> List[dict]:

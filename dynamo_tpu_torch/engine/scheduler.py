@@ -28,8 +28,14 @@ requests hold at admission and one running best-effort request is shed
 per plan.  The flight recorder gets JAX's `admit` and `sched_preempt`
 breadcrumbs.
 
-Left out of this copy: the dp-attention sharded allocator (A7) and the
-padded-prefill row buckets (the port's prefill is always packed).
+dp-attention locality, as JAX's: `BlockAllocator(num_blocks, num_shards)`
+cuts blocks into contiguous per-shard ranges (block 0 out of shard 0),
+`SchedulerConfig.shard_of_slot` names the shard a decode slot's rows
+live on, admission sets `Request.locality_shard` from the slot, and
+admission and page growth draw only from that shard.
+
+Left out of this copy: the padded-prefill row buckets (the port's
+prefill is always packed).
 """
 
 from __future__ import annotations
@@ -99,6 +105,9 @@ class Request:
     priority: int = 1
     # Multimodal: [n, hidden] embeddings taking prompt positions [0, n).
     prompt_embeds: Optional[object] = None
+    # dp-attention locality: the allocator shard this request's pages
+    # come from (its slot's, set at admission; None = shard-less).
+    locality_shard: Optional[int] = None
 
     @property
     def total_len(self) -> int:
@@ -114,13 +123,34 @@ class Request:
 
 class BlockAllocator:
     """Free-list page allocator over the paged cache (block 0 reserved
-    null).  No prefix reuse: its prefix-cache interface never matches."""
+    null).  No prefix reuse: its prefix-cache interface never matches.
 
-    def __init__(self, num_blocks: int) -> None:
+    `num_shards > 1` partitions the blocks into contiguous per-shard
+    ranges (the dp-local allocator: the cache's slot axis shards over the
+    grid in contiguous ranges, so a page is local to exactly one shard).
+    `allocate(n, shard=s)` draws strictly from shard s: locality is a
+    correctness invariant of the shard-local decode, so no shard steals
+    from another, and a shard running dry is an OOM for its rows."""
+
+    def __init__(self, num_blocks: int, num_shards: int = 1) -> None:
         if num_blocks < 2:
             raise ValueError("need at least 2 blocks (block 0 is the null block)")
+        if num_shards < 1 or (num_blocks % num_shards):
+            raise ValueError(
+                f"num_shards={num_shards} must divide num_blocks="
+                f"{num_blocks} (contiguous slot ranges shard evenly)")
         self.num_blocks = num_blocks
-        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self.num_shards = num_shards
+        self._shard_size = num_blocks // num_shards
+        # Shard s owns blocks [s*size, (s+1)*size); the null block takes
+        # one out of shard 0's.
+        self._shard_free: List[List[int]] = [
+            list(range((s + 1) * self._shard_size - 1,
+                       max(s * self._shard_size, 1) - 1, -1))
+            for s in range(num_shards)]
+
+    def shard_of_block(self, block: int) -> int:
+        return block // self._shard_size
 
     # Prefix-cache interface (no-ops here).
     def prompt_hashes(self, prompt_tokens: Sequence[int]) -> tuple:
@@ -135,23 +165,35 @@ class BlockAllocator:
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._shard_free)
+
+    def shard_free_blocks(self, shard: int) -> int:
+        return len(self._shard_free[shard])
 
     @property
     def usage(self) -> float:
         return 1.0 - self.free_blocks / (self.num_blocks - 1)
 
-    def allocate(self, n: int) -> List[int]:
-        if n > len(self._free):
+    def allocate(self, n: int, shard: Optional[int] = None) -> List[int]:
+        if self.num_shards == 1:
+            pool = self._shard_free[0]
+        elif shard is None:
+            # Shard-less callers (the embeddings' scratch pages) take the
+            # fullest pool: their rows are never decoded shard-locally.
+            pool = max(self._shard_free, key=len)
+        else:
+            pool = self._shard_free[shard]
+        if n > len(pool):
             raise RuntimeError(
-                f"out of KV blocks: want {n}, free {len(self._free)}")
-        return [self._free.pop() for _ in range(n)]
+                f"out of KV blocks: want {n}, free {len(pool)}"
+                + (f" in shard {shard}" if self.num_shards > 1 else ""))
+        return [pool.pop() for _ in range(n)]
 
     def release(self, pages: Sequence[int]) -> None:
         for p in pages:
             if p == 0:
                 raise ValueError("attempt to free the null block")
-            self._free.append(p)
+            self._shard_free[self.shard_of_block(p)].append(p)
 
 
 @dataclass(frozen=True)
@@ -164,6 +206,9 @@ class SchedulerConfig:
     max_pages_per_seq: int = 128          # static block-table width
     decode_buckets: tuple = (1, 2, 4, 8, 16, 32, 64)
     prefill_buckets: tuple = (16, 32, 64, 128, 256, 512)
+    # dp-attention locality: slot -> allocator shard (the engine installs
+    # it; None = shard-less allocation).
+    shard_of_slot: Optional[Callable] = None
 
     def __post_init__(self):
         if self.max_seqs > max(self.decode_buckets):
@@ -464,8 +509,15 @@ class Scheduler:
                 req.prompt_tokens, req.block_hashes)
             need = self._pages_needed(len(req.prompt_tokens) + 1)
             need_new = max(0, need - len(cached_pages))
-            # Admit only if the new pages fit and leave the watermark.
-            if self.allocator.free_blocks - need_new < WATERMARK * usable:
+            shard = (self.config.shard_of_slot(slot)
+                     if self.config.shard_of_slot else None)
+            # Admit only if the new pages fit and leave the watermark (per
+            # shard under locality: a full shard is a full replica to its
+            # rows).
+            free_here = (self.allocator.shard_free_blocks(shard)
+                         if self._sharded(shard)
+                         else self.allocator.free_blocks)
+            if free_here - need_new < WATERMARK * usable:
                 if cached_pages:
                     self.allocator.release(cached_pages)
                 # Priority preemption: a capacity-blocked higher class
@@ -483,7 +535,8 @@ class Scheduler:
                     req.finish_reason = FinishReason.LENGTH
                 break
             self.waiting.pop(idx)
-            req.pages = list(cached_pages) + self.allocator.allocate(need_new)
+            req.locality_shard = shard
+            req.pages = list(cached_pages) + self._allocate(need_new, shard)
             # The cached prefix skips prefill, but the last prompt token is
             # always recomputed so admission yields logits (a fully cached
             # prompt rewrites that token's slot in its shared last page).
@@ -503,15 +556,30 @@ class Scheduler:
 
     # -- page growth ------------------------------------------------------
 
+    def _sharded(self, shard: Optional[int]) -> bool:
+        """True where allocation draws from one shard (the prefix-caching
+        source has no shards: locality runs on the plain allocator)."""
+        return shard is not None and getattr(self.allocator, "num_shards",
+                                             1) > 1
+
+    def _allocate(self, n: int, shard: Optional[int]) -> List[int]:
+        if self._sharded(shard):
+            return self.allocator.allocate(n, shard=shard)
+        return self.allocator.allocate(n)
+
     def ensure_capacity(self, req: Request, new_len: int) -> bool:
         """Grow req's page list to cover new_len tokens; False if OOM."""
         need = self._pages_needed(new_len)
         if need > self.config.max_pages_per_seq:
             return False
+        shard = req.locality_shard
+        sharded = self._sharded(shard)
         while len(req.pages) < need:
-            if self.allocator.free_blocks == 0:
+            free = (self.allocator.shard_free_blocks(shard) if sharded
+                    else self.allocator.free_blocks)
+            if free == 0:
                 return False
-            req.pages.extend(self.allocator.allocate(1))
+            req.pages.extend(self._allocate(1, shard))
         return True
 
     # -- planning ---------------------------------------------------------

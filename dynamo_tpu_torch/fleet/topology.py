@@ -14,9 +14,12 @@ largest candidate's, and `pick_donor` orders remote-prefix donors by
 coverage, then free memory, then the stable id.
 
 The planner checks `validate_placement` before it spawns a worker.  A
-`--tp N` worker publishes its tp degree in `mesh` ("tp2"), and each
-rank's share of the cards' memory as `hbm_per_chip_bytes`.  Not ported:
-the `--slice` parser and `place_role` (they come with dp/ep/pp).
+`--tp N` / `--dp N` worker publishes its degrees in `mesh` ("tp2",
+"dp2xtp2"), each rank's share of the cards' memory as
+`hbm_per_chip_bytes`, and, under `--dp-attention`, the `dp_attention`
+feature (with `dp_local` where page locality is on), JAX's feature
+names.  Not ported: the `--slice` parser and `place_role` (`--slice`'s
+`packed` and `windowN` features need worker knobs the port lacks).
 """
 
 from __future__ import annotations

@@ -24,15 +24,26 @@ Forward contract (unified prefill/decode, as in the JAX package):
   ops on its T / sp slice and attention runs on the ring, through the
   flash-fold kernel (ops/cuda/ring_attention.py) where `sp_ring_kernel`
   asks for it and the geometry rule passes, else through the plain ring.
-- `tp` (a parallel.mesh.TpGroup) runs the step tensor-parallel, the JAX
-  package's Megatron split (parallel/sharding.py): `state` and `cache`
-  are then lists of per-rank states and caches (`shard_state`), each
-  rank projects its own heads and MLP columns on its own stream and
-  attends its own cache shard through its own K1 / K2 call, the
-  row-parallel products (wo, w_down) and the vocab-sharded embedding
-  lookup are summed by `all_reduce`, and the vocab-sharded logits are
-  gathered on rank 0 (`all_gather`).  A meshless call is the group of
-  one rank, whose collectives are the identity.
+- `tp` (a parallel.mesh.DpGrid) runs the step over the (dp, tp) rank
+  grid, the JAX package's dp and tp axes (parallel/sharding.py):
+  `state` and `cache` are then lists of per-rank states and caches
+  (`shard_state`, kv_cache.init_grid_caches).  The batch splits over the
+  dp rows in contiguous ranges; each row runs its share in Megatron's
+  split, each rank projecting its own heads and MLP columns on its own
+  stream, the row-parallel products (wo, w_down) and the vocab-sharded
+  embedding lookup summed by `all_reduce` over the row's ranks, the
+  vocab-sharded logits gathered on rank 0.  Tensor parallelism alone is
+  the grid of one dp row.  Plain dp (and tp): each rank attends its
+  rows' heads through its own K1 / K2 call against its card's copy of
+  the head-sharded cache.  dp-attention: each rank attends its own rows
+  (or packed segments) with the whole attention weights, and the row's
+  MLP runs over all its rows (`all_gather_all` in, `all_reduce` out).
+  Non-local dp-attention reads each row's context from whichever tp
+  slot shard holds its pages (one masked gather per shard) and runs no
+  attention kernel; dp-local runs K1 and K2 per shard on shard-local
+  block tables (`clip(bt - flat * pages_local, 0, pages_local - 1)`,
+  JAX's rebase), and every write to a slot outside a shard lands in the
+  shard's junk row (engine/kv_cache.py).  A meshless call runs no grid.
 - MoE layers run `moe_mode` "dense" (the exact oracle) or "grouped" (the
   grouped-expert kernel, ops/cuda/moe_grouped.py) and give an [E+1]
   expert-load stats vector each; `with_expert_load` (and the packed
@@ -448,7 +459,8 @@ def _sp_forward(cfg: ModelConfig, block_size: int, ring, use_kernel: bool,
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel ranks (a meshless step is the group of one)
+# The rank grid (parallel/mesh.DpGrid; tensor parallelism alone is the
+# grid of one dp row, and a meshless step runs no grid)
 
 
 def rank_config(cfg: ModelConfig, tp: int) -> ModelConfig:
@@ -462,51 +474,34 @@ def rank_config(cfg: ModelConfig, tp: int) -> ModelConfig:
                        vocab_size=cfg.vocab_size // tp)
 
 
-def _group(tp):
-    """The step's TpGroup: `tp`, or the group of one rank."""
-    if tp is not None:
-        return tp
-    from dynamo_tpu_torch.parallel.mesh import SINGLE
+def _grid(tp):
+    """The step's DpGrid, or None for the meshless step."""
+    if tp is not None and not hasattr(tp, "rows"):
+        raise TypeError("a sharded step runs over a parallel.mesh.DpGrid "
+                        "(tp alone: DpGrid(devices, dp=1))")
+    return tp
 
-    return SINGLE
 
-
-def _check_tp(cfg: ModelConfig, group, sp_ring=None) -> None:
-    """The mesh's and the capability table's refusals of a tp step
+def _check_grid(cfg: ModelConfig, grid, sp_ring=None,
+                use_kernel: bool = False) -> None:
+    """The mesh's and the capability table's refusals of a sharded step
     (parallel/mesh.py, parallel/sharding.py)."""
-    if group.tp == 1:
-        return
     from dynamo_tpu_torch.parallel.mesh import MeshConfig
-    from dynamo_tpu_torch.parallel.sharding import PlaneSpec, check_plane
+    from dynamo_tpu_torch.parallel.sharding import (
+        PlaneSpec, check_plane, validate)
 
-    mesh = MeshConfig(sp=sp_ring.sp if sp_ring is not None else 1,
-                      tp=group.tp)
-    check_plane(PlaneSpec(moe=cfg.is_moe), mesh)
-
-
-def _shards(group, state, cache):
-    """(per-rank states, per-rank caches): a tp step takes lists, a
-    meshless one the state and cache themselves."""
-    if group.tp == 1:
-        return [state], [cache]
-    if not isinstance(state, list) or len(state) != group.tp:
-        raise ValueError(f"a tp={group.tp} step takes a list of "
-                         f"{group.tp} rank states (shard_state)")
-    return state, cache
-
-
-def _replicas(group, *tensors):
-    """Each tensor (on rank 0's card, made on the caller's stream) as a
-    per-rank list; None stays None on every rank."""
-    return [group.replicate(t) if t is not None else [None] * group.tp
-            for t in tensors]
+    mesh = MeshConfig(dp=grid.dp,
+                      sp=sp_ring.sp if sp_ring is not None else 1,
+                      tp=grid.tp)
+    check_plane(PlaneSpec(use_kernel=use_kernel,
+                          dp_attention=grid.dp_attention,
+                          dp_local=grid.dp_local, moe=cfg.is_moe), mesh)
+    validate(cfg, mesh, grid.dp_attention)
 
 
 def _tp_embed(cfg: ModelConfig, group, states, toks, embeds, masks):
     """The embeddings on every rank: each rank looks up the tokens of
     its vocab slice, and the parts sum to the whole lookup."""
-    if group.tp == 1:
-        return [_embed(cfg, states[0], toks[0], embeds[0], masks[0])]
     rows = states[0]["embed"].shape[0]
     parts = []
     for r in range(group.tp):
@@ -518,45 +513,6 @@ def _tp_embed(cfg: ModelConfig, group, states, toks, embeds, masks):
         with group.on(r):
             out.append(_embed_finish(cfg, xs[r], embeds[r], masks[r]))
     return out
-
-
-def _tp_layers(cfg: ModelConfig, group, states, xs, attend, moe_mode: str,
-               loads: List[torch.Tensor]):
-    """Every decoder layer over the ranks: `attend(r, i, p_attn, h)` is
-    rank r's partial of layer i's attention output (through its rows of
-    wo); the partials and the MLP's are summed by `all_reduce`, and the
-    norms and residual adds run on every rank's replica.  A group of one
-    runs each layer straight through (`_layer_tail`): the rank loops and
-    the identity collectives cost its host ~5% a decode step
-    (`step_ab.py`, PERF.md §6)."""
-    off = cfg.rms_offset
-    if group.tp == 1:
-        x = xs[0]
-        for i, layer in enumerate(states[0]["layers"]):
-            attn = attend(0, i, layer["attn"], rms_norm(
-                x, layer["attn_norm"], cfg.rms_norm_eps, off))
-            x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
-        return [x]
-    ranks = range(group.tp)
-    for i in range(cfg.num_layers):
-        parts = []
-        for r in ranks:
-            with group.on(r):
-                layer = states[r]["layers"][i]
-                parts.append(attend(r, i, layer["attn"], rms_norm(
-                    xs[r], layer["attn_norm"], cfg.rms_norm_eps, off)))
-        attn = group.all_reduce(parts)
-        parts = []
-        for r in ranks:
-            with group.on(r):
-                layer = states[r]["layers"][i]
-                xs[r], h = _mlp_in(cfg, layer, xs[r], attn[r])
-                parts.append(_mlp(cfg, layer, h, moe_mode, loads))
-        mlp = group.all_reduce(parts)
-        for r in ranks:
-            with group.on(r):
-                xs[r] = _mlp_out(cfg, states[r]["layers"][i], xs[r], mlp[r])
-    return xs
 
 
 def _tp_head(cfg: ModelConfig, rcfg: ModelConfig, group, states, xs,
@@ -575,6 +531,361 @@ def _tp_head(cfg: ModelConfig, rcfg: ModelConfig, group, states, xs,
         # causal-LM convention).
         return outs[0].float()
     return group.all_gather(outs, dim=-1)
+
+
+def _grid_rank_config(cfg: ModelConfig, grid) -> ModelConfig:
+    """One rank's geometry: its tp slice's heads under plain dp; every
+    head under dp-attention (the attention weights replicate), with its
+    intermediate columns and vocab slice in both."""
+    if not grid.dp_attention:
+        return rank_config(cfg, grid.tp)
+    return cfg.replace(intermediate_size=cfg.intermediate_size // grid.tp,
+                       vocab_size=cfg.vocab_size // grid.tp)
+
+
+def _grid_shards(grid, state, cache) -> None:
+    if not isinstance(state, list) or len(state) != grid.n or \
+            not isinstance(cache, list) or len(cache) != grid.n:
+        mesh = (f"tp={grid.tp}" if grid.dp == 1
+                else f"dp{grid.dp}xtp{grid.tp}")
+        raise ValueError(f"a {mesh} step takes a list of {grid.n} rank "
+                         "states and caches (shard_state, "
+                         "kv_cache.init_grid_caches)")
+
+
+def _counted(grid, f: int, fn, *args, **kw):
+    """Call a kernel wrapper and add its launches to rank f's count."""
+    before = fn.launches + fn.launches_int8
+    out = fn(*args, **kw)
+    grid.launches[f] += fn.launches + fn.launches_int8 - before
+    return out
+
+
+def _grid_write(grid, cache, f: int, i: int, slots, k, v, routes) -> None:
+    """Rank f's chunk rows [N, F] into every copy that holds them: the
+    copies of its tp column band (plain dp), else along `routes`
+    (`_grid_routes`)."""
+    if routes is not None:
+        kvc.write_routed(routes, i, k, v)
+        return
+    for g in grid.holders(f % grid.tp):
+        c = cache[g]
+        dev = c["k"][i].device
+        _write_chunk(c["k"][i], c["v"][i], *_layer_scales(c, i),
+                     slots.to(dev), k.to(dev), v.to(dev))
+
+
+def _grid_routes(grid, cache, f: int, write_slots, read_slots, local: bool):
+    """A slot-sharded rank's routes for a step, the same for every layer:
+    its writes go to its own shard (`local`: dp-local decode, whose rows'
+    pages all lie there) or to every copy of every shard; its reads come
+    from its own shard or every shard its dp row sees.  (None, None)
+    under plain dp; read routes None where the step reads no gathered
+    context."""
+    if not grid.dp_attention:
+        return None, None
+    own = [(cache[f], f * cache[f]["k"][0].shape[0])]
+    writes = kvc.write_routes(own if local else kvc.slot_copies(cache, grid),
+                              write_slots)
+    if read_slots is None:
+        return writes, None
+    reads = own if local else kvc.slot_shards(cache, grid, f // grid.tp)
+    return writes, kvc.read_routes(reads, read_slots)
+
+
+def _local_tables(block_tables, f: int, pages_local: int):
+    """JAX's dp-local rebase: rank f's shard-local page ids, clipped into
+    its range (entries past a row's live pages are never read)."""
+    return torch.clamp(block_tables - f * pages_local, 0,
+                       pages_local - 1).to(torch.int32)
+
+
+def _grid_layers(cfg: ModelConfig, grid, states, xs, attend, moe_mode: str,
+                 loads: List[torch.Tensor], rows_dim: int):
+    """Every decoder layer over the grid, the dp rows interleaved layer by
+    layer so that every row's stream has work queued: `attend(d, t, i,
+    p_attn, h)` is rank (d, t)'s part of layer i's attention output, its
+    heads' partial (summed by `all_reduce`) or, under dp-attention, its
+    rows' whole output (joined along `rows_dim` by `all_gather_all`)."""
+    off = cfg.rms_offset
+    tp = grid.tp
+    for i in range(cfg.num_layers):
+        for d, row in enumerate(grid.rows):
+            x_row = xs[d]
+            parts = []
+            for t in range(tp):
+                with row.on(t):
+                    layer = states[d * tp + t]["layers"][i]
+                    parts.append(attend(d, t, i, layer["attn"], rms_norm(
+                        x_row[t], layer["attn_norm"], cfg.rms_norm_eps, off)))
+            attn = (row.all_gather_all(parts, rows_dim) if grid.dp_attention
+                    else row.all_reduce(parts))
+            parts = []
+            for t in range(tp):
+                with row.on(t):
+                    layer = states[d * tp + t]["layers"][i]
+                    x_row[t], h = _mlp_in(cfg, layer, x_row[t], attn[t])
+                    parts.append(_mlp(cfg, layer, h, moe_mode, loads))
+            mlp = row.all_reduce(parts)
+            for t in range(tp):
+                with row.on(t):
+                    x_row[t] = _mlp_out(cfg, states[d * tp + t]["layers"][i],
+                                        x_row[t], mlp[t])
+    return xs
+
+
+def _grid_embed(cfg: ModelConfig, grid, states, toks, embs, masks):
+    """Each row's embeddings on its ranks (`toks[d]` etc. replicated
+    per rank of row d)."""
+    tp = grid.tp
+    out = []
+    for d, row in enumerate(grid.rows):
+        st = states[d * tp:(d + 1) * tp]
+        if tp == 1:
+            with row.on(0):
+                out.append([_embed(cfg, st[0], toks[d][0], embs[d][0],
+                                   masks[d][0])])
+        else:
+            out.append(_tp_embed(cfg, row, st, toks[d], embs[d], masks[d]))
+    return out
+
+
+def _grid_split(grid, tensors, dim: int = 0):
+    """Row d's contiguous share of each tensor along `dim`: views, taken
+    on the caller's stream before the fork; None stays None."""
+    return [[None if t is None else t.narrow(
+                dim, d * (t.shape[dim] // grid.dp), t.shape[dim] // grid.dp)
+             for d in range(grid.dp)] for t in tensors]
+
+
+def _grid_spread(grid, shares):
+    """Each row's shares replicated over its ranks, after the fork:
+    `out[k][d][t]` is tensor k of row d on rank t."""
+    return [[row.replicate(t) if t is not None else [None] * grid.tp
+             for row, t in zip(grid.rows, share)] for share in shares]
+
+
+def _grid_forward(cfg: ModelConfig, block_size: int, grid, use_kernel: bool,
+                  moe_mode: str, return_hidden: bool, state, cache,
+                  tokens, positions, seq_lens, block_tables,
+                  sample_positions, input_embeds, embed_mask):
+    """The unified step over a DpGrid (module docstring)."""
+    B, T = tokens.shape
+    dp, tp = grid.dp, grid.tp
+    split = grid.n if grid.dp_attention else dp
+    if B % split:
+        raise ValueError(
+            f"{grid.mode}: batch {B} must be a multiple of "
+            f"{'dp*tp' if grid.dp_attention else 'dp'} = {split}")
+    _grid_shards(grid, state, cache)
+    rcfg = _grid_rank_config(cfg, grid)
+    Bd, Br = B // dp, B // split
+    P = block_tables.shape[1]
+    bt = block_tables.to(torch.int32)
+    sl = seq_lens.to(torch.int32)
+    write_slots = kvc.slots_for_positions(bt, positions, block_size)
+    kernel = use_kernel and T == 1
+    local = grid.dp_local and T == 1
+    ctx_slots = ctx_pos = None
+    if not kernel:
+        ctx_pos = torch.arange(P * block_size, device=tokens.device).expand(
+            B, P * block_size)
+        ctx_slots = kvc.slots_for_positions(bt, ctx_pos, block_size)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    shares = _grid_split(grid, (
+        tokens, positions, sl, bt, write_slots, ctx_slots, ctx_pos,
+        sample_positions, input_embeds, embed_mask, cos, sin))
+    grid.fork()
+    (tok, pos, sls, bts, ws, cs, cp, smp, emb, msk, cos, sin) = (
+        _grid_spread(grid, shares))
+    xs = _grid_embed(cfg, grid, state, tok, emb, msk)
+    S = cache[0]["k"][0].shape[0]
+    pages_local = S // block_size
+
+    routes = {}
+
+    def attend(d, t, i, p_attn, h):
+        f = d * tp + t
+        c = cache[f]
+        rows = slice(None) if not grid.dp_attention else slice(
+            t * Br, (t + 1) * Br)
+        h = h[rows]
+        n = h.shape[0]
+        if f not in routes:
+            routes[f] = _grid_routes(
+                grid, cache, f, ws[d][t][rows].reshape(n * T),
+                None if kernel else cs[d][t][rows], local)
+        q, k, v = _qkv(rcfg, p_attn, h, (cos[d][t][rows], sin[d][t][rows]))
+        _grid_write(grid, cache, f, i, ws[d][t][rows].reshape(n * T),
+                    k.reshape(n * T, rcfg.kv_size),
+                    v.reshape(n * T, rcfg.kv_size), routes[f][0])
+        ks, vs = _layer_scales(c, i)
+        if kernel:
+            tables = bts[d][t][rows]
+            if grid.dp_attention:
+                tables = _local_tables(tables, f, pages_local)
+            out = _counted(
+                grid, f, paged_decode_attention, q[:, 0].contiguous(),
+                c["k"][i], c["v"][i], tables, sls[d][t][rows],
+                block_size=block_size, scale=rcfg.query_scale,
+                soft_cap=rcfg.attn_soft_cap, k_scale=ks,
+                v_scale=vs)[:, None]
+        else:
+            slots = cs[d][t][rows]
+            if grid.dp_attention:
+                k_ctx, v_ctx = kvc.gather_routed(
+                    routes[f][1], i, tuple(slots.shape), rcfg.num_kv_heads,
+                    q.dtype, slots.device)
+            elif ks is not None:
+                k_ctx, v_ctx = kvc.gather_kv_quant(
+                    c["k"][i], c["v"][i], ks, vs, slots, rcfg.num_kv_heads,
+                    out_dtype=q.dtype)
+            else:
+                k_ctx, v_ctx = kvc.gather_kv(c["k"][i], c["v"][i], slots,
+                                             rcfg.num_kv_heads)
+            out = paged_attention(q, k_ctx, v_ctx, pos[d][t][rows],
+                                  cp[d][t][rows], sls[d][t][rows],
+                                  scale=rcfg.query_scale,
+                                  soft_cap=rcfg.attn_soft_cap)
+        return out.reshape(n, T, rcfg.q_size) @ p_attn["wo"]
+
+    loads: List[torch.Tensor] = []
+    xs = _grid_layers(cfg, grid, state, xs, attend, moe_mode, loads, 0)
+    outs = []
+    for d, row in enumerate(grid.rows):
+        def select(t, x, d=d):
+            if sample_positions is None:
+                return x
+            return x[torch.arange(Bd, device=x.device), smp[d][t].long()]
+
+        outs.append(_tp_head(cfg, rcfg, row, state[d * tp:(d + 1) * tp],
+                             xs[d], select, return_hidden))
+    out = grid.gather_rows(outs)
+    grid.join()
+    return out, cache, loads
+
+
+def _packed_gather_attention(rcfg: ModelConfig, q, routes, i: int,
+                             ctx_pos, seq_lens, seg, positions):
+    """Packed prefill attention on the gather path: each token attends
+    its segment's context [R, C] (`ctx_pos`), read along `routes` from
+    the slot shards that hold it (non-local dp-attention runs no kernel,
+    as JAX's capability table sends it).  q [N, Hq, D], seg [N] the
+    token's segment row."""
+    k_ctx, v_ctx = kvc.gather_routed(routes, i, tuple(ctx_pos.shape),
+                                     rcfg.num_kv_heads, q.dtype, q.device)
+    seg = seg.long()
+    out = paged_attention(q[:, None], k_ctx[seg], v_ctx[seg],
+                          positions[:, None], ctx_pos[seg], seq_lens[seg],
+                          scale=rcfg.query_scale, soft_cap=rcfg.attn_soft_cap)
+    return out[:, 0]
+
+
+def _grid_packed(cfg: ModelConfig, block_size: int, grid, moe_mode: str,
+                 state, cache, tokens, positions, seg_ids, block_tables,
+                 q_starts, q_lens, seq_lens, sample_positions, input_embeds,
+                 embed_mask):
+    """The packed prefill over a DpGrid.  The pack is grid-shaped: its
+    token axis and its segments split into equal contiguous groups, one
+    per dp row (dp-attention: per rank), group g's segments lying in its
+    token range; `q_starts` and `sample_positions` index the whole pack."""
+    T, R = tokens.shape[0], block_tables.shape[0]
+    dp, tp = grid.dp, grid.tp
+    split = grid.n if grid.dp_attention else dp
+    if T % split or R % split:
+        raise ValueError(
+            f"{grid.mode}: a packed prefill of {T} tokens and {R} segments "
+            f"must split into {split} equal groups")
+    _grid_shards(grid, state, cache)
+    rcfg = _grid_rank_config(cfg, grid)
+    Tg, Rg = T // split, R // split
+    Td, Rd = T // dp, R // dp
+    bt = block_tables.to(torch.int32)
+    seg = seg_ids.long()
+    write_slots = kvc.slots_for_positions(
+        bt[seg], positions[:, None], block_size).reshape(T)
+    r_idx = torch.arange(R, device=tokens.device)
+    # Each segment's start within its group (attention) and each
+    # sample position within its dp row (the head); a pad segment's
+    # (zeros) clamp into its group.
+    qs_group = (q_starts.long() - (r_idx // Rg) * Tg).clamp(0, Tg).to(
+        torch.int32)
+    smp_row = (sample_positions.long() - (r_idx // Rd) * Td).clamp(0, Td - 1)
+    # Each token's segment row within its group (pad tokens: clamped).
+    t_idx = torch.arange(T, device=tokens.device)
+    seg_group = (seg - (t_idx // Tg) * Rg).clamp(0, Rg - 1)
+    cos, sin = rope_tables(positions[None], cfg.head_dim, cfg.rope_theta)
+    tok_shares = _grid_split(grid, (
+        tokens, positions, write_slots, seg_group, input_embeds,
+        embed_mask))
+    seg_shares = _grid_split(grid, (
+        bt, seq_lens.to(torch.int32), qs_group, q_lens.to(torch.int32),
+        smp_row))
+    rot_shares = _grid_split(grid, (cos, sin), dim=1)
+    grid.fork()
+    tok, pos, ws, sg, emb, msk = _grid_spread(grid, tok_shares)
+    bts, sls, qss, qls, smp = _grid_spread(grid, seg_shares)
+    cos, sin = _grid_spread(grid, rot_shares)
+    xs = [[x[None] for x in row]
+          for row in _grid_embed(cfg, grid, state, tok, emb, msk)]
+    S = cache[0]["k"][0].shape[0]
+    pages_local = S // block_size
+    gather = grid.dp_attention and not grid.dp_local
+    routes = {}
+
+    def attend(d, t, i, p_attn, h):
+        f = d * tp + t
+        c = cache[f]
+        toks = slice(None) if not grid.dp_attention else slice(
+            t * Tg, (t + 1) * Tg)
+        segs = slice(None) if not grid.dp_attention else slice(
+            t * Rg, (t + 1) * Rg)
+        h = h[:, toks]
+        n = h.shape[1]
+        tables, lens = bts[d][t][segs], sls[d][t][segs]
+        if f not in routes:
+            ctx_pos = ctx_slots = None
+            if gather:
+                R_, P_ = tables.shape
+                ctx_pos = torch.arange(P_ * block_size,
+                                       device=tables.device).expand(
+                    R_, P_ * block_size)
+                ctx_slots = kvc.slots_for_positions(tables, ctx_pos,
+                                                    block_size)
+            routes[f] = _grid_routes(grid, cache, f, ws[d][t][toks],
+                                     ctx_slots, grid.dp_local) + (ctx_pos,)
+        q, k, v = _qkv(rcfg, p_attn, h, (cos[d][t][:, toks],
+                                         sin[d][t][:, toks]))
+        _grid_write(grid, cache, f, i, ws[d][t][toks],
+                    k.reshape(n, rcfg.kv_size), v.reshape(n, rcfg.kv_size),
+                    routes[f][0])
+        ks, vs = _layer_scales(c, i)
+        starts = qss[d][t][segs]
+        if gather:
+            out = _packed_gather_attention(
+                rcfg, q[0], routes[f][1], i, routes[f][2], lens,
+                sg[d][t][toks], pos[d][t][toks])
+        else:
+            if grid.dp_local:
+                tables = _local_tables(tables, f, pages_local)
+            out = _counted(
+                grid, f, paged_prefill_attention, q[0].contiguous(),
+                c["k"][i], c["v"][i], tables, lens, starts,
+                qls[d][t][segs], block_size=block_size,
+                scale=rcfg.query_scale, soft_cap=rcfg.attn_soft_cap,
+                k_scale=ks, v_scale=vs)
+        return out.reshape(1, n, rcfg.q_size) @ p_attn["wo"]
+
+    loads: List[torch.Tensor] = []
+    xs = _grid_layers(cfg, grid, state, xs, attend, moe_mode, loads, 1)
+    outs = []
+    for d, row in enumerate(grid.rows):
+        outs.append(_tp_head(cfg, rcfg, row, state[d * tp:(d + 1) * tp],
+                             xs[d], lambda t, x, d=d: x[0][smp[d][t].long()],
+                             False))
+    logits = grid.gather_rows(outs)
+    grid.join()
+    return logits, cache, loads
 
 
 # ---------------------------------------------------------------------------
@@ -603,8 +914,8 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     eligible geometry through the flash-fold kernel in place of the plain
     ring.
 
-    `tp` (a TpGroup): the tensor-parallel step over per-rank states and
-    caches (module docstring); inputs and outputs lie on rank 0's card.
+    `tp` (a DpGrid): the sharded step over per-rank states and caches
+    (module docstring); inputs and outputs lie on rank 0's card.
 
     `return_hidden` (the embeddings step): the step returns the
     final-norm hidden state at `sample_positions` in f32 ([B, H]) in
@@ -613,9 +924,24 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     if return_hidden and (sp_ring is not None or with_expert_load):
         raise ValueError("return_hidden takes neither sp_ring nor "
                          "with_expert_load")
-    group = _group(tp)
-    _check_tp(cfg, group, sp_ring)
-    rcfg = rank_config(cfg, group.tp)
+    grid = _grid(tp)
+    if grid is not None:
+        _check_grid(cfg, grid, sp_ring, use_decode_kernel)
+        if sp_ring is not None:
+            raise ValueError("the sp ring prefill takes no dp grid")
+
+        def grid_step(state, cache, tokens, positions, seq_lens,
+                      block_tables, sample_positions=None,
+                      input_embeds=None, embed_mask=None):
+            out, cache, loads = _grid_forward(
+                cfg, block_size, grid, use_decode_kernel, moe_mode,
+                return_hidden, state, cache, tokens, positions, seq_lens,
+                block_tables, sample_positions, input_embeds, embed_mask)
+            if with_expert_load:
+                return out, cache, _expert_load(loads, out.device)
+            return out, cache
+
+        return grid_step
 
     def step(state: State, cache: Dict, tokens: torch.Tensor,
              positions: torch.Tensor, seq_lens: torch.Tensor,
@@ -630,7 +956,6 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
             return _sp_forward(cfg, block_size, sp_ring, sp_ring_kernel,
                                state, cache, tokens, positions, block_tables,
                                sample_positions)
-        states, caches = _shards(group, state, cache)
         P = block_tables.shape[1]
         block_tables = block_tables.to(torch.int32)
         seq_lens = seq_lens.to(torch.int32)
@@ -643,33 +968,29 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                 P * block_size, device=tokens.device).expand(B, P * block_size)
             ctx_slots = kvc.slots_for_positions(block_tables, ctx_positions,
                                                 block_size)
-        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        group.fork()
-        (tok, pos, sl, bt, ws, cs, cp, smp, emb, msk, cos, sin) = _replicas(
-            group, tokens, positions, seq_lens, block_tables, write_slots,
-            ctx_slots, ctx_positions, sample_positions, input_embeds,
-            embed_mask, cos, sin)
-        xs = _tp_embed(cfg, group, states, tok, emb, msk)
-
-        def attend(r, i, p_attn, h):
-            c = caches[r]
-            return _attention_block(
-                rcfg, p_attn, h, pos[r], (cos[r], sin[r]), sl[r], ws[r],
-                cs[r], cp[r], bt[r], block_size, c["k"][i], c["v"][i],
-                *_layer_scales(c, i))
-
-        def select(r, x):
-            if sample_positions is None:
-                return x
-            return x[torch.arange(B, device=x.device), smp[r].long()]
-
+        x = _embed(cfg, state, tokens, input_embeds, embed_mask)
+        rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        off = cfg.rms_offset
         loads: List[torch.Tensor] = []
-        xs = _tp_layers(cfg, group, states, xs, attend, moe_mode, loads)
-        out = _tp_head(cfg, rcfg, group, states, xs, select, return_hidden)
-        group.join()
+        for i, layer in enumerate(state["layers"]):
+            attn_out = _attention_block(
+                cfg, layer["attn"],
+                rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off),
+                positions, rot, seq_lens, write_slots, ctx_slots, ctx_positions,
+                block_tables, block_size, cache["k"][i], cache["v"][i],
+                *_layer_scales(cache, i))
+            x = _layer_tail(cfg, layer, x, attn_out, moe_mode, loads)
+        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
+        if sample_positions is not None:
+            x = x[torch.arange(B, device=x.device), sample_positions.long()]
+        if return_hidden:
+            # The last token's final-norm hidden state is the embedding
+            # (the causal-LM convention).
+            return x.float(), cache
+        logits = _lm_head(cfg, state, x)
         if with_expert_load:
-            return out, cache, _expert_load(loads, out.device)
-        return out, cache
+            return logits, cache, _expert_load(loads, x.device)
+        return logits, cache
 
     return step
 
@@ -695,53 +1016,60 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
     `input_embeds [T, H]` with `embed_mask [T]` (the multimodal prefill):
     masked positions take those embeddings in place of the token lookup;
     a batch mixes such segments with plain ones freely.  `tp` (a
-    TpGroup): each rank runs the kernel on its heads and cache shard."""
+    DpGrid): the pack is grid-shaped (`_grid_packed`) and each rank runs
+    the kernel on its heads and cache shard."""
     cfg.validate()
-    group = _group(tp)
-    _check_tp(cfg, group)
-    rcfg = rank_config(cfg, group.tp)
+    grid = _grid(tp)
+    if grid is not None:
+        _check_grid(cfg, grid)
+
+        def grid_step(state, cache, tokens, positions, seg_ids,
+                      block_tables, q_starts, q_lens, seq_lens,
+                      sample_positions, input_embeds=None, embed_mask=None):
+            logits, cache, _ = _grid_packed(
+                cfg, block_size, grid, moe_mode, state, cache, tokens,
+                positions, seg_ids, block_tables, q_starts, q_lens,
+                seq_lens, sample_positions, input_embeds, embed_mask)
+            return logits, cache
+
+        return grid_step
 
     def step(state, cache, tokens, positions, seg_ids, block_tables,
              q_starts, q_lens, seq_lens, sample_positions,
              input_embeds=None, embed_mask=None):
         T = tokens.shape[0]
-        states, caches = _shards(group, state, cache)
         block_tables = block_tables.to(torch.int32)
         bt_tok = block_tables[seg_ids.long()]                     # [T, P]
         write_slots = kvc.slots_for_positions(
             bt_tok, positions[:, None], block_size).reshape(T)
-        cos, sin = rope_tables(positions[None], cfg.head_dim, cfg.rope_theta)
-        group.fork()
-        (tok, ws, bt, sl, qs, ql, smp, emb, msk, cos, sin) = _replicas(
-            group, tokens, write_slots, block_tables,
-            seq_lens.to(torch.int32), q_starts.to(torch.int32),
-            q_lens.to(torch.int32), sample_positions, input_embeds,
-            embed_mask, cos, sin)
-        xs = [x[None] for x in _tp_embed(cfg, group, states, tok, emb,
-                                         msk)]                    # [1, T, H]
-
-        def attend(r, i, p_attn, h):
-            c = caches[r]
-            ks, vs = _layer_scales(c, i)
-            q, k, v = _qkv(rcfg, p_attn, h, (cos[r], sin[r]))
-            _write_chunk(c["k"][i], c["v"][i], ks, vs, ws[r],
-                         k.reshape(T, rcfg.kv_size),
-                         v.reshape(T, rcfg.kv_size))
+        x = _embed(cfg, state, tokens, input_embeds,
+                   embed_mask)[None]                               # [1, T, H]
+        rot = rope_tables(positions[None], cfg.head_dim, cfg.rope_theta)
+        off = cfg.rms_offset
+        args = (block_tables, seq_lens.to(torch.int32),
+                q_starts.to(torch.int32), q_lens.to(torch.int32))
+        loads: List[torch.Tensor] = []
+        for i, layer in enumerate(state["layers"]):
+            p_attn = layer["attn"]
+            h_in = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off)
+            q, k, v = _qkv(cfg, p_attn, h_in, rot)
+            ks, vs = _layer_scales(cache, i)
+            _write_chunk(cache["k"][i], cache["v"][i], ks, vs,
+                         write_slots, k.reshape(T, cfg.kv_size),
+                         v.reshape(T, cfg.kv_size))
             # Write-then-attend: the chunk's own K/V are pool rows now, so
             # cached prefix and in-chunk causality are one position mask.
             attn = paged_prefill_attention(
-                q[0].contiguous(), c["k"][i], c["v"][i], bt[r], sl[r], qs[r],
-                ql[r], block_size=block_size, scale=rcfg.query_scale,
-                soft_cap=rcfg.attn_soft_cap, k_scale=ks, v_scale=vs)
-            return attn.reshape(1, T, rcfg.q_size) @ p_attn["wo"]
-
-        loads: List[torch.Tensor] = []
-        xs = _tp_layers(cfg, group, states, xs, attend, moe_mode, loads)
-        logits = _tp_head(cfg, rcfg, group, states, xs,
-                          lambda r, x: x[0][smp[r].long()], False)  # [R, V]
-        group.join()
+                q[0].contiguous(), cache["k"][i], cache["v"][i], *args,
+                block_size=block_size, scale=cfg.query_scale,
+                soft_cap=cfg.attn_soft_cap, k_scale=ks, v_scale=vs)
+            attn = attn.reshape(1, T, cfg.q_size) @ p_attn["wo"]
+            x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
+        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
+        sel = x[0][sample_positions.long()]                       # [R, H]
+        logits = _lm_head(cfg, state, sel)
         if cfg.is_moe:
-            return logits, cache, _expert_load(loads, logits.device)
+            return logits, cache, _expert_load(loads, x.device)
         return logits, cache
 
     return step
@@ -770,7 +1098,7 @@ def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
     greedy rows carry seed None.  Pad rows (seq_lens0 == 0) stay dead: their
     positions and lengths do not advance.  `with_expert_load` appends the
     window's summed [E+1] expert load to the returned tuple.  `tp` (a
-    TpGroup): every step runs tensor-parallel and samples the gathered
+    DpGrid): every step runs over the grid and samples the gathered
     full-vocab logits on rank 0's card."""
     from dynamo_tpu_torch.engine.sampling import sample
 

@@ -40,11 +40,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     torch's, not JAX's: parity tests carry JAX weights across with
     `from_jax_params` instead.
 
-    With a tp `group` (parallel.mesh.TpGroup) the result is the ranks'
-    states, `shard_state` of the same draws: each layer and each table
-    is cut into the ranks' slices as soon as it is drawn and then
-    dropped, so `device` holds at most one whole layer or table beside
-    the slices."""
+    With a rank `group` (parallel.mesh.DpGrid; tp alone is its one dp
+    row) the result is the ranks' states, `shard_state` of the same
+    draws: each layer and each table is cut into the ranks' slices as
+    soon as it is drawn and then dropped, so `device` holds at most one
+    whole layer or table beside the slices, and the ranks that share a
+    card and a tp slice share one copy."""
     cfg.validate()
     dtype = cfg.dtype
     device = torch.device(device)
@@ -54,7 +55,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         from dynamo_tpu_torch.parallel.sharding import (
             param_pspecs, shard_state)
 
-        specs = param_pspecs(cfg)
+        specs = param_pspecs(cfg, group.dp_attention)
 
     def keep(piece, *path):
         """The whole piece, or its ranks' slices (a list)."""
@@ -121,7 +122,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     if group is None:
         return state(lambda piece: piece)
-    return [state(lambda piece, r=r: piece[r]) for r in range(group.tp)]
+    return [state(lambda piece, r=r: piece[r])
+            for r in range(len(group.devices))]
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
@@ -139,7 +141,7 @@ def from_jax_params(params, device: Union[str, torch.device]) -> State:
     """The JAX parameter pytree, as numpy arrays (`jax.device_get`),
     turned into the port's state by name.  Nested dicts and lists keep
     their structure; every leaf becomes a tensor of the same dtype on
-    `device`.  For a tp group, `device` "cpu": `shard_state` (or
+    `device`.  For a rank grid, `device` "cpu": `shard_state` (or
     `EngineCore(params=...)`) then copies each rank's slice from the
     host straight to its card."""
     if isinstance(params, dict):

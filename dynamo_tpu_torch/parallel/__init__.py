@@ -1,10 +1,11 @@
 """Meshes and sharded steps of the port: `MeshConfig(sp=N)` with the
-`SpRing` of its ranks and `make_sp_prefill_step`, and `MeshConfig(tp=N)`
-with the `TpGroup` of its ranks, the tp sharding rules and
-`shard_state`."""
+`SpRing` of its ranks and `make_sp_prefill_step`, `MeshConfig(dp=N,
+tp=M)` with the `DpGrid` of its ranks (tp alone: one dp row, whose
+collectives are a `TpGroup`'s), the sharding rules and `shard_state`."""
 
 from dynamo_tpu_torch.parallel.mesh import (
     AXES,
+    DpGrid,
     MeshConfig,
     SpRing,
     TpGroup,
@@ -15,6 +16,7 @@ from dynamo_tpu_torch.parallel.sharding import (
     PlaneSpec,
     cache_pspecs,
     check_plane,
+    data_pspecs,
     make_sp_prefill_step,
     param_pspecs,
     plane_capability,
@@ -23,8 +25,9 @@ from dynamo_tpu_torch.parallel.sharding import (
 )
 
 __all__ = [
-    "AXES", "Capability", "MeshConfig", "PlaneSpec", "SpRing",
-    "TpGroup", "cache_pspecs", "check_plane", "default_rank_devices",
+    "AXES", "Capability", "DpGrid", "MeshConfig", "PlaneSpec", "SpRing",
+    "TpGroup", "cache_pspecs", "check_plane", "data_pspecs",
+    "default_rank_devices",
     "make_sp_prefill_step", "param_pspecs", "plane_capability",
     "shard_state", "validate",
 ]

@@ -1,10 +1,10 @@
-"""The port's mesh: the five named axes, the sequence-parallel ring and
-the tensor-parallel group.
+"""The port's mesh: the five named axes, the sequence-parallel ring, the
+tensor-parallel group and the data-parallel grid.
 
 `MeshConfig` keeps the JAX package's axis order (dp, pp, sp, ep, tp) and
-its `describe()`.  `sp` and `tp` are wired in the port, one at a time:
-`sp x tp`, and any dp, ep or pp above 1, raise, naming the roadmap item
-that queues it.
+its `describe()`.  `sp`, `tp` and `dp` are wired in the port; `sp x tp`,
+`sp x dp`, and any ep or pp above 1, raise, naming the roadmap item that
+queues it.
 
 A JAX mesh is an array of devices, one program each, so it can be no
 larger than the devices it is made of.  A CUDA card runs many streams, so
@@ -26,15 +26,27 @@ The next hop's fold waits on that copy's event; a copy into a slot waits
 on the events of the last fold and the last send that read the slot (the
 TPU kernel's ack credit).
 
-`TpGroup`: Megatron's tensor parallelism over tp ranks, each holding its
-slice of the weights and of the paged cache's heads
-(parallel/sharding.py).  Rank 0 runs on the caller's current stream of
-its card, so a step's inputs and outputs need no hand-over; every other
-rank runs on a compute stream of its own.  The replicated activations
-live on every rank; the collectives are `all_reduce` (the row-parallel
-sum) and `all_gather` (the vocab-sharded logits), each ordered by events.
-A group of one rank (`SINGLE`) is the meshless step: every collective is
-the identity.
+`TpGroup`: the collectives of one dp row of tp ranks (Megatron's tensor
+parallelism), each rank holding its slice of the weights and of the
+paged cache's heads (parallel/sharding.py).  Rank 0 runs on the caller's
+current stream of its card, so a step's inputs and outputs need no
+hand-over; every other rank runs on a compute stream of its own.  The
+replicated activations live on every rank; the collectives are
+`all_reduce` (the row-parallel sum) and `all_gather` (the vocab-sharded
+logits), each ordered by events.
+
+`DpGrid`: the (dp, tp) rank grid every sharded step runs on, JAX's dp,
+dp-attention and dp-local modes, and tensor parallelism alone as the
+grid of one dp row (`dp=1`).  Ranks are numbered flat in JAX's order,
+`flat = d * tp + t`; dp row d is a TpGroup of its tp ranks.  Rank 0
+runs on the caller's stream and every other rank, the first rank of
+each later dp row included, on a stream of its own, so the dp rows run
+side by side.  The batch splits over the rows in contiguous ranges
+(JAX's `P("dp")`, or `P(("dp", "tp"))` under dp-attention), each row's
+outputs come back to rank 0 (`to_home`), and inside a row the TpGroup's
+collectives apply.  Ranks of one place (`places[f]`, by default the
+card) and one tp slice share one copy of their weights and of a
+replicated cache.  A meshless step runs no grid.
 """
 
 from __future__ import annotations
@@ -50,8 +62,6 @@ AXES = ("dp", "pp", "sp", "ep", "tp")
 
 # What each axis the port does not run yet waits for.
 QUEUED = {
-    "dp": "dp, dp-attention and dp-local (with dp-local K1) wait for "
-          "ROADMAP.md A7",
     "ep": "ep with moe_dispatch, and MoE under tp, wait for ROADMAP.md A7",
     "pp": "pp waits for ROADMAP.md A7",
 }
@@ -59,7 +69,7 @@ QUEUED = {
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Degrees per axis: `sp` or `tp` may exceed 1, not both."""
+    """Degrees per axis: `sp` may exceed 1 only where dp and tp do not."""
 
     dp: int = 1
     pp: int = 1
@@ -78,6 +88,11 @@ class MeshConfig:
                 f"mesh sp{self.sp}xtp{self.tp}: sp x tp waits for ROADMAP.md "
                 "A7 (the ring prefill runs on replicated parameters and "
                 "an unsharded cache)")
+        if self.sp > 1 and self.dp > 1:
+            raise ValueError(
+                f"mesh dp{self.dp}xsp{self.sp}: sp x dp waits for "
+                "ROADMAP.md A7 (the ring prefill runs on replicated "
+                "parameters and one cache)")
 
     @property
     def shape(self) -> tuple:
@@ -329,22 +344,24 @@ class TpGroup:
     events and keep the caching allocator from reusing a buffer another
     rank's stream still reads (`record_stream`)."""
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, home=None,
+                 own_first: bool = False):
+        """`home` is the device of the caller's stream (default rank 0's);
+        `own_first` gives rank 0 a stream of its own too (the later rows
+        of a DpGrid)."""
         self.devices: List[torch.device] = _rank_devices(devices, "tp group")
         self.tp = len(self.devices)
-        self.cuda = self.devices[0].type == "cuda" and self.tp > 1
+        self.home = (self.devices[0] if home is None
+                     else _rank_devices([home], "tp group")[0])
+        self.cuda = self.devices[0].type == "cuda" and (
+            self.tp > 1 or own_first)
         # Distinct cards, in rank order.
         self.cards: List[torch.device] = list(dict.fromkeys(self.devices))
         self.streams: List[Optional[torch.cuda.Stream]] = [None] * self.tp
         if self.cuda:
-            self.streams[1:] = [torch.cuda.Stream(d) for d in self.devices[1:]]
-
-    @classmethod
-    def for_mesh(cls, mesh: MeshConfig, primary: torch.device) -> "TpGroup":
-        """The group of a mesh's tp axis: rank 0 on `primary`, the
-        engine's device, and the ranks spread over the visible cards,
-        shared round-robin where there are fewer."""
-        return cls(default_rank_devices(mesh.tp, torch.device(primary)))
+            first = 0 if own_first else 1
+            self.streams[first:] = [torch.cuda.Stream(d)
+                                    for d in self.devices[first:]]
 
     def describe(self) -> List[str]:
         """The rank -> device map, as strings."""
@@ -373,25 +390,28 @@ class TpGroup:
         if not self.cuda:
             return
         evs = {}
-        for d in self.cards:
+        for d in dict.fromkeys(self.cards + [self.home]):
             evs[d] = torch.cuda.Event()
             evs[d].record(torch.cuda.current_stream(d))
-        for r in range(1, self.tp):
-            self.streams[r].wait_event(evs[self.devices[r]])
-            self.streams[r].wait_event(evs[self.devices[0]])
+        for r, s in enumerate(self.streams):
+            if s is not None:
+                s.wait_event(evs[self.devices[r]])
+                s.wait_event(evs[self.home])
 
     def join(self) -> None:
         """The current stream of every rank's card waits for every rank on
-        that card and rank 0's card's waits for all of them, so the step's
+        that card and the home card's waits for all of them, so the step's
         outputs and the ranks' cache writes are ordered before what the
         caller queues next."""
         if not self.cuda:
             return
-        main = torch.cuda.current_stream(self.devices[0])
-        for r in range(1, self.tp):
+        main = torch.cuda.current_stream(self.home)
+        for r, s in enumerate(self.streams):
+            if s is None:
+                continue
             ev = self._mark(r)
             main.wait_event(ev)
-            if self.devices[r] != self.devices[0]:
+            if self.devices[r] != self.home:
                 torch.cuda.current_stream(self.devices[r]).wait_event(ev)
 
     def _move(self, dst: int, src: int, t: torch.Tensor) -> torch.Tensor:
@@ -427,6 +447,8 @@ class TpGroup:
         every rank, after `fork()`."""
         if not self.cuda:
             return [t] * self.tp
+        if self.streams[0] is not None:
+            t.record_stream(self.streams[0])
         return self._spread(t)
 
     def all_reduce(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -455,9 +477,116 @@ class TpGroup:
         with self.on(0):
             return torch.cat(moved, dim=dim)
 
+    def all_gather_all(self, parts: Sequence[torch.Tensor],
+                       dim: int) -> List[torch.Tensor]:
+        """Rank r's `parts[r]` concatenated along `dim`, on every rank
+        (dp-attention's rows, gathered for the tp-sharded MLP)."""
+        if self.tp == 1:
+            return list(parts)
+        whole = self.all_gather(parts, dim)
+        if not self.cuda:
+            return [whole] * self.tp
+        return self._spread(whole)
 
-# The meshless step: one rank, on whatever device its tensors lie.
-SINGLE = TpGroup([torch.device("cpu")])
+
+class DpGrid:
+    """The (dp, tp) rank grid: dp rows of tp ranks each, ranks numbered
+    flat (`d * tp + t`), and the mode the grid runs.
+
+    - plain dp: a dp row runs its share of the batch tensor-parallel,
+      its tp slices of the weights and of a head-sharded cache
+      replicated over dp;
+    - `dp_attention`: a row's share splits again over its tp ranks for
+      attention, with replicated attention weights and a cache whose
+      SLOT axis shards over tp (replicated over dp); the MLP stays
+      tp-sharded over the row's whole share;
+    - `dp_local` (implies dp_attention): the cache's slots shard over
+      the flat grid and each rank attends only its own shard.
+
+    `places` names where each rank's copies live (default: its device):
+    ranks of one place and one tp slice share one copy of the weights and
+    of a replicated cache, so a card holds each slice once."""
+
+    def __init__(self, devices: Sequence, dp: int,
+                 dp_attention: bool = False, dp_local: bool = False,
+                 places: Optional[Sequence] = None):
+        self.devices: List[torch.device] = _rank_devices(devices, "dp grid")
+        self.n = len(self.devices)
+        if dp < 1 or self.n % dp:
+            raise ValueError(f"dp={dp} must divide the grid's {self.n} ranks")
+        if dp_local and not dp_attention:
+            raise ValueError("dp_local implies dp_attention")
+        self.dp, self.tp = dp, self.n // dp
+        self.dp_attention, self.dp_local = dp_attention, dp_local
+        self.cuda = self.devices[0].type == "cuda"
+        self.cards: List[torch.device] = list(dict.fromkeys(self.devices))
+        tp, home = self.tp, self.devices[0]
+        self.rows = [TpGroup(self.devices[d * tp:(d + 1) * tp], home=home,
+                             own_first=d > 0) for d in range(dp)]
+        self.places = list(places) if places is not None else list(
+            self.devices)
+        if len(self.places) != self.n:
+            raise ValueError(f"{len(self.places)} places for {self.n} ranks")
+        # K1 / K2 launches each rank made (the wrappers' counts, split by
+        # the rank that called them).
+        self.launches = [0] * self.n
+
+    @classmethod
+    def for_mesh(cls, mesh: MeshConfig, primary: torch.device,
+                 dp_attention: bool = False,
+                 dp_local: bool = False) -> "DpGrid":
+        """The grid of a mesh's dp and tp axes (tp alone: dp 1): rank 0
+        on `primary`, the engine's device, the ranks spread over the
+        visible cards, shared round-robin where there are fewer."""
+        return cls(default_rank_devices(mesh.dp * mesh.tp,
+                                        torch.device(primary)),
+                   mesh.dp, dp_attention, dp_local)
+
+    @property
+    def mode(self) -> str:
+        return ("dp_local" if self.dp_local else
+                "dp_attention" if self.dp_attention else "dp")
+
+    def describe(self) -> List[str]:
+        """The rank -> device map, as strings."""
+        return [str(d) for d in self.devices]
+
+    def holders(self, t: int) -> List[int]:
+        """One flat rank per distinct copy of tp slice t, dp row 0's
+        first."""
+        seen: Dict[object, int] = {}
+        for d in range(self.dp):
+            seen.setdefault(self.places[d * self.tp + t], d * self.tp + t)
+        return list(seen.values())
+
+    def fork(self) -> None:
+        for row in self.rows:
+            row.fork()
+
+    def join(self) -> None:
+        for row in self.rows:
+            row.join()
+
+    def to_home(self, d: int, x: torch.Tensor) -> torch.Tensor:
+        """Tensor `x`, made on row d's rank 0 stream, for the caller's
+        stream on rank 0's card."""
+        row = self.rows[d]
+        s = row.streams[0]
+        if not self.cuda or s is None:
+            return x
+        home = torch.cuda.current_stream(self.devices[0])
+        if row.devices[0] == self.devices[0]:
+            home.wait_event(row._mark(0))
+            x.record_stream(home)
+            return x
+        with torch.cuda.stream(s):
+            return x.to(self.devices[0], non_blocking=True)
+
+    def gather_rows(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Row d's `parts[d]` (on its rank 0) concatenated along dim 0 on
+        the caller's stream."""
+        moved = [self.to_home(d, p) for d, p in enumerate(parts)]
+        return moved[0] if len(moved) == 1 else torch.cat(moved, dim=0)
 
 
 def _to_device(x, device: torch.device):

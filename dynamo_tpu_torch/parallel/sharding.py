@@ -1,4 +1,4 @@
-"""Sharding rules and sharded steps of the port (port of the tp and
+"""Sharding rules and sharded steps of the port (port of the tp, dp and
 `role="sp_prefill"` parts of `dynamo_tpu/parallel/sharding.py`).
 
 Megatron-style tensor parallelism, the JAX package's split: attention's
@@ -7,9 +7,15 @@ w_gate/w_up column-parallel and w_down row-parallel; the embedding over
 vocab rows and the lm head over vocab columns; norms replicated; the KV
 cache's head-major feature axis (and an int8 cache's scale heads) over
 tp.  `param_pspecs` / `cache_pspecs` say so as JAX's PartitionSpecs do,
-each spec a tuple naming the mesh axis of each tensor axis ("tp" or
-None), and `shard_state` cuts a state by them into the per-rank states a
-`TpGroup` runs (models/llama.py).
+each spec a tuple naming the mesh axis of each tensor axis ("tp", ("dp",
+"tp") or None), and `shard_state` cuts a state by them into the per-rank
+states a `DpGrid` runs (models/llama.py).
+
+The dp axis, as JAX's: batch rows shard over dp (`data_pspecs`), the
+weights replicate over dp, and the cache is head-sharded over tp and
+replicated over dp.  Under dp-attention the attention weights replicate
+over tp too and the cache's SLOT axis shards over tp; under dp-local the
+slots shard over the flat (dp, tp) grid.
 
 `plane_capability` is the capability table: every (feature x mesh)
 combination that cannot work is declared here with the pointed error the
@@ -20,27 +26,32 @@ hand-kept list.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import make_forward_step
-from dynamo_tpu_torch.parallel.mesh import QUEUED, MeshConfig, SpRing, TpGroup
+from dynamo_tpu_torch.parallel.mesh import QUEUED, MeshConfig, SpRing
 
 
 @dataclass(frozen=True)
 class PlaneSpec:
     """What a step is asked to do, as far as the table needs to know.
 
-    - `dp_attention`: batch-sharded attention with slot-sharded KV.
+    - `use_kernel`: decode attention through K1, the paged-decode kernel
+      (JAX's `use_pallas`).
+    - `dp_attention` / `dp_local`: batch-sharded attention with
+      slot-sharded KV, optionally with page locality.
     - `moe`: the model has expert layers.
     - `role`: "decode" (the unified step family) or "sp_prefill" (ring-SP
       whole-prompt prefill).
     """
 
+    use_kernel: bool = False
     dp_attention: bool = False
+    dp_local: bool = False
     moe: bool = False
     role: str = "decode"
 
@@ -55,10 +66,22 @@ def plane_capability(plane: PlaneSpec,
                      mesh: Optional[MeshConfig] = None) -> Capability:
     """THE capability table.  `mesh` None is the meshless engine."""
     tp = mesh is not None and mesh.tp > 1
+    dp = mesh is not None and mesh.dp > 1
 
     def no(reason: str) -> Capability:
         return Capability(False, reason)
 
+    if plane.dp_local and not plane.dp_attention:
+        return no("dp_local implies dp_attention")
+    if (plane.dp_attention or plane.dp_local) and mesh is None:
+        return no("dp_attention needs a mesh")
+    if plane.use_kernel and plane.dp_attention and not plane.dp_local:
+        return no(
+            "pallas decode under dp_attention needs page locality "
+            "(dp_attention_local=True): without it a row's pages may "
+            "live on any shard and the kernel's slot indexing cannot "
+            "cross chips — set dp_attention_local (plain allocator) or "
+            "drop use_pallas_decode for the gather path")
     if plane.moe and plane.role == "sp_prefill":
         return no(
             "ring-SP prefill is declared impossible for MoE: the sp "
@@ -69,11 +92,12 @@ def plane_capability(plane: PlaneSpec,
     if plane.role == "sp_prefill" and plane.dp_attention:
         return no("ring-SP prefill is not wired for dp_attention (the "
                   "sp step's cache specs conflict with slot sharding)")
-    if plane.moe and tp:
+    if plane.moe and (tp or dp):
         return no(
-            f"MoE under a tp mesh ({mesh.describe()}) is not ported: the "
-            "port has no moe_dispatch and no dense-MoE tp split yet; "
-            + QUEUED["ep"] + " — serve MoE models meshless")
+            f"MoE under a {'tp' if tp else 'dp'} mesh ({mesh.describe()}) "
+            "is not ported: the port has no moe_dispatch and no dense-MoE "
+            "tp or dp split yet; " + QUEUED["ep"]
+            + " — serve MoE models meshless")
     return Capability(True)
 
 
@@ -90,12 +114,20 @@ def check_plane(plane: PlaneSpec, mesh: Optional[MeshConfig] = None) -> None:
 Spec = tuple   # one mesh axis name or None per tensor axis
 
 
-def param_pspecs(cfg: ModelConfig) -> Dict:
+def param_pspecs(cfg: ModelConfig, dp_attention: bool = False) -> Dict:
     """The spec tree of a dense model's state (`weights.init_params`'s
-    structure): JAX's `param_pspecs(cfg)` on a tp mesh, tp rules only."""
+    structure): JAX's `param_pspecs(cfg, dp_attention=...)`.  Every
+    weight replicates over dp; `dp_attention` replicates the attention
+    weights over tp as well (attention then runs data-parallel over the
+    flat grid while the MLP stays tp-sharded)."""
+    if dp_attention:
+        attn = {"wq": (None, None), "wk": (None, None),
+                "wv": (None, None), "wo": (None, None)}
+    else:
+        attn = {"wq": (None, "tp"), "wk": (None, "tp"),
+                "wv": (None, "tp"), "wo": ("tp", None)}
     layer = {
-        "attn": {"wq": (None, "tp"), "wk": (None, "tp"),
-                 "wv": (None, "tp"), "wo": ("tp", None)},
+        "attn": attn,
         "attn_norm": (None,),
         "mlp_norm": (None,),
         "mlp": {"w_gate": (None, "tp"), "w_up": (None, "tp"),
@@ -111,23 +143,45 @@ def param_pspecs(cfg: ModelConfig) -> Dict:
     return specs
 
 
-def cache_pspecs(num_layers: int, kv_quant: bool = False) -> Dict:
-    """The paged cache's spec tree: each layer's [S, F] buffers shard
-    their head-major feature axis over tp, which IS head sharding, and an
-    int8 cache's [S, Hkv] scales ride their heads (JAX's
-    `cache_pspecs(num_layers, kv_quant=...)`)."""
-    out = {"k": [(None, "tp")] * num_layers, "v": [(None, "tp")] * num_layers}
+def cache_pspecs(num_layers: int, dp_attention: bool = False,
+                 dp_local: bool = False, kv_quant: bool = False) -> Dict:
+    """The paged cache's spec tree (JAX's `cache_pspecs`): each layer's
+    [S, F] buffers shard their head-major feature axis over tp, which IS
+    head sharding, replicated over dp, and an int8 cache's [S, Hkv]
+    scales ride their heads.  `dp_attention` shards the SLOT axis over
+    tp instead (replicated over dp); `dp_local` shards it over the flat
+    (dp, tp) grid.  Scales shard as their pages."""
+    if dp_local:
+        spec = (("dp", "tp"), None)
+    elif dp_attention:
+        spec = ("tp", None)
+    else:
+        spec = (None, "tp")
+    out = {"k": [spec] * num_layers, "v": [spec] * num_layers}
     if kv_quant:
-        out["k_scale"] = [(None, "tp")] * num_layers
-        out["v_scale"] = [(None, "tp")] * num_layers
+        out["k_scale"] = [spec] * num_layers
+        out["v_scale"] = [spec] * num_layers
     return out
 
 
-def validate(cfg: ModelConfig, mesh: MeshConfig) -> None:
+def data_pspecs() -> Dict:
+    """Per-step input batch: the batch axis over dp (JAX's
+    `data_pspecs`)."""
+    return {
+        "tokens": ("dp", None),
+        "positions": ("dp", None),
+        "seq_lens": ("dp",),
+        "block_tables": ("dp", None),
+    }
+
+
+def validate(cfg: ModelConfig, mesh: MeshConfig,
+             dp_attention: bool = False) -> None:
     """JAX's `validate` for the axes the port runs: tp must divide the
-    kv heads, the MLP's intermediate width and the vocabulary."""
+    kv heads (unless dp-attention shards slots instead of heads), the
+    MLP's intermediate width and the vocabulary."""
     tp = mesh.tp
-    if cfg.num_kv_heads % tp:
+    if not dp_attention and cfg.num_kv_heads % tp:
         raise ValueError(
             f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads} "
             "(head-sharded KV cache; use dp_attention for tp beyond the "
@@ -139,33 +193,67 @@ def validate(cfg: ModelConfig, mesh: MeshConfig) -> None:
         raise ValueError(f"tp={tp} must divide vocab={cfg.vocab_size}")
 
 
-def _cut(t: torch.Tensor, spec: Spec, rank: int, tp: int,
-         device: torch.device) -> torch.Tensor:
-    """Rank's slice of `t` along the spec's "tp" axis (the whole tensor
-    for a replicated spec), as a contiguous tensor of its own on
-    `device`: no rank keeps a view of the whole."""
+def _coords(spec: Spec, d: int, t: int, tp: int) -> Tuple[tuple, tuple]:
+    """For rank (d, t): ((axis, index, parts) of each cut axis) and the
+    indices that name its piece."""
+    cuts = []
+    for axis, name in enumerate(spec):
+        if name == "tp":
+            cuts.append((axis, t, tp))
+        elif name == ("dp", "tp"):
+            cuts.append((axis, d * tp + t, None))
+        elif name == "dp":
+            cuts.append((axis, d, None))
+        elif name is not None:
+            raise ValueError(f"unknown mesh axis {name!r} in {spec}")
+    return tuple(cuts), tuple(c[1] for c in cuts)
+
+
+def _cut(t: torch.Tensor, cuts: tuple, parts: Dict[int, int],
+         device: torch.device, junk_row: bool) -> torch.Tensor:
+    """The piece of `t` the cuts name, as a contiguous tensor of its own
+    on `device`: no rank keeps a view of the whole.  `junk_row` (a slot
+    shard of a cache) backs the piece with one more row, where writes
+    that fall outside the shard land (kv_cache.write_routes)."""
     part = t
-    if "tp" in spec:
-        axis = spec.index("tp")
-        n = t.shape[axis] // tp
-        part = t.narrow(axis, rank * n, n)
-    out = torch.empty(part.shape, dtype=part.dtype, device=device)
+    for axis, index, n in cuts:
+        n = n or parts[axis]
+        size = t.shape[axis] // n
+        part = part.narrow(axis, index * size, size)
+    if junk_row and cuts and cuts[0][0] == 0:
+        out = torch.zeros((part.shape[0] + 1,) + tuple(part.shape[1:]),
+                          dtype=part.dtype, device=device)[:part.shape[0]]
+    else:
+        out = torch.empty(part.shape, dtype=part.dtype, device=device)
     out.copy_(part)
     return out
 
 
-def shard_state(tree, specs, group: TpGroup) -> List:
+def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
     """Per-rank trees of `tree` (a state or a cache: nested dicts and
     lists of tensors) cut along exactly the axes `specs` names, rank r's
-    on `group.devices[r]`."""
-    def walk(t, s, rank):
-        if isinstance(t, dict):
-            return {k: walk(v, s[k], rank) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return [walk(v, sv, rank) for v, sv in zip(t, s)]
-        return _cut(t, s, rank, group.tp, group.devices[rank])
+    on `group.devices[r]`.  `group` is a parallel.mesh.DpGrid (tp alone:
+    its one dp row); the ranks that share a place and a piece share one
+    tensor (one copy of each tp slice a card).  `junk_rows`: the tree is
+    a cache, and its slot shards get their junk row."""
+    tp, dp, places = group.tp, group.dp, group.places
+    shared: Dict[tuple, torch.Tensor] = {}
 
-    return [walk(tree, specs, r) for r in range(group.tp)]
+    def walk(t, s, r, path):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k], r, path + (k,)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v, sv, r, path + (i,))
+                    for i, (v, sv) in enumerate(zip(t, s))]
+        cuts, idx = _coords(s, r // tp, r % tp, tp)
+        parts = {axis: (dp * tp if s[axis] == ("dp", "tp") else dp)
+                 for axis, _, n in cuts if n is None}
+        key = (path, places[r], idx)
+        if key not in shared:
+            shared[key] = _cut(t, cuts, parts, group.devices[r], junk_rows)
+        return shared[key]
+
+    return [walk(tree, specs, r, ()) for r in range(len(group.devices))]
 
 
 def make_sp_prefill_step(cfg: ModelConfig, block_size: int, ring: SpRing,

@@ -104,15 +104,22 @@ device and no KV data plane (a CPU test backend for the planner, the
 launcher and the drain; the roles refuse it).
 
 Parallelism (`build_mesh`, as JAX's): `--tp N` serves the model
-tensor-parallel over N ranks in this process (parallel/mesh.TpGroup): a
-card a rank where the machine has N cards, else the ranks share the
-cards round-robin, which is logged.  The published SliceSpec carries
-the mesh (`tp2`), `/debug/stats` its `mesh`, `tp_devices` and
-`kv_shard_count`.  `--dp`, `--ep` and `--pp` take JAX's defaults; above
-1 the worker exits naming ROADMAP.md A7.  With `--tp` a checkpoint is
-read on the host and each rank's slice copied straight to its card, and
-a preset's weights are cut as they are drawn, so no card ever holds the
-whole model beside its slices.
+tensor-parallel over N ranks in this process (parallel/mesh.DpGrid, one
+dp row): a card a rank where the machine has N cards, else the ranks
+share the cards round-robin, which is logged.  `--dp N` makes it a (dp,
+tp) grid of dp * tp ranks: the batch splits over the dp
+rows, the ranks of a card share one copy of each tp slice, and
+`--dp-attention` shards attention over the whole grid with the cache's
+slots over tp (JAX's flag; the prefix cache is on, so page locality
+resolves off and attention takes the gather path).  The published
+SliceSpec carries the mesh (`tp2`, `dp2xtp2`) and the `dp_attention`
+feature, `/debug/stats` its `mesh`, `tp_devices`, `dp_mode`,
+`kv_shard_count`, `kv_traffic_shards` and the K1 / K2 launches of each
+rank.  `--ep` and `--pp` take JAX's defaults; above 1 the worker exits
+naming ROADMAP.md A7.  With `--tp` or `--dp` a checkpoint is read on the
+host and each rank's slice copied straight to its card, and a preset's
+weights are cut as they are drawn, so no card ever holds the whole model
+beside its slices.
 
 Not ported: multihost and lockstep, and `--slice`.
 """
@@ -260,8 +267,12 @@ def parse_args(argv=None):
                         "heads and MLP columns over them (a card a rank "
                         "where there are enough, else shared)")
     p.add_argument("--dp", type=int, default=1,
-                   help="engine-internal data-parallel degree (not ported: "
-                        "above 1 exits)")
+                   help="engine-internal data-parallel degree (batch axis): "
+                        "dp rows of tp ranks each")
+    p.add_argument("--dp-attention", action="store_true",
+                   help="batch-sharded attention with slot-sharded KV "
+                        "(tp beyond the kv-head count; reference sglang "
+                        "--enable-dp-attention)")
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel degree (not ported: above 1 "
                         "exits)")
@@ -355,25 +366,26 @@ def load_kernels(core: EngineCore) -> None:
 
 
 def build_mesh(args) -> MeshConfig:
-    """The mesh of the parallelism flags (JAX's `build_mesh`): tp ranks
-    of this process, on the cards of `--device`.  What the port does not
-    run exits, naming the roadmap item; ranks that outnumber the cards
-    share them round-robin, which is logged."""
-    for axis in ("dp", "ep", "pp"):
+    """The mesh of the parallelism flags (JAX's `build_mesh`): dp * tp
+    ranks of this process, on the cards of `--device`.  What the port
+    does not run exits, naming the roadmap item; ranks that outnumber the
+    cards share them round-robin, which is logged."""
+    for axis in ("ep", "pp"):
         n = getattr(args, axis)
         if n > 1:
             raise SystemExit(f"--{axis} {n}: {QUEUED[axis]}")
     try:
-        mesh = MeshConfig(tp=args.tp)
+        mesh = MeshConfig(dp=args.dp, tp=args.tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    if mesh.tp > 1 and resolve_device(args.device).type == "cuda":
+    ranks = mesh.dp * mesh.tp
+    if ranks > 1 and resolve_device(args.device).type == "cuda":
         import torch
 
         cards = torch.cuda.device_count()
-        if cards < mesh.tp:
+        if cards < ranks:
             logger.warning("mesh %s: %d ranks share %d card(s) round-robin",
-                           mesh.describe(), mesh.tp, cards)
+                           mesh.describe(), ranks, cards)
     return mesh
 
 
@@ -381,10 +393,11 @@ def build_engine(args, kv_event_sink):
     """(core, engine, card fields) for the flags; the engine is not
     started yet."""
     mesh = build_mesh(args)
-    # A tp engine cuts a checkpoint read on the host (a memory map) into
-    # its ranks' cards; a preset (no state) is drawn by the engine.
+    sharded = mesh.dp * mesh.tp > 1
+    # A sharded engine cuts a checkpoint read on the host (a memory map)
+    # into its ranks' cards; a preset (no state) is drawn by the engine.
     cfg, params, spec, template = resolve_model(
-        args.model, device="cpu" if mesh.tp > 1 else args.device,
+        args.model, device="cpu" if sharded else args.device,
         num_layers=args.num_layers)
     sched = SchedulerConfig(block_size=args.block_size,
                             max_prefill_chunk=args.max_prefill_chunk)
@@ -392,9 +405,10 @@ def build_engine(args, kv_event_sink):
         model=cfg, num_blocks=args.num_blocks, scheduler=sched,
         device=args.device, moe_mode=args.moe_mode,
         kv_quant=args.kv_quant, speculative_tokens=args.spec_decode,
-        speculative_ngram=args.spec_ngram, tp=mesh.tp),
+        speculative_ngram=args.spec_ngram, tp=mesh.tp, dp=mesh.dp,
+        dp_attention=args.dp_attention),
         params=params, kv_event_sink=kv_event_sink)
-    del params      # a tp engine keeps its ranks' slices only
+    del params      # a sharded engine keeps its ranks' slices only
     load_kernels(core)
     card_fields = {
         # A checkpoint's tokenizer.json rides the card inline, with its
@@ -422,13 +436,17 @@ def derive_slice_spec(core: Optional[EngineCore], role: str = "both",
         cards = (core.group.cards if core.group is not None
                  else [core.device])
         hbm = sum(int(torch.cuda.get_device_properties(d).total_memory)
-                  for d in cards) // core.config.tp
+                  for d in cards) // (core.config.dp * core.config.tp)
     # Speculative decode takes the place of the decode windows.
     decode = ("spec" if core.config.speculative_tokens > 0
               else f"window{DECODE_WINDOW}")
+    features = ("packed_prefill", decode)
+    if core.config.dp_attention:
+        features += ("dp_attention",)
+    if core.grid is not None and core.grid.dp_local:
+        features += ("dp_local",)
     return SliceSpec(mesh=core.mesh.shape, role=role,
-                     kv_quant=core.cache_cfg.kv_quant,
-                     features=("packed_prefill", decode),
+                     kv_quant=core.cache_cfg.kv_quant, features=features,
                      hbm_per_chip_bytes=hbm, fabric=fabric)
 
 

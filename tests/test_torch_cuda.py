@@ -1,7 +1,7 @@
 """The port's CUDA kernels (paged decode and prefill attention over bf16
 and int8 caches, the grouped MoE expert FFN in bf16 and int8, the ring
 attention flash fold over bf16 and int8 blocks) and engine on the card,
-the tensor-parallel forward among them.
+the tensor-parallel forward and the dp grid among them.
 
 Every test here needs an NVIDIA GPU and skips without one.  The suite's
 conftest imports JAX, which the GPU machine does not have, so run this
@@ -512,16 +512,17 @@ def test_tp_forward_on_one_card_matches_unsharded(dev, kv_quant):
     from dynamo_tpu_torch.models.weights import init_params
     from dynamo_tpu_torch.ops.cuda import launch_counts
     from dynamo_tpu_torch.parallel import (
-        MeshConfig, TpGroup, param_pspecs, shard_state)
+        DpGrid, MeshConfig, param_pspecs, shard_state)
 
     cfg = get_config("tiny-test").replace(head_dim=32, dtype=torch.bfloat16)
     state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    group = TpGroup.for_mesh(MeshConfig(tp=2), dev)
-    assert group.devices[1].type == "cuda" and group.streams[1] is not None
+    group = DpGrid.for_mesh(MeshConfig(tp=2), dev)
+    assert group.devices[1].type == "cuda" and \
+        group.rows[0].streams[1] is not None
     ranks = shard_state(state, param_pspecs(cfg), group)
     ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=8, block_size=8,
                                        kv_quant=kv_quant)
-    cache, flat = kvc.init_rank_caches(ccfg, group.devices), kvc.init_cache(
+    cache, flat = kvc.init_grid_caches(ccfg, group), kvc.init_cache(
         ccfg, dev)
     body = "_int8" if kv_quant == "int8" else ""
     T = 24
@@ -581,10 +582,10 @@ def test_tp_draw_never_holds_the_whole_model_beside_its_slices(dev):
     from dynamo_tpu_torch.models.config import get_config
     from dynamo_tpu_torch.models.weights import init_params
     from dynamo_tpu_torch.parallel import (
-        MeshConfig, TpGroup, param_pspecs, shard_state)
+        DpGrid, MeshConfig, param_pspecs, shard_state)
 
     cfg = get_config("llama-3-1b").replace(vocab_size=4096)
-    group = TpGroup.for_mesh(MeshConfig(tp=2), dev)
+    group = DpGrid.for_mesh(MeshConfig(tp=2), dev)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -601,6 +602,80 @@ def test_tp_draw_never_holds_the_whole_model_beside_its_slices(dev):
     for got, want in zip(ranks, shard_state(whole, param_pspecs(cfg), group)):
         assert all(torch.equal(a, b) for a, b in zip(_tree_leaves(got),
                                                       _tree_leaves(want)))
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_dp_local_kernels_on_a_shard_view(dev, kv_quant):
+    """K1 and K2 as a dp-local rank runs them: on shard 1's [S/4, F] view
+    of a 4-shard pool (llama-3-8b's heads, block 64) with its rebased
+    tables, against their plain versions on the same view and on the
+    whole pool with the global tables."""
+    from dynamo_tpu_torch.models.llama import _local_tables
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    hq, hkv, D, bs, nb, f = 32, 8, 128, 64, 12, 1
+    S = 4 * nb * bs
+    kc, vc = _rand(gen, S, hkv * D, dev=dev), _rand(gen, S, hkv * D, dev=dev)
+    sc = {}
+    if kv_quant == "int8":
+        kc, ks = kvc.quantize_kv_rows(kc, hkv)
+        vc, vs = kvc.quantize_kv_rows(vc, hkv)
+        sc = {"k_scale": ks, "v_scale": vs}
+    i32 = dict(dtype=torch.int32, device=dev)
+    # Pages of shard 1 (global blocks 12..23), its first block among them;
+    # the unallocated entries are the global null block.
+    bt = torch.tensor([[12, 15, 0], [20, 13, 17], [23, 0, 0],
+                       [14, 16, 18]], **i32)
+    lens = torch.tensor([100, 190, 1, 129], **i32)
+    rows = slice(f * nb * bs, (f + 1) * nb * bs)
+    local = {k: v[rows] for k, v in sc.items()}
+    lbt = _local_tables(bt, f, nb)
+    q = _rand(gen, 4, hq, D, dev=dev)
+    out = paged_decode_attention(q, kc[rows], vc[rows], lbt, lens,
+                                 block_size=bs, **local)
+    _assert_close(out, paged_decode_attention_plain(
+        q, kc[rows], vc[rows], lbt, lens, block_size=bs, **local))
+    _assert_close(out, paged_decode_attention_plain(
+        q, kc, vc, bt, lens, block_size=bs, **sc))
+    # K2: three segments (one with a cached prefix) and a pad segment.
+    T = 192
+    qp = _rand(gen, T, hq, D, dev=dev)
+    qs = torch.tensor([0, 64, 128, 0], **i32)
+    ql = torch.tensor([64, 64, 64, 0], **i32)
+    sl = torch.tensor([64, 190, 64, 0], **i32)
+    out = paged_prefill_attention(qp, kc[rows], vc[rows], lbt, sl, qs, ql,
+                                  block_size=bs, **local)
+    _assert_close(out, paged_prefill_attention_plain(
+        qp, kc[rows], vc[rows], lbt, sl, qs, ql, block_size=bs, **local))
+    _assert_close(out, paged_prefill_attention_plain(
+        qp, kc, vc, bt, sl, qs, ql, block_size=bs, **sc))
+
+
+@pytest.mark.parametrize("mode", ["dp", "dp_attention", "dp_local"])
+def test_dp_engine_on_one_card_serves_the_meshless_tokens(dev, mode):
+    """tiny-test in bf16 (D 32) on a dp 2 x tp 2 grid on one card, every
+    rank but 0 on its own stream: greedy tokens as the meshless engine's
+    (random bf16 weights may leave near ties: most rows agree); plain dp
+    and dp-local launch K1 and K2 on every rank, dp-attention without
+    locality neither."""
+    kw = dict(dp=2, tp=2, enable_prefix_cache=False,
+              dp_attention=mode != "dp",
+              dp_attention_local=mode == "dp_local")
+    prompts = {f"r{i}": list(range(1, n + 1))
+               for i, n in enumerate((5, 40, 17))}
+    one = _serve(_tiny_engine(dev, enable_prefix_cache=False), prompts)
+    core = _tiny_engine(dev, **kw)
+    assert core.grid.mode == mode
+    assert all(s is not None for row in core.grid.rows
+               for s in row.streams[1:])
+    assert core.grid.rows[1].streams[0] is not None
+    got = _serve(core, prompts)
+    assert all(len(t) == 20 for t in got.values())
+    assert sum(one[r] == got[r] for r in prompts) >= 2
+    if mode == "dp_attention":
+        assert core.grid.launches == [0] * 4
+    else:
+        assert all(n > 0 for n in core.grid.launches)
 
 
 def _tree_leaves(tree):

@@ -446,7 +446,8 @@ def test_moe_and_dp_attention_errors_are_the_reference_tables():
     mesh = make_mesh(JaxMeshConfig(sp=2), jax.devices()[:2])
     want = jax_plane_capability(mesh, JaxPlaneSpec(
         role="sp_prefill", dp_attention=True), multihost=False).reason
-    got = plane_capability(PlaneSpec(role="sp_prefill", dp_attention=True))
+    got = plane_capability(PlaneSpec(role="sp_prefill", dp_attention=True),
+                           MeshConfig(sp=2))
     assert not got.ok and got.reason == want
     with pytest.raises(ValueError, match="declared impossible for MoE"):
         EngineCore(EngineConfig(model=tcfg.get_config("tiny-moe"),
@@ -459,13 +460,17 @@ def test_moe_and_dp_attention_errors_are_the_reference_tables():
 def test_mesh_config_and_ring_construction():
     assert MeshConfig(sp=4).describe() == JaxMeshConfig(sp=4).describe() == "sp4"
     assert MeshConfig().describe() == "single" and MeshConfig(sp=4).size == 4
-    for axis in ("dp", "ep", "pp"):
+    for axis in ("ep", "pp"):
         with pytest.raises(ValueError, match="ROADMAP.md A7"):
             MeshConfig(**{axis: 2})
-    # tp is ported (tests/test_torch_tp.py); sp x tp is not.
+    # tp and dp are ported (tests/test_torch_tp.py, test_torch_dp.py);
+    # sp x tp and sp x dp are not.
     assert MeshConfig(tp=2).describe() == "tp2"
+    assert MeshConfig(dp=2).describe() == "dp2"
     with pytest.raises(ValueError, match="ROADMAP.md A7"):
         MeshConfig(sp=2, tp=2)
+    with pytest.raises(ValueError, match="ROADMAP.md A7"):
+        MeshConfig(sp=2, dp=2)
     ring = SpRing.for_mesh(MeshConfig(sp=3), torch.device("cpu"))
     assert ring.describe() == ["cpu"] * 3 and ring.cards == [torch.device("cpu")]
     with pytest.raises(ValueError, match="needs 2 rank devices"):

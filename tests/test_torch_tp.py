@@ -78,6 +78,7 @@ from dynamo_tpu_torch.models import config as tcfg
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.weights import from_jax_params, init_params
 from dynamo_tpu_torch.parallel import (
+    DpGrid,
     MeshConfig,
     SpRing,
     TpGroup,
@@ -101,7 +102,8 @@ MODELS = ("tiny-test", "tiny-gemma")
 
 
 def _group(tp):
-    return TpGroup(["cpu"] * tp)
+    """A tp group: the rank grid of one dp row."""
+    return DpGrid(["cpu"] * tp, 1)
 
 
 def _mesh(tp):
@@ -182,7 +184,7 @@ def test_sharded_draw_equals_the_whole_draws_shards(name, tp):
 def test_cache_shards_equal_jax_cache_shards(tp, kv_quant):
     jc, tc = jcfg.get_config("tiny-test"), tcfg.get_config("tiny-test")
     quant = kv_quant == "int8"
-    assert cache_pspecs(2, quant) == jax.tree.map(
+    assert cache_pspecs(2, kv_quant=quant) == jax.tree.map(
         tuple, jax_cache_pspecs(2, kv_quant=quant),
         is_leaf=lambda x: isinstance(x, tuple))
     rng = np.random.default_rng(tp)
@@ -193,12 +195,13 @@ def test_cache_shards_equal_jax_cache_shards(tp, kv_quant):
                  for t in v] for k, v in kvc.init_cache(ccfg, "cpu").items()}
     host = jax.tree.map(lambda t: t.numpy(), cache)
     mesh = _mesh(tp)
-    ranks = shard_state(cache, cache_pspecs(jc.num_layers, quant), _group(tp))
+    ranks = shard_state(cache, cache_pspecs(jc.num_layers, kv_quant=quant),
+                        _group(tp))
     _hold_shards(shard_pytree(host, jax_cache_pspecs(jc.num_layers,
                                                       kv_quant=quant), mesh),
                  ranks, mesh)
     # The engine's own per-rank caches have the shards' geometry.
-    empty = kvc.init_rank_caches(ccfg, [torch.device("cpu")] * tp)
+    empty = kvc.init_grid_caches(ccfg, _group(tp))
     assert jax.tree.map(lambda t: (tuple(t.shape), t.dtype), empty) == \
         jax.tree.map(lambda t: (tuple(t.shape), t.dtype), ranks)
 
@@ -250,7 +253,7 @@ def test_sharded_steps_match_jax_sharded_steps(model, tp, kv_quant):
     ranks = shard_state(state, param_pspecs(tc), group)
     ccfg = kvc.KvCacheConfig.for_model(tc, num_blocks=8, block_size=BLOCK,
                                        kv_quant=kv_quant)
-    cache = kvc.init_rank_caches(ccfg, group.devices)
+    cache = kvc.init_grid_caches(ccfg, group)
     flat = kvc.init_cache(ccfg, "cpu")
     padded, packed = _prefill_inputs()
     jstep = make_sharded_step(jc, BLOCK, mesh, JaxPlaneSpec(quant=quant))
@@ -315,7 +318,7 @@ def test_hidden_step_matches_meshless(model):
     padded, _ = _prefill_inputs()
     args = [torch.from_numpy(x) for x in padded]
     got, _ = llama.make_forward_step(tc, BLOCK, return_hidden=True, tp=group)(
-        ranks, kvc.init_rank_caches(ccfg, group.devices), *args)
+        ranks, kvc.init_grid_caches(ccfg, group), *args)
     want, _ = llama.make_forward_step(tc, BLOCK, return_hidden=True)(
         state, kvc.init_cache(ccfg, "cpu"), *args)
     assert got.shape == (2, tc.hidden_size) and got.dtype == torch.float32
@@ -467,7 +470,8 @@ def test_wire_block_is_sharding_independent(kv_quant):
                 kvc.write_kv(flat["k"][layer], flat["v"][layer], slots, x,
                              x * 2)
     group = _group(2)
-    sharded = shard_state(flat, cache_pspecs(tc.num_layers, quant), group)
+    sharded = shard_state(flat, cache_pspecs(tc.num_layers, kv_quant=quant),
+                          group)
     pages = torch.tensor([4, 1, 3])
     want = kvc.extract_blocks(flat, pages, BLOCK)
     got = kvc.extract_blocks(sharded, pages, BLOCK)
@@ -481,7 +485,8 @@ def test_wire_block_is_sharding_independent(kv_quant):
     kvc.inject_blocks(flat, dst, want, BLOCK)
     assert torch.equal(kvc.extract_blocks(sharded, dst, BLOCK).view(torch.int8),
                        want.view(torch.int8))
-    again = shard_state(flat, cache_pspecs(tc.num_layers, quant), group)
+    again = shard_state(flat, cache_pspecs(tc.num_layers, kv_quant=quant),
+                        group)
     for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(sharded)):
         assert torch.equal(a, b)
 
@@ -525,13 +530,18 @@ def test_validate_refuses_as_jax(field, value, tp):
 
 def test_mesh_and_worker_refusals():
     assert MeshConfig(tp=2).describe() == JaxMeshConfig(tp=2).describe() == "tp2"
-    for axis in ("dp", "ep", "pp"):
+    for axis in ("ep", "pp"):
         with pytest.raises(ValueError, match="ROADMAP.md A7"):
             MeshConfig(**{axis: 2})
         args = parse_args(["--control-plane", "h:1", "--device", "cpu",
                            f"--{axis}", "2"])
         with pytest.raises(SystemExit, match="ROADMAP.md A7"):
             build_mesh(args)
+    # dp is ported (tests/test_torch_dp.py); sp x dp is not.
+    assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
+                                  "cpu", "--dp", "2"])) == MeshConfig(dp=2)
+    with pytest.raises(ValueError, match="sp x dp waits for ROADMAP.md A7"):
+        MeshConfig(sp=2, dp=2)
     with pytest.raises(ValueError, match="sp x tp waits for ROADMAP.md A7"):
         MeshConfig(sp=2, tp=2)
     with pytest.raises(ValueError, match="sp x tp waits for ROADMAP.md A7"):
@@ -546,7 +556,7 @@ def test_mesh_and_worker_refusals():
     with pytest.raises(ValueError, match="MoE under a tp mesh"):
         llama.make_forward_step(tcfg.get_config("tiny-moe"), BLOCK,
                                 tp=_group(2))
-    group = TpGroup.for_mesh(MeshConfig(tp=3), torch.device("cpu"))
+    group = DpGrid.for_mesh(MeshConfig(tp=3), torch.device("cpu"))
     assert group.describe() == ["cpu"] * 3 and group.cards == [torch.device("cpu")]
     with pytest.raises(ValueError, match="all be cpu or all cuda"):
         TpGroup(["cpu", "meta"])
