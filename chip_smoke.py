@@ -102,6 +102,21 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    shard), K1 once a layer, rank and step, none on the gather path; the
    ranks' drawn states equal the whole draw's pieces with one copy a
    card, the card holding one model's bytes for the grid.
+8e. model_ep — expert parallelism in process, every rank of each grid
+   on card 0: mixtral-8x7b at full width and 2 layers, seed-0 weights,
+   on ep 2, ep 2 x tp 2 and dp 2 x ep 2 ("dispatch": the all-to-all
+   between the ranks' streams) and tp 2 (the dense MoE), each a
+   grid-shaped packed prefill of four prompts and 4 decode steps held
+   to the unsharded kernel path (EP_TOL) and to the unsharded gather
+   path with the dense MoE oracle (MODEL_TOL, or the kernel path's own
+   distance plus EP_TOL where a router near-tie already moves that
+   path), greedy tokens up to a near tie; the expert load k a routed
+   row and layer, 0 dropped; K2 once a layer and attending rank (ep
+   index 0), K1 once a layer, attending rank and step, no K3; the
+   drawn states equal the whole draw's pieces, one model's bytes on the
+   card.  The ep 2 x tp 2 grid's MoE block at a bounded capacity must
+   drop exactly what the meshless plain moe_dispatch drops on the same
+   split and give its output (EP_BLOCK_TOL).
 9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
@@ -114,12 +129,12 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    last, the chat that `fleet` drains mid-decode, undrained: its greedy
    reference.
 9b. serve_tp — a control plane (frontend A's), `python -m
-   dynamo_tpu_torch.worker --model llama-3-8b --tp 2` on the card and
-   frontend A,
+   dynamo_tpu_torch.worker --model llama-3-8b --num-layers 16 --tp 2`
+   (16 of 32 layers, SERVE_TP_LAYERS) on the card and frontend A,
    on one stack with serve_dp's workers: `serve`'s concurrent wave, then
    two unary chats whose
-   greedy ids must equal model_tp's unsharded engine's (a split only at a
-   near tie), each served id within MODEL_TOL of the top of the plain
+   greedy ids must equal the unsharded engine's at the same depth (a
+   split only at a near tie), each served id within MODEL_TOL of the top of the plain
    model's logits given the served ids before it (one teacher-forced
    forward a chat); the worker's /debug/stats must show mesh tp2,
    kv_shard_count 2 and the published slice tp2, and K1 and K2 launched
@@ -197,6 +212,17 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
 14. serve_moe — the same against `--model mixtral-8x7b --num-layers 16`
    (one card cannot hold its 32 layers): K1, K2 and K3 must have
    launched and the expert load must count every routed row.
+14b. serve_ep — after serve_moe's server has exited: a control plane
+   (frontend A's), `python -m dynamo_tpu_torch.worker --model
+   mixtral-8x7b --num-layers 16 --ep 2 --tp 2` on the card and frontend
+   A: `serve`'s wave, then serve_tp's two unary chats, whose ids must
+   equal the meshless in-process engine's on the same weights (a split
+   only at a near tie), each served id within MODEL_TOL of the top of
+   the plain model's logits given the ids before it; the worker's
+   /debug/stats must show mesh ep2xtp2, moe_mode dispatch, the slice
+   ep2xtp2, the expert load k a routed row and layer with 0 dropped, K1
+   and K2 a whole number of times a layer and attending rank and no K3.
+   TTFT, ITL and tok/s beside serve_moe's.
 15. model_sp — llama-3-1b at full width and depth: a 480-token and a
    512-token prompt through the sequence-parallel prefill step (4 ranks
    on card 0, K4) against the packed prefill step (K2), over a bf16 and
@@ -424,6 +450,33 @@ DP_TOL = 3e-2                  # model_dp's logits rel err (model_tp's)
 DPLOCAL = {"shard": 1, "shards": DP * TP, "rows": 16, "ctx": 512,
            "Hq": 32, "Hkv": 8, "D": 128}
 TP_GEOMETRY = (("tp2", 16, 4, 128), ("tp8", 8, 1, 128))
+# serve_tp's depth: 16 of llama-3-8b's 32 layers (model_tp keeps all 32),
+# to keep the smoke inside its time limit; its reference engine is drawn
+# at the same depth.
+SERVE_TP_LAYERS = 16
+# Expert parallelism: mixtral-8x7b at full width on ep grids of card 0
+# (model_ep, 2 layers: ep 2, ep 2 x tp 2, dp 2 x ep 2, and tp 2 running
+# the dense MoE) and served by `--ep 2 --tp 2` at MOE_LAYERS (serve_ep).
+# The bounded leg's capacity (tokens an expert takes from a source shard)
+# is below what its EP_ROWS decode rows a dp row need, so it drops; its
+# block output is held to the meshless plain moe_dispatch's within
+# EP_BLOCK_TOL of the output's largest magnitude (the grid sums two bf16
+# tp partials where the plain version rounds once).
+EP = 2
+EP_LEGS = (("ep2", {"ep": EP}), ("ep2xtp2", {"ep": EP, "tp": TP}),
+           ("dp2xep2", {"dp": DP, "ep": EP}), ("tp2", {"tp": TP}))
+EP_CAPACITY, EP_ROWS = 1, 16
+# serve_ep's lone chats take 32 tokens each, not serve_tp's 64: a token
+# costs ~0.2 s on its four ranks (host-bound), and the smoke's limit
+# stays 1200 s.
+EP_LONE_TOKENS = 32
+EP_BLOCK_TOL = 2e-2
+# model_ep's logits against the unsharded kernel path (the same K1 / K2
+# calls on the whole state, the dense MoE oracle): ep 2 alone reads 0 (the
+# grid's bf16 arithmetic is the unsharded path's); the tp legs sum two
+# bf16 partials after wo, w_down and the combine, and read up to 0.0354
+# on an H100 80GB HBM3 at 700 W; the limit is about twice that.
+EP_TOL = 6e-2
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
@@ -1516,9 +1569,23 @@ def tp_bytes(torch, cfg, state, ranks, group) -> dict:
             "kv_16_blocks": kv}
 
 
-def tp_lone_bodies() -> list:
+def tp_lone_bodies(max_tokens: int = 64) -> list:
     """serve_tp's two unary chats, held against the unsharded engine."""
-    return [traced(chat_body(i, False, 64, user=LONE_TURN)) for i in range(2)]
+    return [traced(chat_body(i, False, max_tokens, user=LONE_TURN))
+            for i in range(2)]
+
+
+def lone_pres(tag: str, max_tokens: int = 64) -> list:
+    """`tp_lone_bodies` as the port's preprocessor makes them (byte
+    tokenizer): the requests an in-process reference engine answers."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    return [pre.preprocess_chat(ChatCompletionRequest.from_dict(b),
+                                f"{tag}{i}")
+            for i, b in enumerate(tp_lone_bodies(max_tokens))]
 
 
 def model_tp_phase(torch, kernels):
@@ -1531,15 +1598,12 @@ def model_tp_phase(torch, kernels):
     decode step (counts zeroed just before it); the ranks' weight and KV
     bytes are 1/tp of the whole (`tp_bytes`).  Also the unsharded
     in-process engine's greedy ids of serve_tp's unary chats on the
-    llama-3-8b weights.  The ranks' states are drawn by
+    llama-3-8b weights SERVE_TP_LAYERS deep, serve_tp's.  The ranks' states are drawn by
     `init_params(group=)`, which cuts each layer and table as it is
     drawn: they must equal the whole state's slices, and the card's peak
     allocation while drawing them must stay within the ranks' bytes plus
     one piece's transient (`tp_build_bound`), not the whole model beside
     its slices.  Returns the phase lines and those ids."""
-    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
-    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
-    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
     from dynamo_tpu_torch.models.config import get_config
     from dynamo_tpu_torch.parallel import DpGrid, MeshConfig
 
@@ -1585,12 +1649,14 @@ def model_tp_phase(torch, kernels):
                           "launches": launched, "bytes": nbytes,
                           "shard_s": shard_s})
         if name == "llama-3-8b":
-            pre = OpenAIPreprocessor(ByteTokenizer())
-            pres = [pre.preprocess_chat(ChatCompletionRequest.from_dict(b),
-                                        f"tp{i}")
-                    for i, b in enumerate(tp_lone_bodies())]
+            # serve_tp's reference: the unsharded engine on the weights
+            # its worker draws (SERVE_TP_LAYERS deep).
+            del state
+            torch.cuda.empty_cache()
+            pres = lone_pres("tp")
+            scfg, state = tp_state(torch, name, SERVE_TP_LAYERS)
             ref = {"prompts": [p.token_ids for p in pres],
-                   "ids": engine_answers(torch, state, pres, cfg)}
+                   "ids": engine_answers(torch, state, pres, scfg)}
         lines[-1]["wall_s"] = time.monotonic() - t_model
         del state, ranks
         torch.cuda.empty_cache()
@@ -1604,7 +1670,8 @@ def serve_tp_dp_phases(torch, serve: dict, ref: dict):
     on the card; the phases run one after the other.  Returns their
     results."""
     with distributed_stack(
-            workers=(("worker", ("--model", "llama-3-8b", "--tp", str(TP))),
+            workers=(("worker", ("--model", "llama-3-8b", "--num-layers",
+                                 str(SERVE_TP_LAYERS), "--tp", str(TP))),
                      *((f"worker_{k}", v[1]) for k, v in DP_WORKERS.items())),
             frontend_b=False, tag="tp",
             models=("m", *(v[0] for v in DP_WORKERS.values()))) as (
@@ -1631,7 +1698,7 @@ def serve_tp_phase(torch, serve: dict, ref: dict, stack) -> dict:
     from dynamo_tpu_torch.models.config import get_config
 
     t_phase = time.monotonic()
-    cfg = get_config("llama-3-8b")
+    cfg = get_config("llama-3-8b").replace(num_layers=SERVE_TP_LAYERS)
     a, (w,), startup_s = stack
     _chat(a, chat_body(-1, False, 4))          # warm-up
     wave = stack_wave(a, w)
@@ -1653,7 +1720,7 @@ def serve_tp_phase(torch, serve: dict, ref: dict, stack) -> dict:
     # model given the ids served before it (`forced_gaps`, one
     # teacher-forced forward), so that a split at a near tie hides no
     # later token.
-    state = tp_state(torch, "llama-3-8b")[1]
+    state = tp_state(torch, "llama-3-8b", SERVE_TP_LAYERS)[1]
     splits, held = [], []
     for i, (p, got, want) in enumerate(zip(ref["prompts"], lone,
                                            ref["ids"])):
@@ -1692,22 +1759,24 @@ def serve_tp_phase(torch, serve: dict, ref: dict, stack) -> dict:
             "phase_s": time.monotonic() - t_phase}
 
 
-def grid_same(torch, cfg, state, ranks, grid) -> bool:
+def grid_same(torch, cfg, state, ranks, grid, moe_mode="dense") -> bool:
     """Every rank's tensor equals its piece of the whole state's, bit for
     bit, and the ranks of one card share one copy of each piece."""
     from dynamo_tpu_torch.parallel import param_pspecs
     from dynamo_tpu_torch.parallel.sharding import _coords
 
-    specs = param_pspecs(cfg, grid.dp_attention)
+    specs = param_pspecs(cfg, moe_mode, dp_attention=grid.dp_attention)
     whole = list(tp_leaves(state, specs))
+    ep, tp = grid.ep, grid.tp
+    held = {}
     for f, rank in enumerate(ranks):
-        mine = list(tp_leaves(rank, specs))
-        first = list(tp_leaves(ranks[f % grid.tp], specs))
-        for (t, spec), (w, _), (t0, _) in zip(mine, whole, first):
-            if t is not t0:
+        for i, ((t, spec), (w, _)) in enumerate(zip(tp_leaves(rank, specs),
+                                                    whole)):
+            cuts, idx = _coords(spec, f // (ep * tp), f % tp, tp,
+                                (f // tp) % ep, ep)
+            if held.setdefault((i, grid.devices[f], idx), t) is not t:
                 return False
-            for axis, index, n in _coords(spec, f // grid.tp, f % grid.tp,
-                                          grid.tp)[0]:
+            for axis, index, n in cuts:
                 size = t.shape[axis]
                 w = w.narrow(axis, index * size, size)
             if t.shape != w.shape or not torch.equal(t, w.to(t.device)):
@@ -1739,14 +1808,32 @@ def grid_bytes(ranks, cache) -> dict:
                                   for t in leaves(c)}.values())}
 
 
-def grid_compare(torch, cfg, ranks, state, grid, kv_quant: str) -> dict:
+def grid_compare(torch, cfg, ranks, state, grid, kv_quant: str,
+                 moe_mode: str = "dense", tol: float = DP_TOL,
+                 what: str = "model_dp", kernels=None) -> dict:
     """compare_paths over a DpGrid: four prompts, one a rank's share
     (rank f's pages in shard f's block range under dp-local, each later
     shard's row starting on its shard's FIRST block), one grid-shaped
     packed prefill (an equal token range a dp row, or a rank under
     dp-attention), then 4 greedy decode steps, against the unsharded
-    gather path on `state` fed the same tokens.  Returns the per-step
-    logits relative errors, argmax gaps and the bytes (`grid_bytes`)."""
+    gather path on `state` fed the same tokens: logits within `tol`,
+    greedy tokens up to a near tie.  Returns the per-step logits relative
+    errors, argmax gaps and the bytes (`grid_bytes`).
+
+    An MoE model (`moe_mode` on the grid) is held first to the unsharded
+    KERNEL path on `state` (the meshless packed prefill through K2 and
+    decode steps through K1, with the dense MoE oracle), whose greedy
+    tokens both other paths are fed: logits within `tol`, greedy tokens
+    up to a near tie.  Against the gather path (the dense oracle too) a
+    router whose k-th and (k+1)-th expert logits nearly tie may pick
+    another expert for a token when the two attention paths differ in
+    the last bf16 bit (`MODEL_TOL`'s note), and that moves the token's
+    logits far more than a rounding: the grid is held there within
+    MODEL_TOL, or, on a step where the unsharded kernel path itself is
+    further, within that path's distance plus `tol`.  `kernels` (the
+    wrappers' module) zeroes the launch counts after the unsharded path,
+    so the caller reads the grid's alone.  The grid's expert load must
+    count k assignments a routed row and layer with none dropped."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.models import llama
 
@@ -1756,12 +1843,10 @@ def grid_compare(torch, cfg, ranks, state, grid, kv_quant: str) -> dict:
     nb = 32                                   # 8 blocks a dp-local shard
     ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=nb, block_size=BS,
                                        kv_quant=kv_quant)
-    cache_k = kvc.init_grid_caches(ccfg, grid)
-    cache_g = kvc.init_cache(ccfg, dev)
     P = 4
     pages = [[8 * f + j + (f == 0) for j in range(P)] for f in range(4)]
     bt = torch.tensor(pages, dtype=torch.int32, device=dev)
-    split = grid.n if grid.dp_attention else grid.dp
+    split = grid.attention.n if grid.dp_attention else grid.dp
     per = len(prompts) // split
     groups = [list(range(g * per, (g + 1) * per)) for g in range(split)]
     Tg = max(sum(-(-len(prompts[i]) // 8) * 8 for i in g) for g in groups)
@@ -1779,57 +1864,121 @@ def grid_compare(torch, cfg, ranks, state, grid, kv_quant: str) -> dict:
             seg[off: off + n] = i
             qs[i], ql[i], sl[i], smp[i] = off, n, n, off + n - 1
             off += -(-n // 8) * 8
-    packed = llama.make_packed_prefill_step(cfg, BS, tp=grid)
-    logits_k, cache_k = packed(ranks, cache_k, *(t.to(dev) for t in (
-        tokens, positions, seg, bt.cpu(), qs, ql, sl, smp)))
+    pack = [t.to(dev) for t in (tokens, positions, seg, bt.cpu(), qs, ql, sl,
+                                smp)]
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    zero = torch.zeros(R, dtype=torch.int32, device=dev)
+    steps = 4
+    moe = cfg.is_moe
+    plain, feed = [], None
+    if moe:
+        # The unsharded kernel path, its own greedy tokens fed.
+        cache_u = kvc.init_cache(ccfg, dev)
+        lu, cache_u, _ = llama.make_packed_prefill_step(
+            cfg, BS, moe_mode="dense")(state, cache_u, *pack)
+        step_u = llama.make_forward_step(cfg, BS, use_decode_kernel=True,
+                                         moe_mode="dense")
+        plain.append(lu)
+        cur = lens.clone().to(dev)
+        feed = []
+        for _ in range(steps):
+            feed.append(plain[-1].argmax(-1).to(torch.int32))
+            cur = cur + 1
+            lu, cache_u = step_u(state, cache_u, feed[-1][:, None],
+                                 (cur - 1)[:, None], cur, bt, zero)
+            plain.append(lu)
+        del cache_u
+        torch.cuda.synchronize()
+        if kernels is not None:
+            kernels.reset_launch_counts()
+            grid.launches[:] = [0] * grid.n
+    cache_k = kvc.init_grid_caches(ccfg, grid)
+    cache_g = kvc.init_cache(ccfg, dev)
+    packed = llama.make_packed_prefill_step(cfg, BS, moe_mode=moe_mode,
+                                            tp=grid)
+    res = packed(ranks, cache_k, *pack)
+    logits_k, cache_k, loads = res[0], res[1], list(res[2:])
     Lmax = max(len(p) for p in prompts)
     tok2 = torch.zeros(R, Lmax, dtype=torch.int32)
     pos2 = torch.full((R, Lmax), 128 * BS, dtype=torch.int32)
     for i, p in enumerate(prompts):
         tok2[i, : len(p)] = torch.tensor(p)
         pos2[i, : len(p)] = torch.arange(len(p))
-    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
     gather = llama.make_forward_step(cfg, BS, use_decode_kernel=False)
     logits_g, cache_g = gather(state, cache_g, tok2.to(dev), pos2.to(dev),
                                lens.to(dev), bt, (lens - 1).to(dev))
-    errs, gaps = [], []
+    errs, gaps, plain_errs, plain_vs_gather = [], [], [], []
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def gap_of(lk, ref):
+        pick = lk.argmax(-1)
+        gap = ref.max(-1).values - ref.gather(-1, pick[:, None])[:, 0]
+        return (gap.max() / ref.abs().max()).item()
 
     def compare(lk, lg):
         check(bool(torch.isfinite(lk).all()), f"{cfg.name}: non-finite logits")
-        errs.append(((lk - lg).abs().max() / lg.abs().max()).item())
-        pick = lk.argmax(-1)
-        gap = lg.max(-1).values - lg.gather(-1, pick[:, None])[:, 0]
-        gaps.append((gap.max() / lg.abs().max()).item())
+        errs.append(rel(lk, lg))
+        if moe:
+            lu = plain[len(plain_errs)]
+            plain_errs.append(rel(lk, lu))
+            plain_vs_gather.append(rel(lu, lg))
+            gaps.append(gap_of(lk, lu))
+        else:
+            gaps.append(gap_of(lk, lg))
 
     compare(logits_k, logits_g)
     step_k = llama.make_forward_step(
         cfg, BS, use_decode_kernel=not (grid.dp_attention
-                                        and not grid.dp_local), tp=grid)
+                                        and not grid.dp_local),
+        moe_mode=moe_mode, with_expert_load=moe, tp=grid)
     cur = lens.clone().to(dev)
     nxt = logits_k.argmax(-1).to(torch.int32)
-    zero = torch.zeros(R, dtype=torch.int32, device=dev)
-    steps = 4
-    for _ in range(steps):
+    for i in range(steps):
+        if feed is not None:
+            nxt = feed[i]
         cur = cur + 1
-        lk, cache_k = step_k(ranks, cache_k, nxt[:, None], (cur - 1)[:, None],
-                             cur, bt, zero)
+        res = step_k(ranks, cache_k, nxt[:, None], (cur - 1)[:, None], cur,
+                     bt, zero)
+        lk, cache_k = res[0], res[1]
+        loads += res[2:]
         lg, cache_g = gather(state, cache_g, nxt[:, None], (cur - 1)[:, None],
                              cur, bt, zero)
         compare(lk, lg)
         nxt = lk.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
-    check(max(errs) <= DP_TOL,
-          f"model_dp {grid.mode} ({kv_quant}): logits rel err {errs} > "
-          f"{DP_TOL}")
+    label = f"{what} {grid.mode} ({kv_quant})"
+    if moe:
+        check(max(plain_errs) <= tol,
+              f"{label}: logits rel err against the unsharded kernel path "
+              f"{plain_errs} > {tol}")
+        limits = [max(MODEL_TOL[cfg.name], u + tol) for u in plain_vs_gather]
+        check(all(e <= m for e, m in zip(errs, limits)),
+              f"{label}: logits rel err against the gather path {errs} > "
+              f"{limits} (the unsharded kernel path's: {plain_vs_gather})")
+    else:
+        check(max(errs) <= tol, f"{label}: logits rel err {errs} > {tol}")
     check(max(gaps) <= MODEL_TOL[cfg.name],
-          f"model_dp {grid.mode} ({kv_quant}): greedy tokens differ beyond "
-          f"a near tie: argmax gap {gaps}")
+          f"{label}: greedy tokens differ beyond a near tie: argmax gap "
+          f"{gaps}")
     out = {"model": cfg.name, "layers": cfg.num_layers,
            "hidden": cfg.hidden_size, "kv_quant": kv_quant,
            "prompts": [len(p) for p in prompts], "pages": pages,
            "packed_tokens": T, "groups": split, "decode_steps": steps,
-           "logits_rel_err": errs, "argmax_gap": gaps, "tol": DP_TOL,
+           "logits_rel_err": errs, "argmax_gap": gaps, "tol": tol,
            "bytes": grid_bytes(ranks, cache_k)}
+    if moe:
+        load = torch.stack(loads).sum(0).tolist()
+        rows = T + R * steps
+        want = rows * cfg.num_experts_per_token * cfg.num_layers
+        check(sum(load[:-1]) == want and load[-1] == 0,
+              f"{label}: expert load {load} != {rows} rows x k x layers "
+              "with 0 dropped")
+        out.update(expert_load=load, routed_rows=rows,
+                   rel_err_vs_unsharded_kernels=plain_errs,
+                   unsharded_kernels_vs_gather=plain_vs_gather,
+                   gather_limits=limits)
     del cache_k, cache_g
     return out
 
@@ -1904,6 +2053,123 @@ def model_dp_phase(torch, kernels):
                           "launches_per_rank": list(grid.launches),
                           "draw": draw, "weights_whole": whole,
                           "leg_s": time.monotonic() - t_leg})
+    del state, ranks
+    torch.cuda.empty_cache()
+    return lines
+
+
+def ep_bounded(torch, cfg, ranks, state, grid) -> dict:
+    """The MoE block of layer 0 over the grid's dispatch at a bounded
+    capacity (EP_CAPACITY tokens an expert takes from a source shard) on
+    EP_ROWS random decode rows a dp row (`llama._grid_moe`, the rows'
+    partials summed by the row's all_reduce), against the meshless plain
+    `moe_dispatch` on each source shard's contiguous range of the same
+    rows: the dropped assignments must be equal in number (and some),
+    the outputs within EP_BLOCK_TOL of the output's largest magnitude."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops.moe import moe_dispatch
+
+    dev = torch.device("cuda", 0)
+    bcfg = cfg.replace(moe_capacity=EP_CAPACITY)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    x = torch.randn(grid.dp * EP_ROWS, cfg.hidden_size, generator=gen,
+                    device=dev).to(cfg.dtype)
+    loads = {}
+    grid.fork()
+    outs = []
+    for d, row in enumerate(grid.rows):
+        hs = row.replicate(x[d * EP_ROWS:(d + 1) * EP_ROWS, None])
+        parts = llama._grid_moe(bcfg, grid, ranks, 0, d, hs, "dispatch",
+                                loads)
+        outs.append(row.all_reduce(parts)[0])
+    got = grid.gather_rows(outs)[:, 0]
+    grid.join()
+    dropped = sum(int(t[-1]) for ts in loads.values() for t in ts)
+    p = state["layers"][0]["moe"]
+    n = EP_ROWS // grid.ep
+    ref, ref_dropped = [], 0
+    for s in range(grid.dp * grid.ep):
+        o, st = moe_dispatch(cfg, p, x[s * n:(s + 1) * n, None], EP_CAPACITY)
+        ref.append(o[:, 0])
+        ref_dropped += int(st[-1])
+    ref = torch.cat(ref)
+    err = ((got.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    check(dropped == ref_dropped > 0,
+          f"model_ep bounded: the grid dropped {dropped} assignments, the "
+          f"plain moe_dispatch {ref_dropped}")
+    check(err <= EP_BLOCK_TOL,
+          f"model_ep bounded: block output rel err {err} > {EP_BLOCK_TOL}")
+    return {"capacity": EP_CAPACITY, "rows_per_dp_row": EP_ROWS,
+            "dropped": dropped, "plain_dropped": ref_dropped,
+            "rel_err": err, "tol": EP_BLOCK_TOL}
+
+
+def model_ep_phase(torch, kernels):
+    """Expert parallelism in process, every rank of each grid on card 0:
+    mixtral-8x7b at full width and 2 layers, seed-0 weights, on the legs
+    of EP_LEGS (ep 2, ep 2 x tp 2 and dp 2 x ep 2 running "dispatch", tp
+    2 the dense MoE, JAX's auto), each a grid-shaped packed prefill of
+    four prompts and 4 decode steps against the unsharded kernel path
+    within EP_TOL and the unsharded gather path with the dense MoE oracle
+    within MODEL_TOL (`grid_compare`; greedy tokens up to a near tie),
+    the expert load k a routed row and layer with none dropped.  Launch counts, zeroed just before each run: K2 once a layer
+    and attending rank (ep index 0), K1 once a layer, attending rank and
+    step, K3 never.  The ranks' states are drawn by `init_params(group=)`
+    and must equal the whole draw's pieces with one copy of each on the
+    card, the card holding one model's bytes for the grid.  The ep 2 x
+    tp 2 leg also runs `ep_bounded`."""
+    from dynamo_tpu_torch.parallel import DpGrid, MeshConfig
+    from dynamo_tpu_torch.parallel.sharding import resolve_moe_mode
+
+    dev = torch.device("cuda", 0)
+    name = "mixtral-8x7b"
+    cfg, state = tp_state(torch, name, 2)
+    whole = grid_bytes([state], [])["weights_on_card"]
+    lines = []
+    ranks = None
+    for tag, axes in EP_LEGS:
+        t_leg = time.monotonic()
+        mesh = MeshConfig(**axes)
+        mode = resolve_moe_mode(cfg, mesh)
+        grid = DpGrid.for_mesh(mesh, dev)
+        ranks = None
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ranks = tp_state(torch, name, 2, grid)[1]
+        torch.cuda.synchronize()
+        draw_s = time.monotonic() - t0
+        check(grid_same(torch, cfg, state, ranks, grid, mode),
+              f"model_ep {tag}: the ranks' drawn pieces differ from the "
+              "whole state's, or the card holds more than one copy")
+        out = grid_compare(torch, cfg, ranks, state, grid, "none", mode,
+                           EP_TOL, "model_ep", kernels)
+        launched = kernels.launch_counts()
+        att, steps = grid.attention.n, out["decode_steps"]
+        want = {"paged_prefill_attention": cfg.num_layers * att,
+                "paged_decode_attention": cfg.num_layers * att * steps}
+        check(all(launched[k] == n for k, n in want.items())
+              and sum(launched.values()) == sum(want.values()),
+              f"model_ep {tag}: launches {launched}, want {want} (K3 none)")
+        per_rank = [cfg.num_layers * (1 + steps) * ((f // grid.tp)
+                                                    % grid.ep == 0)
+                    for f in range(grid.n)]
+        check(grid.launches == per_rank,
+              f"model_ep {tag}: launches per rank {grid.launches}")
+        check(out["bytes"]["weights_on_card"] == whole,
+              f"model_ep {tag}: the card holds "
+              f"{out['bytes']['weights_on_card']} weight bytes for the "
+              f"grid, the model is {whole}")
+        line = {"phase": "model_ep", "leg": tag, "mesh": mesh.describe(),
+                "moe_mode": mode, "rank_devices": grid.describe(), **out,
+                "launches": launched,
+                "launches_per_rank": list(grid.launches),
+                "weights_whole": whole, "draw_s": draw_s}
+        if tag == "ep2xtp2":
+            line["bounded"] = ep_bounded(torch, cfg, ranks, state, grid)
+        line["leg_s"] = time.monotonic() - t_leg
+        lines.append(line)
     del state, ranks
     torch.cuda.empty_cache()
     return lines
@@ -2282,6 +2548,97 @@ def serve_moe_phase():
           f"serve_moe expert load {load} != {rows} rows x k x layers, 0 dropped")
     out.update(phase="serve_moe", layers=MOE_LAYERS, routed_assignments=want)
     return out
+
+
+def serve_ep_phase(torch, serve_moe: dict) -> dict:
+    """mixtral-8x7b (MOE_LAYERS of 32 layers) served expert-parallel: a
+    control plane (frontend A's), `python -m dynamo_tpu_torch.worker
+    --model mixtral-8x7b --num-layers 16 --ep 2 --tp 2` on the card and
+    frontend A, started after serve_moe's server has exited (two copies
+    of the model do not fit one card): `serve`'s concurrent wave with the
+    stats zeroed just before it, then serve_tp's two unary chats at
+    EP_LONE_TOKENS tokens.  Once
+    the stack is down, the same seed-0 weights are drawn in process: the
+    chats' ids must equal the meshless in-process engine's up to a split
+    at a near tie, and each served id must lie within MODEL_TOL of the
+    top of the plain model's logits given the ids before it (one
+    teacher-forced forward a chat).  The
+    worker's /debug/stats must show mesh ep2xtp2, moe_mode dispatch, the
+    published slice ep2xtp2, the expert load k a routed row and layer
+    with 0 dropped, K1 and K2 a whole number of times a layer and
+    attending rank, and no K3.  TTFT, ITL and tok/s beside serve_moe's."""
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    name = "mixtral-8x7b"
+    cfg = get_config(name).replace(num_layers=MOE_LAYERS)
+    flags = ("--model", name, "--num-layers", str(MOE_LAYERS), "--ep",
+             str(EP), "--tp", str(TP))
+    with distributed_stack(workers=(("worker", flags),), frontend_b=False,
+                           tag="ep", ready_s=600) as (a, _, status,
+                                                      startup_s):
+        w = status[0]
+        _chat(a, chat_body(-1, False, 4))          # warm-up
+        wave = stack_wave(a, w)
+        lone = [answer(_chat(a, b)) for b in tp_lone_bodies(EP_LONE_TOKENS)]
+    ws = wave["worker"]
+    mesh = f"ep{EP}xtp{TP}"
+    check(ws["mesh"] == mesh and ws["slice"]["describe"] == mesh,
+          f"serve_ep: worker mesh {ws['mesh']}, slice {ws['slice']}")
+    check(ws["moe_mode"] == "dispatch", f"serve_ep ran {ws['moe_mode']}")
+    load = ws["expert_load"]
+    rows = ws["counters"]["model_rows"]
+    want = rows * cfg.num_experts_per_token * MOE_LAYERS
+    check(len(load) == cfg.num_experts + 1 and sum(load[:-1]) == want
+          and load[-1] == 0,
+          f"serve_ep expert load {load} != {rows} rows x k x layers, 0 "
+          "dropped")
+    launched = ws["kernels"]
+    for k in ("paged_decode_attention", "paged_prefill_attention"):
+        check(launched[k] > 0 and launched[k] % (TP * MOE_LAYERS) == 0,
+              f"serve_ep: {k} launched {launched[k]} times, not a whole "
+              f"number of layers x attending ranks ({TP} x {MOE_LAYERS})")
+    check(launched["moe_grouped"] == 0,
+          f"serve_ep: K3 launched on the dispatch path: {launched}")
+    # The reference, once the worker is down (two copies of the model do
+    # not fit the card): the meshless engine on the same seed-0 weights.
+    pres = lone_pres("ep", EP_LONE_TOKENS)
+    state = tp_state(torch, name, MOE_LAYERS)[1]
+    ref_ids = engine_answers(torch, state, pres, cfg)
+    splits, held = [], []
+    for i, (p, got, want_ids) in enumerate(zip(pres, lone, ref_ids)):
+        what = f"serve_ep lone chat {i}"
+        splits.append(greedy_split(torch, state, p.token_ids,
+                                   got["token_ids"], want_ids, what,
+                                   cfg=cfg))
+        gaps = forced_gaps(torch, cfg, state, p.token_ids, got["token_ids"],
+                           0)
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        check(gaps[worst] <= MODEL_TOL[name],
+              f"{what}: served token {worst} lies {gaps[worst]} below the "
+              f"top of the plain model's logits (> {MODEL_TOL[name]})")
+        held.append({"tokens": len(gaps), "max_gap": gaps[worst],
+                     "at": worst, "top": sum(g == 0.0 for g in gaps)})
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "serve_ep", "model": name, "ep": EP, "tp": TP,
+            "layers": MOE_LAYERS, "startup_s": startup_s,
+            **wave["summary"], "launches": launched,
+            "launches_per_rank_layer": {
+                k: launched[k] // (TP * MOE_LAYERS)
+                for k in ("paged_decode_attention",
+                          "paged_prefill_attention")},
+            "rank_launches": ws["rank_launches"],
+            "mesh": ws["mesh"], "tp_devices": ws["tp_devices"],
+            "slice": ws["slice"], "moe_mode": ws["moe_mode"],
+            "expert_load": load, "model_rows": rows,
+            "decode_steps": 8 * ws["counters"]["window_dispatches"]
+            + ws["counters"]["single_step_dispatches"],
+            "lone_equal_meshless": [s is None for s in splits],
+            "lone_splits": splits, "lone_teacher_forced": held,
+            "serve_moe": {k: serve_moe[k] for k in (
+                "output_tok_s", "ttft_mean_s", "ttft_max_s", "itl_mean_s")},
+            "phase_s": time.monotonic() - t_phase}
 
 
 LONG_TURN = "{i:02d}: " + "Explain ring attention over sequence shards. " * 12
@@ -6032,6 +6389,10 @@ def main() -> int:
         emit(moe_bf16)
         emit(moe_int8)
         torch.cuda.empty_cache()
+        phase = "model_ep"
+        model_ep = model_ep_phase(torch, kernels)
+        for line in model_ep:
+            emit(line)
         phase = "model_spec"
         model_spec, embed_ref = model_spec_phase(torch, kernels)
         emit(model_spec)
@@ -6244,6 +6605,25 @@ def main() -> int:
         phase = "serve_moe"
         serve_moe = serve_moe_phase()
         emit(serve_moe)
+        phase = "serve_ep"
+        serve_ep = serve_ep_phase(torch, serve_moe)
+        emit(serve_ep)
+        print(f"serve_ep on {'; '.join(smi.splitlines())}: mixtral-8x7b "
+              f"({MOE_LAYERS} layers) --ep {EP} --tp {TP} (startup "
+              f"{serve_ep['startup_s']:.1f} s): "
+              f"{serve_ep['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve_ep['ttft_mean_s']:.4f} s max "
+              f"{serve_ep['ttft_max_s']:.4f} s, ITL mean "
+              f"{serve_ep['itl_mean_s']:.5f} s, K1 / K2 launches "
+              f"{serve_ep['launches']['paged_decode_attention']} / "
+              f"{serve_ep['launches']['paged_prefill_attention']}, expert "
+              f"load {serve_ep['expert_load']}; serve_moe (meshless, K3) "
+              f"{serve_moe['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve_moe['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve_moe['itl_mean_s']:.5f} s; model_ep logits rel err "
+              + "; ".join(f"{x['leg']} {max(x['logits_rel_err']):.4f} (gap "
+                          f"{max(x['argmax_gap']):.4f})" for x in model_ep)
+              + f"; bounded leg {model_ep[1]['bounded']}", flush=True)
         phase = "serve_sp"
         serve_sp = serve_sp_phase()
         emit(serve_sp)
@@ -6420,12 +6800,19 @@ def main() -> int:
         quant = key.endswith("_int8")
         if tp == TP and not quant:
             launches, frm = serve_tp["launches"][key], "serve_tp"
+            # mixtral-8x7b's tp 2 ranks attend at the same geometry:
+            # serve_ep's worker and model_ep's four legs.
+            extra_ep = {"launches_serve_ep": serve_ep["launches"][key],
+                        "launches_model_ep": sum(x["launches"][key]
+                                                 for x in model_ep)}
         else:
             run = model_tp_runs[tp, "int8" if quant else "none"]
             launches, frm = run["launches"][key], f"model_tp {run['model']}"
         extra = {"tflops": k["tflops"]} if "tflops" in k else {}
         if "eager_ms" in k:
             extra["eager_ms"] = k["eager_ms"]
+        if tp == TP and not quant:
+            extra.update(extra_ep)
         summary.append(summary_entry(k, f"{key}_{tag}", launches,
                                      launches_from=frm, **extra))
     # K1 / K2 at a dp-local shard's geometry (llama-3-8b's heads): the

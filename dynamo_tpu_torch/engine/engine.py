@@ -93,9 +93,9 @@ no-op without one, as in JAX; `qos_demoted_blocks` counts the blocks
 that moved).  A
 drain ends a stream with a `TokenDelta.migrate` hint (llm/drain.py).
 
-`tp > 1`, `dp > 1` or `dp_attention` runs every step over a DpGrid of
-dp * tp ranks (parallel/mesh.py; tp alone is its one dp row), the JAX
-engine's (dp, tp) mesh: the weights are cut by
+`tp > 1`, `dp > 1`, `ep > 1` or `dp_attention` runs every step over a
+DpGrid of dp * ep * tp ranks (parallel/mesh.py; tp alone is its one dp
+row), the JAX engine's (dp, ep, tp) mesh: the weights are cut by
 `parallel.sharding.param_pspecs` (`shard_state`), the ranks of a card
 share one copy of each weight piece, and the packed prefill, the fused
 greedy step, the decode window, spec decode's T = K+1 verify and
@@ -118,9 +118,16 @@ Every modeled byte the counters and the device profiler keep is per
 chip: `kv_shard_count` (residency) is tp (dp * tp under dp-local) and
 `kv_traffic_shards` (reads) dp * tp, as JAX's.
 
-Not ported yet: prewarm of the packed prefill shapes; ep with MoE
-all-to-all dispatch (and MoE under a mesh), pp, sp x tp and sp x dp
-meshes (ROADMAP.md A7).
+An MoE model on a grid resolves its mode by JAX's ladder
+(parallel/sharding.resolve_moe_mode: "dispatch" over an ep axis, else
+"dense"; "grouped" refused): under "dispatch" each dp row's tokens split
+over its ep ranks (the rows pad to a multiple of dp * ep, a packed
+prefill's row totals to a multiple of ep) and `ModelConfig.moe_capacity`
+bounds each expert's buffer a source shard; the expert load sums over dp
+and ep, and `moe_dropped_tokens` counts what a bound dropped.
+
+Not ported yet: prewarm of the packed prefill shapes; pp, sp x tp, sp x
+dp and sp x ep meshes (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -176,13 +183,13 @@ from dynamo_tpu_torch.models.llama import (
 )
 from dynamo_tpu_torch.models.weights import init_params
 from dynamo_tpu_torch.ops.cuda import PACK_ALIGN, ring_kernel_supported
-from dynamo_tpu_torch.ops.moe import resolve_moe_mode
 from dynamo_tpu_torch.parallel.mesh import DpGrid, MeshConfig, SpRing
 from dynamo_tpu_torch.parallel.sharding import (
     PlaneSpec,
     check_plane,
     make_sp_prefill_step,
     param_pspecs,
+    resolve_moe_mode,
     shard_state,
     validate,
 )
@@ -276,6 +283,9 @@ class EngineConfig:
     tp: int = 1
     # Data parallelism: dp rows of tp ranks each (parallel/mesh.DpGrid).
     dp: int = 1
+    # Expert parallelism: ep ranks a (dp row, tp slice), E/ep experts
+    # each (an MoE model only).
+    ep: int = 1
     # Batch-sharded attention with slot-sharded KV (JAX's
     # `--dp-attention`): attention weights replicate, the MLP stays
     # tp-sharded.
@@ -343,7 +353,8 @@ class EngineCore:
         self.cache_cfg = kvc.KvCacheConfig.for_model(
             cfg, num_blocks=config.num_blocks, block_size=self.block_size,
             kv_quant=config.kv_quant)
-        self.mesh = MeshConfig(dp=config.dp, sp=config.sp, tp=config.tp)
+        self.mesh = MeshConfig(dp=config.dp, sp=config.sp, ep=config.ep,
+                               tp=config.tp)
         self._dp_local = self._resolve_dp(config)
         self._n_local_shards = 1
         if self._dp_local:
@@ -367,6 +378,10 @@ class EngineCore:
         # Every sharded engine runs on a DpGrid (tp alone: its one dp
         # row); `group` is its older name.
         self.grid: Optional[DpGrid] = None
+        self._moe = cfg.is_moe
+        self.moe_mode = resolve_moe_mode(
+            cfg, self.mesh if self._meshed else None, config.moe_mode,
+            self.device)
         if self._meshed:
             validate(cfg, self.mesh, config.dp_attention)
             check_plane(PlaneSpec(dp_attention=config.dp_attention,
@@ -374,7 +389,7 @@ class EngineCore:
                         self.mesh)
             self.grid = DpGrid.for_mesh(
                 self.mesh, self.device, config.dp_attention, self._dp_local)
-            if config.dp == 1 and not config.dp_attention:
+            if config.dp == config.ep == 1 and not config.dp_attention:
                 logger.info("tp group: %d ranks on %s", config.tp,
                             self.grid.describe())
             else:
@@ -387,15 +402,16 @@ class EngineCore:
             gen.manual_seed(config.seed)
             # A sharded engine's draws are cut into its ranks' slices as
             # they come (the same weights as the meshless engine's).
-            params = init_params(cfg, gen, self.device, group=self.grid)
+            params = init_params(cfg, gen, self.device, group=self.grid,
+                                 moe_mode=self.moe_mode)
         elif self.grid is not None:
             # Each rank keeps a copy of its slice only, copied from where
             # the whole state lies (best the host: a card then never holds
             # the whole model beside its slices); dropping the whole state
             # is the caller's.
-            params = shard_state(params, param_pspecs(cfg,
-                                                      config.dp_attention),
-                                 self.grid)
+            params = shard_state(params, param_pspecs(
+                cfg, self.moe_mode, dp_attention=config.dp_attention),
+                self.grid)
         if self.grid is not None:
             self.cache = kvc.init_grid_caches(self.cache_cfg, self.grid)
         else:
@@ -408,8 +424,6 @@ class EngineCore:
         self.kv_traffic_shards = config.dp * config.tp
         self.kv_shard_count = (self.kv_traffic_shards if self._dp_local
                                else config.tp)
-        self._moe = cfg.is_moe
-        self.moe_mode = resolve_moe_mode(cfg, self.device, config.moe_mode)
         # Non-local dp-attention reads pages from any shard: the gather
         # path, as JAX's capability table sends it.
         self._use_kernel = not (config.dp_attention and not self._dp_local)
@@ -447,11 +461,16 @@ class EngineCore:
         # the engine thread; InferenceEngine installs it.
         self.seal_sink: Optional[Callable[[str, int], None]] = None
         # Batch rows pad to a multiple of dp (dp*tp under dp_attention,
-        # whose batch shards over both axes): the grid's decode buckets
-        # are the scheduler's, padded so.
-        self._row_mult = (config.dp * (config.tp if config.dp_attention
-                                       else 1)
-                          if self.grid is not None else 1)
+        # whose batch shards over both axes; times ep under dispatch,
+        # whose tokens shard over dp x ep): the grid's decode buckets are
+        # the scheduler's, padded so.  A packed prefill takes one group a
+        # dp row (a rank under dp_attention), each row's total a multiple
+        # of `_ep_split`.
+        self._pack_groups = (config.dp * (config.tp if config.dp_attention
+                                          else 1)
+                             if self.grid is not None else 1)
+        self._ep_split = config.ep if self.moe_mode == "dispatch" else 1
+        self._row_mult = self._pack_groups * self._ep_split
         if self._dp_local:
             # Every decode step runs the whole fixed row grid.
             rows_per_shard = self._dp_rows // self._n_local_shards
@@ -537,7 +556,7 @@ class EngineCore:
 
     @property
     def _meshed(self) -> bool:
-        return self.config.dp * self.config.tp > 1
+        return self.config.dp * self.config.ep * self.config.tp > 1
 
     def _resolve_dp(self, config: EngineConfig) -> bool:
         """dp-attention locality, JAX's auto rule and its refusals."""
@@ -1073,7 +1092,7 @@ class EngineCore:
         budget and PACKED_PREFILL_SEGMENTS chunks.  dp-local puts a chunk
         in its request's locality shard, the other modes in the least
         loaded group."""
-        n = self._row_mult
+        n = self._pack_groups
         budget = self.scheduler.config.packed_prefill_budget()
         packs: List[List[list]] = []
         cur: List[list] = [[] for _ in range(n)]
@@ -1110,6 +1129,10 @@ class EngineCore:
         Tg = sched.bucket_for_packed(max(
             sum(-(-w.length // PACK_ALIGN) * PACK_ALIGN for w in g)
             for g in groups))
+        # Under dispatch a dp row's tokens split over its ep ranks.
+        per_row = self._pack_groups // self.config.dp
+        while (Tg * per_row) % self._ep_split:
+            Tg += PACK_ALIGN
         P = sched.bucket_for_pages(max(
             (w.start + w.length + bs - 1) // bs for w in items))
         parts = [self._pack_items(g, Tg, P) for g in groups]

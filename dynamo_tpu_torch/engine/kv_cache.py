@@ -192,7 +192,10 @@ def init_grid_caches(cfg: KvCacheConfig, grid) -> List[dict]:
     """A DpGrid's cache, one dict per rank (shared where ranks share a
     copy): one `init_cache` of `cfg.for_rank(tp)`, a tp column band, on
     each (place, tp slice) for tp and plain dp; slot shards with their
-    junk row under dp-attention and dp-local."""
+    junk row under dp-attention and dp-local.  The cache is laid out over
+    the grid's attention ranks (ep index 0; JAX's cache specs never name
+    ep), one dict each."""
+    grid = grid.attention
     if not grid.dp_attention:
         rank = cfg.for_rank(grid.tp)
         per_slice = {}
@@ -334,6 +337,7 @@ def slot_shards(cache: List[dict], grid, row: int = 0
     """(cache, base) of each slot shard as dp row `row` reads them: its
     ranks' tp shards under dp-attention, the flat grid's under
     dp-local."""
+    grid = grid.attention
     S = cache[0]["k"][0].shape[0]
     if grid.dp_local:
         return [(cache[f], f * S) for f in range(grid.n)]
@@ -343,6 +347,7 @@ def slot_shards(cache: List[dict], grid, row: int = 0
 def slot_copies(cache: List[dict], grid) -> List[Tuple[dict, int]]:
     """(cache, base) of every distinct copy of every slot shard: where a
     write must land."""
+    grid = grid.attention
     S = cache[0]["k"][0].shape[0]
     if grid.dp_local:
         return [(cache[f], f * S) for f in range(grid.n)]
@@ -355,6 +360,7 @@ def extract_grid_blocks(cache: List[dict], grid, pages: torch.Tensor,
     """`extract_blocks` of a DpGrid's cache: plain dp reads dp row 0's
     column bands; slot shards read each page from the shard holding
     it."""
+    grid = grid.attention
     if not grid.dp_attention:
         return extract_blocks(cache[:grid.tp], pages, block_size)
     routes = read_routes(slot_shards(cache, grid),
@@ -382,6 +388,7 @@ def inject_grid_blocks(cache: List[dict], grid, pages: torch.Tensor,
                        data: torch.Tensor, block_size: int) -> None:
     """`inject_blocks` into a DpGrid's cache: every copy of the pages'
     columns (plain dp) or of the slot shard holding each page."""
+    grid = grid.attention
     if not grid.dp_attention:
         tp = grid.tp
         rows = {tuple(grid.places[d * tp:(d + 1) * tp]): d

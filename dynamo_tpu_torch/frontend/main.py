@@ -471,7 +471,8 @@ def stats_hooks(core: EngineCore):
                                if core.group is not None else []),
                 "kv_shard_count": core.kv_shard_count,
                 # Data parallelism: the grid's mode and each rank's K1 /
-                # K2 launches (flat rank d * tp + t).
+                # K2 launches (flat rank (d * ep + e) * tp + t; the ranks
+                # of ep index 0 attend).
                 "kv_traffic_shards": core.kv_traffic_shards,
                 "dp_mode": (core.grid.mode if core.grid is not None
                             else None),

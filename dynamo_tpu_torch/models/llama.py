@@ -44,11 +44,18 @@ Forward contract (unified prefill/decode, as in the JAX package):
   block tables (`clip(bt - flat * pages_local, 0, pages_local - 1)`,
   JAX's rebase), and every write to a slot outside a shard lands in the
   shard's junk row (engine/kv_cache.py).  A meshless call runs no grid.
+  With an ep axis (a grid of dp x ep x tp ranks) everything but the MoE
+  layers runs on the ranks of ep index 0, the ep ranks of a card sharing
+  their weights and cache, and an MoE layer's tokens split over the row's
+  ep ranks (`_grid_moe`).
 - MoE layers run `moe_mode` "dense" (the exact oracle) or "grouped" (the
-  grouped-expert kernel, ops/cuda/moe_grouped.py) and give an [E+1]
-  expert-load stats vector each; `with_expert_load` (and the packed
-  prefill step of a MoE model) returns their sum over the layers as a
-  third output, as in the JAX package.
+  grouped-expert kernel, ops/cuda/moe_grouped.py) meshless, and "dense"
+  (each rank its F/tp slices, an ep rank its experts) or "dispatch" (the
+  all-to-all over the ep ranks, ops/moe.py) on a grid, with
+  `cfg.moe_capacity` per expert and source shard; each gives an [E+1]
+  expert-load stats vector; `with_expert_load` (and the packed prefill
+  step of a MoE model) returns their sum over the layers as a third
+  output, as in the JAX package.
 
 Matrix products stay `torch.matmul`, as the JAX package left them to XLA.
 """
@@ -483,7 +490,7 @@ def _grid(tp):
 
 
 def _check_grid(cfg: ModelConfig, grid, sp_ring=None,
-                use_kernel: bool = False) -> None:
+                use_kernel: bool = False, moe_mode: str = "dense") -> None:
     """The mesh's and the capability table's refusals of a sharded step
     (parallel/mesh.py, parallel/sharding.py)."""
     from dynamo_tpu_torch.parallel.mesh import MeshConfig
@@ -492,11 +499,15 @@ def _check_grid(cfg: ModelConfig, grid, sp_ring=None,
 
     mesh = MeshConfig(dp=grid.dp,
                       sp=sp_ring.sp if sp_ring is not None else 1,
-                      tp=grid.tp)
+                      ep=grid.ep, tp=grid.tp)
     check_plane(PlaneSpec(use_kernel=use_kernel,
                           dp_attention=grid.dp_attention,
                           dp_local=grid.dp_local, moe=cfg.is_moe), mesh)
     validate(cfg, mesh, grid.dp_attention)
+    if cfg.is_moe and moe_mode not in ("dense", "dispatch"):
+        raise ValueError(f"a sharded MoE step runs 'dense' or 'dispatch', "
+                         f"not {moe_mode!r} (parallel/sharding."
+                         "resolve_moe_mode)")
 
 
 def _tp_embed(cfg: ModelConfig, group, states, toks, embeds, masks):
@@ -544,17 +555,21 @@ def _grid_rank_config(cfg: ModelConfig, grid) -> ModelConfig:
 
 
 def _grid_shards(grid, state, cache) -> None:
+    n_cache = grid.attention.n
     if not isinstance(state, list) or len(state) != grid.n or \
-            not isinstance(cache, list) or len(cache) != grid.n:
-        mesh = (f"tp={grid.tp}" if grid.dp == 1
-                else f"dp{grid.dp}xtp{grid.tp}")
+            not isinstance(cache, list) or len(cache) != n_cache:
+        mesh = (f"tp={grid.tp}" if grid.dp == grid.ep == 1
+                else f"dp{grid.dp}xtp{grid.tp}" if grid.ep == 1
+                else f"dp{grid.dp}xep{grid.ep}xtp{grid.tp}")
+        caches = "" if n_cache == grid.n else f" ({n_cache} caches)"
         raise ValueError(f"a {mesh} step takes a list of {grid.n} rank "
-                         "states and caches (shard_state, "
+                         f"states and caches{caches} (shard_state, "
                          "kv_cache.init_grid_caches)")
 
 
 def _counted(grid, f: int, fn, *args, **kw):
-    """Call a kernel wrapper and add its launches to rank f's count."""
+    """Call a kernel wrapper and add its launches to flat rank f's
+    count."""
     before = fn.launches + fn.launches_int8
     out = fn(*args, **kw)
     grid.launches[f] += fn.launches + fn.launches_int8 - before
@@ -600,37 +615,124 @@ def _local_tables(block_tables, f: int, pages_local: int):
                        pages_local - 1).to(torch.int32)
 
 
+def _grid_moe(cfg: ModelConfig, grid, states, i: int, d: int, hs,
+              moe_mode: str, loads: Dict[int, List[torch.Tensor]]):
+    """Layer i's MoE sub-block of dp row d over its ep x tp ranks: hs[t]
+    is the row's normed input on rank (d, 0, t); returns each tp slice's
+    partial on (d, 0, t), which the row's `all_reduce` sums.
+
+    - "dispatch": the row's tokens split over the ep ranks in contiguous
+      ranges (JAX's `P(("dp", "ep"))`); each rank routes its range and
+      runs the dispatch body (ops/moe._dispatch_shards, the all-to-alls
+      over `grid.eps[d][t]`) on its E/ep experts' F/tp slices, and the
+      ranges' partial outputs join on ep index 0.  The combine is linear,
+      so the tp partials are summed after it, by the row's all_reduce
+      (JAX psums the expert outputs before the combine).
+    - "dense", ep 1: each tp rank runs `moe_dense` over its F/tp slices.
+    - "dense", ep > 1: every ep rank sees the row's tokens, routes them
+      from the gathered router columns and adds its experts' terms
+      (`moe_dense_local`); the terms sum on ep index 0.
+
+    `loads[f]` collects the [E+1] stats of each routing rank f: (d, e, 0)
+    under dispatch, (d, 0, 0) otherwise, so the stats sum over dp and ep
+    and never over tp."""
+    ep, tp = grid.ep, grid.tp
+    E = cfg.num_experts
+    parts = []
+    for t in range(tp):
+        g = grid.eps[d][t]
+        h = hs[t]
+        with g.on(0):
+            x = h.reshape(-1, h.shape[-1])
+        ps = [states[grid.flat(d, e, t)]["layers"][i]["moe"]
+              for e in range(ep)]
+        if moe_mode == "dispatch":
+            n = x.shape[0]
+            if n % ep:
+                raise ValueError(f"dispatch: a dp row's {n} tokens must "
+                                 f"split over ep={ep}")
+            cap = n // ep if cfg.moe_capacity is None else cfg.moe_capacity
+            outs, stats = moe_ops._dispatch_shards(
+                cfg, ps, g.scatter(x), cap, g if ep > 1 else None)
+            out = g.gather(outs, 0)
+            if t == 0:
+                for e in range(ep):
+                    loads.setdefault(grid.flat(d, e, 0), []).append(stats[e])
+        elif ep == 1:
+            with g.on(0):
+                out, st = moe_ops.moe_dense(cfg, ps[0], h)
+            if t == 0:
+                loads.setdefault(grid.flat(d, 0, 0), []).append(st)
+        else:
+            xs = [g._move(e, 0, x) for e in range(ep)]
+            logits = []
+            for e in range(ep):
+                with g.on(e):
+                    logits.append(xs[e] @ ps[e]["router"])
+            logits = g.all_gather(logits, -1)
+            terms = []
+            for e in range(ep):
+                with g.on(e):
+                    ids, gates = moe_ops.topk_of(cfg, logits[e], x.dtype)
+                    terms.append(moe_ops.moe_dense_local(
+                        cfg, ps[e], xs[e], ids, gates, e * (E // ep)))
+                    if e == 0 and t == 0:
+                        loads.setdefault(grid.flat(d, 0, 0), []).append(
+                            moe_ops._with_drop_tail(moe_ops._counts(ids, E)))
+            out = g.reduce(terms)
+        with g.on(0):
+            parts.append(out.to(h.dtype).reshape(h.shape))
+    return parts
+
+
 def _grid_layers(cfg: ModelConfig, grid, states, xs, attend, moe_mode: str,
                  loads: List[torch.Tensor], rows_dim: int):
     """Every decoder layer over the grid, the dp rows interleaved layer by
     layer so that every row's stream has work queued: `attend(d, t, i,
-    p_attn, h)` is rank (d, t)'s part of layer i's attention output, its
-    heads' partial (summed by `all_reduce`) or, under dp-attention, its
-    rows' whole output (joined along `rows_dim` by `all_gather_all`)."""
+    p_attn, h)` is rank (d, 0, t)'s part of layer i's attention output,
+    its heads' partial (summed by `all_reduce`) or, under dp-attention,
+    its rows' whole output (joined along `rows_dim` by `all_gather_all`).
+    An MoE layer runs `_grid_moe`; its stats are summed a rank and
+    appended to `loads` on the caller's stream."""
     off = cfg.rms_offset
     tp = grid.tp
+    moe_loads: Dict[int, List[torch.Tensor]] = {}
     for i in range(cfg.num_layers):
         for d, row in enumerate(grid.rows):
             x_row = xs[d]
+            st = grid.row_states(states, d)
             parts = []
             for t in range(tp):
                 with row.on(t):
-                    layer = states[d * tp + t]["layers"][i]
+                    layer = st[t]["layers"][i]
                     parts.append(attend(d, t, i, layer["attn"], rms_norm(
                         x_row[t], layer["attn_norm"], cfg.rms_norm_eps, off)))
             attn = (row.all_gather_all(parts, rows_dim) if grid.dp_attention
                     else row.all_reduce(parts))
-            parts = []
+            hs = []
             for t in range(tp):
                 with row.on(t):
-                    layer = states[d * tp + t]["layers"][i]
-                    x_row[t], h = _mlp_in(cfg, layer, x_row[t], attn[t])
-                    parts.append(_mlp(cfg, layer, h, moe_mode, loads))
+                    x_row[t], h = _mlp_in(cfg, st[t]["layers"][i], x_row[t],
+                                          attn[t])
+                    hs.append(h)
+            if cfg.is_moe:
+                parts = _grid_moe(cfg, grid, states, i, d, hs, moe_mode,
+                                  moe_loads)
+            else:
+                parts = []
+                for t in range(tp):
+                    with row.on(t):
+                        parts.append(_dense_mlp(st[t]["layers"][i]["mlp"],
+                                                hs[t], cfg.activation))
             mlp = row.all_reduce(parts)
             for t in range(tp):
                 with row.on(t):
-                    x_row[t] = _mlp_out(cfg, states[d * tp + t]["layers"][i],
-                                        x_row[t], mlp[t])
+                    x_row[t] = _mlp_out(cfg, st[t]["layers"][i], x_row[t],
+                                        mlp[t])
+    for f, got in moe_loads.items():
+        with grid.on(f):
+            total = torch.stack(got).sum(0, dtype=torch.int32)
+        loads.append(grid.home(f, total))
     return xs
 
 
@@ -640,7 +742,7 @@ def _grid_embed(cfg: ModelConfig, grid, states, toks, embs, masks):
     tp = grid.tp
     out = []
     for d, row in enumerate(grid.rows):
-        st = states[d * tp:(d + 1) * tp]
+        st = grid.row_states(states, d)
         if tp == 1:
             with row.on(0):
                 out.append([_embed(cfg, st[0], toks[d][0], embs[d][0],
@@ -672,7 +774,7 @@ def _grid_forward(cfg: ModelConfig, block_size: int, grid, use_kernel: bool,
     """The unified step over a DpGrid (module docstring)."""
     B, T = tokens.shape
     dp, tp = grid.dp, grid.tp
-    split = grid.n if grid.dp_attention else dp
+    split = grid.attention.n if grid.dp_attention else dp
     if B % split:
         raise ValueError(
             f"{grid.mode}: batch {B} must be a multiple of "
@@ -725,7 +827,8 @@ def _grid_forward(cfg: ModelConfig, block_size: int, grid, use_kernel: bool,
             if grid.dp_attention:
                 tables = _local_tables(tables, f, pages_local)
             out = _counted(
-                grid, f, paged_decode_attention, q[:, 0].contiguous(),
+                grid, grid.flat(d, 0, t), paged_decode_attention,
+                q[:, 0].contiguous(),
                 c["k"][i], c["v"][i], tables, sls[d][t][rows],
                 block_size=block_size, scale=rcfg.query_scale,
                 soft_cap=rcfg.attn_soft_cap, k_scale=ks,
@@ -758,7 +861,7 @@ def _grid_forward(cfg: ModelConfig, block_size: int, grid, use_kernel: bool,
                 return x
             return x[torch.arange(Bd, device=x.device), smp[d][t].long()]
 
-        outs.append(_tp_head(cfg, rcfg, row, state[d * tp:(d + 1) * tp],
+        outs.append(_tp_head(cfg, rcfg, row, grid.row_states(state, d),
                              xs[d], select, return_hidden))
     out = grid.gather_rows(outs)
     grid.join()
@@ -791,7 +894,7 @@ def _grid_packed(cfg: ModelConfig, block_size: int, grid, moe_mode: str,
     token range; `q_starts` and `sample_positions` index the whole pack."""
     T, R = tokens.shape[0], block_tables.shape[0]
     dp, tp = grid.dp, grid.tp
-    split = grid.n if grid.dp_attention else dp
+    split = grid.attention.n if grid.dp_attention else dp
     if T % split or R % split:
         raise ValueError(
             f"{grid.mode}: a packed prefill of {T} tokens and {R} segments "
@@ -869,7 +972,8 @@ def _grid_packed(cfg: ModelConfig, block_size: int, grid, moe_mode: str,
             if grid.dp_local:
                 tables = _local_tables(tables, f, pages_local)
             out = _counted(
-                grid, f, paged_prefill_attention, q[0].contiguous(),
+                grid, grid.flat(d, 0, t), paged_prefill_attention,
+                q[0].contiguous(),
                 c["k"][i], c["v"][i], tables, lens, starts,
                 qls[d][t][segs], block_size=block_size,
                 scale=rcfg.query_scale, soft_cap=rcfg.attn_soft_cap,
@@ -880,7 +984,7 @@ def _grid_packed(cfg: ModelConfig, block_size: int, grid, moe_mode: str,
     xs = _grid_layers(cfg, grid, state, xs, attend, moe_mode, loads, 1)
     outs = []
     for d, row in enumerate(grid.rows):
-        outs.append(_tp_head(cfg, rcfg, row, state[d * tp:(d + 1) * tp],
+        outs.append(_tp_head(cfg, rcfg, row, grid.row_states(state, d),
                              xs[d], lambda t, x, d=d: x[0][smp[d][t].long()],
                              False))
     logits = grid.gather_rows(outs)
@@ -926,7 +1030,7 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                          "with_expert_load")
     grid = _grid(tp)
     if grid is not None:
-        _check_grid(cfg, grid, sp_ring, use_decode_kernel)
+        _check_grid(cfg, grid, sp_ring, use_decode_kernel, moe_mode)
         if sp_ring is not None:
             raise ValueError("the sp ring prefill takes no dp grid")
 
@@ -1021,15 +1125,17 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
     cfg.validate()
     grid = _grid(tp)
     if grid is not None:
-        _check_grid(cfg, grid)
+        _check_grid(cfg, grid, moe_mode=moe_mode)
 
         def grid_step(state, cache, tokens, positions, seg_ids,
                       block_tables, q_starts, q_lens, seq_lens,
                       sample_positions, input_embeds=None, embed_mask=None):
-            logits, cache, _ = _grid_packed(
+            logits, cache, loads = _grid_packed(
                 cfg, block_size, grid, moe_mode, state, cache, tokens,
                 positions, seg_ids, block_tables, q_starts, q_lens,
                 seq_lens, sample_positions, input_embeds, embed_mask)
+            if cfg.is_moe:
+                return logits, cache, _expert_load(loads, logits.device)
             return logits, cache
 
         return grid_step

@@ -21,7 +21,7 @@ group and cuts each layer and table as soon as it is drawn.
 
 from __future__ import annotations
 
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -33,7 +33,8 @@ State = Dict
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Union[str, torch.device],
-                group=None) -> Union[State, List[State]]:
+                group=None, moe_mode: Optional[str] = None
+                ) -> Union[State, List[State]]:
     """Random-init state with the JAX package's shapes and std
     (fan_in ** -0.5, norms at 1), drawn from `generator` directly on
     `device` (the generator must live on that device).  The draws are
@@ -45,7 +46,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     draws: each layer and each table is cut into the ranks' slices as
     soon as it is drawn and then dropped, so `device` holds at most one
     whole layer or table beside the slices, and the ranks that share a
-    card and a tp slice share one copy."""
+    card and a piece share one copy.  An MoE model's pieces follow
+    `moe_mode` on the grid (default JAX's auto: "dispatch" over an ep
+    axis, else "dense"): its experts over ep, each expert's intermediate
+    width over tp."""
     cfg.validate()
     dtype = cfg.dtype
     device = torch.device(device)
@@ -55,7 +59,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         from dynamo_tpu_torch.parallel.sharding import (
             param_pspecs, shard_state)
 
-        specs = param_pspecs(cfg, group.dp_attention)
+        if moe_mode is None:
+            moe_mode = "dispatch" if group.ep > 1 else "dense"
+        specs = param_pspecs(cfg, moe_mode, dp_attention=group.dp_attention)
 
     def keep(piece, *path):
         """The whole piece, or its ranks' slices (a list)."""

@@ -1,11 +1,13 @@
 """Meshes and sharded steps of the port: `MeshConfig(sp=N)` with the
 `SpRing` of its ranks and `make_sp_prefill_step`, `MeshConfig(dp=N,
-tp=M)` with the `DpGrid` of its ranks (tp alone: one dp row, whose
-collectives are a `TpGroup`'s), the sharding rules and `shard_state`."""
+ep=K, tp=M)` with the `DpGrid` of its ranks (tp alone: one dp row, whose
+collectives are a `TpGroup`'s; an ep axis's an `EpGroup`'s), the
+sharding rules, `resolve_moe_mode` and `shard_state`."""
 
 from dynamo_tpu_torch.parallel.mesh import (
     AXES,
     DpGrid,
+    EpGroup,
     MeshConfig,
     SpRing,
     TpGroup,
@@ -20,14 +22,15 @@ from dynamo_tpu_torch.parallel.sharding import (
     make_sp_prefill_step,
     param_pspecs,
     plane_capability,
+    resolve_moe_mode,
     shard_state,
     validate,
 )
 
 __all__ = [
-    "AXES", "Capability", "DpGrid", "MeshConfig", "PlaneSpec", "SpRing",
-    "TpGroup", "cache_pspecs", "check_plane", "data_pspecs",
+    "AXES", "Capability", "DpGrid", "EpGroup", "MeshConfig", "PlaneSpec",
+    "SpRing", "TpGroup", "cache_pspecs", "check_plane", "data_pspecs",
     "default_rank_devices",
     "make_sp_prefill_step", "param_pspecs", "plane_capability",
-    "shard_state", "validate",
+    "resolve_moe_mode", "shard_state", "validate",
 ]

@@ -1,10 +1,10 @@
 """The port's mesh: the five named axes, the sequence-parallel ring, the
-tensor-parallel group and the data-parallel grid.
+tensor-parallel group, the expert-parallel group and the rank grid.
 
 `MeshConfig` keeps the JAX package's axis order (dp, pp, sp, ep, tp) and
-its `describe()`.  `sp`, `tp` and `dp` are wired in the port; `sp x tp`,
-`sp x dp`, and any ep or pp above 1, raise, naming the roadmap item that
-queues it.
+its `describe()`.  `sp`, `tp`, `dp` and `ep` are wired in the port; `sp
+x tp`, `sp x dp`, and any pp above 1, raise, naming the roadmap item
+that queues it.
 
 A JAX mesh is an array of devices, one program each, so it can be no
 larger than the devices it is made of.  A CUDA card runs many streams, so
@@ -35,18 +35,28 @@ replicated activations live on every rank; the collectives are
 `all_reduce` (the row-parallel sum) and `all_gather` (the vocab-sharded
 logits), each ordered by events.
 
-`DpGrid`: the (dp, tp) rank grid every sharded step runs on, JAX's dp,
-dp-attention and dp-local modes, and tensor parallelism alone as the
-grid of one dp row (`dp=1`).  Ranks are numbered flat in JAX's order,
-`flat = d * tp + t`; dp row d is a TpGroup of its tp ranks.  Rank 0
-runs on the caller's stream and every other rank, the first rank of
-each later dp row included, on a stream of its own, so the dp rows run
-side by side.  The batch splits over the rows in contiguous ranges
-(JAX's `P("dp")`, or `P(("dp", "tp"))` under dp-attention), each row's
-outputs come back to rank 0 (`to_home`), and inside a row the TpGroup's
-collectives apply.  Ranks of one place (`places[f]`, by default the
-card) and one tp slice share one copy of their weights and of a
-replicated cache.  A meshless step runs no grid.
+`EpGroup`: the ep ranks of one (dp row, tp slice), each holding E/ep
+experts; its collectives are `all_to_all` (the dispatch's exchange of
+per-expert buffers, JAX's `jax.lax.all_to_all` over the ep axis),
+`gather` and `all_gather`, each a device-to-device copy between the
+ranks' streams on one card and a peer copy between cards, ordered by
+events.
+
+`DpGrid`: the (dp, ep, tp) rank grid every sharded step runs on, JAX's
+dp, dp-attention and dp-local modes, tensor parallelism alone as the grid
+of one dp row (`dp=1`), and expert parallelism as `ep` ranks a (dp row,
+tp slice).  Ranks are numbered flat in JAX's axis order, `flat = (d * ep
++ e) * tp + t`; (d, e) is a TpGroup of its tp ranks and (d, t) an
+EpGroup of its ep ranks.  Rank 0 runs on the caller's stream and every
+other rank on a stream of its own, so the rows run side by side.  The
+batch splits over the dp rows in contiguous ranges (JAX's `P("dp")`, or
+`P(("dp", "tp"))` under dp-attention), each row's outputs come back to
+rank 0 (`home`), and inside a row the TpGroup's collectives apply.
+Attention, the embedding and the head run on the ranks of ep index 0
+(`attention`, the grid the KV cache is laid out over: JAX's cache specs
+never name ep), and an MoE layer's tokens split over the row's ep ranks.
+Ranks of one place (`places[f]`, by default the card) and one piece
+share one copy of it.  A meshless step runs no grid.
 """
 
 from __future__ import annotations
@@ -62,14 +72,14 @@ AXES = ("dp", "pp", "sp", "ep", "tp")
 
 # What each axis the port does not run yet waits for.
 QUEUED = {
-    "ep": "ep with moe_dispatch, and MoE under tp, wait for ROADMAP.md A7",
     "pp": "pp waits for ROADMAP.md A7",
 }
 
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Degrees per axis: `sp` may exceed 1 only where dp and tp do not."""
+    """Degrees per axis: `sp` may exceed 1 only where dp, ep and tp do
+    not."""
 
     dp: int = 1
     pp: int = 1
@@ -93,6 +103,11 @@ class MeshConfig:
                 f"mesh dp{self.dp}xsp{self.sp}: sp x dp waits for "
                 "ROADMAP.md A7 (the ring prefill runs on replicated "
                 "parameters and one cache)")
+        if self.sp > 1 and self.ep > 1:
+            raise ValueError(
+                f"mesh sp{self.sp}xep{self.ep}: sp x ep waits for "
+                "ROADMAP.md A7 (the ring prefill runs on replicated "
+                "parameters; MoE x ring-SP prefill is declared impossible)")
 
     @property
     def shape(self) -> tuple:
@@ -489,9 +504,93 @@ class TpGroup:
         return self._spread(whole)
 
 
+class EpGroup:
+    """The expert-parallel group of one (dp row, tp slice): its ep ranks,
+    rank e being member `t` of the grid's TpGroup (d, e), on that group's
+    stream.  Every tensor handed between ranks goes through `_move`: the
+    receiving stream waits on an event after the sender's work, and a
+    tensor on another card is peer-copied (ordered against both ranks'
+    streams)."""
+
+    def __init__(self, members: Sequence[Tuple["TpGroup", int]]):
+        self.members = list(members)
+        self.ep = len(self.members)
+        self.devices = [g.devices[t] for g, t in self.members]
+        self.cuda = self.devices[0].type == "cuda"
+
+    def on(self, e: int):
+        """Context: rank e's device and stream are current."""
+        g, t = self.members[e]
+        return g.on(t)
+
+    def _stream(self, e: int) -> "torch.cuda.Stream":
+        g, t = self.members[e]
+        return g._stream(t)
+
+    def _move(self, dst: int, src: int, x: torch.Tensor) -> torch.Tensor:
+        """Tensor `x`, made on rank src's stream, for use on rank dst's."""
+        if not self.cuda or dst == src:
+            return x
+        ev = torch.cuda.Event()
+        ev.record(self._stream(src))
+        self._stream(dst).wait_event(ev)
+        if self.devices[dst] == self.devices[src]:
+            x.record_stream(self._stream(dst))
+            return x
+        with self.on(dst), self.on(src):
+            return x.to(self.devices[dst], non_blocking=True)
+
+    def scatter(self, x: torch.Tensor, dim: int = 0) -> List[torch.Tensor]:
+        """`x`, on rank 0, cut into ep contiguous ranges along `dim`,
+        range e on rank e (JAX's `P("ep")` of a replicated array)."""
+        n = x.shape[dim] // self.ep
+        return [self._move(e, 0, x.narrow(dim, e * n, n))
+                for e in range(self.ep)]
+
+    def all_to_all(self, parts: Sequence[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        """JAX's `all_to_all(split_axis=0, concat_axis=0, tiled=False)`:
+        rank s's `parts[s]` is [ep, ...], its slice e bound for rank e;
+        rank e gets [ep, ...] whose slice s came from rank s.  One stack
+        a rank on its own stream, after every sender's event."""
+        if self.ep == 1:
+            return list(parts)
+        out = []
+        for e in range(self.ep):
+            got = [self._move(e, s, parts[s][e]) for s in range(self.ep)]
+            with self.on(e):
+                out.append(torch.stack(got))
+        return out
+
+    def gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """Rank e's `parts[e]` concatenated along `dim` on rank 0 (the ep
+        ranges of a row joined)."""
+        if self.ep == 1:
+            return parts[0]
+        moved = [self._move(0, e, p) for e, p in enumerate(parts)]
+        with self.on(0):
+            return torch.cat(moved, dim=dim)
+
+    def all_gather(self, parts: Sequence[torch.Tensor],
+                   dim: int) -> List[torch.Tensor]:
+        """Rank e's `parts[e]` concatenated along `dim`, on every rank."""
+        whole = self.gather(parts, dim)
+        return [self._move(e, 0, whole) for e in range(self.ep)]
+
+    def reduce(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The ranks' partials summed on rank 0, in f32, rounded to their
+        dtype once."""
+        if self.ep == 1:
+            return parts[0]
+        moved = [self._move(0, e, p) for e, p in enumerate(parts)]
+        with self.on(0):
+            return torch.stack(moved).sum(0, dtype=torch.float32).to(
+                moved[0].dtype)
+
+
 class DpGrid:
-    """The (dp, tp) rank grid: dp rows of tp ranks each, ranks numbered
-    flat (`d * tp + t`), and the mode the grid runs.
+    """The (dp, ep, tp) rank grid: dp rows of ep x tp ranks each, ranks
+    numbered flat (`(d * ep + e) * tp + t`), and the mode the grid runs.
 
     - plain dp: a dp row runs its share of the batch tensor-parallel,
       its tp slices of the weights and of a head-sharded cache
@@ -501,46 +600,65 @@ class DpGrid:
       SLOT axis shards over tp (replicated over dp); the MLP stays
       tp-sharded over the row's whole share;
     - `dp_local` (implies dp_attention): the cache's slots shard over
-      the flat grid and each rank attends only its own shard.
+      the flat (dp, tp) grid and each rank attends only its own shard.
+
+    `ep` ranks a (row, tp slice) hold E/ep experts each.  Everything but
+    an MoE layer runs on the ranks of ep index 0 (`attention`: the grid
+    of those ranks, over which the KV cache is laid out and replicated
+    over ep); an MoE layer's tokens split over the row's ep ranks
+    (`eps[d][t]`), whose partial outputs join on ep index 0.
 
     `places` names where each rank's copies live (default: its device):
-    ranks of one place and one tp slice share one copy of the weights and
-    of a replicated cache, so a card holds each slice once."""
+    ranks of one place and one piece share one copy, so a card holds
+    each slice once."""
 
     def __init__(self, devices: Sequence, dp: int,
                  dp_attention: bool = False, dp_local: bool = False,
-                 places: Optional[Sequence] = None):
+                 places: Optional[Sequence] = None, ep: int = 1):
         self.devices: List[torch.device] = _rank_devices(devices, "dp grid")
         self.n = len(self.devices)
-        if dp < 1 or self.n % dp:
-            raise ValueError(f"dp={dp} must divide the grid's {self.n} ranks")
+        if dp < 1 or ep < 1 or self.n % (dp * ep):
+            raise ValueError(f"dp={dp} must divide the grid's {self.n} ranks"
+                             if ep == 1 else f"dp*ep={dp * ep} must divide "
+                             f"the grid's {self.n} ranks")
         if dp_local and not dp_attention:
             raise ValueError("dp_local implies dp_attention")
-        self.dp, self.tp = dp, self.n // dp
+        self.dp, self.ep, self.tp = dp, ep, self.n // (dp * ep)
         self.dp_attention, self.dp_local = dp_attention, dp_local
         self.cuda = self.devices[0].type == "cuda"
         self.cards: List[torch.device] = list(dict.fromkeys(self.devices))
         tp, home = self.tp, self.devices[0]
-        self.rows = [TpGroup(self.devices[d * tp:(d + 1) * tp], home=home,
-                             own_first=d > 0) for d in range(dp)]
+        # tps[d][e]: the TpGroup of ranks (d, e, *); rows[d] = tps[d][0].
+        self.tps = [[TpGroup([self.devices[self.flat(d, e, t)]
+                              for t in range(tp)], home=home,
+                             own_first=(d, e) != (0, 0))
+                     for e in range(ep)] for d in range(dp)]
+        self.rows = [g[0] for g in self.tps]
+        self.eps = [[EpGroup([(self.tps[d][e], t) for e in range(ep)])
+                     for t in range(tp)] for d in range(dp)]
         self.places = list(places) if places is not None else list(
             self.devices)
         if len(self.places) != self.n:
             raise ValueError(f"{len(self.places)} places for {self.n} ranks")
+        self.attention = self if ep == 1 else _AttentionGrid(self)
         # K1 / K2 launches each rank made (the wrappers' counts, split by
-        # the rank that called them).
+        # the rank that called them; ep index 0 attends).
         self.launches = [0] * self.n
 
     @classmethod
     def for_mesh(cls, mesh: MeshConfig, primary: torch.device,
                  dp_attention: bool = False,
                  dp_local: bool = False) -> "DpGrid":
-        """The grid of a mesh's dp and tp axes (tp alone: dp 1): rank 0
-        on `primary`, the engine's device, the ranks spread over the
-        visible cards, shared round-robin where there are fewer."""
-        return cls(default_rank_devices(mesh.dp * mesh.tp,
+        """The grid of a mesh's dp, ep and tp axes (tp alone: dp 1):
+        rank 0 on `primary`, the engine's device, the ranks spread over
+        the visible cards, shared round-robin where there are fewer."""
+        return cls(default_rank_devices(mesh.dp * mesh.ep * mesh.tp,
                                         torch.device(primary)),
-                   mesh.dp, dp_attention, dp_local)
+                   mesh.dp, dp_attention, dp_local, ep=mesh.ep)
+
+    def flat(self, d: int, e: int, t: int) -> int:
+        """The flat rank of (dp row d, ep index e, tp slice t)."""
+        return (d * self.ep + e) * self.tp + t
 
     @property
     def mode(self) -> str:
@@ -552,32 +670,50 @@ class DpGrid:
         return [str(d) for d in self.devices]
 
     def holders(self, t: int) -> List[int]:
-        """One flat rank per distinct copy of tp slice t, dp row 0's
-        first."""
+        """One flat rank per distinct copy of tp slice t among the ranks
+        that attend (ep index 0), dp row 0's first."""
         seen: Dict[object, int] = {}
         for d in range(self.dp):
-            seen.setdefault(self.places[d * self.tp + t], d * self.tp + t)
+            f = self.flat(d, 0, t)
+            seen.setdefault(self.places[f], d * self.tp + t)
         return list(seen.values())
 
+    def _group_of(self, f: int) -> Tuple[TpGroup, int]:
+        """(the TpGroup holding flat rank f, f's index in it)."""
+        return (self.tps[f // (self.ep * self.tp)][(f // self.tp) % self.ep],
+                f % self.tp)
+
+    def on(self, f: int):
+        """Context: flat rank f's device and stream are current."""
+        g, t = self._group_of(f)
+        return g.on(t)
+
+    def row_states(self, states: Sequence, d: int) -> List:
+        """Row d's per-rank items of ep index 0, in tp order."""
+        return [states[self.flat(d, 0, t)] for t in range(self.tp)]
+
+    def _groups(self):
+        return [g for row in self.tps for g in row]
+
     def fork(self) -> None:
-        for row in self.rows:
-            row.fork()
+        for g in self._groups():
+            g.fork()
 
     def join(self) -> None:
-        for row in self.rows:
-            row.join()
+        for g in self._groups():
+            g.join()
 
-    def to_home(self, d: int, x: torch.Tensor) -> torch.Tensor:
-        """Tensor `x`, made on row d's rank 0 stream, for the caller's
+    def home(self, f: int, x: torch.Tensor) -> torch.Tensor:
+        """Tensor `x`, made on flat rank f's stream, for the caller's
         stream on rank 0's card."""
-        row = self.rows[d]
-        s = row.streams[0]
+        g, t = self._group_of(f)
+        s = g.streams[t]
         if not self.cuda or s is None:
             return x
-        home = torch.cuda.current_stream(self.devices[0])
-        if row.devices[0] == self.devices[0]:
-            home.wait_event(row._mark(0))
-            x.record_stream(home)
+        main = torch.cuda.current_stream(self.devices[0])
+        if g.devices[t] == self.devices[0]:
+            main.wait_event(g._mark(t))
+            x.record_stream(main)
             return x
         with torch.cuda.stream(s):
             return x.to(self.devices[0], non_blocking=True)
@@ -585,8 +721,25 @@ class DpGrid:
     def gather_rows(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Row d's `parts[d]` (on its rank 0) concatenated along dim 0 on
         the caller's stream."""
-        moved = [self.to_home(d, p) for d, p in enumerate(parts)]
+        moved = [self.home(self.flat(d, 0, 0), p)
+                 for d, p in enumerate(parts)]
         return moved[0] if len(moved) == 1 else torch.cat(moved, dim=0)
+
+
+class _AttentionGrid:
+    """The (dp, tp) grid of a DpGrid's ranks of ep index 0: what the KV
+    cache is laid out over (kv_cache.init_grid_caches and its routes
+    take it), flat index `d * tp + t`."""
+
+    def __init__(self, grid: DpGrid):
+        ranks = [grid.flat(d, 0, t) for d in range(grid.dp)
+                 for t in range(grid.tp)]
+        self.devices = [grid.devices[f] for f in ranks]
+        self.places = [grid.places[f] for f in ranks]
+        self.n, self.dp, self.tp = len(ranks), grid.dp, grid.tp
+        self.dp_attention, self.dp_local = grid.dp_attention, grid.dp_local
+        self.mode, self.holders = grid.mode, grid.holders
+        self.attention = self
 
 
 def _to_device(x, device: torch.device):

@@ -1,5 +1,5 @@
-"""Sharding rules and sharded steps of the port (port of the tp, dp and
-`role="sp_prefill"` parts of `dynamo_tpu/parallel/sharding.py`).
+"""Sharding rules and sharded steps of the port (port of the tp, dp, ep
+and `role="sp_prefill"` parts of `dynamo_tpu/parallel/sharding.py`).
 
 Megatron-style tensor parallelism, the JAX package's split: attention's
 wq/wk/wv column-parallel (heads over tp) and wo row-parallel; the MLP's
@@ -17,6 +17,13 @@ replicated over dp.  Under dp-attention the attention weights replicate
 over tp too and the cache's SLOT axis shards over tp; under dp-local the
 slots shard over the flat (dp, tp) grid.
 
+The ep axis, as JAX's: an MoE layer's expert axis shards over ep and
+each expert's intermediate width over tp ("dispatch": the router
+replicated, every shard routing its own tokens; "dense": the router's
+expert columns over ep too), and everything else replicates over ep.
+`resolve_moe_mode` is JAX's mode ladder on a mesh (the meshless branch
+lies in ops/moe.py).
+
 `plane_capability` is the capability table: every (feature x mesh)
 combination that cannot work is declared here with the pointed error the
 serving code raises, and the engine reads this one function instead of a
@@ -33,7 +40,8 @@ import torch
 from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import make_forward_step
-from dynamo_tpu_torch.parallel.mesh import QUEUED, MeshConfig, SpRing
+from dynamo_tpu_torch.ops import moe as moe_ops
+from dynamo_tpu_torch.parallel.mesh import MeshConfig, SpRing
 
 
 @dataclass(frozen=True)
@@ -65,8 +73,6 @@ class Capability:
 def plane_capability(plane: PlaneSpec,
                      mesh: Optional[MeshConfig] = None) -> Capability:
     """THE capability table.  `mesh` None is the meshless engine."""
-    tp = mesh is not None and mesh.tp > 1
-    dp = mesh is not None and mesh.dp > 1
 
     def no(reason: str) -> Capability:
         return Capability(False, reason)
@@ -92,12 +98,6 @@ def plane_capability(plane: PlaneSpec,
     if plane.role == "sp_prefill" and plane.dp_attention:
         return no("ring-SP prefill is not wired for dp_attention (the "
                   "sp step's cache specs conflict with slot sharding)")
-    if plane.moe and (tp or dp):
-        return no(
-            f"MoE under a {'tp' if tp else 'dp'} mesh ({mesh.describe()}) "
-            "is not ported: the port has no moe_dispatch and no dense-MoE "
-            "tp or dp split yet; " + QUEUED["ep"]
-            + " — serve MoE models meshless")
     return Capability(True)
 
 
@@ -114,12 +114,17 @@ def check_plane(plane: PlaneSpec, mesh: Optional[MeshConfig] = None) -> None:
 Spec = tuple   # one mesh axis name or None per tensor axis
 
 
-def param_pspecs(cfg: ModelConfig, dp_attention: bool = False) -> Dict:
-    """The spec tree of a dense model's state (`weights.init_params`'s
-    structure): JAX's `param_pspecs(cfg, dp_attention=...)`.  Every
+def param_pspecs(cfg: ModelConfig, moe_mode: str = "dense",
+                 dp_attention: bool = False) -> Dict:
+    """The spec tree of a model's state (`weights.init_params`'s
+    structure): JAX's `param_pspecs(cfg, moe_mode, dp_attention)`.  Every
     weight replicates over dp; `dp_attention` replicates the attention
     weights over tp as well (attention then runs data-parallel over the
-    flat grid while the MLP stays tp-sharded)."""
+    flat grid while the MLP stays tp-sharded).  An MoE layer's experts
+    shard over ep and each expert's intermediate width over tp; its
+    router replicates under "dispatch" (every shard routes its own
+    tokens over all experts) and shards its expert columns over ep
+    otherwise."""
     if dp_attention:
         attn = {"wq": (None, None), "wk": (None, None),
                 "wv": (None, None), "wo": (None, None)}
@@ -130,9 +135,16 @@ def param_pspecs(cfg: ModelConfig, dp_attention: bool = False) -> Dict:
         "attn": attn,
         "attn_norm": (None,),
         "mlp_norm": (None,),
-        "mlp": {"w_gate": (None, "tp"), "w_up": (None, "tp"),
-                "w_down": ("tp", None)},
     }
+    if cfg.is_moe:
+        layer["moe"] = {
+            "router": ((None, None) if moe_mode == "dispatch"
+                       else (None, "ep")),
+            "w_gate": ("ep", None, "tp"), "w_up": ("ep", None, "tp"),
+            "w_down": ("ep", "tp", None)}
+    else:
+        layer["mlp"] = {"w_gate": (None, "tp"), "w_up": (None, "tp"),
+                        "w_down": ("tp", None)}
     if cfg.post_norms:
         layer["post_attn_norm"] = (None,)
         layer["post_mlp_norm"] = (None,)
@@ -177,10 +189,11 @@ def data_pspecs() -> Dict:
 
 def validate(cfg: ModelConfig, mesh: MeshConfig,
              dp_attention: bool = False) -> None:
-    """JAX's `validate` for the axes the port runs: tp must divide the
-    kv heads (unless dp-attention shards slots instead of heads), the
-    MLP's intermediate width and the vocabulary."""
-    tp = mesh.tp
+    """JAX's `validate`: tp must divide the kv heads (unless
+    dp-attention shards slots instead of heads), the MLP's intermediate
+    width and the vocabulary; ep must divide the experts, and only an
+    MoE model takes an ep axis."""
+    tp, ep = mesh.tp, mesh.ep
     if not dp_attention and cfg.num_kv_heads % tp:
         raise ValueError(
             f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads} "
@@ -191,15 +204,44 @@ def validate(cfg: ModelConfig, mesh: MeshConfig,
             f"tp={tp} must divide intermediate={cfg.intermediate_size}")
     if cfg.vocab_size % tp:
         raise ValueError(f"tp={tp} must divide vocab={cfg.vocab_size}")
+    if cfg.is_moe and cfg.num_experts % ep:
+        raise ValueError(f"ep={ep} must divide num_experts={cfg.num_experts}")
+    if not cfg.is_moe and ep > 1:
+        raise ValueError("ep > 1 on a dense model wastes chips; use tp/dp")
 
 
-def _coords(spec: Spec, d: int, t: int, tp: int) -> Tuple[tuple, tuple]:
-    """For rank (d, t): ((axis, index, parts) of each cut axis) and the
+def resolve_moe_mode(cfg: ModelConfig, mesh: Optional[MeshConfig],
+                     moe_mode: str = "auto",
+                     device: torch.device = torch.device("cpu")) -> str:
+    """JAX's MoE mode ladder: dense | grouped | dispatch.  Meshless
+    (`mesh` None) it is ops/moe.resolve_moe_mode on `device`; on a mesh
+    "grouped" raises (the grouped kernel runs whole experts a rank), and
+    'auto' gives "dispatch" where an ep axis exceeds 1, else "dense"."""
+    if mesh is None or not cfg.is_moe:
+        return moe_ops.resolve_moe_mode(cfg, device, moe_mode)
+    if moe_mode not in moe_ops.MOE_MODES:
+        raise ValueError(f"moe_mode={moe_mode!r} not in {moe_ops.MOE_MODES}")
+    if moe_mode == "grouped":
+        raise ValueError(
+            "moe_mode='grouped' is the meshless fast path (the Pallas "
+            "grouped GEMM runs whole experts per chip); sharded meshes "
+            "use 'dispatch' (ep all-to-all, tp-sharded expert MLPs) or "
+            "'dense' (GSPMD einsums)")
+    if moe_mode == "auto":
+        return "dispatch" if mesh.ep > 1 else "dense"
+    return moe_mode
+
+
+def _coords(spec: Spec, d: int, t: int, tp: int, e: int = 0,
+            ep: int = 1) -> Tuple[tuple, tuple]:
+    """For rank (d, e, t): ((axis, index, parts) of each cut axis) and the
     indices that name its piece."""
     cuts = []
     for axis, name in enumerate(spec):
         if name == "tp":
             cuts.append((axis, t, tp))
+        elif name == "ep":
+            cuts.append((axis, e, ep))
         elif name == ("dp", "tp"):
             cuts.append((axis, d * tp + t, None))
         elif name == "dp":
@@ -233,10 +275,12 @@ def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
     """Per-rank trees of `tree` (a state or a cache: nested dicts and
     lists of tensors) cut along exactly the axes `specs` names, rank r's
     on `group.devices[r]`.  `group` is a parallel.mesh.DpGrid (tp alone:
-    its one dp row); the ranks that share a place and a piece share one
-    tensor (one copy of each tp slice a card).  `junk_rows`: the tree is
-    a cache, and its slot shards get their junk row."""
+    its one dp row; a cache: its `attention` grid); the ranks that share
+    a place and a piece share one tensor (one copy of each piece a card).
+    `junk_rows`: the tree is a cache, and its slot shards get their junk
+    row."""
     tp, dp, places = group.tp, group.dp, group.places
+    ep = getattr(group, "ep", 1)
     shared: Dict[tuple, torch.Tensor] = {}
 
     def walk(t, s, r, path):
@@ -245,7 +289,8 @@ def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
         if isinstance(t, (list, tuple)):
             return [walk(v, sv, r, path + (i,))
                     for i, (v, sv) in enumerate(zip(t, s))]
-        cuts, idx = _coords(s, r // tp, r % tp, tp)
+        cuts, idx = _coords(s, r // (ep * tp), r % tp, tp,
+                            (r // tp) % ep, ep)
         parts = {axis: (dp * tp if s[axis] == ("dp", "tp") else dp)
                  for axis, _, n in cuts if n is None}
         key = (path, places[r], idx)

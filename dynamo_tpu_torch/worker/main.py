@@ -112,14 +112,20 @@ rows, the ranks of a card share one copy of each tp slice, and
 `--dp-attention` shards attention over the whole grid with the cache's
 slots over tp (JAX's flag; the prefix cache is on, so page locality
 resolves off and attention takes the gather path).  The published
-SliceSpec carries the mesh (`tp2`, `dp2xtp2`) and the `dp_attention`
-feature, `/debug/stats` its `mesh`, `tp_devices`, `dp_mode`,
+SliceSpec carries the mesh (`tp2`, `dp2xtp2`, `ep2xtp2`) and the
+`dp_attention` feature, `/debug/stats` its `mesh`, `tp_devices`, `dp_mode`,
 `kv_shard_count`, `kv_traffic_shards` and the K1 / K2 launches of each
-rank.  `--ep` and `--pp` take JAX's defaults; above 1 the worker exits
-naming ROADMAP.md A7.  With `--tp` or `--dp` a checkpoint is read on the
-host and each rank's slice copied straight to its card, and a preset's
-weights are cut as they are drawn, so no card ever holds the whole model
-beside its slices.
+rank.  `--ep N` (an MoE model) puts N ranks a (dp row, tp slice), each
+holding E/N experts: `--moe-mode` auto then takes "dispatch", the
+all-to-all over the ep ranks (`dense` runs every expert a rank over every
+token instead; `grouped` is meshless), and `--moe-capacity C` bounds each
+expert's buffer a source shard, its drops counted in
+`dynamo_moe_dropped_tokens_total`.  `/debug/stats` shows the mesh
+(`ep2xtp2`) and the `moe_mode`.  `--pp` takes JAX's default; above 1 the
+worker exits naming ROADMAP.md A7.  With `--tp`, `--dp` or `--ep` a
+checkpoint is read on the host and each rank's slice copied straight to
+its card, and a preset's weights are cut as they are drawn, so no card
+ever holds the whole model beside its slices.
 
 Not ported: multihost and lockstep, and `--slice`.
 """
@@ -274,8 +280,8 @@ def parse_args(argv=None):
                         "(tp beyond the kv-head count; reference sglang "
                         "--enable-dp-attention)")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel degree (not ported: above 1 "
-                        "exits)")
+                   help="expert-parallel degree (MoE models): ep ranks a "
+                        "dp row and tp slice, E/ep experts each")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel degree (not ported: above 1 "
                         "exits)")
@@ -291,12 +297,23 @@ def parse_args(argv=None):
                         "while it is on")
     p.add_argument("--spec-ngram", type=int, default=3,
                    help="n-gram length of the prompt-lookup drafter")
-    p.add_argument("--moe-mode", choices=("auto", "dense", "grouped"),
+    p.add_argument("--moe-mode",
+                   choices=("auto", "dense", "grouped", "dispatch"),
                    default="auto",
-                   help="MoE expert compute (dense models ignore it): "
-                        "grouped = the CUDA grouped-expert kernel, dense = "
-                        "every expert over every token; auto = grouped on "
-                        "a card when the expert geometry allows it")
+                   help="MoE compute mode (dense models ignore it): "
+                        "'auto' picks the grouped CUDA kernel on meshless "
+                        "engines on a card and ep all-to-all dispatch on "
+                        "ep>1 meshes; explicit rungs pin one — 'grouped' "
+                        "is meshless-only, 'dispatch' needs an ep mesh "
+                        "(tp>1 composes: expert MLPs tp-shard inside the "
+                        "dispatch body)")
+    p.add_argument("--moe-capacity", type=int, default=None, metavar="C",
+                   help="bounded per-expert dispatch capacity (tokens "
+                        "per expert per source shard).  Default None = "
+                        "EXACT routing, nothing dropped.  A bound "
+                        "shrinks the all-to-all buffers; overflow "
+                        "assignments are DROPPED and counted in "
+                        "dynamo_moe_dropped_tokens_total, never silent")
     p.add_argument("--metrics-interval", type=float, default=1.0,
                    help="seconds between load-metrics publications")
     p.add_argument("--health-port", type=int, default=0,
@@ -366,19 +383,17 @@ def load_kernels(core: EngineCore) -> None:
 
 
 def build_mesh(args) -> MeshConfig:
-    """The mesh of the parallelism flags (JAX's `build_mesh`): dp * tp
-    ranks of this process, on the cards of `--device`.  What the port
+    """The mesh of the parallelism flags (JAX's `build_mesh`): dp * ep *
+    tp ranks of this process, on the cards of `--device`.  What the port
     does not run exits, naming the roadmap item; ranks that outnumber the
     cards share them round-robin, which is logged."""
-    for axis in ("ep", "pp"):
-        n = getattr(args, axis)
-        if n > 1:
-            raise SystemExit(f"--{axis} {n}: {QUEUED[axis]}")
+    if args.pp > 1:
+        raise SystemExit(f"--pp {args.pp}: {QUEUED['pp']}")
     try:
-        mesh = MeshConfig(dp=args.dp, tp=args.tp)
+        mesh = MeshConfig(dp=args.dp, ep=args.ep, tp=args.tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    ranks = mesh.dp * mesh.tp
+    ranks = mesh.size
     if ranks > 1 and resolve_device(args.device).type == "cuda":
         import torch
 
@@ -393,12 +408,17 @@ def build_engine(args, kv_event_sink):
     """(core, engine, card fields) for the flags; the engine is not
     started yet."""
     mesh = build_mesh(args)
-    sharded = mesh.dp * mesh.tp > 1
+    sharded = mesh.size > 1
     # A sharded engine cuts a checkpoint read on the host (a memory map)
     # into its ranks' cards; a preset (no state) is drawn by the engine.
     cfg, params, spec, template = resolve_model(
         args.model, device="cpu" if sharded else args.device,
         num_layers=args.num_layers)
+    if args.moe_capacity is not None:
+        # Capacity is a model-level dispatch knob (ModelConfig) so every
+        # step sees it; the flag is the deployment's explicit exactness /
+        # buffer-size trade (drops are counted, never silent).
+        cfg = cfg.replace(moe_capacity=args.moe_capacity)
     sched = SchedulerConfig(block_size=args.block_size,
                             max_prefill_chunk=args.max_prefill_chunk)
     core = EngineCore(EngineConfig(
@@ -406,7 +426,7 @@ def build_engine(args, kv_event_sink):
         device=args.device, moe_mode=args.moe_mode,
         kv_quant=args.kv_quant, speculative_tokens=args.spec_decode,
         speculative_ngram=args.spec_ngram, tp=mesh.tp, dp=mesh.dp,
-        dp_attention=args.dp_attention),
+        ep=mesh.ep, dp_attention=args.dp_attention),
         params=params, kv_event_sink=kv_event_sink)
     del params      # a sharded engine keeps its ranks' slices only
     load_kernels(core)
@@ -436,7 +456,7 @@ def derive_slice_spec(core: Optional[EngineCore], role: str = "both",
         cards = (core.group.cards if core.group is not None
                  else [core.device])
         hbm = sum(int(torch.cuda.get_device_properties(d).total_memory)
-                  for d in cards) // (core.config.dp * core.config.tp)
+                  for d in cards) // core.mesh.size
     # Speculative decode takes the place of the decode windows.
     decode = ("spec" if core.config.speculative_tokens > 0
               else f"window{DECODE_WINDOW}")

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (paged decode and prefill attention over bf16
 and int8 caches, the grouped MoE expert FFN in bf16 and int8, the ring
 attention flash fold over bf16 and int8 blocks) and engine on the card,
-the tensor-parallel forward and the dp grid among them.
+the tensor-parallel forward, the dp grid and the ep grid among them.
 
 Every test here needs an NVIDIA GPU and skips without one.  The suite's
 conftest imports JAX, which the GPU machine does not have, so run this
@@ -767,6 +767,141 @@ def test_engine_serves_moe_through_the_grouped_kernel(dev, int8):
     assert int(load.sum()) == (core.counters.model_rows
                                * cfg.num_experts_per_token * cfg.num_layers)
     assert core.moe_dropped_tokens == 0
+
+
+def _moe_engine(dev, **kw):
+    from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.models.config import get_config
+
+    cfg = get_config("tiny-moe").replace(head_dim=32, dtype=torch.bfloat16)
+    return EngineCore(EngineConfig(
+        model=cfg, num_blocks=64, device="cuda", enable_prefix_cache=False,
+        scheduler=SchedulerConfig(max_seqs=8, block_size=8,
+                                  max_pages_per_seq=16, max_prefill_chunk=32,
+                                  decode_buckets=(2, 4, 8),
+                                  prefill_buckets=(8, 16, 32)), **kw))
+
+
+@pytest.mark.parametrize("axes", [dict(ep=2, tp=2), dict(dp=2, ep=2),
+                                  dict(tp=2)])
+def test_ep_engine_on_one_card_serves_the_meshless_tokens(dev, axes):
+    """tiny-moe in bf16 on ep and tp grids of one card, every rank but 0
+    on its own stream: "dispatch" over ep (the all-to-all between the
+    ranks' streams), "dense" under tp alone; greedy tokens as the
+    meshless engine's (random bf16 weights may leave near ties: most
+    rows agree); K1 and K2 on the attending ranks only, no K3; the
+    expert load k a model row and layer, none dropped."""
+    prompts = {f"r{i}": list(range(1, n + 1))
+               for i, n in enumerate((5, 40, 17))}
+    one = _serve(_moe_engine(dev), prompts)
+    m0 = grouped_expert_ffn.launches
+    core = _moe_engine(dev, **axes)
+    assert core.moe_mode == ("dispatch" if "ep" in axes else "dense")
+    got = _serve(core, prompts)
+    assert all(len(t) == 20 for t in got.values())
+    assert sum(one[r] == got[r] for r in prompts) >= 2
+    assert grouped_expert_ffn.launches == m0
+    g = core.grid
+    for f, n in enumerate(g.launches):
+        assert (n > 0) == ((f // g.tp) % g.ep == 0), g.launches
+    load = core.snapshot_expert_load()
+    cfg = core.config.model
+    assert int(load.sum()) == (core.counters.model_rows
+                               * cfg.num_experts_per_token * cfg.num_layers)
+    assert core.moe_dropped_tokens == 0
+
+
+def _moe_grid_step(dev, devices, ep, tp):
+    """(step, ranks, cache, inputs) of a tiny-moe bf16 decode step over an
+    ep x tp grid on `devices`, the seed-0 weights cut as drawn."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+    from dynamo_tpu_torch.parallel import DpGrid
+
+    cfg = get_config("tiny-moe").replace(head_dim=32, dtype=torch.bfloat16)
+    grid = DpGrid(devices, 1, ep=ep)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ranks = init_params(cfg, gen, dev, group=grid)
+    cache = kvc.init_grid_caches(kvc.KvCacheConfig.for_model(
+        cfg, num_blocks=32, block_size=8), grid)
+    B = 8
+    i32 = dict(dtype=torch.int32, device=dev)
+    inputs = (torch.arange(B, **i32)[:, None] + 3,
+              torch.full((B, 1), 4, **i32), torch.full((B,), 5, **i32),
+              (torch.arange(B, **i32) + 1)[:, None].repeat(1, 2),
+              torch.zeros(B, **i32))
+    step = llama.make_forward_step(cfg, 8, use_decode_kernel=True,
+                                   moe_mode="dispatch", with_expert_load=True,
+                                   tp=grid)
+    return step, ranks, cache, inputs
+
+
+@pytest.mark.parametrize("capacity", [None, 1])
+def test_ep_dispatch_block_makes_no_host_sync(dev, capacity):
+    """The MoE block of an ep 2 x tp 2 grid on one card (the routing, the
+    scatter, both all-to-alls between the ranks' streams, the experts,
+    the combine, the ep join and the tp sum), exact and at a capacity
+    that drops, under sync debug mode "error": a synchronizing call
+    would raise.  Its output equals the meshless `moe_dispatch` on each
+    source shard's range, and the drops are equal."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+    from dynamo_tpu_torch.ops.moe import moe_dispatch
+    from dynamo_tpu_torch.parallel import DpGrid
+
+    cfg = get_config("tiny-moe").replace(head_dim=32, dtype=torch.bfloat16,
+                                         moe_capacity=capacity)
+    grid = DpGrid([dev] * 4, 1, ep=2)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev)
+    ranks = init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev,
+                        group=grid)
+    x = torch.randn(16, 1, cfg.hidden_size,
+                    generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev).to(cfg.dtype)
+
+    def block():
+        loads = {}
+        grid.fork()
+        parts = llama._grid_moe(cfg, grid, ranks, 0, 0,
+                                grid.rows[0].replicate(x), "dispatch", loads)
+        out = grid.rows[0].all_reduce(parts)[0]
+        grid.join()
+        return out, loads
+
+    block()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, loads = block()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ref = [moe_dispatch(cfg, whole["layers"][0]["moe"], x[s * 8:(s + 1) * 8],
+                        capacity) for s in range(2)]
+    dropped = sum(int(t[0][-1]) for t in loads.values())
+    assert dropped == sum(int(st[-1]) for _, st in ref)
+    assert (dropped > 0) == (capacity is not None)
+    _assert_close(out, torch.cat([o for o, _ in ref]))
+
+
+def test_ep_across_two_cards_matches_one_card(dev):
+    """ep 2 with its ranks on two cards (the all-to-alls and the join as
+    peer copies, each card holding its experts and rank 1 on card 1's
+    stream) against the same grid on one card: equal expert load, logits
+    within bf16 rounding."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards (torch.cuda.device_count() < 2)")
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    step, ranks, cache, inputs = _moe_grid_step(two[0], two, 2, 1)
+    got, _, load = step(ranks, cache, *inputs)
+    assert ranks[1]["layers"][0]["moe"]["w_up"].device == two[1]
+    step, ranks, cache, inputs = _moe_grid_step(two[0], [two[0]] * 2, 2, 1)
+    want, _, want_load = step(ranks, cache, *inputs)
+    assert torch.equal(load, want_load)
+    _assert_close(got, want)
 
 
 PAD = 8192   # a pad position: past every real key

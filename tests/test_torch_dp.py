@@ -176,11 +176,11 @@ def _rand_cache(tc, num_blocks, kv_quant, seed):
 def test_shard_state_equals_jax_shards(model, mode, dp, tp):
     jc, tc, params, state = model
     da, dl = MODES[mode]
-    assert param_pspecs(tc, da) == _spec_tree(jax_param_pspecs(
+    assert param_pspecs(tc, dp_attention=da) == _spec_tree(jax_param_pspecs(
         jc, dp_attention=da))
     mesh = _mesh(dp, tp)
     grid = _grid(mode, dp, tp)
-    ranks = shard_state(state, param_pspecs(tc, da), grid)
+    ranks = shard_state(state, param_pspecs(tc, dp_attention=da), grid)
     _hold_shards(shard_pytree(params, jax_param_pspecs(jc, dp_attention=da),
                               mesh), ranks, mesh)
     # The dp ranks on one device share one tensor of each tp slice.
@@ -217,7 +217,8 @@ def test_grid_draw_equals_the_whole_draws_shards(name, mode, dp, tp):
     ranks = init_params(tc, torch.Generator().manual_seed(5), "cpu",
                         group=grid)
     whole = init_params(tc, torch.Generator().manual_seed(5), "cpu")
-    want = shard_state(whole, param_pspecs(tc, grid.dp_attention), grid)
+    want = shard_state(whole, param_pspecs(
+        tc, dp_attention=grid.dp_attention), grid)
     for got_r, want_r in zip(ranks, want):
         for a, b in zip(jax.tree.leaves(got_r), jax.tree.leaves(want_r)):
             assert a.is_contiguous() and torch.equal(a, b)
@@ -398,7 +399,7 @@ def test_grid_steps_match_jax_sharded_steps(name, grid_case, kv_quant):
     kernel = not (da and not dl)
     jparams = shard_pytree(params, jax_param_pspecs(jc, dp_attention=da),
                            mesh)
-    ranks = shard_state(state, param_pspecs(tc, da), grid)
+    ranks = shard_state(state, param_pspecs(tc, dp_attention=da), grid)
     ccfg = kvc.KvCacheConfig.for_model(tc, num_blocks=16, block_size=BLOCK,
                                        kv_quant=kv_quant)
     cache = kvc.init_grid_caches(ccfg, grid)
@@ -656,7 +657,7 @@ def test_copies_on_two_places_take_every_write(mode):
     out = []
     for places in (None, [0, 0, 1, 1]):
         grid = _grid(mode, 2, 2, places)
-        ranks = shard_state(state, param_pspecs(tc, da), grid)
+        ranks = shard_state(state, param_pspecs(tc, dp_attention=da), grid)
         ccfg = kvc.KvCacheConfig.for_model(tc, num_blocks=16,
                                            block_size=BLOCK)
         cache = kvc.init_grid_caches(ccfg, grid)
@@ -757,13 +758,16 @@ def test_engine_refuses_as_jax(tiny, kw, sched):
 def test_mesh_worker_and_moe_refusals():
     assert MeshConfig(dp=2, tp=2).describe() == JaxMeshConfig(
         dp=2, tp=2).describe() == "dp2xtp2"
-    for axis in ("ep", "pp"):
-        with pytest.raises(ValueError, match="ROADMAP.md A7"):
-            MeshConfig(**{axis: 2})
-        args = parse_args(["--control-plane", "h:1", "--device", "cpu",
-                           f"--{axis}", "2"])
-        with pytest.raises(SystemExit, match="ROADMAP.md A7"):
-            build_mesh(args)
+    # ep is ported (tests/test_torch_ep.py): the mesh and the flag build.
+    assert MeshConfig(ep=2).describe() == JaxMeshConfig(ep=2).describe()
+    assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
+                                  "cpu", "--ep", "2"])) == MeshConfig(ep=2)
+    with pytest.raises(ValueError, match="ROADMAP.md A7"):
+        MeshConfig(pp=2)
+    args = parse_args(["--control-plane", "h:1", "--device", "cpu",
+                       "--pp", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP.md A7"):
+        build_mesh(args)
     with pytest.raises(ValueError, match="sp x dp waits for ROADMAP.md A7"):
         MeshConfig(sp=2, dp=2)
     with pytest.raises(ValueError, match="sp x tp waits for ROADMAP.md A7"):
@@ -771,13 +775,13 @@ def test_mesh_worker_and_moe_refusals():
     args = parse_args(["--control-plane", "h:1", "--device", "cpu", "--dp",
                        "2", "--tp", "2", "--dp-attention"])
     assert build_mesh(args) == MeshConfig(dp=2, tp=2) and args.dp_attention
+    # MoE under a dp or tp mesh is ported: JAX's auto gives "dense".
     for kw in (dict(dp=2), dict(tp=2, dp_attention=True)):
-        with pytest.raises(ValueError, match="MoE under a (dp|tp) mesh.*A7"):
-            EngineCore(EngineConfig(model=tcfg.get_config("tiny-moe"),
-                                    device="cpu", num_blocks=16, **kw))
-    with pytest.raises(ValueError, match="MoE under a dp mesh"):
-        llama.make_forward_step(tcfg.get_config("tiny-moe"), BLOCK,
-                                tp=_grid("dp", 2, 1))
+        core = EngineCore(EngineConfig(model=tcfg.get_config("tiny-moe"),
+                                       device="cpu", num_blocks=16, **kw))
+        assert core.moe_mode == "dense" and core.grid is not None
+    assert callable(llama.make_forward_step(tcfg.get_config("tiny-moe"),
+                                            BLOCK, tp=_grid("dp", 2, 1)))
     with pytest.raises(ValueError, match="dp_local implies dp_attention"):
         DpGrid(["cpu"] * 2, 2, dp_local=True)
     with pytest.raises(ValueError, match="must divide the grid"):
@@ -808,7 +812,7 @@ def test_dp_local_pad_writes_never_land_on_a_shards_first_page(kv_quant):
     and the decode's logits are the meshless step's."""
     jc, tc, params, state = _model("tiny-test")
     grid = _grid("local", 4, 1)
-    ranks = shard_state(state, param_pspecs(tc, True), grid)
+    ranks = shard_state(state, param_pspecs(tc, dp_attention=True), grid)
     ccfg = kvc.KvCacheConfig.for_model(tc, num_blocks=16, block_size=BLOCK,
                                        kv_quant=kv_quant)
     cache = kvc.init_grid_caches(ccfg, grid)

@@ -460,11 +460,13 @@ def test_moe_and_dp_attention_errors_are_the_reference_tables():
 def test_mesh_config_and_ring_construction():
     assert MeshConfig(sp=4).describe() == JaxMeshConfig(sp=4).describe() == "sp4"
     assert MeshConfig().describe() == "single" and MeshConfig(sp=4).size == 4
-    for axis in ("ep", "pp"):
-        with pytest.raises(ValueError, match="ROADMAP.md A7"):
-            MeshConfig(**{axis: 2})
-    # tp and dp are ported (tests/test_torch_tp.py, test_torch_dp.py);
-    # sp x tp and sp x dp are not.
+    with pytest.raises(ValueError, match="ROADMAP.md A7"):
+        MeshConfig(pp=2)
+    # tp, dp and ep are ported (tests/test_torch_tp.py, test_torch_dp.py,
+    # test_torch_ep.py); sp x tp, sp x dp and sp x ep are not.
+    assert MeshConfig(ep=2).describe() == JaxMeshConfig(ep=2).describe()
+    with pytest.raises(ValueError, match="ROADMAP.md A7"):
+        MeshConfig(sp=2, ep=2)
     assert MeshConfig(tp=2).describe() == "tp2"
     assert MeshConfig(dp=2).describe() == "dp2"
     with pytest.raises(ValueError, match="ROADMAP.md A7"):

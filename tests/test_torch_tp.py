@@ -30,8 +30,8 @@ lie on the CPU, where K1 and K2 take their plain versions.
    block into a tp 2 int8 engine is refused.
 5. The refusals, each with its pointer: tp not dividing the kv heads,
    the intermediate width or the vocabulary (JAX's `validate` messages,
-   the same numbers), MoE under tp, sp x tp, dp / ep / pp above 1 (the
-   mesh and the worker's flags).
+   the same numbers), sp x tp, pp above 1 (the mesh and the worker's
+   flags), and `grouped` MoE on a mesh; MoE under tp and `--ep` build.
 6. (`e2e`) a `--tp 2 --device cpu` worker behind the port's frontend
    answers a chat and shows its mesh.
 """
@@ -530,13 +530,16 @@ def test_validate_refuses_as_jax(field, value, tp):
 
 def test_mesh_and_worker_refusals():
     assert MeshConfig(tp=2).describe() == JaxMeshConfig(tp=2).describe() == "tp2"
-    for axis in ("ep", "pp"):
-        with pytest.raises(ValueError, match="ROADMAP.md A7"):
-            MeshConfig(**{axis: 2})
-        args = parse_args(["--control-plane", "h:1", "--device", "cpu",
-                           f"--{axis}", "2"])
-        with pytest.raises(SystemExit, match="ROADMAP.md A7"):
-            build_mesh(args)
+    # ep is ported (tests/test_torch_ep.py); pp is not.
+    assert build_mesh(parse_args(["--control-plane", "h:1", "--device", "cpu",
+                                  "--ep", "2", "--tp", "2"])) == MeshConfig(
+        ep=2, tp=2)
+    with pytest.raises(ValueError, match="ROADMAP.md A7"):
+        MeshConfig(pp=2)
+    args = parse_args(["--control-plane", "h:1", "--device", "cpu",
+                       "--pp", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP.md A7"):
+        build_mesh(args)
     # dp is ported (tests/test_torch_dp.py); sp x dp is not.
     assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
                                   "cpu", "--dp", "2"])) == MeshConfig(dp=2)
@@ -550,12 +553,15 @@ def test_mesh_and_worker_refusals():
                                 tp=_group(2))
     assert build_mesh(parse_args(["--control-plane", "h:1", "--device", "cpu",
                                   "--tp", "2"])) == MeshConfig(tp=2)
-    with pytest.raises(ValueError, match="MoE under a tp mesh"):
+    # MoE under tp is ported (dense over each rank's F/tp slices);
+    # "grouped" on a mesh keeps JAX's refusal.
+    core = EngineCore(EngineConfig(model=tcfg.get_config("tiny-moe"),
+                                   device="cpu", num_blocks=16, tp=2))
+    assert core.moe_mode == "dense"
+    with pytest.raises(ValueError, match="meshless fast path"):
         EngineCore(EngineConfig(model=tcfg.get_config("tiny-moe"),
-                                device="cpu", num_blocks=16, tp=2))
-    with pytest.raises(ValueError, match="MoE under a tp mesh"):
-        llama.make_forward_step(tcfg.get_config("tiny-moe"), BLOCK,
-                                tp=_group(2))
+                                device="cpu", num_blocks=16, tp=2,
+                                moe_mode="grouped"))
     group = DpGrid.for_mesh(MeshConfig(tp=3), torch.device("cpu"))
     assert group.describe() == ["cpu"] * 3 and group.cards == [torch.device("cpu")]
     with pytest.raises(ValueError, match="all be cpu or all cuda"):
