@@ -40,6 +40,9 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      tensor parallelism (D 128, block 64; K1 at batch 64, context 512):
      llama-3-8b at tp 2 (Hq 16, Hkv 4: the `_tp2` lines) and llama-3-70b
      at tp 8 (Hq 8, Hkv 1, G 8: `_tp8`);
+   - K1 and K2, bf16 and int8 cache, at llama-3-70b's unsharded heads
+     (Hq 64, Hkv 8, D 128, block 64; K1 at batch 64, context 512: the
+     `_pp70b` lines), what a stage of the 70B's pipeline attends;
    - K1 and K2, bf16 and int8 cache, as one shard of a dp 2 x tp 2
      dp-local grid runs them (`_dplocal`): llama-3-8b's heads (Hq 32,
      Hkv 8, D 128, block 64), K1 at 16 of 64 rows and context 512, on
@@ -117,6 +120,23 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    card.  The ep 2 x tp 2 grid's MoE block at a bounded capacity must
    drop exactly what the meshless plain moe_dispatch drops on the same
    split and give its output (EP_BLOCK_TOL).
+8f. model_pp — pipeline parallelism in process, every stage on card 0
+   with its own stream (stage 0 on the caller's): llama-3-8b at full
+   width and depth, seed-0 weights, at pp 2 with 1 and 2 microbatches and
+   pp 4 with 4, each over a bf16 and an int8 cache: a packed prefill of
+   four prompts (K2 per stage), 4 decode steps (K1 per stage and
+   microbatch), the fused greedy step and one greedy window, held to the
+   unsharded kernel path (PP_TOL; bit for bit where the microbatch is the
+   whole batch) and to the unsharded gather path (MODEL_TOL), greedy
+   tokens up to a near tie (the window's teacher-forced); K2 once a
+   layer, K1 once a layer, microbatch and step, each stage its layers'
+   share; the prompts' whole pages' wire blocks out of the stage caches
+   byte-equal to the meshless extract; the stages' states drawn by
+   `init_params(group=)` equal the whole draw bit for bit, the card
+   holding one model's bytes, the draw's peak within the stages' bytes
+   plus one piece.  Then llama-3-70b at full width and 8 of its 80
+   layers at pp 4 (2 layers a stage): one prefill and 2 decode steps a
+   cache mode against the gather path.
 9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
@@ -148,6 +168,15 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    meshes, shard counts, slices and launches (K1 / K2 a whole number of
    times a layer and rank on the first, none on the gather path of the
    second) checked.  TTFT, ITL and tok/s beside `serve`'s.
+9d. serve_pp — `python -m dynamo_tpu_torch.worker --model llama-3-8b
+   --num-layers 16 --pp 2 --pp-microbatches 2` on serve_tp's stack (the
+   same weights and depth): `serve`'s wave, then serve_tp's two unary
+   chats held to the unsharded engine's ids (a split only at a near tie)
+   and teacher-forced against the plain model; /debug/stats must show
+   mesh pp2, kv_shard_count 2, the slice pp2, K2 a whole number of times
+   a layer, K1 a whole number of times a layer and microbatch, and each
+   stage the same launches.  TTFT, ITL and tok/s beside `serve`'s and
+   serve_tp's.
 10. serve_distributed — the same model on two `python -m
    dynamo_tpu_torch.worker` processes sharing the card, behind frontend A
    (`--serve-control-plane --router-mode kv`) and frontend B
@@ -477,6 +506,25 @@ EP_BLOCK_TOL = 2e-2
 # bf16 partials after wo, w_down and the combine, and read up to 0.0354
 # on an H100 80GB HBM3 at 700 W; the limit is about twice that.
 EP_TOL = 6e-2
+# Pipeline parallelism: llama-3-8b at full width and depth on pp stages
+# of card 0 (model_pp: the (stages, microbatches) legs PP_LEGS over a
+# bf16 and an int8 cache, held to the unsharded kernel path within
+# PP_TOL and to the gather path within MODEL_TOL, with a greedy window of
+# PP_WINDOW steps), llama-3-70b at full width and PP_70B_LAYERS of its 80
+# layers at pp PP_70B (2 layers a stage, M PP_70B_M), and served by
+# `--pp 2 --pp-microbatches 2` at SERVE_TP_LAYERS (serve_pp, on
+# serve_tp's stack and weights).  K1 and K2 also run at llama-3-70b's
+# unsharded heads (the `_pp70b` lines: what a 70B stage attends).
+PP, PP_MICROBATCHES = 2, 2
+PP_LEGS = ((2, 1), (2, 2), (4, 4))
+PP_70B, PP_70B_M, PP_70B_LAYERS = 4, 4, 8
+PP_WINDOW = 4
+PP_TOL = 5e-2
+PP70_GEOMETRY = ("pp70b", 64, 8, 128)
+PP_WORKER = ("m-pp", ("--model-name", "m-pp", "--component", "pp",
+                      "--model", "llama-3-8b", "--num-layers",
+                      str(SERVE_TP_LAYERS), "--pp", str(PP),
+                      "--pp-microbatches", str(PP_MICROBATCHES)))
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
@@ -1664,21 +1712,24 @@ def model_tp_phase(torch, kernels):
 
 
 def serve_tp_dp_phases(torch, serve: dict, ref: dict):
-    """serve_tp and serve_dp on one stack (`distributed_stack`, its
-    startup paid once): frontend A with the llama-3-8b `--tp 2` worker
-    (model "m") and serve_dp's two llama-3-1b workers (`DP_WORKERS`), all
-    on the card; the phases run one after the other.  Returns their
-    results."""
+    """serve_tp, serve_dp and serve_pp on one stack (`distributed_stack`,
+    its startup paid once): frontend A with the llama-3-8b `--tp 2`
+    worker (model "m"), serve_dp's two llama-3-1b workers (`DP_WORKERS`)
+    and the llama-3-8b `--pp 2` worker (`PP_WORKER`), all on the card;
+    the phases run one after the other.  Returns their results."""
     with distributed_stack(
             workers=(("worker", ("--model", "llama-3-8b", "--num-layers",
                                  str(SERVE_TP_LAYERS), "--tp", str(TP))),
-                     *((f"worker_{k}", v[1]) for k, v in DP_WORKERS.items())),
+                     *((f"worker_{k}", v[1]) for k, v in DP_WORKERS.items()),
+                     ("worker_pp", PP_WORKER[1])),
             frontend_b=False, tag="tp",
-            models=("m", *(v[0] for v in DP_WORKERS.values()))) as (
-                a, _, status, startup_s):
+            models=("m", *(v[0] for v in DP_WORKERS.values()),
+                    PP_WORKER[0])) as (a, _, status, startup_s):
         tp = serve_tp_phase(torch, serve, ref, (a, status[:1], startup_s))
-        dp = serve_dp_phase(torch, serve, (a, status[1:], startup_s))
-    return tp, dp
+        dp = serve_dp_phase(torch, serve, (a, status[1:3], startup_s))
+        pp = serve_pp_phase(torch, serve, tp, ref, (a, status[3:],
+                                                     startup_s))
+    return tp, dp, pp
 
 
 def serve_tp_phase(torch, serve: dict, ref: dict, stack) -> dict:
@@ -2173,6 +2224,372 @@ def model_ep_phase(torch, kernels):
     del state, ranks
     torch.cuda.empty_cache()
     return lines
+
+
+def pp_whole(stage_states) -> dict:
+    """The whole state as the stages' own tensors (every stage on one
+    card): no copy."""
+    out = {"embed": stage_states[0]["embed"],
+           "final_norm": stage_states[-1]["final_norm"],
+           "layers": [layer for st in stage_states for layer in st["layers"]]}
+    if "lm_head" in stage_states[-1]:
+        out["lm_head"] = stage_states[-1]["lm_head"]
+    return out
+
+
+def pp_same(torch, state, ranks) -> bool:
+    """The stages' layers, embedding, norm and head equal the whole
+    draw's, bit for bit (each tree walked as its own spec)."""
+    mine = pp_whole(ranks)
+    whole = list(tp_leaves(state, state))
+    got = list(tp_leaves(mine, mine))
+    return len(whole) == len(got) and all(
+        torch.equal(a, b) for (a, _), (b, _) in zip(got, whole))
+
+
+def pp_compare(torch, kernels, cfg, ranks, state, stages, kv_quant: str,
+               steps: int = 4, fused: bool = True) -> dict:
+    """The pipelined path (`stages`' ranks' states on their caches)
+    against the unsharded kernel path and the unsharded gather path on
+    `state`, each on its own cache of mode `kv_quant`: a packed prefill
+    of four prompts (K2 per stage; the meshless packed step; the padded
+    gather forward), `steps` greedy decode steps (K1 per stage and
+    microbatch), and with `fused` the fused greedy step and one greedy
+    decode window of PP_WINDOW steps, whose tokens are held to each
+    reference's logits given the same tokens (teacher-forced).  All three
+    paths are fed the pipelined path's greedy tokens.  Returns the logits
+    relative errors against both references, the argmax gaps, whether
+    each step equals the kernel path bit for bit, the pipelined path's
+    launches, and the prefill pages' wire blocks against the meshless
+    extract."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel.pipeline import (
+        init_pp_cache, make_pp_block_ops, make_pp_greedy_step)
+
+    dev = torch.device("cuda")
+    M = stages.microbatches
+    prompts = [list(range(3, 3 + 77)), list(range(100, 100 + 140)),
+               list(range(300, 300 + 33)), list(range(400, 400 + 96))]
+    B, P = len(prompts), 4
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=1 + B * P,
+                                       block_size=BS, kv_quant=kv_quant)
+    cache_p = init_pp_cache(ccfg, stages)
+    cache_k, cache_g = kvc.init_cache(ccfg, dev), kvc.init_cache(ccfg, dev)
+    pages = [[1 + P * i + j for j in range(P)] for i in range(B)]
+    bt = torch.tensor(pages, dtype=torch.int32, device=dev)
+    T = sum(-(-len(p) // 8) * 8 for p in prompts)
+    R = 8
+    tokens = torch.zeros(T, dtype=torch.int32)
+    positions = torch.full((T,), 128 * BS, dtype=torch.int32)
+    seg = torch.zeros(T, dtype=torch.int32)
+    bt8 = torch.zeros(R, P, dtype=torch.int32)
+    qs, ql, sl, smp = (torch.zeros(R, dtype=torch.int32) for _ in range(4))
+    off = 0
+    for i, p in enumerate(prompts):
+        n = len(p)
+        tokens[off: off + n] = torch.tensor(p)
+        positions[off: off + n] = torch.arange(n)
+        seg[off: off + n] = i
+        bt8[i] = torch.tensor(pages[i])
+        qs[i], ql[i], sl[i], smp[i] = off, n, n, off + n - 1
+        off += -(-n // 8) * 8
+    packed_args = [t.to(dev) for t in (tokens, positions, seg, bt8, qs, ql,
+                                       sl, smp)]
+    launched = dict.fromkeys(kernels.launch_counts(), 0)
+    stages.launches[:] = [0] * stages.pp
+
+    def pp(fn, *args):
+        """A pipelined call, its launches added to `launched`."""
+        before = kernels.launch_counts()
+        out = fn(*args)
+        for k, v in kernels.launch_counts().items():
+            launched[k] += v - before[k]
+        return out
+
+    vs_k, vs_g, gaps, bitwise = [], [], [], []
+
+    def compare(lp, lk, lg):
+        for ref, errs in ((lk, vs_k), (lg, vs_g)):
+            errs.append(((lp - ref).abs().max() / ref.abs().max()).item())
+        bitwise.append(bool(torch.equal(lp, lk)))
+        pick = lp.argmax(-1)
+        gaps.append(max(((ref.max(-1).values - ref.gather(
+            -1, pick[:, None])[:, 0]).max() / ref.abs().max()).item()
+            for ref in (lk, lg)))
+        check(bool(torch.isfinite(lp).all()), f"{cfg.name}: non-finite "
+                                              "pipelined logits")
+
+    packed_p = llama.make_packed_prefill_step(cfg, BS, tp=stages)
+    packed_k = llama.make_packed_prefill_step(cfg, BS)
+    lp = pp(packed_p, ranks, cache_p, *packed_args)[0][:B]
+    prefill_launches = list(stages.launches)
+    lk = packed_k(state, cache_k, *packed_args)[0][:B]
+    Lmax = max(len(p) for p in prompts)
+    tok2 = torch.zeros(B, Lmax, dtype=torch.int32)
+    pos2 = torch.full((B, Lmax), 128 * BS, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tok2[i, : len(p)] = torch.tensor(p)
+        pos2[i, : len(p)] = torch.arange(len(p))
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    gather = llama.make_forward_step(cfg, BS)
+    lg = gather(state, cache_g, tok2.to(dev), pos2.to(dev), lens, bt,
+                lens - 1)[0]
+    compare(lp, lk, lg)
+    # The prompts' whole pages hold prefill rows only: the stage caches'
+    # wire blocks of them equal the meshless cache's, byte for byte.
+    full = torch.tensor([pages[i][j] for i, p in enumerate(prompts)
+                         for j in range(len(p) // BS)], device=dev)
+    extract, _ = make_pp_block_ops(BS, stages, kv_quant == "int8")
+    blocks_equal = bool(torch.equal(extract(cache_p, full),
+                                    kvc.extract_blocks(cache_k, full, BS)))
+    check(blocks_equal, f"{cfg.name} pp{stages.pp}: the stage caches' "
+                        "wire blocks differ from the meshless extract")
+    step_p = llama.make_forward_step(cfg, BS, use_decode_kernel=True,
+                                     tp=stages)
+    step_k = llama.make_forward_step(cfg, BS, use_decode_kernel=True)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    cur = lens.clone()
+    nxt = lp.argmax(-1).to(torch.int32)
+
+    def feed(toks):
+        """One decode step of both references fed `toks`: their logits."""
+        args = (toks[:, None], (cur - 1)[:, None], cur, bt, zero)
+        return (step_k(state, cache_k, *args)[0],
+                gather(state, cache_g, *args)[0])
+
+    for _ in range(steps):
+        cur = cur + 1
+        lp = pp(step_p, ranks, cache_p, nxt[:, None], (cur - 1)[:, None],
+                cur, bt, zero)[0]
+        compare(lp, *feed(nxt))
+        nxt = lp.argmax(-1).to(torch.int32)
+    out = {"model": cfg.name, "layers": cfg.num_layers, "pp": stages.pp,
+           "microbatches": M, "kv_quant": kv_quant,
+           "prompts": [len(p) for p in prompts], "decode_steps": steps}
+    if fused:
+        # The fused greedy step, then one window, the references fed the
+        # pipelined path's tokens.
+        cur = cur + 1
+        greedy = make_pp_greedy_step(cfg, BS, stages, M,
+                                     use_decode_kernel=True)
+        got = pp(greedy, ranks, cache_p, nxt[:, None], (cur - 1)[:, None],
+                 cur, bt, zero)[0]
+        window = llama.make_decode_window(cfg, BS, PP_WINDOW,
+                                          use_decode_kernel=True,
+                                          greedy_only=True, tp=stages)
+        ones = torch.ones(B, device=dev)
+        wout = pp(window, ranks, cache_p, got, cur, cur + 1, bt, ones * 0,
+                  zero, ones, [None] * B, [0] * B)[1]
+        fed = [nxt, got] + [wout[i] for i in range(PP_WINDOW - 1)]
+        picks = [got] + [wout[i] for i in range(PP_WINDOW)]
+        forced = []
+        for i, (toks, pick) in enumerate(zip(fed, picks)):
+            if i:
+                cur = cur + 1
+            lk, lg = feed(toks)
+            forced.append(max(((ref.max(-1).values - ref.gather(
+                -1, pick.long()[:, None])[:, 0]).max()
+                / ref.abs().max()).item() for ref in (lk, lg)))
+            if i == 0:
+                out["greedy_equal_kernel"] = bool(torch.equal(
+                    pick, lk.argmax(-1).to(torch.int32)))
+        out.update(fused_greedy_gap=forced[0], window_gaps=forced[1:],
+                   window_tokens=PP_WINDOW)
+        gaps.extend(forced)
+    torch.cuda.synchronize()
+    tol = MODEL_TOL[cfg.name]
+    check(max(vs_k) <= PP_TOL, f"{cfg.name} pp{stages.pp} M{M} ({kv_quant}):"
+                               f" logits rel err {vs_k} against the "
+                               f"unsharded kernel path > {PP_TOL}")
+    check(max(vs_g) <= tol, f"{cfg.name} pp{stages.pp} M{M} ({kv_quant}): "
+                            f"logits rel err {vs_g} against the gather "
+                            f"path > {tol}")
+    check(max(gaps) <= tol, f"{cfg.name} pp{stages.pp} M{M} ({kv_quant}): "
+                            f"greedy tokens beyond a near tie: argmax gaps "
+                            f"{gaps} > {tol}")
+    out.update(logits_rel_err_vs_kernel=vs_k, logits_rel_err=vs_g,
+               bitwise_kernel_path=bitwise, argmax_gap=gaps,
+               tol=tol, kernel_tol=PP_TOL, launches=launched,
+               prefill_launches_per_stage=prefill_launches,
+               launches_per_stage=list(stages.launches),
+               prefill_blocks_equal=blocks_equal,
+               prefill_blocks=int(full.numel()))
+    return out
+
+
+def pp_launch_check(cfg, out: dict, what: str) -> None:
+    """K2 once a layer on its stage for the prefill; K1 once a layer,
+    microbatch and step (the decode steps, the fused greedy step and the
+    window's); each stage its layers' share."""
+    quant = "_int8" if out["kv_quant"] == "int8" else ""
+    L, S, M = cfg.num_layers, out["pp"], out["microbatches"]
+    steps = out["decode_steps"] + (1 + out["window_tokens"]
+                                   if "window_tokens" in out else 0)
+    want = {"paged_prefill_attention" + quant: L,
+            "paged_decode_attention" + quant: L * M * steps}
+    got = out["launches"]
+    check(all(got[k] == n for k, n in want.items())
+          and sum(got.values()) == sum(want.values()),
+          f"{what}: launches {got}, want {want}")
+    check(out["prefill_launches_per_stage"] == [L // S] * S
+          and out["launches_per_stage"] == [L // S * (1 + M * steps)] * S,
+          f"{what}: launches per stage {out['prefill_launches_per_stage']}"
+          f" (prefill), {out['launches_per_stage']} (all)")
+
+
+def model_pp_phase(torch, kernels):
+    """Pipeline parallelism in process, every stage on card 0 with its
+    own stream: llama-3-8b at full width and depth, seed-0 weights, at
+    pp 2 with M 1 and 2 microbatches and pp 4 with M 4, each over a bf16
+    and an int8 cache (`pp_compare`), launches checked
+    (`pp_launch_check`); the stages' states, drawn by
+    `init_params(group=)`, equal the whole draw bit for bit, the card
+    holds one model's bytes for them, and the draw's peak stays within
+    the stages' bytes plus one piece.  Then llama-3-70b at full width and
+    PP_70B_LAYERS of its 80 layers at pp 4 (2 layers a stage), one
+    prefill and 2 decode steps a cache mode."""
+    from dynamo_tpu_torch.parallel import PpStages
+    from dynamo_tpu_torch.parallel.pipeline import shard_stages
+
+    lines = []
+    card = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ranks = tp_state(torch, "llama-3-8b",
+                          group=PpStages([card] * PP, 1))
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    _, state = tp_state(torch, "llama-3-8b")
+    check(pp_same(torch, state, ranks), "model_pp: the stages' drawn states "
+                                        "differ from the whole draw")
+    nbytes = grid_bytes(ranks, [])
+    whole = sum(t.numel() * t.element_size()
+                for t, _ in tp_leaves(state, state))
+    check(nbytes["weights_on_card"] == whole,
+          f"model_pp: the stages hold {nbytes['weights_on_card']} weight "
+          f"bytes on the card, the model is {whole}")
+    bound = tp_build_bound(cfg, {"weights_per_rank": [
+        {"on_card": nbytes["weights_on_card"]}]})
+    check(peak <= bound, f"model_pp: drawing the stages peaked at {peak} "
+                         f"bytes on the card, above {bound}")
+    del state
+    torch.cuda.empty_cache()
+    state = pp_whole(ranks)
+    draw = {"weights_whole": whole, "weights_on_card":
+            nbytes["weights_on_card"], "draw_peak": peak,
+            "draw_bound": bound, "draw_s": draw_s}
+    for S, M in PP_LEGS:
+        stages = PpStages([card] * S, M)
+        leg = ranks if S == PP else shard_stages(state, stages)
+        for kv_quant in ("none", "int8"):
+            t_leg = time.monotonic()
+            out = pp_compare(torch, kernels, cfg, leg, state, stages,
+                             kv_quant)
+            pp_launch_check(cfg, out, f"model_pp pp{S} M{M} ({kv_quant})")
+            lines.append({"phase": "model_pp", **out,
+                          "stage_devices": stages.describe(), **draw,
+                          "leg_s": time.monotonic() - t_leg})
+    del state, ranks, leg
+    torch.cuda.empty_cache()
+    t_70 = time.monotonic()
+    stages = PpStages([card] * PP_70B, PP_70B_M)
+    cfg, ranks = tp_state(torch, "llama-3-70b", PP_70B_LAYERS, stages)
+    state = pp_whole(ranks)
+    for kv_quant in ("none", "int8"):
+        out = pp_compare(torch, kernels, cfg, ranks, state, stages,
+                         kv_quant, steps=2, fused=False)
+        pp_launch_check(cfg, out, f"model_pp llama-3-70b ({kv_quant})")
+        lines.append({"phase": "model_pp", **out,
+                      "stage_devices": stages.describe(),
+                      "layers_of": 80, "leg_s": time.monotonic() - t_70})
+    del state, ranks
+    torch.cuda.empty_cache()
+    return lines
+
+
+def serve_pp_phase(torch, serve: dict, serve_tp: dict, ref: dict,
+                   stack) -> dict:
+    """llama-3-8b served pipeline-parallel: `python -m
+    dynamo_tpu_torch.worker --model llama-3-8b --num-layers 16 --pp 2
+    --pp-microbatches 2` (model "m-pp", serve_tp's depth and weights)
+    behind serve_tp's frontend (`stack`).  `serve`'s wave with the stats
+    zeroed just before it, then serve_tp's two unary chats, whose greedy
+    ids must equal the unsharded in-process engine's (`ref`, model_tp's)
+    up to a split at a near tie, each served id within MODEL_TOL of the
+    top of the plain model's logits given the ids before it.  The
+    worker's /debug/stats must show mesh pp2, kv_shard_count 2, the
+    slice pp2, K2 a whole number of times a layer, K1 a whole number of
+    times a layer and microbatch, and each stage the same launches.
+    TTFT, ITL and tok/s beside `serve`'s and serve_tp's."""
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    cfg = get_config("llama-3-8b").replace(num_layers=SERVE_TP_LAYERS)
+    a, (w,), startup_s = stack
+    model = PP_WORKER[0]
+    _chat(a, {**chat_body(-1, False, 4), "model": model})   # warm-up
+    wave = dp_wave(a, w, model)
+    lone = [answer(_chat(a, {**b, "model": model}))
+            for b in tp_lone_bodies()]
+    ws = wave["worker"]
+    L, M = cfg.num_layers, PP_MICROBATCHES
+    launched = ws["kernels"]
+    check(ws["mesh"] == f"pp{PP}" and ws["kv_shard_count"] == PP
+          and ws["kv_traffic_shards"] == PP,
+          f"serve_pp: worker mesh {ws['mesh']}, kv_shard_count "
+          f"{ws['kv_shard_count']}, kv_traffic_shards "
+          f"{ws['kv_traffic_shards']}")
+    check(ws["slice"]["describe"] == f"pp{PP}",
+          f"serve_pp: published slice {ws['slice']}")
+    k1, k2 = (launched["paged_decode_attention"],
+              launched["paged_prefill_attention"])
+    check(k1 > 0 and k1 % (L * M) == 0 and k2 > 0 and k2 % L == 0,
+          f"serve_pp: K1 {k1} / K2 {k2} launches, not whole multiples of "
+          f"{L} layers x {M} microbatches / {L} layers")
+    check(ws["rank_launches"] == [(k1 + k2) // PP] * PP,
+          f"serve_pp: launches per stage {ws['rank_launches']}, K1 + K2 "
+          f"{k1 + k2}")
+    state = tp_state(torch, "llama-3-8b", SERVE_TP_LAYERS)[1]
+    splits, held = [], []
+    for i, (p, got, want) in enumerate(zip(ref["prompts"], lone,
+                                           ref["ids"])):
+        what = f"serve_pp lone chat {i}"
+        splits.append(greedy_split(torch, state, p, got["token_ids"], want,
+                                   what, cfg=cfg))
+        gaps = forced_gaps(torch, cfg, state, p, got["token_ids"], 0)
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        check(gaps[worst] <= MODEL_TOL[cfg.name],
+              f"{what}: served token {worst} lies {gaps[worst]} below the "
+              f"top of the plain model's logits (> {MODEL_TOL[cfg.name]})")
+        held.append({"tokens": len(gaps), "max_gap": gaps[worst],
+                     "at": worst, "top": sum(g == 0.0 for g in gaps)})
+    del state
+    torch.cuda.empty_cache()
+    c = ws["counters"]
+    keys = ("output_tok_s", "ttft_mean_s", "ttft_max_s", "itl_mean_s")
+    return {"phase": "serve_pp", "model": "llama-3-8b", "pp": PP,
+            "microbatches": M, "layers": L, "flags": list(PP_WORKER[1][4:]),
+            "startup_s": startup_s, **wave["summary"],
+            "launches": launched, "rank_launches": ws["rank_launches"],
+            "launches_per_layer": {"paged_decode_attention": k1 // L,
+                                   "paged_prefill_attention": k2 // L},
+            "decode_steps": 8 * c["window_dispatches"]
+            + c["single_step_dispatches"],
+            "packed_prefill_dispatches": c["packed_prefill_dispatches"],
+            "mesh": ws["mesh"], "stage_devices": ws["tp_devices"],
+            "kv_shard_count": ws["kv_shard_count"],
+            "kv_traffic_shards": ws["kv_traffic_shards"],
+            "slice": ws["slice"],
+            "lone_equal_unsharded": [s is None for s in splits],
+            "lone_splits": splits, "lone_teacher_forced": held,
+            "serve": {k: serve[k] for k in keys},
+            "serve_tp": {k: serve_tp[k] for k in keys},
+            "phase_s": time.monotonic() - t_phase}
 
 
 def dp_wave(a: str, w: str, model: str) -> dict:
@@ -6337,6 +6754,21 @@ def main() -> int:
                 tp_attn[key, tag] = prefill_phase(torch, gen, d, quant, hq,
                                                   hkv)
                 emit({"phase": phase, **tp_attn[key, tag]})
+        # K1 and K2 at llama-3-70b's unsharded heads: what a 70B pp stage
+        # attends.
+        pp_attn = {}
+        tag, hq, hkv, d = PP70_GEOMETRY
+        for quant in (False, True):
+            body = "_int8" if quant else ""
+            key = "paged_decode_attention" + body
+            phase = f"{key}_{tag}"
+            pp_attn[key] = decode_phase(torch, gen, d, quant,
+                                        *DECODE_SHAPES[0], hq, hkv)
+            emit({"phase": phase, **pp_attn[key]})
+            key = "paged_prefill_attention" + body
+            phase = f"{key}_{tag}"
+            pp_attn[key] = prefill_phase(torch, gen, d, quant, hq, hkv)
+            emit({"phase": phase, **pp_attn[key]})
         # K1 and K2 as one shard of a dp-local grid runs them: the
         # shard's view of the pool and its rebased tables.
         dplocal = {}
@@ -6407,6 +6839,11 @@ def main() -> int:
         for line in model_dp:
             emit(line)
         torch.cuda.empty_cache()
+        phase = "model_pp"
+        model_pp = model_pp_phase(torch, kernels)
+        for line in model_pp:
+            emit(line)
+        torch.cuda.empty_cache()
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"),
@@ -6420,8 +6857,9 @@ def main() -> int:
                                                  batch_reference(base)))
         serve_embed, serve["batch_reference"] = serve.pop("during")
         emit(serve)
-        phase = "serve_tp / serve_dp"
-        serve_tp, serve_dp = serve_tp_dp_phases(torch, serve, tp_ref)
+        phase = "serve_tp / serve_dp / serve_pp"
+        serve_tp, serve_dp, serve_pp = serve_tp_dp_phases(torch, serve,
+                                                          tp_ref)
         emit(serve_tp)
         print(f"serve_tp on {'; '.join(smi.splitlines())}: llama-3-8b "
               f"--tp {TP} (startup {serve_tp['startup_s']:.1f} s): "
@@ -6459,6 +6897,32 @@ def main() -> int:
                           f"{max(x['logits_rel_err']):.4f} (gap "
                           f"{max(x['argmax_gap']):.4f})" for x in model_dp),
               flush=True)
+        emit(serve_pp)
+        print(f"serve_pp on {'; '.join(smi.splitlines())}: llama-3-8b "
+              f"({SERVE_TP_LAYERS} layers) --pp {PP} --pp-microbatches "
+              f"{PP_MICROBATCHES}: {serve_pp['output_tok_s']:.1f} tok/s, "
+              f"TTFT mean {serve_pp['ttft_mean_s']:.4f} s max "
+              f"{serve_pp['ttft_max_s']:.4f} s, ITL mean "
+              f"{serve_pp['itl_mean_s']:.5f} s, K1 / K2 launches "
+              f"{serve_pp['launches']['paged_decode_attention']} / "
+              f"{serve_pp['launches']['paged_prefill_attention']}, a stage "
+              f"{serve_pp['rank_launches']}, lone chats equal to the "
+              f"unsharded engine's: {serve_pp['lone_equal_unsharded']}; "
+              f"serve_tp (the same weights, --tp {TP}) "
+              f"{serve_tp['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve_tp['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve_tp['itl_mean_s']:.5f} s; serve (llama-3-1b) "
+              f"{serve['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve['itl_mean_s']:.5f} s; model_pp logits rel err "
+              "against the kernel path / the gather path "
+              + "; ".join(f"{x['model']} pp {x['pp']} M {x['microbatches']}"
+                          f" {x['kv_quant']} "
+                          f"{max(x['logits_rel_err_vs_kernel']):.4f} / "
+                          f"{max(x['logits_rel_err']):.4f} (gap "
+                          f"{max(x['argmax_gap']):.4f}, bitwise "
+                          f"{all(x['bitwise_kernel_path'])})"
+                          for x in model_pp), flush=True)
         phase = "serve_distributed"
         dist = serve_distributed_phase(serve, serve_embed)
         emit(dist)
@@ -6768,6 +7232,14 @@ def main() -> int:
             extra["launches_gguf"] = gg["launches"][key]
         if "eager_ms" in k:
             extra["eager_ms"] = k["eager_ms"]
+        if d == 128 and B in (None, DECODE_SHAPES[0][0]):
+            # llama-3-8b's heads are these: the launches of its pp path,
+            # model_pp's 8B legs and (bf16) serve_pp's worker.
+            extra["launches_model_pp"] = sum(
+                x["launches"][key] for x in model_pp
+                if x["model"] == "llama-3-8b")
+            if not key.endswith("_int8"):
+                extra["launches_serve_pp"] = serve_pp["launches"][key]
         name = (key + ("" if d == 64 else f"_d{d}")
                 + ("" if B in (None, DECODE_SHAPES[0][0]) else f"_b{B}"))
         summary.append(summary_entry(
@@ -6815,6 +7287,18 @@ def main() -> int:
             extra.update(extra_ep)
         summary.append(summary_entry(k, f"{key}_{tag}", launches,
                                      launches_from=frm, **extra))
+    # K1 / K2 at llama-3-70b's unsharded heads: the launches of model_pp's
+    # 70B runs (bf16 and int8), counts zeroed just before each.
+    pp70 = {x["kv_quant"]: x for x in model_pp if x["model"] == "llama-3-70b"}
+    for key, k in pp_attn.items():
+        run = pp70["int8" if key.endswith("_int8") else "none"]
+        extra = {"tflops": k["tflops"]} if "tflops" in k else {}
+        if "eager_ms" in k:
+            extra["eager_ms"] = k["eager_ms"]
+        summary.append(summary_entry(k, f"{key}_{PP70_GEOMETRY[0]}",
+                                     run["launches"][key],
+                                     launches_from="model_pp llama-3-70b",
+                                     **extra))
     # K1 / K2 at a dp-local shard's geometry (llama-3-8b's heads): the
     # launches of model_dp's dp-local runs (bf16 and int8), every shard's
     # counting once; serve_dp's `--dp 2` worker runs the bf16 bodies at

@@ -126,8 +126,21 @@ prefill's row totals to a multiple of ep) and `ModelConfig.moe_capacity`
 bounds each expert's buffer a source shard; the expert load sums over dp
 and ep, and `moe_dropped_tokens` counts what a bound dropped.
 
-Not ported yet: prewarm of the packed prefill shapes; pp, sp x tp, sp x
-dp and sp x ep meshes (ROADMAP.md A7).
+`pp > 1` runs every step over the pipeline's stages (parallel/mesh.
+PpStages, parallel/pipeline.py), JAX's pp engine: each stage holds its
+layers' weights and their paged KV (the embedding on stage 0, the final
+norm and the head on the last), decode rows pad to a multiple of
+`pp_microbatches` (M), and the fused greedy step and the decode window
+run the GPipe schedule of M microbatches, K1 on every stage; a packed
+prefill rides the stages as one microbatch through K2 on each.  Block
+extract and inject go through the pp block ops, the whole cache's wire
+block; the capability table refuses MoE, speculative decode,
+embeddings and multimodal prompts under pp, in JAX's words.  A stored
+KV byte and a decode's KV reads split over the stages: `kv_shard_count`
+and `kv_traffic_shards` are pp, as JAX's.
+
+Not ported yet: prewarm of the packed prefill shapes; sp x tp, sp x dp
+and sp x ep meshes (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -183,7 +196,13 @@ from dynamo_tpu_torch.models.llama import (
 )
 from dynamo_tpu_torch.models.weights import init_params
 from dynamo_tpu_torch.ops.cuda import PACK_ALIGN, ring_kernel_supported
-from dynamo_tpu_torch.parallel.mesh import DpGrid, MeshConfig, SpRing
+from dynamo_tpu_torch.parallel.mesh import DpGrid, MeshConfig, PpStages, SpRing
+from dynamo_tpu_torch.parallel.pipeline import (
+    init_pp_cache,
+    make_pp_block_ops,
+    make_pp_greedy_step,
+    shard_stages,
+)
 from dynamo_tpu_torch.parallel.sharding import (
     PlaneSpec,
     check_plane,
@@ -286,6 +305,11 @@ class EngineConfig:
     # Expert parallelism: ep ranks a (dp row, tp slice), E/ep experts
     # each (an MoE model only).
     ep: int = 1
+    # Pipeline parallelism: pp stages of L/pp layers each, stage 0 on
+    # `device` (composes with no other axis), and the GPipe microbatch
+    # count of the stage schedule (decode rows pad to a multiple of it).
+    pp: int = 1
+    pp_microbatches: int = 2
     # Batch-sharded attention with slot-sharded KV (JAX's
     # `--dp-attention`): attention weights replicate, the MLP stays
     # tp-sharded.
@@ -353,8 +377,8 @@ class EngineCore:
         self.cache_cfg = kvc.KvCacheConfig.for_model(
             cfg, num_blocks=config.num_blocks, block_size=self.block_size,
             kv_quant=config.kv_quant)
-        self.mesh = MeshConfig(dp=config.dp, sp=config.sp, ep=config.ep,
-                               tp=config.tp)
+        self.mesh = MeshConfig(dp=config.dp, pp=config.pp, sp=config.sp,
+                               ep=config.ep, tp=config.tp)
         self._dp_local = self._resolve_dp(config)
         self._n_local_shards = 1
         if self._dp_local:
@@ -396,14 +420,30 @@ class EngineCore:
                 logger.info("dp grid: %s (%s) ranks on %s",
                             self.mesh.describe(), self.grid.mode,
                             self.grid.describe())
-        self.group = self.grid
+        self.stages: Optional[PpStages] = None
+        if config.pp > 1:
+            # The capability table's refusals first, in JAX's order.
+            check_plane(PlaneSpec(moe=cfg.is_moe,
+                                  spec=config.speculative_tokens > 0),
+                        self.mesh)
+            validate(cfg, self.mesh)
+            self.stages = PpStages.for_mesh(self.mesh, self.device,
+                                            config.pp_microbatches)
+            logger.info("pp stages: %d stages, %d microbatches, on %s",
+                        config.pp, config.pp_microbatches,
+                        self.stages.describe())
+        # The steps' rank set: the grid, the pipeline's stages, or None.
+        self.group = self.grid if self.grid is not None else self.stages
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            # A sharded engine's draws are cut into its ranks' slices as
-            # they come (the same weights as the meshless engine's).
-            params = init_params(cfg, gen, self.device, group=self.grid,
+            # A sharded engine's draws are cut into its ranks' slices (a
+            # pipeline's go to their stages) as they come: the same
+            # weights as the meshless engine's.
+            params = init_params(cfg, gen, self.device, group=self.group,
                                  moe_mode=self.moe_mode)
+        elif self.stages is not None:
+            params = shard_stages(params, self.stages)
         elif self.grid is not None:
             # Each rank keeps a copy of its slice only, copied from where
             # the whole state lies (best the host: a card then never holds
@@ -414,6 +454,8 @@ class EngineCore:
                 self.grid)
         if self.grid is not None:
             self.cache = kvc.init_grid_caches(self.cache_cfg, self.grid)
+        elif self.stages is not None:
+            self.cache = init_pp_cache(self.cache_cfg, self.stages)
         else:
             self.cache = kvc.init_cache(self.cache_cfg, self.device)
         self.params = params
@@ -421,9 +463,11 @@ class EngineCore:
         # KV byte splits over kv_shard_count chips (tp's heads or slots;
         # dp-local's flat grid; plain dp replicates), and each chip's
         # attention reads its rows' context, so traffic divides by dp*tp.
-        self.kv_traffic_shards = config.dp * config.tp
+        # A pp stage holds and reads its layers' slice for every row:
+        # both divide by pp.
+        self.kv_traffic_shards = config.dp * config.tp * config.pp
         self.kv_shard_count = (self.kv_traffic_shards if self._dp_local
-                               else config.tp)
+                               else config.tp * config.pp)
         # Non-local dp-attention reads pages from any shard: the gather
         # path, as JAX's capability table sends it.
         self._use_kernel = not (config.dp_attention and not self._dp_local)
@@ -433,6 +477,16 @@ class EngineCore:
             tp=self.group)
         self._packed_step = make_packed_prefill_step(
             cfg, self.block_size, moe_mode=self.moe_mode, tp=self.group)
+        # pp's fused greedy single step (the schedule, then the argmax on
+        # stage 0's card) and its block ops; other meshes fuse the argmax
+        # after their step.
+        self._greedy_step = None
+        if self.stages is not None:
+            self._greedy_step = make_pp_greedy_step(
+                cfg, self.block_size, self.stages, config.pp_microbatches,
+                use_decode_kernel=self._use_kernel)
+            self._pp_extract, self._pp_inject = make_pp_block_ops(
+                self.block_size, self.stages, self.cache_cfg.quantized)
         self.ring: Optional[SpRing] = None
         self._sp_step = None
         if config.sp > 1:
@@ -465,12 +519,14 @@ class EngineCore:
         # whose tokens shard over dp x ep): the grid's decode buckets are
         # the scheduler's, padded so.  A packed prefill takes one group a
         # dp row (a rank under dp_attention), each row's total a multiple
-        # of `_ep_split`.
+        # of `_ep_split`.  pp's rows pad to a multiple of its microbatch
+        # count and its packed prefill is one microbatch.
         self._pack_groups = (config.dp * (config.tp if config.dp_attention
                                           else 1)
                              if self.grid is not None else 1)
         self._ep_split = config.ep if self.moe_mode == "dispatch" else 1
-        self._row_mult = self._pack_groups * self._ep_split
+        self._row_mult = (config.pp_microbatches if self.stages is not None
+                          else self._pack_groups * self._ep_split)
         if self._dp_local:
             # Every decode step runs the whole fixed row grid.
             rows_per_shard = self._dp_rows // self._n_local_shards
@@ -642,6 +698,8 @@ class EngineCore:
         if any(not 0 <= int(t) < vocab for t in prompt_tokens):
             raise ValueError(f"prompt token outside the vocabulary [0, {vocab})")
         if prompt_embeds is not None:
+            # pp refuses them, in the capability table's words.
+            check_plane(PlaneSpec(role="mm"), self.mesh)
             prompt_embeds = np.asarray(prompt_embeds)
             if (prompt_embeds.ndim != 2
                     or prompt_embeds.shape[0] > len(prompt_tokens)
@@ -769,7 +827,7 @@ class EngineCore:
                 self.config.model, steps=steps, tokens=tokens,
                 kv_tokens=kv_tokens,
                 kv_bytes_per_token=self._ctx_token_bytes,
-                shards=self.config.tp)
+                shards=self.config.tp * self.config.pp)
             self.profiler.harvest(tag, sig, flops, nbytes)
 
     @hot_path
@@ -991,7 +1049,7 @@ class EngineCore:
         starts), each one call of the packed step."""
         sched = self.scheduler.config
         deltas: List[TokenDelta] = []
-        if self._row_mult > 1:
+        if self._pack_groups * self._ep_split > 1:
             for groups in self._grid_packs(batch.items):
                 deltas.extend(self._dispatch_grid_prefill(groups,
                                                           async_first))
@@ -1242,16 +1300,23 @@ class EngineCore:
                               tokens=bucket,
                               kv_tokens=bucket * work.pages * self.block_size)
         zeros = torch.zeros((bucket,), dtype=torch.int32, device=self.device)
-        logits, self.cache = self._take_load(self._step(
-            self.params, self.cache, self._dev(tokens), self._dev(positions),
-            self._dev(seq_lens), self._dev(bts), zeros))
-        if perm is not None:
-            logits = logits[torch.from_numpy(perm).to(logits.device)]
-        if fused:
-            # Fused greedy step: argmax on the device, one [bucket] copy.
-            toks_dev, lps_dev = greedy_sample(logits), None
+        args = (self.params, self.cache, self._dev(tokens),
+                self._dev(positions), self._dev(seq_lens), self._dev(bts),
+                zeros)
+        lps_dev = None
+        if fused and self._greedy_step is not None:
+            # pp's fused greedy step (parallel/pipeline.py).
+            toks_dev, self.cache = self._greedy_step(*args)
         else:
-            toks_dev, lps_dev = self._sample_rows(logits[: len(live)], live)
+            logits, self.cache = self._take_load(self._step(*args))
+            if perm is not None:
+                logits = logits[torch.from_numpy(perm).to(logits.device)]
+            if fused:
+                # Fused greedy step: argmax on the device, one [bucket] copy.
+                toks_dev = greedy_sample(logits)
+            else:
+                toks_dev, lps_dev = self._sample_rows(logits[: len(live)],
+                                                      live)
         self.counters.host_syncs += 1
         sampled = toks_dev.cpu().numpy()
         lps = lps_dev.cpu().numpy() if lps_dev is not None else None
@@ -1918,6 +1983,8 @@ class EngineCore:
 
     @hot_path
     def _extract_pages(self, pages: List[int]) -> torch.Tensor:
+        if self.stages is not None:
+            return self._pp_extract(self.cache, self._page_ids(pages))
         if self.grid is not None:
             return kvc.extract_grid_blocks(self.cache, self.grid,
                                            self._page_ids(pages),
@@ -1927,6 +1994,10 @@ class EngineCore:
 
     def _inject_pages(self, pages: List[int], data: torch.Tensor) -> None:
         self._validate_block(data[0])   # a stacked batch: one format
+        if self.stages is not None:
+            self._pp_inject(self.cache, self._page_ids(pages),
+                            data.to(self.device))
+            return
         if self.grid is not None:
             kvc.inject_grid_blocks(self.cache, self.grid,
                                    self._page_ids(pages),
@@ -2004,7 +2075,9 @@ class EngineCore:
         """The final-norm hidden state of each prompt's last token: [n, H]
         f32.  One padded prefill per group of R prompts (the gathered
         path), on pages allocated for it and released afterwards (the
-        /v1/embeddings surface)."""
+        /v1/embeddings surface).  The capability table refuses it under
+        pp, in JAX's words."""
+        check_plane(PlaneSpec(role="embed"), self.mesh)
         cfg = self.config.model
         if self._embed_step is None:
             self._embed_step = make_forward_step(

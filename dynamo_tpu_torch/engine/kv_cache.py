@@ -54,6 +54,16 @@ join and split a row's column bands, and `extract_grid_blocks` /
 `inject_grid_blocks` route each page to its shard (and each write to
 every copy), so the wire block stays the unsharded cache's: a tp 2, a
 dp 2 and a tp 1 worker exchange the same bytes.
+
+A pipeline's cache (parallel/mesh.PpStages, parallel/pipeline.py) is
+stage-owned: a list of per-stage caches (`init_stage_caches`), stage s
+holding the `init_cache` of its own L/S layers on its own device, JAX's
+`pp_cache_pspecs` (the stacked layer axis over pp) as a list.
+`extract_stage_blocks` gathers each stage's layers onto the caller's
+card and joins them on the layer axis, `inject_stage_blocks` splits a
+block's layers back over the stages, so a pp worker moves JAX's wire
+block `[2, L, bs, F]` (or the packed int8 one) byte for byte with
+meshless, tp and dp peers.
 """
 
 from __future__ import annotations
@@ -233,6 +243,38 @@ def init_grid_caches(cfg: KvCacheConfig, grid) -> List[dict]:
             shared[key] = c
         out.append(shared[key])
     return out
+
+
+def init_stage_caches(cfg: KvCacheConfig, stages) -> List[dict]:
+    """A pipeline's cache, one dict per stage: the `init_cache` of the
+    stage's L/S layers on its device (`stages`: a PpStages)."""
+    S = len(stages.devices)
+    if cfg.num_layers % S:
+        raise ValueError(f"pp={S} must divide num_layers={cfg.num_layers}")
+    stage = dataclasses.replace(cfg, num_layers=cfg.num_layers // S)
+    return [init_cache(stage, dev) for dev in stages.devices]
+
+
+def extract_stage_blocks(caches: List[dict], pages: torch.Tensor,
+                         block_size: int) -> torch.Tensor:
+    """`extract_blocks` of a pipeline's cache: each stage's layers read on
+    its card, brought to `pages`' device and joined in layer order, the
+    whole cache's wire block."""
+    parts = [extract_blocks(c, pages.to(c["k"][0].device),
+                            block_size).to(pages.device) for c in caches]
+    return torch.cat(parts, dim=2)
+
+
+def inject_stage_blocks(caches: List[dict], pages: torch.Tensor,
+                        data: torch.Tensor, block_size: int) -> None:
+    """`inject_blocks` into a pipeline's cache: the wire block's layers
+    split over the stages that own them, each copied to its card."""
+    first = 0
+    for c in caches:
+        n, dev = len(c["k"]), c["k"][0].device
+        inject_blocks(c, pages.to(dev), data[:, :, first:first + n].to(dev),
+                      block_size)
+        first += n
 
 
 def _junk_view(t: torch.Tensor) -> torch.Tensor:

@@ -472,12 +472,12 @@ def stats_hooks(core: EngineCore):
                 "kv_shard_count": core.kv_shard_count,
                 # Data parallelism: the grid's mode and each rank's K1 /
                 # K2 launches (flat rank (d * ep + e) * tp + t; the ranks
-                # of ep index 0 attend).
+                # of ep index 0 attend; a pipeline's: each stage's).
                 "kv_traffic_shards": core.kv_traffic_shards,
                 "dp_mode": (core.grid.mode if core.grid is not None
                             else None),
-                "rank_launches": (list(core.grid.launches)
-                                  if core.grid is not None else []),
+                "rank_launches": (list(core.group.launches)
+                                  if core.group is not None else []),
                 "prefix_cache": core.prefix_cache_stats(),
                 "spec_decode": spec_decode_stats(core),
                 "mixed_prefill": core.mixed_prefill_stats(),
@@ -492,8 +492,8 @@ def stats_hooks(core: EngineCore):
         # hit and miss tokens start one window together, so launches per
         # dispatch can be read off one /debug/stats reply.
         kernels.reset_launch_counts()
-        if core.grid is not None:
-            core.grid.launches[:] = [0] * core.grid.n
+        if core.group is not None:
+            core.group.launches[:] = [0] * len(core.group.launches)
         core.reset_expert_load()
         core.reset_prefix_stats()
         # The cost calibration and the shapes seen are engine state, not

@@ -48,6 +48,11 @@ Forward contract (unified prefill/decode, as in the JAX package):
   layers runs on the ranks of ep index 0, the ep ranks of a card sharing
   their weights and cache, and an MoE layer's tokens split over the row's
   ep ranks (`_grid_moe`).
+- `tp` a parallel.mesh.PpStages routes the step factories to the
+  pipeline's (parallel/pipeline.py): per-stage states and caches, JAX's
+  GPipe microbatch schedule, each stage running its layers through the
+  meshless step's own bodies (`_decoder_layers`, `_packed_layers`) on
+  its own cache list, K1 / K2 included.
 - MoE layers run `moe_mode` "dense" (the exact oracle) or "grouped" (the
   grouped-expert kernel, ops/cuda/moe_grouped.py) meshless, and "dense"
   (each rank its F/tp slices, an ep rank its experts) or "dispatch" (the
@@ -284,6 +289,53 @@ def _layer_tail(cfg: ModelConfig, layer: State, x: torch.Tensor,
     return _mlp_out(cfg, layer, x, _mlp(cfg, layer, h, moe_mode, loads))
 
 
+def _decoder_layers(cfg: ModelConfig, layers: Sequence[State], cache: Dict,
+                    x: torch.Tensor, positions, rot, seq_lens, write_slots,
+                    ctx_slots, ctx_positions, block_tables, block_size: int,
+                    moe_mode: str, loads: List[torch.Tensor]) -> torch.Tensor:
+    """`layers` in order over x [B, T, H], layer j on the cache's layer
+    j (a stage's cache holds its own layers only): the unified step's
+    body, which the meshless step and each pipeline stage run."""
+    off = cfg.rms_offset
+    for j, layer in enumerate(layers):
+        attn_out = _attention_block(
+            cfg, layer["attn"],
+            rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off),
+            positions, rot, seq_lens, write_slots, ctx_slots, ctx_positions,
+            block_tables, block_size, cache["k"][j], cache["v"][j],
+            *_layer_scales(cache, j))
+        x = _layer_tail(cfg, layer, x, attn_out, moe_mode, loads)
+    return x
+
+
+def _packed_layers(cfg: ModelConfig, layers: Sequence[State], cache: Dict,
+                   x: torch.Tensor, rot, write_slots, args, block_size: int,
+                   moe_mode: str, loads: List[torch.Tensor]) -> torch.Tensor:
+    """`layers` in order over a packed [1, T, H] chunk, attending through
+    the paged-prefill kernel on the cache's layer j: the packed prefill's
+    body, which the meshless step and each pipeline stage run.  `args`
+    is (block_tables, seq_lens, q_starts, q_lens) in int32."""
+    T = x.shape[1]
+    off = cfg.rms_offset
+    for j, layer in enumerate(layers):
+        p_attn = layer["attn"]
+        h_in = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off)
+        q, k, v = _qkv(cfg, p_attn, h_in, rot)
+        ks, vs = _layer_scales(cache, j)
+        _write_chunk(cache["k"][j], cache["v"][j], ks, vs,
+                     write_slots, k.reshape(T, cfg.kv_size),
+                     v.reshape(T, cfg.kv_size))
+        # Write-then-attend: the chunk's own K/V are pool rows now, so
+        # cached prefix and in-chunk causality are one position mask.
+        attn = paged_prefill_attention(
+            q[0].contiguous(), cache["k"][j], cache["v"][j], *args,
+            block_size=block_size, scale=cfg.query_scale,
+            soft_cap=cfg.attn_soft_cap, k_scale=ks, v_scale=vs)
+        attn = attn.reshape(1, T, cfg.q_size) @ p_attn["wo"]
+        x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
+    return x
+
+
 def _expert_load(loads: List[torch.Tensor],
                  device: torch.device) -> torch.Tensor:
     """Sum of the layers' [E+1] stats ([1] zeros for a dense model)."""
@@ -485,8 +537,29 @@ def _grid(tp):
     """The step's DpGrid, or None for the meshless step."""
     if tp is not None and not hasattr(tp, "rows"):
         raise TypeError("a sharded step runs over a parallel.mesh.DpGrid "
-                        "(tp alone: DpGrid(devices, dp=1))")
+                        "(tp alone: DpGrid(devices, dp=1)) or, pipelined, "
+                        "over a parallel.mesh.PpStages")
     return tp
+
+
+def _stages(tp):
+    """The step's PpStages (parallel/pipeline.py), or None."""
+    return tp if hasattr(tp, "microbatches") else None
+
+
+def _pp_refusals(stages, sp_ring=None, with_expert_load: bool = False,
+                 return_hidden: bool = False) -> None:
+    """What a pipelined step does not take, in the words of JAX's mesh
+    rule and capability table."""
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+    from dynamo_tpu_torch.parallel.sharding import PlaneSpec, check_plane
+
+    mesh = MeshConfig(pp=stages.pp,
+                      sp=sp_ring.sp if sp_ring is not None else 1)
+    if return_hidden:
+        check_plane(PlaneSpec(role="embed"), mesh)
+    if with_expert_load:
+        raise ValueError("pp v1 supports dense models only")
 
 
 def _check_grid(cfg: ModelConfig, grid, sp_ring=None,
@@ -1019,7 +1092,9 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     ring.
 
     `tp` (a DpGrid): the sharded step over per-rank states and caches
-    (module docstring); inputs and outputs lie on rank 0's card.
+    (module docstring); inputs and outputs lie on rank 0's card.  `tp`
+    a PpStages: the pipelined step (parallel/pipeline.make_pp_step, its
+    `microbatches` GPipe microbatches) over per-stage states and caches.
 
     `return_hidden` (the embeddings step): the step returns the
     final-norm hidden state at `sample_positions` in f32 ([B, H]) in
@@ -1028,6 +1103,13 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     if return_hidden and (sp_ring is not None or with_expert_load):
         raise ValueError("return_hidden takes neither sp_ring nor "
                          "with_expert_load")
+    stages = _stages(tp)
+    if stages is not None:
+        from dynamo_tpu_torch.parallel.pipeline import make_pp_step
+
+        _pp_refusals(stages, sp_ring, with_expert_load, return_hidden)
+        return make_pp_step(cfg, block_size, stages, stages.microbatches,
+                            use_decode_kernel=use_decode_kernel)
     grid = _grid(tp)
     if grid is not None:
         _check_grid(cfg, grid, sp_ring, use_decode_kernel, moe_mode)
@@ -1074,17 +1156,11 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
                                                 block_size)
         x = _embed(cfg, state, tokens, input_embeds, embed_mask)
         rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        off = cfg.rms_offset
         loads: List[torch.Tensor] = []
-        for i, layer in enumerate(state["layers"]):
-            attn_out = _attention_block(
-                cfg, layer["attn"],
-                rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off),
-                positions, rot, seq_lens, write_slots, ctx_slots, ctx_positions,
-                block_tables, block_size, cache["k"][i], cache["v"][i],
-                *_layer_scales(cache, i))
-            x = _layer_tail(cfg, layer, x, attn_out, moe_mode, loads)
-        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
+        x = _decoder_layers(cfg, state["layers"], cache, x, positions, rot,
+                            seq_lens, write_slots, ctx_slots, ctx_positions,
+                            block_tables, block_size, moe_mode, loads)
+        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, cfg.rms_offset)
         if sample_positions is not None:
             x = x[torch.arange(B, device=x.device), sample_positions.long()]
         if return_hidden:
@@ -1121,8 +1197,16 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
     masked positions take those embeddings in place of the token lookup;
     a batch mixes such segments with plain ones freely.  `tp` (a
     DpGrid): the pack is grid-shaped (`_grid_packed`) and each rank runs
-    the kernel on its heads and cache shard."""
+    the kernel on its heads and cache shard; a PpStages: the pack rides
+    the stages as one microbatch, each stage running the kernel on its
+    own layers (parallel/pipeline.make_pp_packed_prefill_step)."""
     cfg.validate()
+    stages = _stages(tp)
+    if stages is not None:
+        from dynamo_tpu_torch.parallel.pipeline import (
+            make_pp_packed_prefill_step)
+
+        return make_pp_packed_prefill_step(cfg, block_size, stages)
     grid = _grid(tp)
     if grid is not None:
         _check_grid(cfg, grid, moe_mode=moe_mode)
@@ -1151,27 +1235,12 @@ def make_packed_prefill_step(cfg: ModelConfig, block_size: int,
         x = _embed(cfg, state, tokens, input_embeds,
                    embed_mask)[None]                               # [1, T, H]
         rot = rope_tables(positions[None], cfg.head_dim, cfg.rope_theta)
-        off = cfg.rms_offset
         args = (block_tables, seq_lens.to(torch.int32),
                 q_starts.to(torch.int32), q_lens.to(torch.int32))
         loads: List[torch.Tensor] = []
-        for i, layer in enumerate(state["layers"]):
-            p_attn = layer["attn"]
-            h_in = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, off)
-            q, k, v = _qkv(cfg, p_attn, h_in, rot)
-            ks, vs = _layer_scales(cache, i)
-            _write_chunk(cache["k"][i], cache["v"][i], ks, vs,
-                         write_slots, k.reshape(T, cfg.kv_size),
-                         v.reshape(T, cfg.kv_size))
-            # Write-then-attend: the chunk's own K/V are pool rows now, so
-            # cached prefix and in-chunk causality are one position mask.
-            attn = paged_prefill_attention(
-                q[0].contiguous(), cache["k"][i], cache["v"][i], *args,
-                block_size=block_size, scale=cfg.query_scale,
-                soft_cap=cfg.attn_soft_cap, k_scale=ks, v_scale=vs)
-            attn = attn.reshape(1, T, cfg.q_size) @ p_attn["wo"]
-            x = _layer_tail(cfg, layer, x, attn, moe_mode, loads)
-        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, off)
+        x = _packed_layers(cfg, state["layers"], cache, x, rot, write_slots,
+                           args, block_size, moe_mode, loads)
+        x = rms_norm(x, state["final_norm"], cfg.rms_norm_eps, cfg.rms_offset)
         sel = x[0][sample_positions.long()]                       # [R, H]
         logits = _lm_head(cfg, state, sel)
         if cfg.is_moe:
@@ -1205,11 +1274,27 @@ def make_decode_window(cfg: ModelConfig, block_size: int, window: int,
     positions and lengths do not advance.  `with_expert_load` appends the
     window's summed [E+1] expert load to the returned tuple.  `tp` (a
     DpGrid): every step runs over the grid and samples the gathered
-    full-vocab logits on rank 0's card."""
-    from dynamo_tpu_torch.engine.sampling import sample
+    full-vocab logits on rank 0's card; a PpStages: every step is the
+    pipelined one (parallel/pipeline.make_pp_decode_window)."""
+    stages = _stages(tp)
+    if stages is not None:
+        from dynamo_tpu_torch.parallel.pipeline import make_pp_decode_window
 
+        _pp_refusals(stages, with_expert_load=with_expert_load)
+        return make_pp_decode_window(cfg, block_size, stages,
+                                     stages.microbatches, window,
+                                     greedy_only=greedy_only,
+                                     use_decode_kernel=use_decode_kernel)
     step = make_forward_step(cfg, block_size, use_decode_kernel, moe_mode,
                              with_expert_load, tp=tp)
+    return _window_loop(step, window, greedy_only, with_expert_load)
+
+
+def _window_loop(step, window: int, greedy_only: bool,
+                 with_expert_load: bool):
+    """`make_decode_window`'s run() over one step function: K calls of
+    `step`, each fed the tokens the last one sampled, on the device."""
+    from dynamo_tpu_torch.engine.sampling import sample
 
     def run(state, cache, last_tokens, positions0, seq_lens0, block_tables,
             temp, top_k, top_p, seeds: Sequence, key_offsets: Sequence):

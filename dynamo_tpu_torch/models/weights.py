@@ -16,7 +16,11 @@ along the axis `parallel.sharding.param_pspecs` names (`shard_state`).
 No card should hold the whole model beside its slices, so the whole
 state reaches `shard_state` from the host (`from_jax_params(params,
 "cpu")`, a checkpoint's memory map), or `init_params` is given the
-group and cuts each layer and table as soon as it is drawn.
+group and cuts each layer and table as soon as it is drawn.  A
+pipeline's stages (parallel/mesh.PpStages) hold one such state each,
+over the stage's layers (parallel/pipeline.shard_stages); given the
+stages, `init_params` puts each layer and table on the stage that holds
+it as soon as it is drawn.
 """
 
 from __future__ import annotations
@@ -49,13 +53,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     card and a piece share one copy.  An MoE model's pieces follow
     `moe_mode` on the grid (default JAX's auto: "dispatch" over an ep
     axis, else "dense"): its experts over ep, each expert's intermediate
-    width over tp."""
+    width over tp.
+
+    With pipeline stages for `group` (parallel/mesh.PpStages) the result
+    is the stages' states (`shard_stages` of the same draws): each layer
+    and table moves to the stage that holds it as it is drawn, so
+    `device` holds at most one piece beside the stages' pieces."""
     cfg.validate()
     dtype = cfg.dtype
     device = torch.device(device)
     h = cfg.hidden_size
     specs = None
-    if group is not None:
+    stages = group if hasattr(group, "microbatches") else None
+    if stages is not None:
+        from dynamo_tpu_torch.parallel.mesh import _to_device
+        from dynamo_tpu_torch.parallel.pipeline import shard_stages
+
+        S = stages.pp
+        if cfg.num_layers % S:
+            raise ValueError(f"pp={S} must divide num_layers="
+                             f"{cfg.num_layers}")
+        per_stage = cfg.num_layers // S
+        stage_of = {"embed": 0, "final_norm": S - 1, "lm_head": S - 1}
+    elif group is not None:
         from dynamo_tpu_torch.parallel.sharding import (
             param_pspecs, shard_state)
 
@@ -64,7 +84,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         specs = param_pspecs(cfg, moe_mode, dp_attention=group.dp_attention)
 
     def keep(piece, *path):
-        """The whole piece, or its ranks' slices (a list)."""
+        """The whole piece (on its stage's device for a pipeline), or its
+        ranks' slices (a list)."""
+        if stages is not None:
+            s = (path[1] // per_stage if path[0] == "layers"
+                 else stage_of[path[0]])
+            return _to_device(piece, stages.devices[s])
         if specs is None:
             return piece
         spec = specs
@@ -126,6 +151,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             out["lm_head"] = pick(head)
         return out
 
+    if stages is not None:
+        return shard_stages(state(lambda piece: piece), stages)
     if group is None:
         return state(lambda piece: piece)
     return [state(lambda piece, r=r: piece[r])
@@ -149,9 +176,31 @@ def from_jax_params(params, device: Union[str, torch.device]) -> State:
     their structure; every leaf becomes a tensor of the same dtype on
     `device`.  For a rank grid, `device` "cpu": `shard_state` (or
     `EngineCore(params=...)`) then copies each rank's slice from the
-    host straight to its card."""
+    host straight to its card.  JAX's stacked pytree (pipeline.
+    stack_layer_params: `layers` one dict of [L, ...] leaves) comes
+    across as the port's list of L layer dicts."""
+    if isinstance(params, dict) and isinstance(params.get("layers"), dict):
+        params = dict(params, layers=_unstack(params["layers"]))
     if isinstance(params, dict):
         return {k: from_jax_params(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return [from_jax_params(v, device) for v in params]
     return _to_tensor(params, device)
+
+
+def _unstack(tree) -> List:
+    """A tree of [L, ...] leaves as a list of L trees of their rows."""
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        else:
+            yield t
+
+    def row(t, i):
+        if isinstance(t, dict):
+            return {k: row(v, i) for k, v in t.items()}
+        return t[i]
+
+    n = next(leaves(tree)).shape[0]
+    return [row(tree, i) for i in range(n)]

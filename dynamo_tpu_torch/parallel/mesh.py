@@ -1,10 +1,11 @@
 """The port's mesh: the five named axes, the sequence-parallel ring, the
-tensor-parallel group, the expert-parallel group and the rank grid.
+tensor-parallel group, the expert-parallel group, the rank grid and the
+pipeline's stages.
 
 `MeshConfig` keeps the JAX package's axis order (dp, pp, sp, ep, tp) and
-its `describe()`.  `sp`, `tp`, `dp` and `ep` are wired in the port; `sp
-x tp`, `sp x dp`, and any pp above 1, raise, naming the roadmap item
-that queues it.
+its `describe()`.  Every axis is wired in the port; `sp x tp` and `sp x
+dp` raise, naming the roadmap item that queues them, and pp composes with
+no other axis, in the words of JAX's `_validate_pp`.
 
 A JAX mesh is an array of devices, one program each, so it can be no
 larger than the devices it is made of.  A CUDA card runs many streams, so
@@ -57,6 +58,18 @@ Attention, the embedding and the head run on the ranks of ep index 0
 never name ep), and an MoE layer's tokens split over the row's ep ranks.
 Ranks of one place (`places[f]`, by default the card) and one piece
 share one copy of it.  A meshless step runs no grid.
+
+`PpStages`: the pipeline's S stage ranks (JAX's GPipe stage schedule,
+parallel/pipeline.py).  Stage s owns layers `[s * L/S, (s + 1) * L/S)`
+and those layers' paged KV.  Stage 0 runs on the caller's current
+stream and every other stage on a stream of its own, on one card or
+several.  An activation crosses from stage s to s + 1 through `send`:
+on one card the receiving stream waits on an event after the sender's
+work and the tensor is recorded on it (`record_stream`), so the caching
+allocator does not hand its memory out while the next stage reads it;
+across cards the same event orders a peer `copy_`.  `home` brings the
+last stage's outputs back to the caller's stream on stage 0's card, as
+`DpGrid.home` does.
 """
 
 from __future__ import annotations
@@ -70,16 +83,10 @@ import torch
 AXES = ("dp", "pp", "sp", "ep", "tp")
 
 
-# What each axis the port does not run yet waits for.
-QUEUED = {
-    "pp": "pp waits for ROADMAP.md A7",
-}
-
-
 @dataclass(frozen=True)
 class MeshConfig:
     """Degrees per axis: `sp` may exceed 1 only where dp, ep and tp do
-    not."""
+    not, and `pp` only where every other axis is 1."""
 
     dp: int = 1
     pp: int = 1
@@ -91,8 +98,13 @@ class MeshConfig:
         for axis, n in zip(AXES, self.shape):
             if n < 1:
                 raise ValueError(f"mesh axis {axis}={n} must be at least 1")
-            if axis in QUEUED and n > 1:
-                raise ValueError(f"mesh axis {axis}={n}: {QUEUED[axis]}")
+        if self.pp > 1:
+            for axis in ("dp", "sp", "ep", "tp"):
+                n = getattr(self, axis)
+                if n != 1:
+                    raise ValueError(
+                        f"pp v1 composes with no other axis in-mesh (got "
+                        f"{axis}={n}); run dp via engine replicas")
         if self.sp > 1 and self.tp > 1:
             raise ValueError(
                 f"mesh sp{self.sp}xtp{self.tp}: sp x tp waits for ROADMAP.md "
@@ -366,8 +378,8 @@ class TpGroup:
         of a DpGrid)."""
         self.devices: List[torch.device] = _rank_devices(devices, "tp group")
         self.tp = len(self.devices)
-        self.home = (self.devices[0] if home is None
-                     else _rank_devices([home], "tp group")[0])
+        self.home_device = (self.devices[0] if home is None
+                            else _rank_devices([home], "tp group")[0])
         self.cuda = self.devices[0].type == "cuda" and (
             self.tp > 1 or own_first)
         # Distinct cards, in rank order.
@@ -405,13 +417,13 @@ class TpGroup:
         if not self.cuda:
             return
         evs = {}
-        for d in dict.fromkeys(self.cards + [self.home]):
+        for d in dict.fromkeys(self.cards + [self.home_device]):
             evs[d] = torch.cuda.Event()
             evs[d].record(torch.cuda.current_stream(d))
         for r, s in enumerate(self.streams):
             if s is not None:
                 s.wait_event(evs[self.devices[r]])
-                s.wait_event(evs[self.home])
+                s.wait_event(evs[self.home_device])
 
     def join(self) -> None:
         """The current stream of every rank's card waits for every rank on
@@ -420,13 +432,13 @@ class TpGroup:
         caller queues next."""
         if not self.cuda:
             return
-        main = torch.cuda.current_stream(self.home)
+        main = torch.cuda.current_stream(self.home_device)
         for r, s in enumerate(self.streams):
             if s is None:
                 continue
             ev = self._mark(r)
             main.wait_event(ev)
-            if self.devices[r] != self.home:
+            if self.devices[r] != self.home_device:
                 torch.cuda.current_stream(self.devices[r]).wait_event(ev)
 
     def _move(self, dst: int, src: int, t: torch.Tensor) -> torch.Tensor:
@@ -740,6 +752,54 @@ class _AttentionGrid:
         self.dp_attention, self.dp_local = grid.dp_attention, grid.dp_local
         self.mode, self.holders = grid.mode, grid.holders
         self.attention = self
+
+
+class PpStages(TpGroup):
+    """The pipeline's S stage ranks on a list of devices (the module
+    docstring), and the GPipe microbatch count M of the steps built on
+    them.  The streams and the ordered hand-over are a TpGroup's: stage
+    0 on the caller's current stream, stages 1.. on their own.
+
+    `places` names where each stage's copies live (default: its device):
+    stages of one place share one copy of a piece two stages hold (the
+    embedding table of a tied-embedding model, read by stage 0's lookup
+    and the last stage's head).  `launches[s]` counts the K1 / K2
+    launches stage s made."""
+
+    def __init__(self, devices: Sequence, microbatches: int = 2,
+                 places: Optional[Sequence] = None):
+        super().__init__(devices)
+        self.pp = self.tp
+        if microbatches < 1:
+            raise ValueError(f"pp microbatches={microbatches} must be at "
+                             "least 1")
+        self.microbatches = microbatches
+        self.places = list(places) if places is not None else list(
+            self.devices)
+        if len(self.places) != self.pp:
+            raise ValueError(f"{len(self.places)} places for {self.pp} "
+                             "stages")
+        self.launches = [0] * self.pp
+
+    @classmethod
+    def for_mesh(cls, mesh: MeshConfig, primary: torch.device,
+                 microbatches: int = 2) -> "PpStages":
+        """The stages of a mesh's pp axis: stage 0 on `primary`, the
+        engine's device, the stages spread over the visible cards,
+        shared round-robin where there are fewer."""
+        return cls(default_rank_devices(mesh.pp, torch.device(primary)),
+                   microbatches)
+
+    def send(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        """Stage s's activation `x`, for stage s + 1's stream: an event
+        wait and `record_stream` on one card, a peer copy after the
+        event across cards."""
+        return self._move(s + 1, s, x)
+
+    def home(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        """Stage s's output `x`, for the caller's stream on stage 0's
+        card."""
+        return self._move(0, s, x)
 
 
 def _to_device(x, device: torch.device):

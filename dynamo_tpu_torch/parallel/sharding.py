@@ -1,5 +1,5 @@
-"""Sharding rules and sharded steps of the port (port of the tp, dp, ep
-and `role="sp_prefill"` parts of `dynamo_tpu/parallel/sharding.py`).
+"""Sharding rules and sharded steps of the port (port of the tp, dp, ep,
+pp and `role="sp_prefill"` parts of `dynamo_tpu/parallel/sharding.py`).
 
 Megatron-style tensor parallelism, the JAX package's split: attention's
 wq/wk/wv column-parallel (heads over tp) and wo row-parallel; the MLP's
@@ -53,14 +53,17 @@ class PlaneSpec:
     - `dp_attention` / `dp_local`: batch-sharded attention with
       slot-sharded KV, optionally with page locality.
     - `moe`: the model has expert layers.
-    - `role`: "decode" (the unified step family) or "sp_prefill" (ring-SP
-      whole-prompt prefill).
+    - `spec`: speculative decode (the T = K+1 verify chunk).
+    - `role`: "decode" (the unified step family), "embed"
+      (return_hidden), "mm" (input-embeds prefill) or "sp_prefill"
+      (ring-SP whole-prompt prefill).
     """
 
     use_kernel: bool = False
     dp_attention: bool = False
     dp_local: bool = False
     moe: bool = False
+    spec: bool = False
     role: str = "decode"
 
 
@@ -72,7 +75,12 @@ class Capability:
 
 def plane_capability(plane: PlaneSpec,
                      mesh: Optional[MeshConfig] = None) -> Capability:
-    """THE capability table.  `mesh` None is the meshless engine."""
+    """THE capability table.  `mesh` None is the meshless engine.
+
+    JAX's row "pallas paged decode is not wired into the pp stage scan"
+    is not the port's: each pp stage attends its own pages through K1
+    and K2 (parallel/pipeline.py)."""
+    pp = mesh is not None and mesh.pp > 1
 
     def no(reason: str) -> Capability:
         return Capability(False, reason)
@@ -88,13 +96,34 @@ def plane_capability(plane: PlaneSpec,
             "live on any shard and the kernel's slot indexing cannot "
             "cross chips — set dp_attention_local (plain allocator) or "
             "drop use_pallas_decode for the gather path")
-    if plane.moe and plane.role == "sp_prefill":
+    if plane.moe:
+        if pp:
+            return no(
+                "MoE on the pp engine is declared impossible: the stage "
+                "scan stacks per-stage layer weights into one batched "
+                "pytree and its body has no expert branch (router / "
+                "grouped / dispatch all need per-layer expert weights); "
+                "serve MoE models on a tp/ep/dp mesh or drop --pp")
+        if plane.role == "sp_prefill":
+            return no(
+                "ring-SP prefill is declared impossible for MoE: the sp "
+                "step shards the TOKEN axis around the ICI ring while "
+                "expert dispatch shards tokens over dp×ep — the two "
+                "chunkings conflict; MoE prefill rides the padded or "
+                "packed plane")
+    if plane.spec and pp:
         return no(
-            "ring-SP prefill is declared impossible for MoE: the sp "
-            "step shards the TOKEN axis around the ICI ring while "
-            "expert dispatch shards tokens over dp×ep — the two "
-            "chunkings conflict; MoE prefill rides the padded or "
-            "packed plane")
+            "speculative decode on the pp engine is declared "
+            "impossible: the stage program banks ONE sampled row "
+            "per microbatch, and the T=K+1 verify chunk needs "
+            "all-positions logits; drop --spec-decode or --pp")
+    if plane.role == "embed" and pp:
+        return no("embeddings are not wired for the pp engine "
+                  "(pipeline stages have no return_hidden path)")
+    if plane.role == "mm" and pp:
+        return no("prompt_embeds (multimodal) on the pp engine is "
+                  "not wired (stage step has no input-embeds "
+                  "variant)")
     if plane.role == "sp_prefill" and plane.dp_attention:
         return no("ring-SP prefill is not wired for dp_attention (the "
                   "sp step's cache specs conflict with slot sharding)")
@@ -192,7 +221,12 @@ def validate(cfg: ModelConfig, mesh: MeshConfig,
     """JAX's `validate`: tp must divide the kv heads (unless
     dp-attention shards slots instead of heads), the MLP's intermediate
     width and the vocabulary; ep must divide the experts, and only an
-    MoE model takes an ep axis."""
+    MoE model takes an ep axis.  A pp mesh holds JAX's `_validate_pp`
+    (parallel/pipeline.py)."""
+    if mesh.pp > 1:
+        from dynamo_tpu_torch.parallel.pipeline import _validate_pp
+
+        _validate_pp(cfg, mesh)
     tp, ep = mesh.tp, mesh.ep
     if not dp_attention and cfg.num_kv_heads % tp:
         raise ValueError(

@@ -119,7 +119,8 @@ def modeled_step_cost(cfg, *, steps: int, tokens: int, kv_tokens: int,
     a multiply-add of every matmul weight a token row, plus the
     attention products over the cached tokens.
 
-    Per chip of a tp group of `shards` ranks (`kv_bytes_per_token` is
+    Per chip of a tp group of `shards` ranks, or of a pipeline of
+    `shards` stages, JAX's per-chip divisor (`kv_bytes_per_token` is
     already per chip): each reads 1/shards of the weights, does 1/shards
     of the flops and writes its 1/shards of the logits; the hidden state
     is every rank's."""

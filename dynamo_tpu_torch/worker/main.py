@@ -112,7 +112,7 @@ rows, the ranks of a card share one copy of each tp slice, and
 `--dp-attention` shards attention over the whole grid with the cache's
 slots over tp (JAX's flag; the prefix cache is on, so page locality
 resolves off and attention takes the gather path).  The published
-SliceSpec carries the mesh (`tp2`, `dp2xtp2`, `ep2xtp2`) and the
+SliceSpec carries the mesh (`tp2`, `dp2xtp2`, `ep2xtp2`, `pp2`) and the
 `dp_attention` feature, `/debug/stats` its `mesh`, `tp_devices`, `dp_mode`,
 `kv_shard_count`, `kv_traffic_shards` and the K1 / K2 launches of each
 rank.  `--ep N` (an MoE model) puts N ranks a (dp row, tp slice), each
@@ -121,11 +121,16 @@ all-to-all over the ep ranks (`dense` runs every expert a rank over every
 token instead; `grouped` is meshless), and `--moe-capacity C` bounds each
 expert's buffer a source shard, its drops counted in
 `dynamo_moe_dropped_tokens_total`.  `/debug/stats` shows the mesh
-(`ep2xtp2`) and the `moe_mode`.  `--pp` takes JAX's default; above 1 the
-worker exits naming ROADMAP.md A7.  With `--tp`, `--dp` or `--ep` a
-checkpoint is read on the host and each rank's slice copied straight to
-its card, and a preset's weights are cut as they are drawn, so no card
-ever holds the whole model beside its slices.
+(`ep2xtp2`) and the `moe_mode`.  `--pp N` serves the model pipeline-parallel
+over N stages of this process (parallel/mesh.PpStages, JAX's GPipe
+schedule of `--pp-microbatches` microbatches; parallel/pipeline.py),
+each stage holding its layers and their paged KV and attending through
+K1 and K2; pp composes with no other axis, as in JAX.  `/debug/stats`
+then shows the mesh (`pp2`), `kv_shard_count` and each stage's K1 / K2
+launches (`rank_launches`).  With `--tp`, `--dp`, `--ep` or `--pp` a
+checkpoint is read on the host and each rank's slice (a stage's layers)
+copied straight to its card, and a preset's weights are cut as they are
+drawn, so no card ever holds the whole model beside its slices.
 
 Not ported: multihost and lockstep, and `--slice`.
 """
@@ -182,7 +187,7 @@ from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.service import LocalEngineClient
 from dynamo_tpu_torch.models.loader import resolve_model
-from dynamo_tpu_torch.parallel.mesh import QUEUED, MeshConfig
+from dynamo_tpu_torch.parallel.mesh import MeshConfig
 from dynamo_tpu_torch.runtime.config import (
     apply_to_parser_defaults,
     load_layered_config,
@@ -283,8 +288,17 @@ def parse_args(argv=None):
                    help="expert-parallel degree (MoE models): ep ranks a "
                         "dp row and tp slice, E/ep experts each")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel degree (not ported: above 1 "
-                        "exits)")
+                   help="pipeline-parallel degree (GPipe stage-rotated "
+                        "step).  Decode rides the fused stage programs "
+                        "(all-in-one greedy step + schedule-looping "
+                        "windows) and --kv-quant composes via stacked "
+                        "scale buffers; the remaining impossible combos "
+                        "(spec decode, multimodal embeds, "
+                        "/v1/embeddings) reject with the capability "
+                        "table's pointed errors")
+    p.add_argument("--pp-microbatches", type=int, default=2,
+                   help="GPipe microbatch count for the pp stage "
+                        "schedule (batch rows pad to a multiple of it)")
     p.add_argument("--kv-quant", choices=("none", "int8"), default="none",
                    help="KV cache storage: int8 pages with per-token, "
                         "per-head f32 scales, or the model dtype")
@@ -384,13 +398,11 @@ def load_kernels(core: EngineCore) -> None:
 
 def build_mesh(args) -> MeshConfig:
     """The mesh of the parallelism flags (JAX's `build_mesh`): dp * ep *
-    tp ranks of this process, on the cards of `--device`.  What the port
-    does not run exits, naming the roadmap item; ranks that outnumber the
-    cards share them round-robin, which is logged."""
-    if args.pp > 1:
-        raise SystemExit(f"--pp {args.pp}: {QUEUED['pp']}")
+    tp ranks, or pp stages, of this process, on the cards of `--device`.
+    What the port does not run exits with the mesh's reason; ranks that
+    outnumber the cards share them round-robin, which is logged."""
     try:
-        mesh = MeshConfig(dp=args.dp, ep=args.ep, tp=args.tp)
+        mesh = MeshConfig(dp=args.dp, pp=args.pp, ep=args.ep, tp=args.tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     ranks = mesh.size
@@ -426,7 +438,8 @@ def build_engine(args, kv_event_sink):
         device=args.device, moe_mode=args.moe_mode,
         kv_quant=args.kv_quant, speculative_tokens=args.spec_decode,
         speculative_ngram=args.spec_ngram, tp=mesh.tp, dp=mesh.dp,
-        ep=mesh.ep, dp_attention=args.dp_attention),
+        ep=mesh.ep, pp=mesh.pp, pp_microbatches=args.pp_microbatches,
+        dp_attention=args.dp_attention),
         params=params, kv_event_sink=kv_event_sink)
     del params      # a sharded engine keeps its ranks' slices only
     load_kernels(core)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (paged decode and prefill attention over bf16
 and int8 caches, the grouped MoE expert FFN in bf16 and int8, the ring
 attention flash fold over bf16 and int8 blocks) and engine on the card,
-the tensor-parallel forward, the dp grid and the ep grid among them.
+the tensor-parallel forward, the dp grid, the ep grid and the pp stages
+among them.
 
 Every test here needs an NVIDIA GPU and skips without one.  The suite's
 conftest imports JAX, which the GPU machine does not have, so run this
@@ -902,6 +903,134 @@ def test_ep_across_two_cards_matches_one_card(dev):
     want, _, want_load = step(ranks, cache, *inputs)
     assert torch.equal(load, want_load)
     _assert_close(got, want)
+
+
+def _pp_run(dev, devices, M, kv_quant):
+    """tiny-test in bf16 (D 32, 4 layers) over pp stages on `devices`
+    (stage 1.. on streams of their own), the seed-0 weights put on their
+    stages as drawn: a packed prefill of two prompts, then three greedy
+    decode steps through K1, beside the meshless kernel path on the same
+    weights fed the same tokens.  Returns (the stages, their states,
+    their caches, the pipelined logits of each step, the meshless ones,
+    the meshless cache, the pipelined path's K1 and K2 launches)."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+    from dynamo_tpu_torch.ops.cuda import launch_counts
+    from dynamo_tpu_torch.parallel import PpStages
+    from dynamo_tpu_torch.parallel.pipeline import init_pp_cache
+
+    cfg = get_config("tiny-test").replace(head_dim=32, num_layers=4,
+                                          dtype=torch.bfloat16)
+    stages = PpStages(devices, M)
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ranks = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                        group=stages)
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=8, block_size=8,
+                                       kv_quant=kv_quant)
+    cache, flat = init_pp_cache(ccfg, stages), kvc.init_cache(ccfg, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (24,), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.int32)
+    pos = torch.cat([torch.arange(7), torch.full((1,), 1024),
+                     torch.arange(13), torch.full((3,), 1024)]).to(**i32)
+    seg = torch.tensor([0] * 8 + [1] * 16, **i32)
+    bt = torch.tensor([[1, 2, 0], [3, 4, 5]], **i32)
+    lens = torch.tensor([7, 13], **i32)
+    args = (tok, pos, seg, bt, torch.tensor([0, 8], **i32), lens, lens,
+            torch.tensor([6, 20], **i32))
+    launched = dict.fromkeys(launch_counts(), 0)
+
+    def pp(fn, *a):
+        before = launch_counts()
+        out = fn(*a)
+        for k, v in launch_counts().items():
+            launched[k] += v - before[k]
+        return out
+
+    got = [pp(llama.make_packed_prefill_step(cfg, 8, tp=stages), ranks,
+              cache, *args)[0]]
+    want = [llama.make_packed_prefill_step(cfg, 8)(state, flat, *args)[0]]
+    step = llama.make_forward_step(cfg, 8, use_decode_kernel=True,
+                                   tp=stages)
+    flat_step = llama.make_forward_step(cfg, 8, use_decode_kernel=True)
+    nxt = got[0].argmax(-1).to(torch.int32)
+    zero = torch.zeros(2, **i32)
+    for _ in range(3):
+        lens = lens + 1
+        a = (nxt[:, None], (lens - 1)[:, None], lens, bt, zero)
+        got.append(pp(step, ranks, cache, *a)[0])
+        want.append(flat_step(state, flat, *a)[0])
+        nxt = got[-1].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return stages, ranks, cache, got, want, flat, launched
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("M", [1, 2])
+def test_pp_stages_on_one_card_match_the_meshless_kernel_path(dev, M,
+                                                              kv_quant):
+    """pp 2 on card 0, stage 1 on its own stream: the packed prefill (K2
+    once a layer, on its stage) and three decode steps (K1 once a layer,
+    microbatch and step) equal the meshless kernel path bit for bit at M
+    1 (each stage runs the same ops on the same rows) and within 2e-2 of
+    the largest logit at M 2 (a microbatch's products run on fewer
+    rows); each stage made its layers' share; the stage caches' wire
+    blocks of the prefill pages equal the meshless cache's byte for
+    byte; then a pp 2 engine serves the meshless engine's greedy
+    tokens."""
+    from dynamo_tpu_torch.parallel.pipeline import make_pp_block_ops
+
+    stages, _, cache, got, want, flat, launched = _pp_run(
+        dev, [dev, dev], M, kv_quant)
+    assert stages.streams[0] is None and stages.streams[1] is not None
+    body = "_int8" if kv_quant == "int8" else ""
+    assert launched["paged_prefill_attention" + body] == 4
+    assert launched["paged_decode_attention" + body] == 4 * M * 3
+    assert sum(launched.values()) == 4 + 12 * M
+    assert stages.launches == [2 * (1 + 3 * M)] * 2
+    for a, b in zip(got, want):
+        if M == 1:
+            assert torch.equal(a, b)
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= 2e-2, err
+    pages = torch.tensor([1, 3], device=dev)   # prefill rows only
+    extract, _ = make_pp_block_ops(8, stages, kv_quant == "int8")
+    assert torch.equal(extract(cache, pages),
+                       kvc.extract_blocks(flat, pages, 8))
+    prompts = {f"r{i}": list(range(1, n + 1)) for i, n in enumerate((5, 40, 17))}
+    one = _serve(_tiny_engine(dev, kv_quant=kv_quant), prompts)
+    two = _serve(_tiny_engine(dev, kv_quant=kv_quant, pp=2,
+                              pp_microbatches=M), prompts)
+    assert all(len(t) == 20 for t in two.values())
+    # Random bf16 weights may leave near ties: most rows agree throughout.
+    assert sum(one[r] == two[r] for r in prompts) >= 2
+
+
+def test_pp_across_two_cards_matches_one_card(dev):
+    """pp 2 with stage 1 on card 1 (its layers and pages there; each
+    hand-over a peer copy after the sending stage's event, the logits
+    brought home to card 0) against the same stages on one card: equal
+    logits bit for bit, and the block ops move the same wire bytes."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards (torch.cuda.device_count() < 2)")
+    from dynamo_tpu_torch.parallel.pipeline import make_pp_block_ops
+
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    stages, ranks, cache, got, _, _, _ = _pp_run(two[0], two, 2, "none")
+    assert ranks[1]["layers"][0]["attn"]["wq"].device == two[1]
+    assert cache[1]["k"][0].device == two[1]
+    assert all(g.device == two[0] for g in got)
+    one, _, cache1, want, _, _, _ = _pp_run(two[0], [two[0]] * 2, 2, "none")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    pages = torch.tensor([1, 2, 3, 4], device=two[0])
+    ex, inj = make_pp_block_ops(8, stages, False)
+    ex1, _ = make_pp_block_ops(8, one, False)
+    blocks = ex(cache, pages)
+    assert torch.equal(blocks, ex1(cache1, pages))
+    inj(cache, pages + 3, blocks)
+    assert torch.equal(ex(cache, pages + 3), blocks)
 
 
 PAD = 8192   # a pad position: past every real key

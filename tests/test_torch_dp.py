@@ -762,11 +762,16 @@ def test_mesh_worker_and_moe_refusals():
     assert MeshConfig(ep=2).describe() == JaxMeshConfig(ep=2).describe()
     assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
                                   "cpu", "--ep", "2"])) == MeshConfig(ep=2)
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        MeshConfig(pp=2)
+    # pp is ported (tests/test_torch_pp.py) and composes with no dp.
+    assert MeshConfig(pp=2).describe() == JaxMeshConfig(pp=2).describe()
+    with pytest.raises(ValueError, match=r"pp v1 composes with no other "
+                                         r"axis in-mesh \(got dp=2\)"):
+        MeshConfig(pp=2, dp=2)
+    assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
+                                  "cpu", "--pp", "2"])) == MeshConfig(pp=2)
     args = parse_args(["--control-plane", "h:1", "--device", "cpu",
-                       "--pp", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP.md A7"):
+                       "--pp", "2", "--dp", "2"])
+    with pytest.raises(SystemExit, match="composes with no other axis"):
         build_mesh(args)
     with pytest.raises(ValueError, match="sp x dp waits for ROADMAP.md A7"):
         MeshConfig(sp=2, dp=2)

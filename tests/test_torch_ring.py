@@ -460,8 +460,11 @@ def test_moe_and_dp_attention_errors_are_the_reference_tables():
 def test_mesh_config_and_ring_construction():
     assert MeshConfig(sp=4).describe() == JaxMeshConfig(sp=4).describe() == "sp4"
     assert MeshConfig().describe() == "single" and MeshConfig(sp=4).size == 4
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        MeshConfig(pp=2)
+    # pp is ported (tests/test_torch_pp.py) and composes with no sp.
+    assert MeshConfig(pp=2).describe() == "pp2"
+    with pytest.raises(ValueError, match=r"pp v1 composes with no other "
+                                         r"axis in-mesh \(got sp=2\)"):
+        MeshConfig(pp=2, sp=2)
     # tp, dp and ep are ported (tests/test_torch_tp.py, test_torch_dp.py,
     # test_torch_ep.py); sp x tp, sp x dp and sp x ep are not.
     assert MeshConfig(ep=2).describe() == JaxMeshConfig(ep=2).describe()

@@ -30,8 +30,9 @@ lie on the CPU, where K1 and K2 take their plain versions.
    block into a tp 2 int8 engine is refused.
 5. The refusals, each with its pointer: tp not dividing the kv heads,
    the intermediate width or the vocabulary (JAX's `validate` messages,
-   the same numbers), sp x tp, pp above 1 (the mesh and the worker's
-   flags), and `grouped` MoE on a mesh; MoE under tp and `--ep` build.
+   the same numbers), sp x tp, pp x tp (the mesh and the worker's flags;
+   pp alone builds), and `grouped` MoE on a mesh; MoE under tp and
+   `--ep` build.
 6. (`e2e`) a `--tp 2 --device cpu` worker behind the port's frontend
    answers a chat and shows its mesh.
 """
@@ -530,15 +531,20 @@ def test_validate_refuses_as_jax(field, value, tp):
 
 def test_mesh_and_worker_refusals():
     assert MeshConfig(tp=2).describe() == JaxMeshConfig(tp=2).describe() == "tp2"
-    # ep is ported (tests/test_torch_ep.py); pp is not.
+    # ep is ported (tests/test_torch_ep.py), and so is pp
+    # (tests/test_torch_pp.py), which composes with no tp.
     assert build_mesh(parse_args(["--control-plane", "h:1", "--device", "cpu",
                                   "--ep", "2", "--tp", "2"])) == MeshConfig(
         ep=2, tp=2)
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        MeshConfig(pp=2)
+    assert MeshConfig(pp=2).describe() == "pp2"
+    with pytest.raises(ValueError, match=r"pp v1 composes with no other "
+                                         r"axis in-mesh \(got tp=2\)"):
+        MeshConfig(pp=2, tp=2)
+    assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
+                                  "cpu", "--pp", "2"])) == MeshConfig(pp=2)
     args = parse_args(["--control-plane", "h:1", "--device", "cpu",
-                       "--pp", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP.md A7"):
+                       "--pp", "2", "--tp", "2"])
+    with pytest.raises(SystemExit, match="composes with no other axis"):
         build_mesh(args)
     # dp is ported (tests/test_torch_dp.py); sp x dp is not.
     assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
