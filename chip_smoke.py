@@ -4,7 +4,17 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (a failed phase exits non-zero and prints no
-`ok` line):
+`ok` line).  The serving phases' processes start in groups, each group
+beside the phase before it and idle until its own phase (`prestart`):
+`serve`'s server with serve_tp's stack; serve_distributed's,
+serve_observed's two and serve_spec's stacks; serve_disagg's stack with
+serve_int8's and serve_moe's servers; serve_ep's stack with serve_sp's
+three servers, qos's stack and the fleet's reference server.  A phase
+waits until none of them is still starting before it measures.  After
+24 (checkpoint) three lanes run at once: the fleet's reference answer
+(19); 22 and 23; 18, 26 and 27; their times are taken beside the other
+lanes' load; then 19 (fleet) alone.  The `timeline` line gives each
+server's and stack's seconds to ready and each child's to stop.
 
 1. device   — the card's name, count, torch/CUDA versions, and the
    rank -> card maps an `--sp 4` ring and the tp 2 and tp 8 groups get
@@ -53,6 +63,12 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
      width (E 8, top-2, H 4096, F 14336) with serve_moe's decode bucket (8
      tokens), 64 tokens and prefill (512 tokens) row counts routed by the
      port's own MoE routing, each line with the kernel's group width;
+   - K4, bf16 and int8 blocks, over an sp 2 ring on card 0 at T 512
+     (T_loc 256), at what each (dp row, tp slice) of a served grid rings:
+     llama-3-8b's tp 2 rank heads (Hq 16, Hkv 4, D 128) of the `--slice
+     sp2xtp2` worker (the `_tp2` K4 lines) and llama-3-1b's heads (Hq
+     32, Hkv 8, D 64) of the `--sp 2 --dp 2` worker (the `_dp2xsp2`
+     lines), timed and bounded as below;
    - the ring attention flash fold (K4), bf16 and int8 blocks, D 64 and
      D 128 at Hq 32 / Hkv 8: the whole ring of 4 ranks on card 0 (and a
      second line over 4 distinct cards where the machine has them) at
@@ -137,6 +153,22 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    plus one piece.  Then llama-3-70b at full width and 8 of its 80
    layers at pp 4 (2 layers a stage): one prefill and 2 decode steps a
    cache mode against the gather path.
+8g. model_sp_grid — the ring prefill on the rank grid in process, every
+   rank on card 0 with its own stream (rank (0, 0, 0) on the caller's),
+   seed-0 weights at full width and depth: llama-3-8b on sp 2 x tp 2,
+   llama-3-1b on dp 2 x sp 2 and llama-3-8b on dp 2 x sp 2 x tp 2 (eight
+   ranks, at 16 of its 32 layers: SP_GRID_8_RANK_LAYERS, cut for the
+   smoke's time limit), each over a bf16 and an int8 cache: a 480-token
+   and a 512-token prompt a dp row through the grid's sp step (K4 on
+   each (dp row, tp slice)'s ring at the rank's heads) against the
+   unsharded
+   packed prefill (K2, DP_TOL) and the unsharded gather path
+   (MODEL_TOL), greedy tokens up to a near tie; K4 launched exactly
+   layers x tp x sp x sp a dp row and nothing else; every copy of each
+   tp slice's written rows within MODEL_TOL of the packed prefill's;
+   then two decode steps (K1, once a layer and step on each rank of sp
+   index 0 only) from each cache against the kernel path's; the card
+   holds one model's bytes for the grid.
 9. serve    — `python -m dynamo_tpu_torch.frontend --model llama-3-1b` as a
    subprocess; launch counts zeroed, then concurrent streaming and unary
    greedy chat requests over HTTP; each must return its tokens and the
@@ -145,12 +177,10 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    greedy chats, one at a time, whose text the next phase must match, and
    serve_disagg's two long chats, each twice: the second time its sealed
    blocks come from the prefix cache and only its last partial block
-   prefills, as on a disagg decode worker, whose text must match it;
-   last, the chat that `fleet` drains mid-decode, undrained: its greedy
-   reference.
+   prefills, as on a disagg decode worker, whose text must match it.
 9b. serve_tp — a control plane (frontend A's), `python -m
-   dynamo_tpu_torch.worker --model llama-3-8b --num-layers 16 --tp 2`
-   (16 of 32 layers, SERVE_TP_LAYERS) on the card and frontend A,
+   dynamo_tpu_torch.worker --model llama-3-8b --num-layers 8 --tp 2`
+   (8 of 32 layers, SERVE_TP_LAYERS) on the card and frontend A,
    on one stack with serve_dp's workers: `serve`'s concurrent wave, then
    two unary chats whose
    greedy ids must equal the unsharded engine's at the same depth (a
@@ -169,13 +199,30 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    times a layer and rank on the first, none on the gather path of the
    second) checked.  TTFT, ITL and tok/s beside `serve`'s.
 9d. serve_pp — `python -m dynamo_tpu_torch.worker --model llama-3-8b
-   --num-layers 16 --pp 2 --pp-microbatches 2` on serve_tp's stack (the
+   --num-layers 8 --pp 2 --pp-microbatches 2` on serve_tp's stack (the
    same weights and depth): `serve`'s wave, then serve_tp's two unary
    chats held to the unsharded engine's ids (a split only at a near tie)
    and teacher-forced against the plain model; /debug/stats must show
    mesh pp2, kv_shard_count 2, the slice pp2, K2 a whole number of times
    a layer, K1 a whole number of times a layer and microbatch, and each
    stage the same launches.  TTFT, ITL and tok/s beside `serve`'s and
+   serve_tp's.
+9e. serve_sp_grid — on serve_tp's stack: `python -m
+   dynamo_tpu_torch.worker --model llama-3-8b --num-layers 8 --slice
+   sp2xtp2` (serve_tp's weights and depth) and a llama-3-1b `--sp 2 --dp
+   2` worker.  serve_sp's four long chats (400-500 prompt tokens), one
+   at a time, on each: every one takes the ring through K4 (64 fold
+   launches a dispatch on the 8B: 8 layers x 2 rings x 2 ranks x 2
+   hops, 128 on the 1B: 16 layers x 2 rings x 2 ranks x 2
+   hops), the modeled ring bytes JAX's formula, K2 idle; their greedy
+   ids equal the unsharded in-process engine's at the same depth (a
+   split only at a near tie), each served id teacher-forced against the
+   plain model; /debug/stats shows the mesh (sp2xtp2, dp2xsp2),
+   kv_shard_count (2, 1) and the published slice.  The same chats went
+   to serve_tp's `--tp 2` worker just before, for their TTFT; then a
+   mixed wave on the
+   8B worker (two long chats, `serve`'s 8 once a long one has taken the
+   ring): K1, K2 and K4 all launch.  TTFTs, ITL and tok/s beside
    serve_tp's.
 10. serve_distributed — the same model on two `python -m
    dynamo_tpu_torch.worker` processes sharing the card, behind frontend A
@@ -285,7 +332,8 @@ Phases, one JSON line each (a failed phase exits non-zero and prints no
    drains the chat's worker mid-decode (or, where the chat is on the
    other worker, the control-plane command does); the chat finishes
    through the peer with its sealed KV pulled over cuda_ipc, its greedy
-   ids equal `serve`'s (a split only at a near tie) and each id is the
+   ids equal the same chat's answered alone and undrained on a `serve`
+   server of its own (a split only at a near tie) and each id is the
    plain model's greedy choice given the ids before it, up to a near
    tie; a clean drain, one replica left, no chat lost; SIGTERM tears the
    graph down in reverse order.
@@ -361,6 +409,7 @@ It needs CUDA and the repository around it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -370,6 +419,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import urllib.error
@@ -448,6 +498,11 @@ MOE_LAYERS = 16                # mixtral-8x7b depth served on one 80 GB card
 SP = 4                         # ring ranks of the sp phases
 RING_SHAPES = ((1, 512), (1, 8192))   # (B, T): T_loc 128 (served), 2048
 LONG_CHATS = 4                 # serve_sp's first wave
+# serve_sp's servers' (flags, log tag): --sp 4, the same over an int8
+# cache, and --sp 1.
+SP_SERVERS = ((("--sp", str(SP)), "_sp"),
+              (("--sp", str(SP), "--kv-quant", "int8"), "_sp_int8"),
+              (("--sp", "1"), "_sp1"))
 # Libraries whose products run on the tensor cores: the sass phase fails
 # if their SASS holds no HGMMA (wgmma) or HMMA (mma.sync) instruction, and
 # if one of WGMMA_LIBS holds no HGMMA.
@@ -479,10 +534,10 @@ DP_TOL = 3e-2                  # model_dp's logits rel err (model_tp's)
 DPLOCAL = {"shard": 1, "shards": DP * TP, "rows": 16, "ctx": 512,
            "Hq": 32, "Hkv": 8, "D": 128}
 TP_GEOMETRY = (("tp2", 16, 4, 128), ("tp8", 8, 1, 128))
-# serve_tp's depth: 16 of llama-3-8b's 32 layers (model_tp keeps all 32),
+# serve_tp's depth: 8 of llama-3-8b's 32 layers (model_tp keeps all 32),
 # to keep the smoke inside its time limit; its reference engine is drawn
 # at the same depth.
-SERVE_TP_LAYERS = 16
+SERVE_TP_LAYERS = 8
 # Expert parallelism: mixtral-8x7b at full width on ep grids of card 0
 # (model_ep, 2 layers: ep 2, ep 2 x tp 2, dp 2 x ep 2, and tp 2 running
 # the dense MoE) and served by `--ep 2 --tp 2` at MOE_LAYERS (serve_ep).
@@ -525,6 +580,34 @@ PP_WORKER = ("m-pp", ("--model-name", "m-pp", "--component", "pp",
                       "--model", "llama-3-8b", "--num-layers",
                       str(SERVE_TP_LAYERS), "--pp", str(PP),
                       "--pp-microbatches", str(PP_MICROBATCHES)))
+# Sequence parallelism on the rank grid: K4 over an sp 2 ring at T 512
+# (T_loc 256, the served shape) at the heads each (dp row, tp slice) of a
+# served grid rings: llama-3-8b's tp 2 rank heads (Hq 16, Hkv 4, D 128:
+# the `ring_flash_tp2` lines) and llama-3-1b's whole heads under dp 2 x
+# sp 2 (Hq 32, Hkv 8, D 64: the `ring_flash_dp2xsp2` lines);
+# model_sp_grid's legs (name, model, mesh axes, layers), every rank on
+# card 0, each at full width and depth but the eight-rank dp 2 x sp 2 x
+# tp 2 leg, at 16 of its 32 layers;
+# serve_sp_grid's workers (model name, flags) on serve_tp's stack: the
+# llama-3-8b `--slice sp2xtp2` worker at SERVE_TP_LAYERS and a llama-3-1b
+# `--sp 2 --dp 2` one, and their lone long chats' tokens.
+SP_GRID = 2
+SP_GRID_GEOMETRY = (("tp2", 16, 4, 128), ("dp2xsp2", 32, 8, 64))
+# The eight-rank leg's depth (of llama-3-8b's 32): the smoke's time limit.
+SP_GRID_8_RANK_LAYERS = 16
+SP_GRID_SHAPES = ((1, 512),)
+SP_GRID_LEGS = (("sp2xtp2", "llama-3-8b", {"sp": SP_GRID, "tp": TP}, None),
+                ("dp2xsp2", "llama-3-1b", {"dp": DP, "sp": SP_GRID}, None),
+                ("dp2xsp2xtp2", "llama-3-8b",
+                 {"dp": DP, "sp": SP_GRID, "tp": TP}, SP_GRID_8_RANK_LAYERS))
+SP_GRID_WORKERS = {
+    "8b": ("m-sp", ("--model-name", "m-sp", "--component", "sp",
+                    "--model", "llama-3-8b", "--num-layers",
+                    str(SERVE_TP_LAYERS), "--slice", f"sp{SP_GRID}xtp{TP}")),
+    "1b": ("m-sp1b", ("--model-name", "m-sp1b", "--component", "sp1b",
+                      "--sp", str(SP_GRID), "--dp", str(DP))),
+}
+SP_GRID_TOKENS = 16
 # Each kernel's source and the TPU kernel it replaces.
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
@@ -990,11 +1073,12 @@ def moe_kernel_phases(torch, gen):
     return out
 
 
-def ring_phase(torch, gen, D, quant=False, devices=None):
-    """K4 at Hq 32 / Hkv 8: the whole ring of SP ranks (all on card 0, or
-    on `devices`) through the fold kernel, against the plain ring and
-    against causal_attention on the unsharded sequence, at each of
-    RING_SHAPES; one dict per shape."""
+def ring_phase(torch, gen, D, quant=False, devices=None, hq=HQ, hkv=HKV,
+               sp=SP, shapes=RING_SHAPES):
+    """K4 at Hq `hq` / Hkv `hkv` (default 32 / 8): the whole ring of `sp`
+    ranks (all on card 0, or on `devices`) through the fold kernel,
+    against the plain ring and against causal_attention on the unsharded
+    sequence, at each (B, T) of `shapes`; one dict per shape."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.ops.attention import causal_attention
     from dynamo_tpu_torch.ops.cuda import ring_flash_attention, ring_flash_fold
@@ -1003,33 +1087,33 @@ def ring_phase(torch, gen, D, quant=False, devices=None):
 
     dev = torch.device("cuda", 0)
     one_card = devices is None
-    devices = [dev] * SP if one_card else list(devices)
+    devices = [dev] * sp if one_card else list(devices)
     ring = SpRing(devices)
     name = "ring_flash_attention" + ("_int8" if quant else "")
-    G = HQ // HKV
+    G = hq // hkv
     scale = D ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = []
-    for B, T in RING_SHAPES:
-        t_loc = T // SP
-        q = torch.randn(B, T, HQ, D, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(B, T, HKV, D, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(B, T, HKV, D, generator=gen, device=dev).to(torch.bfloat16)
+    for B, T in shapes:
+        t_loc = T // sp
+        q = torch.randn(B, T, hq, D, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, T, hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, T, hkv, D, generator=gen, device=dev).to(torch.bfloat16)
         pos = torch.arange(T, dtype=torch.int32, device=dev).repeat(B, 1)
         scales = {}
         kd, vd = k, v                      # what the references attend
         if quant:
-            kq, ks = kvc.quantize_kv_rows(k.reshape(B * T, HKV * D), HKV)
-            vq, vs = kvc.quantize_kv_rows(v.reshape(B * T, HKV * D), HKV)
-            k, v = kq.reshape(B, T, HKV, D), vq.reshape(B, T, HKV, D)
-            scales = {"k_scale": ks.reshape(B, T, HKV),
-                      "v_scale": vs.reshape(B, T, HKV)}
+            kq, ks = kvc.quantize_kv_rows(k.reshape(B * T, hkv * D), hkv)
+            vq, vs = kvc.quantize_kv_rows(v.reshape(B * T, hkv * D), hkv)
+            k, v = kq.reshape(B, T, hkv, D), vq.reshape(B, T, hkv, D)
+            scales = {"k_scale": ks.reshape(B, T, hkv),
+                      "v_scale": vs.reshape(B, T, hkv)}
             kd = kvc.dequantize_rows(k, scales["k_scale"])
             vd = kvc.dequantize_rows(v, scales["v_scale"])
 
         def cut(x):
             return [c.contiguous().to(devices[r])
-                    for r, c in enumerate(x.chunk(SP, dim=1))]
+                    for r, c in enumerate(x.chunk(sp, dim=1))]
 
         qs, ks_, vs_, ps = cut(q), cut(k), cut(v), cut(pos)
         sc = {n: cut(t) for n, t in scales.items()}
@@ -1051,7 +1135,7 @@ def ring_phase(torch, gen, D, quant=False, devices=None):
         # tensor at T 8192 would not fit beside the rest).
         full = torch.cat([causal_attention(
             q[:, :, h * G:(h + 1) * G], kd[:, :, h:h + 1], vd[:, :, h:h + 1])
-            for h in range(HKV)], dim=2)
+            for h in range(hkv)], dim=2)
         vs_causal = closeness(torch, name, got, full, limits="ring_vs_causal")
         del full, ref
         long = T > 1024
@@ -1063,9 +1147,9 @@ def ring_phase(torch, gen, D, quant=False, devices=None):
         fold_ms = None
         if one_card:
             q1 = (qs[1].float() * scale).contiguous()
-            st = (torch.empty(B, HQ, t_loc, device=dev),
-                  torch.empty(B, HQ, t_loc, device=dev),
-                  torch.empty(B, t_loc, HQ, D, device=dev))
+            st = (torch.empty(B, hq, t_loc, device=dev),
+                  torch.empty(B, hq, t_loc, device=dev),
+                  torch.empty(B, t_loc, hq, D, device=dev))
             o1 = torch.empty_like(qs[1])
             sc0 = {n: t[0] for n, t in sc.items()}
             fold_ms = time_ms(torch, lambda: ring_flash_fold(
@@ -1079,23 +1163,23 @@ def ring_phase(torch, gen, D, quant=False, devices=None):
         del k4, v4
         # Only unmasked query-key pairs count, so a kernel that skips
         # masked tiles can never read over its bound.
-        flops = 4 * B * HQ * D * (T * (T + 1) // 2)
+        flops = 4 * B * hq * D * (T * (T + 1) // 2)
         item = 1 if quant else 2
-        block = B * t_loc * (2 * HKV * D * item
-                             + (2 * HKV * 4 if quant else 0) + 4)
+        block = B * t_loc * (2 * hkv * D * item
+                             + (2 * hkv * 4 if quant else 0) + 4)
         # What the function must move: q read and out written once, every
         # block read by every rank.  The f32 state that one launch per hop
         # stores and reloads is this design's own traffic, not the
         # function's: it is printed beside the bound, not counted in it.
-        nbytes = 2 * q.numel() * 2 + SP * SP * block
-        state = B * t_loc * HQ * D * 4 + 2 * B * HQ * t_loc * 4
-        state_bytes = SP * 2 * (SP - 1) * state
+        nbytes = 2 * q.numel() * 2 + sp * sp * block
+        state = B * t_loc * hq * D * 4 + 2 * B * hq * t_loc * 4
+        state_bytes = sp * 2 * (sp - 1) * state
         b_ms, b_by = bound(nbytes, flops)
         # The unmasked fold does every pair of its two shards.
-        fold_flops = 4 * B * HQ * D * t_loc * t_loc
+        fold_flops = 4 * B * hq * D * t_loc * t_loc
         out.append({"name": name,
-                    "shape": {"B": B, "T": T, "sp": SP, "t_loc": t_loc,
-                              "Hq": HQ, "Hkv": HKV, "D": D,
+                    "shape": {"B": B, "T": T, "sp": sp, "t_loc": t_loc,
+                              "Hq": hq, "Hkv": hkv, "D": D,
                               "blocks": "int8" if quant else "bf16",
                               "ranks_on": [str(d) for d in devices]},
                     **reading, "vs_causal_attention": vs_causal,
@@ -1519,6 +1603,217 @@ def model_sp_phases(torch, kernels):
             for kv_quant in ("none", "int8")]
 
 
+def sp_grid_compare(torch, kernels, cfg, state, grid, kv_quant: str) -> dict:
+    """One model_sp_grid run: a 480-token and a 512-token prompt a dp row
+    (2 x dp rows) through the grid's ring prefill (`make_sp_prefill_step`
+    on `grid`, K4 on each (dp row, tp slice)'s ring at the rank's heads)
+    against the unsharded packed prefill (K2) and the unsharded gather
+    path on `state`, each on its own cache of mode `kv_quant`; then two
+    greedy decode steps through K1 from the grid's cache (its ranks of sp
+    index 0) and from the packed prefill's, both fed the grid's tokens.
+
+    Checked: logits within DP_TOL of the kernel path and MODEL_TOL of the
+    gather path, greedy tokens up to a near tie; K4 launched exactly
+    layers x tp x sp x sp a dp row and nothing else in the ring prefill;
+    every copy of each tp slice's written rows within MODEL_TOL of the
+    layer's largest value against the packed prefill's (the int8 rows
+    dequantized; layer 0's rows a step off counted)."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel import (
+        make_sp_prefill_step, param_pspecs, shard_state)
+
+    dev = torch.device("cuda", 0)
+    quant = kv_quant == "int8"
+    body = "ring_flash_attention" + ("_int8" if quant else "")
+    dp, sp, tp = grid.dp, grid.sp, grid.tp
+    label = f"model_sp_grid {cfg.name} dp{dp}xsp{sp}xtp{tp} ({kv_quant})"
+    ranks = shard_state(state, param_pspecs(cfg), grid)
+    R, T, P = 2 * dp, 512, 9
+    g = torch.Generator().manual_seed(SEED)
+    lens = [480, 512] * dp
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                             dtype=torch.int32) for n in lens]
+    pad = 128 * BS
+    pages = torch.arange(1, 1 + R * P, dtype=torch.int32).reshape(R, P)
+    tok2 = torch.zeros(R, T, dtype=torch.int32)
+    pos2 = torch.full((R, T), pad, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tok2[i, : len(p)] = p
+        pos2[i, : len(p)] = torch.arange(len(p))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=R * P + 1,
+                                       block_size=BS, kv_quant=kv_quant)
+    cache_s = kvc.init_grid_caches(ccfg, grid)
+    cache_p, cache_g = kvc.init_cache(ccfg, dev), kvc.init_cache(ccfg, dev)
+    sp_step = make_sp_prefill_step(cfg, BS, grid, kv_quant=quant,
+                                   use_kernel=True)
+    args = [t.to(dev) for t in (tok2, pos2, lens_t, pages, lens_t - 1)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    logits_s, cache_s = sp_step(ranks, cache_s, *args)
+    torch.cuda.synchronize()
+    sp_s = time.monotonic() - t0
+    launched = kernels.launch_counts()
+    want = cfg.num_layers * tp * sp * sp * dp
+    check(launched[body] == want and sum(launched.values()) == want,
+          f"{label}: launches {launched}, expected {want} of {body} alone "
+          f"({cfg.num_layers} layers x tp {tp} x sp {sp} x sp {sp} a dp "
+          f"row, {dp} rows)")
+    # The unsharded packed prefill (K2) of the same prompts.
+    Tp = sum(lens)
+    seg = torch.cat([torch.full((n,), i, dtype=torch.int32)
+                     for i, n in enumerate(lens)])
+    Rs = 8
+    bt8 = torch.zeros(Rs, P, dtype=torch.int32)
+    bt8[:R] = pages
+    qs, ql, sl, smp = (torch.zeros(Rs, dtype=torch.int32) for _ in range(4))
+    starts = [sum(lens[:i]) for i in range(R)]
+    qs[:R] = torch.tensor(starts, dtype=torch.int32)
+    ql[:R] = sl[:R] = lens_t
+    smp[:R] = torch.tensor([s + n - 1 for s, n in zip(starts, lens)],
+                           dtype=torch.int32)
+    packed = llama.make_packed_prefill_step(cfg, BS)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits_p, cache_p = packed(state, cache_p, *(t.to(dev) for t in (
+        torch.cat(prompts), torch.cat([torch.arange(n, dtype=torch.int32)
+                                       for n in lens]), seg, bt8, qs, ql, sl,
+        smp)))
+    torch.cuda.synchronize()
+    packed_s = time.monotonic() - t0
+    logits_p = logits_p[:R]
+    check(Tp % 8 == 0, "model_sp_grid: the pack must fill whole tiles")
+    gather = llama.make_forward_step(cfg, BS, use_decode_kernel=False)
+    logits_g, cache_g = gather(state, cache_g, *args)
+    errs, errs_g, gaps = [], [], []
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    def compare(ls, lp, lg):
+        check(bool(torch.isfinite(ls).all()), f"{label}: non-finite logits")
+        errs.append(rel(ls, lp))
+        errs_g.append(rel(ls, lg))
+        pick = ls.argmax(-1)
+        gap = lp.max(-1).values - lp.gather(-1, pick[:, None])[:, 0]
+        gaps.append((gap.max() / lp.abs().max()).item())
+
+    compare(logits_s, logits_p, logits_g)
+    # Every copy of each tp slice's rows of the real tokens.
+    real = torch.cat([kvc.slots_for_positions(
+        pages[i:i + 1].to(dev), torch.arange(n, device=dev)[None], BS)[0]
+        for i, n in enumerate(lens)])
+    F, H = cfg.kv_size // tp, cfg.num_kv_heads // tp
+    layer_err, rows_off = [0.0] * cfg.num_layers, {}
+    for f, c in enumerate(cache_s):
+        t = f % tp
+        for i in range(cfg.num_layers):
+            for kv in ("k", "v"):
+                a = c[kv][i][real]
+                b = cache_p[kv][i][real][:, t * F:(t + 1) * F]
+                if quant:
+                    da = kvc.dequantize_rows(a.reshape(len(real), H, -1),
+                                             c[kv + "_scale"][i][real])
+                    db = kvc.dequantize_rows(
+                        b.reshape(len(real), H, -1),
+                        cache_p[kv + "_scale"][i][real][:, t * H:(t + 1) * H])
+                    if i == 0:
+                        rows_off[f"{f}{kv}"] = int(
+                            ((a.int() - b.int()).abs().amax(dim=1) > 0).sum())
+                else:
+                    da, db = a, b
+                layer_err[i] = max(layer_err[i], rel(da, db))
+    # Two decode steps through K1 from each cache, fed the grid's tokens.
+    step_g = llama.make_forward_step(cfg, BS, use_decode_kernel=True,
+                                     tp=grid)
+    step_k = llama.make_forward_step(cfg, BS, use_decode_kernel=True)
+    bt = pages.to(dev)
+    cur = lens_t.to(dev)
+    nxt = logits_s.argmax(-1).to(torch.int32)
+    zero = torch.zeros(R, dtype=torch.int32, device=dev)
+    grid.launches[:] = [0] * grid.n
+    for _ in range(2):
+        cur = cur + 1
+        a = (nxt[:, None], (cur - 1)[:, None], cur, bt, zero)
+        ls, cache_s = step_g(ranks, cache_s, *a)
+        lp, cache_p = step_k(state, cache_p, *a)
+        lg, cache_g = gather(state, cache_g, *a)
+        compare(ls, lp, lg)
+        nxt = ls.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    attending = [grid.flat(d, 0, t) for d in range(dp) for t in range(tp)]
+    check(all(grid.launches[f] == (2 * cfg.num_layers if f in attending
+                                   else 0) for f in range(grid.n)),
+          f"{label}: decode launches a rank {grid.launches}: K1 a layer "
+          "and step on the ranks of sp index 0 only")
+    tol = MODEL_TOL[cfg.name]
+    check(max(errs) <= DP_TOL, f"{label}: logits rel err against the "
+                               f"unsharded kernel path {errs} > {DP_TOL}")
+    check(max(errs_g) <= tol, f"{label}: logits rel err against the gather "
+                              f"path {errs_g} > {tol}")
+    check(max(gaps) <= tol, f"{label}: greedy tokens differ beyond a near "
+                            f"tie: argmax gap {gaps} > {tol}")
+    check(max(layer_err) <= tol, f"{label}: cache rows differ by "
+                                 f"{max(layer_err)} of the layer's max")
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "kv_quant": kv_quant, "dp": dp,
+           "sp": sp, "tp": tp, "rank_devices": grid.describe(),
+           "prompts": lens, "logits_rel_err_vs_kernel": errs,
+           "logits_rel_err": errs_g, "argmax_gap": gaps, "tol": DP_TOL,
+           "gather_tol": tol, "launches": launched,
+           "expected_fold_launches": want,
+           "decode_launches_per_rank": list(grid.launches),
+           "cache_rel_err_by_layer": layer_err,
+           "layer0_int8_rows_one_step_off": rows_off,
+           "real_rows": len(real), "decode_steps": 2,
+           "sp_step_s": sp_s, "packed_step_s": packed_s,
+           "bytes": grid_bytes(ranks, cache_s)}
+    del ranks, cache_s, cache_p, cache_g
+    return out
+
+
+def model_sp_grid_phase(torch, kernels):
+    """The ring prefill on the rank grid, in process, every rank on card 0
+    (`sp_grid_compare`), seed-0 weights at full width and depth:
+    llama-3-8b on sp 2 x tp 2, llama-3-1b on dp 2 x sp 2 and llama-3-8b
+    on dp 2 x sp 2 x tp 2 (eight ranks, at SP_GRID_8_RANK_LAYERS of its
+    32 layers), each over a bf16 and an int8 cache.  The ranks' pieces
+    are cut from the whole state (`shard_state`): the card holds one
+    model's bytes for the grid, its sp ranks sharing their (dp row, tp
+    slice)'s copy."""
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.parallel import DpGrid, MeshConfig
+
+    dev = torch.device("cuda", 0)
+    lines = []
+    cfg = state = None
+    for leg, name, axes, layers in SP_GRID_LEGS:
+        t_leg = time.monotonic()
+        if cfg is None or (cfg.name, cfg.num_layers) != (
+                name, layers or get_config(name).num_layers):
+            state = None
+            torch.cuda.empty_cache()
+            cfg, state = tp_state(torch, name, layers)
+        whole = grid_bytes([state], [])["weights_on_card"]
+        grid = DpGrid.for_mesh(MeshConfig(**axes), dev)
+        for kv_quant in ("none", "int8"):
+            out = sp_grid_compare(torch, kernels, cfg, state, grid, kv_quant)
+            check(out["bytes"]["weights_on_card"] == whole,
+                  f"model_sp_grid {leg}: the card holds "
+                  f"{out['bytes']['weights_on_card']} weight bytes for the "
+                  f"grid, the model is {whole}")
+            lines.append({"phase": "model_sp_grid", "leg": leg, **out,
+                          "weights_whole": whole,
+                          "leg_s": time.monotonic() - t_leg})
+            torch.cuda.empty_cache()
+    del state
+    torch.cuda.empty_cache()
+    return lines
+
+
 def tp_state(torch, name: str, layers=None, group=None):
     """(cfg, seed-0 state on card 0) of preset `name`, cut to `layers`;
     with a rank grid, the ranks' states of the same draws."""
@@ -1712,24 +2007,222 @@ def model_tp_phase(torch, kernels):
 
 
 def serve_tp_dp_phases(torch, serve: dict, ref: dict):
-    """serve_tp, serve_dp and serve_pp on one stack (`distributed_stack`,
-    its startup paid once): frontend A with the llama-3-8b `--tp 2`
-    worker (model "m"), serve_dp's two llama-3-1b workers (`DP_WORKERS`)
-    and the llama-3-8b `--pp 2` worker (`PP_WORKER`), all on the card;
-    the phases run one after the other.  Returns their results."""
-    with distributed_stack(
-            workers=(("worker", ("--model", "llama-3-8b", "--num-layers",
-                                 str(SERVE_TP_LAYERS), "--tp", str(TP))),
-                     *((f"worker_{k}", v[1]) for k, v in DP_WORKERS.items()),
-                     ("worker_pp", PP_WORKER[1])),
-            frontend_b=False, tag="tp",
-            models=("m", *(v[0] for v in DP_WORKERS.values()),
-                    PP_WORKER[0])) as (a, _, status, startup_s):
+    """serve_tp, serve_dp, serve_pp and serve_sp_grid on one stack
+    (`distributed_stack`, its startup paid once): frontend A with the
+    llama-3-8b `--tp 2` worker (model "m"), serve_dp's two llama-3-1b
+    workers (`DP_WORKERS`), the llama-3-8b `--pp 2` worker (`PP_WORKER`)
+    and serve_sp_grid's two (`SP_GRID_WORKERS`), all on the card; the
+    phases run one after the other.  Before serve_sp_grid, its long
+    chats go to the `--tp 2` worker one at a time (`lone_long_wave`):
+    the packed prefill's TTFT that the ring is set beside.  Returns the
+    phases' results."""
+    with distributed_stack(**stack_spec("tp")) as (a, _, status, startup_s):
         tp = serve_tp_phase(torch, serve, ref, (a, status[:1], startup_s))
         dp = serve_dp_phase(torch, serve, (a, status[1:3], startup_s))
-        pp = serve_pp_phase(torch, serve, tp, ref, (a, status[3:],
+        pp = serve_pp_phase(torch, serve, tp, ref, (a, status[3:4],
                                                      startup_s))
-    return tp, dp, pp
+        ttft_tp = lone_long_wave(a, "m", None)[2]
+        spg = serve_sp_grid_phase(torch, tp, ttft_tp,
+                                  (a, status[4:], startup_s))
+    return tp, dp, pp, spg
+
+
+def long_chat_bodies() -> list:
+    """serve_sp's LONG_CHATS long chats (400-500 prompt tokens, no shared
+    first block), `traced`, SP_GRID_TOKENS greedy tokens each."""
+    return [traced(long_chat(i, False, SP_GRID_TOKENS, 310 + 25 * i))
+            for i in range(LONG_CHATS)]
+
+
+def lone_long_wave(a: str, model: str, w: Optional[str]):
+    """`long_chat_bodies` to `model` through frontend `a`, one at a time,
+    after two warm-up long chats of their length class, `traced` as they
+    are (so that any first-request cost of the logprobs path falls on a
+    warm-up), and a stats reset of `a` and worker `w`: (answers, `w`'s
+    stats or None, the frontend's TTFTs)."""
+    longs = long_chat_bodies()
+    for i, n in ((97, 310), (98, 310 + 25 * (LONG_CHATS - 1))):
+        _chat(a, {**traced(long_chat(i, False, 4, n)), "model": model})
+    for u in (a,) + ((w,) if w else ()):
+        _http(u + "/debug/stats/reset", {})
+    res = [_chat(a, {**b, "model": model}) for b in longs]
+    check_results(res, SP_GRID_TOKENS)
+    reqs = json.loads(_http(a + "/debug/stats"))["requests"]
+    return ([answer(r) for r in res],
+            json.loads(_http(w + "/debug/stats")) if w else None,
+            [r["ttft_s"] for r in reqs])
+
+
+def serve_sp_grid_phase(torch, serve_tp: dict, ttft_tp: list,
+                        stack) -> dict:
+    """The ring prefill on the rank grid, served, on serve_tp's stack
+    (`stack`: its url, the status urls of `SP_GRID_WORKERS` and the
+    stack's seconds to ready): `python -m dynamo_tpu_torch.worker --model
+    llama-3-8b --num-layers 8 --slice sp2xtp2` (model "m-sp", serve_tp's
+    weights and depth) and a llama-3-1b `--sp 2 --dp 2` worker (model
+    "m-sp1b").
+
+    Each takes serve_sp's LONG_CHATS long chats one at a time
+    (`lone_long_wave`): each must take the ring through K4's bf16 body
+    (sp_prefill_count, ring_kernel_prefills and sp_prefill_dispatches all
+    LONG_CHATS; fold launches = layers x dp * tp rings x sp ranks x sp
+    hops = 64 a dispatch on the 8B (8 layers), 128 on the 1B (16);
+    modeled ring bytes = each
+    prompt's tokens x ring_payload_bytes_per_token x (sp - 1) // sp,
+    JAX's formula), K1 must decode and K2 stay idle.  Their greedy ids
+    must equal those of the unsharded in-process engine on the same
+    weights at the same depth, a split allowed only at a near tie, and
+    each served id lie within MODEL_TOL of the top of the plain model's
+    logits given the ids before it (teacher-forced).  /debug/stats must
+    show the mesh (sp2xtp2, dp2xsp2), kv_shard_count (2, 1) and the
+    published slice.  Their TTFTs are set beside `ttft_tp`, the same
+    chats' on serve_tp's `--tp 2` worker.  Then a mixed wave on the 8B
+    worker: two long chats, and `serve`'s 8 chats once the first long one
+    has taken the ring; K1, K2 and K4 must all launch.  TTFTs are the
+    frontend's."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    a, status, startup_s = stack
+    preproc = OpenAIPreprocessor(ByteTokenizer())
+    pres = [preproc.preprocess_chat(ChatCompletionRequest.from_dict(b),
+                                    f"spg{i}")
+            for i, b in enumerate(long_chat_bodies())]
+    prompt_tokens = [len(p.token_ids) for p in pres]
+    check(all(400 <= n <= 500 for n in prompt_tokens),
+          f"serve_sp_grid: long prompts of {prompt_tokens} tokens")
+    memory_used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+    workers = {}
+    for (key, (model, flags)), w in zip(SP_GRID_WORKERS.items(), status):
+        name = "llama-3-8b" if key == "8b" else "llama-3-1b"
+        cfg = get_config(name)
+        if key == "8b":
+            cfg = cfg.replace(num_layers=SERVE_TP_LAYERS)
+        dp = DP if "--dp" in flags else 1
+        tp = TP if key == "8b" else 1
+        mesh = f"sp{SP_GRID}xtp{TP}" if key == "8b" else f"dp{DP}xsp{SP_GRID}"
+        what = f"serve_sp_grid {model} ({mesh})"
+        _chat(a, {**chat_body(-1, False, 4), "model": model})   # warm-up
+        lone, ws, ttft = lone_long_wave(a, model, w)
+        c, k = ws["counters"], ws["kernels"]
+        per_dispatch = cfg.num_layers * dp * tp * SP_GRID * SP_GRID
+        check(ws["mesh"] == mesh and ws["kv_shard_count"] == tp
+              and ws["kv_traffic_shards"] == dp * tp and ws["sp"] == SP_GRID
+              and ws["slice"]["describe"] == mesh,
+              f"{what}: mesh {ws['mesh']}, kv_shard_count "
+              f"{ws['kv_shard_count']}, kv_traffic_shards "
+              f"{ws['kv_traffic_shards']}, slice {ws['slice']}")
+        check(c["sp_prefill_count"] == c["ring_kernel_prefills"]
+              == c["sp_prefill_dispatches"] == LONG_CHATS,
+              f"{what}: {LONG_CHATS} lone long chats, counters {c}")
+        check(k["ring_flash_attention"] == per_dispatch * LONG_CHATS
+              and k["ring_flash_attention_int8"] == 0,
+              f"{what}: K4 launched {k['ring_flash_attention']} folds, "
+              f"expected {per_dispatch} x {LONG_CHATS}")
+        payload = kvc.KvCacheConfig.for_model(
+            cfg, num_blocks=2, block_size=BS).ring_payload_bytes_per_token
+        want_bytes = sum(n * payload * (SP_GRID - 1) // SP_GRID
+                         for n in prompt_tokens)
+        check(c["ring_exchange_bytes_modeled"] == want_bytes,
+              f"{what}: modeled ring bytes {c['ring_exchange_bytes_modeled']}"
+              f" != {want_bytes}")
+        check(k["paged_decode_attention"] > 0
+              and k["paged_prefill_attention"] == 0,
+              f"{what}: K1 must decode and K2 stay idle: {k}")
+        workers[key] = {"model": model, "flags": list(flags), "mesh": mesh,
+                        "cfg": cfg, "lone": lone, "ttft_long_s": ttft,
+                        "counters": c, "launches": k,
+                        "fold_launches_per_dispatch": per_dispatch,
+                        "expected_ring_bytes": want_bytes,
+                        "kv_shard_count": ws["kv_shard_count"],
+                        "kv_traffic_shards": ws["kv_traffic_shards"],
+                        "slice": ws["slice"], "tp_devices": ws["tp_devices"],
+                        "rank_launches": ws["rank_launches"]}
+    # A mixed wave on the 8B worker: the long chats take the ring, the
+    # short ones (sent once a long one has) the packed plane beside the
+    # long ones' decode.
+    model8, w8 = SP_GRID_WORKERS["8b"][0], status[0]
+    for u in (a, w8):
+        _http(u + "/debug/stats/reset", {})
+    longs2 = [{**long_chat(50 + i, i % 2 == 0, 64, 360), "model": model8}
+              for i in range(2)]
+    shorts = [{**chat_body(i, i % 2 == 0, 64), "model": model8}
+              for i in range(8)]
+    t1 = time.monotonic()
+    with ThreadPoolExecutor(len(longs2) + len(shorts)) as pool:
+        first = [pool.submit(_chat, a, b) for b in longs2]
+        while json.loads(_http(w8 + "/debug/stats"))["counters"][
+                "sp_prefill_count"] < 1:
+            check(time.monotonic() - t1 < 60,
+                  "serve_sp_grid mixed wave: no long chat took the ring")
+            time.sleep(0.02)
+        rest = [pool.submit(_chat, a, b) for b in shorts]
+        results = [f.result() for f in first + rest]
+    wall = time.monotonic() - t1
+    check_results(results, 64)
+    ws = json.loads(_http(w8 + "/debug/stats"))
+    reqs = json.loads(_http(a + "/debug/stats"))["requests"]
+    k, c = ws["kernels"], ws["counters"]
+    per8 = workers["8b"]["fold_launches_per_dispatch"]
+    check(k["paged_decode_attention"] > 0 and k["paged_prefill_attention"] > 0
+          and k["ring_flash_attention"] > 0
+          and k["ring_flash_attention"] == per8 * c["sp_prefill_dispatches"]
+          and c["ring_kernel_prefills"] == c["sp_prefill_count"],
+          f"serve_sp_grid mixed wave: K1, K2 and K4 must all launch, K4 "
+          f"{per8} a ring dispatch: {k}, {c}")
+    ttfts = [r["ttft_s"] for r in reqs]
+    itl_n = sum(r["itl_n"] for r in reqs)
+    out_tokens = sum(r["tokens"] for r in results)
+    wave = {"requests": len(results), "output_tokens": out_tokens,
+            "wall_s": wall, "output_tok_s": out_tokens / wall,
+            "ttft_mean_s": statistics.mean(ttfts), "ttft_max_s": max(ttfts),
+            "itl_mean_s": (sum(r["itl_sum_s"] for r in reqs) / itl_n
+                           if itl_n else None),
+            "counters": c, "launches": k}
+    # The references: the unsharded in-process engine on each worker's
+    # weights, and the plain model teacher-forced.
+    for key, x in workers.items():
+        cfg = x.pop("cfg")
+        state = (tp_state(torch, "llama-3-8b", SERVE_TP_LAYERS)[1]
+                 if key == "8b" else llama_state(torch))
+        ids = engine_answers(torch, state, pres, cfg)
+        splits, held = [], []
+        for i, (p, got, want) in enumerate(zip(pres, x["lone"], ids)):
+            what = f"serve_sp_grid {x['model']} long chat {i}"
+            splits.append(greedy_split(torch, state, p.token_ids,
+                                       got["token_ids"], want, what,
+                                       cfg=cfg))
+            gaps = forced_gaps(torch, cfg, state, p.token_ids,
+                               got["token_ids"], 0)
+            worst = max(range(len(gaps)), key=gaps.__getitem__)
+            check(gaps[worst] <= MODEL_TOL[cfg.name],
+                  f"{what}: served token {worst} lies {gaps[worst]} below "
+                  f"the top of the plain model's logits")
+            held.append({"tokens": len(gaps), "max_gap": gaps[worst],
+                         "at": worst, "top": sum(g == 0.0 for g in gaps)})
+        x.pop("lone")
+        x.update(lone_equal_unsharded=[sp is None for sp in splits],
+                 lone_splits=splits, lone_teacher_forced=held,
+                 layers=cfg.num_layers)
+        del state
+        torch.cuda.empty_cache()
+    launches = {kk: workers["8b"]["launches"][kk] + wave["launches"][kk]
+                for kk in wave["launches"]}
+    keys = ("output_tok_s", "ttft_mean_s", "ttft_max_s", "itl_mean_s")
+    return {"phase": "serve_sp_grid", "startup_s": startup_s,
+            "card_memory_used": memory_used,
+            "long_prompt_tokens": prompt_tokens, "workers": workers,
+            "ttft_long_tp2_s": ttft_tp, "mixed_wave": wave,
+            "launches": launches,
+            "serve_tp": {kk: serve_tp[kk] for kk in keys},
+            "phase_s": time.monotonic() - t_phase}
 
 
 def serve_tp_phase(torch, serve: dict, ref: dict, stack) -> dict:
@@ -2515,7 +3008,7 @@ def model_pp_phase(torch, kernels):
 def serve_pp_phase(torch, serve: dict, serve_tp: dict, ref: dict,
                    stack) -> dict:
     """llama-3-8b served pipeline-parallel: `python -m
-    dynamo_tpu_torch.worker --model llama-3-8b --num-layers 16 --pp 2
+    dynamo_tpu_torch.worker --model llama-3-8b --num-layers 8 --pp 2
     --pp-microbatches 2` (model "m-pp", serve_tp's depth and weights)
     behind serve_tp's frontend (`stack`).  `serve`'s wave with the stats
     zeroed just before it, then serve_tp's two unary chats, whose greedy
@@ -2797,42 +3290,172 @@ def leading_equal(a: list, b: list) -> int:
     return n
 
 
-@contextlib.contextmanager
-def server(model: str, args=(), tag: str = "", ready_s: float = 300):
-    """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
-    subprocess, stopped on exit; yields (base url, seconds to ready)."""
-    OUT_DIR.mkdir(exist_ok=True)
-    port = _free_port()
-    base = f"http://127.0.0.1:{port}"
-    log_path = OUT_DIR / f"chip_smoke_server_{Path(model).name}{tag}.log"
-    log = open(log_path, "w")
+# Each server and stack the smoke starts: its seconds from spawn to ready,
+# and each child's from SIGTERM to exit; printed as the `timeline` line.
+TIMELINE: list = []
+
+
+def _stop(procs) -> None:
+    """SIGTERM every (tag, log, process) of `procs` at once, wait for each
+    (a kill after 60 s) and close its log."""
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
     t0 = time.monotonic()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--model",
-         model, "--model-name", "m", "--http-port", str(port), *args],
-        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
-    try:
-        while True:
-            if proc.poll() is not None:
-                raise SmokeError(f"server exited rc {proc.returncode}: "
-                                 + log_path.read_text()[-2000:])
-            try:
-                if json.loads(_http(base + "/health", timeout=5))["status"] == "ready":
-                    break
-            except OSError:
-                pass
-            check(time.monotonic() - t0 < ready_s,
-                  f"server not ready in {ready_s} s")
-            time.sleep(0.5)
-        yield base, time.monotonic() - t0
-    finally:
-        proc.send_signal(signal.SIGTERM)
+    for tag, log, proc in procs:
         try:
-            proc.wait(timeout=30)
+            proc.wait(timeout=60)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
         log.close()
+        TIMELINE.append({"proc": tag, "stop_s": round(
+            time.monotonic() - t0, 2)})
+
+
+class Launch:
+    """Child processes spawned together (`spawn`), ready once each of
+    `probes` ((url, predicate on its JSON)) holds in turn; `ready()` waits
+    for that (at most `ready_s`) and returns the seconds from the first
+    spawn.  `watch()` waits in a thread instead, so that a launch started
+    ahead of its phase (`prestart`) still reads its own seconds to ready.
+    `stop()` stops every child but the first, then the first (a stack's
+    frontend A holds the others' control plane)."""
+
+    def __init__(self, key: str, ready_s: float, settle_s: float = 0.0):
+        self.key, self.ready_s, self.settle_s = key, ready_s, settle_s
+        self.procs, self.probes = [], []
+        self.t0 = time.monotonic()
+        self._thread = self._seconds = self._error = None
+
+    def spawn(self, tag: str, log_path: Path, argv: list) -> None:
+        log = open(log_path, "w")
+        self.procs.append((tag, log, subprocess.Popen(
+            argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)))
+
+    def _wait(self) -> float:
+        for url, ready in self.probes:
+            while True:
+                for tag, log, proc in self.procs:
+                    if proc.poll() is not None:
+                        raise SmokeError(
+                            f"{tag} exited rc {proc.returncode}: "
+                            + Path(log.name).read_text()[-2000:])
+                try:
+                    if ready(json.loads(_http(url, timeout=5))):
+                        break
+                except OSError:
+                    pass
+                check(time.monotonic() - self.t0 < self.ready_s,
+                      f"{self.key} not ready in {self.ready_s} s ({url})")
+                time.sleep(0.5)
+        time.sleep(self.settle_s)
+        return time.monotonic() - self.t0
+
+    def _watch(self) -> None:
+        try:
+            self._seconds = self._wait()
+        except Exception as e:     # raised again by `ready()`
+            self._error = e
+
+    def watch(self) -> None:
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def ready(self) -> float:
+        if self._thread is None:
+            self._seconds = self._wait()
+        else:
+            self._thread.join()
+            if self._error is not None:
+                raise self._error
+        TIMELINE.append({"proc": self.key,
+                         "ready_s": round(self._seconds, 2)})
+        return self._seconds
+
+    def stop(self) -> None:
+        _stop(self.procs[1:])
+        _stop(self.procs[:1])
+
+
+# Launches started ahead of the phase that uses them, by key: the next
+# phases' servers and stacks start beside the current phase's, so their
+# starts overlap; every phase waits until none is still starting before
+# it measures (`_quiesce`).
+_PRESTARTED: dict = {}
+
+
+def prestart(*launches) -> None:
+    for launch in launches:
+        launch.watch()
+        _PRESTARTED[launch.key] = launch
+
+
+def _adopt(key: str, spec):
+    """The launch prestarted under `key`, None if there is none; it must
+    have been started from `spec`, as its phase would start it."""
+    launch = _PRESTARTED.pop(key, None)
+    if launch is not None and launch.spec != spec:
+        launch.stop()
+        raise SmokeError(f"{key} was prestarted from {launch.spec}, its "
+                         f"phase starts it from {spec}")
+    return launch
+
+
+def _quiesce() -> None:
+    """Wait until every prestarted launch has come up (or failed: its
+    phase raises that)."""
+    for launch in list(_PRESTARTED.values()):
+        launch._thread.join()
+
+
+def stop_prestarted() -> None:
+    while _PRESTARTED:
+        _PRESTARTED.popitem()[1].stop()
+
+
+def server_launch(model: str, args=(), tag: str = "",
+                  ready_s: float = 300) -> Launch:
+    """`python -m dynamo_tpu_torch.frontend --model <model> <args>` as a
+    subprocess; its base url is `.base`."""
+    OUT_DIR.mkdir(exist_ok=True)
+    name = f"server_{Path(model).name}{tag}"
+    launch = Launch(name, ready_s)
+    launch.spec = repr((model, tuple(args)))
+    port = _free_port()
+    launch.base = f"http://127.0.0.1:{port}"
+    launch.spawn(name, OUT_DIR / f"chip_smoke_{name}.log",
+                 [sys.executable, "-m", "dynamo_tpu_torch.frontend",
+                  "--model", model, "--model-name", "m", "--http-port",
+                  str(port), *args])
+    launch.probes.append((launch.base + "/health",
+                          lambda r: r["status"] == "ready"))
+    return launch
+
+
+@contextlib.contextmanager
+def servers(specs, ready_s: float = 300):
+    """`server_launch` for each (model, args, tag) of `specs` (or the one
+    prestarted under its name), all started at once and stopped together
+    on exit; yields [(base url, seconds to ready)]."""
+    launches = []
+    try:
+        for model, args, tag in specs:
+            launches.append(_adopt(f"server_{Path(model).name}{tag}",
+                                   repr((model, tuple(args))))
+                            or server_launch(model, args, tag, ready_s))
+        ready = [(x.base, x.ready()) for x in launches]
+        _quiesce()
+        yield ready
+    finally:
+        _stop([p for x in launches for p in x.procs])
+
+
+@contextlib.contextmanager
+def server(model: str, args=(), tag: str = "", ready_s: float = 300):
+    """One of `servers`; yields (base url, seconds to ready)."""
+    with servers([(model, args, tag)], ready_s) as (one,):
+        yield one
 
 
 def chat_wave(base: str, bodies: list) -> list:
@@ -2948,7 +3571,7 @@ def serve_int8_phase():
 
 
 def serve_moe_phase():
-    """mixtral-8x7b, 16 of 32 layers, through K1, K2 and K3; the expert
+    """mixtral-8x7b, MOE_LAYERS of 32 layers, through K1, K2 and K3; the expert
     load must count k assignments per model row per layer, none dropped."""
     from dynamo_tpu_torch.models.config import get_config
 
@@ -2989,11 +3612,7 @@ def serve_ep_phase(torch, serve_moe: dict) -> dict:
     t_phase = time.monotonic()
     name = "mixtral-8x7b"
     cfg = get_config(name).replace(num_layers=MOE_LAYERS)
-    flags = ("--model", name, "--num-layers", str(MOE_LAYERS), "--ep",
-             str(EP), "--tp", str(TP))
-    with distributed_stack(workers=(("worker", flags),), frontend_b=False,
-                           tag="ep", ready_s=600) as (a, _, status,
-                                                      startup_s):
+    with distributed_stack(**stack_spec("ep")) as (a, _, status, startup_s):
         w = status[0]
         _chat(a, chat_body(-1, False, 4))          # warm-up
         wave = stack_wave(a, w)
@@ -3082,7 +3701,7 @@ def serve_sp_phase():
     `--sp 4 --kv-quant int8` server, where they must take K4's int8 body
     with the int8 payload's modeled bytes.  The long chats' server-side
     TTFT is set beside that of the same chats, sent the same way, on an
-    `--sp 1` server."""
+    `--sp 1` server.  The three servers start at once."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
@@ -3148,7 +3767,9 @@ def serve_sp_phase():
                 "expected_ring_bytes": want,
                 "ttft_s": [r["ttft_s"] for r in stats["requests"]]}
 
-    with server("llama-3-1b", ("--sp", str(SP)), "_sp") as (base, startup_s):
+    # The three servers start at once; each serves alone in turn.
+    with servers([("llama-3-1b", args, tag) for args, tag in SP_SERVERS]) as (
+            (base, startup_s), (base_int8, _), (base_1, _)):
         stats1 = first_wave(base)
         mixed = ([chat_body(i, i % 2 == 0, max_tokens) for i in range(8)]
                  + [long_chat(50 + i, i % 2 == 0, max_tokens, 360)
@@ -3157,14 +3778,14 @@ def serve_sp_phase():
         results = chat_wave(base, mixed)
         wall = time.monotonic() - t1
         stats2 = json.loads(_http(base + "/debug/stats"))
+        # The same lone long chats over an int8 cache: the int8 rows and
+        # scales ride the ring through K4's int8 body.
+        stats1_int8 = first_wave(base_int8)
+        stats_1 = first_wave(base_1)
     check_results(results, max_tokens)
     wave1 = check_first_wave(stats1, "none")
     k1 = stats1["kernels"]
-    # The same lone long chats over an int8 cache: the int8 rows and
-    # scales ride the ring through K4's int8 body.
-    with server("llama-3-1b", ("--sp", str(SP), "--kv-quant", "int8"),
-                "_sp_int8") as (base, _):
-        wave1_int8 = check_first_wave(first_wave(base), "int8")
+    wave1_int8 = check_first_wave(stats1_int8, "int8")
     c2, k2 = stats2["counters"], stats2["kernels"]
     check(c2["sp_prefill_count"] >= LONG_CHATS
           and c2["ring_kernel_prefills"] == c2["sp_prefill_count"],
@@ -3175,8 +3796,6 @@ def serve_sp_phase():
     check(k2["paged_prefill_attention"] > 0 and k2["paged_decode_attention"]
           > k1["paged_decode_attention"],
           f"serve_sp mixed wave: the short prompts must take K2: {k2}")
-    with server("llama-3-1b", ("--sp", "1"), "_sp1") as (base, _):
-        stats_1 = first_wave(base)
     check(stats_1["counters"]["sp_prefill_count"] == 0
           and stats_1["kernels"]["ring_flash_attention"] == 0,
           "serve_sp: the --sp 1 server took the ring")
@@ -3216,6 +3835,7 @@ def system_prompt(line: str) -> str:
 
 
 _PORTS_GIVEN: set = set()
+_PORTS_LOCK = threading.Lock()   # the lanes of the last phases draw too
 
 
 def _free_port() -> int:
@@ -3231,76 +3851,57 @@ def _free_port() -> int:
     except (OSError, ValueError, IndexError):
         hi = 16000      # no range to read: below the common defaults
     lo = max(1024, hi - 8192)
-    for _ in range(1000 if hi - lo >= 1024 else 0):
-        port = random.randrange(lo, hi)
-        if port in _PORTS_GIVEN:
-            continue
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", port))
-            except OSError:
+    with _PORTS_LOCK:
+        for _ in range(1000 if hi - lo >= 1024 else 0):
+            port = random.randrange(lo, hi)
+            if port in _PORTS_GIVEN:
                 continue
-        _PORTS_GIVEN.add(port)
-        return port
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+            _PORTS_GIVEN.add(port)
+            return port
     with socket.socket() as s:     # no room below the range: any port
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-@contextlib.contextmanager
-def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
-                      frontend_b: bool = True, tag: str = "distributed",
-                      ready_s: float = 300, frontend_args=(),
-                      cp_port: Optional[int] = None, extra=(),
-                      models=("m",)):
+def stack_launch(workers=(("worker0", ()), ("worker1", ())),
+                 frontend_b: bool = True, tag: str = "distributed",
+                 ready_s: float = 300, frontend_args=(),
+                 cp_port: Optional[int] = None, extra=(),
+                 models=("m",)) -> Launch:
     """Frontend A (`--serve-control-plane --router-mode kv` and
     `frontend_args`; its control plane on `cp_port` when given), one
     `dynamo_tpu_torch.worker` process per entry of `workers` ((log tag,
     extra flags)) for llama-3-1b on the card (512 blocks of 64, a status
     port each), the `extra` processes ((module, log tag, args)) and, with
     `frontend_b`, frontend B (`--control-plane` A's, `--router-mode
-    round_robin`), all stopped on exit, ready once the frontends list
-    `models`; yields (A's url, B's url or None, the workers' status urls,
-    seconds to ready).  Logs go to
-    `smoke_out/chip_smoke_<tag>_<log tag>.log`."""
+    round_robin`), every process started at once (the others dial A's
+    control plane until it listens); ready once the frontends list
+    `models`.  Its urls are `.a`, `.b` (or None) and `.status` (the
+    workers').  Logs go to `smoke_out/chip_smoke_<tag>_<log tag>.log`."""
     OUT_DIR.mkdir(exist_ok=True)
-    procs = []
-
-    def log_path(name):
-        return OUT_DIR / f"chip_smoke_{tag}_{name}.log"
+    launch = Launch(tag, ready_s, settle_s=1.0)  # the routers' watches
+    launch.spec = _stack_key(workers, frontend_b, frontend_args, cp_port,
+                             extra, models)
 
     def spawn(module, name, *args):
-        log = open(log_path(name), "w")
-        procs.append((name, log, subprocess.Popen(
-            [sys.executable, "-m", module, *args], cwd=ROOT, stdout=log,
-            stderr=subprocess.STDOUT)))
-
-    def wait(url, ready):
-        while True:
-            for name, log, proc in procs:
-                if proc.poll() is not None:
-                    raise SmokeError(f"{name} exited rc {proc.returncode}: "
-                                     + log_path(name).read_text()[-2000:])
-            try:
-                if ready(json.loads(_http(url, timeout=5))):
-                    return
-            except OSError:
-                pass
-            check(time.monotonic() - t0 < ready_s,
-                  f"{tag} stack not ready in {ready_s} s ({url})")
-            time.sleep(0.5)
+        launch.spawn(f"{tag}_{name}", OUT_DIR / f"chip_smoke_{tag}_{name}.log",
+                     [sys.executable, "-m", module, *args])
 
     cp = cp_port or _free_port()
     ports = [_free_port() for _ in range(2 + len(workers))]
-    a = f"http://127.0.0.1:{ports[0]}"
-    b = f"http://127.0.0.1:{ports[1]}" if frontend_b else None
-    status = [f"http://127.0.0.1:{p}" for p in ports[2:]]
-    t0 = time.monotonic()
+    a = launch.a = f"http://127.0.0.1:{ports[0]}"
+    b = launch.b = f"http://127.0.0.1:{ports[1]}" if frontend_b else None
+    launch.status = [f"http://127.0.0.1:{p}" for p in ports[2:]]
     try:
-        spawn("dynamo_tpu_torch.frontend", "frontend_a", "--serve-control-plane",
-              "--control-plane-port", str(cp), "--router-mode", "kv",
-              "--http-port", str(ports[0]), *frontend_args)
-        wait(a + "/health", lambda r: "status" in r)
+        spawn("dynamo_tpu_torch.frontend", "frontend_a",
+              "--serve-control-plane", "--control-plane-port", str(cp),
+              "--router-mode", "kv", "--http-port", str(ports[0]),
+              *frontend_args)
         for (name, extra_args), port in zip(workers, ports[2:]):
             spawn("dynamo_tpu_torch.worker", name, "--control-plane",
                   f"127.0.0.1:{cp}", "--model", "llama-3-1b", "--model-name",
@@ -3309,26 +3910,88 @@ def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
         for module, name, args in extra:
             spawn(module, name, *args)
         if frontend_b:
-            spawn("dynamo_tpu_torch.frontend", "frontend_b", "--control-plane",
-                  f"127.0.0.1:{cp}", "--router-mode", "round_robin",
-                  "--http-port", str(ports[1]))
-        for w in status:
-            wait(w + "/health", lambda r: r["status"] == "ready")
-        for f in (a, b) if frontend_b else (a,):
-            wait(f + "/v1/models",
-                 lambda r: sorted(m["id"] for m in r["data"])
-                 == sorted(models))
-        time.sleep(1.0)    # the routers' instance watches see the workers
-        yield a, b, status, time.monotonic() - t0
+            spawn("dynamo_tpu_torch.frontend", "frontend_b",
+                  "--control-plane", f"127.0.0.1:{cp}", "--router-mode",
+                  "round_robin", "--http-port", str(ports[1]))
+    except BaseException:
+        launch.stop()
+        raise
+    launch.probes.append((a + "/health", lambda r: "status" in r))
+    launch.probes += [(w + "/health", lambda r: r["status"] == "ready")
+                      for w in launch.status]
+    launch.probes += [(f + "/v1/models",
+                       lambda r: sorted(m["id"] for m in r["data"])
+                       == sorted(models))
+                      for f in ((a, b) if frontend_b else (a,))]
+    return launch
+
+
+def _stack_key(workers, frontend_b, frontend_args, cp_port, extra,
+               models) -> str:
+    return json.dumps([workers, frontend_b, frontend_args, cp_port, extra,
+                       models], default=list)
+
+
+@contextlib.contextmanager
+def distributed_stack(workers=(("worker0", ()), ("worker1", ())),
+                      frontend_b: bool = True, tag: str = "distributed",
+                      ready_s: float = 300, frontend_args=(),
+                      cp_port: Optional[int] = None, extra=(),
+                      models=("m",)):
+    """`stack_launch` of these arguments (or the one prestarted under
+    `tag`), stopped on exit: all but frontend A together, then A; yields
+    (A's url, B's url or None, the workers' status urls, seconds to
+    ready)."""
+    launch = (_adopt(tag, _stack_key(workers, frontend_b, frontend_args,
+                                     cp_port, extra, models))
+              or stack_launch(workers, frontend_b, tag, ready_s,
+                              frontend_args, cp_port, extra, models))
+    try:
+        startup_s = launch.ready()
+        _quiesce()
+        yield launch.a, launch.b, launch.status, startup_s
     finally:
-        for name, log, proc in reversed(procs):
-            proc.send_signal(signal.SIGTERM)
-            try:
-                proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            log.close()
+        launch.stop()
+
+
+def stack_spec(tag: str) -> dict:
+    """`distributed_stack` / `stack_launch` arguments of the stacks that
+    `main` prestarts, by tag."""
+    return {
+        "tp": dict(
+            workers=(("worker", ("--model", "llama-3-8b", "--num-layers",
+                                 str(SERVE_TP_LAYERS), "--tp", str(TP))),
+                     *((f"worker_{k}", v[1]) for k, v in DP_WORKERS.items()),
+                     ("worker_pp", PP_WORKER[1]),
+                     *((f"worker_sp{k}", v[1])
+                       for k, v in SP_GRID_WORKERS.items())),
+            frontend_b=False, tag="tp",
+            models=("m", *(v[0] for v in DP_WORKERS.values()),
+                    PP_WORKER[0],
+                    *(v[0] for v in SP_GRID_WORKERS.values()))),
+        "distributed": dict(),
+        "observed_off": dict(workers=(("worker", PLANES_OFF_WORKER),),
+                             frontend_b=False, tag="observed_off",
+                             frontend_args=PLANES_OFF_FRONTEND),
+        "observed": dict(workers=(("worker", OBSERVED_WORKER),),
+                         frontend_b=False, tag="observed",
+                         frontend_args=OBSERVED_FRONTEND),
+        "spec": dict(workers=(("worker", ("--spec-decode", str(SPEC_K))),),
+                     frontend_b=False, tag="spec"),
+        "disagg": dict(workers=(("prefill", ("--role", "prefill")),
+                                ("decode", ("--role", "decode",
+                                            "--max-local-prefill",
+                                            str(DISAGG_THRESHOLD)))),
+                       frontend_b=False, tag="disagg"),
+        "ep": dict(workers=(("worker", ("--model", "mixtral-8x7b",
+                                        "--num-layers", str(MOE_LAYERS),
+                                        "--ep", str(EP), "--tp",
+                                        str(TP))),),
+                   frontend_b=False, tag="ep", ready_s=600),
+        "qos": dict(workers=(("worker", ("--num-blocks", str(QOS_BLOCKS),
+                                         "--flight-recorder", "on")),),
+                    frontend_b=False, tag="qos"),
+    }[tag]
 
 
 def admitted(st: dict) -> int:
@@ -3489,7 +4152,8 @@ def serve_distributed_phase(serve: dict, serve_embed):
     want = serve["lone_answers"][:len(lone)]
     check(len(want) == len(lone),
           "serve_distributed: serve answered no lone chats")
-    with distributed_stack() as (a, b, workers, startup_s):
+    with distributed_stack(**stack_spec("distributed")) as (
+            a, b, workers, startup_s):
         got = [answer(_chat(a, x)) for x in lone]
         check(got == want,
               f"serve_distributed: lone chats through the workers gave "
@@ -3825,10 +4489,7 @@ def serve_spec_phase(serve: dict) -> dict:
             _http(u + "/debug/stats/reset", {})
 
     out = {"phase": "serve_spec", "model": "llama-3-1b", "k": SPEC_K}
-    with distributed_stack(workers=(("worker", ("--spec-decode",
-                                                str(SPEC_K))),),
-                           frontend_b=False, tag="spec") as (
-            a, _, (w,), startup_s):
+    with distributed_stack(**stack_spec("spec")) as (a, _, (w,), startup_s):
         out["startup_s"] = startup_s
         _chat(a, chat_body(-1, False, 4))          # warm-up
         for name, user in (("serve", USER_TURN), ("repetitive", REPEAT_TURN)):
@@ -4164,15 +4825,10 @@ def serve_observed_phase(torch, serve: dict) -> dict:
 
     OBSERVED_DIR.mkdir(parents=True, exist_ok=True)
     out = {"phase": "serve_observed", "model": "llama-3-1b"}
-    with distributed_stack(workers=(("worker", PLANES_OFF_WORKER),),
-                           frontend_b=False, tag="observed_off",
-                           frontend_args=PLANES_OFF_FRONTEND) as (
-            a, _, (w,), _):
+    with distributed_stack(**stack_spec("observed_off")) as (a, _, (w,), _):
         _chat(a, chat_body(-1, False, 4))          # warm-up, as serve's
         off = stack_wave(a, w)
-    with distributed_stack(workers=(("worker", OBSERVED_WORKER),),
-                           frontend_b=False, tag="observed",
-                           frontend_args=OBSERVED_FRONTEND) as (
+    with distributed_stack(**stack_spec("observed")) as (
             a, _, (w,), startup_s):
         out["startup_s"] = startup_s
         _chat(a, chat_body(-1, False, 4))          # warm-up, as serve's
@@ -4641,10 +5297,7 @@ def serve_disagg_phase(serve: dict) -> dict:
     check(len(serve["lone_answers"]) >= 6,
           "serve_disagg: serve answered no long lone chats")
     cold, warm = serve["lone_answers"][2:4], serve["lone_answers"][4:6]
-    workers = (("prefill", ("--role", "prefill")),
-               ("decode", ("--role", "decode", "--max-local-prefill",
-                           str(DISAGG_THRESHOLD))))
-    with distributed_stack(workers, frontend_b=False, tag="disagg") as (
+    with distributed_stack(**stack_spec("disagg")) as (
             a, _, (pw, dw), startup_s):
         _chat(a, disagg_chat(-1, False, 4))
         _chat(a, chat_body(-1, False, 4))
@@ -4843,10 +5496,7 @@ def qos_phase(torch) -> dict:
           for i in range(QOS_BE)]
     ia = [chat_body(i, True, QOS_IA_TOKENS, user=QOS_IA_TURN)
           for i in range(QOS_IA)]
-    with distributed_stack(
-            workers=(("worker", ("--num-blocks", str(QOS_BLOCKS),
-                                 "--flight-recorder", "on")),),
-            frontend_b=False, tag="qos") as (a, _, (w,), startup_s):
+    with distributed_stack(**stack_spec("qos")) as (a, _, (w,), startup_s):
         _chat(a, chat_body(-1, False, 4, user=QOS_TURN))
         _http(w + "/debug/stats/reset", {})
         with ThreadPoolExecutor(QOS_BE + QOS_IA) as pool:
@@ -5005,10 +5655,18 @@ def cp_run(addr: str, fn):
 
 
 def fleet_long_body() -> dict:
-    """The chat that `fleet` drains mid-decode; `serve` answers it first,
-    undrained, as its greedy reference."""
+    """The chat that `fleet` drains mid-decode; `fleet_reference` answers
+    it undrained, as its greedy reference."""
     return traced(long_chat(FLEET_LONG_ID, False, FLEET_LONG_TOKENS,
                             FLEET_CHARS))
+
+
+def fleet_reference() -> list:
+    """The fleet's long chat answered alone and undrained on a `serve`
+    server of its own (the same model and flags), started beside the
+    fleet: its greedy token ids."""
+    with server("llama-3-1b", (), "_fleet_reference") as (base, _):
+        return answer(_chat(base, fleet_long_body()))["token_ids"]
 
 
 def fleet_workers(cp: str) -> dict:
@@ -5053,8 +5711,9 @@ def fleet_phase(torch, ref_ids: list) -> dict:
     - the stream completes through the peer with
       `dynamo_migrations_total{reason="drain"}`; the peer pulled the
       sealed blocks over cuda_ipc before admission (no host-staged block,
-      none prefilled again); the ids equal `serve`'s undrained answer
-      `ref_ids` (a split only at a near tie), and each id is the plain
+      none prefilled again); the ids equal the undrained answer
+      `ref_ids` (`fleet_reference`; a split only at a near tie), and each
+      id is the plain
       model's greedy choice given the ids before it, up to a near tie
       (`forced_gaps`), so no early split hides a token after the handoff;
     - scale-down: the connector counts a clean drain and no force kill,
@@ -5294,7 +5953,7 @@ args = {json.dumps(["--control-plane", cp, "--min-replicas", "1",
         out["kv_moved"] = {"migrated_in": st["migrated_in"],
                            "prefix_share": ps,
                            "plane_counts": st["plane_counts"]}
-        # The drained stream against `serve`'s undrained answer, and each
+        # The drained stream against its undrained answer, and each
         # of its ids against the plain model given the ids before it.
         state = llama_state(torch)
         prompt = chat_tokens(long_body)
@@ -5881,7 +6540,8 @@ def ingress_phase(serve: dict) -> dict:
     `serve`'s answers to the same completions (text and token counts; the
     random model's ids above 255 spell nothing, so the text holds little);
     `--out echo` returns the prompt; `--out mocker` answers while its
-    process launches no kernel (`/debug/stats` launch counts)."""
+    process launches no kernel (`/debug/stats` launch counts).  The
+    three processes run at once."""
     t_phase = time.monotonic()
     OUT_DIR.mkdir(exist_ok=True)
     src = OUT_DIR / "ingress_batch.jsonl"
@@ -5890,12 +6550,18 @@ def ingress_phase(serve: dict) -> dict:
     log = OUT_DIR / "chip_smoke_ingress_batch.log"
     t0 = time.monotonic()
     with open(log, "w") as f:
-        rc = subprocess.run(
+        batch = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--model",
              "llama-3-1b", "--model-name", "m", "--input", "batch",
              "--batch-file", str(src), "--batch-output", str(dst)],
-            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
-            timeout=600).returncode
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            echo_mocker = ingress_echo_mocker()
+            rc = batch.wait(timeout=600)
+        finally:
+            if batch.poll() is None:
+                batch.kill()
+                batch.wait()
     batch_s = time.monotonic() - t0
     check(rc == 0, f"ingress: --input batch exited rc {rc}: "
                    + log.read_text()[-2000:])
@@ -5909,23 +6575,30 @@ def ingress_phase(serve: dict) -> dict:
                                          "summary": summary,
                                          "texts_with_bytes": sum(
                                              bool(g[0]) for g in got)}}
+    out.update(echo_mocker)
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
+def ingress_echo_mocker() -> dict:
+    """`--out echo` returns the prompt; `--out mocker` answers while its
+    process launches no kernel."""
     prompt = "Echo: what does a paged KV cache hold?"
-    with server("llama-3-1b", ("--out", "echo"), tag="_echo") as (base, _):
-        r = json.loads(_http(base + "/v1/completions", {
+    with servers([("llama-3-1b", ("--out", "echo"), "_echo"),
+                  ("llama-3-1b", ("--out", "mocker", "--speedup-ratio",
+                                  "100"), "_mocker")]) as (
+            (echo, _), (mocker, _)):
+        r = json.loads(_http(echo + "/v1/completions", {
             "model": "m", "prompt": prompt, "max_tokens": 256}))
         text = r["choices"][0]["text"]
         check(text == prompt, f"ingress: --out echo returned {text!r}")
-    with server("llama-3-1b", ("--out", "mocker", "--speedup-ratio", "100"),
-                tag="_mocker") as (base, _):
-        r = _chat(base, chat_body(0, False, 16))
+        r = _chat(mocker, chat_body(0, False, 16))
         check(r["tokens"] == 16, f"ingress: the mocker answered {r}")
-        launches = json.loads(_http(base + "/debug/stats"))["kernels"]
+        launches = json.loads(_http(mocker + "/debug/stats"))["kernels"]
         check(not any(launches.values()),
               f"ingress: the mocker's process launched kernels: {launches}")
-    out["echo"] = {"returned_prompt": True}
-    out["mocker"] = {"tokens": r["tokens"], "launches": launches}
-    out["wall_s"] = time.monotonic() - t_phase
-    return out
+    return {"echo": {"returned_prompt": True},
+            "mocker": {"tokens": r["tokens"], "launches": launches}}
 
 
 # ---------------------------------------------------------------------------
@@ -6802,6 +7475,18 @@ def main() -> int:
                     emit({"phase": phase + "_cards", "ran": False,
                           "reason": f"needs {SP} cards, this machine has "
                                     f"{n_cards}: the ranks shared card 0"})
+        # K4 over an sp 2 ring at what each (dp row, tp slice) of the
+        # served grids rings: the sp2xtp2 8B's tp 2 rank heads, the
+        # dp2xsp2 1B's whole heads.
+        ring_tp = {}
+        for tag, hq, hkv, d in SP_GRID_GEOMETRY:
+            for quant in (False, True):
+                key = "ring_flash_attention" + ("_int8" if quant else "")
+                phase = f"{key}_{tag}"
+                ring_tp[key, tag] = ring_phase(
+                    torch, gen, d, quant, hq=hq, hkv=hkv, sp=SP_GRID,
+                    shapes=SP_GRID_SHAPES)
+                emit({"phase": phase, "shapes": ring_tp[key, tag]})
         phase = "moe_grouped"
         moe = moe_kernel_phases(torch, gen)
         for k in moe:
@@ -6844,6 +7529,18 @@ def main() -> int:
         for line in model_pp:
             emit(line)
         torch.cuda.empty_cache()
+        phase = "model_sp_grid"
+        model_sp_grid = model_sp_grid_phase(torch, kernels)
+        for line in model_sp_grid:
+            emit(line)
+        # The in-process phases leave reference cycles that hold card
+        # memory (model_tp's ~15 GB until a collection): free it before
+        # the serving stacks share the card with this process.
+        gc.collect()
+        torch.cuda.empty_cache()
+        # The serving phases' processes start in groups, each group
+        # beside the phase before it (`prestart`), idle until its phase.
+        prestart(server_launch("llama-3-1b"), stack_launch(**stack_spec("tp")))
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"),
@@ -6851,15 +7548,16 @@ def main() -> int:
                                 [chat_body(i, False, 64, user=LONE_TURN)
                                  for i in range(2)]
                                 + [disagg_chat(i, False)
-                                   for i in (0, 1, 0, 1)]
-                                + [fleet_long_body()])],
+                                   for i in (0, 1, 0, 1)])],
                             during=lambda base: (embed_requests(base),
                                                  batch_reference(base)))
         serve_embed, serve["batch_reference"] = serve.pop("during")
         emit(serve)
-        phase = "serve_tp / serve_dp / serve_pp"
-        serve_tp, serve_dp, serve_pp = serve_tp_dp_phases(torch, serve,
-                                                          tp_ref)
+        phase = "serve_tp / serve_dp / serve_pp / serve_sp_grid"
+        serve_tp, serve_dp, serve_pp, serve_spg = serve_tp_dp_phases(
+            torch, serve, tp_ref)
+        prestart(*(stack_launch(**stack_spec(tag)) for tag in (
+            "distributed", "observed_off", "observed", "spec")))
         emit(serve_tp)
         print(f"serve_tp on {'; '.join(smi.splitlines())}: llama-3-8b "
               f"--tp {TP} (startup {serve_tp['startup_s']:.1f} s): "
@@ -6923,6 +7621,38 @@ def main() -> int:
                           f"{max(x['argmax_gap']):.4f}, bitwise "
                           f"{all(x['bitwise_kernel_path'])})"
                           for x in model_pp), flush=True)
+        emit(serve_spg)
+        spw, sw = serve_spg["workers"], serve_spg["mixed_wave"]
+        print(f"serve_sp_grid on {'; '.join(smi.splitlines())}: long chats' "
+              f"TTFT (frontend, one at a time, {serve_spg['long_prompt_tokens']}"
+              f" prompt tokens) llama-3-8b ({SERVE_TP_LAYERS} layers) --slice "
+              f"sp{SP_GRID}xtp{TP} {[round(t, 4) for t in spw['8b']['ttft_long_s']]}"
+              f" s, the same chats on serve_tp's --tp {TP} worker "
+              f"{[round(t, 4) for t in serve_spg['ttft_long_tp2_s']]} s; "
+              f"llama-3-1b --sp {SP_GRID} --dp {DP} "
+              f"{[round(t, 4) for t in spw['1b']['ttft_long_s']]} s; K4 "
+              + ", ".join(f"{x['mesh']} {x['fold_launches_per_dispatch']} a "
+                          f"dispatch, lone chats equal to the unsharded "
+                          f"engine's {x['lone_equal_unsharded']}"
+                          for x in spw.values())
+              + f"; mixed wave on the 8B (2 long + 8 short): "
+              f"{sw['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{sw['ttft_mean_s']:.4f} s max {sw['ttft_max_s']:.4f} s, ITL "
+              f"mean {sw['itl_mean_s']:.5f} s, K1 / K2 / K4 "
+              f"{sw['launches']['paged_decode_attention']} / "
+              f"{sw['launches']['paged_prefill_attention']} / "
+              f"{sw['launches']['ring_flash_attention']}; serve_tp's wave "
+              f"{serve_tp['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve_tp['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve_tp['itl_mean_s']:.5f} s; model_sp_grid logits rel err "
+              "against the kernel path / the gather path "
+              + "; ".join(f"{x['leg']} {x['kv_quant']} "
+                          f"{max(x['logits_rel_err_vs_kernel']):.4f} / "
+                          f"{max(x['logits_rel_err']):.4f} (gap "
+                          f"{max(x['argmax_gap']):.4f}, ring step "
+                          f"{x['sp_step_s']:.3f} s, packed "
+                          f"{x['packed_step_s']:.3f} s)"
+                          for x in model_sp_grid), flush=True)
         phase = "serve_distributed"
         dist = serve_distributed_phase(serve, serve_embed)
         emit(dist)
@@ -7039,6 +7769,10 @@ def main() -> int:
         qos_tier = qos_tier_leg(torch, state)
         del state
         torch.cuda.empty_cache()
+        prestart(stack_launch(**stack_spec("disagg")),
+                 server_launch("llama-3-1b", ("--kv-quant", "int8"), "_int8"),
+                 server_launch("mixtral-8x7b",
+                               ("--num-layers", str(MOE_LAYERS)), ready_s=600))
         phase = "serve_disagg"
         disagg = serve_disagg_phase(serve)
         emit(disagg)
@@ -7069,6 +7803,13 @@ def main() -> int:
         phase = "serve_moe"
         serve_moe = serve_moe_phase()
         emit(serve_moe)
+        # serve_moe's server has exited: the ep worker's copy of the
+        # model fits now.
+        prestart(stack_launch(**stack_spec("ep")),
+                 *(server_launch("llama-3-1b", args, tag)
+                   for args, tag in SP_SERVERS),
+                 stack_launch(**stack_spec("qos")),
+                 server_launch("llama-3-1b", (), "_fleet_reference"))
         phase = "serve_ep"
         serve_ep = serve_ep_phase(torch, serve_moe)
         emit(serve_ep)
@@ -7109,44 +7850,6 @@ def main() -> int:
               f"{tm['best_effort']:.4f} s (queued ones "
               f"{tm['best_effort_queued']:.4f} s); {qos['wall_s']:.1f} s",
               flush=True)
-        phase = "planner_profile"
-        profile = planner_profile_phase(torch, kernels)
-        emit(profile)
-        pp, t = profile["profile"], profile["sla_targets"]
-        print(f"planner_profile on {'; '.join(smi.splitlines())}: TTFT "
-              f"{dict(zip(pp['prefill']['isl'], pp['prefill']['ttft_s']))} s "
-              f"by ISL; ITL {pp['decode']['itl_s']} s by (context "
-              f"{pp['decode']['context']}) x (kv {pp['decode']['kv_usage']});"
-              f" SLA targets P {t['num_prefill']} D {t['num_decode']}; "
-              f"{profile['wall_s']:.1f} s", flush=True)
-        phase = "fleet"
-        fleet = fleet_phase(torch, serve["lone_answers"][6]["token_ids"])
-        emit(fleet)
-        print(f"fleet on {'; '.join(smi.splitlines())}: first worker "
-              f"{fleet['first_worker_s']:.1f} s, scale-up "
-              f"{fleet['scale_up_s']:.1f} s, scale-down "
-              f"{fleet['scale_down_s']:.1f} s, drain by the "
-              f"{fleet['drain']['via']} {fleet['drain']['drain_s']:.2f} s "
-              f"after {fleet['drain']['emitted_before']} tokens, teardown "
-              f"{fleet['teardown']['s']:.1f} s; {fleet['wall_s']:.1f} s",
-              flush=True)
-        phase = "router_service"
-        routed = router_service_phase(serve)
-        emit(routed)
-        rs = routed["recorder"]
-        print(f"router_service on {'; '.join(smi.splitlines())}: startup "
-              f"{routed['startup_s']:.1f} s; recorder (raw arrivals, 8 chats"
-              f" through the service) TTFT p50 {rs['ttft_p50']:.4f} s p95 "
-              f"{rs['ttft_p95']:.4f} s, ITL p50 {rs['itl_p50']:.5f} s p95 "
-              f"{rs['itl_p95']:.5f} s, {rs['tok_s']:.1f} tok/s; frontend B "
-              f"ledger TTFT p50 {routed['ledger']['ttft_p50']} s, TPOT p50 "
-              f"{routed['ledger']['tpot_p50']} s; frontend B timings TTFT "
-              f"p50 {routed['frontend_b']['ttft_p50']:.4f} s, ITL mean "
-              f"{routed['frontend_b']['itl_mean_s']} s", flush=True)
-        phase = "ingress"
-        ingress = ingress_phase(serve)
-        emit(ingress)
-        torch.cuda.empty_cache()
         phase = "checkpoint"
         ckpt = checkpoint_phase(torch)
         emit(ckpt)
@@ -7164,20 +7867,55 @@ def main() -> int:
               f"{ckpt['chars_per_token']:.2f} chars a token, built in "
               f"{ckpt['written']['tokenizer_build_s']:.2f} s; "
               f"{ckpt['wall_s']:.1f} s", flush=True)
-        phase = "multimodal"
-        mmr = multimodal_phase(torch)
+        # Three lanes, then the fleet alone: the fleet's reference answer;
+        # router_service and ingress; planner_profile, multimodal and gguf
+        # (their times are taken beside the other lanes' load).
+        phase = ("fleet_reference / router_service, ingress / "
+                 "planner_profile, multimodal, gguf")
+
+        def in_process_lane():
+            profile = planner_profile_phase(torch, kernels)
+            mmr = multimodal_phase(torch)
+            # The checkpoint's last reader has run: its 2.5 GB leave the
+            # checkout before the GGUF's 1.3 GB are written.
+            shutil.rmtree(CKPT_DIR)
+            return profile, mmr, gguf_phase(torch, kernels)
+
+        with ThreadPoolExecutor(3) as lanes:  # its exit waits for all
+            ref = lanes.submit(fleet_reference)
+            side = lanes.submit(lambda: (router_service_phase(serve),
+                                         ingress_phase(serve)))
+            own = lanes.submit(in_process_lane)
+        ref_ids = ref.result()
+        routed, ingress = side.result()
+        profile, mmr, gg = own.result()
+        emit(profile)
+        pp, t = profile["profile"], profile["sla_targets"]
+        print(f"planner_profile on {'; '.join(smi.splitlines())}: TTFT "
+              f"{dict(zip(pp['prefill']['isl'], pp['prefill']['ttft_s']))} s "
+              f"by ISL; ITL {pp['decode']['itl_s']} s by (context "
+              f"{pp['decode']['context']}) x (kv {pp['decode']['kv_usage']});"
+              f" SLA targets P {t['num_prefill']} D {t['num_decode']}; "
+              f"{profile['wall_s']:.1f} s", flush=True)
+        emit(routed)
+        rs = routed["recorder"]
+        print(f"router_service on {'; '.join(smi.splitlines())}: startup "
+              f"{routed['startup_s']:.1f} s; recorder (raw arrivals, 8 chats"
+              f" through the service) TTFT p50 {rs['ttft_p50']:.4f} s p95 "
+              f"{rs['ttft_p95']:.4f} s, ITL p50 {rs['itl_p50']:.5f} s p95 "
+              f"{rs['itl_p95']:.5f} s, {rs['tok_s']:.1f} tok/s; frontend B "
+              f"ledger TTFT p50 {routed['ledger']['ttft_p50']} s, TPOT p50 "
+              f"{routed['ledger']['tpot_p50']} s; frontend B timings TTFT "
+              f"p50 {routed['frontend_b']['ttft_p50']:.4f} s, ITL mean "
+              f"{routed['frontend_b']['itl_mean_s']} s", flush=True)
+        emit(ingress)
         emit(mmr)
-        # The checkpoint's last reader has run: its 2.5 GB leave the
-        # checkout before the GGUF's 1.3 GB are written.
-        shutil.rmtree(CKPT_DIR)
         print(f"multimodal on {'; '.join(smi.splitlines())}: encode worker "
               f"+ checkpoint worker + frontend (startup "
               f"{mmr['startup_s']:.1f} s); image chats TTFT "
               f"{[round(t, 4) for t in mmr['ttft_s']]} s (64 image rows "
               f"over the device plane, {mmr['plane_counts']}); "
               f"{mmr['wall_s']:.1f} s", flush=True)
-        phase = "gguf"
-        gg = gguf_phase(torch, kernels)
         emit(gg)
         print(f"gguf on {'; '.join(smi.splitlines())}: "
               f"{gg['written']['bytes'] / 1e9:.3f} GB loaded and dequantized "
@@ -7185,7 +7923,20 @@ def main() -> int:
               f"({gg['load_gb_s']:.2f} GB/s); {gg['tensors_held']} tensors "
               f"bit-equal to the numpy dequant ({gg['hold_s']:.1f} s); "
               f"{gg['wall_s']:.1f} s", flush=True)
+        phase = "fleet"
+        fleet = fleet_phase(torch, ref_ids)
+        emit(fleet)
+        print(f"fleet on {'; '.join(smi.splitlines())}: first worker "
+              f"{fleet['first_worker_s']:.1f} s, scale-up "
+              f"{fleet['scale_up_s']:.1f} s, scale-down "
+              f"{fleet['scale_down_s']:.1f} s, drain by the "
+              f"{fleet['drain']['via']} {fleet['drain']['drain_s']:.2f} s "
+              f"after {fleet['drain']['emitted_before']} tokens, teardown "
+              f"{fleet['teardown']['s']:.1f} s; {fleet['wall_s']:.1f} s",
+              flush=True)
     except Exception as e:  # every failure ends the run without an ok line
+        stop_prestarted()
+        emit({"phase": "timeline", "procs": TIMELINE})
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
         # The same on stderr, last, where a caller that keeps only the
@@ -7194,6 +7945,8 @@ def main() -> int:
         print(f"chip_smoke: phase {phase} failed: {type(e).__name__}: "
               f"{str(e)[-3000:]}", file=sys.stderr, flush=True)
         return 1
+    stop_prestarted()      # none is left unless a phase forgot its own
+    emit({"phase": "timeline", "procs": TIMELINE})
     print(smi, flush=True)
     # K1/K2 bf16: launches on the serve path of their geometry (llama-3-1b
     # at D 64, mixtral-8x7b at D 128).  K1/K2 int8: launches of serve_int8
@@ -7285,6 +8038,8 @@ def main() -> int:
             extra["eager_ms"] = k["eager_ms"]
         if tp == TP and not quant:
             extra.update(extra_ep)
+            # The 8B `--slice sp2xtp2` worker's ranks of sp index 0.
+            extra["launches_serve_sp_grid"] = serve_spg["launches"][key]
         summary.append(summary_entry(k, f"{key}_{tag}", launches,
                                      launches_from=frm, **extra))
     # K1 / K2 at llama-3-70b's unsharded heads: the launches of model_pp's
@@ -7328,6 +8083,33 @@ def main() -> int:
                 k, name, serve_sp["launches"][key], launches_from="serve_sp",
                 fold_ms=k["fold_ms"], state_bytes=k["state_bytes"],
                 tflops=k["tflops"], fold_tflops=k["fold_tflops"]))
+    # K4 on the served grids' rings.  The bf16 body's launches: at the tp
+    # 2 rank's heads those of serve_sp_grid's llama-3-8b `--slice sp2xtp2`
+    # worker (the lone long chats and the mixed wave), at the 1B's heads
+    # those of its `--sp 2 --dp 2` worker (the lone long chats); the int8
+    # body's in model_sp_grid's int8 runs of that model (the 8B's sp2xtp2
+    # and dp2xsp2xtp2, the 1B's dp2xsp2), counts zeroed just before each.
+    for (key, tag), shapes in ring_tp.items():
+        model = "llama-3-1b" if tag == "dp2xsp2" else "llama-3-8b"
+        for k in shapes:
+            extra = {}
+            if key.endswith("_int8"):
+                launches = sum(x["launches"][key] for x in model_sp_grid
+                               if x["model"] == model
+                               and x["kv_quant"] == "int8")
+                frm = f"model_sp_grid {model} int8"
+            elif model == "llama-3-1b":
+                launches = serve_spg["workers"]["1b"]["launches"][key]
+                frm = "serve_sp_grid llama-3-1b dp2xsp2"
+            else:
+                launches = serve_spg["launches"][key]
+                frm = "serve_sp_grid llama-3-8b sp2xtp2"
+            if not key.endswith("_int8"):
+                extra["launches_serve_sp_grid"] = launches
+            summary.append(summary_entry(
+                k, f"{key}_{tag}", launches, launches_from=frm,
+                fold_ms=k["fold_ms"], state_bytes=k["state_bytes"],
+                tflops=k["tflops"], fold_tflops=k["fold_tflops"], **extra))
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

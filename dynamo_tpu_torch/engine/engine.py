@@ -58,8 +58,13 @@ item is a whole prompt of at least `sp_prefill_threshold` tokens skips
 the packed plane and runs as one padded [R, T] step over the ring's ranks
 (parallel/mesh.SpRing), attention through the flash-fold ring kernel on a
 card.  A prompt that a prefix-cache hit or the mixed-window budget splits
-is not a whole prompt and goes the packed plane.  The cache and decode
-stay on the engine's device, rank 0's.
+is not a whole prompt and goes the packed plane.  With sp alone the cache
+and decode stay on the engine's device, rank 0's; with tp or dp the sp
+axis joins the rank grid (JAX's `sp_prefill` plane): each (dp row, tp
+slice) has a ring of sp ranks carrying its heads, the batch's rows pad
+to a multiple of dp, and decode, the packed prefill and the cache stay
+on the ranks of sp index 0.  sp composes with neither ep nor
+dp_attention, in JAX's words.
 
 Speculative decode, as in JAX: with `speculative_tokens` K > 0 a
 decode-only step drafts K tokens a row (`engine/drafter.py`), feeds
@@ -116,7 +121,7 @@ themselves (the fixed `_dp_rows` grid, JAX's cost: that many rows every
 step; `_slot_perm`), and K1 / K2 run per shard on shard-local tables.
 Every modeled byte the counters and the device profiler keep is per
 chip: `kv_shard_count` (residency) is tp (dp * tp under dp-local) and
-`kv_traffic_shards` (reads) dp * tp, as JAX's.
+`kv_traffic_shards` (reads) dp * tp, as JAX's; sp divides neither.
 
 An MoE model on a grid resolves its mode by JAX's ladder
 (parallel/sharding.resolve_moe_mode: "dispatch" over an ep axis, else
@@ -139,8 +144,7 @@ embeddings and multimodal prompts under pp, in JAX's words.  A stored
 KV byte and a decode's KV reads split over the stages: `kv_shard_count`
 and `kv_traffic_shards` are pp, as JAX's.
 
-Not ported yet: prewarm of the packed prefill shapes; sp x tp, sp x dp
-and sp x ep meshes (ROADMAP.md A7).
+Not ported yet: prewarm of the packed prefill shapes.
 """
 
 from __future__ import annotations
@@ -291,7 +295,8 @@ class EngineConfig:
     # feed); without a sink nothing is emitted either way.
     enable_kv_events: bool = True
     # Sequence-parallel ring prefill: sp ranks (1 = off), each on the
-    # device `sp_devices` names for it (default: round-robin over the
+    # device `sp_devices` names for it (meshless only; a grid places its
+    # ranks itself; default: round-robin over the
     # visible cards, rank 0 on `device`; ranks may share a card).  Whole
     # prompts at least `sp_prefill_threshold` tokens long take the ring.
     sp: int = 1
@@ -411,9 +416,20 @@ class EngineCore:
             check_plane(PlaneSpec(dp_attention=config.dp_attention,
                                   dp_local=self._dp_local, moe=cfg.is_moe),
                         self.mesh)
+            if config.sp > 1:
+                # The ring prefill's own row of the table (MoE,
+                # dp-attention), before any rank is built.
+                check_plane(PlaneSpec(role="sp_prefill", moe=cfg.is_moe,
+                                      dp_attention=config.dp_attention),
+                            self.mesh)
+                if config.sp_devices is not None:
+                    raise ValueError(
+                        "sp_devices places the meshless ring's ranks; "
+                        "with tp or dp the grid places every rank")
             self.grid = DpGrid.for_mesh(
                 self.mesh, self.device, config.dp_attention, self._dp_local)
-            if config.dp == config.ep == 1 and not config.dp_attention:
+            if (config.dp == config.ep == config.sp == 1
+                    and not config.dp_attention):
                 logger.info("tp group: %d ranks on %s", config.tp,
                             self.grid.describe())
             else:
@@ -464,7 +480,8 @@ class EngineCore:
         # dp-local's flat grid; plain dp replicates), and each chip's
         # attention reads its rows' context, so traffic divides by dp*tp.
         # A pp stage holds and reads its layers' slice for every row:
-        # both divide by pp.
+        # both divide by pp.  sp divides neither: its ranks hold the
+        # same pieces and decode stays on sp index 0.
         self.kv_traffic_shards = config.dp * config.tp * config.pp
         self.kv_shard_count = (self.kv_traffic_shards if self._dp_local
                                else config.tp * config.pp)
@@ -658,24 +675,36 @@ class EngineCore:
         return torch.from_numpy(x).to(self.device)
 
     def _build_sp_step(self) -> None:
-        """The ring over `config.sp` ranks and the whole-prompt prefill
-        step on it; what the capability table rules out raises here."""
+        """The ring over `config.sp` ranks (on a grid: a ring a dp row
+        and tp slice) and the whole-prompt prefill step on it; what the
+        capability table rules out raises in `make_sp_prefill_step`."""
         config, cfg = self.config, self.config.model
-        check_plane(PlaneSpec(role="sp_prefill", moe=cfg.is_moe))
         bad = [b for b in config.scheduler.prefill_buckets
                if b >= config.sp_prefill_threshold and b % config.sp]
         if bad:
             raise ValueError(f"sp={config.sp} must divide the prefill "
                              f"buckets the ring can see; {bad} do not")
-        self.ring = SpRing.for_mesh(MeshConfig(sp=config.sp), self.device,
-                                    config.sp_devices)
+        if self.grid is not None:
+            # (dp row 0, tp slice 0)'s ring stands for all of them in the
+            # stats; each attends its heads.
+            self.ring = self.grid.rings[0][0]
+            ring = self.grid
+        else:
+            self.ring = ring = SpRing.for_mesh(
+                MeshConfig(sp=config.sp), self.device, config.sp_devices)
         # The kernel's ring; per dispatch the geometry rule decides
         # between it and the plain ring (llama._sp_ring_attention).
         self._sp_step = make_sp_prefill_step(
-            cfg, self.block_size, self.ring,
+            cfg, self.block_size, ring,
             kv_quant=self.cache_cfg.quantized, use_kernel=True)
-        logger.info("sp prefill ring: %d ranks on %s", self.ring.sp,
-                    self.ring.describe())
+        if self.grid is not None:
+            logger.info("sp prefill on the grid %s: %d rings of %d ranks, "
+                        "ranks on %s", self.mesh.describe(),
+                        config.dp * config.tp, config.sp,
+                        self.grid.describe())
+        else:
+            logger.info("sp prefill ring: %d ranks on %s", self.ring.sp,
+                        self.ring.describe())
 
     # -- request lifecycle ------------------------------------------------
 
@@ -986,14 +1015,15 @@ class EngineCore:
                            async_first: bool = False) -> List[TokenDelta]:
         """All scheduled prefill chunks: the packed plane, unless the
         batch is sp-eligible; then ONE padded [R, T] step over the ring
-        (ragged rows padded to the chunk bucket, pad rows and tails write
-        the null block)."""
+        (ragged rows padded to the chunk bucket and R to a multiple of dp,
+        pad rows and tails write the null block)."""
         if not self._sp_eligible(batch):
             return self._run_packed_prefill(batch, async_first)
         sched = self.scheduler.config
         bs = self.block_size
         items = batch.items
         R = sched.bucket_for_decode(len(items))
+        R = -(-R // self._row_mult) * self._row_mult
         T = sched.bucket_for_prefill(max(w.length for w in items))
         P = sched.bucket_for_pages(max(
             (w.length + bs - 1) // bs for w in items))
@@ -1024,16 +1054,17 @@ class EngineCore:
         first = c.note_dispatch("prefill", *sig)
         c.sp_prefill_dispatches += 1
         c.sp_prefill_count += len(items)
-        sp = self.ring.sp
+        sp = self.config.sp
         c.note_ring_exchange(
             sum(w.length for w in items)
             * self.cache_cfg.ring_payload_bytes_per_token * (sp - 1) // sp)
         self._harvest_program(first, "prefill", sig, steps=1, tokens=R * T,
                               kv_tokens=R * P * bs)
-        cfg = self.config.model
+        # The rank's heads: a tp rank's ring carries its slice only.
+        cfg, tp = self.config.model, self.config.tp
         if ring_kernel_supported(
-                cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, T // sp,
-                self.device, cfg.dtype):
+                cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim,
+                T // sp, self.device, cfg.dtype):
             c.ring_kernel_prefills += len(items)
         logits, self.cache = self._sp_step(
             self.params, self.cache, self._dev(tokens), self._dev(positions),

@@ -14,20 +14,36 @@ largest candidate's, and `pick_donor` orders remote-prefix donors by
 coverage, then free memory, then the stable id.
 
 The planner checks `validate_placement` before it spawns a worker.  A
-`--tp N` / `--dp N` worker publishes its degrees in `mesh` ("tp2",
-"dp2xtp2"), each rank's share of the cards' memory as
+`--tp N` / `--dp N` / `--sp N` worker publishes its degrees in `mesh`
+("tp2", "dp2xtp2", "sp2xtp2"), each rank's share of the cards' memory as
 `hbm_per_chip_bytes`, and, under `--dp-attention`, the `dp_attention`
 feature (with `dp_local` where page locality is on), JAX's feature
-names.  Not ported: the `--slice` parser and `place_role` (`--slice`'s
-`packed` and `windowN` features need worker knobs the port lacks).
+names.
+
+`parse_slice` is JAX's grammar of the worker's declarative `--slice`
+string, its `SliceSpec` equal to JAX's (`to_dict()`).  The port always
+packs its prefill, so `packed` / `packed_prefill` names what it does
+anyway, and its decode window is fixed at `DECODE_WINDOW` (8): `window8`
+is accepted and any other `windowN` raises, naming ROADMAP.md A2, where
+the worker's window knob comes with the captured windows.  Not ported:
+`place_role`.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Mapping, Optional, Tuple
 
 AXES = ("dp", "pp", "sp", "ep", "tp")
+
+# The engine's fixed decode window (engine/engine.py DECODE_WINDOW),
+# kept here so the fleet's modules import no engine.
+PORT_WINDOW = 8
+
+_MESH_TOKEN = re.compile(
+    r"^(?:(?:dp|pp|sp|ep|tp)\d+)(?:x(?:dp|pp|sp|ep|tp)\d+)*$")
+_AXIS_DEG = re.compile(r"(dp|pp|sp|ep|tp)(\d+)")
 
 ROLES = ("prefill", "decode", "both", "encode")
 
@@ -63,6 +79,23 @@ class SliceSpec:
     @property
     def total_hbm_bytes(self) -> int:
         return self.chips * int(self.hbm_per_chip_bytes)
+
+    def axis(self, name: str) -> int:
+        return int(self.mesh[AXES.index(name)])
+
+    def mesh_config(self):
+        """The parallel/mesh.MeshConfig this spec names (imported here:
+        the fleet's modules import no torch)."""
+        from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+        return MeshConfig(*(int(d) for d in self.mesh))
+
+    def serves_role(self, role: str) -> bool:
+        """Can a request phase `role` land on this slice?  "both" serves
+        prefill and decode; dedicated slices serve only their phase."""
+        if role == "both":
+            return self.role == "both"
+        return self.role == role or self.role == "both"
 
     def reachable(self, other: "SliceSpec") -> bool:
         """Can THIS slice pull the OTHER slice's KV over a device fabric?
@@ -110,6 +143,65 @@ class SliceSpec:
             )
         except (TypeError, ValueError):
             return None
+
+
+def parse_slice(spec: str) -> SliceSpec:
+    """The worker's declarative `--slice` string (JAX's grammar).
+
+    Comma-separated tokens, order-free:
+
+      mesh descriptor   "tp2", "sp2xtp2", "single"  (axis-degree pairs)
+      kv mode           "int8" | "bf16"
+      role              "role=prefill" | "role=decode" | "role=both"
+      features          "packed" (packed prefill), "spec" (spec decode),
+                        "window8" (the port's decode window),
+                        "dp_attention", "dp_local", "pallas"
+
+    Example: `--slice "sp2xtp2,int8,packed,role=prefill"` stands for
+    `--sp 2 --tp 2 --kv-quant int8 --role prefill`.  A window other than
+    the port's raises (ROADMAP.md A2)."""
+    mesh = [1] * len(AXES)
+    role = "both"
+    kv_quant = "none"
+    features = []
+    for raw in spec.split(","):
+        tok = raw.strip().lower()
+        if not tok or tok == "single":
+            continue
+        if _MESH_TOKEN.match(tok):
+            for axis, deg in _AXIS_DEG.findall(tok):
+                mesh[AXES.index(axis)] = int(deg)
+            continue
+        if tok in ("int8", "bf16", "none"):
+            kv_quant = "int8" if tok == "int8" else "none"
+            continue
+        if tok.startswith("role="):
+            role = tok.split("=", 1)[1]
+            if role not in ROLES:
+                raise ValueError(
+                    f"--slice role must be one of {ROLES}, got {role!r}")
+            continue
+        if tok in ("packed", "packed_prefill"):
+            features.append("packed_prefill")
+            continue
+        if tok in ("spec", "dp_attention", "dp_local", "pallas"):
+            features.append(tok)
+            continue
+        m = re.match(r"^window(\d+)$", tok)
+        if m:
+            if int(m.group(1)) != PORT_WINDOW:
+                raise ValueError(
+                    f"--slice {tok!r}: the port's decode window is fixed at "
+                    f"{PORT_WINDOW} (window{PORT_WINDOW}); a window knob "
+                    "waits for ROADMAP.md A2")
+            features.append(tok)
+            continue
+        raise ValueError(
+            f"unrecognized --slice token {raw.strip()!r} "
+            "(want a mesh descriptor like 'sp2xtp2', 'int8', "
+            "'role=prefill', or a feature: packed/spec/windowN)")
+    return SliceSpec(mesh=tuple(mesh), role=role, kv_quant=kv_quant,
+                     features=tuple(dict.fromkeys(features)))
 
 
 def free_hbm_bytes(spec: Optional[SliceSpec], metrics=None) -> int:

@@ -195,7 +195,9 @@ def parse_args(argv=None):
                    help="sequence-parallel degree: whole-prompt prefills "
                         "past the engine's threshold run ring attention "
                         "over N ranks (the long-context prefill path); "
-                        "decode stays on the first card")
+                        "decode stays on the first card.  The in-process "
+                        "engine runs sp alone; sp with tp or dp (the rank "
+                        "grid) is the worker's --sp / --slice")
     tracing.add_trace_args(p)
     slo.add_slo_args(p)
     flight_recorder.add_flight_args(p)
@@ -294,14 +296,15 @@ async def attach_static_remote(args, tokenizer, pre):
     if len(parts) != 3 or not all(parts):
         raise SystemExit(f"--out {args.out!r}: expected "
                          "dyn://namespace/component/endpoint")
-    from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+    from dynamo_tpu_torch.runtime.control_plane_tcp import (
+        STARTUP_WAIT_S, ControlPlaneClient)
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.runtime.pipeline import (
         KvRouterOp, MigrationOp, Pipeline, RemoteOp)
 
     host, _, port = args.control_plane.rpartition(":")
     cp = ControlPlaneClient(host or "127.0.0.1", int(port))
-    await cp.start()
+    await cp.start(wait_s=STARTUP_WAIT_S)
     runtime = DistributedRuntime(cp)
     endpoint = (runtime.namespace(parts[0]).component(parts[1])
                 .endpoint(parts[2]))
@@ -527,12 +530,13 @@ async def start_discovery(args, models: ModelManager, registry=None):
     series on `registry`); returns the watcher and the shutdown
     coroutines, outermost first."""
     from dynamo_tpu_torch.llm.discovery import ModelWatcher
-    from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+    from dynamo_tpu_torch.runtime.control_plane_tcp import (
+        STARTUP_WAIT_S, ControlPlaneClient)
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
     host, _, port = args.control_plane.rpartition(":")
     cp = ControlPlaneClient(host, int(port))
-    await cp.start()
+    await cp.start(wait_s=STARTUP_WAIT_S)
     runtime = DistributedRuntime(cp)
     watcher = ModelWatcher(runtime, models, router_mode=args.router_mode,
                            migration_limit=args.migration_limit,

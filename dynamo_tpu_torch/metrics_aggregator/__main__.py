@@ -9,7 +9,8 @@ import logging
 import signal
 
 from dynamo_tpu_torch.metrics_aggregator import serve
-from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+from dynamo_tpu_torch.runtime.control_plane_tcp import (
+    STARTUP_WAIT_S, ControlPlaneClient)
 
 
 def main(argv=None) -> None:
@@ -23,7 +24,7 @@ def main(argv=None) -> None:
     async def run():
         host, port = args.control_plane.rsplit(":", 1)
         cp = ControlPlaneClient(host, int(port))
-        await cp.start()
+        await cp.start(wait_s=STARTUP_WAIT_S)
         agg, server, bound = await serve(cp, args.http_host, args.http_port)
         print(f"metrics aggregator serving :{bound}/metrics", flush=True)
         stop = asyncio.Event()

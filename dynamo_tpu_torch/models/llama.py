@@ -47,7 +47,11 @@ Forward contract (unified prefill/decode, as in the JAX package):
   With an ep axis (a grid of dp x ep x tp ranks) everything but the MoE
   layers runs on the ranks of ep index 0, the ep ranks of a card sharing
   their weights and cache, and an MoE layer's tokens split over the row's
-  ep ranks (`_grid_moe`).
+  ep ranks (`_grid_moe`).  With an sp axis (dp x sp x tp ranks) every
+  step but the ring prefill runs on the ranks of sp index 0, and the
+  ring prefill (`sp_ring` the grid itself) runs rank (d, s, t) on token
+  slice s of dp row d with tp slice t's weights, each (d, t) attending
+  its heads on its own ring (`_grid_sp_forward`).
 - `tp` a parallel.mesh.PpStages routes the step factories to the
   pipeline's (parallel/pipeline.py): per-stage states and caches, JAX's
   GPipe microbatch schedule, each stage running its layers through the
@@ -67,6 +71,7 @@ Matrix products stay `torch.matmul`, as the JAX package left them to XLA.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -367,9 +372,11 @@ def _sp_ring_attention(cfg: ModelConfig, q, k, v, positions, ring_quant,
     per-rank lists (kq, vq, k_scale, v_scale) of the quantized chunk,
     which then rotate in place of k and v.
 
-    For ranks on a card the choice is `ring_kernel_supported`, the same
-    predicate the engine's kernel-path counter reads, so the two cannot
-    disagree on which ring a geometry runs.  A geometry the kernel does
+    `cfg` is the geometry the ranks compute (`rank_config`: a tp rank's
+    heads on a grid).  For ranks on a card the choice is
+    `ring_kernel_supported` at those heads, the same predicate the
+    engine's kernel-path counter reads, so the two cannot disagree on
+    which ring a geometry runs.  A geometry the kernel does
     not take is a declared rule, not a caught failure: once chosen, the
     kernel launches or raises.  For CPU ranks the kernel's ring folds
     with the kernel's plain version, as every kernel wrapper of the port
@@ -390,56 +397,79 @@ def _sp_ring_attention(cfg: ModelConfig, q, k, v, positions, ring_quant,
     return outs
 
 
-def _sp_attention_layer(cfg: ModelConfig, ring, use_kernel: bool,
-                        layers, hs, positions, rots, write_slots,
-                        k_cache, v_cache, k_scale, v_scale):
-    """One layer's attention over the ring: `layers[r]` is rank r's
-    replica of the layer, `hs[r]` its normed [B, T/sp, H] slice.  Each
-    rank projects and rotates its own slice; the chunk's rows are
-    gathered on rank 0's card and written to the paged cache there; the
-    chunk attends itself on the ring (no cached context is read).  With an
-    int8 cache each rank quantizes its rows ONCE, and the same int8 rows
-    and scales are scattered into the cache and rotated around the ring,
-    so the ring attends what every later cache read will see."""
-    sp = ring.sp
-    quant = k_scale is not None
-    qs, ks, vs, kscs, vscs = [], [], [], [], []
-    for r in range(sp):
-        with ring.on(r):
-            q, k, v = _qkv(cfg, layers[r]["attn"], hs[r], rots[r])
-            B, t_loc = q.shape[:2]
-            if quant:
-                kq, ksc = kvc.quantize_kv_rows(
-                    k.reshape(B * t_loc, cfg.kv_size), cfg.num_kv_heads)
-                vq, vsc = kvc.quantize_kv_rows(
-                    v.reshape(B * t_loc, cfg.kv_size), cfg.num_kv_heads)
-                k = kq.reshape(B, t_loc, cfg.num_kv_heads, cfg.head_dim)
-                v = vq.reshape(B, t_loc, cfg.num_kv_heads, cfg.head_dim)
-                kscs.append(ksc.reshape(B, t_loc, cfg.num_kv_heads))
-                vscs.append(vsc.reshape(B, t_loc, cfg.num_kv_heads))
-            qs.append(q)
-            ks.append(k)
-            vs.append(v)
-    # The chunk's rows in token order [B, T, ...], on the cache's card.
-    B = qs[0].shape[0]
-    rows = [ring.gather(parts, dim=1).reshape(B * sp * t_loc, -1)
-            for parts in ((ks, vs, kscs, vscs) if quant else (ks, vs))]
+def _sp_qkv(cfg: ModelConfig, p_attn: State, h: torch.Tensor, rot,
+            quant: bool):
+    """One rank's (q, k, v, k_scale, v_scale) of its token slice h
+    [B, T/sp, H].  With an int8 cache the rank quantizes its k and v rows
+    ONCE: the same int8 rows and scales [B, T/sp, Hkv] are written into
+    the cache and rotated around the ring, so the ring attends what every
+    later cache read will see; without one the scales are None."""
+    q, k, v = _qkv(cfg, p_attn, h, rot)
+    if not quant:
+        return q, k, v, None, None
+    B, t_loc = k.shape[:2]
+    kq, ksc = kvc.quantize_kv_rows(k.reshape(B * t_loc, cfg.kv_size),
+                                   cfg.num_kv_heads)
+    vq, vsc = kvc.quantize_kv_rows(v.reshape(B * t_loc, cfg.kv_size),
+                                   cfg.num_kv_heads)
+    return (q, kq.reshape(k.shape), vq.reshape(v.shape),
+            ksc.reshape(k.shape[:3]), vsc.reshape(v.shape[:3]))
+
+
+def _sp_write_rows(cache: Dict, i: int, slots, rows) -> None:
+    """The chunk's rows into layer i of one cache: (k, v) in the model
+    dtype, or the int8 rows and their scales."""
+    if len(rows) == 4:
+        kvc.scatter_kv_quant(cache["k"][i], cache["v"][i],
+                             cache["k_scale"][i], cache["v_scale"][i],
+                             slots, *rows)
+    else:
+        kvc.write_kv(cache["k"][i], cache["v"][i], slots, *rows)
+
+
+def _sp_ring_layer(cfg: ModelConfig, ring, use_kernel: bool, qkv,
+                   positions, write, wos):
+    """One layer's attention over the ring from its ranks' `qkv[r]`
+    (`_sp_qkv`): the chunk's rows gather in token order on rank 0, where
+    `write(rows)` puts them into the cache; the chunk attends itself on
+    the ring (no cached context is read); rank r's output goes through
+    its `wos[r]`."""
+    quant = qkv[0][3] is not None
+    parts = [[x[j] for x in qkv] for j in range(5 if quant else 3)]
+    B, t_loc = parts[0][0].shape[:2]
+    rows = [ring.gather(p, dim=1).reshape(B * ring.sp * t_loc, -1)
+            for p in parts[1:]]
     with ring.on(0):
-        if quant:
-            kvc.scatter_kv_quant(k_cache, v_cache, k_scale, v_scale,
-                                 write_slots, *rows)
-        else:
-            kvc.write_kv(k_cache, v_cache, write_slots, *rows)
-    outs = _sp_ring_attention(
-        cfg, qs, ks, vs, positions,
-        (ks, vs, kscs, vscs) if quant else None, ring, use_kernel)
+        write(rows)
+    outs = _sp_ring_attention(cfg, *parts[:3], positions,
+                              parts[1:] if quant else None, ring, use_kernel)
     attn = []
-    for r in range(sp):
+    for r in range(ring.sp):
         with ring.on(r):
-            B, t_loc = outs[r].shape[:2]
-            attn.append(outs[r].reshape(B, t_loc, cfg.q_size)
-                        @ layers[r]["attn"]["wo"])
+            attn.append(outs[r].reshape(B, t_loc, cfg.q_size) @ wos[r])
     return attn
+
+
+def _sp_sample_rows(cfg: ModelConfig, ring, xs, norms, smps, t_loc: int):
+    """Each row's final-normed sampled row [B, H] on rank 0: row b's
+    sample position lies on rank smps[b] // t_loc; every rank r norms its
+    candidate rows (`xs[r]` [B, T/sp, H], `norms[r]` its final norm,
+    `smps[r]` the sample positions), rank 0 keeps the owners'."""
+    cands = []
+    for r in range(ring.sp):
+        with ring.on(r):
+            x = xs[r]
+            idx = (smps[r].to(x.device).long() - r * t_loc).clamp(
+                0, t_loc - 1)
+            row = x[torch.arange(x.shape[0], device=x.device), idx]
+            cands.append(rms_norm(row, norms[r], cfg.rms_norm_eps,
+                                  cfg.rms_offset)[None])
+    stacked = ring.gather(cands, dim=0)                        # [sp, B, H]
+    with ring.on(0):
+        owner = torch.div(smps[0].to(stacked.device).long(), t_loc,
+                          rounding_mode="floor").clamp(0, ring.sp - 1)
+        return stacked[owner, torch.arange(stacked.shape[1],
+                                           device=stacked.device)]
 
 
 def _sp_forward(cfg: ModelConfig, block_size: int, ring, use_kernel: bool,
@@ -449,7 +479,9 @@ def _sp_forward(cfg: ModelConfig, block_size: int, ring, use_kernel: bool,
     the WHOLE prompt of every row (positions 0..len-1, pad positions past
     the block table); rank r runs every token-wise op of every layer on
     tokens [r * T/sp, (r + 1) * T/sp) with its card's replica of the
-    parameters, and only attention sees the other ranks' tokens.
+    parameters, and only attention sees the other ranks' tokens.  The
+    chunk's rows are gathered on rank 0's card and written to the paged
+    cache there.
 
     The paged cache and all of decode stay on rank 0's card: after the
     step the cache holds what a meshless prefill of the same prompts
@@ -484,34 +516,23 @@ def _sp_forward(cfg: ModelConfig, block_size: int, ring, use_kernel: bool,
     off = cfg.rms_offset
     for i in range(cfg.num_layers):
         layers = [st["layers"][i] for st in states]
-        hs = []
+        qkv = []
         for r in range(sp):
             with ring.on(r):
-                hs.append(rms_norm(xs[r], layers[r]["attn_norm"],
-                                   cfg.rms_norm_eps, off))
-        attn = _sp_attention_layer(
-            cfg, ring, use_kernel, layers, hs, pos, rots, write_slots,
-            cache["k"][i], cache["v"][i],
-            cache["k_scale"][i] if quant else None,
-            cache["v_scale"][i] if quant else None)
+                h = rms_norm(xs[r], layers[r]["attn_norm"], cfg.rms_norm_eps,
+                             off)
+                qkv.append(_sp_qkv(cfg, layers[r]["attn"], h, rots[r],
+                                   quant))
+        attn = _sp_ring_layer(
+            cfg, ring, use_kernel, qkv, pos,
+            functools.partial(_sp_write_rows, cache, i, write_slots),
+            [layer["attn"]["wo"] for layer in layers])
         for r in range(sp):
             with ring.on(r):
                 xs[r] = _layer_tail(cfg, layers[r], xs[r], attn[r], "dense", [])
-    # Row b's sample position lies on rank sample_positions[b] // t_loc;
-    # every rank norms its candidate row, rank 0 keeps the owner's.
-    cands = []
-    for r in range(sp):
-        with ring.on(r):
-            idx = (sample_positions.to(ring.devices[r]).long()
-                   - r * t_loc).clamp(0, t_loc - 1)
-            row = xs[r][torch.arange(B, device=ring.devices[r]), idx]
-            cands.append(rms_norm(row, states[r]["final_norm"],
-                                  cfg.rms_norm_eps, off)[None])
-    stacked = ring.gather(cands, dim=0)                        # [sp, B, H]
+    sel = _sp_sample_rows(cfg, ring, xs, [st["final_norm"] for st in states],
+                          [sample_positions] * sp, t_loc)
     with ring.on(0):
-        owner = torch.div(sample_positions.long(), t_loc,
-                          rounding_mode="floor").clamp(0, sp - 1)
-        sel = stacked[owner, torch.arange(B, device=stacked.device)]
         logits = _lm_head(cfg, states[0], sel)
     ring.join()
     return logits, cache
@@ -570,9 +591,8 @@ def _check_grid(cfg: ModelConfig, grid, sp_ring=None,
     from dynamo_tpu_torch.parallel.sharding import (
         PlaneSpec, check_plane, validate)
 
-    mesh = MeshConfig(dp=grid.dp,
-                      sp=sp_ring.sp if sp_ring is not None else 1,
-                      ep=grid.ep, tp=grid.tp)
+    mesh = MeshConfig(dp=grid.dp, sp=getattr(grid, "sp", 1), ep=grid.ep,
+                      tp=grid.tp)
     check_plane(PlaneSpec(use_kernel=use_kernel,
                           dp_attention=grid.dp_attention,
                           dp_local=grid.dp_local, moe=cfg.is_moe), mesh)
@@ -631,9 +651,9 @@ def _grid_shards(grid, state, cache) -> None:
     n_cache = grid.attention.n
     if not isinstance(state, list) or len(state) != grid.n or \
             not isinstance(cache, list) or len(cache) != n_cache:
-        mesh = (f"tp={grid.tp}" if grid.dp == grid.ep == 1
-                else f"dp{grid.dp}xtp{grid.tp}" if grid.ep == 1
-                else f"dp{grid.dp}xep{grid.ep}xtp{grid.tp}")
+        mesh = (f"tp={grid.tp}" if grid.dp == grid.ep == grid.sp == 1
+                else f"dp{grid.dp}xtp{grid.tp}" if grid.ep == grid.sp == 1
+                else f"dp{grid.dp}xsp{grid.sp}xep{grid.ep}xtp{grid.tp}")
         caches = "" if n_cache == grid.n else f" ({n_cache} caches)"
         raise ValueError(f"a {mesh} step takes a list of {grid.n} rank "
                          f"states and caches{caches} (shard_state, "
@@ -1065,6 +1085,141 @@ def _grid_packed(cfg: ModelConfig, block_size: int, grid, moe_mode: str,
     return logits, cache, loads
 
 
+def _sp_write(grid, cache, f: int, i: int, slots, rows) -> None:
+    """The ring prefill's chunk rows of (dp row, tp slice) f = d * tp + t,
+    gathered on rank (d, 0, t), into every copy of tp slice t's cache
+    (`_sp_write_rows`)."""
+    for g in grid.holders(f % grid.tp):
+        dev = cache[g]["k"][i].device
+        _sp_write_rows(cache[g], i, slots.to(dev), [r.to(dev) for r in rows])
+
+
+def _grid_sp_forward(cfg: ModelConfig, block_size: int, grid,
+                     use_kernel: bool, state, cache, tokens, positions,
+                     block_tables, sample_positions):
+    """The whole-prompt ring prefill over a DpGrid with an sp axis (JAX's
+    `sp_prefill` plane on a (dp, sp, tp) mesh).  The chunk is the WHOLE
+    prompt of every row, as `_sp_forward`'s; rows split over the dp rows
+    in contiguous ranges and T over sp.  Rank (d, s, t) runs every
+    token-wise op of token slice s of row d's rows with tp slice t's
+    weights (`rank_config`: its heads, its MLP columns, its vocab
+    slice): the embedding summed over t, its heads projected (int8 rows
+    and scales quantized once, on the rank that made them), `wo` and the
+    MLP's down projection all-reduced over t within (d, s).  Attention
+    runs on (d, t)'s ring over its s ranks, carrying slice t's K/V only.
+    The chunk's rows gather on rank (d, 0, t) and are written into every
+    copy of slice t's cache (`_sp_write`), so after the step the cache
+    holds what a grid prefill of the same prompts writes.  The sampled
+    rows' candidates gather on (d, 0, t); the vocab-sharded head gathers
+    over t as `_tp_head`'s, and the logits come home to rank 0.  Each
+    ring's part is `_sp_forward`'s own (`_sp_qkv`, `_sp_ring_layer`,
+    `_sp_sample_rows`)."""
+    R, T = tokens.shape
+    dp, sp, tp = grid.dp, grid.sp, grid.tp
+    if T % sp:
+        raise ValueError(f"sp prefill: chunk length {T} must divide by "
+                         f"sp={sp}")
+    if R % dp:
+        raise ValueError(f"sp prefill: {R} rows must split over dp={dp}")
+    if sample_positions is None:
+        raise ValueError("sp prefill gives one logits row per sequence: "
+                         "pass sample_positions")
+    _grid_shards(grid, state, cache)
+    rcfg = rank_config(cfg, tp)
+    quant = kvc.cache_is_quantized(cache[0])
+    t_loc, Rd = T // sp, R // dp
+    bt = block_tables.to(torch.int32)
+    write_slots = kvc.slots_for_positions(bt, positions, block_size)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    smp = sample_positions.long()
+    # (d, s)'s shares, views taken on the caller's stream before the fork;
+    # the write slots and the sample positions are whole rows of row d.
+    shares = [[[t.narrow(0, d * Rd, Rd).narrow(1, s * t_loc, t_loc)
+                for t in (tokens, positions, cos, sin)]
+               for s in range(sp)] for d in range(dp)]
+    rows_of = [[t.narrow(0, d * Rd, Rd) for t in (write_slots, smp)]
+               for d in range(dp)]
+    grid.fork(sp=True)
+    # ins[d][s][k][t]: input k of rank (d, s, t).
+    ins = [[[g.replicate(x) for x in shares[d][s]]
+            for s, g in enumerate(grid.sp_tps[d])] for d in range(dp)]
+    ws = [grid.rows[d].replicate(rows_of[d][0].reshape(Rd * T))
+          for d in range(dp)]
+    smps = [[g.replicate(rows_of[d][1]) for g in grid.sp_tps[d]]
+            for d in range(dp)]
+    sts = [[grid.row_states(state, d, s) for s in range(sp)]
+           for d in range(dp)]
+    xs = []
+    for d in range(dp):
+        xs.append([])
+        for s, g in enumerate(grid.sp_tps[d]):
+            toks = ins[d][s][0]
+            if tp == 1:
+                with g.on(0):
+                    xs[d].append([_embed(cfg, sts[d][s][0], toks[0])])
+            else:
+                xs[d].append(_tp_embed(cfg, g, sts[d][s], toks,
+                                       [None] * tp, [None] * tp))
+    off = cfg.rms_offset
+    for i in range(cfg.num_layers):
+        for d in range(dp):
+            # qkv[s][t]: `_sp_qkv` of rank (d, s, t).
+            qkv = []
+            for s, g in enumerate(grid.sp_tps[d]):
+                qkv.append([])
+                for t in range(tp):
+                    with g.on(t):
+                        layer = sts[d][s][t]["layers"][i]
+                        h = rms_norm(xs[d][s][t], layer["attn_norm"],
+                                     cfg.rms_norm_eps, off)
+                        qkv[s].append(_sp_qkv(
+                            rcfg, layer["attn"], h,
+                            (ins[d][s][2][t], ins[d][s][3][t]), quant))
+            attn = [[None] * tp for _ in range(sp)]
+            for t in range(tp):
+                outs = _sp_ring_layer(
+                    rcfg, grid.rings[d][t], use_kernel,
+                    [qkv[s][t] for s in range(sp)],
+                    [ins[d][s][1][t] for s in range(sp)],
+                    functools.partial(_sp_write, grid, cache, d * tp + t, i,
+                                      ws[d][t]),
+                    [sts[d][s][t]["layers"][i]["attn"]["wo"]
+                     for s in range(sp)])
+                for s in range(sp):
+                    attn[s][t] = outs[s]
+            for s, g in enumerate(grid.sp_tps[d]):
+                st, x = sts[d][s], xs[d][s]
+                summed = g.all_reduce(attn[s])
+                hs = []
+                for t in range(tp):
+                    with g.on(t):
+                        x[t], h = _mlp_in(cfg, st[t]["layers"][i], x[t],
+                                          summed[t])
+                        hs.append(_dense_mlp(st[t]["layers"][i]["mlp"], h,
+                                             cfg.activation))
+                mlp = g.all_reduce(hs)
+                for t in range(tp):
+                    with g.on(t):
+                        x[t] = _mlp_out(cfg, st[t]["layers"][i], x[t], mlp[t])
+    # (d, 0, t) keeps the sampled rows' owners (`_sp_sample_rows`) and
+    # runs its vocab slice of the head.
+    outs = []
+    for d in range(dp):
+        heads = []
+        for t in range(tp):
+            ring = grid.rings[d][t]
+            sel = _sp_sample_rows(
+                cfg, ring, [xs[d][s][t] for s in range(sp)],
+                [sts[d][s][t]["final_norm"] for s in range(sp)],
+                [smps[d][s][t] for s in range(sp)], t_loc)
+            with ring.on(0):
+                heads.append(_lm_head(rcfg, sts[d][0][t], sel))
+        outs.append(grid.rows[d].all_gather(heads, dim=-1))
+    logits = grid.gather_rows(outs)
+    grid.join(sp=True)
+    return logits, cache
+
+
 # ---------------------------------------------------------------------------
 # Forward
 
@@ -1089,7 +1244,8 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     T must divide by sp; build it with
     parallel.sharding.make_sp_prefill_step.  `sp_ring_kernel` sends
     eligible geometry through the flash-fold kernel in place of the plain
-    ring.
+    ring.  On a grid with an sp axis `sp_ring` is the grid itself (`tp`),
+    and a T > 1 call is `_grid_sp_forward`.
 
     `tp` (a DpGrid): the sharded step over per-rank states and caches
     (module docstring); inputs and outputs lie on rank 0's card.  `tp`
@@ -1113,12 +1269,21 @@ def make_forward_step(cfg: ModelConfig, block_size: int,
     grid = _grid(tp)
     if grid is not None:
         _check_grid(cfg, grid, sp_ring, use_decode_kernel, moe_mode)
-        if sp_ring is not None:
-            raise ValueError("the sp ring prefill takes no dp grid")
+        if sp_ring is not None and (sp_ring is not grid
+                                    or getattr(grid, "sp", 1) < 2):
+            raise ValueError("a grid's ring prefill runs on the grid's own "
+                             "sp axis: pass the DpGrid (sp > 1) as sp_ring")
 
         def grid_step(state, cache, tokens, positions, seq_lens,
                       block_tables, sample_positions=None,
                       input_embeds=None, embed_mask=None):
+            if sp_ring is not None and tokens.shape[1] > 1:
+                if input_embeds is not None or return_hidden:
+                    raise ValueError("the sp ring prefill takes no "
+                                     "input_embeds")
+                return _grid_sp_forward(
+                    cfg, block_size, grid, sp_ring_kernel, state, cache,
+                    tokens, positions, block_tables, sample_positions)
             out, cache, loads = _grid_forward(
                 cfg, block_size, grid, use_decode_kernel, moe_mode,
                 return_hidden, state, cache, tokens, positions, seq_lens,

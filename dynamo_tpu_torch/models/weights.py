@@ -176,7 +176,8 @@ def from_jax_params(params, device: Union[str, torch.device]) -> State:
     their structure; every leaf becomes a tensor of the same dtype on
     `device`.  For a rank grid, `device` "cpu": `shard_state` (or
     `EngineCore(params=...)`) then copies each rank's slice from the
-    host straight to its card.  JAX's stacked pytree (pipeline.
+    host straight to its card, once a place for the ranks that share it
+    (an sp grid's ranks of one (dp row, tp slice), say).  JAX's stacked pytree (pipeline.
     stack_layer_params: `layers` one dict of [L, ...] leaves) comes
     across as the port's list of L layer dicts."""
     if isinstance(params, dict) and isinstance(params.get("layers"), dict):

@@ -220,7 +220,7 @@ def ring_flash_attention(
                 ring.send(r, hop, blk, arrived, like)
             with ring.on(r):
                 if ring.cuda and hop > 0:
-                    ring.compute_streams[r].wait_event(arrived)
+                    ring.stream(r).wait_event(arrived)
                 ring_flash_fold(
                     states[r], q_scaled[r], q_pos[r], blk[0], blk[1], blk[2],
                     outs[r], first=hop == 0, last=hop == sp - 1,

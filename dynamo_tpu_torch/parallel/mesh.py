@@ -3,9 +3,11 @@ tensor-parallel group, the expert-parallel group, the rank grid and the
 pipeline's stages.
 
 `MeshConfig` keeps the JAX package's axis order (dp, pp, sp, ep, tp) and
-its `describe()`.  Every axis is wired in the port; `sp x tp` and `sp x
-dp` raise, naming the roadmap item that queues them, and pp composes with
-no other axis, in the words of JAX's `_validate_pp`.
+its `describe()`.  Every axis is wired in the port; pp composes with no
+other axis, in the words of JAX's `_validate_pp`.  What else cannot
+compose is JAX's to say: `sharding.validate` refuses an ep axis on a
+dense model, and the capability table (`sharding.plane_capability`)
+refuses the ring prefill on an MoE model and under dp-attention.
 
 A JAX mesh is an array of devices, one program each, so it can be no
 larger than the devices it is made of.  A CUDA card runs many streams, so
@@ -25,7 +27,9 @@ slot `h % 2` (its own, unstaged block at hop 0) while its copy stream
 already sends that block into the right neighbour's slot `(h + 1) % 2`.
 The next hop's fold waits on that copy's event; a copy into a slot waits
 on the events of the last fold and the last send that read the slot (the
-TPU kernel's ack credit).
+TPU kernel's ack credit).  A ring of a rank grid (`SpRing.of_members`)
+computes on the streams of the grid's ranks instead of streams of its
+own, so the ring and the grid's collectives order one another.
 
 `TpGroup`: the collectives of one dp row of tp ranks (Megatron's tensor
 parallelism), each rank holding its slice of the weights and of the
@@ -43,21 +47,26 @@ per-expert buffers, JAX's `jax.lax.all_to_all` over the ep axis),
 ranks' streams on one card and a peer copy between cards, ordered by
 events.
 
-`DpGrid`: the (dp, ep, tp) rank grid every sharded step runs on, JAX's
-dp, dp-attention and dp-local modes, tensor parallelism alone as the grid
-of one dp row (`dp=1`), and expert parallelism as `ep` ranks a (dp row,
-tp slice).  Ranks are numbered flat in JAX's axis order, `flat = (d * ep
-+ e) * tp + t`; (d, e) is a TpGroup of its tp ranks and (d, t) an
-EpGroup of its ep ranks.  Rank 0 runs on the caller's stream and every
-other rank on a stream of its own, so the rows run side by side.  The
-batch splits over the dp rows in contiguous ranges (JAX's `P("dp")`, or
-`P(("dp", "tp"))` under dp-attention), each row's outputs come back to
-rank 0 (`home`), and inside a row the TpGroup's collectives apply.
-Attention, the embedding and the head run on the ranks of ep index 0
-(`attention`, the grid the KV cache is laid out over: JAX's cache specs
-never name ep), and an MoE layer's tokens split over the row's ep ranks.
-Ranks of one place (`places[f]`, by default the card) and one piece
-share one copy of it.  A meshless step runs no grid.
+`DpGrid`: the (dp, sp, ep, tp) rank grid every sharded step runs on,
+JAX's dp, dp-attention and dp-local modes, tensor parallelism alone as
+the grid of one dp row (`dp=1`), expert parallelism as `ep` ranks a (dp
+row, tp slice) and sequence parallelism as `sp` ranks a (dp row, tp
+slice).  Ranks are numbered flat in JAX's axis order, `flat = ((d * sp +
+s) * ep + e) * tp + t` (with sp 1, `(d * ep + e) * tp + t`); (d, s, e)
+is a TpGroup of its tp ranks, (d, t) an EpGroup of its ep ranks and,
+under sp, an SpRing of its sp ranks.  Rank 0 runs on the caller's stream
+and every other rank on a stream of its own, so the rows run side by
+side.  The batch splits over the dp rows in contiguous ranges (JAX's
+`P("dp")`, or `P(("dp", "tp"))` under dp-attention), each row's outputs
+come back to rank 0 (`home`), and inside a row the TpGroup's collectives
+apply.  Attention, the embedding and the head run on the ranks of sp and
+ep index 0 (`attention`, the grid the KV cache is laid out over: JAX's
+cache specs name neither sp nor ep), an MoE layer's tokens split over
+the row's ep ranks, and only the ring prefill (models/llama.py
+`_grid_sp_forward`) runs the ranks of sp index s > 0, each on token
+slice s of its row.  Ranks of one place (`places[f]`, by default the
+card) and one piece share one copy of it: on one card the sp ranks add
+streams and no weights.  A meshless step runs no grid.
 
 `PpStages`: the pipeline's S stage ranks (JAX's GPipe stage schedule,
 parallel/pipeline.py).  Stage s owns layers `[s * L/S, (s + 1) * L/S)`
@@ -85,8 +94,8 @@ AXES = ("dp", "pp", "sp", "ep", "tp")
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Degrees per axis: `sp` may exceed 1 only where dp, ep and tp do
-    not, and `pp` only where every other axis is 1."""
+    """Degrees per axis: `pp` may exceed 1 only where every other axis
+    is 1."""
 
     dp: int = 1
     pp: int = 1
@@ -105,21 +114,6 @@ class MeshConfig:
                     raise ValueError(
                         f"pp v1 composes with no other axis in-mesh (got "
                         f"{axis}={n}); run dp via engine replicas")
-        if self.sp > 1 and self.tp > 1:
-            raise ValueError(
-                f"mesh sp{self.sp}xtp{self.tp}: sp x tp waits for ROADMAP.md "
-                "A7 (the ring prefill runs on replicated parameters and "
-                "an unsharded cache)")
-        if self.sp > 1 and self.dp > 1:
-            raise ValueError(
-                f"mesh dp{self.dp}xsp{self.sp}: sp x dp waits for "
-                "ROADMAP.md A7 (the ring prefill runs on replicated "
-                "parameters and one cache)")
-        if self.sp > 1 and self.ep > 1:
-            raise ValueError(
-                f"mesh sp{self.sp}xep{self.ep}: sp x ep waits for "
-                "ROADMAP.md A7 (the ring prefill runs on replicated "
-                "parameters; MoE x ring-SP prefill is declared impossible)")
 
     @property
     def shape(self) -> tuple:
@@ -175,25 +169,54 @@ class _Slots:
         self.readers: List[List[torch.cuda.Event]] = [[], []]
 
 
-class SpRing:
+class _Members:
+    """Ranks that compute on the streams of TpGroups: rank i is member
+    `t` of TpGroup `g`, `members[i] = (g, t)`."""
+
+    members: List[Tuple["TpGroup", int]]
+
+    def on(self, i: int):
+        """Context: rank i's device and stream are current."""
+        g, t = self.members[i]
+        return g.on(t)
+
+    def stream(self, i: int) -> "torch.cuda.Stream":
+        """Rank i's compute stream (cuda only)."""
+        g, t = self.members[i]
+        return g._stream(t)
+
+
+class SpRing(_Members):
     """The sequence-parallel ring: `sp` ranks on a list of devices."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device],
+                 members: Optional[Sequence[Tuple["TpGroup", int]]] = None):
+        """`members` ((TpGroup, index) a rank, `of_members`): the ranks
+        compute on those groups' streams; without them, on streams of the
+        ring's own."""
         devices = _rank_devices(devices, "ring")
         self.devices: List[torch.device] = devices
         self.sp = len(devices)
         self.cuda = devices[0].type == "cuda"
+        if members is None:
+            own = TpGroup(devices, own_first=True)
+            members = [(own, r) for r in range(self.sp)]
+        self.members = list(members)
         # Distinct cards, in rank order.
         self.cards: List[torch.device] = list(dict.fromkeys(devices))
-        if self.cuda:
-            self.compute_streams = [torch.cuda.Stream(d) for d in devices]
-            self.copy_streams = [torch.cuda.Stream(d) for d in devices]
-        else:
-            self.compute_streams = self.copy_streams = [None] * self.sp
+        self.copy_streams = ([torch.cuda.Stream(d) for d in devices]
+                             if self.cuda else [None] * self.sp)
         self._slots: List[Dict[tuple, _Slots]] = [{} for _ in devices]
         # id(state) -> (state, one replica per rank); the state is held
         # so that its id stays its own.
         self._replicas: Dict[int, Tuple[dict, List[dict]]] = {}
+
+    @classmethod
+    def of_members(cls, members: Sequence[Tuple["TpGroup", int]]) -> "SpRing":
+        """The ring of a rank grid's (dp row, tp slice): rank s is member
+        `t` of the grid's TpGroup (d, s) and computes on that rank's
+        stream (the caller's own for rank (0, 0, 0))."""
+        return cls([g.devices[t] for g, t in members], members)
 
     @classmethod
     def for_mesh(cls, mesh: MeshConfig, primary: torch.device,
@@ -219,12 +242,6 @@ class SpRing:
 
     # -- streams -----------------------------------------------------------
 
-    def on(self, rank: int):
-        """Context: rank's device and compute stream are current."""
-        if not self.cuda:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.compute_streams[rank])
-
     def on_pair(self, dst: int, src: int):
         """Context for a copy from rank src's tensors to rank dst's
         device: both ranks' compute streams are current on their cards,
@@ -244,7 +261,8 @@ class SpRing:
         for d in self.cards:
             evs[d] = torch.cuda.Event()
             evs[d].record(torch.cuda.current_stream(d))
-        for r, s in enumerate(self.compute_streams):
+        for r in range(self.sp):
+            s = self.stream(r)
             s.wait_event(evs[self.devices[r]])
             s.wait_event(evs[self.devices[0]])
 
@@ -255,9 +273,8 @@ class SpRing:
         if not self.cuda:
             return
         main = torch.cuda.current_stream(self.devices[0])
-        for r, s in enumerate(self.compute_streams):
-            ev = torch.cuda.Event()
-            ev.record(s)
+        for r in range(self.sp):
+            ev = self.mark(r)
             main.wait_event(ev)
             if self.devices[r] != self.devices[0]:
                 torch.cuda.current_stream(self.devices[r]).wait_event(ev)
@@ -268,7 +285,7 @@ class SpRing:
         if not self.cuda:
             return None
         ev = torch.cuda.Event()
-        ev.record(self.compute_streams[rank])
+        ev.record(self.stream(rank))
         return ev
 
     def to_rank(self, dst: int, src: int, t: torch.Tensor) -> torch.Tensor:
@@ -277,9 +294,9 @@ class SpRing:
         copied over."""
         if not self.cuda or dst == src:
             return t
-        self.compute_streams[dst].wait_event(self.mark(src))
+        self.stream(dst).wait_event(self.mark(src))
         if self.devices[src] == self.devices[dst]:
-            t.record_stream(self.compute_streams[dst])
+            t.record_stream(self.stream(dst))
             return t
         with self.on_pair(dst, src):
             return t.to(self.devices[dst], non_blocking=True)
@@ -516,7 +533,7 @@ class TpGroup:
         return self._spread(whole)
 
 
-class EpGroup:
+class EpGroup(_Members):
     """The expert-parallel group of one (dp row, tp slice): its ep ranks,
     rank e being member `t` of the grid's TpGroup (d, e), on that group's
     stream.  Every tensor handed between ranks goes through `_move`: the
@@ -530,24 +547,15 @@ class EpGroup:
         self.devices = [g.devices[t] for g, t in self.members]
         self.cuda = self.devices[0].type == "cuda"
 
-    def on(self, e: int):
-        """Context: rank e's device and stream are current."""
-        g, t = self.members[e]
-        return g.on(t)
-
-    def _stream(self, e: int) -> "torch.cuda.Stream":
-        g, t = self.members[e]
-        return g._stream(t)
-
     def _move(self, dst: int, src: int, x: torch.Tensor) -> torch.Tensor:
         """Tensor `x`, made on rank src's stream, for use on rank dst's."""
         if not self.cuda or dst == src:
             return x
         ev = torch.cuda.Event()
-        ev.record(self._stream(src))
-        self._stream(dst).wait_event(ev)
+        ev.record(self.stream(src))
+        self.stream(dst).wait_event(ev)
         if self.devices[dst] == self.devices[src]:
-            x.record_stream(self._stream(dst))
+            x.record_stream(self.stream(dst))
             return x
         with self.on(dst), self.on(src):
             return x.to(self.devices[dst], non_blocking=True)
@@ -601,8 +609,9 @@ class EpGroup:
 
 
 class DpGrid:
-    """The (dp, ep, tp) rank grid: dp rows of ep x tp ranks each, ranks
-    numbered flat (`(d * ep + e) * tp + t`), and the mode the grid runs.
+    """The (dp, sp, ep, tp) rank grid: dp rows of sp x ep x tp ranks each,
+    ranks numbered flat (`((d * sp + s) * ep + e) * tp + t`), and the mode
+    the grid runs.
 
     - plain dp: a dp row runs its share of the batch tensor-parallel,
       its tp slices of the weights and of a head-sharded cache
@@ -620,27 +629,38 @@ class DpGrid:
     over ep); an MoE layer's tokens split over the row's ep ranks
     (`eps[d][t]`), whose partial outputs join on ep index 0.
 
+    `sp` ranks a (row, tp slice) form its ring (`rings[d][t]`), which
+    only the ring prefill runs: rank (d, s, t) takes token slice s of
+    row d with tp slice t's weights, each (d, s) a TpGroup
+    (`sp_tps[d][s]`; `sp_tps[d][0]` is `rows[d]`).  Decode, the packed
+    prefill and the cache stay on the ranks of sp index 0, today's grid.
+    What sp does not compose with (ep, dp-attention) is refused by the
+    step's builders (JAX's capability table and `validate`).
+
     `places` names where each rank's copies live (default: its device):
     ranks of one place and one piece share one copy, so a card holds
     each slice once."""
 
     def __init__(self, devices: Sequence, dp: int,
                  dp_attention: bool = False, dp_local: bool = False,
-                 places: Optional[Sequence] = None, ep: int = 1):
+                 places: Optional[Sequence] = None, ep: int = 1,
+                 sp: int = 1):
         self.devices: List[torch.device] = _rank_devices(devices, "dp grid")
         self.n = len(self.devices)
-        if dp < 1 or ep < 1 or self.n % (dp * ep):
-            raise ValueError(f"dp={dp} must divide the grid's {self.n} ranks"
-                             if ep == 1 else f"dp*ep={dp * ep} must divide "
-                             f"the grid's {self.n} ranks")
+        if dp < 1 or ep < 1 or sp < 1 or self.n % (dp * sp * ep):
+            what = ("dp" if ep == sp == 1 else "dp*ep" if sp == 1
+                    else "dp*sp" if ep == 1 else "dp*sp*ep")
+            raise ValueError(f"{what}={dp * sp * ep} must divide the "
+                             f"grid's {self.n} ranks")
         if dp_local and not dp_attention:
             raise ValueError("dp_local implies dp_attention")
-        self.dp, self.ep, self.tp = dp, ep, self.n // (dp * ep)
+        self.dp, self.sp, self.ep = dp, sp, ep
+        self.tp = self.n // (dp * sp * ep)
         self.dp_attention, self.dp_local = dp_attention, dp_local
         self.cuda = self.devices[0].type == "cuda"
         self.cards: List[torch.device] = list(dict.fromkeys(self.devices))
         tp, home = self.tp, self.devices[0]
-        # tps[d][e]: the TpGroup of ranks (d, e, *); rows[d] = tps[d][0].
+        # tps[d][e]: the TpGroup of ranks (d, 0, e, *); rows[d] = tps[d][0].
         self.tps = [[TpGroup([self.devices[self.flat(d, e, t)]
                               for t in range(tp)], home=home,
                              own_first=(d, e) != (0, 0))
@@ -648,29 +668,47 @@ class DpGrid:
         self.rows = [g[0] for g in self.tps]
         self.eps = [[EpGroup([(self.tps[d][e], t) for e in range(ep)])
                      for t in range(tp)] for d in range(dp)]
+        # sp_tps[d][s]: the TpGroup of ranks (d, s, 0, *); rings[d][t]: the
+        # ring of ranks (d, *, 0, t).
+        self.sp_tps = [[self.rows[d]] + [
+            TpGroup([self.devices[self.flat(d, 0, t, s)] for t in range(tp)],
+                    home=home, own_first=True) for s in range(1, sp)]
+            for d in range(dp)]
+        self.rings = ([[SpRing.of_members([(self.sp_tps[d][s], t)
+                                           for s in range(sp)])
+                        for t in range(tp)] for d in range(dp)]
+                      if sp > 1 else None)
         self.places = list(places) if places is not None else list(
             self.devices)
         if len(self.places) != self.n:
             raise ValueError(f"{len(self.places)} places for {self.n} ranks")
-        self.attention = self if ep == 1 else _AttentionGrid(self)
+        self.attention = (self if ep == sp == 1 else _AttentionGrid(self))
         # K1 / K2 launches each rank made (the wrappers' counts, split by
-        # the rank that called them; ep index 0 attends).
+        # the rank that called them; sp and ep index 0 attend).
         self.launches = [0] * self.n
 
     @classmethod
     def for_mesh(cls, mesh: MeshConfig, primary: torch.device,
                  dp_attention: bool = False,
                  dp_local: bool = False) -> "DpGrid":
-        """The grid of a mesh's dp, ep and tp axes (tp alone: dp 1):
+        """The grid of a mesh's dp, sp, ep and tp axes (tp alone: dp 1):
         rank 0 on `primary`, the engine's device, the ranks spread over
         the visible cards, shared round-robin where there are fewer."""
-        return cls(default_rank_devices(mesh.dp * mesh.ep * mesh.tp,
+        return cls(default_rank_devices(mesh.dp * mesh.sp * mesh.ep * mesh.tp,
                                         torch.device(primary)),
-                   mesh.dp, dp_attention, dp_local, ep=mesh.ep)
+                   mesh.dp, dp_attention, dp_local, ep=mesh.ep, sp=mesh.sp)
 
-    def flat(self, d: int, e: int, t: int) -> int:
-        """The flat rank of (dp row d, ep index e, tp slice t)."""
-        return (d * self.ep + e) * self.tp + t
+    def flat(self, d: int, e: int, t: int, s: int = 0) -> int:
+        """The flat rank of (dp row d, sp index s, ep index e, tp slice
+        t)."""
+        return ((d * self.sp + s) * self.ep + e) * self.tp + t
+
+    def coords(self, f: int) -> Tuple[int, int, int, int]:
+        """(d, s, e, t) of flat rank f."""
+        rest, t = divmod(f, self.tp)
+        rest, e = divmod(rest, self.ep)
+        d, s = divmod(rest, self.sp)
+        return d, s, e, t
 
     @property
     def mode(self) -> str:
@@ -683,7 +721,7 @@ class DpGrid:
 
     def holders(self, t: int) -> List[int]:
         """One flat rank per distinct copy of tp slice t among the ranks
-        that attend (ep index 0), dp row 0's first."""
+        that attend (sp and ep index 0), dp row 0's first."""
         seen: Dict[object, int] = {}
         for d in range(self.dp):
             f = self.flat(d, 0, t)
@@ -692,27 +730,33 @@ class DpGrid:
 
     def _group_of(self, f: int) -> Tuple[TpGroup, int]:
         """(the TpGroup holding flat rank f, f's index in it)."""
-        return (self.tps[f // (self.ep * self.tp)][(f // self.tp) % self.ep],
-                f % self.tp)
+        d, s, e, t = self.coords(f)
+        return (self.sp_tps[d][s] if s else self.tps[d][e]), t
 
     def on(self, f: int):
         """Context: flat rank f's device and stream are current."""
         g, t = self._group_of(f)
         return g.on(t)
 
-    def row_states(self, states: Sequence, d: int) -> List:
-        """Row d's per-rank items of ep index 0, in tp order."""
-        return [states[self.flat(d, 0, t)] for t in range(self.tp)]
+    def row_states(self, states: Sequence, d: int, s: int = 0) -> List:
+        """Row d's per-rank items of sp index s and ep index 0, in tp
+        order."""
+        return [states[self.flat(d, 0, t, s)] for t in range(self.tp)]
 
-    def _groups(self):
-        return [g for row in self.tps for g in row]
+    def _groups(self, sp: bool = False):
+        groups = [g for row in self.tps for g in row]
+        if sp:
+            groups += [g for row in self.sp_tps for g in row[1:]]
+        return groups
 
-    def fork(self) -> None:
-        for g in self._groups():
+    def fork(self, sp: bool = False) -> None:
+        """Every rank's stream waits for the caller's work (`sp`: the
+        ranks of sp index s > 0 too, which only the ring prefill runs)."""
+        for g in self._groups(sp):
             g.fork()
 
-    def join(self) -> None:
-        for g in self._groups():
+    def join(self, sp: bool = False) -> None:
+        for g in self._groups(sp):
             g.join()
 
     def home(self, f: int, x: torch.Tensor) -> torch.Tensor:
@@ -739,9 +783,9 @@ class DpGrid:
 
 
 class _AttentionGrid:
-    """The (dp, tp) grid of a DpGrid's ranks of ep index 0: what the KV
-    cache is laid out over (kv_cache.init_grid_caches and its routes
-    take it), flat index `d * tp + t`."""
+    """The (dp, tp) grid of a DpGrid's ranks of sp and ep index 0: what
+    the KV cache is laid out over (kv_cache.init_grid_caches and its
+    routes take it), flat index `d * tp + t`."""
 
     def __init__(self, grid: DpGrid):
         ranks = [grid.flat(d, 0, t) for d in range(grid.dp)

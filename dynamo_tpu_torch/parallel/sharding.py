@@ -21,6 +21,11 @@ The ep axis, as JAX's: an MoE layer's expert axis shards over ep and
 each expert's intermediate width over tp ("dispatch": the router
 replicated, every shard routing its own tokens; "dense": the router's
 expert columns over ep too), and everything else replicates over ep.
+
+The sp axis, as JAX's `sp_prefill` plane: the weights and the cache are
+cut by the same specs (tp-sharded, replicated over dp and sp), and the
+ring prefill's tokens and positions shard `P("dp", "sp")`: rows over dp,
+the whole prompt's T axis over sp (`make_sp_prefill_step`).
 `resolve_moe_mode` is JAX's mode ladder on a mesh (the meshless branch
 lies in ops/moe.py).
 
@@ -41,7 +46,7 @@ from dynamo_tpu_torch.engine import kv_cache as kvc
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import make_forward_step
 from dynamo_tpu_torch.ops import moe as moe_ops
-from dynamo_tpu_torch.parallel.mesh import MeshConfig, SpRing
+from dynamo_tpu_torch.parallel.mesh import MeshConfig
 
 
 @dataclass(frozen=True)
@@ -315,6 +320,9 @@ def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
     row."""
     tp, dp, places = group.tp, group.dp, group.places
     ep = getattr(group, "ep", 1)
+    # Every rank of sp index s > 0 takes its (d, t) piece: no spec names
+    # sp, so it shares the copy of its place.
+    sp = getattr(group, "sp", 1)
     shared: Dict[tuple, torch.Tensor] = {}
 
     def walk(t, s, r, path):
@@ -323,7 +331,7 @@ def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
         if isinstance(t, (list, tuple)):
             return [walk(v, sv, r, path + (i,))
                     for i, (v, sv) in enumerate(zip(t, s))]
-        cuts, idx = _coords(s, r // (ep * tp), r % tp, tp,
+        cuts, idx = _coords(s, r // (sp * ep * tp), r % tp, tp,
                             (r // tp) % ep, ep)
         parts = {axis: (dp * tp if s[axis] == ("dp", "tp") else dp)
                  for axis, _, n in cuts if n is None}
@@ -335,7 +343,7 @@ def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
     return [walk(tree, specs, r, ()) for r in range(len(group.devices))]
 
 
-def make_sp_prefill_step(cfg: ModelConfig, block_size: int, ring: SpRing,
+def make_sp_prefill_step(cfg: ModelConfig, block_size: int, ring,
                          kv_quant: bool = False, use_kernel: bool = False):
     """Ring-SP whole-prompt prefill (`role="sp_prefill"`):
 
@@ -343,24 +351,38 @@ def make_sp_prefill_step(cfg: ModelConfig, block_size: int, ring: SpRing,
                                     positions [R, T], seq_lens [R],
                                     block_tables [R, P], sample_pos [R])
 
-    with tokens and positions cut over the ring's ranks on the T axis and
-    the parameters replicated per card; T must divide by sp.  `kv_quant`
-    says the cache is int8 (its rows and scales then ride the ring);
-    `use_kernel` selects the flash-fold kernel's ring
+    `ring` an SpRing (the meshless ring): tokens and positions are cut
+    over its ranks on the T axis, the parameters replicated per card and
+    the cache one, on rank 0's card.  `ring` a DpGrid with sp > 1 (JAX's
+    plane on a mesh): tokens and positions shard `P("dp", "sp")`, the
+    params and the cache are the grid's per-rank lists (`shard_state`,
+    kv_cache.init_grid_caches), and each (dp row, tp slice) runs its own
+    ring of its heads; R must divide by dp.  T must divide by sp.
+    `kv_quant` says the cache is int8 (its rows and scales then ride the
+    ring); `use_kernel` selects the flash-fold kernel's ring
     (ops/cuda/ring_attention.py) where the geometry rule passes; without
     it attention takes the plain ring, the oracle."""
-    check_plane(PlaneSpec(role="sp_prefill", moe=cfg.is_moe))
+    grid = ring if hasattr(ring, "rows") else None
+    sp = ring.sp
+    if grid is None:
+        check_plane(PlaneSpec(role="sp_prefill", moe=cfg.is_moe))
+    else:
+        check_plane(PlaneSpec(role="sp_prefill", moe=cfg.is_moe,
+                              dp_attention=grid.dp_attention),
+                    MeshConfig(dp=grid.dp, sp=sp, ep=grid.ep, tp=grid.tp))
     inner = make_forward_step(cfg, block_size, moe_mode="dense",
-                              sp_ring=ring, sp_ring_kernel=use_kernel)
+                              sp_ring=ring, sp_ring_kernel=use_kernel,
+                              tp=grid)
 
     def step(params, cache, tokens, positions, seq_lens, block_tables,
              sample_pos):
-        if kvc.cache_is_quantized(cache) != kv_quant:
+        first = cache[0] if grid is not None else cache
+        if kvc.cache_is_quantized(first) != kv_quant:
             raise ValueError("the step was built for kv_quant="
                              f"{kv_quant} and got the other cache")
-        if tokens.shape[1] % ring.sp:
+        if tokens.shape[1] % sp:
             raise ValueError(f"sp prefill: chunk length {tokens.shape[1]} "
-                             f"must divide by sp={ring.sp}")
+                             f"must divide by sp={sp}")
         return inner(params, cache, tokens, positions, seq_lens,
                      block_tables, sample_pos)
 

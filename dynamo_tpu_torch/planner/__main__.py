@@ -20,7 +20,8 @@ import logging
 import signal
 
 from dynamo_tpu_torch.planner import LoadPlanner, LocalConnector, PlannerConfig
-from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+from dynamo_tpu_torch.runtime.control_plane_tcp import (
+    STARTUP_WAIT_S, ControlPlaneClient)
 
 
 def main(argv=None) -> None:
@@ -74,7 +75,7 @@ def main(argv=None) -> None:
     async def run():
         host, port = args.control_plane.rsplit(":", 1)
         cp = ControlPlaneClient(host, int(port))
-        await cp.start()
+        await cp.start(wait_s=STARTUP_WAIT_S)
         connector = LocalConnector(args.control_plane,
                                    worker_args=args.worker_args)
         if args.mode == "sla":

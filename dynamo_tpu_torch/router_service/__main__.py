@@ -12,7 +12,8 @@ import logging
 import signal
 
 from dynamo_tpu_torch.router_service import RouterService
-from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+from dynamo_tpu_torch.runtime.control_plane_tcp import (
+    STARTUP_WAIT_S, ControlPlaneClient)
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
 
@@ -46,7 +47,7 @@ def main(argv=None) -> None:
 
         host, port = args.control_plane.rsplit(":", 1)
         cp = ControlPlaneClient(host, int(port))
-        await cp.start()
+        await cp.start(wait_s=STARTUP_WAIT_S)
         runtime = DistributedRuntime(cp)
         svc = RouterService(runtime, args.model_name,
                             namespace=args.namespace,

@@ -38,6 +38,10 @@ from dynamo_tpu_torch.runtime.control_plane import (
 
 
 FRAME_LIMIT = 64 * 1024 * 1024     # bytes of one JSON line, either way
+# How long an entry point (worker, frontend, router service, planner,
+# metrics aggregator) started beside its control plane waits for it to
+# listen.
+STARTUP_WAIT_S = 60.0
 logger = logging.getLogger(__name__)
 
 
@@ -322,10 +326,22 @@ class ControlPlaneClient:
                 t.exception() and logger.error(
                     "session-loss callback failed: %s", t.exception())))
 
-    async def start(self) -> None:
+    async def start(self, wait_s: float = 0.0) -> None:
+        """Connect; with `wait_s`, a refused connection is dialled again
+        until the server listens or `wait_s` has passed (a process
+        started beside its control plane)."""
         self._closed = False
-        self._reader, self._writer = await asyncio.open_connection(
-            self.host, self.port, limit=FRAME_LIMIT)
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + wait_s
+        while True:
+            try:
+                self._reader, self._writer = await asyncio.open_connection(
+                    self.host, self.port, limit=FRAME_LIMIT)
+                break
+            except OSError:
+                if loop.time() >= deadline:
+                    raise
+                await asyncio.sleep(0.1)
         self._rx_task = asyncio.create_task(self._rx_loop())
 
     async def close(self) -> None:

@@ -127,12 +127,23 @@ schedule of `--pp-microbatches` microbatches; parallel/pipeline.py),
 each stage holding its layers and their paged KV and attending through
 K1 and K2; pp composes with no other axis, as in JAX.  `/debug/stats`
 then shows the mesh (`pp2`), `kv_shard_count` and each stage's K1 / K2
-launches (`rank_launches`).  With `--tp`, `--dp`, `--ep` or `--pp` a
+launches (`rank_launches`).  `--sp N` prefills whole prompts of 256
+tokens or more over a ring of N ranks (the long-context prefill; decode
+stays where it was): alone, the meshless engine's ring, its rank 0 on the
+engine's card; with `--tp` or `--dp` (JAX's `sp2xtp2`, `dp2xsp2`) the sp
+axis joins the rank grid, each (dp row, tp slice) ringing its own heads
+through K4 while decode and the cache stay on the ranks of sp index 0.
+sp composes with neither `--ep` nor `--dp-attention` nor `--pp`, in
+JAX's words.  `--slice SPEC` (fleet/topology.parse_slice, JAX's grammar:
+e.g. `sp2xtp2,int8,role=prefill`) expands over `--dp --pp --sp --ep
+--tp`, `--kv-quant`, `--role`, `--dp-attention` and `--spec-decode`;
+the slice the worker publishes (`derive_slice_spec`) then reads as the
+one asked for.  With `--tp`, `--dp`, `--ep` or `--pp` a
 checkpoint is read on the host and each rank's slice (a stage's layers)
 copied straight to its card, and a preset's weights are cut as they are
 drawn, so no card ever holds the whole model beside its slices.
 
-Not ported: multihost and lockstep, and `--slice`.
+Not ported: multihost and lockstep.
 """
 
 from __future__ import annotations
@@ -152,7 +163,7 @@ from dynamo_tpu_torch.engine.engine import (
 )
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
-from dynamo_tpu_torch.fleet.topology import SliceSpec
+from dynamo_tpu_torch.fleet.topology import SliceSpec, parse_slice
 from dynamo_tpu_torch.frontend.main import stats_hooks
 from dynamo_tpu_torch.llm.block_manager import device_transfer as dt
 from dynamo_tpu_torch.llm.block_manager.pool import slo_eviction_bias
@@ -200,7 +211,8 @@ from dynamo_tpu_torch.runtime import (
     tracing,
 )
 from dynamo_tpu_torch.runtime.contracts import never_engine_thread
-from dynamo_tpu_torch.runtime.control_plane_tcp import ControlPlaneClient
+from dynamo_tpu_torch.runtime.control_plane_tcp import (
+    STARTUP_WAIT_S, ControlPlaneClient)
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.metrics import (
     HbmPoller,
@@ -287,6 +299,22 @@ def parse_args(argv=None):
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel degree (MoE models): ep ranks a "
                         "dp row and tp slice, E/ep experts each")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree: whole-prompt prefills "
+                        "past the engine's threshold run ring attention "
+                        "over sp ranks a dp row and tp slice (the "
+                        "long-context prefill path); decode stays on the "
+                        "tp/dp plane")
+    # The declarative slice (fleet/topology.parse_slice): one string
+    # naming the mesh, KV mode, role and features, expanded over the
+    # loose flags after parsing; the published slice derives from the
+    # same flags.
+    p.add_argument("--slice", default=None, metavar="SPEC",
+                   help="declarative slice spec, e.g. 'sp2xtp2' or "
+                        "'sp2xtp2,int8,packed,role=prefill': mesh "
+                        "descriptor + kv mode + role + features "
+                        "(packed/spec/window8/dp_attention); overrides "
+                        "--dp/--pp/--sp/--ep/--tp, --kv-quant and --role")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel degree (GPipe stage-rotated "
                         "step).  Decode rides the fused stage programs "
@@ -370,6 +398,11 @@ def parse_args(argv=None):
          "metrics_interval": 1.0},
         section="worker"))
     args = p.parse_args(argv)
+    if args.slice:
+        try:
+            apply_slice_spec(args)
+        except ValueError as e:
+            p.error(str(e))
     if not args.control_plane:
         p.error("--control-plane is required (flag, DYN_CONTROL_PLANE, "
                 "or dynamo.toml)")
@@ -379,6 +412,22 @@ def parse_args(argv=None):
         p.error(f"--role {args.role} requires a real engine (the mocker "
                 "has no KV data plane); drop --role or --mocker")
     return args
+
+
+def apply_slice_spec(args) -> None:
+    """Expand `--slice` over the loose mesh and plane flags, as JAX's
+    `_apply_slice_spec`: the one source the engine config and the
+    published slice agree on.  `packed`, `window8` and `pallas` name what
+    the port always runs; `dp_local` follows from the allocator."""
+    spec = parse_slice(args.slice)
+    args.dp, args.pp, args.sp, args.ep, args.tp = spec.mesh
+    args.role = spec.role
+    args.kv_quant = spec.kv_quant
+    feats = set(spec.features)
+    if "dp_attention" in feats:
+        args.dp_attention = True
+    if "spec" in feats and args.spec_decode <= 0:
+        args.spec_decode = 3
 
 
 def load_kernels(core: EngineCore) -> None:
@@ -392,17 +441,21 @@ def load_kernels(core: EngineCore) -> None:
     names = ["paged_decode", "paged_prefill"]
     if core.moe_mode == "grouped":
         names.append("moe_grouped")
+    if core.config.sp > 1:
+        names.append("ring_flash")
     for name in names:
         build.load(name)
 
 
 def build_mesh(args) -> MeshConfig:
-    """The mesh of the parallelism flags (JAX's `build_mesh`): dp * ep *
-    tp ranks, or pp stages, of this process, on the cards of `--device`.
-    What the port does not run exits with the mesh's reason; ranks that
-    outnumber the cards share them round-robin, which is logged."""
+    """The mesh of the parallelism flags (JAX's `build_mesh`): dp * sp *
+    ep * tp ranks, or pp stages, of this process, on the cards of
+    `--device`.  What the port does not run exits with the mesh's reason;
+    ranks that outnumber the cards share them round-robin, which is
+    logged."""
     try:
-        mesh = MeshConfig(dp=args.dp, pp=args.pp, ep=args.ep, tp=args.tp)
+        mesh = MeshConfig(dp=args.dp, pp=args.pp, sp=args.sp, ep=args.ep,
+                          tp=args.tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     ranks = mesh.size
@@ -420,7 +473,8 @@ def build_engine(args, kv_event_sink):
     """(core, engine, card fields) for the flags; the engine is not
     started yet."""
     mesh = build_mesh(args)
-    sharded = mesh.size > 1
+    # sp alone is the meshless engine's ring: its state stays whole.
+    sharded = mesh.size // mesh.sp > 1
     # A sharded engine cuts a checkpoint read on the host (a memory map)
     # into its ranks' cards; a preset (no state) is drawn by the engine.
     cfg, params, spec, template = resolve_model(
@@ -438,7 +492,8 @@ def build_engine(args, kv_event_sink):
         device=args.device, moe_mode=args.moe_mode,
         kv_quant=args.kv_quant, speculative_tokens=args.spec_decode,
         speculative_ngram=args.spec_ngram, tp=mesh.tp, dp=mesh.dp,
-        ep=mesh.ep, pp=mesh.pp, pp_microbatches=args.pp_microbatches,
+        sp=mesh.sp, ep=mesh.ep, pp=mesh.pp,
+        pp_microbatches=args.pp_microbatches,
         dp_attention=args.dp_attention),
         params=params, kv_event_sink=kv_event_sink)
     del params      # a sharded engine keeps its ranks' slices only
@@ -649,7 +704,7 @@ async def run(args) -> None:
     device_profiler.configure_from_args(args, service=service)
     ledger.configure_from_args(args)
     cp = ControlPlaneClient(*_split(args.control_plane))
-    await cp.start()
+    await cp.start(wait_s=STARTUP_WAIT_S)
     runtime = DistributedRuntime(cp, rpc_host=args.rpc_host)
     if args.role == "encode":
         await run_encode(args, cp, runtime)

@@ -1070,7 +1070,8 @@ def _ring_inputs(gen, dev, B, T, hq, hkv, d, quant):
     (8, 2, 32, 4, 72, None),
     (16, 16, 128, 2, 40, 30.0),    # no grouping; a T_loc under one tile
     (32, 4, 64, 4, 24, None),      # 8 query heads a kv head
-    (32, 4, 128, 4, 13, 30.0)])    # T_loc under one k16 slice, G 8, D 128
+    (32, 4, 128, 4, 13, 30.0),     # T_loc under one k16 slice, G 8, D 128
+    (16, 4, 128, 2, 256, None)])   # llama-3-8b's tp 2 rank: sp2xtp2's ring
 # At sp > 1 a rank's block from a later rank is wholly masked: those
 # launches skip it whole (every row already real) except on the last hop.
 def test_ring_kernel_matches_plain_ring(dev, quant, hq, hkv, d, sp, t_loc, cap):
@@ -1193,6 +1194,103 @@ def test_sp_engine_serves_through_the_ring_kernel(dev, kv_quant):
         assert gap <= 2e-2 * row.abs().max().item(), (rid, gap)
     short = _serve(core, {"c": [3, 4, 5]})
     assert len(short["c"]) == 20 and core.counters.sp_prefill_count == 2
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_sp_tp_grid_prefill_on_one_card_matches_the_kernel_path(dev,
+                                                                 kv_quant):
+    """tiny-test in bf16 at D 32 on an sp 2 x tp 2 grid, four ranks on one
+    card: the grid's ring prefill (K4 at the tp rank's heads, Hq 4, Hkv 2)
+    against the meshless packed prefill (K2) on the same weights and
+    prompts: logits within 2e-2 of their largest, every layer's written
+    rows within 2e-2 of the layer's largest (int8: dequantized), K4
+    launched layers x tp x sp x sp times; then two grid decode steps (K1)
+    against the meshless kernel path's."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+    from dynamo_tpu_torch.ops.cuda import launch_counts, ring_kernel_supported
+    from dynamo_tpu_torch.parallel import (
+        DpGrid, MeshConfig, param_pspecs, shard_state)
+
+    cfg = get_config("tiny-test").replace(head_dim=32, dtype=torch.bfloat16)
+    quant = kv_quant == "int8"
+    state = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    grid = DpGrid.for_mesh(MeshConfig(sp=2, tp=2), dev)
+    assert grid.sp_tps[0][1].streams[0] is not None
+    assert ring_kernel_supported(cfg.num_heads // 2, cfg.num_kv_heads // 2,
+                                 cfg.head_dim, 16, dev, cfg.dtype)
+    ranks = shard_state(state, param_pspecs(cfg), grid)
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=16, block_size=8,
+                                       kv_quant=kv_quant)
+    cache, flat = kvc.init_grid_caches(ccfg, grid), kvc.init_cache(ccfg, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lens = [32, 27]
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                             device=dev).to(torch.int32) for n in lens]
+    T = 32
+    tok = torch.zeros(2, T, **i32)
+    pos = torch.full((2, T), 1024, **i32)
+    for i, p in enumerate(prompts):
+        tok[i, : len(p)] = p
+        pos[i, : len(p)] = torch.arange(len(p), **i32)
+    bt = torch.tensor([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]], **i32)
+    L = torch.tensor(lens, **i32)
+    attr = "launches_int8" if quant else "launches"
+    before = getattr(ring_flash_attention, attr)
+    got, cache = make_sp_prefill_step(cfg, 8, grid, kv_quant=quant,
+                                      use_kernel=True)(
+        ranks, cache, tok, pos, L, bt, L - 1)
+    torch.cuda.synchronize()
+    assert getattr(ring_flash_attention, attr) - before == (
+        cfg.num_layers * 2 * 2 * 2)
+    seg = torch.tensor([0] * 32 + [1] * 27 + [1] * 5, **i32)
+    ptok = torch.cat([prompts[0], prompts[1], torch.zeros(5, **i32)])
+    ppos = torch.cat([torch.arange(32, **i32), torch.arange(27, **i32),
+                      torch.full((5,), 1024, **i32)])
+    want, flat = llama.make_packed_prefill_step(cfg, 8)(
+        state, flat, ptok, ppos, seg, bt, torch.tensor([0, 32], **i32), L, L,
+        torch.tensor([31, 58], **i32))
+
+    def close(a, b):
+        err = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        assert err <= 2e-2, err
+
+    close(got, want)
+    slots = torch.cat([kvc.slots_for_positions(
+        bt[i:i + 1], torch.arange(n, device=dev)[None], 8)[0]
+        for i, n in enumerate(lens)])
+    F = cfg.num_kv_heads * cfg.head_dim // 2
+    for t in range(2):
+        for i in range(cfg.num_layers):
+            for kv in ("k", "v"):
+                mine = cache[t][kv][i][slots]
+                theirs = flat[kv][i][slots][:, t * F:(t + 1) * F]
+                if quant:
+                    h = cfg.num_kv_heads // 2
+                    mine = kvc.dequantize_rows(
+                        mine.reshape(len(slots), h, -1),
+                        cache[t][kv + "_scale"][i][slots])
+                    theirs = kvc.dequantize_rows(
+                        theirs.reshape(len(slots), h, -1),
+                        flat[kv + "_scale"][i][slots][:, t * h:(t + 1) * h])
+                close(mine, theirs)
+    step = llama.make_forward_step(cfg, 8, use_decode_kernel=True, tp=grid)
+    flat_step = llama.make_forward_step(cfg, 8, use_decode_kernel=True)
+    nxt = want.argmax(-1).to(torch.int32)
+    zero = torch.zeros(2, **i32)
+    for _ in range(2):
+        L = L + 1
+        a = (nxt[:, None], (L - 1)[:, None], L, bt, zero)
+        got, cache = step(ranks, cache, *a)
+        want, flat = flat_step(state, flat, *a)
+        torch.cuda.synchronize()
+        close(got, want)
+        nxt = want.argmax(-1).to(torch.int32)
+    assert launch_counts()["paged_decode_attention" + ("_int8" if quant
+                                                       else "")] > 0
 
 
 class _SteppedClient:

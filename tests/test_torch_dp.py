@@ -773,10 +773,20 @@ def test_mesh_worker_and_moe_refusals():
                        "--pp", "2", "--dp", "2"])
     with pytest.raises(SystemExit, match="composes with no other axis"):
         build_mesh(args)
-    with pytest.raises(ValueError, match="sp x dp waits for ROADMAP.md A7"):
-        MeshConfig(sp=2, dp=2)
-    with pytest.raises(ValueError, match="sp x tp waits for ROADMAP.md A7"):
-        MeshConfig(sp=2, tp=2)
+    # sp x dp and sp x tp are ported (tests/test_torch_sp_grid.py): the
+    # meshes build and the engine puts sp on the grid; sp x dp-attention
+    # raises the capability table's words.
+    assert MeshConfig(sp=2, dp=2).describe() == JaxMeshConfig(
+        sp=2, dp=2).describe() == "dp2xsp2"
+    assert MeshConfig(sp=2, tp=2).describe() == "sp2xtp2"
+    core = EngineCore(EngineConfig(model=tcfg.get_config("tiny-test"),
+                                   device="cpu", num_blocks=16, dp=2, sp=2))
+    assert core.grid.sp == 2 and core.grid.dp == 2 and core.ring.sp == 2
+    with pytest.raises(ValueError, match="ring-SP prefill is not wired for "
+                                         "dp_attention"):
+        EngineCore(EngineConfig(model=tcfg.get_config("tiny-test"),
+                                device="cpu", num_blocks=16, dp=2, sp=2,
+                                tp=2, dp_attention=True))
     args = parse_args(["--control-plane", "h:1", "--device", "cpu", "--dp",
                        "2", "--tp", "2", "--dp-attention"])
     assert build_mesh(args) == MeshConfig(dp=2, tp=2) and args.dp_attention

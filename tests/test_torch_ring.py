@@ -466,16 +466,23 @@ def test_mesh_config_and_ring_construction():
                                          r"axis in-mesh \(got sp=2\)"):
         MeshConfig(pp=2, sp=2)
     # tp, dp and ep are ported (tests/test_torch_tp.py, test_torch_dp.py,
-    # test_torch_ep.py); sp x tp, sp x dp and sp x ep are not.
+    # test_torch_ep.py), and so are sp x tp and sp x dp
+    # (tests/test_torch_sp_grid.py).  sp x ep builds as a mesh, as JAX's
+    # does; the engine refuses it in JAX's words: `validate`'s ep rule on
+    # a dense model, the capability table's sp_prefill row on an MoE one.
     assert MeshConfig(ep=2).describe() == JaxMeshConfig(ep=2).describe()
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        MeshConfig(sp=2, ep=2)
+    assert MeshConfig(sp=2, ep=2).describe() == JaxMeshConfig(
+        sp=2, ep=2).describe() == "sp2xep2"
+    with pytest.raises(ValueError, match="ep > 1 on a dense model wastes "
+                                         "chips"):
+        EngineCore(EngineConfig(model=TCFG, device="cpu", sp=2, ep=2))
+    with pytest.raises(ValueError, match="declared impossible for MoE"):
+        EngineCore(EngineConfig(model=tcfg.get_config("tiny-moe"),
+                                device="cpu", sp=2, ep=2))
     assert MeshConfig(tp=2).describe() == "tp2"
     assert MeshConfig(dp=2).describe() == "dp2"
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        MeshConfig(sp=2, tp=2)
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        MeshConfig(sp=2, dp=2)
+    assert MeshConfig(sp=2, tp=2).describe() == "sp2xtp2"
+    assert MeshConfig(sp=2, dp=2).describe() == "dp2xsp2"
     ring = SpRing.for_mesh(MeshConfig(sp=3), torch.device("cpu"))
     assert ring.describe() == ["cpu"] * 3 and ring.cards == [torch.device("cpu")]
     with pytest.raises(ValueError, match="needs 2 rank devices"):

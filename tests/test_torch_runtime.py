@@ -344,6 +344,49 @@ def test_tcp_client_reconnects_and_restores_streams():
     _run(main())
 
 
+def _unused_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_tcp_client_start_waits_for_a_late_server():
+    """A process started beside its control plane (the entry points pass
+    `STARTUP_WAIT_S`) dials until the server listens."""
+    async def main():
+        port = _unused_port()
+        client = ControlPlaneClient("127.0.0.1", port)
+        dial = asyncio.ensure_future(client.start(wait_s=10.0))
+        await asyncio.sleep(0.3)
+        assert not dial.done()
+        srv = ControlPlaneServer()
+        await srv.start(port=port)
+        try:
+            await asyncio.wait_for(dial, 10)
+            await client.put("k", {"v": 1})
+            assert await client.get("k") == {"v": 1}
+        finally:
+            await client.close()
+            await srv.stop()
+
+    _run(main())
+
+
+@pytest.mark.parametrize("wait_s", [0.0, 0.3])
+def test_tcp_client_start_gives_up_after_its_wait(wait_s):
+    async def main():
+        client = ControlPlaneClient("127.0.0.1", _unused_port())
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        with pytest.raises(OSError):
+            await client.start(wait_s=wait_s)
+        assert wait_s <= loop.time() - t0 < wait_s + 5.0
+
+    _run(main())
+
+
 def test_kv_file_backend_persists_unleased_only(tmp_path):
     from dynamo_tpu_torch.runtime.kv_store import FileBackend, make_backend
 

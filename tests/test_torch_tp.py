@@ -546,14 +546,20 @@ def test_mesh_and_worker_refusals():
                        "--pp", "2", "--tp", "2"])
     with pytest.raises(SystemExit, match="composes with no other axis"):
         build_mesh(args)
-    # dp is ported (tests/test_torch_dp.py); sp x dp is not.
+    # dp is ported (tests/test_torch_dp.py), and so are sp x dp and sp x
+    # tp (tests/test_torch_sp_grid.py): the meshes and the flags build, and
+    # a grid's ring prefill runs on the grid's own sp axis, not on a ring
+    # of its own.
     assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
                                   "cpu", "--dp", "2"])) == MeshConfig(dp=2)
-    with pytest.raises(ValueError, match="sp x dp waits for ROADMAP.md A7"):
-        MeshConfig(sp=2, dp=2)
-    with pytest.raises(ValueError, match="sp x tp waits for ROADMAP.md A7"):
+    assert MeshConfig(sp=2, dp=2).describe() == JaxMeshConfig(
+        sp=2, dp=2).describe() == "dp2xsp2"
+    assert MeshConfig(sp=2, tp=2).describe() == JaxMeshConfig(
+        sp=2, tp=2).describe() == "sp2xtp2"
+    assert build_mesh(parse_args(["--control-plane", "h:1", "--device",
+                                  "cpu", "--sp", "2", "--tp", "2"])) == \
         MeshConfig(sp=2, tp=2)
-    with pytest.raises(ValueError, match="sp x tp waits for ROADMAP.md A7"):
+    with pytest.raises(ValueError, match="grid's own sp axis"):
         llama.make_forward_step(tcfg.get_config("tiny-test"), BLOCK,
                                 sp_ring=SpRing([torch.device("cpu")] * 2),
                                 tp=_group(2))
