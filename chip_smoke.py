@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`dynamo_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2-spread N   # K2's error over N draws a geometry
 
 Phases, one JSON line each (a failed phase exits non-zero and prints no
 `ok` line).  The serving phases' processes start in groups, each group
@@ -9,11 +10,13 @@ beside the phase before it and idle until its own phase (`prestart`):
 `serve`'s server with serve_tp's stack; serve_distributed's,
 serve_observed's two and serve_spec's stacks; serve_disagg's stack with
 serve_int8's and serve_moe's servers; serve_ep's stack with serve_sp's
-three servers, qos's stack and the fleet's reference server.  A phase
-waits until none of them is still starting before it measures.  After
-24 (checkpoint) three lanes run at once: the fleet's reference answer
-(19); 22 and 23; 18, 26 and 27; their times are taken beside the other
-lanes' load; then 19 (fleet) alone.  The `timeline` line gives each
+three servers, qos's stack and the fleet's reference server; after
+serve_ep, serve_lockstep's stack.  A phase waits until none of them is
+still starting before it measures.  28 (model_lockstep) runs while the
+first group starts.  After 24 (checkpoint) four lanes run at once: the
+fleet's reference answer (19); 22 and 23; 18, 26 and 27; 29
+(serve_lockstep); their times are taken beside the other lanes' load;
+then 19 (fleet) alone.  The `timeline` line gives each
 server's and stack's seconds to ready and each child's to stop.
 
 1. device   — the card's name, count, torch/CUDA versions, and the
@@ -28,7 +31,10 @@ server's and stack's seconds to ready and each child's to stop.
    library has no HGMMA.
 4. kernel_list — the kernels of the main paths.
 5. one line per kernel and geometry, held against its plain PyTorch
-   version at a main path's shapes, with its time (CUDA events), the plain
+   version at a main path's shapes (K2 with the same function in f64 on
+   the same operands beside, `prefill_exact`: a K2 line that misses its
+   ATOL against the plain version passes only if the kernel lies at least
+   as near the f64 result), with its time (CUDA events), the plain
    version's, a one-call PyTorch yardstick where one exists
    (scaled_dot_product_attention on the gathered context for K1/K2; the
    port never calls it) and the least time the card could take (bytes
@@ -50,6 +56,9 @@ server's and stack's seconds to ready and each child's to stop.
      tensor parallelism (D 128, block 64; K1 at batch 64, context 512):
      llama-3-8b at tp 2 (Hq 16, Hkv 4: the `_tp2` lines) and llama-3-70b
      at tp 8 (Hq 8, Hkv 1, G 8: `_tp8`);
+   - K1 and K2, bf16 and int8 cache, at llama-3-1b's heads at tp 2 (Hq
+     16, Hkv 4, D 64, block 64; K1 at batch 64, context 512): what each
+     process of the lockstep worker attends (the `_tp2_1b` lines);
    - K1 and K2, bf16 and int8 cache, at llama-3-70b's unsharded heads
      (Hq 64, Hkv 8, D 128, block 64; K1 at batch 64, context 512: the
      `_pp70b` lines), what a stage of the 70B's pipeline attends;
@@ -400,6 +409,34 @@ server's and stack's seconds to ready and each child's to stop.
    bit-equal to the numpy dequant taken through the same unpermute,
    transpose and cast; then `compare_paths` through K2 and K1 against
    the gather path.
+28. model_lockstep — two processes on the card (parallel/multihost.py,
+   gloo: they share it), llama-3-1b at full width and depth (16 layers,
+   hidden 2048), legs tp 2 (bf16 and int8 cache) and dp 2 (bf16), each
+   rank grid split over the processes: a packed prefill of four prompts
+   (T 488 / 496), one unified decode step and two greedy decode windows
+   of 8; the leader runs the same on the one-process grid of the mesh
+   (logits and window tokens bit for bit) and on the meshless kernel
+   path fed the grid's tokens (logits within MODEL_TOL, argmax gaps too;
+   bf16 logits tie often enough that each path's own argmax may part);
+   K1 and K2 launched
+   exactly layers x dispatches x the process's ranks in each process;
+   each window's host seconds beside the one-process grid's; then an
+   EngineCore over the tp 2 grid behind the lockstep channel serves four
+   greedy requests, the follower replaying every op the leader
+   broadcast and holding no request after.  It runs beside the serving
+   stacks' start (its host times are taken under that load).
+29. serve_lockstep — frontend A and a `--model llama-3-1b --tp 2
+   --num-processes 2` worker (follower started first; both on the card,
+   gloo), a lane after 24: `serve`'s wave (TTFT, ITL, tok/s beside `serve`'s), a
+   streaming chat of 1024 tokens whose client leaves 1.5 s after its
+   first chunk (the frontend cancels it, the leader broadcasts the
+   cancel), and two lone chats of 32 tokens held to the first 32 of
+   `serve`'s answers (a split only at a near tie) and teacher-forced
+   against the plain model within MODEL_TOL; the leader's `lockstep`
+   block (backend gloo, ranks [0], broadcasts by op, a cancel among
+   them) and K1 / K2 on both processes (the follower's counted over its
+   life); the leader stopped, both
+   processes exit 0, the follower with no request left.
 
 Then the card's `nvidia-smi` name/power-limit line, the kernels summary
 `{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
@@ -609,6 +646,17 @@ SP_GRID_WORKERS = {
 }
 SP_GRID_TOKENS = 16
 # Each kernel's source and the TPU kernel it replaces.
+# Multi-process lockstep (parallel/multihost.py): two processes on the
+# card, the tp 2 rank heads of llama-3-1b, and the legs of model_lockstep.
+LOCKSTEP_GEOMETRY = ("tp2_1b", 16, 4, 64)
+LOCKSTEP_LEGS = (({"tp": TP}, "none"), ({"tp": TP}, "int8"),
+                 ({"dp": DP}, "none"))
+LOCKSTEP_PROMPTS = (200, 40, 180, 60)   # T 488 at tp 2, 496 grid-shaped at dp 2
+LOCKSTEP_WINDOW = 8
+LOCKSTEP_LONE_TOKENS = 32    # serve_lockstep's lone chats: serve's first 32
+LOCKSTEP_WORKER = ("m-mh", ("--model-name", "m-mh", "--component", "mh",
+                            "--tp", str(TP), "--num-processes", "2"))
+
 SOURCES = {
     "paged_decode_attention": ("dynamo_tpu_torch/csrc/paged_decode.cu",
                                "dynamo_tpu/ops/pallas/paged_attention.py:258"),
@@ -651,15 +699,27 @@ def tflops(flops: float, ms: float) -> float:
     return flops / (ms * 1e-3) / 1e12
 
 
-def closeness(torch, name: str, out, ref, limits: str = "") -> dict:
+def atol_needed(out, ref) -> float:
+    """The smallest ATOL under which `out` passes against `ref` at RTOL."""
+    e = (out.float() - ref.float()).abs() - RTOL * ref.float().abs()
+    return e.max().clamp(min=0).item()
+
+
+def closeness(torch, name: str, out, ref, limits: str = "",
+              exact=None) -> dict:
     """The readings of a kernel-vs-plain comparison beside the kernel's
     limits: the largest absolute error, the smallest ATOL that passes
-    under RTOL, and the largest row-normalised error."""
+    under RTOL, and the largest row-normalised error.  With `exact`, the
+    same function in f64 on the same operands: a kernel that misses the
+    ATOL against its plain version passes if it lies at least as near
+    `exact` as the plain version does (the two round in different places,
+    so on some draws they part by more than either parts from exact
+    attention); both distances from `exact` are in the reading."""
     check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
     o = out.float().reshape(-1, out.shape[-1])
     r = ref.float().reshape(-1, ref.shape[-1])
     diff = (o - r).abs()
-    need = (diff - RTOL * r.abs()).max().clamp(min=0).item()
+    need = atol_needed(o, r)
     r_norm, e_norm = r.norm(dim=1), (o - r).norm(dim=1)
     live = r_norm > 0
     row = (e_norm[live] / r_norm[live]).max().item() if live.any() else 0.0
@@ -667,9 +727,15 @@ def closeness(torch, name: str, out, ref, limits: str = "") -> dict:
     reading = {"max_abs_err": diff.max().item(), "atol_needed": need,
                "atol": ATOL[limits], "rtol": RTOL, "row_rel_err": row,
                "row_tol": ROW_TOL[limits]}
+    near = need <= ATOL[limits]
+    if exact is not None:
+        k_need, p_need = atol_needed(out, exact), atol_needed(ref, exact)
+        reading["vs_f64"] = {"kernel_atol_needed": k_need,
+                             "plain_atol_needed": p_need}
+        near = near or k_need <= p_need
     check(not bool((e_norm[~live] > 0).any()),
           f"{name}: rows the plain version zeroes are not zero")
-    check(need <= ATOL[limits] and row <= ROW_TOL[limits],
+    check(near and row <= ROW_TOL[limits],
           f"{name} disagrees with its plain version: {reading}")
     return reading
 
@@ -799,12 +865,16 @@ def shard_view(torch, a: dict, shard) -> dict:
             "whole": (a["kc"], a["vc"], a["sc"], a["bt"])}
 
 
-def rebase_reading(torch, name, out, plain, whole, args) -> dict:
-    """The kernel on the shard against the plain version on the whole
-    pool with the global table: the rebase moved no page."""
+def rebase_reading(torch, name, out, plain, whole, args,
+                   exact=None) -> dict:
+    """The kernel on the shard against the plain version (and `exact`,
+    as `closeness` takes it) on the whole pool with the global table: the
+    rebase moved no page."""
     kc, vc, sc, bt = whole
-    ref = plain(args["q"], kc, vc, bt, *args["rest"], **sc)
-    return {"vs_whole_pool": closeness(torch, name, out, ref)}
+    ref, ex = (None if f is None else
+               f(args["q"], kc, vc, bt, *args["rest"], **sc)
+               for f in (plain, exact))
+    return {"vs_whole_pool": closeness(torch, name, out, ref, exact=ex)}
 
 
 def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV,
@@ -871,13 +941,13 @@ def decode_phase(torch, gen, D, quant=False, B=64, ctx=512, hq=HQ, hkv=HKV,
             "bytes": nbytes, "flops": flops}
 
 
-def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV, shard=None):
-    """K2 on a pack of 4 segments; `shard` (f, n): a dp-local rank's,
-    its pages in shard f of an n-shard pool, run on the shard's view with
-    rebased tables (as `decode_phase`)."""
+def prefill_inputs(torch, gen, D, quant=False, hq=HQ, hkv=HKV, shard=None):
+    """K2's operands on a pack of 4 segments: q, the cache (bf16, or int8
+    with its scales in `sc`), the segments' tables and descriptors
+    (`rest`: seq_lens, q_starts, q_lens); `shard` (f, n): a dp-local
+    rank's, its pages in shard f of an n-shard pool, cut to the shard's
+    view with rebased tables (as `decode_inputs` / `shard_view`)."""
     from dynamo_tpu_torch.engine import kv_cache as kvc
-    from dynamo_tpu_torch.ops.cuda import (
-        paged_prefill_attention, paged_prefill_attention_plain)
 
     dev = torch.device("cuda")
     T, R, P = 512, 8, 8
@@ -899,33 +969,85 @@ def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV, shard=None):
         npg = -(-(pre + n) // BS)
         bt[i, :npg] = perm[i * P: i * P + npg].to(torch.int32)
         off += n
-    sl_t, qs_t, ql_t = (torch.tensor(x, dtype=torch.int32, device=dev)
-                        for x in (sl, qs, ql))
-    name = "paged_prefill_attention" + ("_int8" if quant else "")
+    rest = tuple(torch.tensor(x, dtype=torch.int32, device=dev)
+                 for x in (sl, qs, ql))
     kc, vc, sc, token_bytes = cache_operands(torch, kvc, kc, vc, quant, hkv)
-    if shard is not None:
-        a = shard_view(torch, {"kc": kc, "vc": vc, "sc": sc, "bt": bt,
-                               "nblocks": nblocks}, shard)
-        kc, vc, sc, bt = a["kc"], a["vc"], a["sc"], a["bt"]
+    a = {"q": q, "kc": kc, "vc": vc, "bt": bt, "sc": sc, "rest": rest,
+         "T": T, "R": R, "lens": lens, "prefix": prefix, "sl": sl, "qs": qs,
+         "token_bytes": token_bytes, "nblocks": nblocks}
+    return shard_view(torch, a, shard) if shard is not None else a
+
+
+def prefill_exact(torch, q, kc, vc, bt, sl, qs, ql, sc=None):
+    """K2's function in f64 on the operands the kernel reads (an int8
+    cache first dequantized into the bf16 values its page loader makes),
+    nothing rounded on the way: the scaled query, the scores and the
+    probabilities stay f64 (`closeness`'s `exact`)."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+
+    T, hq, D = q.shape
+    S = kc.shape[0]
+    hkv = kc.shape[1] // D
+    if sc:
+        kc = kvc.dequantize_rows(kc.view(S, hkv, D), sc["k_scale"])
+        vc = kvc.dequantize_rows(vc.view(S, hkv, D), sc["v_scale"])
+    k = kc.reshape(S, hkv, D).double()
+    v = vc.reshape(S, hkv, D).double()
+    out = torch.zeros(T, hq, D, dtype=torch.float64, device=q.device)
+    for r, (n, start, rows) in enumerate(zip(*(x.tolist()
+                                               for x in (sl, qs, ql)))):
+        if rows <= 0:
+            continue
+        pos = torch.arange(n, device=q.device)
+        slots = bt[r].long()[pos // BS] * BS + pos % BS
+        qr = q[start: start + rows].double().view(rows, hkv, hq // hkv, D)
+        s = torch.einsum("tkgd,ckd->kgtc", qr, k[slots]) * D ** -0.5
+        q_pos = torch.arange(n - rows, n, device=q.device)
+        s = s.masked_fill(pos[None, :] > q_pos[:, None], float("-inf"))
+        o = torch.einsum("kgtc,ckd->tkgd", torch.softmax(s, -1), v[slots])
+        out[start: start + rows] = o.reshape(rows, hq, D)
+    return out
+
+
+def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV, shard=None):
+    """K2 on `prefill_inputs`' pack, held against its plain version with
+    `prefill_exact` beside it (`closeness`; on a shard, also against both
+    on the whole pool with the global tables: the rebase moved no page),
+    timed beside its plain version and SDPA."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.ops.cuda import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+
+    dev = torch.device("cuda")
+    a = prefill_inputs(torch, gen, D, quant, hq, hkv, shard)
+    q, kc, vc, bt, sc, rest = (a[n] for n in ("q", "kc", "vc", "bt", "sc",
+                                              "rest"))
+    T, R, lens, prefix, sl, qs = (a[n] for n in ("T", "R", "lens", "prefix",
+                                                 "sl", "qs"))
+    sl_t, token_bytes, nblocks = rest[0], a["token_bytes"], a["nblocks"]
+    name = "paged_prefill_attention" + ("_int8" if quant else "")
 
     def kern():
-        return paged_prefill_attention(q, kc, vc, bt, sl_t, qs_t, ql_t,
-                                       block_size=BS, **sc)
+        return paged_prefill_attention(q, kc, vc, bt, *rest, block_size=BS,
+                                       **sc)
 
     def plain():
-        return paged_prefill_attention_plain(q, kc, vc, bt, sl_t, qs_t, ql_t,
+        return paged_prefill_attention_plain(q, kc, vc, bt, *rest,
                                              block_size=BS, **sc)
 
     out = kern()
     ref = plain()
     torch.cuda.synchronize()
-    reading = closeness(torch, name, out, ref)
+    reading = closeness(torch, name, out, ref, exact=prefill_exact(
+        torch, q, kc, vc, bt, *rest, sc))
     if shard is not None:
         reading.update(rebase_reading(
             torch, name, out, lambda q_, k_, v_, bt_, *r, **s_:
                 paged_prefill_attention_plain(q_, k_, v_, bt_, *r,
                                               block_size=BS, **s_),
-            a["whole"], {"q": q, "rest": (sl_t, qs_t, ql_t)}))
+            a["whole"], {"q": q, "rest": rest},
+            lambda q_, k_, v_, bt_, *r, **s_:
+                prefill_exact(torch, q_, k_, v_, bt_, *r, s_)))
     k_ms = time_ms(torch, kern)
     p_ms = time_ms(torch, plain, samples=5, per_sample=2)
     # Yardstick: one SDPA call over the real segments padded to the
@@ -955,8 +1077,8 @@ def prefill_phase(torch, gen, D, quant=False, hq=HQ, hkv=HKV, shard=None):
              "block": BS, "Hq": hq, "Hkv": hkv, "D": D,
              "cache": "int8" if quant else "bf16"}
     if shard is not None:
-        shape.update(shard=f, shards=shards, pool_blocks=nblocks,
-                     whole_pool_blocks=nblocks * shards)
+        shape.update(shard=shard[0], shards=shard[1], pool_blocks=nblocks,
+                     whole_pool_blocks=nblocks * shard[1])
     return {"name": name, "shape": shape,
             **reading, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -7328,6 +7450,477 @@ def multimodal_phase(torch) -> dict:
             "wall_s": time.monotonic() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# Multi-process lockstep: model_lockstep and serve_lockstep
+
+
+def lockstep_inputs(torch, dev, split: int):
+    """LOCKSTEP_PROMPTS as a packed prefill in `split` grid-shaped groups
+    (each a contiguous range of prompts, segment starts on multiples of
+    8), their page tables (room for two windows after the prompt) and
+    lengths."""
+    prompts = [[(13 * i + 7 * j) % 250 + 3 for j in range(n)]
+               for i, n in enumerate(LOCKSTEP_PROMPTS)]
+    R = len(prompts)
+    per = R // split
+    Tg = max(sum(-(-len(prompts[i]) // 8) * 8
+                 for i in range(g * per, (g + 1) * per))
+             for g in range(split))
+    T = Tg * split
+    P = -(-(max(LOCKSTEP_PROMPTS) + 1 + 2 * LOCKSTEP_WINDOW) // BS)
+    tok = torch.zeros(T, dtype=torch.int32)
+    pos = torch.full((T,), 128 * BS, dtype=torch.int32)
+    seg = torch.zeros(T, dtype=torch.int32)
+    qs, smp = (torch.zeros(R, dtype=torch.int32) for _ in range(2))
+    for g in range(split):
+        off = g * Tg
+        for i in range(g * per, (g + 1) * per):
+            n = len(prompts[i])
+            tok[off:off + n] = torch.tensor(prompts[i])
+            pos[off:off + n] = torch.arange(n)
+            seg[off:off + n], qs[i], smp[i] = i, off, off + n - 1
+            off += -(-n // 8) * 8
+    tables = torch.arange(1, R * P + 1, dtype=torch.int32).reshape(R, P)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    return [t.to(dev) for t in (tok, pos, seg, tables, qs, lens, smp)]
+
+
+def lockstep_steps(torch, kernels, cfg, grid, state, kv_quant: str, dev,
+                   feed=None):
+    """One leg on `grid` (None: the meshless kernel path on `state`): the
+    packed prefill's logits, one unified decode step's, then two greedy
+    windows' tokens and host seconds (to the tokens on the host), and the
+    K1 / K2 launches of this process in it.  The decode step and each
+    window start from the tokens of `feed` (another run's `fed`: bf16
+    logits tie often enough that two paths' argmaxes part at a tie) or
+    from this run's own greedy ones."""
+    from dynamo_tpu_torch.engine import kv_cache as kvc
+    from dynamo_tpu_torch.models import llama
+
+    tok, pos, seg, tables, qs, lens, smp = lockstep_inputs(
+        torch, dev, grid.dp if grid is not None else 1)
+    R, P = tables.shape
+    ccfg = kvc.KvCacheConfig.for_model(cfg, num_blocks=R * P + 1,
+                                       block_size=BS, kv_quant=kv_quant)
+    cache = (kvc.init_grid_caches(ccfg, grid) if grid is not None
+             else kvc.init_cache(ccfg, dev))
+    kernels.reset_launch_counts()
+    logits, cache = llama.make_packed_prefill_step(cfg, BS, tp=grid)(
+        state, cache, tok, pos, seg, tables, qs, lens, lens, smp)
+    out = {"logits": [logits]}
+    step = llama.make_forward_step(cfg, BS, use_decode_kernel=True, tp=grid)
+    fed = []
+
+    def start(own, i):
+        fed.append(own.to(torch.int32) if feed is None else feed[i])
+        return fed[-1]
+
+    nxt = start(logits.argmax(-1), 0)
+    zero = torch.zeros(R, dtype=torch.int32, device=dev)
+    lens = lens + 1
+    logits, cache = step(state, cache, nxt[:, None], (lens - 1)[:, None],
+                         lens, tables, zero)
+    out["logits"].append(logits)
+    run = llama.make_decode_window(cfg, BS, LOCKSTEP_WINDOW,
+                                   use_decode_kernel=True, greedy_only=True,
+                                   tp=grid)
+    pos0, seq0, offs = lens, lens + 1, [0] * R
+    last = logits.argmax(-1)
+    out["tokens"], out["window_s"] = [], []
+    for w in range(2):
+        last = start(last, 1 + w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, toks, pos0, seq0, offs = run(
+            state, cache, last, pos0, seq0, tables,
+            torch.zeros(R, device=dev), zero, torch.ones(R, device=dev),
+            [None] * R, offs)
+        host = toks.cpu()
+        out["window_s"].append(time.perf_counter() - t0)
+        out["tokens"].append(host)
+        last = toks[-1]
+    out["launches"] = kernels.launch_counts()
+    out["fed"] = fed
+    return out
+
+
+def lockstep_digest(res: dict) -> int:
+    import zlib
+
+    crc = 0
+    for t in res["logits"] + res["tokens"]:
+        crc = zlib.crc32(t.float().cpu().numpy().tobytes(), crc)
+    return crc
+
+
+def lockstep_rank(role: str, coord: int, lock: int) -> int:
+    """One process of model_lockstep (`chip_smoke.py --lockstep-rank`):
+    every leg on the rank grid split over both processes, the leader
+    also on the one-process grid and the meshless kernel path; then the
+    lockstep engine.  One `LOCKSTEP` JSON line a leg."""
+    import torch
+
+    from dynamo_tpu_torch.engine.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.weights import init_params
+    from dynamo_tpu_torch.ops import cuda as kernels
+    from dynamo_tpu_torch.parallel import multihost
+    from dynamo_tpu_torch.parallel.mesh import DpGrid, MeshConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pid = 0 if role == "leader" else 1
+    dev = torch.device("cuda", 0)
+    fabric = multihost.initialize(f"127.0.0.1:{coord}", 2, pid, dev)
+    cfg = get_config("llama-3-1b")
+
+    def draw(group):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        return init_params(cfg, gen, dev, group=group)
+
+    try:
+        for mesh_kw, kv_quant in LOCKSTEP_LEGS:
+            mesh = MeshConfig(**mesh_kw)
+            grid = DpGrid.for_mesh(mesh, dev, fabric=fabric)
+            c0, s0 = fabric.collectives, fabric.seconds
+            got = lockstep_steps(torch, kernels, cfg, grid, draw(grid),
+                                 kv_quant, dev)
+            line = {"leg": mesh.describe(), "kv_quant": kv_quant,
+                    "process_id": pid, "backend": fabric.backend,
+                    "owned_ranks": [f for f, m in enumerate(grid.mine) if m],
+                    "launches": got["launches"],
+                    "window_s": got["window_s"],
+                    "collectives": fabric.collectives - c0,
+                    "collective_s": fabric.seconds - s0,
+                    "digest": lockstep_digest(got)}
+            if pid == 0:
+                one = DpGrid.for_mesh(mesh, dev)
+                ref = lockstep_steps(torch, kernels, cfg, one, draw(one),
+                                     kv_quant, dev)
+                line["bitwise"] = [bool(torch.equal(a, b)) for a, b in zip(
+                    got["logits"] + got["tokens"],
+                    ref["logits"] + ref["tokens"])]
+                line["one_process_window_s"] = ref["window_s"]
+                del ref
+                flat = lockstep_steps(torch, kernels, cfg, None, draw(None),
+                                      kv_quant, dev, feed=got["fed"])
+                errs, gaps = [], []
+                for lk, lg in zip(got["logits"], flat["logits"]):
+                    lk, lg = lk.float(), lg.float()
+                    errs.append(((lk - lg).abs().max()
+                                 / lg.abs().max()).item())
+                    pick = lk.argmax(-1)
+                    gap = lg.max(-1).values - lg.gather(-1, pick[:, None])[:, 0]
+                    gaps.append((gap.max() / lg.abs().max()).item())
+                line.update(logits_rel_err_vs_meshless=errs, argmax_gap=gaps,
+                            tokens_equal_meshless=[
+                                bool(torch.equal(a, b)) for a, b in
+                                zip(got["tokens"], flat["tokens"])])
+                del flat
+            del got, grid
+            torch.cuda.empty_cache()
+            print("LOCKSTEP " + json.dumps(line), flush=True)
+        # The engine behind the lockstep channel.
+        core = EngineCore(EngineConfig(
+            model=cfg, num_blocks=256, device=str(dev), tp=TP,
+            scheduler=SchedulerConfig(block_size=BS), fabric=fabric))
+        if pid == 1:
+            chan = multihost.LockstepFollower("127.0.0.1", lock)
+            multihost.run_follower(core, chan)
+            print("LOCKSTEP_ENGINE " + json.dumps({
+                "process_id": pid, "ops": chan.replayed,
+                "requests_left": sorted(core._requests)}), flush=True)
+            return 0
+        leader = multihost.LockstepLeader(port=lock, num_followers=1,
+                                          host="127.0.0.1")
+        leader.wait_for_followers()
+        core._lockstep = leader
+        for i in range(4):
+            core.add_request(f"r{i}", [(11 * i + j) % 500 + 3
+                                       for j in range(40 + 30 * i)],
+                             SamplingParams(max_tokens=32))
+        out = {}
+        while core.has_work:
+            for d in core.step():
+                out.setdefault(d.request_id, []).extend(d.token_ids)
+        stats = core.lockstep_stats()
+        leader.close()
+        print("LOCKSTEP_ENGINE " + json.dumps({
+            "process_id": pid, "ops": leader.sent, "lockstep": stats,
+            "tokens": {r: len(t) for r, t in out.items()}}), flush=True)
+        return 0
+    finally:
+        multihost.shutdown()
+
+
+def _lines(text: str, tag: str) -> list:
+    return [json.loads(ln[len(tag) + 1:]) for ln in text.splitlines()
+            if ln.startswith(tag + " ")]
+
+
+def model_lockstep_start() -> list:
+    """model_lockstep's two processes, the follower first; they run beside
+    whatever the smoke starts next (`model_lockstep_phase` waits)."""
+    OUT_DIR.mkdir(exist_ok=True)
+    coord, lock = _free_port(), _free_port()
+    procs = []
+    for role in ("follower", "leader"):
+        log = OUT_DIR / f"chip_smoke_lockstep_{role}.log"
+        procs.append((role, log, subprocess.Popen(
+            [sys.executable, str(SCRIPT), "--lockstep-rank", role,
+             str(coord), str(lock)], cwd=ROOT, stdout=open(log, "w"),
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def model_lockstep_phase(procs) -> list:
+    """Wait for model_lockstep's processes and hold their lines (module
+    docstring, 28)."""
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    try:
+        for role, log, proc in procs:
+            rc = proc.wait(timeout=600)
+            check(rc == 0, f"model_lockstep {role} exited rc {rc}: "
+                           + log.read_text()[-3000:])
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = {role: log.read_text() for role, log, _ in procs}
+    lead, follow = _lines(text["leader"], "LOCKSTEP"), _lines(
+        text["follower"], "LOCKSTEP")
+    check(len(lead) == len(follow) == len(LOCKSTEP_LEGS),
+          f"model_lockstep: {len(lead)} / {len(follow)} legs")
+    layers = get_config("llama-3-1b").num_layers
+    tol = MODEL_TOL["llama-3-1b"]
+    out = []
+    for x, y in zip(lead, follow):
+        what = f"model_lockstep {x['leg']} {x['kv_quant']}"
+        check(x["backend"] == y["backend"] == "gloo",
+              f"{what}: backend {x['backend']} / {y['backend']} on one card")
+        check(all(x["bitwise"]), f"{what}: not bit-equal to the one-process "
+                                 f"grid {x['bitwise']}")
+        check(x["digest"] == y["digest"], f"{what}: the follower computed "
+                                          "other bytes than the leader")
+        check(max(x["logits_rel_err_vs_meshless"]) <= tol
+              and max(x["argmax_gap"]) <= tol,
+              f"{what}: vs the meshless kernel path rel err "
+              f"{x['logits_rel_err_vs_meshless']}, gaps {x['argmax_gap']} "
+              f"> {tol}")
+        body = "_int8" if x["kv_quant"] == "int8" else ""
+        for z in (x, y):
+            k = len(z["owned_ranks"])
+            got = (z["launches"]["paged_prefill_attention" + body],
+                   z["launches"]["paged_decode_attention" + body])
+            want = (layers * k, layers * k * (1 + 2 * LOCKSTEP_WINDOW))
+            check(got == want, f"{what} process {z['process_id']}: K2 / K1 "
+                               f"launches {got}, want {want}")
+        out.append({"phase": "model_lockstep", "model": "llama-3-1b",
+                    "layers": layers, "leg": x["leg"],
+                    "kv_quant": x["kv_quant"], "backend": x["backend"],
+                    "processes": 2, "owned_ranks": [x["owned_ranks"],
+                                                    y["owned_ranks"]],
+                    "prompts": list(LOCKSTEP_PROMPTS),
+                    "bitwise_one_process": x["bitwise"],
+                    "logits_rel_err_vs_meshless":
+                        x["logits_rel_err_vs_meshless"],
+                    "argmax_gap": x["argmax_gap"], "tol": tol,
+                    "tokens_equal_meshless": x["tokens_equal_meshless"],
+                    "launches": [x["launches"], y["launches"]],
+                    "collectives_per_process": x["collectives"],
+                    "collective_s": [x["collective_s"], y["collective_s"]],
+                    "window_s": x["window_s"],
+                    "one_process_window_s": x["one_process_window_s"],
+                    "follower_window_s": y["window_s"]})
+    le, fe = (_lines(text[r], "LOCKSTEP_ENGINE") for r in ("leader",
+                                                             "follower"))
+    check(len(le) == len(fe) == 1, "model_lockstep: no engine line")
+    le, fe = le[0], fe[0]
+    check(fe["ops"] == le["ops"] and fe["requests_left"] == [],
+          f"model_lockstep engine: follower replayed {fe['ops']} of "
+          f"{le['ops']}, left {fe['requests_left']}")
+    check(all(n == 32 for n in le["tokens"].values()),
+          f"model_lockstep engine: tokens {le['tokens']}")
+    out.append({"phase": "model_lockstep_engine", "ops": le["ops"],
+                "follower_ops": fe["ops"], "lockstep": le["lockstep"],
+                "requests_left": fe["requests_left"],
+                "tokens": le["tokens"],
+                "phase_s": time.monotonic() - t_phase})
+    return out
+
+
+def lockstep_stack_launch(ready_s: float = 300) -> Launch:
+    """Frontend A and serve_lockstep's worker: `LOCKSTEP_WORKER`'s flags
+    on two processes of the card, the follower spawned first."""
+    OUT_DIR.mkdir(exist_ok=True)
+    launch = Launch("lockstep", ready_s, settle_s=1.0)
+    launch.spec = repr(LOCKSTEP_WORKER)
+    cp, http, status, coord, lock = (_free_port() for _ in range(5))
+    launch.a = f"http://127.0.0.1:{http}"
+    launch.status = [f"http://127.0.0.1:{status}"]
+    worker = [sys.executable, "-m", "dynamo_tpu_torch.worker",
+              "--control-plane", f"127.0.0.1:{cp}", "--model", "llama-3-1b",
+              "--num-blocks", "512", "--block-size", str(BS),
+              *LOCKSTEP_WORKER[1], "--coordinator", f"127.0.0.1:{coord}",
+              "--lockstep", f"127.0.0.1:{lock}"]
+    try:
+        launch.spawn("lockstep_frontend_a",
+                     OUT_DIR / "chip_smoke_lockstep_frontend_a.log",
+                     [sys.executable, "-m", "dynamo_tpu_torch.frontend",
+                      "--serve-control-plane", "--control-plane-port",
+                      str(cp), "--router-mode", "kv", "--http-port",
+                      str(http)])
+        launch.spawn("lockstep_worker_1",
+                     OUT_DIR / "chip_smoke_lockstep_worker_1.log",
+                     worker + ["--process-id", "1"])
+        launch.spawn("lockstep_worker_0",
+                     OUT_DIR / "chip_smoke_lockstep_worker_0.log",
+                     worker + ["--process-id", "0", "--health-port",
+                               str(status)])
+    except BaseException:
+        launch.stop()
+        raise
+    launch.probes += [
+        (launch.a + "/health", lambda r: "status" in r),
+        (launch.status[0] + "/health", lambda r: r["status"] == "ready"),
+        (launch.a + "/v1/models", lambda r: [m["id"] for m in r["data"]]
+         == [LOCKSTEP_WORKER[0]])]
+    return launch
+
+
+def cancel_mid_stream(base: str, body: dict, after: int,
+                      linger_s: float) -> int:
+    """A streaming chat whose client closes the connection `linger_s`
+    after its first `after` chunks (the role chunk first: a random-weight
+    model's ids mostly decode to no text, so the content chunks may not
+    come before the end); returns the chunks read."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlparse(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    n = 0
+    while n < after:
+        line = r.fp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: ") and b"[DONE]" not in line:
+            n += 1
+    time.sleep(linger_s)
+    r.close()
+    conn.close()
+    return n
+
+
+def serve_lockstep_phase(torch, serve: dict) -> dict:
+    """serve_lockstep (module docstring, 29)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.config import get_config
+
+    t_phase = time.monotonic()
+    model = LOCKSTEP_WORKER[0]
+    launch = (_adopt("lockstep", repr(LOCKSTEP_WORKER))
+              or lockstep_stack_launch())
+    procs = {tag: proc for tag, _, proc in launch.procs}
+    try:
+        startup_s = launch.ready()
+        _quiesce()
+        a, w = launch.a, launch.status[0]
+        _chat(a, {**chat_body(-1, False, 4), "model": model})  # warm-up
+        wave = dp_wave(a, w, model)
+        read = cancel_mid_stream(a, {**chat_body(90, True, 1024),
+                                     "model": model}, 1, 1.5)
+        deadline = time.monotonic() + 30
+        while True:
+            st = json.loads(_http(w + "/debug/stats"))
+            if st["lockstep"]["broadcasts_by_op"].get("cancel", 0) >= 1:
+                break
+            check(time.monotonic() < deadline,
+                  f"serve_lockstep: no cancel broadcast after the client "
+                  f"closed ({st['lockstep']})")
+            time.sleep(0.2)
+        lone_bodies = [traced(chat_body(i, False, LOCKSTEP_LONE_TOKENS,
+                                        user=LONE_TURN)) for i in range(2)]
+        lone = [answer(_chat(a, {**b, "model": model}))
+                for b in lone_bodies]
+        stats = json.loads(_http(w + "/debug/stats"))
+        # The leader first: its close broadcasts "stop", on which the
+        # follower exits by itself.
+        procs["lockstep_worker_0"].send_signal(signal.SIGTERM)
+        rcs = {tag: procs[tag].wait(timeout=120)
+               for tag in ("lockstep_worker_0", "lockstep_worker_1")}
+    finally:
+        launch.stop()
+    check(all(rc == 0 for rc in rcs.values()),
+          f"serve_lockstep: worker exit codes {rcs}")
+    done = [ln for ln in (OUT_DIR / "chip_smoke_lockstep_worker_1.log")
+            .read_text().splitlines() if ln.startswith("worker rank 1 done ")]
+    check(len(done) == 1, "serve_lockstep: the follower printed no end line")
+    follower = json.loads(done[0][len("worker rank 1 done "):])
+    ws = wave["worker"]
+    ls = stats["lockstep"]
+    check(ls["backend"] == "gloo" and ls["num_processes"] == 2
+          and ls["owned_ranks"] == [0],
+          f"serve_lockstep: lockstep block {ls}")
+    check(follower["requests_left"] == []
+          and follower["ops"].get("cancel", 0) >= 1
+          and follower["ops"] == {**ls["broadcasts_by_op"],
+                                  "stop": 1},
+          f"serve_lockstep: follower {follower}, leader {ls}")
+    check(ws["mesh"] == f"tp{TP}", f"serve_lockstep: mesh {ws['mesh']}")
+    for key in ("paged_decode_attention", "paged_prefill_attention"):
+        check(ws["kernels"][key] > 0 and follower["launches"][key] > 0,
+              f"serve_lockstep: {key} leader {ws['kernels'][key]}, "
+              f"follower {follower['launches'][key]}")
+    cfg = get_config("llama-3-1b")
+    state = llama_state(torch)
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    forced = []
+    for i, (body, got) in enumerate(zip(lone_bodies, lone)):
+        prompt = pre.preprocess_chat(ChatCompletionRequest.from_dict(
+            {**body, "model": "m"}), f"mh{i}").token_ids
+        what = f"serve_lockstep lone chat {i}"
+        split = greedy_split(
+            torch, state, prompt, got["token_ids"],
+            serve["lone_answers"][i]["token_ids"][:LOCKSTEP_LONE_TOKENS],
+            what)
+        gaps = forced_gaps(torch, cfg, state, prompt, got["token_ids"], 0)
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        check(gaps[worst] <= MODEL_TOL[cfg.name],
+              f"{what}: served token {worst} lies {gaps[worst]} below the "
+              f"top of the plain model's logits (> {MODEL_TOL[cfg.name]})")
+        forced.append({"tokens": len(gaps), "max_gap": gaps[worst],
+                       "at": worst, "equal_serve": split is None,
+                       "split": split})
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "serve_lockstep", "model": "llama-3-1b",
+            "flags": list(LOCKSTEP_WORKER[1][4:]), "startup_s": startup_s,
+            **wave["summary"],
+            "serve": {k: serve[k] for k in ("output_tok_s", "ttft_mean_s",
+                                            "ttft_max_s", "itl_mean_s")},
+            "itl_ratio_vs_serve": (wave["summary"]["itl_mean_s"]
+                                   / serve["itl_mean_s"]),
+            "launches": ws["kernels"],
+            # The follower's counts run from its start: the warm-up, the
+            # wave, the cancelled chat and the lone chats.
+            "follower": {k: v for k, v in follower.items() if k != "launches"},
+            "follower_launches_over_life": follower["launches"],
+            "lockstep": ls, "cancelled_after_chunks": read,
+            "lone_teacher_forced": forced, "exit_codes": rcs,
+            "phase_s": time.monotonic() - t_phase}
+
+
 def summary_entry(k: dict, name: str, launches: int, **extra) -> dict:
     src, replaces = SOURCES[k["name"].replace("_int8", "")]
     return {"name": name, "route": "cuda", "source": src,
@@ -7427,6 +8020,21 @@ def main() -> int:
                 tp_attn[key, tag] = prefill_phase(torch, gen, d, quant, hq,
                                                   hkv)
                 emit({"phase": phase, **tp_attn[key, tag]})
+        # K1 and K2 at llama-3-1b's tp 2 rank heads: what each process of
+        # the lockstep worker attends.
+        lock_attn = {}
+        tag, hq, hkv, d = LOCKSTEP_GEOMETRY
+        for quant in (False, True):
+            body = "_int8" if quant else ""
+            key = "paged_decode_attention" + body
+            phase = f"{key}_{tag}"
+            lock_attn[key] = decode_phase(torch, gen, d, quant,
+                                          *DECODE_SHAPES[0], hq, hkv)
+            emit({"phase": phase, **lock_attn[key]})
+            key = "paged_prefill_attention" + body
+            phase = f"{key}_{tag}"
+            lock_attn[key] = prefill_phase(torch, gen, d, quant, hq, hkv)
+            emit({"phase": phase, **lock_attn[key]})
         # K1 and K2 at llama-3-70b's unsharded heads: what a 70B pp stage
         # attends.
         pp_attn = {}
@@ -7538,9 +8146,16 @@ def main() -> int:
         # the serving stacks share the card with this process.
         gc.collect()
         torch.cuda.empty_cache()
+        # model_lockstep's two processes run while the first serving
+        # group starts.
+        phase = "model_lockstep"
+        lockstep_procs = model_lockstep_start()
         # The serving phases' processes start in groups, each group
         # beside the phase before it (`prestart`), idle until its phase.
         prestart(server_launch("llama-3-1b"), stack_launch(**stack_spec("tp")))
+        model_lockstep = model_lockstep_phase(lockstep_procs)
+        for line in model_lockstep:
+            emit(line)
         phase = "serve"
         serve = serve_phase("llama-3-1b", (), ("paged_decode_attention",
                                                "paged_prefill_attention"),
@@ -7813,6 +8428,14 @@ def main() -> int:
         phase = "serve_ep"
         serve_ep = serve_ep_phase(torch, serve_moe)
         emit(serve_ep)
+        # serve_lockstep's frontend and two worker processes start once
+        # serve_ep's mixtral has left the card; its phase is a lane below.
+        # serve_ep's in-process reference engine holds its ~45 GB of
+        # weights in a reference cycle until a collection.
+        gc.collect()
+        torch.cuda.empty_cache()
+        lockstep_free_gib = torch.cuda.mem_get_info()[0] / 2**30
+        prestart(lockstep_stack_launch())
         print(f"serve_ep on {'; '.join(smi.splitlines())}: mixtral-8x7b "
               f"({MOE_LAYERS} layers) --ep {EP} --tp {TP} (startup "
               f"{serve_ep['startup_s']:.1f} s): "
@@ -7867,11 +8490,12 @@ def main() -> int:
               f"{ckpt['chars_per_token']:.2f} chars a token, built in "
               f"{ckpt['written']['tokenizer_build_s']:.2f} s; "
               f"{ckpt['wall_s']:.1f} s", flush=True)
-        # Three lanes, then the fleet alone: the fleet's reference answer;
-        # router_service and ingress; planner_profile, multimodal and gguf
-        # (their times are taken beside the other lanes' load).
+        # Four lanes, then the fleet alone: the fleet's reference answer;
+        # router_service and ingress; planner_profile, multimodal and gguf;
+        # serve_lockstep (their times are taken beside the other lanes'
+        # load).
         phase = ("fleet_reference / router_service, ingress / "
-                 "planner_profile, multimodal, gguf")
+                 "planner_profile, multimodal, gguf / serve_lockstep")
 
         def in_process_lane():
             profile = planner_profile_phase(torch, kernels)
@@ -7881,14 +8505,38 @@ def main() -> int:
             shutil.rmtree(CKPT_DIR)
             return profile, mmr, gguf_phase(torch, kernels)
 
-        with ThreadPoolExecutor(3) as lanes:  # its exit waits for all
+        with ThreadPoolExecutor(4) as lanes:  # its exit waits for all
             ref = lanes.submit(fleet_reference)
             side = lanes.submit(lambda: (router_service_phase(serve),
                                          ingress_phase(serve)))
             own = lanes.submit(in_process_lane)
+            lock = lanes.submit(serve_lockstep_phase, torch, serve)
         ref_ids = ref.result()
         routed, ingress = side.result()
         profile, mmr, gg = own.result()
+        serve_lockstep = lock.result()
+        serve_lockstep["card_free_gib_at_start"] = lockstep_free_gib
+        emit(serve_lockstep)
+        ml = {(x["leg"], x["kv_quant"]): x for x in model_lockstep
+              if x["phase"] == "model_lockstep"}
+        print(f"serve_lockstep on {'; '.join(smi.splitlines())}: "
+              f"llama-3-1b --tp {TP} --num-processes 2 (one card, "
+              f"{serve_lockstep['lockstep']['backend']}; startup "
+              f"{serve_lockstep['startup_s']:.1f} s): "
+              f"{serve_lockstep['output_tok_s']:.1f} tok/s, TTFT mean "
+              f"{serve_lockstep['ttft_mean_s']:.4f} s max "
+              f"{serve_lockstep['ttft_max_s']:.4f} s, ITL mean "
+              f"{serve_lockstep['itl_mean_s']:.5f} s "
+              f"({serve_lockstep['itl_ratio_vs_serve']:.2f}x serve's); "
+              f"serve (one process, one rank) {serve['output_tok_s']:.1f} "
+              f"tok/s, TTFT mean {serve['ttft_mean_s']:.4f} s, ITL mean "
+              f"{serve['itl_mean_s']:.5f} s; model_lockstep window host s "
+              + "; ".join(f"{k[0]} {k[1]} {[round(t, 4) for t in x['window_s']]}"
+                          f" (one process "
+                          f"{[round(t, 4) for t in x['one_process_window_s']]})"
+                          f", rel err vs meshless "
+                          f"{max(x['logits_rel_err_vs_meshless']):.4f}"
+                          for k, x in ml.items()), flush=True)
         emit(profile)
         pp, t = profile["profile"], profile["sla_targets"]
         print(f"planner_profile on {'; '.join(smi.splitlines())}: TTFT "
@@ -8042,6 +8690,25 @@ def main() -> int:
             extra["launches_serve_sp_grid"] = serve_spg["launches"][key]
         summary.append(summary_entry(k, f"{key}_{tag}", launches,
                                      launches_from=frm, **extra))
+    # K1 / K2 at llama-3-1b's tp 2 rank heads, the lockstep worker's: the
+    # bf16 bodies' launches on serve_lockstep's leader in its wave (its
+    # follower's counts are never zeroed: serve_lockstep's own line gives
+    # them over the follower's life), the int8 bodies' in model_lockstep's
+    # tp 2 int8 leg, both processes (counts zeroed just before it).
+    for key, k in lock_attn.items():
+        quant = key.endswith("_int8")
+        leg = ml[f"tp{TP}", "int8" if quant else "none"]
+        in_model = sum(x[key] for x in leg["launches"])
+        extra = {"tflops": k["tflops"]} if "tflops" in k else {}
+        if "eager_ms" in k:
+            extra["eager_ms"] = k["eager_ms"]
+        if quant:
+            launches, frm = in_model, "model_lockstep tp2 int8"
+        else:
+            launches, frm = serve_lockstep["launches"][key], "serve_lockstep"
+            extra["launches_model_lockstep"] = in_model
+        summary.append(summary_entry(k, f"{key}_{LOCKSTEP_GEOMETRY[0]}",
+                                     launches, launches_from=frm, **extra))
     # K1 / K2 at llama-3-70b's unsharded heads: the launches of model_pp's
     # 70B runs (bf16 and int8), counts zeroed just before each.
     pp70 = {x["kv_quant"]: x for x in model_pp if x["model"] == "llama-3-70b"}
@@ -8116,7 +8783,72 @@ def main() -> int:
     return 0
 
 
+def k2_spread(draws: int) -> int:
+    """`--k2-spread N`: K2 against its plain version and `prefill_exact`
+    over N packs of `prefill_inputs` at each of the smoke's K2 head
+    geometries, bf16 and int8 cache: the largest, 90th-percentile and
+    median ATOL the kernel needs against its plain version, the largest
+    each needs against the f64 result, and how many draws `closeness`
+    refuses without and with `exact`.  One JSON line a case; checks
+    nothing."""
+    import torch
+
+    from dynamo_tpu_torch.ops.cuda import (
+        build, paged_prefill_attention, paged_prefill_attention_plain)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    geometries = sorted({(HQ, HKV, 64), (HQ, HKV, 128),
+                         LOCKSTEP_GEOMETRY[1:], PP70_GEOMETRY[1:],
+                         *(g[1:] for g in TP_GEOMETRY)})
+
+    def refused(*args, **kw) -> bool:
+        try:
+            closeness(torch, *args, **kw)
+        except SmokeError:
+            return True
+        return False
+
+    for hq, hkv, d in geometries:
+        for quant in (False, True):
+            name = "paged_prefill_attention" + ("_int8" if quant else "")
+            vs_plain, kern, plain, old, new = [], [], [], 0, 0
+            for _ in range(draws):
+                a = prefill_inputs(torch, gen, d, quant, hq, hkv)
+                args = (a["q"], a["kc"], a["vc"], a["bt"], *a["rest"])
+                out = paged_prefill_attention(*args, block_size=BS, **a["sc"])
+                ref = paged_prefill_attention_plain(*args, block_size=BS,
+                                                    **a["sc"])
+                e = prefill_exact(torch, *args, a["sc"])
+                vs_plain.append(atol_needed(out, ref))
+                kern.append(atol_needed(out, e))
+                plain.append(atol_needed(ref, e))
+                old += refused(name, out, ref)
+                new += refused(name, out, ref, exact=e)
+            vs = sorted(vs_plain)
+            emit({"k2_spread": [hq, hkv, d], "cache": "int8" if quant
+                  else "bf16", "draws": draws, "atol": ATOL[name],
+                  "atol_needed_max": vs[-1],
+                  "atol_needed_p90": vs[int(0.9 * draws)],
+                  "atol_needed_median": vs[draws // 2],
+                  "f64_kernel_atol_needed_max": max(kern),
+                  "f64_plain_atol_needed_max": max(plain),
+                  "kernel_nearer_f64": sum(k <= p
+                                           for k, p in zip(kern, plain)),
+                  "refused_vs_plain": old, "refused_with_f64": new})
+    return 0
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lockstep-rank"]:
+        sys.exit(lockstep_rank(sys.argv[2], int(sys.argv[3]),
+                               int(sys.argv[4])))
+    if sys.argv[1:2] == ["--k2-spread"]:
+        sys.exit(k2_spread(int(sys.argv[2])))
     if sys.argv[1:2] == ["--kv-holder"]:
         sys.exit(kv_holder(sys.argv[2] == "int8", *[
             cast(a) for cast, a in zip((int, float), sys.argv[3:5])]))

@@ -18,9 +18,11 @@ K8s manifests —
     (`nvidia.com/gpu`);
   - a ConfigMap carrying the graph TOML for reproducibility.
 
-A worker group of several processes (`--num-processes N`) is refused:
-the port's workers are single-process.  `kubectl apply -f` the output
-directory:
+A worker group of several processes (`--num-processes N`, one engine
+over N processes: parallel/multihost.py) renders as JAX's: a StatefulSet
+of N pods and a headless Service, pod 0's DNS name giving every process
+`--coordinator ...:9876` and `--lockstep ...:9877`, the pod's ordinal its
+`--process-id`.  `kubectl apply -f` the output directory:
 
     python -m dynamo_tpu_torch.deploy graph.toml \
         --image ghcr.io/example/dynamo-tpu-torch:latest -o manifests
@@ -31,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shlex
 from typing import Dict, List, Optional
 
 CP_PORT = 7411
@@ -175,14 +178,57 @@ def render_graph(spec, image: str,
         ports = ([{"containerPort": int(_flag_value(args, "--http-port")
                                         or HTTP_PORT)}]
                  if is_frontend else [])
-        if int(_flag_value(args, "--num-processes") or 1) > 1:
-            raise ValueError(
-                f"service {svc.name}: a worker group of several processes "
-                "(--num-processes) is not ported; the port's workers are "
-                "single-process")
+        n_proc = int(_flag_value(args, "--num-processes") or 1)
         gpus = (str(gpus_per_worker)
                 if gpus_per_worker and svc.module.endswith("worker")
                 else None)
+
+        if n_proc > 1:
+            # A multihost worker group (parallel/multihost.py): a
+            # StatefulSet and a headless Service, whose stable DNS gives
+            # every process the coordinator and lockstep addresses of
+            # pod 0, as JAX's renderer lays it out.
+            head = f"{name}-ranks"
+            rank0 = f"{name}-0.{head}"
+            base = _strip_flag(list(args), "--process-id")
+            base += ["--coordinator", f"{rank0}:9876",
+                     "--lockstep", f"{rank0}:9877"]
+            out.append({
+                "apiVersion": "v1", "kind": "Service",
+                "metadata": {"name": head, "labels": labels},
+                "spec": {"clusterIP": "None", "selector": labels,
+                         "ports": [{"port": 9876, "name": "coordinator"},
+                                   {"port": 9877, "name": "lockstep"}]},
+            })
+            module = port_module(svc.module)
+            out.append({
+                "apiVersion": "apps/v1", "kind": "StatefulSet",
+                "metadata": {"name": name, "labels": labels},
+                "spec": {
+                    "serviceName": head,
+                    "replicas": n_proc,
+                    "podManagementPolicy": "Parallel",
+                    "selector": {"matchLabels": labels},
+                    "template": {
+                        "metadata": {"labels": labels},
+                        "spec": {"containers": [{
+                            **_container(svc.name, image, svc.module,
+                                         base, gpus, []),
+                            # The process id is the pod's ordinal: the
+                            # shell expands it (and kubelet $(POD_IP));
+                            # every other argument is quoted.
+                            "command": ["/bin/sh", "-c"],
+                            "args": [
+                                "exec python -m " + module + " "
+                                + " ".join(
+                                    a if a == "$(POD_IP)"
+                                    else shlex.quote(a) for a in base)
+                                + " --process-id ${HOSTNAME##*-}"],
+                        }]},
+                    },
+                },
+            })
+            continue
 
         out.append({
             "apiVersion": "apps/v1", "kind": "Deployment",

@@ -200,6 +200,7 @@ from dynamo_tpu_torch.models.llama import (
 )
 from dynamo_tpu_torch.models.weights import init_params
 from dynamo_tpu_torch.ops.cuda import PACK_ALIGN, ring_kernel_supported
+from dynamo_tpu_torch.parallel import multihost
 from dynamo_tpu_torch.parallel.mesh import DpGrid, MeshConfig, PpStages, SpRing
 from dynamo_tpu_torch.parallel.pipeline import (
     init_pp_cache,
@@ -335,6 +336,9 @@ class EngineConfig:
     speculative_tokens: int = 0
     speculative_ngram: int = 3
     drafter: Optional[Drafter] = None
+    # Multi-process lockstep (parallel/multihost.Fabric): the rank grid
+    # spans the fabric's processes, each computing its own ranks.
+    fabric: Optional[object] = None
 
 
 class _HostCopy:
@@ -342,8 +346,12 @@ class _HostCopy:
     so the engine thread enqueues the copy and reads it later.  CPU
     tensors are ready at once."""
 
-    def __init__(self, t: torch.Tensor, stream: Optional[torch.cuda.Stream]):
+    def __init__(self, t: torch.Tensor, stream: Optional[torch.cuda.Stream],
+                 fabric=None):
+        """`fabric` (a process-spanning engine's): the read is checked
+        against every process's (parallel/multihost.agree)."""
         self._event = None
+        self._fabric = fabric
         if t.device.type != "cuda":
             self._host = t
             return
@@ -363,6 +371,8 @@ class _HostCopy:
     def result(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
+        if self._fabric is not None:
+            return multihost.agree(self._host.numpy(), self._fabric)
         return self._host.numpy()
 
 
@@ -384,6 +394,23 @@ class EngineCore:
             kv_quant=config.kv_quant)
         self.mesh = MeshConfig(dp=config.dp, pp=config.pp, sp=config.sp,
                                ep=config.ep, tp=config.tp)
+        # Multi-process lockstep (parallel/multihost.py): the grid spans
+        # the fabric's processes; the leader broadcasts every
+        # engine-thread mutation on `_lockstep` before it runs it.
+        fabric = config.fabric
+        self._mh = fabric is not None and fabric.spans
+        self._fabric = fabric if self._mh else None
+        self._lockstep = None
+        if self._mh:
+            if config.pp > 1:
+                check_plane(PlaneSpec(), self.mesh, multihost=True)
+            if self.mesh.size <= 1:
+                raise ValueError(
+                    "--num-processes > 1 needs parallelism degrees that "
+                    "span the cluster (tp*dp*ep*sp*pp > 1); a meshless "
+                    "engine is process-local by construction")
+            check_plane(PlaneSpec(spec=config.speculative_tokens > 0),
+                        self.mesh, multihost=True)
         self._dp_local = self._resolve_dp(config)
         self._n_local_shards = 1
         if self._dp_local:
@@ -427,7 +454,8 @@ class EngineCore:
                         "sp_devices places the meshless ring's ranks; "
                         "with tp or dp the grid places every rank")
             self.grid = DpGrid.for_mesh(
-                self.mesh, self.device, config.dp_attention, self._dp_local)
+                self.mesh, self.device, config.dp_attention, self._dp_local,
+                fabric=self._fabric)
             if (config.dp == config.ep == config.sp == 1
                     and not config.dp_attention):
                 logger.info("tp group: %d ranks on %s", config.tp,
@@ -627,6 +655,20 @@ class EngineCore:
         self._last_window_sync_ts: Optional[float] = None
         self._mixed_cost_seen = 0
 
+    def lockstep_stats(self) -> Optional[dict]:
+        """The `lockstep` block of `/debug/stats` (None in one process):
+        the backend, this process's id and count, the flat ranks it
+        owns, its collectives across processes and the leader's
+        broadcasts by op."""
+        if not self._mh:
+            return None
+        out = self._fabric.describe()
+        out["owned_ranks"] = [f for f, m in enumerate(self.grid.mine) if m]
+        if self._lockstep is not None:
+            out["broadcasts"] = self._lockstep.broadcasts
+            out["broadcasts_by_op"] = dict(self._lockstep.sent)
+        return out
+
     @property
     def _meshed(self) -> bool:
         return self.config.dp * self.config.ep * self.config.tp > 1
@@ -727,8 +769,9 @@ class EngineCore:
         if any(not 0 <= int(t) < vocab for t in prompt_tokens):
             raise ValueError(f"prompt token outside the vocabulary [0, {vocab})")
         if prompt_embeds is not None:
-            # pp refuses them, in the capability table's words.
-            check_plane(PlaneSpec(role="mm"), self.mesh)
+            # pp and multihost refuse them, in the capability table's
+            # words.
+            check_plane(PlaneSpec(role="mm"), self.mesh, self._mh)
             prompt_embeds = np.asarray(prompt_embeds)
             if (prompt_embeds.ndim != 2
                     or prompt_embeds.shape[0] > len(prompt_tokens)
@@ -738,6 +781,12 @@ class EngineCore:
                     f"prompt_embeds shape {prompt_embeds.shape} must be "
                     f"[n <= {len(prompt_tokens)}, "
                     f"{self.config.model.hidden_size}]")
+        if self._lockstep is not None:
+            self._lockstep.broadcast({
+                "op": "add", "rid": request_id,
+                "prompt": [int(t) for t in prompt_tokens],
+                "sampling": multihost.encode_sampling(sampling),
+                "priority": int(priority)})
         req = Request(request_id=request_id,
                       prompt_tokens=list(prompt_tokens), sampling=sampling,
                       priority=int(priority), prompt_embeds=prompt_embeds)
@@ -754,6 +803,9 @@ class EngineCore:
     def cancel(self, request_id: str) -> None:
         req = self._requests.get(request_id)
         if req and req.state is not RequestState.FINISHED:
+            if self._lockstep is not None:
+                self._lockstep.broadcast({"op": "cancel",
+                                          "rid": request_id})
             self._finish(req, FinishReason.CANCELLED)
 
     @property
@@ -784,6 +836,8 @@ class EngineCore:
         token's copy lands and merge into the window cohort in batches.
         Any change the windows cannot absorb drains the pipeline first."""
         self.flight.beat()  # stall-watchdog heartbeat: one float store
+        if self._lockstep is not None:
+            self._lockstep.broadcast({"op": "step"})
         deltas: List[TokenDelta] = []
         self._settle_first_tokens(deltas, block=False)
         self._plan_mixed_budget()
@@ -809,8 +863,11 @@ class EngineCore:
                 if (plan.prefill and self._windows_since_prefill
                         >= self._mixed_duty):
                     self._windows_since_prefill = 0
+                    # Multihost settles first tokens at once: a copy's
+                    # readiness is per process, and the plan must derive
+                    # from replicated state alone.
                     deltas.extend(self._run_prefill_batch(
-                        plan.prefill, async_first=True))
+                        plan.prefill, async_first=not self._mh))
         if work is None and not plan.empty:
             # Settle pending first tokens before single-step decode reads
             # output_tokens; settling can finish requests, so replan.
@@ -878,7 +935,9 @@ class EngineCore:
         only moves at window syncs; folding it every step would weigh it
         at nearly full weight)."""
         samples = self.counters.prefill_cost_samples
-        if samples != self._mixed_cost_seen:
+        # Multihost keeps the static prior: a measured cost is per
+        # process, and folding it in would part the processes' plans.
+        if not self._mh and samples != self._mixed_cost_seen:
             self._mixed_cost_seen = samples
             measured = self.counters.measured_prefill_cost_ratio
             if measured is not None:
@@ -1265,8 +1324,9 @@ class EngineCore:
         sel = logits[torch.tensor(done_rows, device=logits.device)]
         reqs = [items[i].request for i in done_rows]
         toks, lps = self._sample_rows(sel, reqs)
-        copies = (_HostCopy(toks, self._copy_stream),
-                  _HostCopy(lps, self._copy_stream) if lps is not None else None)
+        copies = (_HostCopy(toks, self._copy_stream, self._fabric),
+                  _HostCopy(lps, self._copy_stream, self._fabric)
+                  if lps is not None else None)
         if async_first:
             for req in reqs:
                 self._pending_first.add(req.request_id)
@@ -1349,8 +1409,9 @@ class EngineCore:
                 toks_dev, lps_dev = self._sample_rows(logits[: len(live)],
                                                       live)
         self.counters.host_syncs += 1
-        sampled = toks_dev.cpu().numpy()
-        lps = lps_dev.cpu().numpy() if lps_dev is not None else None
+        sampled = multihost.fetch(toks_dev, self._fabric)
+        lps = (multihost.fetch(lps_dev, self._fabric)
+               if lps_dev is not None else None)
         deltas = []
         for i, req in enumerate(live):
             # Blocks sealed by earlier tokens publish before this token
@@ -1620,7 +1681,8 @@ class EngineCore:
             "span": span,
             # The host reads the window in request order.
             "copy": _HostCopy(out if perm is None else out[
-                :, torch.from_numpy(perm).to(out.device)], self._copy_stream),
+                :, torch.from_numpy(perm).to(out.device)], self._copy_stream,
+                self._fabric),
             # Prefill dispatched since the previous window runs on the
             # device before this one: its sync interval absorbs it.
             "prefill_tokens": self._prefill_cost_tokens,
@@ -2070,6 +2132,10 @@ class EngineCore:
         the G1 blocks."""
         if not self._managed_cache:
             return {}
+        if self._lockstep is not None:
+            # The followers join the extract's gathers across processes.
+            self._lockstep.broadcast({"op": "export",
+                                      "hashes": [int(h) for h in hashes]})
         return self.allocator.manager.export_blocks(hashes)
 
     @engine_thread_only
@@ -2090,12 +2156,18 @@ class EngineCore:
             return 0
         for data in blocks.values():    # before anything is allocated
             self._validate_block(data)
+        if self._lockstep is not None:
+            self._lockstep.broadcast({"op": "import",
+                                      "blocks": multihost.encode_blocks(
+                                          blocks)})
         return self.allocator.manager.import_blocks(blocks)
 
     @engine_thread_only
     def clear_prefix_cache(self) -> int:
         """Admin flush of every reusable cached block (engine thread);
         returns how many were dropped, each reported REMOVED."""
+        if self._lockstep is not None:
+            self._lockstep.broadcast({"op": "clear"})
         clear = getattr(self.allocator, "clear_cache", None)
         return clear() if clear is not None else 0
 
@@ -2108,7 +2180,7 @@ class EngineCore:
         path), on pages allocated for it and released afterwards (the
         /v1/embeddings surface).  The capability table refuses it under
         pp, in JAX's words."""
-        check_plane(PlaneSpec(role="embed"), self.mesh)
+        check_plane(PlaneSpec(role="embed"), self.mesh, self._mh)
         cfg = self.config.model
         if self._embed_step is None:
             self._embed_step = make_forward_step(

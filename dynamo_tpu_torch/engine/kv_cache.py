@@ -206,11 +206,15 @@ def init_grid_caches(cfg: KvCacheConfig, grid) -> List[dict]:
     the grid's attention ranks (ep index 0; JAX's cache specs never name
     ep), one dict each."""
     grid = grid.attention
+    mine = getattr(grid, "mine", None) or [True] * grid.n
+    # Another process's rank: its shapes alone (meta tensors).
+    devices = [d if m else torch.device("meta")
+               for d, m in zip(grid.devices, mine)]
     if not grid.dp_attention:
         rank = cfg.for_rank(grid.tp)
         per_slice = {}
         out = []
-        for f, dev in enumerate(grid.devices):
+        for f, dev in enumerate(devices):
             key = (grid.places[f], f % grid.tp)
             if key not in per_slice:
                 per_slice[key] = init_cache(rank, dev)
@@ -228,7 +232,7 @@ def init_grid_caches(cfg: KvCacheConfig, grid) -> List[dict]:
                            device=device)[:shape[0]]
 
     out = []
-    for f, dev in enumerate(grid.devices):
+    for f, dev in enumerate(devices):
         s = f if grid.dp_local else f % grid.tp
         key = (grid.places[f], s)
         if key not in shared:
@@ -277,6 +281,12 @@ def inject_stage_blocks(caches: List[dict], pages: torch.Tensor,
         first += n
 
 
+def held(cache: dict) -> bool:
+    """True for a rank's cache this process holds (not another
+    process's meta placeholder)."""
+    return not cache["k"][0].is_meta
+
+
 def _junk_view(t: torch.Tensor) -> torch.Tensor:
     """[S + 1, ...]: a slot shard with its junk row (raises where the
     shard was allocated without one)."""
@@ -299,6 +309,8 @@ def write_routes(shards: Sequence[Tuple[dict, int]], slots: torch.Tensor):
     writes.  One route serves every layer of a step."""
     out = []
     for cache, base in shards:
+        if not held(cache):
+            continue
         S = cache["k"][0].shape[0]
         local, inside = shard_slots(slots.to(cache["k"][0].device), base, S)
         out.append((cache, torch.where(inside, local,
@@ -402,6 +414,10 @@ def extract_grid_blocks(cache: List[dict], grid, pages: torch.Tensor,
     """`extract_blocks` of a DpGrid's cache: plain dp reads dp row 0's
     column bands; slot shards read each page from the shard holding
     it."""
+    from dynamo_tpu_torch.parallel.multihost import grid_spans_processes
+
+    if grid_spans_processes(grid):
+        return _extract_spanning(cache, grid, pages, block_size)
     grid = grid.attention
     if not grid.dp_attention:
         return extract_blocks(cache[:grid.tp], pages, block_size)
@@ -424,6 +440,85 @@ def extract_grid_blocks(cache: List[dict], grid, pages: torch.Tensor,
     return torch.stack([torch.stack([rows(kind, layer) for layer in range(L)],
                                     dim=1)
                         for kind in ("k", "v")], dim=1)
+
+
+def _extract_spanning(cache: List[dict], grid, pages: torch.Tensor,
+                      block_size: int) -> torch.Tensor:
+    """`extract_grid_blocks` of a process-spanning grid, which every
+    process joins: each piece (a tp slice's column band, or a slot
+    shard) is read by the process of its first copy, the pieces cross
+    through the fabric, and every process assembles the wire block."""
+    fabric, me = grid.fabric, grid.fabric.process_id
+    n = pages.shape[0]
+    L = len(cache[0]["k"])
+    if not grid.dp_attention:
+        firsts = [grid.holders(t)[0] for t in range(grid.tp)]
+        mine = [extract_blocks([cache[h]], pages, block_size)
+                for h in firsts if grid.mine[h]]
+        raw = (torch.cat([b.reshape(-1).view(torch.uint8) for b in mine])
+               if mine else torch.zeros((0,), dtype=torch.uint8,
+                                        device=pages.device))
+        got = fabric.gather_bytes(raw, fabric.world)
+        ranks, offs = [], [0] * fabric.num_processes
+        for h in firsts:
+            q, c = grid.owner[h], cache[h]
+            quant = "k_scale" in c
+            f = c["k"][0].shape[1] + (4 * c["k_scale"][0].shape[1]
+                                     if quant else 0)
+            dtype = torch.int8 if quant else c["k"][0].dtype
+            size = n * 2 * L * block_size * f * dtype.itemsize
+            ranks.append(got[q][offs[q]:offs[q] + size].view(dtype).reshape(
+                n, 2, L, block_size, f))
+            offs[q] += size
+        if len(ranks) == 1:
+            return ranks[0]
+        if "k_scale" not in cache[0]:
+            return torch.cat(ranks, dim=-1)
+        f = cache[0]["k"][0].shape[1]
+        return torch.cat([r[..., :f] for r in ranks]
+                         + [r[..., f:] for r in ranks], dim=-1)
+    # Slot shards: each page lives in one shard; each shard is read by
+    # the process of its first copy, zeros elsewhere, and the pieces join
+    # by their row masks.
+    S = cache[0]["k"][0].shape[0]
+    shards = (list(range(grid.n)) if grid.dp_local
+              else [grid.holders(t)[0] for t in range(grid.tp)])
+    bases = ([f * S for f in shards] if grid.dp_local
+             else [t * S for t in range(grid.tp)])
+    own = [(cache[g], b) for g, b in zip(shards, bases) if grid.mine[g]]
+    slots = _page_slots(pages, block_size)
+    quant = cache_is_quantized(cache)
+    names = lambda kind: ((kind, f"{kind}_scale") if quant else (kind,))
+    if own:
+        routes = read_routes(own, slots)
+        mask = torch.zeros((n * block_size, 1), dtype=torch.bool,
+                           device=pages.device)
+        for _, _, m in routes:
+            mask |= m
+        parts = []
+        for kind in ("k", "v"):
+            for layer in range(L):
+                got = _gather_raw(routes, layer, names(kind), pages.device)
+                q = got[0] if not quant else torch.cat(
+                    [got[0], got[1].view(torch.int8)], dim=1)
+                parts.append(q)
+        block = torch.stack(parts).reshape(2, L, n * block_size, -1)
+    else:
+        c = next(c for c in cache if held(c))
+        f = c["k"][0].shape[1] + (4 * c["k_scale"][0].shape[1]
+                                 if quant else 0)
+        block = torch.zeros((2, L, n * block_size, f),
+                            dtype=torch.int8 if quant else c["k"][0].dtype,
+                            device=pages.device)
+        mask = torch.zeros((n * block_size, 1), dtype=torch.bool,
+                           device=pages.device)
+    blocks = fabric.gather(block, fabric.world)
+    masks = fabric.gather(mask, fabric.world)
+    out = blocks[0]
+    for b, m in zip(blocks[1:], masks[1:]):
+        out = torch.where(m, b, out)
+    return out.reshape(2, L, n, block_size, -1).permute(2, 0, 1, 3, 4) \
+        .contiguous()
 
 
 def inject_grid_blocks(cache: List[dict], grid, pages: torch.Tensor,
@@ -519,6 +614,8 @@ def inject_blocks(cache, pages: torch.Tensor, data: torch.Tensor,
             d = data[:, i, layer].reshape(n * block_size, -1)
             d = d.to(torch.int8 if quant else ranks[0][kind][0].dtype)
             for r, c in enumerate(ranks):
+                if not held(c):
+                    continue        # another process's rank injects it
                 dev = c[kind][layer].device
                 s = slots.to(dev)
                 c[kind][layer].index_copy_(0, s, d[:, r * f:(r + 1) * f].to(dev))

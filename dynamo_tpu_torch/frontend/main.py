@@ -481,6 +481,8 @@ def stats_hooks(core: EngineCore):
                             else None),
                 "rank_launches": (list(core.group.launches)
                                   if core.group is not None else []),
+                # Multi-process lockstep (parallel/multihost.py).
+                "lockstep": core.lockstep_stats(),
                 "prefix_cache": core.prefix_cache_stats(),
                 "spec_decode": spec_decode_stats(core),
                 "mixed_prefill": core.mixed_prefill_stats(),

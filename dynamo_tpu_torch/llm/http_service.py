@@ -121,6 +121,39 @@ class HttpRequest:
     query: Dict[str, List[str]]
     headers: Dict[str, str]
     body: bytes
+    # The connection's reader (a streamed reply watches it for the
+    # client's close).
+    reader: Optional[asyncio.StreamReader] = None
+
+
+_STREAMING_PATHS = ("/v1/chat/completions", "/v1/completions",
+                    "/v1/responses")
+
+
+def _wants_stream(req: HttpRequest) -> bool:
+    try:
+        return bool(json.loads(req.body or b"{}").get("stream"))
+    except (ValueError, AttributeError):
+        return False
+
+
+def _cancel_on_close(reader: Optional[asyncio.StreamReader],
+                     task: asyncio.Task) -> Optional[asyncio.Future]:
+    """Watch a streamed reply's connection: the reply closes it, so the
+    client sends nothing more, and an end of stream means the client is
+    gone.  That cancels the handler's task, whose token stream's close
+    cancels the engine request, without waiting for the next write to
+    fail (a stretch of tokens that decode to no text writes nothing)."""
+    if reader is None:
+        return None
+
+    async def watch() -> None:
+        with contextlib.suppress(ConnectionError):
+            if await reader.read(1):
+                return          # not a close: leave the reply alone
+        task.cancel()
+
+    return asyncio.ensure_future(watch())
 
 
 class HttpError(Exception):
@@ -217,7 +250,8 @@ class HttpService:
                 keep_alive = (version == "HTTP/1.1" and
                               headers.get("connection", "").lower() != "close")
                 path, _, qs = target.partition("?")
-                req = HttpRequest(method, path, parse_qs(qs), headers, body)
+                req = HttpRequest(method, path, parse_qs(qs), headers, body,
+                                  reader)
                 if not await self._route(req, writer, keep_alive):
                     return
         except (ConnectionError, asyncio.IncompleteReadError):
@@ -260,6 +294,9 @@ class HttpService:
                 f"{req.method} {req.path} not served", "not_found"),
                 keep_alive)
             return keep_alive
+        watch = (_cancel_on_close(req.reader, asyncio.current_task())
+                 if req.path in _STREAMING_PATHS and _wants_stream(req)
+                 else None)
         try:
             result = await handler(req, writer)
         except HttpError as e:
@@ -274,6 +311,9 @@ class HttpService:
                 f"internal error: {type(e).__name__}", "internal_error"),
                 keep_alive=False)
             return False
+        finally:
+            if watch is not None:
+                watch.cancel()
         if result is None:  # handler streamed its own response
             return False
         status, obj = result if isinstance(result, tuple) else (200, result)

@@ -588,6 +588,7 @@ def _check_grid(cfg: ModelConfig, grid, sp_ring=None,
     """The mesh's and the capability table's refusals of a sharded step
     (parallel/mesh.py, parallel/sharding.py)."""
     from dynamo_tpu_torch.parallel.mesh import MeshConfig
+    from dynamo_tpu_torch.parallel.multihost import grid_spans_processes
     from dynamo_tpu_torch.parallel.sharding import (
         PlaneSpec, check_plane, validate)
 
@@ -595,7 +596,8 @@ def _check_grid(cfg: ModelConfig, grid, sp_ring=None,
                       tp=grid.tp)
     check_plane(PlaneSpec(use_kernel=use_kernel,
                           dp_attention=grid.dp_attention,
-                          dp_local=grid.dp_local, moe=cfg.is_moe), mesh)
+                          dp_local=grid.dp_local, moe=cfg.is_moe), mesh,
+                multihost=grid_spans_processes(grid))
     validate(cfg, mesh, grid.dp_attention)
     if cfg.is_moe and moe_mode not in ("dense", "dispatch"):
         raise ValueError(f"a sharded MoE step runs 'dense' or 'dispatch', "
@@ -607,15 +609,15 @@ def _tp_embed(cfg: ModelConfig, group, states, toks, embeds, masks):
     """The embeddings on every rank: each rank looks up the tokens of
     its vocab slice, and the parts sum to the whole lookup."""
     rows = states[0]["embed"].shape[0]
-    parts = []
-    for r in range(group.tp):
+    parts = [None] * group.tp
+    for r in group.local:
         with group.on(r):
-            parts.append(_embed_rows(states[r]["embed"], toks[r], r * rows))
+            parts[r] = _embed_rows(states[r]["embed"], toks[r], r * rows)
     xs = group.all_reduce(parts)
-    out = []
-    for r in range(group.tp):
+    out = [None] * group.tp
+    for r in group.local:
         with group.on(r):
-            out.append(_embed_finish(cfg, xs[r], embeds[r], masks[r]))
+            out[r] = _embed_finish(cfg, xs[r], embeds[r], masks[r])
     return out
 
 
@@ -623,17 +625,21 @@ def _tp_head(cfg: ModelConfig, rcfg: ModelConfig, group, states, xs,
              select, hidden: bool) -> torch.Tensor:
     """The final norm, `select(r, x)` (the sampled rows), then the hidden
     state of rank 0 (`hidden`) or the full-vocab logits gathered from
-    the ranks' columns, on rank 0."""
-    outs = []
-    for r in range(group.tp):
+    the ranks' columns, on rank 0 (spanning processes: on each one's
+    lead rank; None where this process has no rank of the group)."""
+    if not group.local:
+        return None
+    outs = [None] * group.tp
+    for r in group.local:
         with group.on(r):
             x = select(r, rms_norm(xs[r], states[r]["final_norm"],
                                    cfg.rms_norm_eps, cfg.rms_offset))
-            outs.append(x if hidden else _lm_head(rcfg, states[r], x))
+            outs[r] = x if hidden else _lm_head(rcfg, states[r], x)
     if hidden:
         # The last token's final-norm hidden state is the embedding (the
         # causal-LM convention).
-        return outs[0].float()
+        with group.on(group.lead):
+            return outs[group.lead].float()
     return group.all_gather(outs, dim=-1)
 
 
@@ -672,15 +678,87 @@ def _counted(grid, f: int, fn, *args, **kw):
 def _grid_write(grid, cache, f: int, i: int, slots, k, v, routes) -> None:
     """Rank f's chunk rows [N, F] into every copy that holds them: the
     copies of its tp column band (plain dp), else along `routes`
-    (`_grid_routes`)."""
+    (`_grid_routes`); the copies another process holds take them at the
+    step's end (`_exchange_writes`)."""
+    if grid.writes_cross(f):
+        # Copies in other processes take these rows at the step's end.
+        grid.pending_writes.append((f, i, slots, k, v))
     if routes is not None:
-        kvc.write_routed(routes, i, k, v)
+        if routes:
+            kvc.write_routed(routes, i, k, v)
         return
     for g in grid.holders(f % grid.tp):
         c = cache[g]
+        if not kvc.held(c):
+            continue
         dev = c["k"][i].device
         _write_chunk(c["k"][i], c["v"][i], *_layer_scales(c, i),
                      slots.to(dev), k.to(dev), v.to(dev))
+
+
+def _exchange_writes(grid, cache) -> None:
+    """The step's cache writes whose copies live in other processes
+    (`grid.pending_writes`: rank, layer, slots, K rows, V rows), swapped
+    through the fabric and written into this process's copies, each into
+    the copies it would reach in one process.  Every process of a
+    spanning grid joins, in step order."""
+    if not grid.spans:
+        return
+    pending, grid.pending_writes = grid.pending_writes, []
+    if not any(grid.writes_cross(f) for f in range(grid.n)):
+        return
+    dev = next(c for c in cache if kvc.held(c))["k"][0].device
+    head, body = [], []
+    for f, i, slots, k, v in pending:
+        head += [f, i, slots.numel(), k.shape[1], _dtype_code(k.dtype)]
+        body += [slots.reshape(-1).to(torch.int64).view(torch.uint8),
+                 k.contiguous().reshape(-1).view(torch.uint8),
+                 v.contiguous().reshape(-1).view(torch.uint8)]
+    head_t = torch.tensor([len(pending)] + head, dtype=torch.int64)
+    raw = torch.cat([head_t.view(torch.uint8).to(dev)]
+                    + [b.to(dev) for b in body])
+    got = grid.fabric.gather_bytes(raw, grid.fabric.world)
+    for q, blob in enumerate(got):
+        if q == grid.fabric.process_id:
+            continue
+        count = int(blob[:8].view(torch.int64).item())
+        meta = blob[8:8 + 40 * count].view(torch.int64).reshape(
+            count, 5).tolist()
+        pos = 8 + 40 * count
+        for f, i, N, F, code in meta:
+            dtype = _DTYPE_CODES[code]
+            slots = blob[pos:pos + 8 * N].view(torch.int64)
+            pos += 8 * N
+            size = N * F * dtype.itemsize
+            k = blob[pos:pos + size].view(dtype).reshape(N, F)
+            pos += size
+            v = blob[pos:pos + size].view(dtype).reshape(N, F)
+            pos += size
+            _write_remote(grid, cache, f, i, slots, k, v)
+
+
+_DTYPE_CODES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _dtype_code(dtype: torch.dtype) -> int:
+    return _DTYPE_CODES.index(dtype)
+
+
+def _write_remote(grid, cache, f: int, i: int, slots, k, v) -> None:
+    """Another process's rank f's rows of layer i, into the copies this
+    process holds of what f writes."""
+    targets = [g for g in grid.write_targets(f) if grid.mine[g]]
+    if not targets:
+        return
+    if grid.dp_attention:
+        S = cache[0]["k"][0].shape[0]
+        shards = [(cache[g], (g % grid.tp) * S) for g in targets]
+        kvc.write_routed(kvc.write_routes(shards, slots), i, k, v)
+        return
+    for g in targets:
+        c = cache[g]
+        _write_chunk(c["k"][i], c["v"][i], *_layer_scales(c, i), slots,
+                     k, v)
 
 
 def _grid_routes(grid, cache, f: int, write_slots, read_slots, local: bool):
@@ -731,8 +809,8 @@ def _grid_moe(cfg: ModelConfig, grid, states, i: int, d: int, hs,
     and never over tp."""
     ep, tp = grid.ep, grid.tp
     E = cfg.num_experts
-    parts = []
-    for t in range(tp):
+    parts = [None] * tp
+    for t in grid.rows[d].local:
         g = grid.eps[d][t]
         h = hs[t]
         with g.on(0):
@@ -774,7 +852,7 @@ def _grid_moe(cfg: ModelConfig, grid, states, i: int, d: int, hs,
                             moe_ops._with_drop_tail(moe_ops._counts(ids, E)))
             out = g.reduce(terms)
         with g.on(0):
-            parts.append(out.to(h.dtype).reshape(h.shape))
+            parts[t] = out.to(h.dtype).reshape(h.shape)
     return parts
 
 
@@ -792,40 +870,50 @@ def _grid_layers(cfg: ModelConfig, grid, states, xs, attend, moe_mode: str,
     moe_loads: Dict[int, List[torch.Tensor]] = {}
     for i in range(cfg.num_layers):
         for d, row in enumerate(grid.rows):
+            if not row.local:
+                continue            # another process's row
             x_row = xs[d]
             st = grid.row_states(states, d)
-            parts = []
-            for t in range(tp):
+            parts = [None] * tp
+            for t in row.local:
                 with row.on(t):
                     layer = st[t]["layers"][i]
-                    parts.append(attend(d, t, i, layer["attn"], rms_norm(
-                        x_row[t], layer["attn_norm"], cfg.rms_norm_eps, off)))
+                    parts[t] = attend(d, t, i, layer["attn"], rms_norm(
+                        x_row[t], layer["attn_norm"], cfg.rms_norm_eps, off))
             attn = (row.all_gather_all(parts, rows_dim) if grid.dp_attention
                     else row.all_reduce(parts))
-            hs = []
-            for t in range(tp):
+            hs = [None] * tp
+            for t in row.local:
                 with row.on(t):
-                    x_row[t], h = _mlp_in(cfg, st[t]["layers"][i], x_row[t],
-                                          attn[t])
-                    hs.append(h)
+                    x_row[t], hs[t] = _mlp_in(cfg, st[t]["layers"][i],
+                                              x_row[t], attn[t])
             if cfg.is_moe:
                 parts = _grid_moe(cfg, grid, states, i, d, hs, moe_mode,
                                   moe_loads)
             else:
-                parts = []
-                for t in range(tp):
+                parts = [None] * tp
+                for t in row.local:
                     with row.on(t):
-                        parts.append(_dense_mlp(st[t]["layers"][i]["mlp"],
-                                                hs[t], cfg.activation))
+                        parts[t] = _dense_mlp(st[t]["layers"][i]["mlp"],
+                                              hs[t], cfg.activation)
             mlp = row.all_reduce(parts)
-            for t in range(tp):
+            for t in row.local:
                 with row.on(t):
                     x_row[t] = _mlp_out(cfg, st[t]["layers"][i], x_row[t],
                                         mlp[t])
+    homed = []
     for f, got in moe_loads.items():
         with grid.on(f):
             total = torch.stack(got).sum(0, dtype=torch.int32)
-        loads.append(grid.home(f, total))
+        homed.append(grid.home(f, total))
+    if grid.spans and cfg.is_moe:
+        # Every process's routing ranks' load, summed on each.
+        E1 = cfg.num_experts + 1
+        mine = (torch.stack(homed).sum(0, dtype=torch.int32) if homed
+                else torch.zeros((E1,), dtype=torch.int32,
+                                 device=grid.fabric.device))
+        homed = [grid.sum_world(mine)]
+    loads.extend(homed)
     return xs
 
 
@@ -836,7 +924,9 @@ def _grid_embed(cfg: ModelConfig, grid, states, toks, embs, masks):
     out = []
     for d, row in enumerate(grid.rows):
         st = grid.row_states(states, d)
-        if tp == 1:
+        if not row.local:
+            out.append([None] * tp)         # another process's row
+        elif tp == 1:
             with row.on(0):
                 out.append([_embed(cfg, st[0], toks[d][0], embs[d][0],
                                    masks[d][0])])
@@ -856,7 +946,8 @@ def _grid_split(grid, tensors, dim: int = 0):
 def _grid_spread(grid, shares):
     """Each row's shares replicated over its ranks, after the fork:
     `out[k][d][t]` is tensor k of row d on rank t."""
-    return [[row.replicate(t) if t is not None else [None] * grid.tp
+    return [[row.replicate(t) if t is not None and row.local
+             else [None] * grid.tp
              for row, t in zip(grid.rows, share)] for share in shares]
 
 
@@ -958,6 +1049,7 @@ def _grid_forward(cfg: ModelConfig, block_size: int, grid, use_kernel: bool,
                              xs[d], select, return_hidden))
     out = grid.gather_rows(outs)
     grid.join()
+    _exchange_writes(grid, cache)
     return out, cache, loads
 
 
@@ -1022,7 +1114,7 @@ def _grid_packed(cfg: ModelConfig, block_size: int, grid, moe_mode: str,
     tok, pos, ws, sg, emb, msk = _grid_spread(grid, tok_shares)
     bts, sls, qss, qls, smp = _grid_spread(grid, seg_shares)
     cos, sin = _grid_spread(grid, rot_shares)
-    xs = [[x[None] for x in row]
+    xs = [[None if x is None else x[None] for x in row]
           for row in _grid_embed(cfg, grid, state, tok, emb, msk)]
     S = cache[0]["k"][0].shape[0]
     pages_local = S // block_size
@@ -1082,6 +1174,7 @@ def _grid_packed(cfg: ModelConfig, block_size: int, grid, moe_mode: str,
                              False))
     logits = grid.gather_rows(outs)
     grid.join()
+    _exchange_writes(grid, cache)
     return logits, cache, loads
 
 

@@ -68,6 +68,15 @@ slice s of its row.  Ranks of one place (`places[f]`, by default the
 card) and one piece share one copy of it: on one card the sp ranks add
 streams and no weights.  A meshless step runs no grid.
 
+A grid may also span worker processes (parallel/multihost.py, `fabric`):
+its ranks split process-major, k = n / N a process, and a process
+computes only on its own (`mine`); the others are placeholders.  Within
+a process everything stays streams and events; a TpGroup or a grid whose
+ranks live in several processes gathers through `torch.distributed`
+(`Fabric.gather`), and sums the gathered partials in rank order exactly
+as one process does, so the results are the same bits.  Every output a
+host reads (`gather_rows`) lands whole on every process.
+
 `PpStages`: the pipeline's S stage ranks (JAX's GPipe stage schedule,
 parallel/pipeline.py).  Stage s owns layers `[s * L/S, (s + 1) * L/S)`
 and those layers' paged KV.  Stage 0 runs on the caller's current
@@ -389,23 +398,31 @@ class TpGroup:
     rank's stream still reads (`record_stream`)."""
 
     def __init__(self, devices: Sequence, home=None,
-                 own_first: bool = False):
+                 own_first: bool = False, mine: Optional[Sequence] = None,
+                 fabric=None, procs: Tuple[int, ...] = ()):
         """`home` is the device of the caller's stream (default rank 0's);
         `own_first` gives rank 0 a stream of its own too (the later rows
-        of a DpGrid)."""
+        of a DpGrid).  `mine` (a process-spanning grid's): which ranks
+        this process computes; `procs` the processes that own the
+        group's ranks, whose collectives go through `fabric`."""
         self.devices: List[torch.device] = _rank_devices(devices, "tp group")
         self.tp = len(self.devices)
         self.home_device = (self.devices[0] if home is None
                             else _rank_devices([home], "tp group")[0])
         self.cuda = self.devices[0].type == "cuda" and (
             self.tp > 1 or own_first)
+        self.mine = [True] * self.tp if mine is None else list(mine)
+        self.local = [r for r in range(self.tp) if self.mine[r]]
+        self.fabric, self.procs = fabric, tuple(procs)
+        self.spans = len(self.procs) > 1
         # Distinct cards, in rank order.
         self.cards: List[torch.device] = list(dict.fromkeys(self.devices))
         self.streams: List[Optional[torch.cuda.Stream]] = [None] * self.tp
         if self.cuda:
             first = 0 if own_first else 1
-            self.streams[first:] = [torch.cuda.Stream(d)
-                                    for d in self.devices[first:]]
+            self.streams[first:] = [
+                torch.cuda.Stream(d) if self.mine[r] else None
+                for r, d in enumerate(self.devices[first:], first)]
 
     def describe(self) -> List[str]:
         """The rank -> device map, as strings."""
@@ -488,11 +505,25 @@ class TpGroup:
 
     def replicate(self, t: torch.Tensor) -> List[torch.Tensor]:
         """A tensor of the caller's (rank 0's card, current stream), for
-        every rank, after `fork()`."""
+        every rank, after `fork()` (a process-spanning group: for its
+        local ranks, None for the others)."""
+        if len(self.local) < self.tp:
+            out: List[Optional[torch.Tensor]] = [None] * self.tp
+            for r in self.local:
+                if self.cuda and self.streams[r] is not None:
+                    t.record_stream(self.streams[r])
+                out[r] = t
+            return out
         if not self.cuda:
             return [t] * self.tp
         if self.streams[0] is not None:
             t.record_stream(self.streams[0])
+            if t.device != self.devices[0]:
+                # A later row whose rank 0 lies on another card: its copy
+                # comes over on rank 0's stream, which the fork ordered
+                # after the caller's.
+                with self.on(0):
+                    t = t.to(self.devices[0], non_blocking=True)
         return self._spread(t)
 
     def all_reduce(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -501,24 +532,51 @@ class TpGroup:
         the partials' dtype once, and the sum on every rank."""
         if self.tp == 1:
             return list(parts)
-        moved = [self._move(0, r, p) for r, p in enumerate(parts)]
-        with self.on(0):
+        lead, moved = self._collect(parts)
+        with self.on(lead):
             if len(moved) == 2:
                 total = moved[0] + moved[1]
             else:
                 total = torch.stack(moved).sum(0, dtype=torch.float32).to(
                     moved[0].dtype)
+        return self._share(lead, total)
+
+    @property
+    def lead(self) -> int:
+        """The rank a collective's result is made on: rank 0, or this
+        process's first rank of a process-spanning group."""
+        return self.local[0] if self.spans else 0
+
+    def _collect(self, parts: Sequence[Optional[torch.Tensor]]):
+        """(lead, every rank's part in rank order, usable on the lead's
+        stream): moved there within a process, gathered through the
+        fabric from the other processes' ranks."""
+        lead = self.lead
+        if not self.spans:
+            return lead, [self._move(0, r, p) for r, p in enumerate(parts)]
+        own = [self._move(lead, r, parts[r]) for r in self.local]
+        with self.on(lead):
+            got = self.fabric.gather(torch.stack(own), self.procs)
+        return lead, [x for g in got for x in g.unbind(0)]
+
+    def _share(self, lead: int, x: torch.Tensor) -> List[torch.Tensor]:
+        """`x`, made on the lead's stream, for every rank (a
+        process-spanning group: its local ranks; None for the others)."""
+        if self.spans:
+            return [self._move(r, lead, x) if self.mine[r] else None
+                    for r in range(self.tp)]
         if not self.cuda:
-            return [total] * self.tp
-        return self._spread(total)
+            return [x] * self.tp
+        return self._spread(x)
 
     def all_gather(self, parts: Sequence[torch.Tensor],
                    dim: int) -> torch.Tensor:
-        """Rank r's `parts[r]` concatenated along `dim` on rank 0."""
+        """Rank r's `parts[r]` concatenated along `dim` on rank 0 (a
+        process-spanning group: on each process's lead rank)."""
         if self.tp == 1:
             return parts[0]
-        moved = [self._move(0, r, p) for r, p in enumerate(parts)]
-        with self.on(0):
+        lead, moved = self._collect(parts)
+        with self.on(lead):
             return torch.cat(moved, dim=dim)
 
     def all_gather_all(self, parts: Sequence[torch.Tensor],
@@ -527,10 +585,7 @@ class TpGroup:
         (dp-attention's rows, gathered for the tp-sharded MLP)."""
         if self.tp == 1:
             return list(parts)
-        whole = self.all_gather(parts, dim)
-        if not self.cuda:
-            return [whole] * self.tp
-        return self._spread(whole)
+        return self._share(self.lead, self.all_gather(parts, dim))
 
 
 class EpGroup(_Members):
@@ -644,7 +699,10 @@ class DpGrid:
     def __init__(self, devices: Sequence, dp: int,
                  dp_attention: bool = False, dp_local: bool = False,
                  places: Optional[Sequence] = None, ep: int = 1,
-                 sp: int = 1):
+                 sp: int = 1, fabric=None):
+        """`fabric` (parallel/multihost.Fabric): the grid spans its
+        processes, process-major; a process computes only on its own
+        ranks (`mine`), every one of them on `devices[f]`."""
         self.devices: List[torch.device] = _rank_devices(devices, "dp grid")
         self.n = len(self.devices)
         if dp < 1 or ep < 1 or sp < 1 or self.n % (dp * sp * ep):
@@ -657,13 +715,30 @@ class DpGrid:
         self.dp, self.sp, self.ep = dp, sp, ep
         self.tp = self.n // (dp * sp * ep)
         self.dp_attention, self.dp_local = dp_attention, dp_local
+        self.fabric = fabric if fabric is not None and fabric.spans else None
+        self.spans = self.fabric is not None
+        self.owner = [0] * self.n
+        if self.spans:
+            _check_spanning(self, self.fabric)
+            self.owner = [self.fabric.owner(f, self.n) for f in range(self.n)]
+        me = self.fabric.process_id if self.spans else 0
+        self.mine = [o == me for o in self.owner]
         self.cuda = self.devices[0].type == "cuda"
         self.cards: List[torch.device] = list(dict.fromkeys(self.devices))
         tp, home = self.tp, self.devices[0]
+
+        def procs(ranks):
+            return tuple(sorted({self.owner[f] for f in ranks}))
+
         # tps[d][e]: the TpGroup of ranks (d, 0, e, *); rows[d] = tps[d][0].
         self.tps = [[TpGroup([self.devices[self.flat(d, e, t)]
                               for t in range(tp)], home=home,
-                             own_first=(d, e) != (0, 0))
+                             own_first=(d, e) != (0, 0),
+                             mine=[self.mine[self.flat(d, e, t)]
+                                   for t in range(tp)],
+                             fabric=self.fabric,
+                             procs=procs([self.flat(d, e, t)
+                                          for t in range(tp)]))
                      for e in range(ep)] for d in range(dp)]
         self.rows = [g[0] for g in self.tps]
         self.eps = [[EpGroup([(self.tps[d][e], t) for e in range(ep)])
@@ -682,21 +757,37 @@ class DpGrid:
             self.devices)
         if len(self.places) != self.n:
             raise ValueError(f"{len(self.places)} places for {self.n} ranks")
+        # Another process's rank holds its own copies.
+        self.places = [p if self.mine[f] else ("process", self.owner[f])
+                       for f, p in enumerate(self.places)]
         self.attention = (self if ep == sp == 1 else _AttentionGrid(self))
         # K1 / K2 launches each rank made (the wrappers' counts, split by
         # the rank that called them; sp and ep index 0 attend).
         self.launches = [0] * self.n
+        # Cache writes whose copies live in other processes, queued by
+        # the step and exchanged at its end (models/llama._exchange_writes).
+        self.pending_writes: List[tuple] = []
+        if self.spans:
+            # Every process group a collective of this grid names, made
+            # in the same order on every process.
+            sets = [g.procs for row in self.tps for g in row]
+            self.fabric.prepare(sets + [self.fabric.world])
 
     @classmethod
     def for_mesh(cls, mesh: MeshConfig, primary: torch.device,
                  dp_attention: bool = False,
-                 dp_local: bool = False) -> "DpGrid":
+                 dp_local: bool = False, fabric=None) -> "DpGrid":
         """The grid of a mesh's dp, sp, ep and tp axes (tp alone: dp 1):
         rank 0 on `primary`, the engine's device, the ranks spread over
-        the visible cards, shared round-robin where there are fewer."""
-        return cls(default_rank_devices(mesh.dp * mesh.sp * mesh.ep * mesh.tp,
-                                        torch.device(primary)),
-                   mesh.dp, dp_attention, dp_local, ep=mesh.ep, sp=mesh.sp)
+        the visible cards, shared round-robin where there are fewer.
+        Spanning `fabric`'s processes, every rank of this process lies on
+        `primary`."""
+        n = mesh.dp * mesh.sp * mesh.ep * mesh.tp
+        devices = (default_rank_devices(n, torch.device(primary))
+                   if fabric is None or not fabric.spans
+                   else [torch.device(primary)] * n)
+        return cls(devices, mesh.dp, dp_attention, dp_local, ep=mesh.ep,
+                   sp=mesh.sp, fabric=fabric)
 
     def flat(self, d: int, e: int, t: int, s: int = 0) -> int:
         """The flat rank of (dp row d, sp index s, ep index e, tp slice
@@ -776,10 +867,89 @@ class DpGrid:
 
     def gather_rows(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Row d's `parts[d]` (on its rank 0) concatenated along dim 0 on
-        the caller's stream."""
-        moved = [self.home(self.flat(d, 0, 0), p)
+        the caller's stream.  Spanning processes: `parts[d]` lies on row
+        d's lead rank (None where this process has no rank of row d);
+        each row crosses from the first process that holds it, and every
+        process gets the whole."""
+        if not self.spans:
+            moved = [self.home(self.flat(d, 0, 0), p)
+                     for d, p in enumerate(parts)]
+            return moved[0] if len(moved) == 1 else torch.cat(moved, dim=0)
+        moved = [None if p is None else self.home(
+                     self.flat(d, 0, self.rows[d].lead), p)
                  for d, p in enumerate(parts)]
+        held = [min(g.procs) for g in self.rows]
+        if any(p is None for p in moved):
+            me = self.fabric.process_id
+            like = next(p for p in moved if p is not None)
+            per = [[d for d in range(self.dp) if held[d] == q]
+                   for q in self.fabric.world]
+            top = max(len(r) for r in per)
+            mine = [moved[d] for d in per[me]]
+            mine += [torch.zeros_like(like)] * (top - len(mine))
+            got = self.fabric.gather(torch.stack(mine), self.fabric.world)
+            moved = [got[held[d]][per[held[d]].index(d)]
+                     for d in range(self.dp)]
         return moved[0] if len(moved) == 1 else torch.cat(moved, dim=0)
+
+    def sum_world(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's `x` (on the caller's stream) summed with every
+        other process's, in process order (integer counts: exact in any
+        order)."""
+        if not self.spans:
+            return x
+        return torch.stack(self.fabric.gather(x, self.fabric.world)).sum(0)
+
+    def write_targets(self, f: int) -> List[int]:
+        """The attention ranks holding a copy that rank f's cache writes
+        land in: its tp slice's copies (plain dp), every copy of every
+        slot shard (dp-attention), its own shard (dp-local)."""
+        grid = self.attention
+        if grid.dp_local:
+            return [f]
+        if grid.dp_attention:
+            return [h for t in range(grid.tp) for h in grid.holders(t)]
+        return grid.holders(f % grid.tp)
+
+    def writes_cross(self, f: int) -> bool:
+        """True when some copy rank f writes lives in another process."""
+        return self.spans and any(not self.mine[h]
+                                  for h in self.write_targets(f))
+
+
+def _check_spanning(grid: "DpGrid", fabric) -> None:
+    """What a process-spanning grid runs: its ranks split evenly over the
+    processes, each tp group within one process or over whole processes'
+    shares, and neither an ep nor an sp axis (the all-to-all and the
+    ring hop between processes wait for ROADMAP.md A7.6).  Non-local
+    dp-attention reads a row's pages from every slot shard of its row,
+    so a row must lie in one process."""
+    N = fabric.num_processes
+    if grid.n % N:
+        raise ValueError(f"the grid's {grid.n} ranks must split evenly over "
+                         f"{N} processes")
+    k = grid.n // N
+    if grid.ep > 1:
+        raise ValueError(
+            f"ep={grid.ep} across {N} processes (the all-to-all between "
+            "processes) waits for ROADMAP.md A7.6; run ep within one "
+            "process")
+    if grid.sp > 1:
+        raise ValueError(
+            f"sp={grid.sp} across {N} processes (the ring hop between "
+            "processes) waits for ROADMAP.md A7.6; run sp within one "
+            "process")
+    if fabric.rig is not None and k != fabric.rig:
+        raise ValueError(f"the grid's {grid.n} ranks give each of {N} "
+                         f"processes {k}, not the CPU rig's {fabric.rig}")
+    if k % grid.tp and grid.tp % k:
+        raise ValueError(f"tp={grid.tp} must divide or be a multiple of the "
+                         f"{k} ranks a process")
+    if grid.dp_attention and not grid.dp_local and grid.tp > k:
+        raise ValueError(
+            f"dp_attention over a tp={grid.tp} row wider than a process's "
+            f"{k} ranks reads pages across processes on the gather path; "
+            "set dp_attention_local or keep each dp row in one process")
 
 
 class _AttentionGrid:

@@ -79,12 +79,16 @@ class Capability:
 
 
 def plane_capability(plane: PlaneSpec,
-                     mesh: Optional[MeshConfig] = None) -> Capability:
-    """THE capability table.  `mesh` None is the meshless engine.
+                     mesh: Optional[MeshConfig] = None,
+                     multihost: bool = False) -> Capability:
+    """THE capability table.  `mesh` None is the meshless engine;
+    `multihost`: the mesh spans processes (parallel/multihost.py).
 
     JAX's row "pallas paged decode is not wired into the pp stage scan"
     is not the port's: each pp stage attends its own pages through K1
-    and K2 (parallel/pipeline.py)."""
+    and K2 (parallel/pipeline.py).  Nor is its "pallas paged decode under
+    a multi-process mesh" row: each process runs K1 and K2 on its own
+    ranks, as a tp rank does in one process."""
     pp = mesh is not None and mesh.pp > 1
 
     def no(reason: str) -> Capability:
@@ -101,6 +105,10 @@ def plane_capability(plane: PlaneSpec,
             "live on any shard and the kernel's slot indexing cannot "
             "cross chips — set dp_attention_local (plain allocator) or "
             "drop use_pallas_decode for the gather path")
+    if pp and multihost:
+        return no("pipeline parallelism under a multi-process mesh is "
+                  "not wired yet (multihost v2 covers tp/dp/dp-attention "
+                  "with int8 and fused steps)")
     if plane.moe:
         if pp:
             return no(
@@ -116,28 +124,45 @@ def plane_capability(plane: PlaneSpec,
                 "expert dispatch shards tokens over dp×ep — the two "
                 "chunkings conflict; MoE prefill rides the padded or "
                 "packed plane")
-    if plane.spec and pp:
-        return no(
-            "speculative decode on the pp engine is declared "
-            "impossible: the stage program banks ONE sampled row "
-            "per microbatch, and the T=K+1 verify chunk needs "
-            "all-positions logits; drop --spec-decode or --pp")
-    if plane.role == "embed" and pp:
-        return no("embeddings are not wired for the pp engine "
-                  "(pipeline stages have no return_hidden path)")
-    if plane.role == "mm" and pp:
-        return no("prompt_embeds (multimodal) on the pp engine is "
-                  "not wired (stage step has no input-embeds "
-                  "variant)")
+    if plane.spec:
+        if pp:
+            return no(
+                "speculative decode on the pp engine is declared "
+                "impossible: the stage program banks ONE sampled row "
+                "per microbatch, and the T=K+1 verify chunk needs "
+                "all-positions logits; drop --spec-decode or --pp")
+        if multihost:
+            return no(
+                "speculative decode under a multi-process mesh is "
+                "loudly versioned out of the audited lockstep stream "
+                "(the host-side verify jit carries no multihost "
+                "shardings); drop --spec-decode or run single-process")
+    if plane.role == "embed":
+        if pp:
+            return no("embeddings are not wired for the pp engine "
+                      "(pipeline stages have no return_hidden path)")
+        if multihost:
+            return no("embeddings are not wired for multihost (the "
+                      "embed route isn't in the lockstep command "
+                      "stream)")
+    if plane.role == "mm":
+        if pp:
+            return no("prompt_embeds (multimodal) on the pp engine is "
+                      "not wired (stage step has no input-embeds "
+                      "variant)")
+        if multihost:
+            return no("prompt_embeds (multimodal) under a multi-process "
+                      "mesh is not in the lockstep command stream yet")
     if plane.role == "sp_prefill" and plane.dp_attention:
         return no("ring-SP prefill is not wired for dp_attention (the "
                   "sp step's cache specs conflict with slot sharding)")
     return Capability(True)
 
 
-def check_plane(plane: PlaneSpec, mesh: Optional[MeshConfig] = None) -> None:
+def check_plane(plane: PlaneSpec, mesh: Optional[MeshConfig] = None,
+                multihost: bool = False) -> None:
     """Raise the capability table's pointed error for impossible combos."""
-    cap = plane_capability(plane, mesh)
+    cap = plane_capability(plane, mesh, multihost)
     if not cap.ok:
         raise ValueError(cap.reason)
 
@@ -301,6 +326,8 @@ def _cut(t: torch.Tensor, cuts: tuple, parts: Dict[int, int],
         n = n or parts[axis]
         size = t.shape[axis] // n
         part = part.narrow(axis, index * size, size)
+    if device.type == "meta":
+        return torch.empty(part.shape, dtype=part.dtype, device=device)
     if junk_row and cuts and cuts[0][0] == 0:
         out = torch.zeros((part.shape[0] + 1,) + tuple(part.shape[1:]),
                           dtype=part.dtype, device=device)[:part.shape[0]]
@@ -323,6 +350,7 @@ def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
     # Every rank of sp index s > 0 takes its (d, t) piece: no spec names
     # sp, so it shares the copy of its place.
     sp = getattr(group, "sp", 1)
+    mine = getattr(group, "mine", None) or [True] * len(group.devices)
     shared: Dict[tuple, torch.Tensor] = {}
 
     def walk(t, s, r, path):
@@ -337,7 +365,9 @@ def shard_state(tree, specs, group, junk_rows: bool = False) -> List:
                  for axis, _, n in cuts if n is None}
         key = (path, places[r], idx)
         if key not in shared:
-            shared[key] = _cut(t, cuts, parts, group.devices[r], junk_rows)
+            # Another process's rank: its shape alone (a meta tensor).
+            dev = group.devices[r] if mine[r] else torch.device("meta")
+            shared[key] = _cut(t, cuts, parts, dev, junk_rows)
         return shared[key]
 
     return [walk(tree, specs, r, ()) for r in range(len(group.devices))]

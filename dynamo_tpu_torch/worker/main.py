@@ -143,13 +143,27 @@ checkpoint is read on the host and each rank's slice (a stage's layers)
 copied straight to its card, and a preset's weights are cut as they are
 drawn, so no card ever holds the whole model beside its slices.
 
-Not ported: multihost and lockstep.
+Multi-process lockstep (parallel/multihost.py, JAX's multihost worker):
+`--num-processes N --process-id P --coordinator HOST:PORT --lockstep
+HOST:PORT` runs one engine over N worker processes, every process given
+the same flags.  Process 0 serves (control plane, RPC, scheduler) and
+broadcasts each engine-thread mutation on the lockstep channel before it
+runs it; processes 1..N-1 build the same engine and replay the stream
+(`run_follower_rank`), registering nothing with the control plane.  The
+grid's ranks split process-major over the processes; the mesh must span
+them all.  The processes share `--device`'s card (gloo between them) or
+take a card each where the machine has N (`cuda:P`, nccl).
+`--multihost-cpu-devices N` is the CPU rig: N CPU ranks a process, gloo.
+Under multihost there is no device-direct transfer plane (blocks stage
+through the host), no QoS pressure hook, and the follower ranks exit
+when the leader stops; `/debug/stats` carries a `lockstep` block.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import os
 import signal
@@ -198,6 +212,7 @@ from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.service import LocalEngineClient
 from dynamo_tpu_torch.models.loader import resolve_model
+from dynamo_tpu_torch.parallel import multihost
 from dynamo_tpu_torch.parallel.mesh import MeshConfig
 from dynamo_tpu_torch.runtime.config import (
     apply_to_parser_defaults,
@@ -315,6 +330,20 @@ def parse_args(argv=None):
                         "descriptor + kv mode + role + features "
                         "(packed/spec/window8/dp_attention); overrides "
                         "--dp/--pp/--sp/--ep/--tp, --kv-quant and --role")
+    # Multi-process lockstep: every process takes the same flags; process
+    # 0 serves, 1..N-1 follow (parallel/multihost.py).
+    p.add_argument("--coordinator", default=None,
+                   help="the processes' rendezvous HOST:PORT (a TCP store "
+                        "process 0 serves; multihost: every process passes "
+                        "the same value)")
+    p.add_argument("--num-processes", type=int, default=1)
+    p.add_argument("--process-id", type=int, default=0)
+    p.add_argument("--lockstep", default=None,
+                   help="the leader's lockstep channel HOST:PORT (the "
+                        "followers connect; the leader binds the PORT)")
+    p.add_argument("--multihost-cpu-devices", type=int, default=0,
+                   help="CPU test rig: N CPU ranks in this process, gloo "
+                        "between the processes")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel degree (GPipe stage-rotated "
                         "step).  Decode rides the fused stage programs "
@@ -403,9 +432,11 @@ def parse_args(argv=None):
             apply_slice_spec(args)
         except ValueError as e:
             p.error(str(e))
-    if not args.control_plane:
+    if not args.control_plane and args.process_id == 0:
         p.error("--control-plane is required (flag, DYN_CONTROL_PLANE, "
                 "or dynamo.toml)")
+    if args.multihost_cpu_devices > 0:
+        args.device = "cpu"
     if args.mocker and args.role != "both":
         # The mocker has no KV bytes to serve or pull: a disagg role
         # would silently serve aggregated.
@@ -459,6 +490,9 @@ def build_mesh(args) -> MeshConfig:
     except ValueError as e:
         raise SystemExit(str(e)) from None
     ranks = mesh.size
+    if args.num_processes > 1:
+        _check_multihost_mesh(args, mesh)
+        return mesh
     if ranks > 1 and resolve_device(args.device).type == "cuda":
         import torch
 
@@ -469,9 +503,62 @@ def build_mesh(args) -> MeshConfig:
     return mesh
 
 
-def build_engine(args, kv_event_sink):
+def _check_multihost_mesh(args, mesh: MeshConfig) -> None:
+    """JAX's span rules: a multihost mesh must span every process (and,
+    in the port, split evenly over them, process-major)."""
+    N = args.num_processes
+    if mesh.size <= 1:
+        raise SystemExit(
+            "--num-processes > 1 needs parallelism degrees that span the "
+            "cluster (tp*dp*ep*sp*pp > 1); a meshless engine is "
+            "process-local by construction")
+    per = args.multihost_cpu_devices or max(1, mesh.size // N)
+    if mesh.size > per * N:
+        raise SystemExit(f"mesh {mesh.describe()} needs {mesh.size} devices; "
+                         f"the cluster has {per * N}")
+    if mesh.size <= per:
+        raise SystemExit(
+            f"mesh {mesh.describe()} fits rank 0's devices alone; multihost "
+            f"requires degrees that span all {N} processes' chips (raise "
+            "--tp/--dp)")
+    if mesh.size != per * N:
+        raise SystemExit(f"mesh {mesh.describe()}: its {mesh.size} ranks must "
+                         f"split evenly over {N} processes of {per}")
+
+
+def multihost_device(args) -> str:
+    """This process's card under multihost: `cuda:P` where the machine
+    has a card a process, else the card every process shares (then
+    gloo joins them)."""
+    dev = resolve_device(args.device)
+    if args.num_processes > 1 and dev.type == "cuda" and dev.index is None:
+        import torch
+
+        if torch.cuda.device_count() >= args.num_processes:
+            return f"cuda:{args.process_id}"
+    return args.device
+
+
+def join_processes(args):
+    """The multihost Fabric of this process (None for one process): the
+    rendezvous at `--coordinator` and the backend rule."""
+    if args.num_processes <= 1:
+        return None
+    if args.mocker:
+        raise SystemExit("--mocker has no multihost mode (no device state "
+                         "to span processes)")
+    if not args.coordinator:
+        raise SystemExit("--num-processes > 1 needs --coordinator HOST:PORT")
+    if args.multihost_cpu_devices > 0:
+        multihost.setup_cpu_rig(args.multihost_cpu_devices)
+    args.device = multihost_device(args)
+    return multihost.initialize(args.coordinator, args.num_processes,
+                                args.process_id, resolve_device(args.device))
+
+
+def build_engine(args, kv_event_sink, fabric=None):
     """(core, engine, card fields) for the flags; the engine is not
-    started yet."""
+    started yet.  `fabric`: the multihost processes' (join_processes)."""
     mesh = build_mesh(args)
     # sp alone is the meshless engine's ring: its state stays whole.
     sharded = mesh.size // mesh.sp > 1
@@ -494,7 +581,7 @@ def build_engine(args, kv_event_sink):
         speculative_ngram=args.spec_ngram, tp=mesh.tp, dp=mesh.dp,
         sp=mesh.sp, ep=mesh.ep, pp=mesh.pp,
         pp_microbatches=args.pp_microbatches,
-        dp_attention=args.dp_attention),
+        dp_attention=args.dp_attention, fabric=fabric),
         params=params, kv_event_sink=kv_event_sink)
     del params      # a sharded engine keeps its ranks' slices only
     load_kernels(core)
@@ -734,7 +821,8 @@ async def run(args) -> None:
     if slo_monitor is not None:
         slo_monitor.start(interval=args.slo_tick)
 
-    core = plane = fetcher = disagg = watchdog = None
+    core = plane = fetcher = disagg = watchdog = lockstep = None
+    fabric = join_processes(args)
     if args.mocker:
         from dynamo_tpu_torch.llm.mocker import MockEngine, MockEngineArgs
 
@@ -749,7 +837,19 @@ async def run(args) -> None:
         # A prefill worker's blocks are pulled by request, never routed
         # to: it publishes no KV events.
         core, engine, card_fields = build_engine(
-            args, None if args.role == "prefill" else kv_event_sink)
+            args, None if args.role == "prefill" else kv_event_sink,
+            fabric)
+        if fabric is not None:
+            # The followers connect before the engine thread runs a step:
+            # every mutation from then on rides the channel.
+            lockstep = multihost.LockstepLeader(
+                port=_split(args.lockstep)[1] if args.lockstep else 0,
+                num_followers=args.num_processes - 1)
+            logger.info("multihost leader: lockstep on :%d, waiting for "
+                        "%d follower(s)", lockstep.port,
+                        args.num_processes - 1)
+            await asyncio.to_thread(lockstep.wait_for_followers)
+            core._lockstep = lockstep
         await engine.start()
         # Stall watchdog: no step heartbeat for --watchdog-stall-s while
         # work is pending is a stall (event, counter, dump).
@@ -758,23 +858,26 @@ async def run(args) -> None:
                 recorder, lambda: core.has_work,
                 stall_s=args.watchdog_stall_s)
             watchdog.start()
-        # The KV data plane: every worker serves its blocks.
-        plane = dt.KvTransferPlane(engine)
-        plane.start()
+        # The KV data plane: every worker serves its blocks; a multihost
+        # worker's stage through the host (no device-direct plane: a
+        # peer would read one process's ranks alone).
         runtime.rpc.register(KV_BLOCKS_ENDPOINT,
                              make_kv_blocks_handler(engine))
-        runtime.rpc.register(dt.KV_OFFER_ENDPOINT,
-                             plane.make_offer_handler())
-        runtime.rpc.register(dt.KV_PULLED_ENDPOINT,
-                             plane.make_pulled_handler())
+        if fabric is None:
+            plane = dt.KvTransferPlane(engine)
+            plane.start()
+            runtime.rpc.register(dt.KV_OFFER_ENDPOINT,
+                                 plane.make_offer_handler())
+            runtime.rpc.register(dt.KV_PULLED_ENDPOINT,
+                                 plane.make_pulled_handler())
+            logger.info("device transfer plane on %s (%s)", plane.address,
+                        plane.transport_kind)
         # Admin and embeddings endpoints (a frontend's clear reaches the
         # prefill workers too).
         local = LocalEngineClient(engine)
         runtime.rpc.register(EMBED_ENDPOINT, embed_wire_handler(local))
         runtime.rpc.register(CLEAR_KV_ENDPOINT,
                              clear_kv_wire_handler(local))
-        logger.info("device transfer plane on %s (%s)", plane.address,
-                    plane.transport_kind)
 
         # Fleet prefix reuse, innermost: on a decode worker the pull runs
         # after a remote-prefill onboard, whose blocks are then resident.
@@ -803,8 +906,11 @@ async def run(args) -> None:
             if manager is not None:
                 manager.set_eviction_bias(slo_eviction_bias(
                     lambda: slo_monitor.last_max_burn))
-            core.scheduler.qos_pressure_fn = (
-                lambda: slo_monitor.last_max_burn)
+            # Not under multihost: the followers never see the leader's
+            # burn, and a preempt on process 0 alone would part them.
+            if fabric is None:
+                core.scheduler.qos_pressure_fn = (
+                    lambda: slo_monitor.last_max_burn)
 
     # The drain wrapper is the outermost serving stage, so a drain
     # cancels the whole chain beneath it and ends each wire stream with
@@ -873,7 +979,8 @@ async def run(args) -> None:
                else repr(args.model_name))
     backend = ("mocker" if core is None else
                f"{args.model}, role {args.role}, on {core.device}, kv_quant "
-               f"{core.cache_cfg.kv_quant}, transfer {plane.transport_kind}")
+               f"{core.cache_cfg.kv_quant}, transfer "
+               f"{plane.transport_kind if plane is not None else 'host'}")
     print(f"worker instance {instance.instance_id} serving {serving} "
           f"({backend}) at {instance.address}", flush=True)
 
@@ -974,6 +1081,8 @@ async def run(args) -> None:
     if plane is not None:
         plane.stop()
     await engine.stop()
+    if lockstep is not None:
+        lockstep.close()        # broadcasts "stop": the followers exit
     await runtime.shutdown()
     await cp.close()
 
@@ -999,6 +1108,39 @@ def _split(addr: str):
     return host, int(port)
 
 
+def run_follower_rank(args) -> None:
+    """Processes 1..N-1 of a multihost worker: build the same engine as
+    the leader (cache mode, MoE mode, window and all) and replay its
+    lockstep stream; nothing is registered with the control plane."""
+    if not args.lockstep:
+        raise SystemExit("follower ranks need --lockstep HOST:PORT")
+    fabric = join_processes(args)
+    try:
+        core, _engine, _card = build_engine(args, None, fabric)
+        host, port = _split(args.lockstep)
+        chan = multihost.LockstepFollower(host, port)
+        print(f"worker rank {args.process_id}/{args.num_processes} "
+              f"following lockstep at {args.lockstep} "
+              f"({fabric.backend})", flush=True)
+        multihost.run_follower(core, chan)
+        from dynamo_tpu_torch.ops import cuda as kernels
+
+        print(f"worker rank {args.process_id} done " + json.dumps({
+            "ops": chan.replayed, "requests_left": sorted(core._requests),
+            "launches": kernels.launch_counts(),
+            "lockstep": core.lockstep_stats()}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
-    asyncio.run(run(parse_args(argv)))
+    args = parse_args(argv)
+    if args.num_processes > 1 and args.process_id > 0:
+        run_follower_rank(args)     # a follower: the shadow engine
+        return
+    try:
+        asyncio.run(run(args))
+    finally:
+        if args.num_processes > 1:
+            multihost.shutdown()

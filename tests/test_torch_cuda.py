@@ -1033,6 +1033,46 @@ def test_pp_across_two_cards_matches_one_card(dev):
     assert torch.equal(ex(cache, pages + 3), blocks)
 
 
+def test_multihost_nccl_two_cards_matches_one_process_grid(dev):
+    """Two processes on two cards (parallel/multihost.py, nccl: a card a
+    process), tp 2 and dp 2 split over them: the packed prefill's and two
+    decode steps' logits and a greedy window's tokens (K1 / K2 on each
+    process's rank) equal the one-process grid's bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards (torch.cuda.device_count() < 2)")
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for dp, tp in ((1, 2), (2, 1)):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(root, "tests", "torch_mh_runner.py"),
+             "logits", role, str(port), "bf16", "-", str(dp), str(tp),
+             "cuda"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for role in ("follower", "leader")]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        assert [p.returncode for p in procs] == [0, 0], "\n".join(outs)
+        lines = dict(line.split(" ", 1) for line in outs[1].splitlines()
+                     if line.startswith(("LOGITS_EQUAL", "LEADER_STATS")))
+        assert json.loads(lines["LOGITS_EQUAL"]) == [True] * 4
+        stats = json.loads(lines["LEADER_STATS"])
+        assert stats["backend"] == "nccl" and stats["collectives"] > 0
+        assert stats["launches"][0] > 0
+
+
 PAD = 8192   # a pad position: past every real key
 
 

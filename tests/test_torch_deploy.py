@@ -7,8 +7,8 @@ control plane) render, through each package's launcher parser, to the
 same manifests except for what the port changes on purpose: the modules
 run are the port's, a worker asks for `nvidia.com/gpu` where JAX asks for
 `google.com/tpu`, and no `JAX_PLATFORMS` is set.  Every file is valid
-YAML; a worker group of several processes is refused; the CLI writes
-the files.
+YAML; a worker group of several processes renders JAX's StatefulSet and
+headless Service (and no Deployment); the CLI writes the files.
 
 Tolerance: none; the manifests are compared as parsed documents.
 """
@@ -109,12 +109,43 @@ def test_files_are_valid_yaml_and_match_jax(tmp_path):
         assert cm["data"]["graph.toml"] == open(path).read()
 
 
-def test_multiprocess_worker_group_is_refused():
-    spec = GraphSpec(namespace="mh", services=[ServiceSpec(
-        name="decode", module="dynamo_tpu_torch.worker",
-        args=["--model", "llama-3-1b", "--num-processes", "2"])])
-    with pytest.raises(ValueError, match="single-process"):
-        tdeploy.render_graph(spec, "img:1")
+def _mh_spec(module, procs):
+    return GraphSpec(namespace="mh", services=[ServiceSpec(
+        name="decode", module=module,
+        args=["--model", "llama-3-1b", "--tp", "2", "--num-processes",
+              str(procs), "--process-id", "0"])])
+
+
+@pytest.mark.parametrize("procs", [2, 4])
+def test_multiprocess_worker_group_renders_jax_statefulset(procs):
+    """A worker group of several processes renders as one StatefulSet of
+    its processes behind a headless Service, and no worker Deployment.
+    Both equal JAX's renderer's but for the module run and the device
+    resource; the process id comes from the pod's ordinal."""
+    got = tdeploy.render_graph(_mh_spec("dynamo_tpu_torch.worker", procs),
+                               "img:1", gpus_per_worker=1)
+    want = jdeploy.render_graph(_mh_spec("dynamo_tpu.worker", procs),
+                                "img:1", tpu_chips_per_worker=1)
+    kinds = [(d["kind"], d["metadata"]["name"]) for d in got]
+    assert ("Deployment", "dynamo-mh-decode") not in kinds
+    assert ("Service", "dynamo-mh-decode-ranks") in kinds
+    norm = _normalize(got, False)
+    for doc in norm:
+        for c in doc["spec"].get("template", {}).get("spec", {}).get(
+                "containers", []):
+            c["args"] = [a.replace("dynamo_tpu_torch.", "dynamo_tpu.")
+                         for a in c["args"]]
+    assert norm == _normalize(want, True)
+    sts = next(d for d in got if d["kind"] == "StatefulSet")
+    assert sts["spec"]["replicas"] == procs
+    c = sts["spec"]["template"]["spec"]["containers"][0]
+    assert c["resources"] == {"limits": {"nvidia.com/gpu": "1"}}
+    cmd = c["args"][0]
+    assert cmd.startswith("exec python -m dynamo_tpu_torch.worker ")
+    assert "--coordinator dynamo-mh-decode-0.dynamo-mh-decode-ranks:9876" in cmd
+    assert "--lockstep dynamo-mh-decode-0.dynamo-mh-decode-ranks:9877" in cmd
+    assert cmd.endswith("--process-id ${HOSTNAME##*-}")
+    assert cmd.count("--process-id") == 1
 
 
 def test_cli_writes_manifests(tmp_path, capsys):

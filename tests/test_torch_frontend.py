@@ -178,6 +178,56 @@ def test_logprobs_name_token_ids_on_request():
         for t in ids]
 
 
+def test_stream_close_cancels_a_silent_stream(monkeypatch):
+    """A streaming client that closes its connection while its tokens
+    decode to no text (nothing is written, so no write can fail: a
+    random-weight model on a byte tokenizer) still cancels the engine
+    request at once, as JAX's frontend does on the connection's loss."""
+    from dynamo_tpu_torch.llm import backend
+
+    def silent(self, ids):
+        self.completion_tokens += len(ids)
+        return backend.TextDelta()
+
+    monkeypatch.setattr(backend.StreamDetokenizer, "push_tokens", silent)
+    args = parse_args(["--model", "tiny-test", "--model-name", "m",
+                       "--device", "cpu"])
+    max_tokens = 450
+
+    async def main():
+        handle, core, shutdown = await build_model_handle(args)
+        models = ModelManager()
+        models.register(handle)
+        svc = HttpService(models)
+        port = await svc.start("127.0.0.1", 0)
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            body = json.dumps(_chat("hello", max_tokens=max_tokens,
+                                    stream=True)).encode()
+            writer.write(b"POST /v1/chat/completions HTTP/1.1\r\n"
+                         b"Content-Type: application/json\r\n"
+                         b"Content-Length: %d\r\n\r\n" % len(body) + body)
+            await writer.drain()
+            await reader.readuntil(b"\r\n\r\n")
+            role = await reader.readline()          # the role chunk
+            writer.close()
+            deadline = time.monotonic() + 30
+            while svc.timings[-1].duration_s is None or core._requests:
+                assert time.monotonic() < deadline
+                await asyncio.sleep(0.01)
+            return role, svc.timings[-1], core
+        finally:
+            await svc.stop()
+            await shutdown()
+
+    role, timing, core = asyncio.run(main())
+    assert role.startswith(b"data: ")
+    # Closed before its end: no finish reached the client.
+    assert timing.finish_reason is None
+    assert timing.completion_tokens < max_tokens
+    assert core.counters.decode_tokens_emitted < max_tokens
+
+
 def test_frontend_module_serves_on_cpu(tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
